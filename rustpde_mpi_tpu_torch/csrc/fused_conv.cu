@@ -8,7 +8,8 @@
 //   out   = Fx @ total @ Fy^T, only the 2/3-rule kept block, zero elsewhere
 //
 // The TPU kernel accumulates the y-syntheses over a sequential grid axis in
-// VMEM.  Here the wrapper (ops/fused_conv.py) runs four launches:
+// VMEM.  Here the wrapper (ops/fused_conv.py) runs four launches, of which
+// 1, 3 and 4 go to the generic GEMM of fused_stage.cu (rp_gemm_f64/f32):
 //
 //   1. A1 = Gx1 @ vhat, A0 = Gx0 @ vhat   (one grid, blockIdx.z, shared B)
 //   2. conv_dual_kernel: two accumulators per output tile, A1 @ Gy0^T and
@@ -85,14 +86,6 @@ int launch_dual(int n0, int n1, int k, const void* a1, const void* a0, int lda,
 }
 
 }  // namespace rp
-
-extern "C" int rp_conv_gemm_f64(const RpJob* jobs, int njobs, void* stream) {
-  return rp::launch_jobs<double>(jobs, njobs, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int rp_conv_gemm_f32(const RpJob* jobs, int njobs, void* stream) {
-  return rp::launch_jobs<float>(jobs, njobs, static_cast<cudaStream_t>(stream));
-}
 
 extern "C" int rp_conv_dual_f64(int n0, int n1, int k, const void* a1,
                                 const void* a0, int lda, const void* g0t,

@@ -35,7 +35,7 @@ MAX_JOBS = 4
 
 
 class RpJob(ctypes.Structure):
-    """Mirror of ``struct RpJob`` in ``csrc/tile_gemm.cuh``: one output of
+    """Mirror of ``struct RpJob`` in ``csrc/fused_stage.cu``: one output of
     one launch of the generic tiled GEMM,
     ``C[:M, :N] = ((sum_t A[t] @ B[t]) * E + F) * mask``, zero elsewhere in
     ``C[:Mout, :Nout]``."""
@@ -68,14 +68,12 @@ _JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _P], _I)
 _DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P], _I)
 _SIGNATURES = {
     "fused_conv": {
-        "rp_conv_gemm_f64": _JOBS_SIG,
-        "rp_conv_gemm_f32": _JOBS_SIG,
         "rp_conv_dual_f64": _DUAL_SIG,
         "rp_conv_dual_f32": _DUAL_SIG,
     },
     "fused_stage": {
-        "rp_stage_gemm_f64": _JOBS_SIG,
-        "rp_stage_gemm_f32": _JOBS_SIG,
+        "rp_gemm_f64": _JOBS_SIG,
+        "rp_gemm_f32": _JOBS_SIG,
     },
 }
 
@@ -165,6 +163,13 @@ def check(rc: int, what: str) -> None:
 def stream_handle(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as a pointer value."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def gemm(dtype):
+    """The generic tiled GEMM's entry point for ``dtype`` (f64 or f32), from
+    the ``fused_stage`` library; both fused wrappers launch it."""
+    lib = load("fused_stage")
+    return lib.rp_gemm_f64 if dtype == torch.float64 else lib.rp_gemm_f32
 
 
 def job(out, terms, *, M, N, Mout=None, Nout=None, E=None, F=None, mask=None) -> RpJob:

@@ -10,7 +10,8 @@ velocities ``ux``, ``uy``:
 
 which is the dealiased ``u . grad(v)`` in the scratch space's spectral
 storage.  On a CUDA tensor :meth:`FusedConv.apply` runs the hand-written
-kernels of ``csrc/fused_conv.cu`` (four launches, see that file) and adds
+kernels of ``csrc/fused_conv.cu`` (four launches, three of them of the
+generic GEMM of ``csrc/fused_stage.cu``; see fused_conv.cu) and adds
 one to ``FusedConv.launches``; on a CPU tensor it runs
 :meth:`FusedConv.plain`.  Any other device raises.
 """
@@ -119,9 +120,8 @@ class FusedConv:
 
     def _launch(self, ux, uy, vhat, bc_dx, bc_dy) -> torch.Tensor:
         lib = _build.load("fused_conv")
-        f64 = self.dtype == torch.float64
-        gemm = lib.rp_conv_gemm_f64 if f64 else lib.rp_conv_gemm_f32
-        dual = lib.rp_conv_dual_f64 if f64 else lib.rp_conv_dual_f32
+        gemm = _build.gemm(self.dtype)
+        dual = lib.rp_conv_dual_f64 if self.dtype == torch.float64 else lib.rp_conv_dual_f32
         kw = dict(device=self.device, dtype=self.dtype)
         nx, ny, my = self.nx, self.ny, self.my
         # 1. A1 = Gx1 @ vhat, A0 = Gx0 @ vhat in one grid

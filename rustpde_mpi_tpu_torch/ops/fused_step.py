@@ -152,8 +152,7 @@ class FusedStage:
         return m
 
     def _launch(self, xs) -> torch.Tensor:
-        lib = _build.load("fused_stage")
-        fn = lib.rp_stage_gemm_f64 if self.dtype == torch.float64 else lib.rp_stage_gemm_f32
+        fn = _build.gemm(self.dtype)
         kw = dict(device=self.device, dtype=self.dtype)
         r0, q1 = self.r0, self.q1
         # 1. Y_t = L_t @ x_t, every term in one grid

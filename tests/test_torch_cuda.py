@@ -38,8 +38,7 @@ def _rel(got, want):
 def test_generic_gemm_ragged_jobs(device, dtype):
     """Ragged M, N, K (no multiple of a tile), several jobs of different
     shapes in one launch, every epilogue, and the zero fill to Mout x Nout."""
-    lib = _build.load("fused_stage")
-    fn = lib.rp_stage_gemm_f64 if dtype == torch.float64 else lib.rp_stage_gemm_f32
+    fn = _build.gemm(dtype)
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def rand(*shape):

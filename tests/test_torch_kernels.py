@@ -11,6 +11,7 @@ in another order.  The kernels themselves run only on a CUDA card
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -197,8 +198,20 @@ def test_library_named_by_source_hash(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+def test_signatures_name_each_libraries_entry_points():
+    """Every C entry point of a source has a ctypes signature and each is
+    exported by exactly one library."""
+    seen = []
+    for name in _build.KERNELS:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        exported = re.findall(r'extern "C" int (\w+)\(', text)
+        assert sorted(exported) == sorted(_build._SIGNATURES[name]), name
+        seen += exported
+    assert len(seen) == len(set(seen))
+
+
 def test_job_struct_mirrors_the_c_layout():
-    """``RpJob`` in csrc/tile_gemm.cuh: four pointers, two arrays of four
+    """``RpJob`` in csrc/fused_stage.cu: four pointers, two arrays of four
     pointers, then 21 ints, padded to pointer alignment."""
     p, i = ctypes.sizeof(ctypes.c_void_p), ctypes.sizeof(ctypes.c_int)
     raw = 12 * p + 21 * i
@@ -206,7 +219,7 @@ def test_job_struct_mirrors_the_c_layout():
     assert _build.RpJob.M.offset == 12 * p
     assert _build.RpJob.ldm.offset == 12 * p + 20 * i
     names = [f[0] for f in _build.RpJob._fields_]
-    text = (_build.CSRC / "tile_gemm.cuh").read_text()
+    text = (_build.CSRC / "fused_stage.cu").read_text()
     body = text[text.index("struct RpJob {"):text.index("};", text.index("struct RpJob {"))]
     pos = [body.index(f" {n}") for n in names]
     assert pos == sorted(pos), "field order differs from the C struct"

@@ -241,22 +241,24 @@ def test_dtype_policy():
 # -- state carried across ---------------------------------------------------------
 
 
-def test_convert_reads_the_reference_sep_layout(monkeypatch):
+def test_convert_reads_the_reference_sep_layout():
     """A state stored in the JAX package's parity-separated TPU layout loads
-    into the port in natural order."""
+    into the port in natural order.  The sep-layout state is each field's
+    physical values taken forward by the JAX package's own sep-layout
+    ``Space2`` (``sep=True``, matmul transforms)."""
     n = 33
     nat = rp.Navier2D(n, n, 1e4, 1.0, 5e-3, 1.0, "rbc", periodic=False)
     nat.init_random(0.1, seed=4)
-    with monkeypatch.context() as mp:
-        mp.setenv("RUSTPDE_FORCE_TPU_PATH", "1")
-        sep = rp.Navier2D(n, n, 1e4, 1.0, 5e-3, 1.0, "rbc", periodic=False)
-        sep.init_random(0.1, seed=4)
-    assert sep.velx_space.sep == (True, True) and nat.velx_space.sep == (False, False)
+    arrays = {}
+    for f in convert.STATE_FIELDS:
+        space = getattr(nat, f"{f}_space")
+        sep = jb.Space2(*space.bases, method="matmul", sep=True)
+        assert sep.sep == (True, True) and space.sep == (False, False)
+        arrays[f] = np.asarray(sep.forward(space.backward(getattr(nat.state, f))))
     model = pt.Navier2D(n, n, 1e4, 1.0, 5e-3, 1.0, "rbc", device="cpu")
-    arrays = {f: np.asarray(getattr(sep.state, f)) for f in convert.STATE_FIELDS}
     convert.state_from_numpy(model, arrays, sep=(True, True))
     got = convert.state_to_numpy(model)
-    for f in ("temp", "velx", "vely"):
+    for f in convert.STATE_FIELDS:
         want = np.asarray(getattr(nat.state, f))
         _close(got[f], want, 1e-13, scale=float(np.max(np.abs(want))))
     with pytest.raises(ValueError, match="shape"):
