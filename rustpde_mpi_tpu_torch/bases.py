@@ -175,11 +175,12 @@ class Space2:
     """Tensor product of two bases (axis 0 = x, axis 1 = y) on one device in
     one dtype.  Arrays are ``(..., n_x, n_y)`` physical or ``(..., m_x,
     m_y)`` spectral; leading batch dimensions broadcast through the matrix
-    products."""
+    products.  ``device`` goes through :func:`..config.resolve_device`, so
+    ``"cuda"`` names the current card (and raises without one)."""
 
     def __init__(self, base_x: Base, base_y: Base, *, device, dtype):
         self.bases = (base_x, base_y)
-        self.device = torch.device(device)
+        self.device = config.resolve_device(device)
         self.dtype = config.check_dtype(dtype)
         self._mats: dict = {}
 
@@ -281,3 +282,18 @@ class Space2:
         out = vhat.clone()
         out[..., 0, 0] = 0.0
         return out
+
+
+def fused_projection_gradient(space_out: Space2, space_in: Space2, deriv) -> tuple:
+    """Per-axis device matrices that apply
+    ``space_out.from_ortho(space_in.gradient(., deriv))`` as one matrix
+    product per axis: ``P_out @ D^order @ S_in`` (the JAX package's function
+    of the same name, as one dense matrix per axis; the pressure-projection
+    velocity correction of the dense step).  The result is
+    ``M0 @ v @ M1^T``, not yet divided by the scale."""
+    mats = []
+    for axis, order in enumerate(deriv):
+        b_out, b_in = space_out.bases[axis], space_in.bases[axis]
+        mat = b_out.projection @ b_in.gradient_matrix(order)
+        mats.append(config.to_device(mat, space_out.device, space_out.dtype))
+    return tuple(mats)

@@ -1,11 +1,23 @@
 """Navier2D — 2-D Boussinesq Rayleigh-Benard DNS in a confined cell.
 
 Counterpart of the JAX package's ``models/navier.py`` for the confined
-(Chebyshev x Chebyshev) cell with ``rbc`` boundary conditions, running the
-fused route of the step: per step three fused convection chains
-(:mod:`..ops.fused_conv`) and seven fused implicit stages
-(:mod:`..ops.fused_step`), which launch the hand-written CUDA kernels on a
-CUDA device and run their plain PyTorch versions on the CPU.
+(Chebyshev x Chebyshev) cell with ``rbc`` boundary conditions.  Two routes
+of each half of the step, chosen by constructor arguments (the JAX
+package's ``RUSTPDE_CONV_KERNEL`` / ``RUSTPDE_STEP_KERNEL``, its
+``"pallas"`` being ``"fused"`` here):
+
+* ``conv_kernel="fused"``: three fused convection chains a step
+  (:mod:`..ops.fused_conv`); ``"dense"``: the derivative syntheses, the
+  products and the dealiased forward transform as plain matrix products.
+* ``step_kernel="fused"``: seven fused implicit stages a step
+  (:mod:`..ops.fused_step`); ``"dense"``: the JAX package's default step
+  on the solver objects of :mod:`..solver` (ADI Helmholtz for the
+  velocities and the temperature, the tensor Poisson solver for the
+  pseudo-pressure), whose banded substitutions run the kernel of
+  :mod:`..ops.banded_solve`, seven launches a step.
+
+Each kernel runs as hand-written CUDA on a CUDA device and as its plain
+PyTorch version on the CPU.
 
 Numerical scheme (as the JAX package):
 
@@ -24,10 +36,11 @@ import numpy as np
 import torch
 
 from .. import config
-from ..bases import Space2, cheb_dirichlet, cheb_neumann, chebyshev
+from ..bases import Space2, cheb_dirichlet, cheb_neumann, chebyshev, fused_projection_gradient
 from ..field import average_weights, norm_l2
 from ..ops.fused_conv import build_model_convs
 from ..ops.fused_step import build_model_step
+from ..solver import HholtzAdi, Poisson
 from . import boundary_conditions as bcs
 from . import functions as fns
 from .campaign import CampaignModelBase
@@ -49,15 +62,21 @@ class Navier2D(CampaignModelBase):
     Parameters follow the JAX package (nx, ny, ra, pr, dt, aspect, bc);
     ``bc`` must be ``"rbc"``.  ``device`` defaults to ``"cuda"`` and raises
     without a card unless ``"cpu"`` is passed; ``dtype`` is float64 or
-    float32."""
+    float32.  ``conv_kernel`` and ``step_kernel`` are each ``"fused"`` (the
+    default) or ``"dense"`` (see the module docstring)."""
 
     observable_names = ("nu", "nuvol", "re", "div")
 
     def __init__(self, nx: int, ny: int, ra: float, pr: float, dt: float,
                  aspect: float, bc: str = "rbc", *, device=None,
-                 dtype=config.DEFAULT_DTYPE):
+                 dtype=config.DEFAULT_DTYPE, conv_kernel: str = "fused",
+                 step_kernel: str = "fused"):
         if bc != "rbc":
             raise ValueError(f"boundary condition type {bc!r} is not ported (only 'rbc')")
+        for name, value in (("conv_kernel", conv_kernel), ("step_kernel", step_kernel)):
+            if value not in ("fused", "dense"):
+                raise ValueError(f"{name} must be 'fused' or 'dense', got {value!r}")
+        self.conv_kernel, self.step_kernel = conv_kernel, step_kernel
         self.device = config.resolve_device(device)
         self.dtype = config.check_dtype(dtype)
         self.nx, self.ny = nx, ny
@@ -84,20 +103,46 @@ class Navier2D(CampaignModelBase):
         self._w1 = config.to_device(average_weights(ys), **kw)
 
         self._build_bc_fields(xs, ys)
-        self._convs = build_model_convs(self)
-        self._stages = build_model_step(self)
+        self._convs = build_model_convs(self) if conv_kernel == "fused" else None
+        if conv_kernel == "dense":
+            self._dealias = config.to_device(self.field_space.dealias_mask(), **kw)
+        self._stages = build_model_step(self) if step_kernel == "fused" else None
+        if step_kernel == "dense":
+            # implicit solvers, as the JAX package builds them; velx and vely
+            # share one solver (identical operator)
+            sx2, sy2 = self.scale[0] ** 2, self.scale[1] ** 2
+            self.solver_velx = HholtzAdi(self.velx_space, (dt * nu / sx2, dt * nu / sy2))
+            self.solver_vely = self.solver_velx
+            self.solver_temp = HholtzAdi(self.temp_space, (dt * ka / sx2, dt * ka / sy2))
+            self.solver_pres = Poisson(self.pseu_space, (1.0 / sx2, 1.0 / sy2))
+            self._proj_grad = (
+                fused_projection_gradient(self.velx_space, self.pseu_space, (1, 0))
+                + fused_projection_gradient(self.vely_space, self.pseu_space, (0, 1)))
         self.state = NavierState(*(
             space.ndarray_spectral() for _, space in self._state_fields()
         ))
 
     @classmethod
-    def new_confined(cls, nx, ny, ra, pr, dt, aspect, bc="rbc", *, device=None,
-                     dtype=config.DEFAULT_DTYPE) -> "Navier2D":
+    def new_confined(cls, nx, ny, ra, pr, dt, aspect, bc="rbc", **kwargs) -> "Navier2D":
         """Chebyshev x Chebyshev cell with the random initial condition of
-        the JAX package's ``new_confined`` (amplitude 0.1, seed 0)."""
-        model = cls(nx, ny, ra, pr, dt, aspect, bc, device=device, dtype=dtype)
+        the JAX package's ``new_confined`` (amplitude 0.1, seed 0); keyword
+        arguments go to the constructor."""
+        model = cls(nx, ny, ra, pr, dt, aspect, bc, **kwargs)
         model.init_random(0.1)
         return model
+
+    def kernels(self) -> dict:
+        """``{kernel name: [wrappers]}`` of the kernels this model's step
+        launches, each wrapper once, with its ``launches`` counter."""
+        out = {}
+        if self._convs is not None:
+            out["fused_conv"] = list(self._convs.values())
+        if self._stages is not None:
+            out["fused_stage"] = list(self._stages.values())
+        if self.step_kernel == "dense":
+            solvers = (self.solver_velx, self.solver_temp, self.solver_pres)
+            out["banded_solve"] = [k for s in solvers for k in s.kernels()]
+        return out
 
     def _state_fields(self) -> list:
         return [
@@ -154,13 +199,23 @@ class Navier2D(CampaignModelBase):
     # -- the time step -------------------------------------------------------
 
     def _conv(self, ux, uy, space, vhat, with_bc=False):
-        """u . grad(v), dealiased, in scratch-ortho space (fused chain)."""
-        fc = self._convs[id(space)]
+        """u . grad(v), dealiased, in scratch-ortho space: the fused chain,
+        or the same chain as plain matrix products."""
+        if self._convs is not None:
+            fc = self._convs[id(space)]
+            if with_bc:
+                return fc.apply(ux, uy, vhat, self._tempbc_dx, self._tempbc_dy)
+            return fc.apply(ux, uy, vhat)
+        dvdx = space.backward_gradient(vhat, (1, 0), self.scale)
+        dvdy = space.backward_gradient(vhat, (0, 1), self.scale)
+        total = ux * dvdx + uy * dvdy
         if with_bc:
-            return fc.apply(ux, uy, vhat, self._tempbc_dx, self._tempbc_dy)
-        return fc.apply(ux, uy, vhat)
+            total = total + ux * self._tempbc_dx + uy * self._tempbc_dy
+        return self.field_space.forward(total) * self._dealias
 
     def _step(self, state: NavierState) -> NavierState:
+        if self._stages is None:
+            return self._step_dense(state)
         st = self._stages
         sp_u, sp_v, sp_t, sp_q = self.velx_space, self.vely_space, self.temp_space, self.pseu_space
         temp, velx, vely, pres = state.temp, state.velx, state.vely, state.pres
@@ -175,6 +230,42 @@ class Navier2D(CampaignModelBase):
         vely_n = vely_n - st["projy"].apply(pseu_n)
         pres_n = pres - self.params["nu"] * div + sp_q.to_ortho(pseu_n) / self.dt
         temp_n = st["temp"].apply(temp, self._conv(ux, uy, sp_t, temp, with_bc=True))
+        return NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
+
+    def _step_dense(self, state: NavierState) -> NavierState:
+        """The JAX package's default step: right-hand sides in ortho space,
+        then the implicit solves through the solver objects."""
+        sp_u, sp_v, sp_t = self.velx_space, self.vely_space, self.temp_space
+        sp_p, sp_q = self.pres_space, self.pseu_space
+        dt, scale, nu = self.dt, self.scale, self.params["nu"]
+        temp, velx, vely, pres = state.temp, state.velx, state.vely, state.pres
+        temp_ortho = sp_t.to_ortho(temp)
+        # buoyancy (full ortho space, includes the lift field)
+        that = temp_ortho + self.tempbc_ortho
+        ux = sp_u.backward_fast(velx)
+        uy = sp_v.backward_fast(vely)
+        # horizontal momentum
+        rhs = sp_u.to_ortho(velx)
+        rhs = rhs - dt * sp_p.gradient(pres, (1, 0), scale)
+        rhs = rhs - dt * self._conv(ux, uy, sp_u, velx)
+        velx_n = self.solver_velx.solve(rhs)
+        # vertical momentum + buoyancy
+        rhs = sp_v.to_ortho(vely)
+        rhs = rhs - dt * sp_p.gradient(pres, (0, 1), scale)
+        rhs = rhs + dt * that
+        rhs = rhs - dt * self._conv(ux, uy, sp_v, vely)
+        vely_n = self.solver_vely.solve(rhs)
+        # pressure projection
+        div = sp_u.gradient(velx_n, (1, 0), scale) + sp_v.gradient(vely_n, (0, 1), scale)
+        pseu_n = sp_q.pin_zero_mode(self.solver_pres.solve(div))
+        gx0, gx1, gy0, gy1 = self._proj_grad
+        velx_n = velx_n - torch.matmul(torch.matmul(gx0, pseu_n), gx1.T) / scale[0]
+        vely_n = vely_n - torch.matmul(torch.matmul(gy0, pseu_n), gy1.T) / scale[1]
+        pres_n = pres - nu * div + sp_q.to_ortho(pseu_n) / dt
+        # temperature
+        rhs = temp_ortho + self._tempbc_diff
+        rhs = rhs - dt * self._conv(ux, uy, sp_t, temp, with_bc=True)
+        temp_n = self.solver_temp.solve(rhs)
         return NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
 
     # -- observables ---------------------------------------------------------

@@ -23,7 +23,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("fused_conv", "fused_stage")
+KERNELS = ("banded_solve", "fused_conv", "fused_stage")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -65,8 +65,14 @@ class RpJob(ctypes.Structure):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _P], _I)
+_L = ctypes.c_longlong
 _DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P], _I)
+_BANDED_SIG = ([_I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _L, _L, _P, _L, _L, _L, _P], _I)
 _SIGNATURES = {
+    "banded_solve": {
+        "rp_banded_solve_f64": _BANDED_SIG,
+        "rp_banded_solve_f32": _BANDED_SIG,
+    },
     "fused_conv": {
         "rp_conv_dual_f64": _DUAL_SIG,
         "rp_conv_dual_f32": _DUAL_SIG,

@@ -1,0 +1,138 @@
+"""Banded and dense axis solvers of the implicit solves.
+
+Counterpart of the JAX package's ``ops/banded.py`` for Chebyshev axes:
+
+* :func:`banded_lu_factor` — LU (no pivoting) of banded matrices on the
+  host in numpy f64, batched over leading dims, with the JAX package's
+  arithmetic and factor layout.  The elimination runs on the band only
+  (:func:`band_lu_factor`), which stays exact because an unpivoted LU of a
+  banded matrix has no fill outside the band; it lets the tensor solver
+  factor one matrix per eigenvalue lane without a dense ``(lanes, n, n)``
+  batch.
+* :class:`BandedSolver` — the forward/backward substitution along one axis
+  of a device tensor, through the wrapper of the hand-written CUDA kernel
+  (:class:`..ops.banded_solve.BandedSolve`).  On the card the recurrence
+  *is* the kernel, so the JAX package's ``method="pallas"`` selects this
+  class too.
+* :class:`DenseSolver` — the precomputed dense inverse applied with
+  ``torch.matmul`` along the axis.
+
+The diagonal (Fourier) solver and the parity-separated adapter wait for the
+periodic layouts.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..config import to_device
+from .banded_solve import BandedSolve
+
+
+def dense_to_band(dense: np.ndarray, p: int, q: int) -> np.ndarray:
+    """Band storage ``(..., n, p+q+1)`` of ``dense`` ``(..., n, n)``:
+    ``band[..., i, p + k] = dense[..., i, i + k]`` for ``-p <= k <= q``,
+    zero where the column falls outside the matrix."""
+    a = np.asarray(dense, dtype=np.float64)
+    n = a.shape[-1]
+    band = np.zeros(a.shape[:-2] + (n, p + q + 1))
+    for k in range(-p, q + 1):
+        rows = np.arange(max(0, -k), min(n, n - k))
+        band[..., rows, p + k] = a[..., rows, rows + k]
+    return band
+
+
+def band_lu_factor(band: np.ndarray, p: int, q: int):
+    """LU-factor (no pivoting) matrices given in band storage (see
+    :func:`dense_to_band`), batched over leading dims.  The same operations
+    in the same order as the JAX package's dense ``banded_lu_factor``.
+    Returns ``(lower (..., p, n), upper (..., q+1, n))``: lower holds
+    ``L[i, i-d]`` at ``[d-1, i]``, upper holds ``U[i, i+d]`` at ``[d, i]``."""
+    ab = np.array(band, dtype=np.float64, copy=True)
+    n = ab.shape[-2]
+    for i in range(n - 1):
+        piv = ab[..., i, p]
+        if np.any(np.abs(piv) < 1e-300):
+            raise ZeroDivisionError(f"zero pivot at row {i}")
+        kmax = min(i + q, n - 1)
+        for j in range(i + 1, min(i + p, n - 1) + 1):
+            m = ab[..., j, i - j + p] / piv
+            ab[..., j, i - j + p] = m
+            ab[..., j, i + 1 - j + p : kmax - j + p + 1] -= m[..., None] * ab[..., i, p + 1 : kmax - i + p + 1]
+    batch = ab.shape[:-2]
+    lower = np.zeros(batch + (p, n))
+    upper = np.zeros(batch + (q + 1, n))
+    for d in range(1, p + 1):
+        lower[..., d - 1, d:] = ab[..., d:, p - d]
+    for d in range(0, q + 1):
+        upper[..., d, : n - d] = ab[..., : n - d, p + d]
+    return lower, upper
+
+
+def banded_lu_factor(dense: np.ndarray, p: int, q: int):
+    """LU-factor a banded ``(..., n, n)`` matrix with lower bandwidth ``p``
+    and upper bandwidth ``q`` (the JAX package's contract of the same
+    name)."""
+    return band_lu_factor(dense_to_band(dense, p, q), p, q)
+
+
+def apply_along(mat: torch.Tensor, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``mat`` applied along ``axis`` of ``x``: ``x`` contracted with the
+    columns of ``mat`` there (one ``torch.matmul``)."""
+    axis %= x.ndim
+    if axis == x.ndim - 1:
+        return torch.matmul(x, mat.T)
+    return torch.movedim(torch.matmul(mat, torch.movedim(x, axis, -2)), -2, axis)
+
+
+class BandedSolver:
+    """Solves ``A x = b`` along one axis of a device tensor with the LU
+    factors of ``A``: one set, ``(p, n)``/``(q+1, n)``, or one per lane,
+    ``(lanes, p, n)``/``(lanes, q+1, n)``.  Per-lane factors align with the
+    lanes the solve runs over: the axes after the solve axis, or, when it is
+    the last axis, the axis before it."""
+
+    def __init__(self, lower, upper, *, device, dtype):
+        self.kernel = BandedSolve(lower, upper, device=device, dtype=dtype)
+        self.p, self.q, self.n = self.kernel.p, self.kernel.q, self.kernel.n
+
+    @classmethod
+    def from_dense(cls, dense, p: int, q: int, *, device, dtype) -> "BandedSolver":
+        return cls(*banded_lu_factor(dense, p, q), device=device, dtype=dtype)
+
+    def solve(self, b: torch.Tensor, axis: int) -> torch.Tensor:
+        """The solve along ``axis``, as one kernel launch on a strided
+        ``(batch, n, lanes)`` view of ``b``."""
+        return self._along(self.kernel.apply, b, axis)
+
+    def plain(self, b: torch.Tensor, axis: int) -> torch.Tensor:
+        """The same solve through the kernel's plain PyTorch version, on
+        any device (the kernel's yardstick on the card)."""
+        return self._along(self.kernel.plain, b, axis)
+
+    @staticmethod
+    def _along(fn, b: torch.Tensor, axis: int) -> torch.Tensor:
+        b = b.contiguous()
+        shape = b.shape
+        axis %= b.ndim
+        pre, post = math.prod(shape[:axis]), math.prod(shape[axis + 1 :])
+        n = shape[axis]
+        if post > 1 or axis == 0:
+            return fn(b.view(pre, n, post)).reshape(shape)
+        lanes = shape[axis - 1]
+        view = b.view(pre // lanes, lanes, n).transpose(1, 2)
+        return fn(view).transpose(1, 2).reshape(shape)
+
+
+class DenseSolver:
+    """The precomputed dense inverse, applied along the axis by one
+    ``torch.matmul``."""
+
+    def __init__(self, dense, *, device, dtype):
+        self.inv = to_device(np.linalg.inv(np.asarray(dense, dtype=np.float64)), device, dtype)
+
+    def solve(self, b: torch.Tensor, axis: int) -> torch.Tensor:
+        return apply_along(self.inv, b, axis)

@@ -1,18 +1,34 @@
-"""Host-side (numpy f64) modal data of the implicit solves.
+"""Composite Helmholtz / Poisson solvers over Galerkin spectral spaces.
 
-Counterpart of the public modal contract of the JAX package's
-``solver.py``: the dense ADI Helmholtz axis factor and the fast-diagonal
-eigen-data of the pressure Poisson solve.  The fused stage kernels
-(:mod:`rustpde_mpi_tpu_torch.ops.fused_step`) build their matrices from
-these; the device never runs a separate solver object.  Chebyshev axes
-only (the confined cell).
+Counterpart of the JAX package's ``solver.py``, Chebyshev axes only (the
+confined cell):
+
+* host modal data: the dense ADI Helmholtz axis factor and the
+  fast-diagonal eigen-data, from which the fused stage kernels
+  (:mod:`rustpde_mpi_tpu_torch.ops.fused_step`) build their matrices;
+* the solver objects the dense route of the step runs on:
+  :class:`HholtzAdi` (axis-by-axis ADI Helmholtz), :class:`TensorSolver`
+  (axis 0 eigen-diagonalised, one banded system per eigenvalue lane along
+  axis 1), :class:`FastDiag` (both axes diagonalised: matrix products and
+  one division), and :class:`Poisson` / :class:`Hholtz` on top of the
+  last two.
+
+Every device solve is ``torch.matmul`` plus, on the ``"banded"`` method,
+the banded substitution of :mod:`rustpde_mpi_tpu_torch.ops.banded`, whose
+CUDA kernel runs on the card.  Solvers take their device and dtype from
+the space they solve on.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .bases import BaseKind, Space2
+from .config import to_device
+from .ops.banded import BandedSolver, DenseSolver, apply_along, band_lu_factor, dense_to_band
+
+_P, _Q = 2, 4  # lower/upper bandwidth of every preconditioned Chebyshev operator
 
 
 def ingredients_for_hholtz(space: Space2, axis: int):
@@ -93,3 +109,199 @@ def modal_data_split(space: Space2, axis: int, ci: float, sign: float = 1.0):
     """``(lam, fwd, bwd)`` of one axis, eigenvalues in natural order (the
     JAX package's contract of the same name, Chebyshev axes)."""
     return _axis_modal_data(space, axis, ci, sign)
+
+
+# -- solver objects -------------------------------------------------------------
+
+
+_AXIS_METHODS = ("banded", "pallas", "dense")
+_TENSOR_METHODS = ("banded", "pallas", "fd")
+
+
+def _check_method(method: str, allowed) -> str:
+    if method not in allowed:
+        raise ValueError(f"unknown solver method {method!r}; use one of {allowed}")
+    return method
+
+
+def _check_rhs(rhs: torch.Tensor) -> int:
+    """The axis of the rhs's first spectral dim (extra leading dims are
+    batch)."""
+    if rhs.ndim < 2:
+        raise ValueError(
+            f"2-D tensor solver needs rhs.ndim >= 2, got {rhs.ndim} (a rank-1 rhs "
+            "would silently solve both axes over the same axis; batch dims go in front)")
+    return rhs.ndim - 2
+
+
+class _AxisSolver:
+    """1-D solver of one Chebyshev axis: ``"banded"`` (and its alias
+    ``"pallas"``) runs the banded substitution kernel, ``"dense"`` the
+    precomputed inverse."""
+
+    def __init__(self, mat: np.ndarray, method: str, *, device, dtype):
+        if _check_method(method, _AXIS_METHODS) == "dense":
+            self.solver = DenseSolver(mat, device=device, dtype=dtype)
+        else:
+            self.solver = BandedSolver.from_dense(mat, _P, _Q, device=device, dtype=dtype)
+
+    def solve(self, b, axis: int):
+        return self.solver.solve(b, axis)
+
+    def kernels(self) -> list:
+        return [self.solver.kernel] if isinstance(self.solver, BandedSolver) else []
+
+
+def default_method() -> str:
+    """Method of the 1-D axis solves: ``"banded"`` on the CPU and on the
+    card alike (on the card the recurrence runs as the CUDA kernel).
+    Override per solver with ``method="banded"|"pallas"|"dense"``."""
+    return "banded"
+
+
+class HholtzAdi:
+    """ADI Helmholtz: ``(I - c*D2) vhat = A f`` solved axis by axis, each
+    axis preconditioned with the restricted quasi-inverse (a matrix product)
+    and then solved by its :class:`_AxisSolver`."""
+
+    def __init__(self, space: Space2, c, method: str | None = None):
+        method = method or default_method()
+        self.space = space
+        self.c = tuple(c)
+        kw = dict(device=space.device, dtype=space.dtype)
+        self.matvec = []
+        self.solvers = []
+        for axis, ci in enumerate(c):
+            mat_a, mat_b, precond = ingredients_for_hholtz(space, axis)
+            self.solvers.append(_AxisSolver(mat_a - ci * mat_b, method, **kw))
+            self.matvec.append(to_device(precond, **kw))
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """rhs in ortho space -> solution in composite space; extra leading
+        dims are batch."""
+        ax = _check_rhs(rhs)
+        out = apply_along(self.matvec[0], rhs, ax)
+        out = apply_along(self.matvec[1], out, ax + 1)
+        out = self.solvers[1].solve(out, ax + 1)  # axis-1 recurrence
+        return self.solvers[0].solve(out, ax)  # axis-0 recurrence
+
+    def kernels(self) -> list:
+        return [k for s in self.solvers for k in s.kernels()]
+
+
+class TensorSolver:
+    """2-D tensor-product solver ``[(A_x x C_y) + (C_x x A_y) + alpha (C_x x
+    C_y)] u = B2 f``: axis 0 diagonalised through the preconditioned pencil,
+    axis 1 one banded system per eigenvalue lane, factored at build time.
+
+    ``modal0 = (lam0, fwd0, bwd0)`` from :func:`_axis_modal_data`; ``fwd0``
+    maps the axis-0 ortho-space rhs into eigenspace (preconditioner folded
+    in)."""
+
+    def __init__(self, modal0, a1, c1, precond1, alpha: float, fix_singular=False,
+                 *, device, dtype):
+        lam, fwd0, bwd0 = modal0
+        kw = dict(device=device, dtype=dtype)
+        self.fwd = to_device(fwd0, **kw)
+        self.bwd = to_device(bwd0, **kw)
+        if fix_singular and abs(lam[0]) < 1e-10:
+            # pure-Neumann problems: nudge the zero mode so the banded
+            # factorization exists
+            lam = lam - 1e-10
+        self.lam = lam
+        self.alpha = alpha
+        self.matvec1 = to_device(precond1, **kw)
+        # (A_y + (lam_i + alpha) C_y) factored for every eigenvalue lane i,
+        # assembled and eliminated on the band only
+        band = dense_to_band(a1, _P, _Q)[None] + \
+            (lam[:, None, None] + alpha) * dense_to_band(c1, _P, _Q)[None]
+        self.banded = BandedSolver(*band_lu_factor(band, _P, _Q), **kw)
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """rhs in ortho space -> solution in composite space; extra leading
+        dims are batch (the per-lane factors align with axis 0 of the
+        2-D problem)."""
+        ax = _check_rhs(rhs)
+        out = apply_along(self.matvec1, rhs, ax + 1)
+        out = apply_along(self.fwd, out, ax)
+        out = self.banded.solve(out, ax + 1)
+        return apply_along(self.bwd, out, ax)
+
+    def kernels(self) -> list:
+        return [self.banded.kernel]
+
+
+class FastDiag:
+    """Fast-diagonalisation 2-D solver: both axes eigendecomposed through
+    the preconditioned pencils, so the solve is four matrix products and one
+    elementwise division.  The same discrete system as
+    :class:`TensorSolver`."""
+
+    def __init__(self, modal0, modal1, alpha: float, fix_singular=False, *, device, dtype):
+        kw = dict(device=device, dtype=dtype)
+        lams = [modal0[0], modal1[0]]
+        self.fwd = [to_device(m[1], **kw) for m in (modal0, modal1)]
+        self.bwd = [to_device(m[2], **kw) for m in (modal0, modal1)]
+        if fix_singular and abs(lams[0][0]) < 1e-10:
+            # pure-Neumann zero mode: same nudge as TensorSolver
+            lams[0] = lams[0] - 1e-10
+        self.denom = to_device(lams[0][:, None] + lams[1][None, :] + alpha, **kw)
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """rhs in ortho space -> solution in composite space (extra leading
+        dims are batch)."""
+        ax = _check_rhs(rhs)
+        out = apply_along(self.fwd[0], rhs, ax)
+        out = apply_along(self.fwd[1], out, ax + 1)
+        out = out / self.denom
+        out = apply_along(self.bwd[1], out, ax + 1)
+        return apply_along(self.bwd[0], out, ax)
+
+    def kernels(self) -> list:
+        return []
+
+
+class _TensorBased:
+    """Shared assembly of Poisson/Hholtz: ``"banded"`` (the default, alias
+    ``"pallas"``) builds the eig-axis-0 + banded-axis-1 :class:`TensorSolver`,
+    ``"fd"`` the :class:`FastDiag`.  Both diagonalise the same
+    preconditioned pencils, so they solve the same discrete system."""
+
+    def __init__(self, space: Space2, c, alpha: float, negate_lap: bool,
+                 fix_singular=False, method: str | None = None):
+        method = _check_method(method or "banded", _TENSOR_METHODS)
+        kw = dict(device=space.device, dtype=space.dtype)
+        sign = -1.0 if negate_lap else 1.0
+        modal0 = _axis_modal_data(space, 0, c[0], sign)
+        if method == "fd":
+            modal1 = _axis_modal_data(space, 1, c[1], sign)
+            self._solver = FastDiag(modal0, modal1, alpha, fix_singular, **kw)
+        else:
+            # mat_c1 = preconditioned mass (pinv S), mat_a1 = preconditioned
+            # laplacian (peye S)
+            mat_c1, mat_a1, precond1 = ingredients_for_hholtz(space, 1)
+            self._solver = TensorSolver(modal0, sign * c[1] * mat_a1, mat_c1, precond1,
+                                        alpha, fix_singular=fix_singular, **kw)
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        return self._solver.solve(rhs)
+
+    def kernels(self) -> list:
+        return self._solver.kernels()
+
+
+class Poisson(_TensorBased):
+    """Pressure Poisson ``c * D2 u = A f`` with the singular mode
+    regularised (lam -= 1e-10)."""
+
+    def __init__(self, space: Space2, c, method: str | None = None):
+        super().__init__(space, c, alpha=0.0, negate_lap=False, fix_singular=True,
+                         method=method)
+
+
+class Hholtz(_TensorBased):
+    """Exact (non-ADI) Helmholtz ``(I - c*D2) u = A f`` via the tensor
+    solver with alpha=1."""
+
+    def __init__(self, space: Space2, c, method: str | None = None):
+        super().__init__(space, c, alpha=1.0, negate_lap=True, method=method)

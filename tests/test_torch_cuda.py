@@ -7,7 +7,8 @@ nor the JAX package, so it runs where only PyTorch is installed::
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances: the kernels and ``torch.matmul`` sum the same products in
-another order; 1e-12 of max|plain| in f64 and 1e-4 in f32.
+another order, and the banded kernel may fuse the multiply-subtracts its
+plain recurrence rounds twice; 1e-12 of max|plain| in f64 and 1e-4 in f32.
 """
 
 import numpy as np
@@ -93,6 +94,72 @@ def test_step_on_card_matches_cpu(device):
     card = states["cuda"][1]
     assert sum(c.launches for c in card._convs.values()) == 30
     assert sum(s.launches for s in card._stages.values()) == 70
+    for name, ref in states["cpu"][0].items():
+        scale = max(float(np.max(np.abs(ref))), 1e-300)
+        assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name
+
+
+# -- the banded-substitution kernel ------------------------------------------------
+
+
+def _banded_system(n, lanes=None, seed=0):
+    """LU factors of diagonally dominant banded matrices (p=2, q=4), one
+    set or one per lane."""
+    from rustpde_mpi_tpu_torch.ops.banded import banded_lu_factor
+
+    rng = np.random.default_rng(seed)
+    batch = (lanes,) if lanes else ()
+    band = np.tril(np.triu(np.ones((n, n)), -2), 4)
+    return banded_lu_factor(rng.uniform(0.2, 0.6, batch + (n, n)) * band + 4.0 * np.eye(n), 2, 4)
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_kernel_matches_plain(device, per_lane, dtype):
+    """Both factor modes, both axes of a row-major field (axis 1 through a
+    strided view), a batch dim, ragged n and lanes."""
+    from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
+
+    n, lanes = 37, 130
+    solver = BandedSolver(*_banded_system(n, lanes if per_lane else None), device=device,
+                          dtype=dtype)
+    rng = np.random.default_rng(1)
+    cases = [(rng.uniform(-1, 1, (n, lanes)), 0), (rng.uniform(-1, 1, (lanes, n)), 1),
+             (rng.uniform(-1, 1, (3, lanes, n)), 2)]
+    if not per_lane:
+        cases.append((rng.uniform(-1, 1, (2, n, lanes)), 1))
+    kern = solver.kernel
+    for i, (b, axis) in enumerate(cases):
+        bt = torch.tensor(b, dtype=dtype, device=device)
+        got = solver.solve(bt, axis)
+        assert kern.launches == i + 1
+        assert tuple(got.shape) == tuple(bt.shape)
+        plain = solver.plain(bt, axis)
+        scale = torch.amax(torch.abs(plain), dim=axis, keepdim=True)  # each lane's own
+        assert float(torch.max(torch.abs(got - plain) / scale)) <= TOL[dtype], (b.shape, axis)
+
+
+def test_banded_kernel_rejects_wide_bands(device):
+    from rustpde_mpi_tpu_torch.ops.banded_solve import BandedSolve
+
+    bs = BandedSolve(np.ones((5, 8)), np.ones((2, 8)), device=device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="p, q <= 4"):
+        bs.apply(torch.zeros((1, 8, 4), dtype=torch.float64, device=device))
+    assert bs.launches == 0
+
+
+def test_dense_route_on_card_matches_cpu(device):
+    """Ten steps of the dense route through the banded kernel agree with
+    ten plain steps on the CPU (rel 1e-11 of each field's scale), with 7
+    banded launches a step."""
+    states = {}
+    for dev in (device, torch.device("cpu")):
+        m = pt.Navier2D.new_confined(33, 33, 1e5, 1.0, 2e-3, 1.0, "rbc", device=dev,
+                                     step_kernel="dense", conv_kernel="dense")
+        m.update_n(10)
+        states[dev.type] = (pt.state_to_numpy(m), m)
+    card = states["cuda"][1]
+    assert sum(k.launches for k in card.kernels()["banded_solve"]) == 70
     for name, ref in states["cpu"][0].items():
         scale = max(float(np.max(np.abs(ref))), 1e-300)
         assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name

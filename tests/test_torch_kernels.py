@@ -243,3 +243,20 @@ def test_job_validates_operands():
         _build.job(out, [(a, b)], M=5, N=4, mask=torch.zeros((2, 2), dtype=torch.float64))
     with pytest.raises(ValueError, match="1..4 jobs"):
         _build.launch_jobs(None, [], torch.device("cpu"))
+
+
+def test_signatures_match_the_c_parameter_types():
+    """Each ctypes ``argtypes`` entry matches its C parameter: ``int`` ->
+    c_int, ``long long`` -> c_longlong (the banded kernel's strides, which
+    a 32-bit int would cut), a pointer -> c_void_p (or the job struct)."""
+    ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "const RpJob*": ctypes.POINTER(_build.RpJob)}
+    assert "banded_solve" in _build.KERNELS
+    for name in _build.KERNELS:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            types = [" ".join(p.split()[:-1]) for p in params.split(",")]
+            want = [ctypes.c_void_p if t.endswith("void*") else ctype[t] for t in types]
+            argtypes, restype = _build._SIGNATURES[name][fn]
+            assert argtypes == want, fn
+            assert restype is ctypes.c_int

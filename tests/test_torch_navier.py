@@ -1,15 +1,20 @@
 """PyTorch port: the confined Rayleigh-Benard step against the JAX package.
 
-The port's ``Navier2D`` runs the fused route of the step (three fused
-convection chains and seven fused stages a step); on the CPU each wrapper
-runs its plain PyTorch version.  The reference runs the same route with its
-Pallas kernels in interpret mode (``RUSTPDE_CONV_KERNEL=pallas``,
-``RUSTPDE_STEP_KERNEL=pallas``), in f64.  Tolerances: the initial states
+The port's ``Navier2D`` runs the fused route of the step by default (three
+fused convection chains and seven fused stages a step) and the JAX
+package's default, dense route with ``step_kernel="dense"`` (the solver
+objects, seven banded solves a step) and ``conv_kernel="dense"``; on the
+CPU each kernel wrapper runs its plain PyTorch version.  The reference runs
+the fused route with its Pallas kernels in interpret mode
+(``RUSTPDE_CONV_KERNEL=pallas``, ``RUSTPDE_STEP_KERNEL=pallas``) and the
+dense route as it is by default, in f64.  Tolerances: the initial states
 come from the same numpy stream through transforms that differ only in
 summation order (1e-13 of the field scale); five steps of the same linear
-algebra agree to 1e-12 of each field's scale and the observables to rel
-1e-10; the golden Nusselt head of PARITY.json holds at rel 1e-6, the
-reference's own gate (tests/test_parity.py).
+algebra agree to 1e-12 of each field's scale on the fused route, and to
+1e-11 on the dense route, where the reference transforms by FFT and the
+port by dense products; the observables to rel 1e-10; the golden Nusselt
+head of PARITY.json holds at rel 1e-6, the reference's own gate
+(tests/test_parity.py), on both routes.
 """
 
 import json
@@ -50,8 +55,19 @@ def _ref_model(n, fused):
     return model
 
 
+def _ref_dense_step(n, conv_pallas=False):
+    """The reference's default (dense) step, with its Pallas convection
+    chain when ``conv_pallas``."""
+    with pytest.MonkeyPatch.context() as mp:
+        if conv_pallas:
+            mp.setenv("RUSTPDE_CONV_KERNEL", "pallas")
+        model = rp.Navier2D(n, n, 1e4, 1.0, 5e-3, 1.0, "rbc", periodic=False)
+    assert model._step_impl is None and (model._conv_impl is not None) == conv_pallas
+    return model
+
+
 def _launches(model):
-    return sum(k.launches for k in list(model._stages.values()) + list(model._convs.values()))
+    return sum(k.launches for ks in model.kernels().values() for k in ks)
 
 
 def _assert_state_close(got, ref, tol):
@@ -103,6 +119,25 @@ def test_five_steps_match_fused_reference(n):
     assert _launches(port) == 0
 
 
+@pytest.mark.parametrize("n,conv", [(17, "dense"), (33, "dense"), (17, "fused")])
+def test_five_steps_match_dense_reference(n, conv):
+    ref = _ref_dense_step(n, conv_pallas=conv == "fused")
+    ref.init_random(0.1, seed=0)
+    ref.update_n(2)
+    port = pt.Navier2D(n, n, 1e4, 1.0, 5e-3, 1.0, "rbc", device="cpu", step_kernel="dense",
+                       conv_kernel=conv)
+    convert.state_from_numpy(port, {f: np.asarray(getattr(ref.state, f)) for f in FIELDS})
+    ref.update_n(5)
+    port.update_n(5)
+    _assert_state_close(convert.state_to_numpy(port), ref, 1e-11)
+    for g, w in zip(port.get_observables(), ref.get_observables()):
+        assert g == pytest.approx(float(w), rel=1e-10)
+    kernels = port.kernels()
+    assert sorted(kernels) == sorted(["banded_solve"] + (["fused_conv"] if conv == "fused" else []))
+    assert len(kernels["banded_solve"]) == 5  # velx/vely 2 axes, temp 2 axes, pressure 1
+    assert _launches(port) == 0
+
+
 def test_update_is_one_step_of_update_n():
     a = pt.Navier2D(17, 17, 1e4, 1.0, 5e-3, 1.0, "rbc", device="cpu")
     b = pt.Navier2D(17, 17, 1e4, 1.0, 5e-3, 1.0, "rbc", device="cpu")
@@ -134,17 +169,35 @@ def test_rejects_unported_options():
         pt.Navier2D(9, 9, 1e4, 1.0, 1e-2, 1.0, "hc", device="cpu")
     with pytest.raises(ValueError, match="unsupported dtype"):
         pt.Navier2D(9, 9, 1e4, 1.0, 1e-2, 1.0, "rbc", device="cpu", dtype=torch.float16)
+    for key in ("conv_kernel", "step_kernel"):
+        with pytest.raises(ValueError, match=f"{key} must be 'fused' or 'dense'"):
+            pt.Navier2D(9, 9, 1e4, 1.0, 1e-2, 1.0, "rbc", device="cpu", **{key: "pallas"})
+    # a device that is neither the CPU nor CUDA reaches the banded wrapper,
+    # which raises instead of running its plain version
+    model = pt.Navier2D(9, 9, 1e4, 1.0, 1e-2, 1.0, "rbc", device="meta", step_kernel="dense",
+                        conv_kernel="dense")
+    with pytest.raises(RuntimeError, match="no banded-solve kernel"):
+        model.update()
+    assert _launches(model) == 0
 
 
 # -- (e) the golden Nusselt trajectory --------------------------------------------
 
 
 def test_parity_golden_head():
+    _golden_head(step_kernel="fused", conv_kernel="fused")
+
+
+def test_parity_golden_head_dense_route():
+    _golden_head(step_kernel="dense", conv_kernel="dense")
+
+
+def _golden_head(**route):
     with open(os.path.join(REPO, "PARITY.json"), encoding="utf-8") as fh:
         gold = json.load(fh)
     cfg = gold["config"]
     model = pt.Navier2D(cfg["nx"], cfg["ny"], cfg["ra"], cfg["pr"], cfg["dt"],
-                        cfg["aspect"], cfg["bc"], device="cpu")
+                        cfg["aspect"], cfg["bc"], device="cpu", **route)
     model.init_random(cfg["amp"], seed=0)
     for row in gold["nu_f64"][:4]:
         model.update_n(cfg["sample_every"])
