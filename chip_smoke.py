@@ -30,9 +30,10 @@ default step on its solver objects) in phases 6-11:
    banded solve the dense step builds (ADI axes 0 and 1 with one factor
    set, the Poisson tensor solver's per-lane factors along axis 1, and the
    same factors along axis 0) at 129^2 (f64, f32) and 1025^2 (f64), same
-   limits as phase 1 but relative to each lane's own scale, and times kernel, plain version, the dense-inverse
-   ``torch.matmul`` (``library_ms``, one factor set) or the fast-diagonal
-   Poisson solve (per-lane factors) at 1025^2 f64;
+   limits as phase 1 but relative to each lane's own scale, and times
+   kernel, plain version and one ``torch.matmul`` with precomputed inverses
+   (``library_ms``: the axis's dense inverse for one factor set, the batch
+   of every lane's inverse for per-lane factors) at 1025^2 f64;
 7. checks the confined manufactured solutions of the JAX package's
    ``examples/solve_hholtz.py`` (HholtzAdi, 257^2) and
    ``examples/solve_poisson.py`` (Poisson, Hholtz c=0.1, 65^2) on the card,
@@ -73,6 +74,10 @@ STAGE_TAGS = ("velx", "vely", "temp", "div", "poisson", "projx", "projy")
 DENSE = dict(step_kernel="dense", conv_kernel="dense")
 #: kernel launches a step of each route
 PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7}}
+#: how far a banded case's library yardstick may stray from the kernel,
+#: relative to each lane's scale: a product with a precomputed inverse
+#: rounds otherwise than the substitution, more so as n grows
+LIBRARY_LIMIT = 1e-8
 
 
 def card_line() -> str:
@@ -338,14 +343,35 @@ def phase_profile(torch, model, steps=5, phase="phase5"):
 # -- the dense route ------------------------------------------------------------
 
 
+def per_lane_inverses(torch, kernel, chunk=128):
+    """``(lanes, n, n)``: the inverse ``U_j^-1 L_j^-1`` of every lane's
+    matrix, from the banded factors of ``kernel`` (a per-lane
+    ``BandedSolve``), built on its device ``chunk`` lanes at a time."""
+    n, p, q = kernel.n, kernel.p, kernel.q
+    eye = torch.eye(n, device=kernel.device, dtype=kernel.dtype)
+    out = torch.empty((kernel.lanes, n, n), device=kernel.device, dtype=kernel.dtype)
+    for j0 in range(0, kernel.lanes, chunk):
+        lanes = slice(j0, min(j0 + chunk, kernel.lanes))
+        low = eye.repeat(lanes.stop - j0, 1, 1)
+        upp = torch.zeros_like(low)
+        for d in range(1, p + 1):
+            low.diagonal(-d, 1, 2).copy_(kernel.lower[d - 1, d:, lanes].T)
+        for d in range(q + 1):
+            upp.diagonal(d, 1, 2).copy_(kernel.upper[d, : n - d, lanes].T)
+        linv = torch.linalg.solve_triangular(low, eye, upper=False, unitriangular=True)
+        out[lanes] = torch.linalg.solve_triangular(upp, linv, upper=True)
+    return out
+
+
 def banded_cases(torch, pt, model, rng, timing):
     """``(label, solver, b, axis, per_step, library)`` for every banded
     solve of ``model``'s dense step on random inputs: the ADI axes of the
     velocity solver (applied twice a step, velx and vely) and of the
     temperature solver, the Poisson tensor solver's per-lane factors along
-    axis 1 and, off the step (``per_step`` 0), along axis 0.  ``library``
-    is the dense-inverse ``torch.matmul`` of the same axis when ``timing``
-    (no single call solves the per-lane systems)."""
+    axis 1 and, off the step (``per_step`` 0), along axis 0.  When
+    ``timing``, ``library`` is one ``torch.matmul`` that solves the same
+    systems with precomputed inverses: the dense inverse of the axis (one
+    factor set) or the batch of every lane's inverse (per-lane factors)."""
 
     def rand(shape):
         return torch.as_tensor(rng.uniform(-1.0, 1.0, size=shape), dtype=model.dtype).to(model.device)
@@ -360,8 +386,13 @@ def banded_cases(torch, pt, model, rng, timing):
             cases.append((f"{tag}_axis{axis}", adi.solvers[axis].solver, b, axis, per_step, lib))
     banded = model.solver_pres._solver.banded
     b = rand(model.pseu_space.shape_spectral)
-    cases.append(("poisson_axis1", banded, b, 1, 1, None))
-    cases.append(("poisson_axis0", banded, b.T.contiguous(), 0, 0, None))
+    inv = per_lane_inverses(torch, banded.kernel) if timing else None
+    for label, rhs, axis, per_step in (("poisson_axis1", b, 1, 1),
+                                       ("poisson_axis0", b.T.contiguous(), 0, 0)):
+        lib = None if inv is None else (
+            lambda rhs=rhs, axis=axis: torch.matmul(inv, rhs.movedim(axis, -1)[..., None])[..., 0]
+            .movedim(-1, axis))
+        cases.append((label, banded, rhs, axis, per_step, lib))
     return cases
 
 
@@ -380,6 +411,8 @@ def phase_banded(torch, pt, model, limit, timing):
                "per_lane": solver.kernel.per_lane,
                "dtype": str(model.dtype).replace("torch.", ""),
                "max_abs_err": diff, "max_rel_err": rel}
+        if lib is not None:
+            rec["library_max_rel_err"] = lane_rel_err(torch, lib(), out_k, axis)[1]
         if timing:
             n = b.shape[axis]
             shape3 = (1, n, b.numel() // n)
@@ -394,6 +427,9 @@ def phase_banded(torch, pt, model, limit, timing):
         print("phase6 " + json.dumps(rec))
         if not rel <= limit:
             raise AssertionError(f"banded_solve/{label} at {model.nx}^2: rel err {rel:.3e} > {limit:g}")
+        if not rec.get("library_max_rel_err", 0.0) <= LIBRARY_LIMIT:
+            raise AssertionError(f"banded_solve/{label}: the library yardstick solves another "
+                                 f"system (rel err {rec['library_max_rel_err']:.3e})")
         records.append(rec)
     return records
 
@@ -478,9 +514,7 @@ KERNEL_META = {
 def kernels_line(records, launches, solver_times):
     """One entry per kernel, its times summed over one step of the route
     that runs it (fused: 3 conv chains, 2 without bc and 1 with, the 7
-    stages once each; dense: the 7 banded solves).  ``library_ms`` is null
-    where no PyTorch call computes one of the step's applications (the
-    per-lane Poisson solve); the single-factor sum stands beside it."""
+    stages once each; dense: the 7 banded solves)."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rows = [r for r in records if r["kernel"] == kernel]
@@ -503,8 +537,6 @@ def kernels_line(records, launches, solver_times):
             "per": "one step of rbc1025 f64",
         }
         if kernel == "banded_solve":
-            entry["library_ms_single_factor"] = sum(
-                r["per_step"] * r["library_ms"] for r in rows if r["library_ms"] is not None)
             entry.update(solver_times)
         out.append(entry)
     return {"kernels": out}

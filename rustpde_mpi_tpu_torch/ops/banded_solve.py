@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import to_device
+from ..config import check_dtype, to_device
 from . import _build
 
 #: the largest bandwidths the kernel takes (csrc/banded_solve.cu MAXB)
@@ -49,10 +49,10 @@ class BandedSolve:
         if self.per_lane:
             lower, upper = np.moveaxis(lower, 0, -1), np.moveaxis(upper, 0, -1)
         self.device = torch.device(device)
-        self.dtype = dtype
+        self.dtype = check_dtype(dtype)
         self.lower = to_device(lower, self.device, dtype)
         self.upper = to_device(upper, self.device, dtype)
-        self._rows = None
+        self._coefs = None
         #: kernel launches on CUDA tensors
         self.launches = 0
 
@@ -101,27 +101,38 @@ class BandedSolve:
         return out
 
     def plain(self, b) -> torch.Tensor:
-        """The recurrence in plain PyTorch, row by row, vectorised over
-        batch and lanes (the CPU path and the kernel's yardstick)."""
-        if self._rows is None:
-            self._rows = ([list(r.unbind(0)) for r in self.lower],
-                          [list(r.unbind(0)) for r in self.upper])
-        low, upp = self._rows
+        """The recurrence in plain PyTorch, row by row and in place on one
+        ``(n, batch, lanes)`` copy of ``b``, vectorised over batch and lanes
+        (the CPU path and the kernel's yardstick)."""
+        if self._coefs is None:
+            self._coefs = self._row_coefs()
+        low, upp, diag = self._coefs
+        x = b.movedim(1, 0).clone(memory_format=torch.contiguous_format)
+        rows = x.unbind(0)
+        for i, terms in enumerate(low):
+            for d, c in terms:
+                rows[i].addcmul_(c, rows[i - d], value=-1)
+        for i in range(self.n - 1, -1, -1):
+            for d, c in upp[i]:
+                rows[i].addcmul_(c, rows[i + d], value=-1)
+            rows[i].div_(diag[i])
+        return x.movedim(0, 1)
+
+    def _row_coefs(self):
+        """Per row, the ``(d, coefficient)`` band terms inside the matrix
+        and the diagonal: 0-d tensors for one factor set, ``(lanes,)`` rows
+        for per-lane factors.  A term whose coefficient is zero in every
+        lane is left out: the Chebyshev systems couple rows of one parity
+        only, so half the off-diagonals are zero, and leaving them out
+        changes no finite result."""
         n, p, q = self.n, self.p, self.q
-        rows = b.movedim(1, 0).contiguous().unbind(0)
-        y = []
-        for i in range(n):
-            acc = rows[i]
-            for d in range(1, min(i, p) + 1):
-                acc = torch.addcmul(acc, low[d - 1][i], y[i - d], value=-1)
-            y.append(acc)
-        x = [None] * n
-        for i in range(n - 1, -1, -1):
-            acc = y[i]
-            for d in range(1, min(n - 1 - i, q) + 1):
-                acc = torch.addcmul(acc, upp[d][i], x[i + d], value=-1)
-            x[i] = acc / upp[0][i]
-        return torch.stack(x, dim=1)
+        nz_low = (self.lower != 0).reshape(p, n, -1).any(-1).tolist()
+        nz_upp = (self.upper != 0).reshape(q + 1, n, -1).any(-1).tolist()
+        low = [[(d, self.lower[d - 1, i]) for d in range(1, min(i, p) + 1) if nz_low[d - 1][i]]
+               for i in range(n)]
+        upp = [[(d, self.upper[d, i]) for d in range(1, min(n - 1 - i, q) + 1) if nz_upp[d][i]]
+               for i in range(n)]
+        return low, upp, self.upper[0].unbind(0)
 
     def _launch(self, b) -> torch.Tensor:
         if max(self.p, self.q) > MAX_BAND:

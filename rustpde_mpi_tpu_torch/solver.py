@@ -114,6 +114,11 @@ def modal_data_split(space: Space2, axis: int, ci: float, sign: float = 1.0):
 # -- solver objects -------------------------------------------------------------
 
 
+#: the method of every solver built without one, on the CPU and the card
+#: alike; ``"pallas"`` is the JAX package's name for the same banded solve,
+#: accepted so that a call written with that package's method names runs
+#: unchanged
+DEFAULT_METHOD = "banded"
 _AXIS_METHODS = ("banded", "pallas", "dense")
 _TENSOR_METHODS = ("banded", "pallas", "fd")
 
@@ -153,10 +158,10 @@ class _AxisSolver:
 
 
 def default_method() -> str:
-    """Method of the 1-D axis solves: ``"banded"`` on the CPU and on the
+    """Method of the solves: :data:`DEFAULT_METHOD` on the CPU and on the
     card alike (on the card the recurrence runs as the CUDA kernel).
-    Override per solver with ``method="banded"|"pallas"|"dense"``."""
-    return "banded"
+    Override per solver with ``method=``."""
+    return DEFAULT_METHOD
 
 
 class HholtzAdi:
@@ -269,7 +274,7 @@ class _TensorBased:
 
     def __init__(self, space: Space2, c, alpha: float, negate_lap: bool,
                  fix_singular=False, method: str | None = None):
-        method = _check_method(method or "banded", _TENSOR_METHODS)
+        method = _check_method(method or default_method(), _TENSOR_METHODS)
         kw = dict(device=space.device, dtype=space.dtype)
         sign = -1.0 if negate_lap else 1.0
         modal0 = _axis_modal_data(space, 0, c[0], sign)

@@ -154,6 +154,8 @@ def test_wrapper_plain_on_cpu_and_checks_inputs():
         _wrapper(lanes=4).apply(b)
     with pytest.raises(ValueError, match="disagree"):
         BandedSolve(np.zeros((2, 9)), np.zeros((5, 8)), device="cpu", dtype=torch.float64)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        BandedSolve(np.zeros((2, 9)), np.ones((5, 9)), device="cpu", dtype=torch.float16)
 
 
 def test_wrapper_raises_off_cpu_and_cuda():
@@ -171,3 +173,24 @@ def test_wrapper_accounting():
         dense_terms = sum(min(i, P) + min(n - 1 - i, Q) for i in range(n))
         assert bs.flops((3, n, lanes)) == 3 * lanes * (2 * dense_terms + n)
         assert bs.bytes_moved((3, n, lanes)) == 8 * (2 * 3 * n * lanes + factor_values)
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_plain_skips_zero_couplings_exactly(per_lane):
+    """A system that couples rows of one parity only (the Chebyshev case):
+    the plain recurrence leaves out the zero off-diagonals and still
+    matches a dense solve (1e-12 of max|x|), leaving the rhs untouched."""
+    n, lanes = 20, 6
+    dense = _system(n, seed=14, batch=(lanes,) if per_lane else ())
+    offsets = np.subtract.outer(np.arange(n), np.arange(n))
+    dense = np.where(offsets % 2 == 0, dense, 0.0)
+    bs = BandedSolve(*tbanded.banded_lu_factor(dense, P, Q), device="cpu", dtype=torch.float64)
+    low, upp, _ = bs._row_coefs()
+    assert all(d % 2 == 0 for terms in low + upp for d, _ in terms)
+    b = torch.as_tensor(np.random.default_rng(15).standard_normal((1, n, lanes)))
+    before = b.clone()
+    x = bs.apply(b)
+    torch.testing.assert_close(b, before, rtol=0, atol=0)
+    want = np.linalg.solve(dense, b[0].numpy().T[..., None])[..., 0].T if per_lane else \
+        np.linalg.solve(dense, b[0].numpy())
+    _close(x[0].numpy(), want)
