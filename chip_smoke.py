@@ -43,7 +43,39 @@ default step on its solver objects) in phases 6-11:
 10. drives ``rbc1025`` on the dense route as phase 4 does (exactly 7 banded
     launches a step) and profiles it as phase 5 does;
 11. times one ``HholtzAdi.solve`` and one ``Poisson.solve`` at the
-    ``rbc1025`` shapes with the banded recurrence and with dense/fd.
+    ``rbc1025`` shapes with the banded recurrence and with dense/fd;
+
+and the meshed route, ``Navier2D(..., mesh=make_mesh(4))`` (the dense
+step on fields split over 4 ranks that all live on the one card, every
+pencil flip through the pencil-transpose kernel), in phases 12-13:
+
+12. holds the pencil-transpose kernel bit for bit (tolerance 0: it is a
+    copy) against its plain ring version in both directions at the
+    ``rbc1025`` spectral (1023^2, padded to 1024^2) and physical (1025^2,
+    padded to 1028^2) shapes in f64 and at 129^2 in f64 and f32, and at
+    every pencil shape a meshed ``rbc1025`` step flips; times the kernel
+    (cold L2: a 512 MB write before each launch, and behind a GPU spin so
+    that the host's launch overhead stays out of the reading), its plain
+    version and one ``.contiguous()`` of the permuted view
+    (``library_ms``, cold L2 too) at each; and holds the banded kernel
+    against its plain version at every input a meshed ``rbc1025`` step
+    gives it (rank-stacked pencils, identity-padded systems, the Poisson
+    solve's factor batch stride), logged from one step: on random values
+    at phase 6's per-lane limit and on the step's own values at 1e-11 of
+    the solve's scale (the routes' limit), timed as phase 6 times it (on random
+    values, on them with the step's zero pad, and on the step's values)
+    and with the L2 flushed, with the same library yardsticks built from
+    the padded factors;
+13. reruns the golden head on the mesh, compares meshed and serial dense
+    steps on the card after 10 steps at 129^2 (rel 1e-11), drives
+    ``rbc1025`` on the mesh as phase 4 does (exactly 37 flips and 7
+    banded launches a step, and 10 flips for each of the two save-window
+    callbacks' observables) and profiles it.
+
+The profiles of the dense and meshed routes list each banded launch of
+one step, to set beside the launches timed alone.  The ``kernels`` line
+sums each kernel over one step of the route it was ported for, and the
+banded kernel over a meshed step too (``mesh_*``).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -73,11 +105,30 @@ MAIN_STEPS = 50
 STAGE_TAGS = ("velx", "vely", "temp", "div", "poisson", "projx", "projy")
 DENSE = dict(step_kernel="dense", conv_kernel="dense")
 #: kernel launches a step of each route
-PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7}}
+PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7},
+            "mesh": {"banded_solve": 7, "ring_transpose": 37}}
+#: kernel launches of one save-window callback (the observables): the
+#: meshed route flips pencils there too
+PER_CALLBACK = {"mesh": {"ring_transpose": 10}}
+#: ranks of the meshed route (all on the one card)
+MESH_RANKS = 4
+#: bytes written before each launch of a cold-L2 timing: 10x the 50 MB L2
+FLUSH_BYTES = 512 * 2**20
+#: a GPU spin ahead of a timed launch or loop of short kernels (≈10 ms at
+#: the H100's 1.98 GHz), long enough for the host to enqueue the work
+#: behind it, so the device time read does not include the host's launch
+#: overhead (tens of µs a wrapped launch against a ≈5 µs kernel)
+SLEEP_CYCLES = 20_000_000
 #: how far a banded case's library yardstick may stray from the kernel,
 #: relative to each lane's scale: a product with a precomputed inverse
 #: rounds otherwise than the substitution, more so as n grows
 LIBRARY_LIMIT = 1e-8
+#: how far the banded kernel may stray from its plain version on a meshed
+#: step's own input, relative to the solve's scale: the limit the routes
+#: are held to against each other (the same algebra, rounded otherwise:
+#: the kernel contracts to FMAs), as the step's Poisson lanes cancel where
+#: random ones do not
+STEP_INPUT_LIMIT = 1e-11
 
 
 def card_line() -> str:
@@ -99,6 +150,47 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn()`` with the L2 cache flushed before each
+    call (a ``FLUSH_BYTES`` write, then a short spin that keeps the device
+    busy while the host enqueues the call), by a CUDA event pair around
+    each call."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.fill_(1.0)
+        torch.cuda._sleep(SLEEP_CYCLES // 50)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def time_queued_ms(torch, fn, reps: int) -> tuple[float, float]:
+    """``(device ms, host ms)`` a call of ``fn()`` over ``reps`` calls
+    enqueued behind a ``SLEEP_CYCLES`` spin: the device time of
+    back-to-back calls (warm L2), and the host's time to enqueue one."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host * 1e3 / reps
 
 
 def rel_err(torch, a, b) -> tuple[float, float]:
@@ -194,7 +286,7 @@ def phase_kernels(torch, model, limit, timing):
         torch.cuda.synchronize()
         out_p = run_p()
         diff, rel = rel_err(torch, out_k, out_p)
-        rec = {"kernel": kernel, "case": label, "n": model.nx,
+        rec = {"kernel": kernel, "route": "fused", "case": label, "n": model.nx,
                "per_step": {"conv": 2, "conv_bc": 1}.get(label, 1),
                "dtype": str(model.dtype).replace("torch.", ""),
                "max_abs_err": diff, "max_rel_err": rel}
@@ -263,6 +355,10 @@ def count_launches(model) -> dict:
     return {name: sum(k.launches for k in ks) for name, ks in model.kernels().items()}
 
 
+def route_of(model) -> str:
+    return "mesh" if model.mesh is not None else model.step_kernel
+
+
 def phase_main(torch, pt, model, phase="phase4"):
     """The main path as a user drives it: ``integrate`` over two save
     windows of 25 steps (each one ``update_n``), launch counts set to 0
@@ -278,7 +374,9 @@ def phase_main(torch, pt, model, phase="phase4"):
     launches = count_launches(model)
     if status != "time_limit" or abs(model.time - MAIN_STEPS * model.dt) > model.dt / 2:
         raise AssertionError(f"integrate ended with {status!r} at t={model.time}")
-    want = {k: v * MAIN_STEPS for k, v in PER_STEP[model.step_kernel].items()}
+    route = route_of(model)
+    want = {k: v * MAIN_STEPS + 2 * PER_CALLBACK.get(route, {}).get(k, 0)
+            for k, v in PER_STEP[route].items()}
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     t0 = time.perf_counter()
@@ -286,7 +384,7 @@ def phase_main(torch, pt, model, phase="phase4"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     nu, nuvol, re, div = model.get_observables()
-    print(f"{phase} rbc1025 f64 {model.step_kernel} route: update_n {MAIN_STEPS} steps in {wall:.4f} s = "
+    print(f"{phase} rbc1025 f64 {route_of(model)} route: update_n {MAIN_STEPS} steps in {wall:.4f} s = "
           f"{wall / MAIN_STEPS * 1e3:.4f} ms/step; integrate {MAIN_STEPS} steps with 2 "
           f"save-window callbacks in {wall_integrate:.4f} s = "
           f"{wall_integrate / MAIN_STEPS * 1e3:.4f} ms/step; launches in integrate "
@@ -300,7 +398,10 @@ def phase_main(torch, pt, model, phase="phase4"):
 def phase_profile(torch, model, steps=5, phase="phase5"):
     """Where the time of a main-path step goes: device time by kernel name
     and the device's busy share over ``steps`` steps, from torch.profiler
-    (run after the counted main-path run, so its launches are not read)."""
+    (run after the counted main-path run, so its launches are not read);
+    on the dense and meshed routes also each banded launch of the last
+    step, in launch order (velx axis 1, 0; vely axis 1, 0; Poisson; temp
+    axis 1, 0), to set beside the launches timed alone (phases 6, 12)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,7 +412,7 @@ def phase_profile(torch, model, steps=5, phase="phase5"):
         model.update_n(steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
+    spans, by_name, banded = [], {}, []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -319,6 +420,8 @@ def phase_profile(torch, model, steps=5, phase="phase5"):
         spans.append((start, end))
         tot, cnt = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (tot + (end - start), cnt + 1)
+        if "banded_kernel" in ev.name:
+            banded.append((start, end - start))
     if not spans:
         print(f"{phase} profile: the profiler recorded no device events (not measured)")
         return
@@ -332,32 +435,40 @@ def phase_profile(torch, model, steps=5, phase="phase5"):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     total = sum(t for t, _ in by_name.values())
-    print(f"{phase} profile rbc1025 f64 {model.step_kernel} route {steps} steps: wall {wall_us / steps / 1e3:.4f} ms/step, "
+    print(f"{phase} profile rbc1025 f64 {route_of(model)} route {steps} steps: wall {wall_us / steps / 1e3:.4f} ms/step, "
           f"device busy {busy / steps / 1e3:.4f} ms/step ({busy / wall_us:.4f} of wall), "
           f"kernel time {total / steps / 1e3:.4f} ms/step")
     for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"{phase}   {t / steps / 1e3:9.4f} ms/step {cnt / steps:6.1f} calls/step "
               f"{t / total:7.4f}  {name[:90]}")
+    if banded:
+        per_step = PER_STEP[route_of(model)]["banded_solve"]
+        last = [d / 1e3 for _, d in sorted(banded)[-per_step:]]
+        print(f"{phase} banded launches of the last profiled step, ms in launch order: {last}")
 
 
 # -- the dense route ------------------------------------------------------------
 
 
-def per_lane_inverses(torch, kernel, chunk=128):
-    """``(lanes, n, n)``: the inverse ``U_j^-1 L_j^-1`` of every lane's
-    matrix, from the banded factors of ``kernel`` (a per-lane
-    ``BandedSolve``), built on its device ``chunk`` lanes at a time."""
+def banded_inverses(torch, kernel, chunk=128):
+    """``(sets, n, n)``: the inverse ``U_j^-1 L_j^-1`` of every factor set
+    of ``kernel`` (a ``BandedSolve``; one set unless its factors are per
+    lane), built on its device ``chunk`` sets at a time."""
     n, p, q = kernel.n, kernel.p, kernel.q
+    lower, upper = kernel.lower, kernel.upper
+    if not kernel.per_lane:
+        lower, upper = lower[..., None], upper[..., None]
+    sets = lower.shape[-1]
     eye = torch.eye(n, device=kernel.device, dtype=kernel.dtype)
-    out = torch.empty((kernel.lanes, n, n), device=kernel.device, dtype=kernel.dtype)
-    for j0 in range(0, kernel.lanes, chunk):
-        lanes = slice(j0, min(j0 + chunk, kernel.lanes))
+    out = torch.empty((sets, n, n), device=kernel.device, dtype=kernel.dtype)
+    for j0 in range(0, sets, chunk):
+        lanes = slice(j0, min(j0 + chunk, sets))
         low = eye.repeat(lanes.stop - j0, 1, 1)
         upp = torch.zeros_like(low)
         for d in range(1, p + 1):
-            low.diagonal(-d, 1, 2).copy_(kernel.lower[d - 1, d:, lanes].T)
+            low.diagonal(-d, 1, 2).copy_(lower[d - 1, d:, lanes].T)
         for d in range(q + 1):
-            upp.diagonal(d, 1, 2).copy_(kernel.upper[d, : n - d, lanes].T)
+            upp.diagonal(d, 1, 2).copy_(upper[d, : n - d, lanes].T)
         linv = torch.linalg.solve_triangular(low, eye, upper=False, unitriangular=True)
         out[lanes] = torch.linalg.solve_triangular(upp, linv, upper=True)
     return out
@@ -386,7 +497,7 @@ def banded_cases(torch, pt, model, rng, timing):
             cases.append((f"{tag}_axis{axis}", adi.solvers[axis].solver, b, axis, per_step, lib))
     banded = model.solver_pres._solver.banded
     b = rand(model.pseu_space.shape_spectral)
-    inv = per_lane_inverses(torch, banded.kernel) if timing else None
+    inv = banded_inverses(torch, banded.kernel) if timing else None
     for label, rhs, axis, per_step in (("poisson_axis1", b, 1, 1),
                                        ("poisson_axis0", b.T.contiguous(), 0, 0)):
         lib = None if inv is None else (
@@ -407,7 +518,8 @@ def phase_banded(torch, pt, model, limit, timing):
         out_k = solver.solve(b, axis)
         torch.cuda.synchronize()
         diff, rel = lane_rel_err(torch, out_k, solver.plain(b, axis), axis)
-        rec = {"kernel": "banded_solve", "case": label, "n": model.nx, "per_step": per_step,
+        rec = {"kernel": "banded_solve", "route": "dense", "case": label, "n": model.nx,
+               "per_step": per_step,
                "per_lane": solver.kernel.per_lane,
                "dtype": str(model.dtype).replace("torch.", ""),
                "max_abs_err": diff, "max_rel_err": rel}
@@ -498,6 +610,259 @@ def phase_solvers(torch, pt, model):
     return times
 
 
+# -- the meshed route ------------------------------------------------------------------
+
+
+def banded_solvers(model) -> dict:
+    """``{label: BandedSolver}`` of the banded solves of ``model``'s dense
+    step (velx and vely share one ADI solver)."""
+    out = {f"{tag}_axis{axis}": adi.solvers[axis].solver
+           for tag, adi in (("velx", model.solver_velx), ("temp", model.solver_temp))
+           for axis in (1, 0)}
+    out["poisson"] = model.solver_pres._solver.banded
+    return out
+
+
+def step_inputs(torch, model):
+    """What one meshed step gives its kernels: ``{(input shape, x_to_y):
+    flips}``, ``{(solver label, input shape, axis, factor batch stride):
+    solves}`` and, under the same keys, a copy of the first input of each
+    such solve.  The mesh's transpose and the model's banded solvers are
+    wrapped for the step to log their inputs, and the model's state and
+    time are put back after it (this step's launches are not read)."""
+    flips, solves, inputs = {}, {}, {}
+
+    def count(log, key):
+        log[key] = log.get(key, 0) + 1
+
+    ring = model.mesh.ring
+
+    def log_flip(block, x_to_y, apply=ring.apply):
+        count(flips, (tuple(block.shape), bool(x_to_y)))
+        return apply(block, x_to_y)
+
+    wrapped = [(ring, "apply", log_flip)]
+    for label, solver in banded_solvers(model).items():
+        def log_solve(b, axis, factor_batch_stride=0, label=label, solve=solver.solve):
+            key = (label, tuple(b.shape), axis, factor_batch_stride)
+            count(solves, key)
+            inputs.setdefault(key, b.clone())
+            return solve(b, axis, factor_batch_stride)
+
+        wrapped.append((solver, "solve", log_solve))
+    state, t = model.state, model.time
+    for obj, name, fn in wrapped:
+        setattr(obj, name, fn)
+    try:
+        model.update_n(1)
+    finally:
+        for obj, name, _ in wrapped:
+            delattr(obj, name)
+        model.state, model.time = state, t
+    torch.cuda.synchronize()
+    return flips, solves, inputs
+
+
+def phase_mesh_banded(torch, model, solves, inputs, limit):
+    """Phase 12, the banded kernel on the meshed route: every input a
+    meshed rbc1025 step gives it (``solves``, ``inputs``, from
+    :func:`step_inputs`), random and as the step gave it, against the
+    plain version at ``limit`` of each lane's scale (random input) and at
+    ``STEP_INPUT_LIMIT`` of the solve's scale (the step's input).  On the step's input the Poisson solve's nudged singular lane
+    is held apart: its solution is the rhs's rounding amplified
+    (``step_input_singular_rel_err``).  Timed warm (10 reps, as phase 6 times) on the
+    random input, on the same values with the step's exact zeros (the pad
+    rows and lanes: all of them, the lanes only, the rows only), on the
+    step's own input and on the random input again, then with the L2
+    flushed; ``library_ms`` one ``torch.matmul`` with the inverses of the
+    padded systems, per lane for the Poisson solve (rank r reads lanes
+    r * stride..).  Returns the records."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    solvers = banded_solvers(model)
+    pres = model.solver_pres._solver
+    singular = np.flatnonzero(np.abs(pres.lam + pres.alpha) < 1e-8)
+    inverses = {}
+    records = []
+    for (label, shape, axis, stride), per_step in sorted(solves.items()):
+        solver = solvers[label]
+        b = torch.as_tensor(rng.uniform(-1.0, 1.0, size=shape), dtype=model.dtype).to(model.device)
+        out_k = solver.solve(b, axis, stride)
+        torch.cuda.synchronize()
+        diff, rel = lane_rel_err(torch, out_k, solver.plain(b, axis, stride), axis)
+        given = inputs[(label, shape, axis, stride)]
+        out_given = solver.solve(given, axis, stride)
+        torch.cuda.synchronize()
+        plain_given = solver.plain(given, axis, stride)
+        err = torch.abs(out_given - plain_given)
+        apart = torch.zeros_like(err[..., :1] if axis == b.ndim - 1 else err[:, :1],
+                                 dtype=torch.bool)
+        if label == "poisson":  # y-pencil lanes: global lane i is rank i // stride's lane i % stride
+            for i in singular:
+                apart[i // stride, i % stride] = True
+        kept = torch.where(apart, torch.zeros_like(plain_given), plain_given)
+        rel_given = float(torch.max(torch.where(apart, torch.zeros_like(err), err))) / \
+            float(torch.max(torch.abs(kept)))
+        rel_apart = float(torch.max(torch.where(apart, err, torch.zeros_like(err)))) / \
+            float(torch.max(torch.abs(plain_given)))
+        zeros = given == 0
+        others = tuple(d for d in range(b.ndim) if d != axis)
+        variants = {"zero_pattern": b * ~zeros,
+                    "zero_lanes": b * ~torch.all(zeros, dim=axis, keepdim=True),
+                    "zero_rows": b * ~torch.all(zeros, dim=others, keepdim=True)}
+        if label not in inverses:
+            inverses[label] = banded_inverses(torch, solver.kernel)
+        inv = inverses[label]
+        if not solver.kernel.per_lane:
+            def lib(inv=inv[0], b=b, axis=axis):
+                return torch.movedim(torch.matmul(inv, torch.movedim(b, axis, -2)), -2, axis)
+        else:
+            if axis != b.ndim - 1:
+                raise AssertionError(f"banded_solve/{label}: per-lane solve along axis {axis}")
+            ranks, lanes = b.shape[0], b.shape[1]
+            idx = (torch.arange(ranks, device=b.device)[:, None] * stride
+                   + torch.arange(lanes, device=b.device)[None, :])
+            lane_inv = inv.view(ranks, lanes, *inv.shape[1:]) if ranks * stride == inv.shape[0] \
+                and stride == lanes else inv[idx]
+
+            def lib(inv=lane_inv, b=b):
+                return torch.matmul(inv, b[..., None])[..., 0]
+        n = shape[axis]
+        shape3 = (1, n, b.numel() // n)
+        flops, nbytes = solver.kernel.flops(shape3), solver.kernel.bytes_moved(shape3)
+        t_op = flops / (F64_TFLOPS * 1e12) * 1e3
+        t_mem = nbytes / (HBM_TB_PER_S * 1e12) * 1e3
+        rec = {"kernel": "banded_solve", "route": "mesh", "case": label, "shape": list(shape),
+               "axis": axis, "factor_batch_stride": stride, "per_step": per_step,
+               "per_lane": solver.kernel.per_lane, "dtype": str(model.dtype).replace("torch.", ""),
+               "max_abs_err": diff, "max_rel_err": rel,
+               "step_input_max_rel_err": rel_given, "step_input_singular_rel_err": rel_apart,
+               "step_input_zeros": int(zeros.sum()),
+               "library_max_rel_err": lane_rel_err(torch, lib(), out_k, axis)[1],
+               "kernel_ms": time_ms(torch, lambda: solver.solve(b, axis, stride), 10)}
+        for name, v in variants.items():
+            rec[f"kernel_{name}_ms"] = time_ms(torch, lambda v=v: solver.solve(v, axis, stride), 10)
+        rec.update(
+            kernel_step_input_ms=time_ms(torch, lambda: solver.solve(given, axis, stride), 10),
+            kernel_repeat_ms=time_ms(torch, lambda: solver.solve(b, axis, stride), 10),
+            kernel_cold_ms=time_cold_ms(torch, lambda: solver.solve(b, axis, stride), 10),
+            plain_ms=time_ms(torch, lambda: solver.plain(b, axis, stride), 3),
+            library_ms=time_ms(torch, lib, 10), flops=flops, bytes=nbytes,
+            bound_ms=max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
+        print("phase12 " + json.dumps(rec))
+        if not (rel <= limit and rel_given <= STEP_INPUT_LIMIT):
+            raise AssertionError(f"banded_solve/{label} {shape} on the mesh: rel err {rel:.3e} "
+                                 f"(limit {limit:g}), on the step's input {rel_given:.3e} "
+                                 f"(limit {STEP_INPUT_LIMIT:g})")
+        if not rec["library_max_rel_err"] <= LIBRARY_LIMIT:
+            raise AssertionError(f"banded_solve/{label} {shape}: the library yardstick solves "
+                                 f"another system (rel err {rec['library_max_rel_err']:.3e})")
+        records.append(rec)
+    step = {key: sum(r["per_step"] * r[key] for r in records)
+            for key in records[0] if key.startswith("kernel_") or key in (
+                "plain_ms", "library_ms", "bound_ms")}
+    print(f"phase12 banded_solve, one meshed step ({sum(r['per_step'] for r in records)} "
+          "launches): " + json.dumps(step))
+    return records
+
+
+def ring_case(torch, pt, mesh, pencil_shape, x_to_y, dtype, rng):
+    """A random input of ``pencil_shape`` with a zero pad, as the step
+    gives the flip."""
+    p = mesh.nranks
+    if x_to_y:
+        shape = (pencil_shape[1], pencil_shape[2] * p)
+        place = "place_x_pencil"
+    else:
+        shape = (pencil_shape[1] * p, pencil_shape[2])
+        place = "place_y_pencil"
+    values = rng.uniform(-1.0, 1.0, size=shape)
+    return getattr(pt.parallel.Decomp2d(shape, mesh), place)(values, dtype)
+
+
+def ring_library(block, p, x_to_y):
+    """One PyTorch call for the same function: ``.contiguous()`` of the
+    permuted view (timed here only; the port never calls it)."""
+    if x_to_y:
+        c, w = block.shape[1] // p, block.shape[2]
+        return block.view(p, p, c, w).permute(1, 2, 0, 3).contiguous().view(p, c, p * w)
+    c, w = block.shape[1], block.shape[2] // p
+    return block.view(p, c, p, w).permute(2, 0, 1, 3).contiguous().view(p, p * c, w)
+
+
+def phase_ring(torch, pt, mesh, flips):
+    """Phase 12: the pencil-transpose kernel bit for bit against its plain
+    ring and against the library call, both directions, at the specified
+    shapes and at every shape a meshed rbc1025 step flips (``flips``);
+    timed at the rbc1025 ones.  Returns the records of the step's flips
+    (``per_step``: how often a step flips that shape)."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    p = mesh.nranks
+    ring = mesh.ring
+    checks = []  # (label, pencil shape, x_to_y, dtype, timed, per_step)
+    for label, n, timed in (("rbc1025_spectral", 1023, True), ("rbc1025_physical", 1025, True),
+                            ("n129_physical", 129, False), ("n129_spectral", 127, False)):
+        np_ = n + (-n) % p
+        for x_to_y in (True, False):
+            shape = (p, np_, np_ // p) if x_to_y else (p, np_ // p, np_)
+            dtypes = (torch.float64,) if timed else (torch.float64, torch.float32)
+            for dtype in dtypes:
+                checks.append((label, shape, x_to_y, dtype, timed, 0))
+    for (shape, x_to_y), count in sorted(flips.items()):
+        checks.append(("step", shape, x_to_y, torch.float64, True, count))
+    records = []
+    for label, shape, x_to_y, dtype, timed, per_step in checks:
+        block = ring_case(torch, pt, mesh, shape, x_to_y, dtype, rng)
+        before = ring.launches
+        out = ring.apply(block, x_to_y)
+        torch.cuda.synchronize()
+        plain = ring.plain(block, x_to_y)
+        lib = ring_library(block, p, x_to_y)
+        diff = float(torch.max(torch.abs(out - plain)))
+        rec = {"kernel": "ring_transpose", "route": "mesh", "case": label, "shape": list(shape),
+               "x_to_y": x_to_y, "per_step": per_step,
+               "dtype": str(dtype).replace("torch.", ""), "max_abs_err": diff,
+               "max_rel_err": diff / float(torch.max(torch.abs(plain)))}
+        if not (torch.equal(out, plain) and torch.equal(out, lib)) or ring.launches != before + 1:
+            raise AssertionError(f"ring_transpose {label} {shape} x_to_y={x_to_y} {dtype}: "
+                                 f"kernel differs from its plain version (max {diff:.3e}) or "
+                                 "did not launch once")
+        if timed:
+            nbytes = ring.bytes_moved(block)
+            warm, host = time_queued_ms(torch, lambda: ring.apply(block, x_to_y), 50)
+            rec.update(kernel_ms=time_cold_ms(torch, lambda: ring.apply(block, x_to_y), 50),
+                       kernel_warm_ms=warm, kernel_enqueue_ms=host,
+                       plain_ms=time_queued_ms(torch, lambda: ring.plain(block, x_to_y), 10)[0],
+                       library_ms=time_cold_ms(torch, lambda: ring_library(block, p, x_to_y), 50),
+                       bytes=nbytes, bound_ms=nbytes / (HBM_TB_PER_S * 1e12) * 1e3,
+                       bound_by="bytes")
+        print("phase12 " + json.dumps(rec))
+        records.append(rec)
+    return [r for r in records if r["per_step"]]
+
+
+def phase_meshed_vs_serial(pt):
+    """Phase 13: the meshed route against the serial dense route on the
+    card after 10 steps at 129^2 (rel 1e-11 of each field's scale)."""
+    states = {}
+    for name, route in (("mesh", dict(mesh=pt.make_mesh(MESH_RANKS))), ("serial", DENSE)):
+        m = pt.Navier2D(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc", device="cuda", **route)
+        m.init_random(0.1, seed=0)
+        m.update_n(10)
+        states[name] = pt.convert.state_to_numpy(m)
+    worst = 0.0
+    for name, ref in states["serial"].items():
+        rel = float(abs(states["mesh"][name] - ref).max() / max(abs(ref).max(), 1e-300))
+        worst = max(worst, rel)
+        if not rel <= 1e-11:
+            raise AssertionError(f"meshed vs serial {name}: rel {rel:.3e} > 1e-11")
+    print(f"phase13 meshed ({MESH_RANKS} ranks) vs serial dense 129^2 f64 10 steps on the card: "
+          f"max rel diff {worst:.3e} (limit 1e-11)")
+
+
 # -- the kernels line --------------------------------------------------------------
 
 
@@ -508,34 +873,57 @@ KERNEL_META = {
                     "rustpde_mpi_tpu/ops/pallas_step.py:95"),
     "banded_solve": ("rustpde_mpi_tpu_torch/csrc/banded_solve.cu",
                      "rustpde_mpi_tpu/ops/pallas_banded.py:36"),
+    "ring_transpose": ("rustpde_mpi_tpu_torch/csrc/ring_transpose.cu",
+                       "rustpde_mpi_tpu/parallel/decomp.py:257"),
 }
+#: the route whose step each kernel's main numbers sum; a kernel that
+#: another route runs too gets that route's sums beside them, prefixed with
+#: the route's name
+MAIN_ROUTE = {"fused_conv": "fused", "fused_stage": "fused", "banded_solve": "dense",
+              "ring_transpose": "mesh"}
+ROUTE_NAME = {"fused": "the fused route", "dense": "the dense route",
+              "mesh": f"the meshed route ({MESH_RANKS} ranks on the card)"}
+
+
+def route_sums(rows) -> dict:
+    """Times of one step of a route: each record's numbers times its
+    launches a step, summed (None where a record lacks one)."""
+
+    def total(key):
+        vals = [(r["per_step"], r.get(key)) for r in rows if r["per_step"]]
+        if any(v is None for _, v in vals):
+            return None
+        return sum(k * v for k, v in vals)
+
+    return {"ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "library_ms": total("library_ms"),
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows)
+            else "bytes"}
 
 
 def kernels_line(records, launches, solver_times):
-    """One entry per kernel, its times summed over one step of the route
-    that runs it (fused: 3 conv chains, 2 without bc and 1 with, the 7
-    stages once each; dense: the 7 banded solves)."""
+    """One entry per kernel, its times summed over one step of its main
+    route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
+    each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
+    timed at its own shape, with the L2 flushed), and, for the banded
+    kernel, the 7 solves of a meshed step beside them (``mesh_*``).
+    ``launches[route][kernel]`` is the count of that route's counted run."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rows = [r for r in records if r["kernel"] == kernel]
-
-        def total(key, rows=rows):
-            vals = [(r["per_step"], r[key]) for r in rows if r["per_step"]]
-            if any(v is None for _, v in vals):
-                return None
-            return sum(k * v for k, v in vals)
-
+        main = MAIN_ROUTE[kernel]
         entry = {
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kernel],
+            "launches": launches[main][kernel],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
-            "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows) else "bytes",
-            "library_ms": total("library_ms"),
-            "per": "one step of rbc1025 f64",
+            **route_sums([r for r in rows if r["route"] == main]),
+            "per": f"one step of rbc1025 f64 on {ROUTE_NAME[main]}",
         }
+        for route in sorted({r["route"] for r in rows if r["per_step"]} - {main}):
+            sums = route_sums([r for r in rows if r["route"] == route])
+            entry.update({f"{route}_{k}": v for k, v in sums.items() if k != "bound_by"})
+            entry[f"{route}_launches"] = launches[route][kernel]
         if kernel == "banded_solve":
             entry.update(solver_times)
         out.append(entry)
@@ -579,7 +967,7 @@ def main() -> int:
     print("phase1 ok")
     phase_golden(pt)
     phase_card_vs_cpu(pt)
-    launches = phase_main(torch, pt, main_model)
+    launches = {"fused": phase_main(torch, pt, main_model)}
     phase_profile(torch, main_model)
 
     t0 = time.perf_counter()
@@ -593,9 +981,33 @@ def main() -> int:
     phase_mms(torch, pt)
     phase_golden(pt, "phase8", **DENSE)
     phase_card_vs_cpu(pt, "phase9", **DENSE)
-    launches.update(phase_main(torch, pt, dense_model, "phase10"))
+    launches["dense"] = phase_main(torch, pt, dense_model, "phase10")
     phase_profile(torch, dense_model, phase="phase10")
     solver_times = phase_solvers(torch, pt, dense_model)
+    del dense_model
+
+    t0 = time.perf_counter()
+    mesh = pt.make_mesh(MESH_RANKS)
+    mesh_model = pt.Navier2D.new_confined(**RBC1025, mesh=mesh)
+    print(f"rbc1025 meshed-route model build ({mesh}): {time.perf_counter() - t0:.2f} s")
+    flips, solves, inputs = step_inputs(torch, mesh_model)
+    print("phase12 flips of one meshed step: " + json.dumps(
+        [{"shape": list(k[0]), "x_to_y": k[1], "count": v} for k, v in sorted(flips.items())]))
+    print("phase12 banded solves of one meshed step: " + json.dumps(
+        [{"solver": k[0], "shape": list(k[1]), "axis": k[2], "factor_batch_stride": k[3],
+          "count": v} for k, v in sorted(solves.items())]))
+    for name, counted in (("ring_transpose", sum(flips.values())),
+                          ("banded_solve", sum(solves.values()))):
+        if counted != PER_STEP["mesh"][name]:
+            raise AssertionError(f"a meshed step ran {name} {counted} times")
+    records += phase_ring(torch, pt, mesh, flips)
+    records += phase_mesh_banded(torch, mesh_model, solves, inputs, 1e-12)
+    del inputs
+    print("phase12 ok")
+    phase_golden(pt, "phase13", mesh=pt.make_mesh(MESH_RANKS))
+    phase_meshed_vs_serial(pt)
+    launches["mesh"] = phase_main(torch, pt, mesh_model, "phase13")
+    phase_profile(torch, mesh_model, phase="phase13")
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,17 +12,24 @@ versions on the CPU.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``::
 
-    from rustpde_mpi_tpu_torch import Navier2D, integrate
+    from rustpde_mpi_tpu_torch import Navier2D, integrate, make_mesh
 
     model = Navier2D.new_confined(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc")
     integrate(model, 1.0, 0.1)
     dense = Navier2D.new_confined(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc",
                                   step_kernel="dense", conv_kernel="dense")
+    meshed = Navier2D.new_confined(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc",
+                                   mesh=make_mesh(4))
+
+The meshed model runs the dense route on fields split over 4 ranks of one
+card (:mod:`.parallel`), every pencil flip through a hand-written CUDA
+transpose kernel.
 """
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
 from .bases import Base, BaseKind, Space2, cheb_dirichlet, cheb_neumann, chebyshev  # noqa: F401
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
 from .models.navier import Navier2D, NavierState  # noqa: F401
+from .parallel import Decomp2d, Mesh, make_mesh  # noqa: F401
 from .solver import FastDiag, Hholtz, HholtzAdi, Poisson, TensorSolver  # noqa: F401
 from .utils.integrate import integrate  # noqa: F401

@@ -176,7 +176,18 @@ class Space2:
     one dtype.  Arrays are ``(..., n_x, n_y)`` physical or ``(..., m_x,
     m_y)`` spectral; leading batch dimensions broadcast through the matrix
     products.  ``device`` goes through :func:`..config.resolve_device`, so
-    ``"cuda"`` names the current card (and raises without one)."""
+    ``"cuda"`` names the current card (and raises without one).
+
+    A field of this space is held whole.  The pencil space of
+    :mod:`.parallel.spaces` splits it over a mesh of ranks; both answer the
+    layout calls (``place_*``, ``gather_*``, ``x_to_y``/``y_to_x``,
+    ``weighted_sum``, ``apply_operators``), which are the identity or one
+    product here, so a model or solver never asks which layout it runs
+    on."""
+
+    #: no mesh: one rank holds the whole field
+    mesh = None
+    nranks = 1
 
     def __init__(self, base_x: Base, base_y: Base, *, device, dtype):
         self.bases = (base_x, base_y)
@@ -203,26 +214,73 @@ class Space2:
     def ndarray_spectral(self) -> torch.Tensor:
         return torch.zeros(self.shape_spectral, device=self.device, dtype=self.dtype)
 
+    def axis_matrix(self, axis: int, key) -> np.ndarray | None:
+        """Host f64 matrix of one axis operator (None: the identity, which
+        the orthogonal base's stencil and projection are)."""
+        base = self.bases[axis]
+        if key in ("stencil", "proj") and base.kind == BaseKind.CHEBYSHEV:
+            return None
+        return base.axis_operator(key).matrix
+
+    def operator(self, mat: np.ndarray) -> torch.Tensor:
+        """A host operator matrix in this space's device and dtype."""
+        return config.to_device(mat, self.device, self.dtype)
+
     def _mat(self, axis: int, key) -> torch.Tensor | None:
-        """Device copy of one axis operator (None: the identity, which the
-        orthogonal base's stencil and projection are)."""
+        """Device copy of one axis operator (None: the identity)."""
         ck = (axis, key)
         if ck not in self._mats:
-            base = self.bases[axis]
-            if key in ("stencil", "proj") and base.kind == BaseKind.CHEBYSHEV:
-                self._mats[ck] = None
-            else:
-                mat = base.axis_operator(key).matrix
-                self._mats[ck] = config.to_device(mat, self.device, self.dtype)
+            mat = self.axis_matrix(axis, key)
+            self._mats[ck] = None if mat is None else self.operator(mat)
         return self._mats[ck]
 
     def _apply(self, v: torch.Tensor, kx, ky) -> torch.Tensor:
         """``M_x @ v @ M_y^T`` for the axis operators named ``kx``, ``ky``."""
         if v.ndim < 2:
             raise ValueError(f"Space2 expects a (..., nx, ny) array, got rank {v.ndim}")
-        mx, my = self._mat(0, kx), self._mat(1, ky)
-        out = v if mx is None else torch.matmul(mx, v)
-        return out if my is None else torch.matmul(out, my.T)
+        return self.apply_operators(v, self._mat(0, kx), self._mat(1, ky))
+
+    # -- layout ---------------------------------------------------------------
+
+    def place_physical(self, values) -> torch.Tensor:
+        """Global physical values (host array or tensor) as this space
+        holds them: a copy in its device and dtype."""
+        return torch.tensor(np.ascontiguousarray(values), dtype=self.dtype, device=self.device)
+
+    def place_spectral(self, values) -> torch.Tensor:
+        """Global spectral (or ortho-space) values as this space holds
+        them."""
+        return self.place_physical(values)
+
+    def gather_physical(self, v: torch.Tensor) -> torch.Tensor:
+        """The global physical field of ``v`` (``v`` itself)."""
+        return v
+
+    def gather_spectral(self, vhat: torch.Tensor) -> torch.Tensor:
+        """The global spectral field of ``vhat`` (``vhat`` itself)."""
+        return vhat
+
+    def x_to_y(self, v: torch.Tensor) -> torch.Tensor:
+        """The flip to the layout with axis 1 local: the identity, as both
+        axes are."""
+        return v
+
+    def y_to_x(self, v: torch.Tensor) -> torch.Tensor:
+        """The flip to the layout with axis 0 local: the identity."""
+        return v
+
+    def weighted_sum(self, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``sum(v * w)`` over the field, a 0-d tensor (``w`` placed as
+        ``v`` is)."""
+        return torch.sum(v * w)
+
+    def apply_operators(self, v: torch.Tensor, a0, a1) -> torch.Tensor:
+        """``A0 @ v @ A1^T`` of the device matrices ``a0``, ``a1`` (from
+        :meth:`operator`; None: the identity).  Callers outside this class
+        give it a spectral field and get one back, which is what the pencil
+        space's counterpart takes and gives."""
+        out = v if a0 is None else torch.matmul(a0, v)
+        return out if a1 is None else torch.matmul(out, a1.T)
 
     # -- transforms ---------------------------------------------------------
 
@@ -250,25 +308,17 @@ class Space2:
     def from_ortho(self, c: torch.Tensor) -> torch.Tensor:
         return self._apply(c, "proj", "proj")
 
-    @staticmethod
-    def _divide_scale(out, deriv, scale):
-        if scale is not None:
-            factor = (scale[0] ** deriv[0]) * (scale[1] ** deriv[1])
-            if factor != 1.0:
-                out = out / factor
-        return out
-
     def gradient(self, vhat: torch.Tensor, deriv, scale=None) -> torch.Tensor:
         """d^deriv[0]/dx d^deriv[1]/dy in ortho space, divided by
         scale^deriv."""
         kx, ky = (("grad", d) if d else "stencil" for d in deriv)
-        return self._divide_scale(self._apply(vhat, kx, ky), deriv, scale)
+        return divide_scale(self._apply(vhat, kx, ky), deriv, scale)
 
     def backward_gradient(self, vhat: torch.Tensor, deriv, scale=None) -> torch.Tensor:
         """Physical values of the derivative: ``backward_ortho(gradient(.))``
         as one synthesis-of-derivative product per axis."""
         kx, ky = (("bwd_grad", d) if d else "bwd" for d in deriv)
-        return self._divide_scale(self._apply(vhat, kx, ky), deriv, scale)
+        return divide_scale(self._apply(vhat, kx, ky), deriv, scale)
 
     # -- helpers --------------------------------------------------------------
 
@@ -284,16 +334,25 @@ class Space2:
         return out
 
 
+def divide_scale(out: torch.Tensor, deriv, scale) -> torch.Tensor:
+    """A derivative in unit coordinates divided by ``scale^deriv``, the
+    derivative in scaled coordinates (unchanged without a scale)."""
+    if scale is None:
+        return out
+    factor = (scale[0] ** deriv[0]) * (scale[1] ** deriv[1])
+    return out if factor == 1.0 else out / factor
+
+
 def fused_projection_gradient(space_out: Space2, space_in: Space2, deriv) -> tuple:
     """Per-axis device matrices that apply
     ``space_out.from_ortho(space_in.gradient(., deriv))`` as one matrix
     product per axis: ``P_out @ D^order @ S_in`` (the JAX package's function
     of the same name, as one dense matrix per axis; the pressure-projection
     velocity correction of the dense step).  The result is
-    ``M0 @ v @ M1^T``, not yet divided by the scale."""
+    ``M0 @ v @ M1^T``, not yet divided by the scale; the matrices are in
+    ``space_out``'s device, dtype and layout (``space_out.operator``)."""
     mats = []
     for axis, order in enumerate(deriv):
         b_out, b_in = space_out.bases[axis], space_in.bases[axis]
-        mat = b_out.projection @ b_in.gradient_matrix(order)
-        mats.append(config.to_device(mat, space_out.device, space_out.dtype))
+        mats.append(space_out.operator(b_out.projection @ b_in.gradient_matrix(order)))
     return tuple(mats)

@@ -16,6 +16,13 @@ package's ``RUSTPDE_CONV_KERNEL`` / ``RUSTPDE_STEP_KERNEL``, its
   pseudo-pressure), whose banded substitutions run the kernel of
   :mod:`..ops.banded_solve`, seven launches a step.
 
+``mesh=`` (a :class:`..parallel.mesh.Mesh`) runs the dense route on fields
+split over the mesh's ranks, as the JAX package's meshed model does: the
+state lives in spectral x-pencils, physical data in y-pencils, every pencil
+flip runs the pencil-transpose kernel of :mod:`..ops.ring_transpose`, and
+every banded solve one launch for all ranks.  The JAX package builds no
+fused stages under a mesh, so the fused kernels are refused there.
+
 Each kernel runs as hand-written CUDA on a CUDA device and as its plain
 PyTorch version on the CPU.
 
@@ -37,9 +44,10 @@ import torch
 
 from .. import config
 from ..bases import Space2, cheb_dirichlet, cheb_neumann, chebyshev, fused_projection_gradient
-from ..field import average_weights, norm_l2
+from ..field import average_weights
 from ..ops.fused_conv import build_model_convs
 from ..ops.fused_step import build_model_step
+from ..parallel.spaces import PencilSpace2
 from ..solver import HholtzAdi, Poisson
 from . import boundary_conditions as bcs
 from . import functions as fns
@@ -63,19 +71,32 @@ class Navier2D(CampaignModelBase):
     ``bc`` must be ``"rbc"``.  ``device`` defaults to ``"cuda"`` and raises
     without a card unless ``"cpu"`` is passed; ``dtype`` is float64 or
     float32.  ``conv_kernel`` and ``step_kernel`` are each ``"fused"`` (the
-    default) or ``"dense"`` (see the module docstring)."""
+    default) or ``"dense"`` (see the module docstring).  ``mesh``: split
+    the fields over its ranks (dense route only; the device is the
+    mesh's)."""
 
     observable_names = ("nu", "nuvol", "re", "div")
 
     def __init__(self, nx: int, ny: int, ra: float, pr: float, dt: float,
                  aspect: float, bc: str = "rbc", *, device=None,
-                 dtype=config.DEFAULT_DTYPE, conv_kernel: str = "fused",
-                 step_kernel: str = "fused"):
+                 dtype=config.DEFAULT_DTYPE, conv_kernel: str | None = None,
+                 step_kernel: str | None = None, mesh=None):
         if bc != "rbc":
             raise ValueError(f"boundary condition type {bc!r} is not ported (only 'rbc')")
+        default = "fused" if mesh is None else "dense"
+        conv_kernel = default if conv_kernel is None else conv_kernel
+        step_kernel = default if step_kernel is None else step_kernel
         for name, value in (("conv_kernel", conv_kernel), ("step_kernel", step_kernel)):
             if value not in ("fused", "dense"):
                 raise ValueError(f"{name} must be 'fused' or 'dense', got {value!r}")
+            if mesh is not None and value == "fused":
+                raise ValueError(f"{name}='fused' has no pencil form: a meshed model runs "
+                                 "the dense route")
+        if mesh is not None:
+            if device is not None and config.resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.conv_kernel, self.step_kernel = conv_kernel, step_kernel
         self.device = config.resolve_device(device)
         self.dtype = config.check_dtype(dtype)
@@ -90,22 +111,30 @@ class Navier2D(CampaignModelBase):
         self._init_campaign()
 
         kw = dict(device=self.device, dtype=self.dtype)
-        self.velx_space = Space2(cheb_dirichlet(nx), cheb_dirichlet(ny), **kw)
+
+        def space(bx, by):
+            sp = Space2(bx, by, **kw)
+            return sp if mesh is None else PencilSpace2(sp, mesh)
+
+        self.velx_space = space(cheb_dirichlet(nx), cheb_dirichlet(ny))
         self.vely_space = self.velx_space
-        self.temp_space = Space2(cheb_neumann(nx), cheb_dirichlet(ny), **kw)
-        self.pres_space = Space2(chebyshev(nx), chebyshev(ny), **kw)
-        self.pseu_space = Space2(cheb_neumann(nx), cheb_neumann(ny), **kw)
-        self.field_space = Space2(chebyshev(nx), chebyshev(ny), **kw)
+        self.temp_space = space(cheb_neumann(nx), cheb_dirichlet(ny))
+        self.pres_space = space(chebyshev(nx), chebyshev(ny))
+        self.pseu_space = space(cheb_neumann(nx), cheb_neumann(ny))
+        self.field_space = space(chebyshev(nx), chebyshev(ny))
 
         xs, ys = (b.points for b in self.field_space.bases)
         self.x = [xs * self.scale[0], ys * self.scale[1]]
-        self._w0 = config.to_device(average_weights(xs), **kw)
-        self._w1 = config.to_device(average_weights(ys), **kw)
+        w0, w1 = average_weights(xs), average_weights(ys)
+        # physical fields of the plate (x only) and the volume weights (on a
+        # mesh the pad gets weight 0)
+        self._w_plate = self.field_space.place_physical(np.repeat(w0[:, None], ny, axis=1))
+        self._w_vol = self.field_space.place_physical(w0[:, None] * w1[None, :])
 
         self._build_bc_fields(xs, ys)
         self._convs = build_model_convs(self) if conv_kernel == "fused" else None
         if conv_kernel == "dense":
-            self._dealias = config.to_device(self.field_space.dealias_mask(), **kw)
+            self._dealias = self.field_space.place_spectral(self.field_space.dealias_mask())
         self._stages = build_model_step(self) if step_kernel == "fused" else None
         if step_kernel == "dense":
             # implicit solvers, as the JAX package builds them; velx and vely
@@ -142,6 +171,8 @@ class Navier2D(CampaignModelBase):
         if self.step_kernel == "dense":
             solvers = (self.solver_velx, self.solver_temp, self.solver_pres)
             out["banded_solve"] = [k for s in solvers for k in s.kernels()]
+        if self.mesh is not None:
+            out["ring_transpose"] = [self.mesh.ring]
         return out
 
     def _state_fields(self) -> list:
@@ -170,7 +201,11 @@ class Navier2D(CampaignModelBase):
             "diff": dt * ka * (sp.gradient(that, (2, 0), scale) + sp.gradient(that, (0, 2), scale)),
         }
         self.host_bc = {k: v.numpy() for k, v in host.items()}
-        dev = {k: v.to(device=self.device, dtype=self.dtype) for k, v in host.items()}
+        # ortho-space constants placed as spectral fields, the physical ones
+        # as physical fields
+        place = {"ortho": self.field_space.place_spectral, "diff": self.field_space.place_spectral,
+                 "dx": self.field_space.place_physical, "dy": self.field_space.place_physical}
+        dev = {k: place[k](v) for k, v in host.items()}
         self.tempbc_ortho = dev["ortho"]
         self._tempbc_dx, self._tempbc_dy = dev["dx"], dev["dy"]
         self._tempbc_diff = dev["diff"]
@@ -182,19 +217,21 @@ class Navier2D(CampaignModelBase):
         ``default_rng(seed)``, the same stream as the JAX package."""
         rng = np.random.default_rng(seed)
         for name in ("temp", "velx", "vely"):
-            space: Space2 = getattr(self, f"{name}_space")
+            space = getattr(self, f"{name}_space")
             self.set_field(name, fns.random_values(space.shape_physical, amp, rng))
 
     def set_field(self, name: str, values: np.ndarray) -> None:
-        """Set one variable from physical values (host -> device forward)."""
-        space: Space2 = getattr(self, f"{name}_space")
-        v = torch.tensor(np.asarray(values), dtype=self.dtype, device=self.device)
+        """Set one variable from physical values (host -> device forward;
+        on a mesh scattered to y-pencils first)."""
+        space = getattr(self, f"{name}_space")
+        v = space.place_physical(np.asarray(values))
         self.state = self.state._replace(**{name: space.forward(v)})
 
     def get_field(self, name: str) -> np.ndarray:
-        """Physical values of one variable (device backward -> host)."""
-        space: Space2 = getattr(self, f"{name}_space")
-        return space.backward(getattr(self.state, name)).cpu().numpy()
+        """Physical values of one variable (device backward -> host; on a
+        mesh gathered from the y-pencils)."""
+        space = getattr(self, f"{name}_space")
+        return space.gather_physical(space.backward(getattr(self.state, name))).cpu().numpy()
 
     # -- the time step -------------------------------------------------------
 
@@ -258,15 +295,20 @@ class Navier2D(CampaignModelBase):
         # pressure projection
         div = sp_u.gradient(velx_n, (1, 0), scale) + sp_v.gradient(vely_n, (0, 1), scale)
         pseu_n = sp_q.pin_zero_mode(self.solver_pres.solve(div))
-        gx0, gx1, gy0, gy1 = self._proj_grad
-        velx_n = velx_n - torch.matmul(torch.matmul(gx0, pseu_n), gx1.T) / scale[0]
-        vely_n = vely_n - torch.matmul(torch.matmul(gy0, pseu_n), gy1.T) / scale[1]
+        velx_n = velx_n - self._project(pseu_n, 0) / scale[0]
+        vely_n = vely_n - self._project(pseu_n, 1) / scale[1]
         pres_n = pres - nu * div + sp_q.to_ortho(pseu_n) / dt
         # temperature
         rhs = temp_ortho + self._tempbc_diff
         rhs = rhs - dt * self._conv(ux, uy, sp_t, temp, with_bc=True)
         temp_n = self.solver_temp.solve(rhs)
         return NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
+
+    def _project(self, pseu: torch.Tensor, axis: int) -> torch.Tensor:
+        """The pressure-projection correction of the velocity along
+        ``axis``, not yet divided by the scale: one matrix product per axis
+        (on a mesh with the pencil flip between them)."""
+        return self.velx_space.apply_operators(pseu, *self._proj_grad[2 * axis: 2 * axis + 2])
 
     # -- observables ---------------------------------------------------------
 
@@ -275,20 +317,29 @@ class Navier2D(CampaignModelBase):
             self.vely_space.gradient(state.vely, (0, 1), self.scale)
 
     def _observables(self, state: NavierState) -> torch.Tensor:
-        """(Nu, Nuvol, Re, |div|) as one tensor on the model's device."""
+        """(Nu, Nuvol, Re, |div|) as one tensor on the model's device.  Every
+        sum is the space's ``weighted_sum``: on a mesh per rank, then across
+        ranks (:func:`..parallel.decomp.all_gather_sum`), the pad with
+        weight 0."""
         sp_f = self.field_space
         scale = self.scale
         nu, ka = self.params["nu"], self.params["ka"]
-        w0, w1 = self._w0, self._w1
 
         def avg(v):
-            return torch.sum(v * w0[:, None] * w1[None, :])
+            return sp_f.weighted_sum(v, self._w_vol)
+
+        def plates(v):  # x-averages at the bottom and top plates, y = 0 and ny - 1
+            return tuple(sp_f.weighted_sum(v[..., j], self._w_plate[..., j]) * (-2.0 / scale[1])
+                         for j in (0, self.ny - 1))
+
+        def norm(v):  # the Frobenius norm of a spectral field
+            return torch.sqrt(sp_f.weighted_sum(v, v))
 
         that = self.temp_space.to_ortho(state.temp) + self.tempbc_ortho
         dtdy_p = sp_f.backward_gradient(that, (0, 1), None)
         # Nu: plate heat flux <-2/sy * dT/dy>_x averaged over both plates
-        x_avg = torch.sum(dtdy_p * w0[:, None], dim=0) * (-2.0 / scale[1])
-        nu_plate = 0.5 * (x_avg[0] + x_avg[-1])
+        bottom, top = plates(dtdy_p)
+        nu_plate = 0.5 * (bottom + top)
         # Nuvol: <2 sy (uy T / ka - dT/dy / sy)>_V
         temp_p = sp_f.backward_ortho(that)
         uy = self.vely_space.backward(state.vely)
@@ -296,7 +347,7 @@ class Navier2D(CampaignModelBase):
         # Re: <sqrt(ux^2+uy^2) * 2 sy / nu>_V
         ux = self.velx_space.backward(state.velx)
         re = avg(torch.sqrt(ux**2 + uy**2) * 2.0 * scale[1] / nu)
-        return torch.stack([nu_plate, nu_vol, re, norm_l2(self._div(state))])
+        return torch.stack([nu_plate, nu_vol, re, norm(self._div(state))])
 
     def eval_nu(self) -> float:
         return self.get_observables()[0]

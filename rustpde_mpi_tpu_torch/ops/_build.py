@@ -23,7 +23,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("banded_solve", "fused_conv", "fused_stage")
+KERNELS = ("banded_solve", "fused_conv", "fused_stage", "ring_transpose")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -67,7 +67,8 @@ _I = ctypes.c_int
 _JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _P], _I)
 _L = ctypes.c_longlong
 _DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P], _I)
-_BANDED_SIG = ([_I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _L, _L, _P, _L, _L, _L, _P], _I)
+_BANDED_SIG = ([_I, _I, _I, _I, _I, _P, _P, _I, _L, _L, _I, _P, _L, _L, _L, _P, _L, _L, _L, _P], _I)
+_RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _P], _I)
 _SIGNATURES = {
     "banded_solve": {
         "rp_banded_solve_f64": _BANDED_SIG,
@@ -80,6 +81,10 @@ _SIGNATURES = {
     "fused_stage": {
         "rp_gemm_f64": _JOBS_SIG,
         "rp_gemm_f32": _JOBS_SIG,
+    },
+    "ring_transpose": {
+        "rp_ring_transpose_f64": _RING_SIG,
+        "rp_ring_transpose_f32": _RING_SIG,
     },
 }
 

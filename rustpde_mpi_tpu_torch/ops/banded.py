@@ -45,6 +45,26 @@ def dense_to_band(dense: np.ndarray, p: int, q: int) -> np.ndarray:
     return band
 
 
+def pad_band(band: np.ndarray, p: int, n_pad: int, lanes_pad: int | None = None) -> np.ndarray:
+    """Band storage ``(..., n, p+q+1)`` of the system padded with identity
+    rows up to ``n_pad`` and, for per-lane bands ``(lanes, n, p+q+1)``,
+    with identity systems up to ``lanes_pad`` lanes.  The pad rows couple
+    to no real row, so an unpivoted LU of the padded band gives the real
+    rows' factors bit for bit, and a solve leaves a zero pad zero: the
+    form of a system on pencils padded to a multiple of the rank count."""
+    band = np.asarray(band, dtype=np.float64)
+    n = band.shape[-2]
+    widths = [(0, 0)] * band.ndim
+    widths[-2] = (0, n_pad - n)
+    if lanes_pad is not None:
+        widths[0] = (0, lanes_pad - band.shape[0])
+    out = np.pad(band, widths)
+    out[..., n:, p] = 1.0
+    if lanes_pad is not None:
+        out[band.shape[0]:, :, p] = 1.0
+    return out
+
+
 def band_lu_factor(band: np.ndarray, p: int, q: int):
     """LU-factor (no pivoting) matrices given in band storage (see
     :func:`dense_to_band`), batched over leading dims.  The same operations
@@ -93,25 +113,27 @@ class BandedSolver:
     factors of ``A``: one set, ``(p, n)``/``(q+1, n)``, or one per lane,
     ``(lanes, p, n)``/``(lanes, q+1, n)``.  Per-lane factors align with the
     lanes the solve runs over: the axes after the solve axis, or, when it is
-    the last axis, the axis before it."""
+    the last axis, the axis before it.  ``pad_zeros``: see
+    :class:`..ops.banded_solve.BandedSolve`."""
 
-    def __init__(self, lower, upper, *, device, dtype):
-        self.kernel = BandedSolve(lower, upper, device=device, dtype=dtype)
+    def __init__(self, lower, upper, *, device, dtype, pad_zeros: bool = False):
+        self.kernel = BandedSolve(lower, upper, device=device, dtype=dtype, pad_zeros=pad_zeros)
         self.p, self.q, self.n = self.kernel.p, self.kernel.q, self.kernel.n
 
     @classmethod
     def from_dense(cls, dense, p: int, q: int, *, device, dtype) -> "BandedSolver":
         return cls(*banded_lu_factor(dense, p, q), device=device, dtype=dtype)
 
-    def solve(self, b: torch.Tensor, axis: int) -> torch.Tensor:
+    def solve(self, b: torch.Tensor, axis: int, factor_batch_stride: int = 0) -> torch.Tensor:
         """The solve along ``axis``, as one kernel launch on a strided
-        ``(batch, n, lanes)`` view of ``b``."""
-        return self._along(self.kernel.apply, b, axis)
+        ``(batch, n, lanes)`` view of ``b``.  ``factor_batch_stride``: see
+        :meth:`..ops.banded_solve.BandedSolve.apply`."""
+        return self._along(lambda v: self.kernel.apply(v, factor_batch_stride), b, axis)
 
-    def plain(self, b: torch.Tensor, axis: int) -> torch.Tensor:
+    def plain(self, b: torch.Tensor, axis: int, factor_batch_stride: int = 0) -> torch.Tensor:
         """The same solve through the kernel's plain PyTorch version, on
         any device (the kernel's yardstick on the card)."""
-        return self._along(self.kernel.plain, b, axis)
+        return self._along(lambda v: self.kernel.plain(v, factor_batch_stride), b, axis)
 
     @staticmethod
     def _along(fn, b: torch.Tensor, axis: int) -> torch.Tensor:

@@ -1,0 +1,123 @@
+"""The x <-> y pencil transpose of a rank-stacked field, on a CUDA kernel.
+
+Counterpart of the JAX package's ``parallel/decomp.py``
+``_ring_transpose_kernel`` (the Pallas TPU kernel) and of its off-TPU form
+``_ring_transpose_ppermute``.  A mesh of ``P`` ranks on one device holds a
+field as one tensor with the rank as its leading dimension
+(:mod:`..parallel.mesh`):
+
+* x-pencil ``(P, P*c, w)``: rank ``s`` holds columns ``s*w ..`` of the
+  padded ``(P*c, P*w)`` field;
+* y-pencil ``(P, c, P*w)``: rank ``r`` holds rows ``r*c ..``;
+
+and the flip is ``y[r, i, s*w + j] = x[s, r*c + i, j]`` (x -> y) or its
+inverse.  On a CUDA tensor :meth:`RingTranspose.apply` launches the
+hand-written kernel of ``csrc/ring_transpose.cu`` once and adds one to
+``RingTranspose.launches``; on a CPU tensor it runs
+:meth:`RingTranspose.plain`, the ring schedule of the JAX package in torch
+indexing: the diagonal copy, then P-1 shift steps in which every rank sends
+the chunk meant for the rank ``shift`` ahead.  Any other device raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import check_dtype
+from . import _build
+
+
+def transposed_shape(shape, nranks: int, x_to_y: bool) -> tuple[int, int, int]:
+    """The pencil shape a flip of a ``shape`` pencil gives."""
+    p, a, b = shape
+    if x_to_y:
+        return (p, a // nranks, b * nranks)
+    return (p, a * nranks, b // nranks)
+
+
+class RingTranspose:
+    """The pencil flip of one mesh: ``nranks`` ranks on ``device``, any
+    pencil extents, float64 or float32."""
+
+    def __init__(self, nranks: int, device):
+        self.nranks = int(nranks)
+        self.device = torch.device(device)
+        #: kernel launches on CUDA tensors
+        self.launches = 0
+
+    def _check(self, block, x_to_y: bool) -> None:
+        if block.device != self.device:
+            raise ValueError(f"pencil transpose input on {block.device}, the mesh is on "
+                             f"{self.device}")
+        check_dtype(block.dtype)
+        split = 1 if x_to_y else 2
+        if block.ndim != 3 or block.shape[0] != self.nranks or \
+                block.shape[split] % self.nranks:
+            want = "(P, P*c, w)" if x_to_y else "(P, c, P*w)"
+            raise ValueError(f"pencil transpose input: shape {tuple(block.shape)}, expected "
+                             f"{want} with P = {self.nranks}")
+
+    def x_to_y(self, block) -> torch.Tensor:
+        """x-pencil ``(P, P*c, w)`` -> y-pencil ``(P, c, P*w)``."""
+        return self.apply(block, True)
+
+    def y_to_x(self, block) -> torch.Tensor:
+        """y-pencil ``(P, c, P*w)`` -> x-pencil ``(P, P*c, w)``."""
+        return self.apply(block, False)
+
+    def apply(self, block, x_to_y: bool) -> torch.Tensor:
+        """The flip of ``block``: the CUDA kernel on a CUDA device, the
+        plain ring on the CPU."""
+        self._check(block, x_to_y)
+        if self.device.type == "cpu":
+            return self.plain(block, x_to_y)
+        if self.device.type != "cuda":
+            raise RuntimeError(f"no pencil-transpose kernel for device {self.device}")
+        out = self._launch(block, x_to_y)
+        self.launches += 1
+        return out
+
+    def plain(self, block, x_to_y: bool) -> torch.Tensor:
+        """The ring in plain PyTorch: at shift ``t`` (0 the diagonal copy)
+        every rank ``d`` sends its chunk for rank ``(d + t) % P``, which
+        stores it at slot ``d``.  Every element of the output is written
+        once, so it starts empty."""
+        p = self.nranks
+        out = torch.empty(transposed_shape(block.shape, p, x_to_y), device=block.device,
+                          dtype=block.dtype)
+        # xv[s, r] is chunk (s, r) in the x layout, yv[r, :, s] in the y layout
+        if x_to_y:
+            c, w = block.shape[1] // p, block.shape[2]
+            xv, yv = block.reshape(p, p, c, w), out.view(p, c, p, w)
+        else:
+            c, w = block.shape[1], block.shape[2] // p
+            xv, yv = out.view(p, p, c, w), block.reshape(p, c, p, w)
+        ranks = torch.arange(p, device=block.device)
+        for shift in range(p):
+            peer = (ranks + shift) % p
+            if x_to_y:
+                yv[peer, :, ranks] = xv[ranks, peer]
+            else:
+                xv[peer, ranks] = yv[ranks, :, peer]
+        return out
+
+    def bytes_moved(self, block) -> float:
+        """Bytes a flip of ``block`` must move: read once, written once."""
+        return 2.0 * block.numel() * block.element_size()
+
+    def _launch(self, block, x_to_y: bool) -> torch.Tensor:
+        if block.stride(2) != 1:
+            raise ValueError("the pencil-transpose kernel needs a unit stride along the "
+                             "last axis")
+        lib = _build.load("ring_transpose")
+        fn = lib.rp_ring_transpose_f64 if block.dtype == torch.float64 else \
+            lib.rp_ring_transpose_f32
+        p = self.nranks
+        out = torch.empty(transposed_shape(block.shape, p, x_to_y), device=block.device,
+                          dtype=block.dtype)
+        xp, yp = (block, out) if x_to_y else (out, block)
+        c, w = yp.shape[1], xp.shape[2]
+        _build.check(fn(p, c, w, xp.stride(0), xp.stride(1), yp.stride(0), yp.stride(1),
+                        block.data_ptr(), out.data_ptr(), int(x_to_y),
+                        _build.stream_handle(self.device)), fn.__name__)
+        return out

@@ -1,0 +1,123 @@
+"""Rank mesh and pencil layout of the port.
+
+Counterpart of the JAX package's ``parallel/mesh.py``.  The reference's
+pencil convention is kept:
+
+* **physical** data in y-pencils: axis 0 (x) split over the ranks, ``PHYS``;
+* **spectral** data in x-pencils: axis 1 (y) split over the ranks, ``SPEC``.
+
+A :class:`Mesh` is ``P`` ranks on one device under one controller, as a
+JAX ``Mesh`` is.  A field split over it is ONE tensor with the rank as its
+leading dimension, its extents zero-padded up to a multiple of ``P`` (as
+the JAX package's ``Decomp2d._pad``):
+
+* x-pencil ``(P, n0p, n1p / P)``: rank ``r`` holds columns ``r * n1p/P ..``;
+* y-pencil ``(P, n0p / P, n1p)``: rank ``r`` holds rows ``r * n0p/P ..``.
+
+So a product along a rank's local axis is one batched ``torch.matmul`` for
+all ranks.  The JAX package pins these layouts with sharding constraints
+and lets XLA insert the all-to-alls; PyTorch has no such compiler, so each
+flip is explicit here: :func:`apply_separable` and :func:`forward_separable`
+apply a 2-D separable operator with the flip between its two factors, and
+every flip runs the pencil-transpose kernel of :mod:`..ops.ring_transpose`.
+Pad rows and columns of every operator are zero, so pad entries never enter
+a product and stay exactly zero.
+
+Ranks on separate cards (peer access or ``torch.distributed``) are not
+ported: a mesh over distinct devices raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import config
+from ..ops.ring_transpose import RingTranspose
+
+AXIS = "p"
+
+# pencil specs (the reference convention)
+PHYS = (AXIS, None)  # y-pencil: x distributed
+SPEC = (None, AXIS)  # x-pencil: y distributed
+
+
+class Mesh:
+    """``P`` ranks on one device.  ``devices`` lists each rank's device;
+    all must be the same one (ranks on distinct devices are not ported).
+    ``ring`` is the mesh's pencil transpose (``ring.x_to_y``,
+    ``ring.y_to_x``), with its launch counter."""
+
+    def __init__(self, devices):
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("a mesh needs at least one rank")
+        if len(set(devs)) > 1:
+            raise NotImplementedError(
+                f"ranks on distinct devices {sorted(set(map(str, devs)))}: only a mesh of "
+                "ranks on one device is ported (ranks on separate cards need peer copies "
+                "or torch.distributed)")
+        self.device = config.resolve_device(devs[0])
+        self.nranks = len(devs)
+        self.ring = RingTranspose(self.nranks, self.device)
+
+    def __repr__(self):
+        return f"Mesh({self.nranks} ranks on {self.device})"
+
+
+def make_mesh(nranks: int, device=None) -> Mesh:
+    """A mesh of ``nranks`` ranks on ``device`` (``"cuda"`` unless the
+    caller names another; raises without a card)."""
+    if nranks < 1:
+        raise ValueError(f"a mesh needs at least one rank, got {nranks}")
+    return Mesh([config.resolve_device(device)] * nranks)
+
+
+def padded(n: int, nranks: int) -> int:
+    """``n`` rounded up to a multiple of ``nranks``."""
+    return n + (-n) % nranks
+
+
+def pad_matrix(mat: np.ndarray, nranks: int) -> np.ndarray:
+    """``mat`` with zero rows and columns appended up to multiples of
+    ``nranks`` (the JAX package's ``pad_dense``)."""
+    r, c = mat.shape
+    return np.pad(np.asarray(mat), ((0, padded(r, nranks) - r), (0, padded(c, nranks) - c)))
+
+
+def x_pencil_shape(shape, nranks: int) -> tuple[int, int, int]:
+    """Stacked x-pencil shape of a global ``shape``."""
+    n0p, n1p = (padded(n, nranks) for n in shape)
+    return (nranks, n0p, n1p // nranks)
+
+
+def y_pencil_shape(shape, nranks: int) -> tuple[int, int, int]:
+    """Stacked y-pencil shape of a global ``shape``."""
+    n0p, n1p = (padded(n, nranks) for n in shape)
+    return (nranks, n0p // nranks, n1p)
+
+
+def apply_separable(mesh: Mesh, block: torch.Tensor, a0, a1, spectral_out: bool) -> torch.Tensor:
+    """``A0 @ v @ A1^T`` of the x-pencil ``block``: ``a0`` on the x-pencil,
+    the flip to the y-pencil, ``a1`` there, and the flip back only when the
+    result is spectral (``spectral_out``); a physical result stays a
+    y-pencil.  ``a0``/``a1`` are padded device matrices or None (the
+    identity); an identity ``a1`` with a spectral result needs no flip.
+    The flip points are those of the JAX package's ``Space2`` transforms
+    (``bases.py:905-1010``)."""
+    out = block if a0 is None else torch.matmul(a0, block)
+    if a1 is None and spectral_out:
+        return out
+    out = mesh.ring.x_to_y(out)
+    if a1 is not None:
+        out = torch.matmul(out, a1.T)
+    return mesh.ring.y_to_x(out) if spectral_out else out
+
+
+def forward_separable(mesh: Mesh, block: torch.Tensor, a0, a1) -> torch.Tensor:
+    """``A0 @ v @ A1^T`` of the y-pencil ``block`` (physical data):
+    ``a1`` on the y-pencil, the flip, ``a0`` on the x-pencil; the result is
+    an x-pencil."""
+    out = block if a1 is None else torch.matmul(block, a1.T)
+    out = mesh.ring.y_to_x(out)
+    return out if a0 is None else torch.matmul(a0, out)

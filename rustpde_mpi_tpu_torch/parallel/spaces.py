@@ -1,0 +1,147 @@
+"""Spectral transforms of a 2-D space on pencil fields.
+
+The counterpart of the JAX package's ``Space2`` under an active mesh: the
+same transforms, on fields split over a :class:`..parallel.mesh.Mesh` as
+rank-stacked pencils (spectral data in x-pencils, physical data in
+y-pencils).  Each transform is the serial space's pair of axis operators,
+zero-padded to the pencil extents, applied by
+:func:`..parallel.mesh.apply_separable` (spectral input) or
+:func:`..parallel.mesh.forward_separable` (physical input), which flip the
+pencil between the two factors where the JAX package places its
+``constrain`` calls (``bases.py:905-1010``).  It answers the serial
+space's layout calls (``place_*``, ``gather_*``, ``x_to_y``/``y_to_x``,
+``weighted_sum``, ``apply_operators``) on pencils, so a model or solver
+runs on either space unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..bases import Space2, divide_scale
+from .decomp import Decomp2d, all_gather_sum
+from .mesh import Mesh, apply_separable, forward_separable, pad_matrix, x_pencil_shape
+
+
+class PencilSpace2:
+    """A :class:`..bases.Space2` on ``mesh``: its transforms take and give
+    stacked pencils.  The space's device must be the mesh's."""
+
+    def __init__(self, space: Space2, mesh: Mesh):
+        if space.device != mesh.device:
+            raise ValueError(f"space on {space.device}, mesh on {mesh.device}")
+        self.space = space
+        self.mesh = mesh
+        self.nranks = mesh.nranks
+        self.bases = space.bases
+        self.device, self.dtype = space.device, space.dtype
+        self.physical = Decomp2d(space.shape_physical, mesh)
+        self.spectral = Decomp2d(space.shape_spectral, mesh)
+        self._mats: dict = {}
+
+    @property
+    def shape_physical(self) -> tuple[int, int]:
+        return self.space.shape_physical
+
+    @property
+    def shape_spectral(self) -> tuple[int, int]:
+        return self.space.shape_spectral
+
+    def ndarray_spectral(self) -> torch.Tensor:
+        """Zero spectral x-pencil."""
+        return torch.zeros(x_pencil_shape(self.shape_spectral, self.mesh.nranks),
+                           device=self.device, dtype=self.dtype)
+
+    # -- placement -------------------------------------------------------------
+
+    def place_physical(self, values) -> torch.Tensor:
+        """Global physical values -> y-pencil in the space's dtype."""
+        return self.physical.place_y_pencil(values, self.dtype)
+
+    def place_spectral(self, values) -> torch.Tensor:
+        """Global spectral (or ortho-space, same extents) values -> x-pencil."""
+        return Decomp2d(np.shape(values), self.mesh).place_x_pencil(values, self.dtype)
+
+    def gather_physical(self, block: torch.Tensor) -> torch.Tensor:
+        return self.physical.gather_y_pencil(block)
+
+    def gather_spectral(self, block: torch.Tensor) -> torch.Tensor:
+        return self.spectral.gather_x_pencil(block)
+
+    def x_to_y(self, block: torch.Tensor) -> torch.Tensor:
+        """x-pencil -> y-pencil, through the mesh's transpose."""
+        return self.mesh.ring.x_to_y(block)
+
+    def y_to_x(self, block: torch.Tensor) -> torch.Tensor:
+        """y-pencil -> x-pencil."""
+        return self.mesh.ring.y_to_x(block)
+
+    def weighted_sum(self, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``sum(v * w)`` over the field: per rank, then across the ranks
+        (:func:`.decomp.all_gather_sum`); ``w`` is zero on the pad."""
+        return all_gather_sum(v * w, self.mesh)
+
+    def apply_operators(self, vhat: torch.Tensor, a0, a1) -> torch.Tensor:
+        """``A0 @ vhat @ A1^T`` of padded device matrices (from
+        :meth:`operator`), x-pencil in, x-pencil out."""
+        return apply_separable(self.mesh, vhat, a0, a1, spectral_out=True)
+
+    def operator(self, mat: np.ndarray) -> torch.Tensor:
+        """A host operator matrix, zero-padded to the pencil extents, in the
+        space's device and dtype."""
+        return self.space.operator(pad_matrix(mat, self.mesh.nranks))
+
+    def _mat(self, axis: int, key) -> torch.Tensor | None:
+        ck = (axis, key)
+        if ck not in self._mats:
+            mat = self.space.axis_matrix(axis, key)
+            self._mats[ck] = None if mat is None else self.operator(mat)
+        return self._mats[ck]
+
+    def _apply(self, vhat, kx, ky, spectral_out: bool) -> torch.Tensor:
+        return apply_separable(self.mesh, vhat, self._mat(0, kx), self._mat(1, ky), spectral_out)
+
+    # -- transforms -------------------------------------------------------------
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        """Physical y-pencil -> composite spectral x-pencil."""
+        return forward_separable(self.mesh, v, self._mat(0, "fwd"), self._mat(1, "fwd"))
+
+    def backward(self, vhat: torch.Tensor) -> torch.Tensor:
+        """Composite spectral x-pencil -> physical y-pencil."""
+        return self._apply(vhat, "bwd", "bwd", False)
+
+    def backward_fast(self, vhat: torch.Tensor) -> torch.Tensor:
+        """The step's convection-velocity synthesis (``backward``)."""
+        return self.backward(vhat)
+
+    def backward_ortho(self, c: torch.Tensor) -> torch.Tensor:
+        """Physical y-pencil from orthogonal-space coefficients."""
+        return self._apply(c, "synthesis", "synthesis", False)
+
+    def to_ortho(self, vhat: torch.Tensor) -> torch.Tensor:
+        return self._apply(vhat, "stencil", "stencil", True)
+
+    def gradient(self, vhat: torch.Tensor, deriv, scale=None) -> torch.Tensor:
+        """d^deriv[0]/dx d^deriv[1]/dy in ortho space (x-pencil), divided
+        by scale^deriv."""
+        kx, ky = (("grad", d) if d else "stencil" for d in deriv)
+        return divide_scale(self._apply(vhat, kx, ky, True), deriv, scale)
+
+    def backward_gradient(self, vhat: torch.Tensor, deriv, scale=None) -> torch.Tensor:
+        """Physical values (y-pencil) of the derivative."""
+        kx, ky = (("bwd_grad", d) if d else "bwd" for d in deriv)
+        return divide_scale(self._apply(vhat, kx, ky, False), deriv, scale)
+
+    # -- helpers ----------------------------------------------------------------
+
+    def dealias_mask(self) -> np.ndarray:
+        """2/3-rule mask over the global spectral shape (host numpy)."""
+        return self.space.dealias_mask()
+
+    def pin_zero_mode(self, vhat: torch.Tensor) -> torch.Tensor:
+        """Zero the constant mode, which rank 0 of the x-pencil holds."""
+        out = vhat.clone()
+        out[0, 0, 0] = 0.0
+        return out

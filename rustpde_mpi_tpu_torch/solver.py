@@ -17,6 +17,13 @@ Every device solve is ``torch.matmul`` plus, on the ``"banded"`` method,
 the banded substitution of :mod:`rustpde_mpi_tpu_torch.ops.banded`, whose
 CUDA kernel runs on the card.  Solvers take their device and dtype from
 the space they solve on.
+
+On a :class:`..parallel.spaces.PencilSpace2` (a space on a mesh of ranks)
+:class:`HholtzAdi` and :class:`TensorSolver` solve rank-stacked pencils:
+each axis solve runs on the pencil whose solve axis is local, with one
+pencil flip between the two axes and one back, and each banded solve is one
+kernel launch for all ranks.  The systems are padded with identity rows to
+the pencil extents, which leaves the real rows' results bit for bit.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import torch
 
 from .bases import BaseKind, Space2
 from .config import to_device
-from .ops.banded import BandedSolver, DenseSolver, apply_along, band_lu_factor, dense_to_band
+from .ops.banded import BandedSolver, DenseSolver, apply_along, band_lu_factor, dense_to_band, pad_band
+from .parallel.mesh import pad_matrix, padded
 
 _P, _Q = 2, 4  # lower/upper bandwidth of every preconditioned Chebyshev operator
 
@@ -139,16 +147,31 @@ def _check_rhs(rhs: torch.Tensor) -> int:
     return rhs.ndim - 2
 
 
+def _has_pad(shape, nranks: int) -> bool:
+    """Whether pencils of ``shape`` over ``nranks`` ranks carry a zero pad
+    (an extent that is not a multiple of the rank count): their solves then
+    meet lanes of exact zeros."""
+    return any(padded(n, nranks) != n for n in shape)
+
+
 class _AxisSolver:
     """1-D solver of one Chebyshev axis: ``"banded"`` (and its alias
     ``"pallas"``) runs the banded substitution kernel, ``"dense"`` the
-    precomputed inverse."""
+    precomputed inverse.  The banded system is padded with identity rows to
+    a multiple of ``nranks``, the pencil extent on a mesh of that many ranks
+    (no padding for one rank); ``pad_zeros``: its right-hand sides may hold
+    zero pad lanes."""
 
-    def __init__(self, mat: np.ndarray, method: str, *, device, dtype):
+    def __init__(self, mat: np.ndarray, method: str, nranks: int, pad_zeros: bool, *,
+                 device, dtype):
+        kw = dict(device=device, dtype=dtype)
         if _check_method(method, _AXIS_METHODS) == "dense":
-            self.solver = DenseSolver(mat, device=device, dtype=dtype)
+            if nranks > 1:
+                raise NotImplementedError("method='dense' is not ported to pencils; use 'banded'")
+            self.solver = DenseSolver(mat, **kw)
         else:
-            self.solver = BandedSolver.from_dense(mat, _P, _Q, device=device, dtype=dtype)
+            band = pad_band(dense_to_band(mat, _P, _Q), _P, padded(mat.shape[0], nranks))
+            self.solver = BandedSolver(*band_lu_factor(band, _P, _Q), pad_zeros=pad_zeros, **kw)
 
     def solve(self, b, axis: int):
         return self.solver.solve(b, axis)
@@ -174,21 +197,27 @@ class HholtzAdi:
         self.space = space
         self.c = tuple(c)
         kw = dict(device=space.device, dtype=space.dtype)
+        pad_zeros = _has_pad(space.shape_spectral, space.nranks)
         self.matvec = []
         self.solvers = []
         for axis, ci in enumerate(c):
             mat_a, mat_b, precond = ingredients_for_hholtz(space, axis)
-            self.solvers.append(_AxisSolver(mat_a - ci * mat_b, method, **kw))
-            self.matvec.append(to_device(precond, **kw))
+            self.solvers.append(_AxisSolver(mat_a - ci * mat_b, method, space.nranks, pad_zeros,
+                                            **kw))
+            self.matvec.append(space.operator(precond))
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """rhs in ortho space -> solution in composite space; extra leading
-        dims are batch."""
+        dims are batch.  On a pencil space: x-pencil in, x-pencil out, in
+        the JAX package's order under a mesh (``solver.py:304-313``): the
+        axis-0 preconditioner on the x-pencil, flip, the axis-1
+        preconditioner and solve on the y-pencil, flip back, the axis-0
+        solve (the flips are the identity on a serial space)."""
         ax = _check_rhs(rhs)
         out = apply_along(self.matvec[0], rhs, ax)
-        out = apply_along(self.matvec[1], out, ax + 1)
+        out = apply_along(self.matvec[1], self.space.x_to_y(out), ax + 1)
         out = self.solvers[1].solve(out, ax + 1)  # axis-1 recurrence
-        return self.solvers[0].solve(out, ax)  # axis-0 recurrence
+        return self.solvers[0].solve(self.space.y_to_x(out), ax)  # axis-0 recurrence
 
     def kernels(self) -> list:
         return [k for s in self.solvers for k in s.kernels()]
@@ -201,36 +230,62 @@ class TensorSolver:
 
     ``modal0 = (lam0, fwd0, bwd0)`` from :func:`_axis_modal_data`; ``fwd0``
     maps the axis-0 ortho-space rhs into eigenspace (preconditioner folded
-    in)."""
+    in).  ``mesh``: solve rank-stacked pencils of that mesh."""
 
     def __init__(self, modal0, a1, c1, precond1, alpha: float, fix_singular=False,
-                 *, device, dtype):
+                 *, device, dtype, mesh=None):
         lam, fwd0, bwd0 = modal0
         kw = dict(device=device, dtype=dtype)
-        self.fwd = to_device(fwd0, **kw)
-        self.bwd = to_device(bwd0, **kw)
+        self.mesh = mesh
+        nranks = 1 if mesh is None else mesh.nranks
+        # operators zero-padded, systems identity-padded to the pencil extents
+        self.fwd = to_device(pad_matrix(fwd0, nranks), **kw)
+        self.bwd = to_device(pad_matrix(bwd0, nranks), **kw)
         if fix_singular and abs(lam[0]) < 1e-10:
             # pure-Neumann problems: nudge the zero mode so the banded
             # factorization exists
             lam = lam - 1e-10
         self.lam = lam
         self.alpha = alpha
-        self.matvec1 = to_device(precond1, **kw)
+        self.matvec1 = to_device(pad_matrix(precond1, nranks), **kw)
         # (A_y + (lam_i + alpha) C_y) factored for every eigenvalue lane i,
         # assembled and eliminated on the band only
         band = dense_to_band(a1, _P, _Q)[None] + \
             (lam[:, None, None] + alpha) * dense_to_band(c1, _P, _Q)[None]
-        self.banded = BandedSolver(*band_lu_factor(band, _P, _Q), **kw)
+        lanes, n = band.shape[:2]
+        band = pad_band(band, _P, padded(n, nranks), padded(lanes, nranks))
+        self.banded = BandedSolver(*band_lu_factor(band, _P, _Q),
+                                   pad_zeros=_has_pad((lanes, n), nranks), **kw)
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """rhs in ortho space -> solution in composite space; extra leading
         dims are batch (the per-lane factors align with axis 0 of the
-        2-D problem)."""
+        2-D problem).  On a mesh: x-pencil in, x-pencil out."""
+        if self.mesh is not None:
+            return self._solve_pencil(rhs)
         ax = _check_rhs(rhs)
         out = apply_along(self.matvec1, rhs, ax + 1)
         out = apply_along(self.fwd, out, ax)
         out = self.banded.solve(out, ax + 1)
         return apply_along(self.bwd, out, ax)
+
+    def _solve_pencil(self, rhs: torch.Tensor) -> torch.Tensor:
+        """The eigen map on the x-pencil, flip, the axis-1 preconditioner
+        and the per-eigenvalue banded solves on the y-pencil, whose ranks
+        hold consecutive slices of the eigenvalue lanes (one launch, factor
+        batch stride = the lanes a rank holds), flip back, the inverse eigen
+        map.  The JAX package (``solver.py:385-395``) applies the axis-1
+        preconditioner before the eigen map; the two act on different axes
+        and commute, and this order needs one flip each way.  It differs
+        from the serial solve in that order and in the lanes' factor
+        offsets, so it is a path of its own."""
+        if rhs.ndim != 3:
+            raise ValueError(f"a pencil solve takes a rank-stacked (P, n0, n1) x-pencil, got "
+                             f"rank {rhs.ndim}")
+        out = torch.matmul(self.fwd, rhs)
+        out = torch.matmul(self.mesh.ring.x_to_y(out), self.matvec1.T)
+        out = self.banded.solve(out, 2, factor_batch_stride=out.shape[1])
+        return torch.matmul(self.bwd, self.mesh.ring.y_to_x(out))
 
     def kernels(self) -> list:
         return [self.banded.kernel]
@@ -279,6 +334,8 @@ class _TensorBased:
         sign = -1.0 if negate_lap else 1.0
         modal0 = _axis_modal_data(space, 0, c[0], sign)
         if method == "fd":
+            if space.nranks > 1:
+                raise NotImplementedError("method='fd' is not ported to pencils; use 'banded'")
             modal1 = _axis_modal_data(space, 1, c[1], sign)
             self._solver = FastDiag(modal0, modal1, alpha, fix_singular, **kw)
         else:
@@ -286,7 +343,7 @@ class _TensorBased:
             # laplacian (peye S)
             mat_c1, mat_a1, precond1 = ingredients_for_hholtz(space, 1)
             self._solver = TensorSolver(modal0, sign * c[1] * mat_a1, mat_c1, precond1,
-                                        alpha, fix_singular=fix_singular, **kw)
+                                        alpha, fix_singular=fix_singular, mesh=space.mesh, **kw)
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         return self._solver.solve(rhs)

@@ -163,3 +163,114 @@ def test_dense_route_on_card_matches_cpu(device):
     for name, ref in states["cpu"][0].items():
         scale = max(float(np.max(np.abs(ref))), 1e-300)
         assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_kernel_factor_batch_stride(device, dtype):
+    """Per-lane factors read with a factor batch stride (the meshed Poisson
+    solve: batch k = rank k's slice of the lanes) against the plain
+    recurrence, and against the unbatched kernel solve bit for bit."""
+    from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
+
+    n, ranks, per_rank = 37, 4, 33
+    solver = BandedSolver(*_banded_system(n, ranks * per_rank), device=device, dtype=dtype)
+    b = torch.tensor(np.random.default_rng(2).uniform(-1, 1, (ranks * per_rank, n)),
+                     dtype=dtype, device=device)
+    want = solver.solve(b, 1)
+    stacked = b.view(ranks, per_rank, n)
+    got = solver.solve(stacked, 2, factor_batch_stride=per_rank)
+    assert solver.kernel.launches == 2
+    plain = solver.plain(stacked, 2, factor_batch_stride=per_rank)
+    scale = torch.amax(torch.abs(plain), dim=2, keepdim=True)
+    assert float(torch.max(torch.abs(got - plain) / scale)) <= TOL[dtype]
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("pad_zeros", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_kernel_zero_pad(device, dtype, pad_zeros):
+    """An identity-padded system on a right-hand side with a zero pad (a
+    meshed pencil's pad rows and lanes), through both divisions of the
+    kernel (``pad_zeros``: never divide a zero): the pad solves to zero,
+    the real lanes as the plain recurrence does, and an all-zero rhs to
+    zero."""
+    from rustpde_mpi_tpu_torch.ops.banded import BandedSolver, band_lu_factor, dense_to_band, pad_band
+
+    n, n_pad, lanes, lanes_pad = 37, 40, 30, 32
+    rng = np.random.default_rng(3)
+    band = np.tril(np.triu(np.ones((n, n)), -2), 4)
+    dense = rng.uniform(0.2, 0.6, (n, n)) * band + 4.0 * np.eye(n)
+    padded = pad_band(dense_to_band(dense, 2, 4), 2, n_pad)
+    solver = BandedSolver(*band_lu_factor(padded, 2, 4), device=device, dtype=dtype,
+                          pad_zeros=pad_zeros)
+    b = torch.zeros((n_pad, lanes_pad), dtype=dtype, device=device)
+    b[:n, :lanes] = torch.tensor(rng.uniform(-1, 1, (n, lanes)), dtype=dtype, device=device)
+    got = solver.solve(b, 0)
+    assert not got[n:].any() and not got[:, lanes:].any()
+    plain = solver.plain(b, 0)
+    scale = torch.amax(torch.abs(plain[:, :lanes]), dim=0, keepdim=True)
+    assert float(torch.max(torch.abs(got[:, :lanes] - plain[:, :lanes]) / scale)) <= TOL[dtype]
+    assert not solver.solve(torch.zeros_like(b), 0).any()
+    assert solver.kernel.launches == 2
+
+
+# -- the pencil-transpose kernel and the meshed route --------------------------------
+
+
+@pytest.mark.parametrize("shape", [(17, 17), (33, 20), (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ring_transpose_matches_plain(device, shape, dtype):
+    """A copy, so bit-equal (tolerance 0) to the plain ring in both
+    directions: ragged widths (8-byte path), aligned ones (16-byte path), a
+    row stride wider than the row and an unaligned base pointer; one launch
+    a flip."""
+    from rustpde_mpi_tpu_torch.parallel import Decomp2d, make_mesh
+
+    mesh = make_mesh(4, device)
+    decomp = Decomp2d(shape, mesh)
+    a = torch.as_tensor(np.random.default_rng(0).standard_normal(shape))
+    x, y = decomp.place_x_pencil(a, dtype), decomp.place_y_pencil(a, dtype)
+    got_y, got_x = mesh.ring.x_to_y(x), mesh.ring.y_to_x(y)
+    assert mesh.ring.launches == 2
+    torch.cuda.synchronize()
+    assert torch.equal(got_y, mesh.ring.plain(x, True)) and torch.equal(got_y, y)
+    assert torch.equal(got_x, mesh.ring.plain(y, False)) and torch.equal(got_x, x)
+    wide = torch.zeros(x.shape[:2] + (x.shape[2] + 3,), dtype=dtype, device=device)
+    for off in (0, 1):  # a strided view; off=1 also moves the base pointer
+        wide[..., off:off + x.shape[2]] = x
+        view = wide[..., off:off + x.shape[2]]
+        assert torch.equal(mesh.ring.x_to_y(view), y)
+    assert mesh.ring.launches == 4
+
+
+def test_ring_transpose_rejects_bad_input(device):
+    from rustpde_mpi_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(4, device)
+    with pytest.raises(ValueError, match="unit stride"):
+        mesh.ring.x_to_y(torch.zeros((4, 8, 6), dtype=torch.float64, device=device)[..., ::2])
+    with pytest.raises(ValueError, match="shape"):
+        mesh.ring.y_to_x(torch.zeros((4, 2, 6), dtype=torch.float64, device=device))
+    assert mesh.ring.launches == 0
+
+
+def test_meshed_route_on_card_matches_cpu(device):
+    """Ten meshed steps (4 ranks on the card) through the kernels agree
+    with ten plain meshed steps on the CPU (rel 1e-11 of each field's
+    scale), with 37 pencil flips and 7 banded launches a step."""
+    from rustpde_mpi_tpu_torch.parallel import make_mesh
+
+    states = {}
+    for dev in (device, torch.device("cpu")):
+        m = pt.Navier2D.new_confined(33, 33, 1e5, 1.0, 2e-3, 1.0, "rbc", mesh=make_mesh(4, dev))
+        # init_random's three forward transforms flip once each on the card
+        assert m.mesh.ring.launches == (3 if dev.type == "cuda" else 0)
+        m.mesh.ring.launches = 0
+        m.update_n(10)
+        states[dev.type] = (pt.state_to_numpy(m), m)
+    card = states["cuda"][1].kernels()
+    assert sum(k.launches for k in card["ring_transpose"]) == 370
+    assert sum(k.launches for k in card["banded_solve"]) == 70
+    for name, ref in states["cpu"][0].items():
+        scale = max(float(np.max(np.abs(ref))), 1e-300)
+        assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name

@@ -247,11 +247,14 @@ def test_job_validates_operands():
 
 def test_signatures_match_the_c_parameter_types():
     """Each ctypes ``argtypes`` entry matches its C parameter: ``int`` ->
-    c_int, ``long long`` -> c_longlong (the banded kernel's strides, which
-    a 32-bit int would cut), a pointer -> c_void_p (or the job struct)."""
+    c_int, ``long long`` -> c_longlong (the banded and pencil-transpose
+    kernels' strides, which a 32-bit int would cut), a pointer -> c_void_p
+    (or the job struct)."""
     ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
              "const RpJob*": ctypes.POINTER(_build.RpJob)}
-    assert "banded_solve" in _build.KERNELS
+    assert "banded_solve" in _build.KERNELS and "ring_transpose" in _build.KERNELS
+    assert _build._SIGNATURES["ring_transpose"]["rp_ring_transpose_f64"] == \
+        _build._SIGNATURES["ring_transpose"]["rp_ring_transpose_f32"]
     for name in _build.KERNELS:
         text = (_build.CSRC / f"{name}.cu").read_text()
         for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
