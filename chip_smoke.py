@@ -15,7 +15,15 @@ default step on its solver objects) in phases 6-11:
    every stage instance and both convection variants at 129^2 and 1025^2
    in f64 (limit 1e-12 of max|plain|) and at 129^2 in f32 (limit 1e-4),
    and times the kernel, the plain version and the chain in the fewest
-   cuBLAS calls PyTorch offers (``library_ms``) at 1025^2 f64;
+   cuBLAS calls PyTorch offers (``library_ms``) at 1025^2 f64, with the
+   kernel's achieved TFLOP/s and its share of the bound; a case over its
+   limit runs the kernel and the plain version once more each and prints
+   the three errors (which side moved) before it fails.  First, at 1025^2
+   f64, every case is timed with each block tile the GEMM kernels are
+   compiled for (``_build.TILES``, in turns) and the candidates' times and
+   the tile the wrappers launch are printed; last, the convection chain's
+   four launches are timed one by one (profiler) beside cuBLAS on the same
+   products;
 2. reruns the head of the f64 golden Nusselt trajectory of PARITY.json at
    129^2 through the kernels (rel 1e-6);
 3. steps the same 129^2 model 10 steps on the card and on the CPU (plain
@@ -136,6 +144,20 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list:
+    """``(kernel, registers line, spills line)`` for each entry function in
+    a ``-Xptxas -v`` log."""
+    out, kernel, spills = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append((kernel, line.split(":", 1)[1].strip(), spills))
+    return out
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -273,6 +295,91 @@ def kernel_cases(torch, model, rng):
     return cases
 
 
+#: launches of each fused case in one step of the fused route
+CASE_PER_STEP = {"conv": 2, "conv_bc": 1}
+
+
+def phase_tiles(torch, model, limit):
+    """Phase 1, the block tiles: every stage instance and conv variant of
+    ``model`` with each block tile the GEMM kernels are compiled for
+    (``_build.TILES``), held against its plain version at ``limit`` and
+    timed in turns (first to last, then back), 10 reps each.  Prints each
+    tile's per-case times and per-step sums, and the tile the wrappers
+    launch (``_build.TILE``), which it leaves as it found it."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.ops import _build
+
+    chosen = _build.TILE
+    order = list(range(len(_build.TILES))) + list(reversed(range(len(_build.TILES))))
+    times = {name: {} for name in _build.TILES}
+    try:
+        for kernel, label, run_k, run_p, *_ in kernel_cases(torch, model, np.random.default_rng(1)):
+            plain = run_p()
+            for idx in order:
+                _build.TILE = idx
+                out = run_k()
+                torch.cuda.synchronize()
+                rel = rel_err(torch, out, plain)[1]
+                if not rel <= limit:
+                    raise AssertionError(f"{kernel}/{label} with tile {_build.TILES[idx]}: "
+                                         f"rel err {rel:.3e} > {limit:g}")
+                times[_build.TILES[idx]].setdefault(label, []).append(time_ms(torch, run_k, 10))
+    finally:
+        _build.TILE = chosen
+    summary = {}
+    for name, per in times.items():
+        ms = {label: sum(v) / len(v) for label, v in per.items()}
+        summary[name] = {
+            "fused_stage_ms_per_step": sum(ms[tag] for tag in STAGE_TAGS),
+            "fused_conv_ms_per_step": sum(CASE_PER_STEP[c] * ms[c] for c in CASE_PER_STEP),
+            "per_case_ms": ms}
+    print(f"phase1 tiles at {model.nx}^2 {str(model.dtype).replace('torch.', '')}: " + json.dumps(
+        {"launched": _build.TILES[chosen], "candidates": summary}))
+    return summary
+
+
+def conv_launches(torch, fc, args, reps=10):
+    """Phase 1, the convection chain by launch: device ms of each of its
+    four launches (A1/A0, the dual kernel, the two forward GEMMs) over
+    ``reps`` applications of ``fc`` to ``args``, from torch.profiler in
+    launch order; cuBLAS on the same products (the dual's two as one
+    batched ``matmul``, without its epilogue); and each launch's grid in
+    blocks of the launched tile.  Prints one line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rustpde_mpi_tpu_torch.ops import _build
+
+    fc.apply(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fc.apply(*args)
+        torch.cuda.synchronize()
+    evs = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and ("gemm_jobs_kernel" in e.name or "conv_dual_kernel" in e.name))
+    kernel_ms = None
+    if len(evs) == 4 * reps:
+        kernel_ms = [sum(evs[4 * i + j][1] for i in range(reps)) / reps / 1e3 for j in range(4)]
+    ux, uy, vhat = args[:3]
+    gx, gy = torch.stack([fc.gx1, fc.gx0]), torch.stack([fc.gy0t, fc.gy1t])
+    a = torch.matmul(gx, vhat)
+    total = ux * uy
+    t = torch.matmul(total, fc.fyt)
+    cublas_ms = [time_ms(torch, fn, 10) for fn in (
+        lambda: torch.matmul(gx, vhat), lambda: torch.matmul(a, gy),
+        lambda: torch.matmul(total, fc.fyt), lambda: torch.matmul(fc.fx, t))]
+    bm, bn = (int(x) for x in _build.TILES[_build.TILE].split("x"))
+    blocks = [2 * -(-fc.nx // bm) * -(-fc.my // bn), -(-fc.nx // bm) * -(-fc.ny // bn),
+              -(-fc.nx // bm) * -(-fc.ky // bn), -(-fc.kx // bm) * -(-fc.ky // bn)]
+    print(f"phase1 conv launches at {fc.nx}^2: " + json.dumps(
+        {"launches": ["A1,A0 = Gx1,Gx0 @ vhat", "dual", "T = total @ Fy^T", "out = Fx @ T"],
+         "kernel_ms": kernel_ms if kernel_ms is not None else "not measured",
+         "cublas_ms": cublas_ms, "grid_blocks": blocks, "tile": _build.TILES[_build.TILE]}))
+
+
 def phase_kernels(torch, model, limit, timing):
     """Phase 1 at one model size/dtype; returns per-case records."""
     import numpy as np
@@ -287,7 +394,7 @@ def phase_kernels(torch, model, limit, timing):
         out_p = run_p()
         diff, rel = rel_err(torch, out_k, out_p)
         rec = {"kernel": kernel, "route": "fused", "case": label, "n": model.nx,
-               "per_step": {"conv": 2, "conv_bc": 1}.get(label, 1),
+               "per_step": CASE_PER_STEP.get(label, 1),
                "dtype": str(model.dtype).replace("torch.", ""),
                "max_abs_err": diff, "max_rel_err": rel}
         if timing:
@@ -297,10 +404,28 @@ def phase_kernels(torch, model, limit, timing):
                        library_ms=time_ms(torch, run_l, 10), flops=flops, bytes=nbytes,
                        bound_ms=max(t_op, t_mem),
                        bound_by="operations" if t_op >= t_mem else "bytes")
+            rec.update(tflops=flops / rec["kernel_ms"] * 1e-9,
+                       library_tflops=flops / rec["library_ms"] * 1e-9,
+                       bound_share=rec["bound_ms"] / rec["kernel_ms"])
         print("phase1 " + json.dumps(rec))
         if not rel <= limit:
+            again_k = run_k()
+            torch.cuda.synchronize()
+            again_p = run_p()
+            print("phase1 FAILED " + json.dumps({
+                "kernel": kernel, "case": label, "n": model.nx,
+                "kernel_vs_plain": rel,
+                "kernel_again_vs_plain": rel_err(torch, again_k, out_p)[1],
+                "kernel_vs_plain_again": rel_err(torch, out_k, again_p)[1],
+                "kernel_repeat_bit_equal": bool(torch.equal(out_k, again_k)),
+                "plain_repeat_bit_equal": bool(torch.equal(out_p, again_p))}))
             raise AssertionError(f"{kernel}/{label} at {model.nx}^2: rel err {rel:.3e} > {limit:g}")
         records.append(rec)
+    if timing:
+        n = (model.nx, model.ny)
+        fc = model._convs[id(model.velx_space)]
+        conv_launches(torch, fc, [torch.as_tensor(rng.uniform(-1.0, 1.0, size=s), dtype=model.dtype)
+                                  .to(model.device) for s in (n, n, (fc.mx, fc.my))])
     return records
 
 
@@ -952,9 +1077,8 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
           + " ".join(f"{k}={v['seconds']:.2f}s" for k, v in built.items()))
     for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, regs, spills in ptxas_summary(info["log"]):
+            print(f"  ptxas {name}: {kernel}: {regs}; {spills}")
 
     t0 = time.perf_counter()
     main_model = pt.Navier2D.new_confined(**RBC1025, device="cuda")
@@ -963,6 +1087,7 @@ def main() -> int:
              for dt in (torch.float64, torch.float32)}
     phase_kernels(torch, small[torch.float64], 1e-12, False)
     phase_kernels(torch, small[torch.float32], 1e-4, False)
+    phase_tiles(torch, main_model, 1e-12)
     records = phase_kernels(torch, main_model, 1e-12, True)
     print("phase1 ok")
     phase_golden(pt)

@@ -12,24 +12,73 @@
 // 1, 3 and 4 go to the generic GEMM of fused_stage.cu (rp_gemm_f64/f32):
 //
 //   1. A1 = Gx1 @ vhat, A0 = Gx0 @ vhat   (one grid, blockIdx.z, shared B)
-//   2. conv_dual_kernel: two accumulators per output tile, A1 @ Gy0^T and
-//      A0 @ Gy1^T, and only `total` is written — dvdx/dvdy never reach
+//   2. conv_dual_kernel: two accumulator sets per output tile, A1 @ Gy0^T
+//      and A0 @ Gy1^T, and only `total` is written -- dvdx/dvdy never reach
 //      device memory, which is what the TPU kernel's fusion is for;
 //   3. T = total @ Fy^T (kept columns only),
 //   4. out = Fx @ T (kept rows only), zero-filling the dead rows and
 //      columns of the spectral array in the same epilogue.
 //
 // Bound on the H100: operations.  At 1025^2 f64 one chain does 11.0 GFLOP
-// on 78-95 MB of operands: 0.16 ms at the FP64 peak against 0.03 ms at the
-// memory rate.  f64 has no wgmma, so the tiles are DFMA loops from shared
-// memory (tile_gemm.cuh); tensor-core f64 (mma.sync m8n8k4), TMA and fusing
-// launches 3-4 are later work.
+// on 78-95 MB of operands: 0.16 ms at the 67 TFLOP/s of the FP64 tensor
+// cores against 0.03 ms at the memory rate.  conv_dual_kernel runs
+// tile_gemm.cuh's core (DMMA m16n8k8 warp tiles fed by a cp.async ring,
+// copies between the DMMAs, double-buffered fragments; the tile, warp and
+// pipeline design, why it fits 1023^2 on 132 SMs, and the 8-byte copy rule
+// for odd leading dimensions are described there) with two accumulator
+// sets over one depth loop: a ring stage holds the A1, A0, Gy0^T and Gy1^T
+// tiles of one depth step (16 deep), so both products share the stage's
+// waits and barrier, its warp steps alternate between the two products,
+// and the ux * (...) + uy * (...) epilogue stays in registers.  Two sets
+// of 32 x 32 warp accumulators are 64 doubles a thread; the ring is 3
+// stages deep (111 KB with 64 x 64 blocks, two blocks an SM).  Its output
+// is 1025 x 1025: 289 blocks of 64 x 64 on 264 slots (two waves).
+#include <type_traits>
+
 #include "tile_gemm.cuh"
 
 namespace rp {
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
+// The copies of the dual kernel's depth steps: A1, Gy0^T, then A0, Gy1^T,
+// into a stage laid out [A1 | A0 | Gy0^T | Gy1^T].  A0 and Gy1^T share the
+// shape and leading dimension of A1 and Gy0^T, so one copier each serves
+// both, shifted by the distance between the two operands.
+template <typename T, class C, bool VA, bool VG>
+struct DualProducer {
+  using CA = typename Copiers<T, C, VA, VG>::A;
+  using CG = typename Copiers<T, C, VA, VG>::B;
+  static constexpr int HALF = CA::N + CG::N;  // a thread's copies of one product
+  CA a;           // A1
+  CG g;           // Gy0^T
+  ptrdiff_t da;   // A0 - A1
+  ptrdiff_t dg;   // Gy1^T - Gy0^T
+
+  __device__ __forceinline__ void next() {
+    a.next();
+    g.next();
+  }
+  __device__ __forceinline__ void issue(T* stage, int c) const {
+    if (c < CA::N)
+      a.copy(stage, c);
+    else if (c < HALF)
+      g.copy(stage + 2 * C::A_ELEMS, c - CA::N);
+    else if (c < HALF + CA::N)
+      a.copy(stage + C::A_ELEMS, c - HALF, da);
+    else
+      g.copy(stage + 2 * C::A_ELEMS + C::B_ELEMS, c - HALF - CA::N, dg);
+  }
+  __device__ __forceinline__ void issue_all(T* stage) const {
+#pragma unroll
+    for (int c = 0; c < 2 * HALF; ++c) issue(stage, c);
+  }
+};
+
+// out[0:n0, 0:n1] = ux * (a1 @ g0t + bcdx) + uy * (a0 @ g1t + bcdy); a1, a0
+// are n0 x k (leading dimension lda), g0t, g1t k x n1 (ldg), the
+// elementwise operands n0 x n1 (ldu).  VA: every row of a1 and a0 starts on
+// 16 bytes; VG: the same of g0t and g1t.
+template <typename T, class C, bool VA, bool VG>
+__global__ void __launch_bounds__(C::NTHREADS)
     conv_dual_kernel(int n0, int n1, int k, const T* __restrict__ a1,
                      const T* __restrict__ a0, int lda,
                      const T* __restrict__ g0t, const T* __restrict__ g1t,
@@ -37,52 +86,92 @@ __global__ void __launch_bounds__(NTHREADS)
                      const T* __restrict__ uy, const T* __restrict__ bcdx,
                      const T* __restrict__ bcdy, int ldu, T* __restrict__ out,
                      int ldo) {
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  __shared__ Tiles<T> sm;
-  T px[TM][TN], py[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) px[i][j] = py[i][j] = T(0);
-  tile_mma<T>(sm, px, a1, lda, g0t, ldg, n0, n1, k, row0, col0);
-  tile_mma<T>(sm, py, a0, lda, g1t, ldg, n0, n1, k, row0, col0);
-  const int tx = threadIdx.x % TDIM;
-  const int ty = threadIdx.x / TDIM;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + TDIM * i;
-    if (r >= n0) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + TDIM * j;
-      if (c >= n1) continue;
-      const size_t u = (size_t)r * ldu + c;
-      T dx = px[i][j], dy = py[i][j];
-      if (bcdx) {
-        dx += bcdx[u];
-        dy += bcdy[u];
-      }
-      out[(size_t)r * ldo + c] = ux[u] * dx + uy[u] * dy;
+  const int row0 = blockIdx.y * C::BM;
+  const int col0 = blockIdx.x * C::BN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Frag<T, C> px, py;
+  zero<T, C>(px);
+  zero<T, C>(py);
+  int wm0, wn0;
+  warp_origin<C>(wm0, wn0);
+  using P = DualProducer<T, C, VA, VG>;
+  P prod;
+  prod.a.init(a1, lda, n0, k, row0, 0);
+  prod.g.init(g0t, ldg, k, n1, 0, col0);
+  prod.da = a0 - a1;
+  prod.dg = g1t - g0t;
+  // warp step s: product s % 2 (px: A1 @ Gy0^T, py: A0 @ Gy1^T) over depth
+  // group s / 2 of the stage
+  Frags<T, C> f[2];
+  mainloop<C::RING2, 2 * (C::A_ELEMS + C::B_ELEMS), 2 * C::BK / C::MMA_K, C::MI * C::NJ,
+           2 * P::HALF, Frags<T, C>::LATE_READS>(
+      sm, (k + C::BK - 1) / C::BK, prod,
+      [&](int b, const T* st, int s) {
+        const int y = s % 2;
+        f[b].load(st + y * C::A_ELEMS, st + 2 * C::A_ELEMS + y * C::B_ELEMS, wm0, wn0,
+                  s / 2 * C::MMA_K);
+      },
+      [&](int b, int s, auto&& hook) { f[b].mma(s % 2 ? py : px, hook); });
+  for_each_elem<C>([&](int lr, int lc, int i, int j, int q) {
+    const int r = row0 + lr, c = col0 + lc;
+    if (r >= n0 || c >= n1) return;
+    const size_t u = (size_t)r * ldu + c;
+    T dx = px[i][j][q], dy = py[i][j][q];
+    if (bcdx) {
+      dx += bcdx[u];
+      dy += bcdy[u];
     }
-  }
+    out[(size_t)r * ldo + c] = ux[u] * dx + uy[u] * dy;
+  });
 }
 
+template <typename T, class C, bool VA, bool VG>
+static int launch_kernel(int n0, int n1, int k, const T* a1, const T* a0, int lda, const T* g0t,
+                         const T* g1t, int ldg, const T* ux, const T* uy, const T* bcdx,
+                         const T* bcdy, int ldu, T* out, int ldo, cudaStream_t stream) {
+  constexpr int smem = C::RING2 * 2 * (C::A_ELEMS + C::B_ELEMS) * (int)sizeof(T);
+  static const cudaError_t attr = smem_attribute(conv_dual_kernel<T, C, VA, VG>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((n1 + C::BN - 1) / C::BN, (n0 + C::BM - 1) / C::BM, 1);
+  conv_dual_kernel<T, C, VA, VG><<<grid, C::NTHREADS, smem, stream>>>(
+      n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy, bcdx, bcdy, ldu, out, ldo);
+  return (int)cudaGetLastError();
+}
+
+// The dual launch with block tile `tile` (0: 128 x 64, 1: 64 x 64).
 template <typename T>
 int launch_dual(int n0, int n1, int k, const void* a1, const void* a0, int lda,
                 const void* g0t, const void* g1t, int ldg, const void* ux,
                 const void* uy, const void* bcdx, const void* bcdy, int ldu,
-                void* out, int ldo, cudaStream_t stream) {
+                void* out, int ldo, int vec, int tile, cudaStream_t stream) {
   if (n0 < 1 || n1 < 1 || k < 1 || (bcdx == nullptr) != (bcdy == nullptr))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((n1 + BN - 1) / BN, (n0 + BM - 1) / BM, 1);
-  conv_dual_kernel<T><<<grid, NTHREADS, 0, stream>>>(
-      n0, n1, k, static_cast<const T*>(a1), static_cast<const T*>(a0), lda,
-      static_cast<const T*>(g0t), static_cast<const T*>(g1t), ldg,
-      static_cast<const T*>(ux), static_cast<const T*>(uy),
-      static_cast<const T*>(bcdx), static_cast<const T*>(bcdy), ldu,
-      static_cast<T*>(out), ldo);
-  return (int)cudaGetLastError();
+  const bool va = vec & 1, vg = (vec >> 1) & 1;
+  auto go = [&](auto cfg) {
+    using C = decltype(cfg);
+    auto run = [&](auto kernel_va, auto kernel_vg) {
+      return launch_kernel<T, C, decltype(kernel_va)::value, decltype(kernel_vg)::value>(
+          n0, n1, k, static_cast<const T*>(a1), static_cast<const T*>(a0), lda,
+          static_cast<const T*>(g0t), static_cast<const T*>(g1t), ldg,
+          static_cast<const T*>(ux), static_cast<const T*>(uy),
+          static_cast<const T*>(bcdx), static_cast<const T*>(bcdy), ldu,
+          static_cast<T*>(out), ldo, stream);
+    };
+    using Y = std::true_type;
+    using N = std::false_type;
+    if (va) return vg ? run(Y{}, Y{}) : run(Y{}, N{});
+    return vg ? run(N{}, Y{}) : run(N{}, N{});
+  };
+  switch (tile) {
+    case 0:
+      return go(Dual128x64{});
+    case 1:
+      return go(Dual64x64{});
+
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rp
@@ -92,9 +181,9 @@ extern "C" int rp_conv_dual_f64(int n0, int n1, int k, const void* a1,
                                 const void* g1t, int ldg, const void* ux,
                                 const void* uy, const void* bcdx,
                                 const void* bcdy, int ldu, void* out, int ldo,
-                                void* stream) {
+                                int vec, int tile, void* stream) {
   return rp::launch_dual<double>(n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy,
-                                 bcdx, bcdy, ldu, out, ldo,
+                                 bcdx, bcdy, ldu, out, ldo, vec, tile,
                                  static_cast<cudaStream_t>(stream));
 }
 
@@ -103,8 +192,8 @@ extern "C" int rp_conv_dual_f32(int n0, int n1, int k, const void* a1,
                                 const void* g1t, int ldg, const void* ux,
                                 const void* uy, const void* bcdx,
                                 const void* bcdy, int ldu, void* out, int ldo,
-                                void* stream) {
+                                int vec, int tile, void* stream) {
   return rp::launch_dual<float>(n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy,
-                                bcdx, bcdy, ldu, out, ldo,
+                                bcdx, bcdy, ldu, out, ldo, vec, tile,
                                 static_cast<cudaStream_t>(stream));
 }

@@ -19,12 +19,18 @@
 // through the same entry points, rp_gemm_f64/f32, from this library.
 //
 // Bound on the H100: operations.  At 1025^2 f64 a stage does 4.3-17.2 GFLOP
-// on 33-117 MB of operands (0.06-0.26 ms at the FP64 peak against
-// 0.01-0.04 ms at the memory rate).  f64 has no wgmma, so the tile loop
-// issues DFMA from shared memory (64 x 64 tiles, 4 x 4 per thread).  The
-// term sum and the elementwise epilogue never leave the block, which
-// removes the separate add/scale passes of the plain chain.  Tensor-core
-// f64 (mma.sync m8n8k4), TMA and a deeper pipeline are later work.
+// on 33-117 MB of operands: 0.06-0.26 ms at the 67 TFLOP/s of the FP64
+// tensor cores against 0.01-0.04 ms at the memory rate.  The tile is
+// tile_gemm.cuh's: DMMA m16n8k8 warp tiles of 32 x 32 in 64 x 64 (or
+// 128 x 64) blocks, fed by a 3-4 stage cp.async ring with the
+// copies issued between the DMMAs and the fragments double-buffered (the
+// tile, warp and pipeline design, why it fits 1023^2 on 132 SMs, and the
+// 8-byte copy rule for odd leading dimensions are described there).  The
+// terms of an output run through one ring and one set of accumulators, so
+// the term sum never leaves the registers, and the elementwise epilogue
+// (* E + F, * mask, the zero fill to Mout x Nout) is applied to the
+// accumulators before the single store.  Each launch instantiates the
+// kernel for its copy widths (16-byte A and/or B) and its block tile.
 #include "tile_gemm.cuh"
 
 namespace rp {
@@ -39,6 +45,8 @@ constexpr int MAX_JOBS = 4;   // outputs of one launch (blockIdx.z)
 //   C[rest of Mout x Nout] = 0
 //
 // E, F and mask are optional (null); A[t] is M x K[t], B[t] is K[t] x N.
+// Bit 2t of vec says that every row of A[t] starts on 16 bytes, bit 2t + 1
+// the same of B[t]; those operands are copied 16 bytes at a time.
 extern "C" {
 struct RpJob {
   void* C;
@@ -52,6 +60,7 @@ struct RpJob {
   int lda[rp::MAX_TERMS];
   int ldb[rp::MAX_TERMS];
   int ldc, lde, ldf, ldm;
+  int vec;
 };
 }
 
@@ -61,75 +70,152 @@ struct Jobs {
   RpJob job[MAX_JOBS];
 };
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS) gemm_jobs_kernel(Jobs jobs) {
-  const RpJob& jb = jobs.job[blockIdx.z];
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  if (row0 >= jb.Mout || col0 >= jb.Nout) return;  // uniform per block
-  __shared__ Tiles<T> sm;
-  T acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
-  if (row0 < jb.M && col0 < jb.N) {  // uniform per block
-    for (int t = 0; t < jb.nt; ++t)
-      tile_mma<T>(sm, acc, static_cast<const T*>(jb.A[t]), jb.lda[t],
-                  static_cast<const T*>(jb.B[t]), jb.ldb[t], jb.M, jb.N,
-                  jb.K[t], row0, col0);
+// The copies of one output's depth steps, every term after another (the
+// ring never drains at a term boundary).
+template <typename T, class C, bool VA, bool VB>
+struct JobProducer {
+  using CA = typename Copiers<T, C, VA, VB>::A;
+  using CB = typename Copiers<T, C, VA, VB>::B;
+  static constexpr int NCOPY = CA::N + CB::N;  // a thread's copies a stage
+  const RpJob& jb;
+  int row0, col0;
+  int t = 0, k = 0;  // term and depth of the current step
+  CA a;
+  CB b;
+
+  __device__ __forceinline__ JobProducer(const RpJob& jb, int row0, int col0)
+      : jb(jb), row0(row0), col0(col0) {
+    start();
   }
-  T* C = static_cast<T*>(jb.C);
+  __device__ __forceinline__ void start() {
+    a.init(static_cast<const T*>(jb.A[t]), jb.lda[t], jb.M, jb.K[t], row0, 0);
+    b.init(static_cast<const T*>(jb.B[t]), jb.ldb[t], jb.K[t], jb.N, 0, col0);
+  }
+  __device__ __forceinline__ void next() {
+    k += C::BK;
+    if (k < jb.K[t]) {
+      a.next();
+      b.next();
+    } else if (++t < jb.nt) {
+      k = 0;
+      start();
+    }
+  }
+  __device__ __forceinline__ void issue(T* stage, int c) const {
+    if (c < CA::N)
+      a.copy(stage, c);
+    else
+      b.copy(stage + C::A_ELEMS, c - CA::N);
+  }
+  __device__ __forceinline__ void issue_all(T* stage) const {
+#pragma unroll
+    for (int c = 0; c < NCOPY; ++c) issue(stage, c);
+  }
+};
+
+// VA / VB: every A[t] / B[t] of the launch has 16-byte rows (vec bits).
+template <typename T, class C, bool VA, bool VB>
+__global__ void __launch_bounds__(C::NTHREADS) gemm_jobs_kernel(const __grid_constant__ Jobs jobs) {
+  const RpJob& jb = jobs.job[blockIdx.z];
+  const int row0 = blockIdx.y * C::BM;
+  const int col0 = blockIdx.x * C::BN;
+  if (row0 >= jb.Mout || col0 >= jb.Nout) return;  // uniform per block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Frag<T, C> acc;
+  zero<T, C>(acc);
+  if (row0 < jb.M && col0 < jb.N) {  // uniform per block
+    int ntiles = 0;
+    for (int t = 0; t < jb.nt; ++t) ntiles += (jb.K[t] + C::BK - 1) / C::BK;
+    int wm0, wn0;
+    warp_origin<C>(wm0, wn0);
+    using P = JobProducer<T, C, VA, VB>;
+    P prod(jb, row0, col0);
+    Frags<T, C> f[2];
+    mainloop<C::RING1, C::A_ELEMS + C::B_ELEMS, C::BK / C::MMA_K, C::MI * C::NJ, P::NCOPY,
+             Frags<T, C>::LATE_READS>(
+        sm, ntiles, prod,
+        [&](int b, const T* st, int s) {
+          f[b].load(st, st + C::A_ELEMS, wm0, wn0, s * C::MMA_K);
+        },
+        [&](int b, int, auto&& hook) { f[b].mma(acc, hook); });
+  }
+  T* out = static_cast<T*>(jb.C);
   const T* E = static_cast<const T*>(jb.E);
   const T* F = static_cast<const T*>(jb.F);
   const T* mask = static_cast<const T*>(jb.mask);
-  const int tx = threadIdx.x % TDIM;
-  const int ty = threadIdx.x / TDIM;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + TDIM * i;
-    if (r >= jb.Mout) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + TDIM * j;
-      if (c >= jb.Nout) continue;
-      T v = T(0);
-      if (r < jb.M && c < jb.N) {
-        v = acc[i][j];
-        if (E) v *= E[(size_t)r * jb.lde + c];
-        if (F) v += F[(size_t)r * jb.ldf + c];
-        if (mask) v *= mask[(size_t)r * jb.ldm + c];
-      }
-      C[(size_t)r * jb.ldc + c] = v;
+  for_each_elem<C>([&](int lr, int lc, int i, int j, int q) {
+    const int r = row0 + lr, c = col0 + lc;
+    if (r >= jb.Mout || c >= jb.Nout) return;
+    T v = T(0);
+    if (r < jb.M && c < jb.N) {
+      v = acc[i][j][q];
+      if (E) v *= E[(size_t)r * jb.lde + c];
+      if (F) v += F[(size_t)r * jb.ldf + c];
+      if (mask) v *= mask[(size_t)r * jb.ldm + c];
     }
-  }
+    out[(size_t)r * jb.ldc + c] = v;
+  });
 }
 
-// Launch 1..MAX_JOBS independent outputs as blockIdx.z of one grid.
+template <typename T, class C, bool VA, bool VB>
+static int launch_kernel(const Jobs& p, dim3 grid, cudaStream_t stream) {
+  constexpr int smem = C::RING1 * (C::A_ELEMS + C::B_ELEMS) * (int)sizeof(T);
+  static const cudaError_t attr = smem_attribute(gemm_jobs_kernel<T, C, VA, VB>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  gemm_jobs_kernel<T, C, VA, VB><<<grid, C::NTHREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, class C>
+static int launch_tile(const Jobs& p, int njobs, int mo, int no, bool va, bool vb,
+                       cudaStream_t stream) {
+  const dim3 grid((no + C::BN - 1) / C::BN, (mo + C::BM - 1) / C::BM, njobs);
+  if (va)
+    return vb ? launch_kernel<T, C, true, true>(p, grid, stream)
+              : launch_kernel<T, C, true, false>(p, grid, stream);
+  return vb ? launch_kernel<T, C, false, true>(p, grid, stream)
+            : launch_kernel<T, C, false, false>(p, grid, stream);
+}
+
+// Launch 1..MAX_JOBS independent outputs as blockIdx.z of one grid, with
+// block tile `tile` (0: 128 x 64, 1: 64 x 64).  An operand is copied 16
+// bytes at a time when every A (or every B) of the launch allows it.
 template <typename T>
-int launch_jobs(const RpJob* jobs, int njobs, cudaStream_t stream) {
+int launch_jobs(const RpJob* jobs, int njobs, int tile, cudaStream_t stream) {
   if (njobs < 1 || njobs > MAX_JOBS) return (int)cudaErrorInvalidValue;
   Jobs p;
   int mo = 0, no = 0;
+  bool va = true, vb = true;
   for (int z = 0; z < njobs; ++z) {
     const RpJob& jb = jobs[z];
     if (jb.nt < 1 || jb.nt > MAX_TERMS || jb.M > jb.Mout || jb.N > jb.Nout)
       return (int)cudaErrorInvalidValue;
+    for (int t = 0; t < jb.nt; ++t) {
+      if (jb.K[t] < 1) return (int)cudaErrorInvalidValue;
+      va = va && ((jb.vec >> (2 * t)) & 1);
+      vb = vb && ((jb.vec >> (2 * t + 1)) & 1);
+    }
     p.job[z] = jb;
     mo = mo > jb.Mout ? mo : jb.Mout;
     no = no > jb.Nout ? no : jb.Nout;
   }
-  dim3 grid((no + BN - 1) / BN, (mo + BM - 1) / BM, njobs);
-  gemm_jobs_kernel<T><<<grid, NTHREADS, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  switch (tile) {
+    case 0:
+      return launch_tile<T, Tile128x64>(p, njobs, mo, no, va, vb, stream);
+    case 1:
+      return launch_tile<T, Tile64x64>(p, njobs, mo, no, va, vb, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rp
 
-extern "C" int rp_gemm_f64(const RpJob* jobs, int njobs, void* stream) {
-  return rp::launch_jobs<double>(jobs, njobs, static_cast<cudaStream_t>(stream));
+extern "C" int rp_gemm_f64(const RpJob* jobs, int njobs, int tile, void* stream) {
+  return rp::launch_jobs<double>(jobs, njobs, tile, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int rp_gemm_f32(const RpJob* jobs, int njobs, void* stream) {
-  return rp::launch_jobs<float>(jobs, njobs, static_cast<cudaStream_t>(stream));
+extern "C" int rp_gemm_f32(const RpJob* jobs, int njobs, int tile, void* stream) {
+  return rp::launch_jobs<float>(jobs, njobs, tile, static_cast<cudaStream_t>(stream));
 }

@@ -32,13 +32,21 @@ NVCC_FLAGS = (
 
 MAX_TERMS = 4
 MAX_JOBS = 4
+#: block tiles of the generic GEMM and the dual convection kernel, by the
+#: index their C entry points take as ``tile`` (see csrc/tile_gemm.cuh)
+TILES = ("128x64", "64x64")
+#: the block tile the wrappers launch, chosen by time on the card (PERF.md)
+TILE = 1
+#: a row that starts on this many bytes may be copied 16 bytes at a time
+ROW_ALIGN = 16
 
 
 class RpJob(ctypes.Structure):
     """Mirror of ``struct RpJob`` in ``csrc/fused_stage.cu``: one output of
     one launch of the generic tiled GEMM,
     ``C[:M, :N] = ((sum_t A[t] @ B[t]) * E + F) * mask``, zero elsewhere in
-    ``C[:Mout, :Nout]``."""
+    ``C[:Mout, :Nout]``; bit ``2t`` of ``vec`` says every row of ``A[t]``
+    starts on 16 bytes, bit ``2t + 1`` the same of ``B[t]``."""
 
     _fields_ = [
         ("C", ctypes.c_void_p),
@@ -59,14 +67,15 @@ class RpJob(ctypes.Structure):
         ("lde", ctypes.c_int),
         ("ldf", ctypes.c_int),
         ("ldm", ctypes.c_int),
+        ("vec", ctypes.c_int),
     ]
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _P], _I)
+_JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _I, _P], _I)
 _L = ctypes.c_longlong
-_DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P], _I)
+_DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I)
 _BANDED_SIG = ([_I, _I, _I, _I, _I, _P, _P, _I, _L, _L, _I, _P, _L, _L, _L, _P, _L, _L, _L, _P], _I)
 _RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _P], _I)
 _SIGNATURES = {
@@ -183,10 +192,38 @@ def gemm(dtype):
     return lib.rp_gemm_f64 if dtype == torch.float64 else lib.rp_gemm_f32
 
 
+def rows_aligned(*xs) -> bool:
+    """Whether every row of each 2-D tensor ``xs`` starts on ``ROW_ALIGN``
+    bytes (its base pointer and its row stride), so a kernel may copy it 16
+    bytes at a time; otherwise it copies one element at a time."""
+    return all(x.data_ptr() % ROW_ALIGN == 0 and (x.stride(0) * x.element_size()) % ROW_ALIGN == 0
+               for x in xs)
+
+
+def padded(rows, cols, *, device, dtype) -> torch.Tensor:
+    """An uninitialised ``rows x cols`` tensor whose rows start on
+    ``ROW_ALIGN`` bytes: a view of a buffer whose row length is ``cols``
+    rounded up (the kernels' scratch and operator constants)."""
+    per = ROW_ALIGN // dtype.itemsize
+    return torch.empty((rows, -(-cols // per) * per), device=device, dtype=dtype)[:, :cols]
+
+
+def aligned(x) -> torch.Tensor:
+    """``x`` (2-D) itself if :func:`rows_aligned`, else a copy of it in a
+    :func:`padded` buffer."""
+    if x.ndim == 2 and x.stride(1) == 1 and rows_aligned(x):
+        return x
+    out = padded(x.shape[0], x.shape[1], device=x.device, dtype=x.dtype)
+    out.copy_(x)
+    return out
+
+
 def job(out, terms, *, M, N, Mout=None, Nout=None, E=None, F=None, mask=None) -> RpJob:
     """One :class:`RpJob` from tensors: ``terms`` is a list of ``(A, B)``
-    row-major contiguous tensors with ``A`` of ``M`` rows and ``B`` of ``N``
-    columns; ``E``, ``F`` and ``mask`` are ``M x N``-or-larger tensors."""
+    row-major tensors (unit column stride, any row stride) with ``A`` of
+    ``M`` rows and ``B`` of ``N`` columns; ``E``, ``F`` and ``mask`` are
+    ``M x N``-or-larger tensors.  ``vec`` gets the bit of each term operand
+    whose rows all start on 16 bytes (:func:`rows_aligned`)."""
     if not 1 <= len(terms) <= MAX_TERMS:
         raise ValueError(f"a job sums 1..{MAX_TERMS} products, got {len(terms)}")
     operands = [out, E, F, mask] + [x for pair in terms for x in pair]
@@ -202,8 +239,11 @@ def job(out, terms, *, M, N, Mout=None, Nout=None, E=None, F=None, mask=None) ->
     for t, (a, b) in enumerate(terms):
         if a.shape[0] < M or b.shape[1] < N or a.shape[1] != b.shape[0]:
             raise ValueError(f"term {t}: shapes {tuple(a.shape)} @ {tuple(b.shape)} do not give {M}x{N}")
+        if a.shape[1] < 1:
+            raise ValueError(f"term {t}: a product of depth 0")
         j.A[t], j.B[t] = a.data_ptr(), b.data_ptr()
         j.K[t], j.lda[t], j.ldb[t] = a.shape[1], a.stride(0), b.stride(0)
+        j.vec |= rows_aligned(a) << (2 * t) | rows_aligned(b) << (2 * t + 1)
     for name, ld, arr in (("E", "lde", E), ("F", "ldf", F), ("mask", "ldm", mask)):
         if arr is not None:
             if arr.shape[0] < M or arr.shape[1] < N:
@@ -214,8 +254,9 @@ def job(out, terms, *, M, N, Mout=None, Nout=None, E=None, F=None, mask=None) ->
 
 
 def launch_jobs(fn, jobs, device) -> None:
-    """Launch the generic kernel entry point ``fn`` on ``jobs``."""
+    """Launch the generic kernel entry point ``fn`` on ``jobs`` with block
+    tile ``TILE``."""
     if not 1 <= len(jobs) <= MAX_JOBS:
         raise ValueError(f"a launch takes 1..{MAX_JOBS} jobs, got {len(jobs)}")
     arr = (RpJob * len(jobs))(*jobs)
-    check(fn(arr, len(jobs), stream_handle(device)), fn.__name__)
+    check(fn(arr, len(jobs), TILE, stream_handle(device)), fn.__name__)

@@ -13,7 +13,9 @@ storage.  On a CUDA tensor :meth:`FusedConv.apply` runs the hand-written
 kernels of ``csrc/fused_conv.cu`` (four launches, three of them of the
 generic GEMM of ``csrc/fused_stage.cu``; see fused_conv.cu) and adds
 one to ``FusedConv.launches``; on a CPU tensor it runs
-:meth:`FusedConv.plain`.  Any other device raises.
+:meth:`FusedConv.plain`.  Any other device raises.  As in
+``ops/fused_step.py``, the operator constants and the scratch keep their
+rows on 16-byte boundaries.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ class FusedConv:
         self.mx, self.my = gx0.shape[1], gy0.shape[1]
         self.out_shape = field_space.shape_spectral
         def put(m):
-            return to_device(m, self.device, self.dtype)
+            return _build.aligned(to_device(m, self.device, self.dtype))
 
         self.gx1, self.gx0 = put(gx1), put(gx0)
         self.gy0t, self.gy1t = put(gy0.T), put(gy1.T)
@@ -125,23 +127,25 @@ class FusedConv:
         kw = dict(device=self.device, dtype=self.dtype)
         nx, ny, my = self.nx, self.ny, self.my
         # 1. A1 = Gx1 @ vhat, A0 = Gx0 @ vhat in one grid
-        a1 = torch.empty((nx, my), **kw)
-        a0 = torch.empty((nx, my), **kw)
+        a1 = _build.padded(nx, my, **kw)
+        a0 = _build.padded(nx, my, **kw)
         _build.launch_jobs(gemm, [
             _build.job(a1, [(self.gx1, vhat)], M=nx, N=my),
             _build.job(a0, [(self.gx0, vhat)], M=nx, N=my),
         ], self.device)
         # 2. total = ux*(A1 @ Gy0^T + bcdx) + uy*(A0 @ Gy1^T + bcdy)
-        total = torch.empty((nx, ny), **kw)
+        total = _build.padded(nx, ny, **kw)
         bcx = None if bc_dx is None else bc_dx.data_ptr()
         bcy = None if bc_dy is None else bc_dy.data_ptr()
-        _build.check(dual(nx, ny, my, a1.data_ptr(), a0.data_ptr(), my,
-                          self.gy0t.data_ptr(), self.gy1t.data_ptr(), ny,
+        vec = _build.rows_aligned(a1, a0) | _build.rows_aligned(self.gy0t, self.gy1t) << 1
+        _build.check(dual(nx, ny, my, a1.data_ptr(), a0.data_ptr(), a1.stride(0),
+                          self.gy0t.data_ptr(), self.gy1t.data_ptr(), self.gy0t.stride(0),
                           ux.data_ptr(), uy.data_ptr(), bcx, bcy, ny,
-                          total.data_ptr(), ny, _build.stream_handle(self.device)),
+                          total.data_ptr(), total.stride(0), vec, _build.TILE,
+                          _build.stream_handle(self.device)),
                      dual.__name__)
         # 3. T = total @ Fy^T (kept columns)
-        t = torch.empty((nx, self.ky), **kw)
+        t = _build.padded(nx, self.ky, **kw)
         _build.launch_jobs(gemm, [_build.job(t, [(total, self.fyt)], M=nx, N=self.ky)],
                            self.device)
         # 4. out = Fx @ T on the kept block, zeros over the rest

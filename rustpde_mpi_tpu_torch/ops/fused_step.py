@@ -15,7 +15,10 @@ On a CUDA tensor :meth:`FusedStage.apply` runs the hand-written kernel of
 ``csrc/fused_stage.cu`` as 2-4 launches (see that file for the design) and
 adds one to ``FusedStage.launches``; on a CPU tensor it runs
 :meth:`FusedStage.plain`, the same chain in ``torch.matmul``.  Any other
-device raises.
+device raises.  The operator constants and the kernel's scratch keep their
+rows on 16-byte boundaries (``_build.padded``), so the kernel copies them
+16 bytes at a time; the inputs and the output are plain contiguous
+tensors.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ class FusedStage:
         self.dtype = dtype
 
         def put(m):
-            return None if m is None else to_device(m, self.device, dtype)
+            return None if m is None else _build.aligned(to_device(m, self.device, dtype))
 
         self.ls = [put(t.l) for t in self.terms]
         self.rts = [put(t.r.T) for t in self.terms]
@@ -156,7 +159,7 @@ class FusedStage:
         kw = dict(device=self.device, dtype=self.dtype)
         r0, q1 = self.r0, self.q1
         # 1. Y_t = L_t @ x_t, every term in one grid
-        ys = [torch.empty((r0, k1), **kw) for k1 in self.k1]
+        ys = [_build.padded(r0, k1, **kw) for k1 in self.k1]
         _build.launch_jobs(fn, [
             _build.job(y, [(l, x)], M=r0, N=y.shape[1])
             for y, l, x in zip(ys, self.ls, xs)
@@ -164,13 +167,14 @@ class FusedStage:
         # 2. M = sum_t Y_t @ R_t^T, with the elementwise epilogue; the mask
         # lands here unless a backward map follows
         last2 = self.b1t is None and self.b0 is None
-        m = torch.empty((r0, q1), **kw)
+        m = torch.empty((r0, q1), **kw) if last2 else _build.padded(r0, q1, **kw)
         _build.launch_jobs(fn, [_build.job(
             m, list(zip(ys, self.rts)), M=r0, N=q1, E=self.dinv, F=self.const,
             mask=self.mask if last2 else None)], self.device)
         # 3. M @ B1^T
         if self.b1t is not None:
-            m2 = torch.empty((r0, self.p1), **kw)
+            m2 = torch.empty((r0, self.p1), **kw) if self.b0 is None else \
+                _build.padded(r0, self.p1, **kw)
             _build.launch_jobs(fn, [_build.job(
                 m2, [(m, self.b1t)], M=r0, N=self.p1,
                 mask=self.mask if self.b0 is None else None)], self.device)

@@ -35,8 +35,15 @@ def _rel(got, want):
     return float(torch.max(torch.abs(got - want))) / float(torch.max(torch.abs(want)))
 
 
+@pytest.fixture(params=range(len(_build.TILES)), ids=_build.TILES)
+def tile(request, monkeypatch):
+    """Each block tile the kernels are compiled for (``_build.TILE``)."""
+    monkeypatch.setattr(_build, "TILE", request.param)
+    return request.param
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_generic_gemm_ragged_jobs(device, dtype):
+def test_generic_gemm_ragged_jobs(device, dtype, tile):
     """Ragged M, N, K (no multiple of a tile), several jobs of different
     shapes in one launch, every epilogue, and the zero fill to Mout x Nout."""
     fn = _build.gemm(dtype)
@@ -60,9 +67,145 @@ def test_generic_gemm_ragged_jobs(device, dtype):
     assert _rel(out2, a3 @ b3) <= TOL[dtype]
 
 
+#: extents that cross the DMMA fragment (16 x 8 x 4) and block tile (64,
+#: 128; depth 16) edges
+EDGES = (1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 127, 128, 129)
+
+
+def _operand(rows, cols, aligned, rng, dtype, device):
+    """A ``rows x cols`` operand as a view of a wider buffer: rows on 16
+    bytes (even leading dimension, aligned base) when ``aligned``, else an
+    odd leading dimension and a base one element past 16 bytes."""
+    per = 16 // dtype.itemsize
+    if aligned:
+        ld, off = -(-cols // per) * per + per, 0
+    else:
+        ld, off = cols + 1 + cols % 2, 1
+    buf = torch.empty(rows * ld + off, dtype=dtype, device=device)
+    view = buf[off:].view(rows, ld)[:, :cols]
+    view.copy_(torch.as_tensor(rng.uniform(-1.0, 1.0, (rows, cols)), dtype=dtype))
+    return view
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["copy16", "copy_elem"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_generic_gemm_edge_sweep(device, dtype, tile, aligned):
+    """Every M x N x K over the fragment and tile edges, four jobs (four
+    depths) in each launch, on strided views whose rows all start on 16
+    bytes (the 16-byte copies) or none do (the element copies)."""
+    fn = _build.gemm(dtype)
+    rng = np.random.default_rng(7)
+    want_vec = 0b11 if aligned else 0
+    for m in EDGES:
+        for n in EDGES:
+            for k0 in range(0, len(EDGES), 4):
+                jobs, checks = [], []
+                for k in EDGES[k0:k0 + 4]:
+                    a = _operand(m, k, aligned, rng, dtype, device)
+                    b = _operand(k, n, aligned, rng, dtype, device)
+                    out = _operand(m, n, aligned, rng, dtype, device)
+                    j = _build.job(out, [(a, b)], M=m, N=n)
+                    assert j.vec == want_vec
+                    jobs.append(j)
+                    checks.append((out, a, b))
+                _build.launch_jobs(fn, jobs, device)
+                for out, a, b in checks:
+                    assert _rel(out, a @ b) <= TOL[dtype], (m, n, a.shape[1])
+
+
+@pytest.mark.parametrize("epilogue", range(8), ids=lambda e: f"E{e & 1}F{e >> 1 & 1}mask{e >> 2}")
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_generic_gemm_terms_and_epilogues(device, dtype, tile, epilogue):
+    """Four terms of different depth in one output (odd and aligned operands
+    mixed), each epilogue combination of E, F and mask, the zero fill to
+    Mout x Nout, and the same input run twice gives bit-identical output."""
+    fn = _build.gemm(dtype)
+    rng = np.random.default_rng(epilogue)
+    m, n, mo, no = 131, 97, 140, 100
+    terms = [(_operand(m, k, k % 2 == 0, rng, dtype, device),
+              _operand(k, n, k % 3 == 0, rng, dtype, device)) for k in (1, 17, 64, 129)]
+
+    def rand(rows, cols):
+        return torch.as_tensor(rng.uniform(-1.0, 1.0, (rows, cols)), dtype=dtype).to(device)
+
+    e = rand(m, n) if epilogue & 1 else None
+    f = rand(m, n) if epilogue & 2 else None
+    mask = (rand(m, n) > 0).to(dtype) if epilogue & 4 else None
+    want = torch.zeros((mo, no), dtype=dtype, device=device)
+    v = sum(a @ b for a, b in terms)
+    v = v * e if e is not None else v
+    v = v + f if f is not None else v
+    want[:m, :n] = v * mask if mask is not None else v
+    outs = []
+    for _ in range(2):
+        out = torch.full((mo, no), 7.0, dtype=dtype, device=device)
+        _build.launch_jobs(fn, [_build.job(out, terms, M=m, N=n, Mout=mo, Nout=no,
+                                           E=e, F=f, mask=mask)], device)
+        outs.append(out)
+    assert _rel(outs[0], want) <= TOL[dtype]
+    assert torch.equal(outs[0], outs[1])
+
+
+def _dual_case(n0, n1, k, aligned, with_bc, rng, dtype, device):
+    ops = [_operand(n0, k, aligned, rng, dtype, device) for _ in range(2)]
+    ops += [_operand(k, n1, aligned, rng, dtype, device) for _ in range(2)]
+    ops += [torch.as_tensor(rng.uniform(-1.0, 1.0, (n0, n1)), dtype=dtype).to(device)
+            for _ in range(4 if with_bc else 2)]
+    return ops
+
+
+def _dual(ops, n0, n1, k, dtype, device):
+    a1, a0, g0t, g1t, ux, uy, *bc = ops
+    lib = _build.load("fused_conv")
+    fn = lib.rp_conv_dual_f64 if dtype == torch.float64 else lib.rp_conv_dual_f32
+    out = torch.full((n0, n1 + 3), 7.0, dtype=dtype, device=device)[:, :n1]
+    bcx, bcy = (bc[0].data_ptr(), bc[1].data_ptr()) if bc else (None, None)
+    vec = _build.rows_aligned(a1, a0) | _build.rows_aligned(g0t, g1t) << 1
+    _build.check(fn(n0, n1, k, a1.data_ptr(), a0.data_ptr(), a1.stride(0), g0t.data_ptr(),
+                    g1t.data_ptr(), g0t.stride(0), ux.data_ptr(), uy.data_ptr(), bcx, bcy,
+                    ux.stride(0), out.data_ptr(), out.stride(0), vec, _build.TILE,
+                    _build.stream_handle(device)), fn.__name__)
+    dx, dy = a1 @ g0t, a0 @ g1t
+    if bc:
+        dx, dy = dx + bc[0], dy + bc[1]
+    return out, ux * dx + uy * dy, vec
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["copy16", "copy_elem"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_conv_dual_edges(device, dtype, tile, aligned):
+    """The two-accumulator kernel over fragment and tile edges, with and
+    without the bc terms, on both copy paths; bit-identical on a repeat."""
+    rng = np.random.default_rng(11)
+    shapes = [(n0, n1, k) for n0 in (1, 17, 64, 129) for n1 in (8, 63, 65, 128)
+              for k in (1, 15, 16, 65)]
+    for i, (n0, n1, k) in enumerate(shapes):
+        ops = _dual_case(n0, n1, k, aligned, i % 2 == 1, rng, dtype, device)
+        got, want, vec = _dual(ops, n0, n1, k, dtype, device)
+        assert vec == (3 if aligned else 0)
+        assert _rel(got, want) <= TOL[dtype], (n0, n1, k)
+        again, _, _ = _dual(ops, n0, n1, k, dtype, device)
+        assert torch.equal(got, again)
+
+
+def test_stage_repeat_is_bit_identical(device, tile):
+    """A whole fused stage and a conv chain at 129^2 run twice on one input
+    give bit-identical output (the kernels are deterministic)."""
+    model = pt.Navier2D(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc", device=device)
+    rng = np.random.default_rng(3)
+    for st in model._stages.values():
+        xs = [torch.tensor(rng.uniform(-1.0, 1.0, (k0, k1)), device=device)
+              for k0, k1 in zip(st.k0, st.k1)]
+        assert torch.equal(st.apply(*xs), st.apply(*xs)), st.name
+    fc = model._convs[id(model.temp_space)]
+    args = [torch.tensor(rng.uniform(-1.0, 1.0, s), device=device)
+            for s in [(129, 129)] * 2 + [(fc.mx, fc.my)] + [(129, 129)] * 2]
+    assert torch.equal(fc.apply(*args), fc.apply(*args))
+
+
 @pytest.mark.parametrize("n", [17, 33])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_stages_and_convs_match_plain(device, n, dtype):
+def test_stages_and_convs_match_plain(device, n, dtype, tile):
     model = pt.Navier2D(n, n, 1e5, 1.0, 2e-3, 1.0, "rbc", device=device, dtype=dtype)
     rng = np.random.default_rng(n)
 

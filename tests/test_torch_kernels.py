@@ -212,12 +212,14 @@ def test_signatures_name_each_libraries_entry_points():
 
 def test_job_struct_mirrors_the_c_layout():
     """``RpJob`` in csrc/fused_stage.cu: four pointers, two arrays of four
-    pointers, then 21 ints, padded to pointer alignment."""
+    pointers, then 22 ints (the last the copy-width flags ``vec``), padded to
+    pointer alignment."""
     p, i = ctypes.sizeof(ctypes.c_void_p), ctypes.sizeof(ctypes.c_int)
-    raw = 12 * p + 21 * i
+    raw = 12 * p + 22 * i
     assert ctypes.sizeof(_build.RpJob) == -(-raw // p) * p
     assert _build.RpJob.M.offset == 12 * p
     assert _build.RpJob.ldm.offset == 12 * p + 20 * i
+    assert _build.RpJob.vec.offset == 12 * p + 21 * i
     names = [f[0] for f in _build.RpJob._fields_]
     text = (_build.CSRC / "fused_stage.cu").read_text()
     body = text[text.index("struct RpJob {"):text.index("};", text.index("struct RpJob {"))]
@@ -239,10 +241,47 @@ def test_job_validates_operands():
         _build.job(out, [(a, b[:, ::2])], M=5, N=2)
     with pytest.raises(ValueError, match="1..4 products"):
         _build.job(out, [(a, b)] * 5, M=5, N=4)
+    with pytest.raises(ValueError, match="depth 0"):
+        _build.job(out, [(a[:, :0], b[:0])], M=5, N=4)
     with pytest.raises(ValueError, match="smaller than"):
         _build.job(out, [(a, b)], M=5, N=4, mask=torch.zeros((2, 2), dtype=torch.float64))
     with pytest.raises(ValueError, match="1..4 jobs"):
         _build.launch_jobs(None, [], torch.device("cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_padded_rows_start_on_16_bytes(dtype):
+    """``padded`` rounds the row length up to 16 bytes and hands back a view
+    of the asked width; ``aligned`` copies only what is not aligned yet."""
+    per = 16 // dtype.itemsize
+    for cols in (1, per - 1, per, per + 1, 1023, 1025):
+        x = _build.padded(5, cols, device="cpu", dtype=dtype)
+        assert x.shape == (5, cols) and x.stride(1) == 1
+        assert x.stride(0) % per == 0 and x.stride(0) - cols < per
+        assert _build.rows_aligned(x)
+        y = torch.arange(5.0 * cols, dtype=dtype).view(5, cols)
+        z = _build.aligned(y)
+        assert _build.rows_aligned(z) and torch.equal(z, y)
+        assert (z is y) == (cols % per == 0)
+        assert _build.aligned(z) is z
+
+
+def test_job_sets_the_copy_width_per_operand():
+    """Bit 2t of ``vec`` for A[t], bit 2t+1 for B[t]: set only when the base
+    pointer and the row stride are both multiples of 16 bytes."""
+    f64 = torch.float64
+    even = _build.padded(8, 8, device="cpu", dtype=f64)          # 64-byte rows
+    odd = torch.zeros((8, 7), dtype=f64)                          # 56-byte rows
+    shifted = _build.padded(8, 10, device="cpu", dtype=f64)[:, 1:9]  # base 8 bytes in
+    out = torch.zeros((8, 8), dtype=f64)
+    assert _build.rows_aligned(even) and not _build.rows_aligned(odd)
+    assert not _build.rows_aligned(shifted)
+    assert _build.job(out, [(even, even)], M=8, N=8).vec == 0b11
+    assert _build.job(out, [(even, odd)], M=8, N=7).vec == 0b01
+    assert _build.job(out, [(shifted, even)], M=8, N=8).vec == 0b10
+    j = _build.job(out, [(even, even), (shifted, even), (even, odd), (odd, even[:7])], M=8, N=7)
+    assert j.vec == 0b10_01_10_11  # B[3], A[2], B[1], A[0] and B[0]
+    assert 0 <= _build.TILE < len(_build.TILES)
 
 
 def test_signatures_match_the_c_parameter_types():
