@@ -18,12 +18,10 @@ default step on its solver objects) in phases 6-11:
    cuBLAS calls PyTorch offers (``library_ms``) at 1025^2 f64, with the
    kernel's achieved TFLOP/s and its share of the bound; a case over its
    limit runs the kernel and the plain version once more each and prints
-   the three errors (which side moved) before it fails.  First, at 1025^2
-   f64, every case is timed with each block tile the GEMM kernels are
-   compiled for (``_build.TILES``, in turns) and the candidates' times and
-   the tile the wrappers launch are printed; last, the convection chain's
-   four launches are timed one by one (profiler) beside cuBLAS on the same
-   products;
+   the three errors (which side moved) before it fails.  First it prints
+   the block tiles of the two fused kernels (read from
+   ``csrc/tile_gemm.cuh``); last, the convection chain's four launches are
+   timed one by one (profiler) beside cuBLAS on the same products;
 2. reruns the head of the f64 golden Nusselt trajectory of PARITY.json at
    129^2 through the kernels (rel 1e-6);
 3. steps the same 129^2 model 10 steps on the card and on the CPU (plain
@@ -299,44 +297,22 @@ def kernel_cases(torch, model, rng):
 CASE_PER_STEP = {"conv": 2, "conv_bc": 1}
 
 
-def phase_tiles(torch, model, limit):
-    """Phase 1, the block tiles: every stage instance and conv variant of
-    ``model`` with each block tile the GEMM kernels are compiled for
-    (``_build.TILES``), held against its plain version at ``limit`` and
-    timed in turns (first to last, then back), 10 reps each.  Prints each
-    tile's per-case times and per-step sums, and the tile the wrappers
-    launch (``_build.TILE``), which it leaves as it found it."""
-    import numpy as np
+def tile_config() -> dict:
+    """The fused kernels' block tiles as ``csrc/tile_gemm.cuh`` declares
+    them (``using GemmTile = Tile<BM, BN, WARPS_M, WARPS_N, BK,
+    BLOCKS_PER_SM>``, the same for ``DualTile``), by name."""
+    import re
 
-    from rustpde_mpi_tpu_torch.ops import _build
-
-    chosen = _build.TILE
-    order = list(range(len(_build.TILES))) + list(reversed(range(len(_build.TILES))))
-    times = {name: {} for name in _build.TILES}
-    try:
-        for kernel, label, run_k, run_p, *_ in kernel_cases(torch, model, np.random.default_rng(1)):
-            plain = run_p()
-            for idx in order:
-                _build.TILE = idx
-                out = run_k()
-                torch.cuda.synchronize()
-                rel = rel_err(torch, out, plain)[1]
-                if not rel <= limit:
-                    raise AssertionError(f"{kernel}/{label} with tile {_build.TILES[idx]}: "
-                                         f"rel err {rel:.3e} > {limit:g}")
-                times[_build.TILES[idx]].setdefault(label, []).append(time_ms(torch, run_k, 10))
-    finally:
-        _build.TILE = chosen
-    summary = {}
-    for name, per in times.items():
-        ms = {label: sum(v) / len(v) for label, v in per.items()}
-        summary[name] = {
-            "fused_stage_ms_per_step": sum(ms[tag] for tag in STAGE_TAGS),
-            "fused_conv_ms_per_step": sum(CASE_PER_STEP[c] * ms[c] for c in CASE_PER_STEP),
-            "per_case_ms": ms}
-    print(f"phase1 tiles at {model.nx}^2 {str(model.dtype).replace('torch.', '')}: " + json.dumps(
-        {"launched": _build.TILES[chosen], "candidates": summary}))
-    return summary
+    text = open(os.path.join(ROOT, "rustpde_mpi_tpu_torch", "csrc", "tile_gemm.cuh")).read()
+    tiles = {}
+    for name, args in re.findall(r"using (\w+Tile) = Tile<([^>]*)>;", text):
+        bm, bn, wm, wn, bk, per_sm = (int(x) for x in args.split(","))
+        tiles[name] = {"block": f"{bm}x{bn}", "bm": bm, "bn": bn, "warps": f"{wm}x{wn}",
+                       "warp_tile": f"{bm // wm}x{bn // wn}", "depth_step": bk,
+                       "blocks_per_sm": per_sm, "mma": "m16n8k8 f64"}
+    if set(tiles) != {"GemmTile", "DualTile"}:
+        raise AssertionError(f"tile_gemm.cuh declares tiles {sorted(tiles)}")
+    return tiles
 
 
 def conv_launches(torch, fc, args, reps=10):
@@ -345,11 +321,9 @@ def conv_launches(torch, fc, args, reps=10):
     ``reps`` applications of ``fc`` to ``args``, from torch.profiler in
     launch order; cuBLAS on the same products (the dual's two as one
     batched ``matmul``, without its epilogue); and each launch's grid in
-    blocks of the launched tile.  Prints one line."""
+    blocks of its tile.  Prints one line."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from rustpde_mpi_tpu_torch.ops import _build
 
     fc.apply(*args)
     torch.cuda.synchronize()
@@ -371,13 +345,15 @@ def conv_launches(torch, fc, args, reps=10):
     cublas_ms = [time_ms(torch, fn, 10) for fn in (
         lambda: torch.matmul(gx, vhat), lambda: torch.matmul(a, gy),
         lambda: torch.matmul(total, fc.fyt), lambda: torch.matmul(fc.fx, t))]
-    bm, bn = (int(x) for x in _build.TILES[_build.TILE].split("x"))
-    blocks = [2 * -(-fc.nx // bm) * -(-fc.my // bn), -(-fc.nx // bm) * -(-fc.ny // bn),
+    tiles = tile_config()
+    bm, bn = tiles["GemmTile"]["bm"], tiles["GemmTile"]["bn"]
+    dm, dn = tiles["DualTile"]["bm"], tiles["DualTile"]["bn"]
+    blocks = [2 * -(-fc.nx // bm) * -(-fc.my // bn), -(-fc.nx // dm) * -(-fc.ny // dn),
               -(-fc.nx // bm) * -(-fc.ky // bn), -(-fc.kx // bm) * -(-fc.ky // bn)]
     print(f"phase1 conv launches at {fc.nx}^2: " + json.dumps(
         {"launches": ["A1,A0 = Gx1,Gx0 @ vhat", "dual", "T = total @ Fy^T", "out = Fx @ T"],
          "kernel_ms": kernel_ms if kernel_ms is not None else "not measured",
-         "cublas_ms": cublas_ms, "grid_blocks": blocks, "tile": _build.TILES[_build.TILE]}))
+         "cublas_ms": cublas_ms, "grid_blocks": blocks}))
 
 
 def phase_kernels(torch, model, limit, timing):
@@ -1087,7 +1063,7 @@ def main() -> int:
              for dt in (torch.float64, torch.float32)}
     phase_kernels(torch, small[torch.float64], 1e-12, False)
     phase_kernels(torch, small[torch.float32], 1e-4, False)
-    phase_tiles(torch, main_model, 1e-12)
+    print("phase1 tiles: " + json.dumps(tile_config()))
     records = phase_kernels(torch, main_model, 1e-12, True)
     print("phase1 ok")
     phase_golden(pt)

@@ -126,12 +126,14 @@ __global__ void __launch_bounds__(C::NTHREADS)
   });
 }
 
-template <typename T, class C, bool VA, bool VG>
+template <typename T, bool VA, bool VG>
 static int launch_kernel(int n0, int n1, int k, const T* a1, const T* a0, int lda, const T* g0t,
                          const T* g1t, int ldg, const T* ux, const T* uy, const T* bcdx,
                          const T* bcdy, int ldu, T* out, int ldo, cudaStream_t stream) {
+  using C = DualTile;
   constexpr int smem = C::RING2 * 2 * (C::A_ELEMS + C::B_ELEMS) * (int)sizeof(T);
-  static const cudaError_t attr = smem_attribute(conv_dual_kernel<T, C, VA, VG>, smem);
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t attr = smem_attribute(conv_dual_kernel<T, C, VA, VG>, smem, done);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((n1 + C::BN - 1) / C::BN, (n0 + C::BM - 1) / C::BM, 1);
   conv_dual_kernel<T, C, VA, VG><<<grid, C::NTHREADS, smem, stream>>>(
@@ -139,39 +141,28 @@ static int launch_kernel(int n0, int n1, int k, const T* a1, const T* a0, int ld
   return (int)cudaGetLastError();
 }
 
-// The dual launch with block tile `tile` (0: 128 x 64, 1: 64 x 64).
+// The dual launch; vec bit 0: every row of a1 and a0 starts on 16 bytes,
+// bit 1: the same of g0t and g1t.
 template <typename T>
 int launch_dual(int n0, int n1, int k, const void* a1, const void* a0, int lda,
                 const void* g0t, const void* g1t, int ldg, const void* ux,
                 const void* uy, const void* bcdx, const void* bcdy, int ldu,
-                void* out, int ldo, int vec, int tile, cudaStream_t stream) {
+                void* out, int ldo, int vec, cudaStream_t stream) {
   if (n0 < 1 || n1 < 1 || k < 1 || (bcdx == nullptr) != (bcdy == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool va = vec & 1, vg = (vec >> 1) & 1;
-  auto go = [&](auto cfg) {
-    using C = decltype(cfg);
-    auto run = [&](auto kernel_va, auto kernel_vg) {
-      return launch_kernel<T, C, decltype(kernel_va)::value, decltype(kernel_vg)::value>(
-          n0, n1, k, static_cast<const T*>(a1), static_cast<const T*>(a0), lda,
-          static_cast<const T*>(g0t), static_cast<const T*>(g1t), ldg,
-          static_cast<const T*>(ux), static_cast<const T*>(uy),
-          static_cast<const T*>(bcdx), static_cast<const T*>(bcdy), ldu,
-          static_cast<T*>(out), ldo, stream);
-    };
-    using Y = std::true_type;
-    using N = std::false_type;
-    if (va) return vg ? run(Y{}, Y{}) : run(Y{}, N{});
-    return vg ? run(N{}, Y{}) : run(N{}, N{});
+  auto run = [&](auto kernel_va, auto kernel_vg) {
+    return launch_kernel<T, decltype(kernel_va)::value, decltype(kernel_vg)::value>(
+        n0, n1, k, static_cast<const T*>(a1), static_cast<const T*>(a0), lda,
+        static_cast<const T*>(g0t), static_cast<const T*>(g1t), ldg,
+        static_cast<const T*>(ux), static_cast<const T*>(uy),
+        static_cast<const T*>(bcdx), static_cast<const T*>(bcdy), ldu,
+        static_cast<T*>(out), ldo, stream);
   };
-  switch (tile) {
-    case 0:
-      return go(Dual128x64{});
-    case 1:
-      return go(Dual64x64{});
-
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  using Y = std::true_type;
+  using N = std::false_type;
+  if (va) return vg ? run(Y{}, Y{}) : run(Y{}, N{});
+  return vg ? run(N{}, Y{}) : run(N{}, N{});
 }
 
 }  // namespace rp
@@ -181,9 +172,9 @@ extern "C" int rp_conv_dual_f64(int n0, int n1, int k, const void* a1,
                                 const void* g1t, int ldg, const void* ux,
                                 const void* uy, const void* bcdx,
                                 const void* bcdy, int ldu, void* out, int ldo,
-                                int vec, int tile, void* stream) {
+                                int vec, void* stream) {
   return rp::launch_dual<double>(n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy,
-                                 bcdx, bcdy, ldu, out, ldo, vec, tile,
+                                 bcdx, bcdy, ldu, out, ldo, vec,
                                  static_cast<cudaStream_t>(stream));
 }
 
@@ -192,8 +183,8 @@ extern "C" int rp_conv_dual_f32(int n0, int n1, int k, const void* a1,
                                 const void* g1t, int ldg, const void* ux,
                                 const void* uy, const void* bcdx,
                                 const void* bcdy, int ldu, void* out, int ldo,
-                                int vec, int tile, void* stream) {
+                                int vec, void* stream) {
   return rp::launch_dual<float>(n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy,
-                                bcdx, bcdy, ldu, out, ldo, vec, tile,
+                                bcdx, bcdy, ldu, out, ldo, vec,
                                 static_cast<cudaStream_t>(stream));
 }

@@ -21,8 +21,8 @@
 // Bound on the H100: operations.  At 1025^2 f64 a stage does 4.3-17.2 GFLOP
 // on 33-117 MB of operands: 0.06-0.26 ms at the 67 TFLOP/s of the FP64
 // tensor cores against 0.01-0.04 ms at the memory rate.  The tile is
-// tile_gemm.cuh's: DMMA m16n8k8 warp tiles of 32 x 32 in 64 x 64 (or
-// 128 x 64) blocks, fed by a 3-4 stage cp.async ring with the
+// tile_gemm.cuh's: DMMA m16n8k8 warp tiles of 32 x 32 in 64 x 64 blocks,
+// two an SM, fed by a 3-stage cp.async ring (32 deep a stage) with the
 // copies issued between the DMMAs and the fragments double-buffered (the
 // tile, warp and pipeline design, why it fits 1023^2 on 132 SMs, and the
 // 8-byte copy rule for odd leading dimensions are described there).  The
@@ -30,7 +30,7 @@
 // the term sum never leaves the registers, and the elementwise epilogue
 // (* E + F, * mask, the zero fill to Mout x Nout) is applied to the
 // accumulators before the single store.  Each launch instantiates the
-// kernel for its copy widths (16-byte A and/or B) and its block tile.
+// kernel for its copy widths (16-byte A and/or B).
 #include "tile_gemm.cuh"
 
 namespace rp {
@@ -158,31 +158,22 @@ __global__ void __launch_bounds__(C::NTHREADS) gemm_jobs_kernel(const __grid_con
   });
 }
 
-template <typename T, class C, bool VA, bool VB>
+template <typename T, bool VA, bool VB>
 static int launch_kernel(const Jobs& p, dim3 grid, cudaStream_t stream) {
+  using C = GemmTile;
   constexpr int smem = C::RING1 * (C::A_ELEMS + C::B_ELEMS) * (int)sizeof(T);
-  static const cudaError_t attr = smem_attribute(gemm_jobs_kernel<T, C, VA, VB>, smem);
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t attr = smem_attribute(gemm_jobs_kernel<T, C, VA, VB>, smem, done);
   if (attr != cudaSuccess) return (int)attr;
   gemm_jobs_kernel<T, C, VA, VB><<<grid, C::NTHREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, class C>
-static int launch_tile(const Jobs& p, int njobs, int mo, int no, bool va, bool vb,
-                       cudaStream_t stream) {
-  const dim3 grid((no + C::BN - 1) / C::BN, (mo + C::BM - 1) / C::BM, njobs);
-  if (va)
-    return vb ? launch_kernel<T, C, true, true>(p, grid, stream)
-              : launch_kernel<T, C, true, false>(p, grid, stream);
-  return vb ? launch_kernel<T, C, false, true>(p, grid, stream)
-            : launch_kernel<T, C, false, false>(p, grid, stream);
-}
-
-// Launch 1..MAX_JOBS independent outputs as blockIdx.z of one grid, with
-// block tile `tile` (0: 128 x 64, 1: 64 x 64).  An operand is copied 16
-// bytes at a time when every A (or every B) of the launch allows it.
+// Launch 1..MAX_JOBS independent outputs as blockIdx.z of one grid.  An
+// operand is copied 16 bytes at a time when every A (or every B) of the
+// launch allows it.
 template <typename T>
-int launch_jobs(const RpJob* jobs, int njobs, int tile, cudaStream_t stream) {
+int launch_jobs(const RpJob* jobs, int njobs, cudaStream_t stream) {
   if (njobs < 1 || njobs > MAX_JOBS) return (int)cudaErrorInvalidValue;
   Jobs p;
   int mo = 0, no = 0;
@@ -200,22 +191,21 @@ int launch_jobs(const RpJob* jobs, int njobs, int tile, cudaStream_t stream) {
     mo = mo > jb.Mout ? mo : jb.Mout;
     no = no > jb.Nout ? no : jb.Nout;
   }
-  switch (tile) {
-    case 0:
-      return launch_tile<T, Tile128x64>(p, njobs, mo, no, va, vb, stream);
-    case 1:
-      return launch_tile<T, Tile64x64>(p, njobs, mo, no, va, vb, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((no + GemmTile::BN - 1) / GemmTile::BN, (mo + GemmTile::BM - 1) / GemmTile::BM,
+                  njobs);
+  if (va)
+    return vb ? launch_kernel<T, true, true>(p, grid, stream)
+              : launch_kernel<T, true, false>(p, grid, stream);
+  return vb ? launch_kernel<T, false, true>(p, grid, stream)
+            : launch_kernel<T, false, false>(p, grid, stream);
 }
 
 }  // namespace rp
 
-extern "C" int rp_gemm_f64(const RpJob* jobs, int njobs, int tile, void* stream) {
-  return rp::launch_jobs<double>(jobs, njobs, tile, static_cast<cudaStream_t>(stream));
+extern "C" int rp_gemm_f64(const RpJob* jobs, int njobs, void* stream) {
+  return rp::launch_jobs<double>(jobs, njobs, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int rp_gemm_f32(const RpJob* jobs, int njobs, int tile, void* stream) {
-  return rp::launch_jobs<float>(jobs, njobs, tile, static_cast<cudaStream_t>(stream));
+extern "C" int rp_gemm_f32(const RpJob* jobs, int njobs, void* stream) {
+  return rp::launch_jobs<float>(jobs, njobs, static_cast<cudaStream_t>(stream));
 }

@@ -16,16 +16,16 @@
 //
 // Design:
 //
-// * Block tiles: 64 x 64 of 4 warps (2 x 2), two blocks an SM, or 128 x 64
-//   of 8 warps (4 x 2), one block an SM; each warp owns a 32 x 32 tile of
-//   2 x 4 m16n8 accumulator fragments (4 doubles a thread each).  A 1023^2
-//   output is 256 blocks of 64 x 64: two blocks an SM on 132 SMs is one
-//   wave of 8 warps an SM, where 128 x 128 tiles (64 blocks) would leave
-//   half the card idle.  Outputs with 1025 or 683 rows or columns quantize
-//   worse (1025^2 is 289 blocks of 64 x 64 on 264 slots; 683^2 is 121, one
-//   4-warp block an SM).  The wrappers launch one of the two (`TILE` in
-//   ops/_build.py, 64 x 64, chosen by time on the card).
-// * Pipeline: a ring of 3-4 stages in dynamic shared memory (above 48 KB,
+// * Block tile: 64 x 64 of 4 warps (2 x 2), two blocks an SM; each warp
+//   owns a 32 x 32 tile of 2 x 4 m16n8 accumulator fragments (4 doubles a
+//   thread each).  A 1023^2 output is 256 blocks of 64 x 64: two blocks an
+//   SM on 132 SMs is one wave of 8 warps an SM, where 128 x 128 tiles (64
+//   blocks) would leave half the card idle.  Outputs with 1025 or 683 rows
+//   or columns quantize worse (1025^2 is 289 blocks on 264 slots; 683^2 is
+//   121, one 4-warp block an SM).  128 x 64 blocks of 8 warps (4 x 2), one
+//   an SM, were measured against it at the step's shapes and were slower
+//   per step (PERF.md).
+// * Pipeline: a ring of 3 stages in dynamic shared memory (above 48 KB,
 //   set per kernel by cudaFuncSetAttribute), each stage one depth step
 //   (32 deep; 16 for the dual kernel, whose stage holds two operand pairs),
 //   filled by cp.async and drained by cp.async.wait_group.  The next
@@ -62,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <atomic>
+
 namespace rp {
 
 // The deepest ring (at most 4 stages) of stage_bytes-sized f64 stages that
@@ -73,10 +75,10 @@ constexpr int ring_depth(int stage_bytes, int blocks_per_sm) {
              : 4;
 }
 
-template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int BK_, int BLOCKS_PER_SM_, int MMA_K_>
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int BK_, int BLOCKS_PER_SM_>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_;
-  static constexpr int MMA_K = MMA_K_;  // depth of one DMMA (m16n8k8)
+  static constexpr int MMA_K = 8;  // depth of one DMMA (m16n8k8)
   static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   static constexpr int MI = WM / 16, NJ = WN / 8;  // m16n8 fragments of a warp
@@ -90,15 +92,12 @@ struct Tile {
   static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % MMA_K == 0, "warp tile");
 };
 
-// The generic GEMM's block tiles, depth step 32 (rings of 4 and 3 stages:
-// 212 and 105 KB in f64): 128 x 64 of 8 warps (4 x 2), one block an SM;
-// 64 x 64 of 4 warps (2 x 2), two blocks an SM.
-using Tile128x64 = Tile<128, 64, 4, 2, 32, 1, 8>;
-using Tile64x64 = Tile<64, 64, 2, 2, 32, 2, 8>;
-// The dual kernel's (two operand pairs a stage), depth step 16 (rings of 3
-// stages: 171 and 111 KB).
-using Dual128x64 = Tile<128, 64, 4, 2, 16, 1, 8>;
-using Dual64x64 = Tile<64, 64, 2, 2, 16, 2, 8>;
+// The generic GEMM's block tile: depth step 32, a ring of 3 stages (105 KB
+// in f64).
+using GemmTile = Tile<64, 64, 2, 2, 32, 2>;
+// The dual kernel's (two operand pairs a stage): depth step 16, a ring of 3
+// stages (111 KB).
+using DualTile = Tile<64, 64, 2, 2, 16, 2>;
 
 // -- cp.async ----------------------------------------------------------------
 
@@ -259,30 +258,14 @@ __device__ __forceinline__ void mainloop(T* sm, int ntiles, Producer& prod, Load
 template <typename T, class C>
 using Frag = T[C::MI][C::NJ][4];
 
-// One m16n8k(4 KS) DMMA: a[2 s + h] holds A[g + 8 h][t + 4 s], b[s] holds
-// B[t + 4 s][g] (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[2], const double (&b)[1]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-}
+// One m16n8k8 DMMA: a[2 s + h] holds A[g + 8 h][t + 4 s], b[s] holds
+// B[t + 4 s][g] (g = lane / 4, t = lane % 4, s < 2).
 __device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4], const double (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-}
-__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[8], const double (&b)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
-      "{%0, %1, %2, %3};\n"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
-        "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 // A warp's operand fragments for one warp step (C::MMA_K of depth at kk of
@@ -295,8 +278,7 @@ struct Frags;
 template <class C>
 struct Frags<double, C> {
   static constexpr bool LATE_READS = false;  // the products read registers only
-  static constexpr int KS = C::MMA_K / 4;
-  double a[C::MI][2 * KS], b[C::NJ][KS];
+  double a[C::MI][4], b[C::NJ][2];
 
   __device__ __forceinline__ void load(const double* As, const double* Bs, int wm0, int wn0,
                                        int kk) {
@@ -304,14 +286,14 @@ struct Frags<double, C> {
 #pragma unroll
     for (int i = 0; i < C::MI; ++i)
 #pragma unroll
-      for (int s = 0; s < KS; ++s)
+      for (int s = 0; s < 2; ++s)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           a[i][2 * s + h] = As[(wm0 + 16 * i + g + 8 * h) * C::LDA + kk + t + 4 * s];
 #pragma unroll
     for (int j = 0; j < C::NJ; ++j)
 #pragma unroll
-      for (int s = 0; s < KS; ++s) b[j][s] = Bs[(kk + t + 4 * s) * C::LDB + wn0 + 8 * j + g];
+      for (int s = 0; s < 2; ++s) b[j][s] = Bs[(kk + t + 4 * s) * C::LDB + wn0 + 8 * j + g];
   }
   template <class Hook>
   __device__ __forceinline__ void mma(Frag<double, C>& acc, Hook&& hook) const {
@@ -396,13 +378,23 @@ __device__ __forceinline__ void warp_origin(int& wm0, int& wn0) {
 
 // Let `kernel` take `bytes` of dynamic shared memory (above 48 KB a launch
 // needs it) and prefer the largest shared-memory carve-out, so that
-// BLOCKS_PER_SM blocks fit an SM.
+// BLOCKS_PER_SM blocks fit an SM.  The attributes live in the current
+// device's context, so they are set once per device: bit d of `done` (one
+// word per kernel) says they are set on device d (devices past 63 set them
+// on every launch).
 template <class Kernel>
-inline cudaError_t smem_attribute(Kernel kernel, int bytes) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+inline cudaError_t smem_attribute(Kernel kernel, int bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace rp

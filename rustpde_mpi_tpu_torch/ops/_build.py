@@ -32,11 +32,6 @@ NVCC_FLAGS = (
 
 MAX_TERMS = 4
 MAX_JOBS = 4
-#: block tiles of the generic GEMM and the dual convection kernel, by the
-#: index their C entry points take as ``tile`` (see csrc/tile_gemm.cuh)
-TILES = ("128x64", "64x64")
-#: the block tile the wrappers launch, chosen by time on the card (PERF.md)
-TILE = 1
 #: a row that starts on this many bytes may be copied 16 bytes at a time
 ROW_ALIGN = 16
 
@@ -73,9 +68,9 @@ class RpJob(ctypes.Structure):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _I, _P], _I)
+_JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _P], _I)
 _L = ctypes.c_longlong
-_DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I)
+_DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P], _I)
 _BANDED_SIG = ([_I, _I, _I, _I, _I, _P, _P, _I, _L, _L, _I, _P, _L, _L, _L, _P, _L, _L, _L, _P], _I)
 _RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _P], _I)
 _SIGNATURES = {
@@ -185,6 +180,20 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def call(fn, device, *args) -> None:
+    """Call the entry point ``fn(*args, stream)`` with ``device`` current
+    and its current stream, and raise on the returned error.  A kernel
+    launches on the current device (where the fused kernels also set their
+    shared-memory attributes), so a launch on another card than the current
+    one switches to it first."""
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream_handle(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream_handle(device))
+    check(rc, fn.__name__)
+
+
 def gemm(dtype):
     """The generic tiled GEMM's entry point for ``dtype`` (f64 or f32), from
     the ``fused_stage`` library; both fused wrappers launch it."""
@@ -254,9 +263,8 @@ def job(out, terms, *, M, N, Mout=None, Nout=None, E=None, F=None, mask=None) ->
 
 
 def launch_jobs(fn, jobs, device) -> None:
-    """Launch the generic kernel entry point ``fn`` on ``jobs`` with block
-    tile ``TILE``."""
+    """Launch the generic kernel entry point ``fn`` on ``jobs`` on
+    ``device``."""
     if not 1 <= len(jobs) <= MAX_JOBS:
         raise ValueError(f"a launch takes 1..{MAX_JOBS} jobs, got {len(jobs)}")
-    arr = (RpJob * len(jobs))(*jobs)
-    check(fn(arr, len(jobs), TILE, stream_handle(device)), fn.__name__)
+    call(fn, device, (RpJob * len(jobs))(*jobs), len(jobs))

@@ -178,10 +178,9 @@ class BandedSolve:
         nb, n, lanes = b.shape
         # per-lane factors are stored (p, n, self.lanes): lane l of batch j
         # reads set j * factor_batch_stride + l
-        _build.check(fn(nb, n, lanes, self.p, self.q, self.lower.data_ptr(),
-                        self.upper.data_ptr(), int(self.per_lane), self.lanes or 1,
-                        factor_batch_stride, int(self.pad_zeros), b.data_ptr(),
-                        *b.stride(), x.data_ptr(), *x.stride(),
-                        _build.stream_handle(self.device)), fn.__name__)
+        _build.call(fn, self.device, nb, n, lanes, self.p, self.q, self.lower.data_ptr(),
+                    self.upper.data_ptr(), int(self.per_lane), self.lanes or 1,
+                    factor_batch_stride, int(self.pad_zeros), b.data_ptr(),
+                    *b.stride(), x.data_ptr(), *x.stride())
         return x
 

@@ -138,12 +138,10 @@ class FusedConv:
         bcx = None if bc_dx is None else bc_dx.data_ptr()
         bcy = None if bc_dy is None else bc_dy.data_ptr()
         vec = _build.rows_aligned(a1, a0) | _build.rows_aligned(self.gy0t, self.gy1t) << 1
-        _build.check(dual(nx, ny, my, a1.data_ptr(), a0.data_ptr(), a1.stride(0),
-                          self.gy0t.data_ptr(), self.gy1t.data_ptr(), self.gy0t.stride(0),
-                          ux.data_ptr(), uy.data_ptr(), bcx, bcy, ny,
-                          total.data_ptr(), total.stride(0), vec, _build.TILE,
-                          _build.stream_handle(self.device)),
-                     dual.__name__)
+        _build.call(dual, self.device, nx, ny, my, a1.data_ptr(), a0.data_ptr(), a1.stride(0),
+                    self.gy0t.data_ptr(), self.gy1t.data_ptr(), self.gy0t.stride(0),
+                    ux.data_ptr(), uy.data_ptr(), bcx, bcy, ny,
+                    total.data_ptr(), total.stride(0), vec)
         # 3. T = total @ Fy^T (kept columns)
         t = _build.padded(nx, self.ky, **kw)
         _build.launch_jobs(gemm, [_build.job(t, [(total, self.fyt)], M=nx, N=self.ky)],

@@ -117,7 +117,6 @@ class RingTranspose:
                           dtype=block.dtype)
         xp, yp = (block, out) if x_to_y else (out, block)
         c, w = yp.shape[1], xp.shape[2]
-        _build.check(fn(p, c, w, xp.stride(0), xp.stride(1), yp.stride(0), yp.stride(1),
-                        block.data_ptr(), out.data_ptr(), int(x_to_y),
-                        _build.stream_handle(self.device)), fn.__name__)
+        _build.call(fn, self.device, p, c, w, xp.stride(0), xp.stride(1), yp.stride(0),
+                    yp.stride(1), block.data_ptr(), out.data_ptr(), int(x_to_y))
         return out

@@ -35,15 +35,8 @@ def _rel(got, want):
     return float(torch.max(torch.abs(got - want))) / float(torch.max(torch.abs(want)))
 
 
-@pytest.fixture(params=range(len(_build.TILES)), ids=_build.TILES)
-def tile(request, monkeypatch):
-    """Each block tile the kernels are compiled for (``_build.TILE``)."""
-    monkeypatch.setattr(_build, "TILE", request.param)
-    return request.param
-
-
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_generic_gemm_ragged_jobs(device, dtype, tile):
+def test_generic_gemm_ragged_jobs(device, dtype):
     """Ragged M, N, K (no multiple of a tile), several jobs of different
     shapes in one launch, every epilogue, and the zero fill to Mout x Nout."""
     fn = _build.gemm(dtype)
@@ -67,8 +60,8 @@ def test_generic_gemm_ragged_jobs(device, dtype, tile):
     assert _rel(out2, a3 @ b3) <= TOL[dtype]
 
 
-#: extents that cross the DMMA fragment (16 x 8 x 4) and block tile (64,
-#: 128; depth 16) edges
+#: extents that cross the DMMA fragment (16 x 8 x 8) and block tile (64 x 64;
+#: depth 16 and 32) edges
 EDGES = (1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 127, 128, 129)
 
 
@@ -89,7 +82,7 @@ def _operand(rows, cols, aligned, rng, dtype, device):
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["copy16", "copy_elem"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_generic_gemm_edge_sweep(device, dtype, tile, aligned):
+def test_generic_gemm_edge_sweep(device, dtype, aligned):
     """Every M x N x K over the fragment and tile edges, four jobs (four
     depths) in each launch, on strided views whose rows all start on 16
     bytes (the 16-byte copies) or none do (the element copies)."""
@@ -115,7 +108,7 @@ def test_generic_gemm_edge_sweep(device, dtype, tile, aligned):
 
 @pytest.mark.parametrize("epilogue", range(8), ids=lambda e: f"E{e & 1}F{e >> 1 & 1}mask{e >> 2}")
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_generic_gemm_terms_and_epilogues(device, dtype, tile, epilogue):
+def test_generic_gemm_terms_and_epilogues(device, dtype, epilogue):
     """Four terms of different depth in one output (odd and aligned operands
     mixed), each epilogue combination of E, F and mask, the zero fill to
     Mout x Nout, and the same input run twice gives bit-identical output."""
@@ -161,10 +154,9 @@ def _dual(ops, n0, n1, k, dtype, device):
     out = torch.full((n0, n1 + 3), 7.0, dtype=dtype, device=device)[:, :n1]
     bcx, bcy = (bc[0].data_ptr(), bc[1].data_ptr()) if bc else (None, None)
     vec = _build.rows_aligned(a1, a0) | _build.rows_aligned(g0t, g1t) << 1
-    _build.check(fn(n0, n1, k, a1.data_ptr(), a0.data_ptr(), a1.stride(0), g0t.data_ptr(),
-                    g1t.data_ptr(), g0t.stride(0), ux.data_ptr(), uy.data_ptr(), bcx, bcy,
-                    ux.stride(0), out.data_ptr(), out.stride(0), vec, _build.TILE,
-                    _build.stream_handle(device)), fn.__name__)
+    _build.call(fn, device, n0, n1, k, a1.data_ptr(), a0.data_ptr(), a1.stride(0),
+                g0t.data_ptr(), g1t.data_ptr(), g0t.stride(0), ux.data_ptr(), uy.data_ptr(),
+                bcx, bcy, ux.stride(0), out.data_ptr(), out.stride(0), vec)
     dx, dy = a1 @ g0t, a0 @ g1t
     if bc:
         dx, dy = dx + bc[0], dy + bc[1]
@@ -173,7 +165,7 @@ def _dual(ops, n0, n1, k, dtype, device):
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["copy16", "copy_elem"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_conv_dual_edges(device, dtype, tile, aligned):
+def test_conv_dual_edges(device, dtype, aligned):
     """The two-accumulator kernel over fragment and tile edges, with and
     without the bc terms, on both copy paths; bit-identical on a repeat."""
     rng = np.random.default_rng(11)
@@ -188,7 +180,7 @@ def test_conv_dual_edges(device, dtype, tile, aligned):
         assert torch.equal(got, again)
 
 
-def test_stage_repeat_is_bit_identical(device, tile):
+def test_stage_repeat_is_bit_identical(device):
     """A whole fused stage and a conv chain at 129^2 run twice on one input
     give bit-identical output (the kernels are deterministic)."""
     model = pt.Navier2D(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc", device=device)
@@ -205,7 +197,7 @@ def test_stage_repeat_is_bit_identical(device, tile):
 
 @pytest.mark.parametrize("n", [17, 33])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_stages_and_convs_match_plain(device, n, dtype, tile):
+def test_stages_and_convs_match_plain(device, n, dtype):
     model = pt.Navier2D(n, n, 1e5, 1.0, 2e-3, 1.0, "rbc", device=device, dtype=dtype)
     rng = np.random.default_rng(n)
 
@@ -223,6 +215,28 @@ def test_stages_and_convs_match_plain(device, n, dtype, tile):
             args += [rand((n, n)), rand((n, n))]
         assert _rel(fc.apply(*args), fc.plain(*args)) <= TOL[dtype]
         assert fc.launches == 1
+
+
+def test_fused_kernels_on_a_second_card(device):
+    """The fused stages and conv chains on a second card, after they ran on
+    the first (their shared-memory attributes are set per card), launched
+    with either card current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    rng = np.random.default_rng(5)
+    for index in (0, 1):
+        dev = torch.device("cuda", index)
+        model = pt.Navier2D(65, 65, 1e5, 1.0, 2e-3, 1.0, "rbc", device=dev)
+        for current in (0, 1):
+            with torch.cuda.device(current):
+                for tag, st in model._stages.items():
+                    xs = [torch.tensor(rng.uniform(-1.0, 1.0, (k0, k1)), device=dev)
+                          for k0, k1 in zip(st.k0, st.k1)]
+                    assert _rel(st.apply(*xs), st.plain(*xs)) <= TOL[torch.float64], (dev, tag)
+                fc = model._convs[id(model.temp_space)]
+                args = [torch.tensor(rng.uniform(-1.0, 1.0, s), device=dev)
+                        for s in [(65, 65)] * 2 + [(fc.mx, fc.my)] + [(65, 65)] * 2]
+                assert _rel(fc.apply(*args), fc.plain(*args)) <= TOL[torch.float64], dev
 
 
 def test_step_on_card_matches_cpu(device):

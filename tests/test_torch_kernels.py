@@ -281,7 +281,41 @@ def test_job_sets_the_copy_width_per_operand():
     assert _build.job(out, [(shifted, even)], M=8, N=8).vec == 0b10
     j = _build.job(out, [(even, even), (shifted, even), (even, odd), (odd, even[:7])], M=8, N=7)
     assert j.vec == 0b10_01_10_11  # B[3], A[2], B[1], A[0] and B[0]
-    assert 0 <= _build.TILE < len(_build.TILES)
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_call_makes_the_launch_device_current(monkeypatch, current):
+    """An entry point gets its arguments and then the launch device's
+    stream; the call switches to that device only when another one is
+    current, and raises on a non-zero return."""
+    entered = []
+
+    class Switch:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            entered.append(self.device)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", Switch)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 1000 + device.index)
+    got = []
+
+    def entry(*args):
+        got.append(args)
+        return 0
+
+    entry.__name__ = "rp_entry"
+    dev = torch.device("cuda", 1)
+    _build.call(entry, dev, 3, 4)
+    assert got == [(3, 4, 1001)]
+    assert entered == ([] if current == 1 else [dev])
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        _build.call(lambda *a: 700, dev)
 
 
 def test_signatures_match_the_c_parameter_types():
