@@ -36,8 +36,11 @@ default step on its solver objects) in phases 6-11:
    banded solve the dense step builds (ADI axes 0 and 1 with one factor
    set, the Poisson tensor solver's per-lane factors along axis 1, and the
    same factors along axis 0) at 129^2 (f64, f32) and 1025^2 (f64), same
-   limits as phase 1 but relative to each lane's own scale, and times
-   kernel, plain version and one ``torch.matmul`` with precomputed inverses
+   limits as phase 1 but relative to each lane's own scale, checks that
+   each took the parity path (two chains a lane) and prints its tile, copy
+   width and shared memory, and times the kernel (queued behind a GPU
+   spin, so that the wrapped launch's host time stays out), the plain
+   version and one ``torch.matmul`` with precomputed inverses
    (``library_ms``: the axis's dense inverse for one factor set, the batch
    of every lane's inverse for per-lane factors) at 1025^2 f64;
 7. checks the confined manufactured solutions of the JAX package's
@@ -49,7 +52,8 @@ default step on its solver objects) in phases 6-11:
 10. drives ``rbc1025`` on the dense route as phase 4 does (exactly 7 banded
     launches a step) and profiles it as phase 5 does;
 11. times one ``HholtzAdi.solve`` and one ``Poisson.solve`` at the
-    ``rbc1025`` shapes with the banded recurrence and with dense/fd;
+    ``rbc1025`` shapes with the banded recurrence and with dense/fd, queued
+    and back to back;
 
 and the meshed route, ``Navier2D(..., mesh=make_mesh(4))`` (the dense
 step on fields split over 4 ranks that all live on the one card, every
@@ -68,10 +72,10 @@ pencil flip through the pencil-transpose kernel), in phases 12-13:
     gives it (rank-stacked pencils, identity-padded systems, the Poisson
     solve's factor batch stride), logged from one step: on random values
     at phase 6's per-lane limit and on the step's own values at 1e-11 of
-    the solve's scale (the routes' limit), timed as phase 6 times it (on random
-    values, on them with the step's zero pad, and on the step's values)
-    and with the L2 flushed, with the same library yardsticks built from
-    the padded factors;
+    the solve's scale (the routes' limit), checked for the parity path and
+    timed as phase 6 times it (on random values, on them with the step's
+    zero pad, and on the step's values) and with the L2 flushed, with the
+    same library yardsticks built from the padded factors;
 13. reruns the golden head on the mesh, compares meshed and serial dense
     steps on the card after 10 steps at 129^2 (rel 1e-11), drives
     ``rbc1025`` on the mesh as phase 4 does (exactly 37 flips and 7
@@ -608,6 +612,27 @@ def banded_cases(torch, pt, model, rng, timing):
     return cases
 
 
+def banded_layout(solver, b, axis) -> dict:
+    """How the banded kernel runs ``solver``'s solve of ``b`` along
+    ``axis``: its path (parity-split chains or one chain a lane), the lanes
+    of a block's tile, whether it copies ``b`` 16 bytes at a time, and its
+    shared memory a block (the column tile and the ring; ptxas reports no
+    dynamic shared memory)."""
+    from rustpde_mpi_tpu_torch.ops import banded_solve as bsm
+
+    kernel = solver.kernel
+    views = []
+    solver._along(lambda v: views.append(v) or v, b, axis)
+    view = views[0]
+    terms = max(kernel.chain_lower.shape[0], kernel.chain_upper.shape[0])
+    rows_contiguous = view.stride(1) == 1 and view.stride(2) != 1
+    return {"path": kernel.path, "tile_lanes": kernel.tile_lanes,
+            "copy_bytes": 16 if bsm.vector_copies(view, kernel.tile_lanes) else b.element_size(),
+            "shared_bytes": bsm.shared_bytes(kernel.n, b.element_size(), kernel.systems,
+                                             kernel.tile_lanes, kernel.per_lane, terms,
+                                             rows_contiguous)}
+
+
 def phase_banded(torch, pt, model, limit, timing):
     """Phase 6 at one model size/dtype; returns per-case records."""
     import numpy as np
@@ -626,18 +651,23 @@ def phase_banded(torch, pt, model, limit, timing):
                "max_abs_err": diff, "max_rel_err": rel}
         if lib is not None:
             rec["library_max_rel_err"] = lane_rel_err(torch, lib(), out_k, axis)[1]
+        rec.update(banded_layout(solver, b, axis))
         if timing:
             n = b.shape[axis]
             shape3 = (1, n, b.numel() // n)
             flops, nbytes = solver.kernel.flops(shape3), solver.kernel.bytes_moved(shape3)
             t_op = flops / peak * 1e3
             t_mem = nbytes / (HBM_TB_PER_S * 1e12) * 1e3
-            rec.update(kernel_ms=time_ms(torch, lambda: solver.solve(b, axis), 10),
+            queued, host = time_queued_ms(torch, lambda: solver.solve(b, axis), 50)
+            rec.update(kernel_ms=queued, kernel_enqueue_ms=host,
+                       kernel_loop_ms=time_ms(torch, lambda: solver.solve(b, axis), 10),
                        plain_ms=time_ms(torch, lambda: solver.plain(b, axis), 10),
-                       library_ms=None if lib is None else time_ms(torch, lib, 10),
+                       library_ms=None if lib is None else time_queued_ms(torch, lib, 10)[0],
                        flops=flops, bytes=nbytes, bound_ms=max(t_op, t_mem),
                        bound_by="operations" if t_op >= t_mem else "bytes")
         print("phase6 " + json.dumps(rec))
+        if rec["path"] != "parity":
+            raise AssertionError(f"banded_solve/{label}: the step's system took the {rec['path']} path")
         if not rel <= limit:
             raise AssertionError(f"banded_solve/{label} at {model.nx}^2: rel err {rel:.3e} > {limit:g}")
         if not rec.get("library_max_rel_err", 0.0) <= LIBRARY_LIMIT:
@@ -691,7 +721,9 @@ def phase_mms(torch, pt):
 def phase_solvers(torch, pt, model):
     """Phase 11: one whole solve at the rbc1025 shapes, the banded
     recurrence against the dense inverse (ADI) and fast diagonalisation
-    (Poisson), 10 reps each by CUDA events."""
+    (Poisson): the device time of a solve queued behind a GPU spin (10
+    reps), and back to back (``*_loop_ms``, 10 reps: what a caller that
+    launches one solve after another waits, host time included)."""
     import numpy as np
 
     rng = np.random.default_rng(3)
@@ -706,7 +738,8 @@ def phase_solvers(torch, pt, model):
              pres_space.shape_physical)):
         rhs = torch.as_tensor(rng.uniform(-1.0, 1.0, shape), dtype=model.dtype).to(model.device)
         for method, solver in solvers.items():
-            times[f"{label}_{method}_ms"] = time_ms(torch, lambda s=solver: s.solve(rhs), 10)
+            times[f"{label}_{method}_ms"] = time_queued_ms(torch, lambda s=solver: s.solve(rhs), 10)[0]
+            times[f"{label}_{method}_loop_ms"] = time_ms(torch, lambda s=solver: s.solve(rhs), 10)
     print("phase11 " + json.dumps(times))
     return times
 
@@ -841,17 +874,24 @@ def phase_mesh_banded(torch, model, solves, inputs, limit):
                "step_input_max_rel_err": rel_given, "step_input_singular_rel_err": rel_apart,
                "step_input_zeros": int(zeros.sum()),
                "library_max_rel_err": lane_rel_err(torch, lib(), out_k, axis)[1],
-               "kernel_ms": time_ms(torch, lambda: solver.solve(b, axis, stride), 10)}
+               **banded_layout(solver, b, axis)}
+        rec["kernel_ms"], rec["kernel_enqueue_ms"] = time_queued_ms(
+            torch, lambda: solver.solve(b, axis, stride), 50)
+        rec["kernel_loop_ms"] = time_ms(torch, lambda: solver.solve(b, axis, stride), 10)
         for name, v in variants.items():
-            rec[f"kernel_{name}_ms"] = time_ms(torch, lambda v=v: solver.solve(v, axis, stride), 10)
+            rec[f"kernel_{name}_ms"] = time_queued_ms(
+                torch, lambda v=v: solver.solve(v, axis, stride), 50)[0]
         rec.update(
-            kernel_step_input_ms=time_ms(torch, lambda: solver.solve(given, axis, stride), 10),
-            kernel_repeat_ms=time_ms(torch, lambda: solver.solve(b, axis, stride), 10),
+            kernel_step_input_ms=time_queued_ms(torch, lambda: solver.solve(given, axis, stride), 50)[0],
+            kernel_repeat_ms=time_queued_ms(torch, lambda: solver.solve(b, axis, stride), 50)[0],
             kernel_cold_ms=time_cold_ms(torch, lambda: solver.solve(b, axis, stride), 10),
             plain_ms=time_ms(torch, lambda: solver.plain(b, axis, stride), 3),
-            library_ms=time_ms(torch, lib, 10), flops=flops, bytes=nbytes,
+            library_ms=time_queued_ms(torch, lib, 10)[0], flops=flops, bytes=nbytes,
             bound_ms=max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
         print("phase12 " + json.dumps(rec))
+        if rec["path"] != "parity":
+            raise AssertionError(f"banded_solve/{label} {shape}: the step's system took the "
+                                 f"{rec['path']} path")
         if not (rel <= limit and rel_given <= STEP_INPUT_LIMIT):
             raise AssertionError(f"banded_solve/{label} {shape} on the mesh: rel err {rel:.3e} "
                                  f"(limit {limit:g}), on the step's input {rel_given:.3e} "

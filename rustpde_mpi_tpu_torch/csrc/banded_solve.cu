@@ -9,185 +9,436 @@
 //   forward:   y_i = b_i - sum_{d=1..p} L[d-1, i] * y_{i-d}
 //   backward:  x_i = (y_i - sum_{d=1..q} U[d, i] * x_{i+d}) / U[0, i]
 //
-// One thread per lane column marches the rows; grid.y runs the batch.  The
-// wrapper (ops/banded_solve.py) passes b and x as strided (batch, n, lanes)
-// views, so an axis-1 solve of a row-major field reads its rows in place
-// (lane stride n: uncoalesced) instead of copying a transpose.  Factors are
-// either one set, (p, n) and (q+1, n), read by every lane (flane = 0: each
-// warp reads one address, a broadcast through the read-only cache), or one
-// set per lane stored (p, n, L) and (q+1, n, L) (flane = 1, fl = L: the
-// lanes of a warp read neighbouring addresses).  Per-lane factors take a
-// factor batch stride fb: lane l of batch k reads set k * fb + l, so one
-// launch solves the y-pencils of all ranks of a mesh, rank k holding
-// eigenvalue lanes k * fb.. (the pencil-decomposed Poisson solve; fb = 0
-// for a serial solve).  The last p (q) results of
-// a lane stay in registers; neighbour terms are skipped by bounding d, never
-// by clamped reads.  The rows are taken CH at a time, their b values and
-// coefficients loaded before the chain that consumes them, so the loads
-// overlap instead of each waiting in the dependent chain.
+// b and x are strided (batch, n, lanes) views (grid.y runs the batch), so
+// an axis-1 solve of a row-major field reads its rows in place.
 //
-// Bound on the H100: bytes (b read and x written once, 16.7 MB a 1023^2 f64
-// solve, plus 57 MB of per-lane factors for the Poisson solve: 5 and 22 us
-// at 3.35 TB/s).  The kernel is limited by latency instead: 1023 lanes give
-// 8 blocks of 128 threads for 132 SMs, each thread a chain of 2n dependent
-// steps, the backward ones with an IEEE division (as both JAX paths divide
-// by U[0, i]; no reciprocal).  A zero numerator takes the division's slow
-// path, and the slowest lane sets a launch's time: a pencil's zero pad lane
-// meets it on every row (+0.165 ms a launch on the meshed rbc1025 step), so
-// solves on padded pencils (pad_zeros = 1) never divide a zero; the others
-// keep the plain division, which the zero-safe one slows by about 1.5%.
-// Batching solves into one launch and splitting the lanes finer are later
-// work.
+// Bound on the H100: bytes (b read and x written once, 16.7 MB a 1023^2
+// f64 solve, plus the per-lane factors of the Poisson solve: 5 us and
+// 15 us at 3.35 TB/s).  The recurrence is a chain of dependent rows, so
+// what the design fights is latency:
+//
+// * Chains.  The Chebyshev operators couple rows of one parity only: the
+//   odd-offset factor terms are zero in every lane.  The wrapper
+//   (ops/banded_solve.py) finds that on the host when it builds the solve
+//   and repacks the factors into "chain" layout: NSYS = 2 systems (even
+//   and odd rows) of bandwidths PP = p/2 and QQ = q/2, each a chain of n/2
+//   rows, one kernel instance for each PP, QQ in {1, 2}.  A band with odd
+//   couplings keeps NSYS = 1 (one chain of n rows), widened to PP = QQ = 4
+//   with zero terms.  Dropping a term whose coefficient is zero changes no
+//   finite result.  The chain layout is [term][chain row k][system s]
+//   [factor set], factor sets (lanes) innermost; chain row k of system s is
+//   row s + NSYS * k; terms that reach outside the system are zero in it,
+//   so the chains never test a bound.
+// * Rows staged through shared memory.  A block owns a tile of TL lanes
+//   (8, fewer when n is large) of one batch entry: 2 * TL chains, one
+//   thread each, in warp 0.  Warps 1-3 copy: a ring of RING stages, filled
+//   by cp.async and drained by cp.async.wait_group and one barrier a
+//   stage, brings in the rows of b (RK chain rows of each system a stage)
+//   and the factor terms of the rows the chains take next.  Each copy
+//   thread works out its copies' offsets once (Copier), so a stage costs a
+//   copy an add; issuing them is what the copy warps spend a stage on, in
+//   step with the chains.  The whole column of the tile stays in shared
+//   memory: b lands there, the forward pass overwrites it with y, and the
+//   backward pass reads y there and writes x to device memory, so b is read
+//   once and x written once.  The forward stages carry b and the lower
+//   terms, the backward stages (rows descending) the upper terms and the
+//   reciprocals.  One factor set for every lane is copied once a stage per
+//   block, per-lane factors TL sets at a time.
+// * Coalesced copies in both orientations.  Lane stride 1 (axis-0
+//   solves): a tile row of TL lanes is contiguous and the tile is stored
+//   row by row.  Row stride 1 (axis-1 solves): a lane's rows are
+//   contiguous and the tile is stored lane by lane, with a lane stride of
+//   16 bytes past a multiple of 128 so that the chains' reads fall in
+//   distinct banks.  The copies are 16 bytes where the wrapper proved that
+//   every copied run starts on 16 bytes (pointer and strides), else one
+//   element.  A partial vector at the ragged edge is zero-filled.
+// * The chain.  A stage's rows are read from shared memory into registers
+//   first, then the chain runs through them with the far terms subtracted
+//   first, so that only the newest value's multiply-subtract waits on the
+//   previous row.  The division by U[0, i] (as in both JAX paths) is the
+//   correctly rounded quotient from a reciprocal rounded on the host and
+//   one FMA correction: three dependent operations, none of which branches
+//   on the value, where the IEEE division's sequence of ten waited on a
+//   reciprocal refinement and a range check every row, and a zero
+//   numerator (a pencil's zero pad lane) took its slow path.
+//
+// At the rbc1025 shapes (1023 lanes, or 4 x 256 on the meshed route) a
+// solve is 128 blocks of one wave on 132 SMs; a block holds 64-66 KB of
+// column and a 64 KB ring (per-lane factors; 8 KB for one set).
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tile_gemm.cuh"
 
 namespace rp {
+namespace banded {
 
-constexpr int MAXB = 4;      // largest p and q the kernel takes
-constexpr int CH = 8;        // rows loaded ahead of the chain
-constexpr int NTHREADS = 128;
+constexpr int MAXB = 4;        // largest p and q the kernel takes
+constexpr int RING = 8;        // stages in the ring
+constexpr int NTHREADS = 128;  // warp 0: the chains; warps 1-3: the copies
+constexpr int NCOPY = NTHREADS - 32;
+constexpr int MAX_TILE = 8;    // widest tile of lanes
+constexpr int SMEM_LIMIT = 232448;  // shared memory a block may use
 
-// the value unchanged, through a move the compiler cannot see through
-__device__ __forceinline__ double opaque(double v) {
-  asm("mov.f64 %0, %1;" : "=d"(v) : "d"(v));
-  return v;
-}
-__device__ __forceinline__ float opaque(float v) {
-  asm("mov.f32 %0, %1;" : "=f"(v) : "f"(v));
-  return v;
-}
+// RK, the chain rows of each system a stage brings, by the number of
+// systems NSYS
+template <int NSYS>
+struct Path;
+template <>
+struct Path<2> {
+  static constexpr int RK = 16;
+};
+template <>
+struct Path<1> {
+  static constexpr int RK = 8;
+};
 
-template <typename T, bool PAD_ZEROS>
-__global__ void __launch_bounds__(NTHREADS)
-    banded_kernel(int n, int lanes, int p, int q, const T* __restrict__ lower,
-                  const T* __restrict__ upper, int flane, long long fl,
-                  long long fb,
-                  const T* __restrict__ b, long long sb, long long sr,
-                  long long sl, T* __restrict__ x, long long xb, long long xr,
-                  long long xl) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const T* bp = b + (long long)blockIdx.y * sb + (long long)lane * sl;
-  T* xp = x + (long long)blockIdx.y * xb + (long long)lane * xl;
-  // factor element (d, i) of this lane: (d * n + i) * fp + fo
-  const long long fp = flane ? fl : 1;
-  const long long fo = flane ? (long long)blockIdx.y * fb + lane : 0;
+struct Args {
+  const void* low;  // lower terms d = 1..pp, [pp][nk][NSYS][fl]
+  const void* upp;  // upper terms d = 0..qq, then 1 / u_0: [qq + 2][nk][NSYS][fl]
+  const void* b;
+  void* x;
+  long long sb, sr, sl, xb, xr, xl;  // strides of b and x (batch, row, lane)
+  long long fl, fb;                  // factor sets, factor batch stride
+  int n, lanes, nk;
+  int tls;        // log2 of the tile's lanes
+  int flane;      // 1: one factor set per lane
+  int rowfast;    // 1: row stride 1, the tile stored lane by lane
+  int vec;        // 1: 16-byte copies of b
+  int ld;         // lane stride of the tile (rowfast)
+  int tile_elems; // elements before the ring
+  int slot_elems; // elements of a ring slot
+};
 
-  // forward substitution into x; c[d-1] holds y_{i-d}
-  T c[MAXB];
-#pragma unroll
-  for (int d = 0; d < MAXB; ++d) c[d] = T(0);
-  for (int i0 = 0; i0 < n; i0 += CH) {
-    T bv[CH], lv[CH][MAXB];
-#pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const int i = i0 + k;
-      if (i < n) {
-        bv[k] = bp[i * sr];
-#pragma unroll
-        for (int d = 1; d <= MAXB; ++d)
-          if (d <= p && d <= i) lv[k][d - 1] = __ldg(lower + ((d - 1) * (long long)n + i) * fp + fo);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const int i = i0 + k;
-      if (i < n) {
-        T acc = bv[k];
-#pragma unroll
-        for (int d = 1; d <= MAXB; ++d)
-          if (d <= p && d <= i) acc = acc - lv[k][d - 1] * c[d - 1];
-#pragma unroll
-        for (int d = MAXB - 1; d > 0; --d) c[d] = c[d - 1];
-        c[0] = acc;
-        xp[i * xr] = acc;
-      }
-    }
-  }
+// One copy thread's share of every stage, worked out once: for each of its
+// copies the offsets within a stage, so that a stage costs each copy an add
+// and a cp.async.  A stage is RC rows of b (forward stages only: into the
+// tile) and the factor terms of RK chain rows of each system (into the ring
+// slot), PP lower terms going forward, QQ + 1 upper terms and the
+// reciprocals going back.  Copy m of thread c is element (or 16-byte
+// vector) c + m * NCOPY of the stage.
+template <typename T, int NSYS, int PP, int QQ>
+struct Copier {
+  static constexpr int RK = Path<NSYS>::RK, RC = NSYS * RK;
+  static constexpr int ES = (int)sizeof(T), V = 16 / ES;
+  static constexpr int NB = (MAX_TILE * RC + NCOPY - 1) / NCOPY;
+  static constexpr int NL = (PP * RK * NSYS * MAX_TILE + NCOPY - 1) / NCOPY;
+  static constexpr int NU = ((QQ + 2) * RK * NSYS * MAX_TILE + NCOPY - 1) / NCOPY;
+  long long bsrc[NB];  // b: source offset from the stage's first row
+  int bdst[NB];        // tile offset from the stage's first row
+  int brow[NB];        // row within the stage
+  int bel[NB];         // elements (0: no copy)
+  long long lsrc[NL], usrc[NU];  // factors: source offset, -1 past the end
+  long long fstep;               // factor source advance a chain row
 
-  // backward substitution in place; c[d-1] holds x_{i+d}
+  __device__ __forceinline__ void init(const Args& a, int c, int tl, int ntl, long long fo) {
+    const int per = a.rowfast ? (a.vec ? RC / V : RC) : (a.vec ? (ntl + V - 1) / V : ntl);
+    const int total = a.rowfast ? ntl * per : RC * per;
 #pragma unroll
-  for (int d = 0; d < MAXB; ++d) c[d] = T(0);
-  for (int i0 = n - 1; i0 >= 0; i0 -= CH) {
-    T yv[CH], uv[CH][MAXB + 1];
-#pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const int i = i0 - k;
-      if (i >= 0) {
-        yv[k] = xp[i * xr];
-#pragma unroll
-        for (int d = 0; d <= MAXB; ++d)
-          if (d <= q && i + d < n) uv[k][d] = __ldg(upper + (d * (long long)n + i) * fp + fo);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const int i = i0 - k;
-      if (i >= 0) {
-        T acc = yv[k];
-#pragma unroll
-        for (int d = 1; d <= MAXB; ++d)
-          if (d <= q && i + d < n) acc = acc - uv[k][d] * c[d - 1];
-        if constexpr (PAD_ZEROS) {
-          // divide a nonzero stand-in and keep the zero (0 / U[0, i] is zero
-          // up to its sign); `opaque` keeps the compiler from folding the
-          // stand-in back into a division of acc, and a branch instead
-          // costs every row its overlap
-          const T quo = opaque(acc == T(0) ? T(1) : acc) / uv[k][0];
-          acc = acc == T(0) ? acc : quo;
-        } else {
-          acc = acc / uv[k][0];
+    for (int m = 0; m < NB; ++m) {
+      const int e = c + m * NCOPY;
+      bel[m] = 0;
+      if (e < total) {
+        const int major = e / per, minor = e - major * per;
+        if (a.rowfast) {  // major: lane, minor: row (vector)
+          const int rr = a.vec ? minor * V : minor;
+          bsrc[m] = major * a.sl + rr * a.sr;
+          bdst[m] = major * a.ld + rr;
+          brow[m] = rr;
+          bel[m] = a.vec ? V : 1;
+        } else {  // major: row, minor: lane (vector)
+          const int ll = a.vec ? minor * V : minor;
+          bsrc[m] = major * a.sr + ll * a.sl;
+          bdst[m] = major * tl + ll;
+          brow[m] = major;
+          bel[m] = a.vec ? min(V, ntl - ll) : 1;
         }
-#pragma unroll
-        for (int d = MAXB - 1; d > 0; --d) c[d] = c[d - 1];
-        c[0] = acc;
-        xp[i * xr] = acc;
       }
+    }
+    const int tfs = a.flane ? a.tls : 0;
+    const int tlf = 1 << tfs;
+    fstep = (long long)NSYS * a.fl;
+    auto factor = [&](int e, int nt) -> long long {
+      if (e >= (nt * RK * NSYS) << tfs) return -1;
+      const int lf = e & (tlf - 1);
+      const int rest = e >> tfs;
+      const int t = rest / (RK * NSYS);
+      const int ks = rest - t * (RK * NSYS);
+      if (fo + lf >= a.fl) return -1;  // a ragged tile's lanes past the factors' end
+      return ((long long)t * a.nk * NSYS + ks) * a.fl + fo + lf;
+    };
+#pragma unroll
+    for (int m = 0; m < NL; ++m) lsrc[m] = factor(c + m * NCOPY, PP);
+#pragma unroll
+    for (int m = 0; m < NU; ++m) usrc[m] = factor(c + m * NCOPY, QQ + 2);
+  }
+
+  // Copy thread c's part of stage j: on a forward stage (j < nc) the b rows
+  // of chunk j and the lower terms of chunk j, on a backward stage the upper
+  // terms and the reciprocals of chunk nst - 1 - j, into ring slot j % RING;
+  // a slot element with no source (past the factors' end) is zero-filled.
+  __device__ __forceinline__ void issue(const Args& a, int j, int nc, int c, T* tile, T* ring,
+                                        const T* bl, int tl) const {
+    T* slot = ring + (j % RING) * a.slot_elems + c;
+    if (j < nc) {
+      const int r0 = j * RC;
+      const int rows = min(RC, a.n - r0);
+      const T* src = bl + (long long)r0 * a.sr;
+      T* dst = tile + r0 * (a.rowfast ? 1 : tl);
+#pragma unroll
+      for (int m = 0; m < NB; ++m) {
+        if (bel[m] && brow[m] < rows) {
+          if (a.vec)
+            cp_async<16>(dst + bdst[m], src + bsrc[m],
+                         (a.rowfast ? min(V, rows - brow[m]) : bel[m]) * ES);
+          else
+            cp_async<ES>(dst + bdst[m], src + bsrc[m], ES);
+        }
+      }
+      const T* f = static_cast<const T*>(a.low) + (long long)j * RK * fstep;
+#pragma unroll
+      for (int m = 0; m < NL; ++m)
+        if (c + m * NCOPY < (PP * RK * NSYS) << (a.flane ? a.tls : 0))
+          cp_async<ES>(slot + m * NCOPY, lsrc[m] < 0 ? f : f + lsrc[m], lsrc[m] < 0 ? 0 : ES);
+    } else {
+      const T* f = static_cast<const T*>(a.upp) + (long long)(2 * nc - 1 - j) * RK * fstep;
+#pragma unroll
+      for (int m = 0; m < NU; ++m)
+        if (c + m * NCOPY < ((QQ + 2) * RK * NSYS) << (a.flane ? a.tls : 0))
+          cp_async<ES>(slot + m * NCOPY, usrc[m] < 0 ? f : f + usrc[m], usrc[m] < 0 ? 0 : ES);
+    }
+  }
+};
+
+// Forward chain rows k0.. of one stage: y_k = b_k - sum_d l_d[k] y_{k-d},
+// d = 1..PP, in place in the tile column `col` (chain row k at col[k * cs]);
+// c[d-1] holds y_{k-d}.  fs: this chain's first factor of the slot, chain
+// row kk of term t at fs[(t * RK + kk) * fk].  The stage's rows are read
+// into registers first, then the chain runs through them.
+template <typename T, int NSYS, int PP, int B, bool FULL>
+__device__ __forceinline__ void forward(T (&c)[B], T* col, int cs, const T* fs, int fk, int k0,
+                                        int ns) {
+  constexpr int RK = Path<NSYS>::RK;
+  T yv[RK], lv[RK][PP];
+#pragma unroll
+  for (int kk = 0; kk < RK; ++kk) {
+    if (FULL || k0 + kk < ns) {
+      yv[kk] = col[(k0 + kk) * cs];
+#pragma unroll
+      for (int d = 1; d <= PP; ++d) lv[kk][d - 1] = fs[((d - 1) * RK + kk) * fk];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < RK; ++kk) {
+    if (FULL || k0 + kk < ns) {
+      T acc = yv[kk];
+#pragma unroll
+      for (int d = PP; d >= 1; --d) acc = acc - lv[kk][d - 1] * c[d - 1];  // the newest last
+#pragma unroll
+      for (int d = B - 1; d > 0; --d) c[d] = c[d - 1];
+      c[0] = acc;
+      col[(k0 + kk) * cs] = acc;
     }
   }
 }
 
-template <typename T>
-int launch_banded(int nb, int n, int lanes, int p, int q, const void* lower,
-                  const void* upper, int flane, long long fl, long long fb,
-                  int pad_zeros, const void* b, long long sb, long long sr,
-                  long long sl, void* x, long long xb, long long xr,
-                  long long xl, cudaStream_t stream) {
-  if (nb < 1 || nb > 65535 || n < 1 || lanes < 1 || p < 0 || p > MAXB ||
-      q < 0 || q > MAXB || (flane != 0 && flane != 1) ||
-      (pad_zeros != 0 && pad_zeros != 1) ||
-      (flane && (fl < lanes || fb < 0 || (nb - 1) * fb + lanes > fl)))
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((lanes + NTHREADS - 1) / NTHREADS, nb, 1);
-  auto kernel = pad_zeros ? banded_kernel<T, true> : banded_kernel<T, false>;
-  kernel<<<grid, NTHREADS, 0, stream>>>(
-      n, lanes, p, q, static_cast<const T*>(lower),
-      static_cast<const T*>(upper), flane, fl, fb, static_cast<const T*>(b),
-      sb, sr, sl, static_cast<T*>(x), xb, xr, xl);
+// Backward chain rows k0 + RK - 1 down to k0: x_k = (y_k - sum_d u_d[k]
+// x_{k+d}) / u_0[k], d = 1..QQ, y read from the tile, x written to
+// xcol[k * xs]; c[d-1] holds x_{k+d}.  The quotient is the correctly
+// rounded one, from the reciprocal r = 1 / u_0 (term QQ + 1, rounded on the
+// host): q = acc * r is within an ulp of it, and q + r * (acc - u_0 * q),
+// the remainder exact in an FMA, rounds to it (Markstein) wherever no
+// intermediate leaves the normal range.  No comparison or branch waits on
+// acc, and a zero acc gives a zero in three multiply-adds.
+template <typename T, int NSYS, int QQ, int B, bool FULL>
+__device__ __forceinline__ void backward(T (&c)[B], const T* col, int cs, T* xcol, long long xs,
+                                         const T* fs, int fk, int k0, int ns) {
+  constexpr int RK = Path<NSYS>::RK;
+  T yv[RK], uv[RK][QQ + 2];
+#pragma unroll
+  for (int kk = RK - 1; kk >= 0; --kk) {
+    if (FULL || k0 + kk < ns) {
+      yv[kk] = col[(k0 + kk) * cs];
+#pragma unroll
+      for (int d = 0; d <= QQ + 1; ++d) uv[kk][d] = fs[(d * RK + kk) * fk];
+    }
+  }
+#pragma unroll
+  for (int kk = RK - 1; kk >= 0; --kk) {
+    if (FULL || k0 + kk < ns) {
+      T acc = yv[kk];
+#pragma unroll
+      for (int d = QQ; d >= 1; --d) acc = acc - uv[kk][d] * c[d - 1];  // the newest last
+      const T r = uv[kk][QQ + 1];
+      const T q = acc * r;
+      acc = fma(fma(-uv[kk][0], q, acc), r, q);
+#pragma unroll
+      for (int d = B - 1; d > 0; --d) c[d] = c[d - 1];
+      c[0] = acc;
+      xcol[(k0 + kk) * xs] = acc;
+    }
+  }
+}
+
+// PP, QQ: the chain bandwidths (>= 1; upp holds QQ + 2 terms, the last the
+// reciprocals of the first).
+template <typename T, int NSYS, int PP, int QQ>
+__global__ void __launch_bounds__(NTHREADS, 1) banded_kernel(const Args a) {
+  constexpr int RK = Path<NSYS>::RK;
+  constexpr int B = PP > QQ ? PP : QQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  T* ring = tile + a.tile_elems;
+  const int tl = 1 << a.tls;
+  const int l0 = blockIdx.x * tl;
+  const int ntl = min(tl, a.lanes - l0);
+  const long long bi = blockIdx.y;
+  const long long fo = a.flane ? bi * a.fb + l0 : 0;
+  const int nc = ((a.n + NSYS - 1) / NSYS + RK - 1) / RK;  // stages of each pass
+  const int nst = 2 * nc;
+  const int tid = threadIdx.x;
+
+  if (tid >= 32) {  // the copies
+    const T* bl = static_cast<const T*>(a.b) + bi * a.sb + (long long)l0 * a.sl;
+    Copier<T, NSYS, PP, QQ> cp;
+    cp.init(a, tid - 32, tl, ntl, fo);
+    for (int j = 0; j < RING - 1; ++j) {
+      if (j < nst) cp.issue(a, j, nc, tid - 32, tile, ring, bl, tl);
+      cp_async_commit();
+    }
+    for (int j = 0; j < nst; ++j) {
+      cp_async_wait<RING - 2>();  // this thread's copies of stage j
+      __syncthreads();            // everyone's; stage j - 1's slot is free
+      if (j + RING - 1 < nst) cp.issue(a, j + RING - 1, nc, tid - 32, tile, ring, bl, tl);
+      cp_async_commit();
+    }
+    return;
+  }
+
+  // the chains: thread tid runs system s of lane l0 + ll
+  const int s = tid >> a.tls, ll = tid & (tl - 1);
+  const bool chain = s < NSYS && ll < ntl;
+  const int ns = (a.n - s + NSYS - 1) / NSYS;  // rows of this chain
+  const int cs = NSYS * (a.rowfast ? 1 : tl);
+  T* col = tile + (a.rowfast ? ll * a.ld + s : s * tl + ll);
+  T* xcol = static_cast<T*>(a.x) + bi * a.xb + (long long)(l0 + ll) * a.xl + (long long)s * a.xr;
+  const long long xs = NSYS * a.xr;
+  const int tlf = a.flane ? tl : 1;
+  const int fk = NSYS * tlf;
+  const int fofs = s * tlf + (a.flane ? ll : 0);
+  T c[B];
+#pragma unroll
+  for (int d = 0; d < B; ++d) c[d] = T(0);
+  for (int j = 0; j < nst; ++j) {
+    __syncthreads();
+    if (!chain) continue;
+    const T* fs = ring + (j % RING) * a.slot_elems + fofs;
+    if (j < nc) {
+      const int k0 = j * RK;
+      if (k0 + RK <= ns)
+        forward<T, NSYS, PP, B, true>(c, col, cs, fs, fk, k0, ns);
+      else
+        forward<T, NSYS, PP, B, false>(c, col, cs, fs, fk, k0, ns);
+    } else {
+      if (j == nc) {
+#pragma unroll
+        for (int d = 0; d < B; ++d) c[d] = T(0);
+      }
+      const int k0 = (nst - 1 - j) * RK;
+      if (k0 + RK <= ns)
+        backward<T, NSYS, QQ, B, true>(c, col, cs, xcol, xs, fs, fk, k0, ns);
+      else
+        backward<T, NSYS, QQ, B, false>(c, col, cs, xcol, xs, fs, fk, k0, ns);
+    }
+  }
+}
+
+template <typename T, int NSYS, int PP, int QQ>
+static int launch_one(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t attr = smem_attribute(banded_kernel<T, NSYS, PP, QQ>, SMEM_LIMIT, done);
+  if (attr != cudaSuccess) return (int)attr;
+  banded_kernel<T, NSYS, PP, QQ><<<grid, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace rp
-
-extern "C" int rp_banded_solve_f64(int nb, int n, int lanes, int p, int q,
-                                   const void* lower, const void* upper,
-                                   int flane, long long fl, long long fb,
-                                   int pad_zeros, const void* b, long long sb,
-                                   long long sr, long long sl, void* x,
-                                   long long xb, long long xr, long long xl,
-                                   void* stream) {
-  return rp::launch_banded<double>(nb, n, lanes, p, q, lower, upper, flane, fl,
-                                   fb, pad_zeros, b, sb, sr, sl, x, xb, xr, xl,
-                                   static_cast<cudaStream_t>(stream));
+// nsys: 2 for the parity-split chains, 1 for one chain a lane; pp, qq: the
+// chain bandwidths, 1 or 2 on the parity path (an instance each), 4 and 4
+// on the general one (terms past the band are zero); upp holds qq + 2
+// terms, the last the reciprocals of the first; tl: lanes of a tile (1, 2,
+// 4 or 8); vec: 16-byte copies of b (the wrapper proved the alignment;
+// checked again here).
+template <typename T>
+static int launch(int nb, int n, int lanes, int nsys, int pp, int qq, int tl, int vec,
+                  const void* low, const void* upp, int flane, long long fl, long long fb, int nk,
+                  const void* b, long long sb, long long sr, long long sl, void* x, long long xb,
+                  long long xr, long long xl, cudaStream_t stream) {
+  constexpr long long ES = sizeof(T);
+  const int tls = tl == 1 ? 0 : tl == 2 ? 1 : tl == 4 ? 2 : tl == MAX_TILE ? 3 : -1;
+  const int rk = nsys == 2 ? Path<2>::RK : Path<1>::RK;
+  const bool bands = nsys == 2 ? pp >= 1 && pp <= MAXB / 2 && qq >= 1 && qq <= MAXB / 2
+                               : pp == MAXB && qq == MAXB;
+  if (nb < 1 || nb > 65535 || n < 1 || lanes < 1 || (nsys != 1 && nsys != 2) || tls < 0 ||
+      !bands || (vec != 0 && vec != 1) ||
+      (flane != 0 && flane != 1) || fl < 1 || (!flane && fl != 1) ||
+      (flane && (fb < 0 || (nb - 1) * fb + lanes > fl)) ||
+      (long long)nk < ((n + nsys - 1) / nsys + rk - 1) / (long long)rk * rk)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.low = low;
+  a.upp = upp;
+  a.b = b;
+  a.x = x;
+  a.sb = sb, a.sr = sr, a.sl = sl, a.xb = xb, a.xr = xr, a.xl = xl;
+  a.fl = fl, a.fb = fb;
+  a.n = n, a.lanes = lanes, a.nk = nk;
+  a.tls = tls, a.flane = flane, a.vec = vec;
+  a.rowfast = sr == 1 && sl != 1;
+  // lane stride of a lane-by-lane tile: 16 bytes past a multiple of 128
+  a.ld = a.rowfast ? (int)(((n * ES + 127) / 128 * 128 + 16) / ES) : tl;
+  const long long per16 = 16 / ES;
+  const long long tile = (a.rowfast ? (long long)tl * a.ld : (long long)n * tl);
+  const long long tile_elems = (tile + per16 - 1) / per16 * per16;
+  const long long terms = pp > qq + 2 ? pp : qq + 2;
+  const long long slot = terms * rk * nsys * (flane ? tl : 1);
+  const long long smem = (tile_elems + RING * slot) * ES;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  a.tile_elems = (int)tile_elems;
+  a.slot_elems = (int)slot;
+  if (vec) {
+    const bool ok = reinterpret_cast<uintptr_t>(b) % 16 == 0 && (nb == 1 || sb * ES % 16 == 0) &&
+                    (a.rowfast ? sl * ES % 16 == 0
+                               : sl == 1 && sr * ES % 16 == 0 && tl * ES % 16 == 0);
+    if (!ok) return (int)cudaErrorMisalignedAddress;
+  }
+  const dim3 grid((lanes + tl - 1) / tl, nb, 1);
+  if (nsys == 1) return launch_one<T, 1, MAXB, MAXB>(a, grid, (int)smem, stream);
+  if (pp == 1)
+    return qq == 1 ? launch_one<T, 2, 1, 1>(a, grid, (int)smem, stream)
+                   : launch_one<T, 2, 1, 2>(a, grid, (int)smem, stream);
+  return qq == 1 ? launch_one<T, 2, 2, 1>(a, grid, (int)smem, stream)
+                 : launch_one<T, 2, 2, 2>(a, grid, (int)smem, stream);
 }
 
-extern "C" int rp_banded_solve_f32(int nb, int n, int lanes, int p, int q,
-                                   const void* lower, const void* upper,
-                                   int flane, long long fl, long long fb,
-                                   int pad_zeros, const void* b, long long sb,
-                                   long long sr, long long sl, void* x,
-                                   long long xb, long long xr, long long xl,
-                                   void* stream) {
-  return rp::launch_banded<float>(nb, n, lanes, p, q, lower, upper, flane, fl,
-                                  fb, pad_zeros, b, sb, sr, sl, x, xb, xr, xl,
-                                  static_cast<cudaStream_t>(stream));
+}  // namespace banded
+}  // namespace rp
+
+extern "C" int rp_banded_solve_f64(int nb, int n, int lanes, int nsys, int pp, int qq, int tl,
+                                   int vec, const void* low, const void* upp, int flane,
+                                   long long fl, long long fb, int nk, const void* b,
+                                   long long sb, long long sr, long long sl, void* x,
+                                   long long xb, long long xr, long long xl, void* stream) {
+  return rp::banded::launch<double>(nb, n, lanes, nsys, pp, qq, tl, vec, low, upp, flane, fl, fb,
+                                    nk, b, sb, sr, sl, x, xb, xr, xl,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rp_banded_solve_f32(int nb, int n, int lanes, int nsys, int pp, int qq, int tl,
+                                   int vec, const void* low, const void* upp, int flane,
+                                   long long fl, long long fb, int nk, const void* b,
+                                   long long sb, long long sr, long long sl, void* x,
+                                   long long xb, long long xr, long long xl, void* stream) {
+  return rp::banded::launch<float>(nb, n, lanes, nsys, pp, qq, tl, vec, low, upp, flane, fl, fb,
+                                   nk, b, sb, sr, sl, x, xb, xr, xl,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -113,11 +113,10 @@ class BandedSolver:
     factors of ``A``: one set, ``(p, n)``/``(q+1, n)``, or one per lane,
     ``(lanes, p, n)``/``(lanes, q+1, n)``.  Per-lane factors align with the
     lanes the solve runs over: the axes after the solve axis, or, when it is
-    the last axis, the axis before it.  ``pad_zeros``: see
-    :class:`..ops.banded_solve.BandedSolve`."""
+    the last axis, the axis before it."""
 
-    def __init__(self, lower, upper, *, device, dtype, pad_zeros: bool = False):
-        self.kernel = BandedSolve(lower, upper, device=device, dtype=dtype, pad_zeros=pad_zeros)
+    def __init__(self, lower, upper, *, device, dtype):
+        self.kernel = BandedSolve(lower, upper, device=device, dtype=dtype)
         self.p, self.q, self.n = self.kernel.p, self.kernel.q, self.kernel.n
 
     @classmethod

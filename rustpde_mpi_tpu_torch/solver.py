@@ -147,23 +147,14 @@ def _check_rhs(rhs: torch.Tensor) -> int:
     return rhs.ndim - 2
 
 
-def _has_pad(shape, nranks: int) -> bool:
-    """Whether pencils of ``shape`` over ``nranks`` ranks carry a zero pad
-    (an extent that is not a multiple of the rank count): their solves then
-    meet lanes of exact zeros."""
-    return any(padded(n, nranks) != n for n in shape)
-
-
 class _AxisSolver:
     """1-D solver of one Chebyshev axis: ``"banded"`` (and its alias
     ``"pallas"``) runs the banded substitution kernel, ``"dense"`` the
     precomputed inverse.  The banded system is padded with identity rows to
     a multiple of ``nranks``, the pencil extent on a mesh of that many ranks
-    (no padding for one rank); ``pad_zeros``: its right-hand sides may hold
-    zero pad lanes."""
+    (no padding for one rank)."""
 
-    def __init__(self, mat: np.ndarray, method: str, nranks: int, pad_zeros: bool, *,
-                 device, dtype):
+    def __init__(self, mat: np.ndarray, method: str, nranks: int, *, device, dtype):
         kw = dict(device=device, dtype=dtype)
         if _check_method(method, _AXIS_METHODS) == "dense":
             if nranks > 1:
@@ -171,7 +162,7 @@ class _AxisSolver:
             self.solver = DenseSolver(mat, **kw)
         else:
             band = pad_band(dense_to_band(mat, _P, _Q), _P, padded(mat.shape[0], nranks))
-            self.solver = BandedSolver(*band_lu_factor(band, _P, _Q), pad_zeros=pad_zeros, **kw)
+            self.solver = BandedSolver(*band_lu_factor(band, _P, _Q), **kw)
 
     def solve(self, b, axis: int):
         return self.solver.solve(b, axis)
@@ -197,13 +188,11 @@ class HholtzAdi:
         self.space = space
         self.c = tuple(c)
         kw = dict(device=space.device, dtype=space.dtype)
-        pad_zeros = _has_pad(space.shape_spectral, space.nranks)
         self.matvec = []
         self.solvers = []
         for axis, ci in enumerate(c):
             mat_a, mat_b, precond = ingredients_for_hholtz(space, axis)
-            self.solvers.append(_AxisSolver(mat_a - ci * mat_b, method, space.nranks, pad_zeros,
-                                            **kw))
+            self.solvers.append(_AxisSolver(mat_a - ci * mat_b, method, space.nranks, **kw))
             self.matvec.append(space.operator(precond))
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
@@ -254,8 +243,7 @@ class TensorSolver:
             (lam[:, None, None] + alpha) * dense_to_band(c1, _P, _Q)[None]
         lanes, n = band.shape[:2]
         band = pad_band(band, _P, padded(n, nranks), padded(lanes, nranks))
-        self.banded = BandedSolver(*band_lu_factor(band, _P, _Q),
-                                   pad_zeros=_has_pad((lanes, n), nranks), **kw)
+        self.banded = BandedSolver(*band_lu_factor(band, _P, _Q), **kw)
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """rhs in ortho space -> solution in composite space; extra leading

@@ -270,6 +270,65 @@ def _banded_system(n, lanes=None, seed=0):
     return banded_lu_factor(rng.uniform(0.2, 0.6, batch + (n, n)) * band + 4.0 * np.eye(n), 2, 4)
 
 
+def _band_factors(n, lanes=None, seed=0, parity=False):
+    """The systems of :func:`_banded_system` built in band storage (no
+    dense ``(lanes, n, n)`` batch): the full band, the kernel's general
+    path, or, with ``parity``, the odd offsets zero, as in the solvers'
+    Chebyshev systems (its parity path)."""
+    from rustpde_mpi_tpu_torch.ops.banded import band_lu_factor
+
+    rng = np.random.default_rng(seed)
+    band = rng.uniform(0.2, 0.6, ((lanes,) if lanes else ()) + (n, 7))
+    band[..., 2] += 4.0
+    for k in range(-2, 5):  # band[..., i, 2 + k] holds A[i, i + k]
+        rows = np.arange(n)
+        band[..., (rows + k < 0) | (rows + k >= n), 2 + k] = 0.0
+        if parity and k % 2:
+            band[..., 2 + k] = 0.0
+    return band_lu_factor(band, 2, 4)
+
+
+def _lane_rel(got, plain, axis):
+    """Max over lanes of |got - plain| relative to that lane's max|plain|."""
+    torch.cuda.synchronize()
+    scale = torch.amax(torch.abs(plain), dim=axis, keepdim=True)
+    return float(torch.max(torch.abs(got - plain) / scale))
+
+
+@pytest.mark.parametrize("n,lanes", [(37, 130), (64, 32), (1025, 1023)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("per_lane", [False, True])
+@pytest.mark.parametrize("parity", [True, False])
+def test_banded_paths_match_plain(device, parity, per_lane, dtype, n, lanes):
+    """Both paths of the kernel (parity-split chains for an even band, one
+    chain a lane for the full band) against the plain recurrence, per
+    lane: both axes, a batch dim, the factor batch stride for per-lane
+    factors; n and lanes that do and do not divide the tile (8 lanes) and
+    the ring stage (32 rows), copies of 16 bytes (64 x 32) and of one
+    element; a repeat is bit-identical."""
+    from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
+
+    factors = _band_factors(n, lanes if per_lane else None, seed=n, parity=parity)
+    rng = np.random.default_rng(4)
+    cases = [(rng.uniform(-1, 1, (n, lanes)), 0, 0), (rng.uniform(-1, 1, (lanes, n)), 1, 0)]
+    if per_lane:
+        ranks = next(r for r in (4, 3, 2) if lanes % r == 0)
+        cases.append((rng.uniform(-1, 1, (ranks, lanes // ranks, n)), 2, lanes // ranks))
+    else:
+        cases += [(rng.uniform(-1, 1, (3, lanes, n)), 2, 0), (rng.uniform(-1, 1, (2, n, lanes)), 1, 0)]
+    solver = BandedSolver(*factors, device=device, dtype=dtype)
+    assert solver.kernel.path == ("parity" if parity else "general")
+    for i, (b, axis, stride) in enumerate(cases):
+        bt = torch.tensor(b, dtype=dtype, device=device)
+        got = solver.solve(bt, axis, stride)
+        again = solver.solve(bt, axis, stride)
+        assert solver.kernel.launches == 2 * (i + 1)
+        assert tuple(got.shape) == tuple(bt.shape)
+        rel = _lane_rel(got, solver.plain(bt, axis, stride), axis)
+        assert rel <= TOL[dtype], (b.shape, axis, rel)
+        assert torch.equal(again, got)
+
+
 @pytest.mark.parametrize("per_lane", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_banded_kernel_matches_plain(device, per_lane, dtype):
@@ -280,6 +339,7 @@ def test_banded_kernel_matches_plain(device, per_lane, dtype):
     n, lanes = 37, 130
     solver = BandedSolver(*_banded_system(n, lanes if per_lane else None), device=device,
                           dtype=dtype)
+    assert solver.kernel.path == "general"
     rng = np.random.default_rng(1)
     cases = [(rng.uniform(-1, 1, (n, lanes)), 0), (rng.uniform(-1, 1, (lanes, n)), 1),
              (rng.uniform(-1, 1, (3, lanes, n)), 2)]
@@ -317,6 +377,7 @@ def test_dense_route_on_card_matches_cpu(device):
         states[dev.type] = (pt.state_to_numpy(m), m)
     card = states["cuda"][1]
     assert sum(k.launches for k in card.kernels()["banded_solve"]) == 70
+    assert all(k.path == "parity" for k in card.kernels()["banded_solve"])
     for name, ref in states["cpu"][0].items():
         scale = max(float(np.max(np.abs(ref))), 1e-300)
         assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name
@@ -331,6 +392,7 @@ def test_banded_kernel_factor_batch_stride(device, dtype):
 
     n, ranks, per_rank = 37, 4, 33
     solver = BandedSolver(*_banded_system(n, ranks * per_rank), device=device, dtype=dtype)
+    assert solver.kernel.path == "general"
     b = torch.tensor(np.random.default_rng(2).uniform(-1, 1, (ranks * per_rank, n)),
                      dtype=dtype, device=device)
     want = solver.solve(b, 1)
@@ -343,23 +405,24 @@ def test_banded_kernel_factor_batch_stride(device, dtype):
     assert torch.equal(got.reshape(want.shape), want)
 
 
-@pytest.mark.parametrize("pad_zeros", [False, True])
+@pytest.mark.parametrize("parity", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_banded_kernel_zero_pad(device, dtype, pad_zeros):
+def test_banded_kernel_zero_pad(device, dtype, parity):
     """An identity-padded system on a right-hand side with a zero pad (a
-    meshed pencil's pad rows and lanes), through both divisions of the
-    kernel (``pad_zeros``: never divide a zero): the pad solves to zero,
-    the real lanes as the plain recurrence does, and an all-zero rhs to
-    zero."""
+    meshed pencil's pad rows and lanes), on both paths: the pad solves to
+    zero, the real lanes as the plain recurrence does, and an all-zero rhs
+    to zero."""
     from rustpde_mpi_tpu_torch.ops.banded import BandedSolver, band_lu_factor, dense_to_band, pad_band
 
     n, n_pad, lanes, lanes_pad = 37, 40, 30, 32
     rng = np.random.default_rng(3)
     band = np.tril(np.triu(np.ones((n, n)), -2), 4)
+    if parity:
+        band *= np.subtract.outer(np.arange(n), np.arange(n)) % 2 == 0
     dense = rng.uniform(0.2, 0.6, (n, n)) * band + 4.0 * np.eye(n)
     padded = pad_band(dense_to_band(dense, 2, 4), 2, n_pad)
-    solver = BandedSolver(*band_lu_factor(padded, 2, 4), device=device, dtype=dtype,
-                          pad_zeros=pad_zeros)
+    solver = BandedSolver(*band_lu_factor(padded, 2, 4), device=device, dtype=dtype)
+    assert solver.kernel.path == ("parity" if parity else "general")
     b = torch.zeros((n_pad, lanes_pad), dtype=dtype, device=device)
     b[:n, :lanes] = torch.tensor(rng.uniform(-1, 1, (n, lanes)), dtype=dtype, device=device)
     got = solver.solve(b, 0)
@@ -428,6 +491,7 @@ def test_meshed_route_on_card_matches_cpu(device):
     card = states["cuda"][1].kernels()
     assert sum(k.launches for k in card["ring_transpose"]) == 370
     assert sum(k.launches for k in card["banded_solve"]) == 70
+    assert all(k.path == "parity" for k in card["banded_solve"])
     for name, ref in states["cpu"][0].items():
         scale = max(float(np.max(np.abs(ref))), 1e-300)
         assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name
