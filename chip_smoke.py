@@ -28,10 +28,15 @@ default step on its solver objects) in phases 6-11:
    versions) and compares the states (rel 1e-11);
 4. drives the main path, the ``rbc1025`` configuration (1025^2, Ra=1e9,
    Pr=1, dt=1e-4, f64), for 50 steps through ``integrate`` (two save
-   windows, each one ``Navier2D.update_n``), checks that every step
-   launched 3 fused convection chains and 7 fused stages, then times 50
-   more steps of bare ``update_n`` (ms/step) and checks the observables;
-5. profiles 5 more steps (device time by kernel, device busy share);
+   windows, each one ``Navier2D.update_n``, whose every step replays the
+   step captured as a CUDA graph: the capture, its time and its memory
+   are printed first), checks that every step launched 3 fused
+   convection chains and 7 fused stages (counted over the replays), then
+   times 50 more steps of bare ``update_n`` (ms/step) and checks the
+   observables;
+5. profiles 5 more steps (device time by kernel, device busy share, the
+   host-idle share of the wall) and times the divergence freeze's own
+   work (the finite check and the selects into the carry) alone;
 6. holds the banded-substitution kernel against its plain version: every
    banded solve the dense step builds (ADI axes 0 and 1 with one factor
    set, the Poisson tensor solver's per-lane factors along axis 1, and the
@@ -82,6 +87,16 @@ pencil flip through the pencil-transpose kernel), in phases 12-13:
     banded launches a step, and 10 flips for each of the two save-window
     callbacks' observables) and profiles it.
 
+After the profile of each route (phases 5, 10 and 13), phase 14 holds the
+chunk contract on that route's ``rbc1025`` model: ``update_n(10)`` through
+the graph against 10 eager ``update()`` calls bit for bit; the divergence
+freeze (a NaN in temp mode 0: ``step_n`` executes 1 step, ``update_n(7)``
+steps once in each of its two buckets, the same non-finite entries and the
+rest bit for bit against eager steps, ``exit()`` True); the stability
+sentinels armed against the plain chunk bit for bit, with the
+``ChunkStatus``; and one CFL spike rolled back, ``integrate`` stopping
+with ``"break"``.
+
 The profiles of the dense and meshed routes list each banded launch of
 one step, to set beside the launches timed alone.  The ``kernels`` line
 sums each kernel over one step of the route it was ported for, and the
@@ -120,6 +135,15 @@ PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solv
 #: kernel launches of one save-window callback (the observables): the
 #: meshed route flips pencils there too
 PER_CALLBACK = {"mesh": {"ring_transpose": 10}}
+#: grid launches a step of each route's hand-written kernels, by a part of
+#: the kernel's name: what a profile that recorded every device event of a
+#: step holds (a fused conv chain is 3 generic-GEMM launches and 1 dual,
+#: the 7 fused stages 16 generic-GEMM launches); the profiler has been seen
+#: to drop some events of graph replays
+PROFILE_LAUNCHES = {"fused": {"gemm_jobs_kernel": 25, "conv_dual_kernel": 3},
+                    "dense": {"banded_kernel": 7},
+                    "mesh": {"banded_kernel": 7, "ring_transpose_kernel": 37}}
+PROFILE_ATTEMPTS = 3
 #: ranks of the meshed route (all on the one card)
 MESH_RANKS = 4
 #: bytes written before each launch of a cold-L2 timing: 10x the 50 MB L2
@@ -469,7 +493,11 @@ def phase_main(torch, pt, model, phase="phase4"):
     windows of 25 steps (each one ``update_n``), launch counts set to 0
     just before and read just after.  Its wall time includes the two
     save-window callbacks (observables read back to the host, a print), so
-    the step time is taken apart, over 50 more steps of bare ``update_n``."""
+    the step time is taken apart, over 50 more steps of bare ``update_n``.
+    Each step of a chunk replays the step's CUDA graph, which is built
+    (:func:`prepare_chunks`) before the counts are set to 0, so the counts
+    are the replays' launches."""
+    prepare_chunks(torch, model, phase)
     reset_counts(model)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -497,38 +525,100 @@ def phase_main(torch, pt, model, phase="phase4"):
           f"Re={re!r} |div|={div!r}")
     if not all(math.isfinite(v) for v in (nu, nuvol, re, div)) or not nu > 0.0:
         raise AssertionError("rbc1025 observables not finite or Nu <= 0")
-    return launches
+    return launches, wall / MAIN_STEPS * 1e3
 
 
-def phase_profile(torch, model, steps=5, phase="phase5"):
+def prepare_chunks(torch, model, phase):
+    """Build ``model``'s chunk runner: one eager step on a scratch copy of
+    the state warms every kernel wrapper up, then the step is captured as
+    a CUDA graph.  Prints its wall time, the graph's private pool, the peak
+    of ``torch.cuda.max_memory_allocated`` over it beside the memory held
+    before, and the launches a replay adds, which must be one step's."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runner = model.chunk_runner()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not runner.captured:
+        raise AssertionError("the chunk runner did not capture a CUDA graph on the card")
+    names = [name for name, ks in model.kernels().items() for _ in ks]
+    per_replay = {}
+    for name, d in zip(names, runner.delta):
+        per_replay[name] = per_replay.get(name, 0) + d
+    route = route_of(model)
+    print(f"{phase} chunk graph rbc1025 f64 {route} route: warm-up and capture {wall:.3f} s; "
+          f"graph pool {runner.pool_bytes / 2**20:.1f} MiB; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held "
+          f"before); launches a replay {per_replay}")
+    if per_replay != PER_STEP[route]:
+        raise AssertionError(f"a replay launches {per_replay}, a step {PER_STEP[route]}")
+
+
+def freeze_ms(torch, model, reps=50) -> float:
+    """Device ms of one step's freeze (the plain chunk's bookkeeping: the
+    finite check, the five selects into the carry, the counter and the
+    flag) on a copy of ``model``'s state, captured as a CUDA graph of its
+    own as the step's graph holds it, by CUDA events over ``reps``
+    replays."""
+    carry = [f.clone() for f in model.state]
+    carry += [torch.ones((), dtype=torch.bool, device=carry[0].device),
+              torch.zeros((), dtype=torch.int32, device=carry[0].device)]
+    stepped = model.state
+    model._freeze(carry, stepped)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        model._freeze(carry, stepped)
+    return time_ms(torch, graph.replay, reps)
+
+
+def phase_profile(torch, model, bare_ms, steps=5, phase="phase5"):
     """Where the time of a main-path step goes: device time by kernel name
     and the device's busy share over ``steps`` steps, from torch.profiler
     (run after the counted main-path run, so its launches are not read);
     on the dense and meshed routes also each banded launch of the last
     step, in launch order (velx axis 1, 0; vely axis 1, 0; Poisson; temp
-    axis 1, 0), to set beside the launches timed alone (phases 6, 12)."""
+    axis 1, 0), to set beside the launches timed alone (phases 6, 12).
+    The host-idle share is read twice: of the profiled wall (the profiler
+    adds its own host time to every launch), and of ``bare_ms``, the
+    unprofiled ms/step of the main-path run, against the profiled busy
+    time.  A profile that did not record every launch of the route's
+    kernels (``PROFILE_LAUNCHES``) is taken again, up to
+    ``PROFILE_ATTEMPTS`` times.  Last, the freeze's own device time
+    (:func:`freeze_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    route = route_of(model)
+    want = {k: v * steps for k, v in PROFILE_LAUNCHES[route].items()}
     model.update_n(1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.update_n(steps)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name, banded = [], {}, []
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        start, end = ev.time_range.start, ev.time_range.end
-        spans.append((start, end))
-        tot, cnt = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (tot + (end - start), cnt + 1)
-        if "banded_kernel" in ev.name:
-            banded.append((start, end - start))
-    if not spans:
-        print(f"{phase} profile: the profiler recorded no device events (not measured)")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.update_n(steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans, by_name, banded = [], {}, []
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            start, end = ev.time_range.start, ev.time_range.end
+            spans.append((start, end))
+            tot, cnt = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + (end - start), cnt + 1)
+            if "banded_kernel" in ev.name:
+                banded.append((start, end - start))
+        got = {k: sum(c for name, (_, c) in by_name.items() if k in name) for k in want}
+        if got == want:
+            break
+        print(f"{phase} profile attempt {attempt}: recorded launches {got}, {steps} steps launch "
+              f"{want}: the profiler lost device events")
+    else:
+        print(f"{phase} profile: no complete record in {PROFILE_ATTEMPTS} attempts; device busy "
+              "not measured")
         return
     spans.sort()
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -540,16 +630,138 @@ def phase_profile(torch, model, steps=5, phase="phase5"):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     total = sum(t for t, _ in by_name.values())
-    print(f"{phase} profile rbc1025 f64 {route_of(model)} route {steps} steps: wall {wall_us / steps / 1e3:.4f} ms/step, "
-          f"device busy {busy / steps / 1e3:.4f} ms/step ({busy / wall_us:.4f} of wall), "
-          f"kernel time {total / steps / 1e3:.4f} ms/step")
+    selects = sum(t for name, (t, _) in by_name.items() if "where" in name)
+    print(f"{phase} profile rbc1025 f64 {route} route {steps} steps: wall {wall_us / steps / 1e3:.4f} ms/step, "
+          f"device busy {busy / steps / 1e3:.4f} ms/step ({busy / wall_us:.4f} of wall, "
+          f"host idle share {1.0 - busy / wall_us:.4f}), "
+          f"kernel time {total / steps / 1e3:.4f} ms/step; host idle share of the bare "
+          f"update_n ({bare_ms:.4f} ms/step) {1.0 - busy / steps / 1e3 / bare_ms:.4f}")
+    freeze = freeze_ms(torch, model)
+    print(f"{phase} freeze rbc1025 f64 {route} route: {freeze:.4f} ms/step as a graph "
+          f"of its own ({freeze / (busy / steps / 1e3):.4f} of the step's busy time); select "
+          f"kernels in the profile {selects / steps / 1e3:.4f} ms/step")
     for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"{phase}   {t / steps / 1e3:9.4f} ms/step {cnt / steps:6.1f} calls/step "
               f"{t / total:7.4f}  {name[:90]}")
     if banded:
-        per_step = PER_STEP[route_of(model)]["banded_solve"]
+        per_step = PER_STEP[route]["banded_solve"]
         last = [d / 1e3 for _, d in sorted(banded)[-per_step:]]
         print(f"{phase} banded launches of the last profiled step, ms in launch order: {last}")
+
+
+# -- chunked stepping --------------------------------------------------------------
+
+
+def same_state(torch, a, b) -> bool:
+    """Bit for bit, non-finite entries where the other state has them."""
+    return all(torch.equal(torch.isfinite(x), torch.isfinite(y))
+               and torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)) for x, y in zip(a, b))
+
+
+def state_diffs(torch, a, b) -> dict:
+    """Max |a - b| per field over the entries finite in both, and the
+    field's scale."""
+    out = {}
+    for name, x, y in zip(a._fields, a, b):
+        both = torch.isfinite(x) & torch.isfinite(y)
+        out[name] = (float(torch.max(torch.abs(x - y)[both])), float(torch.max(torch.abs(y[both]))))
+    return out
+
+
+def phase_chunks(torch, pt, model, phase="phase14"):
+    """The chunk contract on the card, on the route's ``rbc1025`` model
+    (its state and time put back after):
+
+    1. ``update_n(10)``, each step a replay of the captured step, against
+       10 eager ``update()`` calls, bit for bit;
+    2. the divergence freeze: with temp mode 0 NaN, ``step_n(state, 8)``
+       executes 1 step and returns the eager step's state (the same
+       non-finite entries, the rest bit for bit); ``update_n(7)`` (buckets
+       4 and 3, the flag restarting at each) returns two eager steps' state,
+       and ``exit()`` is True;
+    3. the sentinels (``StabilityConfig()`` armed) against the plain chunk,
+       ``update_n(10)`` bit for bit, with the ``ChunkStatus`` and the wall
+       ms/step of both chunks;
+    4. one CFL spike: the velocities scaled so that the CFL is 4x the
+       ceiling; ``integrate`` stops with ``"break"``, the chunk rolled back
+       to its start (state and time), ``exit()`` latched until
+       ``clear_pre_divergence()``."""
+    route = route_of(model)
+    s0, t0 = model.state, model.time
+    # 1. graph against eager
+    model.update_n(10)
+    chunk = model.state
+    model.state, model.time = s0, t0
+    for _ in range(10):
+        model.update()
+    if not same_state(torch, chunk, model.state):
+        raise AssertionError(f"{route}: graph chunk vs eager steps differ: "
+                             f"{state_diffs(torch, chunk, model.state)}")
+    print(f"{phase} {route} route: update_n(10) through the graph equals 10 eager update() "
+          "bit for bit")
+    # 2. the freeze
+    temp = s0.temp.clone()
+    temp.view(-1)[0] = float("nan")
+    bad = s0._replace(temp=temp)
+    stepped, done = model.step_n(bad, 8)
+    one = model._step(bad)
+    two = model._step(one)
+    model.state = bad
+    model.update_n(7)
+    nonfinite = {n: int((~torch.isfinite(f)).sum()) for n, f in zip(one._fields, model.state)}
+    if int(done) != 1 or not same_state(torch, stepped, one) or \
+            not same_state(torch, model.state, two) or not model.exit():
+        raise AssertionError(f"{route}: NaN freeze: steps_done {int(done)}, one step "
+                             f"{same_state(torch, stepped, one)}, two buckets "
+                             f"{same_state(torch, model.state, two)}, exit {model.exit()}")
+    print(f"{phase} {route} route: NaN in temp mode 0: step_n(8) steps_done=1, its state the "
+          f"eager step's; update_n(7) the state of 2 eager steps (non-finite entries {nonfinite}); "
+          "exit() True")
+    # 3. the sentinels against the plain chunk
+    model.state, model.time = s0, t0
+    model.update_n(10)
+    plain = model.state
+    cfg = pt.config.StabilityConfig()
+    model.set_stability(cfg)
+    model.state, model.time = s0, t0
+    prepare_chunks(torch, model, f"{phase} sentinels")
+    status = model.update_n(10)
+    if status.pre_divergence or status.steps_done != 10 or not status.finite or \
+            not same_state(torch, model.state, plain):
+        raise AssertionError(f"{route}: armed chunk {status} or its state differs from the plain "
+                             f"chunk's: {state_diffs(torch, model.state, plain)}")
+    # wall ms/step of MAIN_STEPS-step chunks, plain, armed, armed, plain (the
+    # armed chunk's one fetch of its scalars included)
+    chunk_ms = {False: [], True: []}
+    for armed in (False, True, True, False):
+        model.set_stability(cfg if armed else None)
+        model.state, model.time = s0, t0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.update_n(MAIN_STEPS)
+        torch.cuda.synchronize()
+        chunk_ms[armed].append((time.perf_counter() - t) / MAIN_STEPS * 1e3)
+    print(f"{phase} {route} route: sentinels armed, update_n(10) bit for bit the plain chunk; "
+          f"update_n({MAIN_STEPS}) wall ms/step armed {chunk_ms[True]}, plain {chunk_ms[False]}; "
+          "status " + json.dumps(status._asdict()))
+    model.set_stability(cfg)
+    # 4. a CFL spike
+    factor = 4.0 * cfg.max_cfl / status.cfl_max
+    spiked = s0._replace(velx=s0.velx * factor, vely=s0.vely * factor)
+    model.state, model.time = spiked, t0
+    result = pt.integrate(model, t0 + 10 * model.dt, None)
+    spike = model.last_chunk_status
+    latched = model.exit()
+    model.clear_pre_divergence()
+    if result != "break" or not spike.pre_divergence or model.time != t0 or \
+            model.state is not spiked or not latched or model.exit():
+        raise AssertionError(f"{route}: CFL spike x{factor:.4g}: integrate {result!r}, {spike}, "
+                             f"time {model.time} (start {t0}), latched {latched}")
+    print(f"{phase} {route} route: CFL spike (velocities x{factor:.4g}): integrate 'break', "
+          f"rolled back to t={t0:.4f}, exit() latched until cleared; status "
+          + json.dumps(spike._asdict()))
+    model.set_stability(None)
+    model.state, model.time = s0, t0
 
 
 # -- the dense route ------------------------------------------------------------
@@ -788,7 +1000,7 @@ def step_inputs(torch, model):
     for obj, name, fn in wrapped:
         setattr(obj, name, fn)
     try:
-        model.update_n(1)
+        model.update()  # one eager step: a chunk would capture the logging into its graph
     finally:
         for obj, name, _ in wrapped:
             delattr(obj, name)
@@ -1108,8 +1320,10 @@ def main() -> int:
     print("phase1 ok")
     phase_golden(pt)
     phase_card_vs_cpu(pt)
-    launches = {"fused": phase_main(torch, pt, main_model)}
-    phase_profile(torch, main_model)
+    launches, bare_ms = {}, {}
+    launches["fused"], bare_ms["fused"] = phase_main(torch, pt, main_model)
+    phase_profile(torch, main_model, bare_ms["fused"])
+    phase_chunks(torch, pt, main_model)
 
     t0 = time.perf_counter()
     dense_model = pt.Navier2D.new_confined(**RBC1025, device="cuda", **DENSE)
@@ -1122,8 +1336,9 @@ def main() -> int:
     phase_mms(torch, pt)
     phase_golden(pt, "phase8", **DENSE)
     phase_card_vs_cpu(pt, "phase9", **DENSE)
-    launches["dense"] = phase_main(torch, pt, dense_model, "phase10")
-    phase_profile(torch, dense_model, phase="phase10")
+    launches["dense"], bare_ms["dense"] = phase_main(torch, pt, dense_model, "phase10")
+    phase_profile(torch, dense_model, bare_ms["dense"], phase="phase10")
+    phase_chunks(torch, pt, dense_model)
     solver_times = phase_solvers(torch, pt, dense_model)
     del dense_model
 
@@ -1147,8 +1362,9 @@ def main() -> int:
     print("phase12 ok")
     phase_golden(pt, "phase13", mesh=pt.make_mesh(MESH_RANKS))
     phase_meshed_vs_serial(pt)
-    launches["mesh"] = phase_main(torch, pt, mesh_model, "phase13")
-    phase_profile(torch, mesh_model, phase="phase13")
+    launches["mesh"], bare_ms["mesh"] = phase_main(torch, pt, mesh_model, "phase13")
+    phase_profile(torch, mesh_model, bare_ms["mesh"], phase="phase13")
+    phase_chunks(torch, pt, mesh_model)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,12 +24,20 @@ Entry points run on the CUDA card unless the caller passes
 The meshed model runs the dense route on fields split over 4 ranks of one
 card (:mod:`.parallel`), every pencil flip through a hand-written CUDA
 transpose kernel.
+
+``update_n`` steps in the JAX package's chunks: a chunk freezes at the
+first step whose state is not finite, and with ``set_stability(
+StabilityConfig())`` it carries the CFL, kinetic-energy and |div|
+sentinels and rolls back on a CFL-ceiling trip (``ChunkStatus``).  On the
+card every step of a chunk replays one captured CUDA graph.
 """
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
+from .config import StabilityConfig  # noqa: F401
 from .bases import Base, BaseKind, Space2, cheb_dirichlet, cheb_neumann, chebyshev  # noqa: F401
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
 from .models.navier import Navier2D, NavierState  # noqa: F401
 from .parallel import Decomp2d, Mesh, make_mesh  # noqa: F401
 from .solver import FastDiag, Hholtz, HholtzAdi, Poisson, TensorSolver  # noqa: F401
+from .utils.governor import ChunkStatus  # noqa: F401
 from .utils.integrate import integrate  # noqa: F401

@@ -330,7 +330,7 @@ class Space2:
     def pin_zero_mode(self, vhat: torch.Tensor) -> torch.Tensor:
         """Zero the constant mode (the pressure singularity pin)."""
         out = vhat.clone()
-        out[..., 0, 0] = 0.0
+        out[..., 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
         return out
 
 

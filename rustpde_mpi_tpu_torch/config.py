@@ -12,6 +12,8 @@ the counterpart of the reference pinning HIGHEST matmul precision.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -53,3 +55,31 @@ def check_dtype(dtype) -> torch.dtype:
     if dtype not in SUPPORTED_DTYPES:
         raise ValueError(f"unsupported dtype {dtype}; use torch.float64 or torch.float32")
     return dtype
+
+
+@dataclass
+class StabilityConfig:
+    """Knobs of the on-device stability sentinels that a model's
+    ``set_stability`` arms (the JAX package's ``StabilityConfig``, same
+    fields and defaults).  The port's chunk reads ``max_cfl``, the hard
+    ceiling: a chunk whose per-step CFL exceeds it freezes while the state
+    is still finite, is rolled back, and reports ``pre_divergence``.  The
+    other fields are the dt governor's, which is not ported yet:
+
+    * ``target_cfl``: the Courant number the dt controller drives toward;
+    * ``ladder_ratio``: geometric spacing of the dt ladder;
+    * ``dt_min``/``dt_max``: ladder bounds (None: ``dt_max`` is the run's
+      initial dt, ``dt_min`` ``dt_max * ladder_ratio**-10``);
+    * ``grow_after``: healthy chunks at a rung before climbing back up;
+    * ``shrink_cfl``: proactive shrink threshold (None: ``0.85 * max_cfl``);
+    * ``member_pin_patience``: pre-divergence catches pinned on one
+      ensemble member before it is declared dead."""
+
+    target_cfl: float = 0.5
+    max_cfl: float = 1.0
+    ladder_ratio: float = 2.0
+    dt_min: float | None = None
+    dt_max: float | None = None
+    grow_after: int = 4
+    shrink_cfl: float | None = None
+    member_pin_patience: int = 3

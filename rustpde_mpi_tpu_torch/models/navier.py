@@ -24,7 +24,10 @@ every banded solve one launch for all ranks.  The JAX package builds no
 fused stages under a mesh, so the fused kernels are refused there.
 
 Each kernel runs as hand-written CUDA on a CUDA device and as its plain
-PyTorch version on the CPU.
+PyTorch version on the CPU.  ``update_n`` advances chunks of steps with
+the reference's divergence freeze and, when ``set_stability`` armed them,
+its stability sentinels (:mod:`.campaign`); on the card each step of a
+chunk replays the step captured as a CUDA graph.
 
 Numerical scheme (as the JAX package):
 
@@ -44,7 +47,7 @@ import torch
 
 from .. import config
 from ..bases import Space2, cheb_dirichlet, cheb_neumann, chebyshev, fused_projection_gradient
-from ..field import average_weights
+from ..field import average_weights, grid_deltas
 from ..ops.fused_conv import build_model_convs
 from ..ops.fused_step import build_model_step
 from ..parallel.spaces import PencilSpace2
@@ -130,6 +133,13 @@ class Navier2D(CampaignModelBase):
         # mesh the pad gets weight 0)
         self._w_plate = self.field_space.place_physical(np.repeat(w0[:, None], ny, axis=1))
         self._w_vol = self.field_space.place_physical(w0[:, None] * w1[None, :])
+        # per-point inverse grid spacing (physical, scaled) of the CFL
+        # sentinel dt*max(|ux|/dx + |uy|/dy), as physical fields (on a mesh
+        # the pad gets 0)
+        inv_dx = 1.0 / (grid_deltas(xs) * self.scale[0])
+        inv_dy = 1.0 / (grid_deltas(ys) * self.scale[1])
+        self._inv_dx = self.field_space.place_physical(np.repeat(inv_dx[:, None], ny, axis=1))
+        self._inv_dy = self.field_space.place_physical(np.repeat(inv_dy[None, :], nx, axis=0))
 
         self._build_bc_fields(xs, ys)
         self._convs = build_model_convs(self) if conv_kernel == "fused" else None
@@ -250,9 +260,12 @@ class Navier2D(CampaignModelBase):
             total = total + ux * self._tempbc_dx + uy * self._tempbc_dy
         return self.field_space.forward(total) * self._dealias
 
-    def _step(self, state: NavierState) -> NavierState:
+    def _step(self, state: NavierState, with_sentinels: bool = False):
+        """One step.  ``with_sentinels``: return ``(state, (cfl, ke,
+        div_norm))`` (:meth:`_sentinels`), read from arrays the step builds
+        anyway, so the state's arithmetic is the plain step's."""
         if self._stages is None:
-            return self._step_dense(state)
+            return self._step_dense(state, with_sentinels)
         st = self._stages
         sp_u, sp_v, sp_t, sp_q = self.velx_space, self.vely_space, self.temp_space, self.pseu_space
         temp, velx, vely, pres = state.temp, state.velx, state.vely, state.pres
@@ -267,9 +280,10 @@ class Navier2D(CampaignModelBase):
         vely_n = vely_n - st["projy"].apply(pseu_n)
         pres_n = pres - self.params["nu"] * div + sp_q.to_ortho(pseu_n) / self.dt
         temp_n = st["temp"].apply(temp, self._conv(ux, uy, sp_t, temp, with_bc=True))
-        return NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
+        state_n = NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
+        return (state_n, self._sentinels(ux, uy, div)) if with_sentinels else state_n
 
-    def _step_dense(self, state: NavierState) -> NavierState:
+    def _step_dense(self, state: NavierState, with_sentinels: bool = False):
         """The JAX package's default step: right-hand sides in ortho space,
         then the implicit solves through the solver objects."""
         sp_u, sp_v, sp_t = self.velx_space, self.vely_space, self.temp_space
@@ -302,7 +316,21 @@ class Navier2D(CampaignModelBase):
         rhs = temp_ortho + self._tempbc_diff
         rhs = rhs - dt * self._conv(ux, uy, sp_t, temp, with_bc=True)
         temp_n = self.solver_temp.solve(rhs)
-        return NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
+        state_n = NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
+        return (state_n, self._sentinels(ux, uy, div)) if with_sentinels else state_n
+
+    def _sentinels(self, ux, uy, div) -> tuple:
+        """The stability sentinels of one step, 0-d tensors, as the JAX
+        package's ``_make_step(with_sentinels=True)``: the pointwise
+        advective CFL ``dt * max(|ux|/dx + |uy|/dy)`` and the volume-averaged
+        kinetic energy ``0.5 <ux^2 + uy^2>`` of the consumed state's
+        physical convection velocities, and the norm of the uncorrected
+        divergence.  On a mesh the sums run across the ranks and the pad
+        adds nothing (zero weights and inverse spacings)."""
+        sp_f = self.field_space
+        cfl = self.dt * torch.max(torch.abs(ux) * self._inv_dx + torch.abs(uy) * self._inv_dy)
+        ke = 0.5 * sp_f.weighted_sum(ux**2 + uy**2, self._w_vol)
+        return cfl, ke, torch.sqrt(sp_f.weighted_sum(div, div))
 
     def _project(self, pseu: torch.Tensor, axis: int) -> torch.Tensor:
         """The pressure-projection correction of the velocity along

@@ -143,5 +143,5 @@ class PencilSpace2:
     def pin_zero_mode(self, vhat: torch.Tensor) -> torch.Tensor:
         """Zero the constant mode, which rank 0 of the x-pencil holds."""
         out = vhat.clone()
-        out[0, 0, 0] = 0.0
+        out[0, 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
         return out

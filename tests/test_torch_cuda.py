@@ -239,6 +239,16 @@ def test_fused_kernels_on_a_second_card(device):
                 assert _rel(fc.apply(*args), fc.plain(*args)) <= TOL[torch.float64], dev
 
 
+def _prepare_chunks(model):
+    """Build the model's chunk runner (on the card: warm every kernel
+    wrapper up, one eager step, and capture the step as a CUDA graph), then
+    zero its launch counters, so they count the chunk's replays only."""
+    model.chunk_runner()
+    for ks in model.kernels().values():
+        for k in ks:
+            k.launches = 0
+
+
 def test_step_on_card_matches_cpu(device):
     """Ten steps through the kernels agree with ten plain steps on the CPU
     (rel 1e-11 of each field's scale), with 3 conv and 7 stage launches a
@@ -246,6 +256,7 @@ def test_step_on_card_matches_cpu(device):
     states = {}
     for dev in (device, torch.device("cpu")):
         m = pt.Navier2D.new_confined(33, 33, 1e5, 1.0, 2e-3, 1.0, "rbc", device=dev)
+        _prepare_chunks(m)
         m.update_n(10)
         states[dev.type] = (pt.state_to_numpy(m), m)
     card = states["cuda"][1]
@@ -373,6 +384,7 @@ def test_dense_route_on_card_matches_cpu(device):
     for dev in (device, torch.device("cpu")):
         m = pt.Navier2D.new_confined(33, 33, 1e5, 1.0, 2e-3, 1.0, "rbc", device=dev,
                                      step_kernel="dense", conv_kernel="dense")
+        _prepare_chunks(m)
         m.update_n(10)
         states[dev.type] = (pt.state_to_numpy(m), m)
     card = states["cuda"][1]
@@ -485,7 +497,7 @@ def test_meshed_route_on_card_matches_cpu(device):
         m = pt.Navier2D.new_confined(33, 33, 1e5, 1.0, 2e-3, 1.0, "rbc", mesh=make_mesh(4, dev))
         # init_random's three forward transforms flip once each on the card
         assert m.mesh.ring.launches == (3 if dev.type == "cuda" else 0)
-        m.mesh.ring.launches = 0
+        _prepare_chunks(m)
         m.update_n(10)
         states[dev.type] = (pt.state_to_numpy(m), m)
     card = states["cuda"][1].kernels()
@@ -495,3 +507,108 @@ def test_meshed_route_on_card_matches_cpu(device):
     for name, ref in states["cpu"][0].items():
         scale = max(float(np.max(np.abs(ref))), 1e-300)
         assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name
+
+
+# -- chunked stepping: a CUDA graph of the step ---------------------------------------
+
+
+#: kernel launches a step of each route
+PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7},
+            "mesh": {"banded_solve": 7, "ring_transpose": 37}}
+ROUTES = sorted(PER_STEP)
+
+
+def _route_model(route, device, n=33):
+    if route == "mesh":
+        kw = dict(mesh=pt.make_mesh(4, device))
+    else:
+        kw = dict(device=device)
+        if route == "dense":
+            kw.update(step_kernel="dense", conv_kernel="dense")
+    return pt.Navier2D.new_confined(n, n, 1e5, 1.0, 2e-3, 1.0, "rbc", **kw)
+
+
+def _launches_by_kernel(model):
+    return {name: sum(k.launches for k in ks) for name, ks in model.kernels().items()}
+
+
+def _assert_bit_equal(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_chunk_graph_matches_eager_steps(device, route):
+    """``update_n(10)`` (buckets 8 and 2, each step one replay of the
+    captured step) equals ten eager ``update()`` calls bit for bit, and the
+    launch counters advance by the captured step's launches per replay."""
+    a, b = _route_model(route, device), _route_model(route, device)
+    runner = a.chunk_runner()
+    assert runner.captured and runner.pool_bytes >= 0
+    assert sum(runner.delta) == sum(PER_STEP[route].values())
+    _prepare_chunks(a)
+    a.update_n(10)
+    for _ in range(10):
+        b.update()
+    _assert_bit_equal(a.state, b.state)
+    assert _launches_by_kernel(a) == {k: 10 * v for k, v in PER_STEP[route].items()}
+    a.update_n(3)
+    assert _launches_by_kernel(a) == {k: 13 * v for k, v in PER_STEP[route].items()}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_chunk_graph_nan_freeze(device, route):
+    """With temp mode 0 NaN a chunk of 8 executes one step: the state it
+    returns is the eager step's, NaN where that one is and bit for bit
+    elsewhere."""
+    m = _route_model(route, device)
+    temp = m.state.temp.clone()
+    temp.view(-1)[0] = float("nan")
+    bad = m.state._replace(temp=temp)
+    stepped, done = m.step_n(bad, 8)
+    assert int(done) == 1
+    want = m._step(bad)
+    for name, x, y in zip(want._fields, stepped, want):
+        assert torch.equal(torch.isfinite(x), torch.isfinite(y)), name
+        assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)), name
+    m.state = bad
+    m.update_n(7)
+    assert m.exit()
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_chunk_graph_sentinels_bit_identical(device, route):
+    """The sentinel chunk's state is the plain chunk's bit for bit, and its
+    status agrees with the CPU's (rel 1e-10: reductions of states that
+    agree to 1e-11 of their scale)."""
+    from rustpde_mpi_tpu_torch.config import StabilityConfig
+
+    armed, plain = _route_model(route, device), _route_model(route, device)
+    cpu = _route_model(route, torch.device("cpu"))
+    for m in (armed, cpu):
+        m.set_stability(StabilityConfig())
+    status = armed.update_n(10)
+    plain.update_n(10)
+    _assert_bit_equal(armed.state, plain.state)
+    want = cpu.update_n(10)
+    assert (status.steps_done, status.finite, status.cfl_ok) == (10, True, True)
+    for key in ("cfl_max", "ke", "ke_growth_max", "div_max"):
+        assert getattr(status, key) == pytest.approx(getattr(want, key), rel=1e-10), key
+
+
+def test_chunk_capture_failure_raises(device):
+    """A step that syncs with the host cannot be captured: ``update_n``
+    raises, keeps no runner, and runs no step eagerly instead."""
+    m = _route_model("fused", device, n=17)
+    step = m._step
+
+    def syncing_step(state, with_sentinels=False):
+        out = step(state, with_sentinels)
+        float(torch.sum(out.temp))
+        return out
+
+    m._step = syncing_step
+    before = m.state
+    with pytest.raises(RuntimeError):
+        m.update_n(2)
+    assert not m._runners and m.state is before and m.time == 0.0
