@@ -15,7 +15,8 @@ default step on its solver objects) in phases 6-11:
    every stage instance and both convection variants at 129^2 and 1025^2
    in f64 (limit 1e-12 of max|plain|) and at 129^2 in f32 (limit 1e-4),
    and times the kernel, the plain version and the chain in the fewest
-   cuBLAS calls PyTorch offers (``library_ms``) at 1025^2 f64, with the
+   cuBLAS calls PyTorch offers (``library_ms``) at 1025^2 f64 (each
+   queued behind a GPU spin, and the kernel back to back too), with the
    kernel's achieved TFLOP/s and its share of the bound; a case over its
    limit runs the kernel and the plain version once more each and prints
    the three errors (which side moved) before it fails.  First it prints
@@ -97,10 +98,35 @@ sentinels armed against the plain chunk bit for bit, with the
 ``ChunkStatus``; and one CFL spike rolled back, ``integrate`` stopping
 with ``"break"``.
 
+Then the horizontally periodic cell (Fourier r2c x Chebyshev, complex
+state; the ``periodic1024`` configuration: 1024x1025, Ra=1e9, Pr=1,
+dt=1e-4, f64), on the fused route and then the dense one:
+
+15. holds the fused kernels (every stage, the L-less Poisson stage
+    included, and both conv variants, on complex inputs) and the banded
+    kernel (the ADI Chebyshev axis with one factor set and the Poisson
+    solve with one set per Fourier mode, complex right-hand sides as real
+    lanes) against their plain versions at the reference's periodic
+    example size, 128x129, in f64 (1e-12) and f32 (1e-4), and at
+    ``periodic1024`` f64, timed as phases 1 and 6 time them;
+16. steps the example size (Ra=1e5, dt=0.01) 10 steps on each route on the
+    card and on the CPU, and the fused route against the dense one on the
+    card (rel 1e-11 of each field's scale);
+18. drives ``periodic1024`` on each route as phase 4 does (exactly 3 conv
+    and 7 stage launches a step on the fused route, 4 banded launches on
+    the dense one), profiles it as phase 5 does, and holds the chunk gates
+    of phase 14 on it;
+17. last, the two transform methods of the Chebyshev axes: at ``rbc1025``
+    and ``periodic1024`` the velocity space's transforms under ``"fft"``
+    against ``"matmul"`` (1e-12), each timed, and each route of each cell
+    stepped with each method (bare ``update_n`` ms/step), which sets the
+    card's default.
+
 The profiles of the dense and meshed routes list each banded launch of
 one step, to set beside the launches timed alone.  The ``kernels`` line
-sums each kernel over one step of the route it was ported for, and the
-banded kernel over a meshed step too (``mesh_*``).
+sums each kernel over one step of the route it was ported for, and over a
+step of each other route that runs it (``mesh_*``, ``periodic_fused_*``,
+``periodic_dense_*``), with every kernel's periodic launches.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -126,23 +152,38 @@ F32_TFLOPS = 67.0
 HBM_TB_PER_S = 3.35
 
 RBC1025 = dict(nx=1025, ny=1025, ra=1e9, pr=1.0, dt=1e-4, aspect=1.0, bc="rbc")
+#: the periodic flagship (``bench.py:119,2227``): Fourier r2c x Chebyshev
+PERIODIC1024 = dict(nx=1024, ny=1025, ra=1e9, pr=1.0, dt=1e-4, aspect=1.0, bc="rbc",
+                    periodic=True)
+#: the reference's periodic example size (``examples/navier_rbc_periodic.py``)
+PERIODIC128 = dict(nx=128, ny=129, ra=1e5, pr=1.0, dt=0.01, aspect=1.0, bc="rbc", periodic=True)
 MAIN_STEPS = 50
+#: how far the fused route's pseudo-pressure may stray from the dense
+#: route's, relative to its scale, after 10 steps of ``PERIODIC128``: the
+#: JAX package's own two routes differ by 8.03e-11 there (fast
+#: diagonalisation against the banded solve of the Poisson problem)
+PSEU_ROUTES_LIMIT = 1e-10
 STAGE_TAGS = ("velx", "vely", "temp", "div", "poisson", "projx", "projy")
 DENSE = dict(step_kernel="dense", conv_kernel="dense")
 #: kernel launches a step of each route
 PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7},
-            "mesh": {"banded_solve": 7, "ring_transpose": 37}}
+            "mesh": {"banded_solve": 7, "ring_transpose": 37},
+            "periodic_fused": {"fused_conv": 3, "fused_stage": 7},
+            "periodic_dense": {"banded_solve": 4}}
 #: kernel launches of one save-window callback (the observables): the
 #: meshed route flips pencils there too
 PER_CALLBACK = {"mesh": {"ring_transpose": 10}}
 #: grid launches a step of each route's hand-written kernels, by a part of
 #: the kernel's name: what a profile that recorded every device event of a
 #: step holds (a fused conv chain is 3 generic-GEMM launches and 1 dual,
-#: the 7 fused stages 16 generic-GEMM launches); the profiler has been seen
-#: to drop some events of graph replays
+#: the 7 fused stages 16 generic-GEMM launches, 14 in the periodic cell,
+#: whose Poisson stage has no left and no B0 product); the profiler has been
+#: seen to drop some events of graph replays
 PROFILE_LAUNCHES = {"fused": {"gemm_jobs_kernel": 25, "conv_dual_kernel": 3},
                     "dense": {"banded_kernel": 7},
-                    "mesh": {"banded_kernel": 7, "ring_transpose_kernel": 37}}
+                    "mesh": {"banded_kernel": 7, "ring_transpose_kernel": 37},
+                    "periodic_fused": {"gemm_jobs_kernel": 23, "conv_dual_kernel": 3},
+                    "periodic_dense": {"banded_kernel": 4}}
 PROFILE_ATTEMPTS = 3
 #: ranks of the meshed route (all on the one card)
 MESH_RANKS = 4
@@ -264,7 +305,11 @@ def lane_rel_err(torch, a, b, axis) -> tuple[float, float]:
 
 
 def stage_library(torch, st, xs):
-    m = sum(torch.linalg.multi_dot([l, x, rt]) for l, x, rt in zip(st.ls, xs, st.rts))
+    xs = [st._stack(x) for x in xs]
+    if st.has_l:
+        m = sum(torch.linalg.multi_dot([l, x, rt]) for l, x, rt in zip(st.ls, xs, st.rts))
+    else:
+        m = xs[0] @ st.rts[0]
     if st.dinv is not None:
         m = m * st.dinv
     if st.b1t is not None:
@@ -273,19 +318,17 @@ def stage_library(torch, st, xs):
         m = m + st.const
     if st.mask is not None:
         m = m * st.mask
-    return m
+    return st._unstack(m)
 
 
 def conv_library(torch, fc, ux, uy, vhat, bcdx=None, bcdy=None):
     gx = torch.stack([fc.gx1, fc.gx0])
     gy = torch.stack([fc.gy0t, fc.gy1t])
-    d = torch.matmul(torch.matmul(gx, vhat), gy)
+    d = torch.matmul(torch.matmul(gx, fc._stack(vhat)), gy)
     if bcdx is not None:
         d = d + torch.stack([bcdx, bcdy])
     total = ux * d[0] + uy * d[1]
-    out = torch.zeros(fc.out_shape, device=fc.device, dtype=fc.dtype)
-    out[: fc.kx, : fc.ky] = torch.linalg.multi_dot([fc.fx, total, fc.fyt])
-    return out
+    return fc._unstack(torch.linalg.multi_dot([fc.fx, total, fc.fyt]))
 
 
 # -- phases -------------------------------------------------------------------
@@ -296,13 +339,14 @@ def kernel_cases(torch, model, rng):
     for every stage instance and both conv variants of ``model``, on random
     inputs made from ``rng``."""
 
-    def rand(shape):
-        return torch.as_tensor(rng.uniform(-1.0, 1.0, size=shape), dtype=model.dtype).to(model.device)
+    def rand(shape, cplx=False):
+        return random_field(torch, rng, shape, model.dtype, model.device, cplx)
 
+    cplx = model.periodic
     cases = []
     for tag in STAGE_TAGS:
         st = model._stages[tag]
-        xs = [rand((k0, k1)) for k0, k1 in zip(st.k0, st.k1)]
+        xs = [rand((k0 // 2 if cplx else k0, k1), cplx) for k0, k1 in zip(st.k0, st.k1)]
         cases.append(("fused_stage", tag, lambda st=st, xs=xs: st.apply(*xs),
                       lambda st=st, xs=xs: st.plain(*xs),
                       lambda st=st, xs=xs: stage_library(torch, st, xs),
@@ -311,7 +355,7 @@ def kernel_cases(torch, model, rng):
     fc_t = model._convs[id(model.temp_space)]
     n = (model.nx, model.ny)
     for label, fc, with_bc in (("conv", fc_u, False), ("conv_bc", fc_t, True)):
-        args = [rand(n), rand(n), rand((fc.mx, fc.my))]
+        args = [rand(n), rand(n), rand((fc.mx // 2 if cplx else fc.mx, fc.my), cplx)]
         if with_bc:
             args += [rand(n), rand(n)]
         cases.append(("fused_conv", label, lambda fc=fc, a=args: fc.apply(*a),
@@ -323,6 +367,22 @@ def kernel_cases(torch, model, rng):
 
 #: launches of each fused case in one step of the fused route
 CASE_PER_STEP = {"conv": 2, "conv_bc": 1}
+
+
+def random_field(torch, rng, shape, dtype, device, cplx=False):
+    """Uniform values in [-1, 1) of ``shape`` on ``device`` (complex, of
+    the complex counterpart of ``dtype``, when ``cplx``)."""
+    a = rng.uniform(-1.0, 1.0, size=shape)
+    if cplx:
+        a = a + 1j * rng.uniform(-1.0, 1.0, size=shape)
+        dtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    return torch.as_tensor(a, dtype=dtype).to(device)
+
+
+def label_of(model) -> str:
+    """The configuration a model was built at (the timed cells are
+    ``rbc1025`` and ``periodic1024``)."""
+    return f"{'periodic' if model.periodic else 'rbc'}{model.nx}"
 
 
 def tile_config() -> dict:
@@ -384,11 +444,13 @@ def conv_launches(torch, fc, args, reps=10):
          "cublas_ms": cublas_ms, "grid_blocks": blocks}))
 
 
-def phase_kernels(torch, model, limit, timing):
-    """Phase 1 at one model size/dtype; returns per-case records."""
+def phase_kernels(torch, model, limit, timing, phase="phase1"):
+    """Phase 1 (phase 15 for the periodic cell) at one model size/dtype;
+    returns per-case records."""
     import numpy as np
 
     rng = np.random.default_rng(1)
+    route = "periodic_fused" if model.periodic else "fused"
     records = []
     f64 = model.dtype == torch.float64
     peak = (F64_TFLOPS if f64 else F32_TFLOPS) * 1e12
@@ -397,26 +459,32 @@ def phase_kernels(torch, model, limit, timing):
         torch.cuda.synchronize()
         out_p = run_p()
         diff, rel = rel_err(torch, out_k, out_p)
-        rec = {"kernel": kernel, "route": "fused", "case": label, "n": model.nx,
+        rec = {"kernel": kernel, "route": route, "case": label, "n": model.nx,
                "per_step": CASE_PER_STEP.get(label, 1),
                "dtype": str(model.dtype).replace("torch.", ""),
                "max_abs_err": diff, "max_rel_err": rel}
         if timing:
             t_op = flops / peak * 1e3
             t_mem = nbytes / (HBM_TB_PER_S * 1e12) * 1e3
-            rec.update(kernel_ms=time_ms(torch, run_k, 10), plain_ms=time_ms(torch, run_p, 10),
-                       library_ms=time_ms(torch, run_l, 10), flops=flops, bytes=nbytes,
+            # queued behind a GPU spin, so that the wrappers' host time (the
+            # periodic cell's stacking copies add a dozen ops a launch) stays
+            # out; back to back as well (kernel_loop_ms)
+            queued, host = time_queued_ms(torch, run_k, 10)
+            rec.update(kernel_ms=queued, kernel_enqueue_ms=host,
+                       kernel_loop_ms=time_ms(torch, run_k, 10),
+                       plain_ms=time_queued_ms(torch, run_p, 10)[0],
+                       library_ms=time_queued_ms(torch, run_l, 10)[0], flops=flops, bytes=nbytes,
                        bound_ms=max(t_op, t_mem),
                        bound_by="operations" if t_op >= t_mem else "bytes")
             rec.update(tflops=flops / rec["kernel_ms"] * 1e-9,
                        library_tflops=flops / rec["library_ms"] * 1e-9,
                        bound_share=rec["bound_ms"] / rec["kernel_ms"])
-        print("phase1 " + json.dumps(rec))
+        print(f"{phase} " + json.dumps(rec))
         if not rel <= limit:
             again_k = run_k()
             torch.cuda.synchronize()
             again_p = run_p()
-            print("phase1 FAILED " + json.dumps({
+            print(f"{phase} FAILED " + json.dumps({
                 "kernel": kernel, "case": label, "n": model.nx,
                 "kernel_vs_plain": rel,
                 "kernel_again_vs_plain": rel_err(torch, again_k, out_p)[1],
@@ -425,7 +493,7 @@ def phase_kernels(torch, model, limit, timing):
                 "plain_repeat_bit_equal": bool(torch.equal(out_p, again_p))}))
             raise AssertionError(f"{kernel}/{label} at {model.nx}^2: rel err {rel:.3e} > {limit:g}")
         records.append(rec)
-    if timing:
+    if timing and not model.periodic:
         n = (model.nx, model.ny)
         fc = model._convs[id(model.velx_space)]
         conv_launches(torch, fc, [torch.as_tensor(rng.uniform(-1.0, 1.0, size=s), dtype=model.dtype)
@@ -485,7 +553,9 @@ def count_launches(model) -> dict:
 
 
 def route_of(model) -> str:
-    return "mesh" if model.mesh is not None else model.step_kernel
+    if model.mesh is not None:
+        return "mesh"
+    return ("periodic_" if model.periodic else "") + model.step_kernel
 
 
 def phase_main(torch, pt, model, phase="phase4"):
@@ -517,14 +587,14 @@ def phase_main(torch, pt, model, phase="phase4"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     nu, nuvol, re, div = model.get_observables()
-    print(f"{phase} rbc1025 f64 {route_of(model)} route: update_n {MAIN_STEPS} steps in {wall:.4f} s = "
+    print(f"{phase} {label_of(model)} f64 {route_of(model)} route: update_n {MAIN_STEPS} steps in {wall:.4f} s = "
           f"{wall / MAIN_STEPS * 1e3:.4f} ms/step; integrate {MAIN_STEPS} steps with 2 "
           f"save-window callbacks in {wall_integrate:.4f} s = "
           f"{wall_integrate / MAIN_STEPS * 1e3:.4f} ms/step; launches in integrate "
           f"{launches}; at t={model.time:.4f}: Nu={nu!r} Nuvol={nuvol!r} "
           f"Re={re!r} |div|={div!r}")
     if not all(math.isfinite(v) for v in (nu, nuvol, re, div)) or not nu > 0.0:
-        raise AssertionError("rbc1025 observables not finite or Nu <= 0")
+        raise AssertionError(f"{label_of(model)} observables not finite or Nu <= 0")
     return launches, wall / MAIN_STEPS * 1e3
 
 
@@ -548,12 +618,18 @@ def prepare_chunks(torch, model, phase):
     for name, d in zip(names, runner.delta):
         per_replay[name] = per_replay.get(name, 0) + d
     route = route_of(model)
-    print(f"{phase} chunk graph rbc1025 f64 {route} route: warm-up and capture {wall:.3f} s; "
+    # the cuFFT plans a captured step uses come from its warm-up; a cache
+    # short of its maximum has evicted none of them
+    plans = torch.backends.cuda.cufft_plan_cache
+    print(f"{phase} chunk graph {label_of(model)} f64 {route} route: warm-up and capture {wall:.3f} s; "
           f"graph pool {runner.pool_bytes / 2**20:.1f} MiB; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held "
-          f"before); launches a replay {per_replay}")
+          f"before); launches a replay {per_replay}; cuFFT plan cache {plans.size} of "
+          f"{plans.max_size}")
     if per_replay != PER_STEP[route]:
         raise AssertionError(f"a replay launches {per_replay}, a step {PER_STEP[route]}")
+    if plans.size >= plans.max_size:
+        raise AssertionError("the cuFFT plan cache is full: a captured plan may be evicted")
 
 
 def freeze_ms(torch, model, reps=50) -> float:
@@ -631,13 +707,13 @@ def phase_profile(torch, model, bare_ms, steps=5, phase="phase5"):
     busy += cur_e - cur_s
     total = sum(t for t, _ in by_name.values())
     selects = sum(t for name, (t, _) in by_name.items() if "where" in name)
-    print(f"{phase} profile rbc1025 f64 {route} route {steps} steps: wall {wall_us / steps / 1e3:.4f} ms/step, "
+    print(f"{phase} profile {label_of(model)} f64 {route} route {steps} steps: wall {wall_us / steps / 1e3:.4f} ms/step, "
           f"device busy {busy / steps / 1e3:.4f} ms/step ({busy / wall_us:.4f} of wall, "
           f"host idle share {1.0 - busy / wall_us:.4f}), "
           f"kernel time {total / steps / 1e3:.4f} ms/step; host idle share of the bare "
           f"update_n ({bare_ms:.4f} ms/step) {1.0 - busy / steps / 1e3 / bare_ms:.4f}")
     freeze = freeze_ms(torch, model)
-    print(f"{phase} freeze rbc1025 f64 {route} route: {freeze:.4f} ms/step as a graph "
+    print(f"{phase} freeze {label_of(model)} f64 {route} route: {freeze:.4f} ms/step as a graph "
           f"of its own ({freeze / (busy / steps / 1e3):.4f} of the step's busy time); select "
           f"kernels in the profile {selects / steps / 1e3:.4f} ms/step")
     for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -802,12 +878,15 @@ def banded_cases(torch, pt, model, rng, timing):
     factor set) or the batch of every lane's inverse (per-lane factors)."""
 
     def rand(shape):
-        return torch.as_tensor(rng.uniform(-1.0, 1.0, size=shape), dtype=model.dtype).to(model.device)
+        return random_field(torch, rng, shape, model.dtype, model.device, model.periodic)
 
     cases = []
+    # a Fourier axis solves by a diagonal, with no kernel; the off-step
+    # axis-0 Poisson case is a confined one
+    axes = (1,) if model.periodic else (1, 0)
     for tag, adi, per_step in (("velx", model.solver_velx, 2), ("temp", model.solver_temp, 1)):
         dense = pt.solver.HholtzAdi(adi.space, adi.c, method="dense") if timing else None
-        for axis in (1, 0):
+        for axis in axes:
             b = rand(adi.space.shape_spectral)
             lib = None if dense is None else (
                 lambda d=dense.solvers[axis], b=b, axis=axis: d.solve(b, axis))
@@ -815,13 +894,22 @@ def banded_cases(torch, pt, model, rng, timing):
     banded = model.solver_pres._solver.banded
     b = rand(model.pseu_space.shape_spectral)
     inv = banded_inverses(torch, banded.kernel) if timing else None
-    for label, rhs, axis, per_step in (("poisson_axis1", b, 1, 1),
-                                       ("poisson_axis0", b.T.contiguous(), 0, 0)):
+    poisson = [("poisson_axis1", b, 1, 1)]
+    if not model.periodic:
+        poisson.append(("poisson_axis0", b.T.contiguous(), 0, 0))
+    for label, rhs, axis, per_step in poisson:
         lib = None if inv is None else (
-            lambda rhs=rhs, axis=axis: torch.matmul(inv, rhs.movedim(axis, -1)[..., None])[..., 0]
-            .movedim(-1, axis))
+            lambda rhs=rhs, axis=axis: lane_matmul(torch, inv, rhs.movedim(axis, -1)).movedim(-1, axis))
         cases.append((label, banded, rhs, axis, per_step, lib))
     return cases
+
+
+def lane_matmul(torch, inv, rhs):
+    """``inv[l] @ rhs[l]`` for every lane ``l`` of ``rhs`` ``(lanes, n)``
+    (real or complex; real ``inv`` ``(lanes, n, n)``), one ``torch.matmul``."""
+    if rhs.is_complex():
+        return torch.view_as_complex(torch.matmul(inv, torch.view_as_real(rhs)).contiguous())
+    return torch.matmul(inv, rhs[..., None])[..., 0]
 
 
 def banded_layout(solver, b, axis) -> dict:
@@ -835,28 +923,31 @@ def banded_layout(solver, b, axis) -> dict:
     kernel = solver.kernel
     views = []
     solver._along(lambda v: views.append(v) or v, b, axis)
-    view = views[0]
+    view = views[0]  # real: a complex b's real and imaginary parts are its batch entries
     terms = max(kernel.chain_lower.shape[0], kernel.chain_upper.shape[0])
     rows_contiguous = view.stride(1) == 1 and view.stride(2) != 1
-    return {"path": kernel.path, "tile_lanes": kernel.tile_lanes,
-            "copy_bytes": 16 if bsm.vector_copies(view, kernel.tile_lanes) else b.element_size(),
-            "shared_bytes": bsm.shared_bytes(kernel.n, b.element_size(), kernel.systems,
+    return {"path": kernel.path, "tile_lanes": kernel.tile_lanes, "view_strides": view.stride(),
+            "copy_bytes": 16 if bsm.vector_copies(view, kernel.tile_lanes) else view.element_size(),
+            "shared_bytes": bsm.shared_bytes(kernel.n, view.element_size(), kernel.systems,
                                              kernel.tile_lanes, kernel.per_lane, terms,
                                              rows_contiguous)}
 
 
-def phase_banded(torch, pt, model, limit, timing):
-    """Phase 6 at one model size/dtype; returns per-case records."""
+def phase_banded(torch, pt, model, limit, timing, phase="phase6"):
+    """Phase 6 (phase 15 for the periodic cell: complex right-hand sides,
+    their real and imaginary parts two batch entries of one launch) at one
+    model size/dtype; returns per-case records."""
     import numpy as np
 
     rng = np.random.default_rng(2)
     peak = (F64_TFLOPS if model.dtype == torch.float64 else F32_TFLOPS) * 1e12
+    route = "periodic_dense" if model.periodic else "dense"
     records = []
     for label, solver, b, axis, per_step, lib in banded_cases(torch, pt, model, rng, timing):
         out_k = solver.solve(b, axis)
         torch.cuda.synchronize()
         diff, rel = lane_rel_err(torch, out_k, solver.plain(b, axis), axis)
-        rec = {"kernel": "banded_solve", "route": "dense", "case": label, "n": model.nx,
+        rec = {"kernel": "banded_solve", "route": route, "case": label, "n": model.nx,
                "per_step": per_step,
                "per_lane": solver.kernel.per_lane,
                "dtype": str(model.dtype).replace("torch.", ""),
@@ -866,7 +957,7 @@ def phase_banded(torch, pt, model, limit, timing):
         rec.update(banded_layout(solver, b, axis))
         if timing:
             n = b.shape[axis]
-            shape3 = (1, n, b.numel() // n)
+            shape3 = (2 if b.is_complex() else 1, n, b.numel() // n)
             flops, nbytes = solver.kernel.flops(shape3), solver.kernel.bytes_moved(shape3)
             t_op = flops / peak * 1e3
             t_mem = nbytes / (HBM_TB_PER_S * 1e12) * 1e3
@@ -877,7 +968,7 @@ def phase_banded(torch, pt, model, limit, timing):
                        library_ms=None if lib is None else time_queued_ms(torch, lib, 10)[0],
                        flops=flops, bytes=nbytes, bound_ms=max(t_op, t_mem),
                        bound_by="operations" if t_op >= t_mem else "bytes")
-        print("phase6 " + json.dumps(rec))
+        print(f"{phase} " + json.dumps(rec))
         if rec["path"] != "parity":
             raise AssertionError(f"banded_solve/{label}: the step's system took the {rec['path']} path")
         if not rel <= limit:
@@ -1216,6 +1307,113 @@ def phase_meshed_vs_serial(pt):
           f"max rel diff {worst:.3e} (limit 1e-11)")
 
 
+# -- the periodic cell -----------------------------------------------------------------
+
+
+def phase_periodic_small(pt):
+    """Phase 16: the periodic cell at the reference's example size
+    (``PERIODIC128``, 10 steps): each route on the card against the same
+    route on the CPU (plain versions, FFT transforms), to 1e-11 of each
+    field's scale; and the fused route against the dense one on the card,
+    to 1e-11 for ``temp``, ``velx``, ``vely`` and ``pres``.  The
+    pseudo-pressure is held apart there, to ``PSEU_ROUTES_LIMIT``: the two
+    routes solve its Poisson problem by other algorithms (fast
+    diagonalisation against the banded tensor solver), whose roundings
+    differ by 8.03e-11 of its scale in the JAX package's own two routes at
+    this size (and by the same on the CPU here, printed beside it)."""
+    states = {}
+    for route in ("fused", "dense"):
+        for dev in ("cuda", "cpu"):
+            m = pt.Navier2D(**PERIODIC128, device=dev, step_kernel=route, conv_kernel=route)
+            m.init_random(0.1, seed=0)
+            m.update_n(10)
+            states[(route, dev)] = pt.convert.state_to_numpy(m)
+            obs = m.get_observables()
+            if not all(math.isfinite(v) for v in obs):
+                raise AssertionError(f"periodic128 {route} on {dev}: observables {obs}")
+
+    def rel(a, b, name):
+        ref = states[b][name]
+        return float(abs(states[a][name] - ref).max() / max(abs(ref).max(), 1e-300))
+
+    for label, a, b in (("fused route, card vs cpu", ("fused", "cuda"), ("fused", "cpu")),
+                        ("dense route, card vs cpu", ("dense", "cuda"), ("dense", "cpu")),
+                        ("fused vs dense on the card", ("fused", "cuda"), ("dense", "cuda"))):
+        diffs = {name: rel(a, b, name) for name in states[b]}
+        apart = {"pseu"} if a[0] != b[0] else set()
+        worst = max(v for k, v in diffs.items() if k not in apart)
+        line = f"max rel diff {worst:.3e} (limit 1e-11)"
+        if apart:
+            cpu = rel(("fused", "cpu"), ("dense", "cpu"), "pseu")
+            line += (f"; pseu {diffs['pseu']:.3e} (limit {PSEU_ROUTES_LIMIT:g}; the same routes "
+                     f"on the CPU {cpu:.3e})")
+        print(f"phase16 periodic128 f64 (Ra=1e5, dt=0.01) 10 steps, {label}: {line}")
+        if not worst <= 1e-11 or (apart and not diffs["pseu"] <= PSEU_ROUTES_LIMIT):
+            raise AssertionError(f"periodic128 {label}: {diffs}")
+
+
+def transform_cases(pt, torch, cfg):
+    """``{method: Space2}`` of the velocity space of ``cfg``'s cell on the
+    card, one for each Chebyshev transform method."""
+    bx = (pt.bases.fourier_r2c if cfg.get("periodic") else pt.bases.cheb_dirichlet)(cfg["nx"])
+    by = pt.bases.cheb_dirichlet(cfg["ny"])
+    return {m: pt.Space2(bx, by, device="cuda", dtype=torch.float64, method=m)
+            for m in ("matmul", "fft")}
+
+
+def phase_methods(torch, pt):
+    """Phase 17: the two transform methods of the Chebyshev axes on the
+    card.  At ``rbc1025`` and ``periodic1024`` the velocity space's
+    forward, backward, ``to_ortho`` and both derivative syntheses under
+    ``"fft"`` against ``"matmul"`` (1e-12 of the result's scale), each
+    timed (10 reps); then, on each route of each cell, a model built with
+    each method, ``MAIN_STEPS`` bare ``update_n`` steps timed (ms/step),
+    matmul then fft.  Returns ``{cell route: {method: ms}}``; the faster
+    method is the card's default (``bases.CARD_METHOD``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    out = {}
+    for name, cfg in (("rbc1025", RBC1025), ("periodic1024", PERIODIC1024)):
+        spaces = transform_cases(pt, torch, cfg)
+        v = torch.as_tensor(rng.uniform(-1.0, 1.0, spaces["fft"].shape_physical)).to("cuda")
+        vhat = spaces["matmul"].forward(v)
+        ops = {"forward": (lambda sp: sp.forward(v)), "backward": (lambda sp: sp.backward(vhat)),
+               "to_ortho": (lambda sp: sp.to_ortho(vhat)),
+               "backward_gradient_x": (lambda sp: sp.backward_gradient(vhat, (1, 0))),
+               "backward_gradient_y": (lambda sp: sp.backward_gradient(vhat, (0, 1)))}
+        rec = {}
+        for op, fn in ops.items():
+            got = {m: fn(sp) for m, sp in spaces.items()}
+            _, rel = rel_err(torch, got["fft"], got["matmul"])
+            rec[op] = {"fft_vs_matmul_rel": rel, **{f"{m}_ms": time_ms(torch, lambda sp=sp: fn(sp), 10)
+                                                  for m, sp in spaces.items()}}
+            if not rel <= 1e-12:
+                raise AssertionError(f"{name} {op}: fft vs matmul rel {rel:.3e} > 1e-12")
+        print(f"phase17 transforms {name} f64 velocity space, fft vs matmul: " + json.dumps(rec))
+        for route in ("fused", "dense"):
+            times = {}
+            for method in ("matmul", "fft"):
+                model = pt.Navier2D(**cfg, device="cuda", step_kernel=route, conv_kernel=route,
+                                    method=method)
+                model.init_random(0.1, seed=0)
+                model.chunk_runner()
+                model.update_n(2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.update_n(MAIN_STEPS)
+                torch.cuda.synchronize()
+                times[method] = (time.perf_counter() - t0) / MAIN_STEPS * 1e3
+                del model
+                torch.cuda.empty_cache()
+            out[f"{name} {route}"] = times
+            print(f"phase17 {name} f64 {route} route, bare update_n {MAIN_STEPS} steps: "
+                  f"matmul {times['matmul']:.4f} ms/step, fft {times['fft']:.4f} ms/step "
+                  f"(faster: {min(times, key=times.get)}; the card's default "
+                  f"{pt.bases.CARD_METHOD})")
+    return out
+
+
 # -- the kernels line --------------------------------------------------------------
 
 
@@ -1277,6 +1475,8 @@ def kernels_line(records, launches, solver_times):
             sums = route_sums([r for r in rows if r["route"] == route])
             entry.update({f"{route}_{k}": v for k, v in sums.items() if k != "bound_by"})
             entry[f"{route}_launches"] = launches[route][kernel]
+        for route in ("periodic_fused", "periodic_dense"):
+            entry.setdefault(f"{route}_launches", launches[route].get(kernel, 0))
         if kernel == "banded_solve":
             entry.update(solver_times)
         out.append(entry)
@@ -1365,6 +1565,37 @@ def main() -> int:
     launches["mesh"], bare_ms["mesh"] = phase_main(torch, pt, mesh_model, "phase13")
     phase_profile(torch, mesh_model, bare_ms["mesh"], phase="phase13")
     phase_chunks(torch, pt, mesh_model)
+    del mesh_model, mesh
+
+    # the periodic cell, fused route then dense route
+    for route in ("fused", "dense"):
+        t0 = time.perf_counter()
+        model = pt.Navier2D(**PERIODIC1024, device="cuda", step_kernel=route, conv_kernel=route)
+        model.init_random(0.1, seed=0)
+        print(f"periodic1024 {route}-route model build: {time.perf_counter() - t0:.2f} s; "
+              f"Chebyshev transform method {model.method!r}")
+        for dt in (torch.float64, torch.float32):
+            small = pt.Navier2D(**PERIODIC128, device="cuda", dtype=dt, step_kernel=route,
+                                conv_kernel=route)
+            limit = 1e-12 if dt == torch.float64 else 1e-4
+            if route == "fused":
+                phase_kernels(torch, small, limit, False, "phase15")
+            else:
+                phase_banded(torch, pt, small, limit, False, "phase15")
+        if route == "fused":
+            records += phase_kernels(torch, model, 1e-12, True, "phase15")
+        else:
+            records += phase_banded(torch, pt, model, 1e-12, True, "phase15")
+        print(f"phase15 {route} ok")
+        if route == "fused":
+            phase_periodic_small(pt)
+        key = f"periodic_{route}"
+        launches[key], bare_ms[key] = phase_main(torch, pt, model, "phase18")
+        phase_profile(torch, model, bare_ms[key], phase="phase18")
+        phase_chunks(torch, pt, model)
+        del model
+        torch.cuda.empty_cache()
+    phase_methods(torch, pt)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

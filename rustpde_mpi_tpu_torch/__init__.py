@@ -1,8 +1,9 @@
 """rustpde_mpi_tpu_torch — the PyTorch/CUDA port of rustpde_mpi_tpu.
 
 A second package beside the JAX one, held against it by the tests.  It
-ports the confined Rayleigh-Benard DNS step of ``Navier2D`` on both of the
-JAX package's routes: the fused route (the convection chain and the
+ports the Rayleigh-Benard DNS step of ``Navier2D``, in the confined cell
+(Chebyshev x Chebyshev) and the horizontally periodic one (Fourier r2c x
+Chebyshev, ``periodic=True``), on both of the JAX package's routes: the fused route (the convection chain and the
 implicit stages as kernels) and the default, dense route on the solver
 objects (``HholtzAdi``, ``Poisson``, ``Hholtz``), whose banded
 substitutions run as a kernel.  The kernels are hand-written CUDA for
@@ -20,10 +21,12 @@ Entry points run on the CUDA card unless the caller passes
                                   step_kernel="dense", conv_kernel="dense")
     meshed = Navier2D.new_confined(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc",
                                    mesh=make_mesh(4))
+    periodic = Navier2D.new_periodic(128, 129, 1e5, 1.0, 1e-2, 1.0, "rbc")
 
 The meshed model runs the dense route on fields split over 4 ranks of one
 card (:mod:`.parallel`), every pencil flip through a hand-written CUDA
-transpose kernel.
+transpose kernel.  Fourier axes transform on ``torch.fft``; Chebyshev axes
+by dense products or by FFT (``method="matmul"|"fft"``).
 
 ``update_n`` steps in the JAX package's chunks: a chunk freezes at the
 first step whose state is not finite, and with ``set_stability(
@@ -34,7 +37,8 @@ card every step of a chunk replays one captured CUDA graph.
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
 from .config import StabilityConfig  # noqa: F401
-from .bases import Base, BaseKind, Space2, cheb_dirichlet, cheb_neumann, chebyshev  # noqa: F401
+from .bases import (Base, BaseKind, Space2, cheb_dirichlet, cheb_neumann, chebyshev,  # noqa: F401
+                    fourier_c2c, fourier_r2c)
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
 from .models.navier import Navier2D, NavierState  # noqa: F401
 from .parallel import Decomp2d, Mesh, make_mesh  # noqa: F401

@@ -1,18 +1,28 @@
-"""Spectral bases and 2-D tensor-product spaces (Chebyshev family).
+"""Spectral bases and 2-D tensor-product spaces.
 
 Counterpart of the JAX package's ``bases.py``.  A :class:`Base` is a host
 factory of numpy f64 operator matrices; a :class:`Space2` holds two bases
-plus a device and a dtype, and applies every transform as a pair of dense
-matrix products ``M_x @ v @ M_y^T`` on tensors of that device and dtype.
+plus a device, a dtype and a transform method, and runs every transform
+axis by axis on tensors of that device.
 
-Spectral arrays are stored in natural index order (the JAX package's
-CPU layout, ``Space2.sep == (False, False)``).  The parity-separated TPU
-layout and the folded GEMM classes are TPU GEMM-shape devices and have no
-counterpart here; :mod:`rustpde_mpi_tpu_torch.convert` reads a state
-stored in that layout.
+Bases: the Chebyshev family of the confined cell (``chebyshev``,
+``cheb_dirichlet``, ``cheb_neumann``) and the Fourier bases of the
+horizontally periodic cell (``fourier_r2c``, complex half spectrum of a
+real field, and ``fourier_c2c``).  A Fourier axis always runs on
+``torch.fft`` (cuFFT on the card); its derivative is a diagonal.  A
+Chebyshev axis runs by ``method``: ``"matmul"``, one dense product per
+axis, or ``"fft"``, the DCT-I through the rfft of the even extension (the
+composite bases' stencil and projection stay products), as the JAX
+package's ``Space2(method=...)`` does.
 
-Only the confined (Chebyshev x Chebyshev) bases of the Rayleigh-Benard
-step are ported: ``chebyshev``, ``cheb_dirichlet`` and ``cheb_neumann``.
+Spectral arrays are stored in natural index order (the JAX package's CPU
+layout, ``Space2.sep == (False, False)``); a space with a Fourier axis has
+a complex spectral dtype.  The parity-separated TPU layout, the split
+Re/Im Fourier base as a model layout and the folded GEMM classes are TPU
+devices with no counterpart here; the split form survives as
+``Base.axis_operator``'s matrices of a Fourier axis (what the fused
+kernels take), and :func:`to_complex`/:func:`from_complex` read a state
+stored in it (:mod:`rustpde_mpi_tpu_torch.convert`).
 """
 
 from __future__ import annotations
@@ -26,13 +36,33 @@ import torch
 
 from . import config
 from .ops import chebyshev as chb
+from .ops import fourier as fou
+from .ops import transforms as tr
 from .ops.folded import AxisOperator, dense_operator, kept_storage_rows
+
+#: the Chebyshev transform method of a space on the CPU (the JAX package's
+#: off-TPU choice) and on a CUDA card (the faster of the two on the H100 at
+#: ``rbc1025`` and ``periodic1024``, PERF.md §6)
+CPU_METHOD = "fft"
+CARD_METHOD = "matmul"
+METHODS = ("fft", "matmul")
+#: the Chebyshev derivative runs the O(n) recurrence
+#: (:func:`.ops.transforms.cheb_derivative`) from this size on, in float32
+#: only (the JAX package's ``_fast_deriv_enabled``: its cumulative sums lose
+#: to the product in f64 and below this size)
+FAST_DERIV_MIN = 2048
 
 
 class BaseKind(enum.Enum):
     CHEBYSHEV = "chebyshev"
     CHEB_DIRICHLET = "cheb_dirichlet"
     CHEB_NEUMANN = "cheb_neumann"
+    FOURIER_R2C = "fourier_r2c"
+    FOURIER_C2C = "fourier_c2c"
+
+    @property
+    def is_periodic(self) -> bool:
+        return self in (BaseKind.FOURIER_R2C, BaseKind.FOURIER_C2C)
 
 
 _STENCILS = {
@@ -43,67 +73,108 @@ _STENCILS = {
 
 
 class Base:
-    """One Chebyshev-family base along one axis.
+    """One spectral base along one axis.
 
     ``n``: physical grid size; ``m``: number of spectral modes (n for the
-    orthogonal base, n-2 for the composite Galerkin bases)."""
+    orthogonal Chebyshev base and c2c, n-2 for the composite Galerkin
+    bases, n//2+1 for r2c)."""
 
     def __init__(self, kind: BaseKind, n: int):
         self.kind = kind
         self.n = n
-        self.m = n if kind == BaseKind.CHEBYSHEV else n - 2
+        if kind in (BaseKind.CHEBYSHEV, BaseKind.FOURIER_C2C):
+            self.m = n
+        elif kind == BaseKind.FOURIER_R2C:
+            self.m = n // 2 + 1
+        else:
+            self.m = n - 2
         self._diff_cache: dict = {}
         self._grad_cache: dict = {}
 
     def __repr__(self):
         return f"Base({self.kind.value}, n={self.n})"
 
+    @property
+    def is_periodic(self) -> bool:
+        """A Fourier base, whose spectral coefficients are complex."""
+        return self.kind.is_periodic
+
     @cached_property
     def points(self) -> np.ndarray:
+        if self.is_periodic:
+            return fou.fourier_points(self.n)
         return chb.cgl_points(self.n)
+
+    @cached_property
+    def wavenumbers(self) -> np.ndarray:
+        if self.kind == BaseKind.FOURIER_R2C:
+            return fou.wavenumbers_r2c(self.n)
+        if self.kind == BaseKind.FOURIER_C2C:
+            return fou.wavenumbers_c2c(self.n)
+        raise ValueError("wavenumbers only defined for Fourier bases")
 
     # -- host operator matrices ---------------------------------------------
 
     @cached_property
     def stencil(self) -> np.ndarray:
-        """S, (n x m): composite coefficients -> orthogonal coefficients."""
+        """S, (n x m): composite coefficients -> orthogonal coefficients
+        (the identity for Fourier bases)."""
+        if self.is_periodic:
+            return np.eye(self.m)
         return _STENCILS[self.kind](self.n)
 
     @cached_property
     def projection(self) -> np.ndarray:
         """P, (m x n): weighted Galerkin projection ortho -> composite."""
+        if self.is_periodic:
+            return np.eye(self.m)
         return chb.projection_matrix(self.stencil)
 
     def diff_ortho(self, order: int) -> np.ndarray:
-        """Dense (n x n) derivative operator in orthogonal coefficient space."""
+        """The derivative in orthogonal coefficient space: dense (n x n) for
+        Chebyshev, the diagonal (1-D, complex) ``(ik)^order`` for Fourier."""
         if order not in self._diff_cache:
-            self._diff_cache[order] = chb.diff_matrix(self.n, order)
+            if self.is_periodic:
+                self._diff_cache[order] = fou.diff_diag(
+                    self.wavenumbers, order, self.n, self.kind == BaseKind.FOURIER_R2C)
+            else:
+                self._diff_cache[order] = chb.diff_matrix(self.n, order)
         return self._diff_cache[order]
 
     def gradient_matrix(self, order: int) -> np.ndarray:
-        """D^order @ S: composite coefficients -> ortho derivative coeffs."""
+        """D^order @ S: composite coefficients -> ortho derivative coeffs
+        (1-D diagonal for Fourier bases)."""
         if order not in self._grad_cache:
-            self._grad_cache[order] = self.diff_ortho(order) @ self.stencil
+            d = self.diff_ortho(order)
+            self._grad_cache[order] = d if self.is_periodic else d @ self.stencil
         return self._grad_cache[order]
 
     def mass(self) -> np.ndarray:
-        """The stencil S."""
+        """The stencil S (the identity for the orthogonal and Fourier bases)."""
         return self.stencil
 
     def laplace(self) -> np.ndarray:
-        """D2 in ortho coefficient space."""
+        """D2 in ortho coefficient space (dense for Chebyshev, ``diag(-k^2)``
+        for Fourier)."""
+        if self.is_periodic:
+            return np.diag(-(self.wavenumbers**2))
         return self.diff_ortho(2)
 
     def laplace_inv(self) -> np.ndarray:
         """Chebyshev quasi-inverse B2 of D2 (rows 0,1 zero)."""
+        if self.is_periodic:
+            raise ValueError("laplace_inv only defined for Chebyshev bases")
         return chb.quasi_inverse_b2(self.n)
 
     def laplace_inv_eye(self) -> np.ndarray:
         """(n-2) x n restriction selecting rows 2.. (B2 @ D2 restricted = I)."""
+        if self.is_periodic:
+            raise ValueError("laplace_inv_eye only defined for Chebyshev bases")
         return chb.restricted_eye(self.n)
 
     def dealias_cut(self) -> np.ndarray:
-        """1-D 2/3-rule mask over this base's spectral rows."""
+        """1-D 2/3-rule mask over this base's spectral rows (for r2c, per
+        complex mode)."""
         cut = np.ones(self.m)
         cut[self.m * 2 // 3 :] = 0.0
         return cut
@@ -113,7 +184,14 @@ class Base:
         ``key``: ``"fwd" | "fwd_cut" | "bwd" | "synthesis" | "stencil" |
         "proj" | ("bwd_grad", order) | ("grad", order)``; ``sep`` selects the
         parity-separated order on the spectral sides (the JAX package's TPU
-        layout; the port itself runs with ``sep=False``)."""
+        layout; the port itself runs with ``sep=False``).
+
+        An r2c base returns the split Re/Im real-matrix form over ``2m``
+        rows ``[Re(c); Im(c)]``, the only dense form of the r2c transform
+        (what the fused kernels take); its ``fwd_cut`` keeps rows ``[0:kc]``
+        and ``[m:m+kc]``, kc = m*2//3, not a prefix."""
+        if self.is_periodic:
+            return self._split_operator(key, sep)
         keep = None
         if key in ("fwd", "fwd_cut"):
             mat, sin, sout = self.projection @ chb.analysis_matrix(self.n), False, sep
@@ -141,6 +219,30 @@ class Base:
             keep,
             kept,
         )
+
+    def _split_operator(self, key, sep: bool) -> AxisOperator:
+        if self.kind == BaseKind.FOURIER_C2C:
+            raise ValueError("axis_operator is not defined for c2c bases")
+        if sep:
+            raise ValueError("sep layout is not defined for Fourier axes")
+        n, mc = self.n, self.m
+        if key == "fwd":
+            return AxisOperator(fou.split_forward_matrix(n), (False, False), None, None)
+        if key == "fwd_cut":
+            # the per-complex-mode 2/3 cut on the Re and Im blocks alike
+            cut = np.concatenate([self.dealias_cut(), self.dealias_cut()])
+            mat = fou.split_forward_matrix(n) * cut[:, None]
+            return AxisOperator(mat, (False, False), mc * 2 // 3, np.where(cut > 0)[0])
+        if key in ("bwd", "synthesis"):
+            return AxisOperator(fou.split_backward_matrix(n), (False, False), None, None)
+        if isinstance(key, tuple) and key[0] == "bwd_grad":
+            mat = fou.split_backward_matrix(n) @ fou.split_diff_matrix(n, key[1])
+            return AxisOperator(mat, (False, False), None, None)
+        if isinstance(key, tuple) and key[0] == "grad":
+            return AxisOperator(fou.split_diff_matrix(n, key[1]), (False, False), None, None)
+        if key in ("stencil", "proj"):
+            return AxisOperator(np.eye(2 * mc), (False, False), None, None)
+        raise ValueError(f"unknown axis_operator key {key!r}")
 
 
 _BASE_CACHE: "weakref.WeakValueDictionary[tuple[BaseKind, int], Base]" = (
@@ -171,12 +273,47 @@ def cheb_neumann(n: int) -> Base:
     return _cached_base(BaseKind.CHEB_NEUMANN, n)
 
 
+def fourier_r2c(n: int) -> Base:
+    """Real-to-complex Fourier base (complex half spectrum, n//2+1 modes)."""
+    return _cached_base(BaseKind.FOURIER_R2C, n)
+
+
+def fourier_c2c(n: int) -> Base:
+    """Complex-to-complex Fourier base (n modes, FFT order)."""
+    return _cached_base(BaseKind.FOURIER_C2C, n)
+
+
+def to_complex(vhat_split: np.ndarray, axis: int = 0) -> np.ndarray:
+    """Host coefficients of an r2c axis in the split layout ``[Re(c_0..);
+    Im(c_0..)]`` (2m rows along ``axis``) -> complex (m rows)."""
+    a = np.moveaxis(np.asarray(vhat_split), axis, 0)
+    mc = a.shape[0] // 2
+    return np.moveaxis(a[:mc] + 1j * a[mc:], 0, axis)
+
+
+def from_complex(vhat_c: np.ndarray, axis: int = 0) -> np.ndarray:
+    """Inverse of :func:`to_complex`."""
+    a = np.moveaxis(np.asarray(vhat_c), axis, 0)
+    return np.moveaxis(np.concatenate([a.real, a.imag], axis=0), 0, axis)
+
+
+def default_method(device) -> str:
+    """The Chebyshev transform method of a space on ``device`` built without
+    one: :data:`CPU_METHOD` on the CPU, :data:`CARD_METHOD` on a card."""
+    return CPU_METHOD if torch.device(device).type == "cpu" else CARD_METHOD
+
+
 class Space2:
     """Tensor product of two bases (axis 0 = x, axis 1 = y) on one device in
     one dtype.  Arrays are ``(..., n_x, n_y)`` physical or ``(..., m_x,
-    m_y)`` spectral; leading batch dimensions broadcast through the matrix
-    products.  ``device`` goes through :func:`..config.resolve_device`, so
-    ``"cuda"`` names the current card (and raises without one).
+    m_y)`` spectral; leading batch dimensions broadcast through the
+    transforms.  ``device`` goes through :func:`..config.resolve_device`,
+    so ``"cuda"`` names the current card (and raises without one);
+    ``dtype`` is the real working dtype, the spectral dtype its complex
+    counterpart when an axis is Fourier (:attr:`spectral_dtype`).
+    ``method``: the Chebyshev axes' transform path, ``"fft"`` or
+    ``"matmul"`` (default :func:`default_method`); a Fourier axis always
+    runs on ``torch.fft``.
 
     A field of this space is held whole.  The pencil space of
     :mod:`.parallel.spaces` splits it over a mesh of ranks; both answer the
@@ -189,10 +326,16 @@ class Space2:
     mesh = None
     nranks = 1
 
-    def __init__(self, base_x: Base, base_y: Base, *, device, dtype):
+    def __init__(self, base_x: Base, base_y: Base, *, device, dtype, method: str | None = None):
+        if base_y.is_periodic and not base_x.is_periodic:
+            raise ValueError("periodic y-axis under non-periodic x is unsupported")
         self.bases = (base_x, base_y)
         self.device = config.resolve_device(device)
         self.dtype = config.check_dtype(dtype)
+        method = default_method(self.device) if method is None else method
+        if method not in METHODS:
+            raise ValueError(f"unknown transform method {method!r}; use one of {METHODS}")
+        self.method = method
         self._mats: dict = {}
 
     @property
@@ -211,46 +354,116 @@ class Space2:
     def shape_spectral(self) -> tuple[int, int]:
         return (self.bases[0].m, self.bases[1].m)
 
+    @property
+    def spectral_is_complex(self) -> bool:
+        return any(b.is_periodic for b in self.bases)
+
+    @property
+    def spectral_dtype(self) -> torch.dtype:
+        if not self.spectral_is_complex:
+            return self.dtype
+        return torch.complex128 if self.dtype == torch.float64 else torch.complex64
+
     def ndarray_spectral(self) -> torch.Tensor:
-        return torch.zeros(self.shape_spectral, device=self.device, dtype=self.dtype)
+        return torch.zeros(self.shape_spectral, device=self.device, dtype=self.spectral_dtype)
 
     def axis_matrix(self, axis: int, key) -> np.ndarray | None:
-        """Host f64 matrix of one axis operator (None: the identity, which
-        the orthogonal base's stencil and projection are)."""
+        """Host f64 matrix of one Chebyshev axis operator (None: the
+        identity, which the orthogonal base's stencil and projection are)."""
         base = self.bases[axis]
+        if base.is_periodic:
+            raise ValueError("a Fourier axis has no dense operator here; it runs on torch.fft")
         if key in ("stencil", "proj") and base.kind == BaseKind.CHEBYSHEV:
             return None
         return base.axis_operator(key).matrix
 
     def operator(self, mat: np.ndarray) -> torch.Tensor:
-        """A host operator matrix in this space's device and dtype."""
+        """A host operator matrix (or diagonal) in this space's device and
+        its real dtype, or its complex one for a complex host array."""
+        if np.iscomplexobj(mat):
+            return torch.as_tensor(np.ascontiguousarray(mat), dtype=self.spectral_dtype,
+                                   device=self.device)
         return config.to_device(mat, self.device, self.dtype)
 
     def _mat(self, axis: int, key) -> torch.Tensor | None:
-        """Device copy of one axis operator (None: the identity)."""
+        """Device copy of one axis operator (None: the identity); the
+        diagonal of ``("diag", order)`` on a Fourier axis."""
         ck = (axis, key)
         if ck not in self._mats:
-            mat = self.axis_matrix(axis, key)
+            if isinstance(key, tuple) and key[0] == "diag":
+                mat = self.bases[axis].gradient_matrix(key[1])
+            else:
+                mat = self.axis_matrix(axis, key)
             self._mats[ck] = None if mat is None else self.operator(mat)
         return self._mats[ck]
 
-    def _apply(self, v: torch.Tensor, kx, ky) -> torch.Tensor:
-        """``M_x @ v @ M_y^T`` for the axis operators named ``kx``, ``ky``."""
+    # -- one axis ---------------------------------------------------------------
+
+    def _fast_deriv(self, base: Base) -> bool:
+        return self.dtype == torch.float32 and base.n >= FAST_DERIV_MIN
+
+    def _axis(self, v: torch.Tensor, axis: int, key) -> torch.Tensor:
+        """The operator named ``key`` (an :meth:`Base.axis_operator` key)
+        applied along ``axis`` of ``v``."""
+        ax = v.ndim - 2 + axis
+        base = self.bases[axis]
+        if base.is_periodic:
+            return self._fourier(v, axis, ax, key)
+        if key in ("stencil", "proj"):
+            mat = self._mat(axis, key)
+            return v if mat is None else tr.apply_along(mat, v, ax)
+        if isinstance(key, tuple) and key[0] == "grad" and self._fast_deriv(base):
+            return tr.cheb_derivative(self._axis(v, axis, "stencil"), key[1], ax)
+        if self.method == "matmul":
+            return tr.apply_along(self._mat(axis, key), v, ax)
+        if key == "fwd":
+            return self._axis(tr.cheb_forward_fft(v, ax), axis, "proj")
+        if key == "bwd":
+            return tr.cheb_backward_fft(self._axis(v, axis, "stencil"), ax)
+        if key == "synthesis":
+            return tr.cheb_backward_fft(v, ax)
+        if key[0] == "bwd_grad":
+            return tr.cheb_backward_fft(self._axis(v, axis, ("grad", key[1])), ax)
+        return tr.apply_along(self._mat(axis, key), v, ax)  # ("grad", order)
+
+    def _fourier(self, v, axis: int, ax: int, key) -> torch.Tensor:
+        base = self.bases[axis]
+        r2c = base.kind == BaseKind.FOURIER_R2C
+        if key == "fwd":
+            fn = tr.fourier_r2c_forward_fft if r2c else tr.fourier_c2c_forward_fft
+            return fn(v, ax)
+        if key in ("bwd", "synthesis"):
+            fn = tr.fourier_r2c_backward_fft if r2c else tr.fourier_c2c_backward_fft
+            return fn(v, ax, base.n)
+        if key in ("stencil", "proj"):
+            return v
+        if key[0] == "grad":
+            return tr.apply_diag(self._mat(axis, ("diag", key[1])), v, ax)
+        if key[0] == "bwd_grad":
+            return self._fourier(self._fourier(v, axis, ax, ("grad", key[1])), axis, ax, "bwd")
+        raise ValueError(f"unknown axis operator key {key!r}")
+
+    def _apply(self, v: torch.Tensor, kx, ky, y_first: bool = False) -> torch.Tensor:
+        """The axis operators named ``kx`` and ``ky``, axis 0 first (axis 1
+        first with ``y_first``, the forward's order)."""
         if v.ndim < 2:
             raise ValueError(f"Space2 expects a (..., nx, ny) array, got rank {v.ndim}")
-        return self.apply_operators(v, self._mat(0, kx), self._mat(1, ky))
+        if y_first:
+            return self._axis(self._axis(v, 1, ky), 0, kx)
+        return self._axis(self._axis(v, 0, kx), 1, ky)
 
     # -- layout ---------------------------------------------------------------
 
     def place_physical(self, values) -> torch.Tensor:
         """Global physical values (host array or tensor) as this space
-        holds them: a copy in its device and dtype."""
+        holds them: a copy in its device and real dtype."""
         return torch.tensor(np.ascontiguousarray(values), dtype=self.dtype, device=self.device)
 
     def place_spectral(self, values) -> torch.Tensor:
         """Global spectral (or ortho-space) values as this space holds
-        them."""
-        return self.place_physical(values)
+        them: a copy in its spectral dtype."""
+        return torch.tensor(np.ascontiguousarray(values), dtype=self.spectral_dtype,
+                            device=self.device)
 
     def gather_physical(self, v: torch.Tensor) -> torch.Tensor:
         """The global physical field of ``v`` (``v`` itself)."""
@@ -275,18 +488,22 @@ class Space2:
         return torch.sum(v * w)
 
     def apply_operators(self, v: torch.Tensor, a0, a1) -> torch.Tensor:
-        """``A0 @ v @ A1^T`` of the device matrices ``a0``, ``a1`` (from
-        :meth:`operator`; None: the identity).  Callers outside this class
-        give it a spectral field and get one back, which is what the pencil
-        space's counterpart takes and gives."""
-        out = v if a0 is None else torch.matmul(a0, v)
-        return out if a1 is None else torch.matmul(out, a1.T)
+        """``A0 @ v @ A1^T`` of the device operators ``a0``, ``a1`` (from
+        :meth:`operator`; None: the identity; a 1-D one: a diagonal).
+        Callers outside this class give it a spectral field and get one
+        back, which is what the pencil space's counterpart takes and
+        gives."""
+        ax = v.ndim - 2
+        for i, a in enumerate((a0, a1)):
+            if a is not None:
+                v = tr.apply_diag(a, v, ax + i) if a.ndim == 1 else tr.apply_along(a, v, ax + i)
+        return v
 
     # -- transforms ---------------------------------------------------------
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:
         """Physical (..., n_x, n_y) -> composite spectral (..., m_x, m_y)."""
-        return self._apply(v, "fwd", "fwd")
+        return self._apply(v, "fwd", "fwd", y_first=True)
 
     def backward(self, vhat: torch.Tensor) -> torch.Tensor:
         """Composite spectral -> physical."""
@@ -316,22 +533,29 @@ class Space2:
 
     def backward_gradient(self, vhat: torch.Tensor, deriv, scale=None) -> torch.Tensor:
         """Physical values of the derivative: ``backward_ortho(gradient(.))``
-        as one synthesis-of-derivative product per axis."""
+        as one synthesis of the derivative per axis."""
         kx, ky = (("bwd_grad", d) if d else "bwd" for d in deriv)
         return divide_scale(self._apply(vhat, kx, ky), deriv, scale)
 
     # -- helpers --------------------------------------------------------------
 
     def dealias_mask(self) -> np.ndarray:
-        """2/3-rule mask over this space's spectral shape (host numpy)."""
+        """2/3-rule mask over this space's spectral shape (host numpy; per
+        complex mode on an r2c axis)."""
         cx, cy = (base.dealias_cut() for base in self.bases)
         return cx[:, None] * cy[None, :]
 
     def pin_zero_mode(self, vhat: torch.Tensor) -> torch.Tensor:
-        """Zero the constant mode (the pressure singularity pin)."""
+        """Zero the constant mode (the pressure singularity pin; on an r2c
+        axis its real and imaginary parts)."""
         out = vhat.clone()
         out[..., 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
         return out
+
+    def vhat_as_complex(self, vhat: torch.Tensor) -> np.ndarray:
+        """Host copy of the coefficients in the complex convention (the
+        port's own storage, so a copy)."""
+        return vhat.detach().cpu().numpy()
 
 
 def divide_scale(out: torch.Tensor, deriv, scale) -> torch.Tensor:
@@ -344,15 +568,20 @@ def divide_scale(out: torch.Tensor, deriv, scale) -> torch.Tensor:
 
 
 def fused_projection_gradient(space_out: Space2, space_in: Space2, deriv) -> tuple:
-    """Per-axis device matrices that apply
-    ``space_out.from_ortho(space_in.gradient(., deriv))`` as one matrix
-    product per axis: ``P_out @ D^order @ S_in`` (the JAX package's function
-    of the same name, as one dense matrix per axis; the pressure-projection
-    velocity correction of the dense step).  The result is
-    ``M0 @ v @ M1^T``, not yet divided by the scale; the matrices are in
+    """Per-axis device operators that apply
+    ``space_out.from_ortho(space_in.gradient(., deriv))`` as one product per
+    axis: ``P_out @ D^order @ S_in`` (the JAX package's function of the same
+    name, as one dense matrix per axis; the pressure-projection velocity
+    correction of the dense step).  A Fourier axis gives its derivative's
+    diagonal (1-D, complex; None for order 0), which
+    :meth:`Space2.apply_operators` multiplies.  The result is ``M0 @ v @
+    M1^T``, not yet divided by the scale; the operators are in
     ``space_out``'s device, dtype and layout (``space_out.operator``)."""
     mats = []
     for axis, order in enumerate(deriv):
         b_out, b_in = space_out.bases[axis], space_in.bases[axis]
-        mats.append(space_out.operator(b_out.projection @ b_in.gradient_matrix(order)))
+        if b_out.is_periodic:
+            mats.append(space_out.operator(b_in.gradient_matrix(order)) if order else None)
+        else:
+            mats.append(space_out.operator(b_out.projection @ b_in.gradient_matrix(order)))
     return tuple(mats)

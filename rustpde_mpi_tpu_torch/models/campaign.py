@@ -18,6 +18,7 @@ that fails raises.
 
 from __future__ import annotations
 
+import gc
 import math
 
 import torch
@@ -66,6 +67,10 @@ class ChunkRunner:
                 self._advance([t.clone() for t in self.carry])
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
+            # a CUDA graph that dies while another is being captured (its
+            # reset frees memory) invalidates that capture: collect any
+            # unreachable one now
+            gc.collect()
             torch.cuda.empty_cache()  # as the capture does: what it reserves is its pool
             before = [k.launches for k in self._kernels]
             reserved = torch.cuda.memory_reserved(dev)
@@ -73,6 +78,11 @@ class ChunkRunner:
             try:
                 with torch.cuda.graph(graph):
                     self._advance(self.carry)
+            except BaseException:
+                # free the failed graph here, not whenever the traceback that
+                # holds it is dropped (maybe inside a later capture)
+                graph.reset()
+                raise
             finally:
                 after = [k.launches for k in self._kernels]
                 for k, n in zip(self._kernels, before):
@@ -100,7 +110,8 @@ class ChunkRunner:
 
 
 class CampaignModelBase:
-    """Subclasses supply ``dt``, ``state`` (a NamedTuple of tensors),
+    """Subclasses supply ``dt``, ``dtype`` (the real working dtype; the
+    state's fields may be complex), ``state`` (a NamedTuple of tensors),
     ``_step(state, with_sentinels=False)`` (with sentinels it returns
     ``(state, (cfl, ke, div_norm))``, 0-d tensors), ``_observables(state)``
     (a 1-D tensor whose index 3 is |div|) and ``kernels()``."""
@@ -124,7 +135,8 @@ class CampaignModelBase:
     def _scan_ok(self, state) -> torch.Tensor:
         """The continue criterion of a chunk, a 0-d bool tensor: the
         temperature's sum is finite (a NaN anywhere reaches temp within a
-        step through buoyancy and convection)."""
+        step through buoyancy and convection; a complex sum is finite when
+        both its parts are)."""
         return torch.isfinite(torch.sum(state.temp))
 
     @staticmethod
@@ -189,7 +201,7 @@ class CampaignModelBase:
         runner = self._runners.get(armed)
         if runner is None:
             carry = [f.clone(memory_format=torch.contiguous_format) for f in self.state]
-            dev, dtype = carry[0].device, carry[0].dtype
+            dev, dtype = carry[0].device, self.dtype
             # the flags (ok; or finite and cfl_ok), the step counter and, when
             # armed, the running maxima and the last step's kinetic energy
             carry += [torch.ones((), dtype=torch.bool, device=dev) for _ in range(1 + armed)]
@@ -265,7 +277,7 @@ class CampaignModelBase:
         # does not change what the chunk computes
         runner.run(n)
         fin, cok, done, cfl_max, growth_max, div_max, ke = torch.stack(
-            [t.to(self.state[0].dtype) for t in runner.carry[nf:]]).tolist()
+            [t.to(self.dtype) for t in runner.carry[nf:]]).tolist()
         fin, cok = bool(fin), bool(cok)
         pre_div = fin and not cok
         if pre_div:
@@ -286,7 +298,7 @@ class CampaignModelBase:
         step stays valid across configs (and is kept while disarmed)."""
         if cfg is not None:
             if self._ceiling is None:
-                self._ceiling = torch.full((), cfg.max_cfl, dtype=self.state[0].dtype,
+                self._ceiling = torch.full((), cfg.max_cfl, dtype=self.dtype,
                                            device=self.state[0].device)
             else:
                 self._ceiling.fill_(cfg.max_cfl)

@@ -1,10 +1,12 @@
-"""Navier2D — 2-D Boussinesq Rayleigh-Benard DNS in a confined cell.
+"""Navier2D — 2-D Boussinesq Rayleigh-Benard DNS.
 
-Counterpart of the JAX package's ``models/navier.py`` for the confined
-(Chebyshev x Chebyshev) cell with ``rbc`` boundary conditions.  Two routes
-of each half of the step, chosen by constructor arguments (the JAX
-package's ``RUSTPDE_CONV_KERNEL`` / ``RUSTPDE_STEP_KERNEL``, its
-``"pallas"`` being ``"fused"`` here):
+Counterpart of the JAX package's ``models/navier.py`` with ``rbc``
+boundary conditions, in the confined cell (Chebyshev x Chebyshev,
+``new_confined``) and the horizontally periodic one (Fourier r2c x
+Chebyshev, ``periodic=True``/``new_periodic``, whose spectral state is
+complex).  Two routes of each half of the step, chosen by constructor
+arguments (the JAX package's ``RUSTPDE_CONV_KERNEL`` /
+``RUSTPDE_STEP_KERNEL``, its ``"pallas"`` being ``"fused"`` here):
 
 * ``conv_kernel="fused"``: three fused convection chains a step
   (:mod:`..ops.fused_conv`); ``"dense"``: the derivative syntheses, the
@@ -14,14 +16,21 @@ package's ``RUSTPDE_CONV_KERNEL`` / ``RUSTPDE_STEP_KERNEL``, its
   on the solver objects of :mod:`..solver` (ADI Helmholtz for the
   velocities and the temperature, the tensor Poisson solver for the
   pseudo-pressure), whose banded substitutions run the kernel of
-  :mod:`..ops.banded_solve`, seven launches a step.
+  :mod:`..ops.banded_solve`: seven launches a step in the confined cell,
+  four in the periodic one (its Fourier axis solves are diagonals; the
+  Poisson solve is one launch for every Fourier mode).
+
+``method`` picks the transform path of the Chebyshev axes (``"fft"`` or
+``"matmul"``, :class:`..bases.Space2`); a Fourier axis always runs on
+``torch.fft``.
 
 ``mesh=`` (a :class:`..parallel.mesh.Mesh`) runs the dense route on fields
 split over the mesh's ranks, as the JAX package's meshed model does: the
 state lives in spectral x-pencils, physical data in y-pencils, every pencil
 flip runs the pencil-transpose kernel of :mod:`..ops.ring_transpose`, and
 every banded solve one launch for all ranks.  The JAX package builds no
-fused stages under a mesh, so the fused kernels are refused there.
+fused stages under a mesh, so the fused kernels are refused there; the
+periodic model has no pencil form yet.
 
 Each kernel runs as hand-written CUDA on a CUDA device and as its plain
 PyTorch version on the CPU.  ``update_n`` advances chunks of steps with
@@ -46,8 +55,9 @@ import numpy as np
 import torch
 
 from .. import config
-from ..bases import Space2, cheb_dirichlet, cheb_neumann, chebyshev, fused_projection_gradient
-from ..field import average_weights, grid_deltas
+from ..bases import (Space2, cheb_dirichlet, cheb_neumann, chebyshev, default_method,
+                     fourier_r2c, fused_projection_gradient)
+from ..field import average_weights, grid_deltas, norm_l2
 from ..ops.fused_conv import build_model_convs
 from ..ops.fused_step import build_model_step
 from ..parallel.spaces import PencilSpace2
@@ -68,24 +78,30 @@ class NavierState(NamedTuple):
 
 
 class Navier2D(CampaignModelBase):
-    """Confined 2-D Rayleigh-Benard convection solver.
+    """2-D Rayleigh-Benard convection solver, confined or horizontally
+    periodic.
 
-    Parameters follow the JAX package (nx, ny, ra, pr, dt, aspect, bc);
-    ``bc`` must be ``"rbc"``.  ``device`` defaults to ``"cuda"`` and raises
-    without a card unless ``"cpu"`` is passed; ``dtype`` is float64 or
-    float32.  ``conv_kernel`` and ``step_kernel`` are each ``"fused"`` (the
-    default) or ``"dense"`` (see the module docstring).  ``mesh``: split
-    the fields over its ranks (dense route only; the device is the
+    Parameters follow the JAX package (nx, ny, ra, pr, dt, aspect, bc,
+    periodic); ``bc`` must be ``"rbc"``.  ``device`` defaults to ``"cuda"``
+    and raises without a card unless ``"cpu"`` is passed; ``dtype`` is
+    float64 or float32.  ``conv_kernel`` and ``step_kernel`` are each
+    ``"fused"`` (the default) or ``"dense"`` (see the module docstring).
+    ``method``: the Chebyshev axes' transform path (default
+    :func:`..bases.default_method` of the device).  ``mesh``: split the
+    fields over its ranks (confined, dense route only; the device is the
     mesh's)."""
 
     observable_names = ("nu", "nuvol", "re", "div")
 
     def __init__(self, nx: int, ny: int, ra: float, pr: float, dt: float,
-                 aspect: float, bc: str = "rbc", *, device=None,
+                 aspect: float, bc: str = "rbc", periodic: bool = False, *, device=None,
                  dtype=config.DEFAULT_DTYPE, conv_kernel: str | None = None,
-                 step_kernel: str | None = None, mesh=None):
+                 step_kernel: str | None = None, mesh=None, method: str | None = None):
         if bc != "rbc":
             raise ValueError(f"boundary condition type {bc!r} is not ported (only 'rbc')")
+        if periodic and mesh is not None:
+            raise NotImplementedError("the periodic model has no pencil form yet: "
+                                      "pass mesh=None")
         default = "fused" if mesh is None else "dense"
         conv_kernel = default if conv_kernel is None else conv_kernel
         step_kernel = default if step_kernel is None else step_kernel
@@ -106,6 +122,7 @@ class Navier2D(CampaignModelBase):
         self.nx, self.ny = nx, ny
         self.dt = dt
         self.bc = bc
+        self.periodic = bool(periodic)
         self.scale = (float(aspect), 1.0)
         nu = fns.get_nu(ra, pr, self.scale[1] * 2.0)
         ka = fns.get_ka(ra, pr, self.scale[1] * 2.0)
@@ -113,22 +130,26 @@ class Navier2D(CampaignModelBase):
         self.diagnostics: dict[str, list[float]] = {}
         self._init_campaign()
 
-        kw = dict(device=self.device, dtype=self.dtype)
+        self.method = default_method(self.device) if method is None else method
+        kw = dict(device=self.device, dtype=self.dtype, method=self.method)
 
         def space(bx, by):
             sp = Space2(bx, by, **kw)
             return sp if mesh is None else PencilSpace2(sp, mesh)
 
-        self.velx_space = space(cheb_dirichlet(nx), cheb_dirichlet(ny))
+        # the x bases (a Fourier r2c axis for every field of the periodic cell)
+        x_base, x_full, x_neumann = ((fourier_r2c,) * 3 if periodic
+                                     else (cheb_dirichlet, chebyshev, cheb_neumann))
+        self.velx_space = space(x_base(nx), cheb_dirichlet(ny))
         self.vely_space = self.velx_space
-        self.temp_space = space(cheb_neumann(nx), cheb_dirichlet(ny))
-        self.pres_space = space(chebyshev(nx), chebyshev(ny))
-        self.pseu_space = space(cheb_neumann(nx), cheb_neumann(ny))
-        self.field_space = space(chebyshev(nx), chebyshev(ny))
+        self.temp_space = space(x_neumann(nx), cheb_dirichlet(ny))
+        self.pres_space = space(x_full(nx), chebyshev(ny))
+        self.pseu_space = space(x_neumann(nx), cheb_neumann(ny))
+        self.field_space = space(x_full(nx), chebyshev(ny))
 
         xs, ys = (b.points for b in self.field_space.bases)
         self.x = [xs * self.scale[0], ys * self.scale[1]]
-        w0, w1 = average_weights(xs), average_weights(ys)
+        w0, w1 = average_weights(xs, self.periodic), average_weights(ys)
         # physical fields of the plate (x only) and the volume weights (on a
         # mesh the pad gets weight 0)
         self._w_plate = self.field_space.place_physical(np.repeat(w0[:, None], ny, axis=1))
@@ -136,7 +157,7 @@ class Navier2D(CampaignModelBase):
         # per-point inverse grid spacing (physical, scaled) of the CFL
         # sentinel dt*max(|ux|/dx + |uy|/dy), as physical fields (on a mesh
         # the pad gets 0)
-        inv_dx = 1.0 / (grid_deltas(xs) * self.scale[0])
+        inv_dx = 1.0 / (grid_deltas(xs, self.periodic) * self.scale[0])
         inv_dy = 1.0 / (grid_deltas(ys) * self.scale[1])
         self._inv_dx = self.field_space.place_physical(np.repeat(inv_dx[:, None], ny, axis=1))
         self._inv_dy = self.field_space.place_physical(np.repeat(inv_dy[None, :], nx, axis=0))
@@ -170,6 +191,15 @@ class Navier2D(CampaignModelBase):
         model.init_random(0.1)
         return model
 
+    @classmethod
+    def new_periodic(cls, nx, ny, ra, pr, dt, aspect, bc="rbc", **kwargs) -> "Navier2D":
+        """Fourier x Chebyshev (horizontally periodic) cell with the random
+        initial condition of the JAX package's ``new_periodic`` (amplitude
+        0.1, seed 0); keyword arguments go to the constructor."""
+        model = cls(nx, ny, ra, pr, dt, aspect, bc, periodic=True, **kwargs)
+        model.init_random(0.1)
+        return model
+
     def kernels(self) -> dict:
         """``{kernel name: [wrappers]}`` of the kernels this model's step
         launches, each wrapper once, with its ``launches`` counter."""
@@ -197,10 +227,10 @@ class Navier2D(CampaignModelBase):
     def _build_bc_fields(self, xs: np.ndarray, ys: np.ndarray) -> None:
         """Transform the BC lift profile into ortho-space constants and its
         derivatives, in f64 on the host (``host_bc`` keeps those copies for
-        the stage builder), then place them in the model's device and
-        dtype."""
+        the stage builder; complex ortho-space ones in the periodic cell),
+        then place them in the model's device and dtype."""
         base_x, base_y = self.field_space.bases
-        sp = Space2(base_x, base_y, device="cpu", dtype=torch.float64)
+        sp = Space2(base_x, base_y, device="cpu", dtype=torch.float64, method=self.method)
         scale = self.scale
         dt, ka = self.dt, self.params["ka"]
         that = sp.forward(torch.as_tensor(bcs.bc_rbc_values(xs, ys), dtype=torch.float64))
@@ -235,7 +265,9 @@ class Navier2D(CampaignModelBase):
         on a mesh scattered to y-pencils first)."""
         space = getattr(self, f"{name}_space")
         v = space.place_physical(np.asarray(values))
-        self.state = self.state._replace(**{name: space.forward(v)})
+        # contiguous, as the step's outputs are (an FFT along axis 0 keeps
+        # its input's strides permuted)
+        self.state = self.state._replace(**{name: space.forward(v).contiguous()})
 
     def get_field(self, name: str) -> np.ndarray:
         """Physical values of one variable (device backward -> host; on a
@@ -330,7 +362,15 @@ class Navier2D(CampaignModelBase):
         sp_f = self.field_space
         cfl = self.dt * torch.max(torch.abs(ux) * self._inv_dx + torch.abs(uy) * self._inv_dy)
         ke = 0.5 * sp_f.weighted_sum(ux**2 + uy**2, self._w_vol)
-        return cfl, ke, torch.sqrt(sp_f.weighted_sum(div, div))
+        return cfl, ke, self._norm(div)
+
+    def _norm(self, v: torch.Tensor) -> torch.Tensor:
+        """The Frobenius norm of a spectral field (of its real and
+        imaginary parts in the periodic cell; on a mesh summed across the
+        ranks)."""
+        if v.is_complex():
+            return norm_l2(v)
+        return torch.sqrt(self.field_space.weighted_sum(v, v))
 
     def _project(self, pseu: torch.Tensor, axis: int) -> torch.Tensor:
         """The pressure-projection correction of the velocity along
@@ -360,9 +400,6 @@ class Navier2D(CampaignModelBase):
             return tuple(sp_f.weighted_sum(v[..., j], self._w_plate[..., j]) * (-2.0 / scale[1])
                          for j in (0, self.ny - 1))
 
-        def norm(v):  # the Frobenius norm of a spectral field
-            return torch.sqrt(sp_f.weighted_sum(v, v))
-
         that = self.temp_space.to_ortho(state.temp) + self.tempbc_ortho
         dtdy_p = sp_f.backward_gradient(that, (0, 1), None)
         # Nu: plate heat flux <-2/sy * dT/dy>_x averaged over both plates
@@ -375,7 +412,7 @@ class Navier2D(CampaignModelBase):
         # Re: <sqrt(ux^2+uy^2) * 2 sy / nu>_V
         ux = self.velx_space.backward(state.velx)
         re = avg(torch.sqrt(ux**2 + uy**2) * 2.0 * scale[1] / nu)
-        return torch.stack([nu_plate, nu_vol, re, norm(self._div(state))])
+        return torch.stack([nu_plate, nu_vol, re, self._norm(self._div(state))])
 
     def eval_nu(self) -> float:
         return self.get_observables()[0]

@@ -217,6 +217,26 @@ def padded(rows, cols, *, device, dtype) -> torch.Tensor:
     return torch.empty((rows, -(-cols // per) * per), device=device, dtype=dtype)[:, :cols]
 
 
+def stack_planes(x) -> torch.Tensor:
+    """The kernels' real form of a complex 2-D tensor ``x`` (m rows): its
+    real rows then its imaginary rows, ``[Re; Im]`` (2m rows), in a
+    :func:`padded` buffer, written by one strided copy of its real view."""
+    m, k = x.shape
+    dtype = x.real.dtype
+    out = padded(2 * m, k, device=x.device, dtype=dtype)
+    planes = out.as_strided((2, m, k), (m * out.stride(0), out.stride(0), 1))
+    planes.copy_(torch.view_as_real(x).permute(2, 0, 1))
+    return out
+
+
+def unstack_planes(o) -> torch.Tensor:
+    """The complex tensor whose ``[Re; Im]`` rows :func:`stack_planes`
+    gives: ``o``'s first half of rows as the real parts, the second as the
+    imaginary ones (one copy)."""
+    m = o.shape[0] // 2
+    return torch.complex(o[:m], o[m:])
+
+
 def aligned(x) -> torch.Tensor:
     """``x`` (2-D) itself if :func:`rows_aligned`, else a copy of it in a
     :func:`padded` buffer."""

@@ -16,9 +16,13 @@ Counterpart of the JAX package's ``ops/banded.py`` for Chebyshev axes:
   class too.
 * :class:`DenseSolver` — the precomputed dense inverse applied with
   ``torch.matmul`` along the axis.
+* :class:`DiagSolver` — the diagonal solve of a Fourier axis.
 
-The diagonal (Fourier) solver and the parity-separated adapter wait for the
-periodic layouts.
+A complex right-hand side (a field of a periodic space) is solved by the
+banded kernel in one launch: its real and imaginary parts are two batch
+entries of one strided real view, both read with the same factors (no
+copy, no second launch).  The parity-separated adapter of the JAX package
+is a TPU layout device and is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from ..config import to_device
 from .banded_solve import BandedSolve
+from .transforms import apply_along
 
 
 def dense_to_band(dense: np.ndarray, p: int, q: int) -> np.ndarray:
@@ -99,15 +104,6 @@ def banded_lu_factor(dense: np.ndarray, p: int, q: int):
     return band_lu_factor(dense_to_band(dense, p, q), p, q)
 
 
-def apply_along(mat: torch.Tensor, x: torch.Tensor, axis: int) -> torch.Tensor:
-    """``mat`` applied along ``axis`` of ``x``: ``x`` contracted with the
-    columns of ``mat`` there (one ``torch.matmul``)."""
-    axis %= x.ndim
-    if axis == x.ndim - 1:
-        return torch.matmul(x, mat.T)
-    return torch.movedim(torch.matmul(mat, torch.movedim(x, axis, -2)), -2, axis)
-
-
 class BandedSolver:
     """Solves ``A x = b`` along one axis of a device tensor with the LU
     factors of ``A``: one set, ``(p, n)``/``(q+1, n)``, or one per lane,
@@ -134,17 +130,27 @@ class BandedSolver:
         any device (the kernel's yardstick on the card)."""
         return self._along(lambda v: self.kernel.plain(v, factor_batch_stride), b, axis)
 
-    @staticmethod
-    def _along(fn, b: torch.Tensor, axis: int) -> torch.Tensor:
-        b = b.contiguous()
+    @classmethod
+    def _along(cls, fn, b: torch.Tensor, axis: int) -> torch.Tensor:
+        """``fn`` on the ``(batch, n, lanes)`` view of ``b`` whose axis 1 is
+        ``b``'s ``axis``: lanes are the dims after it or, when it is the
+        last, the one before (which per-lane factors align with).  A
+        complex ``b`` goes in as its real view with the real and imaginary
+        parts leading, so they are batch entries of one view, for which a
+        2-D field needs no copy: ``(2, n, lanes)`` with strides ``(1, 2,
+        2 n)`` for a solve along its last axis."""
+        if b.is_complex():
+            parts = torch.view_as_real(b).movedim(-1, 0)
+            out = cls._along(fn, parts, axis % b.ndim + 1)
+            return torch.view_as_complex(out.movedim(0, -1).contiguous())
         shape = b.shape
         axis %= b.ndim
         pre, post = math.prod(shape[:axis]), math.prod(shape[axis + 1 :])
         n = shape[axis]
         if post > 1 or axis == 0:
-            return fn(b.view(pre, n, post)).reshape(shape)
+            return fn(b.reshape(pre, n, post)).reshape(shape)
         lanes = shape[axis - 1]
-        view = b.view(pre // lanes, lanes, n).transpose(1, 2)
+        view = b.reshape(pre // lanes, lanes, n).transpose(1, 2)
         return fn(view).transpose(1, 2).reshape(shape)
 
 
@@ -157,3 +163,16 @@ class DenseSolver:
 
     def solve(self, b: torch.Tensor, axis: int) -> torch.Tensor:
         return apply_along(self.inv, b, axis)
+
+
+class DiagSolver:
+    """The diagonal solve of a Fourier axis (the reference's Sdma): ``b``
+    divided by the diagonal along the axis."""
+
+    def __init__(self, diag, *, device, dtype):
+        self.diag = to_device(diag, device, dtype)
+
+    def solve(self, b: torch.Tensor, axis: int) -> torch.Tensor:
+        shape = [1] * b.ndim
+        shape[axis] = self.diag.shape[0]
+        return b / self.diag.reshape(shape)

@@ -9,7 +9,18 @@ velocities ``ux``, ``uy``:
     out   = Fx @ total @ Fy^T   on the 2/3-rule kept block, zero elsewhere
 
 which is the dealiased ``u . grad(v)`` in the scratch space's spectral
-storage.  On a CUDA tensor :meth:`FusedConv.apply` runs the hand-written
+storage.
+
+On a periodic space (a Fourier r2c x axis) ``vhat`` and the output are
+complex: the kernels take the x operators in their split Re/Im form
+(``Base.axis_operator``), ``vhat`` stacked as ``[Re; Im]`` real rows, and
+the forward's kept rows ``[0:kc]`` (Re) and ``[m:m+kc]`` (Im) compacted to
+``[0:kc] + [kc:2kc]``; the complex modes are reassembled from the two
+halves on the way out, as the JAX kernel's wrapper does
+(``pallas_conv.py:284-316``).  The stacking and the reassembly are one
+copy each a launch.
+
+On a CUDA tensor :meth:`FusedConv.apply` runs the hand-written
 kernels of ``csrc/fused_conv.cu`` (four launches, three of them of the
 generic GEMM of ``csrc/fused_stage.cu``; see fused_conv.cu) and adds
 one to ``FusedConv.launches``; on a CPU tensor it runs
@@ -39,23 +50,30 @@ class FusedConv:
         self.scale = tuple(scale)
         bx_in, by_in = space_in.bases
         fx_b, fy_b = field_space.bases
+        #: vhat and the output are complex (a Fourier r2c x axis)
+        self.complex = space_in.spectral_is_complex
+        if field_space.spectral_is_complex != self.complex:
+            raise ValueError("mixed complex/real x-axes are unsupported")
         gx1 = bx_in.axis_operator(("bwd_grad", 1)).matrix / self.scale[0]
         gx0 = bx_in.axis_operator("bwd").matrix
         gy1 = by_in.axis_operator(("bwd_grad", 1)).matrix / self.scale[1]
         gy0 = by_in.axis_operator("bwd").matrix
         op_fx = fx_b.axis_operator("fwd_cut")
         op_fy = fy_b.axis_operator("fwd_cut")
-        # natural order: the kept rows are the leading prefix
-        self.kx, self.ky = op_fx.dealias_rows, op_fy.dealias_rows
+        # the kept rows: a leading prefix in natural order, [0:kc] and
+        # [m:m+kc] of a split axis (both parts compacted to 2 kc rows)
+        kept_x = op_fx.kept_rows
+        self.kx, self.ky = len(kept_x), op_fy.dealias_rows
         self.nx, self.ny = space_in.shape_physical
         self.mx, self.my = gx0.shape[1], gy0.shape[1]
         self.out_shape = field_space.shape_spectral
+        self.out_dtype = field_space.spectral_dtype
         def put(m):
             return _build.aligned(to_device(m, self.device, self.dtype))
 
         self.gx1, self.gx0 = put(gx1), put(gx0)
         self.gy0t, self.gy1t = put(gy0.T), put(gy1.T)
-        self.fx = put(op_fx.matrix[: self.kx])
+        self.fx = put(op_fx.matrix[kept_x])
         self.fyt = put(op_fy.matrix[: self.ky].T)
         #: kernel applications on CUDA tensors (each is 4 grid launches)
         self.launches = 0
@@ -72,10 +90,12 @@ class FusedConv:
 
     def bytes_moved(self, with_bc: bool) -> float:
         """Bytes one application must move at least: operator matrices and
-        inputs read once, the spectral output written once."""
+        inputs read once, the spectral output written once (a complex one
+        as its real and imaginary parts)."""
         mats = sum(m.numel() for m in (self.gx1, self.gx0, self.gy0t, self.gy1t, self.fx, self.fyt))
         phys = self.nx * self.ny * (4 if with_bc else 2)
-        n = mats + phys + self.mx * self.my + self.out_shape[0] * self.out_shape[1]
+        out = self.out_shape[0] * self.out_shape[1] * (2 if self.complex else 1)
+        n = mats + phys + self.mx * self.my + out
         return float(n) * torch.finfo(self.dtype).bits / 8
 
     # -- the chain --------------------------------------------------------
@@ -83,14 +103,16 @@ class FusedConv:
     def _check(self, ux, uy, vhat, bc_dx, bc_dy) -> None:
         if (bc_dx is None) != (bc_dy is None):
             raise ValueError("pass both bc derivative fields or neither")
+        mx = self.mx // 2 if self.complex else self.mx
         args = [("ux", ux, (self.nx, self.ny)), ("uy", uy, (self.nx, self.ny)),
-                ("vhat", vhat, (self.mx, self.my))]
+                ("vhat", vhat, (mx, self.my))]
         if bc_dx is not None:
             args += [("bc_dx", bc_dx, (self.nx, self.ny)), ("bc_dy", bc_dy, (self.nx, self.ny))]
         for name, x, shape in args:
-            if x.device != self.device or x.dtype != self.dtype:
+            want = self.out_dtype if name == "vhat" else self.dtype
+            if x.device != self.device or x.dtype != want:
                 raise ValueError(f"conv input {name}: {x.dtype} on {x.device}, "
-                                 f"expected {self.dtype} on {self.device}")
+                                 f"expected {want} on {self.device}")
             if tuple(x.shape) != shape:
                 raise ValueError(f"conv input {name}: shape {tuple(x.shape)}, expected {shape}")
 
@@ -103,21 +125,37 @@ class FusedConv:
         if self.device.type != "cuda":
             raise RuntimeError(f"no fused-conv kernel for device {self.device}")
         bcs = (None, None) if bc_dx is None else (bc_dx.contiguous(), bc_dy.contiguous())
-        out = self._launch(ux.contiguous(), uy.contiguous(), vhat.contiguous(), *bcs)
+        out = self._launch(ux.contiguous(), uy.contiguous(), self._stack(vhat), *bcs)
         self.launches += 1
         return out
 
     def plain(self, ux, uy, vhat, bc_dx=None, bc_dy=None) -> torch.Tensor:
         """The same chain in plain ``torch.matmul`` (the CPU path and the
         kernel's yardstick)."""
+        vhat = self._stack(vhat)
         dvdx = torch.matmul(torch.matmul(self.gx1, vhat), self.gy0t)
         dvdy = torch.matmul(torch.matmul(self.gx0, vhat), self.gy1t)
         if bc_dx is not None:
             dvdx = dvdx + bc_dx
             dvdy = dvdy + bc_dy
         total = ux * dvdx + uy * dvdy
-        out = torch.zeros(self.out_shape, device=self.device, dtype=self.dtype)
-        out[: self.kx, : self.ky] = torch.matmul(self.fx, torch.matmul(total, self.fyt))
+        return self._unstack(torch.matmul(self.fx, torch.matmul(total, self.fyt)))
+
+    def _stack(self, vhat) -> torch.Tensor:
+        """The kernels' real input: ``vhat`` itself, or a complex one's
+        ``[Re; Im]`` rows in one row-aligned copy."""
+        return _build.stack_planes(vhat) if self.complex else vhat.contiguous()
+
+    def _unstack(self, kept) -> torch.Tensor:
+        """The output from the kept block ``kept`` (kx x ky real rows; a
+        complex output's Re rows then Im rows), zero elsewhere."""
+        out = torch.zeros(self.out_shape, device=self.device, dtype=self.out_dtype)
+        if self.complex:
+            kc = self.kx // 2
+            torch.view_as_real(out)[:kc, : self.ky].copy_(
+                kept.view(2, kc, self.ky).permute(1, 2, 0))
+        else:
+            out[: self.kx, : self.ky] = kept
         return out
 
     def _launch(self, ux, uy, vhat, bc_dx, bc_dy) -> torch.Tensor:
@@ -146,7 +184,13 @@ class FusedConv:
         t = _build.padded(nx, self.ky, **kw)
         _build.launch_jobs(gemm, [_build.job(t, [(total, self.fyt)], M=nx, N=self.ky)],
                            self.device)
-        # 4. out = Fx @ T on the kept block, zeros over the rest
+        # 4. out = Fx @ T on the kept block, zeros over the rest (a complex
+        # output is reassembled from the kept block's two halves)
+        if self.complex:
+            kept = torch.empty((self.kx, self.ky), **kw)
+            _build.launch_jobs(gemm, [_build.job(kept, [(self.fx, t)], M=self.kx, N=self.ky)],
+                               self.device)
+            return self._unstack(kept)
         out = torch.empty(self.out_shape, **kw)
         _build.launch_jobs(gemm, [_build.job(
             out, [(self.fx, t)], M=self.kx, N=self.ky,

@@ -11,6 +11,16 @@ with the inverse folded into the term matrices), ``div``, ``poisson``
 (fast-diagonal solve with the singular-mode pin as the output mask),
 ``projx``/``projy`` (the pressure-gradient correction).
 
+On a periodic space the stage's inputs and output are complex: each
+complex input goes to the kernel as its ``[Re; Im]`` real rows (one
+row-aligned copy, ``_build.stack_planes``), the x-axis factors are the
+split Re/Im matrices of the JAX builder (diagonals and 2x2-block
+rotations, multiplied as dense products, as the TPU kernel does), and the
+output's two halves are put back together as the complex result (one
+copy), as the JAX wrapper does (``pallas_step.py:505-509``).  The pressure Poisson stage of a
+Fourier x axis has no left factor (the Fourier modes are already modal):
+its kernel launches skip the ``L @ x`` product.
+
 On a CUDA tensor :meth:`FusedStage.apply` runs the hand-written kernel of
 ``csrc/fused_stage.cu`` as 2-4 launches (see that file for the design) and
 adds one to ``FusedStage.launches``; on a CPU tensor it runs
@@ -33,9 +43,11 @@ from . import _build
 
 
 class StageTerm(NamedTuple):
-    """One ``L @ x @ R^T`` term of a fused stage (host f64 matrices)."""
+    """One ``L @ x @ R^T`` term of a fused stage (host f64 matrices).  ``l``
+    may be None for a single-term stage whose input is already in the
+    stage's row space (the periodic Poisson stage)."""
 
-    l: np.ndarray
+    l: np.ndarray | None
     r: np.ndarray
 
 
@@ -44,10 +56,11 @@ class FusedStage:
     sum_t L_t @ xs[t] @ R_t^T [* dinv] [@ B1^T] [+ const]``, then ``B0 @ .``
     and ``* mask`` when given.  ``modal=(dinv, b0, b1)`` is the fast-diag
     solve; ``const`` and ``modal`` exclude each other, as in the JAX
-    package."""
+    package.  ``complex_io``: the inputs and the output are complex (a
+    periodic space), stacked to ``[Re; Im]`` rows for the kernel."""
 
     def __init__(self, name, terms, *, device, dtype, const=None, modal=None,
-                 mask=None):
+                 mask=None, complex_io=False):
         self.name = name
         self.terms = list(terms)
         if not 1 <= len(self.terms) <= _build.MAX_TERMS:
@@ -58,11 +71,19 @@ class FusedStage:
             if const is not None:
                 raise ValueError("const is a post-solve fold; modal stages "
                                  "carry their lift in the rhs terms instead")
-        self.r0 = int(self.terms[0].l.shape[0])
+        #: the terms carry their left factor (False: the L-less stage)
+        self.has_l = self.terms[0].l is not None
+        if any((t.l is None) == self.has_l for t in self.terms):
+            raise ValueError("terms must uniformly carry or omit L matrices")
+        if not self.has_l and (len(self.terms) != 1 or dinv is None):
+            raise ValueError("an L-less stage is one term of a modal solve")
+        self.complex_io = bool(complex_io)
+        self.r0 = int(self.terms[0].l.shape[0]) if self.has_l else int(dinv.shape[0])
         self.q1 = int(self.terms[0].r.shape[0])
-        if any(t.l.shape[0] != self.r0 or t.r.shape[0] != self.q1 for t in self.terms):
+        if any(self.has_l and t.l.shape[0] != self.r0 or t.r.shape[0] != self.q1
+               for t in self.terms):
             raise ValueError("stage terms must share their output rows and columns")
-        self.k0 = [int(t.l.shape[1]) for t in self.terms]
+        self.k0 = [int(t.l.shape[1]) if self.has_l else self.r0 for t in self.terms]
         self.k1 = [int(t.r.shape[1]) for t in self.terms]
         self.p0 = int(b0.shape[0]) if b0 is not None else self.r0
         self.p1 = int(b1.shape[0]) if b1 is not None else self.q1
@@ -72,7 +93,7 @@ class FusedStage:
         def put(m):
             return None if m is None else _build.aligned(to_device(m, self.device, dtype))
 
-        self.ls = [put(t.l) for t in self.terms]
+        self.ls = [put(t.l) for t in self.terms] if self.has_l else []
         self.rts = [put(t.r.T) for t in self.terms]
         self.const = put(const)
         self.dinv = put(dinv)
@@ -89,7 +110,9 @@ class FusedStage:
         """Multiply-add flops (2 per FMA) of one application."""
         f = 0.0
         for k0, k1 in zip(self.k0, self.k1):
-            f += 2.0 * self.r0 * k0 * k1 + 2.0 * self.r0 * k1 * self.q1
+            if self.has_l:
+                f += 2.0 * self.r0 * k0 * k1
+            f += 2.0 * self.r0 * k1 * self.q1
         if self.b1t is not None:
             f += 2.0 * self.r0 * self.q1 * self.p1
         if self.b0 is not None:
@@ -110,18 +133,36 @@ class FusedStage:
 
     # -- the stage --------------------------------------------------------
 
+    @property
+    def io_dtype(self) -> torch.dtype:
+        """The dtype of the inputs and the output."""
+        if not self.complex_io:
+            return self.dtype
+        return torch.complex128 if self.dtype == torch.float64 else torch.complex64
+
     def _check(self, xs) -> None:
         if len(xs) != len(self.terms):
             raise ValueError(f"stage {self.name!r} takes {len(self.terms)} inputs, got {len(xs)}")
         for t, x in enumerate(xs):
-            if x.device != self.device or x.dtype != self.dtype:
+            if x.device != self.device or x.dtype != self.io_dtype:
                 raise ValueError(
                     f"stage {self.name!r} input {t}: {x.dtype} on {x.device}, "
-                    f"expected {self.dtype} on {self.device}")
-            if tuple(x.shape) != (self.k0[t], self.k1[t]):
+                    f"expected {self.io_dtype} on {self.device}")
+            rows = self.k0[t] // 2 if self.complex_io else self.k0[t]
+            if tuple(x.shape) != (rows, self.k1[t]):
                 raise ValueError(
                     f"stage {self.name!r} input {t}: shape {tuple(x.shape)}, "
-                    f"expected {(self.k0[t], self.k1[t])}")
+                    f"expected {(rows, self.k1[t])}")
+
+    def _stack(self, x) -> torch.Tensor:
+        """The kernel's real input: ``x`` itself, or a complex one's ``[Re;
+        Im]`` rows in one row-aligned copy."""
+        return _build.stack_planes(x) if self.complex_io else x.contiguous()
+
+    def _unstack(self, o) -> torch.Tensor:
+        """The output from the kernel's real one (a complex output's Re rows
+        then Im rows)."""
+        return _build.unstack_planes(o) if self.complex_io else o
 
     def apply(self, *xs) -> torch.Tensor:
         """The stage: the CUDA kernel on a CUDA device, the plain chain on
@@ -131,7 +172,7 @@ class FusedStage:
             return self.plain(*xs)
         if self.device.type != "cuda":
             raise RuntimeError(f"no fused-stage kernel for device {self.device}")
-        out = self._launch([x.contiguous() for x in xs])
+        out = self._unstack(self._launch([self._stack(x) for x in xs]))
         self.launches += 1
         return out
 
@@ -139,8 +180,9 @@ class FusedStage:
         """The same chain in plain ``torch.matmul`` (the CPU path and the
         kernel's yardstick in the tests and the chip smoke run)."""
         m = None
-        for l, rt, x in zip(self.ls, self.rts, xs):
-            y = torch.matmul(torch.matmul(l, x), rt)
+        for t, (rt, x) in enumerate(zip(self.rts, xs)):
+            x = self._stack(x)
+            y = torch.matmul(torch.matmul(self.ls[t], x) if self.has_l else x, rt)
             m = y if m is None else m + y
         if self.dinv is not None:
             m = m * self.dinv
@@ -152,18 +194,21 @@ class FusedStage:
             m = torch.matmul(self.b0, m)
         if self.mask is not None:
             m = m * self.mask
-        return m
+        return self._unstack(m)
 
     def _launch(self, xs) -> torch.Tensor:
         fn = _build.gemm(self.dtype)
         kw = dict(device=self.device, dtype=self.dtype)
         r0, q1 = self.r0, self.q1
-        # 1. Y_t = L_t @ x_t, every term in one grid
-        ys = [_build.padded(r0, k1, **kw) for k1 in self.k1]
-        _build.launch_jobs(fn, [
-            _build.job(y, [(l, x)], M=r0, N=y.shape[1])
-            for y, l, x in zip(ys, self.ls, xs)
-        ], self.device)
+        # 1. Y_t = L_t @ x_t, every term in one grid (an L-less stage takes
+        # its input as Y)
+        ys = xs
+        if self.has_l:
+            ys = [_build.padded(r0, k1, **kw) for k1 in self.k1]
+            _build.launch_jobs(fn, [
+                _build.job(y, [(l, x)], M=r0, N=y.shape[1])
+                for y, l, x in zip(ys, self.ls, xs)
+            ], self.device)
         # 2. M = sum_t Y_t @ R_t^T, with the elementwise epilogue; the mask
         # lands here unless a backward map follows
         last2 = self.b1t is None and self.b0 is None
@@ -191,12 +236,20 @@ class FusedStage:
 # -- model builder --------------------------------------------------------------
 
 
+def _stack_host(arr) -> np.ndarray:
+    """A host array as the kernels' real rows: a complex one's ``[Re;
+    Im]``."""
+    a = np.asarray(arr)
+    return np.concatenate([a.real, a.imag], axis=0) if np.iscomplexobj(a) else a
+
+
 def build_model_step(model) -> dict:
-    """The seven fused stages of a confined Navier2D model, keyed by stage
-    tag: ``velx`` (inputs: velx, pres, conv), ``vely`` (vely, pres, temp,
-    conv), ``temp`` (temp, conv), ``div`` (velx_n, vely_n), ``poisson``
-    (div), ``projx``/``projy`` (pseu_n).  All host matrices are built in
-    numpy f64 from the same math as the JAX package's builder."""
+    """The seven fused stages of a Navier2D model, keyed by stage tag:
+    ``velx`` (inputs: velx, pres, conv), ``vely`` (vely, pres, temp, conv),
+    ``temp`` (temp, conv), ``div`` (velx_n, vely_n), ``poisson`` (div),
+    ``projx``/``projy`` (pseu_n).  All host matrices are built in numpy f64
+    from the same math as the JAX package's builder, a Fourier x axis in
+    its split Re/Im form (``pallas_step.py:427-443, 505-509, 629-659``)."""
     from .. import solver as slv
 
     sp_u, sp_t = model.velx_space, model.temp_space
@@ -226,9 +279,10 @@ def build_model_step(model) -> dict:
     def lift_const(L, R, arr, factor):
         """Post-solve BC-lift fold: ``A (rhs + c*lift) == A rhs + c * A lift
         A^T`` baked on the host."""
-        return factor * (L @ arr @ R.T)
+        return factor * (L @ _stack_host(arr) @ R.T)
 
-    kw = dict(device=model.device, dtype=model.dtype)
+    cplx = sp_u.spectral_is_complex
+    kw = dict(device=model.device, dtype=model.dtype, complex_io=cplx)
     nx, ny = model.nx, model.ny
     T = StageTerm
     stages = {
@@ -253,7 +307,9 @@ def build_model_step(model) -> dict:
         ], **kw),
     }
 
-    # pressure Poisson: fast-diag modal solve, singular pin as output mask
+    # pressure Poisson: fast-diag modal solve, singular pin as output mask;
+    # a Fourier x axis is already modal (no left factor, no B0), its k=0
+    # mode pinned in both the Re and the Im row
     lam0, f0, b0m = slv.modal_data_split(sp_q, 0, 1.0 / sx2, 1.0)
     lam1, f1, b1m = slv.modal_data_split(sp_q, 1, 1.0 / sy2, 1.0)
     if abs(lam0[0]) < 1e-10:
@@ -261,6 +317,8 @@ def build_model_step(model) -> dict:
     dinv = 1.0 / (lam0[:, None] + lam1[None, :])
     pin = np.ones((len(lam0), b1m.shape[0]))
     pin[0, 0] = 0.0
+    if sp_q.bases[0].is_periodic:
+        pin[len(lam0) // 2, 0] = 0.0  # the Im row of the k=0 mode
     stages["poisson"] = FusedStage(f"poisson_{nx}x{ny}", [T(f0, f1)],
                                    modal=(dinv, b0m, b1m), mask=pin, **kw)
 

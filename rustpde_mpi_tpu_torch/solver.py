@@ -1,7 +1,7 @@
 """Composite Helmholtz / Poisson solvers over Galerkin spectral spaces.
 
-Counterpart of the JAX package's ``solver.py``, Chebyshev axes only (the
-confined cell):
+Counterpart of the JAX package's ``solver.py``, on Chebyshev axes and
+on the Fourier x axis of the horizontally periodic cell:
 
 * host modal data: the dense ADI Helmholtz axis factor and the
   fast-diagonal eigen-data, from which the fused stage kernels
@@ -12,6 +12,12 @@ confined cell):
   axis 1), :class:`FastDiag` (both axes diagonalised: matrix products and
   one division), and :class:`Poisson` / :class:`Hholtz` on top of the
   last two.
+
+A Fourier axis is already modal: its Helmholtz factor is a diagonal
+(:class:`..ops.banded.DiagSolver`), its eigenvalues ``-k^2`` with no maps,
+so on a Fourier x Chebyshev space the Poisson solve is one banded system
+per Fourier mode along the Chebyshev axis, all modes (their real and
+imaginary parts) in one launch of the banded kernel.
 
 Every device solve is ``torch.matmul`` plus, on the ``"banded"`` method,
 the banded substitution of :mod:`rustpde_mpi_tpu_torch.ops.banded`, whose
@@ -33,16 +39,21 @@ import torch
 
 from .bases import BaseKind, Space2
 from .config import to_device
-from .ops.banded import BandedSolver, DenseSolver, apply_along, band_lu_factor, dense_to_band, pad_band
+from .ops.banded import (BandedSolver, DenseSolver, DiagSolver, apply_along, band_lu_factor,
+                         dense_to_band, pad_band)
 from .parallel.mesh import pad_matrix, padded
 
 _P, _Q = 2, 4  # lower/upper bandwidth of every preconditioned Chebyshev operator
 
 
 def ingredients_for_hholtz(space: Space2, axis: int):
-    """``(mat_a, mat_b, precond)`` of one Chebyshev axis: preconditioned with
-    the restricted quasi-inverse, ``mat_a - c*mat_b`` is banded."""
+    """``(mat_a, mat_b, precond)`` of one axis: a Chebyshev axis is
+    preconditioned with the restricted quasi-inverse, so that ``mat_a -
+    c*mat_b`` is banded; a Fourier axis is already diagonal (``(I,
+    diag(-k^2), None)``)."""
     base = space.bases[axis]
+    if base.is_periodic:
+        return np.eye(base.m), base.laplace(), None
     peye = base.laplace_inv_eye()
     pinv = peye @ base.laplace_inv()
     S = base.mass()
@@ -53,8 +64,14 @@ def ingredients_for_hholtz(space: Space2, axis: int):
 
 def hholtz_axis_solve_matrix(space: Space2, axis: int, ci: float) -> np.ndarray:
     """Dense ADI Helmholtz axis factor ``A = (mat_a - ci*mat_b)^-1 @
-    precond`` in natural order: the 2-D solve is ``A0 @ rhs @ A1^T``."""
+    precond`` in natural order: the 2-D solve is ``A0 @ rhs @ A1^T``.  A
+    Fourier axis gives the diagonal ``1/(1 + ci*k^2)`` in the split Re/Im
+    form over ``2m`` rows (each eigenvalue twice), what
+    ``Base.axis_operator`` gives for that axis."""
     mat_a, mat_b, precond = ingredients_for_hholtz(space, axis)
+    if space.bases[axis].is_periodic:
+        d = 1.0 / np.diag(mat_a - ci * mat_b)
+        return np.diag(np.concatenate([d, d]))
     return np.linalg.solve(mat_a - ci * mat_b, precond)
 
 
@@ -87,7 +104,11 @@ def _axis_modal_data(space: Space2, axis: int, ci: float, sign: float):
     the ortho-space rhs into eigenspace (``Q^-1 C^-1 pinv``) and ``bwd = Q``
     mapping back to composite coefficients.  Parity-preserving pencils are
     decomposed per parity block, so the maps carry exact checkerboard
-    zeros."""
+    zeros.  A Fourier axis is already modal: ``lam = sign*ci*(-k^2)``, no
+    maps."""
+    base = space.bases[axis]
+    if base.is_periodic:
+        return sign * ci * (-(base.wavenumbers**2)), None, None
     mat_c, mat_a, precond = ingredients_for_hholtz(space, axis)
     if (
         _checker_shift(mat_c) == 0
@@ -114,9 +135,14 @@ def _axis_modal_data(space: Space2, axis: int, ci: float, sign: float):
 
 
 def modal_data_split(space: Space2, axis: int, ci: float, sign: float = 1.0):
-    """``(lam, fwd, bwd)`` of one axis, eigenvalues in natural order (the
-    JAX package's contract of the same name, Chebyshev axes)."""
-    return _axis_modal_data(space, axis, ci, sign)
+    """``(lam, fwd, bwd)`` of one axis, eigenvalues in natural order, in
+    the split Re/Im convention of the fused stages (the JAX package's
+    contract of the same name): a Fourier axis's eigenvalues duplicated
+    over the Re and Im blocks, its maps None."""
+    lam, fwd, bwd = _axis_modal_data(space, axis, ci, sign)
+    if space.bases[axis].is_periodic:
+        lam = np.concatenate([lam, lam])
+    return lam, fwd, bwd
 
 
 # -- solver objects -------------------------------------------------------------
@@ -148,15 +174,22 @@ def _check_rhs(rhs: torch.Tensor) -> int:
 
 
 class _AxisSolver:
-    """1-D solver of one Chebyshev axis: ``"banded"`` (and its alias
-    ``"pallas"``) runs the banded substitution kernel, ``"dense"`` the
-    precomputed inverse.  The banded system is padded with identity rows to
-    a multiple of ``nranks``, the pencil extent on a mesh of that many ranks
-    (no padding for one rank)."""
+    """1-D solver of one axis: on a Chebyshev axis ``"banded"`` (and its
+    alias ``"pallas"``) runs the banded substitution kernel, ``"dense"``
+    the precomputed inverse; a Fourier axis is a :class:`DiagSolver`
+    whatever the method.  The banded system is padded with identity rows
+    to a multiple of ``nranks``, the pencil extent on a mesh of that many
+    ranks (no padding for one rank)."""
 
-    def __init__(self, mat: np.ndarray, method: str, nranks: int, *, device, dtype):
+    def __init__(self, mat: np.ndarray, method: str, nranks: int, *, device, dtype,
+                 periodic: bool = False):
         kw = dict(device=device, dtype=dtype)
-        if _check_method(method, _AXIS_METHODS) == "dense":
+        method = _check_method(method, _AXIS_METHODS)
+        if periodic:
+            if nranks > 1:
+                raise NotImplementedError("a Fourier axis is not ported to pencils")
+            self.solver = DiagSolver(np.diag(mat), **kw)
+        elif method == "dense":
             if nranks > 1:
                 raise NotImplementedError("method='dense' is not ported to pencils; use 'banded'")
             self.solver = DenseSolver(mat, **kw)
@@ -171,6 +204,12 @@ class _AxisSolver:
         return [self.solver.kernel] if isinstance(self.solver, BandedSolver) else []
 
 
+def _apply(mat, x, axis):
+    """``mat`` along ``axis`` of ``x``; None: the identity (the
+    preconditioner of a Fourier axis, the modal maps of one)."""
+    return x if mat is None else apply_along(mat, x, axis)
+
+
 def default_method() -> str:
     """Method of the solves: :data:`DEFAULT_METHOD` on the CPU and on the
     card alike (on the card the recurrence runs as the CUDA kernel).
@@ -181,7 +220,8 @@ def default_method() -> str:
 class HholtzAdi:
     """ADI Helmholtz: ``(I - c*D2) vhat = A f`` solved axis by axis, each
     axis preconditioned with the restricted quasi-inverse (a matrix product)
-    and then solved by its :class:`_AxisSolver`."""
+    and then solved by its :class:`_AxisSolver` (a Fourier axis: no
+    preconditioner, a diagonal solve)."""
 
     def __init__(self, space: Space2, c, method: str | None = None):
         method = method or default_method()
@@ -192,8 +232,9 @@ class HholtzAdi:
         self.solvers = []
         for axis, ci in enumerate(c):
             mat_a, mat_b, precond = ingredients_for_hholtz(space, axis)
-            self.solvers.append(_AxisSolver(mat_a - ci * mat_b, method, space.nranks, **kw))
-            self.matvec.append(space.operator(precond))
+            self.solvers.append(_AxisSolver(mat_a - ci * mat_b, method, space.nranks, **kw,
+                                            periodic=space.bases[axis].is_periodic))
+            self.matvec.append(None if precond is None else space.operator(precond))
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """rhs in ortho space -> solution in composite space; extra leading
@@ -203,8 +244,8 @@ class HholtzAdi:
         preconditioner and solve on the y-pencil, flip back, the axis-0
         solve (the flips are the identity on a serial space)."""
         ax = _check_rhs(rhs)
-        out = apply_along(self.matvec[0], rhs, ax)
-        out = apply_along(self.matvec[1], self.space.x_to_y(out), ax + 1)
+        out = _apply(self.matvec[0], rhs, ax)
+        out = _apply(self.matvec[1], self.space.x_to_y(out), ax + 1)
         out = self.solvers[1].solve(out, ax + 1)  # axis-1 recurrence
         return self.solvers[0].solve(self.space.y_to_x(out), ax)  # axis-0 recurrence
 
@@ -228,8 +269,9 @@ class TensorSolver:
         self.mesh = mesh
         nranks = 1 if mesh is None else mesh.nranks
         # operators zero-padded, systems identity-padded to the pencil extents
-        self.fwd = to_device(pad_matrix(fwd0, nranks), **kw)
-        self.bwd = to_device(pad_matrix(bwd0, nranks), **kw)
+        # the eigen maps (None on a Fourier axis, already modal)
+        self.fwd = None if fwd0 is None else to_device(pad_matrix(fwd0, nranks), **kw)
+        self.bwd = None if bwd0 is None else to_device(pad_matrix(bwd0, nranks), **kw)
         if fix_singular and abs(lam[0]) < 1e-10:
             # pure-Neumann problems: nudge the zero mode so the banded
             # factorization exists
@@ -252,10 +294,10 @@ class TensorSolver:
         if self.mesh is not None:
             return self._solve_pencil(rhs)
         ax = _check_rhs(rhs)
-        out = apply_along(self.matvec1, rhs, ax + 1)
-        out = apply_along(self.fwd, out, ax)
+        out = _apply(self.matvec1, rhs, ax + 1)
+        out = _apply(self.fwd, out, ax)
         out = self.banded.solve(out, ax + 1)
-        return apply_along(self.bwd, out, ax)
+        return _apply(self.bwd, out, ax)
 
     def _solve_pencil(self, rhs: torch.Tensor) -> torch.Tensor:
         """The eigen map on the x-pencil, flip, the axis-1 preconditioner
@@ -288,8 +330,8 @@ class FastDiag:
     def __init__(self, modal0, modal1, alpha: float, fix_singular=False, *, device, dtype):
         kw = dict(device=device, dtype=dtype)
         lams = [modal0[0], modal1[0]]
-        self.fwd = [to_device(m[1], **kw) for m in (modal0, modal1)]
-        self.bwd = [to_device(m[2], **kw) for m in (modal0, modal1)]
+        self.fwd = [None if m[1] is None else to_device(m[1], **kw) for m in (modal0, modal1)]
+        self.bwd = [None if m[2] is None else to_device(m[2], **kw) for m in (modal0, modal1)]
         if fix_singular and abs(lams[0][0]) < 1e-10:
             # pure-Neumann zero mode: same nudge as TensorSolver
             lams[0] = lams[0] - 1e-10
@@ -299,11 +341,11 @@ class FastDiag:
         """rhs in ortho space -> solution in composite space (extra leading
         dims are batch)."""
         ax = _check_rhs(rhs)
-        out = apply_along(self.fwd[0], rhs, ax)
-        out = apply_along(self.fwd[1], out, ax + 1)
+        out = _apply(self.fwd[0], rhs, ax)
+        out = _apply(self.fwd[1], out, ax + 1)
         out = out / self.denom
-        out = apply_along(self.bwd[1], out, ax + 1)
-        return apply_along(self.bwd[0], out, ax)
+        out = _apply(self.bwd[1], out, ax + 1)
+        return _apply(self.bwd[0], out, ax)
 
     def kernels(self) -> list:
         return []

@@ -512,9 +512,13 @@ def test_meshed_route_on_card_matches_cpu(device):
 # -- chunked stepping: a CUDA graph of the step ---------------------------------------
 
 
-#: kernel launches a step of each route
+#: kernel launches a step of each route (the periodic dense route: one
+#: banded solve on the Chebyshev axis for velx, vely and temp each, one for
+#: every Fourier mode of the Poisson solve)
 PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7},
-            "mesh": {"banded_solve": 7, "ring_transpose": 37}}
+            "mesh": {"banded_solve": 7, "ring_transpose": 37},
+            "periodic_fused": {"fused_conv": 3, "fused_stage": 7},
+            "periodic_dense": {"banded_solve": 4}}
 ROUTES = sorted(PER_STEP)
 
 
@@ -523,8 +527,10 @@ def _route_model(route, device, n=33):
         kw = dict(mesh=pt.make_mesh(4, device))
     else:
         kw = dict(device=device)
-        if route == "dense":
+        if route.endswith("dense"):
             kw.update(step_kernel="dense", conv_kernel="dense")
+    if route.startswith("periodic"):
+        return pt.Navier2D.new_periodic(n - 1, n, 1e5, 1.0, 2e-3, 1.0, "rbc", **kw)
     return pt.Navier2D.new_confined(n, n, 1e5, 1.0, 2e-3, 1.0, "rbc", **kw)
 
 
@@ -612,3 +618,98 @@ def test_chunk_capture_failure_raises(device):
     with pytest.raises(RuntimeError):
         m.update_n(2)
     assert not m._runners and m.state is before and m.time == 0.0
+
+
+# -- the periodic cell (Fourier r2c x Chebyshev) ---------------------------------------
+
+
+@pytest.mark.parametrize("nx", [16, 31])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_periodic_stages_and_convs_match_plain(device, nx, dtype):
+    """Every stage (the L-less Poisson stage included) and both conv
+    variants on complex inputs, stacked to [Re; Im] planes for the kernels."""
+    model = pt.Navier2D(nx, 33, 1e5, 1.0, 2e-3, 1.0, "rbc", periodic=True, device=device,
+                        dtype=dtype)
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    rng = np.random.default_rng(nx)
+
+    def rand(shape, cplx=False):
+        a = rng.uniform(-1.0, 1.0, shape) + (1j * rng.uniform(-1.0, 1.0, shape) if cplx else 0)
+        return torch.tensor(a, dtype=cdt if cplx else dtype, device=device)
+
+    assert not model._stages["poisson"].has_l
+    for tag, st in model._stages.items():
+        xs = [rand((k0 // 2, k1), True) for k0, k1 in zip(st.k0, st.k1)]
+        out = st.apply(*xs)
+        assert out.dtype == cdt and _rel(out, st.plain(*xs)) <= TOL[dtype], tag
+        assert st.launches == 1
+    for fc, with_bc in ((model._convs[id(model.velx_space)], False),
+                        (model._convs[id(model.temp_space)], True)):
+        args = [rand((nx, 33)), rand((nx, 33)), rand((fc.mx // 2, fc.my), True)]
+        if with_bc:
+            args += [rand((nx, 33)), rand((nx, 33))]
+        out = fc.apply(*args)
+        assert out.dtype == cdt and _rel(out, fc.plain(*args)) <= TOL[dtype]
+        assert fc.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_periodic_banded_solves_match_plain(device, dtype):
+    """The periodic dense route's banded solves on complex right-hand
+    sides: the ADI Chebyshev axis (one factor set) and the Poisson solve
+    (one set per Fourier mode, read by its Re and Im lanes), each one
+    launch, on the parity path."""
+    model = pt.Navier2D(32, 65, 1e5, 1.0, 2e-3, 1.0, "rbc", periodic=True, device=device,
+                        dtype=dtype, step_kernel="dense", conv_kernel="dense")
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    rng = np.random.default_rng(7)
+    cases = [(model.solver_velx.solvers[1].solver, model.velx_space.shape_spectral),
+             (model.solver_pres._solver.banded, model.pseu_space.shape_spectral)]
+    for solver, shape in cases:
+        b = torch.tensor(rng.uniform(-1.0, 1.0, shape) + 1j * rng.uniform(-1.0, 1.0, shape),
+                         dtype=cdt, device=device)
+        before = solver.kernel.launches
+        got = solver.solve(b, 1)
+        assert solver.kernel.launches == before + 1 and solver.kernel.path == "parity"
+        want = solver.plain(b, 1)
+        assert _lane_rel(got.real, want.real, 1) <= TOL[dtype]
+        assert _lane_rel(got.imag, want.imag, 1) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("route", ["fused", "dense"])
+def test_periodic_route_on_card_matches_cpu(device, route):
+    """Ten periodic steps through the kernels agree with ten plain steps on
+    the CPU (rel 1e-11 of each field's scale), with the route's launches."""
+    states = {}
+    for dev in (device, torch.device("cpu")):
+        m = _route_model(f"periodic_{route}", dev)
+        _prepare_chunks(m)
+        m.update_n(10)
+        states[dev.type] = (pt.state_to_numpy(m), m)
+    want = {k: 10 * v for k, v in PER_STEP[f"periodic_{route}"].items()}
+    assert _launches_by_kernel(states["cuda"][1]) == want
+    for name, ref in states["cpu"][0].items():
+        assert np.iscomplexobj(ref)
+        scale = max(float(np.max(np.abs(ref))), 1e-300)
+        assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_transform_methods_agree_on_card(device, periodic):
+    """The FFT and the matmul transform paths of the Chebyshev axes give
+    the same transforms on the card (1e-12 of the result's scale)."""
+    from rustpde_mpi_tpu_torch import bases as tb
+
+    bx = tb.fourier_r2c(64) if periodic else tb.cheb_dirichlet(65)
+    spaces = {m: tb.Space2(bx, tb.cheb_dirichlet(65), device=device, dtype=torch.float64,
+                           method=m) for m in ("fft", "matmul")}
+    v = torch.tensor(np.random.default_rng(3).uniform(-1.0, 1.0, spaces["fft"].shape_physical),
+                     device=device)
+    vhat = {m: sp.forward(v) for m, sp in spaces.items()}
+    assert _rel(vhat["fft"], vhat["matmul"]) <= 1e-12
+    for fn in ("backward", "to_ortho"):
+        got = {m: getattr(sp, fn)(vhat["matmul"]) for m, sp in spaces.items()}
+        assert _rel(got["fft"], got["matmul"]) <= 1e-12, fn
+    for deriv in ((1, 0), (0, 1)):
+        got = {m: sp.backward_gradient(vhat["matmul"], deriv) for m, sp in spaces.items()}
+        assert _rel(got["fft"], got["matmul"]) <= 1e-12, deriv
