@@ -116,6 +116,34 @@ dt=1e-4, f64), on the fused route and then the dense one:
     and 7 stage launches a step on the fused route, 4 banded launches on
     the dense one), profiles it as phase 5 does, and holds the chunk gates
     of phase 14 on it;
+
+Then the periodic cell on the mesh, and the
+horizontal-convection (HC) boundary conditions (a cosine-heated bottom, an
+insulated top: the temperature's y base is Dirichlet-Neumann, so its solve
+runs the banded kernel's general path, one chain a lane):
+
+19. ``periodic1024`` on the meshed route (4 ranks, complex spectral
+    pencils): the pencil transpose bit for bit against its plain ring and
+    ``.contiguous()`` on the complex128 and complex64 spectral pencils of
+    128x129 and at every pencil a meshed step flips (26 of its 37 flips
+    complex), timed cold as phase 12 times it; the banded kernel at every
+    input the step gives it (complex y-pencils as two planes of real
+    lanes, the Poisson lanes' factor sets offset by the rank), as phase 12
+    holds it; meshed against serial dense at 128x129 (rel 1e-11); the main
+    path (exactly 37 flips and 4 banded launches a step), the profile and
+    the chunk gates of phase 14;
+20. ``hc1025`` (``rbc1025`` with ``bc="hc"``) on the fused route, then
+    the dense one: the route's kernels against their plain versions at
+    129^2 (f64 1e-12, f32 1e-4) and at ``hc1025``, timed (the general-path
+    temperature solve among the banded cases); the main path (the dense
+    route's 7 banded launches a step, one of them on the general path),
+    the profile and the chunk gates;
+21. HC's correctness at 129^2 and 128x129 (Ra=1e5, dt=0.01, the
+    reference's HC examples), 10 steps on every route (fused, dense,
+    meshed): card vs CPU rel 1e-11 of each field's scale (the card's
+    transform method on both sides), meshed vs dense 1e-11, fused vs dense
+    1e-11 with ``pseu`` at ``PSEU_ROUTES_LIMIT`` beside the JAX package's
+    own difference;
 17. last, the two transform methods of the Chebyshev axes: at ``rbc1025``
     and ``periodic1024`` the velocity space's transforms under ``"fft"``
     against ``"matmul"`` (1e-12), each timed, and each route of each cell
@@ -126,7 +154,8 @@ The profiles of the dense and meshed routes list each banded launch of
 one step, to set beside the launches timed alone.  The ``kernels`` line
 sums each kernel over one step of the route it was ported for, and over a
 step of each other route that runs it (``mesh_*``, ``periodic_fused_*``,
-``periodic_dense_*``), with every kernel's periodic launches.
+``periodic_dense_*``, ``periodic_mesh_*``, ``hc_fused_*``,
+``hc_dense_*``), with every kernel's launches on every route.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -157,22 +186,40 @@ PERIODIC1024 = dict(nx=1024, ny=1025, ra=1e9, pr=1.0, dt=1e-4, aspect=1.0, bc="r
                     periodic=True)
 #: the reference's periodic example size (``examples/navier_rbc_periodic.py``)
 PERIODIC128 = dict(nx=128, ny=129, ra=1e5, pr=1.0, dt=0.01, aspect=1.0, bc="rbc", periodic=True)
+#: the horizontal-convection flagship: ``rbc1025`` with the cosine-heated
+#: bottom and the insulated top (the reference's ``navier_hc`` example)
+HC1025 = dict(RBC1025, bc="hc")
+#: the horizontal-convection correctness cells of phase 21, 10 steps each,
+#: at the reference's HC examples' parameters (Ra=1e5, dt=0.01:
+#: ``examples/navier_mpi.py --bc hc``, ``examples/navier_rbc_periodic.py
+#: --bc hc``); at the golden head's Ra=1e7, dt=2e-3 the dense route's temp
+#: differs between any two correct roundings by ≈1e-11 of its scale after 10
+#: steps (the JAX package against the port on the CPU: 1.01e-11)
+HC_CELLS = {"hc129": dict(nx=129, ny=129, ra=1e5, pr=1.0, dt=0.01, aspect=1.0, bc="hc"),
+            "hc_periodic128": dict(PERIODIC128, bc="hc")}
 MAIN_STEPS = 50
 #: how far the fused route's pseudo-pressure may stray from the dense
 #: route's, relative to its scale, after 10 steps of ``PERIODIC128``: the
 #: JAX package's own two routes differ by 8.03e-11 there (fast
 #: diagonalisation against the banded solve of the Poisson problem)
 PSEU_ROUTES_LIMIT = 1e-10
+#: the JAX package's own fused route against its dense one after 10 steps
+#: of each phase 21 cell, relative to pseu's scale, on the CPU (measured, with
+#: the port's, by tests/test_torch_hc.py::test_routes_differ_as_the_reference_routes_do):
+#: phase 21 holds the card's routes to ``PSEU_ROUTES_LIMIT`` there too
+REFERENCE_ROUTES_DIFF = {"hc129": {"pseu": 4.38e-11}, "hc_periodic128": {"pseu": 6.79e-11}}
 STAGE_TAGS = ("velx", "vely", "temp", "div", "poisson", "projx", "projy")
 DENSE = dict(step_kernel="dense", conv_kernel="dense")
 #: kernel launches a step of each route
 PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7},
             "mesh": {"banded_solve": 7, "ring_transpose": 37},
             "periodic_fused": {"fused_conv": 3, "fused_stage": 7},
-            "periodic_dense": {"banded_solve": 4}}
+            "periodic_dense": {"banded_solve": 4},
+            "periodic_mesh": {"banded_solve": 4, "ring_transpose": 37},
+            "hc_fused": {"fused_conv": 3, "fused_stage": 7}, "hc_dense": {"banded_solve": 7}}
 #: kernel launches of one save-window callback (the observables): the
-#: meshed route flips pencils there too
-PER_CALLBACK = {"mesh": {"ring_transpose": 10}}
+#: meshed routes flip pencils there too
+PER_CALLBACK = {"mesh": {"ring_transpose": 10}, "periodic_mesh": {"ring_transpose": 10}}
 #: grid launches a step of each route's hand-written kernels, by a part of
 #: the kernel's name: what a profile that recorded every device event of a
 #: step holds (a fused conv chain is 3 generic-GEMM launches and 1 dual,
@@ -183,7 +230,10 @@ PROFILE_LAUNCHES = {"fused": {"gemm_jobs_kernel": 25, "conv_dual_kernel": 3},
                     "dense": {"banded_kernel": 7},
                     "mesh": {"banded_kernel": 7, "ring_transpose_kernel": 37},
                     "periodic_fused": {"gemm_jobs_kernel": 23, "conv_dual_kernel": 3},
-                    "periodic_dense": {"banded_kernel": 4}}
+                    "periodic_dense": {"banded_kernel": 4},
+                    "periodic_mesh": {"banded_kernel": 4, "ring_transpose_kernel": 37},
+                    "hc_fused": {"gemm_jobs_kernel": 25, "conv_dual_kernel": 3},
+                    "hc_dense": {"banded_kernel": 7}}
 PROFILE_ATTEMPTS = 3
 #: ranks of the meshed route (all on the one card)
 MESH_RANKS = 4
@@ -204,6 +254,11 @@ LIBRARY_LIMIT = 1e-8
 #: the kernel contracts to FMAs), as the step's Poisson lanes cancel where
 #: random ones do not
 STEP_INPUT_LIMIT = 1e-11
+#: launches a queued timing of a meshed banded solve enqueues behind one
+#: spin: a wrapped launch of a complex pencil's solve costs ≈0.18 ms of host
+#: time, so 50 of them outlast the ≈10 ms spin and the reading turns into
+#: the host's
+QUEUED_REPS = 20
 
 
 def card_line() -> str:
@@ -381,8 +436,8 @@ def random_field(torch, rng, shape, dtype, device, cplx=False):
 
 def label_of(model) -> str:
     """The configuration a model was built at (the timed cells are
-    ``rbc1025`` and ``periodic1024``)."""
-    return f"{'periodic' if model.periodic else 'rbc'}{model.nx}"
+    ``rbc1025``, ``hc1025`` and ``periodic1024``)."""
+    return f"{'periodic' if model.periodic else model.bc}{model.nx}"
 
 
 def tile_config() -> dict:
@@ -450,7 +505,7 @@ def phase_kernels(torch, model, limit, timing, phase="phase1"):
     import numpy as np
 
     rng = np.random.default_rng(1)
-    route = "periodic_fused" if model.periodic else "fused"
+    route = route_of(model)
     records = []
     f64 = model.dtype == torch.float64
     peak = (F64_TFLOPS if f64 else F32_TFLOPS) * 1e12
@@ -493,7 +548,7 @@ def phase_kernels(torch, model, limit, timing, phase="phase1"):
                 "plain_repeat_bit_equal": bool(torch.equal(out_p, again_p))}))
             raise AssertionError(f"{kernel}/{label} at {model.nx}^2: rel err {rel:.3e} > {limit:g}")
         records.append(rec)
-    if timing and not model.periodic:
+    if timing and route == "fused":
         n = (model.nx, model.ny)
         fc = model._convs[id(model.velx_space)]
         conv_launches(torch, fc, [torch.as_tensor(rng.uniform(-1.0, 1.0, size=s), dtype=model.dtype)
@@ -553,9 +608,13 @@ def count_launches(model) -> dict:
 
 
 def route_of(model) -> str:
+    """The route a model runs, as ``PER_STEP`` names it: ``mesh`` and
+    ``periodic_mesh`` on a mesh, else the step kernel prefixed with the
+    periodic cell or the HC boundary conditions."""
     if model.mesh is not None:
-        return "mesh"
-    return ("periodic_" if model.periodic else "") + model.step_kernel
+        return "periodic_mesh" if model.periodic else "mesh"
+    prefix = "periodic_" if model.periodic else ("hc_" if model.bc == "hc" else "")
+    return prefix + model.step_kernel
 
 
 def phase_main(torch, pt, model, phase="phase4"):
@@ -593,8 +652,12 @@ def phase_main(torch, pt, model, phase="phase4"):
           f"{wall_integrate / MAIN_STEPS * 1e3:.4f} ms/step; launches in integrate "
           f"{launches}; at t={model.time:.4f}: Nu={nu!r} Nuvol={nuvol!r} "
           f"Re={re!r} |div|={div!r}")
-    if not all(math.isfinite(v) for v in (nu, nuvol, re, div)) or not nu > 0.0:
-        raise AssertionError(f"{label_of(model)} observables not finite or Nu <= 0")
+    # an RBC cell carries heat upward (Nu > 0); HC's plate flux averages to
+    # about zero (heated and cooled halves of one plate), its flow must move
+    moving = nu > 0.0 if model.bc == "rbc" else re > 0.0
+    if not all(math.isfinite(v) for v in (nu, nuvol, re, div)) or not moving:
+        raise AssertionError(f"{label_of(model)} observables not finite, or Nu <= 0 (rbc) "
+                             "or Re <= 0 (hc)")
     return launches, wall / MAIN_STEPS * 1e3
 
 
@@ -923,9 +986,9 @@ def banded_layout(solver, b, axis) -> dict:
     kernel = solver.kernel
     views = []
     solver._along(lambda v: views.append(v) or v, b, axis)
-    view = views[0]  # real: a complex b's real and imaginary parts are its batch entries
+    view = views[0]  # real: a complex b's real and imaginary parts are its planes
     terms = max(kernel.chain_lower.shape[0], kernel.chain_upper.shape[0])
-    rows_contiguous = view.stride(1) == 1 and view.stride(2) != 1
+    rows_contiguous = view.stride(-2) == 1 and view.stride(-1) != 1
     return {"path": kernel.path, "tile_lanes": kernel.tile_lanes, "view_strides": view.stride(),
             "copy_bytes": 16 if bsm.vector_copies(view, kernel.tile_lanes) else view.element_size(),
             "shared_bytes": bsm.shared_bytes(kernel.n, view.element_size(), kernel.systems,
@@ -941,7 +1004,7 @@ def phase_banded(torch, pt, model, limit, timing, phase="phase6"):
 
     rng = np.random.default_rng(2)
     peak = (F64_TFLOPS if model.dtype == torch.float64 else F32_TFLOPS) * 1e12
-    route = "periodic_dense" if model.periodic else "dense"
+    route = route_of(model)
     records = []
     for label, solver, b, axis, per_step, lib in banded_cases(torch, pt, model, rng, timing):
         out_k = solver.solve(b, axis)
@@ -969,7 +1032,7 @@ def phase_banded(torch, pt, model, limit, timing, phase="phase6"):
                        flops=flops, bytes=nbytes, bound_ms=max(t_op, t_mem),
                        bound_by="operations" if t_op >= t_mem else "bytes")
         print(f"{phase} " + json.dumps(rec))
-        if rec["path"] != "parity":
+        if rec["path"] != expected_path(model, label):
             raise AssertionError(f"banded_solve/{label}: the step's system took the {rec['path']} path")
         if not rel <= limit:
             raise AssertionError(f"banded_solve/{label} at {model.nx}^2: rel err {rel:.3e} > {limit:g}")
@@ -978,6 +1041,14 @@ def phase_banded(torch, pt, model, limit, timing, phase="phase6"):
                                  f"system (rel err {rec['library_max_rel_err']:.3e})")
         records.append(rec)
     return records
+
+
+def expected_path(model, label) -> str:
+    """The banded kernel's path for the solve ``label`` of ``model``'s
+    step: the general path (one chain a lane) for the horizontal-convection
+    temperature's y solve, whose Dirichlet-Neumann band couples rows of both
+    parities; two chains a lane (even and odd rows) for every other."""
+    return "general" if model.bc == "hc" and label.startswith("temp_axis1") else "parity"
 
 
 def phase_mms(torch, pt):
@@ -1053,16 +1124,18 @@ def phase_solvers(torch, pt, model):
 def banded_solvers(model) -> dict:
     """``{label: BandedSolver}`` of the banded solves of ``model``'s dense
     step (velx and vely share one ADI solver)."""
+    from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
+
     out = {f"{tag}_axis{axis}": adi.solvers[axis].solver
            for tag, adi in (("velx", model.solver_velx), ("temp", model.solver_temp))
-           for axis in (1, 0)}
+           for axis in (1, 0) if isinstance(adi.solvers[axis].solver, BandedSolver)}
     out["poisson"] = model.solver_pres._solver.banded
     return out
 
 
 def step_inputs(torch, model):
-    """What one meshed step gives its kernels: ``{(input shape, x_to_y):
-    flips}``, ``{(solver label, input shape, axis, factor batch stride):
+    """What one meshed step gives its kernels: ``{(input shape, x_to_y,
+    dtype): flips}``, ``{(solver label, input shape, axis, factor batch stride):
     solves}`` and, under the same keys, a copy of the first input of each
     such solve.  The mesh's transpose and the model's banded solvers are
     wrapped for the step to log their inputs, and the model's state and
@@ -1075,7 +1148,7 @@ def step_inputs(torch, model):
     ring = model.mesh.ring
 
     def log_flip(block, x_to_y, apply=ring.apply):
-        count(flips, (tuple(block.shape), bool(x_to_y)))
+        count(flips, (tuple(block.shape), bool(x_to_y), str(block.dtype).replace("torch.", "")))
         return apply(block, x_to_y)
 
     wrapped = [(ring, "apply", log_flip)]
@@ -1100,9 +1173,10 @@ def step_inputs(torch, model):
     return flips, solves, inputs
 
 
-def phase_mesh_banded(torch, model, solves, inputs, limit):
-    """Phase 12, the banded kernel on the meshed route: every input a
-    meshed rbc1025 step gives it (``solves``, ``inputs``, from
+def phase_mesh_banded(torch, model, solves, inputs, limit, phase="phase12"):
+    """Phase 12 (phase 19 for the periodic cell: complex y-pencils, the
+    real and imaginary parts two planes of one launch), the banded kernel
+    on the meshed route: every input a meshed step of the cell gives it (``solves``, ``inputs``, from
     :func:`step_inputs`), random and as the step gave it, against the
     plain version at ``limit`` of each lane's scale (random input) and at
     ``STEP_INPUT_LIMIT`` of the solve's scale (the step's input).  On the step's input the Poisson solve's nudged singular lane
@@ -1117,6 +1191,7 @@ def phase_mesh_banded(torch, model, solves, inputs, limit):
     import numpy as np
 
     rng = np.random.default_rng(13)
+    route = route_of(model)
     solvers = banded_solvers(model)
     pres = model.solver_pres._solver
     singular = np.flatnonzero(np.abs(pres.lam + pres.alpha) < 1e-8)
@@ -1124,11 +1199,11 @@ def phase_mesh_banded(torch, model, solves, inputs, limit):
     records = []
     for (label, shape, axis, stride), per_step in sorted(solves.items()):
         solver = solvers[label]
-        b = torch.as_tensor(rng.uniform(-1.0, 1.0, size=shape), dtype=model.dtype).to(model.device)
+        given = inputs[(label, shape, axis, stride)]
+        b = random_field(torch, rng, shape, model.dtype, model.device, given.is_complex())
         out_k = solver.solve(b, axis, stride)
         torch.cuda.synchronize()
         diff, rel = lane_rel_err(torch, out_k, solver.plain(b, axis, stride), axis)
-        given = inputs[(label, shape, axis, stride)]
         out_given = solver.solve(given, axis, stride)
         torch.cuda.synchronize()
         plain_given = solver.plain(given, axis, stride)
@@ -1151,7 +1226,14 @@ def phase_mesh_banded(torch, model, solves, inputs, limit):
         if label not in inverses:
             inverses[label] = banded_inverses(torch, solver.kernel)
         inv = inverses[label]
-        if not solver.kernel.per_lane:
+        if not solver.kernel.per_lane and b.is_complex():
+            if axis != b.ndim - 1:
+                raise AssertionError(f"banded_solve/{label}: complex solve along axis {axis}")
+
+            def lib(inv=inv[0], b=b):  # the real view's Re and Im rows in one product
+                out = torch.matmul(torch.view_as_real(b).transpose(-1, -2), inv.T)
+                return torch.view_as_complex(out.transpose(-1, -2).contiguous())
+        elif not solver.kernel.per_lane:
             def lib(inv=inv[0], b=b, axis=axis):
                 return torch.movedim(torch.matmul(inv, torch.movedim(b, axis, -2)), -2, axis)
         else:
@@ -1164,13 +1246,13 @@ def phase_mesh_banded(torch, model, solves, inputs, limit):
                 and stride == lanes else inv[idx]
 
             def lib(inv=lane_inv, b=b):
-                return torch.matmul(inv, b[..., None])[..., 0]
+                return lane_matmul(torch, inv, b)
         n = shape[axis]
-        shape3 = (1, n, b.numel() // n)
+        shape3 = (2 if b.is_complex() else 1, n, b.numel() // n)
         flops, nbytes = solver.kernel.flops(shape3), solver.kernel.bytes_moved(shape3)
         t_op = flops / (F64_TFLOPS * 1e12) * 1e3
         t_mem = nbytes / (HBM_TB_PER_S * 1e12) * 1e3
-        rec = {"kernel": "banded_solve", "route": "mesh", "case": label, "shape": list(shape),
+        rec = {"kernel": "banded_solve", "route": route, "case": label, "shape": list(shape),
                "axis": axis, "factor_batch_stride": stride, "per_step": per_step,
                "per_lane": solver.kernel.per_lane, "dtype": str(model.dtype).replace("torch.", ""),
                "max_abs_err": diff, "max_rel_err": rel,
@@ -1179,20 +1261,20 @@ def phase_mesh_banded(torch, model, solves, inputs, limit):
                "library_max_rel_err": lane_rel_err(torch, lib(), out_k, axis)[1],
                **banded_layout(solver, b, axis)}
         rec["kernel_ms"], rec["kernel_enqueue_ms"] = time_queued_ms(
-            torch, lambda: solver.solve(b, axis, stride), 50)
+            torch, lambda: solver.solve(b, axis, stride), QUEUED_REPS)
         rec["kernel_loop_ms"] = time_ms(torch, lambda: solver.solve(b, axis, stride), 10)
         for name, v in variants.items():
             rec[f"kernel_{name}_ms"] = time_queued_ms(
-                torch, lambda v=v: solver.solve(v, axis, stride), 50)[0]
+                torch, lambda v=v: solver.solve(v, axis, stride), QUEUED_REPS)[0]
         rec.update(
-            kernel_step_input_ms=time_queued_ms(torch, lambda: solver.solve(given, axis, stride), 50)[0],
-            kernel_repeat_ms=time_queued_ms(torch, lambda: solver.solve(b, axis, stride), 50)[0],
+            kernel_step_input_ms=time_queued_ms(torch, lambda: solver.solve(given, axis, stride), QUEUED_REPS)[0],
+            kernel_repeat_ms=time_queued_ms(torch, lambda: solver.solve(b, axis, stride), QUEUED_REPS)[0],
             kernel_cold_ms=time_cold_ms(torch, lambda: solver.solve(b, axis, stride), 10),
             plain_ms=time_ms(torch, lambda: solver.plain(b, axis, stride), 3),
             library_ms=time_queued_ms(torch, lib, 10)[0], flops=flops, bytes=nbytes,
             bound_ms=max(t_op, t_mem), bound_by="operations" if t_op >= t_mem else "bytes")
-        print("phase12 " + json.dumps(rec))
-        if rec["path"] != "parity":
+        print(f"{phase} " + json.dumps(rec))
+        if rec["path"] != expected_path(model, label):
             raise AssertionError(f"banded_solve/{label} {shape}: the step's system took the "
                                  f"{rec['path']} path")
         if not (rel <= limit and rel_given <= STEP_INPUT_LIMIT):
@@ -1206,14 +1288,14 @@ def phase_mesh_banded(torch, model, solves, inputs, limit):
     step = {key: sum(r["per_step"] * r[key] for r in records)
             for key in records[0] if key.startswith("kernel_") or key in (
                 "plain_ms", "library_ms", "bound_ms")}
-    print(f"phase12 banded_solve, one meshed step ({sum(r['per_step'] for r in records)} "
-          "launches): " + json.dumps(step))
+    print(f"{phase} banded_solve, one meshed {label_of(model)} step "
+          f"({sum(r['per_step'] for r in records)} launches): " + json.dumps(step))
     return records
 
 
 def ring_case(torch, pt, mesh, pencil_shape, x_to_y, dtype, rng):
     """A random input of ``pencil_shape`` with a zero pad, as the step
-    gives the flip."""
+    gives the flip (complex values for a complex ``dtype``)."""
     p = mesh.nranks
     if x_to_y:
         shape = (pencil_shape[1], pencil_shape[2] * p)
@@ -1222,6 +1304,8 @@ def ring_case(torch, pt, mesh, pencil_shape, x_to_y, dtype, rng):
         shape = (pencil_shape[1] * p, pencil_shape[2])
         place = "place_y_pencil"
     values = rng.uniform(-1.0, 1.0, size=shape)
+    if dtype.is_complex:
+        values = values + 1j * rng.uniform(-1.0, 1.0, size=shape)
     return getattr(pt.parallel.Decomp2d(shape, mesh), place)(values, dtype)
 
 
@@ -1235,18 +1319,11 @@ def ring_library(block, p, x_to_y):
     return block.view(p, c, p, w).permute(2, 0, 1, 3).contiguous().view(p, p * c, w)
 
 
-def phase_ring(torch, pt, mesh, flips):
-    """Phase 12: the pencil-transpose kernel bit for bit against its plain
-    ring and against the library call, both directions, at the specified
-    shapes and at every shape a meshed rbc1025 step flips (``flips``);
-    timed at the rbc1025 ones.  Returns the records of the step's flips
-    (``per_step``: how often a step flips that shape)."""
-    import numpy as np
-
-    rng = np.random.default_rng(12)
-    p = mesh.nranks
-    ring = mesh.ring
-    checks = []  # (label, pencil shape, x_to_y, dtype, timed, per_step)
+def square_ring_checks(torch, p):
+    """Phase 12's fixed flips: ``(label, pencil shape, x_to_y, dtype,
+    timed)`` of the rbc1025 spectral and physical squares (timed) and the
+    129^2 ones in f64 and f32."""
+    checks = []
     for label, n, timed in (("rbc1025_spectral", 1023, True), ("rbc1025_physical", 1025, True),
                             ("n129_physical", 129, False), ("n129_spectral", 127, False)):
         np_ = n + (-n) % p
@@ -1254,9 +1331,36 @@ def phase_ring(torch, pt, mesh, flips):
             shape = (p, np_, np_ // p) if x_to_y else (p, np_ // p, np_)
             dtypes = (torch.float64,) if timed else (torch.float64, torch.float32)
             for dtype in dtypes:
-                checks.append((label, shape, x_to_y, dtype, timed, 0))
-    for (shape, x_to_y), count in sorted(flips.items()):
-        checks.append(("step", shape, x_to_y, torch.float64, True, count))
+                checks.append((label, shape, x_to_y, dtype, timed))
+    return checks
+
+
+def complex_ring_checks(torch, p, cfg):
+    """Phase 19's fixed flips: the complex spectral pencils of ``cfg``'s
+    periodic cell (nx/2+1 modes by ny-2 rows, padded to ``p``) in
+    complex128 and complex64, both directions, untimed."""
+    m0, m1 = cfg["nx"] // 2 + 1, cfg["ny"] - 2
+    n0, n1 = m0 + (-m0) % p, m1 + (-m1) % p
+    return [(f"periodic{cfg['nx']}_spectral", (p, n0, n1 // p) if x_to_y else (p, n0 // p, n1),
+             x_to_y, dtype, False)
+            for x_to_y in (True, False) for dtype in (torch.complex128, torch.complex64)]
+
+
+def phase_ring(torch, pt, mesh, flips, fixed, route="mesh", phase="phase12"):
+    """Phase 12 (phase 19 for the periodic cell, whose step flips complex
+    pencils): the pencil-transpose kernel bit for bit against its plain
+    ring and against the library call, both directions, at the ``fixed``
+    checks and at every shape a meshed step of the cell flips (``flips``,
+    timed).  Returns the records of the step's flips (``per_step``: how
+    often a step flips that shape)."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    p = mesh.nranks
+    ring = mesh.ring
+    checks = [c + (0,) for c in fixed]  # (label, pencil shape, x_to_y, dtype, timed, per_step)
+    for (shape, x_to_y, dtype), count in sorted(flips.items()):
+        checks.append(("step", shape, x_to_y, getattr(torch, dtype), True, count))
     records = []
     for label, shape, x_to_y, dtype, timed, per_step in checks:
         block = ring_case(torch, pt, mesh, shape, x_to_y, dtype, rng)
@@ -1266,7 +1370,7 @@ def phase_ring(torch, pt, mesh, flips):
         plain = ring.plain(block, x_to_y)
         lib = ring_library(block, p, x_to_y)
         diff = float(torch.max(torch.abs(out - plain)))
-        rec = {"kernel": "ring_transpose", "route": "mesh", "case": label, "shape": list(shape),
+        rec = {"kernel": "ring_transpose", "route": route, "case": label, "shape": list(shape),
                "x_to_y": x_to_y, "per_step": per_step,
                "dtype": str(dtype).replace("torch.", ""), "max_abs_err": diff,
                "max_rel_err": diff / float(torch.max(torch.abs(plain)))}
@@ -1283,17 +1387,19 @@ def phase_ring(torch, pt, mesh, flips):
                        library_ms=time_cold_ms(torch, lambda: ring_library(block, p, x_to_y), 50),
                        bytes=nbytes, bound_ms=nbytes / (HBM_TB_PER_S * 1e12) * 1e3,
                        bound_by="bytes")
-        print("phase12 " + json.dumps(rec))
+        print(f"{phase} " + json.dumps(rec))
         records.append(rec)
     return [r for r in records if r["per_step"]]
 
 
-def phase_meshed_vs_serial(pt):
-    """Phase 13: the meshed route against the serial dense route on the
-    card after 10 steps at 129^2 (rel 1e-11 of each field's scale)."""
+def phase_meshed_vs_serial(pt, cfg=None, phase="phase13"):
+    """Phase 13 (phase 19 for the periodic cell at ``PERIODIC128``): the
+    meshed route against the serial dense route on the card after 10 steps
+    (rel 1e-11 of each field's scale), by default at 129^2."""
+    cfg = cfg or dict(nx=129, ny=129, ra=1e7, pr=1.0, dt=2e-3, aspect=1.0, bc="rbc")
     states = {}
     for name, route in (("mesh", dict(mesh=pt.make_mesh(MESH_RANKS))), ("serial", DENSE)):
-        m = pt.Navier2D(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc", device="cuda", **route)
+        m = pt.Navier2D(**cfg, device="cuda", **route)
         m.init_random(0.1, seed=0)
         m.update_n(10)
         states[name] = pt.convert.state_to_numpy(m)
@@ -1303,7 +1409,8 @@ def phase_meshed_vs_serial(pt):
         worst = max(worst, rel)
         if not rel <= 1e-11:
             raise AssertionError(f"meshed vs serial {name}: rel {rel:.3e} > 1e-11")
-    print(f"phase13 meshed ({MESH_RANKS} ranks) vs serial dense 129^2 f64 10 steps on the card: "
+    print(f"{phase} meshed ({MESH_RANKS} ranks) vs serial dense {cfg['nx']}x{cfg['ny']} "
+          f"{cfg['bc']}{' periodic' if cfg.get('periodic') else ''} f64 10 steps on the card: "
           f"max rel diff {worst:.3e} (limit 1e-11)")
 
 
@@ -1414,6 +1521,153 @@ def phase_methods(torch, pt):
     return out
 
 
+def phase_step_inputs(torch, model, phase):
+    """:func:`step_inputs` of one meshed step of ``model``, printed, with
+    the flips and the banded solves counted against ``PER_STEP``."""
+    flips, solves, inputs = step_inputs(torch, model)
+    print(f"{phase} flips of one meshed {label_of(model)} step: " + json.dumps(
+        [{"shape": list(k[0]), "x_to_y": k[1], "dtype": k[2], "count": v}
+         for k, v in sorted(flips.items())]))
+    print(f"{phase} banded solves of one meshed {label_of(model)} step: " + json.dumps(
+        [{"solver": k[0], "shape": list(k[1]), "axis": k[2], "factor_batch_stride": k[3],
+          "count": v} for k, v in sorted(solves.items())]))
+    route = route_of(model)
+    for name, counted in (("ring_transpose", sum(flips.values())),
+                          ("banded_solve", sum(solves.values()))):
+        if counted != PER_STEP[route][name]:
+            raise AssertionError(f"a meshed {label_of(model)} step ran {name} {counted} times")
+    return flips, solves, inputs
+
+
+def phase_periodic_mesh(torch, pt, records, launches, bare_ms):
+    """Phase 19: ``periodic1024`` on the meshed route (4 ranks on the card,
+    complex spectral pencils): the pencil-transpose kernel on the complex
+    spectral pencils of ``PERIODIC128`` (complex128 and complex64) and at
+    every pencil a meshed ``periodic1024`` step flips, bit for bit and
+    timed (cold L2) as phase 12 times it; the banded kernel at every input
+    the step gives it, as phase 12 holds it; meshed against serial dense at
+    ``PERIODIC128`` (rel 1e-11); then the main path (exactly 37 flips and 4
+    banded launches a step), the profile and the chunk gates of phase 14."""
+    t0 = time.perf_counter()
+    mesh = pt.make_mesh(MESH_RANKS)
+    model = pt.Navier2D(**PERIODIC1024, mesh=mesh)
+    model.init_random(0.1, seed=0)
+    print(f"periodic1024 meshed-route model build ({mesh}): {time.perf_counter() - t0:.2f} s")
+    flips, solves, inputs = phase_step_inputs(torch, model, "phase19")
+    records += phase_ring(torch, pt, mesh, flips,
+                          complex_ring_checks(torch, MESH_RANKS, PERIODIC128),
+                          "periodic_mesh", "phase19")
+    records += phase_mesh_banded(torch, model, solves, inputs, 1e-12, "phase19")
+    del inputs
+    print("phase19 ok")
+    phase_meshed_vs_serial(pt, PERIODIC128, "phase19")
+    launches["periodic_mesh"], bare_ms["periodic_mesh"] = phase_main(torch, pt, model, "phase19")
+    phase_profile(torch, model, bare_ms["periodic_mesh"], phase="phase19")
+    phase_chunks(torch, pt, model)
+
+
+def phase_hc1025(torch, pt, records, launches, bare_ms):
+    """Phase 20: ``hc1025`` on the fused route, then the dense one: the
+    route's kernels against their plain versions at ``hc129`` (f64 1e-12,
+    f32 1e-4) and at ``hc1025`` f64, timed (the fused kernels fed HC's
+    operators as phase 1 holds them; the banded kernel as phase 6, its
+    temperature y solve on the general path, one chain a lane); the main
+    path (3 conv and 7 stage launches, or 7 banded launches of which one a
+    step runs the general path), the profile and the chunk gates of phase
+    14."""
+    for route in ("fused", "dense"):
+        t0 = time.perf_counter()
+        model = pt.Navier2D.new_confined(**HC1025, device="cuda", step_kernel=route,
+                                         conv_kernel=route)
+        print(f"hc1025 {route}-route model build: {time.perf_counter() - t0:.2f} s")
+        for dt in (torch.float64, torch.float32):
+            small = pt.Navier2D(**HC_CELLS["hc129"], device="cuda", dtype=dt, step_kernel=route,
+                                conv_kernel=route)
+            limit = 1e-12 if dt == torch.float64 else 1e-4
+            if route == "fused":
+                phase_kernels(torch, small, limit, False, "phase20")
+            else:
+                phase_banded(torch, pt, small, limit, False, "phase20")
+        if route == "fused":
+            records += phase_kernels(torch, model, 1e-12, True, "phase20")
+        else:
+            records += phase_banded(torch, pt, model, 1e-12, True, "phase20")
+        print(f"phase20 {route} ok")
+        key = route_of(model)
+        launches[key], bare_ms[key] = phase_main(torch, pt, model, "phase20")
+        if route == "dense":
+            general = [k for k in model.kernels()["banded_solve"] if k.path == "general"]
+            runs = [k.launches for k in general]
+            print(f"phase20 hc1025 dense route: general-path banded solves {len(general)}, "
+                  f"launched {runs} times in the {2 * MAIN_STEPS} counted steps")
+            if runs != [2 * MAIN_STEPS]:
+                raise AssertionError(f"hc1025: the general path launched {runs} times")
+        phase_profile(torch, model, bare_ms[key], phase="phase20")
+        phase_chunks(torch, pt, model)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_hc_small(pt):
+    """Phase 21: HC's correctness at ``HC_CELLS`` (129^2 confined, 128x129
+    periodic), 10 steps from ``init_random(0.1, seed=0)`` on every route
+    (fused, dense, meshed on 4 ranks): each on the card against the same
+    route on the CPU (plain versions) with the card's Chebyshev transform
+    method, to 1e-11 of each field's scale (against the CPU's own "fft"
+    method too, printed: the two methods round HC's lift otherwise, and
+    after 10 steps at Ra=1e5 the temperature's scale is 1/70 of the lift's,
+    3.5e-3 against 0.243); the fused route
+    against the dense one on the card to 1e-11, pseu to
+    ``PSEU_ROUTES_LIMIT``, printed beside the same routes on the CPU and
+    the JAX package's own routes (``REFERENCE_ROUTES_DIFF``);
+    the meshed route against the dense one on the card to 1e-11."""
+    for cell, cfg in HC_CELLS.items():
+        states = {}
+        for route in ("fused", "dense", "mesh"):
+            # (device, Chebyshev transform method: on a mesh the method of
+            # the host's lift transforms, its pencils' axes being products)
+            runs = [("cuda", None), ("cpu", pt.bases.CARD_METHOD), ("cpu", pt.bases.CPU_METHOD)]
+            for dev, method in runs:
+                if route == "mesh":
+                    kw = dict(mesh=pt.make_mesh(MESH_RANKS, dev), method=method)
+                else:
+                    kw = dict(device=dev, step_kernel=route, conv_kernel=route, method=method)
+                m = pt.Navier2D(**cfg, **kw)
+                m.init_random(0.1, seed=0)
+                m.update_n(10)
+                key = (route, dev) if dev == "cuda" or method == pt.bases.CARD_METHOD else \
+                    (route, "cpu_fft")
+                states[key] = pt.convert.state_to_numpy(m)
+                obs = m.get_observables()
+                if not all(math.isfinite(v) for v in obs):
+                    raise AssertionError(f"{cell} {route} on {dev}: observables {obs}")
+
+        def rel(a, b, name):
+            ref = states[b][name]
+            return float(abs(states[a][name] - ref).max() / max(abs(ref).max(), 1e-300))
+
+        limits = {"pseu": PSEU_ROUTES_LIMIT}
+        for label, a, b, lims in (
+                ("fused route, card vs cpu", ("fused", "cuda"), ("fused", "cpu"), {}),
+                ("dense route, card vs cpu", ("dense", "cuda"), ("dense", "cpu"), {}),
+                ("meshed route, card vs cpu", ("mesh", "cuda"), ("mesh", "cpu"), {}),
+                ("meshed vs dense on the card", ("mesh", "cuda"), ("dense", "cuda"), {}),
+                ("fused vs dense on the card", ("fused", "cuda"), ("dense", "cuda"), limits)):
+            diffs = {name: rel(a, b, name) for name in states[b]}
+            over = {k: v for k, v in diffs.items() if not v <= lims.get(k, 1e-11)}
+            line = f"max rel diff {max(v for k, v in diffs.items() if k not in lims):.3e} (limit 1e-11)"
+            for name, lim in lims.items():
+                cpu = rel(("fused", "cpu"), ("dense", "cpu"), name)
+                line += (f"; {name} {diffs[name]:.3e} (limit {lim:g}; the same routes on the CPU "
+                         f"{cpu:.3e}, the JAX package's {REFERENCE_ROUTES_DIFF[cell][name]:.3e})")
+            if b[1] == "cpu":
+                fft = max(rel(a, (b[0], "cpu_fft"), name) for name in states[b])
+                line += f"; against the CPU's {pt.bases.CPU_METHOD!r} method {fft:.3e}"
+            print(f"phase21 {cell} f64 10 steps, {label}: {line}")
+            if over:
+                raise AssertionError(f"{cell} {label}: {over}")
+
+
 # -- the kernels line --------------------------------------------------------------
 
 
@@ -1475,7 +1729,7 @@ def kernels_line(records, launches, solver_times):
             sums = route_sums([r for r in rows if r["route"] == route])
             entry.update({f"{route}_{k}": v for k, v in sums.items() if k != "bound_by"})
             entry[f"{route}_launches"] = launches[route][kernel]
-        for route in ("periodic_fused", "periodic_dense"):
+        for route in sorted(set(launches) - {main}):
             entry.setdefault(f"{route}_launches", launches[route].get(kernel, 0))
         if kernel == "banded_solve":
             entry.update(solver_times)
@@ -1546,17 +1800,8 @@ def main() -> int:
     mesh = pt.make_mesh(MESH_RANKS)
     mesh_model = pt.Navier2D.new_confined(**RBC1025, mesh=mesh)
     print(f"rbc1025 meshed-route model build ({mesh}): {time.perf_counter() - t0:.2f} s")
-    flips, solves, inputs = step_inputs(torch, mesh_model)
-    print("phase12 flips of one meshed step: " + json.dumps(
-        [{"shape": list(k[0]), "x_to_y": k[1], "count": v} for k, v in sorted(flips.items())]))
-    print("phase12 banded solves of one meshed step: " + json.dumps(
-        [{"solver": k[0], "shape": list(k[1]), "axis": k[2], "factor_batch_stride": k[3],
-          "count": v} for k, v in sorted(solves.items())]))
-    for name, counted in (("ring_transpose", sum(flips.values())),
-                          ("banded_solve", sum(solves.values()))):
-        if counted != PER_STEP["mesh"][name]:
-            raise AssertionError(f"a meshed step ran {name} {counted} times")
-    records += phase_ring(torch, pt, mesh, flips)
+    flips, solves, inputs = phase_step_inputs(torch, mesh_model, "phase12")
+    records += phase_ring(torch, pt, mesh, flips, square_ring_checks(torch, MESH_RANKS))
     records += phase_mesh_banded(torch, mesh_model, solves, inputs, 1e-12)
     del inputs
     print("phase12 ok")
@@ -1595,6 +1840,10 @@ def main() -> int:
         phase_chunks(torch, pt, model)
         del model
         torch.cuda.empty_cache()
+    phase_periodic_mesh(torch, pt, records, launches, bare_ms)
+    torch.cuda.empty_cache()
+    phase_hc1025(torch, pt, records, launches, bare_ms)
+    phase_hc_small(pt)
     phase_methods(torch, pt)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))

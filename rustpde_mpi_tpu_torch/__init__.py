@@ -1,9 +1,11 @@
 """rustpde_mpi_tpu_torch — the PyTorch/CUDA port of rustpde_mpi_tpu.
 
 A second package beside the JAX one, held against it by the tests.  It
-ports the Rayleigh-Benard DNS step of ``Navier2D``, in the confined cell
-(Chebyshev x Chebyshev) and the horizontally periodic one (Fourier r2c x
-Chebyshev, ``periodic=True``), on both of the JAX package's routes: the fused route (the convection chain and the
+ports the convection DNS step of ``Navier2D``, with Rayleigh-Benard
+(``"rbc"``) or horizontal-convection (``"hc"``) boundary conditions, in
+the confined cell (Chebyshev x Chebyshev) and the horizontally periodic
+one (Fourier r2c x Chebyshev, ``periodic=True``), on both of the JAX
+package's routes: the fused route (the convection chain and the
 implicit stages as kernels) and the default, dense route on the solver
 objects (``HholtzAdi``, ``Poisson``, ``Hholtz``), whose banded
 substitutions run as a kernel.  The kernels are hand-written CUDA for
@@ -21,11 +23,12 @@ Entry points run on the CUDA card unless the caller passes
                                   step_kernel="dense", conv_kernel="dense")
     meshed = Navier2D.new_confined(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc",
                                    mesh=make_mesh(4))
-    periodic = Navier2D.new_periodic(128, 129, 1e5, 1.0, 1e-2, 1.0, "rbc")
+    periodic = Navier2D.new_periodic(128, 129, 1e5, 1.0, 1e-2, 1.0, "hc",
+                                     mesh=make_mesh(4))
 
 The meshed model runs the dense route on fields split over 4 ranks of one
-card (:mod:`.parallel`), every pencil flip through a hand-written CUDA
-transpose kernel.  Fourier axes transform on ``torch.fft``; Chebyshev axes
+card (:mod:`.parallel`), in either cell, every pencil flip (of real or
+complex pencils) through a hand-written CUDA transpose kernel.  Fourier axes transform on ``torch.fft``; Chebyshev axes
 by dense products or by FFT (``method="matmul"|"fft"``).
 
 ``update_n`` steps in the JAX package's chunks: a chunk freezes at the
@@ -37,9 +40,11 @@ card every step of a chunk replays one captured CUDA graph.
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
 from .config import StabilityConfig  # noqa: F401
-from .bases import (Base, BaseKind, Space2, cheb_dirichlet, cheb_neumann, chebyshev,  # noqa: F401
-                    fourier_c2c, fourier_r2c)
+from .bases import (Base, BaseKind, Space2, cheb_dirichlet, cheb_dirichlet_neumann,  # noqa: F401
+                    cheb_neumann, chebyshev, fourier_c2c, fourier_r2c)
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
+from .models.boundary_conditions import (bc_hc_values, bc_rbc_values,  # noqa: F401
+                                         bc_zero_values, pres_bc_rbc_values)
 from .models.navier import Navier2D, NavierState  # noqa: F401
 from .parallel import Decomp2d, Mesh, make_mesh  # noqa: F401
 from .solver import FastDiag, Hholtz, HholtzAdi, Poisson, TensorSolver  # noqa: F401

@@ -6,7 +6,8 @@ plus a device, a dtype and a transform method, and runs every transform
 axis by axis on tensors of that device.
 
 Bases: the Chebyshev family of the confined cell (``chebyshev``,
-``cheb_dirichlet``, ``cheb_neumann``) and the Fourier bases of the
+``cheb_dirichlet``, ``cheb_neumann``, and ``cheb_dirichlet_neumann`` of the
+horizontal-convection temperature) and the Fourier bases of the
 horizontally periodic cell (``fourier_r2c``, complex half spectrum of a
 real field, and ``fourier_c2c``).  A Fourier axis always runs on
 ``torch.fft`` (cuFFT on the card); its derivative is a diagonal.  A
@@ -57,6 +58,7 @@ class BaseKind(enum.Enum):
     CHEBYSHEV = "chebyshev"
     CHEB_DIRICHLET = "cheb_dirichlet"
     CHEB_NEUMANN = "cheb_neumann"
+    CHEB_DIRICHLET_NEUMANN = "cheb_dirichlet_neumann"
     FOURIER_R2C = "fourier_r2c"
     FOURIER_C2C = "fourier_c2c"
 
@@ -69,6 +71,7 @@ _STENCILS = {
     BaseKind.CHEBYSHEV: chb.stencil_chebyshev,
     BaseKind.CHEB_DIRICHLET: chb.stencil_dirichlet,
     BaseKind.CHEB_NEUMANN: chb.stencil_neumann,
+    BaseKind.CHEB_DIRICHLET_NEUMANN: chb.stencil_dirichlet_neumann,
 }
 
 
@@ -271,6 +274,12 @@ def cheb_dirichlet(n: int) -> Base:
 
 def cheb_neumann(n: int) -> Base:
     return _cached_base(BaseKind.CHEB_NEUMANN, n)
+
+
+def cheb_dirichlet_neumann(n: int) -> Base:
+    """Dirichlet at x = -1, Neumann at x = +1 (the horizontal-convection
+    temperature's y base): a stencil that couples rows of both parities."""
+    return _cached_base(BaseKind.CHEB_DIRICHLET_NEUMANN, n)
 
 
 def fourier_r2c(n: int) -> Base:

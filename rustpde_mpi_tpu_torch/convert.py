@@ -12,9 +12,9 @@ TPU) is read as it is.  The operator constants are not carried: both
 packages rebuild them from the same host math.
 
 A meshed model (``Navier2D(..., mesh=...)``) holds its leaves as spectral
-x-pencils; they are gathered to, and scattered from, the global arrays
-here, so a JAX meshed model's state (gathered to numpy) carries over as a
-serial one does.
+x-pencils (complex ones in the periodic cell); they are gathered to, and
+scattered from, the global arrays here, so a JAX meshed model's state
+(gathered to numpy, in either layout) carries over as a serial one does.
 """
 
 from __future__ import annotations

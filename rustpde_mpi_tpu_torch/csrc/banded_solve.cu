@@ -10,7 +10,11 @@
 //   backward:  x_i = (y_i - sum_{d=1..q} U[d, i] * x_{i+d}) / U[0, i]
 //
 // b and x are strided (batch, n, lanes) views (grid.y runs the batch), so
-// an axis-1 solve of a row-major field reads its rows in place.
+// an axis-1 solve of a row-major field reads its rows in place, or
+// (planes, batch, n, lanes) views (grid.z runs the planes, which share the
+// factor sets): a complex right-hand side goes in as its real view, its
+// real and imaginary parts two planes, so a pencil solve whose factor sets
+// are offset by the rank (the batch entry) is one launch.
 //
 // Bound on the H100: bytes (b read and x written once, 16.7 MB a 1023^2
 // f64 solve, plus the per-lane factors of the Poisson solve: 5 us and
@@ -99,6 +103,7 @@ struct Args {
   const void* b;
   void* x;
   long long sb, sr, sl, xb, xr, xl;  // strides of b and x (batch, row, lane)
+  long long sp, xp;                  // plane strides of b and x
   long long fl, fb;                  // factor sets, factor batch stride
   int n, lanes, nk;
   int tls;        // log2 of the tile's lanes
@@ -293,13 +298,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) banded_kernel(const Args a) {
   const int l0 = blockIdx.x * tl;
   const int ntl = min(tl, a.lanes - l0);
   const long long bi = blockIdx.y;
+  const long long pl = blockIdx.z;  // the plane: the same factor sets in every one
   const long long fo = a.flane ? bi * a.fb + l0 : 0;
   const int nc = ((a.n + NSYS - 1) / NSYS + RK - 1) / RK;  // stages of each pass
   const int nst = 2 * nc;
   const int tid = threadIdx.x;
 
   if (tid >= 32) {  // the copies
-    const T* bl = static_cast<const T*>(a.b) + bi * a.sb + (long long)l0 * a.sl;
+    const T* bl = static_cast<const T*>(a.b) + pl * a.sp + bi * a.sb + (long long)l0 * a.sl;
     Copier<T, NSYS, PP, QQ> cp;
     cp.init(a, tid - 32, tl, ntl, fo);
     for (int j = 0; j < RING - 1; ++j) {
@@ -321,7 +327,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) banded_kernel(const Args a) {
   const int ns = (a.n - s + NSYS - 1) / NSYS;  // rows of this chain
   const int cs = NSYS * (a.rowfast ? 1 : tl);
   T* col = tile + (a.rowfast ? ll * a.ld + s : s * tl + ll);
-  T* xcol = static_cast<T*>(a.x) + bi * a.xb + (long long)(l0 + ll) * a.xl + (long long)s * a.xr;
+  T* xcol = static_cast<T*>(a.x) + pl * a.xp + bi * a.xb + (long long)(l0 + ll) * a.xl +
+            (long long)s * a.xr;
   const long long xs = NSYS * a.xr;
   const int tlf = a.flane ? tl : 1;
   const int fk = NSYS * tlf;
@@ -367,18 +374,22 @@ static int launch_one(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
 // on the general one (terms past the band are zero); upp holds qq + 2
 // terms, the last the reciprocals of the first; tl: lanes of a tile (1, 2,
 // 4 or 8); vec: 16-byte copies of b (the wrapper proved the alignment;
-// checked again here).
+// checked again here); planes: a second batch level (grid.z) of strides sp
+// and xp whose every plane reads the same factor sets (the real and
+// imaginary parts of a complex pencil, whose lanes' factor sets are offset
+// by the rank's batch entry, not by the part).
 template <typename T>
 static int launch(int nb, int n, int lanes, int nsys, int pp, int qq, int tl, int vec,
                   const void* low, const void* upp, int flane, long long fl, long long fb, int nk,
                   const void* b, long long sb, long long sr, long long sl, void* x, long long xb,
-                  long long xr, long long xl, cudaStream_t stream) {
+                  long long xr, long long xl, int planes, long long sp, long long xp,
+                  cudaStream_t stream) {
   constexpr long long ES = sizeof(T);
   const int tls = tl == 1 ? 0 : tl == 2 ? 1 : tl == 4 ? 2 : tl == MAX_TILE ? 3 : -1;
   const int rk = nsys == 2 ? Path<2>::RK : Path<1>::RK;
   const bool bands = nsys == 2 ? pp >= 1 && pp <= MAXB / 2 && qq >= 1 && qq <= MAXB / 2
                                : pp == MAXB && qq == MAXB;
-  if (nb < 1 || nb > 65535 || n < 1 || lanes < 1 || (nsys != 1 && nsys != 2) || tls < 0 ||
+  if (nb < 1 || nb > 65535 || planes < 1 || planes > 65535 || n < 1 || lanes < 1 || (nsys != 1 && nsys != 2) || tls < 0 ||
       !bands || (vec != 0 && vec != 1) ||
       (flane != 0 && flane != 1) || fl < 1 || (!flane && fl != 1) ||
       (flane && (fb < 0 || (nb - 1) * fb + lanes > fl)) ||
@@ -390,6 +401,7 @@ static int launch(int nb, int n, int lanes, int nsys, int pp, int qq, int tl, in
   a.b = b;
   a.x = x;
   a.sb = sb, a.sr = sr, a.sl = sl, a.xb = xb, a.xr = xr, a.xl = xl;
+  a.sp = sp, a.xp = xp;
   a.fl = fl, a.fb = fb;
   a.n = n, a.lanes = lanes, a.nk = nk;
   a.tls = tls, a.flane = flane, a.vec = vec;
@@ -407,11 +419,12 @@ static int launch(int nb, int n, int lanes, int nsys, int pp, int qq, int tl, in
   a.slot_elems = (int)slot;
   if (vec) {
     const bool ok = reinterpret_cast<uintptr_t>(b) % 16 == 0 && (nb == 1 || sb * ES % 16 == 0) &&
+                    (planes == 1 || sp * ES % 16 == 0) &&
                     (a.rowfast ? sl * ES % 16 == 0
                                : sl == 1 && sr * ES % 16 == 0 && tl * ES % 16 == 0);
     if (!ok) return (int)cudaErrorMisalignedAddress;
   }
-  const dim3 grid((lanes + tl - 1) / tl, nb, 1);
+  const dim3 grid((lanes + tl - 1) / tl, nb, planes);
   if (nsys == 1) return launch_one<T, 1, MAXB, MAXB>(a, grid, (int)smem, stream);
   if (pp == 1)
     return qq == 1 ? launch_one<T, 2, 1, 1>(a, grid, (int)smem, stream)
@@ -427,9 +440,10 @@ extern "C" int rp_banded_solve_f64(int nb, int n, int lanes, int nsys, int pp, i
                                    int vec, const void* low, const void* upp, int flane,
                                    long long fl, long long fb, int nk, const void* b,
                                    long long sb, long long sr, long long sl, void* x,
-                                   long long xb, long long xr, long long xl, void* stream) {
+                                   long long xb, long long xr, long long xl, int planes,
+                                   long long sp, long long xp, void* stream) {
   return rp::banded::launch<double>(nb, n, lanes, nsys, pp, qq, tl, vec, low, upp, flane, fl, fb,
-                                    nk, b, sb, sr, sl, x, xb, xr, xl,
+                                    nk, b, sb, sr, sl, x, xb, xr, xl, planes, sp, xp,
                                     static_cast<cudaStream_t>(stream));
 }
 
@@ -437,8 +451,9 @@ extern "C" int rp_banded_solve_f32(int nb, int n, int lanes, int nsys, int pp, i
                                    int vec, const void* low, const void* upp, int flane,
                                    long long fl, long long fb, int nk, const void* b,
                                    long long sb, long long sr, long long sl, void* x,
-                                   long long xb, long long xr, long long xl, void* stream) {
+                                   long long xb, long long xr, long long xl, int planes,
+                                   long long sp, long long xp, void* stream) {
   return rp::banded::launch<float>(nb, n, lanes, nsys, pp, qq, tl, vec, low, upp, flane, fl, fb,
-                                   nk, b, sb, sr, sl, x, xb, xr, xl,
+                                   nk, b, sb, sr, sl, x, xb, xr, xl, planes, sp, xp,
                                    static_cast<cudaStream_t>(stream));
 }

@@ -25,6 +25,10 @@
 // passed by the wrapper (rustpde_mpi_tpu_torch/ops/ring_transpose.py); the
 // unit element stride is checked there.
 //
+// The element type T is double or float for a real field and double2 or
+// float2 for a complex one (complex128, complex64): the index math counts
+// elements of T, so a complex pencil needs no extra axis.
+//
 // Bound on the H100: bytes.  Every element is read once and written once,
 // 2 * P^2 * c * w * sizeof(T): 16.8 MB for a 1024^2 f64 field, 5.0 us at
 // 3.35 TB/s; no arithmetic beyond the index math.  The design keeps every
@@ -106,6 +110,28 @@ extern "C" int rp_ring_transpose_f64(int P, int c, int w, long long xs0,
   return rp::launch_ring<double, double2>(P, c, w, xs0, xs1, ys0, ys1, in,
                                           out, x_to_y,
                                           static_cast<cudaStream_t>(stream));
+}
+
+// Complex pencils (the periodic cell's spectral state): a complex element is
+// the unit the permutation moves, its real and imaginary parts together.
+// complex128 moves one 16-byte double2 a thread; complex64 two float2
+// elements as one float4 where the alignment allows it, else one float2.
+extern "C" int rp_ring_transpose_c128(int P, int c, int w, long long xs0,
+                                      long long xs1, long long ys0,
+                                      long long ys1, const void* in, void* out,
+                                      int x_to_y, void* stream) {
+  return rp::launch_ring<double2, double2>(P, c, w, xs0, xs1, ys0, ys1, in,
+                                           out, x_to_y,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rp_ring_transpose_c64(int P, int c, int w, long long xs0,
+                                     long long xs1, long long ys0,
+                                     long long ys1, const void* in, void* out,
+                                     int x_to_y, void* stream) {
+  return rp::launch_ring<float2, float4>(P, c, w, xs0, xs1, ys0, ys1, in,
+                                         out, x_to_y,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rp_ring_transpose_f32(int P, int c, int w, long long xs0,

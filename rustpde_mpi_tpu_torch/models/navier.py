@@ -1,10 +1,12 @@
-"""Navier2D — 2-D Boussinesq Rayleigh-Benard DNS.
+"""Navier2D — 2-D Boussinesq convection DNS.
 
-Counterpart of the JAX package's ``models/navier.py`` with ``rbc``
-boundary conditions, in the confined cell (Chebyshev x Chebyshev,
-``new_confined``) and the horizontally periodic one (Fourier r2c x
-Chebyshev, ``periodic=True``/``new_periodic``, whose spectral state is
-complex).  Two routes of each half of the step, chosen by constructor
+Counterpart of the JAX package's ``models/navier.py``, with Rayleigh-Benard
+(``bc="rbc"``) or horizontal-convection (``bc="hc"``: a cosine temperature
+at the bottom, an insulated top, the temperature's y base
+Dirichlet-Neumann) boundary conditions, in the confined cell (Chebyshev x
+Chebyshev, ``new_confined``) and the horizontally periodic one (Fourier
+r2c x Chebyshev, ``periodic=True``/``new_periodic``, whose spectral state
+is complex).  Two routes of each half of the step, chosen by constructor
 arguments (the JAX package's ``RUSTPDE_CONV_KERNEL`` /
 ``RUSTPDE_STEP_KERNEL``, its ``"pallas"`` being ``"fused"`` here):
 
@@ -18,19 +20,21 @@ arguments (the JAX package's ``RUSTPDE_CONV_KERNEL`` /
   pseudo-pressure), whose banded substitutions run the kernel of
   :mod:`..ops.banded_solve`: seven launches a step in the confined cell,
   four in the periodic one (its Fourier axis solves are diagonals; the
-  Poisson solve is one launch for every Fourier mode).
+  Poisson solve is one launch for every Fourier mode).  HC's temperature
+  solve along y couples rows of both parities, so it runs the kernel's
+  general path (one chain a lane).
 
 ``method`` picks the transform path of the Chebyshev axes (``"fft"`` or
 ``"matmul"``, :class:`..bases.Space2`); a Fourier axis always runs on
 ``torch.fft``.
 
 ``mesh=`` (a :class:`..parallel.mesh.Mesh`) runs the dense route on fields
-split over the mesh's ranks, as the JAX package's meshed model does: the
-state lives in spectral x-pencils, physical data in y-pencils, every pencil
-flip runs the pencil-transpose kernel of :mod:`..ops.ring_transpose`, and
-every banded solve one launch for all ranks.  The JAX package builds no
-fused stages under a mesh, so the fused kernels are refused there; the
-periodic model has no pencil form yet.
+split over the mesh's ranks, as the JAX package's meshed model does, in
+either cell: the state lives in spectral x-pencils (complex ones in the
+periodic cell), physical data in y-pencils, every pencil flip runs the
+pencil-transpose kernel of :mod:`..ops.ring_transpose`, and every banded
+solve one launch for all ranks.  The JAX package builds no fused stages
+under a mesh, so the fused kernels are refused there.
 
 Each kernel runs as hand-written CUDA on a CUDA device and as its plain
 PyTorch version on the CPU.  ``update_n`` advances chunks of steps with
@@ -55,9 +59,9 @@ import numpy as np
 import torch
 
 from .. import config
-from ..bases import (Space2, cheb_dirichlet, cheb_neumann, chebyshev, default_method,
-                     fourier_r2c, fused_projection_gradient)
-from ..field import average_weights, grid_deltas, norm_l2
+from ..bases import (Space2, cheb_dirichlet, cheb_dirichlet_neumann, cheb_neumann, chebyshev,
+                     default_method, fourier_r2c, fused_projection_gradient)
+from ..field import average_weights, grid_deltas
 from ..ops.fused_conv import build_model_convs
 from ..ops.fused_step import build_model_step
 from ..parallel.spaces import PencilSpace2
@@ -82,14 +86,13 @@ class Navier2D(CampaignModelBase):
     periodic.
 
     Parameters follow the JAX package (nx, ny, ra, pr, dt, aspect, bc,
-    periodic); ``bc`` must be ``"rbc"``.  ``device`` defaults to ``"cuda"``
+    periodic); ``bc`` is ``"rbc"`` or ``"hc"``, any other raises.  ``device`` defaults to ``"cuda"``
     and raises without a card unless ``"cpu"`` is passed; ``dtype`` is
     float64 or float32.  ``conv_kernel`` and ``step_kernel`` are each
     ``"fused"`` (the default) or ``"dense"`` (see the module docstring).
     ``method``: the Chebyshev axes' transform path (default
     :func:`..bases.default_method` of the device).  ``mesh``: split the
-    fields over its ranks (confined, dense route only; the device is the
-    mesh's)."""
+    fields over its ranks (dense route only; the device is the mesh's)."""
 
     observable_names = ("nu", "nuvol", "re", "div")
 
@@ -97,11 +100,8 @@ class Navier2D(CampaignModelBase):
                  aspect: float, bc: str = "rbc", periodic: bool = False, *, device=None,
                  dtype=config.DEFAULT_DTYPE, conv_kernel: str | None = None,
                  step_kernel: str | None = None, mesh=None, method: str | None = None):
-        if bc != "rbc":
-            raise ValueError(f"boundary condition type {bc!r} is not ported (only 'rbc')")
-        if periodic and mesh is not None:
-            raise NotImplementedError("the periodic model has no pencil form yet: "
-                                      "pass mesh=None")
+        if bc not in bcs.TEMPERATURE_LIFTS:
+            raise ValueError(f"boundary condition type {bc!r} not recognized")
         default = "fused" if mesh is None else "dense"
         conv_kernel = default if conv_kernel is None else conv_kernel
         step_kernel = default if step_kernel is None else step_kernel
@@ -142,7 +142,10 @@ class Navier2D(CampaignModelBase):
                                      else (cheb_dirichlet, chebyshev, cheb_neumann))
         self.velx_space = space(x_base(nx), cheb_dirichlet(ny))
         self.vely_space = self.velx_space
-        self.temp_space = space(x_neumann(nx), cheb_dirichlet(ny))
+        # horizontal convection: Dirichlet at the heated bottom, Neumann at
+        # the insulated top
+        temp_ybase = cheb_dirichlet(ny) if bc == "rbc" else cheb_dirichlet_neumann(ny)
+        self.temp_space = space(x_neumann(nx), temp_ybase)
         self.pres_space = space(x_full(nx), chebyshev(ny))
         self.pseu_space = space(x_neumann(nx), cheb_neumann(ny))
         self.field_space = space(x_full(nx), chebyshev(ny))
@@ -233,7 +236,8 @@ class Navier2D(CampaignModelBase):
         sp = Space2(base_x, base_y, device="cpu", dtype=torch.float64, method=self.method)
         scale = self.scale
         dt, ka = self.dt, self.params["ka"]
-        that = sp.forward(torch.as_tensor(bcs.bc_rbc_values(xs, ys), dtype=torch.float64))
+        lift = bcs.TEMPERATURE_LIFTS[self.bc](xs, ys)
+        that = sp.forward(torch.as_tensor(lift, dtype=torch.float64))
         host = {
             "ortho": that,
             "dx": sp.backward_ortho(sp.gradient(that, (1, 0), scale)),
@@ -259,6 +263,18 @@ class Navier2D(CampaignModelBase):
         for name in ("temp", "velx", "vely"):
             space = getattr(self, f"{name}_space")
             self.set_field(name, fns.random_values(space.shape_physical, amp, rng))
+
+    def set_velocity(self, amp: float, m: float, n: float) -> None:
+        """``velx = amp sin(pi m x~) cos(pi n y~)``, ``vely = -amp cos sin``
+        on the normalized grid, as the JAX package's."""
+        xs, ys = (b.points for b in self.field_space.bases)
+        self.set_field("velx", fns.sin_cos_values(xs, ys, amp, m, n))
+        self.set_field("vely", fns.cos_sin_values(xs, ys, -amp, m, n))
+
+    def set_temperature(self, amp: float, m: float, n: float) -> None:
+        """``temp = -amp cos(pi m x~) sin(pi n y~)``, as the JAX package's."""
+        xs, ys = (b.points for b in self.field_space.bases)
+        self.set_field("temp", fns.cos_sin_values(xs, ys, -amp, m, n))
 
     def set_field(self, name: str, values: np.ndarray) -> None:
         """Set one variable from physical values (host -> device forward;
@@ -369,7 +385,7 @@ class Navier2D(CampaignModelBase):
         imaginary parts in the periodic cell; on a mesh summed across the
         ranks)."""
         if v.is_complex():
-            return norm_l2(v)
+            v = torch.view_as_real(v)
         return torch.sqrt(self.field_space.weighted_sum(v, v))
 
     def _project(self, pseu: torch.Tensor, axis: int) -> torch.Tensor:

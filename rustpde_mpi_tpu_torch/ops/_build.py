@@ -71,7 +71,8 @@ _I = ctypes.c_int
 _JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _P], _I)
 _L = ctypes.c_longlong
 _DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P], _I)
-_BANDED_SIG = ([_I] * 8 + [_P, _P, _I, _L, _L, _I, _P, _L, _L, _L, _P, _L, _L, _L, _P], _I)
+_BANDED_SIG = ([_I] * 8 + [_P, _P, _I, _L, _L, _I, _P, _L, _L, _L, _P, _L, _L, _L, _I, _L, _L,
+                          _P], _I)
 _RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _P], _I)
 _SIGNATURES = {
     "banded_solve": {
@@ -89,6 +90,8 @@ _SIGNATURES = {
     "ring_transpose": {
         "rp_ring_transpose_f64": _RING_SIG,
         "rp_ring_transpose_f32": _RING_SIG,
+        "rp_ring_transpose_c128": _RING_SIG,
+        "rp_ring_transpose_c64": _RING_SIG,
     },
 }
 

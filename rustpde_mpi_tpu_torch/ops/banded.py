@@ -19,9 +19,10 @@ Counterpart of the JAX package's ``ops/banded.py`` for Chebyshev axes:
 * :class:`DiagSolver` — the diagonal solve of a Fourier axis.
 
 A complex right-hand side (a field of a periodic space) is solved by the
-banded kernel in one launch: its real and imaginary parts are two batch
-entries of one strided real view, both read with the same factors (no
-copy, no second launch).  The parity-separated adapter of the JAX package
+banded kernel in one launch: its real and imaginary parts are two planes
+of one strided real view, both read with the same factors (no copy, no
+second launch), so a pencil solve whose factor sets are offset by the rank
+stays one launch too.  The parity-separated adapter of the JAX package
 is a TPU layout device and is not ported.
 """
 
@@ -105,11 +106,11 @@ def banded_lu_factor(dense: np.ndarray, p: int, q: int):
 
 
 class BandedSolver:
-    """Solves ``A x = b`` along one axis of a device tensor with the LU
-    factors of ``A``: one set, ``(p, n)``/``(q+1, n)``, or one per lane,
-    ``(lanes, p, n)``/``(lanes, q+1, n)``.  Per-lane factors align with the
-    lanes the solve runs over: the axes after the solve axis, or, when it is
-    the last axis, the axis before it."""
+    """Solves ``A x = b`` along one axis of a device tensor, real or
+    complex, with the LU factors of ``A``: one set, ``(p, n)``/``(q+1,
+    n)``, or one per lane, ``(lanes, p, n)``/``(lanes, q+1, n)``.  Per-lane
+    factors align with the lanes the solve runs over: the axes after the
+    solve axis, or, when it is the last axis, the axis before it."""
 
     def __init__(self, lower, upper, *, device, dtype):
         self.kernel = BandedSolve(lower, upper, device=device, dtype=dtype)
@@ -135,23 +136,28 @@ class BandedSolver:
         """``fn`` on the ``(batch, n, lanes)`` view of ``b`` whose axis 1 is
         ``b``'s ``axis``: lanes are the dims after it or, when it is the
         last, the one before (which per-lane factors align with).  A
-        complex ``b`` goes in as its real view with the real and imaginary
-        parts leading, so they are batch entries of one view, for which a
-        2-D field needs no copy: ``(2, n, lanes)`` with strides ``(1, 2,
-        2 n)`` for a solve along its last axis."""
-        if b.is_complex():
-            parts = torch.view_as_real(b).movedim(-1, 0)
-            out = cls._along(fn, parts, axis % b.ndim + 1)
-            return torch.view_as_complex(out.movedim(0, -1).contiguous())
+        complex ``b`` goes in as the real view of that view, ``(2, batch,
+        n, lanes)``, its real and imaginary parts two planes of one launch
+        that read the same factor sets (no copy)."""
         shape = b.shape
         axis %= b.ndim
         pre, post = math.prod(shape[:axis]), math.prod(shape[axis + 1 :])
         n = shape[axis]
         if post > 1 or axis == 0:
-            return fn(b.reshape(pre, n, post)).reshape(shape)
-        lanes = shape[axis - 1]
-        view = b.reshape(pre // lanes, lanes, n).transpose(1, 2)
-        return fn(view).transpose(1, 2).reshape(shape)
+            view = b.reshape(pre, n, post)
+
+            def undo(out):
+                return out.reshape(shape)
+        else:
+            lanes = shape[axis - 1]
+            view = b.reshape(pre // lanes, lanes, n).transpose(1, 2)
+
+            def undo(out):
+                return out.transpose(1, 2).reshape(shape)
+        if not b.is_complex():
+            return undo(fn(view))
+        out = fn(torch.view_as_real(view).movedim(-1, 0)).movedim(0, -1)
+        return undo(torch.view_as_complex(out if out.stride(-1) == 1 else out.contiguous()))
 
 
 class DenseSolver:

@@ -32,7 +32,10 @@ Per-lane factors may be read with a factor batch stride ``k``: lane ``l`` of
 batch ``j`` then solves with factor set ``j * k + l``.  The
 pencil-decomposed Poisson solve uses it to solve the y-pencils of all ranks
 of a mesh, each holding its own slice of the eigenvalue lanes, in one
-launch.
+launch.  A second batch level, ``(planes, batch, n, lanes)``, gives every
+plane the same factor sets: a complex right-hand side's real and imaginary
+parts, so that the periodic cell's per-mode solve on complex y-pencils is
+one launch too.
 """
 
 from __future__ import annotations
@@ -129,12 +132,16 @@ def tile_lanes(n: int, itemsize: int, systems: int, per_lane: bool, terms: int) 
 
 
 def vector_copies(b: torch.Tensor, lanes: int) -> bool:
-    """Whether the kernel may copy the ``(batch, n, lanes)`` view ``b`` 16
-    bytes at a time with a tile of ``lanes`` lanes: every run it copies
-    (a lane's rows when the row stride is 1, else a tile row of lanes with
-    lane stride 1) starts on 16 bytes, by the base pointer and the
-    strides."""
+    """Whether the kernel may copy the ``(batch, n, lanes)`` or ``(planes,
+    batch, n, lanes)`` view ``b`` 16 bytes at a time with a tile of
+    ``lanes`` lanes: every run it copies (a lane's rows when the row stride
+    is 1, else a tile row of lanes with lane stride 1) starts on 16 bytes,
+    by the base pointer and the strides."""
     es = b.element_size()
+    if b.ndim == 4:
+        if b.shape[0] > 1 and b.stride(0) * es % 16:
+            return False
+        b = b[0]
     sb, sr, sl = b.stride()
     if b.data_ptr() % 16 or (b.shape[0] > 1 and sb * es % 16):
         return False
@@ -188,7 +195,8 @@ class BandedSolve:
     # -- accounting -------------------------------------------------------
 
     def flops(self, shape) -> float:
-        """Flops of one solve of a ``(batch, n, lanes)`` rhs: a multiply and
+        """Flops of one solve of a ``(batch, n, lanes)`` rhs (planes counted
+        into the batch): a multiply and
         a subtraction per band term of the path that exists in that row,
         one division per row."""
         nb, n, lanes = shape
@@ -215,15 +223,15 @@ class BandedSolve:
         if b.device != self.device or b.dtype != self.dtype:
             raise ValueError(f"banded solve input: {b.dtype} on {b.device}, "
                              f"expected {self.dtype} on {self.device}")
-        if b.ndim != 3 or b.shape[1] != self.n:
+        if b.ndim not in (3, 4) or b.shape[-2] != self.n:
             raise ValueError(f"banded solve input: shape {tuple(b.shape)}, expected "
-                             f"(batch, {self.n}, lanes)")
+                             f"([planes,] batch, {self.n}, lanes)")
         if factor_batch_stride and not self.per_lane:
             raise ValueError("a factor batch stride needs per-lane factors")
         if factor_batch_stride < 0:
             raise ValueError(f"negative factor batch stride {factor_batch_stride}")
         if self.per_lane:
-            nb, lanes = b.shape[0], b.shape[2]
+            nb, lanes = b.shape[-3], b.shape[-1]
             if factor_batch_stride:
                 fits = (nb - 1) * factor_batch_stride + lanes <= self.lanes
             else:
@@ -234,11 +242,13 @@ class BandedSolve:
                                  f"hold {self.lanes}")
 
     def apply(self, b, factor_batch_stride: int = 0) -> torch.Tensor:
-        """Solve along axis 1 of ``b`` ``(batch, n, lanes)``: the CUDA
-        kernel on a CUDA device (the result has ``b``'s strides), the plain
-        recurrence on the CPU.  ``factor_batch_stride`` (per-lane factors
-        only): lane ``l`` of batch ``j`` takes factor set ``j * stride +
-        l``; 0 gives every batch the same ``lanes`` sets."""
+        """Solve along the rows of ``b`` ``(batch, n, lanes)`` or ``(planes,
+        batch, n, lanes)``: the CUDA kernel on a CUDA device (the result has
+        ``b``'s strides), the plain recurrence on the CPU.
+        ``factor_batch_stride`` (per-lane factors only): lane ``l`` of batch
+        ``j`` takes factor set ``j * stride + l``; 0 gives every batch the
+        same ``lanes`` sets.  Every plane takes the same sets as the
+        others."""
         self._check(b, factor_batch_stride)
         if self.device.type == "cpu":
             return self.plain(b, factor_batch_stride)
@@ -250,8 +260,9 @@ class BandedSolve:
 
     def plain(self, b, factor_batch_stride: int = 0) -> torch.Tensor:
         """The recurrence in plain PyTorch, row by row and in place on one
-        ``(n, batch, lanes)`` copy of ``b``, vectorised over batch and lanes
-        (the CPU path and the kernel's yardstick)."""
+        ``(n, [planes,] batch, lanes)`` copy of ``b``, vectorised over
+        planes, batch and lanes (the CPU path and the kernel's
+        yardstick)."""
         idx = self._sets(b, factor_batch_stride)
         if idx is not None:
             coefs = self._row_coefs(self.lower[..., idx], self.upper[..., idx])
@@ -259,9 +270,9 @@ class BandedSolve:
             if self._coefs is None:
                 self._coefs = self._row_coefs()
             coefs = self._coefs
-        x = b.movedim(1, 0).clone(memory_format=torch.contiguous_format)
+        x = b.movedim(-2, 0).clone(memory_format=torch.contiguous_format)
         _substitute(x.unbind(0), *coefs)
-        return x.movedim(0, 1)
+        return x.movedim(0, -2)
 
     def plain_chains(self, b, factor_batch_stride: int = 0) -> torch.Tensor:
         """The same recurrence from the kernel's chain layout: each of the
@@ -274,18 +285,18 @@ class BandedSolve:
             low, upp = low[..., idx], upp[..., idx]
         elif not self.per_lane:
             low, upp = low[..., 0], upp[..., 0]
-        x = b.movedim(1, 0).clone(memory_format=torch.contiguous_format)
+        x = b.movedim(-2, 0).clone(memory_format=torch.contiguous_format)
         for s in range(self.systems):
             rows = x[s :: self.systems].unbind(0)
             _substitute(rows, *_coef_lists(low[:, : len(rows), s], upp[:, : len(rows), s]))
-        return x.movedim(0, 1)
+        return x.movedim(0, -2)
 
     def _sets(self, b, factor_batch_stride: int):
         """``(batch, lanes)`` factor-set index of each lane of ``b`` under a
         factor batch stride, or None without one."""
         if not factor_batch_stride:
             return None
-        nb, _, lanes = b.shape
+        nb, _, lanes = b.shape[-3:]
         return (torch.arange(nb, device=self.device)[:, None] * factor_batch_stride
                 + torch.arange(lanes, device=self.device)[None, :])
 
@@ -311,15 +322,16 @@ class BandedSolve:
         lib = _build.load("banded_solve")
         fn = lib.rp_banded_solve_f64 if self.dtype == torch.float64 else lib.rp_banded_solve_f32
         x = torch.empty_like(b)  # keeps b's strides when b is dense
-        nb, n, lanes = b.shape
+        b4, x4 = (b, x) if b.ndim == 4 else (b[None], x[None])
+        planes, nb, n, lanes = b4.shape
         low, upp = self.chain_lower, self.chain_upper
         # per-lane chain factors are (terms, nk, systems, self.lanes): lane l
-        # of batch j reads set j * factor_batch_stride + l
+        # of batch j reads set j * factor_batch_stride + l, in every plane
         _build.call(fn, self.device, nb, n, lanes, self.systems, low.shape[0], upp.shape[0] - 2,
                     self.tile_lanes, int(vector_copies(b, self.tile_lanes)),
                     low.data_ptr(), upp.data_ptr(), int(self.per_lane), self.lanes or 1,
-                    factor_batch_stride, low.shape[1], b.data_ptr(), *b.stride(),
-                    x.data_ptr(), *x.stride())
+                    factor_batch_stride, low.shape[1], b.data_ptr(), *b4.stride()[1:],
+                    x.data_ptr(), *x4.stride()[1:], planes, b4.stride(0), x4.stride(0))
         return x
 
 

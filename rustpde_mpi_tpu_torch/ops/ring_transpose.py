@@ -23,8 +23,12 @@ from __future__ import annotations
 
 import torch
 
-from ..config import check_dtype
 from . import _build
+
+#: the kernel's entry point for each dtype it moves: a complex element (a
+#: periodic cell's spectral pencil) is the unit of the permutation
+ENTRY = {torch.float64: "rp_ring_transpose_f64", torch.float32: "rp_ring_transpose_f32",
+         torch.complex128: "rp_ring_transpose_c128", torch.complex64: "rp_ring_transpose_c64"}
 
 
 def transposed_shape(shape, nranks: int, x_to_y: bool) -> tuple[int, int, int]:
@@ -37,7 +41,7 @@ def transposed_shape(shape, nranks: int, x_to_y: bool) -> tuple[int, int, int]:
 
 class RingTranspose:
     """The pencil flip of one mesh: ``nranks`` ranks on ``device``, any
-    pencil extents, float64 or float32."""
+    pencil extents, float64, float32, complex128 or complex64."""
 
     def __init__(self, nranks: int, device):
         self.nranks = int(nranks)
@@ -49,7 +53,9 @@ class RingTranspose:
         if block.device != self.device:
             raise ValueError(f"pencil transpose input on {block.device}, the mesh is on "
                              f"{self.device}")
-        check_dtype(block.dtype)
+        if block.dtype not in ENTRY:
+            raise ValueError(f"pencil transpose input of dtype {block.dtype}: the kernel moves "
+                             f"{', '.join(map(str, ENTRY))}")
         split = 1 if x_to_y else 2
         if block.ndim != 3 or block.shape[0] != self.nranks or \
                 block.shape[split] % self.nranks:
@@ -110,8 +116,7 @@ class RingTranspose:
             raise ValueError("the pencil-transpose kernel needs a unit stride along the "
                              "last axis")
         lib = _build.load("ring_transpose")
-        fn = lib.rp_ring_transpose_f64 if block.dtype == torch.float64 else \
-            lib.rp_ring_transpose_f32
+        fn = getattr(lib, ENTRY[block.dtype])
         p = self.nranks
         out = torch.empty(transposed_shape(block.shape, p, x_to_y), device=block.device,
                           dtype=block.dtype)

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``parallel/decomp.py`` (its ``Decomp2d``,
 ``broadcast_scalar``, ``gather_root`` and ``scatter_root``).  A field split
 over a :class:`..parallel.mesh.Mesh` is one stacked tensor with the rank as
 its leading dimension (see that module); this module places global arrays
-into that layout, takes them back out, and flips them.
+into that layout, takes them back out, and flips them, real fields and
+complex ones (the periodic cell's spectral state) alike.
 
 The JAX package names two schedules of one repartition, ``method="alltoall"``
 and ``method="ring"``.  On one device under one controller the port has one

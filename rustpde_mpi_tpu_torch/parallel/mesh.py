@@ -21,7 +21,9 @@ flip is explicit here: :func:`apply_separable` and :func:`forward_separable`
 apply a 2-D separable operator with the flip between its two factors, and
 every flip runs the pencil-transpose kernel of :mod:`..ops.ring_transpose`.
 Pad rows and columns of every operator are zero, so pad entries never enter
-a product and stay exactly zero.
+a product and stay exactly zero.  A complex field (the periodic cell's
+spectral state) is split and flipped the same way, a complex element the
+unit.
 
 Ranks on separate cards (peer access or ``torch.distributed``) are not
 ported: a mesh over distinct devices raises.
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..ops import transforms as tr
 from ..ops.ring_transpose import RingTranspose
 
 AXIS = "p"
@@ -97,20 +100,34 @@ def y_pencil_shape(shape, nranks: int) -> tuple[int, int, int]:
     return (nranks, n0p // nranks, n1p)
 
 
+def apply_axis(op, block: torch.Tensor, dim: int) -> torch.Tensor:
+    """One axis factor of a separable operator along ``dim`` of a pencil:
+    None (the identity), a 1-D device tensor (a diagonal, as a Fourier
+    derivative or Helmholtz factor is), a 2-D one (a matrix; a complex
+    block under a real matrix runs as the serial port's real product,
+    :func:`..ops.transforms.apply_along`), or a function of the block (an
+    FFT along the axis that the pencil holds whole)."""
+    if op is None:
+        return block
+    if not torch.is_tensor(op):
+        return op(block)
+    if op.ndim == 1:
+        return tr.apply_diag(op, block, dim)
+    return tr.apply_along(op, block, dim)
+
+
 def apply_separable(mesh: Mesh, block: torch.Tensor, a0, a1, spectral_out: bool) -> torch.Tensor:
     """``A0 @ v @ A1^T`` of the x-pencil ``block``: ``a0`` on the x-pencil,
     the flip to the y-pencil, ``a1`` there, and the flip back only when the
     result is spectral (``spectral_out``); a physical result stays a
-    y-pencil.  ``a0``/``a1`` are padded device matrices or None (the
-    identity); an identity ``a1`` with a spectral result needs no flip.
+    y-pencil.  ``a0``/``a1`` are axis factors of :func:`apply_axis` (None:
+    the identity); an identity ``a1`` with a spectral result needs no flip.
     The flip points are those of the JAX package's ``Space2`` transforms
     (``bases.py:905-1010``)."""
-    out = block if a0 is None else torch.matmul(a0, block)
+    out = apply_axis(a0, block, 1)
     if a1 is None and spectral_out:
         return out
-    out = mesh.ring.x_to_y(out)
-    if a1 is not None:
-        out = torch.matmul(out, a1.T)
+    out = apply_axis(a1, mesh.ring.x_to_y(out), 2)
     return mesh.ring.y_to_x(out) if spectral_out else out
 
 
@@ -118,6 +135,4 @@ def forward_separable(mesh: Mesh, block: torch.Tensor, a0, a1) -> torch.Tensor:
     """``A0 @ v @ A1^T`` of the y-pencil ``block`` (physical data):
     ``a1`` on the y-pencil, the flip, ``a0`` on the x-pencil; the result is
     an x-pencil."""
-    out = block if a1 is None else torch.matmul(block, a1.T)
-    out = mesh.ring.y_to_x(out)
-    return out if a0 is None else torch.matmul(a0, out)
+    return apply_axis(a0, mesh.ring.y_to_x(apply_axis(a1, block, 2)), 1)

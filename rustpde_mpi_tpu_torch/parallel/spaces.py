@@ -12,16 +12,25 @@ pencil between the two factors where the JAX package places its
 space's layout calls (``place_*``, ``gather_*``, ``x_to_y``/``y_to_x``,
 ``weighted_sum``, ``apply_operators``) on pencils, so a model or solver
 runs on either space unchanged.
+
+A Fourier x axis (the periodic cell) keeps its serial form: its forward
+and backward run on ``torch.fft`` on the x-pencil, which holds axis 0
+whole (the pad rows sliced off before, zeros appended after), and its
+derivative is a diagonal; its spectral fields are complex x-pencils, which
+the y-axis factors reach through a flip of complex pencils.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..bases import Space2, divide_scale
+from ..ops import transforms as tr
 from .decomp import Decomp2d, all_gather_sum
-from .mesh import Mesh, apply_separable, forward_separable, pad_matrix, x_pencil_shape
+from .mesh import (Mesh, apply_separable, forward_separable, pad_matrix, padded,
+                   x_pencil_shape)
 
 
 class PencilSpace2:
@@ -48,10 +57,18 @@ class PencilSpace2:
     def shape_spectral(self) -> tuple[int, int]:
         return self.space.shape_spectral
 
+    @property
+    def spectral_is_complex(self) -> bool:
+        return self.space.spectral_is_complex
+
+    @property
+    def spectral_dtype(self) -> torch.dtype:
+        return self.space.spectral_dtype
+
     def ndarray_spectral(self) -> torch.Tensor:
         """Zero spectral x-pencil."""
         return torch.zeros(x_pencil_shape(self.shape_spectral, self.mesh.nranks),
-                           device=self.device, dtype=self.dtype)
+                           device=self.device, dtype=self.spectral_dtype)
 
     # -- placement -------------------------------------------------------------
 
@@ -60,8 +77,9 @@ class PencilSpace2:
         return self.physical.place_y_pencil(values, self.dtype)
 
     def place_spectral(self, values) -> torch.Tensor:
-        """Global spectral (or ortho-space, same extents) values -> x-pencil."""
-        return Decomp2d(np.shape(values), self.mesh).place_x_pencil(values, self.dtype)
+        """Global spectral (or ortho-space, same extents) values -> x-pencil
+        in the space's spectral dtype (complex on a Fourier x axis)."""
+        return Decomp2d(np.shape(values), self.mesh).place_x_pencil(values, self.spectral_dtype)
 
     def gather_physical(self, block: torch.Tensor) -> torch.Tensor:
         return self.physical.gather_y_pencil(block)
@@ -88,16 +106,54 @@ class PencilSpace2:
         return apply_separable(self.mesh, vhat, a0, a1, spectral_out=True)
 
     def operator(self, mat: np.ndarray) -> torch.Tensor:
-        """A host operator matrix, zero-padded to the pencil extents, in the
-        space's device and dtype."""
+        """A host operator matrix (or a diagonal, 1-D), zero-padded to the
+        pencil extents, in the space's device and dtype (its complex one
+        for a complex host array)."""
+        if np.ndim(mat) == 1:
+            return self.space.operator(np.pad(mat, (0, padded(len(mat), self.nranks) - len(mat))))
         return self.space.operator(pad_matrix(mat, self.mesh.nranks))
 
-    def _mat(self, axis: int, key) -> torch.Tensor | None:
+    def _mat(self, axis: int, key):
+        """The axis factor named ``key`` (see :func:`.mesh.apply_axis`):
+        a padded device matrix of a Chebyshev axis (None: the identity), or
+        the FFT or diagonal of a Fourier one."""
         ck = (axis, key)
         if ck not in self._mats:
-            mat = self.space.axis_matrix(axis, key)
-            self._mats[ck] = None if mat is None else self.operator(mat)
+            if self.bases[axis].is_periodic:
+                self._mats[ck] = self._fourier(axis, key)
+            else:
+                mat = self.space.axis_matrix(axis, key)
+                self._mats[ck] = None if mat is None else self.operator(mat)
         return self._mats[ck]
+
+    def _fourier(self, axis: int, key):
+        """The axis factor of an r2c x axis, which the x-pencil (axis 1 of
+        the stacked tensor) holds whole: the transforms on ``torch.fft``,
+        the pad rows sliced off before and zeros appended after, the result
+        contiguous; the
+        derivative a padded diagonal; the stencil and projection the
+        identity."""
+        base = self.bases[axis]
+        if axis != 0:
+            raise ValueError("a Fourier axis on pencils is axis 0")
+        n, m = base.n, base.m
+        pad_m, pad_n = padded(m, self.nranks) - m, padded(n, self.nranks) - n
+        if key in ("stencil", "proj"):
+            return None
+        # contiguous: an FFT along axis 1 returns its result with the axes'
+        # strides permuted, and a flip needs the last axis at unit stride
+        if key == "fwd":
+            return lambda v: F.pad(tr.fourier_r2c_forward_fft(v[:, :n], 1),
+                                   (0, 0, 0, pad_m)).contiguous()
+        if key in ("bwd", "synthesis"):
+            return lambda c: F.pad(tr.fourier_r2c_backward_fft(c[:, :m], 1, n),
+                                   (0, 0, 0, pad_n)).contiguous()
+        if key[0] == "grad":
+            return self.operator(base.gradient_matrix(key[1]))
+        if key[0] == "bwd_grad":
+            diag, bwd = self._mat(axis, ("grad", key[1])), self._mat(axis, "bwd")
+            return lambda c: bwd(tr.apply_diag(diag, c, 1))
+        raise ValueError(f"unknown axis operator key {key!r}")
 
     def _apply(self, vhat, kx, ky, spectral_out: bool) -> torch.Tensor:
         return apply_separable(self.mesh, vhat, self._mat(0, kx), self._mat(1, ky), spectral_out)
@@ -141,7 +197,8 @@ class PencilSpace2:
         return self.space.dealias_mask()
 
     def pin_zero_mode(self, vhat: torch.Tensor) -> torch.Tensor:
-        """Zero the constant mode, which rank 0 of the x-pencil holds."""
+        """Zero the constant mode, which rank 0 of the x-pencil holds (on
+        an r2c axis its real and imaginary parts)."""
         out = vhat.clone()
         out[0, 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
         return out

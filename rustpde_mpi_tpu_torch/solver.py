@@ -177,18 +177,18 @@ class _AxisSolver:
     """1-D solver of one axis: on a Chebyshev axis ``"banded"`` (and its
     alias ``"pallas"``) runs the banded substitution kernel, ``"dense"``
     the precomputed inverse; a Fourier axis is a :class:`DiagSolver`
-    whatever the method.  The banded system is padded with identity rows
-    to a multiple of ``nranks``, the pencil extent on a mesh of that many
-    ranks (no padding for one rank)."""
+    whatever the method.  The banded system is padded with identity rows,
+    and the diagonal with ones, to a multiple of ``nranks``, the pencil
+    extent on a mesh of that many ranks (no padding for one rank)."""
 
     def __init__(self, mat: np.ndarray, method: str, nranks: int, *, device, dtype,
                  periodic: bool = False):
         kw = dict(device=device, dtype=dtype)
         method = _check_method(method, _AXIS_METHODS)
         if periodic:
-            if nranks > 1:
-                raise NotImplementedError("a Fourier axis is not ported to pencils")
-            self.solver = DiagSolver(np.diag(mat), **kw)
+            diag = np.diag(mat)
+            self.solver = DiagSolver(np.pad(diag, (0, padded(len(diag), nranks) - len(diag)),
+                                            constant_values=1.0), **kw)
         elif method == "dense":
             if nranks > 1:
                 raise NotImplementedError("method='dense' is not ported to pencils; use 'banded'")
@@ -308,14 +308,16 @@ class TensorSolver:
         preconditioner before the eigen map; the two act on different axes
         and commute, and this order needs one flip each way.  It differs
         from the serial solve in that order and in the lanes' factor
-        offsets, so it is a path of its own."""
+        offsets, so it is a path of its own.  A Fourier axis 0 has no eigen
+        maps (its modes are the lanes), and its complex y-pencil goes to the
+        banded kernel as two planes of real lanes."""
         if rhs.ndim != 3:
             raise ValueError(f"a pencil solve takes a rank-stacked (P, n0, n1) x-pencil, got "
                              f"rank {rhs.ndim}")
-        out = torch.matmul(self.fwd, rhs)
-        out = torch.matmul(self.mesh.ring.x_to_y(out), self.matvec1.T)
+        out = _apply(self.fwd, rhs, 1)
+        out = apply_along(self.matvec1, self.mesh.ring.x_to_y(out), 2)
         out = self.banded.solve(out, 2, factor_batch_stride=out.shape[1])
-        return torch.matmul(self.bwd, self.mesh.ring.y_to_x(out))
+        return _apply(self.bwd, self.mesh.ring.y_to_x(out), 1)
 
     def kernels(self) -> list:
         return [self.banded.kernel]

@@ -512,26 +512,32 @@ def test_meshed_route_on_card_matches_cpu(device):
 # -- chunked stepping: a CUDA graph of the step ---------------------------------------
 
 
-#: kernel launches a step of each route (the periodic dense route: one
-#: banded solve on the Chebyshev axis for velx, vely and temp each, one for
-#: every Fourier mode of the Poisson solve)
+#: kernel launches a step of each route (the periodic dense and meshed
+#: routes: one banded solve on the Chebyshev axis for velx, vely and temp
+#: each, one for every Fourier mode of the Poisson solve; an ``hc_`` route
+#: runs horizontal-convection boundary conditions, its temperature's y
+#: solve on the banded kernel's general path)
 PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7},
             "mesh": {"banded_solve": 7, "ring_transpose": 37},
             "periodic_fused": {"fused_conv": 3, "fused_stage": 7},
-            "periodic_dense": {"banded_solve": 4}}
+            "periodic_dense": {"banded_solve": 4},
+            "periodic_mesh": {"banded_solve": 4, "ring_transpose": 37},
+            "hc_fused": {"fused_conv": 3, "fused_stage": 7}, "hc_dense": {"banded_solve": 7},
+            "hc_mesh": {"banded_solve": 7, "ring_transpose": 37}}
 ROUTES = sorted(PER_STEP)
 
 
 def _route_model(route, device, n=33):
-    if route == "mesh":
+    if route.endswith("mesh"):
         kw = dict(mesh=pt.make_mesh(4, device))
     else:
         kw = dict(device=device)
         if route.endswith("dense"):
             kw.update(step_kernel="dense", conv_kernel="dense")
+    bc = "hc" if route.startswith("hc") else "rbc"
     if route.startswith("periodic"):
-        return pt.Navier2D.new_periodic(n - 1, n, 1e5, 1.0, 2e-3, 1.0, "rbc", **kw)
-    return pt.Navier2D.new_confined(n, n, 1e5, 1.0, 2e-3, 1.0, "rbc", **kw)
+        return pt.Navier2D.new_periodic(n - 1, n, 1e5, 1.0, 2e-3, 1.0, bc, **kw)
+    return pt.Navier2D.new_confined(n, n, 1e5, 1.0, 2e-3, 1.0, bc, **kw)
 
 
 def _launches_by_kernel(model):
@@ -713,3 +719,91 @@ def test_transform_methods_agree_on_card(device, periodic):
     for deriv in ((1, 0), (0, 1)):
         got = {m: sp.backward_gradient(vhat["matmul"], deriv) for m, sp in spaces.items()}
         assert _rel(got["fft"], got["matmul"]) <= 1e-12, deriv
+
+
+# -- complex flips, the general banded path, HC and the meshed periodic cell ---------------
+
+
+@pytest.mark.parametrize("shape", [(17, 15), (9, 16), (33, 64)])
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_ring_transpose_complex_matches_plain(device, shape, dtype):
+    """Complex pencils (the periodic cell's spectral state: nx/2+1 modes
+    padded to the rank count), a complex element the unit: bit for bit the
+    plain ring and the permuted copy, both directions, on the 16-byte path
+    (complex128; complex64 pairs on even widths) and the element path."""
+    from rustpde_mpi_tpu_torch.parallel import Decomp2d, make_mesh
+
+    mesh = make_mesh(4, device)
+    decomp = Decomp2d(shape, mesh)
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    x, y = decomp.place_x_pencil(a, dtype), decomp.place_y_pencil(a, dtype)
+    got_y, got_x = mesh.ring.x_to_y(x), mesh.ring.y_to_x(y)
+    assert mesh.ring.launches == 2 and got_y.dtype == dtype
+    torch.cuda.synchronize()
+    assert torch.equal(got_y, mesh.ring.plain(x, True)) and torch.equal(got_y, y)
+    assert torch.equal(got_x, mesh.ring.plain(y, False)) and torch.equal(got_x, x)
+    p, c, w = 4, x.shape[1] // 4, x.shape[2]
+    assert torch.equal(got_y, x.view(p, p, c, w).permute(1, 2, 0, 3).contiguous().view(p, c, p * w))
+    wide = torch.zeros(x.shape[:2] + (x.shape[2] + 3,), dtype=dtype, device=device)
+    wide[..., 1:1 + x.shape[2]] = x  # a strided view one element past the base
+    assert torch.equal(mesh.ring.x_to_y(wide[..., 1:1 + x.shape[2]]), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_general_path_on_the_hc_temperature_solve(device, dtype):
+    """HC's temperature y solve couples both parities: its kernel runs the
+    general path (one chain a lane) and matches the plain recurrence per
+    lane, real and complex (two planes) alike."""
+    model = pt.Navier2D(33, 33, 1e5, 1.0, 2e-3, 1.0, "hc", device=device, dtype=dtype,
+                        step_kernel="dense", conv_kernel="dense")
+    solver = model.solver_temp.solvers[1].solver
+    assert solver.kernel.path == "general"
+    rng = np.random.default_rng(11)
+    b = torch.tensor(rng.uniform(-1.0, 1.0, model.temp_space.shape_spectral), dtype=dtype,
+                     device=device)
+    assert _lane_rel(solver.solve(b, 1), solver.plain(b, 1), 1) <= TOL[dtype]
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    z = torch.tensor(rng.uniform(-1.0, 1.0, (17, 31)) + 1j * rng.uniform(-1.0, 1.0, (17, 31)),
+                     dtype=cdt, device=device)
+    got, want = solver.solve(z, 1), solver.plain(z, 1)
+    assert _lane_rel(got.real, want.real, 1) <= TOL[dtype]
+    assert _lane_rel(got.imag, want.imag, 1) <= TOL[dtype]
+    assert solver.kernel.launches == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_planes_with_a_factor_batch_stride(device, dtype):
+    """The meshed periodic Poisson solve: complex y-pencils whose lanes'
+    factor sets are offset by the rank, Re and Im two planes of one
+    launch."""
+    model = pt.Navier2D(32, 33, 1e5, 1.0, 2e-3, 1.0, "rbc", periodic=True,
+                        mesh=pt.make_mesh(4, device), dtype=dtype)
+    solver = model.solver_pres._solver.banded
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    rng = np.random.default_rng(12)
+    shape = (4, 5, 32)  # 17 modes padded to 20: 5 a rank; 31 rows padded to 32
+    b = torch.tensor(rng.uniform(-1.0, 1.0, shape) + 1j * rng.uniform(-1.0, 1.0, shape),
+                     dtype=cdt, device=device)
+    got, want = solver.solve(b, 2, 5), solver.plain(b, 2, 5)
+    assert solver.kernel.launches == 1
+    assert _lane_rel(got.real, want.real, 2) <= TOL[dtype]
+    assert _lane_rel(got.imag, want.imag, 2) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("route", ["hc_fused", "hc_dense", "hc_mesh", "periodic_mesh"])
+def test_hc_and_meshed_periodic_routes_on_card_match_cpu(device, route):
+    """Ten steps of the HC routes and of the meshed periodic route through
+    the kernels agree with ten plain steps on the CPU (rel 1e-11 of each
+    field's scale), with the route's launches."""
+    states = {}
+    for dev in (device, torch.device("cpu")):
+        m = _route_model(route, dev)
+        _prepare_chunks(m)
+        m.update_n(10)
+        states[dev.type] = (pt.state_to_numpy(m), m)
+    want = {k: 10 * v for k, v in PER_STEP[route].items()}
+    assert _launches_by_kernel(states["cuda"][1]) == want
+    for name, ref in states["cpu"][0].items():
+        scale = max(float(np.max(np.abs(ref))), 1e-300)
+        assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name

@@ -165,8 +165,11 @@ def test_float32_tracks_float64():
 
 
 def test_rejects_unported_options():
-    with pytest.raises(ValueError, match="not ported"):
-        pt.Navier2D(9, 9, 1e4, 1.0, 1e-2, 1.0, "hc", device="cpu")
+    # an unknown boundary-condition type raises, as in the JAX package
+    with pytest.raises(ValueError, match="not recognized"):
+        pt.Navier2D(9, 9, 1e4, 1.0, 1e-2, 1.0, "xyz", device="cpu")
+    with pytest.raises(ValueError, match="not recognized"):
+        rp.Navier2D(9, 9, 1e4, 1.0, 1e-2, 1.0, "xyz", periodic=False)
     with pytest.raises(ValueError, match="unsupported dtype"):
         pt.Navier2D(9, 9, 1e4, 1.0, 1e-2, 1.0, "rbc", device="cpu", dtype=torch.float16)
     for key in ("conv_kernel", "step_kernel"):

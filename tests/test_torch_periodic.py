@@ -309,7 +309,7 @@ def test_complex_banded_solve_is_one_launch_of_real_lanes():
     b = _t(_rand((lanes, n), 31, cplx=True))
     views = []
     solver._along(lambda v: views.append(v) or v, b, 1)
-    assert views[0].shape == (2, n, lanes) and views[0].stride() == (1, 2, 2 * n)
+    assert views[0].shape == (2, 1, n, lanes) and views[0].stride() == (1, 2 * n * lanes, 2, 2 * n)
     got = solver.solve(b, 1)
     torch.testing.assert_close(got.real, solver.solve(b.real.contiguous(), 1), rtol=0, atol=0)
     torch.testing.assert_close(got.imag, solver.solve(b.imag.contiguous(), 1), rtol=0, atol=0)
@@ -449,9 +449,3 @@ def test_convert_reads_complex_and_split_states(split):
     convert.state_from_numpy(port, arrays, split=split)
     _assert_state_close(convert.state_to_numpy(port), ref, 0.0)
     assert port.get_observables()[0] == pytest.approx(float(ref.get_observables()[0]), rel=1e-10)
-
-
-def test_periodic_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="pencil"):
-        pt.Navier2D(16, NY, 1e4, 1.0, 5e-3, 1.0, "rbc", periodic=True,
-                    mesh=pt.make_mesh(2, "cpu"))
