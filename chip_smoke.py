@@ -144,6 +144,29 @@ runs the banded kernel's general path, one chain a lane):
     transform method on both sides), meshed vs dense 1e-11, fused vs dense
     1e-11 with ``pseu`` at ``PSEU_ROUTES_LIMIT`` beside the JAX package's
     own difference;
+22. ``rbc1025_scn``: ``rbc1025`` with the scenario modifiers and an
+    obstacle (``ScenarioConfig(coriolis=2.0, passive_scalar=True)`` at
+    matched diffusivity, the scalar released equal to the temperature, and
+    ``solid_roughness_sinusoid(x, y, 0.1, 10.0)`` through ``set_solid``, the
+    defaults of the JAX package's ``examples/navier_rbc_roughness.py``) on
+    the fused, dense and meshed routes: the route's kernel instances against
+    their plain versions, timed (the five-term ``vely`` stage, the scalar's
+    stage and its conv chain on the temperature's instance; the banded
+    solves with the scalar's two on the temperature's solver; every flip and
+    banded input of a meshed step), the main path (exactly 4 conv and 8
+    stage launches a step; 9 banded; 56 flips and 9 banded, 13 flips an
+    observables read), the profile, the mirror (``scal`` against ``temp``,
+    expected bit for bit, limit 1e-10 as the example) and Sherwood against
+    Nu (rel 1e-11), and the chunk gates of phase 14;
+23. the JAX package's scenario checks at 129^2 and 128x129 (Ra=1e5,
+    dt=0.01, every modifier with the scalar at 3x the thermal diffusivity):
+    card vs CPU on every route (1e-11 of each field's scale, ``scal``
+    included), meshed vs dense on the card (1e-11); the Coriolis force
+    absorbed by the pressure at 129^2, Ra=1e4, 50 steps (velocities and
+    temperature rel < 1e-3 of the non-rotating run, pressure > 1e-2: the
+    JAX package's ``tests/test_workloads.py``); a cylinder stopping the
+    flow at 129^2, Ra=1e5, 100 steps (inner speed < 2e-3 and the fluid's
+    > 50x it: ``tests/test_solid_masks.py``);
 17. last, the two transform methods of the Chebyshev axes: at ``rbc1025``
     and ``periodic1024`` the velocity space's transforms under ``"fft"``
     against ``"matmul"`` (1e-12), each timed, and each route of each cell
@@ -155,7 +178,8 @@ one step, to set beside the launches timed alone.  The ``kernels`` line
 sums each kernel over one step of the route it was ported for, and over a
 step of each other route that runs it (``mesh_*``, ``periodic_fused_*``,
 ``periodic_dense_*``, ``periodic_mesh_*``, ``hc_fused_*``,
-``hc_dense_*``), with every kernel's launches on every route.
+``hc_dense_*``, ``scn_fused_*``, ``scn_dense_*``, ``scn_mesh_*``), with
+every kernel's launches on every route.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -197,6 +221,18 @@ HC1025 = dict(RBC1025, bc="hc")
 #: steps (the JAX package against the port on the CPU: 1.01e-11)
 HC_CELLS = {"hc129": dict(nx=129, ny=129, ra=1e5, pr=1.0, dt=0.01, aspect=1.0, bc="hc"),
             "hc_periodic128": dict(PERIODIC128, bc="hc")}
+#: the scenario cell of phase 22 (``rbc1025_scn``): ``rbc1025`` with these
+#: modifiers, the scalar released equal to the temperature, and the
+#: roughness obstacle (height, wavenumber) of
+#: ``examples/navier_rbc_roughness.py``
+SCN_SCENARIO = dict(coriolis=2.0, passive_scalar=True)
+ROUGHNESS = (0.1, 10.0)
+#: phase 23's cells, the JAX package's scenario and roughness examples'
+#: parameters (``examples/navier_rbc_roughness.py``: Ra=1e5, dt=0.01)
+SCN_CELLS = {"scn129": dict(nx=129, ny=129, ra=1e5, pr=1.0, dt=0.01, aspect=1.0, bc="rbc"),
+             "scn_periodic128": dict(PERIODIC128)}
+#: the mirror's limit, as ``examples/navier_rbc_scenarios.py`` holds it
+MIRROR_LIMIT = 1e-10
 MAIN_STEPS = 50
 #: how far the fused route's pseudo-pressure may stray from the dense
 #: route's, relative to its scale, after 10 steps of ``PERIODIC128``: the
@@ -208,7 +244,7 @@ PSEU_ROUTES_LIMIT = 1e-10
 #: the port's, by tests/test_torch_hc.py::test_routes_differ_as_the_reference_routes_do):
 #: phase 21 holds the card's routes to ``PSEU_ROUTES_LIMIT`` there too
 REFERENCE_ROUTES_DIFF = {"hc129": {"pseu": 4.38e-11}, "hc_periodic128": {"pseu": 6.79e-11}}
-STAGE_TAGS = ("velx", "vely", "temp", "div", "poisson", "projx", "projy")
+STAGE_TAGS = ("velx", "vely", "temp", "scal", "div", "poisson", "projx", "projy")
 DENSE = dict(step_kernel="dense", conv_kernel="dense")
 #: kernel launches a step of each route
 PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7},
@@ -216,10 +252,13 @@ PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solv
             "periodic_fused": {"fused_conv": 3, "fused_stage": 7},
             "periodic_dense": {"banded_solve": 4},
             "periodic_mesh": {"banded_solve": 4, "ring_transpose": 37},
-            "hc_fused": {"fused_conv": 3, "fused_stage": 7}, "hc_dense": {"banded_solve": 7}}
+            "hc_fused": {"fused_conv": 3, "fused_stage": 7}, "hc_dense": {"banded_solve": 7},
+            "scn_fused": {"fused_conv": 4, "fused_stage": 8}, "scn_dense": {"banded_solve": 9},
+            "scn_mesh": {"banded_solve": 9, "ring_transpose": 56}}
 #: kernel launches of one save-window callback (the observables): the
-#: meshed routes flip pencils there too
-PER_CALLBACK = {"mesh": {"ring_transpose": 10}, "periodic_mesh": {"ring_transpose": 10}}
+#: meshed routes flip pencils there too (Sherwood 3 more)
+PER_CALLBACK = {"mesh": {"ring_transpose": 10}, "periodic_mesh": {"ring_transpose": 10},
+                "scn_mesh": {"ring_transpose": 13}}
 #: grid launches a step of each route's hand-written kernels, by a part of
 #: the kernel's name: what a profile that recorded every device event of a
 #: step holds (a fused conv chain is 3 generic-GEMM launches and 1 dual,
@@ -233,7 +272,10 @@ PROFILE_LAUNCHES = {"fused": {"gemm_jobs_kernel": 25, "conv_dual_kernel": 3},
                     "periodic_dense": {"banded_kernel": 4},
                     "periodic_mesh": {"banded_kernel": 4, "ring_transpose_kernel": 37},
                     "hc_fused": {"gemm_jobs_kernel": 25, "conv_dual_kernel": 3},
-                    "hc_dense": {"banded_kernel": 7}}
+                    "hc_dense": {"banded_kernel": 7},
+                    "scn_fused": {"gemm_jobs_kernel": 30, "conv_dual_kernel": 4},
+                    "scn_dense": {"banded_kernel": 9},
+                    "scn_mesh": {"banded_kernel": 9, "ring_transpose_kernel": 56}}
 PROFILE_ATTEMPTS = 3
 #: ranks of the meshed route (all on the one card)
 MESH_RANKS = 4
@@ -400,7 +442,9 @@ def kernel_cases(torch, model, rng):
     cplx = model.periodic
     cases = []
     for tag in STAGE_TAGS:
-        st = model._stages[tag]
+        st = model._stages.get(tag)
+        if st is None:  # the scalar's stage exists in a scalar scenario only
+            continue
         xs = [rand((k0 // 2 if cplx else k0, k1), cplx) for k0, k1 in zip(st.k0, st.k1)]
         cases.append(("fused_stage", tag, lambda st=st, xs=xs: st.apply(*xs),
                       lambda st=st, xs=xs: st.plain(*xs),
@@ -420,8 +464,15 @@ def kernel_cases(torch, model, rng):
     return cases
 
 
-#: launches of each fused case in one step of the fused route
-CASE_PER_STEP = {"conv": 2, "conv_bc": 1}
+def case_per_step(model, label) -> int:
+    """Launches of a fused case in one step of the fused route: the conv
+    chain without bc runs for velx and vely, the one with bc for temp (and
+    once more for a passive scalar), each stage once."""
+    if label == "conv":
+        return 2
+    if label == "conv_bc":
+        return 2 if "scal" in model.state._fields else 1
+    return 1
 
 
 def random_field(torch, rng, shape, dtype, device, cplx=False):
@@ -436,8 +487,14 @@ def random_field(torch, rng, shape, dtype, device, cplx=False):
 
 def label_of(model) -> str:
     """The configuration a model was built at (the timed cells are
-    ``rbc1025``, ``hc1025`` and ``periodic1024``)."""
-    return f"{'periodic' if model.periodic else model.bc}{model.nx}"
+    ``rbc1025``, ``hc1025``, ``periodic1024`` and ``rbc1025_scn``)."""
+    scn = "_scn" if scenario_of(model) else ""
+    return f"{'periodic' if model.periodic else model.bc}{model.nx}{scn}"
+
+
+def scenario_of(model) -> bool:
+    """Whether ``model`` runs a scenario modifier or an obstacle."""
+    return model.scenario is not None or model.solid is not None
 
 
 def tile_config() -> dict:
@@ -515,7 +572,7 @@ def phase_kernels(torch, model, limit, timing, phase="phase1"):
         out_p = run_p()
         diff, rel = rel_err(torch, out_k, out_p)
         rec = {"kernel": kernel, "route": route, "case": label, "n": model.nx,
-               "per_step": CASE_PER_STEP.get(label, 1),
+               "per_step": case_per_step(model, label),
                "dtype": str(model.dtype).replace("torch.", ""),
                "max_abs_err": diff, "max_rel_err": rel}
         if timing:
@@ -608,9 +665,12 @@ def count_launches(model) -> dict:
 
 
 def route_of(model) -> str:
-    """The route a model runs, as ``PER_STEP`` names it: ``mesh`` and
-    ``periodic_mesh`` on a mesh, else the step kernel prefixed with the
-    periodic cell or the HC boundary conditions."""
+    """The route a model runs, as ``PER_STEP`` names it: ``scn_`` and the
+    route with a scenario or an obstacle; ``mesh`` and ``periodic_mesh`` on
+    a mesh, else the step kernel prefixed with the periodic cell or the HC
+    boundary conditions."""
+    if scenario_of(model):
+        return "scn_" + ("mesh" if model.mesh is not None else model.step_kernel)
     if model.mesh is not None:
         return "periodic_mesh" if model.periodic else "mesh"
     prefix = "periodic_" if model.periodic else ("hc_" if model.bc == "hc" else "")
@@ -645,7 +705,7 @@ def phase_main(torch, pt, model, phase="phase4"):
     model.update_n(MAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    nu, nuvol, re, div = model.get_observables()
+    nu, nuvol, re, div = model.get_observables()[:4]
     print(f"{phase} {label_of(model)} f64 {route_of(model)} route: update_n {MAIN_STEPS} steps in {wall:.4f} s = "
           f"{wall / MAIN_STEPS * 1e3:.4f} ms/step; integrate {MAIN_STEPS} steps with 2 "
           f"save-window callbacks in {wall_integrate:.4f} s = "
@@ -653,11 +713,13 @@ def phase_main(torch, pt, model, phase="phase4"):
           f"{launches}; at t={model.time:.4f}: Nu={nu!r} Nuvol={nuvol!r} "
           f"Re={re!r} |div|={div!r}")
     # an RBC cell carries heat upward (Nu > 0); HC's plate flux averages to
-    # about zero (heated and cooled halves of one plate), its flow must move
-    moving = nu > 0.0 if model.bc == "rbc" else re > 0.0
+    # about zero (heated and cooled halves of one plate), and roughness
+    # elements held at the plate temperatures take the plates' gradient
+    # away: there the flow must move
+    moving = nu > 0.0 if model.bc == "rbc" and model.solid is None else re > 0.0
     if not all(math.isfinite(v) for v in (nu, nuvol, re, div)) or not moving:
         raise AssertionError(f"{label_of(model)} observables not finite, or Nu <= 0 (rbc) "
-                             "or Re <= 0 (hc)")
+                             "or Re <= 0 (hc, an obstacle)")
     return launches, wall / MAIN_STEPS * 1e3
 
 
@@ -934,7 +996,8 @@ def banded_cases(torch, pt, model, rng, timing):
     """``(label, solver, b, axis, per_step, library)`` for every banded
     solve of ``model``'s dense step on random inputs: the ADI axes of the
     velocity solver (applied twice a step, velx and vely) and of the
-    temperature solver, the Poisson tensor solver's per-lane factors along
+    temperature solver (twice with a scalar at matched diffusivity; the
+    scalar's own solver otherwise), the Poisson tensor solver's per-lane factors along
     axis 1 and, off the step (``per_step`` 0), along axis 0.  When
     ``timing``, ``library`` is one ``torch.matmul`` that solves the same
     systems with precomputed inverses: the dense inverse of the axis (one
@@ -947,7 +1010,12 @@ def banded_cases(torch, pt, model, rng, timing):
     # a Fourier axis solves by a diagonal, with no kernel; the off-step
     # axis-0 Poisson case is a confined one
     axes = (1,) if model.periodic else (1, 0)
-    for tag, adi, per_step in (("velx", model.solver_velx, 2), ("temp", model.solver_temp, 1)):
+    adis = [("velx", model.solver_velx, 2), ("temp", model.solver_temp, 1)]
+    if model.solver_scal is model.solver_temp:  # a scalar at matched diffusivity
+        adis[1] = ("temp", model.solver_temp, 2)
+    elif model.solver_scal is not None:
+        adis.append(("scal", model.solver_scal, 1))
+    for tag, adi, per_step in adis:
         dense = pt.solver.HholtzAdi(adi.space, adi.c, method="dense") if timing else None
         for axis in axes:
             b = rand(adi.space.shape_spectral)
@@ -1123,11 +1191,14 @@ def phase_solvers(torch, pt, model):
 
 def banded_solvers(model) -> dict:
     """``{label: BandedSolver}`` of the banded solves of ``model``'s dense
-    step (velx and vely share one ADI solver)."""
+    step (velx and vely share one ADI solver, and a scalar at matched
+    diffusivity the temperature's)."""
     from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
 
-    out = {f"{tag}_axis{axis}": adi.solvers[axis].solver
-           for tag, adi in (("velx", model.solver_velx), ("temp", model.solver_temp))
+    adis = [("velx", model.solver_velx), ("temp", model.solver_temp)]
+    if model.solver_scal not in (None, model.solver_temp):
+        adis.append(("scal", model.solver_scal))
+    out = {f"{tag}_axis{axis}": adi.solvers[axis].solver for tag, adi in adis
            for axis in (1, 0) if isinstance(adi.solvers[axis].solver, BandedSolver)}
     out["poisson"] = model.solver_pres._solver.banded
     return out
@@ -1668,6 +1739,152 @@ def phase_hc_small(pt):
                 raise AssertionError(f"{cell} {label}: {over}")
 
 
+# -- the scenario modifiers and solid obstacles -------------------------------------------
+
+
+def scenario_model(pt, cfg, route, device="cuda", scenario=SCN_SCENARIO, method=None):
+    """A model of ``cfg`` on ``route`` (fused, dense, mesh) with ``scenario``
+    and the roughness obstacle, from ``init_random(0.1, seed=0)``; a scalar
+    at matched diffusivity is released equal to the temperature (its
+    spectral state copied), at another diffusivity as half of it."""
+    cfg = dict(cfg)
+    periodic = cfg.pop("periodic", False)
+    if route == "mesh":
+        kw = dict(mesh=pt.make_mesh(MESH_RANKS, device))
+    else:
+        kw = dict(device=device, step_kernel=route, conv_kernel=route)
+    model = pt.Navier2D(**cfg, periodic=periodic, method=method,
+                        scenario=pt.ScenarioConfig(**scenario), **kw)
+    model.init_random(0.1, seed=0)
+    model.set_solid(*pt.solid_roughness_sinusoid(*model.x, *ROUGHNESS))
+    if "scal" in model.state._fields:
+        matched = scenario.get("scalar_kappa") is None
+        temp = model.state.temp
+        model.state = model.state._replace(scal=temp.clone() if matched else 0.5 * temp)
+    return model
+
+
+def phase_mirror(torch, model, phase="phase22"):
+    """The passive scalar released equal to the temperature at matched
+    diffusivity against the temperature (expected bit for bit; limit
+    ``MIRROR_LIMIT`` of the physical fields, as the JAX package's example
+    holds it), and Sherwood against Nu (rel 1e-11)."""
+    bit = torch.equal(model.state.scal, model.state.temp)
+    drift = float(abs(model.get_field("scal") - model.get_field("temp")).max())
+    obs = dict(zip(model.observable_names, model.get_observables()))
+    rel = abs(obs["sherwood"] / obs["nu"] - 1.0)
+    print(f"{phase} {label_of(model)} {route_of(model)} route at t={model.time:.4f}: scal vs temp "
+          f"bit for bit {bit}, max |scal - temp| {drift:.3e} (limit {MIRROR_LIMIT:g}); "
+          f"sherwood {obs['sherwood']!r} vs nu {obs['nu']!r}: rel {rel:.3e} (limit 1e-11)")
+    if not (drift <= MIRROR_LIMIT and rel <= 1e-11):
+        raise AssertionError(f"{label_of(model)}: the scalar left the temperature ({drift:.3e}) "
+                             f"or sherwood left nu ({rel:.3e})")
+
+
+def phase_scn1025(torch, pt, records, launches, bare_ms):
+    """Phase 22: ``rbc1025_scn`` on the fused, dense and meshed routes: the
+    route's kernels against their plain versions, timed (phases 1, 6 and
+    12 at this cell), the main path with its exact launches, the profile,
+    the mirror and Sherwood (:func:`phase_mirror`), and the chunk gates of
+    phase 14."""
+    for route in ("fused", "dense", "mesh"):
+        t0 = time.perf_counter()
+        model = scenario_model(pt, RBC1025, route)
+        print(f"rbc1025_scn {route}-route model build and set_solid: "
+              f"{time.perf_counter() - t0:.2f} s")
+        if route == "fused":
+            records += phase_kernels(torch, model, 1e-12, True, "phase22")
+        elif route == "dense":
+            records += phase_banded(torch, pt, model, 1e-12, True, "phase22")
+        else:
+            flips, solves, inputs = phase_step_inputs(torch, model, "phase22")
+            records += phase_ring(torch, pt, model.mesh, flips, [], "scn_mesh", "phase22")
+            records += phase_mesh_banded(torch, model, solves, inputs, 1e-12, "phase22")
+            del inputs
+        print(f"phase22 {route} ok")
+        key = route_of(model)
+        launches[key], bare_ms[key] = phase_main(torch, pt, model, "phase22")
+        phase_mirror(torch, model)
+        phase_profile(torch, model, bare_ms[key], phase="phase22")
+        phase_chunks(torch, pt, model)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_scn_small(pt):
+    """Phase 23: the JAX package's scenario checks on the card.  At
+    ``SCN_CELLS`` (129^2 and 128x129, Ra=1e5, dt=0.01), every modifier with
+    the scalar at 3x the thermal diffusivity and the roughness obstacle, 10
+    steps on every route: card vs CPU (the card's transform method on both
+    sides) to 1e-11 of each field's scale, ``scal`` included, and meshed vs
+    dense on the card to 1e-11.  Then at 129^2: the Coriolis force (f=2)
+    absorbed by the pressure (Ra=1e4, 50 steps from ``set_velocity(0.1, 1,
+    1)``/``set_temperature(0.1, 1, 1)``: velocities and temperature within
+    rel 1e-3 of the non-rotating run, the pressure more than 1e-2 apart,
+    ``tests/test_workloads.py``), and a cylinder (radius 0.3) stopping the
+    flow (Ra=1e5, 100 steps from ``set_velocity(0.2, 1, 1)``/
+    ``set_temperature(0.2, 1, 1)``: the inner speed below 2e-3 and the
+    fluid's over 50x it, ``tests/test_solid_masks.py``)."""
+    for cell, cfg in SCN_CELLS.items():
+        ka = pt.models.functions.get_ka(cfg["ra"], cfg["pr"], 2.0)
+        scenario = dict(SCN_SCENARIO, scalar_kappa=3.0 * ka)
+        states = {}
+        for route in ("fused", "dense", "mesh"):
+            for dev, method in (("cuda", None), ("cpu", pt.bases.CARD_METHOD)):
+                m = scenario_model(pt, cfg, route, dev, scenario, method)
+                m.update_n(10)
+                states[(route, dev)] = pt.convert.state_to_numpy(m)
+                obs = m.get_observables()
+                if not all(math.isfinite(v) for v in obs):
+                    raise AssertionError(f"{cell} {route} on {dev}: observables {obs}")
+
+        def rel(a, b, name):
+            ref = states[b][name]
+            return float(abs(states[a][name] - ref).max() / max(abs(ref).max(), 1e-300))
+
+        for label, a, b in (("fused route, card vs cpu", ("fused", "cuda"), ("fused", "cpu")),
+                            ("dense route, card vs cpu", ("dense", "cuda"), ("dense", "cpu")),
+                            ("meshed route, card vs cpu", ("mesh", "cuda"), ("mesh", "cpu")),
+                            ("meshed vs dense on the card", ("mesh", "cuda"), ("dense", "cuda"))):
+            diffs = {name: rel(a, b, name) for name in states[b]}
+            print(f"phase23 {cell} f64 10 steps (coriolis 2, scalar at 3x ka, roughness), "
+                  f"{label}: max rel diff {max(diffs.values()):.3e} (limit 1e-11); scal "
+                  f"{diffs['scal']:.3e}")
+            if not max(diffs.values()) <= 1e-11:
+                raise AssertionError(f"{cell} {label}: {diffs}")
+    # the Coriolis force is absorbed by the pressure
+    cfg = dict(SCN_CELLS["scn129"], ra=1e4)
+    runs = {}
+    for name, scenario in (("base", None), ("rot", pt.ScenarioConfig(coriolis=2.0))):
+        m = pt.Navier2D(**cfg, device="cuda", scenario=scenario)
+        m.set_velocity(0.1, 1.0, 1.0)
+        m.set_temperature(0.1, 1.0, 1.0)
+        m.update_n(50)
+        runs[name] = m
+    drift = {}
+    for name in ("velx", "vely", "temp", "pres"):
+        a, b = runs["base"].get_field(name), runs["rot"].get_field(name)
+        drift[name] = float(abs(a - b).max() / max(abs(a).max(), 1e-300))
+    print("phase23 rotating frame f=2, 129^2 Ra=1e4, 50 steps, fused route: rel drift "
+          + json.dumps(drift) + " (velocities and temp < 1e-3, pres > 1e-2)")
+    if not (max(drift["velx"], drift["vely"], drift["temp"]) < 1e-3 < 1e-2 < drift["pres"]):
+        raise AssertionError(f"the Coriolis force was not absorbed by the pressure: {drift}")
+    # a cylinder stops the flow inside it
+    m = pt.Navier2D.new_confined(**SCN_CELLS["scn129"], device="cuda")
+    mask, value = pt.solid_cylinder_inner(*m.x, 0.0, 0.0, 0.3)
+    m.set_solid(mask, value)
+    m.set_velocity(0.2, 1.0, 1.0)
+    m.set_temperature(0.2, 1.0, 1.0)
+    m.update_n(100)
+    speed = (m.get_field("velx") ** 2 + m.get_field("vely") ** 2) ** 0.5
+    deep = mask > 0.99
+    inner, fluid = float(speed[deep].max()), float(speed[~deep].max())
+    print(f"phase23 cylinder r=0.3, 129^2 Ra=1e5, 100 steps, fused route: max speed inside "
+          f"{inner:.3e} (limit 2e-3), in the fluid {fluid:.3e} ({fluid / inner:.1f}x, limit 50x)")
+    if m.exit() or not (inner < 2e-3 and fluid > 50.0 * inner):
+        raise AssertionError("the cylinder did not stop the flow inside it")
+
+
 # -- the kernels line --------------------------------------------------------------
 
 
@@ -1844,6 +2061,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_hc1025(torch, pt, records, launches, bare_ms)
     phase_hc_small(pt)
+    phase_scn1025(torch, pt, records, launches, bare_ms)
+    phase_scn_small(pt)
     phase_methods(torch, pt)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))

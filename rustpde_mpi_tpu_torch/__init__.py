@@ -31,6 +31,17 @@ card (:mod:`.parallel`), in either cell, every pencil flip (of real or
 complex pencils) through a hand-written CUDA transpose kernel.  Fourier axes transform on ``torch.fft``; Chebyshev axes
 by dense products or by FFT (``method="matmul"|"fft"``).
 
+Solid obstacles (``set_solid`` with the ``solid_*`` mask builders, a
+Brinkman penalization after each step) and the scenario modifiers
+(``scenario=ScenarioConfig(coriolis=..., passive_scalar=...,
+scalar_kappa=...)``: the f-plane Coriolis terms, a passive scalar ``scal``
+with its Sherwood number) run on every route::
+
+    model = Navier2D.new_confined(129, 129, 1e5, 1.0, 1e-2, 1.0, "rbc",
+                                  scenario=ScenarioConfig(coriolis=2.0,
+                                                          passive_scalar=True))
+    model.set_solid(*solid_roughness_sinusoid(*model.x, 0.1, 10.0))
+
 ``update_n`` steps in the JAX package's chunks: a chunk freezes at the
 first step whose state is not finite, and with ``set_stability(
 StabilityConfig())`` it carries the CFL, kinetic-energy and |div|
@@ -45,8 +56,12 @@ from .bases import (Base, BaseKind, Space2, cheb_dirichlet, cheb_dirichlet_neuma
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
 from .models.boundary_conditions import (bc_hc_values, bc_rbc_values,  # noqa: F401
                                          bc_zero_values, pres_bc_rbc_values)
-from .models.navier import Navier2D, NavierState  # noqa: F401
+from .models.navier import Navier2D, NavierScalarState, NavierState  # noqa: F401
+from .models.solid_masks import (solid_cylinder_inner, solid_porosity,  # noqa: F401
+                                 solid_porosity_interpolate, solid_rectangle,
+                                 solid_roughness_sinusoid)
 from .parallel import Decomp2d, Mesh, make_mesh  # noqa: F401
 from .solver import FastDiag, Hholtz, HholtzAdi, Poisson, TensorSolver  # noqa: F401
 from .utils.governor import ChunkStatus  # noqa: F401
 from .utils.integrate import integrate  # noqa: F401
+from .workloads import ScenarioConfig  # noqa: F401

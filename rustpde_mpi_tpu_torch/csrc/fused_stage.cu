@@ -18,7 +18,7 @@
 // The convection wrapper (ops/fused_conv.py) runs its plain GEMM launches
 // through the same entry points, rp_gemm_f64/f32, from this library.
 //
-// Bound on the H100: operations.  At 1025^2 f64 a stage does 4.3-17.2 GFLOP
+// Bound on the H100: operations.  At 1025^2 f64 a stage does 4.3-21.4 GFLOP
 // on 33-117 MB of operands: 0.06-0.26 ms at the 67 TFLOP/s of the FP64
 // tensor cores against 0.01-0.04 ms at the memory rate.  The tile is
 // tile_gemm.cuh's: DMMA m16n8k8 warp tiles of 32 x 32 in 64 x 64 blocks,
@@ -34,8 +34,10 @@
 #include "tile_gemm.cuh"
 
 namespace rp {
-constexpr int MAX_TERMS = 4;  // products summed by one output
-constexpr int MAX_JOBS = 4;   // outputs of one launch (blockIdx.z)
+// products summed by one output: the vely stage of a rotating model sums
+// five (state, pressure gradient, buoyancy, convection, Coriolis)
+constexpr int MAX_TERMS = 5;
+constexpr int MAX_JOBS = 5;  // outputs of one launch (blockIdx.z): one a term
 }  // namespace rp
 
 // One output of one launch of the generic kernel (mirrored field for field

@@ -134,10 +134,15 @@ class CampaignModelBase:
 
     def _scan_ok(self, state) -> torch.Tensor:
         """The continue criterion of a chunk, a 0-d bool tensor: the
-        temperature's sum is finite (a NaN anywhere reaches temp within a
-        step through buoyancy and convection; a complex sum is finite when
-        both its parts are)."""
-        return torch.isfinite(torch.sum(state.temp))
+        temperature's sum is finite (a NaN anywhere in the flow reaches
+        temp within a step through buoyancy and convection; a complex sum
+        is finite when both its parts are), and so is the passive scalar's,
+        where the state has one (the flow never reads it, so a NaN in the
+        scalar alone would not reach temp)."""
+        probe = torch.sum(state.temp)
+        if "scal" in state._fields:
+            probe = probe + torch.sum(state.scal)
+        return torch.isfinite(probe)
 
     @staticmethod
     def _commit(fields, stepped, keep) -> None:
@@ -188,6 +193,13 @@ class CampaignModelBase:
         self._commit(fields, stepped, go)
 
     # -- the chunk runner ------------------------------------------------------
+
+    def _drop_chunks(self) -> None:
+        """Forget the chunk runners and the observables cache: a change of
+        the step's constants (an obstacle's factors, a scenario's stages or
+        solvers) or of the state's fields leaves a captured step stale."""
+        self._runners.clear()
+        self._obs_cache = None
 
     def chunk_runner(self, armed: bool | None = None) -> ChunkRunner:
         """The chunk runner of the plain (``armed=False``) or the sentinel

@@ -28,6 +28,17 @@ arguments (the JAX package's ``RUSTPDE_CONV_KERNEL`` /
 ``"matmul"``, :class:`..bases.Space2`); a Fourier axis always runs on
 ``torch.fft``.
 
+``scenario=`` (a :class:`..workloads.modifiers.ScenarioConfig`, or a
+dict with its keys) adds the JAX package's scenario modifiers to the step
+on every route: the f-plane Coriolis cross terms (on the fused route two
+more terms of the velocity stages, the ``vely`` stage then summing five
+products) and a passive scalar ``scal`` (the temperature's convection,
+through the same fused convection instance, and its own implicit stage or
+solve, shared with the temperature's solver at matched diffusivity).
+``set_solid`` adds a solid obstacle as an implicit pointwise Brinkman
+penalization after each step (``forward(backward(.) * fac [+ temp_add])``
+on ``velx``, ``vely``, ``temp`` and ``scal``).
+
 ``mesh=`` (a :class:`..parallel.mesh.Mesh`) runs the dense route on fields
 split over the mesh's ranks, as the JAX package's meshed model does, in
 either cell: the state lives in spectral x-pencils (complex ones in the
@@ -81,6 +92,65 @@ class NavierState(NamedTuple):
     pseu: torch.Tensor
 
 
+class NavierScalarState(NamedTuple):
+    """:class:`NavierState` plus the passive scalar of a ``passive_scalar``
+    scenario: ``scal`` is advected by the flow and diffused at the scalar
+    diffusivity, with the temperature's BC lift as its boundary forcing, so
+    a scalar released equal to the temperature at matched diffusivity stays
+    equal to it."""
+
+    temp: torch.Tensor
+    velx: torch.Tensor
+    vely: torch.Tensor
+    pres: torch.Tensor
+    pseu: torch.Tensor
+    scal: torch.Tensor
+
+
+def scenario_signature(scenario) -> tuple:
+    """The canonical signature of a scenario (any object carrying
+    ``coriolis`` / ``passive_scalar`` / ``scalar_kappa``, or a dict with
+    those keys), as the JAX package signs it: an empty or default scenario
+    signs as ``()``, equal to no scenario at all.  A non-positive
+    ``scalar_kappa`` raises."""
+    if scenario is None:
+        return ()
+    get = (scenario.get if isinstance(scenario, dict)
+           else lambda k, d=None: getattr(scenario, k, d))
+    items = []
+    f = float(get("coriolis", 0.0) or 0.0)
+    if f:
+        items.append(("coriolis", f))
+    if get("passive_scalar", False):
+        kappa = get("scalar_kappa", None)
+        if kappa is not None and float(kappa) <= 0.0:
+            # 0.0 would collide with the thermal-default sentinel below
+            raise ValueError(f"scalar_kappa must be positive (got {kappa}); omit it for "
+                             "the thermal diffusivity")
+        items.append(("passive_scalar", float(kappa) if kappa is not None else 0.0))
+    return tuple(items)
+
+
+def brinkman_factors(model, mask, value=None, eta: float | None = None):
+    """The pointwise implicit-Brinkman penalization factors ``(fac,
+    temp_add)`` of one obstacle on ``model``'s grid: ``fac = 1 / (1 +
+    (dt/eta) mask)``, and ``temp_add`` relaxes the temperature toward
+    ``value`` minus the BC lift (the temperature state excludes the lift).
+    Built in numpy f64 on the host and placed as physical fields of the
+    model's field space (on a mesh y-pencils, whose pad gets 0 in both, so
+    the pad's zeros stay zeros)."""
+    mask = np.asarray(mask, dtype=np.float64)
+    if value is None:
+        value = np.zeros_like(mask)
+    if eta is None:
+        eta = model.dt / 10.0
+    a = (model.dt / float(eta)) * mask
+    fac = 1.0 / (1.0 + a)
+    temp_add = a * (value - model.host_bc["phys"]) * fac
+    place = model.field_space.place_physical
+    return place(fac), place(temp_add)
+
+
 class Navier2D(CampaignModelBase):
     """2-D Rayleigh-Benard convection solver, confined or horizontally
     periodic.
@@ -92,14 +162,22 @@ class Navier2D(CampaignModelBase):
     ``"fused"`` (the default) or ``"dense"`` (see the module docstring).
     ``method``: the Chebyshev axes' transform path (default
     :func:`..bases.default_method` of the device).  ``mesh``: split the
-    fields over its ranks (dense route only; the device is the mesh's)."""
+    fields over its ranks (dense route only; the device is the mesh's).
+    ``scenario``: the step modifiers (see the module docstring)."""
 
-    observable_names = ("nu", "nuvol", "re", "div")
+    @property
+    def observable_names(self) -> tuple:
+        """The observables' names: a passive-scalar scenario appends
+        ``sherwood`` after the conventional four (index 3 stays |div|, the
+        NaN detector)."""
+        base = ("nu", "nuvol", "re", "div")
+        return base + ("sherwood",) if self._scalar_active() else base
 
     def __init__(self, nx: int, ny: int, ra: float, pr: float, dt: float,
                  aspect: float, bc: str = "rbc", periodic: bool = False, *, device=None,
                  dtype=config.DEFAULT_DTYPE, conv_kernel: str | None = None,
-                 step_kernel: str | None = None, mesh=None, method: str | None = None):
+                 step_kernel: str | None = None, mesh=None, method: str | None = None,
+                 scenario=None):
         if bc not in bcs.TEMPERATURE_LIFTS:
             raise ValueError(f"boundary condition type {bc!r} not recognized")
         default = "fused" if mesh is None else "dense"
@@ -129,6 +207,8 @@ class Navier2D(CampaignModelBase):
         self.params = {"ra": ra, "pr": pr, "nu": nu, "ka": ka}
         self.diagnostics: dict[str, list[float]] = {}
         self._init_campaign()
+        self._solid = None  # the penalization factors of set_solid
+        self._scenario = scenario
 
         self.method = default_method(self.device) if method is None else method
         kw = dict(device=self.device, dtype=self.dtype, method=self.method)
@@ -181,7 +261,8 @@ class Navier2D(CampaignModelBase):
             self._proj_grad = (
                 fused_projection_gradient(self.velx_space, self.pseu_space, (1, 0))
                 + fused_projection_gradient(self.vely_space, self.pseu_space, (0, 1)))
-        self.state = NavierState(*(
+        self.solver_scal = self._build_scalar_solver()
+        self.state = self._state_cls()(*(
             space.ndarray_spectral() for _, space in self._state_fields()
         ))
 
@@ -213,19 +294,146 @@ class Navier2D(CampaignModelBase):
             out["fused_stage"] = list(self._stages.values())
         if self.step_kernel == "dense":
             solvers = (self.solver_velx, self.solver_temp, self.solver_pres)
+            if self.solver_scal is not None and self.solver_scal is not self.solver_temp:
+                solvers += (self.solver_scal,)
             out["banded_solve"] = [k for s in solvers for k in s.kernels()]
         if self.mesh is not None:
             out["ring_transpose"] = [self.mesh.ring]
         return out
 
     def _state_fields(self) -> list:
-        return [
+        """Ordered ``(field, space)`` of the state (the scenario decides
+        whether ``scal`` is one)."""
+        fields = [
             ("temp", self.temp_space),
             ("velx", self.velx_space),
             ("vely", self.vely_space),
             ("pres", self.pres_space),
             ("pseu", self.pseu_space),
         ]
+        if self._scalar_active():
+            fields.append(("scal", self.temp_space))
+        return fields
+
+    def _state_cls(self):
+        return NavierScalarState if self._scalar_active() else NavierState
+
+    @property
+    def snapshot_vars(self) -> tuple:
+        """``(snapshot variable, state field)`` rows of the JAX package's
+        gathered snapshot format, ``scal`` included when the scenario
+        carries one."""
+        base = (("ux", "velx"), ("uy", "vely"), ("temp", "temp"), ("pres", "pres"))
+        return base + (("scal", "scal"),) if self._scalar_active() else base
+
+    # -- scenario modifiers --------------------------------------------------
+
+    def _scn(self, key, default=None):
+        """A scenario attribute (of a dataclass or a dict)."""
+        scn = self._scenario
+        if scn is None:
+            return default
+        if isinstance(scn, dict):
+            return scn.get(key, default)
+        return getattr(scn, key, default)
+
+    def _coriolis(self) -> float:
+        return float(self._scn("coriolis", 0.0) or 0.0)
+
+    def _scalar_active(self) -> bool:
+        return bool(self._scn("passive_scalar", False))
+
+    def _scalar_kappa(self) -> float:
+        """The scalar diffusivity (None: the thermal one); a non-positive
+        one raises."""
+        kappa = self._scn("scalar_kappa", None)
+        if kappa is None:
+            return float(self.params["ka"])
+        kappa = float(kappa)
+        if kappa <= 0.0:
+            raise ValueError(f"scalar_kappa must be positive, got {kappa}")
+        return kappa
+
+    def _build_scalar_solver(self):
+        """The scalar's implicit solver on the dense route (None without a
+        scalar or on the fused route): the temperature's own solver at
+        matched diffusivity (the same operator, shared factors), as the JAX
+        package shares it."""
+        if self.step_kernel != "dense" or not self._scalar_active():
+            return None
+        kc = self._scalar_kappa()
+        if kc == float(self.params["ka"]):
+            return self.solver_temp
+        sx2, sy2 = self.scale[0] ** 2, self.scale[1] ** 2
+        return HholtzAdi(self.temp_space, (self.dt * kc / sx2, self.dt * kc / sy2))
+
+    @property
+    def scal_space(self):
+        """The passive scalar rides the temperature's composite space."""
+        return self.temp_space
+
+    @property
+    def scenario(self):
+        return self._scenario
+
+    def set_scenario(self, scenario) -> None:
+        """Install (or clear, ``None``) the scenario modifiers on a live
+        model: the scalar's solver or stage and the fused stages are rebuilt,
+        the captured chunks dropped, and toggling the passive scalar adds a
+        zero ``scal`` to the state or drops it; the other fields are
+        kept."""
+        self._scenario = scenario
+        if self._stages is not None:
+            self._stages = build_model_step(self)
+        self.solver_scal = self._build_scalar_solver()
+        want, have = self._scalar_active(), "scal" in self.state._fields
+        if want and not have:
+            self.state = NavierScalarState(*self.state, scal=self.temp_space.ndarray_spectral())
+        elif have and not want:
+            self.state = NavierState(*self.state[:5])
+        self._drop_chunks()
+
+    # -- solid obstacles (volume penalization) -------------------------------
+
+    def set_solid(self, mask, value=None, eta: float | None = None) -> None:
+        """Add a solid obstacle by Brinkman volume penalization, as the JAX
+        package's ``set_solid``: ``mask`` (nx, ny) is 1 inside the solid, 0
+        in the fluid (the :mod:`.solid_masks` builders); ``value`` the
+        temperature the solid enforces (default 0); ``eta`` the penalty time
+        scale (default dt/10).  Each step ends with the implicit pointwise
+        relaxation
+
+            u    <- u / (1 + dt/eta * mask)
+            temp <- (temp + dt/eta * mask * (value - lift)) / (1 + dt/eta * mask)
+
+        (and the scalar as the temperature), stable for any eta.
+        ``mask=None`` removes the obstacle.  The captured chunks, which hold
+        the old factors, are dropped."""
+        self._drop_chunks()
+        if mask is None:
+            self._solid = None
+            return
+        mask = np.asarray(mask, dtype=np.float64)
+        value = np.zeros_like(mask) if value is None else value
+        eta = self.dt / 10.0 if eta is None else eta
+        fac, temp_add = brinkman_factors(self, mask, value, eta)
+        self._solid = {"mask": mask, "value": value, "eta": float(eta), "fac": fac,
+                       "temp_add": temp_add}
+
+    @property
+    def solid(self):
+        """``(mask, value)`` of the obstacle, or None; assigning one calls
+        :meth:`set_solid`."""
+        if self._solid is None:
+            return None
+        return (self._solid["mask"], self._solid["value"])
+
+    @solid.setter
+    def solid(self, mask_value) -> None:
+        if mask_value is None:
+            self.set_solid(None)
+        else:
+            self.set_solid(mask_value[0], mask_value[1])
 
     def _build_bc_fields(self, xs: np.ndarray, ys: np.ndarray) -> None:
         """Transform the BC lift profile into ortho-space constants and its
@@ -245,6 +453,9 @@ class Navier2D(CampaignModelBase):
             "diff": dt * ka * (sp.gradient(that, (2, 0), scale) + sp.gradient(that, (0, 2), scale)),
         }
         self.host_bc = {k: v.numpy() for k, v in host.items()}
+        # the lift's physical values as the transforms give them back (the
+        # Brinkman factors' temperature target excludes the lift)
+        self.host_bc["phys"] = sp.backward_ortho(that).numpy()
         # ortho-space constants placed as spectral fields, the physical ones
         # as physical fields
         place = {"ortho": self.field_space.place_spectral, "diff": self.field_space.place_spectral,
@@ -320,15 +531,23 @@ class Navier2D(CampaignModelBase):
         # convection velocities in physical space (old time level)
         ux = sp_u.backward_fast(velx)
         uy = sp_v.backward_fast(vely)
-        velx_n = st["velx"].apply(velx, pres, self._conv(ux, uy, sp_u, velx))
-        vely_n = st["vely"].apply(vely, pres, temp, self._conv(ux, uy, sp_v, vely))
+        # Coriolis: the cross velocity as one more term of each velocity
+        # stage, in the JAX package's argument order
+        coriolis = self._coriolis()
+        cross_x, cross_y = ((vely,), (velx,)) if coriolis else ((), ())
+        velx_n = st["velx"].apply(velx, pres, self._conv(ux, uy, sp_u, velx), *cross_x)
+        vely_n = st["vely"].apply(vely, pres, temp, self._conv(ux, uy, sp_v, vely), *cross_y)
         div = st["div"].apply(velx_n, vely_n)
         pseu_n = sp_q.pin_zero_mode(st["poisson"].apply(div))
         velx_n = velx_n - st["projx"].apply(pseu_n)
         vely_n = vely_n - st["projy"].apply(pseu_n)
         pres_n = pres - self.params["nu"] * div + sp_q.to_ortho(pseu_n) / self.dt
         temp_n = st["temp"].apply(temp, self._conv(ux, uy, sp_t, temp, with_bc=True))
-        state_n = NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
+        fields = [temp_n, velx_n, vely_n, pres_n, pseu_n]
+        if self._scalar_active():
+            fields.append(st["scal"].apply(
+                state.scal, self._conv(ux, uy, sp_t, state.scal, with_bc=True)))
+        state_n = self._penalize(type(state)(*fields))
         return (state_n, self._sentinels(ux, uy, div)) if with_sentinels else state_n
 
     def _step_dense(self, state: NavierState, with_sentinels: bool = False):
@@ -347,12 +566,19 @@ class Navier2D(CampaignModelBase):
         rhs = sp_u.to_ortho(velx)
         rhs = rhs - dt * sp_p.gradient(pres, (1, 0), scale)
         rhs = rhs - dt * self._conv(ux, uy, sp_u, velx)
+        coriolis = self._coriolis()
+        if coriolis:
+            # the f-plane term +f v (velx and vely share one space, so the
+            # cross term is an ortho-space add)
+            rhs = rhs + dt * coriolis * sp_v.to_ortho(vely)
         velx_n = self.solver_velx.solve(rhs)
         # vertical momentum + buoyancy
         rhs = sp_v.to_ortho(vely)
         rhs = rhs - dt * sp_p.gradient(pres, (0, 1), scale)
         rhs = rhs + dt * that
         rhs = rhs - dt * self._conv(ux, uy, sp_v, vely)
+        if coriolis:
+            rhs = rhs - dt * coriolis * sp_u.to_ortho(velx)
         vely_n = self.solver_vely.solve(rhs)
         # pressure projection
         div = sp_u.gradient(velx_n, (1, 0), scale) + sp_v.gradient(vely_n, (0, 1), scale)
@@ -364,8 +590,31 @@ class Navier2D(CampaignModelBase):
         rhs = temp_ortho + self._tempbc_diff
         rhs = rhs - dt * self._conv(ux, uy, sp_t, temp, with_bc=True)
         temp_n = self.solver_temp.solve(rhs)
-        state_n = NavierState(temp_n, velx_n, vely_n, pres_n, pseu_n)
+        fields = [temp_n, velx_n, vely_n, pres_n, pseu_n]
+        if self._scalar_active():
+            # the temperature's advection-diffusion at the scalar
+            # diffusivity, with its lift scaled by kc/ka (dt*kc*lap(lift))
+            kc_over_ka = self._scalar_kappa() / self.params["ka"]
+            rhs = sp_t.to_ortho(state.scal) + kc_over_ka * self._tempbc_diff
+            rhs = rhs - dt * self._conv(ux, uy, sp_t, state.scal, with_bc=True)
+            fields.append(self.solver_scal.solve(rhs))
+        state_n = self._penalize(type(state)(*fields))
         return (state_n, self._sentinels(ux, uy, div)) if with_sentinels else state_n
+
+    def _penalize(self, state):
+        """The implicit pointwise Brinkman penalization of :meth:`set_solid`
+        on a stepped state: ``forward(backward(v) * fac)`` on the
+        velocities, ``+ temp_add`` on the temperature and the scalar (the
+        pressures are untouched); ``state`` itself without an obstacle."""
+        if self._solid is None:
+            return state
+        fac, add = self._solid["fac"], self._solid["temp_add"]
+        sp_u, sp_t = self.velx_space, self.temp_space
+        out = {name: sp_u.forward(sp_u.backward(getattr(state, name)) * fac).contiguous()
+               for name in ("velx", "vely")}
+        for name in ("temp", "scal") if "scal" in state._fields else ("temp",):
+            out[name] = sp_t.forward(sp_t.backward(getattr(state, name)) * fac + add).contiguous()
+        return state._replace(**out)
 
     def _sentinels(self, ux, uy, div) -> tuple:
         """The stability sentinels of one step, 0-d tensors, as the JAX
@@ -401,7 +650,7 @@ class Navier2D(CampaignModelBase):
             self.vely_space.gradient(state.vely, (0, 1), self.scale)
 
     def _observables(self, state: NavierState) -> torch.Tensor:
-        """(Nu, Nuvol, Re, |div|) as one tensor on the model's device.  Every
+        """(Nu, Nuvol, Re, |div|[, Sherwood]) as one tensor on the model's device.  Every
         sum is the space's ``weighted_sum``: on a mesh per rank, then across
         ranks (:func:`..parallel.decomp.all_gather_sum`), the pad with
         weight 0."""
@@ -428,7 +677,17 @@ class Navier2D(CampaignModelBase):
         # Re: <sqrt(ux^2+uy^2) * 2 sy / nu>_V
         ux = self.velx_space.backward(state.velx)
         re = avg(torch.sqrt(ux**2 + uy**2) * 2.0 * scale[1] / nu)
-        return torch.stack([nu_plate, nu_vol, re, self._norm(self._div(state))])
+        dnorm = self._norm(self._div(state))
+        if not self._scalar_active():
+            return torch.stack([nu_plate, nu_vol, re, dnorm])
+        # the scalar's finiteness folds into |div|, the NaN detector (a
+        # NaN in the scalar alone never reaches the flow)
+        dnorm = dnorm + 0.0 * torch.sum(torch.abs(state.scal))
+        # Sherwood: the scalar's plate flux, as Nu is the temperature's
+        # (the scalar shares its space and BC lift)
+        shat = self.temp_space.to_ortho(state.scal) + self.tempbc_ortho
+        bottom, top = plates(sp_f.backward_gradient(shat, (0, 1), None))
+        return torch.stack([nu_plate, nu_vol, re, dnorm, 0.5 * (bottom + top)])
 
     def eval_nu(self) -> float:
         return self.get_observables()[0]
@@ -444,8 +703,13 @@ class Navier2D(CampaignModelBase):
         the observables to ``diagnostics`` and print them (flow snapshots
         are not ported yet)."""
         t = self.get_time()
-        nu, nuvol, re, div = self.get_observables()
-        for key, val in (("time", t), ("nu", nu), ("nuvol", nuvol), ("re", re), ("div", div)):
+        vals = self.get_observables()
+        nu, nuvol, re, div = vals[:4]
+        # an extended vocabulary (the scalar's sherwood) rides along by name
+        extras = list(zip(self.observable_names[4:], vals[4:]))
+        for key, val in [("time", t), ("nu", nu), ("nuvol", nuvol), ("re", re),
+                         ("div", div)] + extras:
             self.diagnostics.setdefault(key, []).append(float(val))
         print(f"time = {t:9.3f}      |div| = {div:4.2e}      "
-              f"Nu = {nu:5.3e}      Nuv = {nuvol:5.3e}      Re = {re:5.3e}")
+              f"Nu = {nu:5.3e}      Nuv = {nuvol:5.3e}      Re = {re:5.3e}"
+              + "".join(f"      {name.capitalize()} = {val:5.3e}" for name, val in extras))

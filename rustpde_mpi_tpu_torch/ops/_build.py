@@ -30,8 +30,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-MAX_TERMS = 4
-MAX_JOBS = 4
+#: products one output sums (the Coriolis ``vely`` stage sums five), and
+#: outputs one launch computes (its ``L @ x`` products, one a term); the
+#: same as in ``csrc/fused_stage.cu``
+MAX_TERMS = 5
+MAX_JOBS = 5
 #: a row that starts on this many bytes may be copied 16 bytes at a time
 ROW_ALIGN = 16
 

@@ -9,7 +9,10 @@ with every bracketed piece optional, and the confined Rayleigh-Benard step
 runs seven instances of it: ``velx``/``vely``/``temp`` (Helmholtz solves
 with the inverse folded into the term matrices), ``div``, ``poisson``
 (fast-diagonal solve with the singular-mode pin as the output mask),
-``projx``/``projy`` (the pressure-gradient correction).
+``projx``/``projy`` (the pressure-gradient correction).  A passive-scalar
+scenario adds an eighth, ``scal``; with Coriolis each velocity stage takes
+the cross velocity as one more term, so ``vely`` sums five products, the
+most one output of the kernel sums (``_build.MAX_TERMS``).
 
 On a periodic space the stage's inputs and output are complex: each
 complex input goes to the kernel as its ``[Re; Im]`` real rows (one
@@ -244,12 +247,14 @@ def _stack_host(arr) -> np.ndarray:
 
 
 def build_model_step(model) -> dict:
-    """The seven fused stages of a Navier2D model, keyed by stage tag:
-    ``velx`` (inputs: velx, pres, conv), ``vely`` (vely, pres, temp, conv),
-    ``temp`` (temp, conv), ``div`` (velx_n, vely_n), ``poisson`` (div),
-    ``projx``/``projy`` (pseu_n).  All host matrices are built in numpy f64
-    from the same math as the JAX package's builder, a Fourier x axis in
-    its split Re/Im form (``pallas_step.py:427-443, 505-509, 629-659``)."""
+    """The fused stages of a Navier2D model, keyed by stage tag: ``velx``
+    (inputs: velx, pres, conv[, vely]), ``vely`` (vely, pres, temp,
+    conv[, velx]; the cross velocity when the scenario has Coriolis),
+    ``temp`` (temp, conv), ``scal`` (scal, conv; a passive-scalar scenario
+    only), ``div`` (velx_n, vely_n), ``poisson`` (div), ``projx``/``projy``
+    (pseu_n).  All host matrices are built in numpy f64 from the same math
+    as the JAX package's builder, a Fourier x axis in its split Re/Im form
+    (``pallas_step.py:427-443, 505-509, 578-619, 629-659``)."""
     from .. import solver as slv
 
     sp_u, sp_t = model.velx_space, model.temp_space
@@ -285,27 +290,47 @@ def build_model_step(model) -> dict:
     kw = dict(device=model.device, dtype=model.dtype, complex_io=cplx)
     nx, ny = model.nx, model.ny
     T = StageTerm
+    # velocity stages: state + pressure gradient + convection (+ buoyancy,
+    # +/- the Coriolis cross velocity: five products in vely), the
+    # Helmholtz inverse folded into L and R
+    terms_vx = [
+        T(A0u @ st0u, A1u @ st1u),
+        T((-dt / scale[0]) * (A0u @ g1p0), A1u @ st1p),
+        T(-dt * A0u, A1u),
+    ]
+    terms_vy = [
+        T(A0u @ st0u, A1u @ st1u),
+        T((-dt / scale[1]) * (A0u @ st0p), A1u @ g1p1),
+        T(dt * (A0u @ st0t), A1u @ st1t),
+        T(-dt * A0u, A1u),
+    ]
+    coriolis = model._coriolis()
+    if coriolis:
+        terms_vx.append(T(dt * coriolis * (A0u @ st0u), A1u @ st1u))
+        terms_vy.append(T(-dt * coriolis * (A0u @ st0u), A1u @ st1u))
     stages = {
-        "velx": FusedStage(f"velx_{nx}x{ny}", [
-            T(A0u @ st0u, A1u @ st1u),
-            T((-dt / scale[0]) * (A0u @ g1p0), A1u @ st1p),
-            T(-dt * A0u, A1u),
-        ], **kw),
-        "vely": FusedStage(f"vely_{nx}x{ny}", [
-            T(A0u @ st0u, A1u @ st1u),
-            T((-dt / scale[1]) * (A0u @ st0p), A1u @ g1p1),
-            T(dt * (A0u @ st0t), A1u @ st1t),
-            T(-dt * A0u, A1u),
-        ], const=lift_const(A0u, A1u, model.host_bc["ortho"], dt), **kw),
+        "velx": FusedStage(f"velx_{nx}x{ny}", terms_vx, **kw),
+        "vely": FusedStage(f"vely_{nx}x{ny}", terms_vy,
+                           const=lift_const(A0u, A1u, model.host_bc["ortho"], dt), **kw),
         "temp": FusedStage(f"temp_{nx}x{ny}", [
             T(A0t @ st0t, A1t @ st1t),
             T(-dt * A0t, A1t),
         ], const=lift_const(A0t, A1t, model.host_bc["diff"], 1.0), **kw),
-        "div": FusedStage(f"div_{nx}x{ny}", [
-            T(g1u0 / scale[0], st1u),
-            T(st0u, g1u1 / scale[1]),
-        ], **kw),
     }
+    if model._scalar_active():
+        # the passive scalar: the temperature's stage at the scalar
+        # diffusivity, its lift scaled by kc/ka
+        kc = model._scalar_kappa()
+        A0c = slv.hholtz_axis_solve_matrix(sp_t, 0, dt * kc / sx2)
+        A1c = slv.hholtz_axis_solve_matrix(sp_t, 1, dt * kc / sy2)
+        stages["scal"] = FusedStage(f"scal_{nx}x{ny}", [
+            T(A0c @ st0t, A1c @ st1t),
+            T(-dt * A0c, A1c),
+        ], const=lift_const(A0c, A1c, model.host_bc["diff"], kc / ka), **kw)
+    stages["div"] = FusedStage(f"div_{nx}x{ny}", [
+        T(g1u0 / scale[0], st1u),
+        T(st0u, g1u1 / scale[1]),
+    ], **kw)
 
     # pressure Poisson: fast-diag modal solve, singular pin as output mask;
     # a Fourier x axis is already modal (no left factor, no B0), its k=0

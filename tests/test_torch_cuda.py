@@ -16,7 +16,9 @@ import pytest
 import torch
 
 import rustpde_mpi_tpu_torch as pt
+from rustpde_mpi_tpu_torch.models.solid_masks import solid_roughness_sinusoid
 from rustpde_mpi_tpu_torch.ops import _build
+from rustpde_mpi_tpu_torch.workloads import ScenarioConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -516,14 +518,20 @@ def test_meshed_route_on_card_matches_cpu(device):
 #: routes: one banded solve on the Chebyshev axis for velx, vely and temp
 #: each, one for every Fourier mode of the Poisson solve; an ``hc_`` route
 #: runs horizontal-convection boundary conditions, its temperature's y
-#: solve on the banded kernel's general path)
+#: solve on the banded kernel's general path; an ``scn_`` route runs the
+#: scenario modifiers and an obstacle: a fourth conv chain and an eighth
+#: stage for the scalar, its two banded solves on the temperature's solver,
+#: and on the mesh 19 more flips for the Coriolis, scalar and penalization
+#: transforms)
 PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solve": 7},
             "mesh": {"banded_solve": 7, "ring_transpose": 37},
             "periodic_fused": {"fused_conv": 3, "fused_stage": 7},
             "periodic_dense": {"banded_solve": 4},
             "periodic_mesh": {"banded_solve": 4, "ring_transpose": 37},
             "hc_fused": {"fused_conv": 3, "fused_stage": 7}, "hc_dense": {"banded_solve": 7},
-            "hc_mesh": {"banded_solve": 7, "ring_transpose": 37}}
+            "hc_mesh": {"banded_solve": 7, "ring_transpose": 37},
+            "scn_fused": {"fused_conv": 4, "fused_stage": 8}, "scn_dense": {"banded_solve": 9},
+            "scn_mesh": {"banded_solve": 9, "ring_transpose": 56}}
 ROUTES = sorted(PER_STEP)
 
 
@@ -537,7 +545,19 @@ def _route_model(route, device, n=33):
     bc = "hc" if route.startswith("hc") else "rbc"
     if route.startswith("periodic"):
         return pt.Navier2D.new_periodic(n - 1, n, 1e5, 1.0, 2e-3, 1.0, bc, **kw)
+    if route.startswith("scn"):
+        return _scenario_model(n, ScenarioConfig(coriolis=2.0, passive_scalar=True), **kw)
     return pt.Navier2D.new_confined(n, n, 1e5, 1.0, 2e-3, 1.0, bc, **kw)
+
+
+def _scenario_model(n, scenario, **kw):
+    """A confined model with ``scenario``, the roughness obstacle and, with
+    a scalar, the scalar released as half the temperature."""
+    m = pt.Navier2D.new_confined(n, n, 1e5, 1.0, 2e-3, 1.0, "rbc", scenario=scenario, **kw)
+    m.set_solid(*solid_roughness_sinusoid(*m.x, 0.1, 10.0))
+    if "scal" in m.state._fields:
+        m.state = m.state._replace(scal=0.5 * m.state.temp)
+    return m
 
 
 def _launches_by_kernel(model):
@@ -807,3 +827,71 @@ def test_hc_and_meshed_periodic_routes_on_card_match_cpu(device, route):
     for name, ref in states["cpu"][0].items():
         scale = max(float(np.max(np.abs(ref))), 1e-300)
         assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name
+
+
+# -- the scenario modifiers and solid obstacles ------------------------------------------
+
+
+@pytest.mark.parametrize("n", [17, 33])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_scenario_stages_and_convs_match_plain(device, n, dtype):
+    """The stages of a rotating model with a scalar at another diffusivity:
+    the five-term ``vely`` stage (its five ``L @ x`` products in one launch,
+    the five products summed in one accumulator), the four-term ``velx``
+    and the scalar's stage, each against its plain version and bit for bit
+    on a repeat."""
+    model = pt.Navier2D(n, n, 1e5, 1.0, 2e-3, 1.0, "rbc", device=device, dtype=dtype,
+                        scenario=ScenarioConfig(coriolis=2.0, passive_scalar=True,
+                                                scalar_kappa=0.01))
+    assert [len(model._stages[t].terms) for t in ("velx", "vely", "scal")] == [4, 5, 2]
+    rng = np.random.default_rng(n + 1)
+    for tag, st in model._stages.items():
+        xs = [torch.tensor(rng.uniform(-1.0, 1.0, (k0, k1)), dtype=dtype, device=device)
+              for k0, k1 in zip(st.k0, st.k1)]
+        got = st.apply(*xs)
+        assert _rel(got, st.plain(*xs)) <= TOL[dtype], tag
+        assert torch.equal(got, st.apply(*xs)), tag
+        assert st.launches == 2, tag
+
+
+@pytest.mark.parametrize("route", ["scn_fused", "scn_dense", "scn_mesh"])
+def test_scenario_routes_on_card_match_cpu(device, route):
+    """Ten steps with Coriolis, the scalar and the obstacle through the
+    kernels agree with ten plain steps on the CPU (rel 1e-11 of each
+    field's scale, ``scal`` included), with the route's launches."""
+    states = {}
+    for dev in (device, torch.device("cpu")):
+        m = _route_model(route, dev)
+        _prepare_chunks(m)
+        m.update_n(10)
+        states[dev.type] = (pt.state_to_numpy(m), m)
+    assert _launches_by_kernel(states["cuda"][1]) == {k: 10 * v for k, v in PER_STEP[route].items()}
+    assert "scal" in states["cpu"][0]
+    for name, ref in states["cpu"][0].items():
+        scale = max(float(np.max(np.abs(ref))), 1e-300)
+        assert float(np.max(np.abs(states["cuda"][0][name] - ref))) <= 1e-11 * scale, name
+
+
+@pytest.mark.parametrize("route", ["fused", "dense", "mesh"])
+def test_chunk_graph_recaptured_after_set_solid_and_set_scenario(device, route):
+    """``set_solid`` and ``set_scenario`` drop the captured chunk (it holds
+    the old factors, stages and state fields); the next ``update_n``
+    captures the new step, which equals eager steps bit for bit."""
+    a, b = _route_model(route, device), _route_model(route, device)
+    a.update_n(2)
+    for _ in range(2):
+        b.update()
+    first = a.chunk_runner()
+    changes = [("set_solid", solid_roughness_sinusoid(*a.x, 0.1, 10.0)),
+               ("set_scenario", (ScenarioConfig(coriolis=2.0, passive_scalar=True),)),
+               ("set_solid", (None,)), ("set_scenario", (None,))]
+    for name, args in changes:
+        for m in (a, b):
+            getattr(m, name)(*args)
+        assert not a._runners, name
+        a.update_n(3)
+        for _ in range(3):
+            b.update()
+        assert a.chunk_runner() is not first and a.chunk_runner().captured, name
+        _assert_bit_equal(a.state, b.state)
+        first = a.chunk_runner()

@@ -145,8 +145,12 @@ def test_conv_wrapper_checks_inputs(pair17):
 
 def test_stage_and_conv_rules():
     eye = np.eye(3)
-    with pytest.raises(ValueError, match="1..4 terms"):
-        FusedStage("x", [StageTerm(eye, eye)] * 5, device="cpu", dtype=torch.float64)
+    # five terms (the Coriolis vely stage) is the most one output sums
+    five = FusedStage("x", [StageTerm(eye, eye)] * 5, device="cpu", dtype=torch.float64)
+    x = torch.ones((3, 3), dtype=torch.float64)
+    assert torch.equal(five.apply(*[x] * 5), 5.0 * x)
+    with pytest.raises(ValueError, match="1..5 terms"):
+        FusedStage("x", [StageTerm(eye, eye)] * 6, device="cpu", dtype=torch.float64)
     with pytest.raises(ValueError, match="share their output"):
         FusedStage("x", [StageTerm(eye, eye), StageTerm(np.eye(4), eye)],
                    device="cpu", dtype=torch.float64)
@@ -211,17 +215,22 @@ def test_signatures_name_each_libraries_entry_points():
 
 
 def test_job_struct_mirrors_the_c_layout():
-    """``RpJob`` in csrc/fused_stage.cu: four pointers, two arrays of four
-    pointers, then 22 ints (the last the copy-width flags ``vec``), padded to
-    pointer alignment."""
+    """``RpJob`` in csrc/fused_stage.cu: four pointers, two arrays of five
+    pointers, then 25 ints (the last the copy-width flags ``vec``), padded to
+    pointer alignment; ``MAX_TERMS`` and ``MAX_JOBS`` (5, the Coriolis
+    ``vely`` stage's five products and its five ``L @ x`` jobs) equal the
+    C constants."""
     p, i = ctypes.sizeof(ctypes.c_void_p), ctypes.sizeof(ctypes.c_int)
-    raw = 12 * p + 22 * i
+    raw = 14 * p + 25 * i
     assert ctypes.sizeof(_build.RpJob) == -(-raw // p) * p
-    assert _build.RpJob.M.offset == 12 * p
-    assert _build.RpJob.ldm.offset == 12 * p + 20 * i
-    assert _build.RpJob.vec.offset == 12 * p + 21 * i
+    assert _build.RpJob.M.offset == 14 * p
+    assert _build.RpJob.ldm.offset == 14 * p + 23 * i
+    assert _build.RpJob.vec.offset == 14 * p + 24 * i
     names = [f[0] for f in _build.RpJob._fields_]
     text = (_build.CSRC / "fused_stage.cu").read_text()
+    for name in ("MAX_TERMS", "MAX_JOBS"):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) == \
+            getattr(_build, name) == 5, name
     body = text[text.index("struct RpJob {"):text.index("};", text.index("struct RpJob {"))]
     pos = [body.index(f" {n}") for n in names]
     assert pos == sorted(pos), "field order differs from the C struct"
@@ -239,14 +248,17 @@ def test_job_validates_operands():
         _build.job(out, [(a, b.T.contiguous())], M=5, N=4)
     with pytest.raises(ValueError, match="unit column stride"):
         _build.job(out, [(a, b[:, ::2])], M=5, N=2)
-    with pytest.raises(ValueError, match="1..4 products"):
-        _build.job(out, [(a, b)] * 5, M=5, N=4)
+    assert _build.job(out, [(a, b)] * 5, M=5, N=4).nt == 5
+    with pytest.raises(ValueError, match="1..5 products"):
+        _build.job(out, [(a, b)] * 6, M=5, N=4)
     with pytest.raises(ValueError, match="depth 0"):
         _build.job(out, [(a[:, :0], b[:0])], M=5, N=4)
     with pytest.raises(ValueError, match="smaller than"):
         _build.job(out, [(a, b)], M=5, N=4, mask=torch.zeros((2, 2), dtype=torch.float64))
-    with pytest.raises(ValueError, match="1..4 jobs"):
+    with pytest.raises(ValueError, match="1..5 jobs"):
         _build.launch_jobs(None, [], torch.device("cpu"))
+    with pytest.raises(ValueError, match="1..5 jobs"):
+        _build.launch_jobs(None, [j] * 6, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
