@@ -173,13 +173,54 @@ runs the banded kernel's general path, one chain a lane):
     stepped with each method (bare ``update_n`` ms/step), which sets the
     card's default.
 
+Then ensembles, K member states of one model stepped together (the JAX
+package's ``NavierEnsemble``, its ``jax.vmap`` of the step), every kernel
+launch of a step serving all K members:
+
+25. (after phase 14 of each of the fused, dense and meshed routes, on that
+    route's ``rbc1025`` model) ``rbc1025`` with K = 4 members on the fused
+    route and K = 2 on the dense and meshed ones: each kernel's
+    member-axis instance (every instance one K-member step launches)
+    against its plain version (1e-12 of max|plain|; the flips bit for bit),
+    each member bit for bit its one-member launch (the fused kernels and
+    the flips), timed queued behind a GPU spin and as a CUDA graph against
+    K one-member launches of it as one graph (``solo_ms``), the plain
+    version and one library call
+    (batched ``torch.matmul``; a ``matmul`` by precomputed inverses for the
+    banded solve; ``.contiguous()`` for the flip), with the bound of the
+    K-member work; the K-member step's capture, launches exactly a solo
+    step's, and bare ``update_n`` ms/step against K times the solo route's;
+    member 0 against the solo model after 10 steps (1e-12 of each field's
+    scale, bit for bit on the fused route);
+24. ``ensemble129`` (129^2, Ra=1e7, dt=2e-3, ``from_seeds(range(K),
+    amp=0.1)``, K in {1, 8, 32}) on the fused, dense and meshed routes:
+    the capture (time, pool, memory), launches a step exactly a solo
+    step's, bare ``update_n`` ms/step and member-steps/s over 50 steps,
+    device busy and host idle from a 5-step profile; at K = 32 the
+    member-axis kernel instances as phase 25 holds and times them; then
+    K = 8 members against solo models of their seeds after 10 steps, NaN
+    isolation (member 0 poisoned in temp mode 0 dies with no step counted,
+    the others bit for bit an unpoisoned ensemble's), an all-dead ensemble
+    ending ``integrate`` with ``"break"``, and the sentinel chunk (member
+    3's velocities at 4x the CFL ceiling roll the chunk back and ``pinned``
+    marks member 3 alone);
+26. ``geometry_sweep`` at 129^2 (Ra=1e5, dt=0.01) on each route: four
+    obstacles from the ``solid_*`` builders as one ensemble of a plain
+    model, each member against a solo ``set_solid`` run (1e-12 of each
+    field's scale, bit for bit on the fused route).
+
+It prints, once, whether ``h5py`` imports on the machine (for the
+checkpoint writers; not a gate).
+
 The profiles of the dense and meshed routes list each banded launch of
 one step, to set beside the launches timed alone.  The ``kernels`` line
 sums each kernel over one step of the route it was ported for, and over a
 step of each other route that runs it (``mesh_*``, ``periodic_fused_*``,
 ``periodic_dense_*``, ``periodic_mesh_*``, ``hc_fused_*``,
-``hc_dense_*``, ``scn_fused_*``, ``scn_dense_*``, ``scn_mesh_*``), with
-every kernel's launches on every route.
+``hc_dense_*``, ``scn_fused_*``, ``scn_dense_*``, ``scn_mesh_*``), and
+over a K-member step of each ensemble route (``ens129_fused_*`` and the
+like at K = 32, ``ens1025_*`` at phase 25's K, with ``solo_ms`` beside
+the kernel's), with every kernel's launches on every route.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -377,6 +418,25 @@ def time_queued_ms(torch, fn, reps: int) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, host * 1e3 / reps
+
+
+def time_graph_ms(torch, fn, reps: int) -> float:
+    """Device ms of ``fn()`` captured as one CUDA graph, by CUDA events over
+    ``reps`` replays: the launches' host time stays out however many
+    launches ``fn`` makes (``fn`` must not sync with the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    try:
+        return time_ms(torch, graph.replay, reps)
+    finally:
+        graph.reset()
 
 
 def rel_err(torch, a, b) -> tuple[float, float]:
@@ -1224,11 +1284,12 @@ def step_inputs(torch, model):
 
     wrapped = [(ring, "apply", log_flip)]
     for label, solver in banded_solvers(model).items():
-        def log_solve(b, axis, factor_batch_stride=0, label=label, solve=solver.solve):
+        def log_solve(b, axis, factor_batch_stride=0, factor_batch_period=0, label=label,
+                      solve=solver.solve):
             key = (label, tuple(b.shape), axis, factor_batch_stride)
             count(solves, key)
             inputs.setdefault(key, b.clone())
-            return solve(b, axis, factor_batch_stride)
+            return solve(b, axis, factor_batch_stride, factor_batch_period)
 
         wrapped.append((solver, "solve", log_solve))
     state, t = model.state, model.time
@@ -1885,6 +1946,585 @@ def phase_scn_small(pt):
         raise AssertionError("the cylinder did not stop the flow inside it")
 
 
+# -- ensembles: K members of one model, every launch serving all K -----------------------
+
+
+#: phase 24's cell, the JAX package's ``ensemble129`` (``bench.py:104,227,2852``:
+#: 129^2, Ra=1e7, dt=2e-3, K in {1, 8, 32}), seeded as its ``from_seeds``
+ENSEMBLE129 = dict(nx=129, ny=129, ra=1e7, pr=1.0, dt=2e-3, aspect=1.0, bc="rbc")
+ENSEMBLE_KS = (1, 8, 32)
+#: the members whose kernel instances phase 24 times (the ``ens129_*`` rows)
+ENSEMBLE_TIMED_K = 32
+#: phase 25's members at ``rbc1025``, by route
+ENSEMBLE1025_K = {"fused": 4, "dense": 2, "mesh": 2}
+#: phase 26's cell: the sweep at the JAX package's roughness example's
+#: parameters (``examples/navier_rbc_roughness.py``: Ra=1e5, dt=0.01)
+SWEEP129 = dict(nx=129, ny=129, ra=1e5, pr=1.0, dt=0.01, aspect=1.0, bc="rbc")
+#: members against solo models on the same route and card, relative to each
+#: field's scale (the fused route is expected bit for bit: a member's blocks
+#: run a one-member launch's tile loop)
+ENSEMBLE_LIMIT = 1e-12
+ENSEMBLE_STEPS = 10
+#: at ``rbc1025`` cuBLAS runs a lone 1025^2 DGEMM with another kernel than
+#: the batched product of K members (on an NVIDIA H100 80GB HBM3 no batched
+#: form of the product matched the lone one bit for bit at 1025^2; at 129^2
+#: and 513^2 every form did: ``scripts/batched_gemm_bits.py``), so members
+#: and solo runs round their transforms apart at every step, and the
+#: preconditioned Chebyshev solves amplify it (the dense route's
+#: temperature solve alone: 3.5e-10 from last-bit differences of its
+#: input).  Phase 25 holds member 0 to the larger of ``ENSEMBLE_LIMIT`` and
+#: this factor times the route's own sensitivity, the solo run against the
+#: solo run from a start state moved by one ulp: rounding injected at each
+#: of the ``ENSEMBLE_STEPS`` steps, not once.
+ULP_STEPS_FACTOR = ENSEMBLE_STEPS
+
+
+def route_model(pt, cfg, route, **kw):
+    """A model of ``cfg`` on ``route`` ("fused", "dense" or "mesh", 4 ranks
+    on the card), with no initial condition set."""
+    if route == "mesh":
+        return pt.Navier2D(**cfg, mesh=pt.make_mesh(MESH_RANKS), **kw)
+    return pt.Navier2D(**cfg, device="cuda", **(DENSE if route == "dense" else {}), **kw)
+
+
+def prepare_ensemble(torch, ens, route, label, phase):
+    """Build the ensemble's chunk runner (warm-up and the K-member step's
+    capture) and print its time, the graph's pool, ``max_memory_allocated``
+    and the launches a replay adds, which must be a solo step's."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runner = ens.chunk_runner()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not runner.captured:
+        raise AssertionError("the ensemble's chunk runner did not capture a CUDA graph")
+    per_replay = {}
+    for name, d in zip([n for n, ks in ens.model.kernels().items() for _ in ks], runner.delta):
+        per_replay[name] = per_replay.get(name, 0) + d
+    info = {"capture_s": wall, "graph_pool_mib": runner.pool_bytes / 2**20,
+            "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "held_before_mib": held / 2**20, "launches_a_replay": per_replay}
+    print(f"{phase} chunk graph {label} K={ens.k} {route} route: " + json.dumps(info))
+    if per_replay != PER_STEP[route]:
+        raise AssertionError(f"a K={ens.k} replay launches {per_replay}, a solo step "
+                             f"{PER_STEP[route]}")
+    return info
+
+
+def device_busy(torch, run, steps, want):
+    """``(device busy us, wall us)`` of ``run()`` (``steps`` steps) under
+    torch.profiler, taken again (up to ``PROFILE_ATTEMPTS`` times) until it
+    recorded the launches ``want`` (by a part of the kernel's name); None
+    when no attempt did."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        got = {k: sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and k in e.name) for k in want}
+        if got == {k: v * steps for k, v in want.items()} and spans:
+            busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+            for s, e in spans[1:]:
+                if s > cur_e:
+                    busy += cur_e - cur_s
+                    cur_s, cur_e = s, e
+                else:
+                    cur_e = max(cur_e, e)
+            return busy + cur_e - cur_s, wall_us
+    return None
+
+
+def max_rel_diff(torch, a, b) -> float:
+    """The largest field difference of two states relative to the field's
+    scale (``b``'s)."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        scale = float(torch.max(torch.abs(y)))
+        worst = max(worst, float(torch.max(torch.abs(x - y))) / (scale or 1.0))
+    return worst
+
+
+def field_rel_diffs(torch, a, b) -> dict:
+    """Each field's largest difference between two states relative to the
+    field's scale (``b``'s)."""
+    out = {}
+    for name, x, y in zip(b._fields, a, b):
+        scale = float(torch.max(torch.abs(y)))
+        out[name] = float(torch.max(torch.abs(x - y))) / (scale or 1.0)
+    return out
+
+
+def ensemble_vs_solo(torch, pt, cfg, route, ens, members, steps, phase, **kw):
+    """Members ``members`` of ``ens`` (``from_seeds``, advanced ``steps``
+    steps) against solo models of their seeds on the same route and card:
+    the largest relative difference of any field, and whether every member
+    is bit for bit its solo run."""
+    worst, bitwise = 0.0, True
+    for i in members:
+        solo = route_model(pt, cfg, route, **kw)
+        solo.init_random(0.1, seed=i)
+        solo.update_n(steps)
+        member = ens.member_state(i)
+        worst = max(worst, max_rel_diff(torch, member, solo.state))
+        bitwise = bitwise and all(torch.equal(x, y) for x, y in zip(member, solo.state))
+    print(f"{phase} {route} route: members {list(members)} after {steps} steps against solo "
+          f"models of their seeds: max rel diff {worst:.3e} (limit {ENSEMBLE_LIMIT:g}); bit for "
+          f"bit {bitwise}")
+    if not worst <= ENSEMBLE_LIMIT or (route == "fused" and not bitwise):
+        raise AssertionError(f"{route}: ensemble members differ from their solo runs "
+                             f"({worst:.3e}, bitwise {bitwise})")
+    return worst, bitwise
+
+
+def ensemble_checks(torch, pt, route, phase="phase24"):
+    """Phase 24's checks on ``route`` at ``ENSEMBLE129``: K = 8 members
+    against solo models after 10 steps; NaN isolation (member 0 poisoned in
+    temp mode 0 dies with no step counted, the others bit for bit those of
+    an unpoisoned ensemble); an all-dead ensemble ends ``integrate`` with
+    ``"break"``; the sentinel chunk (member 3's velocities at 4x the CFL
+    ceiling roll the chunk back and ``pinned`` marks member 3 alone)."""
+    model = route_model(pt, ENSEMBLE129, route)
+    ens = pt.NavierEnsemble.from_seeds(model, range(8))
+    start = ens.state
+    ens.update_n(ENSEMBLE_STEPS)
+    ensemble_vs_solo(torch, pt, ENSEMBLE129, route, ens, range(8), ENSEMBLE_STEPS, phase)
+    # NaN isolation
+    poisoned = pt.NavierEnsemble(model, start)
+    bad = poisoned.member_state(0)
+    temp = bad.temp.clone()
+    temp[(0,) * temp.ndim] = float("nan")
+    poisoned.set_member(0, bad._replace(temp=temp))
+    poisoned.update_n(ENSEMBLE_STEPS)
+    alive, done = poisoned.alive().tolist(), poisoned.steps_done.tolist()
+    survivors = all(torch.equal(x[1:], y[1:]) for x, y in zip(poisoned.state, ens.state))
+    frozen = torch.isnan(poisoned.state.temp[0]).any().item()
+    print(f"{phase} {route} route: NaN in member 0's temp mode 0: alive {alive}, steps_done "
+          f"{done}, member 0 frozen at its poisoned state {frozen}, members 1-7 bit for bit "
+          f"the unpoisoned ensemble's {survivors}; exit() {poisoned.exit()}")
+    if alive != [False] + [True] * 7 or done != [0] + [ENSEMBLE_STEPS] * 7 or not survivors \
+            or not frozen or poisoned.exit():
+        raise AssertionError(f"{route}: NaN isolation failed")
+    # all dead
+    dead = pt.NavierEnsemble(model, start)
+    dead.mark_dead(range(8))
+    result = pt.integrate(dead, 4 * model.dt, 2 * model.dt)
+    print(f"{phase} {route} route: all members dead: integrate {result!r}, steps_done "
+          f"{dead.steps_done.tolist()}")
+    if result != "break" or dead.steps_done.any():
+        raise AssertionError(f"{route}: an all-dead ensemble ran on ({result!r})")
+    # the sentinel chunk
+    spiked = pt.NavierEnsemble(model, start)
+    spiked.set_stability(pt.config.StabilityConfig())
+    member = spiked.member_state(3)
+    _, (cfl, _, _) = model._step(member, with_sentinels=True)
+    factor = 4.0 * spiked._stability.max_cfl / float(cfl)
+    spiked.set_member(3, member._replace(velx=member.velx * factor, vely=member.vely * factor))
+    before = spiked.state
+    status = spiked.update_n(ENSEMBLE_STEPS)
+    rolled = spiked.state is before and spiked.time == 0.0 and spiked.exit()
+    print(f"{phase} {route} route: member 3's velocities x{factor:.4g} (CFL 4x the ceiling): "
+          f"rolled back and latched {rolled}; status " + json.dumps(status._asdict()))
+    if not (status.pre_divergence and status.pinned == (False,) * 3 + (True,) + (False,) * 4
+            and rolled):
+        raise AssertionError(f"{route}: the sentinel chunk did not pin member 3 alone")
+    spiked.set_stability(None)
+
+
+def phase_ensemble129(torch, pt, records, launches):
+    """Phase 24: ``ensemble129`` (``from_seeds(range(K), amp=0.1)``, K in
+    ``ENSEMBLE_KS``) on the fused, dense and meshed routes, beside a solo
+    model's bare ``update_n`` on the route.  For each K: the
+    capture (time, pool, memory, launches a replay), ``MAIN_STEPS`` counted
+    steps (launches exactly ``MAIN_STEPS`` times a solo step's, whatever
+    K), ``MAIN_STEPS`` timed steps of bare ``update_n`` (ms/step and
+    member-steps/s), a 5-step profile (device busy, host idle); at K =
+    ``ENSEMBLE_TIMED_K`` the route's member-axis kernel instances against
+    their plain versions, timed (``ens129_*`` rows); then the route's
+    checks (:func:`ensemble_checks`)."""
+    rows = []
+    for route in ("fused", "dense", "mesh"):
+        solo = route_model(pt, ENSEMBLE129, route)
+        solo.init_random(0.1, seed=0)
+        solo.chunk_runner()
+        solo.update_n(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo.update_n(MAIN_STEPS)
+        torch.cuda.synchronize()
+        solo_ms = (time.perf_counter() - t0) / MAIN_STEPS * 1e3
+        print(f"phase24 ensemble129 solo Navier2D {route} route: bare update_n "
+              f"{solo_ms:.4f} ms/step ({1e3 / solo_ms:.1f} steps/s)")
+        del solo
+        for k in ENSEMBLE_KS:
+            model = route_model(pt, ENSEMBLE129, route)
+            ens = pt.NavierEnsemble.from_seeds(model, range(k), amp=0.1)
+            cap = prepare_ensemble(torch, ens, route, "ensemble129", "phase24")
+            reset_counts(model)
+            ens.update_n(MAIN_STEPS)
+            torch.cuda.synchronize()
+            counted = count_launches(model)
+            want = {name: v * MAIN_STEPS for name, v in PER_STEP[route].items()}
+            if counted != want:
+                raise AssertionError(f"ensemble129 K={k} {route}: launches {counted}, a solo "
+                                     f"route's {want}")
+            t0 = time.perf_counter()
+            ens.update_n(MAIN_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof = device_busy(torch, lambda: ens.update_n(5), 5, PROFILE_LAUNCHES[route])
+            nu = ens.eval_nu()
+            row = {"cell": "ensemble129", "route": route, "K": k,
+                   "ms_per_step": wall / MAIN_STEPS * 1e3,
+                   "member_steps_per_s": k * MAIN_STEPS / wall,
+                   "solo_ms_per_step": solo_ms,
+                   "ratio_to_K_solo": wall / MAIN_STEPS * 1e3 / (k * solo_ms),
+                   "launches_per_step": {n: v // MAIN_STEPS for n, v in counted.items()},
+                   "device_busy_ms_per_step": None if prof is None else prof[0] / 5e3,
+                   "profiled_wall_ms_per_step": None if prof is None else prof[1] / 5e3,
+                   "host_idle_share_of_bare": None if prof is None else
+                   1.0 - prof[0] / 5e3 / (wall / MAIN_STEPS * 1e3),
+                   "nu_mean": float(nu.mean()), **cap}
+            print("phase24 " + json.dumps(row))
+            if not (ens.alive().all() and bool(torch.isfinite(torch.as_tensor(nu)).all())):
+                raise AssertionError(f"ensemble129 K={k} {route}: a member died or Nu is not "
+                                     "finite")
+            rows.append(row)
+            if k == ENSEMBLE_TIMED_K:
+                key = f"ens129_{route}"
+                launches[key] = {n: v // MAIN_STEPS for n, v in counted.items()}
+                records += member_kernel_records(torch, ens, key, "phase24")
+            del ens, model
+            torch.cuda.empty_cache()
+        ensemble_checks(torch, pt, route)
+        print(f"phase24 {route} ok")
+    return rows
+
+
+# -- the member-axis kernel instances, timed ---------------------------------------------
+
+
+def member_stage_library(torch, st, xs):
+    """The stage on member-stacked inputs in batched ``torch.matmul``
+    calls (timed here only)."""
+    xs = [st._stack(x) for x in xs]
+    m = None
+    for t, (rt, x) in enumerate(zip(st.rts, xs)):
+        y = torch.matmul(torch.matmul(st.ls[t], x) if st.has_l else x, rt)
+        m = y if m is None else m + y
+    if st.dinv is not None:
+        m = m * st.dinv
+    if st.b1t is not None:
+        m = torch.matmul(m, st.b1t)
+    if st.const is not None:
+        m = m + st.const
+    if st.b0 is not None:
+        m = torch.matmul(st.b0, m)
+    if st.mask is not None:
+        m = m * st.mask
+    return st._unstack(m)
+
+
+def member_conv_library(torch, fc, ux, uy, vhat, bcdx=None, bcdy=None):
+    """The convection chain on member-stacked inputs in batched
+    ``torch.matmul`` calls (timed here only)."""
+    gx = torch.stack([fc.gx1, fc.gx0])
+    gy = torch.stack([fc.gy0t, fc.gy1t])
+    d = torch.matmul(torch.matmul(gx, fc._stack(vhat)[:, None]), gy)
+    if bcdx is not None:
+        d = d + torch.stack([bcdx, bcdy])
+    total = ux * d[:, 0] + uy * d[:, 1]
+    return fc._unstack(torch.matmul(fc.fx, torch.matmul(total, fc.fyt)))
+
+
+def logged_step_inputs(torch, ens):
+    """What one K-member step of ``ens`` gives its banded solves and pencil
+    flips: ``{key: (count, first input)}`` with key ``("flip", shape,
+    x_to_y, dtype)`` or ``("solve", label, shape, axis, factor batch
+    stride, factor batch period)``, from one eager step with the wrappers
+    logging (its launches are not read; no state changes)."""
+    from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
+
+    model = ens.model
+    log = {}
+
+    def note(key, x):
+        count, first = log.get(key, (0, None))
+        log[key] = (count + 1, first if first is not None else x.clone())
+
+    wrapped = []
+    if model.mesh is not None:
+        ring = model.mesh.ring
+
+        def flip(block, x_to_y, apply=ring.apply):
+            note(("flip", tuple(block.shape), bool(x_to_y), block.dtype), block)
+            return apply(block, x_to_y)
+
+        wrapped.append((ring, "apply", flip))
+    if model.step_kernel == "dense":
+        for label, solver in banded_solvers(model).items():
+            if not isinstance(solver, BandedSolver):
+                continue
+
+            def solve(b, axis, factor_batch_stride=0, factor_batch_period=0, label=label,
+                      inner=solver.solve):
+                note(("solve", label, tuple(b.shape), axis, factor_batch_stride,
+                      factor_batch_period), b)
+                return inner(b, axis, factor_batch_stride, factor_batch_period)
+
+            wrapped.append((solver, "solve", solve))
+    for obj, name, fn in wrapped:
+        setattr(obj, name, fn)
+    try:
+        model._step(ens.state)
+    finally:
+        for obj, name, _ in wrapped:
+            delattr(obj, name)
+    torch.cuda.synchronize()
+    return log
+
+
+def banded_member_library(torch, solver, inv, b, axis, stride, period):
+    """One ``torch.matmul`` with precomputed inverses that solves a
+    member-stacked ``b`` as the banded solve does (the members as more
+    right-hand sides of the same systems; timed here only)."""
+    if not solver.kernel.per_lane:
+        return torch.movedim(torch.matmul(inv[0], torch.movedim(b, axis, -2)), -2, axis)
+    if axis != b.ndim - 1:
+        raise AssertionError("a per-lane member solve along another axis than the last")
+    lanes = b.shape[-2]
+    if period:  # (K, P, c, n): rank r's lanes r * stride ..
+        sets = inv.view(period, lanes, *inv.shape[1:]) if stride == lanes else None
+        if sets is None:
+            raise AssertionError("a per-lane pencil solve whose ranks' lanes are not contiguous")
+        rhs = b.permute(1, 2, 3, 0)  # (P, c, n, K)
+    else:  # (K, lanes, n)
+        sets = inv
+        rhs = b.permute(1, 2, 0)
+    return torch.matmul(sets, rhs).movedim(-1, 0)
+
+
+def member_kernel_records(torch, ens, route_key, phase):
+    """Every member-axis kernel instance one K-member step of ``ens``
+    launches, against its plain version (1e-12 of max|plain|; the flips
+    bit for bit), timed queued behind a GPU spin: the kernel (one launch
+    for the K members; also as a CUDA graph, ``kernel_graph_ms``), K
+    one-member launches of it captured as one graph (``solo_ms``: their
+    host time would outrun the spin), the plain version, and one library
+    call (batched ``torch.matmul``; a ``matmul``
+    by precomputed inverses for a banded solve; ``.contiguous()`` of the
+    permuted view for a flip), with the bound of the K-member work.
+    Returns the records (``route`` is ``route_key``)."""
+    import numpy as np
+
+    model = ens.model
+    k = ens.k
+    rng = np.random.default_rng(24)
+    peak = F64_TFLOPS * 1e12
+    cases = []  # (kernel, case, per_step, run, run_solo, run_plain, run_lib, flops, bytes, exact)
+    if model._stages is not None:
+        cplx = model.periodic
+        for tag in STAGE_TAGS:
+            st = model._stages.get(tag)
+            if st is None:
+                continue
+            xs = [random_field(torch, rng, (k, k0 // 2 if cplx else k0, k1), model.dtype,
+                               model.device, cplx) for k0, k1 in zip(st.k0, st.k1)]
+            flops, nbytes = st.cost(k)
+            cases.append(("fused_stage", tag, 1, lambda st=st, xs=xs: st.apply(*xs),
+                          lambda st=st, xs=xs: [st.apply(*(x[i] for x in xs)) for i in range(k)],
+                          lambda st=st, xs=xs: st.plain(*xs),
+                          lambda st=st, xs=xs: member_stage_library(torch, st, xs),
+                          flops, nbytes, False))
+        n = (k, model.nx, model.ny)
+        for label, space, with_bc in (("conv", model.velx_space, False),
+                                      ("conv_bc", model.temp_space, True)):
+            fc = model._convs[id(space)]
+            args = [random_field(torch, rng, n, model.dtype, model.device),
+                    random_field(torch, rng, n, model.dtype, model.device),
+                    random_field(torch, rng, (k,) + space.shape_spectral, model.dtype,
+                                 model.device, cplx)]
+            if with_bc:
+                args += [model._tempbc_dx, model._tempbc_dy]
+            flops = fc.flops * k
+            cases.append(("fused_conv", label, case_per_step(model, label),
+                          lambda fc=fc, a=args: fc.apply(*a),
+                          lambda fc=fc, a=args: [fc.apply(a[0][i], a[1][i], a[2][i], *a[3:])
+                                                 for i in range(k)],
+                          lambda fc=fc, a=args: fc.plain(*a),
+                          lambda fc=fc, a=args: member_conv_library(torch, fc, *a),
+                          flops, fc.bytes_moved(with_bc, k), False))
+    else:
+        solvers = banded_solvers(model)
+        inverses = {}
+        for key, (count, given) in sorted(logged_step_inputs(torch, ens).items(), key=str):
+            if key[0] == "flip":
+                _, shape, x_to_y, dtype = key
+                ring = model.mesh.ring
+                block = torch.empty_like(given).copy_(given)
+                p = ring.nranks
+                cases.append(("ring_transpose", f"{'x2y' if x_to_y else 'y2x'}_{list(shape)}",
+                              count, lambda b=block, d=x_to_y: ring.apply(b, d),
+                              lambda b=block, d=x_to_y: [ring.apply(b[i], d) for i in range(k)],
+                              lambda b=block, d=x_to_y: ring.plain(b, d),
+                              lambda b=block, d=x_to_y: member_ring_library(b, p, d),
+                              0.0, ring.bytes_moved(block), True))
+                continue
+            _, label, shape, axis, stride, period = key
+            solver = solvers[label]
+            b = random_field(torch, rng, shape, model.dtype, model.device, given.is_complex())
+            if label not in inverses:
+                inverses[label] = banded_inverses(torch, solver.kernel)
+            n = shape[axis]
+            shape3 = (2 if b.is_complex() else 1, n, b.numel() // n)
+            cases.append(("banded_solve", label, count,
+                          lambda s=solver, b=b, a=axis, f=stride, q=period: s.solve(b, a, f, q),
+                          lambda s=solver, b=b, a=axis, f=stride: [s.solve(b[i], a - 1, f)
+                                                                   for i in range(k)],
+                          lambda s=solver, b=b, a=axis, f=stride, q=period: s.plain(b, a, f, q),
+                          lambda s=solver, b=b, a=axis, f=stride, q=period, inv=inverses[label]:
+                          banded_member_library(torch, s, inv, b, a, f, q),
+                          solver.kernel.flops(shape3), solver.kernel.bytes_moved(shape3), False))
+    records = []
+    for kernel, case, per_step, run, run_solo, run_plain, run_lib, flops, nbytes, exact \
+            in cases:
+        out = run()
+        torch.cuda.synchronize()
+        plain = run_plain()
+        diff, rel = rel_err(torch, out, plain)
+        solo_equal = all(torch.equal(out[i], s) for i, s in enumerate(run_solo()))
+        t_op, t_mem = flops / peak * 1e3, nbytes / (HBM_TB_PER_S * 1e12) * 1e3
+        queued, host = time_queued_ms(torch, run, 10)
+        rec = {"kernel": kernel, "route": route_key, "case": case, "K": k, "n": model.nx,
+               "per_step": per_step, "max_abs_err": diff, "max_rel_err": rel,
+               "members_equal_solo_launches": solo_equal,
+               "kernel_ms": queued, "kernel_enqueue_ms": host,
+               "kernel_graph_ms": time_graph_ms(torch, run, 10),
+               "solo_ms": time_graph_ms(torch, run_solo, 5),
+               "plain_ms": time_queued_ms(torch, run_plain, 3)[0],
+               "library_ms": time_queued_ms(torch, run_lib, 3)[0],
+               "flops": flops, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
+               "bound_by": "operations" if t_op >= t_mem else "bytes"}
+        rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+        print(f"{phase} " + json.dumps(rec))
+        if not (rel <= (0.0 if exact else 1e-12)):
+            raise AssertionError(f"{route_key} {kernel}/{case}: rel err {rel:.3e}")
+        if kernel != "banded_solve" and not solo_equal:
+            raise AssertionError(f"{route_key} {kernel}/{case}: a member differs from its "
+                                 "one-member launch")
+        records.append(rec)
+    return records
+
+
+def member_ring_library(block, p, x_to_y):
+    """One ``.contiguous()`` of the permuted view of a member-stacked
+    pencil (timed here only)."""
+    k = block.shape[0]
+    if x_to_y:
+        c, w = block.shape[2] // p, block.shape[3]
+        return block.view(k, p, p, c, w).permute(0, 2, 3, 1, 4).contiguous().view(k, p, c, p * w)
+    c, w = block.shape[2], block.shape[3] // p
+    return block.view(k, p, c, p, w).permute(0, 3, 1, 2, 4).contiguous().view(k, p, p * c, w)
+
+
+def phase_ensemble1025(torch, pt, template, route, records, launches, bare_ms):
+    """Phase 25 on one route: ``rbc1025`` with K = ``ENSEMBLE1025_K[route]``
+    members on ``template`` (the route's main-path model, whose state is
+    replaced): the member-axis kernel instances against their plain
+    versions and timed (``ens1025_*`` rows); the capture, ``MAIN_STEPS``
+    counted steps (launches exactly a solo step's per step) and
+    ``MAIN_STEPS`` timed steps of bare ``update_n`` against K times the
+    solo route's ms/step; member 0 against the solo model after 10 steps."""
+    k = ENSEMBLE1025_K[route]
+    key = f"ens1025_{route}"
+    ens = pt.NavierEnsemble.from_seeds(template, range(k))
+    records += member_kernel_records(torch, ens, key, "phase25")
+    cap = prepare_ensemble(torch, ens, route, "rbc1025", "phase25")
+    reset_counts(template)
+    ens.update_n(MAIN_STEPS)
+    torch.cuda.synchronize()
+    counted = count_launches(template)
+    if counted != {n: v * MAIN_STEPS for n, v in PER_STEP[route].items()}:
+        raise AssertionError(f"rbc1025 K={k} {route}: launches {counted}")
+    launches[key] = {n: v // MAIN_STEPS for n, v in counted.items()}
+    t0 = time.perf_counter()
+    ens.update_n(MAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = wall / MAIN_STEPS * 1e3
+    fresh = pt.NavierEnsemble.from_seeds(template, range(k))
+    fresh.update_n(ENSEMBLE_STEPS)
+    template.init_random(0.1, seed=0)
+    start = template.state
+    template.time = 0.0
+    template.update_n(ENSEMBLE_STEPS)
+    solo = template.state
+    member = fresh.member_state(0)
+    diffs = field_rel_diffs(torch, member, solo)
+    bitwise = all(torch.equal(x, y) for x, y in zip(member, solo))
+    # the route's own rounding sensitivity at this cell: the solo run from
+    # its start state moved by one ulp (x (1 + 2^-52)), against the solo run
+    template.state = type(start)(*(x * (1.0 + 2.0**-52) for x in start))
+    template.update_n(ENSEMBLE_STEPS)
+    ulp = field_rel_diffs(torch, template.state, solo)
+    limits = {f: max(ENSEMBLE_LIMIT, ULP_STEPS_FACTOR * ulp[f]) for f in diffs}
+    row = {"cell": "rbc1025", "route": route, "K": k, "ms_per_step": ms,
+           "member_steps_per_s": k * MAIN_STEPS / wall, "solo_ms_per_step": bare_ms[route],
+           "ratio_to_K_solo": ms / (k * bare_ms[route]),
+           "launches_per_step": launches[key], "member0_vs_solo_rel": diffs,
+           "solo_vs_one_ulp_rel": ulp, "member0_bit_for_bit": bitwise, **cap}
+    print("phase25 " + json.dumps(row))
+    if any(diffs[f] > limits[f] for f in diffs):
+        raise AssertionError(f"rbc1025 K={k} {route}: member 0 differs from the solo model "
+                             f"{diffs} beyond {limits}")
+    print(f"phase25 {route} ok")
+
+
+def phase_sweep(torch, pt):
+    """Phase 26: ``geometry_sweep`` at ``SWEEP129`` on the fused, dense and
+    meshed routes: four obstacles from the ``solid_*`` builders as one
+    ensemble of a plain template, ``ENSEMBLE_STEPS`` steps, each member
+    against a solo ``set_solid`` run of its obstacle (``ENSEMBLE_LIMIT`` of
+    each field's scale; bit for bit expected on the fused route)."""
+    for route in ("fused", "dense", "mesh"):
+        template = route_model(pt, SWEEP129, route)
+        template.init_random(0.1, seed=0)
+        x, y = template.x
+        geoms = [pt.solid_cylinder_inner(x, y, 0.0, 0.0, 0.3),
+                 pt.solid_cylinder_inner(x, y, 0.4, -0.2, 0.2),
+                 pt.solid_rectangle(x, y, 0.0, 0.6, 0.3, 0.1),
+                 pt.solid_roughness_sinusoid(x, y, *ROUGHNESS)]
+        reset_counts(template)
+        final, obs = pt.geometry_sweep(template, geoms, ENSEMBLE_STEPS)
+        counted = count_launches(template)
+        worst, bitwise = 0.0, True
+        state_cls = type(template.state)
+        for i, (mask, value) in enumerate(geoms):
+            solo = route_model(pt, SWEEP129, route)
+            solo.init_random(0.1, seed=0)
+            solo.set_solid(mask, value)
+            solo.update_n(ENSEMBLE_STEPS)
+            member = state_cls(*(f[i] for f in final))
+            worst = max(worst, max_rel_diff(torch, member, solo.state))
+            bitwise = bitwise and all(torch.equal(a, b) for a, b in zip(member, solo.state))
+        print(f"phase26 geometry_sweep {route} route, 4 obstacles, {ENSEMBLE_STEPS} steps: "
+              f"max rel diff against solo set_solid runs {worst:.3e} (limit "
+              f"{ENSEMBLE_LIMIT:g}), bit for bit {bitwise}; Nu {obs[0].tolist()}; launches "
+              f"{counted} (warm-up step and capture included)")
+        if not worst <= ENSEMBLE_LIMIT or (route == "fused" and not bitwise):
+            raise AssertionError(f"geometry_sweep {route}: a member differs from its solo run")
+    print("phase26 ok")
+
+
 # -- the kernels line --------------------------------------------------------------
 
 
@@ -1917,10 +2557,13 @@ def route_sums(rows) -> dict:
             return None
         return sum(k * v for k, v in vals)
 
-    return {"ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"), "library_ms": total("library_ms"),
-            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows)
-            else "bytes"}
+    out = {"ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+           "bound_ms": total("bound_ms"), "library_ms": total("library_ms"),
+           "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows)
+           else "bytes"}
+    if any("solo_ms" in r for r in rows):  # a member-axis instance: K one-member launches
+        out["solo_ms"] = total("solo_ms")
+    return out
 
 
 def kernels_line(records, launches, solver_times):
@@ -1971,6 +2614,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    try:  # information for the checkpoint writers (HDF5), not a gate
+        import h5py
+
+        print(f"h5py: importable, version {h5py.__version__}")
+    except ImportError as exc:
+        print(f"h5py: not importable ({exc})")
     t0 = time.perf_counter()
     built = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
@@ -1995,6 +2644,9 @@ def main() -> int:
     launches["fused"], bare_ms["fused"] = phase_main(torch, pt, main_model)
     phase_profile(torch, main_model, bare_ms["fused"])
     phase_chunks(torch, pt, main_model)
+    phase_ensemble1025(torch, pt, main_model, "fused", records, launches, bare_ms)
+    del main_model
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     dense_model = pt.Navier2D.new_confined(**RBC1025, device="cuda", **DENSE)
@@ -2011,7 +2663,9 @@ def main() -> int:
     phase_profile(torch, dense_model, bare_ms["dense"], phase="phase10")
     phase_chunks(torch, pt, dense_model)
     solver_times = phase_solvers(torch, pt, dense_model)
+    phase_ensemble1025(torch, pt, dense_model, "dense", records, launches, bare_ms)
     del dense_model
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     mesh = pt.make_mesh(MESH_RANKS)
@@ -2027,7 +2681,9 @@ def main() -> int:
     launches["mesh"], bare_ms["mesh"] = phase_main(torch, pt, mesh_model, "phase13")
     phase_profile(torch, mesh_model, bare_ms["mesh"], phase="phase13")
     phase_chunks(torch, pt, mesh_model)
+    phase_ensemble1025(torch, pt, mesh_model, "mesh", records, launches, bare_ms)
     del mesh_model, mesh
+    torch.cuda.empty_cache()
 
     # the periodic cell, fused route then dense route
     for route in ("fused", "dense"):
@@ -2063,6 +2719,8 @@ def main() -> int:
     phase_hc_small(pt)
     phase_scn1025(torch, pt, records, launches, bare_ms)
     phase_scn_small(pt)
+    phase_ensemble129(torch, pt, records, launches)
+    phase_sweep(torch, pt)
     phase_methods(torch, pt)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))

@@ -42,6 +42,15 @@ with its Sherwood number) run on every route::
                                                           passive_scalar=True))
     model.set_solid(*solid_roughness_sinusoid(*model.x, 0.1, 10.0))
 
+``NavierEnsemble`` steps K member states of one model together, every
+kernel launch of a step serving all K members (the JAX package's vmapped
+ensemble), on every route; ``geometry_sweep`` runs K obstacle geometries
+as one ensemble::
+
+    ens = NavierEnsemble.from_seeds(model, range(8))
+    ens.update_n(50)
+    nu = ens.eval_nu()          # shape (8,)
+
 ``update_n`` steps in the JAX package's chunks: a chunk freezes at the
 first step whose state is not finite, and with ``set_stability(
 StabilityConfig())`` it carries the CFL, kinetic-energy and |div|
@@ -56,6 +65,7 @@ from .bases import (Base, BaseKind, Space2, cheb_dirichlet, cheb_dirichlet_neuma
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
 from .models.boundary_conditions import (bc_hc_values, bc_rbc_values,  # noqa: F401
                                          bc_zero_values, pres_bc_rbc_values)
+from .models.ensemble import NavierEnsemble  # noqa: F401
 from .models.navier import Navier2D, NavierScalarState, NavierState  # noqa: F401
 from .models.solid_masks import (solid_cylinder_inner, solid_porosity,  # noqa: F401
                                  solid_porosity_interpolate, solid_rectangle,
@@ -64,4 +74,4 @@ from .parallel import Decomp2d, Mesh, make_mesh  # noqa: F401
 from .solver import FastDiag, Hholtz, HholtzAdi, Poisson, TensorSolver  # noqa: F401
 from .utils.governor import ChunkStatus  # noqa: F401
 from .utils.integrate import integrate  # noqa: F401
-from .workloads import ScenarioConfig  # noqa: F401
+from .workloads import ScenarioConfig, geometry_sweep  # noqa: F401

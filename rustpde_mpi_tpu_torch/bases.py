@@ -468,10 +468,10 @@ class Space2:
         holds them: a copy in its device and real dtype."""
         return torch.tensor(np.ascontiguousarray(values), dtype=self.dtype, device=self.device)
 
-    def place_spectral(self, values) -> torch.Tensor:
+    def place_spectral(self, values, dtype=None) -> torch.Tensor:
         """Global spectral (or ortho-space) values as this space holds
-        them: a copy in its spectral dtype."""
-        return torch.tensor(np.ascontiguousarray(values), dtype=self.spectral_dtype,
+        them: a copy in its spectral dtype (or ``dtype``)."""
+        return torch.tensor(np.ascontiguousarray(values), dtype=dtype or self.spectral_dtype,
                             device=self.device)
 
     def gather_physical(self, v: torch.Tensor) -> torch.Tensor:
@@ -491,10 +491,14 @@ class Space2:
         """The flip to the layout with axis 0 local: the identity."""
         return v
 
-    def weighted_sum(self, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def weighted_sum(self, v: torch.Tensor, w: torch.Tensor, lead: int = 0) -> torch.Tensor:
         """``sum(v * w)`` over the field, a 0-d tensor (``w`` placed as
-        ``v`` is)."""
-        return torch.sum(v * w)
+        ``v`` is); the first ``lead`` dims of ``v`` are members, each summed
+        apart (a tensor of those dims)."""
+        if not lead:
+            return torch.sum(v * w)
+        p = v * w
+        return p.reshape(*p.shape[:lead], -1).sum(dim=-1)
 
     def apply_operators(self, v: torch.Tensor, a0, a1) -> torch.Tensor:
         """``A0 @ v @ A1^T`` of the device operators ``a0``, ``a1`` (from

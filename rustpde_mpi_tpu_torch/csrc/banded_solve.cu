@@ -14,7 +14,11 @@
 // (planes, batch, n, lanes) views (grid.z runs the planes, which share the
 // factor sets): a complex right-hand side goes in as its real view, its
 // real and imaginary parts two planes, so a pencil solve whose factor sets
-// are offset by the rank (the batch entry) is one launch.
+// are offset by the rank (the batch entry) is one launch.  The factor
+// offset of batch entry j is (j mod fper) * fb: an ensemble of K members
+// stacks its members' pencils (K x ranks) into the batch, and every
+// member's rank r reads rank r's factor sets, so K members are one launch
+// as well (the JAX package's jax.vmap of the solve).
 //
 // Bound on the H100: bytes (b read and x written once, 16.7 MB a 1023^2
 // f64 solve, plus the per-lane factors of the Poisson solve: 5 us and
@@ -104,7 +108,7 @@ struct Args {
   void* x;
   long long sb, sr, sl, xb, xr, xl;  // strides of b and x (batch, row, lane)
   long long sp, xp;                  // plane strides of b and x
-  long long fl, fb;                  // factor sets, factor batch stride
+  long long fl, fb, fper;            // factor sets, factor batch stride and period
   int n, lanes, nk;
   int tls;        // log2 of the tile's lanes
   int flane;      // 1: one factor set per lane
@@ -299,7 +303,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) banded_kernel(const Args a) {
   const int ntl = min(tl, a.lanes - l0);
   const long long bi = blockIdx.y;
   const long long pl = blockIdx.z;  // the plane: the same factor sets in every one
-  const long long fo = a.flane ? bi * a.fb + l0 : 0;
+  // the factor sets of batch entry bi mod fper (no division for one member)
+  const long long fo = a.flane ? (bi < a.fper ? bi : bi % a.fper) * a.fb + l0 : 0;
   const int nc = ((a.n + NSYS - 1) / NSYS + RK - 1) / RK;  // stages of each pass
   const int nst = 2 * nc;
   const int tid = threadIdx.x;
@@ -377,13 +382,14 @@ static int launch_one(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
 // checked again here); planes: a second batch level (grid.z) of strides sp
 // and xp whose every plane reads the same factor sets (the real and
 // imaginary parts of a complex pencil, whose lanes' factor sets are offset
-// by the rank's batch entry, not by the part).
+// by the rank's batch entry, not by the part); fper: batch entry j reads
+// the factor sets of entry j mod fper (the ranks of each member).
 template <typename T>
 static int launch(int nb, int n, int lanes, int nsys, int pp, int qq, int tl, int vec,
                   const void* low, const void* upp, int flane, long long fl, long long fb, int nk,
                   const void* b, long long sb, long long sr, long long sl, void* x, long long xb,
                   long long xr, long long xl, int planes, long long sp, long long xp,
-                  cudaStream_t stream) {
+                  int fper, cudaStream_t stream) {
   constexpr long long ES = sizeof(T);
   const int tls = tl == 1 ? 0 : tl == 2 ? 1 : tl == 4 ? 2 : tl == MAX_TILE ? 3 : -1;
   const int rk = nsys == 2 ? Path<2>::RK : Path<1>::RK;
@@ -392,7 +398,7 @@ static int launch(int nb, int n, int lanes, int nsys, int pp, int qq, int tl, in
   if (nb < 1 || nb > 65535 || planes < 1 || planes > 65535 || n < 1 || lanes < 1 || (nsys != 1 && nsys != 2) || tls < 0 ||
       !bands || (vec != 0 && vec != 1) ||
       (flane != 0 && flane != 1) || fl < 1 || (!flane && fl != 1) ||
-      (flane && (fb < 0 || (nb - 1) * fb + lanes > fl)) ||
+      fper < 1 || (flane && (fb < 0 || ((long long)(nb < fper ? nb : fper) - 1) * fb + lanes > fl)) ||
       (long long)nk < ((n + nsys - 1) / nsys + rk - 1) / (long long)rk * rk)
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -402,7 +408,7 @@ static int launch(int nb, int n, int lanes, int nsys, int pp, int qq, int tl, in
   a.x = x;
   a.sb = sb, a.sr = sr, a.sl = sl, a.xb = xb, a.xr = xr, a.xl = xl;
   a.sp = sp, a.xp = xp;
-  a.fl = fl, a.fb = fb;
+  a.fl = fl, a.fb = fb, a.fper = fper;
   a.n = n, a.lanes = lanes, a.nk = nk;
   a.tls = tls, a.flane = flane, a.vec = vec;
   a.rowfast = sr == 1 && sl != 1;
@@ -441,9 +447,9 @@ extern "C" int rp_banded_solve_f64(int nb, int n, int lanes, int nsys, int pp, i
                                    long long fl, long long fb, int nk, const void* b,
                                    long long sb, long long sr, long long sl, void* x,
                                    long long xb, long long xr, long long xl, int planes,
-                                   long long sp, long long xp, void* stream) {
+                                   long long sp, long long xp, int fper, void* stream) {
   return rp::banded::launch<double>(nb, n, lanes, nsys, pp, qq, tl, vec, low, upp, flane, fl, fb,
-                                    nk, b, sb, sr, sl, x, xb, xr, xl, planes, sp, xp,
+                                    nk, b, sb, sr, sl, x, xb, xr, xl, planes, sp, xp, fper,
                                     static_cast<cudaStream_t>(stream));
 }
 
@@ -452,8 +458,8 @@ extern "C" int rp_banded_solve_f32(int nb, int n, int lanes, int nsys, int pp, i
                                    long long fl, long long fb, int nk, const void* b,
                                    long long sb, long long sr, long long sl, void* x,
                                    long long xb, long long xr, long long xl, int planes,
-                                   long long sp, long long xp, void* stream) {
+                                   long long sp, long long xp, int fper, void* stream) {
   return rp::banded::launch<float>(nb, n, lanes, nsys, pp, qq, tl, vec, low, upp, flane, fl, fb,
-                                   nk, b, sb, sr, sl, x, xb, xr, xl, planes, sp, xp,
+                                   nk, b, sb, sr, sl, x, xb, xr, xl, planes, sp, xp, fper,
                                    static_cast<cudaStream_t>(stream));
 }

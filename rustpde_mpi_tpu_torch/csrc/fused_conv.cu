@@ -33,6 +33,16 @@
 // of 32 x 32 warp accumulators are 64 doubles a thread; the ring is 3
 // stages deep (111 KB with 64 x 64 blocks, two blocks an SM).  Its output
 // is 1025 x 1025: 289 blocks of 64 x 64 on 264 slots (two waves).
+//
+// Members.  An ensemble of K states of one model runs each of the four
+// launches once for all K (the JAX package's jax.vmap over pallas_call):
+// launches 1, 3 and 4 through the generic GEMM's member strides, launch 2
+// with the member on blockIdx.z, the per-member operands (A1, A0, ux, uy,
+// the output) at a member stride and the shared ones (Gy0^T, Gy1^T and the
+// BC gradients) read by every member.  A member's blocks run a one-member
+// launch's tile loop, so its output equals its solo launch bit for bit.
+// At 129^2 with K = 32 the dual output is 9 blocks a member, 288 on 264
+// slots (two waves).
 #include <type_traits>
 
 #include "tile_gemm.cuh"
@@ -76,7 +86,8 @@ struct DualProducer {
 // out[0:n0, 0:n1] = ux * (a1 @ g0t + bcdx) + uy * (a0 @ g1t + bcdy); a1, a0
 // are n0 x k (leading dimension lda), g0t, g1t k x n1 (ldg), the
 // elementwise operands n0 x n1 (ldu).  VA: every row of a1 and a0 starts on
-// 16 bytes; VG: the same of g0t and g1t.
+// 16 bytes; VG: the same of g0t and g1t.  Member blockIdx.z reads a1, a0 at
+// member stride sa, ux, uy at su and writes out at so.
 template <typename T, class C, bool VA, bool VG>
 __global__ void __launch_bounds__(C::NTHREADS)
     conv_dual_kernel(int n0, int n1, int k, const T* __restrict__ a1,
@@ -85,9 +96,15 @@ __global__ void __launch_bounds__(C::NTHREADS)
                      int ldg, const T* __restrict__ ux,
                      const T* __restrict__ uy, const T* __restrict__ bcdx,
                      const T* __restrict__ bcdy, int ldu, T* __restrict__ out,
-                     int ldo) {
+                     int ldo, long long sa, long long su, long long so) {
   const int row0 = blockIdx.y * C::BM;
   const int col0 = blockIdx.x * C::BN;
+  const long long m = blockIdx.z;
+  a1 += m * sa;
+  a0 += m * sa;
+  ux += m * su;
+  uy += m * su;
+  out += m * so;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   Frag<T, C> px, py;
@@ -129,26 +146,29 @@ __global__ void __launch_bounds__(C::NTHREADS)
 template <typename T, bool VA, bool VG>
 static int launch_kernel(int n0, int n1, int k, const T* a1, const T* a0, int lda, const T* g0t,
                          const T* g1t, int ldg, const T* ux, const T* uy, const T* bcdx,
-                         const T* bcdy, int ldu, T* out, int ldo, cudaStream_t stream) {
+                         const T* bcdy, int ldu, T* out, int ldo, int members, long long sa,
+                         long long su, long long so, cudaStream_t stream) {
   using C = DualTile;
   constexpr int smem = C::RING2 * 2 * (C::A_ELEMS + C::B_ELEMS) * (int)sizeof(T);
   static std::atomic<unsigned long long> done{0};
   const cudaError_t attr = smem_attribute(conv_dual_kernel<T, C, VA, VG>, smem, done);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((n1 + C::BN - 1) / C::BN, (n0 + C::BM - 1) / C::BM, 1);
+  dim3 grid((n1 + C::BN - 1) / C::BN, (n0 + C::BM - 1) / C::BM, members);
   conv_dual_kernel<T, C, VA, VG><<<grid, C::NTHREADS, smem, stream>>>(
-      n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy, bcdx, bcdy, ldu, out, ldo);
+      n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy, bcdx, bcdy, ldu, out, ldo, sa, su, so);
   return (int)cudaGetLastError();
 }
 
-// The dual launch; vec bit 0: every row of a1 and a0 starts on 16 bytes,
-// bit 1: the same of g0t and g1t.
+// The dual launch for `members` members; vec bit 0: every row of a1 and a0
+// starts on 16 bytes (in every member), bit 1: the same of g0t and g1t.
 template <typename T>
 int launch_dual(int n0, int n1, int k, const void* a1, const void* a0, int lda,
                 const void* g0t, const void* g1t, int ldg, const void* ux,
                 const void* uy, const void* bcdx, const void* bcdy, int ldu,
-                void* out, int ldo, int vec, cudaStream_t stream) {
-  if (n0 < 1 || n1 < 1 || k < 1 || (bcdx == nullptr) != (bcdy == nullptr))
+                void* out, int ldo, int vec, int members, long long sa, long long su,
+                long long so, cudaStream_t stream) {
+  if (n0 < 1 || n1 < 1 || k < 1 || (bcdx == nullptr) != (bcdy == nullptr) || members < 1 ||
+      members > 65535 || (members > 1 && (sa < 1 || su < 1 || so < 1)))
     return (int)cudaErrorInvalidValue;
   const bool va = vec & 1, vg = (vec >> 1) & 1;
   auto run = [&](auto kernel_va, auto kernel_vg) {
@@ -157,7 +177,7 @@ int launch_dual(int n0, int n1, int k, const void* a1, const void* a0, int lda,
         static_cast<const T*>(g0t), static_cast<const T*>(g1t), ldg,
         static_cast<const T*>(ux), static_cast<const T*>(uy),
         static_cast<const T*>(bcdx), static_cast<const T*>(bcdy), ldu,
-        static_cast<T*>(out), ldo, stream);
+        static_cast<T*>(out), ldo, members, sa, su, so, stream);
   };
   using Y = std::true_type;
   using N = std::false_type;
@@ -172,9 +192,10 @@ extern "C" int rp_conv_dual_f64(int n0, int n1, int k, const void* a1,
                                 const void* g1t, int ldg, const void* ux,
                                 const void* uy, const void* bcdx,
                                 const void* bcdy, int ldu, void* out, int ldo,
-                                int vec, void* stream) {
+                                int vec, int members, long long sa, long long su,
+                                long long so, void* stream) {
   return rp::launch_dual<double>(n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy,
-                                 bcdx, bcdy, ldu, out, ldo, vec,
+                                 bcdx, bcdy, ldu, out, ldo, vec, members, sa, su, so,
                                  static_cast<cudaStream_t>(stream));
 }
 
@@ -183,8 +204,9 @@ extern "C" int rp_conv_dual_f32(int n0, int n1, int k, const void* a1,
                                 const void* g1t, int ldg, const void* ux,
                                 const void* uy, const void* bcdx,
                                 const void* bcdy, int ldu, void* out, int ldo,
-                                int vec, void* stream) {
+                                int vec, int members, long long sa, long long su,
+                                long long so, void* stream) {
   return rp::launch_dual<float>(n0, n1, k, a1, a0, lda, g0t, g1t, ldg, ux, uy,
-                                bcdx, bcdy, ldu, out, ldo, vec,
+                                bcdx, bcdy, ldu, out, ldo, vec, members, sa, su, so,
                                 static_cast<cudaStream_t>(stream));
 }

@@ -14,6 +14,14 @@ so a chunk has no host sync.  On a CUDA device the step, the freeze and
 each step of a chunk replays it; on the CPU the same arithmetic runs
 eagerly.  There is no eager fallback on the card: a capture or a replay
 that fails raises.
+
+The ensemble's chunks (:class:`.ensemble.NavierEnsemble`, the JAX
+package's ``models/ensemble.py``) run on the same runner with a carry of
+member-stacked fields and ``(K,)`` flags: ``_advance_members`` and
+``_advance_members_sentinels`` keep a per-member mask (a member whose
+stepped state is not finite freezes at its last finite state and stops
+counting; with sentinels armed, a member over the CFL ceiling freezes too)
+and every kernel launch of a step serves all members.
 """
 
 from __future__ import annotations
@@ -132,24 +140,30 @@ class CampaignModelBase:
         self.state = self._step(self.state)
         self.time += self.dt
 
-    def _scan_ok(self, state) -> torch.Tensor:
+    def _scan_ok(self, state, lead: int = 0) -> torch.Tensor:
         """The continue criterion of a chunk, a 0-d bool tensor: the
         temperature's sum is finite (a NaN anywhere in the flow reaches
         temp within a step through buoyancy and convection; a complex sum
         is finite when both its parts are), and so is the passive scalar's,
         where the state has one (the flow never reads it, so a NaN in the
-        scalar alone would not reach temp)."""
-        probe = torch.sum(state.temp)
+        scalar alone would not reach temp).  With ``lead`` member dims, one
+        flag per member."""
+
+        def total(x):
+            return torch.sum(x) if not lead else x.reshape(*x.shape[:lead], -1).sum(dim=-1)
+
+        probe = total(state.temp)
         if "scal" in state._fields:
-            probe = probe + torch.sum(state.scal)
+            probe = probe + total(state.scal)
         return torch.isfinite(probe)
 
     @staticmethod
     def _commit(fields, stepped, keep) -> None:
         """The freeze: each field of the carry takes its stepped value
-        where ``keep`` (0-d bool) is set and keeps its own otherwise."""
+        where ``keep`` (a 0-d bool, or one per member) is set and keeps its
+        own otherwise."""
         for f, f2 in zip(fields, stepped):
-            torch.where(keep, f2, f, out=f)
+            torch.where(keep.reshape(keep.shape + (1,) * (f.ndim - keep.ndim)), f2, f, out=f)
 
     def _advance(self, carry) -> None:
         """One step of a plain chunk on ``carry = [*state, ok, done]``:
@@ -191,6 +205,51 @@ class CampaignModelBase:
         torch.where(go, torch.maximum(div_max, div), div_max, out=div_max)
         torch.where(go, ke, ke_prev, out=ke_prev)
         self._commit(fields, stepped, go)
+
+    # -- the ensemble's chunks ---------------------------------------------------
+
+    def _advance_members(self, carry, solid=None) -> None:
+        """One step of an ensemble's plain chunk on ``carry = [*state, ok,
+        done]`` (member-stacked fields, ``(K,)`` flags and counts), as the
+        JAX package's ensemble chunk: a member commits its stepped state and
+        counts the step while ``ok`` and the stepped state is finite; ``ok``
+        drops at its first non-finite step, whose state is not committed (a
+        frozen member keeps its last finite state).  Every member is
+        stepped; a frozen member's result is discarded.  ``solid``: the
+        members' penalization factors (:meth:`_step`)."""
+        *fields, ok, done = carry
+        stepped = self._step(type(self.state)(*fields), solid=solid)
+        keep = ok & self._scan_ok(stepped, lead=1)
+        done.add_(keep)
+        self._commit(fields, stepped, keep)
+        ok.copy_(keep)
+
+    def _advance_members_sentinels(self, carry, solid=None) -> None:
+        """One step of an ensemble's sentinel chunk on ``carry = [*state,
+        finite, cfl_ok, done, cfl_max, ke_growth_max, div_max, ke]`` (each
+        scalar ``(K,)``), as the JAX package's ensemble sentinel chunk: a
+        member is active while finite and under the CFL ceiling; an active
+        member's flags, running maxima and kinetic energy take the step's,
+        and it commits the stepped state and counts the step when that is
+        finite and under the ceiling (a member over the ceiling freezes at
+        its last state under it, still finite)."""
+        nf = len(self.state)
+        fields = carry[:nf]
+        fin, cok, done, cfl_max, growth_max, div_max, ke_prev = carry[nf:]
+        active = fin & cok
+        stepped, (cfl, ke, div) = self._step(type(self.state)(*fields), with_sentinels=True,
+                                             solid=solid)
+        finite = self._scan_ok(stepped, lead=1)
+        torch.where(active, finite, fin, out=fin)
+        torch.where(active, torch.logical_not(cfl > self._ceiling), cok, out=cok)
+        keep = active & finite & cok
+        done.add_(keep)
+        growth = torch.where(ke_prev > 0.0, ke / ke_prev, torch.ones_like(ke))
+        torch.where(active, torch.maximum(cfl_max, cfl), cfl_max, out=cfl_max)
+        torch.where(active, torch.maximum(growth_max, growth), growth_max, out=growth_max)
+        torch.where(active, torch.maximum(div_max, div), div_max, out=div_max)
+        torch.where(active, ke, ke_prev, out=ke_prev)
+        self._commit(fields, stepped, keep)
 
     # -- the chunk runner ------------------------------------------------------
 

@@ -1,0 +1,425 @@
+"""NavierEnsemble: K member states of one Navier2D, stepped together.
+
+Counterpart of the JAX package's ``models/ensemble.py`` (its
+``NavierEnsemble``), less its snapshots, stats, integrity digests, dt ladder
+and overlapped IO.  The JAX package stacks K member states on a leading
+axis and advances them as one ``jax.vmap`` of the model's step, the Pallas
+kernels batched by ``pallas_call``'s batching rule.  Here the member-stacked
+state goes through the template model's own step (:meth:`Navier2D._step`
+takes a leading member dim), and every kernel launch of a step serves all K
+members: a step of K members launches exactly what a solo step of the same
+route launches.  The members share the model's operators, solvers and
+kernel wrappers; only the state differs.
+
+A chunk (:meth:`NavierEnsemble.update_n`) runs the JAX package's bucket
+schedule on a :class:`.campaign.ChunkRunner` whose carry holds the stacked
+fields, a per-member alive mask and per-member step counts: a member whose
+stepped state is not finite freezes at its last finite state and stops
+counting, while the others go on; once no member is alive the remaining
+buckets are skipped (a host check before each bucket, where the JAX package
+takes the identity branch of a ``lax.cond``).  With the template model's
+stability sentinels armed, a member over the CFL ceiling freezes too, and
+the whole chunk rolls back when any alive member pinned the ceiling.  On
+the card each step replays one CUDA graph of the K-member step, captured
+once per ensemble and sentinel setting; the carry is loaded from the
+ensemble's state at each call and copied out into fresh tensors, so a
+reference to an earlier ``state``, ``mask`` or ``steps_done`` stays as it
+was.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.governor import ChunkStatus
+from ..utils.jit import scan_buckets
+from .campaign import ChunkRunner
+
+
+def _stack(members) -> tuple:
+    """One state of member-stacked fields from a list of member states."""
+    return type(members[0])(*(torch.stack([torch.as_tensor(x) for x in xs]) for xs in zip(*members)))
+
+
+class NavierEnsemble:
+    """K member states of one :class:`..models.navier.Navier2D`, stepped
+    together.
+
+    ``states`` is a sequence of K member states or one state whose every
+    field carries a leading K dim.  An unstacked state raises
+    ``TypeError`` (wrap it in a list for K = 1); an empty sequence raises
+    ``ValueError``."""
+
+    def __init__(self, model, states):
+        if hasattr(states, "_fields"):
+            if states.temp.ndim != model.state.temp.ndim + 1:
+                raise TypeError(
+                    "NavierEnsemble expects a sequence of member states or a state whose "
+                    "fields carry a leading K axis; got an unbatched state (wrap it in a list "
+                    "for K=1)")
+            stacked = type(states)(*(torch.as_tensor(x) for x in states))
+        else:
+            members = list(states)
+            if not members:
+                raise ValueError("ensemble needs at least one member state")
+            stacked = _stack(members)
+        self.model = model
+        self.k = int(stacked.temp.shape[0])
+        self.dt = model.dt
+        self.time = 0.0
+        #: per-member diagnostics history: each append is a length-K list
+        self.diagnostics: dict[str, list] = {}
+        self.last_chunk_status = None
+        #: the seed of a persistent ``respawn_dead`` stream (None: per call)
+        self.respawn_seed: int | None = None
+        self._respawn_rng = None
+        self._pre_div_latch = False
+        self._obs_cache = None
+        self._solid = None  # per-member (fac, temp_add) of geometry_sweep
+        self._runners: dict = {}
+        dev = model.state.temp.device
+        self.state = type(stacked)(*(x.to(dev).contiguous() for x in stacked))
+        self.mask = self._finite_mask(self.state)
+        self.steps_done = torch.zeros((self.k,), dtype=torch.int32, device=dev)
+
+    # -- construction ----------------------------------------------------------
+
+    @classmethod
+    def from_seeds(cls, model, seeds, amp: float = 0.1) -> "NavierEnsemble":
+        """K members from the model's random initial condition, one seed
+        each (``init_random(amp, seed)``); the model's own state is
+        restored afterwards."""
+        keep = model.state
+        members = []
+        try:
+            for seed in seeds:
+                model.init_random(amp, seed=int(seed))
+                members.append(model.state)
+        finally:
+            model.state = keep
+        return cls(model, members)
+
+    @classmethod
+    def replicate(cls, model, k: int) -> "NavierEnsemble":
+        """K copies of the model's current state."""
+        return cls(model, [model.state] * int(k))
+
+    # -- member access ---------------------------------------------------------
+
+    @property
+    def ensemble_size(self) -> int:
+        return self.k
+
+    @property
+    def compat_key(self) -> tuple:
+        """The template model's operator-constant key: the members share
+        it, so a slot may be refilled (:meth:`set_member`) by any state of a
+        model with an equal key."""
+        return self.model.compat_key
+
+    @property
+    def observable_names(self) -> tuple:
+        return self.model.observable_names
+
+    def member_state(self, i: int):
+        """Member ``i``'s state as an unbatched state (fresh tensors)."""
+        return type(self.state)(*(x[i].clone() for x in self.state))
+
+    def fresh_member_state(self, seed: int, amp: float = 0.1):
+        """A new random-initial-condition member state from the template
+        model's generator; the model's own state is restored afterwards."""
+        keep = self.model.state
+        try:
+            self.model.init_random(float(amp), seed=int(seed))
+            return self.model.state
+        finally:
+            self.model.state = keep
+
+    def set_member(self, i: int, state) -> None:
+        """Replace member ``i``'s state, re-derive its alive flag from it
+        and zero its step count.  The ensemble's state, mask and counts
+        become fresh tensors; the captured chunks stay valid (their carry is
+        loaded from the state at each call)."""
+        fields = []
+        for x, leaf in zip(self.state, state):
+            x = x.clone()
+            x[i] = leaf
+            fields.append(x)
+        self.state = type(self.state)(*fields)
+        self.mask = self.mask.clone()
+        self.mask[i] = self.model._scan_ok(state)
+        self.steps_done = self.steps_done.clone()
+        self.steps_done[i] = 0
+        self._obs_cache = None
+
+    def get_field(self, name: str, member: int) -> np.ndarray:
+        """Physical values of one member's variable (host numpy)."""
+        space = getattr(self.model, f"{name}_space")
+        leaf = getattr(self.state, name)[member]
+        return space.gather_physical(space.backward(leaf)).cpu().numpy()
+
+    def mark_dead(self, members) -> None:
+        """Declare members dead: they freeze as diverged members do and
+        become :meth:`respawn_dead` candidates."""
+        mask = self.mask.clone()
+        for i in members:
+            mask[int(i)] = False
+        self.mask = mask
+        self._obs_cache = None
+
+    # -- status ----------------------------------------------------------------
+
+    def _finite_mask(self, stacked) -> torch.Tensor:
+        """The per-member continue criterion (the model's ``_scan_ok`` per
+        member), a ``(K,)`` bool tensor."""
+        return self.model._scan_ok(stacked, lead=1)
+
+    def alive(self) -> np.ndarray:
+        """The per-member alive mask, host bools of shape (K,)."""
+        return self.mask.cpu().numpy()
+
+    def done_ok_members(self) -> np.ndarray:
+        """Members that stopped by the model's success criterion: none for
+        the DNS, whose members stop only by divergence."""
+        return np.zeros(self.k, dtype=bool)
+
+    def state_healthy(self) -> bool:
+        """Whether the ensemble is worth keeping: not latched by a sentinel
+        catch, and some member alive or finished successfully."""
+        if self._pre_div_latch:
+            return False
+        return bool(self.alive().any() or self.done_ok_members().any())
+
+    def exit(self) -> bool:
+        """Break criterion: every member dead (one NaN member freezes and is
+        reported per member; it does not end the run), or a latched
+        pre-divergence catch of the sentinels."""
+        if self._pre_div_latch:
+            return True
+        return not bool(self.alive().any())
+
+    def get_time(self) -> float:
+        return self.time
+
+    def get_dt(self) -> float:
+        return self.dt
+
+    def reset_time(self) -> None:
+        self.time = 0.0
+
+    # -- chunks ----------------------------------------------------------------
+
+    @property
+    def _stability(self):
+        """The sentinel config lives on the template model."""
+        return self.model._stability
+
+    def set_stability(self, cfg) -> None:
+        """Arm (a :class:`..config.StabilityConfig`) or disarm (None) the
+        template model's stability sentinels for the ensemble's chunks."""
+        self.model.set_stability(cfg)
+        self.last_chunk_status = None
+        self._pre_div_latch = False
+
+    def clear_pre_divergence(self) -> None:
+        """Acknowledge a ``pre_divergence`` catch: unlatch :meth:`exit`."""
+        self._pre_div_latch = False
+
+    def _set_solids(self, fac, temp_add) -> None:
+        """Per-member penalization factors (leading K dim) for every step,
+        in place of the template model's (:func:`..workloads.geometry_sweep`);
+        the captured chunks, which hold the old ones, are dropped."""
+        self._solid = None if fac is None else (fac, temp_add)
+        self._runners.clear()
+
+    def chunk_runner(self, armed: bool | None = None) -> ChunkRunner:
+        """The runner of the plain (``armed=False``) or the sentinel chunk
+        (``True``; default: as the template model's sentinels are), built
+        at the first call: on a CUDA device that warms up every kernel
+        wrapper and captures the K-member step as a CUDA graph, so a caller
+        who wants the capture out of a timed or counted run calls this
+        first."""
+        armed = self._stability is not None if armed is None else armed
+        if armed and self._stability is None:
+            raise RuntimeError("the sentinel chunk needs set_stability(cfg) first")
+        runner = self._runners.get(armed)
+        if runner is None:
+            model = self.model
+            carry = [f.clone(memory_format=torch.contiguous_format) for f in self.state]
+            dev, k = carry[0].device, self.k
+            carry += [torch.ones((k,), dtype=torch.bool, device=dev) for _ in range(1 + armed)]
+            carry.append(torch.zeros((k,), dtype=torch.int32, device=dev))
+            carry += [torch.zeros((k,), dtype=model.dtype, device=dev) for _ in range(4 * armed)]
+            kernels = [w for ws in model.kernels().values() for w in ws]
+            step = model._advance_members_sentinels if armed else model._advance_members
+            solid = self._solid
+            runner = ChunkRunner(lambda c: step(c, solid), carry, kernels)
+            self._runners[armed] = runner
+        return runner
+
+    def _load(self, runner: ChunkRunner, *flags) -> None:
+        """Copy the state and ``flags`` (the leading scalars of the carry)
+        into the runner's carry; the rest (running maxima) are zeroed."""
+        nf = len(self.state)
+        for buf, f in zip(runner.carry[:nf], self.state):
+            buf.copy_(f)
+        rest = runner.carry[nf:]
+        for buf, f in zip(rest, flags):
+            if isinstance(f, bool):
+                buf.fill_(f)
+            else:
+                buf.copy_(f)
+        for buf in rest[len(flags):]:
+            buf.zero_()
+
+    def _unload(self, runner: ChunkRunner):
+        """Fresh tensors of the carry's state."""
+        return type(self.state)(*(t.clone() for t in runner.carry[: len(self.state)]))
+
+    def update(self) -> None:
+        self.update_n(1)
+
+    def update_n(self, n: int):
+        """Advance every alive member ``n`` steps in the bucket schedule of
+        :func:`..utils.jit.scan_buckets`; ``time`` counts the scheduled
+        steps, ``steps_done`` how far each member got.  The alive mask runs
+        through the buckets and across calls (a dead member stays dead until
+        :meth:`set_member` or :meth:`respawn_dead`).
+
+        With the template model's sentinels armed it returns the
+        :class:`..utils.governor.ChunkStatus` (also ``last_chunk_status``)
+        with each member's chunk-max CFL (``cfl_members``) and ceiling trip
+        (``pinned``); when any alive member pinned the ceiling the whole
+        chunk rolls back (state, mask, counts and time stay at its start)
+        and :meth:`exit` latches until :meth:`clear_pre_divergence`."""
+        if self._stability is not None:
+            return self._update_n_sentinels(n)
+        runner = self.chunk_runner(armed=False)
+        nf = len(self.state)
+        self._load(runner, self.mask, self.steps_done)
+        ok = runner.carry[nf]
+        for bucket in scan_buckets(n):
+            if not bool(ok.any()):
+                break  # every member dead: the rest of the chunk changes nothing
+            runner.run(bucket)
+        self.state = self._unload(runner)
+        self.mask = ok.clone()
+        self.steps_done = runner.carry[nf + 1].clone()
+        self.time += n * self.dt
+        self._obs_cache = None
+        return None
+
+    def _update_n_sentinels(self, n: int) -> ChunkStatus:
+        self._pre_div_latch = False
+        runner = self.chunk_runner(armed=True)
+        nf = len(self.state)
+        before = self.steps_done
+        self._load(runner, self.mask, True, self.steps_done)
+        fin, cok = runner.carry[nf], runner.carry[nf + 1]
+        for bucket in scan_buckets(n):
+            if not bool((fin & cok).any()):
+                break  # no member finite and under the ceiling
+            runner.run(bucket)
+        dtype = self.model.dtype
+        rows = torch.stack([t.to(dtype) for t in runner.carry[nf:]] + [before.to(dtype)])
+        fin_h, cok_h, dn_h, cflm_h, gm_h, dvm_h, kep_h, before_h = rows.cpu().numpy()
+        fin_h, cok_h = fin_h.astype(bool), cok_h.astype(bool)
+        pinned = fin_h & ~cok_h
+        pre_div = bool(pinned.any())
+        if pre_div:
+            self._pre_div_latch = True
+        else:
+            self.state = self._unload(runner)
+            self.mask = fin.clone()
+            self.steps_done = runner.carry[nf + 2].clone()
+            self.time += n * self.dt
+            self._obs_cache = None
+        delta = dn_h - before_h
+        status = ChunkStatus(
+            requested=int(n), steps_done=int(delta.max(initial=0)), finite=bool(fin_h.any()),
+            cfl_ok=not pre_div, pre_divergence=pre_div, cfl_max=float(cflm_h.max(initial=0.0)),
+            ke=float(kep_h.max(initial=0.0)), ke_growth_max=float(gm_h.max(initial=0.0)),
+            div_max=float(dvm_h.max(initial=0.0)), dt=self.dt,
+            cfl_members=tuple(float(c) for c in cflm_h), pinned=tuple(bool(p) for p in pinned))
+        self.last_chunk_status = status
+        return status
+
+    # -- recovery --------------------------------------------------------------
+
+    def respawn_dead(self, amp: float = 1e-3, seed=None) -> int:
+        """Re-seed every dead member from a healthy donor (round robin over
+        the alive members) with a small multiplicative spectral
+        perturbation, ``coeff * (1 + amp * noise)``, the noise drawn with
+        numpy's ``default_rng(seed)`` field by field (``seed`` an int or a
+        sequence of ints), or from the persistent ``respawn_seed`` stream
+        when no seed is given and one is set, as the JAX package draws it.
+        Returns the number of members respawned (0 when all are alive or
+        none is)."""
+        alive = self.alive()
+        if alive.all() or not alive.any():
+            return 0
+        if seed is None and self.respawn_seed is not None:
+            if self._respawn_rng is None:
+                self._respawn_rng = np.random.default_rng(self.respawn_seed)
+            rng = self._respawn_rng
+        else:
+            rng = np.random.default_rng(seed)
+        donors = np.flatnonzero(alive)
+        respawned = 0
+        fields = self.model._state_fields()
+        for i in np.flatnonzero(~alive):
+            donor = self.member_state(int(donors[respawned % len(donors)]))
+            leaves = []
+            for x, (_, space) in zip(donor, fields):
+                real = x.real.dtype if x.is_complex() else x.dtype
+                noise = space.place_spectral(rng.standard_normal(space.shape_spectral),
+                                             dtype=real)
+                leaves.append(x * (1.0 + amp * noise))
+            self.set_member(int(i), type(donor)(*leaves))
+            respawned += 1
+        return respawned
+
+    # -- observables -----------------------------------------------------------
+
+    def get_observables(self) -> tuple:
+        """The model's observables (``observable_names``), each a float
+        ndarray of shape (K,), fetched in one transfer and cached per state.
+        A member that diverged is frozen at its last finite state, so its
+        entries are finite but stale: liveness is :meth:`alive`."""
+        if self._obs_cache is None or self._obs_cache[0] is not self.state:
+            vals = self.model._observables(self.state).cpu().numpy()
+            self._obs_cache = (self.state, tuple(np.asarray(v, dtype=np.float64) for v in vals))
+        return self._obs_cache[1]
+
+    def eval_nu(self) -> np.ndarray:
+        return self.get_observables()[0]
+
+    def eval_nuvol(self) -> np.ndarray:
+        return self.get_observables()[1]
+
+    def eval_re(self) -> np.ndarray:
+        return self.get_observables()[2]
+
+    def div_norm(self) -> np.ndarray:
+        return self.get_observables()[3]
+
+    def callback(self) -> None:
+        """Save-boundary hook of :func:`..utils.integrate.integrate`: append
+        every member's observables and alive flag to ``diagnostics`` and
+        print one aggregate line (ensemble snapshots are not ported yet)."""
+        t = self.time
+        vals = self.get_observables()
+        alive = self.alive()
+        nu, nuvol, re, div = vals[:4]
+        for key, val in (("time", [t] * self.k), ("nu", nu), ("nuvol", nuvol), ("re", re),
+                         ("div", div), *zip(self.observable_names[4:], vals[4:]),
+                         ("alive", alive.astype(float))):
+            self.diagnostics.setdefault(key, []).append([float(v) for v in val])
+        n_alive = int(alive.sum())
+        if n_alive:
+            live = np.asarray(nu)[alive]
+            nu_info = f"Nu = {live.mean():5.3e} [{live.min():5.3e}, {live.max():5.3e}]"
+        else:
+            nu_info = "Nu = --- (all members diverged)"
+        print(f"time = {t:9.3f}      alive = {n_alive}/{self.k}      {nu_info}")

@@ -47,6 +47,12 @@ pencil-transpose kernel of :mod:`..ops.ring_transpose`, and every banded
 solve one launch for all ranks.  The JAX package builds no fused stages
 under a mesh, so the fused kernels are refused there.
 
+The step, the sentinels and the observables also take states whose fields
+carry a leading member dim, the K members of an ensemble
+(:class:`.ensemble.NavierEnsemble`): every operator, solver and kernel
+launch then serves all K members (the JAX package's ``jax.vmap`` of the
+step), and the reductions run per member.
+
 Each kernel runs as hand-written CUDA on a CUDA device and as its plain
 PyTorch version on the CPU.  ``update_n`` advances chunks of steps with
 the reference's divergence freeze and, when ``set_stability`` armed them,
@@ -165,6 +171,9 @@ class Navier2D(CampaignModelBase):
     fields over its ranks (dense route only; the device is the mesh's).
     ``scenario``: the step modifiers (see the module docstring)."""
 
+    #: the model kind prefix of :attr:`compat_key`
+    MODEL_KIND = "dns"
+
     @property
     def observable_names(self) -> tuple:
         """The observables' names: a passive-scalar scenario appends
@@ -194,6 +203,9 @@ class Navier2D(CampaignModelBase):
                 raise ValueError(f"device {device} is not the mesh's {mesh.device}")
             device = mesh.device
         self.mesh = mesh
+        #: dims of one state's field: (nx, ny), or (ranks, ...) pencils on a
+        #: mesh; a state with more carries a leading member dim
+        self.field_ndim = 2 if mesh is None else 3
         self.conv_kernel, self.step_kernel = conv_kernel, step_kernel
         self.device = config.resolve_device(device)
         self.dtype = config.check_dtype(dtype)
@@ -283,6 +295,21 @@ class Navier2D(CampaignModelBase):
         model = cls(nx, ny, ra, pr, dt, aspect, bc, periodic=True, **kwargs)
         model.init_random(0.1)
         return model
+
+    @property
+    def compat_key(self) -> tuple:
+        """The operator-constant key, as the JAX package's: the model kind,
+        grid, physics parameters, dt, geometry, BC family and scenario
+        signature.  Models of equal keys step with the same constants, so
+        their states can share one ensemble."""
+        return (self.MODEL_KIND, int(self.nx), int(self.ny), float(self.params["ra"]),
+                float(self.params["pr"]), float(self.dt), float(self.scale[0]), str(self.bc),
+                bool(self.periodic), scenario_signature(self._scenario))
+
+    def members_of(self, state) -> int:
+        """The leading member dims of ``state`` (0 for one state, 1 for an
+        ensemble's stacked members)."""
+        return state.temp.ndim - self.field_ndim
 
     def kernels(self) -> dict:
         """``{kernel name: [wrappers]}`` of the kernels this model's step
@@ -519,12 +546,15 @@ class Navier2D(CampaignModelBase):
             total = total + ux * self._tempbc_dx + uy * self._tempbc_dy
         return self.field_space.forward(total) * self._dealias
 
-    def _step(self, state: NavierState, with_sentinels: bool = False):
+    def _step(self, state: NavierState, with_sentinels: bool = False, solid=None):
         """One step.  ``with_sentinels``: return ``(state, (cfl, ke,
         div_norm))`` (:meth:`_sentinels`), read from arrays the step builds
-        anyway, so the state's arithmetic is the plain step's."""
+        anyway, so the state's arithmetic is the plain step's.  ``solid``:
+        the penalization factors ``(fac, temp_add)`` to apply instead of the
+        model's own (:meth:`_penalize`).  A member-stacked state steps every
+        member, the sentinels then one per member."""
         if self._stages is None:
-            return self._step_dense(state, with_sentinels)
+            return self._step_dense(state, with_sentinels, solid)
         st = self._stages
         sp_u, sp_v, sp_t, sp_q = self.velx_space, self.vely_space, self.temp_space, self.pseu_space
         temp, velx, vely, pres = state.temp, state.velx, state.vely, state.pres
@@ -547,10 +577,10 @@ class Navier2D(CampaignModelBase):
         if self._scalar_active():
             fields.append(st["scal"].apply(
                 state.scal, self._conv(ux, uy, sp_t, state.scal, with_bc=True)))
-        state_n = self._penalize(type(state)(*fields))
+        state_n = self._penalize(type(state)(*fields), solid)
         return (state_n, self._sentinels(ux, uy, div)) if with_sentinels else state_n
 
-    def _step_dense(self, state: NavierState, with_sentinels: bool = False):
+    def _step_dense(self, state: NavierState, with_sentinels: bool = False, solid=None):
         """The JAX package's default step: right-hand sides in ortho space,
         then the implicit solves through the solver objects."""
         sp_u, sp_v, sp_t = self.velx_space, self.vely_space, self.temp_space
@@ -598,17 +628,21 @@ class Navier2D(CampaignModelBase):
             rhs = sp_t.to_ortho(state.scal) + kc_over_ka * self._tempbc_diff
             rhs = rhs - dt * self._conv(ux, uy, sp_t, state.scal, with_bc=True)
             fields.append(self.solver_scal.solve(rhs))
-        state_n = self._penalize(type(state)(*fields))
+        state_n = self._penalize(type(state)(*fields), solid)
         return (state_n, self._sentinels(ux, uy, div)) if with_sentinels else state_n
 
-    def _penalize(self, state):
+    def _penalize(self, state, solid=None):
         """The implicit pointwise Brinkman penalization of :meth:`set_solid`
         on a stepped state: ``forward(backward(v) * fac)`` on the
         velocities, ``+ temp_add`` on the temperature and the scalar (the
-        pressures are untouched); ``state`` itself without an obstacle."""
-        if self._solid is None:
-            return state
-        fac, add = self._solid["fac"], self._solid["temp_add"]
+        pressures are untouched); ``state`` itself without an obstacle.
+        ``solid``: ``(fac, temp_add)`` instead of the model's own (an
+        ensemble's per-member factors carry a leading member dim)."""
+        if solid is None:
+            if self._solid is None:
+                return state
+            solid = (self._solid["fac"], self._solid["temp_add"])
+        fac, add = solid
         sp_u, sp_t = self.velx_space, self.temp_space
         out = {name: sp_u.forward(sp_u.backward(getattr(state, name)) * fac).contiguous()
                for name in ("velx", "vely")}
@@ -623,19 +657,26 @@ class Navier2D(CampaignModelBase):
         kinetic energy ``0.5 <ux^2 + uy^2>`` of the consumed state's
         physical convection velocities, and the norm of the uncorrected
         divergence.  On a mesh the sums run across the ranks and the pad
-        adds nothing (zero weights and inverse spacings)."""
+        adds nothing (zero weights and inverse spacings).  Member-stacked
+        fields give one of each per member, ``(K,)`` tensors."""
         sp_f = self.field_space
-        cfl = self.dt * torch.max(torch.abs(ux) * self._inv_dx + torch.abs(uy) * self._inv_dy)
-        ke = 0.5 * sp_f.weighted_sum(ux**2 + uy**2, self._w_vol)
+        lead = ux.ndim - self.field_ndim
+        speed = torch.abs(ux) * self._inv_dx + torch.abs(uy) * self._inv_dy
+        if lead:
+            cfl = self.dt * speed.reshape(*speed.shape[:lead], -1).amax(dim=-1)
+        else:
+            cfl = self.dt * torch.max(speed)
+        ke = 0.5 * sp_f.weighted_sum(ux**2 + uy**2, self._w_vol, lead)
         return cfl, ke, self._norm(div)
 
     def _norm(self, v: torch.Tensor) -> torch.Tensor:
         """The Frobenius norm of a spectral field (of its real and
         imaginary parts in the periodic cell; on a mesh summed across the
-        ranks)."""
+        ranks); one per member of a member-stacked field."""
+        lead = v.ndim - self.field_ndim
         if v.is_complex():
             v = torch.view_as_real(v)
-        return torch.sqrt(self.field_space.weighted_sum(v, v))
+        return torch.sqrt(self.field_space.weighted_sum(v, v, lead))
 
     def _project(self, pseu: torch.Tensor, axis: int) -> torch.Tensor:
         """The pressure-projection correction of the velocity along
@@ -653,17 +694,19 @@ class Navier2D(CampaignModelBase):
         """(Nu, Nuvol, Re, |div|[, Sherwood]) as one tensor on the model's device.  Every
         sum is the space's ``weighted_sum``: on a mesh per rank, then across
         ranks (:func:`..parallel.decomp.all_gather_sum`), the pad with
-        weight 0."""
+        weight 0.  A member-stacked state gives one column per member,
+        ``(observables, K)``."""
         sp_f = self.field_space
         scale = self.scale
         nu, ka = self.params["nu"], self.params["ka"]
+        lead = self.members_of(state)
 
         def avg(v):
-            return sp_f.weighted_sum(v, self._w_vol)
+            return sp_f.weighted_sum(v, self._w_vol, lead)
 
         def plates(v):  # x-averages at the bottom and top plates, y = 0 and ny - 1
-            return tuple(sp_f.weighted_sum(v[..., j], self._w_plate[..., j]) * (-2.0 / scale[1])
-                         for j in (0, self.ny - 1))
+            return tuple(sp_f.weighted_sum(v[..., j], self._w_plate[..., j], lead)
+                         * (-2.0 / scale[1]) for j in (0, self.ny - 1))
 
         that = self.temp_space.to_ortho(state.temp) + self.tempbc_ortho
         dtdy_p = sp_f.backward_gradient(that, (0, 1), None)
@@ -682,7 +725,9 @@ class Navier2D(CampaignModelBase):
             return torch.stack([nu_plate, nu_vol, re, dnorm])
         # the scalar's finiteness folds into |div|, the NaN detector (a
         # NaN in the scalar alone never reaches the flow)
-        dnorm = dnorm + 0.0 * torch.sum(torch.abs(state.scal))
+        scal_sum = (torch.sum(torch.abs(state.scal)) if not lead else
+                    torch.abs(state.scal).reshape(*state.scal.shape[:lead], -1).sum(dim=-1))
+        dnorm = dnorm + 0.0 * scal_sum
         # Sherwood: the scalar's plate flux, as Nu is the temperature's
         # (the scalar shares its space and BC lift)
         shat = self.temp_space.to_ortho(state.scal) + self.tempbc_ortho

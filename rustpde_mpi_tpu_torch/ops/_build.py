@@ -43,8 +43,10 @@ class RpJob(ctypes.Structure):
     """Mirror of ``struct RpJob`` in ``csrc/fused_stage.cu``: one output of
     one launch of the generic tiled GEMM,
     ``C[:M, :N] = ((sum_t A[t] @ B[t]) * E + F) * mask``, zero elsewhere in
-    ``C[:Mout, :Nout]``; bit ``2t`` of ``vec`` says every row of ``A[t]``
-    starts on 16 bytes, bit ``2t + 1`` the same of ``B[t]``."""
+    ``C[:Mout, :Nout]``, for each member of the launch (member ``m`` reads
+    an operand ``X`` at ``X + m * sX``, ``sX`` 0 for an operand the members
+    share); bit ``2t`` of ``vec`` says every row of ``A[t]`` starts on 16
+    bytes, bit ``2t + 1`` the same of ``B[t]``."""
 
     _fields_ = [
         ("C", ctypes.c_void_p),
@@ -53,6 +55,12 @@ class RpJob(ctypes.Structure):
         ("mask", ctypes.c_void_p),
         ("A", ctypes.c_void_p * MAX_TERMS),
         ("B", ctypes.c_void_p * MAX_TERMS),
+        ("sA", ctypes.c_longlong * MAX_TERMS),
+        ("sB", ctypes.c_longlong * MAX_TERMS),
+        ("sC", ctypes.c_longlong),
+        ("sE", ctypes.c_longlong),
+        ("sF", ctypes.c_longlong),
+        ("sM", ctypes.c_longlong),
         ("M", ctypes.c_int),
         ("N", ctypes.c_int),
         ("Mout", ctypes.c_int),
@@ -71,12 +79,13 @@ class RpJob(ctypes.Structure):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _P], _I)
+_JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _I, _P], _I)
 _L = ctypes.c_longlong
-_DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P], _I)
+_DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _L, _L, _L,
+              _P], _I)
 _BANDED_SIG = ([_I] * 8 + [_P, _P, _I, _L, _L, _I, _P, _L, _L, _L, _P, _L, _L, _L, _I, _L, _L,
-                          _P], _I)
-_RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _P], _I)
+                          _I, _P], _I)
+_RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _I, _L, _L, _P], _I)
 _SIGNATURES = {
     "banded_solve": {
         "rp_banded_solve_f64": _BANDED_SIG,
@@ -208,39 +217,45 @@ def gemm(dtype):
 
 
 def rows_aligned(*xs) -> bool:
-    """Whether every row of each 2-D tensor ``xs`` starts on ``ROW_ALIGN``
-    bytes (its base pointer and its row stride), so a kernel may copy it 16
-    bytes at a time; otherwise it copies one element at a time."""
-    return all(x.data_ptr() % ROW_ALIGN == 0 and (x.stride(0) * x.element_size()) % ROW_ALIGN == 0
+    """Whether every row of each 2-D (or member-stacked 3-D) tensor ``xs``
+    starts on ``ROW_ALIGN`` bytes (its base pointer, its row stride and its
+    member stride), so a kernel may copy it 16 bytes at a time; otherwise
+    it copies one element at a time."""
+    return all(x.data_ptr() % ROW_ALIGN == 0
+               and all(x.stride(d) * x.element_size() % ROW_ALIGN == 0 for d in range(x.ndim - 1))
                for x in xs)
 
 
-def padded(rows, cols, *, device, dtype) -> torch.Tensor:
-    """An uninitialised ``rows x cols`` tensor whose rows start on
-    ``ROW_ALIGN`` bytes: a view of a buffer whose row length is ``cols``
-    rounded up (the kernels' scratch and operator constants)."""
+def padded(*shape, device, dtype) -> torch.Tensor:
+    """An uninitialised tensor of ``shape`` (``rows x cols``, or ``members
+    x rows x cols``) whose rows start on ``ROW_ALIGN`` bytes: a view of a
+    buffer whose row length is ``cols`` rounded up (the kernels' scratch and
+    operator constants)."""
     per = ROW_ALIGN // dtype.itemsize
-    return torch.empty((rows, -(-cols // per) * per), device=device, dtype=dtype)[:, :cols]
+    *lead, cols = shape
+    return torch.empty((*lead, -(-cols // per) * per), device=device, dtype=dtype)[..., :cols]
 
 
 def stack_planes(x) -> torch.Tensor:
-    """The kernels' real form of a complex 2-D tensor ``x`` (m rows): its
-    real rows then its imaginary rows, ``[Re; Im]`` (2m rows), in a
-    :func:`padded` buffer, written by one strided copy of its real view."""
-    m, k = x.shape
+    """The kernels' real form of a complex 2-D tensor ``x`` (m rows), or of
+    each member of a member-stacked 3-D one: its real rows then its
+    imaginary rows, ``[Re; Im]`` (2m rows), in a :func:`padded` buffer,
+    written by one strided copy of its real view for all members."""
+    *lead, m, k = x.shape
     dtype = x.real.dtype
-    out = padded(2 * m, k, device=x.device, dtype=dtype)
-    planes = out.as_strided((2, m, k), (m * out.stride(0), out.stride(0), 1))
-    planes.copy_(torch.view_as_real(x).permute(2, 0, 1))
+    out = padded(*lead, 2 * m, k, device=x.device, dtype=dtype)
+    rs = out.stride(-2)
+    planes = out.as_strided((*lead, 2, m, k), (*out.stride()[:-2], m * rs, rs, 1))
+    planes.copy_(torch.view_as_real(x).movedim(-1, -3))
     return out
 
 
 def unstack_planes(o) -> torch.Tensor:
     """The complex tensor whose ``[Re; Im]`` rows :func:`stack_planes`
     gives: ``o``'s first half of rows as the real parts, the second as the
-    imaginary ones (one copy)."""
-    m = o.shape[0] // 2
-    return torch.complex(o[:m], o[m:])
+    imaginary ones (one copy, for all members)."""
+    m = o.shape[-2] // 2
+    return torch.complex(o[..., :m, :], o[..., m:, :])
 
 
 def aligned(x) -> torch.Tensor:
@@ -253,44 +268,69 @@ def aligned(x) -> torch.Tensor:
     return out
 
 
-def job(out, terms, *, M, N, Mout=None, Nout=None, E=None, F=None, mask=None) -> RpJob:
+def _member_stride(x, members: int) -> int:
+    """The member stride of a job operand: 0 for a 2-D one (the members
+    share it), its leading stride for a member-stacked 3-D one."""
+    if x.ndim == 2:
+        return 0
+    if x.shape[0] != members:
+        raise ValueError(f"a member-stacked operand of {x.shape[0]} members in a launch of "
+                         f"{members}")
+    return x.stride(0) if members > 1 else 0
+
+
+def job(out, terms, *, M, N, Mout=None, Nout=None, E=None, F=None, mask=None,
+        members: int = 1) -> RpJob:
     """One :class:`RpJob` from tensors: ``terms`` is a list of ``(A, B)``
     row-major tensors (unit column stride, any row stride) with ``A`` of
     ``M`` rows and ``B`` of ``N`` columns; ``E``, ``F`` and ``mask`` are
-    ``M x N``-or-larger tensors.  ``vec`` gets the bit of each term operand
-    whose rows all start on 16 bytes (:func:`rows_aligned`)."""
+    ``M x N``-or-larger tensors.  With ``members`` K, an operand may carry a
+    leading member dim of K (3-D: each member reads its own) or none (2-D:
+    the members share it); ``out`` carries one when K > 1.  ``vec`` gets the
+    bit of each term operand whose rows all start on 16 bytes
+    (:func:`rows_aligned`)."""
     if not 1 <= len(terms) <= MAX_TERMS:
         raise ValueError(f"a job sums 1..{MAX_TERMS} products, got {len(terms)}")
     operands = [out, E, F, mask] + [x for pair in terms for x in pair]
-    if any(x is not None and (x.ndim != 2 or x.stride(1) != 1) for x in operands):
-        raise ValueError("kernel operands must be 2-D with unit column stride")
+    if any(x is not None and (x.ndim not in (2, 3) or x.stride(-1) != 1) for x in operands):
+        raise ValueError("kernel operands must be 2-D (or member-stacked 3-D) with unit "
+                         "column stride")
+    if members > 1 and out.ndim != 3:
+        raise ValueError("a launch of several members writes a member-stacked output")
     j = RpJob()
     j.C = out.data_ptr()
+    j.sC = _member_stride(out, members)
     j.M, j.N = int(M), int(N)
     j.Mout = int(M if Mout is None else Mout)
     j.Nout = int(N if Nout is None else Nout)
     j.nt = len(terms)
-    j.ldc = out.stride(0)
+    j.ldc = out.stride(-2)
     for t, (a, b) in enumerate(terms):
-        if a.shape[0] < M or b.shape[1] < N or a.shape[1] != b.shape[0]:
+        if a.shape[-2] < M or b.shape[-1] < N or a.shape[-1] != b.shape[-2]:
             raise ValueError(f"term {t}: shapes {tuple(a.shape)} @ {tuple(b.shape)} do not give {M}x{N}")
-        if a.shape[1] < 1:
+        if a.shape[-1] < 1:
             raise ValueError(f"term {t}: a product of depth 0")
         j.A[t], j.B[t] = a.data_ptr(), b.data_ptr()
-        j.K[t], j.lda[t], j.ldb[t] = a.shape[1], a.stride(0), b.stride(0)
+        j.sA[t], j.sB[t] = _member_stride(a, members), _member_stride(b, members)
+        j.K[t], j.lda[t], j.ldb[t] = a.shape[-1], a.stride(-2), b.stride(-2)
         j.vec |= rows_aligned(a) << (2 * t) | rows_aligned(b) << (2 * t + 1)
-    for name, ld, arr in (("E", "lde", E), ("F", "ldf", F), ("mask", "ldm", mask)):
+    for name, ld, st, arr in (("E", "lde", "sE", E), ("F", "ldf", "sF", F),
+                              ("mask", "ldm", "sM", mask)):
         if arr is not None:
-            if arr.shape[0] < M or arr.shape[1] < N:
+            if arr.shape[-2] < M or arr.shape[-1] < N:
                 raise ValueError(f"epilogue operand {name} is smaller than {M}x{N}")
             setattr(j, name, arr.data_ptr())
-            setattr(j, ld, arr.stride(0))
+            setattr(j, ld, arr.stride(-2))
+            setattr(j, st, _member_stride(arr, members))
     return j
 
 
-def launch_jobs(fn, jobs, device) -> None:
-    """Launch the generic kernel entry point ``fn`` on ``jobs`` on
-    ``device``."""
+def launch_jobs(fn, jobs, device, members: int = 1) -> None:
+    """Launch the generic kernel entry point ``fn`` on ``jobs`` for
+    ``members`` members (every job's member strides set by :func:`job`) on
+    ``device``: one grid launch."""
     if not 1 <= len(jobs) <= MAX_JOBS:
         raise ValueError(f"a launch takes 1..{MAX_JOBS} jobs, got {len(jobs)}")
-    call(fn, device, (RpJob * len(jobs))(*jobs), len(jobs))
+    if members < 1:
+        raise ValueError(f"a launch of {members} members")
+    call(fn, device, (RpJob * len(jobs))(*jobs), len(jobs), int(members))

@@ -120,16 +120,22 @@ class BandedSolver:
     def from_dense(cls, dense, p: int, q: int, *, device, dtype) -> "BandedSolver":
         return cls(*banded_lu_factor(dense, p, q), device=device, dtype=dtype)
 
-    def solve(self, b: torch.Tensor, axis: int, factor_batch_stride: int = 0) -> torch.Tensor:
+    def solve(self, b: torch.Tensor, axis: int, factor_batch_stride: int = 0,
+              factor_batch_period: int = 0) -> torch.Tensor:
         """The solve along ``axis``, as one kernel launch on a strided
-        ``(batch, n, lanes)`` view of ``b``.  ``factor_batch_stride``: see
+        ``(batch, n, lanes)`` view of ``b`` (every dim before ``axis``, a
+        member dim included, goes into the batch).  ``factor_batch_stride``
+        and ``factor_batch_period``: see
         :meth:`..ops.banded_solve.BandedSolve.apply`."""
-        return self._along(lambda v: self.kernel.apply(v, factor_batch_stride), b, axis)
+        return self._along(
+            lambda v: self.kernel.apply(v, factor_batch_stride, factor_batch_period), b, axis)
 
-    def plain(self, b: torch.Tensor, axis: int, factor_batch_stride: int = 0) -> torch.Tensor:
+    def plain(self, b: torch.Tensor, axis: int, factor_batch_stride: int = 0,
+              factor_batch_period: int = 0) -> torch.Tensor:
         """The same solve through the kernel's plain PyTorch version, on
         any device (the kernel's yardstick on the card)."""
-        return self._along(lambda v: self.kernel.plain(v, factor_batch_stride), b, axis)
+        return self._along(
+            lambda v: self.kernel.plain(v, factor_batch_stride, factor_batch_period), b, axis)
 
     @classmethod
     def _along(cls, fn, b: torch.Tensor, axis: int) -> torch.Tensor:

@@ -32,7 +32,11 @@ Per-lane factors may be read with a factor batch stride ``k``: lane ``l`` of
 batch ``j`` then solves with factor set ``j * k + l``.  The
 pencil-decomposed Poisson solve uses it to solve the y-pencils of all ranks
 of a mesh, each holding its own slice of the eigenvalue lanes, in one
-launch.  A second batch level, ``(planes, batch, n, lanes)``, gives every
+launch.  A factor batch period ``P`` makes batch ``j`` read the sets of
+batch ``j mod P``: an ensemble of K members (the JAX package's ``jax.vmap``
+of the solve) stacks its members' pencils, K x P ranks, into the batch, and
+each member's rank ``r`` reads rank ``r``'s sets, so K members are one
+launch too.  A second batch level, ``(planes, batch, n, lanes)``, gives every
 plane the same factor sets: a complex right-hand side's real and imaginary
 parts, so that the periodic cell's per-mode solve on complex y-pencils is
 one launch too.
@@ -219,7 +223,7 @@ class BandedSolve:
 
     # -- the solve --------------------------------------------------------
 
-    def _check(self, b, factor_batch_stride: int) -> None:
+    def _check(self, b, factor_batch_stride: int, period: int) -> None:
         if b.device != self.device or b.dtype != self.dtype:
             raise ValueError(f"banded solve input: {b.dtype} on {b.device}, "
                              f"expected {self.dtype} on {self.device}")
@@ -230,10 +234,16 @@ class BandedSolve:
             raise ValueError("a factor batch stride needs per-lane factors")
         if factor_batch_stride < 0:
             raise ValueError(f"negative factor batch stride {factor_batch_stride}")
+        if period < 0 or (period and not factor_batch_stride):
+            raise ValueError(f"a factor batch period of {period} needs a factor batch stride")
         if self.per_lane:
             nb, lanes = b.shape[-3], b.shape[-1]
+            if period and nb % period:
+                raise ValueError(f"banded solve input: {nb} batch entries are no whole number "
+                                 f"of factor batch periods of {period}")
             if factor_batch_stride:
-                fits = (nb - 1) * factor_batch_stride + lanes <= self.lanes
+                sets = min(nb, period) if period else nb
+                fits = (sets - 1) * factor_batch_stride + lanes <= self.lanes
             else:
                 fits = lanes == self.lanes
             if not fits:
@@ -241,29 +251,29 @@ class BandedSolve:
                                  f"batch stride {factor_batch_stride}, the factors "
                                  f"hold {self.lanes}")
 
-    def apply(self, b, factor_batch_stride: int = 0) -> torch.Tensor:
+    def apply(self, b, factor_batch_stride: int = 0, factor_batch_period: int = 0) -> torch.Tensor:
         """Solve along the rows of ``b`` ``(batch, n, lanes)`` or ``(planes,
         batch, n, lanes)``: the CUDA kernel on a CUDA device (the result has
         ``b``'s strides), the plain recurrence on the CPU.
         ``factor_batch_stride`` (per-lane factors only): lane ``l`` of batch
-        ``j`` takes factor set ``j * stride + l``; 0 gives every batch the
-        same ``lanes`` sets.  Every plane takes the same sets as the
-        others."""
-        self._check(b, factor_batch_stride)
+        ``j`` takes factor set ``(j mod factor_batch_period) * stride + l``
+        (no period: ``j * stride + l``); 0 gives every batch the same
+        ``lanes`` sets.  Every plane takes the same sets as the others."""
+        self._check(b, factor_batch_stride, factor_batch_period)
         if self.device.type == "cpu":
-            return self.plain(b, factor_batch_stride)
+            return self.plain(b, factor_batch_stride, factor_batch_period)
         if self.device.type != "cuda":
             raise RuntimeError(f"no banded-solve kernel for device {self.device}")
-        out = self._launch(b, factor_batch_stride)
+        out = self._launch(b, factor_batch_stride, factor_batch_period)
         self.launches += 1
         return out
 
-    def plain(self, b, factor_batch_stride: int = 0) -> torch.Tensor:
+    def plain(self, b, factor_batch_stride: int = 0, factor_batch_period: int = 0) -> torch.Tensor:
         """The recurrence in plain PyTorch, row by row and in place on one
         ``(n, [planes,] batch, lanes)`` copy of ``b``, vectorised over
         planes, batch and lanes (the CPU path and the kernel's
         yardstick)."""
-        idx = self._sets(b, factor_batch_stride)
+        idx = self._sets(b, factor_batch_stride, factor_batch_period)
         if idx is not None:
             coefs = self._row_coefs(self.lower[..., idx], self.upper[..., idx])
         else:
@@ -274,12 +284,13 @@ class BandedSolve:
         _substitute(x.unbind(0), *coefs)
         return x.movedim(0, -2)
 
-    def plain_chains(self, b, factor_batch_stride: int = 0) -> torch.Tensor:
+    def plain_chains(self, b, factor_batch_stride: int = 0,
+                     factor_batch_period: int = 0) -> torch.Tensor:
         """The same recurrence from the kernel's chain layout: each of the
         path's systems (rows ``s, s + systems, ...``) solved on its own with
         its chain factors, the terms that are zero in every lane left out as
         in :meth:`plain` (whose result it equals bit for bit)."""
-        idx = self._sets(b, factor_batch_stride)
+        idx = self._sets(b, factor_batch_stride, factor_batch_period)
         low, upp = self.chain_lower, self.chain_upper[:-1]
         if idx is not None:
             low, upp = low[..., idx], upp[..., idx]
@@ -291,14 +302,16 @@ class BandedSolve:
             _substitute(rows, *_coef_lists(low[:, : len(rows), s], upp[:, : len(rows), s]))
         return x.movedim(0, -2)
 
-    def _sets(self, b, factor_batch_stride: int):
+    def _sets(self, b, factor_batch_stride: int, period: int = 0):
         """``(batch, lanes)`` factor-set index of each lane of ``b`` under a
-        factor batch stride, or None without one."""
+        factor batch stride (and period), or None without one."""
         if not factor_batch_stride:
             return None
         nb, _, lanes = b.shape[-3:]
-        return (torch.arange(nb, device=self.device)[:, None] * factor_batch_stride
-                + torch.arange(lanes, device=self.device)[None, :])
+        batch = torch.arange(nb, device=self.device)
+        if period:
+            batch = batch % period
+        return batch[:, None] * factor_batch_stride + torch.arange(lanes, device=self.device)[None, :]
 
     def _row_coefs(self, lower=None, upper=None):
         """Per row of the factors ``lower`` ``(p, n, ...)`` and ``upper``
@@ -313,7 +326,7 @@ class BandedSolve:
         upper = self.upper if upper is None else upper
         return _coef_lists(lower, upper)
 
-    def _launch(self, b, factor_batch_stride: int) -> torch.Tensor:
+    def _launch(self, b, factor_batch_stride: int, period: int = 0) -> torch.Tensor:
         if max(self.p, self.q) > MAX_BAND:
             raise ValueError(f"the banded kernel takes p, q <= {MAX_BAND}, got {self.p}, {self.q}")
         if self.tile_lanes is None:
@@ -331,7 +344,8 @@ class BandedSolve:
                     self.tile_lanes, int(vector_copies(b, self.tile_lanes)),
                     low.data_ptr(), upp.data_ptr(), int(self.per_lane), self.lanes or 1,
                     factor_batch_stride, low.shape[1], b.data_ptr(), *b4.stride()[1:],
-                    x.data_ptr(), *x4.stride()[1:], planes, b4.stride(0), x4.stride(0))
+                    x.data_ptr(), *x4.stride()[1:], planes, b4.stride(0), x4.stride(0),
+                    period or nb)
         return x
 
 

@@ -20,6 +20,12 @@ halves on the way out, as the JAX kernel's wrapper does
 (``pallas_conv.py:284-316``).  The stacking and the reassembly are one
 copy each a launch.
 
+``ux``, ``uy`` and ``vhat`` may carry a leading member dim (an ensemble of
+K states of one model): the chain then runs for every member, the operator
+matrices and the BC gradients shared, each of the four launches serving all
+K members (the JAX package's ``jax.vmap`` over ``pallas_call``), and the
+stacking and the reassembly stay one copy each for all members.
+
 On a CUDA tensor :meth:`FusedConv.apply` runs the hand-written
 kernels of ``csrc/fused_conv.cu`` (four launches, three of them of the
 generic GEMM of ``csrc/fused_stage.cu``; see fused_conv.cu) and adds
@@ -88,24 +94,32 @@ class FusedConv:
         fwd = 2.0 * self.nx * self.ny * self.ky + 2.0 * self.kx * self.nx * self.ky
         return syn + fwd
 
-    def bytes_moved(self, with_bc: bool) -> float:
-        """Bytes one application must move at least: operator matrices and
-        inputs read once, the spectral output written once (a complex one
-        as its real and imaginary parts)."""
+    def bytes_moved(self, with_bc: bool, members: int = 1) -> float:
+        """Bytes one application to ``members`` members must move at least:
+        operator matrices (and the BC gradients) read once, each member's
+        inputs read once and its spectral output written once (a complex
+        one as its real and imaginary parts)."""
         mats = sum(m.numel() for m in (self.gx1, self.gx0, self.gy0t, self.gy1t, self.fx, self.fyt))
-        phys = self.nx * self.ny * (4 if with_bc else 2)
+        phys = self.nx * self.ny * (2 * members + (2 if with_bc else 0))
         out = self.out_shape[0] * self.out_shape[1] * (2 if self.complex else 1)
-        n = mats + phys + self.mx * self.my + out
+        n = mats + phys + members * (self.mx * self.my + out)
         return float(n) * torch.finfo(self.dtype).bits / 8
 
     # -- the chain --------------------------------------------------------
 
-    def _check(self, ux, uy, vhat, bc_dx, bc_dy) -> None:
+    def _check(self, ux, uy, vhat, bc_dx, bc_dy) -> tuple:
+        """Validate the inputs; returns the leading member shape of ``ux``,
+        ``uy`` and ``vhat`` (``()`` or ``(K,)``; the BC gradients are
+        shared)."""
         if (bc_dx is None) != (bc_dy is None):
             raise ValueError("pass both bc derivative fields or neither")
+        lead = tuple(vhat.shape[:-2])
+        if len(lead) > 1:
+            raise ValueError(f"conv input vhat: at most one member dim, got shape "
+                             f"{tuple(vhat.shape)}")
         mx = self.mx // 2 if self.complex else self.mx
-        args = [("ux", ux, (self.nx, self.ny)), ("uy", uy, (self.nx, self.ny)),
-                ("vhat", vhat, (mx, self.my))]
+        args = [("ux", ux, lead + (self.nx, self.ny)), ("uy", uy, lead + (self.nx, self.ny)),
+                ("vhat", vhat, lead + (mx, self.my))]
         if bc_dx is not None:
             args += [("bc_dx", bc_dx, (self.nx, self.ny)), ("bc_dy", bc_dy, (self.nx, self.ny))]
         for name, x, shape in args:
@@ -115,17 +129,19 @@ class FusedConv:
                                  f"expected {want} on {self.device}")
             if tuple(x.shape) != shape:
                 raise ValueError(f"conv input {name}: shape {tuple(x.shape)}, expected {shape}")
+        return lead
 
     def apply(self, ux, uy, vhat, bc_dx=None, bc_dy=None) -> torch.Tensor:
         """The dealiased convection term: the CUDA kernels on a CUDA device,
-        the plain chain on the CPU."""
-        self._check(ux, uy, vhat, bc_dx, bc_dy)
+        the plain chain on the CPU; member-stacked inputs run every member,
+        each launch serving all of them."""
+        lead = self._check(ux, uy, vhat, bc_dx, bc_dy)
         if self.device.type == "cpu":
             return self.plain(ux, uy, vhat, bc_dx, bc_dy)
         if self.device.type != "cuda":
             raise RuntimeError(f"no fused-conv kernel for device {self.device}")
         bcs = (None, None) if bc_dx is None else (bc_dx.contiguous(), bc_dy.contiguous())
-        out = self._launch(ux.contiguous(), uy.contiguous(), self._stack(vhat), *bcs)
+        out = self._launch(ux.contiguous(), uy.contiguous(), self._stack(vhat), *bcs, lead=lead)
         self.launches += 1
         return out
 
@@ -148,53 +164,62 @@ class FusedConv:
 
     def _unstack(self, kept) -> torch.Tensor:
         """The output from the kept block ``kept`` (kx x ky real rows; a
-        complex output's Re rows then Im rows), zero elsewhere."""
-        out = torch.zeros(self.out_shape, device=self.device, dtype=self.out_dtype)
+        complex output's Re rows then Im rows; a member dim in front),
+        zero elsewhere."""
+        lead = tuple(kept.shape[:-2])
+        out = torch.zeros(lead + tuple(self.out_shape), device=self.device, dtype=self.out_dtype)
         if self.complex:
             kc = self.kx // 2
-            torch.view_as_real(out)[:kc, : self.ky].copy_(
-                kept.view(2, kc, self.ky).permute(1, 2, 0))
+            torch.view_as_real(out)[..., :kc, : self.ky, :].copy_(
+                kept.view(*lead, 2, kc, self.ky).movedim(-3, -1))
         else:
-            out[: self.kx, : self.ky] = kept
+            out[..., : self.kx, : self.ky] = kept
         return out
 
-    def _launch(self, ux, uy, vhat, bc_dx, bc_dy) -> torch.Tensor:
+    def _launch(self, ux, uy, vhat, bc_dx, bc_dy, lead=()) -> torch.Tensor:
+        """The chain's four launches; ``lead`` is ``(K,)`` for K members
+        (every scratch and the output carry the member dim)."""
         lib = _build.load("fused_conv")
         gemm = _build.gemm(self.dtype)
         dual = lib.rp_conv_dual_f64 if self.dtype == torch.float64 else lib.rp_conv_dual_f32
         kw = dict(device=self.device, dtype=self.dtype)
         nx, ny, my = self.nx, self.ny, self.my
+        k = lead[0] if lead else 1
+        dev = self.device
         # 1. A1 = Gx1 @ vhat, A0 = Gx0 @ vhat in one grid
-        a1 = _build.padded(nx, my, **kw)
-        a0 = _build.padded(nx, my, **kw)
+        a1 = _build.padded(*lead, nx, my, **kw)
+        a0 = _build.padded(*lead, nx, my, **kw)
         _build.launch_jobs(gemm, [
-            _build.job(a1, [(self.gx1, vhat)], M=nx, N=my),
-            _build.job(a0, [(self.gx0, vhat)], M=nx, N=my),
-        ], self.device)
+            _build.job(a1, [(self.gx1, vhat)], M=nx, N=my, members=k),
+            _build.job(a0, [(self.gx0, vhat)], M=nx, N=my, members=k),
+        ], dev, k)
         # 2. total = ux*(A1 @ Gy0^T + bcdx) + uy*(A0 @ Gy1^T + bcdy)
-        total = _build.padded(nx, ny, **kw)
+        total = _build.padded(*lead, nx, ny, **kw)
         bcx = None if bc_dx is None else bc_dx.data_ptr()
         bcy = None if bc_dy is None else bc_dy.data_ptr()
         vec = _build.rows_aligned(a1, a0) | _build.rows_aligned(self.gy0t, self.gy1t) << 1
-        _build.call(dual, self.device, nx, ny, my, a1.data_ptr(), a0.data_ptr(), a1.stride(0),
+        strides = [x.stride(0) if lead else 0 for x in (a1, ux, total)]
+        if lead and (a0.stride(0) != strides[0] or uy.stride(0) != strides[1]):
+            raise ValueError("conv operands of one member stride expected")
+        _build.call(dual, dev, nx, ny, my, a1.data_ptr(), a0.data_ptr(), a1.stride(-2),
                     self.gy0t.data_ptr(), self.gy1t.data_ptr(), self.gy0t.stride(0),
                     ux.data_ptr(), uy.data_ptr(), bcx, bcy, ny,
-                    total.data_ptr(), total.stride(0), vec)
+                    total.data_ptr(), total.stride(-2), vec, k, *strides)
         # 3. T = total @ Fy^T (kept columns)
-        t = _build.padded(nx, self.ky, **kw)
-        _build.launch_jobs(gemm, [_build.job(t, [(total, self.fyt)], M=nx, N=self.ky)],
-                           self.device)
+        t = _build.padded(*lead, nx, self.ky, **kw)
+        _build.launch_jobs(gemm, [_build.job(t, [(total, self.fyt)], M=nx, N=self.ky,
+                                             members=k)], dev, k)
         # 4. out = Fx @ T on the kept block, zeros over the rest (a complex
         # output is reassembled from the kept block's two halves)
         if self.complex:
-            kept = torch.empty((self.kx, self.ky), **kw)
-            _build.launch_jobs(gemm, [_build.job(kept, [(self.fx, t)], M=self.kx, N=self.ky)],
-                               self.device)
+            kept = torch.empty((*lead, self.kx, self.ky), **kw)
+            _build.launch_jobs(gemm, [_build.job(kept, [(self.fx, t)], M=self.kx, N=self.ky,
+                                                 members=k)], dev, k)
             return self._unstack(kept)
-        out = torch.empty(self.out_shape, **kw)
+        out = torch.empty((*lead, *self.out_shape), **kw)
         _build.launch_jobs(gemm, [_build.job(
             out, [(self.fx, t)], M=self.kx, N=self.ky,
-            Mout=self.out_shape[0], Nout=self.out_shape[1])], self.device)
+            Mout=self.out_shape[0], Nout=self.out_shape[1], members=k)], dev, k)
         return out
 
 

@@ -24,6 +24,12 @@ copy), as the JAX wrapper does (``pallas_step.py:505-509``).  The pressure Poiss
 Fourier x axis has no left factor (the Fourier modes are already modal):
 its kernel launches skip the ``L @ x`` product.
 
+The inputs may carry a leading member dim (an ensemble of K states of one
+model, :mod:`..models.ensemble`): the stage then runs for every member with
+the constants shared, each launch of the kernel serving all K members (the
+JAX package's ``jax.vmap`` over ``pallas_call``), and the ``[Re; Im]``
+stacking is one copy for all members.
+
 On a CUDA tensor :meth:`FusedStage.apply` runs the hand-written kernel of
 ``csrc/fused_stage.cu`` as 2-4 launches (see that file for the design) and
 adds one to ``FusedStage.launches``; on a CPU tensor it runs
@@ -111,6 +117,18 @@ class FusedStage:
     @property
     def flops(self) -> float:
         """Multiply-add flops (2 per FMA) of one application."""
+        return self.cost()[0]
+
+    @property
+    def bytes_moved(self) -> float:
+        """Bytes one application must move at least: every operand (matrix
+        constants and inputs) read once, the output written once."""
+        return self.cost()[1]
+
+    def cost(self, members: int = 1) -> tuple[float, float]:
+        """``(flops, bytes)`` of one application to ``members`` members:
+        each member's products, the matrix constants read once, each
+        member's inputs read once and its output written once."""
         f = 0.0
         for k0, k1 in zip(self.k0, self.k1):
             if self.has_l:
@@ -120,19 +138,13 @@ class FusedStage:
             f += 2.0 * self.r0 * self.q1 * self.p1
         if self.b0 is not None:
             f += 2.0 * self.p0 * self.r0 * self.p1
-        return f
-
-    @property
-    def bytes_moved(self) -> float:
-        """Bytes one application must move at least: every operand (matrix
-        constants and inputs) read once, the output written once."""
         n = sum(x.numel() for x in self.ls + self.rts)
         for extra in (self.const, self.dinv, self.b1t, self.b0, self.mask):
             if extra is not None:
                 n += extra.numel()
-        n += sum(k0 * k1 for k0, k1 in zip(self.k0, self.k1))
-        n += self.p0 * self.p1
-        return float(n) * torch.finfo(self.dtype).bits / 8
+        n += members * sum(k0 * k1 for k0, k1 in zip(self.k0, self.k1))
+        n += members * self.p0 * self.p1
+        return members * f, float(n) * torch.finfo(self.dtype).bits / 8
 
     # -- the stage --------------------------------------------------------
 
@@ -143,23 +155,30 @@ class FusedStage:
             return self.dtype
         return torch.complex128 if self.dtype == torch.float64 else torch.complex64
 
-    def _check(self, xs) -> None:
+    def _check(self, xs) -> tuple:
+        """Validate the inputs; returns their leading member shape (``()``
+        for one state, ``(K,)`` for K members)."""
         if len(xs) != len(self.terms):
             raise ValueError(f"stage {self.name!r} takes {len(self.terms)} inputs, got {len(xs)}")
+        lead = tuple(xs[0].shape[:-2])
+        if len(lead) > 1:
+            raise ValueError(f"stage {self.name!r}: inputs carry at most one member dim, got "
+                             f"shape {tuple(xs[0].shape)}")
         for t, x in enumerate(xs):
             if x.device != self.device or x.dtype != self.io_dtype:
                 raise ValueError(
                     f"stage {self.name!r} input {t}: {x.dtype} on {x.device}, "
                     f"expected {self.io_dtype} on {self.device}")
             rows = self.k0[t] // 2 if self.complex_io else self.k0[t]
-            if tuple(x.shape) != (rows, self.k1[t]):
+            if tuple(x.shape) != lead + (rows, self.k1[t]):
                 raise ValueError(
                     f"stage {self.name!r} input {t}: shape {tuple(x.shape)}, "
-                    f"expected {(rows, self.k1[t])}")
+                    f"expected {lead + (rows, self.k1[t])}")
+        return lead
 
     def _stack(self, x) -> torch.Tensor:
         """The kernel's real input: ``x`` itself, or a complex one's ``[Re;
-        Im]`` rows in one row-aligned copy."""
+        Im]`` rows in one row-aligned copy (for all members at once)."""
         return _build.stack_planes(x) if self.complex_io else x.contiguous()
 
     def _unstack(self, o) -> torch.Tensor:
@@ -169,13 +188,14 @@ class FusedStage:
 
     def apply(self, *xs) -> torch.Tensor:
         """The stage: the CUDA kernel on a CUDA device, the plain chain on
-        the CPU."""
-        self._check(xs)
+        the CPU.  Inputs of shape ``(K, rows, cols)`` run K members, every
+        kernel launch serving all of them."""
+        lead = self._check(xs)
         if self.device.type == "cpu":
             return self.plain(*xs)
         if self.device.type != "cuda":
             raise RuntimeError(f"no fused-stage kernel for device {self.device}")
-        out = self._unstack(self._launch([self._stack(x) for x in xs]))
+        out = self._unstack(self._launch([self._stack(x) for x in xs], lead))
         self.launches += 1
         return out
 
@@ -199,39 +219,44 @@ class FusedStage:
             m = m * self.mask
         return self._unstack(m)
 
-    def _launch(self, xs) -> torch.Tensor:
+    def _launch(self, xs, lead=()) -> torch.Tensor:
+        """The stage's 2-4 grid launches on real operands; ``lead`` is
+        ``(K,)`` for K members (every scratch and the output then carry the
+        member dim, the constants do not)."""
         fn = _build.gemm(self.dtype)
         kw = dict(device=self.device, dtype=self.dtype)
         r0, q1 = self.r0, self.q1
+        k = lead[0] if lead else 1
+        dev = self.device
         # 1. Y_t = L_t @ x_t, every term in one grid (an L-less stage takes
         # its input as Y)
         ys = xs
         if self.has_l:
-            ys = [_build.padded(r0, k1, **kw) for k1 in self.k1]
+            ys = [_build.padded(*lead, r0, k1, **kw) for k1 in self.k1]
             _build.launch_jobs(fn, [
-                _build.job(y, [(l, x)], M=r0, N=y.shape[1])
+                _build.job(y, [(l, x)], M=r0, N=y.shape[-1], members=k)
                 for y, l, x in zip(ys, self.ls, xs)
-            ], self.device)
+            ], dev, k)
         # 2. M = sum_t Y_t @ R_t^T, with the elementwise epilogue; the mask
         # lands here unless a backward map follows
         last2 = self.b1t is None and self.b0 is None
-        m = torch.empty((r0, q1), **kw) if last2 else _build.padded(r0, q1, **kw)
+        m = torch.empty((*lead, r0, q1), **kw) if last2 else _build.padded(*lead, r0, q1, **kw)
         _build.launch_jobs(fn, [_build.job(
             m, list(zip(ys, self.rts)), M=r0, N=q1, E=self.dinv, F=self.const,
-            mask=self.mask if last2 else None)], self.device)
+            mask=self.mask if last2 else None, members=k)], dev, k)
         # 3. M @ B1^T
         if self.b1t is not None:
-            m2 = torch.empty((r0, self.p1), **kw) if self.b0 is None else \
-                _build.padded(r0, self.p1, **kw)
+            m2 = torch.empty((*lead, r0, self.p1), **kw) if self.b0 is None else \
+                _build.padded(*lead, r0, self.p1, **kw)
             _build.launch_jobs(fn, [_build.job(
                 m2, [(m, self.b1t)], M=r0, N=self.p1,
-                mask=self.mask if self.b0 is None else None)], self.device)
+                mask=self.mask if self.b0 is None else None, members=k)], dev, k)
             m = m2
         # 4. B0 @ M * mask
         if self.b0 is not None:
-            o = torch.empty((self.p0, self.p1), **kw)
+            o = torch.empty((*lead, self.p0, self.p1), **kw)
             _build.launch_jobs(fn, [_build.job(
-                o, [(self.b0, m)], M=self.p0, N=self.p1, mask=self.mask)], self.device)
+                o, [(self.b0, m)], M=self.p0, N=self.p1, mask=self.mask, members=k)], dev, k)
             m = o
         return m
 

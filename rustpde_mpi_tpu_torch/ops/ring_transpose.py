@@ -11,7 +11,9 @@ field as one tensor with the rank as its leading dimension
 * y-pencil ``(P, c, P*w)``: rank ``r`` holds rows ``r*c ..``;
 
 and the flip is ``y[r, i, s*w + j] = x[s, r*c + i, j]`` (x -> y) or its
-inverse.  On a CUDA tensor :meth:`RingTranspose.apply` launches the
+inverse.  A pencil may carry a leading member dim, ``(K, P, ...)``: the
+pencils of an ensemble's K members, all flipped by one launch (the JAX
+package's ``jax.vmap`` of the flip).  On a CUDA tensor :meth:`RingTranspose.apply` launches the
 hand-written kernel of ``csrc/ring_transpose.cu`` once and adds one to
 ``RingTranspose.launches``; on a CPU tensor it runs
 :meth:`RingTranspose.plain`, the ring schedule of the JAX package in torch
@@ -31,12 +33,13 @@ ENTRY = {torch.float64: "rp_ring_transpose_f64", torch.float32: "rp_ring_transpo
          torch.complex128: "rp_ring_transpose_c128", torch.complex64: "rp_ring_transpose_c64"}
 
 
-def transposed_shape(shape, nranks: int, x_to_y: bool) -> tuple[int, int, int]:
-    """The pencil shape a flip of a ``shape`` pencil gives."""
-    p, a, b = shape
+def transposed_shape(shape, nranks: int, x_to_y: bool) -> tuple:
+    """The pencil shape a flip of a ``shape`` pencil (a member dim, if any,
+    in front) gives."""
+    *lead, p, a, b = shape
     if x_to_y:
-        return (p, a // nranks, b * nranks)
-    return (p, a * nranks, b // nranks)
+        return (*lead, p, a // nranks, b * nranks)
+    return (*lead, p, a * nranks, b // nranks)
 
 
 class RingTranspose:
@@ -56,10 +59,10 @@ class RingTranspose:
         if block.dtype not in ENTRY:
             raise ValueError(f"pencil transpose input of dtype {block.dtype}: the kernel moves "
                              f"{', '.join(map(str, ENTRY))}")
-        split = 1 if x_to_y else 2
-        if block.ndim != 3 or block.shape[0] != self.nranks or \
+        split = -2 if x_to_y else -1
+        if block.ndim not in (3, 4) or block.shape[-3] != self.nranks or \
                 block.shape[split] % self.nranks:
-            want = "(P, P*c, w)" if x_to_y else "(P, c, P*w)"
+            want = "([K,] P, P*c, w)" if x_to_y else "([K,] P, c, P*w)"
             raise ValueError(f"pencil transpose input: shape {tuple(block.shape)}, expected "
                              f"{want} with P = {self.nranks}")
 
@@ -86,18 +89,21 @@ class RingTranspose:
     def plain(self, block, x_to_y: bool) -> torch.Tensor:
         """The ring in plain PyTorch: at shift ``t`` (0 the diagonal copy)
         every rank ``d`` sends its chunk for rank ``(d + t) % P``, which
-        stores it at slot ``d``.  Every element of the output is written
-        once, so it starts empty."""
+        stores it at slot ``d`` (every member's chunk at once).  Every
+        element of the output is written once, so it starts empty."""
         p = self.nranks
         out = torch.empty(transposed_shape(block.shape, p, x_to_y), device=block.device,
                           dtype=block.dtype)
-        # xv[s, r] is chunk (s, r) in the x layout, yv[r, :, s] in the y layout
+        k = block.shape[0] if block.ndim == 4 else 1
+        # xv[s, r] is chunk (s, r) in the x layout, yv[r, :, s] in the y
+        # layout, each with the members behind the rank indices
         if x_to_y:
-            c, w = block.shape[1] // p, block.shape[2]
-            xv, yv = block.reshape(p, p, c, w), out.view(p, c, p, w)
+            c, w = block.shape[-2] // p, block.shape[-1]
+            xv, yv = block.reshape(k, p, p, c, w), out.view(k, p, c, p, w)
         else:
-            c, w = block.shape[1], block.shape[2] // p
-            xv, yv = out.view(p, p, c, w), block.reshape(p, c, p, w)
+            c, w = block.shape[-2], block.shape[-1] // p
+            xv, yv = out.view(k, p, p, c, w), block.reshape(k, p, c, p, w)
+        xv, yv = xv.permute(1, 2, 3, 0, 4), yv.permute(1, 2, 3, 0, 4)  # (P, P, c, K, w)
         ranks = torch.arange(p, device=block.device)
         for shift in range(p):
             peer = (ranks + shift) % p
@@ -112,7 +118,7 @@ class RingTranspose:
         return 2.0 * block.numel() * block.element_size()
 
     def _launch(self, block, x_to_y: bool) -> torch.Tensor:
-        if block.stride(2) != 1:
+        if block.stride(-1) != 1:
             raise ValueError("the pencil-transpose kernel needs a unit stride along the "
                              "last axis")
         lib = _build.load("ring_transpose")
@@ -121,7 +127,9 @@ class RingTranspose:
         out = torch.empty(transposed_shape(block.shape, p, x_to_y), device=block.device,
                           dtype=block.dtype)
         xp, yp = (block, out) if x_to_y else (out, block)
-        c, w = yp.shape[1], xp.shape[2]
-        _build.call(fn, self.device, p, c, w, xp.stride(0), xp.stride(1), yp.stride(0),
-                    yp.stride(1), block.data_ptr(), out.data_ptr(), int(x_to_y))
+        c, w = yp.shape[-2], xp.shape[-1]
+        k = block.shape[0] if block.ndim == 4 else 1
+        ms = (xp.stride(0), yp.stride(0)) if block.ndim == 4 and k > 1 else (0, 0)
+        _build.call(fn, self.device, p, c, w, xp.stride(-3), xp.stride(-2), yp.stride(-3),
+                    yp.stride(-2), block.data_ptr(), out.data_ptr(), int(x_to_y), k, *ms)
         return out

@@ -138,15 +138,19 @@ class Decomp2d:
 # ---------------------------------------------------------------------------
 
 
-def all_gather_sum(blocks: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def all_gather_sum(blocks: torch.Tensor, mesh: Mesh, lead: int = 0) -> torch.Tensor:
     """Sum every rank's contribution so every rank holds the global sum
     (the reference's ``all_gather_sum``): ``blocks`` is rank-stacked (the
     rank leading), each rank's block is summed, then the rank sums.  A 0-d
-    tensor on the mesh's device."""
-    if blocks.shape[0] != mesh.nranks:
-        raise ValueError(f"all_gather_sum: leading dim {blocks.shape[0]}, the mesh has "
-                         f"{mesh.nranks} ranks")
-    return torch.sum(blocks.reshape(mesh.nranks, -1).sum(dim=1))
+    tensor on the mesh's device; with ``lead`` member dims in front of the
+    rank, one sum per member (a tensor of those dims)."""
+    shape = blocks.shape[:lead]
+    if blocks.shape[lead] != mesh.nranks:
+        raise ValueError(f"all_gather_sum: leading dim {blocks.shape[lead]} of the rank-stacked "
+                         f"blocks, the mesh has {mesh.nranks} ranks")
+    if not lead:
+        return torch.sum(blocks.reshape(mesh.nranks, -1).sum(dim=1))
+    return blocks.reshape(*shape, mesh.nranks, -1).sum(dim=-1).sum(dim=-1)
 
 
 def broadcast_scalar(value, mesh: Mesh) -> torch.Tensor:

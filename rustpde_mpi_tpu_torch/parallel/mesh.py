@@ -15,7 +15,9 @@ the JAX package's ``Decomp2d._pad``):
 * y-pencil ``(P, n0p / P, n1p)``: rank ``r`` holds rows ``r * n0p/P ..``.
 
 So a product along a rank's local axis is one batched ``torch.matmul`` for
-all ranks.  The JAX package pins these layouts with sharding constraints
+all ranks.  A field of an ensemble's K members carries a member dim in
+front of the rank, ``(K, P, ...)``: the pencil axes are addressed from the
+end, so every function here takes it unchanged.  The JAX package pins these layouts with sharding constraints
 and lets XLA insert the all-to-alls; PyTorch has no such compiler, so each
 flip is explicit here: :func:`apply_separable` and :func:`forward_separable`
 apply a 2-D separable operator with the flip between its two factors, and
@@ -124,10 +126,10 @@ def apply_separable(mesh: Mesh, block: torch.Tensor, a0, a1, spectral_out: bool)
     the identity); an identity ``a1`` with a spectral result needs no flip.
     The flip points are those of the JAX package's ``Space2`` transforms
     (``bases.py:905-1010``)."""
-    out = apply_axis(a0, block, 1)
+    out = apply_axis(a0, block, -2)
     if a1 is None and spectral_out:
         return out
-    out = apply_axis(a1, mesh.ring.x_to_y(out), 2)
+    out = apply_axis(a1, mesh.ring.x_to_y(out), -1)
     return mesh.ring.y_to_x(out) if spectral_out else out
 
 
@@ -135,4 +137,4 @@ def forward_separable(mesh: Mesh, block: torch.Tensor, a0, a1) -> torch.Tensor:
     """``A0 @ v @ A1^T`` of the y-pencil ``block`` (physical data):
     ``a1`` on the y-pencil, the flip, ``a0`` on the x-pencil; the result is
     an x-pencil."""
-    return apply_axis(a0, mesh.ring.y_to_x(apply_axis(a1, block, 2)), 1)
+    return apply_axis(a0, mesh.ring.y_to_x(apply_axis(a1, block, -1)), -2)

@@ -18,6 +18,10 @@ and backward run on ``torch.fft`` on the x-pencil, which holds axis 0
 whole (the pad rows sliced off before, zeros appended after), and its
 derivative is a diagonal; its spectral fields are complex x-pencils, which
 the y-axis factors reach through a flip of complex pencils.
+
+Every transform takes a leading member dim in front of the rank (an
+ensemble's K members, ``(K, P, ...)``), as the serial space takes leading
+batch dims.
 """
 
 from __future__ import annotations
@@ -76,10 +80,12 @@ class PencilSpace2:
         """Global physical values -> y-pencil in the space's dtype."""
         return self.physical.place_y_pencil(values, self.dtype)
 
-    def place_spectral(self, values) -> torch.Tensor:
+    def place_spectral(self, values, dtype=None) -> torch.Tensor:
         """Global spectral (or ortho-space, same extents) values -> x-pencil
-        in the space's spectral dtype (complex on a Fourier x axis)."""
-        return Decomp2d(np.shape(values), self.mesh).place_x_pencil(values, self.spectral_dtype)
+        in the space's spectral dtype (complex on a Fourier x axis), or in
+        ``dtype``."""
+        return Decomp2d(np.shape(values), self.mesh).place_x_pencil(
+            values, dtype or self.spectral_dtype)
 
     def gather_physical(self, block: torch.Tensor) -> torch.Tensor:
         return self.physical.gather_y_pencil(block)
@@ -95,10 +101,11 @@ class PencilSpace2:
         """y-pencil -> x-pencil."""
         return self.mesh.ring.y_to_x(block)
 
-    def weighted_sum(self, v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def weighted_sum(self, v: torch.Tensor, w: torch.Tensor, lead: int = 0) -> torch.Tensor:
         """``sum(v * w)`` over the field: per rank, then across the ranks
-        (:func:`.decomp.all_gather_sum`); ``w`` is zero on the pad."""
-        return all_gather_sum(v * w, self.mesh)
+        (:func:`.decomp.all_gather_sum`); ``w`` is zero on the pad.  The
+        first ``lead`` dims of ``v`` are members, each summed apart."""
+        return all_gather_sum(v * w, self.mesh, lead)
 
     def apply_operators(self, vhat: torch.Tensor, a0, a1) -> torch.Tensor:
         """``A0 @ vhat @ A1^T`` of padded device matrices (from
@@ -143,16 +150,16 @@ class PencilSpace2:
         # contiguous: an FFT along axis 1 returns its result with the axes'
         # strides permuted, and a flip needs the last axis at unit stride
         if key == "fwd":
-            return lambda v: F.pad(tr.fourier_r2c_forward_fft(v[:, :n], 1),
+            return lambda v: F.pad(tr.fourier_r2c_forward_fft(v[..., :n, :], -2),
                                    (0, 0, 0, pad_m)).contiguous()
         if key in ("bwd", "synthesis"):
-            return lambda c: F.pad(tr.fourier_r2c_backward_fft(c[:, :m], 1, n),
+            return lambda c: F.pad(tr.fourier_r2c_backward_fft(c[..., :m, :], -2, n),
                                    (0, 0, 0, pad_n)).contiguous()
         if key[0] == "grad":
             return self.operator(base.gradient_matrix(key[1]))
         if key[0] == "bwd_grad":
             diag, bwd = self._mat(axis, ("grad", key[1])), self._mat(axis, "bwd")
-            return lambda c: bwd(tr.apply_diag(diag, c, 1))
+            return lambda c: bwd(tr.apply_diag(diag, c, -2))
         raise ValueError(f"unknown axis operator key {key!r}")
 
     def _apply(self, vhat, kx, ky, spectral_out: bool) -> torch.Tensor:
@@ -200,5 +207,5 @@ class PencilSpace2:
         """Zero the constant mode, which rank 0 of the x-pencil holds (on
         an r2c axis its real and imaginary parts)."""
         out = vhat.clone()
-        out[0, 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
+        out[..., 0, 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
         return out

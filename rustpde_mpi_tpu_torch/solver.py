@@ -310,14 +310,17 @@ class TensorSolver:
         from the serial solve in that order and in the lanes' factor
         offsets, so it is a path of its own.  A Fourier axis 0 has no eigen
         maps (its modes are the lanes), and its complex y-pencil goes to the
-        banded kernel as two planes of real lanes."""
-        if rhs.ndim != 3:
-            raise ValueError(f"a pencil solve takes a rank-stacked (P, n0, n1) x-pencil, got "
-                             f"rank {rhs.ndim}")
-        out = _apply(self.fwd, rhs, 1)
-        out = apply_along(self.matvec1, self.mesh.ring.x_to_y(out), 2)
-        out = self.banded.solve(out, 2, factor_batch_stride=out.shape[1])
-        return _apply(self.bwd, self.mesh.ring.y_to_x(out), 1)
+        banded kernel as two planes of real lanes.  An ensemble's pencils,
+        ``(K, P, n0, n1)``, solve in the same one launch: the factor batch
+        period P gives every member's rank ``r`` rank ``r``'s lanes."""
+        if rhs.ndim not in (3, 4):
+            raise ValueError(f"a pencil solve takes a rank-stacked ([K,] P, n0, n1) x-pencil, "
+                             f"got rank {rhs.ndim}")
+        out = _apply(self.fwd, rhs, -2)
+        out = apply_along(self.matvec1, self.mesh.ring.x_to_y(out), -1)
+        out = self.banded.solve(out, out.ndim - 1, factor_batch_stride=out.shape[-2],
+                                factor_batch_period=self.mesh.nranks)
+        return _apply(self.bwd, self.mesh.ring.y_to_x(out), -2)
 
     def kernels(self) -> list:
         return [self.banded.kernel]

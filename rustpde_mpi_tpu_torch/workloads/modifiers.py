@@ -1,5 +1,5 @@
-"""Scenario step modifiers (counterpart of the JAX package's
-``workloads/modifiers.py``, less its vmapped geometry sweep).
+"""Scenario step modifiers and the geometry sweep (counterpart of the JAX
+package's ``workloads/modifiers.py``).
 
 Config-carried terms built into the ``Navier2D`` step:
 
@@ -12,11 +12,21 @@ Config-carried terms built into the ``Navier2D`` step:
   temperature's composite space and BC lift, at its own diffusivity
   (``scalar_kappa``, default the thermal one).  At matched diffusivity a
   scalar released equal to the temperature stays equal to it.
+
+The **geometry sweep** batches solid obstacles: the Brinkman penalization
+is a pointwise map after the step (the pressure update never reads the
+penalized fields), so a solid step is the plain step followed by the
+penalization, and K obstacle geometries run as one ensemble of the plain
+template model (:class:`..models.ensemble.NavierEnsemble`), each member
+with its own penalization factors, every kernel launch serving all K.
+Each member equals a solo ``set_solid`` run of its geometry.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 
 @dataclasses.dataclass
@@ -52,3 +62,35 @@ def penalization_factors(model, mask, value=None, eta: float | None = None):
     from ..models.navier import brinkman_factors
 
     return brinkman_factors(model, mask, value, eta)
+
+
+def geometry_sweep(model, geometries, steps: int, states=None):
+    """Advance K obstacle geometries as one ensemble of the plain template
+    ``model`` (no ``set_solid``; one with an obstacle raises), ``steps``
+    steps in the ensemble's chunks.  ``geometries``: ``(mask, value)``
+    pairs (the ``solid_*`` builders) or ``mask`` arrays; ``states``:
+    per-member initial states (default: K copies of ``model.state``).
+
+    Returns ``(stacked_state, observables)``: the final states, each field
+    with a leading K dim, and the model's observables, each of shape
+    (K,)."""
+    from ..models.ensemble import NavierEnsemble
+
+    if getattr(model, "_solid", None) is not None:
+        raise ValueError(
+            "geometry_sweep needs a plain template model; the sweep itself supplies the "
+            "per-member penalization (set_solid(None) first)")
+    pairs = []
+    for geom in geometries:
+        mask, value = geom if isinstance(geom, tuple) else (geom, None)
+        pairs.append(penalization_factors(model, mask, value))
+    if not pairs:
+        raise ValueError("geometry_sweep needs at least one geometry")
+    k = len(pairs)
+    members = [model.state] * k if states is None else list(states)
+    if len(members) != k:
+        raise ValueError(f"{len(members)} states for {k} geometries")
+    ens = NavierEnsemble(model, members)
+    ens._set_solids(torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs]))
+    ens.update_n(int(steps))
+    return ens.state, ens.get_observables()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's bare ``update_n`` at ``rbc1025`` on the meshed and dense
-routes, for comparing two source trees on one card.
+"""Time the port's bare ``update_n`` at ``rbc1025`` on the meshed, dense and
+fused routes, for comparing two source trees on one card.
 
     python3 scripts/ab_steps.py <tree>
 
@@ -37,7 +37,8 @@ def main() -> int:
     _build.build()
     cfg = dict(nx=1025, ny=1025, ra=1e9, pr=1.0, dt=1e-4, aspect=1.0, bc="rbc")
     routes = (("mesh", dict(mesh=pt.make_mesh(4))),
-              ("dense", dict(device="cuda", step_kernel="dense", conv_kernel="dense")))
+              ("dense", dict(device="cuda", step_kernel="dense", conv_kernel="dense")),
+              ("fused", dict(device="cuda")))
     out = {}
     for route, kw in routes:
         model = pt.Navier2D.new_confined(**cfg, **kw)

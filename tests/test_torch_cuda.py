@@ -158,7 +158,7 @@ def _dual(ops, n0, n1, k, dtype, device):
     vec = _build.rows_aligned(a1, a0) | _build.rows_aligned(g0t, g1t) << 1
     _build.call(fn, device, n0, n1, k, a1.data_ptr(), a0.data_ptr(), a1.stride(0),
                 g0t.data_ptr(), g1t.data_ptr(), g0t.stride(0), ux.data_ptr(), uy.data_ptr(),
-                bcx, bcy, ux.stride(0), out.data_ptr(), out.stride(0), vec)
+                bcx, bcy, ux.stride(0), out.data_ptr(), out.stride(0), vec, 1, 0, 0, 0)
     dx, dy = a1 @ g0t, a0 @ g1t
     if bc:
         dx, dy = dx + bc[0], dy + bc[1]
@@ -895,3 +895,147 @@ def test_chunk_graph_recaptured_after_set_solid_and_set_scenario(device, route):
         assert a.chunk_runner() is not first and a.chunk_runner().captured, name
         _assert_bit_equal(a.state, b.state)
         first = a.chunk_runner()
+
+
+# -- ensembles: the member axis of every kernel ------------------------------------------
+
+
+def _rand_like_io(rng, shape, dtype, device):
+    if dtype.is_complex:
+        parts = rng.uniform(-1.0, 1.0, tuple(shape) + (2,))
+        return torch.view_as_complex(torch.tensor(parts, device=device)).to(dtype)
+    return torch.tensor(rng.uniform(-1.0, 1.0, shape), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("cell", ["confined", "periodic"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_member_stages_and_convs_match_plain(device, dtype, cell):
+    """Every stage (the Coriolis five-term ``vely`` and the scalar's
+    included) and both conv variants on K = 3 member-stacked inputs at 33^2
+    (32x33 periodic): one kernel application for all members, against the
+    plain version, and each member bit for bit its own one-member launch."""
+    k, n = 3, 33
+    model = pt.Navier2D(n - 1 if cell == "periodic" else n, n, 1e5, 1.0, 2e-3, 1.0, "rbc",
+                        periodic=cell == "periodic", device=device, dtype=dtype,
+                        scenario=ScenarioConfig(coriolis=2.0, passive_scalar=True))
+    rng = np.random.default_rng(21)
+    for tag, st in model._stages.items():
+        rows = [k0 // 2 if st.complex_io else k0 for k0 in st.k0]
+        xs = [_rand_like_io(rng, (k, r, k1), st.io_dtype, device) for r, k1 in zip(rows, st.k1)]
+        got = st.apply(*xs)
+        assert st.launches == 1
+        assert _rel(got, st.plain(*xs)) <= TOL[dtype], tag
+        for i in range(k):
+            assert torch.equal(got[i], st.apply(*(x[i] for x in xs))), (tag, i)
+    shape = model.field_space.shape_physical
+    ux, uy = (_rand_like_io(rng, (k,) + shape, dtype, device) for _ in range(2))
+    for space in (model.velx_space, model.temp_space):
+        fc = model._convs[id(space)]
+        vhat = _rand_like_io(rng, (k,) + space.shape_spectral, space.spectral_dtype, device)
+        for bc in ((), (model._tempbc_dx, model._tempbc_dy)):
+            before = fc.launches
+            got = fc.apply(ux, uy, vhat, *bc)
+            assert fc.launches == before + 1
+            assert _rel(got, fc.plain(ux, uy, vhat, *bc)) <= TOL[dtype]
+            for i in range(k):
+                assert torch.equal(got[i], fc.apply(ux[i], uy[i], vhat[i], *bc)), i
+
+
+@pytest.mark.parametrize("complex_rhs", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_members_with_a_factor_batch_period(device, dtype, complex_rhs):
+    """K members of a meshed Poisson solve in one launch: ``(K, P, c, n)``
+    pencils, per-lane factors offset by the rank (stride c, period P), real
+    or complex (two planes), against the plain recurrence and against each
+    member's own launch bit for bit."""
+    from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
+
+    k, ranks, per_rank, n = 3, 4, 33, 37
+    solver = BandedSolver(*_banded_system(n, ranks * per_rank), device=device, dtype=dtype)
+    rng = np.random.default_rng(4)
+    io = (torch.complex128 if dtype == torch.float64 else torch.complex64) if complex_rhs else dtype
+    b = _rand_like_io(rng, (k, ranks, per_rank, n), io, device)
+    got = solver.solve(b, -1, factor_batch_stride=per_rank, factor_batch_period=ranks)
+    assert solver.kernel.launches == 1
+    plain = solver.plain(b, -1, factor_batch_stride=per_rank, factor_batch_period=ranks)
+    g, p = (torch.view_as_real(x) if complex_rhs else x for x in (got, plain))
+    scale = torch.amax(torch.abs(p), dim=(-1,) if not complex_rhs else (-2, -1), keepdim=True)
+    assert float(torch.max(torch.abs(g - p) / scale)) <= TOL[dtype]
+    for i in range(k):
+        assert torch.equal(got[i], solver.solve(b[i], -1, factor_batch_stride=per_rank)), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.complex128,
+                                   torch.complex64])
+def test_ring_transpose_members_match_plain(device, dtype):
+    """K = 3 members' pencils flipped by one launch, both directions, bit
+    for bit against the plain ring and each member's own launch."""
+    ring = pt.make_mesh(4, device).ring
+    rng = np.random.default_rng(6)
+    x = _rand_like_io(rng, (3, 4, 36, 9), dtype, device)
+    y = ring.x_to_y(x)
+    assert ring.launches == 1
+    assert torch.equal(y, ring.plain(x, True))
+    assert torch.equal(ring.y_to_x(y), x)
+    for i in range(3):
+        assert torch.equal(y[i], ring.x_to_y(x[i]))
+
+
+def _ensemble_route(route, device, k=3, n=33):
+    model = _route_model(route, device, n)
+    return pt.NavierEnsemble.from_seeds(model, range(k))
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_ensemble_chunk_graph_matches_eager_steps(device, route):
+    """An ensemble's ``update_n(10)`` (each step one replay of the captured
+    K-member step) equals ten eager K-member steps bit for bit, and a step
+    of K = 3 members launches exactly what a solo step of the route does."""
+    ens = _ensemble_route(route, device)
+    model = ens.model
+    runner = ens.chunk_runner()
+    assert runner.captured
+    assert sum(runner.delta) == sum(PER_STEP[route].values())
+    _prepare_chunks(model)
+    start = ens.state
+    ens.update_n(10)
+    assert _launches_by_kernel(model) == {k: 10 * v for k, v in PER_STEP[route].items()}
+    state = start
+    for _ in range(10):
+        state = model._step(state)
+    _assert_bit_equal(ens.state, state)
+    assert ens.steps_done.tolist() == [10, 10, 10] and ens.alive().all()
+
+
+@pytest.mark.parametrize("route", ["fused", "dense", "mesh", "periodic_fused", "scn_dense"])
+def test_ensemble_members_match_solo_models_on_card(device, route):
+    """After 10 steps member i equals a solo model of seed i on the same
+    route and card (rel 1e-12 of each field's scale; the fused kernels give
+    each member its one-member launch's tile loop, so bit for bit there)."""
+    ens = _ensemble_route(route, device)
+    ens.update_n(10)
+    for i in range(3):
+        solo = _route_model(route, device)
+        solo.init_random(0.1, seed=i)
+        solo.update_n(10)
+        for name, x, y in zip(ens.state._fields, ens.state, solo.state):
+            if route.endswith("fused"):
+                assert torch.equal(x[i], y), (i, name)
+            else:
+                assert _rel(x[i], y) <= 1e-12, (i, name)
+
+
+def test_ensemble_nan_isolation_on_card(device):
+    """A member poisoned in temp mode 0 dies with no step counted; the
+    others are bit for bit those of an unpoisoned ensemble."""
+    ens, clean = _ensemble_route("fused", device), _ensemble_route("fused", device)
+    bad = ens.member_state(0)
+    temp = bad.temp.clone()
+    temp[0, 0] = float("nan")
+    ens.set_member(0, bad._replace(temp=temp))
+    ens.update_n(7)
+    clean.update_n(7)
+    assert ens.alive().tolist() == [False, True, True]
+    assert ens.steps_done.tolist() == [0, 7, 7]
+    for x, y in zip(ens.state, clean.state):
+        assert torch.equal(x[1:], y[1:])

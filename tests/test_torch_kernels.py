@@ -216,16 +216,22 @@ def test_signatures_name_each_libraries_entry_points():
 
 def test_job_struct_mirrors_the_c_layout():
     """``RpJob`` in csrc/fused_stage.cu: four pointers, two arrays of five
-    pointers, then 25 ints (the last the copy-width flags ``vec``), padded to
+    pointers, the member strides (two arrays of five ``long long`` and four
+    more), then 25 ints (the last the copy-width flags ``vec``), padded to
     pointer alignment; ``MAX_TERMS`` and ``MAX_JOBS`` (5, the Coriolis
     ``vely`` stage's five products and its five ``L @ x`` jobs) equal the
-    C constants."""
+    C constants, and a launch's five jobs stay far inside the 4 KB kernel
+    parameter limit."""
     p, i = ctypes.sizeof(ctypes.c_void_p), ctypes.sizeof(ctypes.c_int)
-    raw = 14 * p + 25 * i
+    q = ctypes.sizeof(ctypes.c_longlong)
+    raw = 14 * p + 14 * q + 25 * i
     assert ctypes.sizeof(_build.RpJob) == -(-raw // p) * p
-    assert _build.RpJob.M.offset == 14 * p
-    assert _build.RpJob.ldm.offset == 14 * p + 23 * i
-    assert _build.RpJob.vec.offset == 14 * p + 24 * i
+    assert _build.RpJob.sA.offset == 14 * p
+    assert _build.RpJob.sM.offset == 14 * p + 13 * q
+    assert _build.RpJob.M.offset == 14 * p + 14 * q
+    assert _build.RpJob.ldm.offset == 14 * p + 14 * q + 23 * i
+    assert _build.RpJob.vec.offset == 14 * p + 14 * q + 24 * i
+    assert _build.MAX_JOBS * ctypes.sizeof(_build.RpJob) + i <= 4096
     names = [f[0] for f in _build.RpJob._fields_]
     text = (_build.CSRC / "fused_stage.cu").read_text()
     for name in ("MAX_TERMS", "MAX_JOBS"):

@@ -249,8 +249,8 @@ def test_meshed_periodic_step_flips_and_solves():
         solves = []
         for k in model.kernels()["banded_solve"]:
             kplain = k.plain
-            k.plain = lambda b, f=0, kp=kplain, k=k: solves.append((tuple(b.shape), f, k.path)) \
-                or kp(b, f)
+            k.plain = lambda b, f=0, q=0, kp=kplain, k=k: solves.append((tuple(b.shape), f, k.path)) \
+                or kp(b, f, q)
         model.update()
         assert len(flips) == 37 and flips.count(torch.complex128) == 26
         # 9 modes pad to 12: 3 a rank; 15 rows pad to 16
@@ -324,8 +324,8 @@ def test_meshed_flips_get_the_kernels_layout(periodic, monkeypatch):
 
     plain = banded_solve.BandedSolve.plain
 
-    def kernel_layout(self, b, factor_batch_stride=0):
-        return torch.empty_like(b).copy_(plain(self, b, factor_batch_stride))
+    def kernel_layout(self, b, factor_batch_stride=0, factor_batch_period=0):
+        return torch.empty_like(b).copy_(plain(self, b, factor_batch_stride, factor_batch_period))
 
     monkeypatch.setattr(banded_solve.BandedSolve, "apply", kernel_layout)
     mesh = make_mesh(4, "cpu")

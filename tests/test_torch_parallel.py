@@ -237,7 +237,7 @@ def test_meshed_step_flips_and_solves():
     solves = []
     for k in kernels["banded_solve"]:
         plain = k.plain
-        k.plain = lambda b, fbs=0, plain=plain: solves.append(b.shape[0]) or plain(b, fbs)
+        k.plain = lambda b, fbs=0, fbp=0, plain=plain: solves.append(b.shape[0]) or plain(b, fbs, fbp)
     model.update()
     assert len(calls) == 37
     assert calls.count(True) == 21 and calls.count(False) == 16

@@ -261,7 +261,7 @@ def test_meshed_step_flips_and_solves():
     solves = []
     for k in model.kernels()["banded_solve"]:
         kplain = k.plain
-        k.plain = lambda b, f=0, kp=kplain: solves.append(b.shape) or kp(b, f)
+        k.plain = lambda b, f=0, q=0, kp=kplain: solves.append(b.shape) or kp(b, f, q)
     model.update()
     assert (len(flips), len(solves)) == (56, 9)
     flips.clear()
