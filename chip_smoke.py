@@ -209,8 +209,36 @@ launch of a step serving all K members:
     model, each member against a solo ``set_solid`` run (1e-12 of each
     field's scale, bit for bit on the fused route).
 
-It prints, once, whether ``h5py`` imports on the machine (for the
-checkpoint writers; not a gate).
+27. checkpoints in the JAX package's gathered snapshot layout
+    (``utils/checkpoint.py``): on ``rbc1025`` (the fused main model after
+    phase 25, the meshed one after its phase 25), ``periodic1024`` fused
+    (after its phase 14) and ``ensemble129`` K = 8 fused (a member dead,
+    uneven ``steps_done``), the snapshot staged on the card
+    (``snapshot_to_host``: ms, MB; ``snapshot_digest``: ms) and restored
+    into a fresh model (into an ensemble built at K = 32, whose graph is
+    dropped and recaptured) through the file reader's group restore (and
+    through an HDF5 file where ``h5py`` imports): every stored leaf bit for
+    bit, ``pseu`` zero, ``time``/K/mask/``steps_done`` exact, then 50 steps
+    of ``update_n`` at the route's launches a step; at 129^2 (Ra=1e7,
+    dt=2e-3) on the fused, dense and meshed routes, HC (``hc129``), the
+    periodic 128x129 cell (fused, meshed) and the scenario cell with its
+    scalar, a snapshot restored on the card and on the CPU (the card's
+    transform method): the two stagings' ``vhat``, coordinate and scalar
+    datasets bit for bit, ``v`` to 1e-12 of its scale, the digests' equality
+    printed, a meshed staging's ``vhat`` bit for bit a serial model's, 10
+    steps on each side to 1e-11 of each field's scale (``pseu``, which is
+    not stored, 1e-10), and the card's restarted run bit for bit its run
+    without a restart; the 129^2 snapshot restored at 257^2 on both, 10
+    steps, the same limits.  Its callback
+    part runs after phase 4 (``rbc1025`` fused) and phase 18
+    (``periodic1024`` fused): ``integrate`` (50 steps, 2 callbacks, no
+    snapshot) a second time, each callback timed in parts beside the first
+    run's (phase_main times every route's), and one callback profiled.
+
+Every phase that reaches a save-window callback sets ``write_intervall``
+past its run's end (no flow snapshot; ``h5py`` need not import), and the
+script runs in a temporary working directory, where the callbacks append
+``data/info.txt``.  It prints whether ``h5py`` imports.
 
 The profiles of the dense and meshed routes list each banded launch of
 one step, to set beside the launches timed alone.  The ``kernels`` line
@@ -235,6 +263,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -745,14 +774,21 @@ def phase_main(torch, pt, model, phase="phase4"):
     the step time is taken apart, over 50 more steps of bare ``update_n``.
     Each step of a chunk replays the step's CUDA graph, which is built
     (:func:`prepare_chunks`) before the counts are set to 0, so the counts
-    are the replays' launches."""
+    are the replays' launches.  ``write_intervall`` is set past the run's
+    end, so the callbacks write no flow snapshot; each callback is timed
+    in parts (:func:`timed_callbacks`)."""
     prepare_chunks(torch, model, phase)
+    model.write_intervall = 1e9  # no flow snapshot: the card machine may lack h5py
     reset_counts(model)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    status = pt.integrate(model, MAIN_STEPS * model.dt, MAIN_STEPS // 2 * model.dt)
+    with timed_callbacks(torch, model) as callbacks:
+        status = pt.integrate(model, MAIN_STEPS * model.dt, MAIN_STEPS // 2 * model.dt)
     torch.cuda.synchronize()
     wall_integrate = time.perf_counter() - t0
+    CALLBACK_MS[label_of(model), route_of(model)] = callbacks
+    print(f"{phase} {label_of(model)} {route_of(model)} route: the save-window callbacks of "
+          "integrate, ms each: " + json.dumps(callbacks))
     launches = count_launches(model)
     if status != "time_limit" or abs(model.time - MAIN_STEPS * model.dt) > model.dt / 2:
         raise AssertionError(f"integrate ended with {status!r} at t={model.time}")
@@ -2117,6 +2153,7 @@ def ensemble_checks(torch, pt, route, phase="phase24"):
     # all dead
     dead = pt.NavierEnsemble(model, start)
     dead.mark_dead(range(8))
+    dead.write_intervall = 1e9  # no ensemble snapshot: the card machine may lack h5py
     result = pt.integrate(dead, 4 * model.dt, 2 * model.dt)
     print(f"{phase} {route} route: all members dead: integrate {result!r}, steps_done "
           f"{dead.steps_done.tolist()}")
@@ -2525,6 +2562,404 @@ def phase_sweep(torch, pt):
     print("phase26 ok")
 
 
+# -- phase 27: checkpoints ----------------------------------------------------------------
+
+#: phase 27's card-against-CPU cells: (cell, model configuration, routes)
+CKPT_CELLS = (("rbc129", ENSEMBLE129, ("fused", "dense", "mesh")),
+              ("hc129", HC_CELLS["hc129"], ("fused",)),
+              ("periodic128", PERIODIC128, ("fused", "mesh")),
+              ("scn129", SCN_CELLS["scn129"], ("fused",)))
+#: phase 27's resolution change: a 129^2 snapshot restored at 257^2
+CKPT_FINE = dict(ENSEMBLE129, nx=257, ny=257)
+#: steps after a restore on the card and the CPU
+CKPT_STEPS = 10
+#: card against CPU after a restore and CKPT_STEPS steps (the limit of
+#: phases 3 and 9), relative to each field's scale
+CKPT_LIMIT = 1e-11
+#: a staged backward transform ``v``, card against CPU (another summation
+#: order on each side), relative to its scale
+CKPT_V_LIMIT = 1e-12
+#: ensemble129's members staged by phase 27, and the K of the ensemble they
+#: are restored into
+CKPT_K, CKPT_K_INTO = 8, 32
+#: the parts of every save-window callback of phase_main's integrate, by
+#: (cell, route) (read by phase 27)
+CALLBACK_MS: dict = {}
+
+
+class timed_callbacks:
+    """Time each ``callback()`` of ``model`` (a ``Navier2D``) while the
+    context is open, in parts, by wrapping the model's own methods: the
+    whole callback; ``get_observables`` (the observables' device work
+    through ``_observables``, synchronized, and the copy to the host);
+    the builds of operator matrices the observables' transforms cache at
+    first use (each space's ``_mat`` on a key not yet cached); the rest
+    (the print, the ``data/info.txt`` row, the snapshot check).  Yields a
+    list with one dict of ms per callback."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model, self.rows = torch, model, []
+
+    def __enter__(self):
+        torch, model, rows = self.torch, self.model, self.rows
+        acc = {"build": 0.0, "obs": 0.0, "get": 0.0}
+        spaces = {id(sp): sp for sp in (model.field_space, model.temp_space, model.velx_space,
+                                        model.vely_space, model.pres_space, model.pseu_space)}
+        self.spaces = list(spaces.values())
+        orig = {name: getattr(model, name) for name in ("callback", "get_observables",
+                                                        "_observables")}
+
+        def timed(key, fn):
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                acc[key] += time.perf_counter() - t0
+                return out
+            return run
+
+        for sp in self.spaces:
+            mat = sp._mat
+
+            def build(axis, key, _mat=mat, _sp=sp):
+                if (axis, key) in _sp._mats:
+                    return _mat(axis, key)
+                return timed("build", _mat)(axis, key)
+
+            sp._mat = build
+        model._observables = timed("obs", orig["_observables"])
+        model.get_observables = timed("get", orig["get_observables"])
+
+        def callback():
+            for k in acc:
+                acc[k] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig["callback"]()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            rows.append({"total_ms": total * 1e3, "operator_builds_ms": acc["build"] * 1e3,
+                         "observables_ms": (acc["obs"] - acc["build"]) * 1e3,
+                         "to_host_ms": (acc["get"] - acc["obs"]) * 1e3,
+                         "print_info_txt_rest_ms": (total - acc["get"]) * 1e3})
+
+        model.callback = callback
+        return rows
+
+    def __exit__(self, *exc):
+        for name in ("callback", "get_observables", "_observables"):
+            delattr(self.model, name)
+        for sp in self.spaces:
+            del sp._mat
+        return False
+
+
+def stage(torch, pt, ck, pde):
+    """Stage ``pde``'s snapshot (a model's or an ensemble's) in host
+    memory: ``(snapshot, staging ms, digest, digest ms)``.  The staging is
+    timed from a synchronized card to the end of the host copies (the
+    backward transforms, a mesh's pencil gathers, the copies); the digest
+    is numpy and hashlib on the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = (ck.ensemble_snapshot_to_host if isinstance(pde, pt.NavierEnsemble)
+            else ck.snapshot_to_host)(pde)
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    digest = ck.snapshot_digest(snap.datasets)
+    return snap, stage_ms, digest, (time.perf_counter() - t0) * 1e3
+
+
+def restore(torch, pt, ck, pde, snap) -> float:
+    """Restore ``snap`` into ``pde`` through the file reader's group
+    restore (its datasets as the file stores them); ms to a synchronized
+    card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if isinstance(pde, pt.NavierEnsemble):
+        ck._restore_ensemble_snapshot(pde, ck._host_group(snap))
+    else:
+        ck._restore_snapshot(pde, ck._host_group(snap))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def h5py_version():
+    try:
+        import h5py
+    except ImportError:
+        return None
+    return h5py.__version__
+
+
+def checkpoint_roundtrip(torch, pt, pde, fresh, label, card):
+    """Phase 27 at full width: stage ``pde`` (a model, or an ensemble) and
+    restore it into ``fresh`` (a model of the same configuration, or an
+    ensemble of another K, its chunk graph captured); where ``h5py``
+    imports, also through a file.  Every stored leaf must come back bit
+    for bit, ``pseu`` zero, ``time`` exact (an ensemble's K, ``mask`` and
+    ``steps_done`` too, its graphs dropped); then ``MAIN_STEPS`` steps of
+    ``update_n`` (recaptured) with the route's launches a step and finite
+    observables.  Prints one row of ms and MB."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+
+    ens = isinstance(pde, pt.NavierEnsemble)
+    model = fresh.model if ens else fresh
+    # the first staging builds the transform operators its spaces have not
+    # used yet (as a first observables read does); the second is the
+    # steady cost
+    first_ms = stage(torch, pt, ck, pde)[1]
+    snap, stage_ms, digest, digest_ms = stage(torch, pt, ck, pde)
+    restore_ms = restore(torch, pt, ck, fresh, snap)
+    row = {"cell": label, "route": route_of(model), "K": pde.k if ens else None,
+           "first_stage_ms": first_ms, "stage_ms": stage_ms, "snapshot_mb": snap.nbytes / 1e6,
+           "digest_ms": digest_ms, "restore_ms": restore_ms, "digest": digest[:16],
+           "form": "in memory"}
+    if h5py_version() is not None:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as work:
+            path = os.path.join(work, "snapshot.h5")
+            t0 = time.perf_counter()
+            ck.write_host_snapshot(snap, path)
+            row["file_write_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            fresh.read(path)
+            torch.cuda.synchronize()
+            row["file_read_ms"] = (time.perf_counter() - t0) * 1e3
+        row["form"] = "in memory, then through an HDF5 file"
+    fields = [attr for _, attr in model.snapshot_vars]
+    exact = all(torch.equal(getattr(fresh.state, f), getattr(pde.state, f)) for f in fields)
+    same = fresh.time == pde.time and not bool(fresh.state.pseu.any())
+    if ens:
+        same = same and fresh.k == pde.k and torch.equal(fresh.mask, pde.mask) and \
+            torch.equal(fresh.steps_done, pde.steps_done) and \
+            fresh.steps_done.dtype == torch.int32 and not fresh._runners
+    if not (exact and same):
+        raise AssertionError(f"phase27 {label}: the restore is not exact (leaves {exact}, "
+                             f"pseu/time/K/mask/steps_done {same})")
+    route = route_of(model)
+    if ens:
+        row["capture"] = prepare_ensemble(torch, fresh, route, label, "phase27")
+        before = fresh.steps_done.clone()
+    else:
+        prepare_chunks(torch, fresh, "phase27")
+    reset_counts(model)
+    fresh.update_n(MAIN_STEPS)
+    torch.cuda.synchronize()
+    counted = count_launches(model)
+    want = {k: v * MAIN_STEPS for k, v in PER_STEP[route].items()}
+    obs = [np.asarray(v, dtype=float) for v in fresh.get_observables()]
+    row.update(launches=counted, nu=[float(v) for v in np.atleast_1d(obs[0])[:4]])
+    if counted != want or not all(np.isfinite(v).all() for v in obs):
+        raise AssertionError(f"phase27 {label}: {MAIN_STEPS} steps after the restore launched "
+                             f"{counted} (want {want}), observables {obs}")
+    if ens and fresh.steps_done.tolist() != [
+            b + MAIN_STEPS * a for b, a in zip(before.tolist(), fresh.alive().tolist())]:
+        raise AssertionError(f"phase27 {label}: steps_done {fresh.steps_done.tolist()}")
+    print("phase27 roundtrip " + json.dumps(row) + f" ({card})")
+    return row
+
+
+def staged_diffs(a, b) -> dict:
+    """Two staged snapshots against each other: the datasets whose stored
+    arrays differ, each ``v`` by its relative difference, every other one
+    as bit for bit or not."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+
+    def stored(snap):
+        out = {}
+        for path, data, kind in snap.datasets:
+            out.update(ck._stored_arrays(path, data, kind))
+        return out
+
+    sa, sb = stored(a), stored(b)
+    if sorted(sa) != sorted(sb):
+        raise AssertionError(f"staged dataset paths differ: {sorted(set(sa) ^ set(sb))}")
+    v_rel, unequal = 0.0, []
+    for name, x in sb.items():
+        y = sa[name]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            unequal.append(name)
+        elif name.rsplit("/", 1)[-1] == "v":
+            v_rel = max(v_rel, float(np.abs(y - x).max() / max(np.abs(x).max(), 1e-300)))
+        elif not np.array_equal(x, y):
+            unequal.append(name)
+    return {"v_max_rel": v_rel, "unequal": unequal}
+
+
+def ckpt_model(pt, cell, cfg, route, device="cuda", method=None):
+    """A model of one phase 27 cell on ``route`` (fused, dense, mesh) on
+    ``device``; the scenario cell with its scalar and obstacle."""
+    if cell.startswith("scn"):
+        return scenario_model(pt, cfg, route, device=device, method=method)
+    if route == "mesh":
+        kw = dict(mesh=pt.make_mesh(MESH_RANKS, device), method=method)
+    else:
+        kw = dict(device=device, step_kernel=route, conv_kernel=route, method=method)
+    model = pt.Navier2D(**cfg, **kw)
+    model.init_random(0.1, seed=0)
+    return model
+
+
+def card_vs_cpu_restart(torch, pt, snap0, snap, make, label, equivalent=True):
+    """Restore ``snap`` (taken ``CKPT_STEPS`` steps after ``snap0``, the
+    initial state) into a card model and a CPU model (``make(device,
+    method)``; the CPU model with the card's transform method), stage both
+    and hold them against each other (``staged_diffs``), then step both
+    ``CKPT_STEPS`` and compare.  The reference pair restores ``snap0`` on
+    the card and the CPU and steps ``2 * CKPT_STEPS``: the same run without
+    a restart, printed beside it.  Each field's card-vs-CPU difference
+    after the restart must be within ``CKPT_LIMIT`` of its scale, ``pseu``
+    within ``PSEU_ROUTES_LIMIT``: it is not stored and the step does not
+    read it, and its scale shrinks as the flow settles, so 20 steps from
+    ``init_random`` its card-vs-CPU difference passes 1e-11 with or
+    without a restart (2.04e-11 without one on the fused route at 129^2,
+    NVIDIA H100 80GB HBM3).  With ``equivalent`` (the snapshots' own
+    grid), the card's restarted run must equal its run without a restart.
+    Returns the card's model and staging."""
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+
+    def rel_diffs(a, b):
+        sa, sb = (pt.convert.state_to_numpy(m) for m in (a, b))
+        return {name: float(abs(sa[name] - ref).max() / max(abs(ref).max(), 1e-300))
+                for name, ref in sb.items()}
+
+    ref_card, ref_cpu = make("cuda", None), make("cpu", pt.bases.CARD_METHOD)
+    for m in (ref_card, ref_cpu):
+        restore(torch, pt, ck, m, snap0)
+        m.update_n(2 * CKPT_STEPS)
+    ref = rel_diffs(ref_card, ref_cpu)
+    card, cpu = make("cuda", None), make("cpu", pt.bases.CARD_METHOD)
+    for m in (card, cpu):
+        restore(torch, pt, ck, m, snap)
+    s_card, stage_card_ms, d_card, _ = stage(torch, pt, ck, card)
+    s_cpu, _, d_cpu, _ = stage(torch, pt, ck, cpu)
+    diffs = staged_diffs(s_card, s_cpu)
+    for m in (card, cpu):
+        m.update_n(CKPT_STEPS)
+    rel = rel_diffs(card, cpu)
+    limits = {k: PSEU_ROUTES_LIMIT if k == "pseu" else CKPT_LIMIT for k in rel}
+    over = {k: v for k, v in rel.items() if not v <= limits[k]}
+    line = (f"phase27 {label}: staged on the card and on the CPU: every vhat, coordinate and "
+            f"raw dataset bit for bit {not diffs['unequal']}, v max rel diff "
+            f"{diffs['v_max_rel']:.3e} (limit {CKPT_V_LIMIT:g}), digests equal "
+            f"{d_card == d_cpu} (they can differ only through v); card staging "
+            f"{stage_card_ms:.3f} ms; after {CKPT_STEPS} steps card vs cpu rel diffs "
+            + json.dumps({k: f"{v:.3e}" for k, v in rel.items()})
+            + f" (limit {CKPT_LIMIT:g}, pseu {PSEU_ROUTES_LIMIT:g}; the same pair without a "
+            "restart: " + json.dumps({k: f"{v:.3e}" for k, v in ref.items()}) + ")")
+    if equivalent:
+        again = rel_diffs(card, ref_card)
+        line += ("; the card's restarted run against its run without a restart: bit for bit "
+                 f"{all(v == 0.0 for v in again.values())}, max rel diff "
+                 f"{max(again.values()):.3e} (limit 1e-12)")
+        if not max(again.values()) <= 1e-12:
+            raise AssertionError(f"phase27 {label}: a restart changed the card's run: {again}")
+    print(line)
+    if diffs["unequal"] or not diffs["v_max_rel"] <= CKPT_V_LIMIT or over:
+        raise AssertionError(f"phase27 {label}: {diffs}, over the limit {over}")
+    return card, s_card
+
+
+def phase_checkpoints(torch, pt, card):
+    """Phase 27 on the small cells and the ensemble: ``ensemble129`` K =
+    ``CKPT_K`` (fused) staged and restored into an ensemble built at K =
+    ``CKPT_K_INTO`` (:func:`checkpoint_roundtrip`); on each of
+    ``CKPT_CELLS``' routes a 129^2 (128x129) snapshot, ``CKPT_STEPS``
+    steps from ``init_random``, restored on the card and on the CPU
+    (:func:`card_vs_cpu_restart`), a meshed staging's ``vhat`` against a
+    serial model's holding the same state (bit for bit); the ``rbc129``
+    fused snapshot restored at ``CKPT_FINE`` on the card and the CPU."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+
+    print(f"phase27 h5py: {h5py_version() or 'not importable'}; the snapshots are staged and "
+          "restored in memory" + ("" if h5py_version() is None else " and through files"))
+    model = route_model(pt, ENSEMBLE129, "fused")
+    src = pt.NavierEnsemble.from_seeds(model, range(CKPT_K))
+    src.update_n(CKPT_STEPS)
+    src.mark_dead([5])
+    src.update_n(CKPT_STEPS)
+    into = pt.NavierEnsemble.from_seeds(model, range(CKPT_K_INTO))
+    into.chunk_runner()
+    checkpoint_roundtrip(torch, pt, src, into, "ensemble129", card)
+    del src, into, model
+    torch.cuda.empty_cache()
+    for cell, cfg, routes in CKPT_CELLS:
+        for route in routes:
+            src = ckpt_model(pt, cell, cfg, route)
+            snap0 = stage(torch, pt, ck, src)[0]
+            src.update_n(CKPT_STEPS)
+            snap = stage(torch, pt, ck, src)[0]
+
+            def make(device, method, cell=cell, cfg=cfg, route=route):
+                return ckpt_model(pt, cell, cfg, route, device, method)
+
+            meshed, staged = card_vs_cpu_restart(torch, pt, snap0, snap, make,
+                                                 f"{cell} {route} route")
+            if route == "mesh":
+                serial = ckpt_model(pt, cell, cfg, "dense")
+                restore(torch, pt, ck, serial, snap)
+                s_serial = stage(torch, pt, ck, serial)[0]
+                vhat = {p: d for p, d, _ in s_serial.datasets if p.endswith("/vhat")}
+                same = all(np.array_equal(d, vhat[p]) for p, d, _ in staged.datasets
+                           if p.endswith("/vhat"))
+                print(f"phase27 {cell} meshed staging: vhat datasets bit for bit a serial "
+                      f"model's holding the same state {same}")
+                if not same:
+                    raise AssertionError(f"phase27 {cell}: meshed vhat differs from serial")
+            if (cell, route) == ("rbc129", "fused"):
+                def fine(device, method):
+                    return pt.Navier2D(**CKPT_FINE, device=device, method=method)
+
+                card_vs_cpu_restart(torch, pt, snap0, snap, fine, "rbc129 -> 257^2 fused route",
+                                    equivalent=False)
+            del src, meshed
+    torch.cuda.empty_cache()
+    print("phase27 ok")
+
+
+def phase_callback_cost(torch, pt, model, card):
+    """Phase 27's callback cost on ``model`` (fused ``rbc1025`` or
+    ``periodic1024``), right after its phase_main run: ``integrate``
+    again (``MAIN_STEPS`` steps, 2 callbacks, no snapshot), each callback
+    timed in parts, beside the first run's (``CALLBACK_MS``); then a
+    torch.profiler trace of one more callback, its ops by host time and
+    its device time."""
+    label, route = label_of(model), route_of(model)
+    model.write_intervall = 1e9
+    t0 = model.time
+    with timed_callbacks(torch, model) as second:
+        status = pt.integrate(model, t0 + MAIN_STEPS * model.dt, MAIN_STEPS // 2 * model.dt)
+    first = CALLBACK_MS[label, route]
+    if status != "time_limit" or len(second) != 2:
+        raise AssertionError(f"phase27 callback cost: integrate {status!r}, {len(second)} "
+                             "callbacks")
+    print(f"phase27 callbacks {label} {route} route ({card}), ms each, the model's first "
+          f"integrate: " + json.dumps(first) + "; its second: " + json.dumps(second))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model._obs_cache = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.callback()
+        torch.cuda.synchronize()
+    device_us = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
+                    if ev.device_type == DeviceType.CUDA)
+    top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    print(f"phase27 callback profile {label} {route} route: device {device_us / 1e3:.4f} ms; "
+          "ops by host ms: " + json.dumps({e.key: round(e.self_cpu_time_total / 1e3, 4)
+                                           for e in top}))
+
+
 # -- the kernels line --------------------------------------------------------------
 
 
@@ -2607,6 +3042,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # the save-window callbacks write data/info.txt into the working directory
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        os.chdir(work)
+        try:
+            return run(torch)
+        finally:
+            os.chdir(ROOT)
+
+
+def run(torch) -> int:
     import rustpde_mpi_tpu_torch as pt
     from rustpde_mpi_tpu_torch.ops import _build
 
@@ -2642,9 +3087,12 @@ def main() -> int:
     phase_card_vs_cpu(pt)
     launches, bare_ms = {}, {}
     launches["fused"], bare_ms["fused"] = phase_main(torch, pt, main_model)
+    phase_callback_cost(torch, pt, main_model, card)
     phase_profile(torch, main_model, bare_ms["fused"])
     phase_chunks(torch, pt, main_model)
     phase_ensemble1025(torch, pt, main_model, "fused", records, launches, bare_ms)
+    checkpoint_roundtrip(torch, pt, main_model, pt.Navier2D(**RBC1025, device="cuda"), "rbc1025",
+                         card)
     del main_model
     torch.cuda.empty_cache()
 
@@ -2682,6 +3130,8 @@ def main() -> int:
     phase_profile(torch, mesh_model, bare_ms["mesh"], phase="phase13")
     phase_chunks(torch, pt, mesh_model)
     phase_ensemble1025(torch, pt, mesh_model, "mesh", records, launches, bare_ms)
+    checkpoint_roundtrip(torch, pt, mesh_model,
+                         pt.Navier2D(**RBC1025, mesh=pt.make_mesh(MESH_RANKS)), "rbc1025", card)
     del mesh_model, mesh
     torch.cuda.empty_cache()
 
@@ -2709,8 +3159,15 @@ def main() -> int:
             phase_periodic_small(pt)
         key = f"periodic_{route}"
         launches[key], bare_ms[key] = phase_main(torch, pt, model, "phase18")
+        if route == "fused":
+            phase_callback_cost(torch, pt, model, card)
         phase_profile(torch, model, bare_ms[key], phase="phase18")
         phase_chunks(torch, pt, model)
+        if route == "fused":
+            fresh = pt.Navier2D(**PERIODIC1024, device="cuda", step_kernel=route,
+                                conv_kernel=route)
+            checkpoint_roundtrip(torch, pt, model, fresh, "periodic1024", card)
+            del fresh
         del model
         torch.cuda.empty_cache()
     phase_periodic_mesh(torch, pt, records, launches, bare_ms)
@@ -2721,6 +3178,7 @@ def main() -> int:
     phase_scn_small(pt)
     phase_ensemble129(torch, pt, records, launches)
     phase_sweep(torch, pt)
+    phase_checkpoints(torch, pt, card)
     phase_methods(torch, pt)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))

@@ -63,6 +63,7 @@ from .config import StabilityConfig  # noqa: F401
 from .bases import (Base, BaseKind, Space2, cheb_dirichlet, cheb_dirichlet_neumann,  # noqa: F401
                     cheb_neumann, chebyshev, fourier_c2c, fourier_r2c)
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
+from .field import Field2  # noqa: F401
 from .models.boundary_conditions import (bc_hc_values, bc_rbc_values,  # noqa: F401
                                          bc_zero_values, pres_bc_rbc_values)
 from .models.ensemble import NavierEnsemble  # noqa: F401

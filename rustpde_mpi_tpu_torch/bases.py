@@ -570,6 +570,13 @@ class Space2:
         port's own storage, so a copy)."""
         return vhat.detach().cpu().numpy()
 
+    def vhat_from_complex(self, vhat_c) -> torch.Tensor:
+        """Host coefficients in the complex convention (natural order) as
+        this space holds them: the reading counterpart of
+        :meth:`vhat_as_complex`, a copy on the space's device in its
+        spectral dtype."""
+        return self.place_spectral(vhat_c)
+
 
 def divide_scale(out: torch.Tensor, deriv, scale) -> torch.Tensor:
     """A derivative in unit coordinates divided by ``scale^deriv``, the

@@ -302,6 +302,13 @@ class CampaignModelBase:
         valid)."""
         return type(self.state)(*(t.clone() for t in runner.carry[: len(self.state)]))
 
+    def restart_fill(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The value a restart gives a state leaf that a gathered snapshot
+        does not carry (``pseu``; a scenario leaf an older file lacks):
+        zero."""
+        del name
+        return torch.zeros_like(like)
+
     # -- chunks -----------------------------------------------------------------
 
     def step_n(self, state, n: int):

@@ -1,9 +1,9 @@
 """NavierEnsemble: K member states of one Navier2D, stepped together.
 
 Counterpart of the JAX package's ``models/ensemble.py`` (its
-``NavierEnsemble``), less its snapshots, stats, integrity digests, dt ladder
-and overlapped IO.  The JAX package stacks K member states on a leading
-axis and advances them as one ``jax.vmap`` of the model's step, the Pallas
+``NavierEnsemble``), less its stats, integrity digests, dt ladder, sharded
+checkpoints and overlapped IO.  The JAX package stacks K member states on a
+leading axis and advances them as one ``jax.vmap`` of the model's step, the Pallas
 kernels batched by ``pallas_call``'s batching rule.  Here the member-stacked
 state goes through the template model's own step (:meth:`Navier2D._step`
 takes a leading member dim), and every kernel launch of a step serves all K
@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import checkpoint, navier_io
 from ..utils.governor import ChunkStatus
 from ..utils.jit import scan_buckets
 from .campaign import ChunkRunner
@@ -68,6 +69,9 @@ class NavierEnsemble:
         self.k = int(stacked.temp.shape[0])
         self.dt = model.dt
         self.time = 0.0
+        #: the callback's snapshot throttle, the template model's at
+        #: construction (see ``Navier2D.write_intervall``)
+        self.write_intervall = model.write_intervall
         #: per-member diagnostics history: each append is a length-K list
         self.diagnostics: dict[str, list] = {}
         self.last_chunk_status = None
@@ -110,6 +114,14 @@ class NavierEnsemble:
     @property
     def ensemble_size(self) -> int:
         return self.k
+
+    @property
+    def nx(self) -> int:
+        return self.model.nx
+
+    @property
+    def ny(self) -> int:
+        return self.model.ny
 
     @property
     def compat_key(self) -> tuple:
@@ -226,12 +238,24 @@ class NavierEnsemble:
         """Acknowledge a ``pre_divergence`` catch: unlatch :meth:`exit`."""
         self._pre_div_latch = False
 
+    @property
+    def pre_divergence_latched(self) -> bool:
+        """True while an unacknowledged sentinel catch latches :meth:`exit`
+        (``last_chunk_status.pinned`` names the tripping members)."""
+        return bool(self._pre_div_latch)
+
+    def _drop_chunks(self) -> None:
+        """Forget the chunk runners and the observables cache: a restore at
+        another K (or with other fields) leaves a captured step stale."""
+        self._runners.clear()
+        self._obs_cache = None
+
     def _set_solids(self, fac, temp_add) -> None:
         """Per-member penalization factors (leading K dim) for every step,
         in place of the template model's (:func:`..workloads.geometry_sweep`);
         the captured chunks, which hold the old ones, are dropped."""
         self._solid = None if fac is None else (fac, temp_add)
-        self._runners.clear()
+        self._drop_chunks()
 
     def chunk_runner(self, armed: bool | None = None) -> ChunkRunner:
         """The runner of the plain (``armed=False``) or the sentinel chunk
@@ -404,22 +428,22 @@ class NavierEnsemble:
     def div_norm(self) -> np.ndarray:
         return self.get_observables()[3]
 
+    # -- snapshots -------------------------------------------------------------
+
+    def write(self, filename: str) -> None:
+        """Write a K-member snapshot (per-member groups, needs ``h5py``;
+        :mod:`..utils.checkpoint`)."""
+        checkpoint.write_ensemble_snapshot(self, filename)
+
+    def read(self, filename: str) -> None:
+        """Restore the members, alive mask, step counts and time from an
+        ensemble snapshot, at the file's member count."""
+        checkpoint.read_ensemble_snapshot(self, filename)
+
     def callback(self) -> None:
-        """Save-boundary hook of :func:`..utils.integrate.integrate`: append
-        every member's observables and alive flag to ``diagnostics`` and
-        print one aggregate line (ensemble snapshots are not ported yet)."""
-        t = self.time
-        vals = self.get_observables()
-        alive = self.alive()
-        nu, nuvol, re, div = vals[:4]
-        for key, val in (("time", [t] * self.k), ("nu", nu), ("nuvol", nuvol), ("re", re),
-                         ("div", div), *zip(self.observable_names[4:], vals[4:]),
-                         ("alive", alive.astype(float))):
-            self.diagnostics.setdefault(key, []).append([float(v) for v in val])
-        n_alive = int(alive.sum())
-        if n_alive:
-            live = np.asarray(nu)[alive]
-            nu_info = f"Nu = {live.mean():5.3e} [{live.min():5.3e}, {live.max():5.3e}]"
-        else:
-            nu_info = "Nu = --- (all members diverged)"
-        print(f"time = {t:9.3f}      alive = {n_alive}/{self.k}      {nu_info}")
+        """Save-boundary hook of :func:`..utils.integrate.integrate`
+        (:func:`..utils.navier_io.ensemble_callback`): append every
+        member's observables and alive flag to ``diagnostics``, print one
+        aggregate line, and write ``data/ensemble{t:08.2f}.h5`` when
+        ``write_intervall`` lets it."""
+        navier_io.ensemble_callback(self)

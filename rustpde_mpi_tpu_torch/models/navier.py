@@ -83,6 +83,7 @@ from ..ops.fused_conv import build_model_convs
 from ..ops.fused_step import build_model_step
 from ..parallel.spaces import PencilSpace2
 from ..solver import HholtzAdi, Poisson
+from ..utils import checkpoint, navier_io
 from . import boundary_conditions as bcs
 from . import functions as fns
 from .campaign import CampaignModelBase
@@ -218,6 +219,10 @@ class Navier2D(CampaignModelBase):
         ka = fns.get_ka(ra, pr, self.scale[1] * 2.0)
         self.params = {"ra": ra, "pr": pr, "nu": nu, "ka": ka}
         self.diagnostics: dict[str, list[float]] = {}
+        #: the callback writes a flow snapshot every save boundary unless
+        #: this throttles it (a boundary writes when ``(t + dt/2) %
+        #: write_intervall < dt``)
+        self.write_intervall: float | None = None
         self._init_campaign()
         self._solid = None  # the penalization factors of set_solid
         self._scenario = scenario
@@ -743,18 +748,30 @@ class Navier2D(CampaignModelBase):
     def eval_re(self) -> float:
         return self.get_observables()[2]
 
+    # -- snapshots -------------------------------------------------------------
+
+    def write(self, filename: str) -> None:
+        """Write a flow snapshot in the reference's HDF5 layout (needs
+        ``h5py``; :mod:`..utils.checkpoint`)."""
+        checkpoint.write_snapshot(self, filename)
+
+    def read(self, filename: str) -> None:
+        """Restore from a snapshot: the spectral coefficients, interpolated
+        on a resolution change, and ``time`` (needs ``h5py``)."""
+        checkpoint.read_snapshot(self, filename)
+
+    def read_unwrap(self, filename: str) -> None:
+        """:meth:`read`, printing the error of an unreadable file instead of
+        raising it."""
+        try:
+            self.read(filename)
+        except (OSError, KeyError, checkpoint.CheckpointError) as exc:
+            print(f"error while reading file {filename}: {exc}")
+
     def callback(self) -> None:
-        """Save-boundary hook of :func:`..utils.integrate.integrate`: append
-        the observables to ``diagnostics`` and print them (flow snapshots
-        are not ported yet)."""
-        t = self.get_time()
-        vals = self.get_observables()
-        nu, nuvol, re, div = vals[:4]
-        # an extended vocabulary (the scalar's sherwood) rides along by name
-        extras = list(zip(self.observable_names[4:], vals[4:]))
-        for key, val in [("time", t), ("nu", nu), ("nuvol", nuvol), ("re", re),
-                         ("div", div)] + extras:
-            self.diagnostics.setdefault(key, []).append(float(val))
-        print(f"time = {t:9.3f}      |div| = {div:4.2e}      "
-              f"Nu = {nu:5.3e}      Nuv = {nuvol:5.3e}      Re = {re:5.3e}"
-              + "".join(f"      {name.capitalize()} = {val:5.3e}" for name, val in extras))
+        """Save-boundary hook of :func:`..utils.integrate.integrate`
+        (:func:`..utils.navier_io.callback`): the flow snapshot
+        ``data/flow{t:08.2f}.h5`` when ``write_intervall`` lets it, then
+        the observables appended to ``diagnostics``, printed and appended
+        to ``data/info.txt``."""
+        navier_io.callback(self)

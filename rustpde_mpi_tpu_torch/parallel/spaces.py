@@ -93,6 +93,17 @@ class PencilSpace2:
     def gather_spectral(self, block: torch.Tensor) -> torch.Tensor:
         return self.spectral.gather_x_pencil(block)
 
+    def vhat_as_complex(self, block: torch.Tensor) -> np.ndarray:
+        """Host copy of the global coefficients of a spectral x-pencil, in
+        the complex convention (gathered, the pad sliced away)."""
+        return self.gather_spectral(block).detach().cpu().numpy()
+
+    def vhat_from_complex(self, vhat_c) -> torch.Tensor:
+        """Global host coefficients -> spectral x-pencil in the space's
+        spectral dtype (the reading counterpart of
+        :meth:`vhat_as_complex`)."""
+        return self.place_spectral(vhat_c)
+
     def x_to_y(self, block: torch.Tensor) -> torch.Tensor:
         """x-pencil -> y-pencil, through the mesh's transpose."""
         return self.mesh.ring.x_to_y(block)

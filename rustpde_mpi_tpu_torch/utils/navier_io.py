@@ -1,0 +1,85 @@
+"""Callback-side IO of the Navier models (counterpart of the JAX package's
+``utils/navier_io.py``, its synchronous form): at a save boundary write the
+flow snapshot (throttled by ``write_intervall``), print time, |div|, Nu,
+Nuvol and Re, and append a ``time nu nuvol re`` row to ``data/info.txt``;
+an ensemble writes its K-member snapshot instead of the row.
+
+A failed write (``OSError``) is printed and never fatal, as the
+reference's.  A missing ``h5py`` is not caught: a callback that must write
+a snapshot raises ``ImportError`` where ``h5py`` is not installed, so a run
+that should save never goes on without its files (set ``write_intervall``
+past the run's end to write none).  The statistics of the reference's
+callback come with the statistics engine, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from . import checkpoint
+
+
+def _due(t: float, dt: float, write_intervall) -> bool:
+    """Whether the boundary at ``t`` writes a snapshot: every save boundary
+    unless ``write_intervall`` throttles it, as the reference throttles."""
+    return write_intervall is None or (t + dt / 2.0) % write_intervall < dt
+
+
+def callback(model) -> None:
+    """The save-boundary hook of a model (``Navier2D.callback``): the flow
+    snapshot ``data/flow{t:08.2f}.h5`` when due, then the observables
+    appended to ``model.diagnostics``, printed, and appended to
+    ``data/info.txt`` as a ``time nu nuvol re`` row."""
+    t = model.get_time()
+    os.makedirs("data", exist_ok=True)
+    if _due(t, model.get_dt(), model.write_intervall):
+        flowname = f"data/flow{t:08.2f}.h5"
+        try:
+            checkpoint.write_snapshot(model, flowname)
+        except OSError as exc:  # never fatal, matching the reference
+            print(f"unable to write {flowname}: {exc}")
+    vals = model.get_observables()
+    nu, nuvol, re, div = (float(v) for v in vals[:4])
+    # an extended vocabulary (the passive scalar's sherwood) rides along by
+    # name behind the conventional four; index 3 stays the NaN detector
+    extras = [(name, float(v)) for name, v in zip(model.observable_names[4:], vals[4:])]
+    for key, val in [("time", t), ("nu", nu), ("nuvol", nuvol), ("re", re), ("div", div)] + extras:
+        model.diagnostics.setdefault(key, []).append(float(val))
+    print(f"time = {t:9.3f}      |div| = {div:4.2e}      "
+          f"Nu = {nu:5.3e}      Nuv = {nuvol:5.3e}      Re = {re:5.3e}"
+          + "".join(f"      {name.capitalize()} = {val:5.3e}" for name, val in extras))
+    try:
+        with open("data/info.txt", "a", encoding="utf-8") as fh:
+            fh.write(f"{t} {nu} {nuvol} {re}\n")
+    except OSError as exc:
+        print(f"unable to write data/info.txt: {exc}")
+
+
+def ensemble_callback(ens) -> None:
+    """The save-boundary hook of an ensemble (``NavierEnsemble.callback``):
+    append every member's observables and alive flag to ``diagnostics``,
+    print one aggregate line, and write ``data/ensemble{t:08.2f}.h5`` when
+    ``write_intervall`` says so."""
+    t = ens.time
+    vals = ens.get_observables()
+    alive = ens.alive()
+    nu, nuvol, re, div = vals[:4]
+    for key, val in (("time", [t] * ens.k), ("nu", nu), ("nuvol", nuvol), ("re", re),
+                     ("div", div), *zip(tuple(ens.observable_names)[4:], vals[4:]),
+                     ("alive", alive.astype(float))):
+        ens.diagnostics.setdefault(key, []).append([float(v) for v in val])
+    n_alive = int(alive.sum())
+    if n_alive:
+        live = np.asarray(nu)[alive]
+        nu_info = f"Nu = {live.mean():5.3e} [{live.min():5.3e}, {live.max():5.3e}]"
+    else:
+        nu_info = "Nu = --- (all members diverged)"
+    print(f"time = {t:9.3f}      alive = {n_alive}/{ens.k}      {nu_info}")
+    if _due(t, ens.dt, ens.write_intervall):
+        fname = f"data/ensemble{t:08.2f}.h5"
+        try:
+            checkpoint.write_ensemble_snapshot(ens, fname)
+        except OSError as exc:  # never fatal, like the single-run callback
+            print(f"unable to write ensemble snapshot: {exc}")

@@ -535,11 +535,11 @@ PER_STEP = {"fused": {"fused_conv": 3, "fused_stage": 7}, "dense": {"banded_solv
 ROUTES = sorted(PER_STEP)
 
 
-def _route_model(route, device, n=33):
+def _route_model(route, device, n=33, method=None):
     if route.endswith("mesh"):
-        kw = dict(mesh=pt.make_mesh(4, device))
+        kw = dict(mesh=pt.make_mesh(4, device), method=method)
     else:
-        kw = dict(device=device)
+        kw = dict(device=device, method=method)
         if route.endswith("dense"):
             kw.update(step_kernel="dense", conv_kernel="dense")
     bc = "hc" if route.startswith("hc") else "rbc"
@@ -1039,3 +1039,88 @@ def test_ensemble_nan_isolation_on_card(device):
     assert ens.steps_done.tolist() == [0, 7, 7]
     for x, y in zip(ens.state, clean.state):
         assert torch.equal(x[1:], y[1:])
+
+
+# -- checkpoints: staging on the card, restores into captured chunks ---------------------
+
+
+def _stored(snap):
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+
+    out = {}
+    for path, data, kind in snap.datasets:
+        out.update(ck._stored_arrays(path, data, kind))
+    return out
+
+
+@pytest.mark.parametrize("route", ["fused", "dense", "mesh", "periodic_fused", "periodic_mesh",
+                                   "hc_dense", "scn_fused"])
+def test_card_staging_matches_cpu_staging(device, route):
+    """A snapshot staged on the card equals the CPU staging of the same
+    state (the CPU model on the card's transform method): every ``vhat``,
+    coordinate and scalar dataset bit for bit, each backward transform
+    ``v`` to 1e-12 of its scale."""
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+
+    card = _route_model(route, device)
+    card.update_n(3)
+    snap = ck.snapshot_to_host(card)
+    cpu = _route_model(route, "cpu", method=pt.bases.CARD_METHOD)
+    ck._restore_snapshot(cpu, ck._host_group(snap))
+    got, want = _stored(snap), _stored(ck.snapshot_to_host(cpu))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name.rsplit("/", 1)[-1] == "v":
+            assert np.abs(g - w).max() <= 1e-12 * np.abs(w).max(), name
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("route", ["fused", "dense", "mesh"])
+def test_same_shape_restore_keeps_the_captured_graph(device, route):
+    """A restore of a staged snapshot into a model whose chunk graph is
+    captured keeps the graph; its steps equal eager steps from the
+    restored state bit for bit."""
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+
+    src = _route_model(route, device)
+    src.update_n(3)
+    snap = ck.snapshot_to_host(src)
+    a, b = _route_model(route, device), _route_model(route, device)
+    runner = a.chunk_runner()
+    for m in (a, b):
+        ck._restore_snapshot(m, ck._host_group(snap))
+    assert a.chunk_runner() is runner and runner.captured
+    a.update_n(5)
+    for _ in range(5):
+        b.update()
+    _assert_bit_equal(a.state, b.state)
+
+
+@pytest.mark.parametrize("route", ["fused", "mesh"])
+def test_ensemble_restore_at_another_k_recaptures(device, route):
+    """An ensemble of K = 5 restores a K = 3 snapshot: K, mask and counts
+    come back, the captured graph is dropped, and the next ``update_n``
+    captures the 3-member step, which equals eager steps bit for bit."""
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+
+    src = _ensemble_route(route, device)
+    src.update_n(2)
+    src.mark_dead([1])
+    snap = ck.ensemble_snapshot_to_host(src)
+    ens = _ensemble_route(route, device, k=5)
+    first = ens.chunk_runner()
+    ck._restore_ensemble_snapshot(ens, ck._host_group(snap))
+    assert ens.k == 3 and not ens._runners
+    assert ens.alive().tolist() == [True, False, True] and ens.steps_done.tolist() == [2, 2, 2]
+    start = ens.state
+    ens.update_n(4)
+    assert ens.chunk_runner() is not first and ens.chunk_runner().captured
+    assert ens.steps_done.tolist() == [6, 2, 6]
+    state = ens.model._step(start)
+    for _ in range(3):
+        state = ens.model._step(state)
+    for x, y in zip(ens.state, state):
+        assert torch.equal(x[0], y[0]) and torch.equal(x[2], y[2])

@@ -236,7 +236,8 @@ def test_nan_isolation_matches_jax():
     assert not port.exit() and not jens.exit()
 
 
-def test_all_dead_ensemble_exits():
+def test_all_dead_ensemble_exits(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the callback writes data/ in the working directory
     jens = rp.NavierEnsemble.from_seeds(_jax_model(), seeds=[0])
     jens.set_member(0, _nan_mode0(jens.member_state(0), "jax"))
     jens.update_n(3)
@@ -340,6 +341,26 @@ def test_sentinel_chunk_matches_jax():
     assert not port.exit()
 
 
+def test_public_accessors_match_jax():
+    """``nx``, ``ny`` and ``pre_divergence_latched`` as the JAX ensemble's:
+    the latch is set by a sentinel catch and cleared by acknowledgement."""
+    jmodel = _jax_model()
+    jmodel.set_stability(JaxStabilityConfig())
+    jens = rp.NavierEnsemble.from_seeds(jmodel, seeds=range(2))
+    port = _port_from_jax(jens, _port_model())
+    port.set_stability(StabilityConfig())
+    assert (port.nx, port.ny) == (jens.nx, jens.ny) == SHAPES["confined"]
+    assert port.pre_divergence_latched is jens.pre_divergence_latched is False
+    for ens in (jens, port):
+        spike = ens.member_state(1)
+        ens.set_member(1, spike._replace(velx=spike.velx * SPIKE, vely=spike.vely * SPIKE))
+        assert ens.update_n(4).pre_divergence
+    assert port.pre_divergence_latched is jens.pre_divergence_latched is True
+    for ens in (jens, port):
+        ens.clear_pre_divergence()
+    assert port.pre_divergence_latched is jens.pre_divergence_latched is False
+
+
 # -- the geometry sweep --------------------------------------------------------------------
 
 
@@ -422,7 +443,8 @@ def test_hc_and_scenario_ensembles_match_jax(case):
 # -- the driver and the callback -----------------------------------------------------------
 
 
-def test_integrate_drives_an_ensemble(capsys):
+def test_integrate_drives_an_ensemble(capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the callback writes data/ in the working directory
     ens = pt.NavierEnsemble.from_seeds(_port_model(), range(2))
     assert integrate(ens, 0.04, 0.02) == "time_limit"
     assert ens.steps_done.tolist() == [4, 4]

@@ -250,7 +250,8 @@ def test_integrate_matches_reference_driver(case, capsys):
     capsys.readouterr()
 
 
-def test_integrate_model_records_diagnostics(capsys):
+def test_integrate_model_records_diagnostics(capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the callback writes data/ in the working directory
     model = pt.Navier2D.new_confined(17, 17, 1e4, 1.0, 1e-2, 1.0, "rbc", device="cpu")
     assert tintegrate.integrate(model, 0.1, 0.05) == "time_limit"
     assert model.diagnostics["time"] == pytest.approx([0.05, 0.1])
@@ -258,7 +259,8 @@ def test_integrate_model_records_diagnostics(capsys):
     assert "Nu =" in capsys.readouterr().out
 
 
-def test_exit_fires_on_non_finite_state(capsys):
+def test_exit_fires_on_non_finite_state(capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the callback writes data/ in the working directory
     model = pt.Navier2D.new_confined(17, 17, 1e4, 1.0, 1e-2, 1.0, "rbc", device="cpu")
     assert not model.exit()
     model.state = model.state._replace(velx=model.state.velx * float("nan"))
