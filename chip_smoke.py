@@ -235,6 +235,26 @@ launch of a step serving all K members:
     snapshot) a second time, each callback timed in parts beside the first
     run's (phase_main times every route's), and one callback profiled.
 
+28. the in-scan statistics and the dt governor: on ``rbc1025`` (after
+    each route's phase 27 or 25) 50 steps of bare ``update_n`` with
+    ``set_stats(StatsConfig(stride=16))`` against the same run without,
+    the states bit for bit, the launches counted (a step's, plus the
+    sample graph's own on the steps that replay it), ms/step on and off
+    (off, on, on, off), one sample's device ms (profiler) and the sample
+    graph's capture; ``set_dt`` dt -> dt/2 -> dt (first-visit and revisit
+    ms, the bytes a rung holds), after each move every fused stage against
+    its plain version on the new operators (1e-12 of max|plain|), one
+    graph step against one eager step bit for bit, 50 steps finite; the
+    staged snapshot's ``stats_state`` restored bit for bit; on the fused
+    route a governed run: phase 14's CFL spike fed through
+    ``StabilityGovernor.on_chunk``, each ``retry``/``adjust`` applied with
+    ``set_dt``, the dt trajectory and ``RunHealth`` printed, the run
+    finite and back at the anchor; then, at 129^2 (stride 2, 20 steps),
+    every route's statistics on the card against the CPU (1e-11 of each
+    leaf's scale, the health vector); and ``ensemble129`` K = 32 fused:
+    member-steps/s with statistics on and off, members' sums against solo
+    runs', ``set_dt`` on the ensemble, its staged snapshot.
+
 Every phase that reaches a save-window callback sets ``write_intervall``
 past its run's end (no flow snapshot; ``h5py`` need not import), and the
 script runs in a temporary working directory, where the callbacks append
@@ -2960,6 +2980,376 @@ def phase_callback_cost(torch, pt, model, card):
                                            for e in top}))
 
 
+# -- phase 28: the in-scan statistics, set_dt and the governor -------------------
+
+#: the statistics' stride on the main path (the JAX package's default)
+STATS_STRIDE = 16
+#: the most the statistics may add to a step at that stride (the JAX
+#: package's gate), held on the middle two of four timed runs
+STATS_GATE = 0.05
+#: the card-vs-CPU statistics check (129^2): stride and steps
+STATS_SMALL = (2, 20)
+#: the relative limit of the statistics' card-vs-CPU leaves and health
+STATS_LIMIT = 1e-11
+
+
+def grouped(model, delta) -> dict:
+    """A runner's per-wrapper launches summed by kernel name."""
+    out = {}
+    for name, d in zip([n for n, ks in model.kernels().items() for _ in ks], delta):
+        out[name] = out.get(name, 0) + d
+    return out
+
+
+def sample_device_ms(torch, model, reps=5) -> float:
+    """One statistics sample's device ms (the sample and the fold, run
+    eagerly), from the profiler's CUDA events over ``reps`` samples."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = model.stats_engine
+    eng.fold(model.stats_state, eng.sample(model.state))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            eng.fold(model.stats_state, eng.sample(model.state))
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.end - ev.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print("phase28 sample profile, ms a sample by kernel: " + "; ".join(
+        f"{t / reps / 1e3:.4f} {name[:60]}" for name, t in top))
+    return sum(by_name.values()) / reps / 1e3
+
+
+def replays_ms(torch, runner, variant, reps=20) -> float:
+    """Device ms of one replay of a runner's graph ``variant``, by CUDA
+    events over ``reps`` replays queued back to back."""
+    runner.run(1, variant)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    runner.run(reps, variant)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stats_leaves_equal(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_stats_main(torch, pt, model, card, phase="phase28"):
+    """Statistics on ``rbc1025`` (the route's main model): 50 steps of bare
+    ``update_n`` with stride 16 against the same steps without, bit for
+    bit; launches counted over the run; ms/step off, on, on, off; one
+    sample's device ms; the staged snapshot's statistics restored bit for
+    bit.  Returns ``{"on": [...], "off": [...]}`` ms/step."""
+    from rustpde_mpi_tpu_torch.utils import checkpoint
+
+    route = route_of(model)
+    s0, t0 = model.state, model.time
+    model.set_stats(None)
+    model.update_n(MAIN_STEPS)
+    off_state = model.state
+    model.state, model.time = s0, t0
+    model.set_stats(pt.StatsConfig(stride=STATS_STRIDE))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner = model.chunk_runner()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    step, sampled = grouped(model, runner.deltas[0]), grouped(model, runner.deltas[1])
+    extra = {k: sampled[k] - step.get(k, 0) for k in sampled}
+    print(f"{phase} {label_of(model)} {route} route: statistics chunk graphs (step; step + "
+          f"sample) captured in {capture_s:.3f} s, pool {runner.pool_bytes / 2**20:.1f} MiB; "
+          f"launches a replay {step} and {sampled} (the sample's own {extra})")
+    if step != PER_STEP[route]:
+        raise AssertionError(f"{route}: a statistics replay launches {step}, a step "
+                             f"{PER_STEP[route]}")
+    reset_counts(model)
+    model.update_n(MAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = count_launches(model)
+    samples = MAIN_STEPS // STATS_STRIDE
+    want = {k: v * MAIN_STEPS + extra.get(k, 0) * samples for k, v in PER_STEP[route].items()}
+    if launches != want or not same_state(torch, model.state, off_state):
+        raise AssertionError(f"{route}: statistics on: launches {launches} (want {want}), state "
+                             f"{state_diffs(torch, model.state, off_state)}")
+    if int(model._stats_tick[0]) != MAIN_STEPS or float(model.stats_state.samples[0]) != samples:
+        raise AssertionError(f"{route}: tick {model._stats_tick.tolist()}, samples "
+                             f"{model.stats_state.samples.tolist()}")
+    # the sample inside the graph: replays of the step + sample graph
+    # against replays of the step graph, by CUDA events (the carry is the
+    # runner's scratch copy; the counters are read above)
+    replay_ms = [replays_ms(torch, runner, variant) for variant in (0, 1)]
+    health = model.stats_summary()
+    if not all(math.isfinite(v) for v in health.values()):
+        raise AssertionError(f"{route}: health {health}")
+    # the staged snapshot carries the sums; restored, bit for bit
+    sums, tick = model.stats_state, model._stats_tick
+    snap = checkpoint.snapshot_to_host(model)
+    model.reset_stats()
+    checkpoint._restore_snapshot(model, checkpoint._host_group(snap))
+    if not stats_leaves_equal(torch, model.stats_state, sums) or \
+            not torch.equal(model._stats_tick, tick):
+        raise AssertionError(f"{route}: the staged statistics did not restore bit for bit")
+    model.state, model.time = s0, t0
+    sample_ms = sample_device_ms(torch, model)
+    ms = {"off": [], "on": []}
+    device_ms = {"off": [], "on": []}
+    for on in (False, True, True, False) * 2:
+        model.set_stats(pt.StatsConfig(stride=STATS_STRIDE) if on else None)
+        # a new graph's first replay uploads it: replay both graphs once first
+        model.update_n(STATS_STRIDE)
+        model.reset_stats()
+        model.state, model.time = s0, t0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        model.update_n(MAIN_STEPS)
+        end.record()
+        torch.cuda.synchronize()
+        key = "on" if on else "off"
+        ms[key].append((time.perf_counter() - t) / MAIN_STEPS * 1e3)
+        device_ms[key].append(start.elapsed_time(end) / MAIN_STEPS)
+    on, off = sorted(ms["on"])[1:3], sorted(ms["off"])[1:3]
+    on, off = sum(on) / 2, sum(off) / 2
+    print(f"{phase} {label_of(model)} f64 {route} route ({card}): {MAIN_STEPS} steps of bare "
+          f"update_n, statistics stride {STATS_STRIDE}: on {ms['on']} off {ms['off']} ms/step "
+          f"(CUDA events from the first launch to the last: on {device_ms['on']} off "
+          f"{device_ms['off']}), overhead of the middle two {on / off - 1.0:+.4f}; one sample {sample_ms:.4f} ms device time "
+          f"(profiler; {sample_ms / STATS_STRIDE:.4f} ms/step at the stride); a replay of the "
+          f"step graph {replay_ms[0]:.4f} ms, of the step + sample graph {replay_ms[1]:.4f} ms "
+          f"(CUDA events); launches in "
+          f"the statistics run {launches}; states on/off bit for bit; staged snapshot "
+          f"{snap.nbytes / 2**20:.2f} MB, statistics restored bit for bit; health "
+          + json.dumps(health))
+    model.state, model.time = s0, t0
+    if on / off - 1.0 > STATS_GATE:
+        raise AssertionError(f"{route}: the statistics add {on / off - 1.0:+.4f} to a step, over "
+                             f"the {STATS_GATE:.0%} gate")
+    return ms
+
+
+def stage_checks(torch, model, rng) -> float:
+    """Every fused stage of ``model`` against its plain version on random
+    inputs; the largest error relative to max|plain|."""
+    worst = 0.0
+    for kernel, label, run_k, run_p, *_ in kernel_cases(torch, model, rng):
+        if kernel != "fused_stage":
+            continue
+        out_k = run_k()
+        torch.cuda.synchronize()
+        worst = max(worst, rel_err(torch, out_k, run_p())[1])
+    return worst
+
+
+def phase_set_dt(torch, pt, model, card, phase="phase28"):
+    """``set_dt`` dt -> dt/2 -> dt on the route's ``rbc1025`` model (with
+    the statistics armed): each move's ms (``set_dt``, then the chunk
+    graphs' capture, or the cached ones), the bytes the new rung holds;
+    after each move every fused stage against its plain version on the new
+    operators, one graph step against one eager step bit for bit, and 50
+    steps finite."""
+    import numpy as np
+
+    route = route_of(model)
+    s0, t0, dt0 = model.state, model.time, model.dt
+    model.chunk_runner()  # the rung left behind holds its graphs
+    rng = np.random.default_rng(28)
+    rows = []
+    for dt in (dt0 / 2, dt0):
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated()
+        before = model.recompile_count
+        t = time.perf_counter()
+        model.set_dt(dt)
+        torch.cuda.synchronize()
+        set_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        model.chunk_runner()
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t) * 1e3
+        pools = sum(r.pool_bytes for r in model._runners.values())
+        row = {"dt": dt, "first_visit": model.recompile_count > before,
+               "set_dt_ms": set_ms, "capture_ms": capture_ms,
+               "allocated_mib": (torch.cuda.memory_allocated() - alloc) / 2**20,
+               "graph_pools_mib": pools / 2**20,
+               "rung_mib": ((torch.cuda.memory_allocated() - alloc) + pools) / 2**20}
+        if model._stages is not None:
+            row["stage_vs_plain"] = stage_checks(torch, model, rng)
+            if not row["stage_vs_plain"] <= 1e-12:
+                raise AssertionError(f"{route} dt={dt}: a fused stage is "
+                                     f"{row['stage_vs_plain']:.3e} from its plain version")
+        model.state = s0
+        model.update_n(1)
+        graph = model.state
+        eager = model._step(s0)
+        if not same_state(torch, graph, eager):
+            raise AssertionError(f"{route} dt={dt}: graph step vs eager step "
+                                 f"{state_diffs(torch, graph, eager)}")
+        model.state = s0
+        model.update_n(MAIN_STEPS)
+        obs = model.get_observables()
+        if not all(math.isfinite(v) for v in obs):
+            raise AssertionError(f"{route} dt={dt}: observables {obs}")
+        row["nu_after_50"] = obs[0]
+        rows.append(row)
+        print(f"{phase} set_dt {label_of(model)} {route} route ({card}): " + json.dumps(row))
+    if rows[0]["first_visit"] is not True or rows[1]["first_visit"] is not False:
+        raise AssertionError(f"{route}: rung visits {rows}")
+    model.state, model.time = s0, t0
+    return rows
+
+
+def phase_governed(torch, pt, model, card, phase="phase28"):
+    """A governed run on fused ``rbc1025``: phase 14's CFL spike (the
+    velocities at 4x the ceiling), each chunk's ``ChunkStatus`` through
+    ``StabilityGovernor.on_chunk`` and each ``retry``/``adjust`` applied by
+    ``set_dt`` (the latch cleared), the spike passing once caught (the calm
+    state put back); the run must end finite and back at the anchor
+    after ``grow_after`` healthy chunks a rung."""
+    route = route_of(model)
+    s0, t0, dt0 = model.state, model.time, model.dt
+    cfg = pt.StabilityConfig(grow_after=2)
+    gov = pt.StabilityGovernor(cfg, dt0)
+    model.set_stability(cfg)
+    factor = 4.0 * cfg.max_cfl / model.update_n(1).cfl_max  # the CFL of the consumed s0
+    model.state, model.time = s0._replace(velx=s0.velx * factor, vely=s0.vely * factor), t0
+    chunks, t = [], time.perf_counter()
+    for _ in range(16):
+        status = model.update_n(10)
+        decision = gov.on_chunk(status, step=len(chunks) * 10)
+        if decision.action in ("retry", "adjust"):
+            model.set_dt(decision.dt)
+            model.clear_pre_divergence()
+        if status.pre_divergence:
+            model.state = s0  # the spike passes
+        chunks.append((decision.action, status.cfl_max, model.dt))
+        if model.dt == dt0 and gov.health.pre_divergence_catches and decision.action == "adjust":
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    obs = model.get_observables()
+    health = gov.health.asdict()
+    print(f"{phase} governed {label_of(model)} {route} route ({card}): spike x{factor:.4g}; "
+          f"{len(chunks)} chunks of 10 steps in {wall:.3f} s; (action, cfl_max, dt after) "
+          + json.dumps(chunks) + "; RunHealth " + json.dumps(health))
+    if chunks[0][0] != "retry" or model.dt != dt0 or not all(math.isfinite(v) for v in obs):
+        raise AssertionError(f"{route}: governed run {chunks}, observables {obs}")
+    model.set_stability(None)
+    model.state, model.time = s0, t0
+    return chunks, health
+
+
+def phase_stats_small(pt, phase="phase28"):
+    """At 129^2 (Ra=1e7, dt=2e-3), stride 2, 20 steps, every route: the
+    statistics on the card against the CPU (each leaf within 1e-11 of its
+    scale, each health entry within 1e-11 of max(1, |value|), its counts
+    exactly)."""
+    stride, steps = STATS_SMALL
+    for route in ("fused", "dense", "mesh"):
+        sums, health = {}, {}
+        for dev in ("cuda", "cpu"):
+            if route == "mesh":
+                m = pt.Navier2D(**ENSEMBLE129, mesh=pt.make_mesh(MESH_RANKS, dev))
+            else:
+                m = pt.Navier2D(**ENSEMBLE129, device=dev, **(DENSE if route == "dense" else {}))
+            m.init_random(0.1, seed=0)
+            m.set_stats(pt.StatsConfig(stride=stride))
+            m.update_n(steps)
+            sums[dev] = [t.cpu() for t in m.stats_state]
+            health[dev] = m.stats_health()
+        worst = 0.0
+        for name, a, b in zip(pt.StatsState._fields, sums["cuda"], sums["cpu"]):
+            scale = max(float(b.abs().max()), 1e-300)
+            rel = float((a - b).abs().max()) / scale
+            worst = max(worst, rel)
+            if not rel <= STATS_LIMIT:
+                raise AssertionError(f"{route}: statistics leaf {name} card vs cpu {rel:.3e}")
+        # the health entries are ratios and residuals of order one (the
+        # budget residuals differences of nearly equal estimators): each
+        # within the limit of max(1, |value|); the counts exactly
+        hw = 0.0
+        for name, a, b in zip(pt.models.stats.HEALTH_NAMES, health["cuda"], health["cpu"]):
+            exact = name.startswith("bl_") or name == "samples"
+            err = abs(a - b) / max(abs(b), 1.0)
+            hw = hw if exact else max(hw, err)
+            if (exact and a != b) or (not exact and not err <= STATS_LIMIT):
+                raise AssertionError(f"{route}: health {name} card {a} cpu {b}")
+        print(f"{phase} statistics 129^2 stride {stride} {steps} steps {route} route, card vs "
+              f"cpu: leaves max rel {worst:.3e} of each leaf's scale, health max {hw:.3e} of "
+              f"max(1, |value|) (limit {STATS_LIMIT:g}); counts exact")
+
+
+def phase_stats_ensemble(torch, pt, card, phase="phase28"):
+    """``ensemble129`` K = 32 fused: member-steps/s of 50 steps of bare
+    ``update_n`` with statistics (stride 16) and without (off, on, on,
+    off); members 0 and 31's sums against solo runs of their seeds (1e-12
+    of each leaf's scale, and whether bit for bit); the staged snapshot's
+    statistics restored bit for bit; ``set_dt`` to dt/2 on the ensemble,
+    10 steps finite, member 0 against a solo run at dt/2."""
+    from rustpde_mpi_tpu_torch.utils import checkpoint
+
+    k = ENSEMBLE_TIMED_K
+    model = route_model(pt, ENSEMBLE129, "fused")
+    ens = pt.NavierEnsemble.from_seeds(model, range(k))
+    s0 = ens.state
+    rate = {"off": [], "on": []}
+    for on in (False, True, True, False, True):
+        ens.set_stats(pt.StatsConfig(stride=STATS_STRIDE) if on else None)
+        ens.update_n(STATS_STRIDE)  # the new graphs' first replays
+        ens.reset_stats()
+        ens.state, ens.mask = s0, torch.ones(k, dtype=torch.bool, device=s0.temp.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ens.update_n(MAIN_STEPS)
+        torch.cuda.synchronize()
+        if len(rate["off"]) + len(rate["on"]) < 4:  # the last run is the one held below
+            rate["on" if on else "off"].append(k * MAIN_STEPS / (time.perf_counter() - t))
+    worst, bitwise = 0.0, True
+    for i in (0, k - 1):
+        solo = route_model(pt, ENSEMBLE129, "fused")
+        solo.init_random(0.1, seed=i)
+        solo.set_stats(pt.StatsConfig(stride=STATS_STRIDE))
+        solo.update_n(MAIN_STEPS)
+        for a, b in zip(ens.stats_state, solo.stats_state):
+            scale = max(float(b.abs().max()), 1e-300)
+            worst = max(worst, float((a[i] - b).abs().max()) / scale)
+            bitwise = bitwise and bool(torch.equal(a[i], b))
+    if not worst <= ENSEMBLE_LIMIT:
+        raise AssertionError(f"ensemble statistics vs solo {worst:.3e}")
+    sums, tick = ens.stats_state, ens._stats_tick
+    snap = checkpoint.ensemble_snapshot_to_host(ens)
+    ens.reset_stats()
+    checkpoint._restore_ensemble_snapshot(ens, checkpoint._host_group(snap))
+    if not stats_leaves_equal(torch, ens.stats_state, sums) or not torch.equal(ens._stats_tick, tick):
+        raise AssertionError("the ensemble's staged statistics did not restore bit for bit")
+    state = ens.state
+    t = time.perf_counter()
+    ens.set_dt(ENSEMBLE129["dt"] / 2)
+    ens.update_n(10)
+    torch.cuda.synchronize()
+    set_dt_s = time.perf_counter() - t
+    solo = route_model(pt, ENSEMBLE129, "fused")
+    solo.state = type(state)(*(x[0].clone() for x in state))
+    solo.set_dt(ENSEMBLE129["dt"] / 2)
+    solo.update_n(10)
+    diff = max_rel_diff(torch, ens.member_state(0), solo.state)
+    finite = all(bool(torch.isfinite(x).all()) for x in ens.state)
+    print(f"{phase} ensemble129 K={k} fused route ({card}): member-steps/s statistics on "
+          f"{rate['on']} off {rate['off']}; members 0, {k - 1} sums vs solo runs max rel "
+          f"{worst:.3e} (limit {ENSEMBLE_LIMIT:g}), bit for bit {bitwise}; staged snapshot "
+          f"{snap.nbytes / 2**20:.2f} MB, statistics restored bit for bit; set_dt(dt/2) and "
+          f"10 steps {set_dt_s:.3f} s, finite {finite}, member 0 vs solo at dt/2 {diff:.3e}")
+    if not finite or not diff <= ENSEMBLE_LIMIT:
+        raise AssertionError(f"ensemble after set_dt: finite {finite}, vs solo {diff:.3e}")
+    return rate
+
+
 # -- the kernels line --------------------------------------------------------------
 
 
@@ -3093,6 +3483,10 @@ def run(torch) -> int:
     phase_ensemble1025(torch, pt, main_model, "fused", records, launches, bare_ms)
     checkpoint_roundtrip(torch, pt, main_model, pt.Navier2D(**RBC1025, device="cuda"), "rbc1025",
                          card)
+    phase_stats_main(torch, pt, main_model, card)
+    main_model.set_stats(pt.StatsConfig(stride=STATS_STRIDE))
+    phase_set_dt(torch, pt, main_model, card)
+    phase_governed(torch, pt, main_model, card)
     del main_model
     torch.cuda.empty_cache()
 
@@ -3112,6 +3506,9 @@ def run(torch) -> int:
     phase_chunks(torch, pt, dense_model)
     solver_times = phase_solvers(torch, pt, dense_model)
     phase_ensemble1025(torch, pt, dense_model, "dense", records, launches, bare_ms)
+    phase_stats_main(torch, pt, dense_model, card)
+    dense_model.set_stats(pt.StatsConfig(stride=STATS_STRIDE))
+    phase_set_dt(torch, pt, dense_model, card)
     del dense_model
     torch.cuda.empty_cache()
 
@@ -3132,6 +3529,9 @@ def run(torch) -> int:
     phase_ensemble1025(torch, pt, mesh_model, "mesh", records, launches, bare_ms)
     checkpoint_roundtrip(torch, pt, mesh_model,
                          pt.Navier2D(**RBC1025, mesh=pt.make_mesh(MESH_RANKS)), "rbc1025", card)
+    phase_stats_main(torch, pt, mesh_model, card)
+    mesh_model.set_stats(pt.StatsConfig(stride=STATS_STRIDE))
+    phase_set_dt(torch, pt, mesh_model, card)
     del mesh_model, mesh
     torch.cuda.empty_cache()
 
@@ -3179,6 +3579,9 @@ def run(torch) -> int:
     phase_ensemble129(torch, pt, records, launches)
     phase_sweep(torch, pt)
     phase_checkpoints(torch, pt, card)
+    phase_stats_small(pt)
+    phase_stats_ensemble(torch, pt, card)
+    print("phase28 ok")
     phase_methods(torch, pt)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))

@@ -56,10 +56,23 @@ first step whose state is not finite, and with ``set_stability(
 StabilityConfig())`` it carries the CFL, kinetic-energy and |div|
 sentinels and rolls back on a CFL-ceiling trip (``ChunkStatus``).  On the
 card every step of a chunk replays one captured CUDA graph.
+``set_stats(StatsConfig(stride=16))`` carries the in-scan statistics
+(running averages, profiles, spectra, budget residuals) through the chunks
+(``stats_summary``, ``export_stats``); ``set_dt`` changes the step size
+with a per-rung cache, which ``StabilityGovernor`` drives on a
+``DtLadder``::
+
+    model.set_stats(StatsConfig())
+    gov = StabilityGovernor(StabilityConfig(), model.dt)
+    model.set_stability(gov.cfg)
+    decision = gov.on_chunk(model.update_n(100))
+    if decision.action in ("retry", "adjust"):
+        model.set_dt(decision.dt)
+        model.clear_pre_divergence()
 """
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
-from .config import StabilityConfig  # noqa: F401
+from .config import NavierConfig, StabilityConfig, StatsConfig  # noqa: F401
 from .bases import (Base, BaseKind, Space2, cheb_dirichlet, cheb_dirichlet_neumann,  # noqa: F401
                     cheb_neumann, chebyshev, fourier_c2c, fourier_r2c)
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
@@ -68,11 +81,16 @@ from .models.boundary_conditions import (bc_hc_values, bc_rbc_values,  # noqa: F
                                          bc_zero_values, pres_bc_rbc_values)
 from .models.ensemble import NavierEnsemble  # noqa: F401
 from .models.navier import Navier2D, NavierScalarState, NavierState  # noqa: F401
+from .models.statistics import Statistics  # noqa: F401
+from .models.stats import StatsEngine, StatsState, export_stats  # noqa: F401
 from .models.solid_masks import (solid_cylinder_inner, solid_porosity,  # noqa: F401
                                  solid_porosity_interpolate, solid_rectangle,
                                  solid_roughness_sinusoid)
 from .parallel import Decomp2d, Mesh, make_mesh  # noqa: F401
 from .solver import FastDiag, Hholtz, HholtzAdi, Poisson, TensorSolver  # noqa: F401
-from .utils.governor import ChunkStatus  # noqa: F401
+from .utils.governor import (ChunkStatus, DtLadder, GovernorDecision, RunHealth,  # noqa: F401
+                             StabilityGovernor)
 from .utils.integrate import integrate  # noqa: F401
+from .utils.vorticity import (vorticity_auto, vorticity_from_file,  # noqa: F401
+                              vorticity_from_file_periodic)
 from .workloads import ScenarioConfig, geometry_sweep  # noqa: F401

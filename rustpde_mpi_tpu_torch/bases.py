@@ -550,6 +550,16 @@ class Space2:
         kx, ky = (("bwd_grad", d) if d else "bwd" for d in deriv)
         return divide_scale(self._apply(vhat, kx, ky), deriv, scale)
 
+    def synthesize(self, c: torch.Tensor, derivs, scale=None) -> list:
+        """Physical values of the derivatives ``derivs`` (``(order x, order
+        y)`` pairs) of orthogonal-space coefficients ``c``, each as
+        ``backward_gradient`` gives it, with one x factor applied per
+        distinct x order."""
+        along_x = {dx: self._axis(c, 0, ("bwd_grad", dx) if dx else "synthesis")
+                   for dx in dict.fromkeys(d[0] for d in derivs)}
+        return [divide_scale(self._axis(along_x[dx], 1, ("bwd_grad", dy) if dy else "synthesis"),
+                             (dx, dy), scale) for dx, dy in derivs]
+
     # -- helpers --------------------------------------------------------------
 
     def dealias_mask(self) -> np.ndarray:

@@ -12,7 +12,7 @@ the counterpart of the reference pinning HIGHEST matmul precision.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -64,7 +64,8 @@ class StabilityConfig:
     fields and defaults).  The port's chunk reads ``max_cfl``, the hard
     ceiling: a chunk whose per-step CFL exceeds it freezes while the state
     is still finite, is rolled back, and reports ``pre_divergence``.  The
-    other fields are the dt governor's, which is not ported yet:
+    other fields are the dt governor's
+    (:class:`..utils.governor.StabilityGovernor`):
 
     * ``target_cfl``: the Courant number the dt controller drives toward;
     * ``ladder_ratio``: geometric spacing of the dt ladder;
@@ -83,3 +84,75 @@ class StabilityConfig:
     grow_after: int = 4
     shrink_cfl: float | None = None
     member_pin_patience: int = 3
+
+
+@dataclass
+class StatsConfig:
+    """Knobs of the in-scan statistics engine that a model's ``set_stats``
+    arms (:class:`..models.stats.StatsEngine`; the JAX package's
+    ``StatsConfig``, whose None defaults read ``RUSTPDE_STATS_*`` from the
+    environment; the port reads no environment, so the defaults are
+    plain values):
+
+    * ``stride``: steps between samples (the sample costs a handful of
+      extra syntheses, so its share of a step falls as 1/stride);
+    * ``tail_warn``: the spectral-tail energy fraction (top third of the
+      stored modes, per field and axis) that reads as under-resolution;
+    * ``budget_warn``: the Nu budget-closure residual (plate-flux Nu
+      against ``1 + <uy T> 2 sy / ka``) that reads as drift.
+
+    A model's ``stats_warnings()`` holds its health readout against the
+    two limits and reports the ``resolution_warning``/``budget_drift``
+    events that cross them, as the JAX package's resilient runner
+    journals them.
+
+    The engine reads the state and never feeds back: the trajectory is bit
+    for bit the same with statistics on and off."""
+
+    stride: int = 16
+    tail_warn: float = 1e-3
+    budget_warn: float = 0.5
+
+
+@dataclass
+class NavierConfig:
+    """The Navier models' configuration in one object (the JAX package's
+    ``NavierConfig``, same fields and defaults), for
+    ``Navier2D.from_config`` / ``NavierEnsemble.from_config``.
+
+    ``resilience`` and ``integrity`` are the JAX package's resilient-runner
+    and integrity-layer knobs, which the port does not have yet (ROADMAP
+    Queue 1 item 15): they must stay None, and any other value raises
+    ``NotImplementedError``."""
+
+    nx: int = 129
+    ny: int = 129
+    ra: float = 1e7
+    pr: float = 1.0
+    dt: float = 2e-3
+    aspect: float = 1.0
+    bc: str = "rbc"  # "rbc" | "hc"
+    periodic: bool = False
+    write_intervall: float | None = None
+    init_random_amp: float | None = 0.1
+    params: dict = field(default_factory=dict)  # extra parameters written to snapshots
+    #: member count for ``NavierEnsemble.from_config`` (seeds ``0..ensemble-1``)
+    ensemble: int = 1
+    resilience: object | None = None
+    #: the stability sentinels (None: plain stepping); ``from_config`` arms them
+    stability: StabilityConfig | None = None
+    #: the statistics engine (None: off); ``from_config`` arms it
+    stats: StatsConfig | None = None
+    #: scenario step modifiers (a ``ScenarioConfig`` or a dict with its keys)
+    scenario: object | None = None
+    integrity: object | None = None
+
+    def __post_init__(self):
+        for name in ("resilience", "integrity"):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"NavierConfig.{name} is not ported yet (ROADMAP Queue 1 item 15); "
+                    "leave it None")
+
+    def ctor_args(self) -> tuple:
+        return (self.nx, self.ny, self.ra, self.pr, self.dt, self.aspect, self.bc)

@@ -1,8 +1,10 @@
 """The stepping contract Navier2D exposes (counterpart of the part of the
 JAX package's ``models/campaign.py`` that the single-device DNS uses):
 ``time``, ``update``, ``update_n``, ``step_n``, ``get_observables``,
-``exit``, and the stability sentinels (``set_stability``,
-``clear_pre_divergence``, ``last_chunk_status``).
+``exit``, the stability sentinels (``set_stability``,
+``clear_pre_divergence``, ``last_chunk_status``), the in-scan statistics
+(``set_stats`` and its family, :mod:`.stats`) and the dt rung cache
+(``set_dt``).
 
 A chunk of steps advances a *carry*, the state and a few 0-d device
 tensors, one step at a time in place (:class:`ChunkRunner`).  Each step
@@ -22,49 +24,77 @@ member-stacked fields and ``(K,)`` flags: ``_advance_members`` and
 stepped state is not finite freezes at its last finite state and stops
 counting; with sentinels armed, a member over the CFL ceiling freezes too)
 and every kernel launch of a step serves all members.
+
+With the statistics engine armed the carry also holds its running sums
+and its sample tick.  The tick advances on every executed step (the
+freezing step included), and a step whose tick hits the stride folds one
+sample of the stepped state into the sums, where that state is committed
+and finite (and under the CFL ceiling in a sentinel chunk).  The sample
+is not computed on the other steps: the runner holds a second graph, the
+step plus the sample, which the host replays on the steps where its own
+count of the tick hits the stride, and the device's ``take`` mask decides
+whether the sample is added (``torch.where``, so a NaN sample never
+leaks).  The host reads the device's tick once as a chunk starts and
+counts from there.  A chunk rolled back by the sentinels discards its samples and
+its tick with its steps.
 """
 
 from __future__ import annotations
 
 import gc
 import math
+from functools import partial
 
+import numpy as np
 import torch
 
 from ..utils.governor import ChunkStatus
 from ..utils.jit import scan_buckets
+from .stats import StatsState
 
 
 class ChunkRunner:
     """The carry of a chunk (``carry``: the state's fields, then the
-    scalars ``advance`` reads) and ``advance(carry)``, which steps it once
-    in place.
+    scalars ``advance`` reads, then the statistics slots, if any) and one
+    or more *variants* of ``advance(carry)``, each of which steps it once
+    in place (the statistics chunk's: the step, and the step plus the
+    sample).
 
-    On the CPU :meth:`run` calls ``advance`` eagerly.  On a CUDA device
-    the constructor runs ``advance`` once on a scratch copy of the carry on
-    a side stream (each kernel wrapper then has its library loaded and its
-    attributes set on the card), captures one call on ``carry`` as a CUDA
-    graph, and :meth:`run` replays it.  The graph reads and writes the
-    carry's own buffers, so consecutive replays are consecutive steps.
+    On the CPU :meth:`run` calls a variant eagerly.  On a CUDA device the
+    constructor runs each variant once on a scratch copy of the carry on a
+    side stream (each kernel wrapper then has its library loaded and its
+    attributes set on the card, and every operator the step reads is on
+    the device), captures one call of each on ``carry`` as a CUDA graph
+    (the graphs share one memory pool: they are never replayed at once),
+    and :meth:`run` replays one.  The graphs read and write the carry's
+    own buffers, so consecutive replays are consecutive steps.
 
     ``kernels`` are the wrappers the step launches, each with a
     ``launches`` counter.  The capture launches nothing, so their counters
-    are put back after it, and the launches one captured step made are
-    added on every replay (``delta``)."""
+    are put back after it, and the launches one captured step of a variant
+    made are added on every replay of it (``deltas``; ``delta`` is the
+    first variant's)."""
 
-    def __init__(self, advance, carry, kernels):
+    def __init__(self, advance, carry, kernels, n_stats: int = 0):
         self.carry = carry
         self.device = carry[0].device
-        self._advance = advance
+        self._advances = tuple(advance) if isinstance(advance, (tuple, list)) else (advance,)
         self._kernels = list(kernels)
-        self._graph = None
-        #: kernel launches of one step, per wrapper of ``kernels``
-        self.delta = [0] * len(self._kernels)
-        #: bytes the capture added to the device's reserved memory (the
-        #: graph's private pool); 0 on the CPU
+        self._graphs: list = []
+        #: the carry's trailing statistics slots (running sums and tick)
+        self.n_stats = int(n_stats)
+        #: kernel launches of one step of each variant, per wrapper
+        self.deltas = [[0] * len(self._kernels) for _ in self._advances]
+        #: bytes the captures added to the device's reserved memory (the
+        #: graphs' private pool); 0 on the CPU
         self.pool_bytes = 0
         if self.device.type == "cuda":
             self._capture()
+
+    @property
+    def delta(self) -> list:
+        """Kernel launches of one step of the first variant, per wrapper."""
+        return self.deltas[0]
 
     def _capture(self) -> None:
         dev = self.device
@@ -72,7 +102,8 @@ class ChunkRunner:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._advance([t.clone() for t in self.carry])
+                for advance in self._advances:
+                    advance([t.clone() for t in self.carry])
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             # a CUDA graph that dies while another is being captured (its
@@ -80,58 +111,267 @@ class ChunkRunner:
             # unreachable one now
             gc.collect()
             torch.cuda.empty_cache()  # as the capture does: what it reserves is its pool
-            before = [k.launches for k in self._kernels]
             reserved = torch.cuda.memory_reserved(dev)
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph):
-                    self._advance(self.carry)
-            except BaseException:
-                # free the failed graph here, not whenever the traceback that
-                # holds it is dropped (maybe inside a later capture)
-                graph.reset()
-                raise
-            finally:
-                after = [k.launches for k in self._kernels]
-                for k, n in zip(self._kernels, before):
-                    k.launches = n
+            pool = None
+            for i, advance in enumerate(self._advances):
+                before = [k.launches for k in self._kernels]
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph, pool=pool):
+                        advance(self.carry)
+                except BaseException:
+                    # free the failed graphs here, not whenever the traceback
+                    # that holds them is dropped (maybe inside a later capture)
+                    graph.reset()
+                    for g in self._graphs:
+                        g.reset()
+                    self._graphs = []
+                    raise
+                finally:
+                    after = [k.launches for k in self._kernels]
+                    for k, n in zip(self._kernels, before):
+                        k.launches = n
+                self.deltas[i] = [a - b for a, b in zip(after, before)]
+                self._graphs.append(graph)
+                pool = graph.pool()
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.delta = [a - b for a, b in zip(after, before)]
-        self._graph = graph
 
     @property
     def captured(self) -> bool:
-        """Whether :meth:`run` replays a CUDA graph."""
-        return self._graph is not None
+        """Whether :meth:`run` replays CUDA graphs."""
+        return bool(self._graphs)
 
-    def run(self, n: int) -> None:
-        """Advance the carry ``n`` steps."""
-        if self._graph is None:
+    def run(self, n: int, variant: int = 0) -> None:
+        """Advance the carry ``n`` steps of one variant."""
+        if not self._graphs:
             for _ in range(n):
-                self._advance(self.carry)
+                self._advances[variant](self.carry)
             return
+        graph = self._graphs[variant]
         with torch.cuda.device(self.device):
             for _ in range(n):
-                self._graph.replay()
-        for k, d in zip(self._kernels, self.delta):
+                graph.replay()
+        for k, d in zip(self._kernels, self.deltas[variant]):
             k.launches += d * n
 
+    def run_sampled(self, n: int, tick: int, stride: int) -> int:
+        """Advance the carry ``n`` steps of a statistics chunk: the second
+        variant (step and sample) on the steps where ``tick``, the host's
+        count of the device's tick, reaches a multiple of ``stride``, the
+        first (the step, the tick) on the others.  Returns the count
+        after the ``n`` steps."""
+        done = 0
+        while done < n:
+            plain = min((-(tick + done + 1)) % stride, n - done)
+            if plain:
+                self.run(plain)
+                done += plain
+            if done < n:
+                self.run(1, variant=1)
+                done += 1
+        return tick + n
 
-class CampaignModelBase:
+
+class StatsAndRungs:
+    """What a single model and an ensemble share around their chunks: the
+    chunk runners and their per-dt-rung cache (:meth:`set_dt`), and the
+    statistics carry (running sums ``stats_state`` and the sample tick
+    ``_stats_tick``, int32 ``(1,)``) with its readouts and snapshot rows.
+
+    A class using it calls :meth:`_init_stats_and_rungs`, supplies
+    ``dt``, ``state``, ``_stats_engine`` (the armed
+    :class:`.stats.StatsEngine` or None) and :meth:`_stats_members`, and
+    lists in ``_DT_ARTIFACTS`` the attributes a dt change swaps out
+    (:meth:`_rebuild_dt_artifacts` rebuilds them at a first visit)."""
+
+    #: the resilient runner's journal (the JAX package's ``journal_writer``):
+    #: statistics-flow failures and warnings are appended to it when one is
+    #: attached
+    journal_writer = None
+
+    #: attributes a dt change swaps out, cached per dt rung (a subclass
+    #: adds whatever else dt is baked into)
+    _DT_ARTIFACTS = ("_runners",)
+
+    def _init_stats_and_rungs(self) -> None:
+        # (armed, stats) -> ChunkRunner
+        self._runners: dict = {}
+        self._obs_cache = None  # (state, values) of the last read
+        # per-rung cache of the dt-baked artifacts (set_dt), and the number
+        # of times they were built (construction is the first)
+        self._dt_cache: dict = {}
+        self.recompile_count = 1
+        self.stats_state = None
+        self._stats_tick = None
+
+    def _drop_chunks(self) -> None:
+        """Forget the chunk runners (of every dt rung) and the observables
+        cache: a change of the step's constants (an obstacle's factors, a
+        scenario's stages or solvers, the statistics' stride, an
+        ensemble's per-member factors) or of the state's fields leaves a
+        captured step stale."""
+        self._runners.clear()
+        self._dt_cache.clear()
+        self._obs_cache = None
+
+    # -- the statistics carry ----------------------------------------------------
+
+    def _stats_runner(self, advance, carry, kernels) -> ChunkRunner:
+        """A runner whose carry ends with the statistics slots (copies of
+        the running sums and the tick) and whose two variants are
+        ``advance`` without and with the sample."""
+        carry = carry + [t.clone() for t in self.stats_state] + [self._stats_tick.clone()]
+        return ChunkRunner((partial(advance, sample=False), partial(advance, sample=True)),
+                           carry, kernels, n_stats=len(self.stats_state) + 1)
+
+    def _load_stats(self, runner: ChunkRunner) -> int:
+        """Copy the running sums and the tick into the runner's statistics
+        slots; returns the tick, read from the device (0 without
+        statistics), which :meth:`ChunkRunner.run_sampled` counts on."""
+        if not runner.n_stats:
+            return 0
+        for buf, t in zip(runner.carry[-runner.n_stats:], (*self.stats_state, self._stats_tick)):
+            buf.copy_(t)
+        return int(self._stats_tick[0])
+
+    def _unload_stats(self, runner: ChunkRunner) -> None:
+        """Fresh tensors of the carry's statistics slots as the running
+        sums and the tick."""
+        if runner.n_stats:
+            *sums, tick = (t.clone() for t in runner.carry[-runner.n_stats:])
+            self.stats_state = type(self.stats_state)(*sums)
+            self._stats_tick = tick
+
+    def _drop_stats_runners(self) -> None:
+        """Forget the statistics chunk runners of every dt rung."""
+        for runners in [self._runners] + [c["_runners"] for c in self._dt_cache.values()]:
+            for key in [key for key in runners if key[1]]:
+                del runners[key]
+
+    def reset_stats(self) -> None:
+        """Zero the running sums and the tick (a fresh averaging window);
+        None while the engine is disarmed."""
+        if self._stats_engine is None:
+            self.stats_state = self._stats_tick = None
+            return
+        self.stats_state = self._stats_engine.init_state(k=self._stats_members())
+        self._stats_tick = torch.zeros((1,), dtype=torch.int32, device=self.stats_state[0].device)
+
+    def _stats_members(self):
+        """The statistics' leading member count (None for one model)."""
+        return None
+
+    @property
+    def stats_engine(self):
+        """The armed :class:`.stats.StatsEngine` (None when disarmed)."""
+        return self._stats_engine
+
+    @property
+    def stats_armed(self) -> bool:
+        return self._stats_engine is not None and self.stats_state is not None
+
+    def stats_health(self) -> tuple:
+        """The :data:`.stats.HEALTH_NAMES` readout of the running sums,
+        fetched to the host in one transfer: floats (one model) or float
+        arrays of shape (K,) (an ensemble).  Raises when disarmed."""
+        if not self.stats_armed:
+            raise RuntimeError("stats_health needs an armed stats engine (set_stats)")
+        vals = self._stats_engine.health(self.stats_state).cpu().numpy()
+        if vals.ndim == 1:
+            return tuple(float(v) for v in vals)
+        return tuple(vals[..., i].astype(float) for i in range(vals.shape[-1]))
+
+    def stats_summary(self) -> dict | None:
+        """The health readout as a dict (None when disarmed)."""
+        if not self.stats_armed:
+            return None
+        from .stats import HEALTH_NAMES
+
+        return {name: (float(v) if np.ndim(v) == 0 else [float(x) for x in v])
+                for name, v in zip(HEALTH_NAMES, self.stats_health())}
+
+    def stats_warnings(self) -> list:
+        """The health readout held against the engine's limits
+        (``StatsConfig.tail_warn``, ``budget_warn``): the
+        ``resolution_warning`` and ``budget_drift`` events that cross them
+        now (:func:`.stats.health_events`), each also appended to an
+        attached ``journal_writer``.  Empty when disarmed."""
+        if not self.stats_armed:
+            return []
+        from .stats import health_events, report_stats_event
+
+        events = health_events(self._stats_engine, self.stats_health())
+        for event in events:
+            report_stats_event(self, event)
+        return events
+
+    def stats_host_items(self) -> list:
+        """Gathered-snapshot rows of the running sums and the tick
+        (:meth:`.stats.StatsEngine.host_items`); empty when disarmed."""
+        if not self.stats_armed:
+            return []
+        return self._stats_engine.host_items(self.stats_state, self._stats_tick)
+
+    def apply_restored_stats(self, data: dict | None) -> None:
+        """Install running sums read back from a snapshot (leaf names and
+        ``tick``; :meth:`.stats.StatsEngine.restore_state`): missing leaves,
+        or leaves of another resolution, restart the window at zero."""
+        if not self.stats_armed:
+            return
+        self.stats_state, self._stats_tick = self._stats_engine.restore_state(
+            data, k=self._stats_members())
+
+    # -- the dt rung cache ---------------------------------------------------------
+
+    def set_dt(self, dt: float) -> None:
+        """Change the step size of a live model (the governor's dt ladder).
+
+        dt is baked into the step's operators and its captured graphs, so a
+        first visit to a dt rebuilds them (:meth:`_rebuild_dt_artifacts`,
+        ``recompile_count`` + 1; the chunks are captured again at the next
+        ``update_n``), and every rung's artifacts are cached under its dt:
+        a revisit swaps the cached objects back in.  State, time and the
+        statistics are untouched."""
+        dt = float(dt)
+        if not dt > 0.0:
+            raise ValueError(f"dt must be positive, got {dt}")
+        if dt == self.dt:
+            return
+        self._dt_cache[self.dt] = {k: getattr(self, k, None) for k in self._DT_ARTIFACTS}
+        self.dt = dt
+        cached = self._dt_cache.get(dt)
+        if cached is not None:
+            for key, value in cached.items():
+                setattr(self, key, value)
+        else:
+            self._runners = {}
+            self._rebuild_dt_artifacts()
+            self.recompile_count += 1
+        self._obs_cache = None
+
+    def _rebuild_dt_artifacts(self) -> None:
+        """Rebuild everything ``self.dt`` is baked into beyond the runners
+        (a first visit to a dt rung), after ``self.dt`` was set."""
+
+
+class CampaignModelBase(StatsAndRungs):
     """Subclasses supply ``dt``, ``dtype`` (the real working dtype; the
     state's fields may be complex), ``state`` (a NamedTuple of tensors),
     ``_step(state, with_sentinels=False)`` (with sentinels it returns
     ``(state, (cfl, ke, div_norm))``, 0-d tensors), ``_observables(state)``
-    (a 1-D tensor whose index 3 is |div|) and ``kernels()``."""
+    (a 1-D tensor whose index 3 is |div|), ``kernels()``, and
+    ``_rebuild_dt_artifacts()`` with the ``_DT_ARTIFACTS`` it rebuilds
+    (:meth:`set_dt`)."""
 
     def _init_campaign(self) -> None:
+        self._init_stats_and_rungs()
         self.time = 0.0
-        self._obs_cache = None  # (state, values) of the last read
         self._stability = None
         self._ceiling = None  # the CFL ceiling, a 0-d tensor the sentinel step reads
-        self._runners: dict = {}  # armed (bool) -> ChunkRunner
         self.last_chunk_status = None
         self._pre_div_latch = False
+        # the statistics engine (models/stats.py): None = off
+        self._stats_engine = None
 
     # -- one step, and the freeze ----------------------------------------------
 
@@ -165,39 +405,57 @@ class CampaignModelBase:
         for f, f2 in zip(fields, stepped):
             torch.where(keep.reshape(keep.shape + (1,) * (f.ndim - keep.ndim)), f2, f, out=f)
 
-    def _advance(self, carry) -> None:
+    def _advance(self, carry, sample=None) -> None:
         """One step of a plain chunk on ``carry = [*state, ok, done]``:
         while ``ok``, commit the stepped state and count the step; ``ok``
         drops after the first step whose state is not finite (that state
         is committed, as the reference's ``lax.cond`` commits it).  A
         frozen state is still stepped, and its result discarded: the
         reference skips the step there, but a graph has no branch, and
-        the cost falls only after a divergence."""
-        self._freeze(carry, self._step(type(self.state)(*carry[:-2])))
+        the cost falls only after a divergence.
 
-    def _freeze(self, carry, stepped) -> None:
-        """The plain chunk's bookkeeping of one step: the finite check of
-        ``stepped``, the count, the commit and the flag."""
-        *fields, ok, done = carry
+        ``sample``: None without statistics; else the carry ends with the
+        statistics slots, the tick advances while ``ok``, and with
+        ``sample=True`` the stepped state is sampled where it is finite and
+        the tick hits the stride (:meth:`_stats_advance`)."""
+        nf = len(self.state)
+        stepped = self._step(type(self.state)(*carry[:nf]))
         ok2 = self._scan_ok(stepped)
+        if sample is not None:
+            ok = carry[nf]
+            self._stats_advance(carry[nf + 2:], stepped, ok, ok & ok2, sample)
+        self._freeze(carry[:nf + 2], stepped, ok2)
+
+    def _freeze(self, carry, stepped, ok2=None) -> None:
+        """The plain chunk's bookkeeping of one step: the finite check of
+        ``stepped`` (``ok2``, when the caller has it), the count, the
+        commit and the flag."""
+        *fields, ok, done = carry
+        if ok2 is None:
+            ok2 = self._scan_ok(stepped)
         done.add_(ok)
         self._commit(fields, stepped, ok)
         ok.logical_and_(ok2)
 
-    def _advance_sentinels(self, carry) -> None:
+    def _advance_sentinels(self, carry, sample=None) -> None:
         """One step of a sentinel chunk on ``carry = [*state, finite,
         cfl_ok, done, cfl_max, ke_growth_max, div_max, ke]``, as the
         reference's ``step_n_sent``: while ``finite and cfl_ok``, commit
         the stepped state, its flags, the step and the running maxima.  A
         NaN CFL reads as the NaN path (``NaN > ceiling`` is False), not as a
-        ceiling trip."""
+        ceiling trip.  ``sample``: as :meth:`_advance` (a sample needs the
+        stepped state finite and under the ceiling)."""
         nf = len(self.state)
         fields = carry[:nf]
-        fin, cok, done, cfl_max, growth_max, div_max, ke_prev = carry[nf:]
+        fin, cok, done, cfl_max, growth_max, div_max, ke_prev = carry[nf:nf + 7]
         go = fin & cok
         stepped, (cfl, ke, div) = self._step(type(self.state)(*fields), with_sentinels=True)
-        torch.where(go, self._scan_ok(stepped), fin, out=fin)
-        torch.where(go, torch.logical_not(cfl > self._ceiling), cok, out=cok)
+        fin2 = self._scan_ok(stepped)
+        cok2 = torch.logical_not(cfl > self._ceiling)
+        if sample is not None:
+            self._stats_advance(carry[nf + 7:], stepped, go, go & fin2 & cok2, sample)
+        torch.where(go, fin2, fin, out=fin)
+        torch.where(go, cok2, cok, out=cok)
         done.add_(go)
         growth = torch.where(ke_prev > 0.0, ke / ke_prev, torch.ones_like(ke))
         torch.where(go, torch.maximum(cfl_max, cfl), cfl_max, out=cfl_max)
@@ -206,9 +464,26 @@ class CampaignModelBase:
         torch.where(go, ke, ke_prev, out=ke_prev)
         self._commit(fields, stepped, go)
 
+    def _stats_advance(self, slots, stepped, advanced, commit, sample: bool) -> None:
+        """The statistics' part of one step on ``slots = [*sums, tick]``:
+        the tick advances when the step ran (``advanced``, 0-d), and with
+        ``sample`` the sample of ``stepped`` is folded into the sums where
+        ``commit`` (0-d, or one per member) is set and the tick is a
+        multiple of the stride, as the reference's ``take``."""
+        *sums, tick = slots
+        tick.add_(advanced)
+        if not sample:
+            return
+        eng = self._stats_engine
+        take = commit & (torch.remainder(tick[0], eng.stride) == 0)
+        new = eng.fold(StatsState(*sums), eng.sample(stepped))
+        for old, nv in zip(sums, new):
+            lead = take.ndim
+            torch.where(take.reshape(take.shape + (1,) * (old.ndim - lead)), nv, old, out=old)
+
     # -- the ensemble's chunks ---------------------------------------------------
 
-    def _advance_members(self, carry, solid=None) -> None:
+    def _advance_members(self, carry, solid=None, sample=None) -> None:
         """One step of an ensemble's plain chunk on ``carry = [*state, ok,
         done]`` (member-stacked fields, ``(K,)`` flags and counts), as the
         JAX package's ensemble chunk: a member commits its stepped state and
@@ -216,15 +491,22 @@ class CampaignModelBase:
         drops at its first non-finite step, whose state is not committed (a
         frozen member keeps its last finite state).  Every member is
         stepped; a frozen member's result is discarded.  ``solid``: the
-        members' penalization factors (:meth:`_step`)."""
-        *fields, ok, done = carry
+        members' penalization factors (:meth:`_step`).  ``sample``: as
+        :meth:`_advance`, with one tick for all members (it advances while
+        any member is alive) and one sample a member, folded where it
+        commits."""
+        nf = len(self.state)
+        fields = carry[:nf]
+        ok, done = carry[nf:nf + 2]
         stepped = self._step(type(self.state)(*fields), solid=solid)
         keep = ok & self._scan_ok(stepped, lead=1)
+        if sample is not None:
+            self._stats_advance(carry[nf + 2:], stepped, ok.any(), keep, sample)
         done.add_(keep)
         self._commit(fields, stepped, keep)
         ok.copy_(keep)
 
-    def _advance_members_sentinels(self, carry, solid=None) -> None:
+    def _advance_members_sentinels(self, carry, solid=None, sample=None) -> None:
         """One step of an ensemble's sentinel chunk on ``carry = [*state,
         finite, cfl_ok, done, cfl_max, ke_growth_max, div_max, ke]`` (each
         scalar ``(K,)``), as the JAX package's ensemble sentinel chunk: a
@@ -232,10 +514,12 @@ class CampaignModelBase:
         member's flags, running maxima and kinetic energy take the step's,
         and it commits the stepped state and counts the step when that is
         finite and under the ceiling (a member over the ceiling freezes at
-        its last state under it, still finite)."""
+        its last state under it, still finite).  ``sample``: as
+        :meth:`_advance_members` (the tick advances while any member is
+        active)."""
         nf = len(self.state)
         fields = carry[:nf]
-        fin, cok, done, cfl_max, growth_max, div_max, ke_prev = carry[nf:]
+        fin, cok, done, cfl_max, growth_max, div_max, ke_prev = carry[nf:nf + 7]
         active = fin & cok
         stepped, (cfl, ke, div) = self._step(type(self.state)(*fields), with_sentinels=True,
                                              solid=solid)
@@ -243,6 +527,8 @@ class CampaignModelBase:
         torch.where(active, finite, fin, out=fin)
         torch.where(active, torch.logical_not(cfl > self._ceiling), cok, out=cok)
         keep = active & finite & cok
+        if sample is not None:
+            self._stats_advance(carry[nf + 7:], stepped, active.any(), keep, sample)
         done.add_(keep)
         growth = torch.where(ke_prev > 0.0, ke / ke_prev, torch.ones_like(ke))
         torch.where(active, torch.maximum(cfl_max, cfl), cfl_max, out=cfl_max)
@@ -253,23 +539,22 @@ class CampaignModelBase:
 
     # -- the chunk runner ------------------------------------------------------
 
-    def _drop_chunks(self) -> None:
-        """Forget the chunk runners and the observables cache: a change of
-        the step's constants (an obstacle's factors, a scenario's stages or
-        solvers) or of the state's fields leaves a captured step stale."""
-        self._runners.clear()
-        self._obs_cache = None
-
-    def chunk_runner(self, armed: bool | None = None) -> ChunkRunner:
+    def chunk_runner(self, armed: bool | None = None, stats: bool | None = None) -> ChunkRunner:
         """The chunk runner of the plain (``armed=False``) or the sentinel
-        chunk (``True``; default: as :meth:`set_stability` left it), built
-        at the first call: on a CUDA device that warms up every kernel
-        wrapper and captures the step, so a caller who wants the capture
-        out of a timed or counted run calls this first."""
+        chunk (``True``; default: as :meth:`set_stability` left it),
+        without or with the statistics (``stats``; default: as
+        :meth:`set_stats` left it), built at the first call: on a CUDA
+        device that warms up every kernel wrapper and captures the step
+        (and, with statistics, the step plus the sample), so a caller who
+        wants the capture out of a timed or counted run calls this
+        first."""
         armed = self._stability is not None if armed is None else armed
+        stats = self.stats_armed if stats is None else stats
         if armed and self._stability is None:
             raise RuntimeError("the sentinel chunk needs set_stability(cfg) first")
-        runner = self._runners.get(armed)
+        if stats and not self.stats_armed:
+            raise RuntimeError("the statistics chunk needs set_stats(cfg) first")
+        runner = self._runners.get((armed, stats))
         if runner is None:
             carry = [f.clone(memory_format=torch.contiguous_format) for f in self.state]
             dev, dtype = carry[0].device, self.dtype
@@ -280,17 +565,20 @@ class CampaignModelBase:
             carry += [torch.zeros((), dtype=dtype, device=dev) for _ in range(4 * armed)]
             kernels = [k for ks in self.kernels().values() for k in ks]
             advance = self._advance_sentinels if armed else self._advance
-            runner = ChunkRunner(advance, carry, kernels)
-            self._runners[armed] = runner
+            runner = self._stats_runner(advance, carry, kernels) if stats else \
+                ChunkRunner(advance, carry, kernels)
+            self._runners[(armed, stats)] = runner
         return runner
 
     def _load(self, runner: ChunkRunner, state) -> None:
         """Copy ``state`` into the runner's carry and reset its scalars
-        (flags up, counters and maxima zero), with no host sync."""
+        (flags up, counters and maxima zero), with no host sync; the
+        statistics slots are :meth:`_load_stats`'s."""
         nf = len(state)
         for buf, f in zip(runner.carry[:nf], state):
             buf.copy_(f)
-        for t in runner.carry[nf:]:
+        end = len(runner.carry) - runner.n_stats
+        for t in runner.carry[nf:end]:
             if t.dtype == torch.bool:
                 t.fill_(True)
             else:
@@ -313,10 +601,10 @@ class CampaignModelBase:
 
     def step_n(self, state, n: int):
         """One bucket of ``n`` plain steps from ``state`` (the reference's
-        ``_step_n``): ``(state, steps_done)``, ``steps_done`` a 0-d int32
-        device tensor, the steps executed before the freeze (the first
-        non-finite step included)."""
-        runner = self.chunk_runner(armed=False)
+        ``_step_n``; the statistics are not touched): ``(state,
+        steps_done)``, ``steps_done`` a 0-d int32 device tensor, the steps
+        executed before the freeze (the first non-finite step included)."""
+        runner = self.chunk_runner(armed=False, stats=False)
         self._load(runner, state)
         runner.run(n)
         return self._unload(runner), runner.carry[-1].clone()
@@ -325,24 +613,31 @@ class CampaignModelBase:
         """Advance ``n`` steps in the reference's bucket schedule
         (:func:`..utils.jit.scan_buckets`).  The freeze flag restarts at
         the start of every bucket, as the reference's does.  ``time``
-        counts the scheduled steps, frozen or not.
+        counts the scheduled steps, frozen or not.  With the statistics
+        armed (:meth:`set_stats`) the running sums and the tick ride the
+        chunk.
 
         With sentinels armed (:meth:`set_stability`) the flags run through
         the whole chunk, and the chunk's scalars come to the host in one
         transfer at its end.  It returns the :class:`ChunkStatus` (also
         ``last_chunk_status``), else None.  When the CFL ceiling tripped
-        while the state stayed finite (``pre_divergence``), ``state`` and
-        ``time`` stay at the chunk start and :meth:`exit` latches True
-        until :meth:`clear_pre_divergence`."""
+        while the state stayed finite (``pre_divergence``), ``state``,
+        ``time`` and the statistics stay at the chunk start and :meth:`exit`
+        latches True until :meth:`clear_pre_divergence`."""
         if self._stability is not None:
             return self._update_n_sentinels(n)
         runner = self.chunk_runner(armed=False)
         nf = len(self.state)
         self._load(runner, self.state)
+        tick = self._load_stats(runner)
         for bucket in scan_buckets(n):
             runner.carry[nf].fill_(True)
-            runner.run(bucket)
+            if runner.n_stats:
+                tick = runner.run_sampled(bucket, tick, self._stats_engine.stride)
+            else:
+                runner.run(bucket)
         self.state = self._unload(runner)
+        self._unload_stats(runner)
         self.time += n * self.dt
         return None
 
@@ -351,17 +646,23 @@ class CampaignModelBase:
         runner = self.chunk_runner(armed=True)
         nf = len(self.state)
         self._load(runner, self.state)
+        tick = self._load_stats(runner)
         # the sentinel carry is not reset between buckets, so the schedule
         # does not change what the chunk computes
-        runner.run(n)
+        if runner.n_stats:
+            runner.run_sampled(n, tick, self._stats_engine.stride)
+        else:
+            runner.run(n)
+        # float64: exact for the flags and the counts, and for the f32 maxima
         fin, cok, done, cfl_max, growth_max, div_max, ke = torch.stack(
-            [t.to(self.dtype) for t in runner.carry[nf:]]).tolist()
+            [t.to(torch.float64) for t in runner.carry[nf:nf + 7]]).tolist()
         fin, cok = bool(fin), bool(cok)
         pre_div = fin and not cok
         if pre_div:
             self._pre_div_latch = True
         else:
             self.state = self._unload(runner)
+            self._unload_stats(runner)
             self.time += n * self.dt
         status = ChunkStatus(requested=int(n), steps_done=int(done), finite=fin, cfl_ok=cok,
                              pre_divergence=pre_div, cfl_max=cfl_max, ke=ke,
@@ -388,6 +689,25 @@ class CampaignModelBase:
         """Acknowledge a ``pre_divergence`` catch: unlatch :meth:`exit`."""
         self._pre_div_latch = False
 
+    # -- in-scan statistics (models/stats.py) ------------------------------------
+
+    def set_stats(self, cfg) -> None:
+        """Arm (a :class:`..config.StatsConfig`) or disarm (None) the
+        statistics engine: zeroed running sums and tick, the engine's
+        operators built and put on the device now (a capture cannot upload
+        them), and the captured statistics chunks of every dt rung dropped
+        (the stride is baked into them)."""
+        self._drop_stats_runners()
+        if cfg is None:
+            self._stats_engine = None
+        else:
+            from .stats import StatsEngine
+
+            self._stats_engine = StatsEngine(self, cfg)
+            # one sample builds its operators now: a capture cannot upload them
+            self._stats_engine.sample(self.state)
+        self.reset_stats()
+
     # -- observables -----------------------------------------------------------
 
     def get_time(self) -> float:
@@ -395,6 +715,9 @@ class CampaignModelBase:
 
     def get_dt(self) -> float:
         return self.dt
+
+    def reset_time(self) -> None:
+        self.time = 0.0
 
     def get_observables(self) -> tuple:
         """The model's scalars (``observable_names``) of the current state,
@@ -414,4 +737,3 @@ class CampaignModelBase:
         if self._pre_div_latch:
             return True
         return math.isnan(self.div_norm())
-

@@ -1,8 +1,10 @@
 """NavierEnsemble: K member states of one Navier2D, stepped together.
 
 Counterpart of the JAX package's ``models/ensemble.py`` (its
-``NavierEnsemble``), less its stats, integrity digests, dt ladder, sharded
-checkpoints and overlapped IO.  The JAX package stacks K member states on a
+``NavierEnsemble``), with its in-scan statistics (per-member running sums,
+one shared sample tick) and its dt rung cache (``set_dt`` through the
+template model), less its integrity digests, sharded checkpoints and
+overlapped IO.  The JAX package stacks K member states on a
 leading axis and advances them as one ``jax.vmap`` of the model's step, the Pallas
 kernels batched by ``pallas_call``'s batching rule.  Here the member-stacked
 state goes through the template model's own step (:meth:`Navier2D._step`
@@ -29,13 +31,15 @@ was.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
 from ..utils import checkpoint, navier_io
 from ..utils.governor import ChunkStatus
 from ..utils.jit import scan_buckets
-from .campaign import ChunkRunner
+from .campaign import ChunkRunner, StatsAndRungs
 
 
 def _stack(members) -> tuple:
@@ -43,7 +47,7 @@ def _stack(members) -> tuple:
     return type(members[0])(*(torch.stack([torch.as_tensor(x) for x in xs]) for xs in zip(*members)))
 
 
-class NavierEnsemble:
+class NavierEnsemble(StatsAndRungs):
     """K member states of one :class:`..models.navier.Navier2D`, stepped
     together.
 
@@ -65,6 +69,7 @@ class NavierEnsemble:
             if not members:
                 raise ValueError("ensemble needs at least one member state")
             stacked = _stack(members)
+        self._init_stats_and_rungs()
         self.model = model
         self.k = int(stacked.temp.shape[0])
         self.dt = model.dt
@@ -79,13 +84,14 @@ class NavierEnsemble:
         self.respawn_seed: int | None = None
         self._respawn_rng = None
         self._pre_div_latch = False
-        self._obs_cache = None
         self._solid = None  # per-member (fac, temp_add) of geometry_sweep
-        self._runners: dict = {}
         dev = model.state.temp.device
         self.state = type(stacked)(*(x.to(dev).contiguous() for x in stacked))
         self.mask = self._finite_mask(self.state)
         self.steps_done = torch.zeros((self.k,), dtype=torch.int32, device=dev)
+        # the statistics: per-member running sums, armed when the template
+        # model's engine is
+        self.reset_stats()
 
     # -- construction ----------------------------------------------------------
 
@@ -103,6 +109,20 @@ class NavierEnsemble:
         finally:
             model.state = keep
         return cls(model, members)
+
+    @classmethod
+    def from_config(cls, cfg, mesh=None, **kwargs) -> "NavierEnsemble":
+        """``max(1, cfg.ensemble)`` members of ``Navier2D.from_config(cfg,
+        mesh, **kwargs)`` (which arms the sentinels and the statistics),
+        as the JAX package's: seeds ``0..K-1`` at ``init_random_amp``, or,
+        when that is unset or zero, K copies of the model's state."""
+        from .navier import Navier2D
+
+        model = Navier2D.from_config(cfg, mesh=mesh, **kwargs)
+        k = max(1, int(cfg.ensemble))
+        if not cfg.init_random_amp:
+            return cls.replicate(model, k)
+        return cls.from_seeds(model, range(k), amp=cfg.init_random_amp)
 
     @classmethod
     def replicate(cls, model, k: int) -> "NavierEnsemble":
@@ -150,15 +170,24 @@ class NavierEnsemble:
 
     def set_member(self, i: int, state) -> None:
         """Replace member ``i``'s state, re-derive its alive flag from it
-        and zero its step count.  The ensemble's state, mask and counts
-        become fresh tensors; the captured chunks stay valid (their carry is
-        loaded from the state at each call)."""
+        and zero its step count; with the statistics armed its running sums
+        restart (a refilled lane is a new trajectory; the shared tick runs
+        on).  The ensemble's state, mask, counts and sums become fresh
+        tensors; the captured chunks stay valid (their carry is loaded from
+        them at each call)."""
         fields = []
         for x, leaf in zip(self.state, state):
             x = x.clone()
             x[i] = leaf
             fields.append(x)
         self.state = type(self.state)(*fields)
+        if self.stats_state is not None:
+            sums = []
+            for x in self.stats_state:
+                x = x.clone()
+                x[i].zero_()
+                sums.append(x)
+            self.stats_state = type(self.stats_state)(*sums)
         self.mask = self.mask.clone()
         self.mask[i] = self.model._scan_ok(state)
         self.steps_done = self.steps_done.clone()
@@ -244,12 +273,6 @@ class NavierEnsemble:
         (``last_chunk_status.pinned`` names the tripping members)."""
         return bool(self._pre_div_latch)
 
-    def _drop_chunks(self) -> None:
-        """Forget the chunk runners and the observables cache: a restore at
-        another K (or with other fields) leaves a captured step stale."""
-        self._runners.clear()
-        self._obs_cache = None
-
     def _set_solids(self, fac, temp_add) -> None:
         """Per-member penalization factors (leading K dim) for every step,
         in place of the template model's (:func:`..workloads.geometry_sweep`);
@@ -257,17 +280,22 @@ class NavierEnsemble:
         self._solid = None if fac is None else (fac, temp_add)
         self._drop_chunks()
 
-    def chunk_runner(self, armed: bool | None = None) -> ChunkRunner:
+    def chunk_runner(self, armed: bool | None = None, stats: bool | None = None) -> ChunkRunner:
         """The runner of the plain (``armed=False``) or the sentinel chunk
-        (``True``; default: as the template model's sentinels are), built
-        at the first call: on a CUDA device that warms up every kernel
-        wrapper and captures the K-member step as a CUDA graph, so a caller
-        who wants the capture out of a timed or counted run calls this
+        (``True``; default: as the template model's sentinels are), without
+        or with the statistics (``stats``; default: as :meth:`set_stats`
+        left them), built at the first call: on a CUDA device that warms up
+        every kernel wrapper and captures the K-member step as a CUDA graph
+        (with statistics, also the step plus the sample), so a caller who
+        wants the capture out of a timed or counted run calls this
         first."""
         armed = self._stability is not None if armed is None else armed
+        stats = self.stats_armed if stats is None else stats
         if armed and self._stability is None:
             raise RuntimeError("the sentinel chunk needs set_stability(cfg) first")
-        runner = self._runners.get(armed)
+        if stats and not self.stats_armed:
+            raise RuntimeError("the statistics chunk needs set_stats(cfg) first")
+        runner = self._runners.get((armed, stats))
         if runner is None:
             model = self.model
             carry = [f.clone(memory_format=torch.contiguous_format) for f in self.state]
@@ -277,18 +305,20 @@ class NavierEnsemble:
             carry += [torch.zeros((k,), dtype=model.dtype, device=dev) for _ in range(4 * armed)]
             kernels = [w for ws in model.kernels().values() for w in ws]
             step = model._advance_members_sentinels if armed else model._advance_members
-            solid = self._solid
-            runner = ChunkRunner(lambda c: step(c, solid), carry, kernels)
-            self._runners[armed] = runner
+            advance = partial(step, solid=self._solid)
+            runner = self._stats_runner(advance, carry, kernels) if stats else \
+                ChunkRunner(advance, carry, kernels)
+            self._runners[(armed, stats)] = runner
         return runner
 
     def _load(self, runner: ChunkRunner, *flags) -> None:
         """Copy the state and ``flags`` (the leading scalars of the carry)
-        into the runner's carry; the rest (running maxima) are zeroed."""
+        into the runner's carry and zero the rest (running maxima); the
+        statistics slots are :meth:`_load_stats`'s."""
         nf = len(self.state)
         for buf, f in zip(runner.carry[:nf], self.state):
             buf.copy_(f)
-        rest = runner.carry[nf:]
+        rest = runner.carry[nf:len(runner.carry) - runner.n_stats]
         for buf, f in zip(rest, flags):
             if isinstance(f, bool):
                 buf.fill_(f)
@@ -309,27 +339,33 @@ class NavierEnsemble:
         :func:`..utils.jit.scan_buckets`; ``time`` counts the scheduled
         steps, ``steps_done`` how far each member got.  The alive mask runs
         through the buckets and across calls (a dead member stays dead until
-        :meth:`set_member` or :meth:`respawn_dead`).
+        :meth:`set_member` or :meth:`respawn_dead`).  With the statistics
+        armed the members' running sums and the shared tick ride the chunk.
 
         With the template model's sentinels armed it returns the
         :class:`..utils.governor.ChunkStatus` (also ``last_chunk_status``)
         with each member's chunk-max CFL (``cfl_members``) and ceiling trip
         (``pinned``); when any alive member pinned the ceiling the whole
-        chunk rolls back (state, mask, counts and time stay at its start)
-        and :meth:`exit` latches until :meth:`clear_pre_divergence`."""
+        chunk rolls back (state, mask, counts, sums and time stay at its
+        start) and :meth:`exit` latches until :meth:`clear_pre_divergence`."""
         if self._stability is not None:
             return self._update_n_sentinels(n)
         runner = self.chunk_runner(armed=False)
         nf = len(self.state)
         self._load(runner, self.mask, self.steps_done)
+        tick = self._load_stats(runner)
         ok = runner.carry[nf]
         for bucket in scan_buckets(n):
             if not bool(ok.any()):
                 break  # every member dead: the rest of the chunk changes nothing
-            runner.run(bucket)
+            if runner.n_stats:
+                tick = runner.run_sampled(bucket, tick, self.model.stats_engine.stride)
+            else:
+                runner.run(bucket)
         self.state = self._unload(runner)
         self.mask = ok.clone()
         self.steps_done = runner.carry[nf + 1].clone()
+        self._unload_stats(runner)
         self.time += n * self.dt
         self._obs_cache = None
         return None
@@ -340,14 +376,17 @@ class NavierEnsemble:
         nf = len(self.state)
         before = self.steps_done
         self._load(runner, self.mask, True, self.steps_done)
+        tick = self._load_stats(runner)
         fin, cok = runner.carry[nf], runner.carry[nf + 1]
         for bucket in scan_buckets(n):
             if not bool((fin & cok).any()):
                 break  # no member finite and under the ceiling
-            runner.run(bucket)
-        dtype = self.model.dtype
-        rows = torch.stack([t.to(dtype) for t in runner.carry[nf:]] + [before.to(dtype)])
-        fin_h, cok_h, dn_h, cflm_h, gm_h, dvm_h, kep_h, before_h = rows.cpu().numpy()
+            if runner.n_stats:
+                tick = runner.run_sampled(bucket, tick, self.model.stats_engine.stride)
+            else:
+                runner.run(bucket)
+        rows = [t.to(torch.float64) for t in runner.carry[nf:nf + 7]] + [before.to(torch.float64)]
+        fin_h, cok_h, dn_h, cflm_h, gm_h, dvm_h, kep_h, before_h = torch.stack(rows).cpu().numpy()
         fin_h, cok_h = fin_h.astype(bool), cok_h.astype(bool)
         pinned = fin_h & ~cok_h
         pre_div = bool(pinned.any())
@@ -357,6 +396,7 @@ class NavierEnsemble:
             self.state = self._unload(runner)
             self.mask = fin.clone()
             self.steps_done = runner.carry[nf + 2].clone()
+            self._unload_stats(runner)
             self.time += n * self.dt
             self._obs_cache = None
         delta = dn_h - before_h
@@ -368,6 +408,40 @@ class NavierEnsemble:
             cfl_members=tuple(float(c) for c in cflm_h), pinned=tuple(bool(p) for p in pinned))
         self.last_chunk_status = status
         return status
+
+    # -- the statistics ------------------------------------------------------------
+
+    def set_stats(self, cfg) -> None:
+        """Arm (a :class:`..config.StatsConfig`) or disarm (None) the
+        template model's statistics engine for the ensemble's chunks: the
+        members' running sums (leading K dim) and the shared tick start at
+        zero, and the captured statistics chunks are dropped."""
+        self.model.set_stats(cfg)
+        self._drop_stats_runners()
+        self.reset_stats()
+
+    @property
+    def _stats_engine(self):
+        """The template model's engine."""
+        return self.model.stats_engine
+
+    def _stats_members(self) -> int:
+        return self.k
+
+    # -- the dt rung cache -------------------------------------------------------------
+
+    def set_dt(self, dt: float) -> None:
+        """Change the members' step size through the template model
+        (:meth:`..models.navier.Navier2D.set_dt`, which rebuilds or restores
+        its dt-baked operators), with the ensemble's own runners cached per
+        rung as the model's are (:meth:`.campaign.StatsAndRungs.set_dt`).
+        Member states, time and sums are untouched.  The per-member factors
+        of a geometry sweep are kept: the sweep builds them at the default
+        ``eta = dt / 10``, whose factor ``1 / (1 + (dt / eta) mask)`` does not
+        depend on dt (a JAX ``geometry_sweep`` after ``set_dt`` builds the
+        same ones)."""
+        self.model.set_dt(dt)
+        super().set_dt(self.model.dt)
 
     # -- recovery --------------------------------------------------------------
 

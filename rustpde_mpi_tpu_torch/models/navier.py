@@ -268,12 +268,8 @@ class Navier2D(CampaignModelBase):
             self._dealias = self.field_space.place_spectral(self.field_space.dealias_mask())
         self._stages = build_model_step(self) if step_kernel == "fused" else None
         if step_kernel == "dense":
-            # implicit solvers, as the JAX package builds them; velx and vely
-            # share one solver (identical operator)
+            self._build_helmholtz_solvers()
             sx2, sy2 = self.scale[0] ** 2, self.scale[1] ** 2
-            self.solver_velx = HholtzAdi(self.velx_space, (dt * nu / sx2, dt * nu / sy2))
-            self.solver_vely = self.solver_velx
-            self.solver_temp = HholtzAdi(self.temp_space, (dt * ka / sx2, dt * ka / sy2))
             self.solver_pres = Poisson(self.pseu_space, (1.0 / sx2, 1.0 / sy2))
             self._proj_grad = (
                 fused_projection_gradient(self.velx_space, self.pseu_space, (1, 0))
@@ -299,6 +295,26 @@ class Navier2D(CampaignModelBase):
         0.1, seed 0); keyword arguments go to the constructor."""
         model = cls(nx, ny, ra, pr, dt, aspect, bc, periodic=True, **kwargs)
         model.init_random(0.1)
+        return model
+
+    @classmethod
+    def from_config(cls, cfg, mesh=None, **kwargs) -> "Navier2D":
+        """A model from a :class:`..config.NavierConfig`, as the JAX
+        package's ``from_config``: the random initial condition at
+        ``init_random_amp`` (none when it is falsy), ``write_intervall`` and
+        the extra ``params``, then the sentinels (``stability``) and the
+        statistics (``stats``) armed; keyword arguments (``device``,
+        ``dtype``, the routes) go to the constructor."""
+        model = cls(*cfg.ctor_args(), periodic=cfg.periodic, mesh=mesh,
+                    scenario=getattr(cfg, "scenario", None), **kwargs)
+        if cfg.init_random_amp:
+            model.init_random(cfg.init_random_amp)
+        model.write_intervall = cfg.write_intervall
+        model.params.update(cfg.params)
+        if cfg.stability is not None:
+            model.set_stability(cfg.stability)
+        if cfg.stats is not None:
+            model.set_stats(cfg.stats)
         return model
 
     @property
@@ -386,6 +402,16 @@ class Navier2D(CampaignModelBase):
             raise ValueError(f"scalar_kappa must be positive, got {kappa}")
         return kappa
 
+    def _build_helmholtz_solvers(self) -> None:
+        """The dense route's implicit Helmholtz solvers at this dt, as the
+        JAX package builds them; velx and vely share one solver (identical
+        operator)."""
+        dt, nu, ka = self.dt, self.params["nu"], self.params["ka"]
+        sx2, sy2 = self.scale[0] ** 2, self.scale[1] ** 2
+        self.solver_velx = HholtzAdi(self.velx_space, (dt * nu / sx2, dt * nu / sy2))
+        self.solver_vely = self.solver_velx
+        self.solver_temp = HholtzAdi(self.temp_space, (dt * ka / sx2, dt * ka / sy2))
+
     def _build_scalar_solver(self):
         """The scalar's implicit solver on the dense route (None without a
         scalar or on the fused route): the temperature's own solver at
@@ -466,6 +492,36 @@ class Navier2D(CampaignModelBase):
             self.set_solid(None)
         else:
             self.set_solid(mask_value[0], mask_value[1])
+
+    # -- the dt rung cache (StatsAndRungs.set_dt) -----------------------------
+
+    #: what a dt change swaps out, cached per rung: the fused stages (dt is in
+    #: every Helmholtz stage's matrices and the lift constants), the dense
+    #: route's Helmholtz solvers, the lift fields (the diffusion source
+    #: scales with dt), the obstacle's factors (dt/eta) and the chunk
+    #: runners (their graphs replay the old operators); the pressure solver
+    #: and the convection chains have no dt
+    _DT_ARTIFACTS = ("_stages", "solver_velx", "solver_vely", "solver_temp", "solver_scal",
+                     "host_bc", "tempbc_ortho", "_tempbc_dx", "_tempbc_dy", "_tempbc_diff",
+                     "_solid") + CampaignModelBase._DT_ARTIFACTS
+
+    def _rebuild_dt_artifacts(self) -> None:
+        """A first visit to a dt rung: the lift fields, the fused stages or
+        the Helmholtz solvers, the scalar's solver, and the obstacle's
+        factors at the kept ``eta`` (the JAX package runs ``set_solid``
+        again; here the factors alone, as the chunks of the new rung are
+        captured afresh anyway)."""
+        xs, ys = (b.points for b in self.field_space.bases)
+        self._build_bc_fields(xs, ys)
+        if self._stages is not None:
+            self._stages = build_model_step(self)
+        if self.step_kernel == "dense":
+            self._build_helmholtz_solvers()
+        self.solver_scal = self._build_scalar_solver()
+        if self._solid is not None:
+            solid = self._solid
+            fac, temp_add = brinkman_factors(self, solid["mask"], solid["value"], solid["eta"])
+            self._solid = {**solid, "fac": fac, "temp_add": temp_add}
 
     def _build_bc_fields(self, xs: np.ndarray, ys: np.ndarray) -> None:
         """Transform the BC lift profile into ortho-space constants and its

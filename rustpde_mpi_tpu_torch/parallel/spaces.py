@@ -33,8 +33,8 @@ import torch.nn.functional as F
 from ..bases import Space2, divide_scale
 from ..ops import transforms as tr
 from .decomp import Decomp2d, all_gather_sum
-from .mesh import (Mesh, apply_separable, forward_separable, pad_matrix, padded,
-                   x_pencil_shape)
+from .mesh import (Mesh, apply_axis, apply_separable, forward_separable, pad_matrix,
+                   padded, x_pencil_shape)
 
 
 class PencilSpace2:
@@ -207,6 +207,16 @@ class PencilSpace2:
         """Physical values (y-pencil) of the derivative."""
         kx, ky = (("bwd_grad", d) if d else "bwd" for d in deriv)
         return divide_scale(self._apply(vhat, kx, ky, False), deriv, scale)
+
+    def synthesize(self, c: torch.Tensor, derivs, scale=None) -> list:
+        """Physical values (y-pencils) of the derivatives ``derivs`` of
+        orthogonal-space coefficients ``c``, each as ``backward_gradient``
+        gives it, with one x factor and one flip per distinct x order."""
+        along_x = {dx: self.mesh.ring.x_to_y(apply_axis(
+            self._mat(0, ("bwd_grad", dx) if dx else "synthesis"), c, -2))
+            for dx in dict.fromkeys(d[0] for d in derivs)}
+        return [divide_scale(apply_axis(self._mat(1, ("bwd_grad", dy) if dy else "synthesis"),
+                                        along_x[dx], -1), (dx, dy), scale) for dx, dy in derivs]
 
     # -- helpers ----------------------------------------------------------------
 

@@ -9,6 +9,10 @@ whose files this module writes and reads dataset for dataset):
 * ``time`` and the physics parameters (``ra, pr, nu, ka``) as float64
   scalars at the file root; an ensemble's groups ``member{i}`` plus
   ``members`` and ``steps_done`` (int64) and ``alive`` (int8);
+* with the statistics engine armed, its running sums and sample tick as
+  ``stats_state/{leaf}`` and ``stats_state/tick``, raw in their exact
+  dtypes (a restore is bit for bit; a file without them, or of another
+  resolution, restarts the averaging window);
 * a restart restores the spectral coefficients and ``time``, with
   truncation or zero-padding on a resolution change
   (:func:`interpolate_2d`).  ``pseu`` is not stored; a restart fills it,
@@ -509,7 +513,8 @@ def snapshot_to_host(model, step: int | None = None) -> HostSnapshot:
         datasets += _field_host_datasets("tempbc", model.field_space, tempbc, phys_bc, xs, dxs)
     datasets.append(("time", np.asarray(float(model.time), dtype=np.float64), "raw"))
     datasets += _param_datasets(model)
-    # the statistics engine's running sums (not ported yet: a no-op here)
+    # the statistics engine's running sums and tick (raw, exact dtypes),
+    # when it is armed
     stats_items = getattr(model, "stats_host_items", None)
     if stats_items is not None:
         datasets.extend(stats_items())
@@ -614,6 +619,13 @@ class _HostGroup:
             return _HostGroup(self._arrays, "/" + path)
         raise KeyError(key)
 
+    def __iter__(self):
+        """The names of the group's members, as iterating an h5py group
+        gives them."""
+        prefix = self._path("")
+        names = {k[len(prefix):].split("/", 1)[0] for k in self._arrays if k.startswith(prefix)}
+        return iter(sorted(names))
+
 
 def _host_group(snap: HostSnapshot) -> _HostGroup:
     """A :class:`HostSnapshot` as the root group of the file it writes:
@@ -635,8 +647,10 @@ def _read_stats_group(group) -> dict | None:
 
 
 def _restore_stats(pde, group) -> None:
-    """Install a snapshot's statistics leaves on a model whose statistics
-    engine is armed (not ported yet: a no-op here)."""
+    """Install a snapshot's statistics leaves on a model (or an ensemble)
+    whose statistics engine is armed: a snapshot without them, or with
+    leaves of another resolution or member count, restarts the window at
+    zero (:meth:`..models.stats.StatsEngine.restore_state`)."""
     if not getattr(pde, "stats_armed", False):
         return
     pde.apply_restored_stats(_read_stats_group(group))

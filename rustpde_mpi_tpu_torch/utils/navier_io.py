@@ -8,8 +8,11 @@ A failed write (``OSError``) is printed and never fatal, as the
 reference's.  A missing ``h5py`` is not caught: a callback that must write
 a snapshot raises ``ImportError`` where ``h5py`` is not installed, so a run
 that should save never goes on without its files (set ``write_intervall``
-past the run's end to write none).  The statistics of the reference's
-callback come with the statistics engine, which is not ported yet.
+past the run's end to write none).  A model with an attached legacy
+:class:`..models.statistics.Statistics` (``model.statistics``) updates it
+every ``save_stat`` and writes ``data/statistics.h5`` every
+``write_stat``, as the reference's callback; a failed statistics write is
+printed and appended to the model's journal as ``stats_write_failed``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,20 @@ def callback(model) -> None:
             checkpoint.write_snapshot(model, flowname)
         except OSError as exc:  # never fatal, matching the reference
             print(f"unable to write {flowname}: {exc}")
+    stats = getattr(model, "statistics", None)
+    if stats is not None:
+        dt = model.get_dt()
+        if (t + dt / 2.0) % stats.save_stat < dt:
+            stats.update(model)
+        if (t + dt / 2.0) % stats.write_stat < dt:
+            try:
+                stats.write("data/statistics.h5")
+            except OSError as exc:  # never fatal, but journaled
+                from ..models.stats import report_stats_event
+
+                print(f"unable to write statistics: {exc}")
+                report_stats_event(model, {"event": "stats_write_failed",
+                                           "path": "data/statistics.h5", "error": str(exc)})
     vals = model.get_observables()
     nu, nuvol, re, div = (float(v) for v in vals[:4])
     # an extended vocabulary (the passive scalar's sherwood) rides along by

@@ -1124,3 +1124,87 @@ def test_ensemble_restore_at_another_k_recaptures(device, route):
         state = ens.model._step(state)
     for x, y in zip(ens.state, state):
         assert torch.equal(x[0], y[0]) and torch.equal(x[2], y[2])
+
+
+# -- the statistics chunk and set_dt (the statistics engine, the dt governor) ----------------
+
+
+def _eager_stats(model, steps, stride):
+    """``steps`` eager ``update()`` calls, sampling the statistics where
+    the tick hits the stride (the plain chunk's rule on a healthy run)."""
+    eng = model.stats_engine
+    sums = model.stats_state
+    for tick in range(1, steps + 1):
+        model.update()
+        if tick % stride == 0:
+            sums = eng.accumulate(sums, model.state)
+    return sums
+
+
+@pytest.mark.parametrize("route", ["fused", "dense", "mesh", "periodic_fused", "periodic_mesh"])
+def test_stats_chunk_graph_matches_eager_steps(device, route):
+    """The captured statistics chunk (the step graph, and the step plus
+    sample graph on the stride's steps) equals eager steps with eager
+    samples bit for bit, state and sums; a replay of either graph launches
+    a step's kernels (the sample's own launches on top, on a mesh)."""
+    a, b = _route_model(route, device), _route_model(route, device)
+    for m in (a, b):
+        m.set_stats(pt.StatsConfig(stride=3))
+    runner = a.chunk_runner()
+    assert runner.captured and runner.n_stats == len(a.stats_state) + 1
+    assert sum(runner.deltas[0]) == sum(PER_STEP[route].values())
+    assert sum(runner.deltas[1]) >= sum(runner.deltas[0])
+    _prepare_chunks(a)
+    a.update_n(10)
+    want = _eager_stats(b, 10, 3)
+    _assert_bit_equal(a.state, b.state)
+    _assert_bit_equal(a.stats_state, want)
+    assert int(a._stats_tick[0]) == 10 and float(a.stats_state.samples[0]) == 3
+    extra = [d1 - d0 for d0, d1 in zip(runner.deltas[0], runner.deltas[1])]
+    names = [n for n, ks in a.kernels().items() for _ in ks]
+    got = {}
+    for name, d0, d1 in zip(names, runner.deltas[0], extra):
+        got[name] = got.get(name, 0) + 10 * d0 + 3 * d1
+    assert _launches_by_kernel(a) == got
+
+
+@pytest.mark.parametrize("route", ["fused", "dense", "mesh"])
+def test_no_stale_graph_after_set_dt(device, route):
+    """After ``set_dt`` one graph step equals one eager step at the new dt
+    bit for bit (and not the old dt's step); back at the old dt the cached
+    graph is replayed again, equal to an eager step there."""
+    m = _route_model(route, device)
+    m.update_n(2)
+    s0, old = m.state, m.chunk_runner()
+    stale = m._step(s0)
+    m.set_dt(m.dt / 2)
+    assert m.chunk_runner() is not old
+    m.update_n(1)
+    graph = m.state
+    _assert_bit_equal(graph, m._step(s0))
+    assert not torch.equal(graph.temp, stale.temp)
+    m.set_dt(m.dt * 2)
+    assert m.chunk_runner() is old
+    m.state = s0
+    m.update_n(1)
+    _assert_bit_equal(m.state, stale)
+
+
+def test_ensemble_stats_chunk_matches_solo_on_card(device):
+    """K = 3 members' statistics through the captured ensemble chunk equal
+    solo models' (33^2, fused route): the states bit for bit, the sums to
+    1e-12 of each leaf's scale (a member-batched reduction sums in another
+    order than a solo one)."""
+    model = _route_model("fused", device)
+    model.set_stats(pt.StatsConfig(stride=2))
+    ens = pt.NavierEnsemble.from_seeds(model, range(3))
+    ens.update_n(6)
+    for i in range(3):
+        solo = _route_model("fused", device)
+        solo.init_random(0.1, seed=i)
+        solo.set_stats(pt.StatsConfig(stride=2))
+        solo.update_n(6)
+        _assert_bit_equal(ens.member_state(i), solo.state)
+        for a, b in zip(ens.stats_state, solo.stats_state):
+            scale = max(float(b.abs().max()), 1e-300)
+            assert float((a[i] - b).abs().max()) <= 1e-12 * scale
