@@ -3353,6 +3353,469 @@ def phase_stats_ensemble(torch, pt, card, phase="phase28"):
 # -- the kernels line --------------------------------------------------------------
 
 
+# -- phase 29: the linearised models, the steady-state finder, the banded backward -------
+
+#: the card the phase runs on (a rehearsal on the CPU sets "cpu")
+CARD = "cuda"
+#: the JAX benchmark's ``workloads129`` cell (``bench.py:2490-2530``): K
+#: members a kind at 129^2, Ra 1e7, Pr 1; dt 2e-3 (the finder's descent
+#: 5e-3), the lnse members ``init_random(1e-4, seed)``, the finder's
+#: eigenmode shapes of amplitude ``0.3 + 0.05 seed``; the dense DNS ensemble
+#: beside them as the per-member yardstick
+WORKLOADS129 = dict(nx=129, ny=129, ra=1e7, pr=1.0, aspect=1.0, bc="rbc")
+WORKLOAD_KINDS = {"dns": (2e-3, ("dense",)), "lnse": (2e-3, ("dense", "mesh")),
+                  "adjoint": (5e-3, ("fused", "dense", "mesh"))}
+WORKLOAD_K = 4
+WORKLOAD_STEPS = 64
+#: a member against its solo run (the JAX benchmark's gate)
+WORKLOAD_LIMIT = 1e-9
+#: card against CPU: 10 steps at 33^2, each leaf within 1e-11 of its scale;
+#: the finder's ``pseu``, the descent's projection of a nearly
+#: divergence-free field, whose scale is 1e4-1e5 times below the
+#: velocities' (so its own relative error is theirs times that), within
+#: 1e-9 of its scale (2.4e-10 measured on the dense route) and 1e-11
+#: of the velocities' scale (``velx``'s)
+SMALL29 = dict(nx=33, ny=33, pr=1.0, aspect=1.0, bc="rbc")
+SMALL29_STEPS = 10
+SMALL29_LIMIT = 1e-11
+PSEU29_LIMIT = 1e-9
+#: the gradients at 129^2 over 50 steps (the JAX package's gates: the
+#: exact gradient against a central directional difference, rel 1e-5; the
+#: hand adjoint's objective rel 1e-10 and its direction cosine > 0.7)
+GRAD_STEPS = 50
+GRAD_EPS = 1e-6
+GRAD_FD_LIMIT = 1e-5
+GRAD_VALUE_LIMIT = 1e-10
+GRAD_COS = 0.7
+#: the banded solves of a step that its checkpoint recomputes in the backward
+GRAD_RECOMPUTED_SOLVES = 5
+#: the onset sign (``bench.py:2539-2548``): 8x17 periodic at the critical
+#: wavelength, dt 0.05, horizon 12 in 6 samples
+ONSET = dict(nx=8, ny=17, dt=0.05)
+ONSET_RAS = (800.0, 4000.0)
+ONSET_HORIZON, ONSET_SAMPLES = 12.0, 6
+#: the steady finder: K = 2 at 33^2, Ra 1e4, ``build_steady_ensemble``'s seeds; with
+#: ``res_tol`` 4e-3 the random member converges near step 280 (on the CPU)
+#: and the eigenmode-seeded one does not within the 600 steps
+STEADY29 = dict(nx=33, ny=33, ra=1e4, k=2, res_tol=4e-3)
+STEADY29_CHUNKS, STEADY29_CHUNK = 6, 100
+#: the banded backward against its plain version: 1e-12 of max|plain|
+BACKWARD_LIMIT = 1e-12
+
+
+def phase29_place(pt, route, device):
+    """Constructor arguments of a route on ``device``."""
+    if route == "mesh":
+        return {"mesh": pt.make_mesh(MESH_RANKS, device)}
+    return {"device": device, **(DENSE if route == "dense" else {})}
+
+
+def workload_model(pt, kind, route, device=None, cell=None, dt=None, ra=None):
+    """A ``kind`` model of the workloads registry on ``route`` (the
+    linearised model takes no step kernels: its dense route is its only
+    serial one)."""
+    cfg = dict(cell or WORKLOADS129)
+    kw = phase29_place(pt, route, device or CARD)
+    if kind == "lnse":
+        kw = {k: v for k, v in kw.items() if not k.endswith("kernel")}
+    return pt.build_model(kind, cfg["nx"], cfg["ny"], ra or cfg["ra"], cfg["pr"],
+                          dt or WORKLOAD_KINDS[kind][0], cfg["aspect"], cfg["bc"], False, **kw)
+
+
+def seed_workload(model, kind, seed):
+    """``bench.py``'s initial conditions of member ``seed``."""
+    if kind == "adjoint":
+        model.set_temperature(0.3 + 0.05 * seed, 1.0, 1.0)
+        model.set_velocity(0.3 + 0.05 * seed, 1.0, 1.0)
+    else:
+        model.init_random(1e-2 if kind == "dns" else 1e-4, seed=seed)
+
+
+def phase_workloads129(torch, pt):
+    """Phase 29a: ``workloads129``, K = 4 members a kind and route, each an
+    ensemble: the capture, one counted chunk of ``WORKLOAD_STEPS`` steps
+    (launches by kernel, a step's exactly the captured step's), one timed
+    chunk (member-steps/s), then every member against its solo run."""
+    import numpy as np
+
+    rows = {}
+    for kind, (_, routes) in WORKLOAD_KINDS.items():
+        for route in routes:
+            model = workload_model(pt, kind, route)
+            members = []
+            for seed in range(WORKLOAD_K):
+                seed_workload(model, kind, seed)
+                members.append(model.state)
+            ens = pt.NavierEnsemble(model, members)
+            t0 = time.perf_counter()
+            runner = ens.chunk_runner()
+            capture = time.perf_counter() - t0
+            if not runner.captured and CARD == "cuda":
+                raise AssertionError(f"workloads129 {kind} {route}: no captured graph")
+            names = [name for name, ks in model.kernels().items() for _ in ks]
+            per_replay = {}
+            for name, d in zip(names, runner.delta):
+                per_replay[name] = per_replay.get(name, 0) + d
+            reset_counts(model)
+            ens.update_n(WORKLOAD_STEPS)
+            torch.cuda.synchronize()
+            counted = count_launches(model)
+            want = {name: v * WORKLOAD_STEPS for name, v in per_replay.items()}
+            if CARD == "cuda" and counted != want:
+                raise AssertionError(f"workloads129 {kind} {route}: launches {counted}, "
+                                     f"want {want}")
+            t0 = time.perf_counter()
+            ens.update_n(WORKLOAD_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            worst = 0.0
+            for seed in range(WORKLOAD_K):
+                solo = workload_model(pt, kind, route)
+                seed_workload(solo, kind, seed)
+                solo.update_n(WORKLOAD_STEPS)
+                solo.update_n(WORKLOAD_STEPS)
+                worst = max(worst, max_rel_diff(torch, ens.member_state(seed), solo.state))
+                del solo
+            obs = ens.get_observables()
+            row = {"kind": kind, "route": route, "K": WORKLOAD_K, "capture_s": capture,
+                   "ms_per_step": wall / WORKLOAD_STEPS * 1e3,
+                   "member_steps_per_s": WORKLOAD_K * WORKLOAD_STEPS / wall,
+                   "launches_per_step": {n: v / WORKLOAD_STEPS for n, v in counted.items()},
+                   "member_vs_solo_max_rel": worst, "alive": int(ens.alive().sum()),
+                   model.observable_names[0]: [float(v) for v in obs[0]]}
+            print("phase29 workloads129 " + json.dumps(row))
+            if not worst <= WORKLOAD_LIMIT:
+                raise AssertionError(f"workloads129 {kind} {route}: a member differs from its "
+                                     f"solo run by {worst:.3e}")
+            if not (ens.alive().all() and np.isfinite(obs[0]).all()):
+                raise AssertionError(f"workloads129 {kind} {route}: a member died")
+            rows[kind, route] = row
+            del ens, model
+            if CARD == "cuda":
+                torch.cuda.empty_cache()
+    dns = rows["dns", "dense"]["member_steps_per_s"]
+    for (kind, route), row in rows.items():
+        print(f"phase29 workloads129 {kind} {route}: {row['member_steps_per_s']:.1f} member-steps/s, "
+              f"{dns / row['member_steps_per_s']:.3f} x a dense DNS member-step's time")
+    return rows
+
+
+def small29_models(pt, kind, route, device):
+    """The phase's 33^2 model of ``kind`` ("lnse", "nonlin", "adjoint") on
+    ``route``, from its seeded initial condition; a CPU model takes the
+    card's Chebyshev transform method."""
+    kw = phase29_place(pt, route, device)
+    if device == "cpu":
+        kw["method"] = pt.bases.CARD_METHOD
+    nx, ny = SMALL29["nx"], SMALL29["ny"]
+    if kind == "adjoint":
+        model = pt.Navier2DAdjoint(nx, ny, 1e4, 1.0, 5e-3, 1.0, "rbc", **kw)
+        seed_workload(model, "adjoint", 0)
+        return model
+    kw = {k: v for k, v in kw.items() if not k.endswith("kernel")}
+    cls = pt.Navier2DNonLin if kind == "nonlin" else pt.Navier2DLnse
+    mean = pt.MeanFields.new_rbc(nx, ny, device="cpu")
+    model = cls(nx, ny, 1e5, 1.0, 1e-2, 1.0, "rbc", mean=mean, **kw)
+    model.init_random(1e-3, seed=1)
+    return model
+
+
+def leaf_diffs(torch, model, a, b):
+    """Each leaf's largest difference of two states of ``model`` (global
+    arrays, a mesh's pencils gathered) relative to the leaf's scale in
+    ``b``."""
+    out = {}
+    for name, x, y in zip(a._fields, a, b):
+        if name != "res_norms":
+            space = getattr(model, f"{'pres' if name == 'pres_adj' else name}_space")
+            x, y = space.gather_spectral(x), space.gather_spectral(y)
+        x, y = x.cpu(), y.cpu()
+        scale = float(torch.max(torch.abs(y)))
+        out[name] = float(torch.max(torch.abs(x - y))) / (scale or 1.0)
+    return out
+
+
+def phase_small29(torch, pt):
+    """Phase 29b: card against CPU at 33^2, 10 steps of ``update_n``, for
+    the linearised, the perturbation and the finder model on every route
+    each has."""
+    for kind, routes in (("lnse", ("dense", "mesh")), ("nonlin", ("dense", "mesh")),
+                         ("adjoint", ("fused", "dense", "mesh"))):
+        for route in routes:
+            card, cpu = small29_models(pt, kind, route, CARD), small29_models(pt, kind, route, "cpu")
+            card.update_n(SMALL29_STEPS)
+            cpu.update_n(SMALL29_STEPS)
+            diffs = leaf_diffs(torch, card, card.state, cpu.state)
+            if kind == "adjoint":
+                diffs["pseu_of_velx_scale"] = diffs["pseu"] * float(
+                    cpu.state.pseu.abs().max() / cpu.state.velx.abs().max())
+            print(f"phase29 card vs CPU {kind} {route} 33^2 after {SMALL29_STEPS} steps: "
+                  + json.dumps(diffs))
+            for name, d in diffs.items():
+                limit = PSEU29_LIMIT if (kind, name) == ("adjoint", "pseu") else SMALL29_LIMIT
+                if not d <= limit:
+                    raise AssertionError(f"card vs CPU {kind} {route}: {name} {d:.3e} > {limit:g}")
+
+
+def backward_cases(torch, pt):
+    """``(cell, model)`` whose dense step's banded solves phase 29c holds
+    backward: ``rbc1025`` (the kernels line's), the ``workloads129``
+    linearised model's, HC's general path at 129^2, and the periodic
+    cell's complex planes at 128x129."""
+    yield "rbc1025", pt.Navier2D(**RBC1025, device=CARD, **DENSE)
+    yield "workloads129", workload_model(pt, "lnse", "dense").navier
+    yield "hc129", pt.Navier2D(**HC_CELLS["hc129"], device=CARD, **DENSE)
+    yield "periodic128", pt.Navier2D(**PERIODIC128, device=CARD, **DENSE)
+
+
+def phase_banded_backward(torch, pt):
+    """Phase 29c: the banded solve's backward (autograd through
+    ``BandedSolveFn``: one kernel launch on ``A^T``'s factors) against the
+    plain recurrence on those factors, every solve of each case's dense
+    step on random inputs; timed beside the forward launch (queued behind
+    the GPU spin), with its plain version's time and its bound.  Returns
+    the ``rbc1025`` sums a step (the forward's launch counts) for the
+    kernels line.  ``backward_library_ms``: one ``torch.matmul`` by the
+    transposed inverse ``A^-T`` (every lane's, for per-lane factors) on the
+    same cotangent."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.ops.transforms import apply_along
+
+    rng = np.random.default_rng(29)
+    sums = {"backward_ms": 0.0, "backward_forward_ms": 0.0, "backward_plain_ms": 0.0,
+            "backward_bound_ms": 0.0, "backward_library_ms": 0.0}
+    for cell, model in backward_cases(torch, pt):
+        timing = cell == "rbc1025"
+        for label, solver, b, axis, per_step, _ in banded_cases(torch, pt, model, rng, False):
+            kernel = solver.kernel
+            back = kernel.transposed()
+            inv_t = banded_inverses(torch, kernel).transpose(1, 2)  # A^-T, a view
+            g = random_field(torch, rng, tuple(b.shape), model.dtype, model.device, b.is_complex())
+            before = (kernel.launches, back.launches)
+            bb = b.clone().requires_grad_(True)
+            (grad,) = torch.autograd.grad(solver.solve(bb, axis), bb, g)
+            plain = solver._along(lambda v: back.plain(v), g, axis)
+            diff, rel = rel_err(torch, grad, plain)
+            launched = (kernel.launches - before[0], back.launches - before[1])
+            rec = {"cell": cell, "case": label, "path": back.path, "p_q": [back.p, back.q],
+                   "per_lane": kernel.per_lane, "complex": b.is_complex(),
+                   "max_abs_err": diff, "max_rel_err": rel, "launches_fwd_bwd": launched}
+            n = b.shape[axis]
+            shape3 = (2 if b.is_complex() else 1, n, b.numel() // n)
+            fwd_ms = time_queued_ms(torch, lambda: solver.solve(b, axis), QUEUED_REPS)[0]
+            bwd_ms = time_queued_ms(torch, lambda: solver._along(lambda v: back.apply(v), g, axis),
+                                    QUEUED_REPS)[0]
+            t_op = back.flops(shape3) / (F64_TFLOPS * 1e12) * 1e3
+            t_mem = back.bytes_moved(shape3) / (HBM_TB_PER_S * 1e12) * 1e3
+            if kernel.per_lane:
+                lib = lambda: lane_matmul(torch, inv_t, g.movedim(axis, -1)).movedim(-1, axis)
+            else:
+                lib = lambda: apply_along(inv_t[0], g, axis)
+            rec.update(forward_ms=fwd_ms, backward_ms=bwd_ms, backward_bound_ms=max(t_op, t_mem),
+                       backward_bound_by="operations" if t_op >= t_mem else "bytes",
+                       backward_library_ms=time_queued_ms(torch, lib, 10)[0],
+                       backward_library_max_rel_err=lane_rel_err(torch, lib(), grad, axis)[1])
+            if timing:
+                rec["backward_plain_ms"] = time_ms(
+                    torch, lambda: solver._along(lambda v: back.plain(v), g, axis), 2)
+                if per_step:
+                    for key, ms in (("backward_ms", bwd_ms), ("backward_forward_ms", fwd_ms),
+                                    ("backward_plain_ms", rec["backward_plain_ms"]),
+                                    ("backward_bound_ms", rec["backward_bound_ms"]),
+                                    ("backward_library_ms", rec["backward_library_ms"])):
+                        sums[key] += per_step * ms
+            del inv_t, lib
+            print("phase29 banded backward " + json.dumps(rec))
+            if CARD == "cuda" and launched != (1, 1):
+                raise AssertionError(f"banded backward {cell}/{label}: launches {launched}")
+            if back.path != kernel.path or not rel <= BACKWARD_LIMIT:
+                raise AssertionError(f"banded backward {cell}/{label}: rel err {rel:.3e}, path "
+                                     f"{back.path} (forward {kernel.path})")
+            if not rec["backward_library_max_rel_err"] <= LIBRARY_LIMIT:
+                raise AssertionError(f"banded backward {cell}/{label}: the library yardstick "
+                                     f"solves another system (rel err "
+                                     f"{rec['backward_library_max_rel_err']:.3e})")
+        del model
+        if CARD == "cuda":
+            torch.cuda.empty_cache()
+    print("phase29 banded backward rbc1025 dense step sums: " + json.dumps(sums))
+    return sums
+
+
+def transposed_launches(model) -> int:
+    return sum(k.transposed().launches for k in model.kernels()["banded_solve"]
+               if k._transposed is not None)
+
+
+def phase_gradients129(torch, pt):
+    """Phase 29d: ``grad_autodiff`` (autograd through the eager forward
+    loop, each step checkpointed; every banded solve and its backward a
+    kernel launch) and ``grad_adjoint`` at 129^2 over ``GRAD_STEPS`` steps,
+    for the linearised and the perturbation model on the dense route: the
+    exact gradient against a central directional difference, the hand
+    adjoint's objective against the exact one and their direction cosine;
+    wall time and peak memory of each.  Returns the backward launches of
+    the linearised model's gradient."""
+    import numpy as np
+
+    cfg = WORKLOADS129
+    backward_launches = 0
+    for cls in (pt.Navier2DLnse, pt.Navier2DNonLin):
+        model = cls(cfg["nx"], cfg["ny"], cfg["ra"], cfg["pr"], 2e-3, cfg["aspect"], cfg["bc"],
+                    mean=pt.MeanFields.new_rbc(cfg["nx"], cfg["ny"], device="cpu"), device=CARD)
+        model.init_random(1e-3, seed=1)
+        ic = model.state
+        horizon = GRAD_STEPS * model.dt
+        reset_counts(model)
+        out = {"model": cls.__name__, "steps": GRAD_STEPS}
+        # the first call of each also builds the transposed factors (host)
+        # and warms up the backward's kernels: timed apart from a second
+        for name, run in (("autodiff_first", lambda: model.grad_autodiff(horizon)),
+                          ("autodiff", lambda: model.grad_autodiff(horizon)),
+                          ("adjoint", lambda: model.grad_adjoint(horizon))):
+            model.state = ic
+            model.reset_time()
+            torch.cuda.synchronize()
+            if CARD == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            val, grads = run()
+            torch.cuda.synchronize()
+            out[f"{name}_s"] = time.perf_counter() - t0
+            # the call's own peak, over what the card held before it
+            out[f"{name}_peak_mib"] = ((torch.cuda.max_memory_allocated() - held) / 2**20
+                                       if CARD == "cuda" else None)
+            out[name] = (val, grads)
+            if name == "autodiff_first":
+                out["forward_launches"] = count_launches(model)["banded_solve"]
+                out["backward_launches"] = transposed_launches(model)
+        (va, ga), (vh, gh) = out.pop("autodiff"), out.pop("adjoint")
+        if out.pop("autodiff_first")[0] != va:
+            raise AssertionError(f"{cls.__name__}: two grad_autodiff calls disagree")
+        model.state = ic
+        base = model._host_phys(ic)
+        objective = model._objective(GRAD_STEPS, 0.5, 0.5, None)
+        rng = np.random.default_rng(0)
+        dirs = [rng.standard_normal(a.shape) for a in base]
+
+        def at(sign):
+            with torch.no_grad():
+                return float(objective(*(model._place_physical(a + sign * GRAD_EPS * d)
+                                         for a, d in zip(base, dirs))))
+
+        fd = (at(1.0) - at(-1.0)) / (2 * GRAD_EPS)
+        ad = -sum(float(np.sum(g * d)) for g, d in zip(ga, dirs))
+        dot = sum(float(np.sum(a * h)) for a, h in zip(ga, gh))
+        norm = math.sqrt(sum(float(np.sum(a * a)) for a in ga) * sum(float(np.sum(h * h))
+                                                                      for h in gh))
+        out.update(objective=va, fd_directional=fd, ad_directional=ad,
+                   fd_rel=abs(ad - fd) / abs(fd), adjoint_value_rel=abs(vh - va) / abs(va),
+                   cosine=dot / norm)
+        print("phase29 gradients129 " + json.dumps(out))
+        if not out["fd_rel"] <= GRAD_FD_LIMIT:
+            raise AssertionError(f"{cls.__name__}: grad_autodiff vs the directional difference "
+                                 f"{out['fd_rel']:.3e}")
+        if not (out["adjoint_value_rel"] <= GRAD_VALUE_LIMIT and out["cosine"] > GRAD_COS):
+            raise AssertionError(f"{cls.__name__}: grad_adjoint objective rel "
+                                 f"{out['adjoint_value_rel']:.3e}, cosine {out['cosine']:.3f}")
+        # each solve of the forward loop (7 a dense step) has its backward
+        # launch once; the forward count adds each step's recompute, which
+        # the non-reentrant checkpoint stops once it has the tensors it
+        # saved: those end at the pressure solve, so it re-runs the velocity
+        # and pressure solves (5) and not the two temperature ones
+        want = GRAD_STEPS * PER_STEP["dense"]["banded_solve"]
+        want_fwd = GRAD_STEPS * (PER_STEP["dense"]["banded_solve"] + GRAD_RECOMPUTED_SOLVES)
+        if CARD == "cuda" and not (out["backward_launches"] == want
+                                   and out["forward_launches"] == want_fwd):
+            raise AssertionError(f"{cls.__name__}: {out['backward_launches']} backward launches "
+                                 f"(want {want}), {out['forward_launches']} forward ones "
+                                 f"(want {want_fwd})")
+        if cls is pt.Navier2DLnse:
+            backward_launches = out["backward_launches"]
+        del model
+    return backward_launches
+
+
+def phase_onset(torch, pt):
+    """Phase 29e: the onset sign, ``build_eigenmode_ensemble`` at Ra 800
+    and 4000 stepped by ``update_n`` over ``ONSET_HORIZON`` in
+    ``ONSET_SAMPLES`` chunks; ``growth_rates`` of the sampled energies
+    decays below onset and grows above it; the card's energies against
+    the CPU's."""
+    import numpy as np
+
+    sigma = {}
+    steps = max(ONSET_SAMPLES, round(ONSET_HORIZON / ONSET["dt"]))
+    chunk = max(1, steps // ONSET_SAMPLES)
+    for ra in ONSET_RAS:
+        runs = {}
+        for device in (CARD, "cpu"):
+            ens = pt.build_eigenmode_ensemble(ra=ra, device=device, **ONSET)
+            times, energies = [], []
+            for _ in range(ONSET_SAMPLES):
+                ens.update_n(chunk)
+                times.append(ens.get_time())
+                energies.append(ens.get_observables()[0])
+            runs[device] = (times, np.stack(energies))
+        times, energies = runs[CARD]
+        rel = float(np.max(np.abs(energies - runs["cpu"][1]) / np.abs(runs["cpu"][1])))
+        sigma[ra] = float(np.nanmax(pt.growth_rates(times, energies)))
+        print(f"phase29 onset Ra={ra:g}: sigma_max {sigma[ra]!r}; energies card vs CPU max rel "
+              f"{rel:.3e}; energies {energies[:, 0].tolist()}")
+        if not rel <= 1e-9:
+            raise AssertionError(f"onset Ra={ra:g}: card energies differ from the CPU's ({rel:.3e})")
+    lo, hi = (sigma[ra] for ra in ONSET_RAS)
+    if not (math.isfinite(lo) and math.isfinite(hi) and lo < 0.0 < hi):
+        raise AssertionError(f"onset sign: sigma {lo!r} at Ra {ONSET_RAS[0]:g}, {hi!r} at "
+                             f"{ONSET_RAS[1]:g}")
+
+
+def phase_steady29(torch, pt):
+    """Phase 29f: ``build_steady_ensemble`` (K = 2, 33^2, Ra 1e4) in chunks
+    on the card's captured graph: the residual of every member still
+    advancing falls chunk over chunk, and the member that converges
+    freezes inside a chunk (``steps_done`` stalls below the chunk's end,
+    ``done_ok_members`` set) while the other goes on."""
+    ens = pt.build_steady_ensemble(device=CARD, **STEADY29)
+    runner = ens.chunk_runner()
+    if CARD == "cuda" and not runner.captured:
+        raise AssertionError("steady finder: no captured graph")
+    prev = None
+    for c in range(STEADY29_CHUNKS):
+        alive = ens.alive()
+        ens.update_n(STEADY29_CHUNK)
+        res = ens.get_observables()[0]
+        done = ens.steps_done.tolist()
+        print(f"phase29 steady chunk {c}: residuals {res.tolist()} steps_done {done} alive "
+              f"{ens.alive().tolist()} done_ok {ens.done_ok_members().tolist()}")
+        if prev is not None and not (res[alive] < prev[alive]).all():
+            raise AssertionError("steady finder: an advancing member's residual did not fall")
+        prev = res
+    total = STEADY29_CHUNKS * STEADY29_CHUNK
+    done_ok, steps = ens.done_ok_members(), ens.steps_done.cpu().numpy()
+    if not (done_ok.any() and (steps[done_ok] < total).all() and ens.alive().any()
+            and (steps[ens.alive()] == total).all()):
+        raise AssertionError(f"steady finder: no member froze at convergence inside a chunk "
+                             f"(done_ok {done_ok.tolist()}, steps_done {steps.tolist()})")
+
+
+def phase29(torch, pt):
+    """Phase 29: the linearised and perturbation models, the steady-state
+    finder, and the banded solve's backward (29a-29f); prints its wall
+    time.  Returns the banded backward's entries of the kernels line."""
+    t0 = time.perf_counter()
+    phase_workloads129(torch, pt)
+    phase_small29(torch, pt)
+    sums = phase_banded_backward(torch, pt)
+    sums["backward_launches"] = phase_gradients129(torch, pt)
+    phase_onset(torch, pt)
+    phase_steady29(torch, pt)
+    print(f"phase29 ok: {time.perf_counter() - t0:.1f} s wall")
+    return sums
+
+
 KERNEL_META = {
     "fused_conv": ("rustpde_mpi_tpu_torch/csrc/fused_conv.cu",
                    "rustpde_mpi_tpu/ops/pallas_conv.py:64"),
@@ -3583,6 +4046,7 @@ def run(torch) -> int:
     phase_stats_ensemble(torch, pt, card)
     print("phase28 ok")
     phase_methods(torch, pt)
+    solver_times.update(phase29(torch, pt))
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,6 +26,17 @@ Entry points run on the CUDA card unless the caller passes
     periodic = Navier2D.new_periodic(128, 129, 1e5, 1.0, 1e-2, 1.0, "hc",
                                      mesh=make_mesh(4))
 
+The linearised and perturbation models ``Navier2DLnse`` and
+``Navier2DNonLin`` (about a ``MeanFields`` base state, with the hand
+adjoint ``grad_adjoint``, ``grad_autodiff`` through the banded kernel's
+backward, and ``grad_fd``) run on the dense and meshed routes, and the
+steady-state finder ``Navier2DAdjoint`` on every route; all three run as
+``NavierEnsemble`` templates, built through ``workloads.build_model``::
+
+    lnse = Navier2DLnse(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc",
+                        mean=MeanFields.new_rbc(129, 129))
+    ens = build_steady_ensemble(nx=33, ny=33, ra=1e4, k=2)
+
 The meshed model runs the dense route on fields split over 4 ranks of one
 card (:mod:`.parallel`), in either cell, every pencil flip (of real or
 complex pencils) through a hand-written CUDA transpose kernel.  Fourier axes transform on ``torch.fft``; Chebyshev axes
@@ -80,7 +91,11 @@ from .field import Field2  # noqa: F401
 from .models.boundary_conditions import (bc_hc_values, bc_rbc_values,  # noqa: F401
                                          bc_zero_values, pres_bc_rbc_values)
 from .models.ensemble import NavierEnsemble  # noqa: F401
+from .models.lnse import Navier2DLnse, Navier2DNonLin  # noqa: F401
+from .models.meanfield import MeanFields  # noqa: F401
 from .models.navier import Navier2D, NavierScalarState, NavierState  # noqa: F401
+from .models.opt_routines import steepest_descent_energy_constrained  # noqa: F401
+from .models.steady_adjoint import AdjointState, Navier2DAdjoint  # noqa: F401
 from .models.statistics import Statistics  # noqa: F401
 from .models.stats import StatsEngine, StatsState, export_stats  # noqa: F401
 from .models.solid_masks import (solid_cylinder_inner, solid_porosity,  # noqa: F401
@@ -93,4 +108,6 @@ from .utils.governor import (ChunkStatus, DtLadder, GovernorDecision, RunHealth,
 from .utils.integrate import integrate  # noqa: F401
 from .utils.vorticity import (vorticity_auto, vorticity_from_file,  # noqa: F401
                               vorticity_from_file_periodic)
-from .workloads import ScenarioConfig, geometry_sweep  # noqa: F401
+from .workloads import (ScenarioConfig, build_eigenmode_ensemble,  # noqa: F401
+                        build_model, build_steady_ensemble, critical_rayleigh, geometry_sweep,
+                        growth_rates, solo_ensemble_parity)

@@ -53,6 +53,37 @@ from ..utils.jit import scan_buckets
 from .stats import StatsState
 
 
+#: the attribute surface of a campaign model that the workloads registry
+#: validates (:func:`..workloads.registry.validate_campaign_model`): the
+#: JAX package's list less its compiled-entry-point, integrity and
+#: asynchronous-readout names, which the port does not have
+CAMPAIGN_MODEL_ATTRS = (
+    "MODEL_KIND",
+    "observable_names",
+    "state",
+    "compat_key",
+    "update_n",
+    "set_stability",
+    "clear_pre_divergence",
+    "set_stats",
+    "stats_armed",
+    "set_dt",
+    "get_dt",
+    "get_time",
+    "get_observables",
+    "exit",
+    "init_random",
+    "read",
+    "write",
+    "kernels",
+    "_step",
+    "_observables",
+    "_scan_ok",
+    "_scan_done_ok",
+    "_scan_commit_ok",
+)
+
+
 class ChunkRunner:
     """The carry of a chunk (``carry``: the state's fields, then the
     scalars ``advance`` reads, then the statistics slots, if any) and one
@@ -397,6 +428,21 @@ class CampaignModelBase(StatsAndRungs):
             probe = probe + total(state.scal)
         return torch.isfinite(probe)
 
+    def _scan_done_ok(self, state, lead: int = 0) -> torch.Tensor:
+        """Whether a state that stopped advancing (``_scan_ok`` False)
+        stopped by success (the adjoint finder's convergence) rather than
+        by divergence: never, for the DNS (a False of ``_scan_ok``'s
+        shape)."""
+        return torch.zeros_like(self._scan_ok(state, lead))
+
+    def _scan_commit_ok(self, state, lead: int = 0) -> torch.Tensor:
+        """Whether an ensemble member commits its stepped state: the
+        continue criterion by default (a NaN state is never committed); a
+        model whose ``_scan_ok`` also stops on success commits every finite
+        state, so its converged state lands in the carry before the member
+        freezes."""
+        return self._scan_ok(state, lead)
+
     @staticmethod
     def _commit(fields, stepped, keep) -> None:
         """The freeze: each field of the carry takes its stepped value
@@ -499,12 +545,22 @@ class CampaignModelBase(StatsAndRungs):
         fields = carry[:nf]
         ok, done = carry[nf:nf + 2]
         stepped = self._step(type(self.state)(*fields), solid=solid)
-        keep = ok & self._scan_ok(stepped, lead=1)
+        cont = ok & self._scan_ok(stepped, lead=1)
+        keep = self._member_commit(ok, stepped, cont)
         if sample is not None:
             self._stats_advance(carry[nf + 2:], stepped, ok.any(), keep, sample)
         done.add_(keep)
         self._commit(fields, stepped, keep)
-        ok.copy_(keep)
+        ok.copy_(cont)
+
+    def _member_commit(self, active, stepped, cont) -> torch.Tensor:
+        """The members that commit their stepped state: the active ones
+        whose state passes ``_scan_commit_ok``; ``cont`` (the active ones
+        that go on) when the model keeps the default rule, so the DNS graph
+        computes no second criterion."""
+        if type(self)._scan_commit_ok is CampaignModelBase._scan_commit_ok:
+            return cont
+        return active & self._scan_commit_ok(stepped, lead=1)
 
     def _advance_members_sentinels(self, carry, solid=None, sample=None) -> None:
         """One step of an ensemble's sentinel chunk on ``carry = [*state,
@@ -526,7 +582,7 @@ class CampaignModelBase(StatsAndRungs):
         finite = self._scan_ok(stepped, lead=1)
         torch.where(active, finite, fin, out=fin)
         torch.where(active, torch.logical_not(cfl > self._ceiling), cok, out=cok)
-        keep = active & finite & cok
+        keep = self._member_commit(active, stepped, active & finite) & cok
         if sample is not None:
             self._stats_advance(carry[nf + 7:], stepped, active.any(), keep, sample)
         done.add_(keep)

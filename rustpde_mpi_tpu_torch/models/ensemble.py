@@ -221,9 +221,11 @@ class NavierEnsemble(StatsAndRungs):
         return self.mask.cpu().numpy()
 
     def done_ok_members(self) -> np.ndarray:
-        """Members that stopped by the model's success criterion: none for
-        the DNS, whose members stop only by divergence."""
-        return np.zeros(self.k, dtype=bool)
+        """Members that stopped by the model's success criterion (the
+        template's ``_scan_done_ok`` per member, host bools of shape (K,)):
+        the adjoint finder's converged members; none for the DNS, whose
+        members stop only by divergence."""
+        return self.model._scan_done_ok(self.state, lead=1).cpu().numpy()
 
     def state_healthy(self) -> bool:
         """Whether the ensemble is worth keeping: not latched by a sentinel
@@ -465,11 +467,20 @@ class NavierEnsemble(StatsAndRungs):
             rng = np.random.default_rng(seed)
         donors = np.flatnonzero(alive)
         respawned = 0
-        fields = self.model._state_fields()
+        spaces = dict(self.model._state_fields())
         for i in np.flatnonzero(~alive):
             donor = self.member_state(int(donors[respawned % len(donors)]))
             leaves = []
-            for x, (_, space) in zip(donor, fields):
+            for name, x in zip(donor._fields, donor):
+                space = spaces.get(name)
+                if space is None:
+                    # a leaf of no space (the adjoint finder's residual
+                    # norms) restarts by the model's rule; its noise is
+                    # drawn all the same, as the JAX package draws one for
+                    # every leaf
+                    rng.standard_normal(tuple(x.shape))
+                    leaves.append(self.model.restart_fill(name, x))
+                    continue
                 real = x.real.dtype if x.is_complex() else x.dtype
                 noise = space.place_spectral(rng.standard_normal(space.shape_spectral),
                                              dtype=real)

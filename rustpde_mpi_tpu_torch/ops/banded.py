@@ -126,9 +126,11 @@ class BandedSolver:
         ``(batch, n, lanes)`` view of ``b`` (every dim before ``axis``, a
         member dim included, goes into the batch).  ``factor_batch_stride``
         and ``factor_batch_period``: see
-        :meth:`..ops.banded_solve.BandedSolve.apply`."""
-        return self._along(
-            lambda v: self.kernel.apply(v, factor_batch_stride, factor_batch_period), b, axis)
+        :meth:`..ops.banded_solve.BandedSolve.apply`.  The solve runs
+        through :class:`BandedSolveFn`, whose backward is the same kernel on
+        ``A^T``'s factors (built only when autograd asks for it)."""
+        return self._along(lambda v: BandedSolveFn.apply(
+            v, self.kernel, factor_batch_stride, factor_batch_period), b, axis)
 
     def plain(self, b: torch.Tensor, axis: int, factor_batch_stride: int = 0,
               factor_batch_period: int = 0) -> torch.Tensor:
@@ -164,6 +166,27 @@ class BandedSolver:
             return undo(fn(view))
         out = fn(torch.view_as_real(view).movedim(-1, 0)).movedim(0, -1)
         return undo(torch.view_as_complex(out if out.stride(-1) == 1 else out.contiguous()))
+
+
+class BandedSolveFn(torch.autograd.Function):
+    """The banded solve ``x = A^-1 b`` along the rows of a ``([planes,]
+    batch, n, lanes)`` view, as autograd sees it: the forward is
+    :meth:`..ops.banded_solve.BandedSolve.apply` (the kernel on the card,
+    the plain recurrence on the CPU), the backward ``A^-T g`` through the
+    same call on the transposed factors (:meth:`..ops.banded_solve.
+    BandedSolve.transposed`), with the same factor sets per lane, batch
+    stride, period and planes.  ``A`` is real, so a complex cotangent's
+    parts, the planes of its real view, take the same transposed solve."""
+
+    @staticmethod
+    def forward(ctx, b, kernel, factor_batch_stride, factor_batch_period):
+        ctx.solve = (kernel, factor_batch_stride, factor_batch_period)
+        return kernel.apply(b, factor_batch_stride, factor_batch_period)
+
+    @staticmethod
+    def backward(ctx, g):
+        kernel, stride, period = ctx.solve
+        return kernel.transposed().apply(g.contiguous(), stride, period), None, None, None
 
 
 class DenseSolver:

@@ -63,6 +63,26 @@ SMEM_LIMIT = 232448
 TILE_LANES = (8, 4, 2, 1)
 
 
+def transpose_factors(lower, upper):
+    """The LU factors of ``A^T`` from those of ``A = L U`` (``lower`` ``(...,
+    p, n)``, ``upper`` ``(..., q+1, n)``, the layout of
+    :func:`..ops.banded.band_lu_factor`), in host f64: with ``D =
+    diag(U)``, ``A^T = (U^T D^-1) (D L^T)``, a unit lower factor of
+    bandwidth ``q`` and an upper one of bandwidth ``p`` whose diagonal is
+    ``D``.  Returns ``(lower (..., q, n), upper (..., p+1, n))``."""
+    lower, upper = np.asarray(lower, dtype=np.float64), np.asarray(upper, dtype=np.float64)
+    p, n, q = lower.shape[-2], lower.shape[-1], upper.shape[-2] - 1
+    diag = upper[..., 0, :]
+    lower_t = np.zeros(upper.shape[:-2] + (q, n))
+    upper_t = np.zeros(lower.shape[:-2] + (p + 1, n))
+    upper_t[..., 0, :] = diag
+    for d in range(1, q + 1):  # (U^T D^-1)[i, i-d] = U[i-d, i] / D[i-d]
+        lower_t[..., d - 1, d:] = upper[..., d, : n - d] / diag[..., : n - d]
+    for d in range(1, p + 1):  # (D L^T)[i, i+d] = D[i] L[i+d, i]
+        upper_t[..., d, : n - d] = diag[..., : n - d] * lower[..., d - 1, d:]
+    return lower_t, upper_t
+
+
 def couples_one_parity(lower, upper) -> bool:
     """Whether every odd-offset term of the factors ``lower`` ``(p, n,
     ...)`` / ``upper`` ``(q+1, n, ...)`` is zero in every lane: then row
@@ -176,6 +196,9 @@ class BandedSolve:
         self.per_lane = lower.ndim == 3
         #: number of factor sets (None: one set for every lane)
         self.lanes = lower.shape[0] if self.per_lane else None
+        # the host f64 factors, from which :meth:`transposed` builds A^T's
+        self._host_factors = (lower, upper)
+        self._transposed = None
         if self.per_lane:
             lower, upper = np.moveaxis(lower, 0, -1), np.moveaxis(upper, 0, -1)
         self.lower = to_device(lower, self.device, dtype)
@@ -195,6 +218,17 @@ class BandedSolve:
         self._coefs = None
         #: kernel launches on CUDA tensors
         self.launches = 0
+
+    def transposed(self) -> "BandedSolve":
+        """The solve with the factors of ``A^T`` (:func:`transpose_factors`),
+        bandwidths ``(q, p)``, in the same per-lane layout, built on the host
+        at the first call and kept: the backward of the solve
+        (:class:`..ops.banded.BandedSolveFn`) runs it through the same kernel,
+        with the same factor batch stride, period and planes."""
+        if self._transposed is None:
+            self._transposed = BandedSolve(*transpose_factors(*self._host_factors),
+                                           device=self.device, dtype=self.dtype)
+        return self._transposed
 
     # -- accounting -------------------------------------------------------
 

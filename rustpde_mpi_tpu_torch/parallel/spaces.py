@@ -197,6 +197,10 @@ class PencilSpace2:
     def to_ortho(self, vhat: torch.Tensor) -> torch.Tensor:
         return self._apply(vhat, "stencil", "stencil", True)
 
+    def from_ortho(self, c: torch.Tensor) -> torch.Tensor:
+        """Orthogonal-space coefficients -> composite ones (x-pencils)."""
+        return self._apply(c, "proj", "proj", True)
+
     def gradient(self, vhat: torch.Tensor, deriv, scale=None) -> torch.Tensor:
         """d^deriv[0]/dx d^deriv[1]/dy in ortho space (x-pencil), divided
         by scale^deriv."""

@@ -30,15 +30,17 @@ def _due(t: float, dt: float, write_intervall) -> bool:
     return write_intervall is None or (t + dt / 2.0) % write_intervall < dt
 
 
-def callback(model) -> None:
+def callback(model, flowname: str | None = None, io_name: str = "data/info.txt",
+             extra: str | None = None) -> None:
     """The save-boundary hook of a model (``Navier2D.callback``): the flow
-    snapshot ``data/flow{t:08.2f}.h5`` when due, then the observables
-    appended to ``model.diagnostics``, printed, and appended to
-    ``data/info.txt`` as a ``time nu nuvol re`` row."""
+    snapshot ``flowname`` (default ``data/flow{t:08.2f}.h5``) when due, then
+    the observables appended to ``model.diagnostics``, printed (with
+    ``extra`` at the end of the line), and appended to ``io_name`` as a
+    ``time nu nuvol re`` row."""
     t = model.get_time()
     os.makedirs("data", exist_ok=True)
     if _due(t, model.get_dt(), model.write_intervall):
-        flowname = f"data/flow{t:08.2f}.h5"
+        flowname = flowname or f"data/flow{t:08.2f}.h5"
         try:
             checkpoint.write_snapshot(model, flowname)
         except OSError as exc:  # never fatal, matching the reference
@@ -66,12 +68,13 @@ def callback(model) -> None:
         model.diagnostics.setdefault(key, []).append(float(val))
     print(f"time = {t:9.3f}      |div| = {div:4.2e}      "
           f"Nu = {nu:5.3e}      Nuv = {nuvol:5.3e}      Re = {re:5.3e}"
-          + "".join(f"      {name.capitalize()} = {val:5.3e}" for name, val in extras))
+          + "".join(f"      {name.capitalize()} = {val:5.3e}" for name, val in extras)
+          + (f"      {extra}" if extra else ""))
     try:
-        with open("data/info.txt", "a", encoding="utf-8") as fh:
+        with open(io_name, "a", encoding="utf-8") as fh:
             fh.write(f"{t} {nu} {nuvol} {re}\n")
     except OSError as exc:
-        print(f"unable to write data/info.txt: {exc}")
+        print(f"unable to write {io_name}: {exc}")
 
 
 def ensemble_callback(ens) -> None:

@@ -1208,3 +1208,128 @@ def test_ensemble_stats_chunk_matches_solo_on_card(device):
         for a, b in zip(ens.stats_state, solo.stats_state):
             scale = max(float(b.abs().max()), 1e-300)
             assert float((a[i] - b).abs().max()) <= 1e-12 * scale
+
+
+# -- the banded solve's backward, the linearised models, the finder ---------------------
+
+
+@pytest.mark.parametrize("case", ["adi", "poisson", "hc_general", "periodic_planes", "mesh_period"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_backward_matches_plain(device, dtype, case):
+    """The solve's backward through autograd (``BandedSolveFn``) launches
+    the kernel once on ``A^T``'s factors, and agrees with the plain
+    recurrence on those factors: the parity path's lanes (ADI, tensor
+    Poisson lanes), HC's general path, the periodic cell's complex planes,
+    and a meshed member batch (factor batch stride and period)."""
+    from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
+
+    kw = dict(device=device, dtype=dtype, step_kernel="dense", conv_kernel="dense")
+    stride = period = 0
+    if case == "adi":
+        solver, shape, axis = pt.Navier2D(65, 65, 1e5, 1.0, 1e-2, 1.0, "rbc", **kw) \
+            .solver_velx.solvers[1].solver, (2, 65, 63), 2
+    elif case == "hc_general":
+        solver = pt.Navier2D(65, 65, 1e5, 1.0, 1e-2, 1.0, "hc", **kw).solver_temp.solvers[1].solver
+        shape, axis = (65, solver.n), 1
+    elif case == "mesh_period":
+        model = pt.Navier2D(65, 65, 1e5, 1.0, 1e-2, 1.0, "rbc", mesh=pt.make_mesh(4, device),
+                            dtype=dtype)
+        solver = model.solver_pres._solver.banded
+        per = solver.kernel.lanes // 4
+        shape, axis, stride, period = (3, 4, per, solver.n), 3, per, 4
+    else:
+        periodic = case == "periodic_planes"
+        model = pt.Navier2D(64 if periodic else 65, 65, 1e5, 1.0, 1e-2, 1.0, "rbc",
+                            periodic=periodic, **kw)
+        solver = model.solver_pres._solver.banded
+        shape, axis = (2, solver.kernel.lanes, solver.n), 2
+    cplx = case == "periodic_planes"
+    io = (torch.complex128 if dtype == torch.float64 else torch.complex64) if cplx else dtype
+    rng = np.random.default_rng(8)
+    b = _rand_like_io(rng, shape, io, device).requires_grad_(True)
+    g = _rand_like_io(rng, shape, io, device)
+    x = solver.solve(b, axis, factor_batch_stride=stride, factor_batch_period=period)
+    (grad,) = torch.autograd.grad(x, b, g)
+    back = solver.kernel.transposed()
+    assert solver.kernel.launches == 1 and back.launches == 1
+    plain = BandedSolver._along(lambda v: back.plain(v, stride, period), g, axis)
+    got, want = (torch.view_as_real(t) if cplx else t for t in (grad, plain))
+    assert _rel(got, want) <= TOL[dtype]
+
+
+def _lnse_card(device, cls=None, n=17):
+    cls = cls or pt.Navier2DLnse
+    model = cls(n, n, 3e3, 1.0, 1e-2, 1.0, "rbc", mean=pt.MeanFields.new_rbc(n, n, device=device),
+                device=device)
+    model.init_random(1e-3, seed=1)
+    return model
+
+
+@pytest.mark.parametrize("nonlinear", [False, True], ids=["lnse", "nonlin"])
+def test_lnse_gradient_directional_check_on_card(device, nonlinear):
+    """``grad_autodiff`` at 17^2 (5 steps) on the card: every banded solve
+    of the forward and of the backward is a kernel launch, and the
+    gradient's directional derivative matches a central difference of the
+    objective (rel 1e-6), and the CPU model's gradient (rel 1e-10)."""
+    cls = pt.Navier2DNonLin if nonlinear else pt.Navier2DLnse
+    model = _lnse_card(device, cls)
+    val, grads = model.grad_autodiff(0.05)
+    kernels = model.kernels()["banded_solve"]
+    assert all(k.launches > 0 and k.transposed().launches > 0 for k in kernels)
+    cpu = _lnse_card("cpu", cls)
+    cval, cgrads = cpu.grad_autodiff(0.05)
+    assert val == pytest.approx(cval, rel=1e-10)
+    for g, c in zip(grads, cgrads):
+        assert np.max(np.abs(g - c)) <= 1e-10 * np.max(np.abs(c))
+    base = model._host_phys(model.state)
+    objective = model._objective(5, 0.5, 0.5, None)
+    rng = np.random.default_rng(0)
+    dirs = [rng.standard_normal(a.shape) for a in base]
+    eps = 1e-6
+
+    def at(sign):
+        return float(objective(*(model._place_physical(a + sign * eps * d)
+                                 for a, d in zip(base, dirs))))
+
+    fd = (at(1.0) - at(-1.0)) / (2 * eps)
+    ad = -sum(float(np.sum(g * d)) for g, d in zip(grads, dirs))
+    assert ad == pytest.approx(fd, rel=1e-6)
+
+
+@pytest.mark.parametrize("route", ["fused", "dense", "mesh"])
+def test_finder_ensemble_freezes_under_the_captured_graph(device, route):
+    """A K = 2 finder ensemble at Ra 100 (``res_tol`` 1e-5; member 0 from
+    rest, member 1 from a 1e-4 disturbance) on the card: the chunk replays
+    the captured K-member step, each member freezes at its own convergence
+    inside it, and counts, flags and states equal the CPU ensemble's."""
+    kw = {"mesh": pt.make_mesh(4, device)} if route == "mesh" else {"device": device}
+    if route == "dense":
+        kw.update(step_kernel="dense", conv_kernel="dense")
+
+    def members(**where):
+        model = pt.build_model("adjoint", 17, 17, 100.0, 1.0, 1e-3, 1.0, "rbc", False,
+                               scenario={"res_tol": 1e-5}, **where)
+        rest = model.state
+        model.init_random(1e-4, seed=1)
+        return model, [rest, model.state]
+
+    ens = pt.NavierEnsemble(*members(**kw))
+    assert ens.chunk_runner().captured
+    ens.update_n(64)
+    route_kw = {} if route == "fused" else dict(step_kernel="dense", conv_kernel="dense")
+    cpu = pt.NavierEnsemble(*members(device="cpu", **route_kw))
+    cpu.update_n(64)
+    assert ens.steps_done.tolist() == cpu.steps_done.tolist()
+    assert 0 < ens.steps_done[0] < ens.steps_done[1] < 64
+    assert ens.done_ok_members().tolist() == [True, True]
+    assert not ens.alive().any() and ens.exit()
+    # near rest the fields are 1e-7 and carry the roundoff of the O(1)
+    # conduction lift (1.7e-16 absolute, card against CPU): the scale floor
+    # is 1e-3
+    for name in ("temp", "velx", "vely", "pres_adj"):
+        space = ens.model.pres_space if name == "pres_adj" else getattr(ens.model, f"{name}_space")
+        for i in range(2):
+            got = space.gather_spectral(getattr(ens.state, name)[i]).cpu()
+            want = getattr(cpu.state, name)[i]
+            assert float(torch.max(torch.abs(got - want))) <= 1e-11 * max(
+                float(torch.max(torch.abs(want))), 1e-3), (name, i)
