@@ -255,6 +255,38 @@ launch of a step serving all K members:
     member-steps/s with statistics on and off, members' sums against solo
     runs', ``set_dt`` on the ensemble, its staged snapshot.
 
+30. (last, before the kernels line) 30a: ``sh2048`` (the JAX benchmark's
+    Swift-Hohenberg cell, ``SwiftHohenberg2D(2048, 2048, r=0.35, dt=0.02,
+    length=20)``), timed as the benchmark times it (a warm-up window of 128
+    steps, the windows 128 and 512, then three 128/512 pairs: ms/step the
+    median slope; each ``update_n`` one replay of one captured graph), its
+    gate (the pattern energy grew over the 2688 steps, the field finite),
+    and the card against the CPU at 64^2 and 1-D nx = 256 after 50 steps
+    (1e-12 of the spectrum's scale); 30b: the linearised model's
+    ``grad_autodiff`` on the meshed route at 129^2 over 50 steps, its exact
+    flip (forward and backward) and banded launches, against the dense
+    route's on the card and the CPU's (rel 1e-9), wall and peak; the flip's
+    backward (the inverse flip through autograd) bit for bit its plain ring
+    at every shape a meshed ``rbc1025`` step flips, its one launch timed
+    with the L2 flushed beside the forward launch, the plain ring and
+    ``.contiguous()``;
+    30c: ``integrate(overlap=True)`` against the blocking loop on fused
+    ``rbc1025`` (chunks of 25 steps, a callback each, an ``IOPipeline`` on
+    the overlapped run): the same state bit for bit, ms/step of each over
+    ten back-to-back pairs after one warm-up window each (medians, spreads,
+    each pair's gain) and each's host-idle share (profiler); the async writer's
+    submit-to-done time for a staged 84 MB snapshot against the synchronous
+    staging and digest; the same state on the dense and meshed routes at
+    129^2 and an ensemble (K = 4), and a state poisoned after chunk 2
+    breaking at most one chunk late on each; 30d: the integrity layer on
+    fused ``rbc1025``: the run with a digest after every chunk bit for bit
+    the run without, one digest's ms and its share of a 25-step chunk
+    (fails above 2%), the card's digest equal to the CPU's (also after
+    digests of 40 other shapes), shadow audits
+    equal to the live digest after plain, sentinel and statistics chunks,
+    a flipped bit seen; shadow audits on the dense and meshed routes at
+    129^2 and a meshed ensemble (K = 4).
+
 Every phase that reaches a save-window callback sets ``write_intervall``
 past its run's end (no flow snapshot; ``h5py`` need not import), and the
 script runs in a temporary working directory, where the callbacks append
@@ -281,6 +313,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -428,18 +461,19 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_cold_ms(torch, fn, reps: int) -> float:
+def time_cold_ms(torch, fn, reps: int, spin: int = SLEEP_CYCLES // 50) -> float:
     """Mean device time of ``fn()`` with the L2 cache flushed before each
-    call (a ``FLUSH_BYTES`` write, then a short spin that keeps the device
-    busy while the host enqueues the call), by a CUDA event pair around
-    each call."""
+    call (a ``FLUSH_BYTES`` write, then a spin of ``spin`` cycles that keeps
+    the device busy while the host enqueues the call: a call with more host
+    work than one launch, an autograd backward, needs a longer one), by a
+    CUDA event pair around each call."""
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         flush.fill_(1.0)
-        torch.cuda._sleep(SLEEP_CYCLES // 50)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3816,6 +3850,569 @@ def phase29(torch, pt):
     return sums
 
 
+#: phase 30a: the JAX benchmark's ``sh2048`` (``bench.py:208-226``):
+#: SwiftHohenberg2D at 2048^2, r 0.35, dt 0.02, length 20, timed as its
+#: ``benchmark_steps`` times it (a warm-up window of L = 128 steps, the
+#: windows L and 4L once, then three L/4L pairs; ms/step the median slope
+#: ``(t_4L - t_L) / 3L``), and its gate: the pattern energy grew over the
+#: run (``e_end > max(e_start, 1e-10)``) and the field is finite
+SH2048 = dict(nx=2048, ny=2048, r=0.35, dt=0.02, length=20.0)
+SH_STEPS = 128
+SH_REPS = 3
+#: card against CPU: 50 steps at 64^2 (2-D) and nx = 256 (1-D), the
+#: spectrum within 1e-12 of its scale
+SH_SMALL_STEPS = 50
+SH_LIMIT = 1e-12
+#: phase 30b: the flips of a meshed ``grad_autodiff`` of the linearised
+#: model (confined cell), forward and backward: ``a + b * steps`` each.  The
+#: forward flips are the objective's transforms, each step's 51 and its
+#: checkpoint's recompute; every forward flip of the taped graph has one
+#: backward flip (the inverse flip).  ``tests/test_torch_lnse.py`` counts
+#: them on the CPU.
+GRAD_FLIPS_FWD = (9, 101)
+GRAD_FLIPS_BWD = (2, 51)
+#: the meshed gradient against the dense route's on the card and against
+#: the CPU's: rel 1e-9 of each field's gradient scale (the CPU tests' limit
+#: against the JAX package)
+GRAD_ROUTES_LIMIT = 1e-9
+#: phase 30c/30d: chunks of ``OVERLAP_CHUNK`` steps through ``integrate``
+#: (one save boundary each) on fused ``rbc1025``
+OVERLAP_CHUNKS = 4
+OVERLAP_CHUNK = 25
+#: phase 30c: blocking and overlapped runs of ``OVERLAP_CHUNKS`` chunks,
+#: timed as this many back-to-back pairs (the order alternating)
+OVERLAP_PAIRS = 10
+#: the integrity layer's contract (the JAX package's ``config.py:480-482``):
+#: one state digest a chunk adds at most 2% to it
+DIGEST_GATE = 0.02
+
+
+def phase_sh(torch, pt, card):
+    """Phase 30a: ``sh2048`` as the JAX benchmark runs it (``SH2048``), each
+    ``update_n`` of L or 4L steps one replay of one captured CUDA graph;
+    then the card against the CPU at 64^2 and 1-D nx = 256."""
+    import numpy as np
+
+    model = pt.SwiftHohenberg2D(SH2048["nx"], SH2048["ny"], SH2048["r"], SH2048["dt"],
+                                SH2048["length"], device=CARD)
+    e_start = model.pattern_energy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in (SH_STEPS, 4 * SH_STEPS):
+        model.chunk_runner(n)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    runners = {n: model.chunk_runner(n) for n in (SH_STEPS, 4 * SH_STEPS)}
+    if CARD == "cuda" and not all(r.captured for r in runners.values()):
+        raise AssertionError("sh2048: a chunk runner did not capture a CUDA graph")
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.update_n(n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    executed = 0
+    for n in (SH_STEPS, SH_STEPS, 4 * SH_STEPS):  # the benchmark's warm-up and both windows
+        timed(n)
+        executed += n
+    slopes, fixed = [], []
+    for _ in range(SH_REPS):
+        t_l, t_4l = timed(SH_STEPS), timed(4 * SH_STEPS)
+        executed += 5 * SH_STEPS
+        slope = (t_4l - t_l) / (3 * SH_STEPS)
+        slopes.append(slope * 1e3)
+        fixed.append((t_l - slope * SH_STEPS) * 1e3)
+    replay_ms = time_ms(torch, lambda: runners[SH_STEPS].run(1), 3) / SH_STEPS
+    ms = float(np.median(slopes))
+    e_end = model.pattern_energy()
+    grew = e_end > max(e_start, 1e-10)
+    finite = not model.exit()
+    out = {"cell": "sh2048", **SH2048, "steps": SH_STEPS, "steps_total": executed,
+           "ms_per_step": ms, "steps_per_s": 1e3 / ms, "slope_reps_ms": slopes,
+           "fixed_overhead_ms": float(np.median(fixed)), "replay_ms_per_step": replay_ms,
+           "capture_s": capture_s, "graph_replays_per_update_n": 1,
+           "pool_mib": sum(r.pool_bytes for r in runners.values()) / 2**20,
+           "pattern_energy_start": e_start, "pattern_energy": e_end, "pattern_grew": grew,
+           "finite": finite}
+    print(f"phase30a ({card}) " + json.dumps(out))
+    if not (grew and finite):
+        raise AssertionError(f"sh2048: pattern_grew {grew}, finite {finite}")
+    del model, runners
+    torch.cuda.empty_cache()
+    for label, make in (("sh2d_64", lambda dev: pt.SwiftHohenberg2D(64, 64, 0.35, 0.02, 20.0,
+                                                                    device=dev)),
+                        ("sh1d_256", lambda dev: pt.SwiftHohenberg1D(256, 0.35, 0.02, 20.0,
+                                                                     device=dev))):
+        a, b = make(CARD), make("cpu")
+        if label.startswith("sh1d"):
+            for m in (a, b):
+                m.init_random(0.1, 1)
+        a.update_n(SH_SMALL_STEPS)
+        b.update_n(SH_SMALL_STEPS)
+        diff = float(torch.max(torch.abs(a.theta.cpu() - b.theta)))
+        rel = diff / float(torch.max(torch.abs(b.theta)))
+        print(f"phase30a {label} card vs CPU after {SH_SMALL_STEPS} steps: rel {rel:.3e}")
+        if not rel <= SH_LIMIT:
+            raise AssertionError(f"{label}: card vs CPU rel {rel:.3e}")
+
+
+def grad_model(pt, route, device):
+    """The linearised model of phase 29d's gradients on ``route``."""
+    cfg = WORKLOADS129
+    place = {"mesh": pt.make_mesh(MESH_RANKS, device)} if route == "mesh" else {"device": device}
+    model = pt.Navier2DLnse(cfg["nx"], cfg["ny"], cfg["ra"], cfg["pr"], 2e-3, cfg["aspect"],
+                            cfg["bc"], mean=pt.MeanFields.new_rbc(cfg["nx"], cfg["ny"],
+                                                                  device="cpu"), **place)
+    model.init_random(1e-3, seed=1)
+    return model
+
+
+def phase_mesh_grad(torch, pt, flips, card):
+    """Phase 30b: ``grad_autodiff`` of the linearised model on the meshed
+    route at 129^2 over ``GRAD_STEPS`` steps (every flip of the forward
+    loop differentiated by the inverse flip, one launch), against the dense
+    route's on the card and the CPU's: the exact flip and banded launch
+    counts, wall and peak memory.  Then the backward flip beside the
+    forward one at every shape a meshed ``rbc1025`` step flips (``flips``
+    of phase 12): bit for bit its plain ring, timed with the L2 flushed
+    beside the forward launch and the ``.contiguous()`` yardstick.  Returns
+    the ring kernel's backward entries of the kernels line."""
+    import numpy as np
+
+    model = grad_model(pt, "mesh", CARD)
+    ring = model.mesh.ring
+    horizon = GRAD_STEPS * model.dt
+    reset_counts(model)
+    ring.backward_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    val, grads = model.grad_autodiff(horizon)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    flips_bwd = ring.backward_launches
+    flips_fwd = ring.launches - flips_bwd
+    banded_fwd = count_launches(model)["banded_solve"]
+    banded_bwd = transposed_launches(model)
+    t0 = time.perf_counter()
+    val2, _ = model.grad_autodiff(horizon)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    refs = {}
+    for label, device in (("dense_card", CARD), ("dense_cpu", "cpu")):
+        other = grad_model(pt, "dense", device)
+        t0 = time.perf_counter()
+        refs[label] = other.grad_autodiff(horizon)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        refs[label + "_s"] = time.perf_counter() - t0
+        del other
+    out = {"cell": "workloads129", "route": "mesh", "steps": GRAD_STEPS, "objective": val,
+           "first_s": first_s, "second_s": second_s, "peak_mib": peak,
+           "flips_forward": flips_fwd, "flips_backward": flips_bwd,
+           "banded_forward": banded_fwd, "banded_backward": banded_bwd,
+           "dense_card_s": refs["dense_card_s"], "dense_cpu_s": refs["dense_cpu_s"]}
+    for label in ("dense_card", "dense_cpu"):
+        rval, rgrads = refs[label]
+        out[f"{label}_objective_rel"] = abs(val - rval) / abs(rval)
+        out[f"{label}_grad_rel"] = max(float(np.max(np.abs(g - r)) / np.max(np.abs(r)))
+                                       for g, r in zip(grads, rgrads))
+    print(f"phase30b meshed grad_autodiff ({card}) " + json.dumps(out))
+    want = {"flips_forward": GRAD_FLIPS_FWD[0] + GRAD_FLIPS_FWD[1] * GRAD_STEPS,
+            "flips_backward": GRAD_FLIPS_BWD[0] + GRAD_FLIPS_BWD[1] * GRAD_STEPS,
+            "banded_forward": GRAD_STEPS * (PER_STEP["dense"]["banded_solve"]
+                                            + GRAD_RECOMPUTED_SOLVES),
+            "banded_backward": GRAD_STEPS * PER_STEP["dense"]["banded_solve"]}
+    got = {k: out[k] for k in want}
+    if CARD == "cuda" and got != want:
+        raise AssertionError(f"meshed grad_autodiff launches {got}, want {want}")
+    if val2 != val:
+        raise AssertionError("two meshed grad_autodiff calls disagree")
+    for label in ("dense_card", "dense_cpu"):
+        if not (out[f"{label}_grad_rel"] <= GRAD_ROUTES_LIMIT
+                and out[f"{label}_objective_rel"] <= GRAD_ROUTES_LIMIT):
+            raise AssertionError(f"meshed gradient against {label}: grad rel "
+                                 f"{out[f'{label}_grad_rel']:.3e}, objective rel "
+                                 f"{out[f'{label}_objective_rel']:.3e}")
+    del model, grads, refs
+    torch.cuda.empty_cache()
+
+    from rustpde_mpi_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(MESH_RANKS, CARD)
+    ring = mesh.ring
+    rng = np.random.default_rng(30)
+    sums = {"backward_ms": 0.0, "backward_forward_ms": 0.0, "backward_plain_ms": 0.0,
+            "backward_bound_ms": 0.0, "backward_library_ms": 0.0,
+            "backward_launches": flips_bwd}
+    for (shape, x_to_y, dtype), count in sorted(flips.items()):
+        block = ring_case(torch, pt, mesh, shape, x_to_y, getattr(torch, dtype), rng)
+        x = block.clone().requires_grad_(True)
+        y = ring.apply(x, x_to_y)
+        g = torch.randn_like(y)
+        before = (ring.launches, ring.backward_launches)
+        (grad,) = torch.autograd.grad(y, x, g, retain_graph=True)
+        torch.cuda.synchronize()
+        plain = ring.plain(g, not x_to_y)
+        launched = (ring.launches - before[0], ring.backward_launches - before[1])
+        if not torch.equal(grad, plain) or (CARD == "cuda" and launched != (1, 1)):
+            raise AssertionError(f"flip backward {shape} x_to_y={x_to_y}: differs from the plain "
+                                 f"inverse ring or launched {launched}")
+        p = mesh.nranks
+        nbytes = ring.bytes_moved(g)
+        rec = {"shape": list(shape), "x_to_y": x_to_y, "dtype": dtype, "per_step": count,
+               "forward_ms": time_cold_ms(torch, lambda: ring.apply(block, x_to_y), 20,
+                                         spin=SLEEP_CYCLES // 4),
+               # the one launch the backward makes (FlipFn.backward), without
+               # the autograd engine's host time inside the device window
+               "backward_ms": time_cold_ms(
+                   torch, lambda: ring.flip(g.contiguous(), not x_to_y), 20,
+                   spin=SLEEP_CYCLES // 4),
+               "backward_plain_ms": time_queued_ms(torch, lambda: ring.plain(g, not x_to_y), 5)[0],
+               "backward_library_ms": time_cold_ms(
+                   torch, lambda: ring_library(g, p, not x_to_y), 20),
+               "backward_bound_ms": nbytes / (HBM_TB_PER_S * 1e12) * 1e3}
+        print("phase30b flip backward " + json.dumps(rec))
+        for key, src in (("backward_ms", "backward_ms"), ("backward_forward_ms", "forward_ms"),
+                         ("backward_plain_ms", "backward_plain_ms"),
+                         ("backward_bound_ms", "backward_bound_ms"),
+                         ("backward_library_ms", "backward_library_ms")):
+            sums[key] += count * rec[src]
+        del x, y, g, grad, plain, block
+    print("phase30b flip backward rbc1025 meshed step sums: " + json.dumps(sums))
+    return sums
+
+
+def seeded(model, seed=0):
+    """``model`` from ``init_random(0.1, seed)``."""
+    model.init_random(0.1, seed=seed)
+    return model
+
+
+def overlap_runs(torch, pt, make, chunks, chunk, poison_at=None):
+    """``integrate`` of ``chunks`` save windows of ``chunk`` steps, blocking
+    and with ``overlap=True`` (the latter with an ``IOPipeline`` attached,
+    so the callback's lines ride futures): ``(blocking model, overlapped
+    model, statuses, chunks dispatched)``; ``poison_at``: the chunk after
+    which the whole state turns NaN."""
+    models, statuses, counts = [], [], []
+    for overlap in (False, True):
+        model = make()
+        if overlap:
+            model.io_pipeline = pt.IOPipeline(diag_lag=1)
+        done = []
+
+        def dispatch(pde, n, done=done):
+            pde.update_n(n)
+            done.append(n)
+            if poison_at is not None and len(done) == poison_at:
+                pde.state = type(pde.state)(*(f * float("nan") for f in pde.state))
+
+        dt = model.get_dt()
+        statuses.append(pt.integrate(model, chunks * chunk * dt, chunk * dt, dispatch=dispatch,
+                                     overlap=overlap))
+        if overlap:
+            model.io_pipeline.drain()
+            model.io_pipeline.close()
+        counts.append(len(done))
+        models.append(model)
+    return models[0], models[1], statuses, counts
+
+
+def phase_overlap(torch, pt, card):
+    """Phase 30c: the overlapped ``integrate``.  ``integrate(overlap=True)``
+    against ``overlap=False`` over the same chunks: the same final state
+    bit for bit on fused ``rbc1025``, on the dense and meshed routes at 129^2
+    and on ``NavierEnsemble`` at ``workloads129`` K = 4; a state poisoned
+    after chunk 2 breaks at most one chunk late.  On fused ``rbc1025``
+    (``OVERLAP_CHUNKS`` windows of ``OVERLAP_CHUNK`` steps, each with its
+    callback): ms/step of each mode over ``OVERLAP_PAIRS`` back-to-back
+    pairs (the order alternating), their medians and spreads, the gain of
+    each pair, and each mode's host-idle share (device busy from the
+    profiler over the median wall); then the async writer's submit-to-done
+    time for a staged snapshot against the synchronous staging and digest
+    of phase 27."""
+    from rustpde_mpi_tpu_torch.utils import checkpoint
+
+    def fused():
+        model = pt.Navier2D(**RBC1025, device=CARD)
+        model.init_random(0.1, seed=0)
+        model.write_intervall = 1e9  # no flow files: the card machine may lack h5py
+        return model
+
+    steps = OVERLAP_CHUNKS * OVERLAP_CHUNK
+    models = {"blocking": fused(), "overlap": fused()}
+    for model in models.values():
+        prepare_chunks(torch, model, "phase30c")
+        model.io_pipeline = None
+    for mode, model in models.items():
+        if mode == "overlap":
+            model.io_pipeline = pt.IOPipeline(diag_lag=1)
+        # the first callback of a model builds the observables' operators
+        # (phase 27): one window each before the timed runs
+        pt.integrate(model, model.time + OVERLAP_CHUNK * model.dt, OVERLAP_CHUNK * model.dt,
+                     overlap=mode == "overlap")
+    walls = {"blocking": [], "overlap": []}
+    order = [("blocking", "overlap")[::1 if i % 2 == 0 else -1] for i in range(OVERLAP_PAIRS)]
+    for mode in (m for pair in order for m in pair):
+        model = models[mode]
+        dt = model.dt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        status = pt.integrate(model, model.time + steps * dt, OVERLAP_CHUNK * dt,
+                              overlap=mode == "overlap")
+        if model.io_pipeline is not None:
+            model.io_pipeline.drain()
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) / steps * 1e3)
+        if status != "time_limit":
+            raise AssertionError(f"fused rbc1025 integrate ({mode}) ended {status!r}")
+    a, b = models["blocking"], models["overlap"]
+    if not same_state(torch, a.state, b.state) or a.time != b.time:
+        raise AssertionError("fused rbc1025: the overlapped integrate ended at another state")
+    # pair i is the i-th reading of each mode, run back to back
+    gains = [1.0 - o / b for b, o in zip(walls["blocking"], walls["overlap"])]
+    out = {"cell": "rbc1025", "route": "fused", "chunks": OVERLAP_PAIRS * OVERLAP_CHUNKS + 1,
+           "chunk_steps": OVERLAP_CHUNK, "pairs": OVERLAP_PAIRS,
+           "blocking_ms_per_step": walls["blocking"], "overlap_ms_per_step": walls["overlap"],
+           "same_state": True}
+    for mode in ("blocking", "overlap"):
+        out[f"{mode}_median_ms_per_step"] = statistics.median(walls[mode])
+        out[f"{mode}_spread"] = (max(walls[mode]) - min(walls[mode])) / statistics.median(
+            walls[mode])
+    for mode, model in models.items():
+        dt = model.dt
+
+        def run(model=model, mode=mode, dt=dt):
+            pt.integrate(model, model.time + steps * dt, OVERLAP_CHUNK * dt,
+                         overlap=mode == "overlap")
+            if model.io_pipeline is not None:
+                model.io_pipeline.drain()
+
+        got = device_busy(torch, run, steps, {})
+        busy = None if got is None else got[0] / 1e3 / steps
+        out[f"{mode}_busy_ms_per_step"] = busy
+        bare = statistics.median(walls[mode])
+        out[f"{mode}_host_idle_share"] = None if busy is None else 1.0 - busy / bare
+    # the gain of each pair: resolved only when every pair shows it
+    out["overlap_gain_median"] = statistics.median(gains)
+    out["overlap_gain_min"], out["overlap_gain_max"] = min(gains), max(gains)
+    out["overlap_gain_resolved"] = min(gains) > 0.0
+    print(f"phase30c overlap ({card}) " + json.dumps(out))
+    b.io_pipeline.close()
+
+    # the async writer: a staged snapshot's host work on the worker
+    model = a
+    model.reset_time()
+    try:
+        import h5py  # noqa: F401
+
+        target = os.path.join(os.getcwd(), "phase30_snapshot.h5")
+    except ImportError:
+        target = None
+    sync = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = checkpoint.snapshot_to_host(model)
+        t1 = time.perf_counter()
+        checkpoint.snapshot_digest(snap.datasets) if target is None else \
+            checkpoint.write_host_snapshot(snap, target)
+        sync.append({"stage_ms": (t1 - t0) * 1e3,
+                     "host_ms": (time.perf_counter() - t1) * 1e3})
+    pipe = pt.IOPipeline(queue_depth=1)
+    asyn = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = checkpoint.snapshot_to_host(model)
+        t1 = time.perf_counter()
+        work = (lambda s=snap: checkpoint.snapshot_digest(s.datasets)) if target is None else \
+            (lambda s=snap: checkpoint.write_host_snapshot(s, target))
+        ticket = pipe.submit_write(work, target or "in-memory", nbytes=snap.nbytes)
+        t2 = time.perf_counter()
+        model.update_n(OVERLAP_CHUNK)  # the next chunk, while the worker writes
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ticket.wait()
+        t4 = time.perf_counter()
+        asyn.append({"stage_ms": (t1 - t0) * 1e3, "submit_ms": (t2 - t1) * 1e3,
+                     "chunk_ms": (t3 - t2) * 1e3, "submit_to_done_ms": (t4 - t1) * 1e3,
+                     "caller_blocked_ms": (t1 - t0 + t2 - t1 + t4 - t3) * 1e3})
+    pipe.close()
+    print(f"phase30c async writer ({card}) " + json.dumps(
+        {"snapshot_mb": snap.nbytes / 1e6, "work": "hdf5 file" if target else
+         "in-memory digest (no h5py)", "sync": sync, "async": asyn,
+         "pipeline": pipe.stats()}))
+    del models, a, b, model, snap
+    torch.cuda.empty_cache()
+
+    # the other routes and the ensemble: the same state, a late break
+    cells = (("dense129", lambda: seeded(route_model(pt, ENSEMBLE129, "dense"))),
+             ("mesh129", lambda: seeded(route_model(pt, ENSEMBLE129, "mesh"))),
+             ("ensemble129_k4", lambda: pt.NavierEnsemble.from_seeds(
+                 route_model(pt, ENSEMBLE129, "fused"), range(WORKLOAD_K))),
+             ("rbc1025_fused", fused))
+    for label, make in cells:
+        def build(make=make):
+            pde = make()
+            pde.write_intervall = 1e9
+            return pde
+
+        if label != "rbc1025_fused":
+            a, b, statuses, counts = overlap_runs(torch, pt, build, 4, 10)
+            if statuses != ["time_limit"] * 2 or not same_state(torch, a.state, b.state):
+                raise AssertionError(f"{label}: overlapped integrate {statuses}, same state "
+                                     f"{same_state(torch, a.state, b.state)}")
+        a, b, statuses, counts = overlap_runs(torch, pt, build, 6, 10, poison_at=2)
+        print(f"phase30c {label}: overlapped integrate bit for bit the blocking one; poisoned "
+              f"after chunk 2: statuses {statuses}, chunks run {counts}")
+        if statuses != ["break"] * 2 or not counts[0] <= counts[1] <= counts[0] + 1:
+            raise AssertionError(f"{label}: the poisoned run broke {statuses} after {counts} "
+                                 "chunks (blocking, overlapped)")
+        del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_integrity(torch, pt, card):
+    """Phase 30d: the integrity layer on fused ``rbc1025``: a run with a
+    digest after every chunk bit for bit a run without; one digest's device
+    ms (and the host's time to enqueue it; the larger of the two) and its
+    share of an ``OVERLAP_CHUNK``-step chunk (fails above ``DIGEST_GATE``); the shadow audit (the plain chunk replayed from the
+    chunk-start snapshot) equal to the live digest after a plain, a
+    sentinel and a statistics chunk; a flipped bit moves the digest and the
+    audit flags it.  Then the shadow audit on the dense and meshed routes
+    at 129^2 and on the ensemble (K = 4), and the card's digest of a
+    state equal to the CPU's digest of its copy, bit for bit, before and
+    after digests of 40 other shapes."""
+    from rustpde_mpi_tpu_torch.integrity import digest as dg
+
+    def fused():
+        model = pt.Navier2D(**RBC1025, device=CARD)
+        model.init_random(0.1, seed=0)
+        return model
+
+    on, off = fused(), fused()
+    on.set_integrity(pt.IntegrityConfig())
+    digests = []
+    torch.cuda.synchronize()
+    walls = {}
+    for label, model in (("off", off), ("on", on), ("on", on), ("off", off)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OVERLAP_CHUNKS):
+            model.update_n(OVERLAP_CHUNK)
+            if model is on:
+                digests.append(on.state_digest_async())
+        torch.cuda.synchronize()
+        walls.setdefault(label, []).append((time.perf_counter() - t0)
+                                           / (OVERLAP_CHUNKS * OVERLAP_CHUNK) * 1e3)
+    values = [int(d.result()) for d in digests]
+    if not same_state(torch, on.state, off.state):
+        raise AssertionError("fused rbc1025: the run with digests differs from the run without")
+    leaves, lead = on._digest_fields(on.state)
+    # the digest as the model runs it (a copy into the digest graph's
+    # buffers, one replay, the word's copy to the host), and eagerly
+    digest_ms, enqueue_ms = time_queued_ms(torch, on.state_digest_async, 20)
+    mixes = dg.position_mixes(leaves, lead)
+    eager_ms, eager_enqueue_ms = time_queued_ms(
+        torch, lambda: dg.digest_words(leaves, lead, mixes), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on.state_digest_async().result()
+    result_ms = (time.perf_counter() - t0) * 1e3
+    chunk_ms = min(walls["off"]) * OVERLAP_CHUNK
+    share = max(digest_ms, enqueue_ms) / chunk_ms
+    cpu = dg.digest_tree([t.cpu() for t in on.state])
+    out = {"cell": "rbc1025", "route": "fused", "digest_ms": digest_ms,
+           "digest_enqueue_ms": enqueue_ms, "digest_result_wall_ms": result_ms,
+           "eager_digest_ms": eager_ms, "eager_digest_enqueue_ms": eager_enqueue_ms,
+           "chunk_steps": OVERLAP_CHUNK, "chunk_ms": chunk_ms,
+           "share_of_chunk": share, "on_ms_per_step": walls["on"],
+           "off_ms_per_step": walls["off"], "same_state": True, "digests": values[-2:],
+           "card_equals_cpu": int(on.state_digest_async().result()) == int(cpu)}
+    # the digest graph keeps what it reads: digests of 40 other shapes and
+    # device memory handed to other tensors leave its replay right
+    for n in range(40):
+        dg.digest_tree([torch.ones((3 + n, 5), dtype=torch.float64, device=CARD)])
+    filler = [torch.full((1 << 20,), -1, dtype=torch.int64, device=CARD) for _ in range(16)]
+    out["card_equals_cpu_after_other_shapes"] = int(on.state_digest_async().result()) == int(cpu)
+    del filler
+    # shadow audits: plain, sentinel and statistics chunks
+    audits = {}
+    for chunk in ("plain", "sentinels", "stats"):
+        if chunk == "sentinels":
+            on.set_stability(pt.StabilityConfig())
+        if chunk == "stats":
+            on.set_stability(None)
+            on.set_stats(pt.StatsConfig(stride=STATS_STRIDE))
+        snap = on.integrity_snapshot()
+        on.update_n(OVERLAP_CHUNK)
+        live = int(on.state_digest_async().result())
+        t0 = time.perf_counter()
+        shadow = int(on.shadow_digest_async(snap, OVERLAP_CHUNK).result())
+        audits[chunk] = {"equal": shadow == live, "audit_s": time.perf_counter() - t0}
+        if chunk == "plain":
+            bad, info = pt.integrity.flip_state_bit(snap["state"], 7)
+            flagged = int(on.shadow_digest_async({"state": bad}, OVERLAP_CHUNK).result()) != live
+            moved = int(on.digest_of_async(bad).result()) != \
+                int(on.digest_of_async(snap["state"]).result())
+            audits["bitflip"] = {"moved": moved, "flagged": flagged, "info": info}
+    on.set_stats(None)
+    out["audits"] = audits
+    print(f"phase30d integrity ({card}) " + json.dumps(out, default=str))
+    if not out["card_equals_cpu"]:
+        raise AssertionError("the card's digest differs from the CPU's digest of the same state")
+    if not out["card_equals_cpu_after_other_shapes"]:
+        raise AssertionError("the digest graph's replay changed after digests of other shapes")
+    if share > DIGEST_GATE:
+        raise AssertionError(f"a digest is {share:.4f} of a chunk (gate {DIGEST_GATE})")
+    if not all(a["equal"] for k, a in audits.items() if k != "bitflip"):
+        raise AssertionError(f"fused rbc1025: a shadow audit differs from the live digest {audits}")
+    if not (audits["bitflip"]["moved"] and audits["bitflip"]["flagged"]):
+        raise AssertionError(f"a flipped bit went unseen: {audits['bitflip']}")
+    del on, off, leaves
+    torch.cuda.empty_cache()
+    for label, make in (("dense129", lambda: seeded(route_model(pt, ENSEMBLE129, "dense"))),
+                        ("mesh129", lambda: seeded(route_model(pt, ENSEMBLE129, "mesh"))),
+                        ("ensemble129_k4", lambda: pt.NavierEnsemble.from_seeds(
+                            route_model(pt, ENSEMBLE129, "mesh"), range(WORKLOAD_K)))):
+        pde = make()
+        pde.set_integrity(pt.IntegrityConfig())
+        pde.set_stability(pt.StabilityConfig())
+        snap = pde.integrity_snapshot()
+        pde.update_n(20)
+        live = pde.state_digest_async().result()
+        shadow = pde.shadow_digest_async(snap, 20).result()
+        bad, _ = pt.integrity.flip_state_bit(snap["state"], 3,
+                                             member=1 if label.startswith("ens") else None)
+        flagged = pde.shadow_digest_async({**snap, "state": bad}, 20).result()
+        equal = bool((shadow == live).all())
+        print(f"phase30d {label}: shadow audit equal to the live (sentinel) digest: {equal}; "
+              f"a flipped bit flagged: {(flagged != live).tolist()}")
+        if not equal or not bool((flagged != live).any()):
+            raise AssertionError(f"{label}: shadow audit {shadow} against live {live}")
+        del pde
+
+
+def phase30(torch, pt, flips, card):
+    """Phase 30: Swift-Hohenberg at ``sh2048`` (30a), the meshed gradient
+    and the flip's backward (30b), the overlapped ``integrate`` and the async
+    writer (30c), the integrity layer (30d); prints its wall time.  Returns
+    the ring kernel's backward entries of the kernels line."""
+    t0 = time.perf_counter()
+    phase_sh(torch, pt, card)
+    sums = phase_mesh_grad(torch, pt, flips, card)
+    phase_overlap(torch, pt, card)
+    phase_integrity(torch, pt, card)
+    print(f"phase30 ok: {time.perf_counter() - t0:.1f} s wall")
+    return sums
+
+
 KERNEL_META = {
     "fused_conv": ("rustpde_mpi_tpu_torch/csrc/fused_conv.cu",
                    "rustpde_mpi_tpu/ops/pallas_conv.py:64"),
@@ -3854,12 +4451,15 @@ def route_sums(rows) -> dict:
     return out
 
 
-def kernels_line(records, launches, solver_times):
+def kernels_line(records, launches, solver_times, ring_times):
     """One entry per kernel, its times summed over one step of its main
     route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
     each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
     timed at its own shape, with the L2 flushed), and, for the banded
-    kernel, the 7 solves of a meshed step beside them (``mesh_*``).
+    kernel, the 7 solves of a meshed step beside them (``mesh_*``); the
+    banded and the flip kernels' backward (``backward_*``: the same kernel
+    launched as its own adjoint, summed over the same step's launches, and
+    the launches of a 129^2 gradient).
     ``launches[route][kernel]`` is the count of that route's counted run."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
@@ -3881,6 +4481,8 @@ def kernels_line(records, launches, solver_times):
             entry.setdefault(f"{route}_launches", launches[route].get(kernel, 0))
         if kernel == "banded_solve":
             entry.update(solver_times)
+        if kernel == "ring_transpose":
+            entry.update(ring_times)
         out.append(entry)
     return {"kernels": out}
 
@@ -3979,8 +4581,8 @@ def run(torch) -> int:
     mesh = pt.make_mesh(MESH_RANKS)
     mesh_model = pt.Navier2D.new_confined(**RBC1025, mesh=mesh)
     print(f"rbc1025 meshed-route model build ({mesh}): {time.perf_counter() - t0:.2f} s")
-    flips, solves, inputs = phase_step_inputs(torch, mesh_model, "phase12")
-    records += phase_ring(torch, pt, mesh, flips, square_ring_checks(torch, MESH_RANKS))
+    mesh_flips, solves, inputs = phase_step_inputs(torch, mesh_model, "phase12")
+    records += phase_ring(torch, pt, mesh, mesh_flips, square_ring_checks(torch, MESH_RANKS))
     records += phase_mesh_banded(torch, mesh_model, solves, inputs, 1e-12)
     del inputs
     print("phase12 ok")
@@ -4047,8 +4649,9 @@ def run(torch) -> int:
     print("phase28 ok")
     phase_methods(torch, pt)
     solver_times.update(phase29(torch, pt))
+    ring_times = phase30(torch, pt, mesh_flips, card)
     print(f"card: {card}")
-    print(json.dumps(kernels_line(records, launches, solver_times)))
+    print(json.dumps(kernels_line(records, launches, solver_times, ring_times)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -80,14 +80,34 @@ with a per-rung cache, which ``StabilityGovernor`` drives on a
     if decision.action in ("retry", "adjust"):
         model.set_dt(decision.dt)
         model.clear_pre_divergence()
+
+``integrate(model, t, dt_save, overlap=True)`` checks the break criterion
+one chunk late from a future (``exit_future``), so the host never waits on
+the card at a boundary; an attached ``IOPipeline`` (``IOConfig().pipeline()``)
+writes the callback's snapshots on a background worker and prints its
+lines from futures.  ``set_integrity(IntegrityConfig())`` arms the
+on-device state digests (``state_digest_async``, equal bit for bit to the
+JAX package's) and the shadow audits (``shadow_digest_async``)::
+
+    model.io_pipeline = IOConfig().pipeline()
+    integrate(model, 1.0, 0.1, overlap=True)
+    model.io_pipeline.drain()
+
+The Swift-Hohenberg models run on ``Space1`` and ``BiPeriodicSpace2``::
+
+    sh = SwiftHohenberg2D(2048, 2048, r=0.35, dt=0.02, length=20.0)
+    sh.update_n(128)
+    sh.pattern_energy()
 """
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
-from .config import NavierConfig, StabilityConfig, StatsConfig  # noqa: F401
-from .bases import (Base, BaseKind, Space2, cheb_dirichlet, cheb_dirichlet_neumann,  # noqa: F401
-                    cheb_neumann, chebyshev, fourier_c2c, fourier_r2c)
+from .config import (IntegrityConfig, IOConfig, NavierConfig, StabilityConfig,  # noqa: F401
+                     StatsConfig)
+from .bases import (Base, BaseKind, BiPeriodicSpace2, Space1, Space2, cheb_dirichlet,  # noqa: F401
+                    cheb_dirichlet_neumann, cheb_neumann, chebyshev, fourier_c2c, fourier_r2c)
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
-from .field import Field2  # noqa: F401
+from .field import Field1, Field2  # noqa: F401
+from .integrity import IntegrityError, QuarantineLedger, digest_tree  # noqa: F401
 from .models.boundary_conditions import (bc_hc_values, bc_rbc_values,  # noqa: F401
                                          bc_zero_values, pres_bc_rbc_values)
 from .models.ensemble import NavierEnsemble  # noqa: F401
@@ -98,6 +118,7 @@ from .models.opt_routines import steepest_descent_energy_constrained  # noqa: F4
 from .models.steady_adjoint import AdjointState, Navier2DAdjoint  # noqa: F401
 from .models.statistics import Statistics  # noqa: F401
 from .models.stats import StatsEngine, StatsState, export_stats  # noqa: F401
+from .models.swift_hohenberg import SwiftHohenberg1D, SwiftHohenberg2D  # noqa: F401
 from .models.solid_masks import (solid_cylinder_inner, solid_porosity,  # noqa: F401
                                  solid_porosity_interpolate, solid_rectangle,
                                  solid_roughness_sinusoid)
@@ -106,6 +127,8 @@ from .solver import FastDiag, Hholtz, HholtzAdi, Poisson, TensorSolver  # noqa: 
 from .utils.governor import (ChunkStatus, DtLadder, GovernorDecision, RunHealth,  # noqa: F401
                              StabilityGovernor)
 from .utils.integrate import integrate  # noqa: F401
+from .utils.io_pipeline import IOPipeline  # noqa: F401
+from .utils.journal import JournalWriter, read_journal  # noqa: F401
 from .utils.vorticity import (vorticity_auto, vorticity_from_file,  # noqa: F401
                               vorticity_from_file_periodic)
 from .workloads import (ScenarioConfig, build_eigenmode_ensemble,  # noqa: F401

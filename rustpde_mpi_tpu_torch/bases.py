@@ -1,9 +1,11 @@
-"""Spectral bases and 2-D tensor-product spaces.
+"""Spectral bases and 1-D and 2-D tensor-product spaces.
 
 Counterpart of the JAX package's ``bases.py``.  A :class:`Base` is a host
 factory of numpy f64 operator matrices; a :class:`Space2` holds two bases
 plus a device, a dtype and a transform method, and runs every transform
-axis by axis on tensors of that device.
+axis by axis on tensors of that device; a :class:`Space1` does the same
+for one base, and :class:`BiPeriodicSpace2` is the doubly periodic space
+(Fourier c2c x r2c) of the Swift-Hohenberg model.
 
 Bases: the Chebyshev family of the confined cell (``chebyshev``,
 ``cheb_dirichlet``, ``cheb_neumann``, and ``cheb_dirichlet_neumann`` of the
@@ -312,33 +314,19 @@ def default_method(device) -> str:
     return CPU_METHOD if torch.device(device).type == "cpu" else CARD_METHOD
 
 
-class Space2:
-    """Tensor product of two bases (axis 0 = x, axis 1 = y) on one device in
-    one dtype.  Arrays are ``(..., n_x, n_y)`` physical or ``(..., m_x,
-    m_y)`` spectral; leading batch dimensions broadcast through the
-    transforms.  ``device`` goes through :func:`..config.resolve_device`,
-    so ``"cuda"`` names the current card (and raises without one);
-    ``dtype`` is the real working dtype, the spectral dtype its complex
-    counterpart when an axis is Fourier (:attr:`spectral_dtype`).
-    ``method``: the Chebyshev axes' transform path, ``"fft"`` or
-    ``"matmul"`` (default :func:`default_method`); a Fourier axis always
-    runs on ``torch.fft``.
-
-    A field of this space is held whole.  The pencil space of
-    :mod:`.parallel.spaces` splits it over a mesh of ranks; both answer the
-    layout calls (``place_*``, ``gather_*``, ``x_to_y``/``y_to_x``,
-    ``weighted_sum``, ``apply_operators``), which are the identity or one
-    product here, so a model or solver never asks which layout it runs
-    on."""
+class _AxisSpace:
+    """What a 1-D and a 2-D tensor-product space share: the bases on one
+    device in one real working dtype with one Chebyshev transform method,
+    the device copies of the axis operators, and the transforms of one axis
+    (:meth:`_axis`), the last ``len(bases)`` dims of an array being the
+    space's axes and any dims in front batch dims."""
 
     #: no mesh: one rank holds the whole field
     mesh = None
     nranks = 1
 
-    def __init__(self, base_x: Base, base_y: Base, *, device, dtype, method: str | None = None):
-        if base_y.is_periodic and not base_x.is_periodic:
-            raise ValueError("periodic y-axis under non-periodic x is unsupported")
-        self.bases = (base_x, base_y)
+    def __init__(self, bases, *, device, dtype, method: str | None = None):
+        self.bases = tuple(bases)
         self.device = config.resolve_device(device)
         self.dtype = config.check_dtype(dtype)
         method = default_method(self.device) if method is None else method
@@ -348,20 +336,12 @@ class Space2:
         self._mats: dict = {}
 
     @property
-    def base_x(self) -> Base:
-        return self.bases[0]
+    def shape_physical(self) -> tuple:
+        return tuple(b.n for b in self.bases)
 
     @property
-    def base_y(self) -> Base:
-        return self.bases[1]
-
-    @property
-    def shape_physical(self) -> tuple[int, int]:
-        return (self.bases[0].n, self.bases[1].n)
-
-    @property
-    def shape_spectral(self) -> tuple[int, int]:
-        return (self.bases[0].m, self.bases[1].m)
+    def shape_spectral(self) -> tuple:
+        return tuple(b.m for b in self.bases)
 
     @property
     def spectral_is_complex(self) -> bool:
@@ -414,7 +394,7 @@ class Space2:
     def _axis(self, v: torch.Tensor, axis: int, key) -> torch.Tensor:
         """The operator named ``key`` (an :meth:`Base.axis_operator` key)
         applied along ``axis`` of ``v``."""
-        ax = v.ndim - 2 + axis
+        ax = v.ndim - len(self.bases) + axis
         base = self.bases[axis]
         if base.is_periodic:
             return self._fourier(v, axis, ax, key)
@@ -452,15 +432,6 @@ class Space2:
             return self._fourier(self._fourier(v, axis, ax, ("grad", key[1])), axis, ax, "bwd")
         raise ValueError(f"unknown axis operator key {key!r}")
 
-    def _apply(self, v: torch.Tensor, kx, ky, y_first: bool = False) -> torch.Tensor:
-        """The axis operators named ``kx`` and ``ky``, axis 0 first (axis 1
-        first with ``y_first``, the forward's order)."""
-        if v.ndim < 2:
-            raise ValueError(f"Space2 expects a (..., nx, ny) array, got rank {v.ndim}")
-        if y_first:
-            return self._axis(self._axis(v, 1, ky), 0, kx)
-        return self._axis(self._axis(v, 0, kx), 1, ky)
-
     # -- layout ---------------------------------------------------------------
 
     def place_physical(self, values) -> torch.Tensor:
@@ -481,6 +452,62 @@ class Space2:
     def gather_spectral(self, vhat: torch.Tensor) -> torch.Tensor:
         """The global spectral field of ``vhat`` (``vhat`` itself)."""
         return vhat
+
+    def vhat_as_complex(self, vhat: torch.Tensor) -> np.ndarray:
+        """Host copy of the coefficients in the complex convention (the
+        port's own storage, so a copy)."""
+        return vhat.detach().cpu().numpy()
+
+    def vhat_from_complex(self, vhat_c) -> torch.Tensor:
+        """Host coefficients in the complex convention (natural order) as
+        this space holds them: the reading counterpart of
+        :meth:`vhat_as_complex`, a copy on the space's device in its
+        spectral dtype."""
+        return self.place_spectral(vhat_c)
+
+
+class Space2(_AxisSpace):
+    """Tensor product of two bases (axis 0 = x, axis 1 = y) on one device in
+    one dtype.  Arrays are ``(..., n_x, n_y)`` physical or ``(..., m_x,
+    m_y)`` spectral; leading batch dimensions broadcast through the
+    transforms.  ``device`` goes through :func:`..config.resolve_device`,
+    so ``"cuda"`` names the current card (and raises without one);
+    ``dtype`` is the real working dtype, the spectral dtype its complex
+    counterpart when an axis is Fourier (:attr:`spectral_dtype`).
+    ``method``: the Chebyshev axes' transform path, ``"fft"`` or
+    ``"matmul"`` (default :func:`default_method`); a Fourier axis always
+    runs on ``torch.fft``.
+
+    A field of this space is held whole.  The pencil space of
+    :mod:`.parallel.spaces` splits it over a mesh of ranks; both answer the
+    layout calls (``place_*``, ``gather_*``, ``x_to_y``/``y_to_x``,
+    ``weighted_sum``, ``apply_operators``), which are the identity or one
+    product here, so a model or solver never asks which layout it runs
+    on."""
+
+    def __init__(self, base_x: Base, base_y: Base, *, device, dtype, method: str | None = None):
+        if base_y.is_periodic and not base_x.is_periodic:
+            raise ValueError("periodic y-axis under non-periodic x is unsupported")
+        super().__init__((base_x, base_y), device=device, dtype=dtype, method=method)
+
+    @property
+    def base_x(self) -> Base:
+        return self.bases[0]
+
+    @property
+    def base_y(self) -> Base:
+        return self.bases[1]
+
+    def _apply(self, v: torch.Tensor, kx, ky, y_first: bool = False) -> torch.Tensor:
+        """The axis operators named ``kx`` and ``ky``, axis 0 first (axis 1
+        first with ``y_first``, the forward's order)."""
+        if v.ndim < 2:
+            raise ValueError(f"Space2 expects a (..., nx, ny) array, got rank {v.ndim}")
+        if y_first:
+            return self._axis(self._axis(v, 1, ky), 0, kx)
+        return self._axis(self._axis(v, 0, kx), 1, ky)
+
+    # -- layout ---------------------------------------------------------------
 
     def x_to_y(self, v: torch.Tensor) -> torch.Tensor:
         """The flip to the layout with axis 1 local: the identity, as both
@@ -575,17 +602,186 @@ class Space2:
         out[..., 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
         return out
 
-    def vhat_as_complex(self, vhat: torch.Tensor) -> np.ndarray:
-        """Host copy of the coefficients in the complex convention (the
-        port's own storage, so a copy)."""
-        return vhat.detach().cpu().numpy()
 
-    def vhat_from_complex(self, vhat_c) -> torch.Tensor:
-        """Host coefficients in the complex convention (natural order) as
-        this space holds them: the reading counterpart of
-        :meth:`vhat_as_complex`, a copy on the space's device in its
-        spectral dtype."""
-        return self.place_spectral(vhat_c)
+class Space1(_AxisSpace):
+    """One-dimensional spectral space (the JAX package's ``Space1``): one
+    base of any kind on one device in one dtype.  Arrays are ``(..., n)``
+    physical or ``(..., m)`` spectral, leading dims batch.  ``method`` is
+    the Chebyshev transform path, as :class:`Space2`'s; a Fourier base runs
+    on ``torch.fft`` (the JAX package's split Re/Im r2c layout is a TPU
+    device and is not ported: an r2c spectrum is complex)."""
+
+    def __init__(self, base: Base, *, device, dtype, method: str | None = None):
+        super().__init__((base,), device=device, dtype=dtype, method=method)
+
+    @property
+    def base(self) -> Base:
+        return self.bases[0]
+
+    def base_kind(self, axis: int = 0) -> BaseKind:
+        del axis
+        return self.base.kind
+
+    def coords(self) -> list:
+        return [self.base.points]
+
+    def ndarray_physical(self) -> torch.Tensor:
+        return torch.zeros(self.shape_physical, device=self.device, dtype=self.dtype)
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        """Physical -> (composite) spectral."""
+        return self._axis(v, 0, "fwd")
+
+    def backward(self, vhat: torch.Tensor) -> torch.Tensor:
+        """(Composite) spectral -> physical."""
+        return self._axis(vhat, 0, "bwd")
+
+    def backward_ortho(self, c: torch.Tensor) -> torch.Tensor:
+        """Physical values from orthogonal-space coefficients."""
+        return self._axis(c, 0, "synthesis")
+
+    def to_ortho(self, vhat: torch.Tensor) -> torch.Tensor:
+        return self._axis(vhat, 0, "stencil")
+
+    def from_ortho(self, c: torch.Tensor) -> torch.Tensor:
+        return self._axis(c, 0, "proj")
+
+    def gradient(self, vhat: torch.Tensor, deriv, scale=None) -> torch.Tensor:
+        """d^deriv/dx in ortho space, divided by scale^deriv (``deriv`` and
+        ``scale`` a number or a 1-element sequence)."""
+        order = deriv if isinstance(deriv, int) else deriv[0]
+        out = self._axis(vhat, 0, ("grad", order) if order else "stencil")
+        if scale is not None:
+            factor = float(scale if isinstance(scale, (int, float)) else scale[0]) ** order
+            if factor != 1.0:
+                out = out / factor
+        return out
+
+    def dealias_mask(self) -> np.ndarray:
+        """The 2/3-rule mask over the spectral rows (host numpy)."""
+        return self.base.dealias_cut()
+
+    def pin_zero_mode(self, vhat: torch.Tensor) -> torch.Tensor:
+        """Zero the constant mode (in place on a copy: capturable)."""
+        out = vhat.clone()
+        out[..., 0].zero_()
+        return out
+
+
+class BiPeriodicSpace2:
+    """Doubly periodic real 2-D space (the JAX package's
+    ``BiPeriodicSpace2``): Fourier c2c along x times r2c along y, spectral
+    arrays complex ``(..., nx, my)``, ``my = ny//2 + 1``, on ``torch.fft``
+    with the amplitude normalisation (a forward divides by the length of
+    each axis).  The JAX package's split Re/Im layout and its matrix and
+    four-step FFT paths are TPU devices: here the spectrum is complex, and
+    :meth:`vhat_as_complex`/:meth:`vhat_from_complex` read and write the
+    reference's complex coefficients.
+
+    Every operator a captured step reads (the derivative factors, the
+    conjugate-pair index of :meth:`enforce_hermitian_x`) is put on the
+    device when it is first asked for, so a step's warm-up puts them
+    there before a capture."""
+
+    mesh = None
+    nranks = 1
+
+    def __init__(self, nx: int, ny: int, *, device, dtype):
+        self.nx, self.ny = int(nx), int(ny)
+        self.my = self.ny // 2 + 1
+        self.device = config.resolve_device(device)
+        self.dtype = config.check_dtype(dtype)
+        self.kx = fou.wavenumbers_c2c(self.nx)
+        self.ky = fou.wavenumbers_r2c(self.ny)
+        self._grad: dict = {}
+        #: the conjugate partner of each kx row, ``(-k) mod nx``
+        self.conj_index = (-torch.arange(self.nx, device=self.device)) % self.nx
+
+    @property
+    def shape_physical(self) -> tuple[int, int]:
+        return (self.nx, self.ny)
+
+    @property
+    def shape_spectral(self) -> tuple[int, int]:
+        return (self.nx, self.my)
+
+    @property
+    def spectral_dtype(self) -> torch.dtype:
+        return torch.complex128 if self.dtype == torch.float64 else torch.complex64
+
+    def coords(self) -> list:
+        return [fou.fourier_points(self.nx), fou.fourier_points(self.ny)]
+
+    def ndarray_physical(self) -> torch.Tensor:
+        return torch.zeros(self.shape_physical, device=self.device, dtype=self.dtype)
+
+    def ndarray_spectral(self) -> torch.Tensor:
+        return torch.zeros(self.shape_spectral, device=self.device, dtype=self.spectral_dtype)
+
+    def forward(self, v: torch.Tensor) -> torch.Tensor:
+        """Real physical ``(..., nx, ny)`` -> spectral ``(..., nx, my)``."""
+        return tr.fourier_c2c_forward_fft(tr.fourier_r2c_forward_fft(v, -1), -2)
+
+    def backward(self, s: torch.Tensor) -> torch.Tensor:
+        """Spectral ``(..., nx, my)`` -> real physical ``(..., nx, ny)``."""
+        return tr.fourier_r2c_backward_fft(tr.fourier_c2c_backward_fft(s, -2, self.nx), -1,
+                                           self.ny)
+
+    def _grad_factor(self, deriv) -> np.ndarray:
+        """``(i kx)^dx (i ky)^dy`` over the ``(nx, my)`` modes (complex host
+        array), odd-order Nyquist modes zeroed (:func:`.ops.fourier.diff_diag`)."""
+        fx = fou.diff_diag(self.kx, deriv[0], self.nx, r2c=False)
+        fy = fou.diff_diag(self.ky, deriv[1], self.ny, r2c=True)
+        return fx[:, None] * fy[None, :]
+
+    def gradient(self, s: torch.Tensor, deriv, scale=None) -> torch.Tensor:
+        """The mixed derivative in spectral space, divided by
+        ``scale^deriv``."""
+        key = (tuple(int(d) for d in deriv), None if scale is None else tuple(scale))
+        if key not in self._grad:
+            f = self._grad_factor(deriv)
+            if scale is not None:
+                f = f / ((scale[0] ** deriv[0]) * (scale[1] ** deriv[1]))
+            self._grad[key] = torch.as_tensor(f, dtype=self.spectral_dtype, device=self.device)
+        return s * self._grad[key]
+
+    def dealias_mask(self) -> np.ndarray:
+        """The 2/3 rule over both axes, ``(nx, my)`` host numpy: the c2c x
+        axis cut by wavenumber magnitude (keep ``|k| < (2 mx) // 3``, ``mx
+        = nx//2 + 1``), the r2c y axis as :meth:`Base.dealias_cut`."""
+        mx = self.nx // 2 + 1
+        cx = (np.abs(self.kx) < (mx * 2) // 3).astype(np.float64)
+        cy = np.ones(self.my)
+        cy[(self.my * 2) // 3:] = 0.0
+        return cx[:, None] * cy[None, :]
+
+    def pin_zero_mode(self, s: torch.Tensor) -> torch.Tensor:
+        """Zero the (0, 0) mode (in place on a copy: capturable)."""
+        out = s.clone()
+        out[..., 0, 0].zero_()
+        return out
+
+    def enforce_hermitian_x(self, s: torch.Tensor) -> torch.Tensor:
+        """Make the self-conjugate ky columns conjugate-symmetric in kx: a
+        real field has ``c(-kx, ky) = conj(c(kx, ky))`` at ky = 0 and, for
+        even ny, at the ky Nyquist column, and the implicit update amplifies
+        an anti-Hermitian roundoff there wherever the mode is unstable.  Each
+        such column becomes ``(c + conj(c[-kx])) / 2``."""
+        out = s.clone()
+        cols = [0] + ([self.my - 1] if self.ny % 2 == 0 else [])
+        for c in cols:
+            col = s[..., :, c]
+            out[..., :, c] = 0.5 * (col + col.index_select(-1, self.conj_index).conj())
+        return out
+
+    def vhat_as_complex(self, s: torch.Tensor) -> np.ndarray:
+        """Host copy of the complex coefficients."""
+        return s.detach().cpu().numpy()
+
+    def vhat_from_complex(self, c) -> torch.Tensor:
+        """Complex host coefficients as this space holds them."""
+        return torch.tensor(np.ascontiguousarray(c), dtype=self.spectral_dtype,
+                            device=self.device)
 
 
 def divide_scale(out: torch.Tensor, deriv, scale) -> torch.Tensor:

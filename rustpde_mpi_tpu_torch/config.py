@@ -115,15 +115,84 @@ class StatsConfig:
 
 
 @dataclass
+class IntegrityConfig:
+    """The integrity layer's knobs (the JAX package's ``IntegrityConfig``,
+    same fields and defaults), armed by a model's ``set_integrity``: an
+    on-device state digest (:func:`..integrity.digest_tree`) streamed with
+    the observables futures, and shadow audits that replay a chunk from its
+    retained start and compare digests.
+
+    * ``cadence``: committed chunks between audits (None: 8; 0 streams
+      digests and never audits);
+    * ``strikes``: audit mismatches charged to one device before the
+      quarantine ledger quarantines it;
+    * ``strike_ttl_s``: how long a strike counts.
+
+    The digest reads the state and never feeds back: a trajectory is bit
+    for bit the same with the layer armed and disarmed."""
+
+    cadence: int | None = None
+    strikes: int = 2
+    strike_ttl_s: float = 3600.0
+
+    def resolved_cadence(self) -> int:
+        """The audit cadence, 8 when unset."""
+        return 8 if self.cadence is None else int(self.cadence)
+
+
+@dataclass
+class IOConfig:
+    """The overlapped IO pipeline's knobs (the JAX package's ``IOConfig``,
+    same fields and defaults; :mod:`..utils.io_pipeline`).
+
+    * ``async_checkpoints``: a checkpoint is staged to the host on the
+      calling thread and written on a background worker;
+    * ``overlap_dispatch``: ``integrate``'s break check and the
+      callback's observables ride futures, one chunk late
+      (``integrate(overlap=True)``);
+    * ``sharded_checkpoints``: the sharded two-phase format, which the port
+      does not have (ROADMAP Queue 1 item 17.2): None or False;
+    * ``queue_depth``: background writes in flight before a submit blocks;
+    * ``diag_lag``: boundaries a diagnostics line may trail the device
+      (0 prints synchronously);
+    * ``timeout_s``: how long a submit or a drain may wait on the writer
+      before it raises (None waits for ever)."""
+
+    async_checkpoints: bool = True
+    overlap_dispatch: bool = True
+    sharded_checkpoints: bool | None = None
+    queue_depth: int = 1
+    diag_lag: int = 1
+    timeout_s: float | None = None
+
+    def __post_init__(self):
+        if self.sharded_checkpoints:
+            raise NotImplementedError(
+                "sharded checkpoints are not ported yet (ROADMAP Queue 1 item 17.2)")
+
+    @classmethod
+    def blocking(cls) -> "IOConfig":
+        """Fully synchronous IO."""
+        return cls(async_checkpoints=False, overlap_dispatch=False, diag_lag=0)
+
+    def pipeline(self):
+        """The :class:`..utils.io_pipeline.IOPipeline` these knobs describe."""
+        from .utils.io_pipeline import IOPipeline
+
+        return IOPipeline(queue_depth=self.queue_depth, diag_lag=self.diag_lag,
+                          timeout_s=self.timeout_s)
+
+
+@dataclass
 class NavierConfig:
     """The Navier models' configuration in one object (the JAX package's
     ``NavierConfig``, same fields and defaults), for
     ``Navier2D.from_config`` / ``NavierEnsemble.from_config``.
 
-    ``resilience`` and ``integrity`` are the JAX package's resilient-runner
-    and integrity-layer knobs, which the port does not have yet (ROADMAP
-    Queue 1 item 15): they must stay None, and any other value raises
-    ``NotImplementedError``."""
+    ``integrity`` (an :class:`IntegrityConfig`) arms ``set_integrity``.
+    ``resilience`` is the JAX package's resilient-runner knob, which the
+    port does not have yet (ROADMAP Queue 1 item 15b): it must stay None,
+    and any other value raises ``NotImplementedError``."""
 
     nx: int = 129
     ny: int = 129
@@ -145,14 +214,17 @@ class NavierConfig:
     stats: StatsConfig | None = None
     #: scenario step modifiers (a ``ScenarioConfig`` or a dict with its keys)
     scenario: object | None = None
-    integrity: object | None = None
+    #: the integrity layer (None: off); ``from_config`` arms it
+    integrity: IntegrityConfig | None = None
 
     def __post_init__(self):
-        for name in ("resilience", "integrity"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"NavierConfig.{name} is not ported yet (ROADMAP Queue 1 item 15); "
-                    "leave it None")
+        if self.resilience is not None:
+            raise NotImplementedError(
+                "NavierConfig.resilience is not ported yet (ROADMAP Queue 1 item 15b); "
+                "leave it None")
+        if self.integrity is not None and not isinstance(self.integrity, IntegrityConfig):
+            raise TypeError(f"NavierConfig.integrity must be an IntegrityConfig or None, "
+                            f"got {type(self.integrity).__name__}")
 
     def ctor_args(self) -> tuple:
         return (self.nx, self.ny, self.ra, self.pr, self.dt, self.aspect, self.bc)

@@ -1,9 +1,9 @@
-"""The field layer: quadrature weights, norms, volume averages and
-:class:`Field2` (counterpart of the JAX package's ``field.py``).
+"""The field layer: quadrature weights, norms, volume averages,
+:class:`Field1` and :class:`Field2` (counterpart of the JAX package's
+``field.py``).
 
 The spectral coefficients ``vhat`` are a field's single source of truth;
-its physical values are computed on demand.  ``Field1`` waits for the 1-D
-space (``Space1``), which is not ported yet.
+its physical values are computed on demand.
 """
 
 from __future__ import annotations
@@ -70,6 +70,59 @@ def norm_l2(a: torch.Tensor) -> torch.Tensor:
     if a.is_complex():
         a = torch.view_as_real(a)
     return torch.sqrt(torch.sum(a * a))
+
+
+class Field1:
+    """One-dimensional field on a :class:`..bases.Space1`, in the space's
+    device and dtype: ``vhat`` (spectral, the state), ``v`` (physical,
+    computed from ``vhat``; assigning it runs the forward transform), ``x``
+    and ``dx`` (host coordinates and grid deltas, one-element lists)."""
+
+    def __init__(self, space):
+        self.space = space
+        self.vhat = space.ndarray_spectral()
+        self.x = [space.base.points.copy()]
+        self.dx = [grid_deltas(space.base.points, space.base.is_periodic)]
+
+    def scale(self, scale) -> None:
+        """Stretch the coordinates (a number or a 1-element sequence)."""
+        s = scale if isinstance(scale, (int, float)) else scale[0]
+        self.x[0] = self.x[0] * s
+        self.dx[0] = self.dx[0] * s
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self.space.backward(self.vhat)
+
+    @v.setter
+    def v(self, values) -> None:
+        # the physical dtype is complex only on a c2c base
+        dtype = (self.space.spectral_dtype if self.space.base.kind == BaseKind.FOURIER_C2C
+                 else self.space.dtype)
+        self.vhat = self.space.forward(torch.as_tensor(values, dtype=dtype,
+                                                       device=self.space.device))
+
+    def forward(self, v: torch.Tensor) -> None:
+        self.vhat = self.space.forward(v)
+
+    def backward(self) -> torch.Tensor:
+        return self.space.backward(self.vhat)
+
+    def to_ortho(self) -> torch.Tensor:
+        return self.space.to_ortho(self.vhat)
+
+    def from_ortho(self, c: torch.Tensor) -> None:
+        self.vhat = self.space.from_ortho(c)
+
+    def gradient(self, deriv, scale=None) -> torch.Tensor:
+        return self.space.gradient(self.vhat, deriv, scale)
+
+    def average(self) -> torch.Tensor:
+        """Volume-weighted average of ``v``, a 0-d tensor."""
+        periodic = self.space.base.is_periodic
+        v = self.v
+        return torch.sum(v * _weights(v, self.dx[0] / _axis_length(self.x, self.dx, 0,
+                                                                      periodic)))
 
 
 class Field2:

@@ -2,9 +2,11 @@
 JAX package's ``models/campaign.py`` that the single-device DNS uses):
 ``time``, ``update``, ``update_n``, ``step_n``, ``get_observables``,
 ``exit``, the stability sentinels (``set_stability``,
-``clear_pre_divergence``, ``last_chunk_status``), the in-scan statistics
-(``set_stats`` and its family, :mod:`.stats`) and the dt rung cache
-(``set_dt``).
+``clear_pre_divergence``, ``last_chunk_status``, ``update_n_pending``), the
+in-scan statistics (``set_stats`` and its family, :mod:`.stats`), the dt
+rung cache (``set_dt``), and the overlapped-IO and integrity surface
+(:class:`FuturesAndIntegrity`: observable and break-check futures, state
+digests, shadow audits).
 
 A chunk of steps advances a *carry*, the state and a few 0-d device
 tensors, one step at a time in place (:class:`ChunkRunner`).  Each step
@@ -55,23 +57,29 @@ from .stats import StatsState
 
 #: the attribute surface of a campaign model that the workloads registry
 #: validates (:func:`..workloads.registry.validate_campaign_model`): the
-#: JAX package's list less its compiled-entry-point, integrity and
-#: asynchronous-readout names, which the port does not have
+#: JAX package's list less its compiled-entry-point and sharded-snapshot
+#: names, which the port does not have
 CAMPAIGN_MODEL_ATTRS = (
     "MODEL_KIND",
     "observable_names",
     "state",
     "compat_key",
     "update_n",
+    "update_n_pending",
     "set_stability",
     "clear_pre_divergence",
     "set_stats",
     "stats_armed",
+    "set_integrity",
+    "integrity_armed",
+    "state_digest_async",
     "set_dt",
     "get_dt",
     "get_time",
     "get_observables",
+    "get_observables_async",
     "exit",
+    "exit_future",
     "init_random",
     "read",
     "write",
@@ -385,7 +393,182 @@ class StatsAndRungs:
         (a first visit to a dt rung), after ``self.dt`` was set."""
 
 
-class CampaignModelBase(StatsAndRungs):
+class FuturesAndIntegrity:
+    """What a single model and an ensemble share around the overlapped IO
+    and integrity layers: the observables as a future
+    (:meth:`get_observables_async`, cached per state and shared with
+    :meth:`get_observables`), the break check as a future
+    (:meth:`exit_future`), and the on-device state digests, shadow audits
+    and in-memory snapshots of the integrity layer (:mod:`..integrity`).
+
+    The digest of a state runs as one captured graph on a card
+    (:meth:`_digest_runner`).  A class using it supplies ``state``,
+    ``time``, ``_obs_cache`` (None or
+    ``(state, future)``), ``_pre_div_latch``, :meth:`_observables_tensor`,
+    :meth:`_convert_observables`, :meth:`_exit_of`, :meth:`_digest_fields`
+    and :meth:`_shadow_state`.
+
+    ``io_pipeline`` (an :class:`..utils.io_pipeline.IOPipeline`) routes the
+    callback's IO through the background writer and the diagnostics lag
+    queue; ``io_overlap`` makes :func:`..utils.integrate.integrate` check
+    the break criterion one chunk late by default.  Both are off on a plain
+    model."""
+
+    io_pipeline = None
+    io_overlap = False
+    _integrity_cfg = None
+
+    # -- observables as futures -------------------------------------------------
+
+    def _observables_tensor(self):
+        """The observables of the current state as one device tensor."""
+        raise NotImplementedError
+
+    def _convert_observables(self, host):
+        """The caller's form of the fetched observables (numpy)."""
+        raise NotImplementedError
+
+    def get_observables_async(self):
+        """The observables of the current state as an
+        :class:`..utils.io_pipeline.ObservableFuture`: computed and copied
+        to the host without a wait, cached per state and shared with
+        :meth:`get_observables` and :meth:`exit_future`, so a boundary's
+        diagnostics and break check cost one transfer."""
+        from ..utils.io_pipeline import ObservableFuture
+
+        if self._obs_cache is None or self._obs_cache[0] is not self.state:
+            fut = ObservableFuture(self._observables_tensor(),
+                                   convert=self._convert_observables)
+            self._obs_cache = (self.state, fut)
+        return self._obs_cache[1]
+
+    def get_observables(self) -> tuple:
+        """The observables (``observable_names``) of the current state,
+        fetched to the host in one transfer and cached per state."""
+        return self.get_observables_async().result()
+
+    def exit_future(self):
+        """:meth:`exit` as a future for the overlapped ``integrate``: a latched
+        sentinel catch resolves at once; otherwise the break criterion
+        rides a device readout (:meth:`_exit_of`)."""
+        from ..utils.io_pipeline import immediate
+
+        if self._pre_div_latch:
+            return immediate(True)
+        return self._exit_of()
+
+    def _exit_of(self):
+        """The future of the break criterion without a latch."""
+        raise NotImplementedError
+
+    # -- integrity (integrity/) ------------------------------------------------------
+
+    def set_integrity(self, cfg) -> None:
+        """Arm (an :class:`..config.IntegrityConfig`) or disarm (None) the
+        integrity layer.  The digest only reads the state: stepping is the
+        same, bit for bit, armed or not, and no captured graph changes."""
+        self._integrity_cfg = cfg
+
+    @property
+    def integrity_config(self):
+        """The armed :class:`..config.IntegrityConfig` (None: disarmed)."""
+        return self._integrity_cfg
+
+    @property
+    def integrity_armed(self) -> bool:
+        return self._integrity_cfg is not None
+
+    def _need_integrity(self, what: str) -> None:
+        if not self.integrity_armed:
+            raise RuntimeError(f"{what} needs an armed integrity layer (set_integrity)")
+
+    def _digest_fields(self, state) -> tuple:
+        """The state's fields as the digest reads them (their global
+        arrays), and the number of member dims in front."""
+        raise NotImplementedError
+
+    def _digest_runner(self, leaves, lead: int) -> ChunkRunner:
+        """The digest of leaves of these shapes and dtypes as a
+        :class:`ChunkRunner` whose carry is a static copy of the leaves and
+        the digest word(s): on a card one captured graph (the digest is a
+        few dozen small launches a leaf, too many to enqueue one by one
+        after every chunk), built at the first digest of such a state.  The
+        positional mixes the graph reads are built here and held by
+        ``advance``, so they live as long as the runner."""
+        from ..integrity.digest import digest_words, position_mixes
+
+        key = (tuple((tuple(t.shape), t.dtype) for t in leaves), lead)
+        runners = self.__dict__.setdefault("_digest_runners", {})
+        runner = runners.get(key)
+        if runner is None:
+            carry = [t.clone(memory_format=torch.contiguous_format) for t in leaves]
+            carry.append(torch.zeros(tuple(leaves[0].shape[:lead]), dtype=torch.int64,
+                                     device=leaves[0].device))
+            mixes = position_mixes(leaves, lead)
+
+            def advance(c):
+                c[-1].copy_(digest_words(c[:-1], lead, mixes))
+
+            runner = runners[key] = ChunkRunner(advance, carry, [])
+        return runner
+
+    def _digest_future(self, state):
+        from ..utils.io_pipeline import ObservableFuture
+
+        leaves, lead = self._digest_fields(state)
+        runner = self._digest_runner(leaves, lead)
+        for buf, leaf in zip(runner.carry[:-1], leaves):
+            buf.copy_(leaf)
+        runner.run(1)
+        return ObservableFuture(runner.carry[-1], convert=lambda v: v.astype(np.uint32))
+
+    def state_digest_async(self):
+        """The digest of the current state as a future: a numpy uint32 (one
+        per member, shape ``(K,)``, for an ensemble), equal to the JAX
+        package's digest of the same arrays."""
+        self._need_integrity("state_digest_async")
+        return self._digest_future(self.state)
+
+    def digest_of_async(self, state):
+        """The digest of another state (a retained chunk-start copy)."""
+        self._need_integrity("digest_of_async")
+        return self._digest_future(state)
+
+    def shadow_digest_async(self, snap: dict, n: int):
+        """The shadow audit: ``n`` steps from a retained
+        :meth:`integrity_snapshot` through the plain chunk (the snapshot is
+        not consumed), then the digest.  A live chunk of the same steps,
+        sentinels or statistics armed or not, must digest equal."""
+        self._need_integrity("shadow_digest_async")
+        return self._digest_future(self._shadow_state(snap, int(n)))
+
+    def _shadow_state(self, snap: dict, n: int):
+        """The state ``n`` plain steps after ``snap``."""
+        raise NotImplementedError
+
+    def integrity_snapshot(self) -> dict:
+        """A device copy of what an in-memory rollback restores: the state,
+        the time and, when armed, the statistics' sums and tick."""
+        snap = {"state": type(self.state)(*(t.clone() for t in self.state)), "time": self.time}
+        if self.stats_armed:
+            snap["stats"] = (type(self.stats_state)(*(t.clone() for t in self.stats_state)),
+                             self._stats_tick.clone())
+        return snap
+
+    def integrity_restore(self, snap: dict) -> None:
+        """Roll back to a verified :meth:`integrity_snapshot` (copied in, so
+        the snapshot can be restored again)."""
+        self.state = type(snap["state"])(*(t.clone() for t in snap["state"]))
+        self.time = snap["time"]
+        if "stats" in snap and self.stats_armed:
+            sums, tick = snap["stats"]
+            self.stats_state = type(sums)(*(t.clone() for t in sums))
+            self._stats_tick = tick.clone()
+        self._obs_cache = None
+        self._pre_div_latch = False
+
+
+class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity):
     """Subclasses supply ``dt``, ``dtype`` (the real working dtype; the
     state's fields may be complex), ``state`` (a NamedTuple of tensors),
     ``_step(state, with_sentinels=False)`` (with sentinels it returns
@@ -698,9 +881,30 @@ class CampaignModelBase(StatsAndRungs):
         return None
 
     def _update_n_sentinels(self, n: int) -> ChunkStatus:
+        return self.update_n_pending(n).resolve()
+
+    def update_n_pending(self, n: int):
+        """A sentinel chunk whose commit is decided later: the chunk is
+        run, its scalars are copied to the host without a wait, ``state``,
+        ``time`` and the statistics advance provisionally to its end, and
+        the returned :class:`..utils.io_pipeline.PendingChunkStatus`'s
+        ``resolve()`` reads the scalars and confirms the advance, or, when
+        the CFL ceiling tripped on a finite state, restores the chunk start
+        and latches :meth:`exit`: what :meth:`update_n` returns, one round
+        trip later (``update_n`` is ``update_n_pending(n).resolve()``).
+
+        The chunk start needs no copy of its own: the runner steps a copy
+        of the state in its carry, and the model's state tensors are not
+        written."""
+        from ..utils.io_pipeline import PendingChunkStatus
+
+        if self._stability is None:
+            raise RuntimeError("update_n_pending needs armed stability sentinels "
+                               "(set_stability)")
         self._pre_div_latch = False
         runner = self.chunk_runner(armed=True)
         nf = len(self.state)
+        start = (self.state, self.time, self.stats_state, self._stats_tick)
         self._load(runner, self.state)
         tick = self._load_stats(runner)
         # the sentinel carry is not reset between buckets, so the schedule
@@ -710,21 +914,26 @@ class CampaignModelBase(StatsAndRungs):
         else:
             runner.run(n)
         # float64: exact for the flags and the counts, and for the f32 maxima
-        fin, cok, done, cfl_max, growth_max, div_max, ke = torch.stack(
-            [t.to(torch.float64) for t in runner.carry[nf:nf + 7]]).tolist()
-        fin, cok = bool(fin), bool(cok)
-        pre_div = fin and not cok
-        if pre_div:
-            self._pre_div_latch = True
-        else:
-            self.state = self._unload(runner)
-            self._unload_stats(runner)
-            self.time += n * self.dt
-        status = ChunkStatus(requested=int(n), steps_done=int(done), finite=fin, cfl_ok=cok,
-                             pre_divergence=pre_div, cfl_max=cfl_max, ke=ke,
-                             ke_growth_max=growth_max, div_max=div_max, dt=self.dt)
-        self.last_chunk_status = status
-        return status
+        scalars = torch.stack([t.to(torch.float64) for t in runner.carry[nf:nf + 7]])
+        self.state = self._unload(runner)
+        self._unload_stats(runner)
+        self.time += n * self.dt
+        dt = self.dt
+
+        def finish(host):
+            fin, cok, done, cfl_max, growth_max, div_max, ke = host.tolist()
+            fin, cok = bool(fin), bool(cok)
+            pre_div = fin and not cok
+            if pre_div:
+                self.state, self.time, self.stats_state, self._stats_tick = start
+                self._pre_div_latch = True
+            status = ChunkStatus(requested=int(n), steps_done=int(done), finite=fin, cfl_ok=cok,
+                                 pre_divergence=pre_div, cfl_max=cfl_max, ke=ke,
+                                 ke_growth_max=growth_max, div_max=div_max, dt=dt)
+            self.last_chunk_status = status
+            return status
+
+        return PendingChunkStatus(scalars, finish)
 
     def set_stability(self, cfg) -> None:
         """Arm (a :class:`..config.StabilityConfig`) or disarm (None) the
@@ -775,13 +984,31 @@ class CampaignModelBase(StatsAndRungs):
     def reset_time(self) -> None:
         self.time = 0.0
 
-    def get_observables(self) -> tuple:
-        """The model's scalars (``observable_names``) of the current state,
-        fetched to the host in one transfer and cached per state."""
-        if self._obs_cache is None or self._obs_cache[0] is not self.state:
-            vals = self._observables(self.state)
-            self._obs_cache = (self.state, tuple(float(v) for v in vals.tolist()))
-        return self._obs_cache[1]
+    def _observables_tensor(self):
+        return self._observables(self.state)
+
+    @staticmethod
+    def _convert_observables(host) -> tuple:
+        return tuple(float(v) for v in host.tolist())
+
+    def _exit_of(self):
+        from ..utils.io_pipeline import MappedFuture
+
+        return MappedFuture(self.get_observables_async(), lambda vals: math.isnan(vals[3]))
+
+    def _digest_fields(self, state):
+        """The fields, each gathered to its global array on a mesh (so a
+        meshed state digests as the same state on one rank does)."""
+        if self.mesh is None:
+            return tuple(state), 0
+        out = []
+        for name, field in zip(state._fields, state):
+            space = getattr(self, f"{name}_space", None)
+            out.append(field if space is None else space.gather_spectral(field))
+        return tuple(out), 0
+
+    def _shadow_state(self, snap: dict, n: int):
+        return self.step_n(snap["state"], n)[0]
 
     def div_norm(self) -> float:
         """The divergence norm, the observable that turns non-finite first."""

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``models/ensemble.py`` (its
 ``NavierEnsemble``), with its in-scan statistics (per-member running sums,
 one shared sample tick) and its dt rung cache (``set_dt`` through the
-template model), less its integrity digests, sharded checkpoints and
-overlapped IO.  The JAX package stacks K member states on a
+template model), its observable and break-check futures, per-member
+state digests and shadow audits (:class:`.campaign.FuturesAndIntegrity`),
+less its sharded checkpoints.  The JAX package stacks K member states on a
 leading axis and advances them as one ``jax.vmap`` of the model's step, the Pallas
 kernels batched by ``pallas_call``'s batching rule.  Here the member-stacked
 state goes through the template model's own step (:meth:`Navier2D._step`
@@ -39,7 +40,7 @@ import torch
 from ..utils import checkpoint, navier_io
 from ..utils.governor import ChunkStatus
 from ..utils.jit import scan_buckets
-from .campaign import ChunkRunner, StatsAndRungs
+from .campaign import ChunkRunner, FuturesAndIntegrity, StatsAndRungs
 
 
 def _stack(members) -> tuple:
@@ -47,7 +48,7 @@ def _stack(members) -> tuple:
     return type(members[0])(*(torch.stack([torch.as_tensor(x) for x in xs]) for xs in zip(*members)))
 
 
-class NavierEnsemble(StatsAndRungs):
+class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity):
     """K member states of one :class:`..models.navier.Navier2D`, stepped
     together.
 
@@ -313,12 +314,13 @@ class NavierEnsemble(StatsAndRungs):
             self._runners[(armed, stats)] = runner
         return runner
 
-    def _load(self, runner: ChunkRunner, *flags) -> None:
-        """Copy the state and ``flags`` (the leading scalars of the carry)
-        into the runner's carry and zero the rest (running maxima); the
-        statistics slots are :meth:`_load_stats`'s."""
+    def _load(self, runner: ChunkRunner, *flags, state=None) -> None:
+        """Copy the state (``state``, default the ensemble's) and ``flags``
+        (the leading scalars of the carry) into the runner's carry and zero
+        the rest (running maxima); the statistics slots are
+        :meth:`_load_stats`'s."""
         nf = len(self.state)
-        for buf, f in zip(runner.carry[:nf], self.state):
+        for buf, f in zip(runner.carry[:nf], self.state if state is None else state):
             buf.copy_(f)
         rest = runner.carry[nf:len(runner.carry) - runner.n_stats]
         for buf, f in zip(rest, flags):
@@ -496,10 +498,74 @@ class NavierEnsemble(StatsAndRungs):
         ndarray of shape (K,), fetched in one transfer and cached per state.
         A member that diverged is frozen at its last finite state, so its
         entries are finite but stale: liveness is :meth:`alive`."""
-        if self._obs_cache is None or self._obs_cache[0] is not self.state:
-            vals = self.model._observables(self.state).cpu().numpy()
-            self._obs_cache = (self.state, tuple(np.asarray(v, dtype=np.float64) for v in vals))
-        return self._obs_cache[1]
+        return self.get_observables_async().result()
+
+    def _observables_tensor(self):
+        return self.model._observables(self.state)
+
+    @staticmethod
+    def _convert_observables(host) -> tuple:
+        return tuple(np.asarray(v, dtype=np.float64) for v in host)
+
+    def _exit_of(self):
+        """Every member dead, read from the device mask as a future."""
+        from ..utils.io_pipeline import ObservableFuture
+
+        return ObservableFuture(self.mask, convert=lambda m: not bool(np.any(m)))
+
+    # -- integrity -------------------------------------------------------------
+
+    def set_integrity(self, cfg) -> None:
+        """Arm or disarm the integrity layer on the template model, as the
+        JAX package's ensemble does; the members' digests are per member."""
+        self.model.set_integrity(cfg)
+
+    @property
+    def integrity_config(self):
+        return self.model.integrity_config
+
+    @property
+    def integrity_armed(self) -> bool:
+        return self.model.integrity_armed
+
+    def _digest_fields(self, state):
+        """Each field, one digest per member: on a mesh every member's
+        pencil is gathered to its global array, so member i digests as a
+        solo model holding its state does."""
+        model = self.model
+        if model.mesh is None:
+            return tuple(state), 1
+        out = []
+        for name, field in zip(state._fields, state):
+            space = getattr(model, f"{name}_space", None)
+            out.append(field if space is None else
+                       torch.stack([space.gather_spectral(f) for f in field]))
+        return tuple(out), 1
+
+    def _shadow_state(self, snap: dict, n: int):
+        """The members ``n`` plain steps after ``snap``, its alive mask and
+        step counts threaded through, as the live chunk would."""
+        runner = self.chunk_runner(armed=False, stats=False)
+        self._load(runner, snap["mask"], snap["steps_done"], state=snap["state"])
+        ok = runner.carry[len(self.state)]
+        for bucket in scan_buckets(n):
+            if not bool(ok.any()):
+                break
+            runner.run(bucket)
+        return self._unload(runner)
+
+    def integrity_snapshot(self) -> dict:
+        """A device copy of what an in-memory rollback restores: the member
+        states, alive mask, step counts, time and armed statistics."""
+        snap = super().integrity_snapshot()
+        snap["mask"] = self.mask.clone()
+        snap["steps_done"] = self.steps_done.clone()
+        return snap
+
+    def integrity_restore(self, snap: dict) -> None:
+        super().integrity_restore(snap)
+        self.mask = snap["mask"].clone()
+        self.steps_done = snap["steps_done"].clone()
 
     def eval_nu(self) -> np.ndarray:
         return self.get_observables()[0]

@@ -539,19 +539,15 @@ class Navier2DLnse(CampaignModelBase):
         physical initial condition, by ``torch.autograd`` through the eager
         forward loop (each step checkpointed).  Starts from the current
         state and does not advance the model; the sign follows
-        ``grad_adjoint``'s (``MAXIMIZE``).  Raises on a mesh: the pencil
-        flips have no backward (ROADMAP Queue 1 item 16)."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "grad_autodiff on the meshed route needs a backward of the pencil flip "
-                "(ROADMAP Queue 1 item 16, autodiff on the meshed route)")
+        ``grad_adjoint``'s (``MAXIMIZE``)."""
         n = self._steps(max_time)
         init = [a.detach().clone().requires_grad_(True) for a in self._phys(self.state)]
         with torch.enable_grad():
             val = self._objective(n, beta1, beta2, target, checkpointed=True)(*init)
             grads = torch.autograd.grad(val, init)
         fac = 1.0 if MAXIMIZE else -1.0
-        return float(val.detach()), tuple(fac * g.detach().cpu().numpy() for g in grads)
+        gather = self.field_space.gather_physical
+        return float(val.detach()), tuple(fac * gather(g).detach().cpu().numpy() for g in grads)
 
     def grad_fd(self, max_time: float, beta1: float = 0.5, beta2: float = 0.5,
                 eps: float = 1e-5, batch: int = 64):

@@ -302,8 +302,8 @@ class Navier2D(CampaignModelBase):
         """A model from a :class:`..config.NavierConfig`, as the JAX
         package's ``from_config``: the random initial condition at
         ``init_random_amp`` (none when it is falsy), ``write_intervall`` and
-        the extra ``params``, then the sentinels (``stability``) and the
-        statistics (``stats``) armed; keyword arguments (``device``,
+        the extra ``params``, then the sentinels (``stability``), the
+        statistics (``stats``) and the integrity layer (``integrity``) armed; keyword arguments (``device``,
         ``dtype``, the routes) go to the constructor."""
         model = cls(*cfg.ctor_args(), periodic=cfg.periodic, mesh=mesh,
                     scenario=getattr(cfg, "scenario", None), **kwargs)
@@ -315,6 +315,8 @@ class Navier2D(CampaignModelBase):
             model.set_stability(cfg.stability)
         if cfg.stats is not None:
             model.set_stats(cfg.stats)
+        if cfg.integrity is not None:
+            model.set_integrity(cfg.integrity)
         return model
 
     @property

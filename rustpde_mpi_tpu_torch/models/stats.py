@@ -88,11 +88,24 @@ HEALTH_NAMES = (
 )
 
 
+#: the metrics counter of each statistics-flow failure (the JAX package's)
+_EVENT_COUNTERS = {
+    "stats_mismatch": ("stats_mismatch_total",
+                       "legacy statistics time-mismatch rejections (averages NOT updated)"),
+    "stats_write_failed": ("stats_write_failed_total",
+                           "statistics.h5 write failures (averages survive in memory only)"),
+}
+
+
 def report_stats_event(model, event: dict) -> None:
-    """Append a statistics-flow failure (``stats_mismatch``,
-    ``stats_write_failed``) to the model's attached ``journal_writer``,
-    when it has one.  The JAX package also counts it on a telemetry
-    counter, which the port does not have yet."""
+    """Count a statistics-flow failure (``stats_mismatch``,
+    ``stats_write_failed``) on its metrics counter and append it to the
+    model's attached ``journal_writer``, when it has one."""
+    from ..telemetry import metrics as _tm
+
+    counter = _EVENT_COUNTERS.get(event.get("event"))
+    if counter is not None:
+        _tm.counter(*counter).inc()
     writer = getattr(model, "journal_writer", None)
     if writer is not None:
         writer.append(dict(event))

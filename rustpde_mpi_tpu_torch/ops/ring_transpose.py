@@ -19,6 +19,10 @@ hand-written kernel of ``csrc/ring_transpose.cu`` once and adds one to
 :meth:`RingTranspose.plain`, the ring schedule of the JAX package in torch
 indexing: the diagonal copy, then P-1 shift steps in which every rank sends
 the chunk meant for the rank ``shift`` ahead.  Any other device raises.
+
+The flip is a permutation, so its adjoint is the inverse flip: autograd
+sees it as :class:`FlipFn`, whose backward is the same call with the
+direction reversed (one more launch on the card, ``backward_launches``).
 """
 
 from __future__ import annotations
@@ -49,8 +53,10 @@ class RingTranspose:
     def __init__(self, nranks: int, device):
         self.nranks = int(nranks)
         self.device = torch.device(device)
-        #: kernel launches on CUDA tensors
+        #: kernel launches on CUDA tensors, forward and backward flips alike
         self.launches = 0
+        #: of those, the launches of backward passes (:class:`FlipFn`)
+        self.backward_launches = 0
 
     def _check(self, block, x_to_y: bool) -> None:
         if block.device != self.device:
@@ -76,7 +82,12 @@ class RingTranspose:
 
     def apply(self, block, x_to_y: bool) -> torch.Tensor:
         """The flip of ``block``: the CUDA kernel on a CUDA device, the
-        plain ring on the CPU."""
+        plain ring on the CPU; differentiable through :class:`FlipFn` (an
+        input that needs no gradient records nothing)."""
+        return FlipFn.apply(block, self, bool(x_to_y))
+
+    def flip(self, block, x_to_y: bool) -> torch.Tensor:
+        """The flip of ``block`` outside autograd."""
         self._check(block, x_to_y)
         if self.device.type == "cpu":
             return self.plain(block, x_to_y)
@@ -133,3 +144,24 @@ class RingTranspose:
         _build.call(fn, self.device, p, c, w, xp.stride(-3), xp.stride(-2), yp.stride(-3),
                     yp.stride(-2), block.data_ptr(), out.data_ptr(), int(x_to_y), k, *ms)
         return out
+
+
+class FlipFn(torch.autograd.Function):
+    """The pencil flip as autograd sees it: the forward is
+    :meth:`RingTranspose.flip`, the backward the inverse flip of the
+    cotangent through the same call (the kernel on the card, the plain
+    ring on the CPU).  A permutation's adjoint is its inverse, for real
+    and complex pencils alike."""
+
+    @staticmethod
+    def forward(ctx, block, ring, x_to_y):
+        ctx.flip = (ring, x_to_y)
+        return ring.flip(block, x_to_y)
+
+    @staticmethod
+    def backward(ctx, g):
+        ring, x_to_y = ctx.flip
+        out = ring.flip(g.contiguous(), not x_to_y)
+        if g.device.type == "cuda":
+            ring.backward_launches += 1
+        return out, None, None

@@ -1333,3 +1333,115 @@ def test_finder_ensemble_freezes_under_the_captured_graph(device, route):
             want = getattr(cpu.state, name)[i]
             assert float(torch.max(torch.abs(got - want))) <= 1e-11 * max(
                 float(torch.max(torch.abs(want))), 1e-3), (name, i)
+
+
+# -- the flip's backward, Swift-Hohenberg, futures, digests ---------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.complex128,
+                                   torch.complex64])
+@pytest.mark.parametrize("members", [0, 3])
+def test_flip_backward_matches_plain(device, dtype, members):
+    """The flip's backward (``FlipFn``: the inverse flip, one launch) bit for
+    bit its plain ring, both directions, with and without a member dim."""
+    mesh = pt.make_mesh(4, device)
+    ring = mesh.ring
+    g = torch.Generator(device="cpu").manual_seed(5)
+    for shape, x_to_y in (((4, 12, 5), True), ((4, 3, 20), False)):
+        full = ((members,) if members else ()) + shape
+        x = torch.randn(full, generator=g, dtype=torch.float64).to(device, dtype)
+        x.requires_grad_(True)
+        y = ring.apply(x, x_to_y)
+        w = torch.randn(tuple(y.shape), generator=g, dtype=torch.float64).to(device, dtype)
+        before = (ring.launches, ring.backward_launches)
+        (grad,) = torch.autograd.grad(y, x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(grad, ring.plain(w, not x_to_y))
+        assert (ring.launches - before[0], ring.backward_launches - before[1]) == (1, 1)
+    plain = torch.zeros((4, 12, 5), dtype=torch.float64, device=device)
+    assert ring.apply(plain, True).grad_fn is None
+
+
+def test_meshed_gradient_matches_dense_on_card(device):
+    """``grad_autodiff`` on the meshed route (4 ranks on the card) against
+    the dense route's, 3 steps at 17^2: rel 1e-9 of each field's gradient."""
+    grads = {}
+    for route in ("dense", "mesh"):
+        where = {"mesh": pt.make_mesh(4, device)} if route == "mesh" else {"device": device}
+        model = pt.Navier2DLnse(17, 17, 3e3, 1.0, 1e-2, 1.0, "rbc",
+                                mean=pt.MeanFields.new_rbc(17, 17, device="cpu"), **where)
+        model.init_random(1e-3, seed=1)
+        grads[route] = model.grad_autodiff(0.03)
+    (vd, gd), (vm, gm) = grads["dense"], grads["mesh"]
+    assert abs(vm - vd) <= 1e-9 * abs(vd)
+    for a, b in zip(gm, gd):
+        assert float(np.max(np.abs(a - b))) <= 1e-9 * float(np.max(np.abs(b)))
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+def test_swift_hohenberg_card_matches_cpu(device, dim):
+    """SH1D (nx = 256) and SH2D (64^2): 40 steps (one captured graph a
+    bucket on the card) against the CPU, 1e-12 of the spectrum's scale."""
+    if dim == 1:
+        make = lambda dev: pt.SwiftHohenberg1D(256, 0.35, 0.02, 20.0, device=dev)  # noqa: E731
+    else:
+        make = lambda dev: pt.SwiftHohenberg2D(64, 64, 0.35, 0.02, 20.0, device=dev)  # noqa: E731
+    card, cpu = make(device), make("cpu")
+    card.update_n(40)
+    cpu.update_n(40)
+    assert card.chunk_runner(32).captured
+    assert _rel(card.theta.cpu(), cpu.theta) <= 1e-12
+    assert not card.exit()
+
+
+def test_futures_do_not_read_a_later_chunk(device):
+    """A pending chunk's sentinel scalars and an observables future are
+    copied out when made: a later chunk replaying the same graph does not
+    reach them."""
+    a = pt.Navier2D(33, 33, 1e5, 1.0, 1e-3, 1.0, "rbc", device=device)
+    b = pt.Navier2D(33, 33, 1e5, 1.0, 1e-3, 1.0, "rbc", device=device)
+    for m in (a, b):
+        m.init_random(0.1, seed=0)
+        m.set_stability(pt.StabilityConfig())
+    want = a.update_n(5)
+    want_obs = a.get_observables()
+    first = b.update_n_pending(5)
+    obs = b.get_observables_async()
+    later = b.update_n_pending(7)  # the same graph, the same carry buffers
+    assert first.resolve() == want
+    assert obs.result() == want_obs
+    assert later.resolve().steps_done == 7
+
+
+def test_digest_card_matches_cpu(device):
+    """The digest of a state on the card equals the CPU digest of its copy,
+    bit for bit, and per member."""
+    model = pt.Navier2D(33, 33, 1e5, 1.0, 1e-3, 1.0, "rbc", device=device)
+    model.init_random(0.1, seed=0)
+    model.set_integrity(pt.IntegrityConfig())
+    model.update_n(3)
+    card = int(model.state_digest_async().result())
+    assert card == int(pt.digest_tree([t.cpu() for t in model.state]))
+    ens = pt.NavierEnsemble.from_seeds(model, range(3))
+    np.testing.assert_array_equal(ens.state_digest_async().result(),
+                                  pt.digest_tree([t.cpu() for t in ens.state], lead=1))
+
+
+def test_digest_graph_outlives_other_shapes(device):
+    """A captured digest keeps what its graph reads: after digests of 40
+    other shapes and device memory reused by other tensors, a replay of the
+    first state's digest graph still equals the CPU digest."""
+    model = pt.Navier2D(33, 33, 1e5, 1.0, 1e-3, 1.0, "rbc", device=device)
+    model.init_random(0.1, seed=0)
+    model.set_integrity(pt.IntegrityConfig())
+    first = int(model.state_digest_async().result())
+    g = torch.Generator(device="cpu").manual_seed(7)
+    for n in range(40):
+        leaf = torch.randn((3 + n, 5), generator=g, dtype=torch.float64).to(device)
+        assert int(pt.digest_tree([leaf])) == int(pt.digest_tree([leaf.cpu()]))
+    filler = [torch.full((1 << 16,), -1, dtype=torch.int64, device=device) for _ in range(64)]
+    model.update_n(2)
+    again = int(model.state_digest_async().result())
+    assert again == int(pt.digest_tree([t.cpu() for t in model.state]))
+    assert first != again
+    del filler

@@ -324,7 +324,7 @@ def test_from_config_matches_jax(ensemble):
     model.state = keep
     with pytest.raises(NotImplementedError, match="item 15"):
         NavierConfig(resilience=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="IntegrityConfig"):
         NavierConfig(integrity=object())
 
 

@@ -10,7 +10,10 @@ package on the CPU.
 * ``Navier2DNonLin`` on the conduction mean equal to ``Navier2D`` (the JAX
   package's own test, ``atol=1e-13``);
 * ``grad_autodiff`` and ``grad_adjoint`` against the JAX ones at 10x9, n =
-  3 (values and gradients within rel 1e-9), ``grad_fd`` against the
+  3 (values and gradients within rel 1e-9), and the meshed route's
+  ``grad_autodiff`` (4 ranks, both cells) against the JAX gradient,
+  with the pencil flip's backward (the inverse flip) against its plain
+  form, ``grad_fd`` against the
   port's own ``grad_autodiff`` (the JAX package's bound, 1e-2, for forward
   differences at eps = 1e-5), and ``grad_autodiff`` held to a central
   directional difference of the port's objective (rel 1e-6);
@@ -27,6 +30,7 @@ package on the CPU.
 """
 
 import gc
+import importlib.util
 import os
 
 import numpy as np
@@ -244,10 +248,95 @@ def test_grad_autodiff_matches_directional_difference(kind):
     assert ad == pytest.approx(fd, rel=1e-6)
 
 
-def test_grad_autodiff_on_a_mesh_raises():
+_JAX_GRADS = {}
+
+
+def _jax_dense_grads(kind, cell):
+    """The JAX package's ``grad_autodiff`` and ``grad_adjoint`` at n = 3 on
+    its dense route (cached across the tests of this module)."""
+    if (kind, cell) not in _JAX_GRADS:
+        jm = _model("jax", kind, cell=cell)
+        ic = jm.state
+        auto = jm.grad_autodiff(0.03)
+        jm.state = ic
+        jm.reset_time()
+        _JAX_GRADS[kind, cell] = (auto, jm.grad_adjoint(0.03))
+    return _JAX_GRADS[kind, cell]
+
+
+@pytest.mark.parametrize("kind,cell", [("lnse", "confined"), ("lnse", "periodic"),
+                                       ("nonlin", "confined")])
+def test_meshed_grad_autodiff_matches_jax(kind, cell):
+    """The meshed route (4 ranks) against the JAX package's gradient in
+    both cells: every flip of the forward loop is differentiated by the
+    inverse flip, and the returned gradients are the global arrays."""
+    auto, _ = _jax_dense_grads(kind, cell)
+    pm = _model("port", kind, cell=cell, mesh=True)
+    val, grads = pm.grad_autodiff(0.03)
+    assert all(g.shape == SHAPES[cell] for g in grads)
+    _assert_grads_close((val, grads), auto, GRAD_TOL)
+    assert pm.mesh.ring.launches == pm.mesh.ring.backward_launches == 0  # the plain ring
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root, whose phase 30b holds a meshed
+    gradient's flip counts on the card."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_meshed_gradient_flip_counts(monkeypatch, steps):
+    """The flips of a meshed ``grad_autodiff`` (confined cell), forward and
+    backward, are ``chip_smoke.GRAD_FLIPS_FWD``/``GRAD_FLIPS_BWD``'s
+    ``a + b * steps``, counted here on the plain ring (the card's counters
+    count launches only)."""
+    from rustpde_mpi_tpu_torch.ops import ring_transpose
+
+    cs = _chip_smoke()
+    counts = {"all": 0, "backward": 0}
+    backward = ring_transpose.FlipFn.backward
+
+    def counted_backward(ctx, g):
+        counts["backward"] += 1
+        return backward(ctx, g)
+
+    monkeypatch.setattr(ring_transpose.FlipFn, "backward", staticmethod(counted_backward))
     pm = _model("port", "lnse", mesh=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pm.grad_autodiff(0.03)
+    ring = pm.mesh.ring
+    flip = ring.flip
+
+    def counted(block, x_to_y):
+        counts["all"] += 1
+        return flip(block, x_to_y)
+
+    ring.flip = counted
+    pm.grad_autodiff(steps * PARAMS[2])
+    assert counts["all"] - counts["backward"] == cs.GRAD_FLIPS_FWD[0] + cs.GRAD_FLIPS_FWD[1] * steps
+    assert counts["backward"] == cs.GRAD_FLIPS_BWD[0] + cs.GRAD_FLIPS_BWD[1] * steps
+
+
+def test_flip_backward_is_the_inverse_flip():
+    """``FlipFn``: the gradient of ``<w, flip(x)>`` is ``flip^-1(w)``, on
+    real and complex pencils with and without a member dim; an input that
+    needs no gradient records nothing."""
+    mesh = pt.make_mesh(4, "cpu")
+    ring = mesh.ring
+    rng = np.random.default_rng(3)
+    for shape, x_to_y in [((4, 8, 3), True), ((4, 2, 12), False), ((2, 4, 8, 3), True)]:
+        for dtype in (torch.float64, torch.complex128):
+            x = torch.tensor(rng.standard_normal(shape), dtype=torch.float64).to(dtype)
+            x.requires_grad_(True)
+            y = ring.apply(x, x_to_y)
+            w = torch.tensor(rng.standard_normal(tuple(y.shape)), dtype=torch.float64).to(dtype)
+            (g,) = torch.autograd.grad(torch.sum((y * w.conj()).real), x)
+            assert torch.equal(g, ring.plain(w, not x_to_y))
+    plain = torch.zeros((4, 8, 3), dtype=torch.float64)
+    assert ring.apply(plain, True).grad_fn is None
 
 
 # -- the banded solve's backward ----------------------------------------------------
