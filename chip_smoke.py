@@ -287,6 +287,31 @@ launch of a step serving all K members:
     a flipped bit seen; shadow audits on the dense and meshed routes at
     129^2 and a meshed ensemble (K = 4).
 
+31. (after 30) the resilient runner (``ResilientRunner``) on the card,
+    with its checkpoints in HDF5 files where ``h5py`` imports and else in
+    the runner's private in-memory store (``checkpoint_store=`` says
+    which): 31a NaN recovery on fused ``rbc1025`` (200 steps, ``nan@100``,
+    one retry at dt/2; the journal's events in order, final dt 5e-5, Nu
+    and fields against a clean run at 5e-5, exact launches; the faulted,
+    clean and recovery-overhead walls), and the same on the meshed route
+    at 129^2 (banded launches exact, flips counted); 31b a governed CFL
+    spike (``governor129``'s sizing) against the ungoverned run; 31c a
+    ``bitflip`` under the integrity audits (mismatch, in-memory rollback,
+    the final state bit for bit a clean run's, the ledger's strike); 31d
+    the ``slow`` fault against a 5 s dispatch deadline (``DispatchHang``
+    within the deadline + 2 s, the flight record's ``dispatch`` spans);
+    31e ``kill@k`` then resume in a child process at 129^2 (bit for bit an
+    uninterrupted run, the checkpoint's dt restored); 31f the harness's
+    price: 200 steps in chunks of 25 under the runner with telemetry on
+    and off against bare ``update_n``, ten back-to-back triples (the
+    states on and off bit for bit, the median telemetry overhead at most
+    2%, the runner's overhead, host-idle shares); 31g ``eigenmode_sweep``
+    at the example's full settings (Ra_c within 5% of 1707.76) and
+    ``steady_state_find`` at its defaults (converged), with their walls
+    and banded launches; 31h ``step_flops`` of fused ``rbc1025`` against
+    its wrappers' sum, ``mfu_estimate`` from 31f's bare rate, the device
+    memory gauges.
+
 Every phase that reaches a save-window callback sets ``write_intervall``
 past its run's end (no flow snapshot; ``h5py`` need not import), and the
 script runs in a temporary working directory, where the callbacks append
@@ -4413,6 +4438,643 @@ def phase30(torch, pt, flips, card):
     return sums
 
 
+# -- phase 31: the resilient runner -------------------------------------------------------
+
+#: 31a/31c/31d/31f: steps of a run, the NaN fault's step, the chunk
+RES_STEPS = 200
+RES_FAULT_AT = 100
+RES_CHUNK = 25
+#: 31a: the recovered run against a clean run at the backed-off dt (the
+#: JAX benchmark's gates: fields 1e-11 of their scale, Nu rel 1e-10)
+RES_FIELD_LIMIT = 1e-11
+RES_NU_REL = 1e-10
+#: events whose presence depends on the wall clock (the throughput monitor)
+CLOCKED_EVENTS = ("perf_degraded", "profile_capture")
+#: 31a's journal, as the JAX package's test of the same run has it
+NAN_EVENTS = ["start", "checkpoint", "fault_injected", "divergence", "retry", "checkpoint",
+              "io_overlap", "done"]
+#: 31d: the dispatch deadline and the slack its raise may take
+WATCHDOG_S = 5.0
+WATCHDOG_SLACK_S = 2.0
+#: 31f: back-to-back triples (bare, telemetry on, off) and the telemetry gate
+PRICE_TRIPLES = 10
+TELEMETRY_GATE = 0.02
+#: 31g: examples/navier_lnse_eigenmodes.py at its full settings, its gate
+EIG_SWEEP = dict(ras=(1500.0, 1600.0, 1700.0, 1800.0, 1900.0), nx=8, ny=33, dt=0.05,
+                 horizon=60.0, samples=24)
+RAC_REL = 0.05
+#: 31e: the child process's own time limit
+CHILD_TIMEOUT_S = 600
+
+
+def checkpoint_store_kind() -> str:
+    """Where phase 31's runners keep checkpoints: ``"hdf5"`` files when
+    ``h5py`` imports, else ``"memory"`` (the runner's private in-memory
+    store; the card's machine has no ``h5py``)."""
+    try:
+        import h5py  # noqa: F401
+
+        return "hdf5"
+    except ImportError:
+        return "memory"
+
+
+def res_runner(pt, pde, run_dir, store, **kw):
+    """A ``ResilientRunner`` on ``run_dir`` with the store ``store``
+    (:func:`checkpoint_store_kind`)."""
+    from rustpde_mpi_tpu_torch.utils import resilience
+
+    mem = resilience._MemoryStore(run_dir) if store == "memory" else None
+    return pt.ResilientRunner(pde, run_dir=run_dir, _store=mem, **kw)
+
+
+def journal_of(runner) -> list:
+    """The runner's journal rows, the wall-clock ones left out."""
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    return [e for e in read_journal(runner.journal_path) if e["event"] not in CLOCKED_EVENTS]
+
+
+def fresh_fused(model, dt=None):
+    """``model`` (fused ``rbc1025``) back at a new model's state after
+    ``init_random(0.1, 0)`` (every field zeroed first: ``init_random`` sets
+    the velocities and the temperature only), time 0, its stability
+    sentinels and integrity off, at ``dt`` (default the cell's); the
+    captured graphs of every visited rung stay cached."""
+    model.set_stability(None)
+    model.set_integrity(None)
+    model.set_dt(RBC1025["dt"] if dt is None else dt)
+    model.state = type(model.state)(*(t.new_zeros(t.shape) for t in model.state))
+    model.init_random(0.1, seed=0)
+    model.reset_time()
+    return model
+
+
+def kernel_set(*models) -> dict:
+    """``{name: [wrappers]}`` over ``models``' ``kernels()`` taken at
+    different times, each wrapper once: a dt rung's stages and solvers are
+    other objects than another rung's."""
+    out, seen = {}, set()
+    for kernels in models:
+        for name, ks in kernels.items():
+            for k in ks:
+                if id(k) not in seen:
+                    seen.add(id(k))
+                    out.setdefault(name, []).append(k)
+    return out
+
+
+def launches_of(kernels) -> dict:
+    return {name: sum(k.launches for k in ks) for name, ks in kernels.items()}
+
+
+def dispatched_steps() -> int:
+    """Steps the runner dispatched since the flight recorder was cleared
+    (its ``dispatch`` spans' ``steps``): with the break check one chunk
+    late (the default ``IOConfig``), a poisoned state is stepped for one
+    more chunk before the divergence is seen."""
+    from rustpde_mpi_tpu_torch.telemetry import RECORDER
+
+    events = RECORDER.events()
+    if len(events) >= RECORDER.capacity:
+        raise AssertionError("the flight recorder's ring overflowed: enlarge it")
+    return sum(e["args"]["steps"] for e in events if e["name"] == "dispatch")
+
+
+def entry_captures(kind) -> int:
+    from rustpde_mpi_tpu_torch.telemetry import compile_log
+
+    return compile_log.entry_compile_counts().get(kind, 0)
+
+
+def phase31_nan(torch, pt, model, work, store, card):
+    """31a on fused ``rbc1025``: ``bench_resilience``'s run at the primary
+    cell (200 steps, ``nan@100``, one retry, backoff 0.5, no wall-clock
+    cadence), launches counted from 0 just before; the recovered state
+    against a clean run at dt/2; walls.  Returns the run's launches."""
+    from rustpde_mpi_tpu_torch.telemetry import RECORDER
+
+    fresh_fused(model)
+    dt = RBC1025["dt"]
+    max_time = RES_STEPS * dt
+    # the clean wall: plain integrate of the same horizon (graph captured)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.integrate(model, max_time, None)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    fresh_fused(model)
+    runner = res_runner(pt, model, os.path.join(work, "31a"), store, max_time=max_time,
+                        checkpoint_every_s=None, max_retries=1, dt_backoff=0.5,
+                        fault=f"nan@{RES_FAULT_AT}")
+    captures0 = entry_captures("dns")
+    before = model.kernels()
+    RECORDER.clear()
+    reset_counts(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = runner.run()
+    torch.cuda.synchronize()
+    faulted_s = time.perf_counter() - t0
+    kernels = kernel_set(before, model.kernels())
+    launches = launches_of(kernels)
+    captures = entry_captures("dns") - captures0
+    events = [e["event"] for e in journal_of(runner)]
+    stepped = dispatched_steps()
+    want = {k: v * (stepped + captures) for k, v in PER_STEP["fused"].items()}
+    ref = pt.Navier2D(**dict(RBC1025, dt=dt * 0.5), device=CARD)
+    ref.init_random(0.1, seed=0)
+    ref.update_n(summary["step"])
+    diffs = state_diffs(torch, model.state, ref.state)
+    worst = {k: d / s if s else d for k, (d, s) in diffs.items()}
+    nu_ref = ref.eval_nu()
+    out = {"cell": "rbc1025", "route": "fused", "checkpoint_store": store,
+           "outcome": summary["outcome"], "retries": summary["retries"], "dt": summary["dt"],
+           "time": summary["time"], "steps_after_rollback": summary["step"],
+           "stepped": stepped, "captures": captures, "launches": launches, "want": want,
+           "events": events, "nu": summary["nu"], "clean_nu": nu_ref,
+           "field_rel_diffs": worst, "bit_for_bit": same_state(torch, model.state, ref.state),
+           "faulted_s": faulted_s, "clean_s": clean_s,
+           "recovery_overhead_x": faulted_s / clean_s}
+    print(f"phase31a nan recovery ({card}) " + json.dumps(out))
+    if events != NAN_EVENTS:
+        raise AssertionError(f"31a journal {events}, expected {NAN_EVENTS}")
+    if summary["retries"] != 1 or summary["dt"] != dt * 0.5 or summary["outcome"] != "done":
+        raise AssertionError(f"31a summary {summary}")
+    if launches != want or captures != 1:
+        raise AssertionError(f"31a launches {launches} ({captures} captures), expected {want}")
+    if abs(summary["nu"] - nu_ref) > RES_NU_REL * abs(nu_ref):
+        raise AssertionError(f"31a Nu {summary['nu']} against the clean run's {nu_ref}")
+    if max(worst.values()) > RES_FIELD_LIMIT:
+        raise AssertionError(f"31a fields against the clean run: {worst}")
+    del ref
+    return launches
+
+
+def phase31_nan_mesh(torch, pt, work, store, card):
+    """31a on the meshed route at 129^2 (``ENSEMBLE129``'s cell, 4 ranks):
+    the same run; banded launches exact, flips at least a step's 37 per
+    stepped step (the observables reads and the checkpoint staging flip
+    too).  Returns the run's launches."""
+    from rustpde_mpi_tpu_torch.telemetry import RECORDER
+
+    cfg = ENSEMBLE129
+    model = route_model(pt, cfg, "mesh")
+    model.init_random(0.1, seed=0)
+    model.write_intervall = 1e9
+    prepare_chunks(torch, model, "phase31a")
+    runner = res_runner(pt, model, os.path.join(work, "31a_mesh"), store,
+                        max_time=RES_STEPS * cfg["dt"], checkpoint_every_s=None, max_retries=1,
+                        dt_backoff=0.5, fault=f"nan@{RES_FAULT_AT}")
+    captures0 = entry_captures("dns")
+    before = model.kernels()
+    RECORDER.clear()
+    reset_counts(model)
+    summary = runner.run()
+    torch.cuda.synchronize()
+    launches = launches_of(kernel_set(before, model.kernels()))
+    captures = entry_captures("dns") - captures0
+    stepped = dispatched_steps()
+    ref = route_model(pt, dict(cfg, dt=cfg["dt"] * 0.5), "mesh")
+    ref.init_random(0.1, seed=0)
+    ref.update_n(summary["step"])
+    bits = same_state(torch, model.state, ref.state)
+    out = {"cell": "mesh129", "outcome": summary["outcome"], "retries": summary["retries"],
+           "dt": summary["dt"], "stepped": stepped, "captures": captures,
+           "launches": launches, "banded_want": 7 * (stepped + captures),
+           "flips_outside_steps": launches["ring_transpose"] - 37 * (stepped + captures),
+           "bit_for_bit_clean": bits, "events": [e["event"] for e in journal_of(runner)]}
+    print(f"phase31a meshed nan recovery ({card}) " + json.dumps(out))
+    if out["events"] != NAN_EVENTS or summary["retries"] != 1 or not bits:
+        raise AssertionError(f"31a meshed: {out}")
+    if launches["banded_solve"] != out["banded_want"] or out["flips_outside_steps"] < 0:
+        raise AssertionError(f"31a meshed launches {launches}")
+    del model, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: 31b: multiples of ``governor129``'s spike (8 / the probe's CFL) tried in
+#: turn until the ungoverned run diverges
+SPIKE_MULTIPLES = (1, 8, 64, 512)
+
+
+def phase31_governed(torch, pt, model, work, store, card):
+    """31b: ``governor129``'s run at ``rbc1025``: a spike at step 16, sized
+    from the CFL a probe has there (``governor129``'s 8 / that CFL) and
+    caught within ``max_chunk_steps`` (half the spike step, 2..8) by the
+    governed run.  The sentinels' CFL of this cell is set by the clustered
+    wall points, where the implicit diffusion damps an explicit overshoot,
+    so 8 / CFL may leave the ungoverned run stable: the spike grows by
+    ``SPIKE_MULTIPLES`` until the ungoverned run diverges (a retry or
+    ``DivergenceError``), as ``governor129`` sizes it to; the governed
+    run then takes that spike."""
+    from rustpde_mpi_tpu_torch.config import StabilityConfig
+
+    dt = RBC1025["dt"]
+    spike_steps = max(32, min(RES_STEPS, 64))
+    spike_at = max(4, spike_steps // 4)
+    catch = max(2, min(8, spike_at // 2))
+    fresh_fused(model)
+    model.set_stability(StabilityConfig())
+    cfl_base = model.update_n(spike_at).cfl_max
+    tries = []
+    for mult in SPIKE_MULTIPLES:
+        factor = mult * 8.0 / max(cfl_base, 1e-9)
+        fresh_fused(model)
+        ungov = res_runner(pt, model, os.path.join(work, f"31b_ungov{mult}"), store,
+                           max_time=spike_steps * dt, checkpoint_every_s=None, max_retries=3,
+                           fault=f"spike@{spike_at}", spike_factor=factor)
+        t0 = time.perf_counter()
+        try:
+            u = ungov.run()
+            u_retries, u_outcome = u["retries"], u["outcome"]
+        except pt.DivergenceError:
+            u_retries, u_outcome = ungov.attempt, "diverged"
+        torch.cuda.synchronize()
+        tries.append({"multiple": mult, "spike_factor": factor, "retries": u_retries,
+                      "outcome": u_outcome, "wall_s": time.perf_counter() - t0})
+        if u_retries >= 1 or u_outcome == "diverged":
+            break
+    fresh_fused(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gov = res_runner(pt, model, os.path.join(work, "31b_gov"), store,
+                     max_time=spike_steps * dt, checkpoint_every_s=None, max_retries=2,
+                     fault=f"spike@{spike_at}", spike_factor=factor,
+                     stability=StabilityConfig(), max_chunk_steps=catch)
+    g = gov.run()
+    torch.cuda.synchronize()
+    gov_s = time.perf_counter() - t0
+    health = g["health"]
+    dts = [e["dt"] for e in journal_of(gov) if e["event"] == "dt_adjust"]
+    out = {"cell": "rbc1025", "spike_at": spike_at, "probe_cfl": cfl_base,
+           "spike_factor": factor, "catch_window": catch,
+           "governed": {"outcome": g["outcome"], "nu": g["nu"], "retries": g["retries"],
+                        "dt": g["dt"], "health": health, "dt_trajectory": dts,
+                        "events": sorted({e["event"] for e in journal_of(gov)}),
+                        "wall_s": gov_s},
+           "ungoverned": tries}
+    print(f"phase31b governed spike ({card}) " + json.dumps(out))
+    if g["outcome"] != "done" or g["nu"] is None or not math.isfinite(g["nu"]):
+        raise AssertionError(f"31b governed run: {g}")
+    if health["pre_divergence_catches"] < 1:
+        raise AssertionError(f"31b: no pre-divergence catch: {health}")
+    if g["retries"] > u_retries or (u_retries < 1 and u_outcome != "diverged"):
+        raise AssertionError(f"31b retries governed {g['retries']}, ungoverned {u_retries} "
+                             f"({u_outcome})")
+
+
+def phase31_integrity(torch, pt, model, work, store, card):
+    """31c: ``bitflip@100`` under the integrity audits (cadence 2) on fused
+    ``rbc1025`` in chunks of 25: the mismatch journaled, the in-memory
+    rollback to the verified snapshot, the final state bit for bit a clean
+    run's, the device's strike in the quarantine ledger."""
+    from rustpde_mpi_tpu_torch.config import IntegrityConfig
+    from rustpde_mpi_tpu_torch.integrity import QuarantineLedger
+
+    dt = RBC1025["dt"]
+    fresh_fused(model)
+    model.update_n(RES_STEPS)
+    clean = [t.clone() for t in model.state]
+    fresh_fused(model)
+    model.set_integrity(IntegrityConfig(cadence=2))
+    run_dir = os.path.join(work, "31c")
+    runner = res_runner(pt, model, run_dir, store, max_time=RES_STEPS * dt,
+                        save_intervall=RES_CHUNK * dt, checkpoint_every_s=None,
+                        fault=f"bitflip@{RES_FAULT_AT}")
+    t0 = time.perf_counter()
+    summary = runner.run()
+    wall = time.perf_counter() - t0
+    rows = journal_of(runner)
+    mismatch = [e for e in rows if e["event"] == "integrity_mismatch"]
+    rollback = [e for e in rows if e["event"] == "integrity_rollback"]
+    dev = model.state[0].device
+    device = f"{dev.type}:{dev.index or 0}@proc0"  # the ledger's key of the model's card
+    strikes = QuarantineLedger(run_dir).strikes_for(device)
+    bits = all(torch.equal(a, b) for a, b in zip(model.state, clean))
+    out = {"cell": "rbc1025", "outcome": summary["outcome"], "mismatch": mismatch,
+           "rollback": rollback, "ledger_strikes": strikes, "bit_for_bit_clean": bits,
+           "audits": sum(1 for e in rows if e["event"] == "integrity_audit"), "wall_s": wall}
+    print(f"phase31c integrity bitflip ({card}) " + json.dumps(out))
+    model.set_integrity(None)
+    if not mismatch or not rollback or not bits or strikes != 1:
+        raise AssertionError(f"31c: {out}")
+    if rollback[0]["to_step"] != RES_FAULT_AT or mismatch[0]["device"] != device:
+        raise AssertionError(f"31c rollback {rollback}, mismatch {mismatch}")
+
+
+def phase31_watchdog(torch, pt, model, work, store, card):
+    """31d: the ``slow`` fault against a ``WATCHDOG_S`` dispatch deadline:
+    ``DispatchHang`` raised within the deadline + ``WATCHDOG_SLACK_S`` of
+    the stalled dispatch's start, a flight record with the ``dispatch``
+    spans, the journal's ``dispatch_hang``."""
+    dt = RBC1025["dt"]
+    fresh_fused(model)
+    run_dir = os.path.join(work, "31d")
+    runner = res_runner(pt, model, run_dir, store, max_time=RES_STEPS * dt,
+                        save_intervall=RES_CHUNK * dt, checkpoint_every_s=None,
+                        fault=f"slow@{RES_FAULT_AT}", dispatch_timeout_s=WATCHDOG_S)
+    t0 = time.perf_counter()
+    try:
+        runner.run()
+        raise AssertionError("31d: the slow fault raised no DispatchHang")
+    except pt.DispatchHang as exc:
+        hang = str(exc)
+    wall = time.perf_counter() - t0
+    dumps = sorted(f for f in os.listdir(run_dir) if f.startswith("flight_dispatch_hang"))
+    spans = []
+    if dumps:
+        with open(os.path.join(run_dir, dumps[0])) as fh:
+            spans = [e for e in json.load(fh)["traceEvents"] if e["name"] == "dispatch"]
+    hung = [e for e in spans if e.get("args", {}).get("error") == "DispatchHang"]
+    events = [e["event"] for e in journal_of(runner)]
+    out = {"hang": hang, "wall_s": wall, "flight_records": dumps, "dispatch_spans": len(spans),
+           "hung_span_s": hung[0]["dur"] / 1e6 if hung else None,
+           "last_events": events[-3:]}
+    print(f"phase31d watchdog ({card}) " + json.dumps(out))
+    torch.cuda.synchronize()
+    if not hung or hung[0]["dur"] / 1e6 > WATCHDOG_S + WATCHDOG_SLACK_S:
+        raise AssertionError(f"31d: the hung dispatch's span {hung}")
+    if "dispatch_hang" not in events or len(spans) < 2:
+        raise AssertionError(f"31d: journal {events}, {len(spans)} dispatch spans")
+
+
+CHILD_31E = r"""
+import json, os, sys
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["root"])
+import torch
+import rustpde_mpi_tpu_torch as pt
+from rustpde_mpi_tpu_torch.ops import _build
+from rustpde_mpi_tpu_torch.utils import checkpoint, resilience
+from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+_build.build()
+cfg, run_dir = args["cfg"], args["run_dir"]
+dt = cfg["dt"]
+store = resilience._MemoryStore(run_dir) if args["store"] == "memory" else None
+
+def make():
+    m = pt.Navier2D(**cfg, device="cuda")
+    m.init_random(0.1, seed=0)
+    m.write_intervall = 1e9
+    return m
+
+run = dict(max_time=args["steps"] * dt / 2, save_intervall=args["chunk"] * dt / 2,
+           checkpoint_every_s=None)
+first = make()
+first.set_dt(dt / 2)  # a backed-off run: its checkpoints carry dt / 2
+s1 = pt.ResilientRunner(first, run_dir=run_dir, fault=f"kill@{args['kill']}", _store=store,
+                        **run).run()
+attrs = (store.attrs(s1["checkpoint"]) if store is not None
+         else checkpoint.read_attrs(s1["checkpoint"]))
+model = make()  # a new run at the cell's dt, on the same store
+s2 = pt.ResilientRunner(model, run_dir=run_dir, _store=store, **run).run()
+ref = make()
+ref.set_dt(dt / 2)
+ref.update_n(s2["step"])
+torch.cuda.synchronize()
+rows = read_journal(os.path.join(run_dir, "journal.jsonl"))
+print(json.dumps({"first": s1["outcome"], "first_step": s1["step"],
+                  "checkpoint_dt": attrs["dt"], "second": s2["outcome"],
+                  "second_step": s2["step"], "second_dt": s2["dt"],
+                  "dt_restored": [e["dt"] for e in rows if e["event"] == "dt_restored"],
+                  "resumed": any(e["event"] == "resumed" for e in rows),
+                  "bit_for_bit": all(torch.equal(a, b) for a, b in zip(model.state, ref.state))}))
+"""
+
+
+def phase31_resume(torch, pt, work, store, card):
+    """31e: ``kill@100`` (SIGTERM to itself) then resume, in a child process
+    (a mishandled signal cannot end this script) at 129^2 fused: a run at
+    dt/2 preempted at step 100 checkpoints; a new runner on the same store,
+    its model built at dt, resumes with the checkpoint's dt and ends bit
+    for bit an uninterrupted run at dt/2."""
+    args = {"root": ROOT, "cfg": ENSEMBLE129, "run_dir": os.path.join(work, "31e"),
+            "store": store, "steps": RES_STEPS, "chunk": RES_CHUNK, "kill": RES_FAULT_AT}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CHILD_31E, json.dumps(args)],
+                          capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"31e child failed (rc={proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    res["wall_s"] = wall
+    print(f"phase31e preempt and resume ({card}) " + json.dumps(res))
+    half = ENSEMBLE129["dt"] / 2
+    if (res["first"], res["second"]) != ("preempted", "done") or not res["resumed"] \
+            or res["first_step"] != RES_FAULT_AT or res["second_step"] != RES_STEPS:
+        raise AssertionError(f"31e: {res}")
+    if res["checkpoint_dt"] != half or res["dt_restored"] != [half] \
+            or res["second_dt"] != half or not res["bit_for_bit"]:
+        raise AssertionError(f"31e: {res}")
+
+
+def phase31_price(torch, pt, model, work, store, card):
+    """31f: 200 steps of fused ``rbc1025`` in chunks of 25 under the runner
+    (default ``IOConfig``: the anchor and final checkpoints staged and
+    written on the worker) with telemetry on and off, and bare
+    ``update_n`` of the same chunks, in ``PRICE_TRIPLES`` back-to-back
+    triples (order rotating).  The states on and off bit for bit; the
+    median of the triples' telemetry overheads at most ``TELEMETRY_GATE``;
+    the runner's median overhead over bare stepping; each mode's host-idle
+    share (profiler).  Returns the bare ms/step."""
+    from rustpde_mpi_tpu_torch import telemetry
+
+    dt = RBC1025["dt"]
+    n = [0]
+
+    def runner_run(on):
+        fresh_fused(model)
+        telemetry.set_enabled(on)
+        try:
+            n[0] += 1
+            r = res_runner(pt, model, os.path.join(work, f"31f_{n[0]}"), store,
+                           max_time=RES_STEPS * dt, checkpoint_every_s=None,
+                           max_chunk_steps=RES_CHUNK)
+            if r.run()["outcome"] != "done":
+                raise AssertionError("31f: the runner did not finish")
+        finally:
+            telemetry.set_enabled(True)
+
+    def bare():
+        fresh_fused(model)
+        for _ in range(RES_STEPS // RES_CHUNK):
+            model.update_n(RES_CHUNK)
+
+    modes = {"bare": bare, "on": lambda: runner_run(True), "off": lambda: runner_run(False)}
+    walls = {k: [] for k in modes}
+    states = {}
+    order = ("bare", "on", "off")
+    for i in range(PRICE_TRIPLES + 1):
+        for mode in order[i % 3:] + order[:i % 3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            modes[mode]()
+            torch.cuda.synchronize()
+            if i:  # the first triple warms every path up
+                walls[mode].append((time.perf_counter() - t0) / RES_STEPS * 1e3)
+            states[mode] = [t.clone() for t in model.state]
+    same = all(torch.equal(a, b) for a, b in zip(states["on"], states["off"]))
+    same_bare = all(torch.equal(a, b) for a, b in zip(states["on"], states["bare"]))
+    tele = [on / off - 1.0 for on, off in zip(walls["on"], walls["off"])]
+    harness = [off / b - 1.0 for off, b in zip(walls["off"], walls["bare"])]
+    out = {"cell": "rbc1025", "route": "fused", "steps": RES_STEPS, "chunk": RES_CHUNK,
+           "triples": PRICE_TRIPLES, "checkpoint_store": store, "ms_per_step": walls,
+           "median_ms_per_step": {k: statistics.median(v) for k, v in walls.items()},
+           "telemetry_overheads": tele, "telemetry_overhead_median": statistics.median(tele),
+           "runner_overheads": harness, "runner_overhead_median": statistics.median(harness),
+           "on_equals_off": same, "on_equals_bare": same_bare}
+    for mode, run in modes.items():
+        got = device_busy(torch, run, RES_STEPS, PROFILE_LAUNCHES["fused"])
+        busy = None if got is None else got[0] / 1e3 / RES_STEPS
+        out[f"{mode}_busy_ms_per_step"] = busy
+        out[f"{mode}_host_idle_share"] = (None if busy is None else
+                                          1.0 - busy / statistics.median(walls[mode]))
+    print(f"phase31f harness price ({card}) " + json.dumps(out))
+    if not same or not same_bare:
+        raise AssertionError(f"31f: telemetry on/off same state {same}, on/bare {same_bare}")
+    if out["telemetry_overhead_median"] > TELEMETRY_GATE:
+        raise AssertionError(f"31f: telemetry overhead {out['telemetry_overhead_median']:.4f} "
+                             f"above {TELEMETRY_GATE}")
+    return out["median_ms_per_step"]["bare"]
+
+
+def phase31_workloads(torch, pt, work, store, card):
+    """31g: ``eigenmode_sweep`` at ``examples/navier_lnse_eigenmodes.py``'s
+    full settings (its Ra_c within 5% of 1707.76, the example's gate) and
+    ``steady_state_find`` at its defaults (converged below ``res_tol``),
+    their walls, and the banded launches of the models they built.
+    Returns the launches by kernel."""
+    from rustpde_mpi_tpu_torch.utils import resilience
+    from rustpde_mpi_tpu_torch.workloads import eigenmodes, steady
+
+    built = []
+
+    def recording(orig):
+        def build(**kw):
+            ens = orig(**kw)
+            built.append(ens)
+            return ens
+        return build
+
+    def launches():
+        out = {}
+        for ens in built:
+            for name, ks in ens.model.kernels().items():
+                out[name] = out.get(name, 0) + sum(k.launches for k in ks)
+        return out
+
+    factory = (lambda d: resilience._MemoryStore(d)) if store == "memory" else None
+    sweep = dict(EIG_SWEEP)
+    ras = sweep.pop("ras")
+    eigenmodes.build_eigenmode_ensemble, orig_eig = \
+        recording(eigenmodes.build_eigenmode_ensemble), eigenmodes.build_eigenmode_ensemble
+    captures0 = entry_captures("lnse")
+    t0 = time.perf_counter()
+    try:
+        results = pt.eigenmode_sweep(ras, run_dir=os.path.join(work, "31g_eig"), _store=factory,
+                                     **sweep)
+    finally:
+        eigenmodes.build_eigenmode_ensemble = orig_eig
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = launches()
+    rac = pt.critical_rayleigh(results)
+    steps = sum(r["steps"] for r in results)
+    # the periodic linearised step solves 4 banded systems; each Ra's chunk
+    # runner makes one warm-up step when it captures
+    sweep_want = 4 * (steps + entry_captures("lnse") - captures0)
+    built.clear()
+    steady.build_steady_ensemble, orig_find = \
+        recording(steady.build_steady_ensemble), steady.build_steady_ensemble
+    t0 = time.perf_counter()
+    try:
+        find = pt.steady_state_find(run_dir=os.path.join(work, "31g_find"), install_signals=False,
+                                    _store=None if factory is None else factory(
+                                        os.path.join(work, "31g_find")))
+    finally:
+        steady.build_steady_ensemble = orig_find
+    find_s = time.perf_counter() - t0
+    find_launches = launches()
+    out = {"sweep": {"sigma_max": {r["ra"]: r["sigma_max"] for r in results}, "Ra_c": rac,
+                     "rel_err": abs(rac - eigenmodes.RAC_RIGID) / eigenmodes.RAC_RIGID,
+                     "steps": steps, "wall_s": sweep_s, "launches": sweep_launches,
+                     "banded_want": sweep_want},
+           "find": {**find, "wall_s": find_s, "launches": find_launches}}
+    print(f"phase31g workloads ({card}) " + json.dumps(out))
+    if out["sweep"]["rel_err"] > RAC_REL:
+        raise AssertionError(f"31g: Ra_c {rac} not within {RAC_REL} of {eigenmodes.RAC_RIGID}")
+    if sweep_launches.get("banded_solve", 0) != sweep_want:
+        raise AssertionError(f"31g: the sweep launched {sweep_launches} over {steps} steps")
+    if not all(find["converged"]) or not find_launches.get("banded_solve"):
+        raise AssertionError(f"31g: the find {find}, launches {find_launches}")
+    total = dict(sweep_launches)
+    for k, v in find_launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase31_profiling(torch, pt, model, bare_ms, card):
+    """31h: ``step_flops`` of fused ``rbc1025`` against the sum of its
+    wrappers' flops over a step's applications (the velocity instance on
+    velx and vely, the temperature's, the seven stages), ``mfu_estimate``
+    from 31f's bare rate, and the device memory gauges."""
+    from rustpde_mpi_tpu_torch.telemetry import compile_log, snapshot
+    from rustpde_mpi_tpu_torch.utils import profiling
+
+    fresh_fused(model)
+    kernels = model.kernels()
+    want = sum(st.flops for st in kernels["fused_stage"])
+    want += sum(model._convs[id(getattr(model, f"{f}_space"))].flops
+                for f in ("velx", "vely", "temp"))
+    flops = profiling.step_flops(model)
+    mfu = profiling.mfu_estimate(model, 1e3 / bare_ms)
+    reported = compile_log.update_device_memory_gauges()
+    gauges = {s["labels"]["device"]: s["value"]
+              for s in snapshot().get("device_memory_bytes_in_use", {}).get("series", [])}
+    out = {"step_gflop": flops / 1e9, "wrappers_gflop": want / 1e9, "mfu": mfu,
+           "memory_devices_reported": reported, "device_memory_bytes_in_use": gauges}
+    print(f"phase31h profiling ({card}) " + json.dumps(out))
+    if abs(flops - want) > 1e-12 * want or ("H100" in card and mfu["peak_key"] != "h100_sxm_f64"):
+        raise AssertionError(f"31h: step_flops {flops} against {want}, {mfu}")
+    if reported < 1 or not any(v > 0 for v in gauges.values()):
+        raise AssertionError(f"31h: device memory gauges {gauges}")
+
+
+def phase31(torch, pt, card):
+    """Phase 31: the resilient runner, the workloads under it and the
+    profiling helpers on the card (module docstring); prints its wall time.
+    Returns the runner runs' launches by kernel for the kernels line."""
+    t0 = time.perf_counter()
+    store = checkpoint_store_kind()
+    print(f"phase31 checkpoint_store={store} ({card})")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="phase31_") as work:
+        model = pt.Navier2D(**RBC1025, device=CARD)
+        model.init_random(0.1, seed=0)
+        model.write_intervall = 1e9
+        prepare_chunks(torch, model, "phase31a")
+        fused = phase31_nan(torch, pt, model, work, store, card)
+        out.update(fused)
+        mesh = phase31_nan_mesh(torch, pt, work, store, card)
+        phase31_governed(torch, pt, model, work, store, card)
+        phase31_integrity(torch, pt, model, work, store, card)
+        phase31_watchdog(torch, pt, model, work, store, card)
+        bare_ms = phase31_price(torch, pt, model, work, store, card)
+        phase31_profiling(torch, pt, model, bare_ms, card)
+        del model
+        torch.cuda.empty_cache()
+        phase31_resume(torch, pt, work, store, card)
+        work_launches = phase31_workloads(torch, pt, work, store, card)
+    out["banded_solve"] = mesh["banded_solve"] + work_launches.get("banded_solve", 0)
+    out["ring_transpose"] = mesh["ring_transpose"]
+    print(f"phase31 ok: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 KERNEL_META = {
     "fused_conv": ("rustpde_mpi_tpu_torch/csrc/fused_conv.cu",
                    "rustpde_mpi_tpu/ops/pallas_conv.py:64"),
@@ -4451,7 +5113,7 @@ def route_sums(rows) -> dict:
     return out
 
 
-def kernels_line(records, launches, solver_times, ring_times):
+def kernels_line(records, launches, solver_times, ring_times, runner_launches):
     """One entry per kernel, its times summed over one step of its main
     route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
     each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
@@ -4460,7 +5122,9 @@ def kernels_line(records, launches, solver_times, ring_times):
     banded and the flip kernels' backward (``backward_*``: the same kernel
     launched as its own adjoint, summed over the same step's launches, and
     the launches of a 129^2 gradient).
-    ``launches[route][kernel]`` is the count of that route's counted run."""
+    ``launches[route][kernel]`` is the count of that route's counted run;
+    ``runner_launches[kernel]`` (``runner_launches`` in the entry) the
+    count of phase 31's runs under the resilient runner."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rows = [r for r in records if r["kernel"] == kernel]
@@ -4483,6 +5147,7 @@ def kernels_line(records, launches, solver_times, ring_times):
             entry.update(solver_times)
         if kernel == "ring_transpose":
             entry.update(ring_times)
+        entry["runner_launches"] = runner_launches.get(kernel, 0)
         out.append(entry)
     return {"kernels": out}
 
@@ -4650,8 +5315,9 @@ def run(torch) -> int:
     phase_methods(torch, pt)
     solver_times.update(phase29(torch, pt))
     ring_times = phase30(torch, pt, mesh_flips, card)
+    runner_launches = phase31(torch, pt, card)
     print(f"card: {card}")
-    print(json.dumps(kernels_line(records, launches, solver_times, ring_times)))
+    print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -98,6 +98,18 @@ The Swift-Hohenberg models run on ``Space1`` and ``BiPeriodicSpace2``::
     sh = SwiftHohenberg2D(2048, 2048, r=0.35, dt=0.02, length=20.0)
     sh.update_n(128)
     sh.pattern_energy()
+
+``ResilientRunner`` keeps a long run alive: rolling checkpoints and
+auto-resume, checkpoint-then-exit on SIGTERM, NaN rollback with dt
+backoff, the governor, the integrity audits, the dispatch watchdog and
+deterministic fault injection (``fault="nan@100"``); ``telemetry`` holds
+the metrics, the exporters, the flight recorder and the compile log, and
+``eigenmode_sweep``/``steady_state_find`` run their campaigns under the
+runner::
+
+    runner = ResilientRunner(model, max_time=1.0, save_intervall=0.1,
+                             run_dir="data/run1", checkpoint_every_s=300)
+    summary = runner.run()     # resumes when run1 holds checkpoints
 """
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
@@ -106,8 +118,9 @@ from .config import (IntegrityConfig, IOConfig, NavierConfig, StabilityConfig,  
 from .bases import (Base, BaseKind, BiPeriodicSpace2, Space1, Space2, cheb_dirichlet,  # noqa: F401
                     cheb_dirichlet_neumann, cheb_neumann, chebyshev, fourier_c2c, fourier_r2c)
 from .convert import state_from_numpy, state_to_numpy  # noqa: F401
-from .field import Field1, Field2  # noqa: F401
+from .field import Field1, Field2, average, average_axis, norm_l2  # noqa: F401
 from .integrity import IntegrityError, QuarantineLedger, digest_tree  # noqa: F401
+from .models.campaign import CampaignModelBase  # noqa: F401
 from .models.boundary_conditions import (bc_hc_values, bc_rbc_values,  # noqa: F401
                                          bc_zero_values, pres_bc_rbc_values)
 from .models.ensemble import NavierEnsemble  # noqa: F401
@@ -126,11 +139,19 @@ from .parallel import Decomp2d, Mesh, make_mesh  # noqa: F401
 from .solver import FastDiag, Hholtz, HholtzAdi, Poisson, TensorSolver  # noqa: F401
 from .utils.governor import (ChunkStatus, DtLadder, GovernorDecision, RunHealth,  # noqa: F401
                              StabilityGovernor)
-from .utils.integrate import integrate  # noqa: F401
-from .utils.io_pipeline import IOPipeline  # noqa: F401
+from .utils.integrate import Integrate, integrate  # noqa: F401
+from .utils.io_pipeline import AsyncWriteError, IOPipeline, ObservableFuture  # noqa: F401
 from .utils.journal import JournalWriter, read_journal  # noqa: F401
+from .utils.checkpoint import CheckpointError  # noqa: F401
+from .utils.faults import FaultSpecError  # noqa: F401
+from .utils.resilience import DispatchHang, DivergenceError, ResilientRunner  # noqa: F401
+from . import telemetry  # noqa: F401
+from .telemetry import MetricsRegistry, ThroughputMonitor  # noqa: F401
 from .utils.vorticity import (vorticity_auto, vorticity_from_file,  # noqa: F401
                               vorticity_from_file_periodic)
 from .workloads import (ScenarioConfig, build_eigenmode_ensemble,  # noqa: F401
-                        build_model, build_steady_ensemble, critical_rayleigh, geometry_sweep,
-                        growth_rates, solo_ensemble_parity)
+                        build_model, build_steady_ensemble, critical_rayleigh, eigenmode_sweep,
+                        geometry_sweep, growth_rates, model_kinds, register_model_kind,
+                        solo_ensemble_parity, steady_state_find, validate_campaign_model)
+
+__version__ = "0.1.0"

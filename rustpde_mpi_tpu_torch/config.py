@@ -184,15 +184,50 @@ class IOConfig:
 
 
 @dataclass
+class ResilienceConfig:
+    """The resilient runner's knobs (the JAX package's ``ResilienceConfig``,
+    same fields and defaults; field names match the keyword arguments of
+    :class:`..utils.resilience.ResilientRunner`, built from it by
+    ``ResilientRunner.from_config(pde, cfg.resilience, max_time)``).
+
+    * ``checkpoint_every_s``/``checkpoint_every_t``: the wall-clock and
+      sim-time checkpoint cadences (either may be None);
+    * ``keep``: the rolling retention window;
+    * ``max_retries``, ``dt_backoff``, ``dt_min``: divergence retries, the
+      step shrink of each, and its floor;
+    * ``respawn_members``/``respawn_amp``/``respawn_seed``: an ensemble's
+      dead members respawned from perturbed healthy donors at a rollback;
+    * ``dispatch_timeout_s``: the dispatch watchdog's deadline (None: off;
+      the port reads no environment default);
+    * ``stability``: the proactive dt governor (a :class:`StabilityConfig`);
+    * ``io``: the overlapped IO knobs (None: ``IOConfig()``)."""
+
+    run_dir: str = "data/resilient"
+    checkpoint_every_s: float | None = 300.0
+    checkpoint_every_t: float | None = None
+    keep: int = 3
+    max_retries: int = 3
+    dt_backoff: float = 0.5
+    dt_min: float = 0.0
+    respawn_members: bool = False
+    respawn_amp: float = 1e-3
+    respawn_seed: int | None = None
+    dispatch_timeout_s: float | None = None
+    resume: bool = True
+    stability: StabilityConfig | None = None
+    io: IOConfig | None = None
+
+
+@dataclass
 class NavierConfig:
     """The Navier models' configuration in one object (the JAX package's
     ``NavierConfig``, same fields and defaults), for
     ``Navier2D.from_config`` / ``NavierEnsemble.from_config``.
 
     ``integrity`` (an :class:`IntegrityConfig`) arms ``set_integrity``.
-    ``resilience`` is the JAX package's resilient-runner knob, which the
-    port does not have yet (ROADMAP Queue 1 item 15b): it must stay None,
-    and any other value raises ``NotImplementedError``."""
+    ``resilience`` (a :class:`ResilienceConfig`) holds the resilient
+    runner's knobs, which ``ResilientRunner.from_config`` reads; the model
+    itself ignores it."""
 
     nx: int = 129
     ny: int = 129
@@ -207,7 +242,7 @@ class NavierConfig:
     params: dict = field(default_factory=dict)  # extra parameters written to snapshots
     #: member count for ``NavierEnsemble.from_config`` (seeds ``0..ensemble-1``)
     ensemble: int = 1
-    resilience: object | None = None
+    resilience: ResilienceConfig | None = None
     #: the stability sentinels (None: plain stepping); ``from_config`` arms them
     stability: StabilityConfig | None = None
     #: the statistics engine (None: off); ``from_config`` arms it
@@ -218,10 +253,9 @@ class NavierConfig:
     integrity: IntegrityConfig | None = None
 
     def __post_init__(self):
-        if self.resilience is not None:
-            raise NotImplementedError(
-                "NavierConfig.resilience is not ported yet (ROADMAP Queue 1 item 15b); "
-                "leave it None")
+        if self.resilience is not None and not isinstance(self.resilience, ResilienceConfig):
+            raise TypeError(f"NavierConfig.resilience must be a ResilienceConfig or None, "
+                            f"got {type(self.resilience).__name__}")
         if self.integrity is not None and not isinstance(self.integrity, IntegrityConfig):
             raise TypeError(f"NavierConfig.integrity must be an IntegrityConfig or None, "
                             f"got {type(self.integrity).__name__}")

@@ -45,11 +45,13 @@ from __future__ import annotations
 
 import gc
 import math
+import time
 from functools import partial
 
 import numpy as np
 import torch
 
+from ..telemetry import compile_log
 from ..utils.governor import ChunkStatus
 from ..utils.jit import scan_buckets
 from .stats import StatsState
@@ -92,6 +94,24 @@ CAMPAIGN_MODEL_ATTRS = (
 )
 
 
+def _kind_of(advance) -> str:
+    """The model kind a chunk's ``advance`` steps: the ``MODEL_KIND`` of the
+    object it is bound to (through any ``partial``), else ``"chunk"``."""
+    fn = advance
+    while isinstance(fn, partial):
+        fn = fn.func
+    owner = getattr(fn, "__self__", None)
+    return str(getattr(owner, "MODEL_KIND", None) or "chunk")
+
+
+def _health_values(vals: np.ndarray) -> tuple:
+    """A fetched health vector as :meth:`StatsAndRungs.stats_health` gives
+    it: floats (one model) or float arrays of shape (K,) (an ensemble)."""
+    if vals.ndim == 1:
+        return tuple(float(v) for v in vals)
+    return tuple(vals[..., i].astype(float) for i in range(vals.shape[-1]))
+
+
 class ChunkRunner:
     """The carry of a chunk (``carry``: the state's fields, then the
     scalars ``advance`` reads, then the statistics slots, if any) and one
@@ -114,7 +134,7 @@ class ChunkRunner:
     made are added on every replay of it (``deltas``; ``delta`` is the
     first variant's)."""
 
-    def __init__(self, advance, carry, kernels, n_stats: int = 0):
+    def __init__(self, advance, carry, kernels, n_stats: int = 0, kind: str | None = None):
         self.carry = carry
         self.device = carry[0].device
         self._advances = tuple(advance) if isinstance(advance, (tuple, list)) else (advance,)
@@ -127,8 +147,14 @@ class ChunkRunner:
         #: bytes the captures added to the device's reserved memory (the
         #: graphs' private pool); 0 on the CPU
         self.pool_bytes = 0
+        #: the compile log's label (the model kind whose step this runs)
+        self.kind = kind or _kind_of(self._advances[0])
+        t0 = time.perf_counter()
         if self.device.type == "cuda":
             self._capture()
+        # the port's counterpart of a jit entry point's compile: the
+        # warm-up and capture (nothing to capture on the CPU)
+        compile_log.observe_entry_compile(self.kind, time.perf_counter() - t0)
 
     @property
     def delta(self) -> list:
@@ -313,12 +339,19 @@ class StatsAndRungs:
         """The :data:`.stats.HEALTH_NAMES` readout of the running sums,
         fetched to the host in one transfer: floats (one model) or float
         arrays of shape (K,) (an ensemble).  Raises when disarmed."""
+        return self.stats_health_async().result()
+
+    def stats_health_async(self):
+        """:meth:`stats_health` as an :class:`..utils.io_pipeline.ObservableFuture`:
+        the health vector is computed and its copy to the host enqueued
+        without a wait (the resilient runner resolves it one chunk boundary
+        later).  Raises when disarmed."""
+        from ..utils.io_pipeline import ObservableFuture
+
         if not self.stats_armed:
             raise RuntimeError("stats_health needs an armed stats engine (set_stats)")
-        vals = self._stats_engine.health(self.stats_state).cpu().numpy()
-        if vals.ndim == 1:
-            return tuple(float(v) for v in vals)
-        return tuple(vals[..., i].astype(float) for i in range(vals.shape[-1]))
+        return ObservableFuture(self._stats_engine.health(self.stats_state),
+                                convert=_health_values)
 
     def stats_summary(self) -> dict | None:
         """The health readout as a dict (None when disarmed)."""
@@ -509,7 +542,7 @@ class FuturesAndIntegrity:
             def advance(c):
                 c[-1].copy_(digest_words(c[:-1], lead, mixes))
 
-            runner = runners[key] = ChunkRunner(advance, carry, [])
+            runner = runners[key] = ChunkRunner(advance, carry, [], kind="digest")
         return runner
 
     def _digest_future(self, state):

@@ -73,7 +73,8 @@ class _SwiftHohenbergBase:
         warmed up and captured) at the first call."""
         runner = self._runners.get(n)
         if runner is None:
-            runner = ChunkRunner(lambda carry: self._advance(n, carry), [self.theta.clone()], [])
+            runner = ChunkRunner(lambda carry: self._advance(n, carry), [self.theta.clone()], [],
+                                 kind="swift_hohenberg")
             self._runners[n] = runner
         return runner
 

@@ -26,6 +26,32 @@ import math
 MAX_TIMESTEP = 10_000_000
 
 
+class Integrate:
+    """The duck-typed protocol :func:`integrate` drives (the JAX package's
+    ``Integrate``): ``update()``, ``get_time()``, ``get_dt()``,
+    ``callback()``, ``exit()``, and ``update_n(n)``, through which the
+    port's driver advances whole chunks (here ``n`` updates)."""
+
+    def update(self) -> None:
+        raise NotImplementedError
+
+    def update_n(self, n: int) -> None:
+        for _ in range(int(n)):
+            self.update()
+
+    def get_time(self) -> float:
+        raise NotImplementedError
+
+    def get_dt(self) -> float:
+        raise NotImplementedError
+
+    def callback(self) -> None:
+        pass
+
+    def exit(self) -> bool:
+        return False
+
+
 def _next_boundary(t: float, dt: float, save_intervall: float) -> float:
     """First absolute save boundary ``k * save_intervall`` strictly after
     ``t`` (half-dt tolerance, so a time that just landed on a boundary

@@ -12,13 +12,19 @@ the slope of ``ln E`` over the sampled trajectory.
   sweep, for the rigid-rigid layer near Chandrasekhar's ``Ra_c =
   1707.76`` at ``k_c = 3.117``.
 
-The sweep itself (``eigenmode_sweep``) runs under the JAX package's
-resilient runner, which is not ported yet.
+* :func:`eigenmode_sweep`: the sweep over Rayleigh numbers, each one an
+  ensemble campaign under :class:`..utils.resilience.ResilientRunner`
+  (checkpoints and auto-resume per Ra with a ``run_dir``; a completed Ra's
+  checkpoints are removed).  The JAX package writes its sweep's
+  checkpoints in the sharded format, which is not ported (ROADMAP Queue 1
+  item 17.2): the port writes gathered ensemble snapshots, which restore
+  at the same K bit for bit.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
@@ -90,3 +96,84 @@ def critical_rayleigh(results) -> float:
             return lo["ra"] - s0 * (hi["ra"] - lo["ra"]) / (s1 - s0)
     raise ValueError("sweep does not bracket the growth-rate sign change: "
                      + ", ".join(f"Ra={r['ra']:g}: sigma={r['sigma_max']:.3e}" for r in rows))
+
+
+def eigenmode_sweep(ras, *, nx: int = 8, ny: int = 17, pr: float = 1.0, dt: float = 0.05,
+                    aspect: float | None = None, bc: str = "rbc", periodic: bool = True,
+                    modes=(1,), amp: float = 1e-4, horizon: float = 40.0, samples: int = 16,
+                    run_dir: str | None = None, checkpoint_every_s: float | None = None,
+                    stability=None, fault: str | None = None, mesh=None, _store=None,
+                    **kw) -> list[dict]:
+    """The leading growth rate over ``ras``, each Ra an ensemble campaign
+    (:func:`build_eigenmode_ensemble`) driven by
+    :class:`..utils.resilience.ResilientRunner`: energies sampled at
+    ``samples`` chunk boundaries over ``horizon`` time units and fitted by
+    :func:`growth_rates`.  With a ``run_dir`` each Ra checkpoints into
+    ``<run_dir>/ra<Ra>`` and resumes from it (a killed sweep continues
+    mid-sweep), and a completed Ra removes its spent checkpoints, so a later
+    sweep over the directory measures afresh; ``run_dir=None`` runs without
+    resume in a temporary directory.  ``_store``: a factory ``run_dir ->
+    store`` for the runner's private checkpoint store (None: files).
+    Keyword arguments (``device``, ``dtype``) go to the model.
+
+    Returns one dict per Ra: ``{"ra", "modes", "sigma" (per member),
+    "sigma_max", "steps", "times", "energies", "resumed"}``."""
+    import shutil
+    import tempfile
+
+    from ..config import IOConfig
+    from ..utils.resilience import ResilientRunner
+
+    results = []
+    steps_total = max(samples, int(round(horizon / dt)))
+    chunk = max(1, steps_total // samples)
+    tmp_root = tempfile.mkdtemp(prefix="eigenmode_sweep_") if run_dir is None else None
+    try:
+        for ra in ras:
+            ens = build_eigenmode_ensemble(nx=nx, ny=ny, ra=float(ra), pr=pr, dt=dt,
+                                           aspect=aspect, bc=bc, periodic=periodic, modes=modes,
+                                           amp=amp, mesh=mesh, **kw)
+            ra_dir = os.path.join(tmp_root or run_dir, f"ra{float(ra):g}")
+            runner = ResilientRunner(ens, max_time=float("inf"), run_dir=ra_dir,
+                                     checkpoint_every_s=checkpoint_every_s, stability=stability,
+                                     fault=fault if fault is not None else "",
+                                     resume=tmp_root is None,
+                                     io=IOConfig(overlap_dispatch=False),
+                                     _store=None if _store is None else _store(ra_dir))
+            times, energies = [], []
+            drained = False
+            with runner.session(install_signals=False):
+                # a resumed run re-enters mid-trajectory: skip what is done
+                while runner.step < steps_total:
+                    before = runner.step
+                    runner.advance(min(chunk, steps_total - runner.step))
+                    if runner.step == before:
+                        break  # a governor re-plan made no progress
+                    times.append(float(ens.get_time()))
+                    energies.append(np.asarray(ens.get_observables()[0]))
+                    if runner.drain_requested():
+                        drained = True
+                        runner.checkpoint_now("preempt")
+                        break
+                if runner.step >= steps_total and not drained:
+                    # done and fitted: the checkpoints were insurance, now spent
+                    runner.drain_io()
+                    for path in runner._store.files():
+                        runner._store.remove(path)
+            sigma = (growth_rates(times, np.stack(energies)) if len(times) >= 2
+                     else np.full(len(tuple(modes)), np.nan))
+            results.append({
+                "ra": float(ra),
+                "modes": list(modes),
+                "sigma": [float(s) for s in sigma],
+                "sigma_max": float(np.nanmax(sigma)) if np.isfinite(sigma).any()
+                else float("nan"),
+                "steps": int(runner.step),
+                "times": [float(t) for t in times],
+                "energies": [[float(v) for v in row] for row in energies],
+                "resumed": bool(runner.resumed),
+            })
+    finally:
+        if tmp_root is not None:
+            shutil.rmtree(tmp_root, ignore_errors=True)
+    return results

@@ -1,6 +1,5 @@
 """Model-kind registry: one table of campaign-model constructors (counterpart
-of the JAX package's ``workloads/registry.py``, less its compile-log
-attribution).
+of the JAX package's ``workloads/registry.py``).
 
 Every model that keeps the campaign contract
 (:data:`..models.campaign.CAMPAIGN_MODEL_ATTRS`) registers a constructor
@@ -48,12 +47,18 @@ def build_model(kind: str, nx: int, ny: int, ra: float, pr: float, dt: float, as
     return build(nx, ny, ra, pr, dt, aspect, bc, periodic, mesh=mesh, scenario=scenario, **kw)
 
 
-def build_model_for_key(key: tuple, *, mesh=None, **kw):
+def build_model_for_key(key: tuple, *, mesh=None, phase: str = "build", **kw):
     """The model one compat-key bucket needs: ``key`` is ``(kind, nx, ny,
     ra, pr, dt, aspect, bc, periodic, scenario_sig)``, or that with a
     serving stamp appended (stripped here).  The built model's
     ``compat_key`` must equal the key; a non-canonical DNS scenario
-    signature raises."""
+    signature raises.  The build's wall time is recorded per compat key
+    (:func:`..telemetry.compile_log.observe_build`, stamped ``phase``)."""
+    import time
+
+    from ..telemetry import compile_log
+
+    t0 = time.perf_counter()
     key = tuple(key)
     if len(key) == 11:
         key = key[:10]
@@ -74,6 +79,7 @@ def build_model_for_key(key: tuple, *, mesh=None, **kw):
     if model.compat_key != key:
         raise ValueError(f"registry entry for {kind!r} produced compat_key "
                          f"{model.compat_key} for requested key {key}")
+    compile_log.observe_build(key, time.perf_counter() - t0, kind=str(kind), phase=phase)
     return model
 
 

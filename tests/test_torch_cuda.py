@@ -1445,3 +1445,73 @@ def test_digest_graph_outlives_other_shapes(device):
     assert again == int(pt.digest_tree([t.cpu() for t in model.state]))
     assert first != again
     del filler
+
+
+def test_event_watchdog_on_the_card(device):
+    """The runner's dispatch watchdog waits on a CUDA event recorded after
+    the enqueued work: a card spin past the deadline raises ``DispatchHang``
+    at the deadline (the caller gets control back while the card is still
+    busy), a short one returns its value, and with no deadline nothing
+    waits for the card."""
+    import time
+
+    from rustpde_mpi_tpu_torch.utils.resilience import DispatchHang, dispatch_with_watchdog
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with pytest.raises(DispatchHang, match="spin"):
+        dispatch_with_watchdog(lambda: torch.cuda._sleep(4_000_000_000), 0.3, label="spin",
+                               device=device)
+    assert time.monotonic() - t0 < 1.5
+    torch.cuda.synchronize()
+    assert dispatch_with_watchdog(lambda: torch.cuda._sleep(1000) or 7, 5.0, device=device) == 7
+    t0 = time.monotonic()
+    dispatch_with_watchdog(lambda: torch.cuda._sleep(2_000_000_000), None, device=device)
+    assert time.monotonic() - t0 < 0.5  # enqueued, not waited for
+    torch.cuda.synchronize()
+
+
+def _runner_card(device, tmp_path, name, **kw):
+    from rustpde_mpi_tpu_torch.telemetry.metrics import ThroughputMonitor
+    from rustpde_mpi_tpu_torch.utils import resilience
+
+    model = pt.Navier2D(129, 129, 1e7, 1.0, kw.pop("dt", 2e-3), 1.0, "rbc", device=device)
+    model.init_random(0.1, seed=0)
+    model.write_intervall = 1e9
+    run_dir = str(tmp_path / name)
+    runner = pt.ResilientRunner(model, run_dir=run_dir, checkpoint_every_s=None,
+                                _store=resilience._MemoryStore(run_dir), **kw)
+    runner.slo = ThroughputMonitor(warmup=10**9)
+    return model, runner
+
+
+def test_runner_nan_rollback_on_card(device, tmp_path):
+    """A NaN at step 50 of a 129^2 fused run rolls back to the anchor (the
+    in-memory store: the card's machine may lack h5py) and retries at
+    dt/2: the run ends bit for bit a clean run at dt/2."""
+    model, runner = _runner_card(device, tmp_path, "nan", max_time=0.2, max_retries=1,
+                                 fault="nan@50")
+    summary = runner.run()
+    assert summary["outcome"] == "done" and summary["retries"] == 1 and summary["dt"] == 1e-3
+    clean = pt.Navier2D(129, 129, 1e7, 1.0, 1e-3, 1.0, "rbc", device=device)
+    clean.init_random(0.1, seed=0)
+    clean.update_n(summary["step"])
+    assert all(torch.equal(a, b) for a, b in zip(model.state, clean.state))
+
+
+def test_runner_telemetry_on_equals_off_on_card(device, tmp_path):
+    """Telemetry never touches the captured graphs: the runner's state with
+    metrics and tracing on equals the state with them off, bit for bit."""
+    from rustpde_mpi_tpu_torch import telemetry
+
+    states = []
+    try:
+        for on in (True, False):
+            telemetry.set_enabled(on)
+            model, runner = _runner_card(device, tmp_path, f"tele{on}", max_time=0.1,
+                                         max_chunk_steps=10)
+            assert runner.run()["outcome"] == "done"
+            states.append([t.clone() for t in model.state])
+    finally:
+        telemetry.set_enabled(True)
+    assert all(torch.equal(a, b) for a, b in zip(*states))
