@@ -325,7 +325,11 @@ step of each other route that runs it (``mesh_*``, ``periodic_fused_*``,
 ``hc_dense_*``, ``scn_fused_*``, ``scn_dense_*``, ``scn_mesh_*``), and
 over a K-member step of each ensemble route (``ens129_fused_*`` and the
 like at K = 32, ``ens1025_*`` at phase 25's K, with ``solo_ms`` beside
-the kernel's), with every kernel's launches on every route.
+the kernel's), with every kernel's launches on every route.  The flip's
+entry reads its 37 flips with the L2 flushed (``ms``, as the other
+kernels' rows are not: they are timed warm), back to back (``warm_ms``),
+and inside the profiled replays of a meshed ``rbc1025`` step (phase 13's
+profile, ``in_step_ms``).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -963,7 +967,8 @@ def phase_profile(torch, model, bare_ms, steps=5, phase="phase5"):
     time.  A profile that did not record every launch of the route's
     kernels (``PROFILE_LAUNCHES``) is taken again, up to
     ``PROFILE_ATTEMPTS`` times.  Last, the freeze's own device time
-    (:func:`freeze_ms`)."""
+    (:func:`freeze_ms`).  Returns ``{kernel name: device ms/step}`` of the
+    profiled replays, None if no attempt recorded every launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -995,7 +1000,7 @@ def phase_profile(torch, model, bare_ms, steps=5, phase="phase5"):
     else:
         print(f"{phase} profile: no complete record in {PROFILE_ATTEMPTS} attempts; device busy "
               "not measured")
-        return
+        return None
     spans.sort()
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -1023,6 +1028,7 @@ def phase_profile(torch, model, bare_ms, steps=5, phase="phase5"):
         per_step = PER_STEP[route]["banded_solve"]
         last = [d / 1e3 for _, d in sorted(banded)[-per_step:]]
         print(f"{phase} banded launches of the last profiled step, ms in launch order: {last}")
+    return {name: t / steps / 1e3 for name, (t, _) in by_name.items()}
 
 
 # -- chunked stepping --------------------------------------------------------------
@@ -5108,6 +5114,8 @@ def route_sums(rows) -> dict:
            "bound_ms": total("bound_ms"), "library_ms": total("library_ms"),
            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows)
            else "bytes"}
+    if all("kernel_warm_ms" in r for r in rows if r["per_step"]):  # a flip: ``ms`` is cold
+        out["warm_ms"] = total("kernel_warm_ms")
     if any("solo_ms" in r for r in rows):  # a member-axis instance: K one-member launches
         out["solo_ms"] = total("solo_ms")
     return out
@@ -5117,7 +5125,9 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches):
     """One entry per kernel, its times summed over one step of its main
     route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
     each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
-    timed at its own shape, with the L2 flushed), and, for the banded
+    timed at its own shape, with the L2 flushed, and ``warm_ms`` back to
+    back beside it, ``in_step_ms`` their device time inside the profiled
+    replays of phase 13), and, for the banded
     kernel, the 7 solves of a meshed step beside them (``mesh_*``); the
     banded and the flip kernels' backward (``backward_*``: the same kernel
     launched as its own adjoint, summed over the same step's launches, and
@@ -5254,7 +5264,12 @@ def run(torch) -> int:
     phase_golden(pt, "phase13", mesh=pt.make_mesh(MESH_RANKS))
     phase_meshed_vs_serial(pt)
     launches["mesh"], bare_ms["mesh"] = phase_main(torch, pt, mesh_model, "phase13")
-    phase_profile(torch, mesh_model, bare_ms["mesh"], phase="phase13")
+    by_kernel = phase_profile(torch, mesh_model, bare_ms["mesh"], phase="phase13")
+    # the flips' device time inside a replayed meshed step (the profile's
+    # 37 launches a step), beside their cold and warm times alone (phase 12)
+    flips_in_step = None if by_kernel is None else sum(
+        t for name, t in by_kernel.items() if "ring_transpose_kernel" in name)
+    print(f"phase13 flips in a replayed meshed rbc1025 step: {flips_in_step} ms/step")
     phase_chunks(torch, pt, mesh_model)
     phase_ensemble1025(torch, pt, mesh_model, "mesh", records, launches, bare_ms)
     checkpoint_roundtrip(torch, pt, mesh_model,
@@ -5315,6 +5330,7 @@ def run(torch) -> int:
     phase_methods(torch, pt)
     solver_times.update(phase29(torch, pt))
     ring_times = phase30(torch, pt, mesh_flips, card)
+    ring_times["in_step_ms"] = flips_in_step
     runner_launches = phase31(torch, pt, card)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches)))

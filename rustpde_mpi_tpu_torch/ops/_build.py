@@ -85,7 +85,7 @@ _DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I
               _P], _I)
 _BANDED_SIG = ([_I] * 8 + [_P, _P, _I, _L, _L, _I, _P, _L, _L, _L, _P, _L, _L, _L, _I, _L, _L,
                           _I, _P], _I)
-_RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _I, _L, _L, _P], _I)
+_RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _I, _L, _L, _I, _L, _I, _L, _I, _P], _I)
 _SIGNATURES = {
     "banded_solve": {
         "rp_banded_solve_f64": _BANDED_SIG,

@@ -23,9 +23,17 @@ the chunk meant for the rank ``shift`` ahead.  Any other device raises.
 The flip is a permutation, so its adjoint is the inverse flip: autograd
 sees it as :class:`FlipFn`, whose backward is the same call with the
 direction reversed (one more launch on the card, ``backward_launches``).
+
+The kernel moves the launch's elements as one flat range in words of 16, 8
+or 4 bytes (:func:`word_bytes`, the widest the row width, the strides and
+the base pointers allow) and splits a flat index into its row and column,
+and a row into its chunk and row in the chunk, by a multiply-high with the
+magic constants of :func:`fast_divmod`, computed here for each launch.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -35,6 +43,45 @@ from . import _build
 #: periodic cell's spectral pencil) is the unit of the permutation
 ENTRY = {torch.float64: "rp_ring_transpose_f64", torch.float32: "rp_ring_transpose_f32",
          torch.complex128: "rp_ring_transpose_c128", torch.complex64: "rp_ring_transpose_c64"}
+
+
+@lru_cache(maxsize=None)
+def fast_divmod(d: int) -> tuple[int, int]:
+    """The magic pair ``(mul, shr)`` of the divisor ``d`` (CUTLASS's
+    ``FastDivmod``): ``n // d == (n * mul) >> (32 + shr)`` for every ``0 <=
+    n < 2**31``, ``mul`` a 32-bit unsigned; ``(0, 0)`` for ``d == 1``, which
+    the kernel passes through undivided."""
+    if not 1 <= d < 2**31:
+        raise ValueError(f"fast_divmod: divisor {d} out of range")
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()  # 31 + ceil(log2 d)
+    return -(-(1 << p) // d), p - 32
+
+
+def word_bytes(itemsize: int, w: int, strides, pointers) -> int:
+    """The copy width of a launch: the widest word of 16, 8 or 4 bytes, at
+    least one element, that divides the row's ``w`` elements, every element
+    stride in ``strides`` and both base ``pointers`` (bytes)."""
+    for word in (16, 8, 4):
+        if word < itemsize:
+            break
+        nv = word // itemsize
+        if w % nv == 0 and all(st % nv == 0 for st in strides) and \
+                all(ptr % word == 0 for ptr in pointers):
+            return word
+    return itemsize
+
+
+def pencil_strides(t) -> tuple[int, int]:
+    """The rank and row strides of a pencil ``([K,] P, rows, cols)`` as the
+    kernel reads them: a dim of extent 1 (one rank, one row) gets the
+    stride a dense one would have, since the kernel never steps along it
+    and PyTorch leaves its stride arbitrary (a ``.contiguous()`` tensor
+    keeps whatever stride its view had there)."""
+    row = t.stride(-2) if t.shape[-2] > 1 else t.shape[-1]
+    rank = t.stride(-3) if t.shape[-3] > 1 else t.shape[-2] * row
+    return rank, row
 
 
 def transposed_shape(shape, nranks: int, x_to_y: bool) -> tuple:
@@ -141,8 +188,12 @@ class RingTranspose:
         c, w = yp.shape[-2], xp.shape[-1]
         k = block.shape[0] if block.ndim == 4 else 1
         ms = (xp.stride(0), yp.stride(0)) if block.ndim == 4 and k > 1 else (0, 0)
-        _build.call(fn, self.device, p, c, w, xp.stride(-3), xp.stride(-2), yp.stride(-3),
-                    yp.stride(-2), block.data_ptr(), out.data_ptr(), int(x_to_y), k, *ms)
+        strides = pencil_strides(xp) + pencil_strides(yp)
+        word = word_bytes(block.element_size(), w, strides + ms,
+                          (block.data_ptr(), out.data_ptr()))
+        divs = fast_divmod(w // (word // block.element_size())) + fast_divmod(c)
+        _build.call(fn, self.device, p, c, w, *strides, block.data_ptr(), out.data_ptr(),
+                    int(x_to_y), k, *ms, word, *divs)
         return out
 
 

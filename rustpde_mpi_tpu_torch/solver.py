@@ -25,11 +25,14 @@ CUDA kernel runs on the card.  Solvers take their device and dtype from
 the space they solve on.
 
 On a :class:`..parallel.spaces.PencilSpace2` (a space on a mesh of ranks)
-:class:`HholtzAdi` and :class:`TensorSolver` solve rank-stacked pencils:
-each axis solve runs on the pencil whose solve axis is local, with one
-pencil flip between the two axes and one back, and each banded solve is one
-kernel launch for all ranks.  The systems are padded with identity rows to
-the pencil extents, which leaves the real rows' results bit for bit.
+:class:`HholtzAdi`, :class:`TensorSolver` and :class:`FastDiag` solve
+rank-stacked pencils, on every method: each axis solve or eigen map runs on
+the pencil whose axis is local, with one pencil flip between the two axes
+and one back, and each banded solve is one kernel launch for all ranks.
+The systems are padded with identity rows to the pencil extents (the dense
+inverse of the padded system, the banded factors; the fast-diagonalisation
+divisor with ones), so pad rows couple to nothing and a zero pad stays
+zero.
 """
 
 from __future__ import annotations
@@ -177,9 +180,10 @@ class _AxisSolver:
     """1-D solver of one axis: on a Chebyshev axis ``"banded"`` (and its
     alias ``"pallas"``) runs the banded substitution kernel, ``"dense"``
     the precomputed inverse; a Fourier axis is a :class:`DiagSolver`
-    whatever the method.  The banded system is padded with identity rows,
-    and the diagonal with ones, to a multiple of ``nranks``, the pencil
-    extent on a mesh of that many ranks (no padding for one rank)."""
+    whatever the method.  The system (banded or dense) is padded with
+    identity rows, and the diagonal with ones, to a multiple of ``nranks``,
+    the pencil extent on a mesh of that many ranks (no padding for one
+    rank)."""
 
     def __init__(self, mat: np.ndarray, method: str, nranks: int, *, device, dtype,
                  periodic: bool = False):
@@ -190,9 +194,7 @@ class _AxisSolver:
             self.solver = DiagSolver(np.pad(diag, (0, padded(len(diag), nranks) - len(diag)),
                                             constant_values=1.0), **kw)
         elif method == "dense":
-            if nranks > 1:
-                raise NotImplementedError("method='dense' is not ported to pencils; use 'banded'")
-            self.solver = DenseSolver(mat, **kw)
+            self.solver = DenseSolver(_pad_identity(mat, nranks), **kw)
         else:
             band = pad_band(dense_to_band(mat, _P, _Q), _P, padded(mat.shape[0], nranks))
             self.solver = BandedSolver(*band_lu_factor(band, _P, _Q), **kw)
@@ -202,6 +204,17 @@ class _AxisSolver:
 
     def kernels(self) -> list:
         return [self.solver.kernel] if isinstance(self.solver, BandedSolver) else []
+
+
+def _pad_identity(mat: np.ndarray, nranks: int) -> np.ndarray:
+    """The square system ``mat`` padded with identity rows and columns up to
+    a multiple of ``nranks``: the pad rows couple to nothing (the dense
+    counterpart of :func:`..ops.banded.pad_band`)."""
+    n = mat.shape[0]
+    out = pad_matrix(mat, nranks)
+    pad = np.arange(n, out.shape[0])
+    out[pad, pad] = 1.0
+    return out
 
 
 def _apply(mat, x, axis):
@@ -330,27 +343,57 @@ class FastDiag:
     """Fast-diagonalisation 2-D solver: both axes eigendecomposed through
     the preconditioned pencils, so the solve is four matrix products and one
     elementwise division.  The same discrete system as
-    :class:`TensorSolver`."""
+    :class:`TensorSolver`.  ``mesh``: solve rank-stacked pencils of that
+    mesh (the maps zero-padded, the divisor padded with ones)."""
 
-    def __init__(self, modal0, modal1, alpha: float, fix_singular=False, *, device, dtype):
+    def __init__(self, modal0, modal1, alpha: float, fix_singular=False, *, device, dtype,
+                 mesh=None):
         kw = dict(device=device, dtype=dtype)
+        self.mesh = mesh
+        nranks = 1 if mesh is None else mesh.nranks
         lams = [modal0[0], modal1[0]]
-        self.fwd = [None if m[1] is None else to_device(m[1], **kw) for m in (modal0, modal1)]
-        self.bwd = [None if m[2] is None else to_device(m[2], **kw) for m in (modal0, modal1)]
+        self.fwd = [None if m[1] is None else to_device(pad_matrix(m[1], nranks), **kw)
+                    for m in (modal0, modal1)]
+        self.bwd = [None if m[2] is None else to_device(pad_matrix(m[2], nranks), **kw)
+                    for m in (modal0, modal1)]
         if fix_singular and abs(lams[0][0]) < 1e-10:
             # pure-Neumann zero mode: same nudge as TensorSolver
             lams[0] = lams[0] - 1e-10
-        self.denom = to_device(lams[0][:, None] + lams[1][None, :] + alpha, **kw)
+        denom = lams[0][:, None] + lams[1][None, :] + alpha
+        if mesh is not None:
+            # ones on the pad lanes, which hold zeros; the y-pencil's rank r
+            # holds rows r*c.. of the padded divisor
+            denom = np.pad(denom, [(0, padded(n, nranks) - n) for n in denom.shape],
+                           constant_values=1.0)
+            denom = denom.reshape(nranks, -1, denom.shape[1])
+        self.denom = to_device(denom, **kw)
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """rhs in ortho space -> solution in composite space (extra leading
-        dims are batch)."""
+        dims are batch).  On a mesh: x-pencil in, x-pencil out."""
+        if self.mesh is not None:
+            return self._solve_pencil(rhs)
         ax = _check_rhs(rhs)
         out = _apply(self.fwd[0], rhs, ax)
         out = _apply(self.fwd[1], out, ax + 1)
         out = out / self.denom
         out = _apply(self.bwd[1], out, ax + 1)
         return _apply(self.bwd[0], out, ax)
+
+    def _solve_pencil(self, rhs: torch.Tensor) -> torch.Tensor:
+        """The JAX package's order under a mesh (``solver.py:440-461``): the
+        axis-0 eigen map on the x-pencil, flip, the axis-1 map, the division
+        by the rank's rows of the divisor and the inverse axis-1 map on the
+        y-pencil, flip back, the inverse axis-0 map.  A Fourier axis 0 has
+        no maps; an ensemble's ``(K, P, n0, n1)`` pencils solve in the same
+        calls."""
+        if rhs.ndim not in (3, 4):
+            raise ValueError(f"a pencil solve takes a rank-stacked ([K,] P, n0, n1) x-pencil, "
+                             f"got rank {rhs.ndim}")
+        out = _apply(self.fwd[0], rhs, -2)
+        out = _apply(self.fwd[1], self.mesh.ring.x_to_y(out), -1)
+        out = _apply(self.bwd[1], out / self.denom, -1)
+        return _apply(self.bwd[0], self.mesh.ring.y_to_x(out), -2)
 
     def kernels(self) -> list:
         return []
@@ -369,10 +412,8 @@ class _TensorBased:
         sign = -1.0 if negate_lap else 1.0
         modal0 = _axis_modal_data(space, 0, c[0], sign)
         if method == "fd":
-            if space.nranks > 1:
-                raise NotImplementedError("method='fd' is not ported to pencils; use 'banded'")
             modal1 = _axis_modal_data(space, 1, c[1], sign)
-            self._solver = FastDiag(modal0, modal1, alpha, fix_singular, **kw)
+            self._solver = FastDiag(modal0, modal1, alpha, fix_singular, mesh=space.mesh, **kw)
         else:
             # mat_c1 = preconditioned mass (pinv S), mat_a1 = preconditioned
             # laplacian (peye S)

@@ -451,16 +451,18 @@ def test_banded_kernel_zero_pad(device, dtype, parity):
 # -- the pencil-transpose kernel and the meshed route --------------------------------
 
 
-@pytest.mark.parametrize("shape", [(17, 17), (33, 20), (64, 64)])
+@pytest.mark.parametrize("nranks", [1, 2, 4, 8, 3])
+@pytest.mark.parametrize("shape", [(17, 17), (33, 20), (64, 64), (129, 129), (5, 130)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_ring_transpose_matches_plain(device, shape, dtype):
+def test_ring_transpose_matches_plain(device, shape, dtype, nranks):
     """A copy, so bit-equal (tolerance 0) to the plain ring in both
-    directions: ragged widths (8-byte path), aligned ones (16-byte path), a
-    row stride wider than the row and an unaligned base pointer; one launch
-    a flip."""
+    directions: ragged widths (8-byte or 4-byte words), aligned ones (16-byte
+    words), a row stride wider than the row and an unaligned base pointer,
+    on 1, 2, 4 and 8 ranks (the kernel's shift instances) and 3 (its
+    generic one); one launch a flip."""
     from rustpde_mpi_tpu_torch.parallel import Decomp2d, make_mesh
 
-    mesh = make_mesh(4, device)
+    mesh = make_mesh(nranks, device)
     decomp = Decomp2d(shape, mesh)
     a = torch.as_tensor(np.random.default_rng(0).standard_normal(shape))
     x, y = decomp.place_x_pencil(a, dtype), decomp.place_y_pencil(a, dtype)
@@ -744,16 +746,17 @@ def test_transform_methods_agree_on_card(device, periodic):
 # -- complex flips, the general banded path, HC and the meshed periodic cell ---------------
 
 
-@pytest.mark.parametrize("shape", [(17, 15), (9, 16), (33, 64)])
+@pytest.mark.parametrize("nranks", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(17, 15), (9, 16), (33, 64), (65, 129)])
 @pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
-def test_ring_transpose_complex_matches_plain(device, shape, dtype):
+def test_ring_transpose_complex_matches_plain(device, shape, dtype, nranks):
     """Complex pencils (the periodic cell's spectral state: nx/2+1 modes
     padded to the rank count), a complex element the unit: bit for bit the
-    plain ring and the permuted copy, both directions, on the 16-byte path
-    (complex128; complex64 pairs on even widths) and the element path."""
+    plain ring and the permuted copy, both directions, in 16-byte words
+    (complex128; complex64 pairs on even widths) and 8-byte ones."""
     from rustpde_mpi_tpu_torch.parallel import Decomp2d, make_mesh
 
-    mesh = make_mesh(4, device)
+    mesh = make_mesh(nranks, device)
     decomp = Decomp2d(shape, mesh)
     rng = np.random.default_rng(1)
     a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
@@ -763,7 +766,7 @@ def test_ring_transpose_complex_matches_plain(device, shape, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got_y, mesh.ring.plain(x, True)) and torch.equal(got_y, y)
     assert torch.equal(got_x, mesh.ring.plain(y, False)) and torch.equal(got_x, x)
-    p, c, w = 4, x.shape[1] // 4, x.shape[2]
+    p, c, w = nranks, x.shape[1] // nranks, x.shape[2]
     assert torch.equal(got_y, x.view(p, p, c, w).permute(1, 2, 0, 3).contiguous().view(p, c, p * w))
     wide = torch.zeros(x.shape[:2] + (x.shape[2] + 3,), dtype=dtype, device=device)
     wide[..., 1:1 + x.shape[2]] = x  # a strided view one element past the base
@@ -965,20 +968,66 @@ def test_banded_members_with_a_factor_batch_period(device, dtype, complex_rhs):
         assert torch.equal(got[i], solver.solve(b[i], -1, factor_batch_stride=per_rank)), i
 
 
+@pytest.mark.parametrize("k,p,c,w", [(3, 4, 9, 9), (1, 4, 33, 33), (2, 4, 257, 257),
+                                     (32, 4, 33, 33), (32, 4, 32, 32), (2, 2, 5, 64),
+                                     (3, 8, 3, 17), (2, 1, 7, 65)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.complex128,
                                    torch.complex64])
-def test_ring_transpose_members_match_plain(device, dtype):
-    """K = 3 members' pencils flipped by one launch, both directions, bit
-    for bit against the plain ring and each member's own launch."""
-    ring = pt.make_mesh(4, device).ring
+def test_ring_transpose_members_match_plain(device, dtype, k, p, c, w):
+    """K members' pencils flipped by one launch, both directions, bit for
+    bit against the plain ring, the permuted copy and each member's own
+    launch (the ``ensemble129`` K = 32 and ``rbc1025`` K = 2 pencils among
+    them)."""
+    ring = pt.make_mesh(p, device).ring
     rng = np.random.default_rng(6)
-    x = _rand_like_io(rng, (3, 4, 36, 9), dtype, device)
+    x = _rand_like_io(rng, (k, p, p * c, w), dtype, device)
     y = ring.x_to_y(x)
     assert ring.launches == 1
     assert torch.equal(y, ring.plain(x, True))
+    assert torch.equal(y, x.view(k, p, p, c, w).permute(0, 2, 3, 1, 4).contiguous()
+                       .view(k, p, c, p * w))
     assert torch.equal(ring.y_to_x(y), x)
-    for i in range(3):
+    for i in range(k):
         assert torch.equal(y[i], ring.x_to_y(x[i]))
+    assert ring.launches == 2 + k
+
+
+#: ragged chunk extents ``(c, w)`` from 1 to 65, odd and even, for the
+#: flip sweep
+FLIP_CHUNKS = [(1, 1), (1, 65), (65, 1), (2, 17), (33, 33), (16, 16), (64, 3), (65, 64),
+               (7, 32)]
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+@pytest.mark.parametrize("c,w", FLIP_CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.complex128,
+                                   torch.complex64])
+def test_ring_transpose_sweep_matches_plain(device, dtype, c, w, p):
+    """Every copy width and edge of the flat tiling: K = 0 (no member dim),
+    1, 2, 3 and 32 members, both directions, each from a contiguous pencil,
+    from a view into rows padded by 3 elements, and from that view one
+    element past the base (off 16-byte alignment): bit for bit the plain
+    ring and the permuted copy, one launch a flip."""
+    ring = pt.make_mesh(p, device).ring
+    rng = np.random.default_rng(c * 100 + w)
+    for k in (0, 1, 2, 3, 32):
+        lead = (k,) if k else ()
+        for x_to_y in (True, False):
+            shape = lead + ((p, p * c, w) if x_to_y else (p, c, p * w))
+            wide = _rand_like_io(rng, shape[:-1] + (shape[-1] + 3,), dtype, device)
+            for block in (wide[..., :shape[-1]].contiguous(), wide[..., :shape[-1]],
+                          wide[..., 1:1 + shape[-1]]):
+                before = ring.launches
+                got = ring.apply(block, x_to_y)
+                assert ring.launches == before + 1
+                torch.cuda.synchronize()
+                assert torch.equal(got, ring.plain(block, x_to_y)), (k, x_to_y, block.stride())
+                view = block if k else block[None]
+                if x_to_y:
+                    want = view.reshape(max(k, 1), p, p, c, w).permute(0, 2, 3, 1, 4)
+                else:
+                    want = view.reshape(max(k, 1), p, c, p, w).permute(0, 3, 1, 2, 4)
+                assert torch.equal(got.reshape(-1), want.reshape(-1))
 
 
 def _ensemble_route(route, device, k=3, n=33):
@@ -1340,25 +1389,27 @@ def test_finder_ensemble_freezes_under_the_captured_graph(device, route):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.complex128,
                                    torch.complex64])
-@pytest.mark.parametrize("members", [0, 3])
-def test_flip_backward_matches_plain(device, dtype, members):
+@pytest.mark.parametrize("members", [0, 3, 32])
+@pytest.mark.parametrize("p,c,w", [(4, 3, 5), (2, 33, 33), (8, 1, 65)])
+def test_flip_backward_matches_plain(device, dtype, members, p, c, w):
     """The flip's backward (``FlipFn``: the inverse flip, one launch) bit for
-    bit its plain ring, both directions, with and without a member dim."""
-    mesh = pt.make_mesh(4, device)
+    bit its plain ring, both directions, with and without a member dim, on
+    ragged pencils of 2, 4 and 8 ranks."""
+    mesh = pt.make_mesh(p, device)
     ring = mesh.ring
     g = torch.Generator(device="cpu").manual_seed(5)
-    for shape, x_to_y in (((4, 12, 5), True), ((4, 3, 20), False)):
+    for shape, x_to_y in (((p, p * c, w), True), ((p, c, p * w), False)):
         full = ((members,) if members else ()) + shape
         x = torch.randn(full, generator=g, dtype=torch.float64).to(device, dtype)
         x.requires_grad_(True)
         y = ring.apply(x, x_to_y)
-        w = torch.randn(tuple(y.shape), generator=g, dtype=torch.float64).to(device, dtype)
+        ct = torch.randn(tuple(y.shape), generator=g, dtype=torch.float64).to(device, dtype)
         before = (ring.launches, ring.backward_launches)
-        (grad,) = torch.autograd.grad(y, x, w)
+        (grad,) = torch.autograd.grad(y, x, ct)
         torch.cuda.synchronize()
-        assert torch.equal(grad, ring.plain(w, not x_to_y))
+        assert torch.equal(grad, ring.plain(ct, not x_to_y))
         assert (ring.launches - before[0], ring.backward_launches - before[1]) == (1, 1)
-    plain = torch.zeros((4, 12, 5), dtype=torch.float64, device=device)
+    plain = torch.zeros((p, p * c, w), dtype=torch.float64, device=device)
     assert ring.apply(plain, True).grad_fn is None
 
 

@@ -18,7 +18,12 @@ builds them), on the same numpy inputs:
   blockings of the products and of the padded pencils), and within 1e-12
   of the port's serial dense steps;
 * a JAX meshed state carried through ``convert.py`` and stepped 3 more
-  times in both packages, to 1e-11.
+  times in both packages, to 1e-11;
+* the solvers on pencils on every method (the dense ``HholtzAdi``, the
+  fast-diagonalisation ``Poisson`` and ``Hholtz`` too) on 2 and 4 ranks,
+  confined and periodic, one member and K: within 1e-12 of the scale of
+  the port's serial solve and 1e-11 of the JAX package's solve under a
+  mesh of as many devices.
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -36,7 +41,9 @@ from jax.sharding import PartitionSpec
 
 import rustpde_mpi_tpu as rp
 import rustpde_mpi_tpu_torch as pt
+from rustpde_mpi_tpu import solver as jsolver
 from rustpde_mpi_tpu.parallel import decomp as jdecomp
+from rustpde_mpi_tpu.parallel import use_mesh
 from rustpde_mpi_tpu.parallel.mesh import AXIS
 from rustpde_mpi_tpu_torch.ops.banded import band_lu_factor, dense_to_band, pad_band
 from rustpde_mpi_tpu_torch.ops.banded_solve import BandedSolve
@@ -300,10 +307,96 @@ def test_pencil_solvers_match_serial(shape):
         # couple rows of one parity only, as the serial ones do
         assert all(k.path == "parity" for k in pencil_solver.kernels())
         assert all(k.path == "parity" for k in serial_solver.kernels())
-    with pytest.raises(NotImplementedError, match="fd"):
-        pt.Poisson(space, (1.0, 1.0), method="fd")
-    with pytest.raises(NotImplementedError, match="dense"):
-        pt.HholtzAdi(space, (1e-3, 2e-3), method="dense")
+    # the dense and fast-diagonalisation methods, on 2 and 4 ranks
+    _dense_fd_parity(bases, (rp.cheb_dirichlet(shape[0]), rp.cheb_dirichlet(shape[1])),
+                     rhs.numpy())
+
+
+#: the methods whose pencil solves are dense products: ``(solver, c,
+#: method)``, the same names in both packages
+DENSE_FD = (("HholtzAdi", (1e-3, 2e-3), "dense"), ("Poisson", (1.0, 1.0), "fd"),
+            ("Hholtz", (0.1, 0.1), "fd"))
+
+
+def _jax_solve(jspace, name, c, method, rhs, nranks):
+    """The JAX package's solve of the global ``rhs`` under a mesh of
+    ``nranks`` of the conftest's virtual devices (jitted, so that its pencil
+    constraints shard), gathered to numpy."""
+    solver = getattr(jsolver, name)(jspace, c, method=method)
+    with use_mesh(_jax_mesh(nranks)):
+        return np.asarray(jax.jit(solver.solve)(jnp.asarray(rhs)))
+
+
+def _close_lanes(got, want, tol):
+    """``_close`` on lane 0 of axis 0 and on the rest apart: a Fourier axis
+    0's k = 0 lane of ``Poisson`` is the nudged singular system, ~1e10
+    times the others."""
+    _close(got[:1], want[:1], tol)
+    _close(got[1:], want[1:], tol)
+
+
+def _dense_fd_parity(bases, jbases, rhs, members=0):
+    """Each solver of ``DENSE_FD`` on a pencil space over ``bases`` on 2 and
+    ``NRANKS`` ranks against the port's serial solve (1e-12 of the scale)
+    and the JAX package's solve under a mesh of as many devices (1e-11), on
+    the global ortho-space ``rhs``; the pad stays zero.  ``members`` K > 0:
+    K members (``rhs`` times 1..K) as one ``(K, P, n0, n1)`` pencil solve,
+    each member against its own serial and JAX solves."""
+    serial = pt.Space2(*bases, device="cpu", dtype=torch.float64)
+    jspace = rp.Space2(*jbases)
+    rhss = [rhs * (i + 1) for i in range(max(members, 1))]
+    for nranks in (2, NRANKS):
+        mesh = make_mesh(nranks, "cpu")
+        space = pt.parallel.PencilSpace2(pt.Space2(*bases, device="cpu", dtype=torch.float64),
+                                         mesh)
+        ortho = tdecomp.Decomp2d(rhs.shape, mesh)
+        block = torch.stack([ortho.place_x_pencil(r) for r in rhss])
+        for name, c, method in DENSE_FD:
+            solver = getattr(pt, name)(space, c, method=method)
+            assert solver.kernels() == []  # matrix products and a division only
+            got = solver.solve(block) if members else solver.solve(block[0])[None]
+            for i, r in enumerate(rhss):
+                want = getattr(pt, name)(serial, c, method=method).solve(torch.as_tensor(r))
+                out = tdecomp.Decomp2d(tuple(want.shape), mesh)
+                gathered = out.gather_x_pencil(got[i])
+                what = f"{name} {method} on {nranks} ranks, member {i}"
+                assert torch.equal(out.place_x_pencil(gathered), got[i]), f"{what}: nonzero pad"
+                _close_lanes(gathered.numpy(), want.numpy(), 1e-12)
+                _close_lanes(gathered.numpy(), _jax_solve(jspace, name, c, method, r, nranks),
+                             1e-11)
+
+
+@pytest.mark.parametrize("n0", [16, 20])
+def test_pencil_dense_and_fd_periodic(n0):
+    """A Fourier axis 0 (r2c, complex pencils; its Helmholtz factor and
+    eigenvalues diagonal, no maps) by a Chebyshev axis 1: the dense and
+    fast-diagonalisation methods on 2 and 4 ranks against the serial solve
+    and the JAX package's under a mesh."""
+    bases = (pt.fourier_r2c(n0), pt.cheb_dirichlet(17))
+    space = pt.Space2(*bases, device="cpu", dtype=torch.float64)
+    shape = (space.shape_spectral[0], space.shape_physical[1])  # the ortho extents
+    rng = np.random.default_rng(n0)
+    rhs = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    _dense_fd_parity(bases, (rp.fourier_r2c(n0), rp.cheb_dirichlet(17)), rhs)
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["confined", "periodic"])
+def test_pencil_dense_and_fd_members(periodic):
+    """K = 3 members' ``(K, P, n0, n1)`` pencils through one solve of each
+    dense or fast-diagonalisation solver, every member within 1e-12 of its
+    serial solve and 1e-11 of the JAX package's under a mesh."""
+    n0 = 16 if periodic else 17
+    tb0, jb0 = ((pt.fourier_r2c, rp.fourier_r2c) if periodic
+                else (pt.cheb_dirichlet, rp.cheb_dirichlet))
+    bases = (tb0(n0), pt.cheb_dirichlet(18))
+    space = pt.Space2(*bases, device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(40)
+    # the ortho extents: a Fourier axis's modes, a Chebyshev axis's points
+    shape = (space.shape_spectral[0] if periodic else n0, space.shape_physical[1])
+    rhs = rng.standard_normal(shape)
+    if periodic:
+        rhs = rhs + 1j * rng.standard_normal(shape)
+    _dense_fd_parity(bases, (jb0(n0), rp.cheb_dirichlet(18)), rhs, members=3)
 
 
 def test_banded_factor_batch_stride():
