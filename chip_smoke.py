@@ -312,6 +312,26 @@ launch of a step serving all K members:
     its wrappers' sum, ``mfu_estimate`` from 31f's bare rate, the device
     memory gauges.
 
+32. (after 31) sharded two-phase checkpoints on a mesh: meshed ``rbc1025``
+    on ``make_mesh(4)``, integrity armed, 10 steps under the runner with
+    ``IOConfig(sharded_checkpoints=True)`` (the in-memory store); its final
+    staged sharded snapshot restores through the in-memory slab catalog
+    onto ``make_mesh(2)``, a serial dense model and a fresh
+    ``make_mesh(4)``, bit for bit with the digest verified, and each then
+    steps 10 steps bit for bit as the same model run from the state placed
+    as the gathered reader places it (the 4-rank one as the writer's own
+    run); the sharded staging ms beside the gathered staging of the same
+    state; files too where ``h5py`` imports.
+33. two controllers on the one card: two processes on gloo over
+    localhost, each a fused ``rbc129`` replica under the runner with the
+    sanitizer armed at cadence 8: a stop on rank 0 alone stops both at
+    step 100, one on rank 1 alone is ignored, the replicas bit for bit
+    equal, the sanitizer's overhead on 200 steps (armed against disarmed,
+    three pairs), one ``root_decides`` handshake in µs, and
+    ``skip_broadcast@5:host1`` raising ``CollectiveDesyncError`` on both
+    processes; the children's exit codes checked, a wedge killed at the
+    phase's timeout.
+
 Every phase that reaches a save-window callback sets ``write_intervall``
 past its run's end (no flow snapshot; ``h5py`` need not import), and the
 script runs in a temporary working directory, where the callbacks append
@@ -342,6 +362,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -5081,6 +5102,353 @@ def phase31(torch, pt, card):
     return out
 
 
+# -- phase 32: sharded checkpoints on a mesh -------------------------------------------
+
+SHARD_STEPS = 10
+SHARD_STAGE_REPS = 5
+SHARD_TARGETS = (("mesh2", dict(mesh=2)), ("serial_dense", DENSE), ("mesh4", dict(mesh=4)))
+
+
+def global_leaves(model) -> dict:
+    """The state's fields as global device tensors (pencils gathered)."""
+    return {name: space.gather_spectral(getattr(model.state, name))
+            for name, space in model._state_fields()}
+
+
+def same_leaves(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def shard_target(pt, spec):
+    kw = dict(spec)
+    if "mesh" in kw:
+        kw["mesh"] = pt.make_mesh(kw["mesh"], CARD)
+    else:
+        kw["device"] = CARD
+    model = pt.Navier2D(**RBC1025, **kw)
+    model.write_intervall = 1e9
+    model.set_integrity(pt.IntegrityConfig())
+    return model
+
+
+def phase32(torch, pt, card):
+    """Phase 32: sharded two-phase checkpoints at full width.  Meshed
+    ``rbc1025`` on ``make_mesh(4)`` with the integrity layer armed runs
+    ``SHARD_STEPS`` steps under the resilient runner with
+    ``IOConfig(sharded_checkpoints=True)`` and the in-memory store (the
+    card's machine has no ``h5py``): its anchor and final checkpoints are
+    staged sharded snapshots.  The final one restores, through the
+    in-memory slab catalog, onto ``make_mesh(2)``, a serial dense model and
+    a fresh ``make_mesh(4)``, each bit for bit the writer's state with the
+    manifest's digest verified; each restored model then steps
+    ``SHARD_STEPS`` steps and must equal bit for bit the same model run
+    from the state placed as the gathered reader places it (and the
+    ``make_mesh(4)`` one the writer's own continued run).  Prints the
+    sharded staging time beside the gathered staging of the same state,
+    and, where ``h5py`` imports, writes, commits and reads the files too.
+    Launches counted from 0 over the whole path.  Returns them."""
+    from rustpde_mpi_tpu_torch.utils import checkpoint as ck
+    from rustpde_mpi_tpu_torch.utils import resilience
+
+    t0 = time.perf_counter()
+    dt = RBC1025["dt"]
+    models = []
+    with tempfile.TemporaryDirectory(prefix="phase32_") as work:
+        model = shard_target(pt, dict(mesh=MESH_RANKS))
+        model.init_random(0.1, seed=0)
+        models.append(model)
+        store = resilience._MemoryStore(work)
+        runner = pt.ResilientRunner(model, max_time=SHARD_STEPS * dt, run_dir=work,
+                                    checkpoint_every_s=None,
+                                    io=pt.IOConfig(sharded_checkpoints=True), _store=store)
+        reset_counts(model)
+        summary = runner.run()
+        path = summary["checkpoint"]
+        snap = store._snaps[path][0]
+        events = [e["event"] for e in journal_of(runner)]
+        if summary["outcome"] != "done" or summary["step"] != SHARD_STEPS \
+                or not isinstance(snap, ck.ShardSnapshot):
+            raise AssertionError(f"32: runner {summary}, {type(snap).__name__}")
+        # staging: the sharded slabs against the gathered snapshot, same state
+        torch.cuda.synchronize()
+        sharded_ms, gathered_ms = [], []
+        for _ in range(SHARD_STAGE_REPS):
+            t1 = time.perf_counter()
+            staged = ck.sharded_snapshot_to_host(model, step=SHARD_STEPS)
+            sharded_ms.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            gathered = ck.snapshot_to_host(model, step=SHARD_STEPS)
+            gathered_ms.append((time.perf_counter() - t1) * 1e3)
+        want = global_leaves(model)
+        arrays = {k: v.cpu().numpy() for k, v in want.items()}
+        model.update_n(SHARD_STEPS)  # the unrestored run goes on
+        cont = global_leaves(model)
+        rows = {}
+        for label, spec in SHARD_TARGETS:
+            target = shard_target(pt, spec)
+            models.append(target)
+            # the reference: the same model from the state as the gathered
+            # reader places it, then the steps
+            pt.convert.state_from_numpy(target, arrays)
+            target.time = summary["time"]
+            target.update_n(SHARD_STEPS)
+            ref = global_leaves(target)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ck.restore_sharded_snapshots(target, [snap], label=path)  # verifies the digest
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t1) * 1e3
+            restored = same_leaves(torch, global_leaves(target), want) \
+                and target.time == summary["time"]
+            target.update_n(SHARD_STEPS)
+            stepped = same_leaves(torch, global_leaves(target), ref)
+            equals_writer = same_leaves(torch, global_leaves(target), cont)
+            # again, the digest's graph now captured: the restore alone
+            t1 = time.perf_counter()
+            ck.restore_sharded_snapshots(target, [snap], label=path)
+            torch.cuda.synchronize()
+            again_ms = (time.perf_counter() - t1) * 1e3
+            rows[label] = {"restore_ms": restore_ms, "restore_again_ms": again_ms,
+                           "restored_bit_for_bit": restored, "stepped_bit_for_bit": stepped,
+                           "equals_writer_run": equals_writer}
+        files = None
+        if h5py_version() is not None:
+            fpath = ck.checkpoint_path(os.path.join(work, "files"), SHARD_STEPS)
+            ck.write_sharded_snapshot(model, fpath, step=SHARD_STEPS)
+            reader = shard_target(pt, dict(mesh=2))
+            models.append(reader)
+            reader.read(fpath)
+            files = same_leaves(torch, global_leaves(reader), global_leaves(model))
+        launches = {}
+        for m in models:
+            for name, n in count_launches(m).items():
+                launches[name] = launches.get(name, 0) + n
+    out = {"cell": "rbc1025", "route": "mesh", "ranks": MESH_RANKS, "steps": SHARD_STEPS,
+           "outcome": summary["outcome"], "events": events, "shards": snap.shard_count,
+           "staged_mb": staged.nbytes / 1e6, "gathered_mb": gathered.nbytes / 1e6,
+           "sharded_stage_ms": sharded_ms, "gathered_stage_ms": gathered_ms,
+           "sharded_stage_ms_median": statistics.median(sharded_ms),
+           "gathered_stage_ms_median": statistics.median(gathered_ms),
+           "h5py": h5py_version(), "files_bit_for_bit": files, "targets": rows,
+           "launches": launches, "wall_s": time.perf_counter() - t0}
+    print(f"phase32 sharded checkpoints ({card}) " + json.dumps(out))
+    for label, row in rows.items():
+        if not (row["restored_bit_for_bit"] and row["stepped_bit_for_bit"]):
+            raise AssertionError(f"32 {label}: {row}")
+    if not rows["mesh4"]["equals_writer_run"] or files is False:
+        raise AssertionError(f"32: the mesh4 restore against the writer's run {rows['mesh4']}, "
+                             f"files {files}")
+    if "checkpoint" not in events or not launches.get("ring_transpose") \
+            or not launches.get("banded_solve"):
+        raise AssertionError(f"32: events {events}, launches {launches}")
+    del models, model, target
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 33: two controllers on the one card -----------------------------------------
+
+CONTROLLERS = 2
+CTRL_STEPS = 200
+CTRL_CHUNK = 25
+CTRL_STOP_AT = 100
+CTRL_CADENCE = 8
+CTRL_SKIP = "skip_broadcast@5:host1"
+CTRL_HANDSHAKES = 200
+CTRL_PAIRS = 3
+CTRL_SYNC_S = 60.0
+CTRL_TIMEOUT_S = 420
+
+CHILD_33 = r"""
+import hashlib, json, os, sys, time
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["root"])
+import numpy as np
+import torch
+import rustpde_mpi_tpu_torch as pt
+from rustpde_mpi_tpu_torch.ops import _build
+from rustpde_mpi_tpu_torch.parallel import multihost as mh
+from rustpde_mpi_tpu_torch.parallel import sanitizer as san
+from rustpde_mpi_tpu_torch.utils import resilience
+
+rank = args["rank"]
+if args["device"] == "cuda":
+    _build.build()
+mh.initialize_distributed(f"localhost:{args['port']}", args["nproc"], rank,
+                          timeout_s=args["sync_s"])
+mh.set_sync_timeout(args["sync_s"])
+cfg = args["cfg"]
+dt = cfg["dt"]
+model = pt.Navier2D(**cfg, device=args["device"])
+model.write_intervall = 1e9
+out = {"rank": rank}
+sync = torch.cuda.synchronize if args["device"] == "cuda" else (lambda: None)
+
+def fresh():
+    model.state = type(model.state)(*(t.new_zeros(t.shape) for t in model.state))
+    model.init_random(0.1, seed=0)
+    model.reset_time()
+
+def run(tag, stop_rank=None, armed=True, inject=""):
+    fresh()
+    san.configure(enabled=armed, cadence=args["cadence"], inject=inject)
+    run_dir = os.path.join(args["work"], f"{tag}_{rank}")
+    runner = pt.ResilientRunner(model, max_time=args["steps"] * dt,
+                                save_intervall=args["chunk"] * dt, run_dir=run_dir,
+                                checkpoint_every_s=None,
+                                _store=resilience._MemoryStore(run_dir))
+    hook = runner._dispatch
+
+    def dispatch(pde, n):  # the request arrives while the chunk runs
+        hook(pde, n)
+        if rank == stop_rank and runner.step >= args["stop_at"]:
+            runner.request_drain()
+
+    runner._dispatch = dispatch
+    sync()
+    t0 = time.perf_counter()
+    try:
+        summary = runner.run()
+    finally:
+        sync()
+    return summary, time.perf_counter() - t0, runner
+
+def digest():
+    h = hashlib.sha256()
+    for t in model.state:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+kernels = model.kernels()
+for ks in kernels.values():
+    for k in ks:
+        k.launches = 0
+s, _, r = run("stop0", stop_rank=0)
+out["stop0"] = [s["outcome"], s["step"], r.step]
+s, _, _ = run("stop1", stop_rank=1)
+out["stop1"] = [s["outcome"], s["step"]]
+digests = [d.decode() for d in mh.allgather_bytes(digest().encode())]
+out["replicas_equal"] = len(set(digests)) == 1
+walls = {"armed": [], "disarmed": []}
+states = {}
+for i in range(args["pairs"] + 1):
+    for armed in ((True, False) if i % 2 else (False, True)):
+        key = "armed" if armed else "disarmed"
+        summary, wall, _ = run(f"price{i}_{key}", armed=armed)
+        if i:
+            walls[key].append(wall / args["steps"] * 1e3)
+        states[key] = digest()
+out["ms_per_step"] = walls
+out["armed_equals_disarmed"] = states["armed"] == states["disarmed"]
+san.configure(enabled=False, inject="")
+for tag, flag in (("disarmed", False), ("armed", True), ("one_thread", False)):
+    if tag == "one_thread":  # the host's own thread pool out of the way
+        torch.set_num_threads(1)
+    san.configure(enabled=flag)
+    mh.sync_hosts("handshake")
+    t0 = time.perf_counter()
+    for _ in range(args["handshakes"]):
+        mh.root_decides(False)
+    out["root_decides_us_" + tag] = (time.perf_counter() - t0) / args["handshakes"] * 1e6
+out["launches"] = {name: sum(k.launches for k in ks) for name, ks in kernels.items()}
+try:
+    run("desync", armed=True, inject=args["skip"])
+    out["desync"] = None
+except san.CollectiveDesyncError as exc:
+    out["desync"] = {"seq": exc.seq, "site": exc.site, "executed": san.stats()["executed"],
+                     "message": str(exc)[:300]}
+print(json.dumps(out), flush=True)
+os._exit(0)
+"""
+
+
+def phase33(torch, pt, card):
+    """Phase 33: two controllers on the one card.  Two processes joined by
+    gloo over localhost, each its own fused ``rbc129`` replica under the
+    resilient runner (sharded two-phase checkpoints kept in the in-memory
+    store), the sanitizer armed at cadence ``CTRL_CADENCE``: a stop asked
+    on rank 0 alone stops both at the same step; one asked on rank 1 alone
+    is ignored; the replicas stay bit for bit equal; ``CTRL_PAIRS`` pairs
+    of 200-step runs armed and disarmed (the sanitizer's overhead; the
+    states equal); one ``root_decides`` handshake in µs; ``CTRL_SKIP``
+    raises ``CollectiveDesyncError`` on both processes within one cadence.
+    Each child's exit code is checked; a wedge ends at the phase's own
+    timeout with the children killed.  Returns the children's launches."""
+    t0 = time.perf_counter()
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    with tempfile.TemporaryDirectory(prefix="phase33_") as work:
+        procs = []
+        for rank in range(CONTROLLERS):
+            args = {"root": ROOT, "rank": rank, "nproc": CONTROLLERS, "port": port,
+                    "cfg": ENSEMBLE129, "work": work, "steps": CTRL_STEPS, "chunk": CTRL_CHUNK,
+                    "stop_at": CTRL_STOP_AT, "cadence": CTRL_CADENCE, "skip": CTRL_SKIP,
+                    "handshakes": CTRL_HANDSHAKES, "pairs": CTRL_PAIRS, "sync_s": CTRL_SYNC_S,
+                    "device": CARD}
+            procs.append(subprocess.Popen([sys.executable, "-c", CHILD_33, json.dumps(args)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        outs = []
+        t_end = time.monotonic() + CTRL_TIMEOUT_S
+        try:
+            for p in procs:
+                try:
+                    out, err = p.communicate(timeout=max(1.0, t_end - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    out, err = p.communicate()
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    results = []
+    for rank, (rc, out, err) in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if rc != 0 or not lines:
+            raise AssertionError(f"33: controller {rank} rc={rc}:\n{out[-2000:]}\n{err[-3000:]}")
+        results.append(json.loads(lines[-1]))
+    r0, r1 = results
+    overhead = [a / d - 1.0 for a, d in zip(r0["ms_per_step"]["armed"],
+                                          r0["ms_per_step"]["disarmed"])]
+    launches = {}
+    for r in results:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"phase33 root_decides handshake ({card}): "
+          f"{r0['root_decides_us_disarmed']:.1f} us disarmed, "
+          f"{r0['root_decides_us_armed']:.1f} us armed, {r0['root_decides_us_one_thread']:.1f} us "
+          f"disarmed with one intra-op thread a process (rank 0, mean of {CTRL_HANDSHAKES})")
+    print(f"phase33 armed sanitizer on {CTRL_STEPS} steps ({card}): ms/step armed "
+          f"{r0['ms_per_step']['armed']} disarmed {r0['ms_per_step']['disarmed']}; "
+          f"overheads {overhead}, median {statistics.median(overhead):.4f}")
+    summary = {"controllers": CONTROLLERS, "cell": "rbc129", "route": "fused",
+               "stop0": [r0["stop0"], r1["stop0"]], "stop1": [r0["stop1"], r1["stop1"]],
+               "replicas_equal": [r0["replicas_equal"], r1["replicas_equal"]],
+               "armed_equals_disarmed": [r0["armed_equals_disarmed"], r1["armed_equals_disarmed"]],
+               "desync": [r0["desync"], r1["desync"]], "launches": launches,
+               "wall_s": time.perf_counter() - t0}
+    print(f"phase33 two controllers ({card}) " + json.dumps(summary))
+    for r in results:
+        if r["stop0"][:2] != ["preempted", CTRL_STOP_AT] or r["stop1"] != ["done", CTRL_STEPS]:
+            raise AssertionError(f"33: stops {r['stop0']}, {r['stop1']}")
+        if not (r["replicas_equal"] and r["armed_equals_disarmed"]):
+            raise AssertionError(f"33: replicas {r['replicas_equal']}, armed/disarmed "
+                                 f"{r['armed_equals_disarmed']}")
+        if r["desync"] is None:
+            raise AssertionError(f"33: {CTRL_SKIP} raised no desync on rank {r['rank']}")
+    if r0["desync"]["seq"] != r1["desync"]["seq"] \
+            or r0["desync"]["executed"] != r1["desync"]["executed"]:
+        raise AssertionError(f"33: the desync differs between the ranks {r0['desync']}, "
+                             f"{r1['desync']}")
+    if not launches.get("fused_conv") or not launches.get("fused_stage"):
+        raise AssertionError(f"33: launches {launches}")
+    return launches
+
+
 KERNEL_META = {
     "fused_conv": ("rustpde_mpi_tpu_torch/csrc/fused_conv.cu",
                    "rustpde_mpi_tpu/ops/pallas_conv.py:64"),
@@ -5121,7 +5489,8 @@ def route_sums(rows) -> dict:
     return out
 
 
-def kernels_line(records, launches, solver_times, ring_times, runner_launches):
+def kernels_line(records, launches, solver_times, ring_times, runner_launches,
+                 phase_launches=None):
     """One entry per kernel, its times summed over one step of its main
     route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
     each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
@@ -5134,7 +5503,10 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches):
     the launches of a 129^2 gradient).
     ``launches[route][kernel]`` is the count of that route's counted run;
     ``runner_launches[kernel]`` (``runner_launches`` in the entry) the
-    count of phase 31's runs under the resilient runner."""
+    count of phase 31's runs under the resilient runner, and
+    ``phase_launches[label][kernel]`` (``<label>_launches``) that of a later
+    phase's path (``sharded``: phase 32; ``controllers``: phase 33's two
+    processes)."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rows = [r for r in records if r["kernel"] == kernel]
@@ -5158,6 +5530,8 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches):
         if kernel == "ring_transpose":
             entry.update(ring_times)
         entry["runner_launches"] = runner_launches.get(kernel, 0)
+        for label, counts in (phase_launches or {}).items():
+            entry[f"{label}_launches"] = counts.get(kernel, 0)
         out.append(entry)
     return {"kernels": out}
 
@@ -5332,8 +5706,11 @@ def run(torch) -> int:
     ring_times = phase30(torch, pt, mesh_flips, card)
     ring_times["in_step_ms"] = flips_in_step
     runner_launches = phase31(torch, pt, card)
+    phase_launches = {"sharded": phase32(torch, pt, card),
+                      "controllers": phase33(torch, pt, card)}
     print(f"card: {card}")
-    print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches)))
+    print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches,
+                                  phase_launches)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

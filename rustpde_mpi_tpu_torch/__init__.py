@@ -110,6 +110,17 @@ runner::
     runner = ResilientRunner(model, max_time=1.0, save_intervall=0.1,
                              run_dir="data/run1", checkpoint_every_s=300)
     summary = runner.run()     # resumes when run1 holds checkpoints
+
+Several processes run as one job on ``torch.distributed`` (gloo, host
+objects only; ``parallel.multihost``): each holds its own model on its own
+card, the root decides every flag that leads into a collective, and the
+runner writes sharded two-phase checkpoints that restore onto any mesh;
+``parallel.sanitizer`` catches a collective sequence that went out of
+step (``CollectiveDesyncError``).  ``serve`` holds the requests and the
+durable queue of the serving layer::
+
+    multihost.initialize_distributed("localhost:29500", 2, rank)
+    summary = ResilientRunner(model, 1.0, 0.1, run_dir="data/mp").run()
 """
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
@@ -145,6 +156,8 @@ from .utils.journal import JournalWriter, read_journal  # noqa: F401
 from .utils.checkpoint import CheckpointError  # noqa: F401
 from .utils.faults import FaultSpecError  # noqa: F401
 from .utils.resilience import DispatchHang, DivergenceError, ResilientRunner  # noqa: F401
+from .parallel.sanitizer import CollectiveDesyncError  # noqa: F401
+from .serve import AdmissionError, RequestFailed, SimRequest  # noqa: F401
 from . import telemetry  # noqa: F401
 from .telemetry import MetricsRegistry, ThroughputMonitor  # noqa: F401
 from .utils.vorticity import (vorticity_auto, vorticity_from_file,  # noqa: F401

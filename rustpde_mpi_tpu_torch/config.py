@@ -150,8 +150,9 @@ class IOConfig:
     * ``overlap_dispatch``: ``integrate``'s break check and the
       callback's observables ride futures, one chunk late
       (``integrate(overlap=True)``);
-    * ``sharded_checkpoints``: the sharded two-phase format, which the port
-      does not have (ROADMAP Queue 1 item 17.2): None or False;
+    * ``sharded_checkpoints``: the checkpoint format: None picks the
+      sharded two-phase one on more than one process and the gathered one
+      otherwise, True or False force either;
     * ``queue_depth``: background writes in flight before a submit blocks;
     * ``diag_lag``: boundaries a diagnostics line may trail the device
       (0 prints synchronously);
@@ -165,11 +166,6 @@ class IOConfig:
     diag_lag: int = 1
     timeout_s: float | None = None
 
-    def __post_init__(self):
-        if self.sharded_checkpoints:
-            raise NotImplementedError(
-                "sharded checkpoints are not ported yet (ROADMAP Queue 1 item 17.2)")
-
     @classmethod
     def blocking(cls) -> "IOConfig":
         """Fully synchronous IO."""
@@ -181,6 +177,24 @@ class IOConfig:
 
         return IOPipeline(queue_depth=self.queue_depth, diag_lag=self.diag_lag,
                           timeout_s=self.timeout_s)
+
+
+@dataclass
+class SubmeshConfig:
+    """Two-level serving's sub-mesh carve (the JAX package's
+    ``SubmeshConfig``, same fields and defaults; :mod:`.parallel.submesh`).
+
+    * ``shapes``: sub-mesh sizes (device counts) to carve; a shape the
+      fleet cannot hold is dropped from the carve, and on more than one
+      process a shape must be a multiple of the process count;
+    * ``shard_min_nx``: grids at or above this extent are sharded traffic,
+      stamped at admission with the smallest fitting configured shape;
+    * ``max_pending``: the admission bound on queued sharded requests a
+      stamped shape."""
+
+    shapes: tuple = (2,)
+    shard_min_nx: int = 257
+    max_pending: int = 32
 
 
 @dataclass

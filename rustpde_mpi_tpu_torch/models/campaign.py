@@ -59,8 +59,8 @@ from .stats import StatsState
 
 #: the attribute surface of a campaign model that the workloads registry
 #: validates (:func:`..workloads.registry.validate_campaign_model`): the
-#: JAX package's list less its compiled-entry-point and sharded-snapshot
-#: names, which the port does not have
+#: JAX package's list less its compiled-entry-point names, which the port
+#: does not have
 CAMPAIGN_MODEL_ATTRS = (
     "MODEL_KIND",
     "observable_names",
@@ -83,6 +83,9 @@ CAMPAIGN_MODEL_ATTRS = (
     "exit",
     "exit_future",
     "init_random",
+    "snapshot_state_items",
+    "snapshot_root_items",
+    "apply_restored_state",
     "read",
     "write",
     "kernels",
@@ -601,7 +604,120 @@ class FuturesAndIntegrity:
         self._pre_div_latch = False
 
 
-class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity):
+class ShardedSurface:
+    """The sharded-checkpoint surface a model and an ensemble share (the JAX
+    package's ``snapshot_state_items``/``snapshot_root_items``/
+    ``apply_restored_state``; :mod:`..utils.checkpoint` drives it).  A
+    subclass names the model whose spaces and mesh lay its leaves out
+    (``_layout_model``) and its member dims (``_layout_lead``)."""
+
+    _layout_lead = 0
+
+    def _layout_model(self):
+        return self
+
+    def _leaf_spaces(self) -> dict:
+        """Each state leaf's pencil space on a mesh (nothing when serial)."""
+        model = self._layout_model()
+        if getattr(model, "mesh", None) is None:
+            return {}
+        return dict(model._state_fields())
+
+    def snapshot_state_items(self) -> list:
+        """``(name, leaf)`` for every leaf the sharded checkpoint carries:
+        the state's fields (:class:`..utils.checkpoint.StateLeaf`, pencils
+        on a mesh) and, with the statistics armed, their running sums and
+        sample tick, so long averages survive a kill and resume bit for
+        bit."""
+        from ..utils.checkpoint import StateLeaf
+
+        spaces = self._leaf_spaces()
+        items = [(f"state/{name}", StateLeaf(getattr(self.state, name), spaces.get(name),
+                                             self._layout_lead))
+                 for name in self.state._fields]
+        if self.stats_armed:
+            items += [(f"stats/{name}", getattr(self.stats_state, name))
+                      for name in self.stats_state._fields]
+            items.append(("stats/tick", self._stats_tick))
+        return items
+
+    def _root_extra_items(self) -> list:
+        return []
+
+    def snapshot_root_items(self) -> list:
+        """The manifest's root data: time, the parameters (an ensemble's
+        bookkeeping too), and with the integrity layer armed the state's
+        digest, which a restore recomputes (:meth:`_verify_restored_digest`)."""
+        items = [("time", np.asarray(float(self.time), dtype=np.float64), "raw")]
+        items += self._root_extra_items()
+        params = getattr(self._layout_model(), "params", {}) or {}
+        for key, value in params.items():
+            items.append((key, np.asarray(float(value), dtype=np.float64), "raw"))
+        if self.integrity_armed:
+            items.append(("integrity_digest", np.asarray(self.state_digest_async().result()),
+                          "raw"))
+        return items
+
+    def _place_restored(self, updates: dict):
+        """The state from the assembled global leaves, laid out as the model
+        holds it (each member's pencils placed as the gathered reader and
+        ``convert.state_from_numpy`` place them)."""
+        spaces = self._leaf_spaces()
+        fields = {}
+        for name in self.state._fields:
+            old = getattr(self.state, name)
+            arr = np.asarray(updates.pop(name))
+            space = spaces.get(name)
+            if space is None:
+                fields[name] = torch.as_tensor(arr).to(device=old.device, dtype=old.dtype)
+            elif self._layout_lead:
+                fields[name] = torch.stack([space.place_spectral(a, dtype=old.dtype)
+                                            for a in arr])
+            else:
+                fields[name] = space.place_spectral(arr, dtype=old.dtype)
+        return type(self.state)(**fields)
+
+    def _apply_restored_extra(self, root: dict) -> None:
+        pass
+
+    def apply_restored_state(self, updates: dict, attrs: dict, root: dict) -> None:
+        """Install the leaves the sharded reader assembled (global host
+        arrays) and the manifest's time: the statistics' leaves are split
+        off first (restored exactly, or zero when the checkpoint predates
+        their arming), then the state is placed, then the integrity digest
+        is verified."""
+        from ..utils.checkpoint import _install_state
+
+        del attrs
+        updates = dict(updates)
+        if self.stats_armed:
+            self.apply_restored_stats(self.stats_engine.split_restored(updates))
+        _install_state(self, self._place_restored(updates))
+        self._apply_restored_extra(root)
+        self.time = float(np.asarray(root["time"]))
+        self._obs_cache = None
+        self._pre_div_latch = False
+        self._verify_restored_digest(root.get("integrity_digest"))
+
+    def _verify_restored_digest(self, expected) -> None:
+        """Recompute the state digest after a (bit-exact, sharded) restore
+        and compare it with the manifest's, closing the device to disk to
+        device loop; a no-op when the checkpoint carries none or the
+        integrity layer is disarmed."""
+        if expected is None or not self.integrity_armed:
+            return
+        got = np.asarray(self.state_digest_async().result())
+        exp = np.asarray(expected).astype(got.dtype).reshape(got.shape)
+        if not np.array_equal(got, exp):
+            from ..integrity import IntegrityError
+
+            raise IntegrityError(
+                f"restored state digest {got.tolist()} does not match the checkpoint manifest "
+                f"digest {exp.tolist()} — the snapshot was corrupted between device and disk",
+                check="checkpoint")
+
+
+class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
     """Subclasses supply ``dt``, ``dtype`` (the real working dtype; the
     state's fields may be complex), ``state`` (a NamedTuple of tensors),
     ``_step(state, with_sentinels=False)`` (with sentinels it returns
@@ -609,6 +725,12 @@ class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity):
     (a 1-D tensor whose index 3 is |div|), ``kernels()``, and
     ``_rebuild_dt_artifacts()`` with the ``_DT_ARTIFACTS`` it rebuilds
     (:meth:`set_dt`)."""
+
+    #: maps a sentinel chunk's host rows (numpy, one row a scalar, members
+    #: along the last axis) to the rows the chunk acts on: the resilient
+    #: runner's reduction across processes, each holding its own replica
+    #: (None: the local rows)
+    sentinel_reduce = None
 
     def _init_campaign(self) -> None:
         self._init_stats_and_rungs()
@@ -954,6 +1076,8 @@ class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity):
         dt = self.dt
 
         def finish(host):
+            if self.sentinel_reduce is not None:
+                host = self.sentinel_reduce(np.asarray(host))
             fin, cok, done, cfl_max, growth_max, div_max, ke = host.tolist()
             fin, cok = bool(fin), bool(cok)
             pre_div = fin and not cok

@@ -4,10 +4,11 @@ Counterpart of the JAX package's ``models/ensemble.py`` (its
 ``NavierEnsemble``), with its in-scan statistics (per-member running sums,
 one shared sample tick) and its dt rung cache (``set_dt`` through the
 template model), its observable and break-check futures, per-member
-state digests and shadow audits (:class:`.campaign.FuturesAndIntegrity`),
-less its sharded checkpoints.  The JAX package stacks K member states on a
-leading axis and advances them as one ``jax.vmap`` of the model's step, the Pallas
-kernels batched by ``pallas_call``'s batching rule.  Here the member-stacked
+state digests and shadow audits (:class:`.campaign.FuturesAndIntegrity`)
+and its sharded checkpoints (:class:`.campaign.ShardedSurface`).  The JAX
+package stacks K member states on a leading axis and advances them as one
+``jax.vmap`` of the model's step, the Pallas kernels batched by
+``pallas_call``'s batching rule.  Here the member-stacked
 state goes through the template model's own step (:meth:`Navier2D._step`
 takes a leading member dim), and every kernel launch of a step serves all K
 members: a step of K members launches exactly what a solo step of the same
@@ -40,7 +41,7 @@ import torch
 from ..utils import checkpoint, navier_io
 from ..utils.governor import ChunkStatus
 from ..utils.jit import scan_buckets
-from .campaign import ChunkRunner, FuturesAndIntegrity, StatsAndRungs
+from .campaign import ChunkRunner, FuturesAndIntegrity, ShardedSurface, StatsAndRungs
 
 
 def _stack(members) -> tuple:
@@ -48,7 +49,7 @@ def _stack(members) -> tuple:
     return type(members[0])(*(torch.stack([torch.as_tensor(x) for x in xs]) for xs in zip(*members)))
 
 
-class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity):
+class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
     """K member states of one :class:`..models.navier.Navier2D`, stepped
     together.
 
@@ -56,6 +57,12 @@ class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity):
     field carries a leading K dim.  An unstacked state raises
     ``TypeError`` (wrap it in a list for K = 1); an empty sequence raises
     ``ValueError``."""
+
+    #: maps a sentinel chunk's host rows (numpy, one row a scalar, members
+    #: along the last axis) to the rows the chunk acts on: the resilient
+    #: runner's reduction across processes, each holding its own replica
+    #: (None: the local rows)
+    sentinel_reduce = None
 
     def __init__(self, model, states):
         if hasattr(states, "_fields"):
@@ -390,7 +397,10 @@ class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity):
             else:
                 runner.run(bucket)
         rows = [t.to(torch.float64) for t in runner.carry[nf:nf + 7]] + [before.to(torch.float64)]
-        fin_h, cok_h, dn_h, cflm_h, gm_h, dvm_h, kep_h, before_h = torch.stack(rows).cpu().numpy()
+        host = torch.stack(rows).cpu().numpy()
+        if self.sentinel_reduce is not None:
+            host = self.sentinel_reduce(host)
+        fin_h, cok_h, dn_h, cflm_h, gm_h, dvm_h, kep_h, before_h = host
         fin_h, cok_h = fin_h.astype(bool), cok_h.astype(bool)
         pinned = fin_h & ~cok_h
         pre_div = bool(pinned.any())
@@ -580,6 +590,29 @@ class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity):
         return self.get_observables()[3]
 
     # -- snapshots -------------------------------------------------------------
+
+    _layout_lead = 1
+
+    def _layout_model(self):
+        return self.model
+
+    @property
+    def mesh(self):
+        """The template model's mesh (None: one rank)."""
+        return self.model.mesh
+
+    def _root_extra_items(self) -> list:
+        """The ensemble's bookkeeping in the manifest: member count, alive
+        mask, per-member step counts."""
+        return [("members", np.asarray(int(self.k), dtype=np.int64), "raw"),
+                ("alive", self.mask.detach().cpu().numpy().astype(np.int8), "raw"),
+                ("steps_done", self.steps_done.detach().cpu().numpy().astype(np.int64), "raw")]
+
+    def _apply_restored_extra(self, root: dict) -> None:
+        dev = self.state.temp.device
+        self.mask = torch.as_tensor(np.asarray(root["alive"], dtype=bool), device=dev)
+        self.steps_done = torch.as_tensor(np.asarray(root["steps_done"]).astype(np.int32),
+                                          device=dev)
 
     def write(self, filename: str) -> None:
         """Write a K-member snapshot (per-member groups, needs ``h5py``;

@@ -400,6 +400,11 @@ class Navier2DLnse(CampaignModelBase):
         self.navier.write(filename)
 
     def read(self, filename: str) -> None:
+        if ckpt.is_sharded_checkpoint(filename):
+            # a manifest restores THIS model's leaves (state/...), not the
+            # embedded DNS's
+            ckpt.read_sharded_snapshot(self, filename)
+            return
         self.navier.read(filename)
         self._pull_navier()
         self.time = self.navier.time

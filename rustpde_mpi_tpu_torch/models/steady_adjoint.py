@@ -348,6 +348,13 @@ class Navier2DAdjoint(CampaignModelBase):
     def read(self, filename: str) -> None:
         """Restore the physical fields from a gathered snapshot (the
         adjoint pressure kept, the residual norms at +inf)."""
+        from ..utils import checkpoint
+
+        if checkpoint.is_sharded_checkpoint(filename):
+            # a manifest restores THIS model's leaves (state/...), not the
+            # embedded DNS's
+            checkpoint.read_sharded_snapshot(self, filename)
+            return
         self.navier.read(filename)
         self._pull_navier()
         self.time = self.navier.time

@@ -28,7 +28,9 @@ spectral state) is split and flipped the same way, a complex element the
 unit.
 
 Ranks on separate cards (peer access or ``torch.distributed``) are not
-ported: a mesh over distinct devices raises.
+ported: a mesh over distinct devices raises, and so does a mesh given
+devices of more than one process (:mod:`.multihost`; each process of a
+multi-process run holds its own model on its own mesh).
 """
 
 from __future__ import annotations
@@ -54,7 +56,13 @@ class Mesh:
     ``ring.y_to_x``), with its launch counter."""
 
     def __init__(self, devices):
-        devs = [torch.device(d) for d in devices]
+        devices = list(devices)
+        procs = sorted({int(getattr(d, "process_index", 0)) for d in devices})
+        if len(procs) > 1 or (procs and procs[0] != _this_process()):
+            raise NotImplementedError(
+                f"ranks in processes {procs}: a mesh holds the ranks of this process only (a "
+                "mesh whose ranks span processes is ROADMAP Queue 1 item 17.1)")
+        devs = [torch.device(getattr(d, "device", d)) for d in devices]
         if not devs:
             raise ValueError("a mesh needs at least one rank")
         if len(set(devs)) > 1:
@@ -68,6 +76,12 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.nranks} ranks on {self.device})"
+
+
+def _this_process() -> int:
+    from .multihost import process_index
+
+    return process_index()
 
 
 def make_mesh(nranks: int, device=None) -> Mesh:

@@ -11,8 +11,8 @@
 
 Telemetry records host-side values the run computed anyway: it never
 touches a captured CUDA graph, and a run with it on steps bit for bit as a
-run with it off (:func:`set_enabled`).  The JAX package's request tracing
-(``reqtrace``) belongs to its serving layer, which is not ported.
+run with it off (:func:`set_enabled`).  :mod:`.reqtrace` carries one
+trace id a serving request from admission to its last chunk.
 """
 
 from .exporters import (PROMETHEUS_CONTENT_TYPE, MetricsDumper, prometheus_text,  # noqa: F401
@@ -27,14 +27,20 @@ from .tracing import (RECORDER, FlightRecorder, arm_exit_dump, dump_flight_recor
 from .tracing import enabled as tracing_enabled  # noqa: F401
 from .tracing import set_enabled as set_tracing_enabled  # noqa: F401
 from . import compile_log  # noqa: F401
+from . import reqtrace  # noqa: F401
+from .reqtrace import assemble_request_trace  # noqa: F401
+from .reqtrace import mint as mint_trace_context  # noqa: F401
+from .reqtrace import enabled as reqtrace_enabled  # noqa: F401
+from .reqtrace import set_enabled as set_reqtrace_enabled  # noqa: F401
 
 
 def set_enabled(flag: bool) -> None:
-    """The master switch: metrics and tracing together."""
+    """The master switch: metrics, tracing and request tracing together."""
     set_metrics_enabled(flag)
     set_tracing_enabled(flag)
+    set_reqtrace_enabled(flag)
 
 
 def enabled() -> bool:
     """True when any layer records."""
-    return metrics_enabled() or tracing_enabled()
+    return metrics_enabled() or tracing_enabled() or reqtrace_enabled()

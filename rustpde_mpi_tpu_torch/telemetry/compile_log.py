@@ -14,7 +14,8 @@ each observer returns the journal-ready row:
   graphs (and the eager warm-up before it), recorded per model kind at
   every capture, so ``set_dt``'s first visit to a rung counts again;
 * :func:`observe_first_chunk`, :func:`observe_warm_pool`: copies of the
-  JAX package's (their producers, the serving layer, are not ported);
+  JAX package's (their producers, the serving scheduler and its warm pool,
+  are ROADMAP Queue 1 item 18);
 * :func:`update_device_memory_gauges`: live per-card memory from
   ``torch.cuda.memory_stats`` (no card: nothing reported, nothing fails);
 * :class:`ProfilerCapture`: a bounded, single-flight ``torch.profiler``
@@ -258,12 +259,15 @@ _degrade_fired = False
 def capture_on_perf_degraded(run_dir: str) -> dict | None:
     """One automatic capture per process when the throughput monitor
     reports ``perf_degraded``: a short window into
-    ``<run_dir>/profiles/degraded_h0``.  Returns the status row on the
-    call that started it, else None; a refused start keeps the shot."""
+    ``<run_dir>/profiles/degraded_h<p>`` (one directory a process: the run
+    directory is shared).  Returns the status row on the call that started
+    it, else None; a refused start keeps the shot."""
     global _degrade_fired
     if _degrade_fired or not _tm.enabled():
         return None
-    logdir = os.path.join(run_dir, "profiles", "degraded_h0")
+    from ..parallel.multihost import process_index
+
+    logdir = os.path.join(run_dir, "profiles", f"degraded_h{process_index()}")
     status = CAPTURE.start(logdir, min(2.0, CAPTURE.max_seconds()), reason="perf_degraded")
     if status.get("started"):
         _degrade_fired = True

@@ -71,6 +71,19 @@ def prometheus_text(registry=None) -> str:
     return "\n".join(lines) + ("\n" if lines else "")
 
 
+def _host_suffixed(path: str) -> str:
+    """``metrics.jsonl`` -> ``metrics.p<rank>.jsonl`` on a process other
+    than the root of a multi-process run; the root and a lone process keep
+    the plain name."""
+    from ..parallel import multihost
+
+    rank = multihost.process_index()
+    if multihost.process_count() > 1 and rank != 0:
+        root, ext = os.path.splitext(path)
+        return f"{root}.p{rank}{ext}"
+    return path
+
+
 class MetricsDumper:
     """Cadenced ``metrics.jsonl`` writer for headless runs.
 
@@ -78,11 +91,12 @@ class MetricsDumper:
     line every ``every_s`` seconds: ``{"t", "wall_s", "step", "snapshot",
     "delta"}``, ``delta`` the registry's change since this dumper's
     previous line.  :meth:`dump` appends one unconditionally (run end,
-    drain).  One process writes the plain path (the per-host suffixes of a
-    multi-process run wait for ROADMAP Queue 1 item 17.2)."""
+    drain).  A process other than the root writes ``<stem>.p<rank><ext>``
+    (:func:`_host_suffixed`), so processes sharing a run directory never
+    interleave lines in one file."""
 
     def __init__(self, path: str, every_s: float = 60.0, registry=None):
-        self.path = path
+        self.path = _host_suffixed(path)
         self.every_s = float(every_s)
         self.registry = registry if registry is not None else _metrics.default_registry()
         self._t0 = _time.monotonic()

@@ -10,7 +10,9 @@ decade), so percentiles come from a bounded set of counters however many
 observations arrive.  :func:`set_enabled` turns recording off (every
 lookup then returns one shared no-op metric); there is no environment
 switch.  :func:`merge_snapshots` folds per-process snapshots into one
-view; :func:`gather_global_snapshot` is the local snapshot in one process.
+view; :func:`gather_global_snapshot` gathers every process's over
+``multihost.allgather_bytes`` and merges them (the local snapshot in one
+process).
 :class:`ThroughputMonitor` keeps a rolling steps/s baseline and reports a
 ``perf_degraded`` record when a boundary's rate falls below a share of it.
 """
@@ -426,11 +428,20 @@ def merge_snapshots(snaps: list[dict]) -> dict:
 
 
 def gather_global_snapshot(registry: MetricsRegistry | None = None) -> dict:
-    """The fleet snapshot.  In one process it is the local snapshot; the
-    gather across processes waits for the multi-process controllers
-    (ROADMAP Queue 1 item 17.2)."""
+    """The fleet snapshot: each process JSON-encodes its local snapshot, the
+    blobs ride :func:`..parallel.multihost.allgather_bytes`, and every
+    process merges the stack alike (a collective on more than one process).
+    In one process it is the local snapshot."""
+    import json
+
+    from ..parallel import multihost
+
     reg = registry if registry is not None else REGISTRY
-    return reg.snapshot()
+    local = reg.snapshot()
+    if multihost.process_count() == 1:
+        return local
+    blobs = multihost.allgather_bytes(json.dumps(local).encode("utf-8"))
+    return merge_snapshots([json.loads(blob.decode("utf-8")) for blob in blobs])
 
 
 # -- the SLO loop-closer ------------------------------------------------------

@@ -189,11 +189,14 @@ def dump_flight_record(run_dir: str, reason: str, step: int | None = None,
     """Dump the flight recorder into ``run_dir`` as
     ``flight_<reason>[_step<N>]_n<SEQ>.json`` (``SEQ`` a process-monotonic
     dump number); best effort, returns the path or None (and None while
-    tracing is off).  Request trace ids, which the JAX package adds from
-    its serving layer, are absent: that layer is not ported."""
+    tracing is off).  The dump carries the trace ids of the requests on
+    the card (:mod:`.reqtrace`)."""
     if not _ENABLED:
         return None
+    from . import reqtrace as _reqtrace
+
     seq = RECORDER.alloc_seq()
+    trace_ids = _reqtrace.active_ids()
     tag = reason.replace(" ", "_").replace("/", "_")
     name = f"flight_{tag}" + (f"_step{step}" if step is not None else "") + f"_n{seq:04d}.json"
     path = os.path.join(run_dir, name)
@@ -202,6 +205,8 @@ def dump_flight_record(run_dir: str, reason: str, step: int | None = None,
         if step is not None:
             info["step"] = step
         info["seq"] = seq
+        if trace_ids:
+            info["trace_ids"] = trace_ids
         return RECORDER.dump(path, reason=reason, extra=info)
     except OSError:
         return None

@@ -38,25 +38,43 @@ target, the directory fsynced); files carry the root attrs ``digest``
 (SHA-256 over every dataset's path, dtype, shape and bytes, in sorted
 path order), ``schema``, ``time``, ``dt`` and an optional ``step``; a
 reader verifies the digest first, and a truncated or malformed file raises
-:class:`CheckpointError` naming the file and what is missing.  Sharded
-two-phase checkpoints (a manifest plus per-host shard files) are not
-ported: a manifest raises :class:`CheckpointError`, though
-:func:`rotate_checkpoints` still sweeps orphan shard files.
+:class:`CheckpointError` naming the file and what is missing.
+
+Sharded two-phase checkpoints, the JAX package's layout file for file: each
+process writes the slabs it owns of every logical state leaf (global
+coordinates, complex leaves as ``_re``/``_im`` pairs, exact dtypes) to
+``<manifest>.shard<p>`` (:func:`write_shard_file`), the processes exchange
+digests, and the root writes the manifest whose presence commits the
+checkpoint (:func:`commit_sharded_snapshot`).  A serial model's leaf is one
+slab; on a :class:`..parallel.Mesh` each rank's owned region (its x-pencil
+columns, the pencil padding cut off) is one; each distinct region is
+written once, by the lowest process holding it (every process of the
+port holds its whole model, so process 0 writes them all and the others
+write empty shards).  The restore (:func:`read_sharded_snapshot`) is
+topology-elastic: it assembles each leaf from a slab catalog, whatever
+mesh, process count or member layout wrote it, and places it as the
+target model holds it; a resolution, dtype or member-count mismatch is
+refused, and a missing or corrupt shard fails the whole checkpoint.  The
+catalog can also be filled from staged :class:`ShardSnapshot` objects in
+memory (:func:`restore_sharded_snapshots`), which needs no ``h5py``.
+Parked continuations (``parked/<id>/``, :func:`write_continuation`) ride
+the same two phases.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import os
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 
 import numpy as np
 import torch
 
 from ..bases import BaseKind
 from ..field import grid_deltas
-from .fsutil import fsync_dir
+from .fsutil import atomic_write_text, fsync_dir
 
 _VARS = (("ux", "velx"), ("uy", "vely"), ("temp", "temp"), ("pres", "pres"))
 
@@ -123,12 +141,6 @@ def _verify_open_file(h5, filename: str) -> dict:
     return attrs
 
 
-def _sharded_error(filename: str) -> CheckpointError:
-    return CheckpointError(
-        filename, "a sharded checkpoint manifest: sharded two-phase checkpoints are not "
-        "ported (ROADMAP.md, Queue 1 item 17.2); write a gathered snapshot instead")
-
-
 @contextmanager
 def _open_checkpoint(filename: str):
     """Open a snapshot for reading: h5py's bare ``OSError`` (a truncated or
@@ -164,13 +176,18 @@ def is_sharded_checkpoint(filename: str) -> bool:
 
 
 def verify_snapshot(filename: str) -> dict:
-    """Open and digest-verify a snapshot; returns its root attrs.  Raises
-    :class:`CheckpointError` when the file is unreadable, its content hash
-    does not match its digest, or it is a sharded manifest."""
+    """Open and digest-verify a snapshot; returns its root attrs.  For a
+    sharded checkpoint's manifest the check is end to end: the manifest's
+    own digest, then every shard file of its shard map (present, readable,
+    its content hashing to the digest both the manifest and the shard
+    record), so any missing or corrupt shard rejects the whole checkpoint.
+    Raises :class:`CheckpointError` when the file is unreadable or a hash
+    does not match."""
     with _open_checkpoint(filename) as h5:
         attrs = _verify_open_file(h5, filename)
-    if attrs.get("sharded"):
-        raise _sharded_error(filename)
+        meta = _read_manifest_meta(h5, filename) if attrs.get("sharded") else None
+    if meta is not None:
+        _verify_shard_set(filename, meta)
     return attrs
 
 
@@ -235,12 +252,13 @@ def snapshot_digest(datasets) -> str:
 
 def _atomic_h5_write(filename: str, body, step: int | None = None,
                      time: float | None = None, dt: float | None = None,
-                     digest_items=None) -> None:
+                     digest_items=None, digest: str | None = None) -> None:
     """Write an HDF5 file atomically: ``body(h5)`` fills a ``.tmp``
-    sibling, the root attrs (schema, step, time, dt and the content digest,
-    from ``digest_items`` when given, else read back) are stamped, the file
-    is flushed and fsynced, ``os.replace``d over the target, and the
-    directory fsynced (strictly: a failed dirsync fails the write)."""
+    sibling, the root attrs (schema, step, time, dt and the content digest:
+    ``digest`` when given, else from ``digest_items``, else read back) are
+    stamped, the file is flushed and fsynced, ``os.replace``d over the
+    target, and the directory fsynced (strictly: a failed dirsync fails
+    the write)."""
     import h5py
 
     dirname = os.path.dirname(filename) or "."
@@ -256,8 +274,10 @@ def _atomic_h5_write(filename: str, body, step: int | None = None,
                 h5.attrs["time"] = float(time)
             if dt is not None:
                 h5.attrs["dt"] = float(dt)
-            h5.attrs["digest"] = (snapshot_digest(digest_items) if digest_items is not None
-                                  else content_digest(h5))
+            if digest is None:
+                digest = (snapshot_digest(digest_items) if digest_items is not None
+                          else content_digest(h5))
+            h5.attrs["digest"] = digest
             h5.flush()
         fd = os.open(tmp, os.O_RDONLY)
         try:
@@ -306,6 +326,13 @@ def latest_checkpoint(run_dir: str) -> str | None:
             continue
         return path
     return None
+
+
+def shard_path(manifest: str, index: int) -> str:
+    """Process ``index``'s shard file of a sharded checkpoint,
+    ``<manifest>.shard<p>`` (the suffix keeps it out of
+    :func:`checkpoint_files`: only the manifest is a resume candidate)."""
+    return f"{manifest}.shard{int(index)}"
 
 
 def checkpoint_shard_files(manifest: str) -> list[str]:
@@ -727,9 +754,11 @@ def _restore_ensemble_snapshot(ens, group) -> None:
 
 def read_snapshot(model, filename: str) -> None:
     """Restore a flow snapshot (digest-verified when the file carries one;
-    a malformed file raises :class:`CheckpointError`)."""
+    a malformed file raises :class:`CheckpointError`).  A sharded
+    checkpoint's manifest goes to :func:`read_sharded_snapshot`."""
     if is_sharded_checkpoint(filename):
-        raise _sharded_error(filename)
+        read_sharded_snapshot(model, filename)
+        return
     with _open_checkpoint(filename) as h5:
         _verify_open_file(h5, filename)
         _restore_snapshot(model, h5)
@@ -740,10 +769,693 @@ def read_ensemble_snapshot(ens, filename: str) -> None:
     """Restore an ensemble snapshot written by :func:`write_ensemble_snapshot`
     (the member count may differ from the ensemble's: the state, mask and
     counts are rebuilt at the file's K; each member interpolates on a
-    resolution change as a single restart does)."""
+    resolution change as a single restart does).  A sharded manifest goes to
+    :func:`read_sharded_snapshot` (the same K, bit for bit)."""
     if is_sharded_checkpoint(filename):
-        raise _sharded_error(filename)
+        read_sharded_snapshot(ens, filename)
+        return
     with _open_checkpoint(filename) as h5:
         _verify_open_file(h5, filename)
         _restore_ensemble_snapshot(ens, h5)
     print(f" <== {filename} ({ens.k} members)")
+
+
+# -- sharded two-phase checkpoints --------------------------------------------------
+
+
+def _process_index() -> int:
+    from ..parallel.multihost import process_index
+
+    return process_index()
+
+
+def _process_count() -> int:
+    from ..parallel.multihost import process_count
+
+    return process_count()
+
+
+def _shard_crash_hook(point: str, step, crash) -> None:
+    """The deterministic crash inside the two-phase window: ``crash`` (a spec
+    ``<after_shard|before_manifest>@<step>[:host<p>]``, the JAX package's
+    ``RUSTPDE_SHARD_CRASH``, parsed strictly) hard-kills the matching
+    process (``os._exit(9)``) when the writer reaches ``point`` for the
+    checkpoint at ``step``:
+
+    * ``after_shard``: this process's shard is fsynced and in place, the
+      commit has not run;
+    * ``before_manifest``: the root passed the barrier and the digest
+      exchange but has not written the manifest (only the root reaches it)."""
+    from .faults import parse_shard_crash_spec
+
+    plan = parse_shard_crash_spec(crash)
+    if plan is None or step is None:
+        return
+    want, at, host = plan
+    if want != point or at != int(step):
+        return
+    if host is not None and _process_index() != host:
+        return
+    os._exit(9)
+
+
+@dataclasses.dataclass
+class StateLeaf:
+    """One logical leaf of a sharded checkpoint as a model holds it:
+    ``tensor`` (with ``lead`` member dims in front) is the global array, or,
+    when ``space`` (a pencil space) is given, its rank-stacked x-pencils
+    ``(..., P, n0p, n1p / P)`` with the pencil padding."""
+
+    tensor: torch.Tensor
+    space: object = None
+    lead: int = 0
+
+    @property
+    def shape(self) -> tuple:
+        if self.space is None:
+            return tuple(int(s) for s in self.tensor.shape)
+        return tuple(int(s) for s in self.tensor.shape[: self.lead]) + \
+            tuple(int(s) for s in self.space.shape_spectral)
+
+    @property
+    def dtype(self) -> np.dtype:
+        return torch.empty(0, dtype=self.tensor.dtype).numpy().dtype
+
+    def slabs(self) -> list:
+        """``[(offset, numpy_block), ...]``: the leaf's distinct regions in
+        global coordinates (one device-to-host copy of the leaf, then
+        views): the whole array, or each rank's owned columns."""
+        host = self.tensor.detach().cpu().numpy()
+        if self.space is None:
+            return [((0,) * host.ndim, host)]
+        n0, n1 = self.space.shape_spectral
+        nranks, width = host.shape[-3], host.shape[-1]
+        zeros = (0,) * self.lead
+        out = []
+        for r in range(nranks):
+            c0, c1 = r * width, min((r + 1) * width, n1)
+            if c1 <= c0:
+                continue  # a rank that holds only padding
+            block = host[..., r, :n0, : c1 - c0]
+            out.append((zeros + (0, c0), np.ascontiguousarray(block)))
+        return out
+
+
+def _as_leaf(leaf) -> StateLeaf:
+    return leaf if isinstance(leaf, StateLeaf) else StateLeaf(leaf)
+
+
+def _storage_names(name: str, dtype) -> list[str]:
+    """On-disk dataset names of one logical array: a complex one splits into
+    a ``_re``/``_im`` float pair, a real one keeps its exact dtype."""
+    if np.issubdtype(np.dtype(dtype), np.complexfloating):
+        return [f"{name}_re", f"{name}_im"]
+    return [name]
+
+
+def _slab_ds_name(storage: str, offset: tuple) -> str:
+    """A slab's dataset path in a shard file; the offset is in the NAME, so
+    the shard's digest covers placement as well as bytes."""
+    return f"{storage}/slab_" + "_".join(str(int(o)) for o in offset)
+
+
+def _slab_offset_of(dsname: str) -> tuple | None:
+    base = dsname.rsplit("/", 1)[-1]
+    if not base.startswith("slab_"):
+        return None
+    try:
+        return tuple(int(p) for p in base[len("slab_"):].split("_"))
+    except ValueError:
+        return None
+
+
+@dataclasses.dataclass
+class ShardSnapshot:
+    """One process's share of a sharded checkpoint, fetched to the host.
+
+    ``slabs`` is ``[(storage_path, offset, numpy_array), ...]`` (only the
+    slabs this process owns), ``root_datasets`` the manifest's root data
+    (:class:`HostSnapshot`-style tuples: time, parameters, an ensemble's
+    bookkeeping, the integrity digest), ``meta`` the dataset catalog and the
+    topology the root embeds in the manifest.  It holds no tensor: writing
+    it (:func:`write_shard_file`) can run on a background worker."""
+
+    shard_index: int
+    shard_count: int
+    slabs: list
+    root_datasets: list
+    meta: dict
+    step: int | None = None
+    time: float | None = None
+    dt: float | None = None
+    digest: str | None = None  # set once the shard is written (or staged)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(arr.nbytes) for _, _, arr in self.slabs)
+
+    def items(self) -> list:
+        """The shard file's datasets as ``(path, array, "raw")``."""
+        return [(_slab_ds_name(storage, offset), arr, "raw")
+                for storage, offset, arr in self.slabs]
+
+
+def _pde_mesh(pde):
+    mesh = getattr(pde, "mesh", None)
+    if mesh is None and hasattr(pde, "model"):
+        mesh = getattr(pde.model, "mesh", None)
+    return mesh
+
+
+def sharded_snapshot_to_host(pde, step: int | None = None) -> ShardSnapshot:
+    """Fetch THIS process's shard of a model's or an ensemble's snapshot to
+    the host (one device-to-host copy a leaf); no collective."""
+    proc = _process_index()
+    datasets_meta: dict[str, dict] = {}
+    slabs: list = []
+    for name, leaf in pde.snapshot_state_items():
+        leaf = _as_leaf(leaf)
+        dtype = leaf.dtype
+        storage = _storage_names(name, dtype)
+        datasets_meta[name] = {"shape": list(leaf.shape), "dtype": str(dtype),
+                               "storage": storage}
+        if proc != 0:
+            continue  # every process holds the whole model: the lowest owns it
+        for offset, block in leaf.slabs():
+            if len(storage) == 2:
+                slabs.append((storage[0], offset, np.ascontiguousarray(block.real)))
+                slabs.append((storage[1], offset, np.ascontiguousarray(block.imag)))
+            else:
+                slabs.append((storage[0], offset, block))
+    mesh = _pde_mesh(pde)
+    meta = {"datasets": datasets_meta,
+            "mesh": {"process_count": _process_count(),
+                     "devices": int(mesh.nranks) if mesh is not None else 1,
+                     "axes": ["p"] if mesh is not None else []}}
+    return ShardSnapshot(shard_index=proc, shard_count=_process_count(), slabs=slabs,
+                         root_datasets=pde.snapshot_root_items(), meta=meta, step=step,
+                         time=float(pde.get_time()), dt=float(pde.get_dt()))
+
+
+def write_shard_file(snap: ShardSnapshot, manifest: str, crash=None) -> str:
+    """Phase one for one process: serialize ``snap``'s slabs to its shard
+    file of ``manifest``, atomic and stamped with the digest of the
+    in-memory slabs (no read-back); host work only.  Sets ``snap.digest``
+    and returns the path.  ``crash``: the ``after_shard`` hook's spec."""
+    filename = shard_path(manifest, snap.shard_index)
+    items = snap.items()
+    digest = snapshot_digest(items)
+
+    def body(h5):
+        for dspath, arr, _ in items:
+            gpath, _, dname = dspath.rpartition("/")
+            grp = h5.require_group(gpath) if gpath else h5
+            grp.create_dataset(dname, data=arr)
+        h5.attrs["shard_index"] = int(snap.shard_index)
+        h5.attrs["shard_count"] = int(snap.shard_count)
+
+    _atomic_h5_write(filename, body, step=snap.step, time=snap.time, dt=snap.dt, digest=digest)
+    snap.digest = digest
+    _shard_crash_hook("after_shard", snap.step, crash)
+    return filename
+
+
+def _pack_shard_report(snap: ShardSnapshot, ok: bool) -> np.ndarray:
+    """(digest, nbytes, ok) as a fixed-size uint8 row for the allgather."""
+    buf = np.zeros(41, np.uint8)
+    if snap.digest is not None:
+        buf[:32] = np.frombuffer(bytes.fromhex(snap.digest), np.uint8)
+    buf[32:40] = np.frombuffer(np.int64(snap.nbytes).tobytes(), np.uint8)
+    buf[40] = 1 if (ok and snap.digest is not None) else 0
+    return buf
+
+
+def exchange_shard_reports(snap: ShardSnapshot, local_ok: bool = True) -> dict:
+    """The collective half of a commit before the manifest: the barrier
+    (every shard durable), then one allgather of each process's digest,
+    byte count and ok flag.  Returns ``{"ok", "digests", "nbytes",
+    "barrier_s"}``; ``ok`` derives only from the gathered flags, so every
+    process takes the same branch."""
+    import time as _time
+
+    from ..parallel import multihost
+
+    t0 = _time.monotonic()
+    multihost.sync_hosts("rustpde-ckpt-shards")
+    barrier_s = _time.monotonic() - t0
+    reports = np.atleast_2d(np.asarray(multihost.allgather_host(_pack_shard_report(snap, local_ok)),
+                                       np.uint8))
+    return {"ok": all(bool(row[40]) for row in reports),
+            "digests": [bytes(row[:32]).hex() for row in reports],
+            "nbytes": [int(np.frombuffer(bytes(row[32:40]), np.int64)[0]) for row in reports],
+            "barrier_s": barrier_s}
+
+
+def commit_sharded_snapshot(snap: ShardSnapshot, manifest: str, local_ok: bool = True,
+                            crash=None, keep=None) -> dict:
+    """Phase two (collective: every process calls it at the same point):
+    :func:`exchange_shard_reports`, then the ROOT atomically writes the
+    manifest, whose presence commits the checkpoint, and a second barrier
+    keeps any process from acting on it before it exists.
+
+    Returns ``{"ok", "shards", "bytes_host", "bytes_total", "barrier_s"}``;
+    ``ok=False`` (a process failed its shard) means no manifest was written
+    and the previous checkpoint is still the newest valid one.  ``crash``:
+    the ``before_manifest`` hook's spec.  ``keep``: where the commit lands
+    instead of the HDF5 manifest, called on every process after the root's
+    ``before_manifest`` point (the in-memory store of
+    :mod:`.resilience`)."""
+    from ..parallel import multihost
+
+    rep = exchange_shard_reports(snap, local_ok)
+    stats = {"ok": rep["ok"], "shards": int(snap.shard_count), "bytes_host": int(snap.nbytes),
+             "bytes_total": int(sum(rep["nbytes"])), "barrier_s": round(rep["barrier_s"], 3)}
+    if not rep["ok"]:
+        multihost.sync_hosts("rustpde-ckpt-abort")
+        return stats
+    root = _process_index() == 0
+    if root:
+        _shard_crash_hook("before_manifest", snap.step, crash)
+    if keep is not None:
+        keep()
+    elif root:
+        _write_manifest(snap, manifest, rep)
+    multihost.sync_hosts("rustpde-ckpt-commit")
+    return stats
+
+
+def _write_manifest(snap: ShardSnapshot, manifest: str, rep: dict) -> None:
+    """The root's manifest file: the root datasets, the shard list with
+    each shard's digest and size, written atomically."""
+    meta = dict(snap.meta)
+    meta["shards"] = [{"file": os.path.basename(shard_path(manifest, i)), "process": i,
+                       "digest": rep["digests"][i], "nbytes": rep["nbytes"][i]}
+                      for i in range(snap.shard_count)]
+
+    def body(h5):
+        for path, data, kind in snap.root_datasets:
+            gpath, _, name = path.rpartition("/")
+            grp = h5.require_group(gpath) if gpath else h5
+            if kind == "field":
+                _write_array(grp, name, data)
+            else:
+                grp.create_dataset(name, data=data)
+        h5.create_dataset(_MANIFEST_DS, data=np.bytes_(json.dumps(meta, sort_keys=True)))
+        h5.attrs["sharded"] = int(snap.shard_count)
+
+    _atomic_h5_write(manifest, body, step=snap.step, time=snap.time, dt=snap.dt)
+
+
+def write_sharded_snapshot(pde, filename: str, step: int | None = None, crash=None) -> dict:
+    """The blocking collective sharded checkpoint: stage this process's
+    slabs, write and fsync its shard, then the two-phase commit.  Raises
+    :class:`CheckpointError` on every process when ANY shard write failed
+    (no manifest, the previous checkpoint intact); returns the commit
+    stats."""
+    snap = sharded_snapshot_to_host(pde, step=step)
+    local_error: Exception | None = None
+    try:
+        write_shard_file(snap, filename, crash=crash)
+    except Exception as exc:
+        local_error = exc
+    stats = commit_sharded_snapshot(snap, filename, local_ok=local_error is None, crash=crash)
+    if not stats["ok"]:
+        raise CheckpointError(
+            filename, "sharded checkpoint aborted: a host failed its shard write "
+            "(no manifest committed; the previous checkpoint is intact)"
+            + (f"; local cause: {local_error}" if local_error else "")) from local_error
+    return stats
+
+
+def _read_manifest_meta(h5, filename: str) -> dict:
+    try:
+        raw = h5[_MANIFEST_DS][()]
+    except KeyError as exc:
+        raise _missing(h5, _MANIFEST_DS) from exc
+    if isinstance(raw, np.ndarray):
+        raw = raw.item()
+    if isinstance(raw, bytes):
+        raw = raw.decode("utf-8")
+    try:
+        return json.loads(raw)
+    except ValueError as exc:
+        raise CheckpointError(filename, f"unparseable manifest JSON: {exc}") from exc
+
+
+def _verify_shard_set(manifest: str, meta: dict, full: bool = True) -> None:
+    """Verify every shard ``meta`` names against its recorded digest;
+    ``full=False`` checks presence and the shard's own digest stamp only
+    (the non-root processes at a restore: the root's scan re-hashed the
+    set already)."""
+    dirname = os.path.dirname(manifest) or "."
+    for entry in meta.get("shards", []):
+        path = os.path.join(dirname, entry["file"])
+        if not os.path.exists(path):
+            raise CheckpointError(manifest, f"missing shard file {entry['file']!r} — the shard "
+                                  "set is incomplete (partial copy or deleted shard)")
+        with _open_checkpoint(path) as sh5:
+            bad = _attrs_of(sh5).get("digest") != entry["digest"]
+            if not bad and full:
+                bad = content_digest(sh5) != entry["digest"]
+            if bad:
+                raise CheckpointError(manifest, f"shard {entry['file']!r} digest mismatch (bit "
+                                      "rot or a partially copied shard)")
+
+
+class _SlabCatalog:
+    """Every slab of one shard set by storage path, each as ``(read,
+    offset, shape)`` where ``read(selection)`` returns the selected part:
+    the region reads of open shard files (:meth:`from_files`) or of staged
+    :class:`ShardSnapshot` arrays (:meth:`from_snapshots`)."""
+
+    def __init__(self):
+        self.slabs: dict[str, list] = {}
+
+    @classmethod
+    def from_files(cls, stack: ExitStack, manifest: str, meta: dict) -> "_SlabCatalog":
+        import h5py
+
+        cat = cls()
+        dirname = os.path.dirname(manifest) or "."
+        for entry in meta.get("shards", []):
+            path = os.path.join(dirname, entry["file"])
+            try:
+                h5 = stack.enter_context(h5py.File(path, "r"))
+            except OSError as exc:
+                raise CheckpointError(manifest, f"unreadable shard: {exc}") from exc
+
+            def visit(name, obj, h5=h5):
+                if not isinstance(obj, h5py.Dataset):
+                    return
+                offset = _slab_offset_of(name)
+                if offset is None:
+                    return
+                cat.slabs.setdefault(name.rsplit("/", 1)[0], []).append(
+                    (lambda sel, ds=name: h5[ds][sel], offset, tuple(obj.shape)))
+
+            h5.visititems(visit)
+        return cat
+
+    @classmethod
+    def from_snapshots(cls, snaps) -> "_SlabCatalog":
+        cat = cls()
+        for snap in snaps:
+            for storage, offset, arr in snap.slabs:
+                cat.slabs.setdefault(storage, []).append(
+                    (lambda sel, a=arr: a[sel], tuple(offset), tuple(arr.shape)))
+        return cat
+
+    def read_region(self, manifest: str, storage: str, region, dtype):
+        """Assemble the rectangular ``region`` (``((start, stop), ...)``) of
+        ``storage`` from the slabs that intersect it; a region the set does
+        not cover raises :class:`CheckpointError`."""
+        sizes = [e - s for s, e in region]
+        out = np.zeros(sizes, dtype=np.dtype(dtype))
+        filled = np.zeros(sizes, dtype=bool)
+        for read, offset, sshape in self.slabs.get(storage, []):
+            src_sel, dst_sel = [], []
+            for (rs, re_), so, sn in zip(region, offset, sshape):
+                lo, hi = max(rs, so), min(re_, so + sn)
+                if lo >= hi:
+                    break
+                src_sel.append(slice(lo - so, hi - so))
+                dst_sel.append(slice(lo - rs, hi - rs))
+            else:
+                out[tuple(dst_sel)] = read(tuple(src_sel))
+                filled[tuple(dst_sel)] = True
+        if not filled.all():
+            raise CheckpointError(manifest, f"shard set does not cover dataset {storage!r} region "
+                                  f"{[tuple(r) for r in region]}")
+        return out
+
+    def read_logical(self, manifest: str, dmeta: dict, region):
+        """One logical dataset's region, re/im merged back to its dtype."""
+        dtype = np.dtype(dmeta["dtype"])
+        storage = dmeta["storage"]
+        if len(storage) == 2:
+            fdt = np.zeros(0, dtype).real.dtype
+            re_ = self.read_region(manifest, storage[0], region, fdt)
+            im = self.read_region(manifest, storage[1], region, fdt)
+            return (re_ + 1j * im).astype(dtype, copy=False)
+        return self.read_region(manifest, storage[0], region, dtype)
+
+
+def _restore_from_catalog(pde, filename: str, meta: dict, attrs: dict, root: dict,
+                          catalog: _SlabCatalog) -> None:
+    """Assemble every leaf the model holds from ``catalog`` and hand them,
+    as global host arrays, to ``pde.apply_restored_state`` (which places
+    them as the model holds them: pencils on a mesh)."""
+    if hasattr(pde, "k") and "members" in root:
+        k = int(np.asarray(root["members"]))
+        if k != int(pde.k):
+            raise CheckpointError(
+                filename, f"checkpoint holds {k} members but the ensemble has {pde.k}; "
+                "sharded restore is K-fixed (the gathered per-member format is the K-elastic one)")
+    updates: dict[str, np.ndarray] = {}
+    for name, leaf in pde.snapshot_state_items():
+        leaf = _as_leaf(leaf)
+        dmeta = meta.get("datasets", {}).get(name)
+        if dmeta is None:
+            if name.startswith("stats/"):
+                print(f"sharded checkpoint lacks {name!r}; running averages restart from zero")
+                continue
+            raise CheckpointError(filename, f"manifest lacks dataset {name!r}")
+        if tuple(dmeta["shape"]) != leaf.shape:
+            raise CheckpointError(
+                filename, f"{name}: checkpoint shape {tuple(dmeta['shape'])} != model shape "
+                f"{leaf.shape} — sharded restore is topology-elastic but resolution-fixed (use "
+                "the gathered format to interpolate)")
+        if str(np.dtype(dmeta["dtype"])) != str(leaf.dtype):
+            raise CheckpointError(filename, f"{name}: checkpoint dtype {dmeta['dtype']} != model "
+                                  f"dtype {leaf.dtype} (precision mode mismatch)")
+        updates[name.rsplit("/", 1)[-1]] = catalog.read_logical(
+            filename, dmeta, tuple((0, n) for n in leaf.shape))
+    pde.apply_restored_state(updates, attrs, root)
+
+
+def read_sharded_snapshot(pde, filename: str) -> None:
+    """Topology-elastic restore of a sharded checkpoint onto ``pde`` (a
+    model on any route, serial or on a mesh of any rank count, or an
+    ensemble of the same K): the writer's mesh, process count and slab
+    layout do not matter, and the restored state is bit for bit the
+    writer's.  Resolution and dtype changes are refused
+    (:class:`CheckpointError`; the gathered format interpolates)."""
+    with _open_checkpoint(filename) as h5:
+        attrs = _verify_open_file(h5, filename)
+        if not attrs.get("sharded"):
+            raise CheckpointError(filename, "not a sharded-checkpoint manifest")
+        meta = _read_manifest_meta(h5, filename)
+        root = {name: np.asarray(obj) for name, obj in h5.items()
+                if name != _MANIFEST_DS and hasattr(obj, "shape")}
+    # the root re-hashes the whole shard set; the other processes check the
+    # shards' digest stamps only (the root's scan chose this checkpoint)
+    _verify_shard_set(filename, meta, full=_process_index() == 0)
+    with ExitStack() as stack:
+        catalog = _SlabCatalog.from_files(stack, filename, meta)
+        _restore_from_catalog(pde, filename, meta, attrs, root, catalog)
+    print(f" <== {filename} (sharded, {int(attrs['sharded'])} shard(s))")
+
+
+def stage_shard_digest(snap: ShardSnapshot) -> str:
+    """Stamp a staged shard with the digest its file would carry (the
+    in-memory counterpart of :func:`write_shard_file`)."""
+    snap.digest = snapshot_digest(snap.items())
+    return snap.digest
+
+
+def restore_sharded_snapshots(pde, snaps, label: str = "<memory>") -> None:
+    """Restore from staged :class:`ShardSnapshot` objects (every process's,
+    root's first among them) through the same catalog and placement as the
+    files, with no ``h5py``: each shard stamped with a digest must still
+    hash to it, and the root's ``root_datasets`` and ``meta`` stand for the
+    manifest's."""
+    snaps = sorted(snaps, key=lambda s: s.shard_index)
+    for snap in snaps:
+        if snap.digest is not None and snapshot_digest(snap.items()) != snap.digest:
+            raise CheckpointError(label, f"shard {snap.shard_index} digest mismatch")
+    head = snaps[0]
+    root = {}
+    for path, data, kind in head.root_datasets:
+        for name, arr in _stored_arrays(path, data, kind):
+            root[name] = arr.reshape(np.shape(data)) if kind == "raw" else arr
+    attrs = {"schema": SCHEMA_VERSION, "sharded": int(head.shard_count), "time": head.time,
+             "dt": head.dt}
+    if head.step is not None:
+        attrs["step"] = head.step
+    _restore_from_catalog(pde, label, head.meta, attrs, root, _SlabCatalog.from_snapshots(snaps))
+
+
+# -- parked continuations -------------------------------------------------------------
+#
+# A parked mid-flight member state persists as one directory a request,
+# two-phase like every durable write here:
+#
+#     parked/<request-id>/shard_00000.h5   per-process state slabs,
+#                                          digest-stamped, atomic
+#     parked/<request-id>/manifest.json    the COMMIT MARKER (atomic
+#                                          rename + dirsync)
+#
+# so any replica that later claims the request resumes it mid-flight.
+
+CONTINUATION_MANIFEST = "manifest.json"
+
+
+def continuation_dir(run_dir: str, request_id: str) -> str:
+    """``<run_dir>/parked/<id>``: one continuation directory a request."""
+    return os.path.join(run_dir, "parked", str(request_id))
+
+
+def continuation_exists(cont_dir: str) -> bool:
+    """Whether a COMMITTED continuation is present (the manifest is the
+    marker)."""
+    return os.path.exists(os.path.join(cont_dir, CONTINUATION_MANIFEST))
+
+
+def continuation_meta(cont_dir: str) -> tuple[int, float] | None:
+    """``(base_steps, time_base)`` of a committed continuation (host JSON
+    only), None when there is none."""
+    try:
+        with open(os.path.join(cont_dir, CONTINUATION_MANIFEST), encoding="utf-8") as fh:
+            record = json.load(fh)
+        return int(record["base"]), float(record["time_base"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def continuation_record(cont_dir: str) -> dict | None:
+    """The whole committed-continuation manifest (progress, shard table, the
+    writer's ``meta``), None when there is none."""
+    try:
+        with open(os.path.join(cont_dir, CONTINUATION_MANIFEST), encoding="utf-8") as fh:
+            record = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    if "base" not in record or "time_base" not in record:
+        return None
+    return record
+
+
+def write_continuation(cont_dir: str, state, *, base: int, time_base: float,
+                       meta: dict | None = None) -> str:
+    """Persist one parked member state, two-phase (collective on a
+    multi-process runtime): each process writes its state to
+    ``shard_<p>.h5`` (fsynced, digest-stamped), the digests are exchanged,
+    and the ROOT writes the manifest whose presence commits it.  ``state``
+    is a NamedTuple of tensors (or arrays) in the global layout.  Raises
+    :class:`CheckpointError` when a shard write failed (no manifest)."""
+    from ..parallel import multihost
+
+    proc = _process_index()
+    nproc = _process_count()
+    fields = list(state._fields)
+    slabs = {name: multihost.host_local_array(getattr(state, name)) for name in fields}
+    items = [(f"state/{name}", arr, "raw") for name, arr in sorted(slabs.items())]
+    digest = snapshot_digest(items)
+    shard_file = os.path.join(cont_dir, f"shard_{proc:05d}.h5")
+
+    def body(h5):
+        grp = h5.require_group("state")
+        for name in fields:
+            grp.create_dataset(name, data=slabs[name])
+        h5.attrs["shard_index"] = int(proc)
+        h5.attrs["shard_count"] = int(nproc)
+
+    local_error: Exception | None = None
+    try:
+        _atomic_h5_write(shard_file, body, step=int(base), digest=digest)
+    except Exception as exc:  # the commit exchange decides
+        local_error = exc
+    if nproc == 1:
+        digests, oks = [digest], [local_error is None]
+    else:
+        rows = multihost.allgather_bytes(
+            json.dumps({"digest": digest, "ok": local_error is None}).encode("utf-8"))
+        parsed = [json.loads(r.decode("utf-8")) for r in rows]
+        digests = [p["digest"] for p in parsed]
+        oks = [bool(p["ok"]) for p in parsed]
+    manifest = os.path.join(cont_dir, CONTINUATION_MANIFEST)
+    if not all(oks):
+        if nproc > 1:
+            multihost.sync_hosts("rustpde-continuation-abort")
+        raise CheckpointError(manifest, "continuation persist aborted: a host failed its shard "
+                              "write (no manifest committed)"
+                              + (f"; local cause: {local_error}" if local_error else "")
+                              ) from local_error
+    if proc == 0:
+        record = {"schema": SCHEMA_VERSION, "base": int(base), "time_base": float(time_base),
+                  "fields": fields,
+                  "shards": [{"file": f"shard_{i:05d}.h5", "digest": d}
+                             for i, d in enumerate(digests)],
+                  "meta": dict(meta or {})}
+        # the commit marker: a failed dirsync reports it NOT committed
+        atomic_write_text(manifest, json.dumps(record, sort_keys=True), strict=True)
+    if nproc > 1:
+        multihost.sync_hosts("rustpde-continuation-commit")
+    return manifest
+
+
+def read_continuation(cont_dir: str, template_state):
+    """Restore a committed continuation: ``(state, base, time_base)``.  Each
+    process reads ITS shard (digest-verified end to end) and checks every
+    leaf's shape and dtype against ``template_state`` (a donor state of the
+    claiming bucket); the leaves come back as tensors on the template's
+    device.  A missing, uncommitted or corrupt continuation raises
+    :class:`CheckpointError`."""
+    manifest = os.path.join(cont_dir, CONTINUATION_MANIFEST)
+    try:
+        with open(manifest, encoding="utf-8") as fh:
+            record = json.load(fh)
+    except (OSError, ValueError) as exc:
+        raise CheckpointError(manifest, f"no committed continuation: {exc}") from exc
+    fields = list(record.get("fields", ()))
+    if fields != list(template_state._fields):
+        raise CheckpointError(manifest, f"continuation fields {fields} != state fields "
+                              f"{list(template_state._fields)} (model kind changed?)")
+    proc = _process_index()
+    shards = record.get("shards", [])
+    if proc >= len(shards):
+        raise CheckpointError(manifest, f"continuation holds {len(shards)} shard(s) but this is "
+                              f"process {proc}: written under a different topology")
+    path = os.path.join(cont_dir, shards[proc]["file"])
+    with _open_checkpoint(path) as h5:
+        if _attrs_of(h5).get("digest") != shards[proc]["digest"]:
+            raise CheckpointError(manifest, f"shard {shards[proc]['file']!r} digest mismatch")
+        if content_digest(h5) != shards[proc]["digest"]:
+            raise CheckpointError(manifest, f"shard {shards[proc]['file']!r} content mismatch")
+        slabs = {name: np.asarray(h5["state"][name]) for name in fields}
+    leaves = {}
+    for name in fields:
+        tmpl = getattr(template_state, name)
+        slab = slabs[name]
+        want_dtype = (torch.empty(0, dtype=tmpl.dtype).numpy().dtype if torch.is_tensor(tmpl)
+                      else np.dtype(tmpl.dtype))
+        if tuple(slab.shape) != tuple(tmpl.shape) or slab.dtype != want_dtype:
+            raise CheckpointError(manifest, f"{name}: continuation {slab.shape}/{slab.dtype} != "
+                                  f"state {tuple(tmpl.shape)}/{want_dtype}")
+        leaves[name] = (torch.as_tensor(slab, device=tmpl.device) if torch.is_tensor(tmpl)
+                        else slab)
+    return (type(template_state)(**leaves), int(record.get("base", 0)),
+            float(record.get("time_base", 0.0)))
+
+
+def remove_continuation(cont_dir: str) -> None:
+    """Retire a consumed continuation: the manifest first (an atomic
+    uncommit: a crash mid-removal leaves shards with no marker, which reads
+    as no continuation), then the shards and the directory."""
+    manifest = os.path.join(cont_dir, CONTINUATION_MANIFEST)
+    try:
+        os.remove(manifest)
+        fsync_dir(cont_dir)
+    except OSError:
+        pass
+    try:
+        for name in os.listdir(cont_dir):
+            try:
+                os.remove(os.path.join(cont_dir, name))
+            except OSError:
+                pass
+        fsync_dir(cont_dir)
+        os.rmdir(cont_dir)
+        fsync_dir(os.path.dirname(cont_dir) or ".")
+    except OSError:
+        pass

@@ -9,11 +9,11 @@ raises a typed :class:`FaultSpecError` naming the spec and the grammar.
 The runner parses its argument when it is built, before any step.
 
 The port reads no environment: where the JAX package validates its
-environment variables at start-up, the runner parses the ``fault=``
-argument it was given.  A ``host<p>`` scope parses as in the JAX package;
-the port runs one process, so the runner acts on host 0 and refuses any
-other host.  A ``gang<g>[member<m>]`` scope parses and acts only inside a
-bound gang campaign, which the serving layer (not ported) binds.
+environment variables at start-up, the runner parses the ``fault=`` and
+``shard_crash=`` arguments it was given.  A ``host<p>`` scope acts on
+process ``p`` of a multi-process run (:mod:`..parallel.multihost`; one
+process is process 0).  A ``gang<g>[member<m>]`` scope parses and acts
+only inside a bound gang campaign, which the serving scheduler binds.
 """
 
 from __future__ import annotations
@@ -126,13 +126,17 @@ class FaultPlan:
         self.bound_member = member
 
     def scoped_here(self) -> bool:
-        """Whether this process acts on the fault: unscoped, host 0 (the
-        port's one process), or the bound gang (member) the scope names."""
+        """Whether this process acts on the fault: unscoped, the process the
+        host scope names, or the bound gang (member) the scope names."""
         if self.gang is not None:
             if self.bound_gang != self.gang:
                 return False
             return self.member is None or self.bound_member == self.member
-        return self.host is None or self.host == 0
+        if self.host is None:
+            return True
+        from ..parallel.multihost import process_index
+
+        return self.host == process_index()
 
 
 _SHARD_CRASH_EXPECTED = "<after_shard|before_manifest>@<step>[:host<p>]"
@@ -140,8 +144,7 @@ _SHARD_CRASH_EXPECTED = "<after_shard|before_manifest>@<step>[:host<p>]"
 
 def parse_shard_crash_spec(spec: str | None) -> tuple[str, int, int | None] | None:
     """Strict parse of a two-phase-commit crash spec into ``(point, step,
-    host)`` (the sharded checkpoints that act on it are not ported; the
-    grammar is kept so a spec is judged as the JAX package judges it)."""
+    host)`` (:func:`..utils.checkpoint._shard_crash_hook` acts on it)."""
     if not spec:
         return None
     point, sep, rest = spec.partition("@")

@@ -9,7 +9,9 @@ Two hooks let a supervising harness wrap the loop without forking it:
 
 * ``dispatch(pde, n)`` replaces the ``pde.update_n(n)`` call;
 * ``on_chunk(pde)`` runs after each chunk's callback and break check;
-  a truthy return stops the loop with status ``"stopped"``.
+  a truthy return stops the loop with status ``"stopped"``;
+* ``agree(flag)`` turns the break flag into the one every process of a
+  multi-process run acts on.
 
 With ``overlap`` the break check rides the model's ``exit_future`` and is
 read one chunk late, so the next chunk is enqueued before the previous
@@ -60,7 +62,7 @@ def _next_boundary(t: float, dt: float, save_intervall: float) -> float:
 
 
 def integrate(pde, max_time: float, save_intervall: float | None = None, *,
-              dispatch=None, on_chunk=None, overlap: bool | None = None) -> str:
+              dispatch=None, on_chunk=None, overlap: bool | None = None, agree=None) -> str:
     """Advance ``pde`` until ``max_time``, calling ``pde.callback()`` at each
     save boundary; returns the stop status.
 
@@ -71,7 +73,11 @@ def integrate(pde, max_time: float, save_intervall: float | None = None, *,
     whose device work was enqueued before the chunk just run, decides.  A
     divergence is then seen at most one chunk late (the frozen state stays
     non-finite, so the next boundary still reads it), and the final state
-    is judged exactly before a ``"time_limit"`` return."""
+    is judged exactly before a ``"time_limit"`` return.
+
+    ``agree`` (None: the local flag) maps each boundary's break flag to the
+    one every process acts on (the runner's break criterion across
+    processes, each holding its own replica)."""
     if overlap is None:
         overlap = bool(getattr(pde, "io_overlap", False))
     overlap = overlap and hasattr(pde, "exit_future")
@@ -112,7 +118,10 @@ def integrate(pde, max_time: float, save_intervall: float | None = None, *,
         if timestep >= MAX_TIMESTEP:
             print(f"timestep limit reached: {timestep}")
             return "timestep_limit"
-        if break_hit() if overlap else pde.exit():
+        hit = break_hit() if overlap else pde.exit()
+        if agree is not None:
+            hit = agree(hit)
+        if hit:
             print("break criteria triggered")
             return "break"
         if pde.get_time() + dt * 1e-4 >= max_time:

@@ -40,12 +40,18 @@ linearised models, ``NavierEnsemble``) around the ``integrate`` driver:
   row with a one-shot profiler capture.  None of it touches a captured
   graph: a run with telemetry on steps bit for bit as one with it off.
 
-The port runs one process with gathered checkpoints.  The JAX package's
-multi-process branches (root-decided flags, host-scoped column masks,
-broadcast checkpoint choice), its sharded two-phase checkpoints and the
-collective-desync sanitizer's run directory wait for ROADMAP Queue 1 item
-17.2: a host scope other than 0 raises, ``IOConfig(sharded_checkpoints=
-True)`` raises where it is built.
+On more than one process (:mod:`..parallel.multihost`; each process holds
+its own replica of the model) every flag that leads into a collective is
+the root's (:meth:`ResilientRunner._root_decides`: the preemption stop, a
+cadence checkpoint, a write failure and its ENOSPC verdict), the break
+criterion is raised when any process diverged, the checkpoint to roll back
+to or resume from is the root's choice, broadcast, and the journal, the
+metrics file and the incident dumps are the root's.  Checkpoints are then
+the sharded two-phase ones (:meth:`ResilientRunner._checkpoint_sharded`;
+forced in one process with ``IOConfig(sharded_checkpoints=True)``), whose
+cadence commit is deferred to the next chunk boundary when the writes
+overlap.  A fault scoped to ``host<p>`` acts on process ``p``; the shard
+crash spec (``shard_crash=``) kills a process inside the two-phase window.
 
 ``_store`` (a private constructor argument) is where checkpoints live:
 the gathered HDF5 files by default (:class:`_FileStore`), or
@@ -72,11 +78,12 @@ import time as _time
 import numpy as np
 import torch
 
+from ..parallel import sanitizer as _sanitizer
 from ..telemetry import metrics as _tm
 from ..telemetry import tracing as _tr
 from ..telemetry.exporters import MetricsDumper
 from . import checkpoint
-from .faults import FaultPlan, FaultSpecError  # noqa: F401
+from .faults import FaultPlan, FaultSpecError, parse_shard_crash_spec  # noqa: F401
 from .governor import StabilityGovernor
 from .integrate import integrate
 from .io_pipeline import AsyncWriteError, IOPipeline
@@ -187,12 +194,42 @@ def dispatch_with_watchdog(fn, timeout_s: float | None, label: str = "dispatch",
 # -- fault injection ------------------------------------------------------------------
 
 
-def _single_host(host) -> None:
-    """The port runs one process, host 0; another host scope waits for the
-    multi-process controllers (ROADMAP Queue 1 item 17.2)."""
-    if host not in (None, 0):
-        raise NotImplementedError(f"a fault scoped to host {host}: the port runs one process "
-                                  "(multi-process runs wait for ROADMAP Queue 1 item 17.2)")
+def _single_process() -> bool:
+    from ..parallel import multihost
+
+    return multihost.process_count() == 1
+
+
+def _is_root() -> bool:
+    from ..parallel import multihost
+
+    return multihost.is_root()
+
+
+def _acts_here(host) -> bool:
+    """Whether a fault scoped to ``host`` (None: every process) acts on this
+    process."""
+    from ..parallel import multihost
+
+    return host is None or int(host) == multihost.process_index()
+
+
+def _sentinels_across_processes(rows: np.ndarray) -> np.ndarray:
+    """A sentinel chunk's host rows as one coupled model reads them (the
+    JAX package's sentinels reduce over the global state), so that every
+    process's governor sees the same status and takes the same verdict,
+    and every replica commits or rolls back its chunk together: the
+    finite and under-ceiling flags and the step counts (rows 0-2, and an
+    ensemble's counts before the chunk, row 7) the least over the
+    processes, the CFL, growth, divergence and energy maxima (rows 3-6)
+    the largest."""
+    from ..parallel import multihost
+
+    gathered = multihost.allgather_host(np.asarray(rows, np.float64))
+    out = gathered.max(axis=0)
+    out[:3] = gathered[:, :3].min(axis=0)
+    out[7:] = gathered[:, 7:].min(axis=0)
+    return out
 
 
 def poison_state(pde, host: int | None = None) -> None:
@@ -200,8 +237,11 @@ def poison_state(pde, host: int | None = None) -> None:
     for a blow-up).  The buffers are written where they are, as ``set_dt``
     and the integrity restore leave them: the next chunk copies them into
     its graph's carry.  An ensemble's alive mask is re-derived, as the JAX
-    package's.  ``host``: None or 0 (the one process)."""
-    _single_host(host)
+    package's.  ``host``: the process it acts on (None: every one; each
+    process holds its own replica, and the runner's break criterion stops
+    them all when one diverged)."""
+    if not _acts_here(host):
+        return
     for t in pde.state:
         t.mul_(float("nan"))
     if hasattr(pde, "mask") and hasattr(pde, "_finite_mask"):
@@ -213,8 +253,10 @@ def spike_state(pde, factor: float = 50.0, host: int | None = None) -> None:
     """Scale the velocities by ``factor`` in place: a finite state far past
     the CFL ceiling (every member of an ensemble).  Governed, it is caught
     before NaNs appear and rolled back in memory; ungoverned, the
-    over-CFL convection grows it into the NaN path."""
-    _single_host(host)
+    over-CFL convection grows it into the NaN path.  ``host``: the process
+    it acts on (None: every one)."""
+    if not _acts_here(host):
+        return
     pde.state.velx.mul_(factor)
     pde.state.vely.mul_(factor)
     pde._obs_cache = None
@@ -226,10 +268,12 @@ def bitflip_state(pde, step: int, host: int | None = None, member: int | None = 
     position :func:`..integrity.flip_state_bit` picks from ``step`` (in
     member ``member`` only, for an ensemble): finite and CFL-sane, seen only
     by the integrity digests.  Returns the flip's info (leaf, index, bit,
-    member, host) for the journal."""
+    member, host) for the journal; on a process ``host`` does not name
+    nothing is flipped and the info says so (``leaf`` None)."""
     from ..integrity import flip_state_bit
 
-    _single_host(host)
+    if not _acts_here(host):
+        return {"leaf": None, "index": (), "bit": None, "member": member, "host": host}
     flipped, info = flip_state_bit(pde.state, step, member=member, bit=bit)
     getattr(pde.state, info["leaf"]).copy_(getattr(flipped, info["leaf"]))
     pde._obs_cache = None
@@ -270,13 +314,21 @@ class _FileStore:
     def remove(self, path: str) -> None:
         checkpoint.remove_checkpoint(path)
 
+    def write_shard(self, snap, path: str, crash=None) -> None:
+        checkpoint.write_shard_file(snap, path, crash=crash)
+
+    def commit_shards(self, snap, path: str, local_ok: bool, crash=None) -> dict:
+        return checkpoint.commit_sharded_snapshot(snap, path, local_ok=local_ok, crash=crash)
+
 
 class _MemoryStore:
     """Checkpoints kept in memory: each staged :class:`.checkpoint.HostSnapshot`
-    (the leaves the file would hold) under the path a file would have, with
-    the digest its file would carry.  The newest one whose recomputed
-    digest matches is the newest valid checkpoint; a restore goes through
-    the file reader's group restore.  Thread-safe (the async writer stores
+    (the leaves the file would hold), or this process's staged
+    :class:`.checkpoint.ShardSnapshot` of a sharded checkpoint, under the
+    path a file would have, with the digest its file would carry.  The
+    newest one whose recomputed digest matches is the newest valid
+    checkpoint; a restore goes through the file reader's group restore (the
+    slab catalog for a sharded one).  Thread-safe (the async writer stores
     from its worker)."""
 
     def __init__(self, run_dir: str):
@@ -295,7 +347,9 @@ class _MemoryStore:
         for path in reversed(self.files()):
             with self._lock:
                 snap, digest = self._snaps[path]
-            if checkpoint.snapshot_digest(snap.datasets) == digest:
+            items = (snap.items() if isinstance(snap, checkpoint.ShardSnapshot)
+                     else snap.datasets)
+            if checkpoint.snapshot_digest(items) == digest:
                 return path
             print(f"skipping corrupt checkpoint: {path}: digest mismatch")
         return None
@@ -305,6 +359,8 @@ class _MemoryStore:
             snap, digest = self._snaps[path]
         out = {"schema": checkpoint.SCHEMA_VERSION, "digest": digest, "time": snap.time,
                "dt": snap.dt}
+        if isinstance(snap, checkpoint.ShardSnapshot):
+            out["sharded"] = snap.shard_count
         if snap.step is not None:
             out["step"] = snap.step
         return out
@@ -321,9 +377,39 @@ class _MemoryStore:
             for path in sorted(self._snaps)[:-keep]:
                 del self._snaps[path]
 
+    def write_shard(self, snap, path: str, crash=None) -> None:
+        """Stage this process's shard with the digest its file would carry
+        (the ``after_shard`` crash point fires here as at a file write)."""
+        checkpoint.stage_shard_digest(snap)
+        checkpoint._shard_crash_hook("after_shard", snap.step, crash)
+
+    def commit_shards(self, snap, path: str, local_ok: bool, crash=None) -> dict:
+        """The files' two-phase commit with the manifest kept in memory:
+        every process keeps its shard under ``path`` (a shard that failed
+        is dropped)."""
+
+        def keep():
+            with self._lock:
+                self._snaps[path] = (snap, snap.digest)
+
+        return checkpoint.commit_sharded_snapshot(snap, path, local_ok=local_ok, crash=crash,
+                                                  keep=keep)
+
     def restore(self, pde, path: str) -> None:
         with self._lock:
             snap, _ = self._snaps[path]
+        if isinstance(snap, checkpoint.ShardSnapshot):
+            # every process's shard: the local one, or all of them gathered
+            # (a collective, as every restore is)
+            from ..parallel import multihost
+
+            shards = [snap]
+            if multihost.process_count() > 1:
+                import pickle
+
+                shards = [pickle.loads(b) for b in multihost.allgather_bytes(pickle.dumps(snap))]
+            checkpoint.restore_sharded_snapshots(pde, shards, label=path)
+            return
         group = checkpoint._host_group(snap)
         if hasattr(pde, "member_state"):
             checkpoint._restore_ensemble_snapshot(pde, group)
@@ -353,8 +439,9 @@ class ResilientRunner:
     ``run()`` returns a summary whose ``outcome`` is ``"done"`` or
     ``"preempted"`` and raises :class:`DivergenceError` /
     :class:`DispatchHang` when recovery is impossible.  Beyond the JAX
-    package's arguments: the private ``_store`` (see the module
-    docstring)."""
+    package's arguments: ``shard_crash`` (the JAX package's
+    ``RUSTPDE_SHARD_CRASH``, :func:`..utils.checkpoint._shard_crash_hook`)
+    and the private ``_store`` (see the module docstring)."""
 
     def __init__(self, pde, max_time: float, save_intervall: float | None = None, *,
                  run_dir: str = "data/resilient", checkpoint_every_s: float | None = 300.0,
@@ -363,7 +450,8 @@ class ResilientRunner:
                  respawn_amp: float = 1e-3, respawn_seed: int | None = None,
                  dispatch_timeout_s: float | None = None, fault: str | None = None,
                  spike_factor: float | None = None, resume: bool = True,
-                 max_chunk_steps: int = 1024, stability=None, io=None, _store=None):
+                 max_chunk_steps: int = 1024, stability=None, io=None,
+                 shard_crash: str | None = None, _store=None):
         from ..config import IOConfig
 
         self.pde = pde
@@ -383,8 +471,9 @@ class ResilientRunner:
         self.dispatch_timeout_s = dispatch_timeout_s
         # strict parse at construction: a spec that cannot fire dies here
         self.fault = FaultPlan.from_spec(fault)
-        if self.fault is not None:
-            _single_host(self.fault.host)
+        # the two-phase window's crash spec, strict as well
+        parse_shard_crash_spec(shard_crash)
+        self.shard_crash = shard_crash
         self.spike_factor = 50.0 if spike_factor is None else float(spike_factor)
         self.resume = bool(resume)
         self.max_chunk_steps = int(max_chunk_steps)
@@ -400,6 +489,8 @@ class ResilientRunner:
         # disk full: the run degrades to in-memory rollback only
         self._ckpt_disabled = False
         self._io_snapshot_s = 0.0  # calling-thread seconds staging snapshots
+        self._sharded = False  # the sharded two-phase format (picked in _setup_io)
+        self._pending_commit = None  # a deferred sharded cadence commit
         self._lock = threading.Lock()  # checkpoint-path updates
         self.journal_path = os.path.join(run_dir, "journal.jsonl")
         self._journal_writer: JournalWriter | None = None
@@ -429,6 +520,8 @@ class ResilientRunner:
         self.attempt = 0  # divergence retries so far
         self.resumed = False
         self._interrupt: int | None = None
+        # (step, stop, cadence due): the root's verdicts agreed at a boundary
+        self._verdict: tuple | None = None
         self._slow_pending = False
         self._t0 = _time.monotonic()
         self._last_ckpt_wall = self._t0
@@ -457,7 +550,10 @@ class ResilientRunner:
 
     def _journal(self, event: dict) -> None:
         """Append one JSON line to ``<run_dir>/journal.jsonl`` (flushed per
-        event; an event carrying its own ``step``/``time`` keeps them)."""
+        event; an event carrying its own ``step``/``time`` keeps them); the
+        root's only, the run directory being shared."""
+        if not _is_root():
+            return
         if self._journal_writer is None:
             self._journal_writer = JournalWriter(self.journal_path)
             self._journal_owned = True
@@ -498,9 +594,20 @@ class ResilientRunner:
         # acted on at the next chunk boundary, at a consistent step
         self._interrupt = signum
 
+    def _root_decides(self, local: bool) -> bool:
+        """The root's verdict on a flag that leads into a collective (a
+        preemption stop, a cadence checkpoint, a write failure): every
+        process takes the same branch, and a flag raised on another process
+        alone is ignored (:func:`..parallel.multihost.root_decides`; one
+        process: the local flag)."""
+        from ..parallel import multihost
+
+        return multihost.root_decides(local)
+
     def _preempt_agreed(self) -> bool:
-        """Whether a stop was requested (one process decides alone)."""
-        return self._interrupt is not None
+        """Whether a stop was requested: the root's signal (a stray signal on
+        another process is ignored; a real preemption hits every one)."""
+        return self._root_decides(self._interrupt is not None)
 
     # -- checkpointing -------------------------------------------------------------
 
@@ -563,6 +670,8 @@ class ResilientRunner:
                            "cause": "storage_full"})
             return None
         path = self._store.path(self.step)
+        if self._sharded:
+            return self._checkpoint_sharded(path, reason)
         if self._async_ckpt and self._io is not None:
             return self._checkpoint_async(path, reason)
         if self._io is not None:
@@ -575,15 +684,29 @@ class ResilientRunner:
                 self._degrade_checkpoints(exc, reason)
                 return None
         t0 = _time.monotonic()
-        try:
-            self._store.write(self._stage(), path)
-            self._store.rotate(self.keep)
-        except Exception as exc:
-            if self._is_enospc(exc):
-                self._degrade_checkpoints(exc, reason)
+        write_error = None
+        if _is_root():
+            try:
+                self._store.write(self._stage(), path)
+                self._store.rotate(self.keep)
+            except Exception as exc:  # must not skip the barrier below
+                write_error = exc
+        if not _single_process():
+            from ..parallel import multihost
+
+            multihost.sync_hosts("rustpde-checkpoint")
+        # every process must agree on a failure (the root alone raising
+        # would leave the others waiting at the next collective)
+        if self._root_decides(write_error is not None):
+            if self._root_decides(self._is_enospc(write_error)):
+                # disk full is contained: every process degrades together
+                self._degrade_checkpoints(write_error, reason)
                 return None
-            self._journal({"event": "checkpoint_failed", "reason": reason, "error": str(exc)})
-            raise
+            self._journal({"event": "checkpoint_failed", "reason": reason,
+                           "error": str(write_error)})
+            if write_error is not None:
+                raise write_error
+            raise RuntimeError("checkpoint write failed on the root process")
         self._last_ckpt_wall = _time.monotonic()
         self._last_ckpt_time = float(self.pde.get_time())
         self._last_ckpt_path = path
@@ -648,10 +771,109 @@ class ResilientRunner:
                 return None
         return path
 
+    def _checkpoint_sharded(self, path: str, reason: str) -> str:
+        """The two-phase sharded checkpoint (every process enters together:
+        the decision was the root's): stage this process's slabs, write its
+        shard, then the collective commit (:mod:`.checkpoint`).  With the
+        pipeline armed a CADENCE checkpoint's shard is written on the worker
+        while the card steps on, and its commit is deferred to the next
+        chunk boundary (:meth:`_commit_pending`), after a local drain, so
+        the barrier only ever sees fsynced shards; an anchor, final or
+        preempt checkpoint writes and commits at once."""
+        self._commit_pending()  # at most one deferred commit in flight
+        t0 = _time.monotonic()
+        with _tr.span("checkpoint_stage", reason=reason, step=self.step):
+            snap = checkpoint.sharded_snapshot_to_host(self.pde, step=self.step)
+        snapshot_s = _time.monotonic() - t0
+        self._io_snapshot_s += snapshot_s
+        _tm.histogram("checkpoint_snapshot_seconds",
+                      "main-thread device->host staging").observe(snapshot_s)
+        event = {"event": "checkpoint", "reason": reason, "path": path,
+                 "sharded": snap.shard_count, "step": self.step,
+                 "time": round(float(self.pde.get_time()), 9),
+                 "snapshot_s": round(snapshot_s, 3), "nu": self._nu()}
+        if self._async_ckpt and self._io is not None and reason == "cadence":
+            self._io.submit_write(lambda: self._store.write_shard(snap, path, self.shard_crash),
+                                  checkpoint.shard_path(path, snap.shard_index),
+                                  nbytes=snap.nbytes)
+            self._pending_commit = (snap, path, reason, dict(event, async_=True))
+            self._last_ckpt_wall = _time.monotonic()
+            self._last_ckpt_time = float(self.pde.get_time())
+            return path
+        local_ok = True
+        try:
+            self._store.write_shard(snap, path, self.shard_crash)
+        except Exception as exc:
+            local_ok = False
+            self._journal({"event": "checkpoint_failed", "reason": reason, "error": str(exc),
+                           **({"errno": _errno.ENOSPC} if self._is_enospc(exc) else {})})
+        self._finish_sharded_commit(snap, path, reason, event, local_ok)
+        return path
+
+    def _commit_pending(self) -> None:
+        """Settle a deferred sharded cadence commit (every process calls this
+        at the same points: each chunk boundary, before any checkpoint scan,
+        before the next checkpoint, at the run's end), draining the local
+        writer first."""
+        if self._pending_commit is None:
+            return
+        snap, path, reason, event = self._pending_commit
+        self._pending_commit = None
+        local_ok = True
+        if self._io is not None:
+            try:
+                self._io.writer.drain()
+            except Exception as exc:
+                local_ok = False
+                self._journal({"event": "checkpoint_failed", "reason": reason, "error": str(exc),
+                               "step": event["step"],
+                               **({"errno": _errno.ENOSPC} if self._is_enospc(exc) else {})})
+        is_async = event.pop("async_", False)
+        self._finish_sharded_commit(snap, path, reason,
+                                    dict(event, **({"async": True} if is_async else {})),
+                                    local_ok)
+
+    def _finish_sharded_commit(self, snap, path: str, reason: str, event: dict,
+                               local_ok: bool) -> None:
+        """The collective half: the commit (barrier, digest allgather, the
+        root's manifest), the rotation on success, and the
+        ``checkpoint_sharded`` journal row (shards, bytes, barrier wait)."""
+        w0 = _time.monotonic()
+        with _tr.span("checkpoint_commit", step=self.step):
+            stats = self._store.commit_shards(snap, path, local_ok, self.shard_crash)
+        _tm.counter("checkpoint_barrier_seconds_total",
+                    "seconds waiting at the two-phase commit barrier").inc(
+                        float(stats.get("barrier_s") or 0.0))
+        if not stats["ok"]:
+            if local_ok:
+                # the failing process journaled its own cause already
+                self._journal({"event": "checkpoint_failed", "reason": reason,
+                               "error": "sharded checkpoint aborted (a host failed its shard "
+                               "write); no manifest committed",
+                               "step": event.get("step", self.step)})
+            raise checkpoint.CheckpointError(
+                path, "sharded checkpoint aborted: a host failed its shard write (no manifest "
+                "committed; the previous checkpoint is intact)")
+        if _is_root():
+            self._store.rotate(self.keep)
+        _tm.counter("checkpoints_total", "checkpoints written", reason=reason).inc()
+        with self._lock:
+            self._last_ckpt_path = path
+        self._last_ckpt_wall = _time.monotonic()
+        self._last_ckpt_time = event.get("time", float(self.pde.get_time()))
+        self._journal({**event, "commit_s": round(_time.monotonic() - w0, 3),
+                       "checkpoint_sharded": {"shards": stats["shards"],
+                                              "bytes_host": stats["bytes_host"],
+                                              "bytes_total": stats["bytes_total"],
+                                              "barrier_s": stats["barrier_s"]}})
+
     def _pick_checkpoint(self) -> str | None:
-        """The newest valid checkpoint, after the writer settled (a rollback
-        or resume never reads past a write in flight; a disk-full failure
-        degrades and the scan goes on over what is durable)."""
+        """The newest valid checkpoint, after a deferred sharded commit and
+        the writer settled (a rollback or resume never reads past a write in
+        flight; a disk-full failure degrades and the scan goes on over what
+        is durable).  On more than one process the root scans and broadcasts
+        the step: the step-coded name is the cross-process contract."""
+        self._commit_pending()
         if self._io is not None:
             try:
                 self._io.writer.drain()
@@ -659,7 +881,17 @@ class ResilientRunner:
                 if not self._is_enospc(exc):
                     raise
                 self._degrade_checkpoints(exc, "scan")
-        return self._store.latest()
+        if _single_process():
+            return self._store.latest()
+        from ..parallel import multihost
+
+        step = -1
+        if _is_root():
+            path = self._store.latest()
+            if path is not None:
+                step = int(self._store.attrs(path).get("step", -1))
+        step = int(multihost.broadcast(np.int64(step)))
+        return None if step < 0 else self._store.path(step)
 
     def _maybe_resume(self) -> bool:
         if not self.resume:
@@ -754,7 +986,7 @@ class ResilientRunner:
                 n -= k
                 if not self._integ_commit(pde, k, rec):
                     return
-            if n > 0 and self._interrupt is not None:
+            if n > 0 and self._root_decides(self._interrupt is not None):
                 return  # integrate()'s on_chunk acts at the boundary
 
     def _commit_steps(self, k: int) -> None:
@@ -897,10 +1129,12 @@ class ResilientRunner:
         return self._integ_ledger
 
     def _integ_device(self) -> str:
-        """The ledger's device key ``<type>:<index>@proc0`` (the JAX
-        package's ``<platform>:<id>@proc<p>``; one process)."""
+        """The ledger's device key ``<type>:<index>@proc<p>`` (the JAX
+        package's ``<platform>:<id>@proc<p>``)."""
+        from ..parallel import multihost
+
         dev = self._device(self.pde)
-        return f"{dev.type}:{dev.index or 0}@proc0"
+        return f"{dev.type}:{dev.index or 0}@proc{multihost.process_index()}"
 
     def _integ_predispatch(self, pde, start_step: int):
         """Chunk-start bookkeeping: anchor the first verified snapshot,
@@ -942,6 +1176,14 @@ class ResilientRunner:
                 d_shadow = np.asarray(pde.shadow_digest_async(snap, k).result())
             checks["shadow"] = (d_shadow, np.asarray(live.result()))
         failed = {c: p for c, p in checks.items() if not np.array_equal(*p)}
+        if not _single_process():
+            # one replica a process: a mismatch on any of them rolls every
+            # one back, so the step counts and the collectives stay paired
+            from ..parallel import multihost
+
+            flags = multihost.allgather_host(np.int32(1 if failed else 0)).reshape(-1)
+            if flags.any() and not failed:
+                failed = {"peer": [int(p) for p in np.flatnonzero(flags)]}
         if failed:
             return self._integ_contain(pde, k, rec, failed)
         if snap is not None:
@@ -956,29 +1198,44 @@ class ResilientRunner:
         """Containment: journal the mismatch, strike the device in the
         ledger, roll back to the last verified snapshot, or raise
         :class:`..integrity.IntegrityError` when none exists or the device
-        just crossed the quarantine threshold."""
+        just crossed the quarantine threshold.  On more than one process a
+        replica whose own audit passed (``failed`` holds only ``"peer"``,
+        the processes that failed) rolls back with the others, striking
+        nothing, and every process raises when any one must."""
         from ..integrity import IntegrityError
 
         start_step = rec[0]
-        check = "chain" if "chain" in failed else "shadow"
-        want, got = failed[check]
-        members = [int(i) for i in np.flatnonzero(got != want)] if got.ndim else None
         verified = self._integ_verified
         device = self._integ_device()
         _tm.counter("runner_integrity_mismatch_total", "digest audit mismatches").inc()
+        newly, members = False, None
+        if "peer" in failed:
+            check, where = "peer", {"processes": failed["peer"]}
+        else:
+            check = "chain" if "chain" in failed else "shadow"
+            want, got = failed[check]
+            members = [int(i) for i in np.flatnonzero(got != want)] if got.ndim else None
+            where = {"members": members}
         _tr.instant("integrity_mismatch", check=check, step=self.step)
         self._journal({"event": "integrity_mismatch", "check": check, "chunk_steps": k,
-                       "start_step": start_step, "members": members, "device": device})
-        newly = self._integrity_ledger().strike(device, step=self.step, detail=check)
-        if newly:
-            self._journal({"event": "device_quarantined", "device": device,
-                           "strikes": self._integrity_ledger().strikes_for(device)})
+                       "start_step": start_step, **where, "device": device})
+        if check != "peer":
+            newly = self._integrity_ledger().strike(device, step=self.step, detail=check)
+            if newly:
+                self._journal({"event": "device_quarantined", "device": device,
+                               "strikes": self._integrity_ledger().strikes_for(device)})
         self._integ_prev = None
-        if verified is None or newly:
+        must_raise = verified is None or newly
+        if not _single_process():
+            from ..parallel import multihost
+
+            must_raise = multihost.any_process(must_raise)
+        if must_raise:
+            why = ("the device crossed the quarantine threshold" if newly
+                   else "no verified snapshot exists to roll back to" if verified is None
+                   else "another process cannot roll back")
             raise IntegrityError(
-                f"digest {check} audit failed at step {self.step} and "
-                + ("the device crossed the quarantine threshold" if newly
-                   else "no verified snapshot exists to roll back to"),
+                f"digest {check} audit failed at step {self.step} and {why}",
                 check=check, step=self.step, chunk_steps=k,
                 member=members[0] if members else None, device=device)
         v_step, v_snap = verified
@@ -1044,6 +1301,9 @@ class ResilientRunner:
             self._dispatch(pde, rem)
 
     def _on_chunk(self, pde) -> bool:
+        # settle a deferred sharded commit first (collective: the cadence
+        # decision that deferred it was the root's, so every process is here)
+        self._commit_pending()
         delta = self.step - self._slo_last_step
         self._slo_last_step = self.step
         degraded = self.slo.record(delta)
@@ -1059,15 +1319,17 @@ class ResilientRunner:
         if self._metrics_dumper is not None:
             self._metrics_dumper.maybe_dump(step=self.step)
         self._stats_boundary()
-        if self._preempt_agreed():
+        # the root's stop and cadence verdicts: agreed with the break flag in
+        # this boundary's one exchange (:meth:`_agree`); a boundary driven
+        # from outside ``integrate`` (:meth:`on_boundary`) takes one handshake each
+        verdict, self._verdict = self._verdict, None
+        if verdict is None or verdict[0] != self.step:
+            verdict = None
+        if verdict[1] if verdict else self._preempt_agreed():
             return True  # integrate() returns "stopped"; run() checkpoints
-        due = False
-        if self.checkpoint_every_s is not None:
-            due = _time.monotonic() - self._last_ckpt_wall >= self.checkpoint_every_s
-        if not due and self.checkpoint_every_t is not None:
-            due = (pde.get_time() - self._last_ckpt_time
-                   >= self.checkpoint_every_t - pde.get_dt() / 2.0)
-        if due:
+        # the wall clock is host-local and the checkpoint enters a collective:
+        # the decision is the root's
+        if verdict[2] if verdict else self._root_decides(self._cadence_due(pde)):
             self._checkpoint("cadence")
         return False
 
@@ -1213,13 +1475,21 @@ class ResilientRunner:
         self._setup_io()
         self._stats_health_pending = None
         self._saved_pde_journal = getattr(self.pde, "journal_writer", None)
-        if self._journal_writer is None:
-            self._journal_writer = JournalWriter(self.journal_path)
-        self.pde.journal_writer = self._journal_writer
-        if hasattr(self.pde, "model"):
-            self.pde.model.journal_writer = self._journal_writer
-        self._metrics_dumper = MetricsDumper(os.path.join(self.run_dir, "metrics.jsonl"))
-        self._exit_disarm = _tr.arm_exit_dump(self.run_dir, lambda: self.step)
+        # the journal, the metrics file and the exit dump are the root's (the
+        # run directory is shared across processes)
+        if _is_root():
+            if self._journal_writer is None:
+                self._journal_writer = JournalWriter(self.journal_path)
+            self.pde.journal_writer = self._journal_writer
+            if hasattr(self.pde, "model"):
+                self.pde.model.journal_writer = self._journal_writer
+            self._metrics_dumper = MetricsDumper(os.path.join(self.run_dir, "metrics.jsonl"))
+            self._exit_disarm = _tr.arm_exit_dump(self.run_dir, lambda: self.step)
+        # a collective desync dumps its flight record next to the journal
+        _sanitizer.set_run_dir(self.run_dir)
+        saved_reduce = getattr(self.pde, "sentinel_reduce", None)
+        if not _single_process() and hasattr(self.pde, "sentinel_reduce"):
+            self.pde.sentinel_reduce = _sentinels_across_processes
         try:
             if self.resume if resume is None else resume:
                 self.resumed = self._maybe_resume()
@@ -1236,6 +1506,8 @@ class ResilientRunner:
             self.incident_dump(type(exc).__name__)
             raise
         finally:
+            if hasattr(self.pde, "sentinel_reduce"):
+                self.pde.sentinel_reduce = saved_reduce
             if self._exit_disarm is not None:
                 self._exit_disarm()
                 self._exit_disarm = None
@@ -1245,7 +1517,9 @@ class ResilientRunner:
 
     def incident_dump(self, reason: str) -> None:
         """Best-effort flight-recorder dump into ``run_dir`` and a journal
-        row pointing at it."""
+        row pointing at it (the root's)."""
+        if not _is_root():
+            return
         try:
             path = _tr.dump_flight_record(self.run_dir, reason, step=self.step)
             if path is not None:
@@ -1293,7 +1567,7 @@ class ResilientRunner:
                            "max_time": self.max_time, "governed": self.governor is not None,
                            "io": {"async_checkpoints": self._async_ckpt,
                                   "overlap_dispatch": self._overlap,
-                                  "sharded_checkpoints": False},
+                                  "sharded_checkpoints": self._sharded},
                            "fault": dataclasses.asdict(self.fault) if self.fault else None})
             if self._last_ckpt_path is None:
                 self._checkpoint("anchor")  # the rollback anchor
@@ -1301,7 +1575,8 @@ class ResilientRunner:
                 try:
                     status = integrate(pde, self.max_time, self.save_intervall,
                                        dispatch=self._dispatch, on_chunk=self._on_chunk,
-                                       overlap=self._overlap)
+                                       overlap=self._overlap, agree=self._agree)
+                    self._verdict = None  # a boundary integrate() left unvisited
                 except DispatchHang as exc:
                     self._journal({"event": "dispatch_hang", "label": exc.label,
                                    "timeout_s": exc.timeout_s})
@@ -1331,13 +1606,45 @@ class ResilientRunner:
                 self.attempt += 1
                 self._rollback()
 
+    def _agree(self, local: bool) -> bool:
+        """The break criterion across processes: each holds its own replica,
+        so a divergence on any of them stops every one.  The same exchange
+        carries the root's stop and cadence-checkpoint flags, which the
+        boundary's :meth:`_on_chunk` then acts on without a handshake of its
+        own (one process: the local flags)."""
+        from ..parallel import multihost
+
+        (hit,), (stop, due) = multihost.agree_flags(
+            any_of=(local,), root=(self._interrupt is not None, self._cadence_due(self.pde)))
+        self._verdict = (self.step, stop, due)
+        return hit
+
+    def _cadence_due(self, pde) -> bool:
+        """Whether this process's clocks say a cadence checkpoint is due."""
+        if self.checkpoint_every_s is not None:
+            if _time.monotonic() - self._last_ckpt_wall >= self.checkpoint_every_s:
+                return True
+        if self.checkpoint_every_t is not None:
+            return (pde.get_time() - self._last_ckpt_time
+                    >= self.checkpoint_every_t - pde.get_dt() / 2.0)
+        return False
+
     def _setup_io(self) -> None:
-        """The run's IO pipeline: async checkpoints and the lagged break
-        check (the latter for a model with ``exit_future``); the model's
-        ``io_pipeline`` points at it for the session."""
+        """The run's IO pipeline and checkpoint format.  ``io.sharded_
+        checkpoints`` None picks the sharded two-phase format on more than
+        one process and the gathered one otherwise (True or False force
+        either).  Async checkpoints run in one process or sharded; the
+        lagged break check (for a model with ``exit_future``) in one process
+        only, since a flag resolved on per-process timing would split the
+        collective sequence.  The model's ``io_pipeline`` points at the
+        pipeline for the session."""
         io = self.io
-        self._async_ckpt = bool(io.async_checkpoints)
-        self._overlap = bool(io.overlap_dispatch and hasattr(self.pde, "exit_future"))
+        single = _single_process()
+        self._sharded = bool(io.sharded_checkpoints if io.sharded_checkpoints is not None
+                             else not single) and hasattr(self.pde, "snapshot_state_items")
+        self._async_ckpt = bool(io.async_checkpoints and (single or self._sharded))
+        self._overlap = bool(io.overlap_dispatch and single and hasattr(self.pde, "exit_future"))
+        self._pending_commit = None
         self._io_snapshot_s = 0.0
         self._saved_pde_io = getattr(self.pde, "io_pipeline", None)
         if self._async_ckpt or self._overlap:
@@ -1356,6 +1663,7 @@ class ResilientRunner:
         self._drain_io()
 
     def _drain_io(self) -> None:
+        self._commit_pending()
         if self._io is not None:
             try:
                 self._io.drain()

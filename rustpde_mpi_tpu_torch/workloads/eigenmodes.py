@@ -15,10 +15,8 @@ the slope of ``ln E`` over the sampled trajectory.
 * :func:`eigenmode_sweep`: the sweep over Rayleigh numbers, each one an
   ensemble campaign under :class:`..utils.resilience.ResilientRunner`
   (checkpoints and auto-resume per Ra with a ``run_dir``; a completed Ra's
-  checkpoints are removed).  The JAX package writes its sweep's
-  checkpoints in the sharded format, which is not ported (ROADMAP Queue 1
-  item 17.2): the port writes gathered ensemble snapshots, which restore
-  at the same K bit for bit.
+  checkpoints are removed).  As in the JAX package the sweep's checkpoints
+  are sharded two-phase ones, which restore at the same K bit for bit.
 """
 
 from __future__ import annotations
@@ -138,7 +136,7 @@ def eigenmode_sweep(ras, *, nx: int = 8, ny: int = 17, pr: float = 1.0, dt: floa
                                      checkpoint_every_s=checkpoint_every_s, stability=stability,
                                      fault=fault if fault is not None else "",
                                      resume=tmp_root is None,
-                                     io=IOConfig(overlap_dispatch=False),
+                                     io=IOConfig(sharded_checkpoints=True, overlap_dispatch=False),
                                      _store=None if _store is None else _store(ra_dir))
             times, energies = [], []
             drained = False

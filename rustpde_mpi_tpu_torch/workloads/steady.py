@@ -7,9 +7,8 @@ freezes at its converged state inside the chunk
 :func:`steady_state_find` drives the find under
 :class:`..utils.resilience.ResilientRunner`: checkpoints on a cadence,
 auto-resume (a killed find continues its descent), per-member fault
-isolation.  The JAX package writes its find's checkpoints in the sharded
-format, which is not ported (ROADMAP Queue 1 item 17.2); the port writes
-gathered ensemble snapshots."""
+isolation.  As in the JAX package the find's checkpoints are sharded
+two-phase ones."""
 
 from __future__ import annotations
 
@@ -68,7 +67,8 @@ def steady_state_find(*, nx: int = 17, ny: int = 17, ra: float = 100.0, pr: floa
     runner = ResilientRunner(ens, max_time=float("inf"), run_dir=run_dir,
                              checkpoint_every_s=checkpoint_every_s, stability=stability,
                              fault=fault if fault is not None else "",
-                             io=IOConfig(overlap_dispatch=False), _store=_store)
+                             io=IOConfig(sharded_checkpoints=True, overlap_dispatch=False),
+                             _store=_store)
     preempted = False
     with runner.session(install_signals=install_signals):
         last_ckpt_step = runner.step

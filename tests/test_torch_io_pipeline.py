@@ -204,8 +204,8 @@ def test_writer_back_pressure_and_timeout():
     pipe = IOConfig(queue_depth=2, diag_lag=1, timeout_s=5.0).pipeline()
     assert pipe.writer.depth == 2 and pipe.writer.timeout_s == 5.0 and pipe.diag_lag == 1
     assert IOConfig.blocking().diag_lag == 0
-    with pytest.raises(NotImplementedError, match="17.2"):
-        IOConfig(sharded_checkpoints=True)
+    assert IOConfig(sharded_checkpoints=True).sharded_checkpoints is True
+    assert IOConfig().sharded_checkpoints is None  # picked by the process count
 
 
 class _Slow:

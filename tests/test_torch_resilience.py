@@ -204,8 +204,18 @@ def test_gang_and_host_scopes():
     assert not plan.scoped_here()
     assert tfaults.FaultPlan.from_spec("nan@3:host0").scoped_here()
     assert not tfaults.FaultPlan.from_spec("nan@3:host1").scoped_here()
-    with pytest.raises(NotImplementedError, match="17.2"):
-        tres.ResilientRunner(_port(), 0.1, fault="nan@3:host1")
+    # a host scope acts on that process only: in one process (process 0)
+    # host1 builds and injects nothing
+    model = _port()
+    runner = tres.ResilientRunner(model, 0.1, fault="nan@3:host1")
+    assert runner.fault.host == 1 and not runner.fault.scoped_here()
+    before = [t.clone() for t in model.state]
+    tres.poison_state(model, host=1)
+    tres.spike_state(model, host=1)
+    assert tres.bitflip_state(model, 3, host=1)["leaf"] is None
+    assert all(torch.equal(a, b) for a, b in zip(before, model.state))
+    tres.poison_state(model, host=0)
+    assert all(torch.isnan(t).all() for t in model.state)
     with pytest.raises(tfaults.FaultSpecError):
         tres.ResilientRunner(_port(), 0.1, fault="nan@x")
 
@@ -575,10 +585,9 @@ def test_steady_state_find_kill_then_resume(tmp_path):
 # -- exports ---------------------------------------------------------------------------------------
 
 #: names of the JAX package's __init__ that wait for later items or are
-#: TPU-only: the serving layer (ROADMAP item 18), the collective-desync
-#: sanitizer (item 17.2), the split Fourier layout (not ported by design)
-NOT_YET = {"SimServer", "SimRequest", "RequestFailed", "AdmissionError",
-           "CollectiveDesyncError", "fourier_r2c_split"}
+#: TPU-only: the serving scheduler (ROADMAP item 18), the split Fourier
+#: layout (not ported by design)
+NOT_YET = {"SimServer", "fourier_r2c_split"}
 
 
 def test_the_package_exports_the_jax_names():
