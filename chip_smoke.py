@@ -331,6 +331,40 @@ launch of a step serving all K members:
     ``skip_broadcast@5:host1`` raising ``CollectiveDesyncError`` on both
     processes; the children's exit codes checked, a wedge killed at the
     phase's timeout.
+34. a served campaign at full width: ``SimServer`` on the fused route,
+    ``rbc1025``, four lanes, chunks of 8, six requests (seeds 0-5, 24-48
+    steps) and ``nan@16``: every in-flight request retries at dt/2, two
+    lanes refill; both buckets come from the warm pool (the dt/2 one
+    captured on the pool's thread while the first bucket served).  Every
+    request done, each Nu within 1e-8 of a solo run on the card, every
+    replayed step exactly a solo step's launches, the served fused inputs
+    (a refilled lane beside a dead NaN lane; the retried requests) against
+    the plain versions at phase 25's limit; admission to first chunk warm
+    and cold, served member-steps/s beside bare ``update_n``, the
+    scheduler's host time a boundary and its parts;
+35. the serving soak (the JAX package's ``serve129``): 64 requests of 8-13
+    steps through 8 lanes at 129^2, drained by a real SIGTERM
+    (``kill@24``), restored mid-trajectory by a second server that takes
+    ``nan@48``: every request resolved once, none failed, three results
+    within 1e-8 of solo runs, a drained and restored request bit for bit
+    its solo run; member-steps/s and latency percentiles beside a bare
+    K = 8 ``update_n``;
+36. the fleet on the card: a proxy here, two replicas spawned by
+    ``LocalProcessLauncher`` (``--device cuda``), 16 requests from two
+    tenants (one with a deadline); the replica holding a lease SIGKILLed
+    after it persisted its continuations, a survivor breaking its lease
+    after the 3 s TTL and resuming them, the autoscaler
+    (``min_replicas=max_replicas=2``) repairing the capacity with one
+    spawn; every request done once, the children's exit codes checked.
+    Then a 258^2 bucket served as a gang on a 2-rank sub-mesh of the card
+    (``SubmeshConfig(shapes=(2,), shard_min_nx=257)``): its flips and
+    banded solves on the step's own inputs against the plain versions,
+    their launches counted, the final state against a solo
+    ``make_mesh(2)`` run.
+
+The serving phases keep campaign checkpoints in the runner's in-memory
+store where ``h5py`` does not import, and parked continuations as
+``.npz`` shards there.
 
 Every phase that reaches a save-window callback sets ``write_intervall``
 past its run's end (no flow snapshot; ``h5py`` need not import), and the
@@ -349,7 +383,9 @@ the kernel's), with every kernel's launches on every route.  The flip's
 entry reads its 37 flips with the L2 flushed (``ms``, as the other
 kernels' rows are not: they are timed warm), back to back (``warm_ms``),
 and inside the profiled replays of a meshed ``rbc1025`` step (phase 13's
-profile, ``in_step_ms``).
+profile, ``in_step_ms``).  ``serve_launches``, ``soak_launches`` and
+``fleet_launches`` are the launches of phases 34, 35 and 36 (the fleet's
+in this process: the gang's).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, as its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -2394,7 +2430,7 @@ def logged_step_inputs(torch, ens):
     flips: ``{key: (count, first input)}`` with key ``("flip", shape,
     x_to_y, dtype)`` or ``("solve", label, shape, axis, factor batch
     stride, factor batch period)``, from one eager step with the wrappers
-    logging (its launches are not read; no state changes)."""
+    logging (the launch counters put back after it; no state changes)."""
     from rustpde_mpi_tpu_torch.ops.banded import BandedSolver
 
     model = ens.model
@@ -2405,6 +2441,7 @@ def logged_step_inputs(torch, ens):
         log[key] = (count + 1, first if first is not None else x.clone())
 
     wrapped = []
+    before = [(k, k.launches) for ks in model.kernels().values() for k in ks]
     if model.mesh is not None:
         ring = model.mesh.ring
 
@@ -2432,6 +2469,8 @@ def logged_step_inputs(torch, ens):
     finally:
         for obj, name, _ in wrapped:
             delattr(obj, name)
+        for k, n in before:
+            k.launches = n
     torch.cuda.synchronize()
     return log
 
@@ -5449,6 +5488,857 @@ def phase33(torch, pt, card):
     return launches
 
 
+# -- serving (phases 34-36) -------------------------------------------------------
+
+#: phase 34: the served ``rbc1025`` campaign (K lanes, chunk length, the
+#: requests' steps at dt = 1e-4: completions stagger and, after the
+#: ``nan@16`` fault, two lanes refill from the queue)
+SERVE_SLOTS = 4
+SERVE_CHUNK = 8
+SERVE_STEPS = (24, 32, 40, 48, 28, 36)
+SERVE_FAULT = "nan@16"
+#: the JAX serving benchmark's isolation gate (``bench.py:1958``): a served
+#: result's Nu against a solo run of the same seed, dt and steps
+SERVE_NU_REL = 1e-8
+#: the cold campaign of phase 34 (no warm pool): one request of this many steps
+SERVE_COLD_STEPS = 8
+#: phase 35: the JAX package's ``serve129`` soak (``bench.py:1840-1958``)
+SOAK_REQUESTS = 64
+SOAK_SLOTS = 8
+SOAK_STEPS = 8
+SOAK_JITTER = 6  # + (seed % 6) steps
+SOAK_DRAIN_AT = max(8, min(3 * SOAK_STEPS, (SOAK_REQUESTS * SOAK_STEPS) // 16))
+SOAK_SAMPLES = 3
+SOAK_BARE_STEPS = 64
+#: phase 36: the fleet on one card
+FLEET_REQUESTS = 16
+FLEET_SLOTS = 4
+FLEET_CHUNK = 32
+FLEET_STEPS = 3000  # steps a request (dt 2e-3 and, for the second tenant, 1e-3)
+FLEET_TTL_S = 3.0
+FLEET_TIMEOUT_S = 300
+#: the gang's cell: 258^2, the nearest grid to 257^2 that splits over 2
+#: ranks by the carve's divisibility rule (``parallel.submesh.grid_fits``:
+#: n or n - 2 a multiple of the shape; 257 and 255 are odd)
+GANG_CELL = dict(nx=258, ny=258, ra=1e7, pr=1.0, dt=1e-3, aspect=1.0, bc="rbc")
+GANG_SHARD_MIN = 257
+GANG_STEPS = 16
+GANG_LIMIT = 1e-11
+
+
+def serve_request(cell, seed, steps, dt=None, **kw):
+    dt = cell["dt"] if dt is None else dt
+    return dict(ra=cell["ra"], pr=cell["pr"], nx=cell["nx"], ny=cell["ny"], dt=dt,
+                aspect=cell["aspect"], bc=cell["bc"], horizon=steps * dt, seed=seed, **kw)
+
+
+def nan_rel_err(torch, a, b) -> tuple[float, float]:
+    """``rel_err`` where a NaN on both sides counts as equal (a dead lane's
+    NaN state runs through the kernels with the live ones) and a NaN on
+    one side only fails."""
+    both = torch.isnan(a) & torch.isnan(b)
+    a = torch.where(both, torch.zeros_like(a), a)
+    b = torch.where(both, torch.zeros_like(b), b)
+    return rel_err(torch, a, b)
+
+
+def logged_fused_inputs(torch, model, state) -> list:
+    """``[(kernel, case, wrapper, args)]``: the inputs one eager step of
+    ``state`` gives every fused stage and convection launch of ``model``
+    (the first of each case), the launch counters put back after it."""
+    log, seen, wrapped = [], set(), []
+    for tag, st in (model._stages or {}).items():
+        def apply(*args, _st=st, _tag=tag, _inner=st.apply):
+            if ("fused_stage", _tag) not in seen:
+                seen.add(("fused_stage", _tag))
+                log.append(("fused_stage", _tag, _st, [a.clone() for a in args]))
+            return _inner(*args)
+        wrapped.append((st, apply))
+    for i, fc in enumerate((model._convs or {}).values()):
+        def conv(*args, _fc=fc, _i=i, _inner=fc.apply):
+            case = f"conv{_i}_{len(args)}args"
+            if ("fused_conv", case) not in seen:
+                seen.add(("fused_conv", case))
+                log.append(("fused_conv", case, _fc,
+                            [a.clone() if torch.is_tensor(a) else a for a in args]))
+            return _inner(*args)
+        wrapped.append((fc, conv))
+    before = [(k, k.launches) for ks in model.kernels().values() for k in ks]
+    for obj, fn in wrapped:
+        obj.apply = fn
+    try:
+        model._step(state)
+    finally:
+        for obj, _ in wrapped:
+            del obj.apply
+        torch.cuda.synchronize()
+        for k, n in before:
+            k.launches = n
+    return log
+
+
+def served_kernel_records(torch, log, lanes, label, phase) -> list:
+    """Each logged fused launch against its plain version on the same
+    inputs (phase 25's limit, 1e-12 of max|plain|; a NaN lane equal on both
+    sides), launches put back after; ``lanes`` names each member's lane
+    state (``refilled``, ``dead``, ``retried``, ...)."""
+    records = []
+    for kernel, case, wrapper, args in log:
+        before = wrapper.launches
+        out = wrapper.apply(*args)
+        torch.cuda.synchronize()
+        wrapper.launches = before
+        plain = wrapper.plain(*args)
+        diff, rel = nan_rel_err(torch, out, plain)
+        rec = {"kernel": kernel, "case": case, "cell": label, "lanes": lanes,
+               "max_abs_err": diff, "max_rel_err": rel}
+        print(f"{phase} served inputs " + json.dumps(rec))
+        if not rel <= 1e-12:
+            raise AssertionError(f"{phase} {kernel}/{case} on served inputs: rel err {rel:.3e}")
+        records.append(rec)
+    return records
+
+
+def count_replays():
+    """Patch ``ChunkRunner.run`` to count each runner's replayed steps;
+    returns ``(counts by id(runner), restore())``."""
+    from rustpde_mpi_tpu_torch.models import campaign
+
+    orig = campaign.ChunkRunner.run
+    counts = {}
+
+    def run(self, n, variant=0):
+        counts[id(self)] = counts.get(id(self), 0) + int(n)
+        return orig(self, n, variant)
+
+    campaign.ChunkRunner.run = run
+
+    def restore():
+        campaign.ChunkRunner.run = orig
+
+    return counts, restore
+
+
+def runner_steps(ens, replays) -> tuple[int, int]:
+    """``(warm-up steps, replayed steps)`` of the chunk runners ``ens``
+    built (each runner warms each of its variants up with one eager step)."""
+    runners = list(ens._runners.values())
+    return (sum(len(r._advances) for r in runners),
+            sum(replays.get(id(r), 0) for r in runners))
+
+
+def served_launches(srv, replays, route, phase) -> tuple[dict, int]:
+    """The launches of every campaign ``srv`` served, read right after its
+    ``serve()``: each campaign's model must have launched exactly a solo
+    step's kernels (``PER_STEP[route]``) for each replayed step and each
+    warm-up step of its runners, and nothing else.  Returns the launches
+    summed over the campaigns and the replayed steps."""
+    launches, steps = {}, 0
+    for k, model, ens in srv.campaigns:
+        warm, n = runner_steps(ens, replays)
+        steps += n
+        got = count_launches(model)
+        want = {name: v * (warm + n) for name, v in PER_STEP[route].items()}
+        print(f"{phase} campaign dt={k[5]}: {n} replayed steps, {warm} warm-up, launches {got}")
+        if got != want:
+            raise AssertionError(f"{phase}: launches {got}, want {want} ({n} replays + "
+                                 f"{warm} warm-up)")
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+    return launches, steps
+
+
+def instrumented_server(torch):
+    """A ``SimServer`` subclass that records what the phase reads: each
+    campaign's model and ensemble, the runner's time in ``advance`` a
+    campaign, the final member state of every request as its lane is
+    released, and (``log_at``) the served fused inputs at chosen refills."""
+    from rustpde_mpi_tpu_torch.serve import SimServer
+
+    class Served(SimServer):
+        def __init__(self, *a, log_at=None, **kw):
+            super().__init__(*a, **kw)
+            self.campaigns = []  # (key, model, ens)
+            self.warm_models = []
+            self.advance_s = 0.0
+            self.advances = 0
+            self.loop_s = 0.0
+            self.final_states = {}  # request id -> member state at release
+            self.log_at = log_at
+            self.logged = []
+            self.parts = {}  # host seconds of the boundary's parts
+            self.instrument_s = 0.0  # this class's own logging, left out of them
+
+        def _timed(self, part, fn, *a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                self.parts[part] = self.parts.get(part, 0.0) + time.perf_counter() - t0
+
+        def _settle_boundary(self, *a):
+            return self._timed("settle", super()._settle_boundary, *a)
+
+        def _flush_results(self, *a, **kw):
+            return self._timed("flush_results", lambda: super(Served, self)._flush_results(
+                *a, **kw))
+
+        def _boundary_gauges(self):
+            return self._timed("gauges", super()._boundary_gauges)
+
+        def _refresh_slot_state(self, *a):
+            return self._timed("slot_state", super()._refresh_slot_state, *a)
+
+        def _warm_build(self, key, k):
+            out = super()._warm_build(key, k)
+            self.warm_models.append((tuple(key), out[0], out[1]))
+            return out
+
+        def _build_runner(self, key, k=None):
+            runner, ens = super()._build_runner(key, k)
+            self.campaigns.append((tuple(key), ens.model, ens))
+            inner = runner.advance
+            server = self
+
+            def advance(n):
+                # synchronized, so that the chunk's device time is the
+                # advance's and not the next host read's
+                t0 = time.perf_counter()
+                try:
+                    return inner(n)
+                finally:
+                    torch.cuda.synchronize()
+                    server.advance_s += time.perf_counter() - t0
+                    server.advances += 1
+
+            runner.advance = advance
+            on_boundary = runner.on_boundary
+            runner.on_boundary = lambda: self._timed("runner_on_boundary", on_boundary)
+            return runner, ens
+
+        def _campaign_loop(self, runner, ens, slots, key):
+            t0 = time.perf_counter()
+            try:
+                return super()._campaign_loop(runner, ens, slots, key)
+            finally:
+                self.loop_s += time.perf_counter() - t0
+
+        def _release(self, ens, slot):
+            t0 = time.perf_counter()
+            if slot.req is not None:
+                self.final_states[slot.req.id] = ens.member_state(slot.index)
+            self.instrument_s += time.perf_counter() - t0
+            return super()._release(ens, slot)
+
+        def _fill_slots(self, runner, ens, slots, key):
+            self._timed("fill_slots", super()._fill_slots, runner, ens, slots, key)
+            if self.log_at is not None:
+                t0 = time.perf_counter()
+                lanes = self.log_at(self, runner, ens, slots, key)
+                if lanes:
+                    self.logged.append((tuple(key), lanes,
+                                        logged_fused_inputs(torch, ens.model, ens.state)))
+                self.instrument_s += time.perf_counter() - t0
+
+        def host_row(self) -> dict:
+            """The scheduler's host time outside ``runner.advance`` over the
+            campaigns' boundaries (this class's logging left out), and its
+            parts (settle: completions and deaths; fill_slots: refills with
+            their fresh initial conditions; runner_on_boundary: the cadence
+            checkpoint and drain check; the rest: queue, journal, gauges)."""
+            host = self.loop_s - self.advance_s - self.instrument_s
+            n = max(1, self.advances)
+            return {"boundaries": self.advances, "advance_s": self.advance_s,
+                    "campaign_loop_s": self.loop_s - self.instrument_s,
+                    "scheduler_host_ms_a_boundary": host / n * 1e3,
+                    "scheduler_host_share": host / (self.loop_s - self.instrument_s)
+                    if self.loop_s else None,
+                    "parts_ms_a_boundary": {k: v / n * 1e3 for k, v in self.parts.items()}}
+
+    return Served
+
+
+def journal_rows(run_dir, replica=None) -> list:
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    path = os.path.join(run_dir, "journal.jsonl") if replica is None else \
+        os.path.join(run_dir, "replicas", replica, "journal.jsonl")
+    return [e for e in read_journal(path, on_error="skip") if e["event"] not in CLOCKED_EVENTS]
+
+
+def solo_final(torch, model, res):
+    """``model`` (the request's cell) run solo from the request's initial
+    condition for its steps at its dt: its final state and Nu."""
+    model.set_stability(None)
+    model.set_dt(res["dt"])
+    model.state = type(model.state)(*(t.new_zeros(t.shape) for t in model.state))
+    model.init_random(res["amp"] or 0.1, seed=res["seed"])
+    model.reset_time()
+    model.update_n(res["steps"])
+    return model.state, float(model.eval_nu())
+
+
+def phase34(torch, pt, card):
+    """Phase 34: a served campaign at full width.  ``SimServer`` on the
+    fused route, f64, ``rbc1025`` (1025^2, Ra=1e9, Pr=1, dt=1e-4), K =
+    ``SERVE_SLOTS`` lanes, chunks of ``SERVE_CHUNK``, six requests (seeds
+    0-5, ``SERVE_STEPS`` steps), ``SERVE_FAULT``: every in-flight request
+    retries at dt = 5e-5 and two lanes are refilled from the queue.  The
+    warm profile names both buckets, so each campaign comes from the warm
+    pool, the dt/2 one captured on the pool's thread while the first bucket
+    served.  Gates: every request done, none failed; each Nu within
+    ``SERVE_NU_REL`` of a solo ``Navier2D`` run on the card; every replayed
+    step of a served chunk launched exactly a solo step's kernels; the
+    served fused inputs (a refilled and a dead lane; the retried requests
+    at dt/2) against the plain versions.  Prints the time from admission
+    to first chunk, cold and warm, served member-steps/s beside the same
+    ensemble's bare ``update_n``, and the scheduler's host share a
+    boundary.  Returns the served launches."""
+    from rustpde_mpi_tpu_torch.config import ServeConfig
+
+    t_phase = time.perf_counter()
+    cell = RBC1025
+    retry_dt = cell["dt"] * 0.5
+    key = pt.SimRequest(**serve_request(cell, 0, 8)).compat_key
+    key2 = pt.SimRequest(**serve_request(cell, 0, 8, dt=retry_dt)).compat_key
+    Served = instrumented_server(torch)
+
+    def log_at(srv, runner, ens, slots, k):
+        alive = ens.alive()
+        done = {e[0] for e in srv.logged}
+        if tuple(k) in done:
+            return None
+        if k == key and runner.step > 0 and alive.any() and not alive.all():
+            return ["refilled" if a else "dead" for a in alive]
+        if k == key2 and alive.all():
+            return ["retried"] * len(alive)
+        return None
+
+    with tempfile.TemporaryDirectory(prefix="phase34_") as work:
+        cfg = ServeConfig(run_dir=os.path.join(work, "serve"), slots=SERVE_SLOTS,
+                          chunk_steps=SERVE_CHUNK, checkpoint_every_s=None, http_port=0,
+                          warm_profile=[{"key": list(key), "k": SERVE_SLOTS},
+                                        {"key": list(key2), "k": SERVE_SLOTS}])
+        replays, restore = count_replays()
+        try:
+            srv = Served(cfg, device=CARD, fault=SERVE_FAULT, log_at=log_at)
+            ids = [srv.submit(serve_request(cell, seed, steps)).id
+                   for seed, steps in enumerate(SERVE_STEPS)]
+            t0 = time.perf_counter()
+            summary = srv.serve()
+            torch.cuda.synchronize()
+            serve_wall = time.perf_counter() - t0
+        finally:
+            restore()
+        rows = journal_rows(cfg.run_dir)
+        events = [e["event"] for e in rows]
+        print(f"phase34 journal ({card}): " + json.dumps(events))
+        if summary["completed"] != len(SERVE_STEPS) or summary["failed"]:
+            raise AssertionError(f"34: summary {summary}")
+        results = [srv.result(i) for i in ids]
+        retried = [r for r in results if r["retries"]]
+        if len(retried) != SERVE_SLOTS or any(abs(r["dt"] - retry_dt) > 1e-18 for r in retried):
+            raise AssertionError(f"34: retried {[(r['seed'], r['dt']) for r in retried]}")
+        hits = [e for e in rows if e["event"] == "warm_pool_hit"]
+        builds = [i for i, e in enumerate(rows) if e["event"] == "aot_build"]
+        starts = [i for i, e in enumerate(rows) if e["event"] == "campaign_start"]
+        if len(hits) != 2 or len(builds) != 2 or not starts or builds[1] < starts[0]:
+            raise AssertionError(f"34: warm pool rows: hits {len(hits)}, builds at {builds}, "
+                                 f"campaigns at {starts}")
+        launches, steps = served_launches(srv, replays, "fused", "phase34")
+        # the served fused inputs against the plain versions
+        if {k for k, _, _ in srv.logged} != {key, key2}:
+            raise AssertionError(f"34: logged inputs of {[k[5] for k, _, _ in srv.logged]}")
+        for k, lanes, log in srv.logged:
+            checked = served_kernel_records(torch, log, lanes, f"rbc1025 dt={k[5]}", "phase34")
+            if {r["kernel"] for r in checked} != {"fused_conv", "fused_stage"}:
+                raise AssertionError(f"34: logged kernels {checked}")
+        # each request's Nu against a solo run on the card
+        solo = srv.campaigns[0][1]
+        rels = []
+        for r in results:
+            _, nu = solo_final(torch, solo, r)
+            rels.append(abs(r["nu"] - nu) / abs(nu))
+        print(f"phase34 Nu served vs solo, rel ({card}): {rels}")
+        if max(rels) > SERVE_NU_REL:
+            raise AssertionError(f"34: served Nu off its solo run by {max(rels):.3e}")
+        warm_ttfc = [e["wall_s"] for e in rows if e["event"] == "first_chunk"]
+        admitted = [e["wall_s"] for e in rows if e["event"] == "request_admitted"]
+        first = next(e["wall_s"] for e in rows if e["event"] == "first_chunk")
+        # the same ensemble's bare update_n (the served model, K lanes, dt)
+        model = srv.campaigns[0][1]
+        model.set_dt(cell["dt"])
+        ens = pt.NavierEnsemble.from_seeds(model, range(SERVE_SLOTS))
+        ens.chunk_runner()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ens.update_n(sum(SERVE_STEPS) // len(SERVE_STEPS))
+        torch.cuda.synchronize()
+        bare = SERVE_SLOTS * (sum(SERVE_STEPS) // len(SERVE_STEPS)) / (time.perf_counter() - t0)
+        del ens
+        # a cold campaign: no warm pool, one request
+        cold_cfg = ServeConfig(run_dir=os.path.join(work, "cold"), slots=SERVE_SLOTS,
+                               chunk_steps=SERVE_CHUNK, checkpoint_every_s=None)
+        cold = pt.SimServer(cold_cfg, device=CARD)
+        cold.submit(serve_request(cell, 0, SERVE_COLD_STEPS))
+        cold_summary = cold.serve()
+        cold_rows = journal_rows(cold_cfg.run_dir)
+        if cold_summary["completed"] != 1:
+            raise AssertionError(f"34: cold summary {cold_summary}")
+        cold_ttfc = next(e["wall_s"] for e in cold_rows if e["event"] == "first_chunk")
+        cold_first = next(e["wall_s"] for e in cold_rows if e["event"] == "first_chunk") - \
+            next(e["wall_s"] for e in cold_rows if e["event"] == "server_start")
+    row = {"cell": "rbc1025", "route": "fused", "K": SERVE_SLOTS, "chunk_steps": SERVE_CHUNK,
+           "requests": len(SERVE_STEPS), "retried": len(retried), "serve_wall_s": serve_wall,
+           "member_steps": summary["member_steps"],
+           "served_member_steps_per_s": summary["member_steps"] / serve_wall,
+           "served_member_steps_per_s_in_campaigns":
+           summary["member_steps"] / (srv.loop_s - srv.instrument_s),
+           "warm_builds_s": [e["wall_s"] for e in rows if e["event"] == "aot_build"],
+           "bare_update_n_member_steps_per_s": bare,
+           "campaign_first_chunk_s_warm": warm_ttfc,
+           "admission_to_first_chunk_s_warm": first - min(admitted),
+           "campaign_first_chunk_s_cold": cold_ttfc,
+           "server_start_to_first_chunk_s_cold": cold_first,
+           **srv.host_row(), "replayed_steps": steps, "launches": launches,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"phase34 served rbc1025 ({card}) " + json.dumps(row))
+    if not launches.get("fused_conv") or not launches.get("fused_stage"):
+        raise AssertionError(f"34: launches {launches}")
+    print("phase34 ok")
+    return launches
+
+
+def soak_request(seed):
+    steps = SOAK_STEPS + seed % SOAK_JITTER
+    return serve_request(ENSEMBLE129, seed, steps)
+
+
+def phase35(torch, pt, card):
+    """Phase 35: the serving soak shape (the JAX package's ``serve129``):
+    129^2, Ra=1e7, dt=2e-3, ``SOAK_STEPS`` steps a request plus a jitter of
+    0-5, ``SOAK_SLOTS`` lanes, ``SOAK_REQUESTS`` requests, two incarnations
+    on one run directory: the first drained mid-soak by
+    ``kill@SOAK_DRAIN_AT`` (a real SIGTERM: the graceful drain), the second
+    restoring the drained lanes mid-trajectory, taking ``nan@`` twice that
+    step and draining the queue.  Gates: every request resolved once, none
+    lost or failed; the drain, restore and retry rows in the journal;
+    ``SOAK_SAMPLES`` results within ``SERVE_NU_REL`` of solo runs; a drained
+    and restored request's final state bit for bit its solo run's.  Prints
+    member-steps/s over the serve wall and the latency percentiles beside
+    a bare ``ensemble129`` K = 8 ``update_n``.  Returns the launches."""
+    from rustpde_mpi_tpu_torch.config import ServeConfig
+
+    t_phase = time.perf_counter()
+    Served = instrumented_server(torch)
+    launches, replayed = {}, 0
+    with tempfile.TemporaryDirectory(prefix="phase35_") as work:
+        cfg = ServeConfig(run_dir=os.path.join(work, "serve"), slots=SOAK_SLOTS,
+                          max_queue=2 * SOAK_REQUESTS, checkpoint_every_s=10.0)
+        first = Served(cfg, device=CARD, fault=f"kill@{SOAK_DRAIN_AT}")
+        ids = [first.submit(soak_request(seed)).id for seed in range(SOAK_REQUESTS)]
+        second = Served(cfg, device=CARD, fault=f"nan@{2 * SOAK_DRAIN_AT}")
+        walls = []
+        for srv in (first, second):
+            # each incarnation's campaigns are its own models, counted from
+            # 0; their launches are read before any solo or bare run
+            replays, restore = count_replays()
+            try:
+                t0 = time.perf_counter()
+                srv.summary = srv.serve()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            finally:
+                restore()
+            got, n = served_launches(srv, replays, "fused", "phase35")
+            replayed += n
+            for name, v in got.items():
+                launches[name] = launches.get(name, 0) + v
+        (s1, s2), (wall1, wall2) = (first.summary, second.summary), walls
+        rows = journal_rows(cfg.run_dir)
+        counts = second.queue.counts()
+        results = {i: second.result(i) for i in ids}
+    events = [e["event"] for e in rows]
+    restored = {e["id"] for e in rows if e["event"] == "request_scheduled" and e.get("restored")}
+    summary = {"incarnations": [s1["outcome"], s2["outcome"]], "queue": counts,
+               "completed": [s1["completed"], s2["completed"]], "retried": s2["retried"],
+               "drains": events.count("drain"), "restored": len(restored),
+               "retries": events.count("request_retry")}
+    print(f"phase35 soak ({card}) " + json.dumps(summary))
+    if s1["outcome"] != "drained" or s2["outcome"] != "idle":
+        raise AssertionError(f"35: outcomes {s1['outcome']}, {s2['outcome']}")
+    if counts != {"queued": 0, "running": 0, "done": SOAK_REQUESTS, "failed": 0}:
+        raise AssertionError(f"35: queue {counts}")
+    done_rows = [e["id"] for e in rows if e["event"] == "request_done"]
+    if sorted(done_rows) != sorted(ids):
+        raise AssertionError("35: a request resolved other than once")
+    if not (events.count("drain") and restored and "request_retry" in events):
+        raise AssertionError(f"35: drain/restore/retry rows missing: {summary}")
+    model = second.campaigns[0][1] if second.campaigns else first.campaigns[0][1]
+    picks = sorted(results)[:: max(1, SOAK_REQUESTS // SOAK_SAMPLES)][:SOAK_SAMPLES]
+    rels = []
+    for rid in picks:
+        _, nu = solo_final(torch, model, results[rid])
+        rels.append(abs(results[rid]["nu"] - nu) / abs(nu))
+    bit_id = next(i for i in ids if i in restored and results[i]["retries"] == 0)
+    state, _ = solo_final(torch, model, results[bit_id])
+    bitwise = all(torch.equal(a, b) for a, b in zip(second.final_states[bit_id], state))
+    print(f"phase35 sampled Nu vs solo rel {rels}; drained and restored request "
+          f"{bit_id} bit for bit its solo run: {bitwise}")
+    if max(rels) > SERVE_NU_REL or not bitwise:
+        raise AssertionError(f"35: isolation {rels}, restored bit for bit {bitwise}")
+    lat = sorted(r["latency_s"] for r in results.values())
+    member_steps = s1["member_steps"] + s2["member_steps"]
+    # the bare ensemble129 K = SOAK_SLOTS update_n beside it
+    model.set_dt(ENSEMBLE129["dt"])
+    ens = pt.NavierEnsemble.from_seeds(model, range(SOAK_SLOTS))
+    ens.chunk_runner()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens.update_n(SOAK_BARE_STEPS)
+    torch.cuda.synchronize()
+    bare = SOAK_SLOTS * SOAK_BARE_STEPS / (time.perf_counter() - t0)
+    row = {"cell": "serve129", "route": "fused", "requests": SOAK_REQUESTS,
+           "serve_wall_s": wall1 + wall2, "member_steps": member_steps,
+           "member_steps_per_s": member_steps / (wall1 + wall2),
+           "bare_ensemble129_K8_member_steps_per_s": bare,
+           "latency_p50_s": lat[len(lat) // 2], "latency_p90_s": lat[int(0.9 * (len(lat) - 1))],
+           "latency_p99_s": lat[int(0.99 * (len(lat) - 1))],
+           "first_incarnation": first.host_row(), "second_incarnation": second.host_row(),
+           "replayed_steps": replayed, "launches": launches,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"phase35 serve129 ({card}) " + json.dumps(row))
+    if not launches.get("fused_conv") or not launches.get("fused_stage"):
+        raise AssertionError(f"35: launches {launches}")
+    print("phase35 ok")
+    return launches
+
+
+def http_json(url, payload=None, timeout=30):
+    """``(status, body)`` of one GET (``payload`` None) or JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def phase36_gang(torch, pt, work, card):
+    """Phase 36's gang: one stamped ``GANG_CELL`` bucket served as a gang on
+    a 2-rank sub-mesh of the card (``SubmeshConfig(shapes=(2,),
+    shard_min_nx=257)``, a fleet lease group), the meshed dense route: the
+    flips and banded solves one served step gives the kernels against
+    their plain versions, their launches counted, and the result's final
+    state against a solo ``make_mesh(2)`` run (``GANG_LIMIT`` of each
+    field's scale).  Returns the gang's launches."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.config import FleetConfig, ServeConfig, SubmeshConfig
+
+    Served = instrumented_server(torch)
+    gang_logs = []
+
+    def log_at(srv, runner, ens, slots, key):
+        if not gang_logs and ens.alive().any():
+            gang_logs.append(logged_step_inputs(torch, ens))
+        return None
+
+    cfg = ServeConfig(run_dir=os.path.join(work, "gang"), slots=2, chunk_steps=8,
+                      checkpoint_every_s=None,
+                      submesh=SubmeshConfig(shapes=(2,), shard_min_nx=GANG_SHARD_MIN),
+                      fleet=FleetConfig(replica_id="gang0", lease_ttl_s=60.0))
+    srv = Served(cfg, device=CARD, log_at=log_at)
+    rid = srv.submit(serve_request(GANG_CELL, 3, GANG_STEPS)).id
+    replays, restore = count_replays()
+    try:
+        summary = srv.serve()
+    finally:
+        restore()
+    rows = journal_rows(cfg.run_dir, "gang0")
+    events = [e["event"] for e in rows]
+    if summary["completed"] != 1 or "gang_formed" not in events:
+        raise AssertionError(f"36 gang: {summary}, events {events}")
+    (_, model, ens), = srv.campaigns
+    if model.mesh is None or model.mesh.nranks != 2:
+        raise AssertionError(f"36 gang: campaign model on {model.mesh}")
+    # the launches of the served campaign, read before the solo run: the
+    # banded solves are a step's only, 7 each; a step flips 37 times, and
+    # the eager observables reads and lane fills flip besides
+    launches = count_launches(model)
+    warm, served = runner_steps(ens, replays)
+    per_step = PER_STEP["mesh"]
+    step_flips = per_step["ring_transpose"] * (warm + served)
+    if launches["banded_solve"] != per_step["banded_solve"] * (warm + served) \
+            or launches["ring_transpose"] < step_flips:
+        raise AssertionError(f"36 gang: launches {launches} for {served} replayed and {warm} "
+                             f"warm-up steps")
+    res = srv.result(rid)
+    solo = pt.Navier2D(**GANG_CELL, mesh=pt.make_mesh(2, CARD))
+    state, nu = solo_final(torch, solo, res)
+    diffs = field_rel_diffs(torch, srv.final_states[rid], state)
+    # the flips and the banded solves one served step gave the kernels
+    (log,) = gang_logs
+    checked = {"ring_transpose": 0, "banded_solve": 0}
+    solvers = banded_solvers(model)
+    pres = model.solver_pres._solver
+    singular = np.flatnonzero(np.abs(pres.lam + pres.alpha) < 1e-8)
+    for key, (count, given) in sorted(log.items(), key=str):
+        if key[0] == "flip":
+            _, shape, x_to_y, dtype = key
+            ring = model.mesh.ring
+            before = ring.launches
+            out = ring.apply(given, x_to_y)
+            torch.cuda.synchronize()
+            ring.launches = before
+            exact = torch.equal(out, ring.plain(given, x_to_y))
+            if not exact:
+                raise AssertionError(f"36 gang: flip {shape} differs from its plain version")
+            checked["ring_transpose"] += 1
+            continue
+        _, label, shape, axis, stride, period = key
+        solver = solvers[label]
+        before = solver.kernel.launches
+        out = solver.solve(given, axis, stride, period)
+        torch.cuda.synchronize()
+        solver.kernel.launches = before
+        plain = solver.plain(given, axis, stride, period)
+        # phase 12's rule on a step's own input: STEP_INPUT_LIMIT of the
+        # solve's scale, the Poisson solve's nudged singular lane held apart
+        err = torch.abs(out - plain)
+        apart = torch.zeros(err.shape[:-1] + (1,), dtype=torch.bool, device=err.device)
+        if label == "poisson":  # lanes: global lane i is rank i // stride's lane i % stride
+            for i in singular:
+                apart[..., i // stride, i % stride, :] = True
+        kept = torch.where(apart, torch.zeros_like(plain), plain)
+        rel = float(torch.max(torch.where(apart, torch.zeros_like(err), err))) / \
+            float(torch.max(torch.abs(kept)))
+        rel_apart = float(torch.max(torch.where(apart, err, torch.zeros_like(err)))) / \
+            float(torch.max(torch.abs(plain)))
+        rec = {"kernel": "banded_solve", "case": label, "shape": list(shape), "cell": "gang258",
+               "axis": axis, "max_abs_err": float(torch.max(err)), "step_input_max_rel_err": rel,
+               "step_input_singular_rel_err": rel_apart}
+        print("phase36 served inputs " + json.dumps(rec))
+        if not rel <= STEP_INPUT_LIMIT:
+            raise AssertionError(f"36 gang: banded {label} rel err {rel:.3e}")
+        checked["banded_solve"] += 1
+    row = {"cell": "gang258", "mesh": 2, "route": "dense", "summary_completed":
+           summary["completed"], "nu": res["nu"], "solo_nu": nu,
+           "state_vs_solo_rel": diffs, "inputs_checked": checked, "launches": launches,
+           "replayed_steps": served, "warm_up_steps": warm,
+           "flips_outside_steps": launches["ring_transpose"] - step_flips}
+    print(f"phase36 gang ({card}) " + json.dumps(row))
+    if max(diffs.values()) > GANG_LIMIT:
+        raise AssertionError(f"36 gang: state off the solo make_mesh(2) run: {diffs}")
+    if not launches.get("ring_transpose") or not launches.get("banded_solve") \
+            or not all(checked.values()):
+        raise AssertionError(f"36 gang: launches {launches}, inputs checked {checked}")
+    return launches
+
+
+def phase36_drain(pt, work, card):
+    """Phase 36's drain: one replica started by ``LocalProcessLauncher`` is
+    retired (SIGTERM) mid-campaign.  It checkpoints its slot table and
+    lanes through the runner's default store (``.npz`` files where ``h5py``
+    does not import), requeues its requests and exits 0; started again
+    under its id, it restores the drained lanes mid-trajectory and finishes
+    them.  Gates: exit codes 0, the drain's checkpoint on disk, the
+    restored lanes in the journal, every request done exactly once."""
+    from rustpde_mpi_tpu_torch.serve.fleet import LocalProcessLauncher
+
+    run_dir = os.path.join(work, "drain")
+    queue = pt.serve.DurableQueue(os.path.join(run_dir, "queue"))
+    ids = [queue.submit(pt.SimRequest(**serve_request(ENSEMBLE129, 100 + i, FLEET_STEPS))).id
+           for i in range(FLEET_SLOTS)]
+    launcher = LocalProcessLauncher(
+        run_dir, device=CARD, env=dict(os.environ, PYTHONPATH=ROOT),
+        log_dir=os.path.join(work, "logs"),
+        serve_args=["--slots", str(FLEET_SLOTS), "--chunk-steps", str(FLEET_CHUNK),
+                    "--lease-ttl-s", "60"])
+    journal = os.path.join(run_dir, "replicas", "d0", "journal.jsonl")
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+    codes, files = [], []
+    try:
+        handle = launcher.spawn("d0")
+        while time.monotonic() < deadline and launcher.alive(handle):
+            if os.path.exists(journal) and '"first_chunk"' in open(journal).read():
+                break
+            time.sleep(0.02)
+        launcher.retire(handle)
+        codes.append(handle.proc.wait(timeout=max(1.0, deadline - time.monotonic())))
+        files = sorted(f for _, _, fs in os.walk(os.path.join(run_dir, "replicas"))
+                       for f in fs if f.startswith("ckpt_"))
+        handle = launcher.spawn("d0")
+        while time.monotonic() < deadline and launcher.alive(handle):
+            queue.invalidate()
+            if queue.counts()["done"] == len(ids):
+                break
+            time.sleep(0.2)
+        launcher.retire(handle)
+        codes.append(handle.proc.wait(timeout=max(1.0, deadline - time.monotonic())))
+    finally:
+        launcher.shutdown(timeout_s=10.0)
+    rows = journal_rows(run_dir, "d0")
+    events = [e["event"] for e in rows]
+    requeued = {e["id"] for e in rows if e["event"] == "request_requeued" and e["checkpoint"]}
+    restored = {e["id"] for e in rows if e["event"] == "request_scheduled" and e.get("restored")}
+    done = [e["id"] for e in rows if e["event"] == "request_done"]
+    summary = {"exit_codes": codes, "checkpoint_files": files, "drains": events.count("drain"),
+               "requeued_with_checkpoint": len(requeued), "restored": len(restored),
+               "done": len(done), "queue": queue.counts()}
+    print(f"phase36 drain ({card}) " + json.dumps(summary))
+    if codes != [0, 0] or not files or events.count("drain") != 2:
+        log = os.path.join(work, "logs", "d0.log")
+        if os.path.exists(log):
+            print("phase36 d0 log tail:\n" + open(log).read()[-3000:])
+        raise AssertionError(f"36 drain: {summary}")
+    if not requeued or restored != requeued or sorted(done) != sorted(ids):
+        raise AssertionError(f"36 drain: requests not restored or not done once: {summary}")
+
+
+def phase36(torch, pt, card):
+    """Phase 36: the fleet on one card.  A ``FleetProxy`` in this process;
+    two replicas spawned by ``LocalProcessLauncher`` (``python -m
+    rustpde_mpi_tpu_torch.serve.fleet.replica_main --device cuda``,
+    ``FLEET_SLOTS`` lanes, 129^2, ``lease_ttl_s`` ``FLEET_TTL_S``);
+    ``FLEET_REQUESTS`` requests POSTed through the proxy by two tenants (two
+    buckets: dt 2e-3 and 1e-3; one interactive request with a deadline).
+    The replica holding a lease is SIGKILLed right after it persisted its
+    running lanes' continuations; a survivor breaks its lease after the TTL
+    and resumes its requests from the parked continuations; an
+    ``Autoscaler(min_replicas=2, max_replicas=2)`` repairs the capacity with
+    one spawn.  Gates: every request done exactly once, none failed, the
+    lease break and the continuation resumes in the journals, one spawn;
+    each child has a deadline (``FLEET_TIMEOUT_S``) and its exit code is
+    checked.  Then the gang (:func:`phase36_gang`).  Returns the gang's
+    launches (the replicas' are in their own processes)."""
+    from rustpde_mpi_tpu_torch.config import AutoscaleConfig, FleetConfig
+    from rustpde_mpi_tpu_torch.serve.fleet import Autoscaler, FleetProxy, LocalProcessLauncher
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase36_") as work:
+        run_dir = os.path.join(work, "fleet")
+        fleet = FleetConfig(lease_ttl_s=FLEET_TTL_S)
+        proxy = FleetProxy(run_dir, fleet=fleet)
+        proxy.start()
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        launcher = LocalProcessLauncher(
+            run_dir, device=CARD, env=env, log_dir=os.path.join(work, "logs"),
+            serve_args=["--slots", str(FLEET_SLOTS), "--chunk-steps", str(FLEET_CHUNK),
+                        "--lease-ttl-s", str(FLEET_TTL_S)])
+        scaler = Autoscaler(run_dir, launcher,
+                            AutoscaleConfig(min_replicas=2, max_replicas=2, decide_s=0.5,
+                                            spawn_grace_s=60.0),
+                            fleet=fleet, controller_id="smoke-autoscaler")
+        handles = {}
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        try:
+            for rid in ("r0", "r1"):
+                handles[rid] = launcher.spawn(rid)
+            host, port = proxy.address
+            base = f"http://{host}:{port}"
+            ids = []
+            t_submit = time.perf_counter()
+            for i in range(FLEET_REQUESTS):
+                tenant = "a" if i % 2 == 0 else "b"
+                dt = ENSEMBLE129["dt"] if tenant == "a" else ENSEMBLE129["dt"] / 2
+                extra = dict(tenant=tenant)
+                if i == 1:
+                    extra.update(priority="interactive", deadline_s=float(FLEET_TIMEOUT_S))
+                code, ack = http_json(base + "/requests",
+                                      serve_request(ENSEMBLE129, i, FLEET_STEPS, dt=dt, **extra))
+                if code != 202:
+                    raise AssertionError(f"36: POST {code} {ack}")
+                ids.append(ack["id"])
+            scaler.start()
+            # the victim: the first replica seen persisting continuations
+            victim = None
+            while victim is None and time.monotonic() < deadline:
+                for rid in handles:
+                    path = os.path.join(run_dir, "replicas", rid, "journal.jsonl")
+                    try:
+                        with open(path) as fh:
+                            if '"continuation_persisted"' in fh.read():
+                                victim = rid
+                                break
+                    except OSError:
+                        pass
+                time.sleep(0.02)
+            if victim is None:
+                raise AssertionError("36: no replica persisted a continuation")
+            launcher.kill(handles[victim])
+            t_kill = time.perf_counter()
+            states = {}
+            while time.monotonic() < deadline:
+                states = {i: http_json(f"{base}/requests/{i}")[1].get("state") for i in ids}
+                if all(s in ("done", "failed") for s in states.values()):
+                    break
+                time.sleep(0.5)
+            t_done = time.perf_counter()
+            code, stats = http_json(base + "/stats")
+        finally:
+            scaler.stop()
+            launcher.shutdown(timeout_s=max(10.0, deadline - time.monotonic()))
+            proxy.stop()
+        codes = {h.replica_id: h.proc.returncode for h in handles.values()}
+        scaled = scaler.stats()
+        replicas = sorted(os.listdir(os.path.join(run_dir, "replicas")))
+        rows = {}
+        for rid in replicas:
+            if os.path.isdir(os.path.join(run_dir, "replicas", rid)):
+                rows[rid] = journal_rows(run_dir, rid)
+        done = {}
+        for rid, rs in rows.items():
+            for e in rs:
+                if e["event"] == "request_done":
+                    done[e["id"]] = done.get(e["id"], 0) + 1
+        reclaimed = [e for rs in rows.values() for e in rs if e["event"] == "requests_reclaimed"]
+        # the victim's requests: those a survivor reclaimed from the victim's
+        # broken lease and that the victim had parked before it died
+        persisted = {e["id"] for e in rows.get(victim, [])
+                     if e["event"] == "continuation_persisted"}
+        from_victim = {i for e in reclaimed if e.get("owner") == victim for i in e["ids"]}
+        resumed = {e["id"] for rid, rs in rows.items() if rid != victim for e in rs
+                   if e["event"] == "continuation_resumed"}
+        parked = persisted & from_victim
+        summary = {"victim": victim, "states": sorted(set(states.values())),
+                   "queue": stats.get("queue"), "exit_codes": codes, "autoscaler": scaled,
+                   "reclaimed_from_victim": len(from_victim),
+                   "victim_parked_and_resumed": [len(parked), len(parked & resumed)],
+                   # a live replica's lease broken by a peer (its heartbeat
+                   # late past the TTL): its requests reclaimed and finished
+                   # elsewhere, counted apart from the victim's
+                   "live_lease_reclaims": [(e.get("owner"), len(e["ids"])) for e in reclaimed
+                                           if e.get("owner") != victim],
+                   "continuations_resumed": len(resumed), "done_rows_max": max(done.values()),
+                   "kill_to_all_done_s": t_done - t_kill, "submit_to_all_done_s":
+                   t_done - t_submit}
+        print(f"phase36 fleet ({card}) " + json.dumps(summary))
+        if set(states.values()) != {"done"} or stats["queue"]["done"] != FLEET_REQUESTS:
+            raise AssertionError(f"36: not every request done: {summary}")
+        if max(done.values()) > 1:
+            raise AssertionError(f"36: a request done twice: {done}")
+        if not parked or not parked <= resumed or scaled["spawned"] != 1:
+            raise AssertionError(f"36: the victim's lease break, its requests' resumes or the "
+                                 f"repair spawn missing: {summary}")
+        if codes[victim] != -9 or any(c != 0 for r, c in codes.items() if r != victim):
+            for rid in handles:
+                log = os.path.join(work, "logs", f"{rid}.log")
+                if os.path.exists(log):
+                    print(f"phase36 {rid} log tail:\n" + open(log).read()[-3000:])
+            raise AssertionError(f"36: exit codes {codes}")
+        phase36_drain(pt, work, card)
+        launches = phase36_gang(torch, pt, work, card)
+    print(f"phase36 wall {time.perf_counter() - t_phase:.1f} s")
+    print("phase36 ok")
+    return launches
+
+
 KERNEL_META = {
     "fused_conv": ("rustpde_mpi_tpu_torch/csrc/fused_conv.cu",
                    "rustpde_mpi_tpu/ops/pallas_conv.py:64"),
@@ -5708,6 +6598,9 @@ def run(torch) -> int:
     runner_launches = phase31(torch, pt, card)
     phase_launches = {"sharded": phase32(torch, pt, card),
                       "controllers": phase33(torch, pt, card)}
+    phase_launches["serve"] = phase34(torch, pt, card)
+    phase_launches["soak"] = phase35(torch, pt, card)
+    phase_launches["fleet"] = phase36(torch, pt, card)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches,
                                   phase_launches)))

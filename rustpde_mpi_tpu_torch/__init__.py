@@ -116,11 +116,20 @@ objects only; ``parallel.multihost``): each holds its own model on its own
 card, the root decides every flag that leads into a collective, and the
 runner writes sharded two-phase checkpoints that restore onto any mesh;
 ``parallel.sanitizer`` catches a collective sequence that went out of
-step (``CollectiveDesyncError``).  ``serve`` holds the requests and the
-durable queue of the serving layer::
+step (``CollectiveDesyncError``)::
 
     multihost.initialize_distributed("localhost:29500", 2, rank)
     summary = ResilientRunner(model, 1.0, 0.1, run_dir="data/mp").run()
+
+``SimServer`` serves simulation requests from a durable queue as
+continuously batched ensemble campaigns (``serve``; its fleet of
+replicas, proxies, leases and the autoscaler in ``serve.fleet``)::
+
+    from rustpde_mpi_tpu_torch.config import ServeConfig
+
+    server = SimServer(ServeConfig(run_dir="data/serve", slots=8))
+    server.submit({"ra": 1e7, "nx": 129, "ny": 129, "dt": 2e-3, "horizon": 1.0})
+    summary = server.serve()
 """
 
 from . import config  # noqa: F401  (import first: turns TF32 off)
@@ -157,7 +166,7 @@ from .utils.checkpoint import CheckpointError  # noqa: F401
 from .utils.faults import FaultSpecError  # noqa: F401
 from .utils.resilience import DispatchHang, DivergenceError, ResilientRunner  # noqa: F401
 from .parallel.sanitizer import CollectiveDesyncError  # noqa: F401
-from .serve import AdmissionError, RequestFailed, SimRequest  # noqa: F401
+from .serve import AdmissionError, RequestFailed, SimRequest, SimServer  # noqa: F401
 from . import telemetry  # noqa: F401
 from .telemetry import MetricsRegistry, ThroughputMonitor  # noqa: F401
 from .utils.vorticity import (vorticity_auto, vorticity_from_file,  # noqa: F401

@@ -233,6 +233,170 @@ class ResilienceConfig:
 
 
 @dataclass
+class FleetConfig:
+    """The fleet layer's knobs (the JAX package's ``FleetConfig``, same
+    fields and defaults; :mod:`.serve.fleet`): N stateless proxies and M
+    ``SimServer`` replicas over one shared durable queue, coordinated by
+    queue-level lease files.  The JAX package's environment fallbacks are
+    the fields' own defaults here.
+
+    * ``replica_id``: stable identity for lease and heartbeat files
+      (empty: ``<hostname>-<pid>``);
+    * ``lease_ttl_s``: a lease whose heartbeat has not advanced for this
+      long (observer-monotonic) is stale: survivors break it and re-claim
+      its requests (None: 15 s);
+    * ``heartbeat_s``: the lease and replica-status heartbeat cadence
+      (None: ``lease_ttl_s / 3``);
+    * ``default_quota``: the per-tenant admission bound over queued and
+      running requests (None: unlimited); ``quotas`` per-tenant overrides;
+    * ``preempt``/``preempt_slack_s``: an at-risk deadline request (slack
+      under ``preempt_slack_s``) parks a running best-effort lane;
+    * ``durable_park``: parked member states persist into ``parked/<id>/``
+      continuation directories, so requeue-with-state survives a SIGKILL."""
+
+    replica_id: str = ""
+    lease_ttl_s: float | None = None
+    heartbeat_s: float | None = None
+    default_quota: int | None = None
+    quotas: dict = field(default_factory=dict)
+    preempt: bool = True
+    preempt_slack_s: float = 30.0
+    durable_park: bool = True
+
+    def resolved_replica_id(self) -> str:
+        if self.replica_id:
+            return str(self.replica_id)
+        import os
+        import socket
+
+        return f"{socket.gethostname()}-{os.getpid()}"
+
+    def resolved_ttl(self) -> float:
+        return 15.0 if self.lease_ttl_s is None else float(self.lease_ttl_s)
+
+    def resolved_heartbeat(self) -> float:
+        if self.heartbeat_s is not None:
+            return float(self.heartbeat_s)
+        return self.resolved_ttl() / 3.0
+
+    def resolved_quota(self, tenant: str) -> int | None:
+        if tenant in self.quotas:
+            q = self.quotas[tenant]
+            return None if q is None else int(q)
+        return None if self.default_quota is None else int(self.default_quota)
+
+
+@dataclass
+class AutoscaleConfig:
+    """The fleet autoscaler's control law (the JAX package's
+    ``AutoscaleConfig``, same fields and defaults;
+    :mod:`.serve.fleet.autoscaler`).
+
+    Scale out one replica a decision (up to ``max_replicas``) on deadline
+    pressure (a queued deadline's slack under ``slack_low_s``, at once), on
+    queue pressure (queued depth over ``queue_high`` for ``sustain_s``) or
+    to repair capacity (live replicas under ``min_replicas``, at once and
+    exempt from the cooldown).  Scale in one replica (down to
+    ``min_replicas``) after the fleet was fully idle for
+    ``idle_sustain_s``, by SIGTERM through the replica's own drain.
+    ``cooldown_s`` spaces elective actions, ``decide_s`` is the
+    evaluation cadence, and a spawned replica counts for ``spawn_grace_s``
+    before its first heartbeat.  ``notice_s`` is handed to launched
+    replicas as their preemption-notice window (``--preempt-notice-s``;
+    None: none).  ``gang_size`` moves capacity in fate-shared gangs of
+    that many replicas."""
+
+    min_replicas: int = 1
+    max_replicas: int = 4
+    queue_high: int = 8
+    sustain_s: float = 5.0
+    idle_sustain_s: float = 15.0
+    slack_low_s: float = 30.0
+    cooldown_s: float = 30.0
+    decide_s: float = 2.0
+    spawn_grace_s: float = 60.0
+    notice_s: float | None = None
+    replica_prefix: str = "auto"
+    gang_size: int = 1
+
+
+@dataclass
+class CanonicalConfig:
+    """Admission canonicalization (the JAX package's ``CanonicalConfig``,
+    same fields and defaults; ``SimServer.submit``): a request's ``dt``
+    snaps to the nearest rung of a service-wide geometric ladder anchored
+    at ``dt_anchor`` (ratio ``ladder_ratio``, bounds ``dt_min``/``dt_max``)
+    when the relative shift stays within ``max_rel_dt_shift``, and the
+    campaign slot count rounds up to the next of ``slot_sizes``, so that
+    warm-pool campaigns cover live traffic.  The horizon, the physics,
+    seeds, priorities and deadlines never change; ``rtol`` is the stated
+    tolerance between a canonicalized run and the exact-dt one."""
+
+    dt_anchor: float = 2e-3
+    ladder_ratio: float = 2.0
+    dt_min: float = 1e-6
+    dt_max: float = 1e-1
+    max_rel_dt_shift: float = 0.5
+    slot_sizes: tuple = ()
+    rtol: float = 5e-2
+
+
+@dataclass
+class ServeConfig:
+    """The simulation service's knobs (the JAX package's ``ServeConfig``,
+    same fields and defaults, plus the three of its environment knobs that
+    the port takes as fields; :class:`.serve.SimServer`).
+
+    * ``run_dir``: the service root (``queue/``, ``campaigns/<tag>``,
+      ``journal.jsonl``);
+    * ``slots``: ensemble members a campaign (K); a finished, failed or
+      idle lane is refilled from the queue at a chunk boundary;
+    * ``max_queue``: the admission bound; ``chunk_steps``: the most steps a
+      dispatch between schedule points; ``bucket_quantum``: the most claims
+      one campaign visit makes while other buckets wait (0: unlimited);
+    * ``checkpoint_every_s``: the slot-table checkpoint cadence (None:
+      drain and edge checkpoints only; always sharded two-phase);
+    * ``request_max_retries``/``request_dt_backoff``: a diverged request
+      is requeued at ``dt * backoff`` up to the budget, then fails typed;
+    * ``default_amp``, ``idle_exit``, ``poll_s``, ``http_host``/
+      ``http_port`` (None: no HTTP front; 0: an ephemeral port);
+    * ``resilience``, ``stats``, ``stability``, ``fleet``, ``autoscale``,
+      ``submesh``, ``warm_profile``, ``canonicalize``, ``integrity``: the
+      optional layers, each off at None;
+    * ``preempt_notice_s``: a fleet replica's preemption-notice window (a
+      SIGTERM then parks running slots as continuations; 0: off);
+    * ``profile_max_s``: the cap on one ``POST /profile`` capture;
+    * ``gang_sync_timeout_s``: the gang barrier's deadline (0: the
+      ordinary sync)."""
+
+    run_dir: str = "data/serve"
+    slots: int = 8
+    max_queue: int = 256
+    chunk_steps: int = 256
+    bucket_quantum: int = 32
+    checkpoint_every_s: float | None = 60.0
+    request_max_retries: int = 2
+    request_dt_backoff: float = 0.5
+    default_amp: float = 0.1
+    idle_exit: bool = True
+    poll_s: float = 0.2
+    http_host: str = "127.0.0.1"
+    http_port: int | None = None
+    resilience: ResilienceConfig | None = None
+    stats: StatsConfig | None = None
+    stability: StabilityConfig | None = None
+    fleet: FleetConfig | None = None
+    autoscale: AutoscaleConfig | None = None
+    submesh: SubmeshConfig | None = None
+    warm_profile: object | None = None
+    canonicalize: CanonicalConfig | None = None
+    integrity: IntegrityConfig | None = None
+    preempt_notice_s: float = 0.0
+    profile_max_s: float = 60.0
+    gang_sync_timeout_s: float = 0.0
+
+
+@dataclass
 class NavierConfig:
     """The Navier models' configuration in one object (the JAX package's
     ``NavierConfig``, same fields and defaults), for

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import gc
 import math
+import threading
 import time
 from functools import partial
 
@@ -115,6 +116,20 @@ def _health_values(vals: np.ndarray) -> tuple:
     return tuple(vals[..., i].astype(float) for i in range(vals.shape[-1]))
 
 
+#: one CUDA-graph capture, or the freeing of captured graphs, at a time in
+#: a process (see :class:`ChunkRunner`)
+CAPTURE_LOCK = threading.RLock()
+#: graphs whose runner was finalized while another thread held
+#: :data:`CAPTURE_LOCK`: freed under it by the next capture or release
+_RETIRED: list = []
+
+
+def _free_retired() -> None:
+    """Free the retired graphs (the caller holds :data:`CAPTURE_LOCK`)."""
+    while _RETIRED:
+        _RETIRED.pop().reset()
+
+
 class ChunkRunner:
     """The carry of a chunk (``carry``: the state's fields, then the
     scalars ``advance`` reads, then the statistics slots, if any) and one
@@ -131,6 +146,17 @@ class ChunkRunner:
     and :meth:`run` replays one.  The graphs read and write the carry's
     own buffers, so consecutive replays are consecutive steps.
 
+    Captures may run on any thread (the serving warm pool captures on a
+    background thread while the serving thread replays other graphs, frees
+    finished campaigns and copies counters to the host): one capture runs
+    at a time in a process (:data:`CAPTURE_LOCK`), each on a stream of its
+    own and in the thread-local capture mode, so another thread's device
+    work does not join the capture.  Graphs are freed only under the same
+    lock (:meth:`release`, which finalization calls too: a runner that dies
+    while another thread captures hands its graphs to the next capture),
+    and the garbage collector is off during a capture, so no graph dies
+    inside one.
+
     ``kernels`` are the wrappers the step launches, each with a
     ``launches`` counter.  The capture launches nothing, so their counters
     are put back after it, and the launches one captured step of a variant
@@ -143,6 +169,7 @@ class ChunkRunner:
         self._advances = tuple(advance) if isinstance(advance, (tuple, list)) else (advance,)
         self._kernels = list(kernels)
         self._graphs: list = []
+        self._released = False
         #: the carry's trailing statistics slots (running sums and tick)
         self.n_stats = int(n_stats)
         #: kernel launches of one step of each variant, per wrapper
@@ -165,6 +192,10 @@ class ChunkRunner:
         return self.deltas[0]
 
     def _capture(self) -> None:
+        with CAPTURE_LOCK:
+            self._capture_locked()
+
+    def _capture_locked(self) -> None:
         dev = self.device
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
@@ -176,33 +207,67 @@ class ChunkRunner:
             torch.cuda.synchronize(dev)
             # a CUDA graph that dies while another is being captured (its
             # reset frees memory) invalidates that capture: collect any
-            # unreachable one now
+            # unreachable one now, and no collection runs until the end
             gc.collect()
+            _free_retired()
             torch.cuda.empty_cache()  # as the capture does: what it reserves is its pool
             reserved = torch.cuda.memory_reserved(dev)
             pool = None
-            for i, advance in enumerate(self._advances):
-                before = [k.launches for k in self._kernels]
-                graph = torch.cuda.CUDAGraph()
-                try:
-                    with torch.cuda.graph(graph, pool=pool):
-                        advance(self.carry)
-                except BaseException:
-                    # free the failed graphs here, not whenever the traceback
-                    # that holds them is dropped (maybe inside a later capture)
-                    graph.reset()
-                    for g in self._graphs:
-                        g.reset()
-                    self._graphs = []
-                    raise
-                finally:
-                    after = [k.launches for k in self._kernels]
-                    for k, n in zip(self._kernels, before):
-                        k.launches = n
-                self.deltas[i] = [a - b for a, b in zip(after, before)]
-                self._graphs.append(graph)
-                pool = graph.pool()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                self._capture_variants(side, pool)
+            finally:
+                if collecting:
+                    gc.enable()
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def _capture_variants(self, side, pool) -> None:
+        for i, advance in enumerate(self._advances):
+            before = [k.launches for k in self._kernels]
+            graph = torch.cuda.CUDAGraph()
+            try:
+                # a stream of this capture's own (not the class-wide
+                # default capture stream another thread might hold)
+                with torch.cuda.graph(graph, pool=pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    advance(self.carry)
+            except BaseException:
+                # free the failed graphs here, not whenever the traceback
+                # that holds them is dropped (maybe inside a later capture)
+                graph.reset()
+                for g in self._graphs:
+                    g.reset()
+                self._graphs = []
+                raise
+            finally:
+                after = [k.launches for k in self._kernels]
+                for k, n in zip(self._kernels, before):
+                    k.launches = n
+            self.deltas[i] = [a - b for a, b in zip(after, before)]
+            self._graphs.append(graph)
+            pool = graph.pool()
+
+    def release(self, wait: bool = True) -> None:
+        """Free the captured graphs under :data:`CAPTURE_LOCK`; :meth:`run`
+        raises after it.  The serving scheduler calls it as a campaign
+        closes (``wait``: for a capture in flight on another thread to
+        end); finalization calls it without waiting, and where another
+        thread holds the lock the graphs are left to the next capture or
+        release to free."""
+        graphs, self._graphs = getattr(self, "_graphs", None), []
+        if not graphs or CAPTURE_LOCK is None:  # (None: the interpreter's exit)
+            return
+        self._released = True
+        _RETIRED.extend(graphs)
+        if CAPTURE_LOCK.acquire(blocking=wait):
+            try:
+                _free_retired()
+            finally:
+                CAPTURE_LOCK.release()
+
+    def __del__(self):
+        self.release(wait=False)
 
     @property
     def captured(self) -> bool:
@@ -212,6 +277,8 @@ class ChunkRunner:
     def run(self, n: int, variant: int = 0) -> None:
         """Advance the carry ``n`` steps of one variant."""
         if not self._graphs:
+            if self._released:
+                raise RuntimeError("the chunk runner's graphs were released")
             for _ in range(n):
                 self._advances[variant](self.carry)
             return
@@ -281,6 +348,15 @@ class StatsAndRungs:
         self._runners.clear()
         self._dt_cache.clear()
         self._obs_cache = None
+
+    def release_chunks(self) -> None:
+        """Free the captured graphs of every chunk runner (of every dt
+        rung) now, under the capture lock (:meth:`ChunkRunner.release`):
+        the serving scheduler calls it as a campaign's ensemble is let go.
+        The runners stay, with their counts; running one raises."""
+        for runners in [self._runners] + [c["_runners"] for c in self._dt_cache.values()]:
+            for runner in runners.values():
+                runner.release()
 
     # -- the statistics carry ----------------------------------------------------
 

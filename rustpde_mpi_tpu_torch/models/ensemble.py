@@ -217,6 +217,17 @@ class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
         self.mask = mask
         self._obs_cache = None
 
+    def device_fence(self) -> None:
+        """Block until every device computation whose output the ensemble
+        holds has completed (its state, sums, counts and cached
+        observables): a synchronize of the ensemble's card, nothing on the
+        CPU.  The serving scheduler runs it before a host-level collective
+        while a campaign occupies a proper sub-mesh
+        (:func:`..parallel.multihost.set_device_fence`)."""
+        dev = self.state.temp.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     # -- status ----------------------------------------------------------------
 
     def _finite_mask(self, stacked) -> torch.Tensor:

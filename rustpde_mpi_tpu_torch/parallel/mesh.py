@@ -57,7 +57,10 @@ class Mesh:
 
     def __init__(self, devices):
         devices = list(devices)
-        procs = sorted({int(getattr(d, "process_index", 0)) for d in devices})
+        # a device named by the planners (a ``HostDevice``) carries its
+        # process; a plain device (``"cuda"``, a ``torch.device``) is this
+        # process's own
+        procs = sorted({int(d.process_index) for d in devices if hasattr(d, "process_index")})
         if len(procs) > 1 or (procs and procs[0] != _this_process()):
             raise NotImplementedError(
                 f"ranks in processes {procs}: a mesh holds the ranks of this process only (a "

@@ -498,15 +498,22 @@ class DurableQueue:
             }
 
     def lookup(self, request_id: str) -> tuple[str, dict] | None:
-        """(state, record) for one id; queued records are the bare request."""
+        """(state, record) for one id; queued records are the bare request.
+        A record that another process moves on while it is looked up (a
+        fleet replica claiming, settling or requeueing it) is looked up
+        again in the states after it, and the whole lookup once more if it
+        slipped past all of them."""
         with self._lock:
-            for state in ("running", "done", "failed"):
-                path = os.path.join(self._dir(state), f"{request_id}.json")
-                if os.path.exists(path):
-                    with open(path, encoding="utf-8") as fh:
-                        data = json.load(fh)
+            for _ in range(2):
+                for state in ("running", "done", "failed"):
+                    path = os.path.join(self._dir(state), f"{request_id}.json")
+                    try:
+                        with open(path, encoding="utf-8") as fh:
+                            data = json.load(fh)
+                    except FileNotFoundError:
+                        continue
                     return state, (data if state != "running" else {"request": data})
-            for name, req in self._load_queued():
-                if req.id == request_id:
-                    return "queued", {"request": json.loads(req.to_json())}
+                for name, req in self._load_queued():
+                    if req.id == request_id:
+                        return "queued", {"request": json.loads(req.to_json())}
         return None

@@ -14,8 +14,8 @@ each observer returns the journal-ready row:
   graphs (and the eager warm-up before it), recorded per model kind at
   every capture, so ``set_dt``'s first visit to a rung counts again;
 * :func:`observe_first_chunk`, :func:`observe_warm_pool`: copies of the
-  JAX package's (their producers, the serving scheduler and its warm pool,
-  are ROADMAP Queue 1 item 18);
+  JAX package's, fed by the serving scheduler and its warm pool
+  (:mod:`..serve`);
 * :func:`update_device_memory_gauges`: live per-card memory from
   ``torch.cuda.memory_stats`` (no card: nothing reported, nothing fails);
 * :class:`ProfilerCapture`: a bounded, single-flight ``torch.profiler``
@@ -161,25 +161,21 @@ def update_device_memory_gauges() -> int:
 
 
 def _profiler_fns():
-    """``(start(logdir), stop())`` around one ``torch.profiler.profile``:
-    CPU activity, and CUDA activity where a card is visible; ``stop``
-    writes ``trace.json`` (Chrome format) into the directory."""
-    import torch
+    """``(start(logdir), stop())`` around one capture of
+    :func:`..utils.profiling.trace` (``torch.profiler``: CPU activity, and
+    CUDA activity where a card is visible); ``stop`` writes ``trace.json``
+    (Chrome format) into the directory."""
+    from ..utils.profiling import trace
 
     state = {}
 
     def start(logdir):
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
-        state["prof"], state["dir"] = prof, logdir
+        ctx = trace(logdir)
+        ctx.__enter__()
+        state["ctx"] = ctx
 
     def stop():
-        prof = state.pop("prof")
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(state.pop("dir"), "trace.json"))
+        state.pop("ctx").__exit__(None, None, None)
 
     return start, stop
 

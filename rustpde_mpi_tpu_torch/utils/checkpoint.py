@@ -1335,6 +1335,36 @@ def continuation_record(cont_dir: str) -> dict | None:
     return record
 
 
+def _have_h5py() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _atomic_npz_write(filename: str, arrays: dict) -> None:
+    """Write ``arrays`` as an uncompressed ``.npz`` atomically: a ``.tmp``
+    sibling, fsynced, ``os.replace``d over the target, the directory
+    fsynced (strictly)."""
+    dirname = os.path.dirname(filename) or "."
+    os.makedirs(dirname, exist_ok=True)
+    tmp = f"{filename}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as fh:
+            np.savez(fh, **arrays)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, filename)
+        fsync_dir(dirname, strict=True)
+    finally:
+        if os.path.exists(tmp):
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+
+
 def write_continuation(cont_dir: str, state, *, base: int, time_base: float,
                        meta: dict | None = None) -> str:
     """Persist one parked member state, two-phase (collective on a
@@ -1342,7 +1372,13 @@ def write_continuation(cont_dir: str, state, *, base: int, time_base: float,
     ``shard_<p>.h5`` (fsynced, digest-stamped), the digests are exchanged,
     and the ROOT writes the manifest whose presence commits it.  ``state``
     is a NamedTuple of tensors (or arrays) in the global layout.  Raises
-    :class:`CheckpointError` when a shard write failed (no manifest)."""
+    :class:`CheckpointError` when a shard write failed (no manifest).
+
+    Where ``h5py`` does not import (the card's machine) the shard is an
+    uncompressed ``shard_<p>.npz`` of the same arrays, named so in the
+    manifest, with the same digest: any process of this package reads
+    either (:func:`read_continuation`); only the ``.h5`` form is the JAX
+    package's."""
     from ..parallel import multihost
 
     proc = _process_index()
@@ -1351,7 +1387,8 @@ def write_continuation(cont_dir: str, state, *, base: int, time_base: float,
     slabs = {name: multihost.host_local_array(getattr(state, name)) for name in fields}
     items = [(f"state/{name}", arr, "raw") for name, arr in sorted(slabs.items())]
     digest = snapshot_digest(items)
-    shard_file = os.path.join(cont_dir, f"shard_{proc:05d}.h5")
+    suffix = "h5" if _have_h5py() else "npz"
+    shard_file = os.path.join(cont_dir, f"shard_{proc:05d}.{suffix}")
 
     def body(h5):
         grp = h5.require_group("state")
@@ -1362,7 +1399,10 @@ def write_continuation(cont_dir: str, state, *, base: int, time_base: float,
 
     local_error: Exception | None = None
     try:
-        _atomic_h5_write(shard_file, body, step=int(base), digest=digest)
+        if suffix == "h5":
+            _atomic_h5_write(shard_file, body, step=int(base), digest=digest)
+        else:
+            _atomic_npz_write(shard_file, slabs)
     except Exception as exc:  # the commit exchange decides
         local_error = exc
     if nproc == 1:
@@ -1384,7 +1424,7 @@ def write_continuation(cont_dir: str, state, *, base: int, time_base: float,
     if proc == 0:
         record = {"schema": SCHEMA_VERSION, "base": int(base), "time_base": float(time_base),
                   "fields": fields,
-                  "shards": [{"file": f"shard_{i:05d}.h5", "digest": d}
+                  "shards": [{"file": f"shard_{i:05d}.{suffix}", "digest": d}
                              for i, d in enumerate(digests)],
                   "meta": dict(meta or {})}
         # the commit marker: a failed dirsync reports it NOT committed
@@ -1417,12 +1457,23 @@ def read_continuation(cont_dir: str, template_state):
         raise CheckpointError(manifest, f"continuation holds {len(shards)} shard(s) but this is "
                               f"process {proc}: written under a different topology")
     path = os.path.join(cont_dir, shards[proc]["file"])
-    with _open_checkpoint(path) as h5:
-        if _attrs_of(h5).get("digest") != shards[proc]["digest"]:
-            raise CheckpointError(manifest, f"shard {shards[proc]['file']!r} digest mismatch")
-        if content_digest(h5) != shards[proc]["digest"]:
+    if path.endswith(".npz"):
+        try:
+            with np.load(path, allow_pickle=False) as npz:
+                slabs = {name: np.asarray(npz[name]) for name in fields}
+        except (OSError, ValueError, KeyError) as exc:
+            raise CheckpointError(manifest, f"shard {shards[proc]['file']!r} unreadable: "
+                                  f"{exc}") from exc
+        items = [(f"state/{name}", arr, "raw") for name, arr in sorted(slabs.items())]
+        if snapshot_digest(items) != shards[proc]["digest"]:
             raise CheckpointError(manifest, f"shard {shards[proc]['file']!r} content mismatch")
-        slabs = {name: np.asarray(h5["state"][name]) for name in fields}
+    else:
+        with _open_checkpoint(path) as h5:
+            if _attrs_of(h5).get("digest") != shards[proc]["digest"]:
+                raise CheckpointError(manifest, f"shard {shards[proc]['file']!r} digest mismatch")
+            if content_digest(h5) != shards[proc]["digest"]:
+                raise CheckpointError(manifest, f"shard {shards[proc]['file']!r} content mismatch")
+            slabs = {name: np.asarray(h5["state"][name]) for name in fields}
     leaves = {}
     for name in fields:
         tmpl = getattr(template_state, name)

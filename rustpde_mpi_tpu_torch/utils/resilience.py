@@ -53,14 +53,15 @@ cadence commit is deferred to the next chunk boundary when the writes
 overlap.  A fault scoped to ``host<p>`` acts on process ``p``; the shard
 crash spec (``shard_crash=``) kills a process inside the two-phase window.
 
-``_store`` (a private constructor argument) is where checkpoints live:
-the gathered HDF5 files by default (:class:`_FileStore`), or
-:class:`_MemoryStore`, which keeps each staged :class:`.checkpoint.HostSnapshot`
-and its digest in memory and restores through the file reader's group
-restore.  It exists for machines without ``h5py``, where every
-checkpoint-backed path (the rollback anchor, preemption, resume) would
-otherwise be untestable; retention, digest verification and the choice of
-the newest valid checkpoint behave as with files.
+``_store`` (a private constructor argument) is where checkpoints live.
+By default (:func:`file_store`) they are the gathered HDF5 files
+(:class:`_FileStore`), or, where ``h5py`` does not import, ``.npz`` files
+(:class:`_NpzStore`).  :class:`_MemoryStore` keeps each staged
+:class:`.checkpoint.HostSnapshot` and its digest in memory and restores
+through the file reader's group restore; the ``.npz`` store is that store
+with every snapshot also written to disk and read back by a later run.
+Retention, digest verification and the choice of the newest valid
+checkpoint behave in each as with HDF5 files.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ import contextlib
 import dataclasses
 import errno as _errno
 import faulthandler
+import json
 import os
 import signal
 import sys
@@ -314,6 +316,9 @@ class _FileStore:
     def remove(self, path: str) -> None:
         checkpoint.remove_checkpoint(path)
 
+    def root_data(self, path: str) -> dict:
+        return checkpoint.read_root_data(path)
+
     def write_shard(self, snap, path: str, crash=None) -> None:
         checkpoint.write_shard_file(snap, path, crash=crash)
 
@@ -345,8 +350,11 @@ class _MemoryStore:
 
     def latest(self) -> str | None:
         for path in reversed(self.files()):
-            with self._lock:
-                snap, digest = self._snaps[path]
+            try:
+                snap, digest = self._entry(path)
+            except (OSError, ValueError, KeyError) as exc:  # an unreadable file
+                print(f"skipping unreadable checkpoint: {path}: {exc}")
+                continue
             items = (snap.items() if isinstance(snap, checkpoint.ShardSnapshot)
                      else snap.datasets)
             if checkpoint.snapshot_digest(items) == digest:
@@ -355,8 +363,7 @@ class _MemoryStore:
         return None
 
     def attrs(self, path: str) -> dict:
-        with self._lock:
-            snap, digest = self._snaps[path]
+        snap, digest = self._entry(path)
         out = {"schema": checkpoint.SCHEMA_VERSION, "digest": digest, "time": snap.time,
                "dt": snap.dt}
         if isinstance(snap, checkpoint.ShardSnapshot):
@@ -365,17 +372,23 @@ class _MemoryStore:
             out["step"] = snap.step
         return out
 
+    def _entry(self, path: str) -> tuple:
+        """``(snapshot, digest)`` kept under ``path``."""
+        with self._lock:
+            return self._snaps[path]
+
     def write(self, snap, path: str) -> None:
-        digest = checkpoint.snapshot_digest(snap.datasets)
+        self._keep(path, snap, checkpoint.snapshot_digest(snap.datasets))
+
+    def _keep(self, path: str, snap, digest: str) -> None:
         with self._lock:
             self._snaps[path] = (snap, digest)
 
     def rotate(self, keep: int) -> None:
         if keep <= 0:
             return
-        with self._lock:
-            for path in sorted(self._snaps)[:-keep]:
-                del self._snaps[path]
+        for path in self.files()[:-keep]:
+            self.remove(path)
 
     def write_shard(self, snap, path: str, crash=None) -> None:
         """Stage this process's shard with the digest its file would carry
@@ -388,16 +401,12 @@ class _MemoryStore:
         every process keeps its shard under ``path`` (a shard that failed
         is dropped)."""
 
-        def keep():
-            with self._lock:
-                self._snaps[path] = (snap, snap.digest)
-
-        return checkpoint.commit_sharded_snapshot(snap, path, local_ok=local_ok, crash=crash,
-                                                  keep=keep)
+        return checkpoint.commit_sharded_snapshot(
+            snap, path, local_ok=local_ok, crash=crash,
+            keep=lambda: self._keep(path, snap, snap.digest))
 
     def restore(self, pde, path: str) -> None:
-        with self._lock:
-            snap, _ = self._snaps[path]
+        snap, _ = self._entry(path)
         if isinstance(snap, checkpoint.ShardSnapshot):
             # every process's shard: the local one, or all of them gathered
             # (a collective, as every restore is)
@@ -419,6 +428,103 @@ class _MemoryStore:
     def remove(self, path: str) -> None:
         with self._lock:
             self._snaps.pop(path, None)
+
+    def root_data(self, path: str) -> dict:
+        """The root-level datasets :func:`.checkpoint.read_root_data` reads
+        from the file (``members``, ``alive``, ``steps_done``, ...)."""
+        snap, _ = self._entry(path)
+        items = (snap.root_datasets if isinstance(snap, checkpoint.ShardSnapshot)
+                 else snap.datasets)
+        return {name: np.asarray(arr) for name, arr, _ in items if "/" not in name}
+
+
+class _NpzStore(_MemoryStore):
+    """Checkpoints as uncompressed ``.npz`` files, where ``h5py`` does not
+    import (the card's machine): the memory store's snapshots, each also
+    written (fsynced, atomically renamed) beside where its HDF5 file would
+    be, ``ckpt_<step>.npz`` (``ckpt_<step>.p<process>.npz`` on more than one
+    process, each holding its own), with the digest the HDF5 file would
+    carry; a store opened on the directory later reads each back at its
+    first use (a file that does not load is skipped with a message).  Restores go through the
+    memory store's readers; only the ``.h5`` form is the JAX package's."""
+
+    def __init__(self, run_dir: str):
+        super().__init__(run_dir)
+        suffix = self._suffix()
+        try:
+            names = sorted(os.listdir(run_dir))
+        except OSError:
+            names = []
+        for name in names:
+            stem = name[: -len(suffix)]
+            if not (name.startswith("ckpt_") and name.endswith(suffix)) or "." in stem:
+                continue  # not a checkpoint, or another process's
+            self._snaps[os.path.join(run_dir, stem + ".h5")] = None  # read at first use
+
+    @staticmethod
+    def _suffix() -> str:
+        nproc = checkpoint._process_count()
+        return f".p{checkpoint._process_index():05d}.npz" if nproc > 1 else ".npz"
+
+    def _file(self, path: str) -> str:
+        return path[: -len(".h5")] + self._suffix()
+
+    def _keep(self, path: str, snap, digest: str) -> None:
+        head = {"digest": digest, "step": snap.step, "time": snap.time, "dt": snap.dt}
+        arrays = {}
+        if isinstance(snap, checkpoint.ShardSnapshot):
+            head.update(kind="shard", shard_index=snap.shard_index,
+                        shard_count=snap.shard_count, meta=snap.meta,
+                        slabs=[[st, list(off)] for st, off, _ in snap.slabs],
+                        root=[[n, k] for n, _, k in snap.root_datasets])
+            arrays.update({f"s{i}": a for i, (_, _, a) in enumerate(snap.slabs)})
+            arrays.update({f"r{i}": np.asarray(a) for i, (_, a, _) in
+                           enumerate(snap.root_datasets)})
+        else:
+            head.update(kind="host", datasets=[[n, k] for n, _, k in snap.datasets])
+            arrays.update({f"d{i}": np.asarray(a) for i, (_, a, _) in enumerate(snap.datasets)})
+        arrays["head"] = np.array(json.dumps(head))
+        checkpoint._atomic_npz_write(self._file(path), arrays)
+        super()._keep(path, snap, digest)
+
+    def _entry(self, path: str) -> tuple:
+        with self._lock:
+            entry = self._snaps[path]
+            if entry is None:
+                entry = self._snaps[path] = self._load(self._file(path))
+            return entry
+
+    @staticmethod
+    def _load(filename: str) -> tuple:
+        with np.load(filename, allow_pickle=False) as npz:
+            head = json.loads(str(npz["head"]))
+            arrays = {k: np.asarray(npz[k]) for k in npz.files if k != "head"}
+        if head["kind"] == "shard":
+            snap = checkpoint.ShardSnapshot(
+                shard_index=head["shard_index"], shard_count=head["shard_count"],
+                slabs=[(st, tuple(off), arrays[f"s{i}"])
+                       for i, (st, off) in enumerate(head["slabs"])],
+                root_datasets=[(n, arrays[f"r{i}"], k) for i, (n, k) in enumerate(head["root"])],
+                meta=head["meta"], step=head["step"], time=head["time"], dt=head["dt"],
+                digest=head["digest"])
+        else:
+            snap = checkpoint.HostSnapshot(
+                datasets=[(n, arrays[f"d{i}"], k) for i, (n, k) in enumerate(head["datasets"])],
+                step=head["step"], time=head["time"], dt=head["dt"])
+        return snap, head["digest"]
+
+    def remove(self, path: str) -> None:
+        super().remove(path)
+        try:
+            os.remove(self._file(path))
+        except FileNotFoundError:
+            pass
+
+
+def file_store(run_dir: str):
+    """The durable checkpoint store of ``run_dir``: HDF5 files where
+    ``h5py`` imports, else ``.npz`` files (:class:`_NpzStore`)."""
+    return _FileStore(run_dir) if checkpoint._have_h5py() else _NpzStore(run_dir)
 
 
 # -- the runner ---------------------------------------------------------------------------
@@ -485,7 +591,7 @@ class ResilientRunner:
         self._io: IOPipeline | None = None
         self._async_ckpt = False
         self._overlap = False
-        self._store = _store if _store is not None else _FileStore(run_dir)
+        self._store = _store if _store is not None else file_store(run_dir)
         # disk full: the run degrades to in-memory rollback only
         self._ckpt_disabled = False
         self._io_snapshot_s = 0.0  # calling-thread seconds staging snapshots

@@ -1612,3 +1612,169 @@ def test_two_process_root_decides_on_the_card(tmp_path):
     for rc, _, err, res in spawn(str(tmp_path), "card_root_decides", timeout=120.0):
         assert rc == 0, err[-3000:]
         assert res["flag_on_0"] is True and res["flag_on_1"] is False and res["on_card"]
+
+
+# -- serving (the scheduler, the warm pool) ------------------------------------------------------
+
+
+def _serve_cfg(tmp_path, name, **kw):
+    from rustpde_mpi_tpu_torch.config import ServeConfig
+
+    kw.setdefault("run_dir", str(tmp_path / name))
+    kw.setdefault("slots", 4)
+    kw.setdefault("chunk_steps", 8)
+    kw.setdefault("checkpoint_every_s", None)
+    return ServeConfig(**kw)
+
+
+_SERVE129 = dict(ra=1e7, pr=1.0, nx=129, ny=129, dt=2e-3, aspect=1.0, bc="rbc")
+
+
+class _Kept(pt.SimServer):
+    """A server that keeps each request's final member state as its lane is
+    released (its observables are reduced over the batch, in another order
+    than a solo run's: the states are compared bit for bit)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.final = {}
+
+    def _release(self, ens, slot):
+        if slot.req is not None:
+            self.final[slot.req.id] = ens.member_state(slot.index)
+        return super()._release(ens, slot)
+
+
+def _same_as_solo(srv, rid, device):
+    res = srv.result(rid)
+    solo = _solo_state(res, device)
+    assert all(torch.equal(a, b) for a, b in zip(srv.final[rid], solo.state))
+    assert res["nu"] == pytest.approx(float(solo.eval_nu()), rel=1e-13)
+    return res
+
+
+def _solo_state(res, device):
+    m = pt.Navier2D(129, 129, 1e7, 1.0, res["dt"], 1.0, "rbc", device=device)
+    m.init_random(res["amp"] or 0.1, seed=res["seed"])
+    m.update_n(res["steps"])
+    return m
+
+
+def test_served_results_equal_solo_runs_on_card(device, tmp_path):
+    """Six requests through four lanes on the fused route at 129^2 (two
+    refills): each result's Nu equals its solo run's bit for bit (members
+    are their solo runs at 129^2)."""
+    srv = _Kept(_serve_cfg(tmp_path, "s"), device=device)
+    ids = [srv.submit(dict(_SERVE129, horizon=(8 + s) * 2e-3, seed=s)).id for s in range(6)]
+    assert srv.serve()["completed"] == 6
+    for rid in ids:
+        _same_as_solo(srv, rid, device)
+
+
+def test_warm_capture_concurrent_with_a_running_campaign(device, tmp_path):
+    """The warm pool captures the dt/2 bucket's graphs on its thread while
+    the first bucket's campaign replays its own (``nan@4`` sends every
+    request there): both buckets are pool hits, the retried requests equal
+    their solo runs, and a capture on a thread beside replays leaves the
+    replaying run bit for bit undisturbed."""
+    import threading
+
+    key = pt.SimRequest(**_SERVE129, horizon=0.1).compat_key
+    key2 = pt.SimRequest(**dict(_SERVE129, dt=1e-3), horizon=0.1).compat_key
+    cfg = _serve_cfg(tmp_path, "w", warm_profile=[{"key": list(key), "k": 4},
+                                                  {"key": list(key2), "k": 4}])
+    srv = _Kept(cfg, device=device, fault="nan@4")
+    ids = [srv.submit(dict(_SERVE129, horizon=32 * 2e-3, seed=s)).id for s in range(4)]
+    assert srv.serve()["completed"] == 4
+    import os
+
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    names = [e["event"] for e in read_journal(os.path.join(cfg.run_dir, "journal.jsonl"))]
+    assert names.count("warm_pool_hit") == 2 and "request_retry" in names
+    for rid in ids:
+        assert _same_as_solo(srv, rid, device)["retries"] == 1
+    cell = dict(_SERVE129)
+    runs = []
+    for concurrent in (False, True):
+        ens = pt.NavierEnsemble.from_seeds(pt.Navier2D(**cell, device=device), range(4))
+        ens.chunk_runner()
+        other = threading.Thread(target=lambda: pt.NavierEnsemble.from_seeds(
+            pt.Navier2D(**dict(cell, dt=5e-4), device=device), range(4)).chunk_runner())
+        if concurrent:
+            other.start()
+        for _ in range(20):
+            ens.update_n(8)
+        if concurrent:
+            other.join()
+        runs.append(ens.state)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_graphs_freed_beside_a_capture_on_card(device):
+    """A captured ensemble is dropped and collected on this thread while
+    another thread is inside a capture: its graphs are not freed there but
+    left to the next capture (:data:`..campaign.CAPTURE_LOCK`), and both the
+    dropped ensemble's run and the run of the graph captured meanwhile are
+    bit for bit those of the same runs without the overlap."""
+    import gc
+    import threading
+
+    from rustpde_mpi_tpu_torch.models import campaign
+
+    def ensemble(dt):
+        return pt.NavierEnsemble.from_seeds(pt.Navier2D(**dict(_SERVE129, dt=dt),
+                                                        device=device), range(4))
+
+    runs = []
+    for overlap in (False, True):
+        doomed = ensemble(2e-3)
+        doomed.update_n(16)
+        first = [t.clone() for t in doomed.state]
+        other = ensemble(1e-3)
+        capturing, resume, built = threading.Event(), threading.Event(), []
+        calls, inner = [], other.model._advance_members
+
+        def advance(*a, **kw):
+            calls.append(1)
+            if len(calls) == 2:  # the captured call (the first is the warm-up)
+                capturing.set()
+                resume.wait(60)
+            return inner(*a, **kw)
+
+        other.model._advance_members = advance
+        thread = threading.Thread(target=lambda: built.append(other.chunk_runner()))
+        thread.start()
+        assert capturing.wait(60)
+        if overlap:
+            graphs = len(doomed.chunk_runner()._graphs)
+            del doomed
+            gc.collect()
+            assert len(campaign._RETIRED) == graphs  # not freed inside the capture
+        resume.set()
+        thread.join(60)
+        assert built and built[0].captured
+        del other.model._advance_members
+        other.update_n(16)
+        runs.append((first, list(other.state)))
+        if not overlap:
+            del doomed
+        ensemble(2e-3).chunk_runner()  # the next capture frees the retired graphs
+        assert not campaign._RETIRED
+    (a1, b1), (a2, b2) = runs
+    assert all(torch.equal(x, y) for x, y in zip(a1 + b1, a2 + b2))
+
+
+def test_drain_and_restart_bit_for_bit_on_card(device, tmp_path):
+    """A SIGTERM drain (``kill@8``) checkpoints the slot table through the
+    default store (``.npz`` files where ``h5py`` does not import); a second
+    server restores the drained lanes mid-trajectory, and every result
+    equals its undrained solo run bit for bit."""
+    cfg = _serve_cfg(tmp_path, "d", slots=2, chunk_steps=4)
+    first = pt.SimServer(cfg, device=device, fault="kill@8")
+    ids = [first.submit(dict(_SERVE129, horizon=20 * 2e-3, seed=s)).id for s in range(3)]
+    assert first.serve()["outcome"] == "drained"
+    second = _Kept(cfg, device=device)
+    assert second.serve()["completed"] == 3
+    for rid in ids:
+        assert _same_as_solo(second, rid, device)["steps"] == 20

@@ -121,6 +121,31 @@ def test_durable_queue_rows_read_by_either_package(tmp_path):
         assert json.load(fh)["request"]["trace"] == b.trace
 
 
+def test_lookup_follows_a_record_moved_while_it_is_read(tmp_path, monkeypatch):
+    """A fleet replica settles a running request (``running/`` -> ``done/``)
+    between a proxy's look at ``running/`` and its read of the file: the
+    lookup finds it done, as it found it in ``running/`` before the move."""
+    import builtins
+
+    from rustpde_mpi_tpu_torch.serve import queue as tqueue
+
+    q = DurableQueue(str(tmp_path / "queue"))
+    req = q.submit(SimRequest(ra=1e4, horizon=1.0, nx=17, ny=17))
+    claimed = q.claim()
+    assert q.lookup(req.id)[0] == "running"
+    running = os.path.join(q._dir("running"), f"{req.id}.json")
+    real_open = builtins.open
+
+    def settling_open(path, *a, **kw):
+        if path == running and os.path.exists(running):
+            q.complete(claimed, {"nu": 2.0})  # the peer's settle, just before the read
+        return real_open(path, *a, **kw)
+
+    monkeypatch.setattr(tqueue, "open", settling_open, raising=False)
+    state, record = q.lookup(req.id)
+    assert state == "done" and record["result"] == {"nu": 2.0}
+
+
 def test_a_request_trace_is_assembled_from_a_journal(tmp_path):
     """The lifecycle rows of a journal and a campaign's chunk spans make the
     same Perfetto payload in both packages."""

@@ -386,6 +386,30 @@ def test_runner_sharded_on_the_memory_store(tmp_path):
     assert not any(f.startswith("ckpt_") for f in os.listdir(run_dir))
 
 
+def test_runner_sharded_on_npz_files(tmp_path):
+    """The durable store where ``h5py`` does not import: the same sharded
+    path with each staged shard also an ``.npz`` file; a NaN rolls back to
+    one, and a store opened later on the directory finds the same newest
+    checkpoint with the same digest and restores it bit for bit."""
+    run_dir = str(tmp_path)
+    store = tres._NpzStore(run_dir)
+    runner = _runner(run_dir, IOConfig(sharded_checkpoints=True), fault="nan@6",
+                     checkpoint_every_t=0.05, _store=store)
+    summary = runner.run()
+    assert summary["outcome"] == "done" and summary["retries"] == 1
+    names = sorted(n for n in os.listdir(run_dir) if n.startswith("ckpt_"))
+    assert names and all(n.endswith(".npz") for n in names)
+    reread = tres._NpzStore(run_dir)
+    assert reread.files() == store.files()
+    latest = store.latest()
+    assert reread.latest() == latest and reread.attrs(latest) == store.attrs(latest)
+    assert reread.root_data(latest).keys() == store.root_data(latest).keys()
+    a, b = _port(17, 17), _port(17, 17)
+    store.restore(a, latest)
+    reread.restore(b, latest)
+    assert all(torch.equal(x, y) for x, y in zip(a.state, b.state))
+
+
 @pytest.mark.parametrize("crash", ["after_shard@10:host1", "before_manifest@10:host0"])
 def test_two_process_crash_in_the_commit_window_then_resume(tmp_path, crash):
     """Two processes, a cadence checkpoint every 5 steps; one dies inside the

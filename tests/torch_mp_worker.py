@@ -1,5 +1,6 @@
 """One process of a two-process job of the port, for the CPU tests
-(``tests/test_torch_multihost.py``, ``tests/test_torch_sharded_ckpt.py``).
+(``tests/test_torch_multihost.py``, ``tests/test_torch_sharded_ckpt.py``,
+``tests/test_torch_serve.py``).
 
     python tests/torch_mp_worker.py <port> <rank> <nproc> <out_dir> <mode> [arg]
 
@@ -307,6 +308,53 @@ def mode_sharded_run(mh, rank, arg):
     return {"outcome": summary["outcome"], "step": summary["step"],
             "checkpoint": summary["checkpoint"], "resumed": runner.resumed,
             "desyncs": san.stats()["desyncs"]}
+
+
+def _served(rank, reqs, **cfg_kw):
+    """Serve ``reqs`` (submitted on the root) with a ``SimServer`` on every
+    process at once; the root returns the summary, each request's result
+    and the journal's event types."""
+    from rustpde_mpi_tpu_torch.config import ServeConfig
+    from rustpde_mpi_tpu_torch.serve import SimServer
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    out_dir = sys.argv[4]
+    cfg = ServeConfig(run_dir=os.path.join(out_dir, "serve"), chunk_steps=4,
+                      checkpoint_every_s=None, http_port=None, **cfg_kw)
+    srv = SimServer(cfg, device="cpu")
+    ids = [srv.submit(r).id for r in reqs] if rank == 0 else []
+    summary = srv.serve()
+    if rank != 0:
+        return {"outcome": summary["outcome"]}
+    events = [e["event"] for e in read_journal(os.path.join(cfg.run_dir, "journal.jsonl"))
+              if e["event"] not in ("perf_degraded", "profile_capture")]
+    return {"outcome": summary["outcome"], "completed": summary["completed"],
+            "processes": summary["slots"]["process_count"],
+            "results": [srv.result(i) for i in ids], "events": events}
+
+
+SERVE_REQ = dict(ra=1e4, pr=1.0, nx=17, ny=17, dt=0.01, bc="rbc")
+
+
+def mode_serve_campaign(mh, rank, arg):
+    """Two processes serve five 17^2 requests through two lanes: the root
+    decides every boundary and broadcasts it, every process steps its own
+    replica of the campaign."""
+    mh.set_sync_timeout(30.0)
+    reqs = [dict(SERVE_REQ, horizon=0.08 + (s % 3) * 0.02, seed=s) for s in range(5)]
+    return _served(rank, reqs, slots=2)
+
+
+def mode_gang_serve(mh, rank, arg):
+    """Two processes, a 34^2 request stamped for a 2-slot sub-mesh (a gang:
+    one rank slot of each process, each process a 2-rank replica of the
+    gang's model on its device) beside two unstamped 18^2 requests."""
+    from rustpde_mpi_tpu_torch.config import SubmeshConfig
+
+    mh.set_sync_timeout(30.0)
+    reqs = [dict(SERVE_REQ, nx=34, ny=34, horizon=0.08, seed=100)] + \
+        [dict(SERVE_REQ, nx=18, ny=18, horizon=0.06, seed=s) for s in range(2)]
+    return _served(rank, reqs, slots=2, submesh=SubmeshConfig(shapes=(2,), shard_min_nx=34))
 
 
 def main():
