@@ -362,6 +362,36 @@ launch of a step serving all K members:
     their launches counted, the final state against a solo
     ``make_mesh(2)`` run.
 
+37. a mesh whose ranks span processes (``multihost.global_pencil_mesh``):
+    2 processes x 2 ranks and 4 x 1 on the one card (and one process a
+    card, 4 ranks over them, when the machine has two cards or more;
+    ``phase37 cards`` names the count), each process its ranks stacked on
+    its card, every flip through the kernel's remote form (chunks pushed
+    into the peers' receive slabs through CUDA IPC, completion on flags in
+    the slabs).  In each layout: the remote flip at every shape and dtype a
+    meshed ``rbc1025`` step and a meshed ``periodic1024`` step flip, bit
+    for bit against its plain version (the gloo all-to-all), timed cold
+    (the L2 flushed, each window opened after a rank gather, so no
+    process's flush lies in it) and warm (a captured graph of 20 flips,
+    replayed by every process together after a barrier) beside its plain
+    version, the library's ``copy_`` of the same chunks into the
+    IPC-mapped peer slabs, timed the same two ways (and NCCL's
+    ``all_to_all_single`` with a card a process), and the one-process flip
+    of the same global shape (phase 12); 50 steps of bare ``update_n`` of
+    meshed ``rbc1025`` and 10 of ``periodic1024`` (captured), ms/step
+    beside the one-process ``make_mesh(4)`` run here, exactly 37 flips, one
+    rank gather (the freeze probe's sum) and the route's banded launches a
+    step on every process, the states against the one-process run (each
+    layout prints its rule: within 1e-12 of each field's scale where a
+    process holds several ranks, and at 129^2 for every layout; where a
+    process holds one rank, whose lone GEMMs round apart from the batched
+    ones at 1025^2, within the larger of that and the one-process run's own
+    one-ulp sensitivity times the steps), with whether they are bit for
+    bit; the golden head at 129^2 (200 steps, rel 1e-6 of
+    ``PARITY.json``); a NaN on the last process's ranks freezing every
+    process at the same step, each spawn under its own deadline.  The
+    ``kernels`` line gains the remote flip's entry (``ring_push``).
+
 The serving phases keep campaign checkpoints in the runner's in-memory
 store where ``h5py`` does not import, and parked continuations as
 ``.npz`` shards there.
@@ -6339,6 +6369,566 @@ def phase36(torch, pt, card):
     return launches
 
 
+
+# -- a mesh whose ranks span processes (phase 37) ------------------------------------
+
+#: phase 37: the layouts of the 4 ranks on the one card (processes x ranks);
+#: with two cards or more a third layout puts one process on each card
+SPAN_LAYOUTS = (("2x2", 2), ("4x1", 4))
+#: steps of bare ``update_n`` of each cell on a spanning mesh
+SPAN_STEPS = {"rbc1025": MAIN_STEPS, "periodic1024": 10}
+SPAN_CELLS = {"rbc1025": RBC1025, "periodic1024": PERIODIC1024}
+#: the spanning state against the one-process ``make_mesh(4)`` run's, of
+#: each field's scale, for a layout whose processes hold several ranks
+#: each (2 x 2: a batched product there is the one-process mesh's, and
+#: the run is bit for bit) and for every layout at 129^2.  A process of
+#: one rank runs its products as lone cuBLAS GEMMs where the one-process
+#: mesh batches four ranks, and at 1025^2 the two round apart (ROADMAP
+#: Queue 3 item 4; the CPU run of the same layout is bit for bit), which
+#: the Chebyshev operators amplify (9.2e-10 of temp after one step, 4 x 1
+#: ``rbc1025``).  So only there each field is held, as phase 25 holds an
+#: ensemble member to its solo run, to the larger of this limit and
+#: ``ULP_STEPS_FACTOR`` (or the run's steps, if more) times the
+#: one-process run's own sensitivity: its state from a start moved by one
+#: ulp, after as many steps
+SPAN_LIMIT = 1e-12
+#: steps of the 129^2 spanning state against the one-process run (the
+#: ``ensemble129`` cell)
+SPAN_SMALL_STEPS = 10
+#: timed calls of each remote flip, cold and warm (every process times
+#: the same calls: they pair up across processes), and the windows of the
+#: warm time, each ``SPAN_REPS`` calls of one graph
+SPAN_REPS = 20
+SPAN_WINDOWS = 3
+#: a spawn's deadline (seconds) and its collectives' (every child: the
+#: build of its models, the checks, the runs)
+SPAN_TIMEOUT_S = 420
+SPAN_SYNC_S = 240.0
+#: NVLink between two cards of a host, bytes/s each way (the remote share
+#: of a flip across cards)
+NVLINK_BYTES_PER_S = 450e9
+
+CHILD_37 = r"""
+import json, os, sys
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["root"])
+import torch
+import chip_smoke as cs
+import rustpde_mpi_tpu_torch as pt
+from rustpde_mpi_tpu_torch.parallel import multihost as mh
+
+device = f"cuda:{args['rank'] if args['per_card'] else 0}"
+torch.cuda.set_device(torch.device(device))
+mh.initialize_distributed(f"localhost:{args['port']}", args["nproc"], args["rank"],
+                          timeout_s=args["sync_s"])
+mh.set_sync_timeout(args["sync_s"])
+out = cs.spanning_child(torch, pt, mh, args, device)
+print(json.dumps(out), flush=True)
+os._exit(0)
+"""
+
+
+class _CudaArray:
+    """A device buffer as ``__cuda_array_interface__`` describes it, for a
+    tensor view of memory PyTorch did not allocate (a peer's IPC-mapped
+    receive slab; the yardstick's ``copy_`` targets)."""
+
+    TYPESTR = {"float64": "<f8", "float32": "<f4", "complex128": "<c16", "complex64": "<c8"}
+
+    def __init__(self, ptr, shape, dtype):
+        self.__cuda_array_interface__ = {"shape": tuple(shape), "typestr": self.TYPESTR[dtype],
+                                         "data": (int(ptr), False), "version": 3,
+                                         "strides": None}
+
+
+def span_step_flips(torch, model) -> dict:
+    """``{(local pencil shape, x_to_y, dtype): flips}`` of one eager step of
+    a spanning-mesh model (its state and time put back after it)."""
+    ring, flips = model.mesh.ring, {}
+
+    def log(block, x_to_y, apply=ring.apply):
+        key = (tuple(block.shape), bool(x_to_y), str(block.dtype).replace("torch.", ""))
+        flips[key] = flips.get(key, 0) + 1
+        return apply(block, x_to_y)
+
+    state, t = model.state, model.time
+    ring.apply = log
+    try:
+        model.update()
+    finally:
+        del ring.apply
+        model.state, model.time = state, t
+    torch.cuda.synchronize()
+    return flips
+
+
+def span_copy_views(torch, ring, block, x_to_y):
+    """The library's ``copy_`` of one remote flip's chunks: for each local
+    rank and destination rank, the chunk's view of ``block`` and its view
+    in the destination's receive slab (IPC-mapped here)."""
+    from rustpde_mpi_tpu_torch.ops.ring_transpose import transposed_shape
+
+    p, pl, g0 = ring.nranks, ring.nlocal, ring.rank0
+    shape = transposed_shape(block.shape, p, x_to_y)
+    slab = ring._slabs[(tuple(shape), block.dtype, bool(x_to_y))]
+    a, b = shape[-2:]
+    dtype = str(block.dtype).replace("torch.", "")
+    pairs = []
+    for t in range(p):
+        q, lt = divmod(t, pl)
+        ptr = slab.peers[q] + lt * a * b * block.element_size()
+        dst = torch.as_tensor(_CudaArray(ptr, (a, b), dtype))  # on the slab's own card
+        for lr in range(pl):
+            if x_to_y:
+                c, w = block.shape[-2] // p, block.shape[-1]
+                pairs.append((dst[:, (g0 + lr) * w:(g0 + lr + 1) * w],
+                              block[lr, t * c:(t + 1) * c, :]))
+            else:
+                c, w = block.shape[-2], block.shape[-1] // p
+                pairs.append((dst[(g0 + lr) * c:(g0 + lr + 1) * c, :],
+                              block[lr, :, t * w:(t + 1) * w]))
+    return pairs
+
+
+def span_barrier(torch, mh, tag):
+    torch.cuda.synchronize()
+    mh.sync_hosts(tag)
+
+
+def span_wall_ms(torch, fn, reps) -> float:
+    """Host wall ms of ``fn()`` (a path through the host), synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def span_cold_ms(torch, ring, fn, reps) -> float:
+    """Mean device ms of ``fn()`` on a spanning mesh with the L2 flushed
+    before each call, as :func:`time_cold_ms` times it, but with every
+    process's flush and spin outside every window: each window opens after
+    a rank gather (``ring.gather``), which ends only when every process has
+    pushed its part, so after every peer's flush and spin.  On a shared
+    card the window still holds the peers' own share of the same call
+    (their contexts time-slice with this one)."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=ring.device)
+    token = torch.zeros((ring.nlocal, 1), dtype=torch.float64, device=ring.device)
+    fn()
+    ring.gather(token)
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.fill_(1.0)
+        torch.cuda._sleep(SLEEP_CYCLES // 50)
+        ring.gather(token)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def span_graph_ms(torch, mh, fn, reps, tag) -> float:
+    """Device ms of one call of ``fn()`` on a spanning mesh, back to back
+    (warm L2): ``reps`` calls captured as one CUDA graph, every process
+    replaying its graph together after a host barrier, CUDA events around
+    each replay and nothing else inside; the median of
+    ``SPAN_WINDOWS`` windows.  On a shared card a window holds every
+    process's share of the calls (their contexts time-slice)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    try:
+        graph.replay()
+        times = []
+        for i in range(SPAN_WINDOWS):
+            span_barrier(torch, mh, f"{tag} {i}")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        return statistics.median(times)
+    finally:
+        torch.cuda.synchronize()
+        graph.reset()
+
+
+def span_flip_checks(torch, mh, mesh, flips, cell, timed, nccl) -> list:
+    """Each flip a step of ``cell`` makes, on random values of its local
+    shape: the remote kernel bit for bit against its plain version (one
+    launch), and, when ``timed``, its times cold and warm, the plain
+    version's, the ``copy_`` yardstick's and NCCL's (``nccl``: a group on
+    a card a process, else None), and its bound."""
+    import numpy as np
+
+    rng = np.random.default_rng(37 + mh.process_index())
+    ring = mesh.ring
+    records = []
+    for (shape, x_to_y, dtype), count in sorted(flips.items()):
+        dt = getattr(torch, dtype)
+        values = rng.uniform(-1.0, 1.0, size=shape)
+        if dt.is_complex:
+            values = values + 1j * rng.uniform(-1.0, 1.0, size=shape)
+        block = torch.as_tensor(values, dtype=dt, device=mesh.device)
+        before = ring.launches
+        out = ring.apply(block, x_to_y)
+        torch.cuda.synchronize()
+        plain = ring.plain(block, x_to_y)
+        diff = float(torch.max(torch.abs(out - plain)))
+        rec = {"kernel": "ring_push", "cell": cell, "shape": list(shape), "x_to_y": x_to_y,
+               "dtype": dtype, "per_step": count, "max_abs_err": diff,
+               "max_rel_err": diff / float(torch.max(torch.abs(plain)))}
+        if not torch.equal(out, plain) or ring.launches != before + 1:
+            raise AssertionError(f"37: remote flip {cell} {shape} x_to_y={x_to_y} {dtype} "
+                                 f"differs from its plain version (max {diff:.3e}) or did not "
+                                 "launch once")
+        if timed:
+            nbytes = ring.bytes_moved(block)
+            remote = block.numel() * block.element_size() * (ring.nranks - ring.nlocal) / ring.nranks
+            bound_s = nbytes / (HBM_TB_PER_S * 1e12)
+            if nccl is not None:
+                bound_s = max(bound_s, remote / NVLINK_BYTES_PER_S)
+            span_barrier(torch, mh, "37 time")
+            rec["kernel_ms"] = span_cold_ms(torch, ring, lambda: ring.apply(block, x_to_y),
+                                            SPAN_REPS)
+            rec["kernel_warm_ms"] = span_graph_ms(torch, mh, lambda: ring.apply(block, x_to_y),
+                                                  SPAN_REPS, "37 flips")
+            rec["plain_ms"] = span_wall_ms(torch, lambda: ring.plain(block, x_to_y), 3)
+            pairs = span_copy_views(torch, ring, block, x_to_y)
+
+            def copies():
+                for dst, src in pairs:
+                    dst.copy_(src)
+
+            span_barrier(torch, mh, "37 copy")
+            rec["copy_ms"] = span_cold_ms(torch, ring, copies, SPAN_REPS)
+            rec["copy_warm_ms"] = span_graph_ms(torch, mh, copies, SPAN_REPS, "37 copies")
+            span_barrier(torch, mh, "37 copied")
+            rec["library_ms"] = rec["copy_ms"]
+            if nccl is not None:
+                send = block.reshape(-1).clone()
+                recv = torch.empty_like(send)
+                real = torch.view_as_real if send.is_complex() else (lambda t: t)
+                rec["nccl_ms"] = time_queued_ms(torch, lambda: torch.distributed.all_to_all_single(
+                    real(recv), real(send), group=nccl), SPAN_REPS)[0]
+                rec["library_ms"] = rec["nccl_ms"]
+            rec.update(bytes=nbytes, remote_bytes=remote, bound_ms=bound_s * 1e3,
+                       bound_by="bytes")
+        records.append(rec)
+    return records
+
+
+def span_counted_run(torch, model, steps) -> tuple:
+    """The chunk runner built (warm-up and capture), then ``steps`` steps
+    of bare ``update_n`` with the launch counts set to 0 just before and
+    read just after: ``(ms/step, launches)``."""
+    runner = model.chunk_runner(armed=False)
+    if not runner.captured:
+        raise AssertionError("37: the spanning chunk runner did not capture a CUDA graph")
+    reset_counts(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.update_n(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall / steps * 1e3, count_launches(model)
+
+
+def span_one_step(pt, model) -> dict:
+    """The global state of ``model`` one eager step on (its own state and
+    time put back)."""
+    state, t = model.state, model.time
+    model.update()
+    try:
+        return pt.state_to_numpy(model)
+    finally:
+        model.state, model.time = state, t
+
+
+def span_golden(pt, mesh) -> float:
+    """The head of the f64 golden Nusselt trajectory of ``PARITY.json``
+    (129^2, 200 steps) on ``mesh``: the worst relative deviation."""
+    with open(os.path.join(ROOT, "PARITY.json"), encoding="utf-8") as fh:
+        gold = json.load(fh)
+    cfg = gold["config"]
+    model = pt.Navier2D(cfg["nx"], cfg["ny"], cfg["ra"], cfg["pr"], cfg["dt"], cfg["aspect"],
+                        cfg["bc"], mesh=mesh)
+    model.init_random(cfg["amp"], seed=0)
+    worst = 0.0
+    for row in gold["nu_f64"][:4]:
+        model.update_n(cfg["sample_every"])
+        vals = dict(zip(("nu", "nuvol", "re"), model.get_observables()[:3]))
+        for key, val in vals.items():
+            worst = max(worst, abs(val / row[key] - 1.0))
+    if not worst <= 1e-6:
+        raise AssertionError(f"37: the golden head on {mesh} strays {worst:.3e}")
+    return worst
+
+
+def spanning_child(torch, pt, mh, args, device) -> dict:
+    """One process of phase 37 (:data:`CHILD_37`): its ranks of the
+    spanning mesh, the flip checks of each cell (timed when
+    ``args["timed"]``), each cell's counted run, the 129^2 state, the golden
+    head and the NaN freeze; the global states go to ``args["work"]`` from
+    rank 0.  Returns its records."""
+    import numpy as np
+
+    rank, nproc, work = args["rank"], args["nproc"], args["work"]
+    mesh = mh.global_pencil_mesh(MESH_RANKS // nproc, device)
+    nccl = torch.distributed.new_group(backend="nccl") if args["per_card"] else None
+    out = {"rank": rank, "mesh": repr(mesh), "device": str(mesh.device)}
+    for cell, cfg in SPAN_CELLS.items():
+        t0 = time.perf_counter()
+        model = pt.Navier2D(**cfg, mesh=mesh)
+        model.init_random(0.1, seed=0)
+        out[f"{cell}_build_s"] = time.perf_counter() - t0
+        flips = span_step_flips(torch, model)
+        out[f"{cell}_flips"] = span_flip_checks(torch, mh, mesh, flips, cell, args["timed"], nccl)
+        state = span_one_step(pt, model)
+        if rank == 0:
+            np.savez(os.path.join(work, f"{args['label']}_{cell}_1.npz"), **state)
+        out[f"{cell}_ms"], out[f"{cell}_launches"] = span_counted_run(torch, model,
+                                                                      SPAN_STEPS[cell])
+        state = pt.state_to_numpy(model)
+        if rank == 0:
+            np.savez(os.path.join(work, f"{args['label']}_{cell}.npz"), **state)
+        del model, state
+        torch.cuda.empty_cache()
+    small = pt.Navier2D(**ENSEMBLE129, mesh=mesh)
+    small.init_random(0.1, seed=0)
+    small.update_n(SPAN_SMALL_STEPS)
+    state = pt.state_to_numpy(small)
+    if rank == 0:
+        np.savez(os.path.join(work, f"{args['label']}_small.npz"), **state)
+    out["golden_worst"] = span_golden(pt, mesh)
+    # a NaN on the last process's ranks alone: every process freezes at
+    # the same step (the freeze probe sums every rank's temperature)
+    small.update_n(2)
+    if rank == nproc - 1:
+        temp = small.state.temp.clone()
+        temp[0, 3, 1] = float("nan")
+        small.state = small.state._replace(temp=temp)
+    t0 = time.perf_counter()
+    small.update_n(5)
+    runner = small.chunk_runner(armed=False)
+    nf = len(small.state)
+    out["nan"] = [int(runner.carry[nf + 1]), bool(runner.carry[nf]),
+                  time.perf_counter() - t0]
+    del small, runner
+    torch.cuda.synchronize()
+    mesh.close()
+    return out
+
+
+def span_spawn(label, nproc, per_card, timed, work) -> list:
+    """Run ``nproc`` children of :data:`CHILD_37` as one job under
+    ``SPAN_TIMEOUT_S``; every child still alive then is killed.  Returns
+    their records in rank order, raising on a child that failed."""
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for rank in range(nproc):
+        args = {"root": ROOT, "rank": rank, "nproc": nproc, "port": port, "work": work,
+                "label": label, "per_card": per_card, "timed": timed, "sync_s": SPAN_SYNC_S}
+        procs.append(subprocess.Popen([sys.executable, "-c", CHILD_37, json.dumps(args)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    t_end = time.monotonic() + SPAN_TIMEOUT_S
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=max(1.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (rc, out, err) in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if rc != 0 or not lines:
+            raise AssertionError(f"37: {label} child {rank} rc={rc}:\n{out[-2000:]}\n"
+                                 f"{err[-4000:]}")
+        results.append(json.loads(lines[-1]))
+    return results
+
+
+def span_one_process(torch, pt) -> dict:
+    """The one-process ``make_mesh(4)`` runs phase 37 holds the spanning
+    ones against: each cell's counted run (ms/step) and global state, and
+    the 129^2 state."""
+    out = {}
+    for cell, cfg in SPAN_CELLS.items():
+        model = pt.Navier2D(**cfg, mesh=pt.make_mesh(MESH_RANKS))
+        model.init_random(0.1, seed=0)
+        start = model.state
+        out[f"{cell}_1"] = (None, span_one_step(pt, model))
+        ms, _ = span_counted_run(torch, model, SPAN_STEPS[cell])
+        out[cell] = (ms, pt.state_to_numpy(model))
+        # the run's own rounding sensitivity: the same from a start moved
+        # by one ulp (x (1 + 2^-52))
+        model.state, model.time = type(start)(*(x * (1.0 + 2.0**-52) for x in start)), 0.0
+        out[f"{cell}_ulp_1"] = (None, span_one_step(pt, model))
+        model.update_n(SPAN_STEPS[cell])
+        out[f"{cell}_ulp"] = (None, pt.state_to_numpy(model))
+        del model
+        torch.cuda.empty_cache()
+    small = pt.Navier2D(**ENSEMBLE129, mesh=pt.make_mesh(MESH_RANKS))
+    small.init_random(0.1, seed=0)
+    small.update_n(SPAN_SMALL_STEPS)
+    out["small"] = (None, pt.state_to_numpy(small))
+    return out
+
+
+def span_state_diff(ref: dict, got: dict) -> tuple:
+    """The largest field difference over the field's scale, whether every
+    field is bit for bit, and each field's difference over its scale."""
+    import numpy as np
+
+    fields = {name: float(np.max(np.abs(got[name] - want)))
+              / max(float(np.max(np.abs(want))), 1e-300) for name, want in ref.items()}
+    return (max(fields.values()), all(np.array_equal(got[name], want)
+                                      for name, want in ref.items()), fields)
+
+
+def phase37(torch, pt, card, one_flips) -> dict:
+    """Phase 37: a mesh whose ranks span processes (see the module
+    docstring).  ``one_flips``: phase 12's and 19's records of the
+    one-process flips, printed beside the remote ones of the same global
+    shape.  Returns ``{layout: {"records", "launches", "ms"}}``."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    print(f"phase37 cards: {cards} ({card}); layouts "
+          + ", ".join(label for label, _ in SPAN_LAYOUTS)
+          + (f", card_per_process ({min(cards, MESH_RANKS)} processes)" if cards >= 2 else
+             "; one card: no layout with a card a process, no NCCL yardstick"))
+    refs = span_one_process(torch, pt)
+    layouts = [(label, nproc, False) for label, nproc in SPAN_LAYOUTS]
+    if cards >= 2:
+        layouts.append(("card_per_process", 4 if cards >= 4 else 2, True))
+    one_ms = {(tuple(r["shape"][1:]), r["x_to_y"], r["dtype"]): r for r in one_flips}
+    summary = {}
+    with tempfile.TemporaryDirectory(prefix="phase37_") as work:
+        for label, nproc, per_card in layouts:
+            t1 = time.perf_counter()
+            results = span_spawn(label, nproc, per_card, True, work)
+            for cell, cfg in SPAN_CELLS.items():
+                route = "periodic_mesh" if cfg.get("periodic") else "mesh"
+                want = {k: v * SPAN_STEPS[cell] for k, v in PER_STEP[route].items()}
+                want["ring_gather"] = SPAN_STEPS[cell]
+                for r in results:
+                    if r[f"{cell}_launches"] != want:
+                        raise AssertionError(f"37: {label} {cell} rank {r['rank']} launched "
+                                             f"{r[f'{cell}_launches']}, expected {want}")
+                checks = {}
+                lone = MESH_RANKS // nproc == 1  # lone GEMMs: the ulp-scaled rule
+                for tag, steps in (("_1", 1), ("", SPAN_STEPS[cell])):
+                    ref = refs[f"{cell}{tag}"][1]
+                    got = dict(np.load(os.path.join(work, f"{label}_{cell}{tag}.npz")))
+                    diff, exact, fields = span_state_diff(ref, got)
+                    ulp = span_state_diff(ref, refs[f"{cell}_ulp{tag}"][1])[2]
+                    factor = max(ULP_STEPS_FACTOR, steps)
+                    limits = {f: max(SPAN_LIMIT, factor * ulp[f]) if lone else SPAN_LIMIT
+                              for f in fields}
+                    checks[steps] = (diff, exact)
+                    rule = (f"one rank a process: the larger of {SPAN_LIMIT:g} and {factor} x "
+                            "the one-ulp sensitivity" if lone else
+                            f"several ranks a process: {SPAN_LIMIT:g}")
+                    print(f"phase37 {label} {cell} state vs the one-process run after {steps} "
+                          f"steps, each field over its scale: {json.dumps(fields)}; the "
+                          f"one-process run from a start one ulp away: {json.dumps(ulp)}; "
+                          f"rule ({rule}), limits {json.dumps(limits)}")
+                    if any(fields[f] > limits[f] for f in fields):
+                        raise AssertionError(f"37: {label} {cell} state after {steps} steps "
+                                             f"{fields} beyond {limits}")
+                (diff1, exact1), (diff, exact) = checks[1], checks[SPAN_STEPS[cell]]
+                ms_one = refs[cell][0]
+                print(f"phase37 {label} {cell} f64 ({results[0]['mesh']}): bare update_n "
+                      f"{SPAN_STEPS[cell]} steps " + ", ".join(
+                          f"rank {r['rank']} {r[f'{cell}_ms']:.4f}" for r in results)
+                      + f" ms/step; one-process make_mesh({MESH_RANKS}) {ms_one:.4f} ms/step; "
+                      f"launches a process {results[0][f'{cell}_launches']}; state vs the "
+                      f"one-process run after one step {diff1:.3e} of the field's scale (bit "
+                      f"for bit: {exact1}), after {SPAN_STEPS[cell]} steps {diff:.3e} (bit for "
+                      f"bit: {exact}); "
+                      f"model build {results[0][f'{cell}_build_s']:.2f} s ({card})")
+                for rec in results[0][f"{cell}_flips"]:
+                    one = one_ms.get((tuple(rec["shape"][1:]), rec["x_to_y"], rec["dtype"]))
+                    rec["one_process_ms"] = one and one.get("kernel_ms")
+                    rec["one_process_warm_ms"] = one and one.get("kernel_warm_ms")
+                    print(f"phase37 {label} " + json.dumps(rec))
+            _, ref = refs["small"]
+            got = dict(np.load(os.path.join(work, f"{label}_small.npz")))
+            diff, exact, _ = span_state_diff(ref, got)
+            if not diff <= SPAN_LIMIT:
+                raise AssertionError(f"37: {label} 129^2 state {diff:.3e} of the scale")
+            nans = [r["nan"] for r in results]
+            if len({tuple(n[:2]) for n in nans}) != 1 or nans[0][1]:
+                raise AssertionError(f"37: {label} NaN freeze differs or did not freeze: {nans}")
+            print(f"phase37 {label} 129^2 {SPAN_SMALL_STEPS} steps vs one process: "
+                  f"{diff:.3e} of the scale (bit for bit: {exact}); golden head worst rel "
+                  f"{max(r['golden_worst'] for r in results):.3e} (limit 1e-6); NaN on process "
+                  f"{nproc - 1}: every process froze after {nans[0][0]} steps, "
+                  f"{max(n[2] for n in nans):.3f} s; layout {time.perf_counter() - t1:.1f} s")
+            summary[label] = {
+                "records": [r for r in results[0]["rbc1025_flips"] if r["per_step"]],
+                "periodic_records": results[0]["periodic1024_flips"],
+                "launches": {k: sum(r["rbc1025_launches"][k] for r in results)
+                             for k in results[0]["rbc1025_launches"]},
+                "ms": [r["rbc1025_ms"] for r in results], "nproc": nproc}
+    print(f"phase37 ok ({time.perf_counter() - t0:.1f} s)")
+    return summary
+
+
+def remote_flip_entry(span) -> dict:
+    """The kernels line's entry of the remote flip: its times summed over
+    one step's flips of meshed ``rbc1025`` on 2 processes x 2 ranks (rank
+    0's), its launches those of phase 37's counted runs on that layout
+    (flips and rank gathers of every process)."""
+    main = span["2x2"]
+    sums = route_sums(main["records"])
+    entry = {"name": "ring_push", "route": "cuda",
+             "source": KERNEL_META["ring_transpose"][0],
+             "replaces": KERNEL_META["ring_transpose"][1],
+             "launches": sum(main["launches"].get(k, 0) for k in ("ring_transpose", "ring_gather")),
+             "flip_launches": main["launches"].get("ring_transpose", 0),
+             "gather_launches": main["launches"].get("ring_gather", 0),
+             "max_abs_err": max(r["max_abs_err"] for r in main["records"]),
+             **sums, "per": "one step of rbc1025 f64 on 2 processes x 2 ranks (rank 0's flips)"}
+    for label, part in span.items():
+        if label != "2x2":
+            for k, v in route_sums(part["records"]).items():
+                if k != "bound_by":
+                    entry[f"{label}_{k}"] = v
+            entry[f"{label}_launches"] = sum(part["launches"].get(k, 0)
+                                             for k in ("ring_transpose", "ring_gather"))
+    return entry
+
+
 KERNEL_META = {
     "fused_conv": ("rustpde_mpi_tpu_torch/csrc/fused_conv.cu",
                    "rustpde_mpi_tpu/ops/pallas_conv.py:64"),
@@ -6380,7 +6970,7 @@ def route_sums(rows) -> dict:
 
 
 def kernels_line(records, launches, solver_times, ring_times, runner_launches,
-                 phase_launches=None):
+                 phase_launches=None, span=None):
     """One entry per kernel, its times summed over one step of its main
     route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
     each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
@@ -6423,6 +7013,8 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches,
         for label, counts in (phase_launches or {}).items():
             entry[f"{label}_launches"] = counts.get(kernel, 0)
         out.append(entry)
+    if span is not None:
+        out.append(remote_flip_entry(span))
     return {"kernels": out}
 
 
@@ -6601,9 +7193,11 @@ def run(torch) -> int:
     phase_launches["serve"] = phase34(torch, pt, card)
     phase_launches["soak"] = phase35(torch, pt, card)
     phase_launches["fleet"] = phase36(torch, pt, card)
+    span = phase37(torch, pt, card, [r for r in records if r["kernel"] == "ring_transpose"
+                                     and r["route"] in ("mesh", "periodic_mesh")])
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches,
-                                  phase_launches)))
+                                  phase_launches, span)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

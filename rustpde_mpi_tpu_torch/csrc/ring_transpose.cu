@@ -77,6 +77,7 @@
 // block and plain accesses.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifndef RT_UNROLL
 // words a thread loads before its first store; a macro so that
@@ -269,3 +270,363 @@ extern "C" int rp_ring_transpose_c64(int P, int c, int w, long long xs0, long lo
   return rp::launch_ring<8>(P, c, w, xs0, xs1, ys0, ys1, in, out, x_to_y, members, xsm, ysm,
                             word, mul_w, shr_w, mul_c, shr_c, static_cast<cudaStream_t>(stream));
 }
+
+// ---------------------------------------------------------------------------
+// The flip's remote form: a mesh whose ranks span processes.
+//
+// Replaces the part of the Pallas TPU kernel rustpde_mpi_tpu/parallel/
+// decomp.py `_ring_transpose_kernel` that crosses devices: there each ring
+// step pushes one chunk into the destination device's output slab at the
+// sender's slot (`pltpu.make_async_remote_copy`), with paired send and
+// receive semaphores.  Here a process holds PL = P / nproc consecutive
+// ranks of the mesh (first rank g0), stacked as the one-device kernel's
+// pencils are, and every process owns one receive slab a (shape, dtype,
+// direction) of flip, allocated by rp_slab_alloc below with cudaMalloc
+// (an IPC handle names a whole allocation, never a block of PyTorch's
+// caching allocator) and mapped into every peer with
+// cudaIpcOpenMemHandle.  The slab holds the flip's output for the
+// process's ranks in the output layout; `dst[t]` is destination rank t's
+// block in its process's slab as mapped in this process.
+//
+//   x -> y:   dst[t][m, i, (g0 + lr)*w + j]     = X[m, lr, t*c + i, j]
+//   y -> x:   dst[t][m, (g0 + lr)*c + i, j]     = Y[m, lr, i, t*w + j]
+//
+// for every local rank lr and destination rank t, local or remote alike:
+// chunks between local ranks go straight into this process's own slab.
+// On one card shared by the processes the pushes stay in its memory; with
+// a card a process they go over NVLink to the peer card.
+//
+// Completion without a spinning kernel.  Processes that share a card run
+// in separate contexts, which the card time-slices, so a kernel that spun
+// on a flag could hold the card while the peer it waits for cannot run.
+// The handshake is made of the CUDA driver API's stream memory operations
+// (cuStreamWaitValue32 / cuStreamWriteValue32, reached through
+// cudaGetDriverEntryPoint so that no link flag changes), which wait in the
+// card's front end, not on its SMs.  Every slab ends with two flag arrays,
+// one flag a process (the TPU kernel's receive and send semaphores):
+//   ready[q]   1: process q's chunks for this flip are in my slab;
+//   credit[q]  1: my chunks may go into process q's slab (q consumed the
+//              last ones).
+// A flip on process p is, on its stream:
+//   wait credit[q] == 1, set credit[q] = 0   (each peer q, local flags)
+//   push kernel                              (all chunks, all ranks)
+//   write 1 into q's ready[p]                (each peer, after a fence)
+//   wait ready[q] == 1                       (each peer, local flags)
+//   copy-out kernel: slab -> a fresh output  (so the flip never aliases
+//                                             the slab)
+//   set ready[q] = 0, write 1 into q's credit[p]
+// The values are the same on every call, so a CUDA graph that captured
+// the sequence replays it unchanged (an epoch baked into a captured wait
+// would not advance), and a sender never overwrites a slab its receiver
+// is still reading.  Each wait is on this process's own memory; the
+// writes go to the peers' (a stream write is preceded by a memory fence,
+// so the chunks are visible before the flag that announces them).
+//
+// Bound on the H100: bytes.  The push reads and writes each element once
+// and the copy-out reads and writes it once more, 4 * elements * size;
+// across cards the (P - PL) / P remote share of the push goes over NVLink
+// (450 GB/s each way).  The push kernel is the one-device kernel's design
+// (one flat range of words, RT_UNROLL loads in flight a thread, the
+// indices split by multiply-highs); the copy-out is a flat word copy.
+//
+// Measured (chip_smoke.py phase 37, NVIDIA H100 80GB HBM3, 700 W): on one
+// card a flip of a meshed rbc1025 step's pencil, 16.8 MB with the copy-out
+// against a 0.0050 ms bound, takes 0.30-0.49 ms back to back (a captured
+// graph of flips every process replays together) on 2 processes x 2
+// ranks and 0.99-1.02 ms on 4 x 1, where the library's copy_ of the same
+// chunks, with no handshake, takes 0.012 and 0.006.  With the L2 flushed
+// a 2 x 2 flip's window is either 0.028 ms or 0.14-0.36 ms: the flip's own
+// work is small and the rest is waiting on the peers.  Why it waits (the
+// card switching between the processes' contexts is the likely cause) is
+// not measured.  With one process a card (four cards) the same flip takes
+// 0.074-0.100 ms beside NCCL's all_to_all_single at 0.018-0.038.
+// ---------------------------------------------------------------------------
+
+#define RT_MAX_RANKS 64
+#define RT_MAX_PROCS 16
+// the bytes of an IPC handle the wrapper passes (ops/ring_transpose.py)
+static_assert(sizeof(cudaIpcMemHandle_t) == 64, "an IPC handle is 64 bytes");
+
+// Mirror of rustpde_mpi_tpu_torch/ops/ring_transpose.py `RpPush`: one flip
+// of a spanning mesh.  Strides and extents in elements.
+struct RpPush {
+  const void* in;                      // this process's pencils ([K,] PL, ...)
+  void* slab;                          // this process's receive slab
+  void* out;                           // the flip's output (as large as the slab)
+  void* dst[RT_MAX_RANKS];             // destination rank t's block, as mapped here
+  unsigned* ready;                     // this slab's ready flags, one a process
+  unsigned* credit;                    // this slab's credit flags, one a process
+  unsigned* ready_peer[RT_MAX_PROCS];  // process q's ready flag of this process
+  unsigned* credit_peer[RT_MAX_PROCS]; // process q's credit flag of this process
+  long long is0, is1, ism;             // input rank, row and member strides
+  long long d1, dsm;                   // destination row and member strides
+  long long out_elems;                 // elements of the slab's data (the copy-out)
+  long long mul_w, mul_c, mul_p, mul_l;  // magic pairs of w / (word / elem), c, P, PL
+  int shr_w, shr_c, shr_p, shr_l;
+  int P, PL, g0, c, w, members, x_to_y, word, nproc, me;
+};
+
+namespace rp {
+
+struct PushArgs {
+  const void* in;
+  void* dst[RT_MAX_RANKS];
+  unsigned n;  // words the launch moves
+  FastDiv wv, c, p, pl;
+  int g0;
+  int is0, is1, ism, d1, dsm;
+};
+
+template <int BYTES, bool X2Y>
+__global__ void __launch_bounds__(RT_THREADS) ring_push_kernel(const PushArgs a) {
+  using W = typename Word<BYTES>::type;
+  const W* __restrict__ in = static_cast<const W*>(a.in);
+  const unsigned first = blockIdx.x * (RT_THREADS * RT_UNROLL) + threadIdx.x;
+  W v[RT_UNROLL];
+  W* dst[RT_UNROLL];
+#pragma unroll
+  for (int u = 0; u < RT_UNROLL; ++u) {
+    const unsigned g = first + u * RT_THREADS;
+    if (g < a.n) {
+      // the flat range in the source's order (m, lr, t, i, j)
+      const unsigned q = fast_div(g, a.wv);
+      const int j = (int)(g - q * a.wv.d);
+      const unsigned k = fast_div(q, a.c);
+      const int i = (int)(q - k * a.c.d);
+      const unsigned ml = fast_div(k, a.p);
+      const int t = (int)(k - ml * a.p.d);
+      const unsigned m = fast_div(ml, a.pl);
+      const int lr = (int)(ml - m * a.pl.d);
+      const int cc = (int)a.c.d, ww = (int)a.wv.d;
+      int src, off;
+      if constexpr (X2Y) {
+        src = (int)m * a.ism + lr * a.is0 + (t * cc + i) * a.is1 + j;
+        off = (int)m * a.dsm + i * a.d1 + (a.g0 + lr) * ww + j;
+      } else {
+        src = (int)m * a.ism + lr * a.is0 + i * a.is1 + t * ww + j;
+        off = (int)m * a.dsm + ((a.g0 + lr) * cc + i) * a.d1 + j;
+      }
+      v[u] = __ldg(in + src);
+      dst[u] = static_cast<W*>(a.dst[t]) + off;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < RT_UNROLL; ++u)
+    if (first + u * RT_THREADS < a.n) *dst[u] = v[u];
+}
+
+template <int BYTES>
+__global__ void __launch_bounds__(RT_THREADS) word_copy_kernel(const void* __restrict__ src,
+                                                               void* __restrict__ dst,
+                                                               unsigned n) {
+  using W = typename Word<BYTES>::type;
+  const W* __restrict__ s = static_cast<const W*>(src);
+  W* __restrict__ d = static_cast<W*>(dst);
+  const unsigned first = blockIdx.x * (RT_THREADS * RT_UNROLL) + threadIdx.x;
+  W v[RT_UNROLL];
+#pragma unroll
+  for (int u = 0; u < RT_UNROLL; ++u)
+    if (first + u * RT_THREADS < n) v[u] = __ldg(s + first + u * RT_THREADS);
+#pragma unroll
+  for (int u = 0; u < RT_UNROLL; ++u)
+    if (first + u * RT_THREADS < n) d[first + u * RT_THREADS] = v[u];
+}
+
+// The CUDA driver API's stream memory operations (CUresult is an int-sized enum,
+// CUstream is cudaStream_t, CUdeviceptr an unsigned 64-bit address).
+typedef int (*StreamValue32Fn)(cudaStream_t, unsigned long long, unsigned, unsigned);
+constexpr unsigned WAIT_VALUE_EQ = 0x1;      // CU_STREAM_WAIT_VALUE_EQ
+constexpr unsigned WRITE_VALUE_DEFAULT = 0;  // CU_STREAM_WRITE_VALUE_DEFAULT: fenced
+
+static StreamValue32Fn g_wait = nullptr, g_write = nullptr;
+
+static cudaError_t entry(const char* name, StreamValue32Fn* fn) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+  cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &status);
+#else
+  cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &status);
+#endif
+  if (e != cudaSuccess) return e;
+  if (status != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+  *fn = reinterpret_cast<StreamValue32Fn>(p);
+  return cudaSuccess;
+}
+
+static cudaError_t memops() {
+  if (g_wait && g_write) return cudaSuccess;
+  cudaError_t e = entry("cuStreamWaitValue32", &g_wait);
+  if (e == cudaSuccess) e = entry("cuStreamWriteValue32", &g_write);
+  return e;
+}
+
+// A driver error as a runtime one: the wrapper only tests for non-zero;
+// 999 (cudaErrorUnknown) keeps the two enums apart.
+static int wait_eq(cudaStream_t s, unsigned* flag, unsigned value) {
+  return g_wait(s, reinterpret_cast<unsigned long long>(flag), value, WAIT_VALUE_EQ) ? 999 : 0;
+}
+
+static int write_value(cudaStream_t s, unsigned* flag, unsigned value) {
+  return g_write(s, reinterpret_cast<unsigned long long>(flag), value, WRITE_VALUE_DEFAULT) ? 999
+                                                                                            : 0;
+}
+
+static bool fits(long long mul, int shr) { return mul >= 0 && mul < (1LL << 32) && shr >= 0 && shr <= 31; }
+
+template <int ELEM>
+int launch_push(const RpPush* f, cudaStream_t stream) {
+  if (f == nullptr || f->P < 1 || f->PL < 1 || f->P % f->PL || f->P > RT_MAX_RANKS ||
+      f->nproc != f->P / f->PL || f->nproc > RT_MAX_PROCS || f->me < 0 || f->me >= f->nproc ||
+      f->g0 != f->me * f->PL || f->c < 1 || f->w < 1 || f->members < 1 ||
+      (f->x_to_y != 0 && f->x_to_y != 1) || f->word % ELEM ||
+      (f->word != 4 && f->word != 8 && f->word != 16) ||
+      !fits(f->mul_w, f->shr_w) || !fits(f->mul_c, f->shr_c) || !fits(f->mul_p, f->shr_p) ||
+      !fits(f->mul_l, f->shr_l))
+    return (int)cudaErrorInvalidValue;
+  const long long nv = f->word / ELEM;
+  if (f->w % nv || f->is0 % nv || f->is1 % nv || f->ism % nv || f->d1 % nv || f->dsm % nv ||
+      reinterpret_cast<uintptr_t>(f->in) % f->word)
+    return (int)cudaErrorInvalidValue;
+  for (int t = 0; t < f->P; ++t)
+    if (f->dst[t] == nullptr || reinterpret_cast<uintptr_t>(f->dst[t]) % f->word)
+      return (int)cudaErrorInvalidValue;
+  const long long wv = f->w / nv;
+  const long long n = (long long)f->members * f->PL * f->P * f->c * wv;
+  const long long lim = 1LL << 31;
+  const long long rows_in = f->x_to_y ? (long long)f->P * f->c : f->c;
+  const long long cols_in = f->x_to_y ? wv : (long long)f->P * wv;
+  const long long rows_out = f->x_to_y ? f->c : (long long)f->P * f->c;
+  const long long cols_out = f->x_to_y ? (long long)f->P * wv : wv;
+  if (n >= lim ||
+      span(f->members, f->ism / nv, f->PL, f->is0 / nv, rows_in, f->is1 / nv, cols_in) >= lim ||
+      span(f->members, f->dsm / nv, 1, 0, rows_out, f->d1 / nv, cols_out) >= lim ||
+      f->out_elems < 1 || f->out_elems * ELEM >= lim * 4)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = memops();
+  if (e != cudaSuccess) return (int)e;
+  PushArgs a;
+  a.in = f->in;
+  for (int t = 0; t < RT_MAX_RANKS; ++t) a.dst[t] = t < f->P ? f->dst[t] : nullptr;
+  a.n = (unsigned)n;
+  a.wv = {(unsigned)wv, (unsigned)f->mul_w, (unsigned)f->shr_w};
+  a.c = {(unsigned)f->c, (unsigned)f->mul_c, (unsigned)f->shr_c};
+  a.p = {(unsigned)f->P, (unsigned)f->mul_p, (unsigned)f->shr_p};
+  a.pl = {(unsigned)f->PL, (unsigned)f->mul_l, (unsigned)f->shr_l};
+  a.g0 = f->g0;
+  a.is0 = (int)(f->is0 / nv);
+  a.is1 = (int)(f->is1 / nv);
+  a.ism = f->members > 1 ? (int)(f->ism / nv) : 0;
+  a.d1 = (int)(f->d1 / nv);
+  a.dsm = f->members > 1 ? (int)(f->dsm / nv) : 0;
+  int rc = 0;
+  // the slots of every peer's slab are free
+  for (int q = 0; q < f->nproc && !rc; ++q)
+    if (q != f->me) {
+      rc = wait_eq(stream, f->credit + q, 1);
+      if (!rc) rc = write_value(stream, f->credit + q, 0);
+    }
+  if (rc) return rc;
+  const int blocks = (int)((n + RT_THREADS * RT_UNROLL - 1) / (RT_THREADS * RT_UNROLL));
+  if (f->word == 4)
+    f->x_to_y ? ring_push_kernel<4, true><<<blocks, RT_THREADS, 0, stream>>>(a)
+              : ring_push_kernel<4, false><<<blocks, RT_THREADS, 0, stream>>>(a);
+  else if (f->word == 8)
+    f->x_to_y ? ring_push_kernel<8, true><<<blocks, RT_THREADS, 0, stream>>>(a)
+              : ring_push_kernel<8, false><<<blocks, RT_THREADS, 0, stream>>>(a);
+  else
+    f->x_to_y ? ring_push_kernel<16, true><<<blocks, RT_THREADS, 0, stream>>>(a)
+              : ring_push_kernel<16, false><<<blocks, RT_THREADS, 0, stream>>>(a);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  // announce the chunks, then wait for every peer's
+  for (int q = 0; q < f->nproc && !rc; ++q)
+    if (q != f->me) rc = write_value(stream, f->ready_peer[q], 1);
+  for (int q = 0; q < f->nproc && !rc; ++q)
+    if (q != f->me) rc = wait_eq(stream, f->ready + q, 1);
+  if (rc) return rc;
+  // the copy-out: the widest word both pointers and the size allow
+  const long long bytes = f->out_elems * ELEM;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(f->slab) | reinterpret_cast<uintptr_t>(f->out) |
+                          (uintptr_t)bytes;
+  const int cw = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : 4;
+  const unsigned cn = (unsigned)(bytes / cw);
+  const int cblocks = (int)((cn + RT_THREADS * RT_UNROLL - 1) / (RT_THREADS * RT_UNROLL));
+  if (cw == 16)
+    word_copy_kernel<16><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
+  else if (cw == 8)
+    word_copy_kernel<8><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
+  else
+    word_copy_kernel<4><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
+  rc = (int)cudaGetLastError();
+  // the slab is consumed: clear the ready flags, hand the peers their credit
+  for (int q = 0; q < f->nproc && !rc; ++q)
+    if (q != f->me) {
+      rc = write_value(stream, f->ready + q, 0);
+      if (!rc) rc = write_value(stream, f->credit_peer[q], 1);
+    }
+  return rc;
+}
+
+}  // namespace rp
+
+// One entry a dtype, as the one-device flip's; they differ in the element size.
+
+extern "C" int rp_ring_push_f64(const RpPush* f, void* stream) {
+  return rp::launch_push<8>(f, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rp_ring_push_f32(const RpPush* f, void* stream) {
+  return rp::launch_push<4>(f, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rp_ring_push_c128(const RpPush* f, void* stream) {
+  return rp::launch_push<16>(f, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rp_ring_push_c64(const RpPush* f, void* stream) {
+  return rp::launch_push<8>(f, static_cast<cudaStream_t>(stream));
+}
+
+// The receive slabs.  A slab is `data_bytes` (a multiple of 256) of data
+// and then the flags: ready[RT_MAX_PROCS], credit[RT_MAX_PROCS], unsigned.
+// It starts with every ready flag 0 and every credit 1 (every peer's slot
+// free); the call returns when that is on the card, so the handle may go
+// to the peers at once.
+
+extern "C" int rp_slab_alloc(long long data_bytes, void** ptr, void* handle) {
+  if (data_bytes < 0 || data_bytes % 256 || ptr == nullptr || handle == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t flags = 2 * RT_MAX_PROCS * sizeof(unsigned);
+  void* p = nullptr;
+  cudaError_t e = cudaMalloc(&p, (size_t)data_bytes + flags);
+  if (e != cudaSuccess) return (int)e;
+  unsigned init[2 * RT_MAX_PROCS];
+  for (int q = 0; q < RT_MAX_PROCS; ++q) {
+    init[q] = 0;
+    init[RT_MAX_PROCS + q] = 1;
+  }
+  e = cudaMemset(p, 0, (size_t)data_bytes);
+  if (e == cudaSuccess)
+    e = cudaMemcpy(static_cast<char*>(p) + data_bytes, init, flags, cudaMemcpyHostToDevice);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), p);
+  if (e != cudaSuccess) {
+    cudaFree(p);
+    return (int)e;
+  }
+  *ptr = p;
+  return 0;
+}
+
+extern "C" int rp_slab_free(void* ptr) { return (int)cudaFree(ptr); }
+
+extern "C" int rp_ipc_open(const void* handle, void** ptr) {
+  if (handle == nullptr || ptr == nullptr) return (int)cudaErrorInvalidValue;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int rp_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+

@@ -832,9 +832,17 @@ class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
         is finite when both its parts are), and so is the passive scalar's,
         where the state has one (the flow never reads it, so a NaN in the
         scalar alone would not reach temp).  With ``lead`` member dims, one
-        flag per member."""
+        flag per member.  On a mesh the sums run over the ranks (every rank
+        of a mesh whose ranks span processes, so every process takes the
+        same verdict and issues the same flips)."""
+
+        from ..parallel.decomp import all_gather_sum
+
+        mesh = getattr(self, "mesh", None)
 
         def total(x):
+            if mesh is not None:
+                return all_gather_sum(x, mesh, lead)
             return torch.sum(x) if not lead else x.reshape(*x.shape[:lead], -1).sum(dim=-1)
 
         probe = total(state.temp)
@@ -1200,6 +1208,11 @@ class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
             self._stats_engine = None
         else:
             from .stats import StatsEngine
+
+            if getattr(getattr(self, "mesh", None), "spanning", False):
+                raise NotImplementedError(
+                    "statistics on a mesh whose ranks span processes (their samples gather "
+                    "global fields on the card) are not ported")
 
             self._stats_engine = StatsEngine(self, cfg)
             # one sample builds its operators now: a capture cannot upload them

@@ -65,6 +65,9 @@ class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
     sentinel_reduce = None
 
     def __init__(self, model, states):
+        if getattr(getattr(model, "mesh", None), "spanning", False):
+            raise NotImplementedError("an ensemble on a mesh whose ranks span processes is not "
+                                      "ported (ROADMAP Queue 1 item 17.1)")
         if hasattr(states, "_fields"):
             if states.temp.ndim != model.state.temp.ndim + 1:
                 raise TypeError(

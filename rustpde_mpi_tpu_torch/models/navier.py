@@ -45,7 +45,11 @@ either cell: the state lives in spectral x-pencils (complex ones in the
 periodic cell), physical data in y-pencils, every pencil flip runs the
 pencil-transpose kernel of :mod:`..ops.ring_transpose`, and every banded
 solve one launch for all ranks.  The JAX package builds no fused stages
-under a mesh, so the fused kernels are refused there.
+under a mesh, so the fused kernels are refused there.  A mesh whose ranks
+span processes (:func:`..parallel.multihost.global_pencil_mesh`) runs the
+same step in every process on its ranks, its flips through the kernel's
+remote form and its sums and maxima (the freeze probe, the sentinels,
+the observables) over every rank, so all processes take the same path.
 
 The step, the sentinels and the observables also take states whose fields
 carry a leading member dim, the K members of an ensemble
@@ -81,6 +85,7 @@ from ..bases import (Space2, cheb_dirichlet, cheb_dirichlet_neumann, cheb_neuman
 from ..field import average_weights, grid_deltas
 from ..ops.fused_conv import build_model_convs
 from ..ops.fused_step import build_model_step
+from ..parallel.decomp import all_gather_max, all_gather_sum
 from ..parallel.spaces import PencilSpace2
 from ..solver import HholtzAdi, Poisson
 from ..utils import checkpoint, navier_io
@@ -336,7 +341,9 @@ class Navier2D(CampaignModelBase):
 
     def kernels(self) -> dict:
         """``{kernel name: [wrappers]}`` of the kernels this model's step
-        launches, each wrapper once, with its ``launches`` counter."""
+        launches, each wrapper once, with its ``launches`` counter (on a
+        mesh whose ranks span processes, ``ring_gather`` counts the
+        remote kernel's launches under its sums apart from the flips)."""
         out = {}
         if self._convs is not None:
             out["fused_conv"] = list(self._convs.values())
@@ -349,6 +356,8 @@ class Navier2D(CampaignModelBase):
             out["banded_solve"] = [k for s in solvers for k in s.kernels()]
         if self.mesh is not None:
             out["ring_transpose"] = [self.mesh.ring]
+            if self.mesh.spanning:
+                out["ring_gather"] = [self.mesh.ring.gather]
         return out
 
     def _state_fields(self) -> list:
@@ -720,12 +729,15 @@ class Navier2D(CampaignModelBase):
         kinetic energy ``0.5 <ux^2 + uy^2>`` of the consumed state's
         physical convection velocities, and the norm of the uncorrected
         divergence.  On a mesh the sums run across the ranks and the pad
-        adds nothing (zero weights and inverse spacings).  Member-stacked
-        fields give one of each per member, ``(K,)`` tensors."""
+        adds nothing (zero weights and inverse spacings), and so does the
+        maximum (over every rank of a mesh whose ranks span processes).
+        Member-stacked fields give one of each per member, ``(K,)`` tensors."""
         sp_f = self.field_space
         lead = ux.ndim - self.field_ndim
         speed = torch.abs(ux) * self._inv_dx + torch.abs(uy) * self._inv_dy
-        if lead:
+        if self.mesh is not None:
+            cfl = self.dt * all_gather_max(speed, self.mesh, lead)
+        elif lead:
             cfl = self.dt * speed.reshape(*speed.shape[:lead], -1).amax(dim=-1)
         else:
             cfl = self.dt * torch.max(speed)
@@ -788,8 +800,11 @@ class Navier2D(CampaignModelBase):
             return torch.stack([nu_plate, nu_vol, re, dnorm])
         # the scalar's finiteness folds into |div|, the NaN detector (a
         # NaN in the scalar alone never reaches the flow)
-        scal_sum = (torch.sum(torch.abs(state.scal)) if not lead else
-                    torch.abs(state.scal).reshape(*state.scal.shape[:lead], -1).sum(dim=-1))
+        if self.mesh is not None:
+            scal_sum = all_gather_sum(torch.abs(state.scal), self.mesh, lead)
+        else:
+            scal_sum = (torch.sum(torch.abs(state.scal)) if not lead else
+                        torch.abs(state.scal).reshape(*state.scal.shape[:lead], -1).sum(dim=-1))
         dnorm = dnorm + 0.0 * scal_sum
         # Sherwood: the scalar's plate flux, as Nu is the temperature's
         # (the scalar shares its space and BC lift)

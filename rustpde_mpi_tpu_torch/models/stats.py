@@ -167,14 +167,17 @@ def _global_spectral(space, x: torch.Tensor) -> torch.Tensor:
 
 def _pencil_spectral(space, g: torch.Tensor) -> torch.Tensor:
     """The x-pencils of a global spectral array (the inverse of
-    :func:`_global_spectral`; a serial space's array itself)."""
+    :func:`_global_spectral`, this process's ranks of a spanning mesh; a
+    serial space's array itself)."""
     if space.mesh is None:
         return g
     d = space.spectral
     (n0, n1), (p0, p1) = d.global_shape, d.padded_shape
     g = torch.nn.functional.pad(g, (0, p1 - n1, 0, p0 - n0))
-    nr = space.mesh.nranks
-    return g.reshape(*g.shape[:-1], nr, p1 // nr).transpose(-3, -2).contiguous()
+    mesh = space.mesh
+    nr = mesh.nranks
+    g = g.reshape(*g.shape[:-1], nr, p1 // nr).transpose(-3, -2)
+    return g[..., mesh.rank0: mesh.rank0 + mesh.nlocal, :, :].contiguous()
 
 
 def _stencil_diagonals(space, dev, rdt) -> list:

@@ -77,6 +77,59 @@ class RpJob(ctypes.Structure):
     ]
 
 
+#: ranks of a spanning mesh, and processes, one remote flip reaches (the
+#: same as in ``csrc/ring_transpose.cu``)
+PUSH_MAX_RANKS = 64
+PUSH_MAX_PROCS = 16
+#: bytes of a CUDA IPC memory handle (``cudaIpcMemHandle_t``; the source
+#: asserts it)
+IPC_HANDLE_BYTES = 64
+
+
+class RpPush(ctypes.Structure):
+    """Mirror of ``struct RpPush`` in ``csrc/ring_transpose.cu``: one flip
+    of a mesh whose ranks span processes (the input, this process's
+    receive slab and the output; each destination rank's block as mapped
+    in this process; the slab's flags and the peers' flags of this
+    process; strides and extents in elements, the magic pairs of the
+    launch's divisors)."""
+
+    _fields_ = [
+        ("inp", ctypes.c_void_p),
+        ("slab", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("dst", ctypes.c_void_p * PUSH_MAX_RANKS),
+        ("ready", ctypes.c_void_p),
+        ("credit", ctypes.c_void_p),
+        ("ready_peer", ctypes.c_void_p * PUSH_MAX_PROCS),
+        ("credit_peer", ctypes.c_void_p * PUSH_MAX_PROCS),
+        ("is0", ctypes.c_longlong),
+        ("is1", ctypes.c_longlong),
+        ("ism", ctypes.c_longlong),
+        ("d1", ctypes.c_longlong),
+        ("dsm", ctypes.c_longlong),
+        ("out_elems", ctypes.c_longlong),
+        ("mul_w", ctypes.c_longlong),
+        ("mul_c", ctypes.c_longlong),
+        ("mul_p", ctypes.c_longlong),
+        ("mul_l", ctypes.c_longlong),
+        ("shr_w", ctypes.c_int),
+        ("shr_c", ctypes.c_int),
+        ("shr_p", ctypes.c_int),
+        ("shr_l", ctypes.c_int),
+        ("P", ctypes.c_int),
+        ("PL", ctypes.c_int),
+        ("g0", ctypes.c_int),
+        ("c", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("members", ctypes.c_int),
+        ("x_to_y", ctypes.c_int),
+        ("word", ctypes.c_int),
+        ("nproc", ctypes.c_int),
+        ("me", ctypes.c_int),
+    ]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _JOBS_SIG = ([ctypes.POINTER(RpJob), _I, _I, _P], _I)
@@ -86,6 +139,7 @@ _DUAL_SIG = ([_I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I
 _BANDED_SIG = ([_I] * 8 + [_P, _P, _I, _L, _L, _I, _P, _L, _L, _L, _P, _L, _L, _L, _I, _L, _L,
                           _I, _P], _I)
 _RING_SIG = ([_I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _I, _L, _L, _I, _L, _I, _L, _I, _P], _I)
+_PUSH_SIG = ([ctypes.POINTER(RpPush), _P], _I)
 _SIGNATURES = {
     "banded_solve": {
         "rp_banded_solve_f64": _BANDED_SIG,
@@ -104,6 +158,14 @@ _SIGNATURES = {
         "rp_ring_transpose_f32": _RING_SIG,
         "rp_ring_transpose_c128": _RING_SIG,
         "rp_ring_transpose_c64": _RING_SIG,
+        "rp_ring_push_f64": _PUSH_SIG,
+        "rp_ring_push_f32": _PUSH_SIG,
+        "rp_ring_push_c128": _PUSH_SIG,
+        "rp_ring_push_c64": _PUSH_SIG,
+        "rp_slab_alloc": ([_L, ctypes.POINTER(_P), _P], _I),
+        "rp_slab_free": ([_P], _I),
+        "rp_ipc_open": ([_P, ctypes.POINTER(_P)], _I),
+        "rp_ipc_close": ([_P], _I),
     },
 }
 

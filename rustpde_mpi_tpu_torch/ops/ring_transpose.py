@@ -29,10 +29,19 @@ or 4 bytes (:func:`word_bytes`, the widest the row width, the strides and
 the base pointers allow) and splits a flat index into its row and column,
 and a row into its chunk and row in the chunk, by a multiply-high with the
 magic constants of :func:`fast_divmod`, computed here for each launch.
+
+A mesh whose ranks span processes (:class:`SpanningRing`) flips through the
+kernel's remote form, ``rp_ring_push_*``: each process holds ``P / nproc``
+consecutive ranks and pushes every chunk straight into the destination
+rank's receive slab, which its process allocated and every peer mapped
+through CUDA IPC; completion rides flags in the slabs (the TPU kernel's
+send and receive semaphores).  On the CPU the same flip is an all-to-all
+through ``torch.distributed`` on gloo.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import torch
@@ -43,6 +52,9 @@ from . import _build
 #: periodic cell's spectral pencil) is the unit of the permutation
 ENTRY = {torch.float64: "rp_ring_transpose_f64", torch.float32: "rp_ring_transpose_f32",
          torch.complex128: "rp_ring_transpose_c128", torch.complex64: "rp_ring_transpose_c64"}
+#: the remote form's entry point for each dtype (a spanning mesh)
+PUSH_ENTRY = {torch.float64: "rp_ring_push_f64", torch.float32: "rp_ring_push_f32",
+              torch.complex128: "rp_ring_push_c128", torch.complex64: "rp_ring_push_c64"}
 
 
 @lru_cache(maxsize=None)
@@ -197,6 +209,263 @@ class RingTranspose:
         return out
 
 
+#: bytes a receive slab's data is rounded up to (its flags follow)
+SLAB_ALIGN = 256
+
+
+class _Slab:
+    """One receive slab of a spanning mesh: this process's allocation
+    (``ptr``, ``data_bytes`` of data then the flags) and every process's
+    as mapped here (``peers[q]``; this process's own pointer at ``me``),
+    with the push's parameter block filled in but for the input, the
+    output and the launch's word (:meth:`SpanningRing._push`)."""
+
+    def __init__(self, ptr: int, peers: list, data_bytes: int, params):
+        self.ptr, self.peers, self.data_bytes, self.params = ptr, peers, data_bytes, params
+
+
+class SpanningRing(RingTranspose):
+    """The pencil flip of a mesh whose ``nranks`` ranks span ``nproc``
+    processes of one host, each holding ``nranks / nproc`` consecutive
+    ranks (this process, ``me``, the ranks from ``rank0``) stacked on its
+    own ``device``.  A pencil here is this process's ranks'
+    ``([K,] P / nproc, ...)``; its flip gives this process's ranks' blocks
+    of the flipped pencil.
+
+    On a CUDA device :meth:`flip` launches the remote form of the kernel
+    (``rp_ring_push_*``): the chunks of every local rank go straight into
+    the destination ranks' receive slabs, and the output is copied out of
+    this process's slab into a fresh tensor, so flipped pencils never alias
+    each other.  The slabs are allocated in the extension (an IPC handle
+    names a whole ``cudaMalloc`` allocation) at a shape's first flip, one
+    per (shape, dtype, direction), and their handles swapped once through
+    :func:`..parallel.multihost.allgather_bytes`: a host collective, so the
+    first flip of a shape runs outside a CUDA-graph capture (a chunk
+    runner's warm-up step makes it).  Every process issues the same flips
+    in the same order.  On the CPU :meth:`plain` is the same flip through
+    ``torch.distributed.all_to_all_single`` on gloo (also on a CUDA tensor,
+    through the host: the kernel's yardstick).
+
+    :attr:`gather` is the mesh's reduction partner: each rank's few values
+    to every rank, through the same push and flags."""
+
+    def __init__(self, nranks: int, device, nproc: int, me: int):
+        super().__init__(nranks, device)
+        if nproc < 1 or self.nranks % nproc or not 0 <= me < nproc:
+            raise ValueError(f"a spanning mesh of {nranks} ranks over {nproc} processes "
+                             f"(process {me})")
+        self.nproc, self.me = int(nproc), int(me)
+        self.nlocal = self.nranks // self.nproc
+        self.rank0 = self.me * self.nlocal
+        self._slabs: dict = {}
+        #: each rank's values to every rank (:class:`RankGather`)
+        self.gather = RankGather(self)
+
+    def _check(self, block, x_to_y: bool) -> None:
+        if block.device != self.device:
+            raise ValueError(f"pencil transpose input on {block.device}, the mesh is on "
+                             f"{self.device}")
+        if block.dtype not in PUSH_ENTRY:
+            raise ValueError(f"pencil transpose input of dtype {block.dtype}: the kernel moves "
+                             f"{', '.join(map(str, PUSH_ENTRY))}")
+        split = -2 if x_to_y else -1
+        if block.ndim not in (3, 4) or block.shape[-3] != self.nlocal or \
+                block.shape[split] % self.nranks:
+            want = "([K,] PL, P*c, w)" if x_to_y else "([K,] PL, c, P*w)"
+            raise ValueError(f"pencil transpose input: shape {tuple(block.shape)}, expected "
+                             f"{want} with P = {self.nranks}, PL = {self.nlocal}")
+
+    def flip(self, block, x_to_y: bool) -> torch.Tensor:
+        """The flip of this process's pencils outside autograd: the remote
+        kernel on a CUDA device, the gloo all-to-all on the CPU."""
+        self._check(block, x_to_y)
+        if self.device.type == "cpu":
+            return self.plain(block, x_to_y)
+        if self.device.type != "cuda":
+            raise RuntimeError(f"no pencil-transpose kernel for device {self.device}")
+        out = self._push(block, x_to_y)
+        self.launches += 1
+        return out
+
+    def plain(self, block, x_to_y: bool) -> torch.Tensor:
+        """The flip in plain PyTorch: one ``all_to_all_single`` on gloo of
+        each process's chunks for each process's ranks, through the host
+        (every process calls it together).  ``send[q, m, lr, lt]`` is local
+        rank ``lr``'s chunk for rank ``q * PL + lt``."""
+        import torch.distributed as dist
+
+        p, pl, n = self.nranks, self.nlocal, self.nproc
+        x = block.detach().to("cpu")
+        k = x.shape[0] if x.ndim == 4 else 1
+        if x_to_y:
+            c, w = x.shape[-2] // p, x.shape[-1]
+            send = x.reshape(k, pl, n, pl, c, w).permute(2, 0, 1, 3, 4, 5)
+        else:
+            c, w = x.shape[-2], x.shape[-1] // p
+            send = x.reshape(k, pl, c, n, pl, w).permute(3, 0, 1, 4, 2, 5)
+        send = send.contiguous()
+        recv = torch.empty_like(send)
+        if n > 1:
+            real = torch.view_as_real if send.is_complex() else (lambda t: t)
+            dist.all_to_all_single(real(recv), real(send))
+        else:
+            recv.copy_(send)
+        # recv[q, m, lq, lt]: global rank q * PL + lq's chunk for local rank lt
+        if x_to_y:
+            out = recv.permute(1, 3, 4, 0, 2, 5).reshape(k, pl, c, p * w)
+        else:
+            out = recv.permute(1, 3, 0, 2, 4, 5).reshape(k, pl, p * c, w)
+        return (out if block.ndim == 4 else out[0]).to(block.device)
+
+    def bytes_moved(self, block) -> float:
+        """Bytes a flip of ``block`` must move: the push reads and writes
+        every element once, the copy-out of the slab once more."""
+        return 4.0 * block.numel() * block.element_size()
+
+    def _slab(self, shape, dtype, x_to_y: bool) -> _Slab:
+        """The receive slab of flips to ``shape``, registered at the first
+        one (collective: every process registers the same slabs in the
+        same order)."""
+        key = (tuple(shape), dtype, bool(x_to_y))
+        slab = self._slabs.get(key)
+        if slab is None:
+            slab = self._slabs[key] = self._register(shape, dtype, x_to_y)
+        return slab
+
+    def _register(self, shape, dtype, x_to_y: bool) -> _Slab:
+        from ..parallel import multihost
+
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"a first flip to {tuple(shape)} {dtype} inside a CUDA-graph "
+                               "capture: a slab is registered by a host collective, so a "
+                               "shape's first flip runs before the capture")
+        if self.nproc > _build.PUSH_MAX_PROCS or self.nranks > _build.PUSH_MAX_RANKS:
+            raise ValueError(f"the remote flip reaches {_build.PUSH_MAX_RANKS} ranks in "
+                             f"{_build.PUSH_MAX_PROCS} processes, the mesh has "
+                             f"{self.nranks} in {self.nproc}")
+        lib = _build.load("ring_transpose")
+        elem = torch.empty(0, dtype=dtype).element_size()
+        numel = 1
+        for s in shape:
+            numel *= int(s)
+        data = -(-numel * elem // SLAB_ALIGN) * SLAB_ALIGN
+        ptr = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(_build.IPC_HANDLE_BYTES)
+        with torch.cuda.device(self.device):
+            torch.cuda.synchronize(self.device)
+            _build.check(lib.rp_slab_alloc(data, ctypes.byref(ptr), handle), "rp_slab_alloc")
+            handles = multihost.allgather_bytes(handle.raw)
+            peers = []
+            for q, h in enumerate(handles):
+                if q == self.me:
+                    peers.append(ptr.value)
+                    continue
+                mapped = ctypes.c_void_p()
+                rc = lib.rp_ipc_open(h, ctypes.byref(mapped))
+                if rc:
+                    raise RuntimeError(
+                        f"cudaIpcOpenMemHandle of process {q}'s receive slab failed on "
+                        f"{self.device} (CUDA error {rc}): the spanning mesh cannot map its "
+                        "peers (the other route, cuMemCreate with a POSIX fd handle passed "
+                        "over a Unix socket, is not ported)")
+                peers.append(mapped.value)
+        f = _build.RpPush()
+        f.slab = ptr.value
+        flags = _build.PUSH_MAX_PROCS * 4
+        f.ready, f.credit = ptr.value + data, ptr.value + data + flags
+        for q in range(self.nproc):
+            f.ready_peer[q] = peers[q] + data + 4 * self.me
+            f.credit_peer[q] = peers[q] + data + flags + 4 * self.me
+        lead, (a, b) = shape[:-2], shape[-2:]
+        for t in range(self.nranks):
+            q, lt = divmod(t, self.nlocal)
+            f.dst[t] = peers[q] + lt * a * b * elem
+        f.d1, f.dsm, f.out_elems = b, self.nlocal * a * b, numel
+        f.P, f.PL, f.g0, f.nproc, f.me = self.nranks, self.nlocal, self.rank0, self.nproc, self.me
+        f.x_to_y = int(x_to_y)
+        f.members = int(lead[0]) if len(lead) == 2 else 1
+        return _Slab(ptr.value, peers, data, f)
+
+    def _push(self, block, x_to_y: bool) -> torch.Tensor:
+        if block.stride(-1) != 1:
+            raise ValueError("the pencil-transpose kernel needs a unit stride along the "
+                             "last axis")
+        shape = transposed_shape(block.shape, self.nranks, x_to_y)
+        slab = self._slab(shape, block.dtype, x_to_y)
+        lib = _build.load("ring_transpose")
+        out = torch.empty(shape, device=block.device, dtype=block.dtype)
+        f = slab.params
+        p, elem = self.nranks, block.element_size()
+        c, w = (block.shape[-2] // p, block.shape[-1]) if x_to_y else \
+            (block.shape[-2], block.shape[-1] // p)
+        f.is0, f.is1 = pencil_strides(block)
+        f.ism = block.stride(0) if block.ndim == 4 and f.members > 1 else 0
+        f.inp, f.out = block.data_ptr(), out.data_ptr()
+        f.c, f.w = c, w
+        f.word = word_bytes(elem, w, (f.is0, f.is1, f.ism, f.d1, f.dsm),
+                            [block.data_ptr()] + [f.dst[t] for t in range(p)])
+        f.mul_w, f.shr_w = fast_divmod(w // (f.word // elem))
+        f.mul_c, f.shr_c = fast_divmod(c)
+        f.mul_p, f.shr_p = fast_divmod(p)
+        f.mul_l, f.shr_l = fast_divmod(self.nlocal)
+        _build.call(getattr(lib, PUSH_ENTRY[block.dtype]), self.device, ctypes.byref(f))
+        return out
+
+    def close(self) -> None:
+        """Unmap the peers' slabs and free this process's (collective):
+        every process first finishes its flips and reaches a barrier, then
+        closes its peers' handles, and frees its own slabs only after a
+        second barrier, when no peer maps them any more."""
+        from ..parallel import multihost
+
+        if not self._slabs or self.device.type != "cuda":
+            self._slabs.clear()
+            return
+        lib = _build.load("ring_transpose")
+        with torch.cuda.device(self.device):
+            torch.cuda.synchronize(self.device)
+            multihost.sync_hosts("ring_close")
+            for slab in self._slabs.values():
+                for q, ptr in enumerate(slab.peers):
+                    if q != self.me:
+                        _build.check(lib.rp_ipc_close(ptr), "rp_ipc_close")
+            multihost.sync_hosts("ring_closed")
+            for slab in self._slabs.values():
+                _build.check(lib.rp_slab_free(slab.ptr), "rp_slab_free")
+        self._slabs.clear()
+
+
+class RankGather:
+    """A few values of each rank of a spanning mesh to every rank (the
+    all-gather under the mesh's sums and maxima, :mod:`..parallel.decomp`):
+    ``partials`` ``(PL, k)`` of this process's ranks give ``(P, k)`` in
+    rank order on every process.  The values go as an x-pencil whose every
+    chunk is the rank's row, through one flip of its ring: the remote
+    kernel on the card (a capturable push and its flags, no host
+    collective), the gloo all-to-all on the CPU.  ``launches`` counts the
+    kernel launches, apart from the ring's flips."""
+
+    def __init__(self, ring: SpanningRing):
+        self.ring = ring
+        #: kernel launches on CUDA tensors
+        self.launches = 0
+
+    def __call__(self, partials: torch.Tensor) -> torch.Tensor:
+        ring = self.ring
+        p, pl = ring.nranks, ring.nlocal
+        if partials.ndim != 2 or partials.shape[0] != pl:
+            raise ValueError(f"a rank gather takes ({pl}, k) values, got {tuple(partials.shape)}")
+        k = partials.shape[1]
+        x = partials[:, None, :].expand(pl, p, k).contiguous()
+        ring._check(x, True)
+        if ring.device.type == "cpu":
+            y = ring.plain(x, True)
+        else:
+            y = ring._push(x, True)
+            self.launches += 1
+        return y[0, 0].view(p, k)
+
+
 class FlipFn(torch.autograd.Function):
     """The pencil flip as autograd sees it: the forward is
     :meth:`RingTranspose.flip`, the backward the inverse flip of the
@@ -212,6 +481,9 @@ class FlipFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ring, x_to_y = ctx.flip
+        if isinstance(ring, SpanningRing):
+            raise NotImplementedError("the flip's backward across processes is not ported "
+                                      "(ROADMAP Queue 1 item 17.1)")
         out = ring.flip(g.contiguous(), not x_to_y)
         if g.device.type == "cuda":
             ring.backward_launches += 1

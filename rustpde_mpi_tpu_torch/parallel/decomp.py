@@ -12,6 +12,13 @@ The JAX package names two schedules of one repartition, ``method="alltoall"``
 and ``method="ring"``.  On one device under one controller the port has one
 flip: the pencil-transpose kernel on a CUDA tensor, its plain ring version on
 a CPU tensor.  So there is no ``method`` switch.
+
+On a mesh whose ranks span processes (``mesh.spanning``) a stacked pencil
+holds this process's ranks only: ``place_*`` gives their blocks of the
+global array, ``gather_*`` assembles the global array from every process's
+(a host collective), and the collectives gather each rank's partial
+through the ring's :class:`..ops.ring_transpose.RankGather` and reduce in
+rank order, as the one-process mesh does.
 """
 
 from __future__ import annotations
@@ -98,28 +105,47 @@ class Decomp2d:
         out[: self.global_shape[0], : self.global_shape[1]] = a
         return out
 
+    def _local(self, stacked: torch.Tensor) -> torch.Tensor:
+        """This process's ranks of a stacked pencil of every rank."""
+        mesh = self.mesh
+        if not mesh.spanning:
+            return stacked
+        return stacked[mesh.rank0: mesh.rank0 + mesh.nlocal].contiguous()
+
+    def _every_rank(self, block: torch.Tensor) -> torch.Tensor:
+        """The stacked pencil of every rank from this process's ranks' (a
+        host collective on a spanning mesh: every process calls it)."""
+        if not self.mesh.spanning:
+            return block
+        from . import multihost
+
+        return multihost.global_array(block, self.mesh)
+
     def place_x_pencil(self, arr, dtype=None) -> torch.Tensor:
         """Global ``(n0, n1)`` array -> stacked x-pencil ``(P, n0p,
-        n1p/P)``, pad zero."""
+        n1p/P)``, pad zero (this process's ranks on a spanning mesh)."""
         shape = x_pencil_shape(self.global_shape, self.nprocs)
         g = self._padded(arr, dtype)
-        return g.view(shape[1], self.nprocs, shape[2]).transpose(0, 1).contiguous()
+        return self._local(g.view(shape[1], self.nprocs, shape[2]).transpose(0, 1).contiguous())
 
     def place_y_pencil(self, arr, dtype=None) -> torch.Tensor:
         """Global ``(n0, n1)`` array -> stacked y-pencil ``(P, n0p/P,
-        n1p)``, pad zero."""
-        return self._padded(arr, dtype).view(y_pencil_shape(self.global_shape, self.nprocs))
+        n1p)``, pad zero (this process's ranks on a spanning mesh)."""
+        return self._local(self._padded(arr, dtype).view(
+            y_pencil_shape(self.global_shape, self.nprocs)))
 
     def gather_x_pencil(self, block: torch.Tensor) -> torch.Tensor:
-        """Stacked x-pencil -> global ``(n0, n1)`` (pad sliced away)."""
+        """Stacked x-pencil -> global ``(n0, n1)`` (pad sliced away; on a
+        spanning mesh assembled from every process's ranks)."""
         n0, n1 = self.global_shape
-        g = block.transpose(0, 1).reshape(self.padded_shape)
+        g = self._every_rank(block).transpose(0, 1).reshape(self.padded_shape)
         return g[:n0, :n1]
 
     def gather_y_pencil(self, block: torch.Tensor) -> torch.Tensor:
-        """Stacked y-pencil -> global ``(n0, n1)`` (pad sliced away)."""
+        """Stacked y-pencil -> global ``(n0, n1)`` (pad sliced away; on a
+        spanning mesh assembled from every process's ranks)."""
         n0, n1 = self.global_shape
-        return block.reshape(self.padded_shape)[:n0, :n1]
+        return self._every_rank(block).reshape(self.padded_shape)[:n0, :n1]
 
     # -- explicit repartitions ----------------------------------------------
 
@@ -138,44 +164,76 @@ class Decomp2d:
 # ---------------------------------------------------------------------------
 
 
+def _every_partial(partials: torch.Tensor, mesh: Mesh, lead: int) -> torch.Tensor:
+    """``partials`` ``(*members, PL)``, one value a member of each of this
+    process's ranks, as ``(*members, P)`` of every rank (the ring's rank
+    gather on a spanning mesh; the values themselves on one process)."""
+    if not mesh.spanning:
+        return partials
+    members = partials.shape[:lead]
+    rows = partials.reshape(-1, mesh.nlocal).transpose(0, 1)  # (PL, members)
+    every = mesh.ring.gather(rows)  # (P, members)
+    return every.transpose(0, 1).reshape(*members, mesh.nranks)
+
+
+def _ranks_of(blocks: torch.Tensor, mesh: Mesh, lead: int, what: str) -> int:
+    ranks = mesh.nlocal
+    if blocks.shape[lead] != ranks:
+        raise ValueError(f"{what}: leading dim {blocks.shape[lead]} of the rank-stacked "
+                         f"blocks, the mesh holds {ranks} ranks here")
+    return ranks
+
+
 def all_gather_sum(blocks: torch.Tensor, mesh: Mesh, lead: int = 0) -> torch.Tensor:
     """Sum every rank's contribution so every rank holds the global sum
     (the reference's ``all_gather_sum``): ``blocks`` is rank-stacked (the
-    rank leading), each rank's block is summed, then the rank sums.  A 0-d
-    tensor on the mesh's device; with ``lead`` member dims in front of the
-    rank, one sum per member (a tensor of those dims)."""
+    rank leading; this process's ranks on a spanning mesh), each rank's
+    block is summed, then the rank sums, in rank order.  A 0-d tensor on
+    the mesh's device; with ``lead`` member dims in front of the rank, one
+    sum per member (a tensor of those dims)."""
     shape = blocks.shape[:lead]
-    if blocks.shape[lead] != mesh.nranks:
-        raise ValueError(f"all_gather_sum: leading dim {blocks.shape[lead]} of the rank-stacked "
-                         f"blocks, the mesh has {mesh.nranks} ranks")
+    ranks = _ranks_of(blocks, mesh, lead, "all_gather_sum")
     if not lead:
-        return torch.sum(blocks.reshape(mesh.nranks, -1).sum(dim=1))
-    return blocks.reshape(*shape, mesh.nranks, -1).sum(dim=-1).sum(dim=-1)
+        return torch.sum(_every_partial(blocks.reshape(ranks, -1).sum(dim=1), mesh, 0))
+    partials = blocks.reshape(*shape, ranks, -1).sum(dim=-1)
+    return _every_partial(partials, mesh, lead).sum(dim=-1)
+
+
+def all_gather_max(blocks: torch.Tensor, mesh: Mesh, lead: int = 0) -> torch.Tensor:
+    """The maximum over every rank's block, on every rank (as
+    :func:`all_gather_sum`, the rank maxima then their maximum)."""
+    shape = blocks.shape[:lead]
+    ranks = _ranks_of(blocks, mesh, lead, "all_gather_max")
+    partials = blocks.reshape(*shape, ranks, -1).amax(dim=-1)
+    return _every_partial(partials, mesh, lead).amax(dim=-1)
 
 
 def broadcast_scalar(value, mesh: Mesh) -> torch.Tensor:
     """Rank 0's value to all ranks (the reference's ``broadcast_scalar``):
-    ``value`` is one host scalar, which every rank holds, or a ``(P,)``
-    tensor of per-rank values.  A 0-d tensor of rank 0's value."""
+    ``value`` is one host scalar, which every rank holds, or a tensor of
+    per-rank values (``(P,)``; this process's ranks' on a spanning mesh).
+    A 0-d tensor of rank 0's value."""
     per_rank = torch.as_tensor(value, device=mesh.device)
     if per_rank.ndim == 0:
-        per_rank = per_rank.expand(mesh.nranks)
-    if tuple(per_rank.shape) != (mesh.nranks,):
+        per_rank = per_rank.expand(mesh.nlocal)
+    if tuple(per_rank.shape) != (mesh.nlocal,):
         raise ValueError(f"broadcast_scalar: one value or one per rank, got shape "
                          f"{tuple(per_rank.shape)}")
-    return per_rank[0].clone()
+    return _every_partial(per_rank.contiguous(), mesh, 0)[0].clone()
 
 
 def gather_root(blocks: torch.Tensor, decomp: Decomp2d, pencil: str = "y") -> np.ndarray:
     """Full global array on the host from a stacked pencil (the
-    reference's gather-to-root IO path)."""
+    reference's gather-to-root IO path; on a spanning mesh every process
+    takes part and every one gets the array)."""
     gather = decomp.gather_y_pencil if pencil == "y" else decomp.gather_x_pencil
     return gather(blocks).cpu().numpy()
 
 
 def scatter_root(values, decomp: Decomp2d, pencil: str = "y", dtype=None) -> torch.Tensor:
     """Host array -> stacked pencil on the mesh's device (the reference's
-    scatter)."""
+    scatter; on a spanning mesh this process's ranks of it, from the global
+    array every process holds)."""
     if pencil == "y":
         return decomp.place_y_pencil(values, dtype)
     return decomp.place_x_pencil(values, dtype)

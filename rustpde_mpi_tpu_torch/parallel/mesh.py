@@ -27,10 +27,18 @@ a product and stay exactly zero.  A complex field (the periodic cell's
 spectral state) is split and flipped the same way, a complex element the
 unit.
 
-Ranks on separate cards (peer access or ``torch.distributed``) are not
-ported: a mesh over distinct devices raises, and so does a mesh given
-devices of more than one process (:mod:`.multihost`; each process of a
-multi-process run holds its own model on its own mesh).
+A mesh may span the processes of one host (:func:`.multihost.global_pencil_mesh`):
+``P`` ranks held by ``nproc`` processes joined in one group
+(:func:`.multihost.initialize_distributed`), each process ``P / nproc``
+consecutive ranks stacked as above on its own card (one card shared by all
+of them, or one card a process).  A field then is each process's ranks'
+blocks, ``(P / nproc, ...)``; ``nranks`` stays the global ``P``, which the
+padding and the splits use, and ``nlocal``/``rank0`` name this process's
+ranks.  Its flips go through the kernel's remote form
+(:class:`..ops.ring_transpose.SpanningRing`) and its sums through the
+ring's rank gather, in rank order, so a spanning mesh computes what the
+one-process mesh of the same ``P`` computes, bit for bit.  One process's
+ranks on distinct devices still raise: a card a process is the layout.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import torch
 
 from .. import config
 from ..ops import transforms as tr
-from ..ops.ring_transpose import RingTranspose
+from ..ops.ring_transpose import RingTranspose, SpanningRing
 
 AXIS = "p"
 
@@ -50,34 +58,64 @@ SPEC = (None, AXIS)  # x-pencil: y distributed
 
 
 class Mesh:
-    """``P`` ranks on one device.  ``devices`` lists each rank's device;
-    all must be the same one (ranks on distinct devices are not ported).
-    ``ring`` is the mesh's pencil transpose (``ring.x_to_y``,
-    ``ring.y_to_x``), with its launch counter."""
+    """``P`` ranks on one device, or spread over the processes of one
+    group, each holding consecutive ranks on its own device.  ``devices``
+    lists each rank's device: plain devices (``"cuda"``, a
+    ``torch.device``) are this process's, all one device; a device that
+    carries its ``process_index`` (a :class:`.multihost.HostDevice`) names
+    its process.  ``ring`` is the mesh's pencil transpose (``ring.x_to_y``,
+    ``ring.y_to_x``), with its launch counter.
+
+    ``nranks`` is the mesh's rank count ``P``; ``nlocal`` the ranks of this
+    process, ``rank0`` the first of them, and ``spanning`` whether other
+    processes hold the rest."""
 
     def __init__(self, devices):
         devices = list(devices)
-        # a device named by the planners (a ``HostDevice``) carries its
-        # process; a plain device (``"cuda"``, a ``torch.device``) is this
-        # process's own
-        procs = sorted({int(d.process_index) for d in devices if hasattr(d, "process_index")})
-        if len(procs) > 1 or (procs and procs[0] != _this_process()):
-            raise NotImplementedError(
-                f"ranks in processes {procs}: a mesh holds the ranks of this process only (a "
-                "mesh whose ranks span processes is ROADMAP Queue 1 item 17.1)")
-        devs = [torch.device(getattr(d, "device", d)) for d in devices]
-        if not devs:
+        if not devices:
             raise ValueError("a mesh needs at least one rank")
+        me = _this_process()
+        procs = [int(getattr(d, "process_index", me)) for d in devices]
+        self.nproc = len(set(procs))
+        self.spanning = set(procs) != {me}
+        if self.spanning:
+            nproc = _process_count()
+            if sorted(set(procs)) != list(range(nproc)):
+                raise NotImplementedError(
+                    f"ranks in processes {sorted(set(procs))}: a mesh spans every process of "
+                    f"its group (processes 0..{nproc - 1}, "
+                    "multihost.initialize_distributed) and none outside it")
+            counts = [procs.count(q) for q in range(nproc)]
+            if procs != sorted(procs) or len(set(counts)) > 1:
+                raise ValueError(f"a spanning mesh gives each process the same number of "
+                                 f"consecutive ranks, got processes {procs}")
+        mine = [d for d, q in zip(devices, procs) if q == me]
+        devs = [torch.device(getattr(d, "device", d)) for d in mine]
         if len(set(devs)) > 1:
             raise NotImplementedError(
-                f"ranks on distinct devices {sorted(set(map(str, devs)))}: only a mesh of "
-                "ranks on one device is ported (ranks on separate cards need peer copies "
-                "or torch.distributed)")
+                f"ranks on distinct devices {sorted(set(map(str, devs)))} in one process: a "
+                "process holds its ranks on one device (a card a process is a spanning mesh, "
+                "multihost.global_pencil_mesh)")
         self.device = config.resolve_device(devs[0])
-        self.nranks = len(devs)
-        self.ring = RingTranspose(self.nranks, self.device)
+        self.nranks = len(devices)
+        self.nlocal = len(mine)
+        self.rank0 = procs.index(me)
+        if self.spanning:
+            self.ring = SpanningRing(self.nranks, self.device, self.nproc, me)
+        else:
+            self.ring = RingTranspose(self.nranks, self.device)
+
+    def close(self) -> None:
+        """Free a spanning mesh's receive slabs (collective, every process
+        together; :meth:`..ops.ring_transpose.SpanningRing.close`); nothing
+        to free on one process."""
+        if self.spanning:
+            self.ring.close()
 
     def __repr__(self):
+        if self.spanning:
+            return (f"Mesh({self.nranks} ranks over {self.nproc} processes, ranks "
+                    f"{self.rank0}..{self.rank0 + self.nlocal - 1} on {self.device})")
         return f"Mesh({self.nranks} ranks on {self.device})"
 
 
@@ -85,6 +123,12 @@ def _this_process() -> int:
     from .multihost import process_index
 
     return process_index()
+
+
+def _process_count() -> int:
+    from .multihost import process_count
+
+    return process_count()
 
 
 def make_mesh(nranks: int, device=None) -> Mesh:

@@ -5,17 +5,20 @@ reads no environment).
 The reference scales across nodes with MPI ranks; the JAX package runs one
 controller per host over one global device mesh.  The port runs one
 controller per process on ``torch.distributed`` with the gloo backend,
-which carries host objects only: every process holds its own model on its
-own :class:`.mesh.Mesh` on its own card, and the processes agree on every
-decision that leads into a collective through the functions here (a mesh
-whose ranks span processes is ROADMAP Queue 1 item 17.1).
+which carries host objects only.  Either every process holds its own model
+on its own :class:`.mesh.Mesh` on its own card, and the processes agree on
+every decision that leads into a collective through the functions here; or
+one model spans them (:func:`global_pencil_mesh`), each process holding
+some of its ranks, whose flips and sums go card to card through CUDA IPC
+(:class:`..ops.ring_transpose.SpanningRing`; on the CPU through gloo).
 
 * :func:`initialize_distributed`: ``torch.distributed.init_process_group``
   on gloo (the ``MPI_Init`` analog), given its address, size and rank;
-* :func:`global_pencil_mesh`: :func:`.mesh.make_mesh` on this process's
-  card;
-* :func:`host_local_array` / :func:`global_array`: the identity within
-  one process;
+* :func:`global_pencil_mesh`: the mesh of every process's ranks (one
+  process: :func:`.mesh.make_mesh` on its card);
+* :func:`host_local_array` / :func:`global_array`: on a spanning mesh,
+  this process's ranks' blocks of a global array and the global array of
+  every process's blocks; the whole array otherwise;
 * :func:`sync_hosts`: the barrier;
 * :func:`allgather_host` / :func:`allgather_bytes` / :func:`broadcast` /
   :func:`broadcast_obj` / :func:`root_decides`: small host-value
@@ -162,26 +165,51 @@ def global_devices(device=None) -> list:
     return [HostDevice(i, p, name) for i, (p, name) in enumerate(enumerate(names))]
 
 
-def global_pencil_mesh(nranks: int = 1, device=None):
-    """The pencil mesh of this process: ``nranks`` ranks on its card
-    (:func:`.mesh.make_mesh`)."""
-    return make_mesh(nranks, device)
+def global_pencil_mesh(ranks_per_process: int = 1, device=None):
+    """The pencil mesh over every process of the group, each holding
+    ``ranks_per_process`` consecutive ranks on its card (``device``, the
+    card by default; every process may name the same one): a spanning
+    :class:`.mesh.Mesh` of ``ranks_per_process * process_count()`` ranks
+    (one allgather of the device names).  One process: :func:`.mesh.make_mesh`."""
+    if process_count() == 1:
+        return make_mesh(ranks_per_process, device)
+    if ranks_per_process < 1:
+        raise ValueError(f"a mesh needs at least one rank a process, got {ranks_per_process}")
+    from .mesh import Mesh
+
+    return Mesh([d for d in global_devices(device) for _ in range(ranks_per_process)])
+
+
+def _host(arr) -> np.ndarray:
+    return arr.detach().cpu().numpy() if hasattr(arr, "detach") else np.asarray(arr)
 
 
 def global_array(host_local, sharding=None):
-    """The global array of a per-process slab: the identity, since every
-    process holds its whole model (``sharding`` is accepted for the JAX
-    package's signature)."""
-    del sharding
-    return host_local
+    """The global array of a mesh whose ranks span processes (the
+    scatter's inverse, a gather): ``sharding`` is that mesh and
+    ``host_local`` this process's ranks' blocks, rank leading; every
+    process's blocks are concatenated in rank order on every process (one
+    allgather).  A tensor gives a tensor on its device, anything else
+    numpy.  Without a spanning mesh, one process or many, each process
+    holds the whole array: ``host_local`` itself."""
+    if not getattr(sharding, "spanning", False):
+        return host_local
+    whole = np.concatenate(list(allgather_host(_host(host_local))), axis=0)
+    if torch.is_tensor(host_local):
+        return torch.from_numpy(whole).to(host_local.device)
+    return whole
 
 
 def host_local_array(arr, spec=None) -> np.ndarray:
-    """This process's slab of a global array as numpy: the whole array."""
-    del spec
-    if hasattr(arr, "detach"):
-        return arr.detach().cpu().numpy()
-    return np.asarray(arr)
+    """This process's slab of a global array as numpy: ``spec`` a mesh whose
+    ranks span processes and ``arr`` every rank's blocks, rank leading, its
+    ranks' blocks.  Without a spanning mesh, one process or many, each
+    process holds the whole array (a parked member's state on every
+    process of a fleet replica): the whole array."""
+    host = _host(arr)
+    if not getattr(spec, "spanning", False):
+        return host
+    return host[spec.rank0: spec.rank0 + spec.nlocal]
 
 
 #: the deadline (seconds, 0: none) and label of the collective in progress

@@ -70,9 +70,11 @@ class PencilSpace2:
         return self.space.spectral_dtype
 
     def ndarray_spectral(self) -> torch.Tensor:
-        """Zero spectral x-pencil."""
-        return torch.zeros(x_pencil_shape(self.shape_spectral, self.mesh.nranks),
-                           device=self.device, dtype=self.spectral_dtype)
+        """Zero spectral x-pencil (this process's ranks on a spanning
+        mesh)."""
+        shape = x_pencil_shape(self.shape_spectral, self.mesh.nranks)
+        return torch.zeros((self.mesh.nlocal, *shape[1:]), device=self.device,
+                           dtype=self.spectral_dtype)
 
     # -- placement -------------------------------------------------------------
 
@@ -114,7 +116,8 @@ class PencilSpace2:
 
     def weighted_sum(self, v: torch.Tensor, w: torch.Tensor, lead: int = 0) -> torch.Tensor:
         """``sum(v * w)`` over the field: per rank, then across the ranks
-        (:func:`.decomp.all_gather_sum`); ``w`` is zero on the pad.  The
+        in rank order (:func:`.decomp.all_gather_sum`, through the ring's
+        rank gather on a spanning mesh); ``w`` is zero on the pad.  The
         first ``lead`` dims of ``v`` are members, each summed apart."""
         return all_gather_sum(v * w, self.mesh, lead)
 
@@ -230,7 +233,9 @@ class PencilSpace2:
 
     def pin_zero_mode(self, vhat: torch.Tensor) -> torch.Tensor:
         """Zero the constant mode, which rank 0 of the x-pencil holds (on
-        an r2c axis its real and imaginary parts)."""
+        an r2c axis its real and imaginary parts; on a spanning mesh only
+        the process that holds rank 0 has it)."""
         out = vhat.clone()
-        out[..., 0, 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
+        if self.mesh.rank0 == 0:
+            out[..., 0, 0, 0].zero_()  # in place on the device (capturable in a CUDA graph)
         return out

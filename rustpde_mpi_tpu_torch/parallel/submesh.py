@@ -79,12 +79,14 @@ class Submesh:
 
     def mesh(self):
         """The :class:`.mesh.Mesh` over exactly these devices (pencil axis
-        ``p``).  Devices of more than one process raise
-        ``NotImplementedError``: a mesh whose ranks span processes is ROADMAP
-        Queue 1 item 17.1."""
-        from .mesh import Mesh
+        ``p``).  Devices of several processes build a mesh that spans them
+        (each process's ranks consecutive: the carve's interleaved order
+        regrouped by process, stably), which needs every process of the
+        group in the sub-mesh."""
+        from .mesh import Mesh, _this_process
 
-        return Mesh(list(self.devices))
+        me = _this_process()
+        return Mesh(sorted(self.devices, key=lambda d: int(getattr(d, "process_index", me))))
 
 
 @dataclasses.dataclass

@@ -298,7 +298,13 @@ class TensorSolver:
             (lam[:, None, None] + alpha) * dense_to_band(c1, _P, _Q)[None]
         lanes, n = band.shape[:2]
         band = pad_band(band, _P, padded(n, nranks), padded(lanes, nranks))
-        self.banded = BandedSolver(*band_lu_factor(band, _P, _Q), **kw)
+        lower, upper = band_lu_factor(band, _P, _Q)
+        if mesh is not None and mesh.spanning:
+            # this process's ranks' lanes (each lane's factors are its own)
+            per = lower.shape[0] // nranks
+            lanes = slice(mesh.rank0 * per, (mesh.rank0 + mesh.nlocal) * per)
+            lower, upper = lower[lanes], upper[lanes]
+        self.banded = BandedSolver(lower, upper, **kw)
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """rhs in ortho space -> solution in composite space; extra leading
@@ -332,7 +338,7 @@ class TensorSolver:
         out = _apply(self.fwd, rhs, -2)
         out = apply_along(self.matvec1, self.mesh.ring.x_to_y(out), -1)
         out = self.banded.solve(out, out.ndim - 1, factor_batch_stride=out.shape[-2],
-                                factor_batch_period=self.mesh.nranks)
+                                factor_batch_period=self.mesh.nlocal)
         return _apply(self.bwd, self.mesh.ring.y_to_x(out), -2)
 
     def kernels(self) -> list:
@@ -366,6 +372,7 @@ class FastDiag:
             denom = np.pad(denom, [(0, padded(n, nranks) - n) for n in denom.shape],
                            constant_values=1.0)
             denom = denom.reshape(nranks, -1, denom.shape[1])
+            denom = denom[mesh.rank0: mesh.rank0 + mesh.nlocal]  # this process's ranks
         self.denom = to_device(denom, **kw)
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:

@@ -605,8 +605,12 @@ def write_host_snapshot(snap: HostSnapshot, filename: str) -> None:
 def write_snapshot(model, filename: str, step: int | None = None) -> None:
     """Write a flow snapshot: :func:`snapshot_to_host`, then
     :func:`write_host_snapshot`.  ``step``, an optional run-step counter,
-    becomes a root attr."""
-    write_host_snapshot(snapshot_to_host(model, step=step), filename)
+    becomes a root attr.  On a mesh whose ranks span processes every
+    process gathers (collective) and the root alone writes."""
+    snap = snapshot_to_host(model, step=step)
+    if getattr(_pde_mesh(model), "spanning", False) and _process_index() != 0:
+        return
+    write_host_snapshot(snap, filename)
 
 
 def write_ensemble_snapshot(ens, filename: str, step: int | None = None) -> None:
@@ -844,16 +848,18 @@ class StateLeaf:
     def slabs(self) -> list:
         """``[(offset, numpy_block), ...]``: the leaf's distinct regions in
         global coordinates (one device-to-host copy of the leaf, then
-        views): the whole array, or each rank's owned columns."""
+        views): the whole array, or each rank's owned columns (this
+        process's ranks' on a mesh whose ranks span processes)."""
         host = self.tensor.detach().cpu().numpy()
         if self.space is None:
             return [((0,) * host.ndim, host)]
         n0, n1 = self.space.shape_spectral
         nranks, width = host.shape[-3], host.shape[-1]
+        rank0 = self.space.mesh.rank0  # a spanning mesh's first rank here
         zeros = (0,) * self.lead
         out = []
         for r in range(nranks):
-            c0, c1 = r * width, min((r + 1) * width, n1)
+            c0, c1 = (rank0 + r) * width, min((rank0 + r + 1) * width, n1)
             if c1 <= c0:
                 continue  # a rank that holds only padding
             block = host[..., r, :n0, : c1 - c0]
@@ -929,8 +935,13 @@ def _pde_mesh(pde):
 
 def sharded_snapshot_to_host(pde, step: int | None = None) -> ShardSnapshot:
     """Fetch THIS process's shard of a model's or an ensemble's snapshot to
-    the host (one device-to-host copy a leaf); no collective."""
+    the host (one device-to-host copy a leaf); no collective.  A model on a
+    mesh whose ranks span processes gives each process its own ranks'
+    slabs; a model every process holds whole, process 0 all of them."""
     proc = _process_index()
+    mesh = _pde_mesh(pde)
+    # a mesh whose ranks span processes: each writes its own ranks' slabs
+    spanning = bool(getattr(mesh, "spanning", False))
     datasets_meta: dict[str, dict] = {}
     slabs: list = []
     for name, leaf in pde.snapshot_state_items():
@@ -939,7 +950,7 @@ def sharded_snapshot_to_host(pde, step: int | None = None) -> ShardSnapshot:
         storage = _storage_names(name, dtype)
         datasets_meta[name] = {"shape": list(leaf.shape), "dtype": str(dtype),
                                "storage": storage}
-        if proc != 0:
+        if proc != 0 and not spanning:
             continue  # every process holds the whole model: the lowest owns it
         for offset, block in leaf.slabs():
             if len(storage) == 2:
@@ -947,7 +958,6 @@ def sharded_snapshot_to_host(pde, step: int | None = None) -> ShardSnapshot:
                 slabs.append((storage[1], offset, np.ascontiguousarray(block.imag)))
             else:
                 slabs.append((storage[0], offset, block))
-    mesh = _pde_mesh(pde)
     meta = {"datasets": datasets_meta,
             "mesh": {"process_count": _process_count(),
                      "devices": int(mesh.nranks) if mesh is not None else 1,

@@ -560,6 +560,10 @@ class ResilientRunner:
                  shard_crash: str | None = None, _store=None):
         from ..config import IOConfig
 
+        mesh = getattr(pde, "mesh", None) or getattr(getattr(pde, "model", None), "mesh", None)
+        if getattr(mesh, "spanning", False):
+            raise NotImplementedError("the resilient runner on a mesh whose ranks span "
+                                      "processes is not ported (ROADMAP Queue 1 item 17.1)")
         self.pde = pde
         self.max_time = float(max_time)
         self.save_intervall = save_intervall

@@ -1614,6 +1614,43 @@ def test_two_process_root_decides_on_the_card(tmp_path):
         assert res["flag_on_0"] is True and res["flag_on_1"] is False and res["on_card"]
 
 
+def _spanning_on_cards(tmp_path, layout):
+    """A mesh of 4 ranks over two processes (``tests/torch_mp_worker.py``,
+    mode ``spanning_card``): every flip bit for bit its plain version, 37
+    remote flips, one rank gather and 7 banded launches a step on each
+    process, and the 129^2 state after 10 captured steps bit for bit the
+    one-process ``make_mesh(4)`` run's on the card."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_mp_worker import spawn
+
+    results = spawn(str(tmp_path), "spanning_card", layout, timeout=240.0)
+    for rank, (rc, _, err, res) in enumerate(results):
+        assert rc == 0 and res is not None, err[-3000:]
+        assert len(res["flips"]) == 8 and all(res["flips"].values()), res["flips"]
+        assert res["launches"] == {"banded_solve": 70, "ring_transpose": 370, "ring_gather": 10}
+        assert res["device"] == f"cuda:{rank if layout == 'per_card' else 0}"
+    one = pt.Navier2D(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc", mesh=pt.make_mesh(4))
+    one.init_random(0.1, seed=0)
+    one.update_n(10)
+    want = pt.state_to_numpy(one)
+    got = np.load(os.path.join(str(tmp_path), "card.npz"))
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name], value, err_msg=name)
+
+
+def test_spanning_mesh_of_two_processes_on_one_card(device, tmp_path):
+    _spanning_on_cards(tmp_path, "shared")
+
+
+def test_spanning_mesh_with_a_card_a_process(device, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    _spanning_on_cards(tmp_path, "per_card")
+
+
 # -- serving (the scheduler, the warm pool) ------------------------------------------------------
 
 

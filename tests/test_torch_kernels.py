@@ -340,9 +340,12 @@ def test_signatures_match_the_c_parameter_types():
     """Each ctypes ``argtypes`` entry matches its C parameter: ``int`` ->
     c_int, ``long long`` -> c_longlong (the banded and pencil-transpose
     kernels' strides, which a 32-bit int would cut), a pointer -> c_void_p
-    (or the job struct)."""
+    (or the job or push struct, or the address of a pointer the call
+    sets)."""
     ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-             "const RpJob*": ctypes.POINTER(_build.RpJob)}
+             "const RpJob*": ctypes.POINTER(_build.RpJob),
+             "const RpPush*": ctypes.POINTER(_build.RpPush),
+             "void**": ctypes.POINTER(ctypes.c_void_p)}
     assert "banded_solve" in _build.KERNELS and "ring_transpose" in _build.KERNELS
     assert _build._SIGNATURES["ring_transpose"]["rp_ring_transpose_f64"] == \
         _build._SIGNATURES["ring_transpose"]["rp_ring_transpose_f32"]

@@ -70,6 +70,16 @@ def test_telemetry_gathers_across_processes(collectives):
     assert [res["metrics_file"] for res in collectives] == ["metrics.jsonl", "metrics.p1.jsonl"]
 
 
+def test_durable_park_of_two_processes_reads_back_whole_states(collectives):
+    """Each process of a fleet replica parks the whole member state it
+    holds (an odd 17^2 grid): both shards read back bit for bit, and the
+    slab calls without a spanning mesh leave whole arrays whole."""
+    for res in collectives:
+        assert res["park_equal"] and res["park_base"] == [11, 0.11]
+        assert res["park_shape"][0] % 2 == 1
+        assert res["whole_slab"] and res["whole_global"]
+
+
 @pytest.mark.parametrize("how", ["exited", "wedged"])
 def test_sync_hosts_with_a_dead_peer_raises_dispatch_hang(tmp_path, how):
     results = spawn(str(tmp_path), "dead_peer", how, timeout=DEADLINE_S)
@@ -188,13 +198,20 @@ def test_one_process_degrades_to_the_local_value():
     assert (dev.id, dev.process_index, dev.device) == (0, 0, "cpu")
 
 
-def test_a_mesh_of_another_process_raises_naming_item_17_1():
+def test_a_mesh_of_another_process_raises_naming_item_17_1(tmp_path):
+    """A mesh spans the processes of its group and none outside it: in one
+    process, a mesh naming process 1 raises; in a group of two, a mesh of
+    both processes' devices builds, spanning them, and one naming a third
+    process raises."""
     devs = [mh.HostDevice(0, 0, "cpu"), mh.HostDevice(1, 1, "cpu")]
-    with pytest.raises(NotImplementedError, match="17.1"):
+    with pytest.raises(NotImplementedError, match="group"):
         Mesh(devs)
-    with pytest.raises(NotImplementedError, match="17.1"):
+    with pytest.raises(NotImplementedError, match="group"):
         Mesh(devs[1:])
-    assert Mesh(devs[:1]).nranks == 1
+    assert Mesh(devs[:1]).nranks == 1 and not Mesh(devs[:1]).spanning
+    r0, r1 = _ok(spawn(str(tmp_path), "mesh_contract", timeout=DEADLINE_S))
+    assert r0["both"] == [2, 1, 0, True] and r1["both"] == [2, 1, 1, True]
+    assert r0["outside"] and "group" in r0["outside"] and r1["outside"]
 
 
 def test_the_sanitizer_parses_strictly_and_records_nothing_disarmed():

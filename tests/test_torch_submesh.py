@@ -5,6 +5,8 @@ planners are integer logic: the comparison is exact."""
 
 import dataclasses
 import itertools
+import os
+import sys
 
 import pytest
 
@@ -14,6 +16,9 @@ from rustpde_mpi_tpu.parallel import submesh as jsm
 from rustpde_mpi_tpu_torch.config import SubmeshConfig
 from rustpde_mpi_tpu_torch.parallel import multihost as mh
 from rustpde_mpi_tpu_torch.parallel import submesh as tsm
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_mp_worker import spawn  # noqa: E402
 
 GRIDS = [(17, 17), (33, 32), (34, 34), (64, 66), (129, 129), (257, 257), (258, 258), (513, 514),
          (1025, 1025), (1026, 1026)]
@@ -74,10 +79,17 @@ def test_serve_keys_as_jax(shape):
     assert tsm.key_shape(skey) == jsm.key_shape(skey) == shape
 
 
-def test_a_carved_submesh_of_this_process_builds_a_mesh():
+def test_a_carved_submesh_of_this_process_builds_a_mesh(tmp_path):
     plan = tsm.carve(mh.global_devices("cpu"), (1,))
     assert plan.submeshes == () and plan.default.shape == 1
     assert plan.default.mesh().nranks == 1
+    # a sub-mesh of two processes' devices spans them: it builds in a group
+    # of the two (a worker pair), and raises in this lone process, whose
+    # group holds no process 1
     spanning = tsm.carve(_devices(2, 1), (2,)).by_shape(2)
-    with pytest.raises(NotImplementedError, match="17.1"):
+    with pytest.raises(NotImplementedError, match="group"):
         spanning.mesh()
+    results = spawn(str(tmp_path), "mesh_contract", timeout=45.0)
+    for rank, (rc, _, err, res) in enumerate(results):
+        assert rc == 0 and res is not None, err[-3000:]
+        assert res["carved"] == [2, 1, rank, True]

@@ -1,6 +1,6 @@
 """One process of a two-process job of the port, for the CPU tests
 (``tests/test_torch_multihost.py``, ``tests/test_torch_sharded_ckpt.py``,
-``tests/test_torch_serve.py``).
+``tests/test_torch_serve.py``, ``tests/test_torch_spanning_mesh.py``).
 
     python tests/torch_mp_worker.py <port> <rank> <nproc> <out_dir> <mode> [arg]
 
@@ -100,7 +100,29 @@ def mode_collectives(mh, rank, arg):
         "from_1": int(mh.broadcast(np.int32(100 + rank), is_source=rank == 1)),
         "devices": [str(d) for d in mh.global_devices("cpu")],
         **_telemetry(rank),
+        **_durable_park(mh, rank),
     }
+
+
+def _durable_park(mh, rank):
+    """A fleet replica's durable park on both processes: each holds a whole
+    17^2 member state (its own), writes it as a continuation and reads it
+    back; the slab calls without a spanning mesh give whole arrays."""
+    import torch
+
+    from rustpde_mpi_tpu_torch.utils import checkpoint
+
+    model = _model()
+    state = type(model.state)(*(x * (1.0 + rank) for x in model.state))
+    cont = os.path.join(sys.argv[4], "parked")
+    checkpoint.write_continuation(cont, state, base=11, time_base=0.11, meta={"id": "m"})
+    got, base, time_base = checkpoint.read_continuation(cont, state)
+    return {"park_equal": all(bool(torch.equal(a, b)) for a, b in zip(got, state)),
+            "park_base": [base, time_base],
+            "park_shape": list(state.temp.shape),
+            "whole_slab": bool(np.array_equal(mh.host_local_array(state.temp),
+                                              state.temp.numpy())),
+            "whole_global": mh.global_array(state.temp) is state.temp}
 
 
 def _telemetry(rank):
@@ -355,6 +377,229 @@ def mode_gang_serve(mh, rank, arg):
     reqs = [dict(SERVE_REQ, nx=34, ny=34, horizon=0.08, seed=100)] + \
         [dict(SERVE_REQ, nx=18, ny=18, horizon=0.06, seed=s) for s in range(2)]
     return _served(rank, reqs, slots=2, submesh=SubmeshConfig(shapes=(2,), shard_min_nx=34))
+
+
+#: the spanning-mesh cells: 4 ranks over the processes, the confined cell at
+#: 17^2 and the periodic one at 16x17
+SPAN_RANKS = 4
+SPAN_CELLS = {"confined": dict(nx=17, ny=17, periodic=False),
+              "periodic": dict(nx=16, ny=17, periodic=True)}
+SPAN_MODEL = dict(ra=1e4, pr=1.0, dt=0.01, aspect=1.0, bc="rbc")
+SPAN_STEPS = 5
+
+
+def span_model(cell, mesh):
+    """A model of a spanning-mesh cell on ``mesh`` (the CPU), its state
+    set from the trigonometric fields."""
+    import rustpde_mpi_tpu_torch as pt
+
+    c = SPAN_CELLS[cell]
+    model = pt.Navier2D(c["nx"], c["ny"], *SPAN_MODEL.values(), periodic=c["periodic"],
+                        device="cpu", mesh=mesh)
+    model.set_velocity(0.1, 1.0, 1.0)
+    model.set_temperature(0.1, 1.0, 1.0)
+    model.write_intervall = 1e9
+    return model
+
+
+def _span_flips(mesh, one):
+    """Every flip of real and complex pencils, one state and K = 3
+    members, both directions: the spanning mesh's local blocks against the
+    one-process mesh's blocks of this process's ranks."""
+    import torch
+
+    from rustpde_mpi_tpu_torch.parallel import Decomp2d
+
+    rng = np.random.default_rng(3)
+    out = {}
+    lo, hi = mesh.rank0, mesh.rank0 + mesh.nlocal
+    for dtype in (torch.float64, torch.complex128, torch.float32, torch.complex64):
+        for members in (0, 3):
+            for x_to_y in (True, False):
+                shape = (13, 22)
+                values = rng.standard_normal((max(members, 1),) + shape)
+                if dtype.is_complex:
+                    values = values + 1j * rng.standard_normal(values.shape)
+                place = "place_x_pencil" if x_to_y else "place_y_pencil"
+                span = [getattr(Decomp2d(shape, mesh), place)(v, dtype) for v in values]
+                full = [getattr(Decomp2d(shape, one), place)(v, dtype) for v in values]
+                span = torch.stack(span) if members else span[0]
+                full = torch.stack(full) if members else full[0]
+                got = mesh.ring.apply(span, x_to_y)
+                want = one.ring.apply(full, x_to_y)[..., lo:hi, :, :]
+                out[f"{dtype}_{members}_{x_to_y}"] = bool(torch.equal(got, want))
+    return out
+
+
+def _span_collectives(mh, mesh, one):
+    import torch
+
+    from rustpde_mpi_tpu_torch.parallel import decomp
+
+    a = np.random.default_rng(7).standard_normal((16, 24))
+    span, full = decomp.Decomp2d(a.shape, mesh), decomp.Decomp2d(a.shape, one)
+    out = {}
+    for pencil in ("x", "y"):
+        s, f = decomp.scatter_root(a, span, pencil), decomp.scatter_root(a, full, pencil)
+        out[f"place_{pencil}"] = bool(torch.equal(s, f[mesh.rank0: mesh.rank0 + mesh.nlocal]))
+        out[f"gather_{pencil}"] = bool(np.array_equal(decomp.gather_root(s, span, pencil), a))
+        out[f"global_array_{pencil}"] = bool(torch.equal(mh.global_array(s, mesh), f))
+        out[f"host_local_{pencil}"] = bool(np.array_equal(mh.host_local_array(f, mesh),
+                                                          s.numpy()))
+    y = decomp.scatter_root(a, span, "y")
+    out["sum"] = float(decomp.all_gather_sum(y, mesh))
+    out["sum_one"] = float(decomp.all_gather_sum(decomp.scatter_root(a, full, "y"), one))
+    members = torch.stack([y, 2.0 * y])
+    out["sum_members"] = decomp.all_gather_sum(members, mesh, 1).tolist()
+    out["max"] = float(decomp.all_gather_max(y, mesh))
+    per_rank = torch.tensor([2.5 + 4.0 * mesh.rank0 + r for r in range(mesh.nlocal)],
+                            dtype=torch.float64)
+    out["broadcast_rank0"] = float(decomp.broadcast_scalar(per_rank, mesh))
+    out["broadcast_host"] = float(decomp.broadcast_scalar(3.25, mesh))
+    return out
+
+
+def mode_spanning(mh, rank, arg):
+    """A mesh of 4 ranks over the processes on the CPU: the flips, the
+    collectives and the layout calls against the one-process mesh; 5 steps
+    of each cell's model (the global states and observables written by
+    rank 0 for the parent's comparisons); a chunk of ``update_n`` against
+    eager steps; a NaN on rank 1's ranks alone under the sentinels; a
+    sharded checkpoint of both processes and a gathered snapshot through
+    the root."""
+    import torch
+
+    import rustpde_mpi_tpu_torch as pt
+    from rustpde_mpi_tpu_torch.parallel import make_mesh
+    from rustpde_mpi_tpu_torch.utils import checkpoint
+
+    mh.set_sync_timeout(30.0)
+    out_dir = sys.argv[4]
+    mesh = mh.global_pencil_mesh(SPAN_RANKS // mh.process_count(), "cpu")
+    one = make_mesh(SPAN_RANKS, "cpu")
+    out = {"mesh": [mesh.nranks, mesh.nlocal, mesh.rank0, mesh.spanning, repr(mesh)],
+           "flips": _span_flips(mesh, one), "collectives": _span_collectives(mh, mesh, one)}
+    for cell in SPAN_CELLS:
+        model = span_model(cell, mesh)
+        out[f"{cell}_shape"] = list(model.state.temp.shape)
+        out[f"{cell}_kernels"] = sorted(model.kernels())
+        model.update_n(SPAN_STEPS)
+        state = pt.state_to_numpy(model)
+        obs = [float(v) for v in model.get_observables()]
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{cell}.npz"), obs=np.asarray(obs), **state)
+    # a chunk of update_n against as many eager steps
+    chunked, eager = span_model("confined", mesh), span_model("confined", mesh)
+    chunked.update_n(SPAN_STEPS)
+    for _ in range(SPAN_STEPS):
+        eager.update()
+    out["chunk_equals_eager"] = all(bool(torch.equal(a, b))
+                                    for a, b in zip(chunked.state, eager.state))
+    # the checkpoints of the stepped confined model
+    chunked.write(os.path.join(out_dir, "snapshot.h5"))
+    checkpoint.write_sharded_snapshot(chunked, os.path.join(out_dir, "sharded.h5"), step=5)
+    # a NaN on this process's ranks alone (rank 1), under the sentinels and
+    # in a plain chunk: both processes freeze at the same step
+    model = span_model("confined", mesh)
+    model.update_n(2)
+    if rank == 1:
+        temp = model.state.temp.clone()
+        temp[0, 3, 1] = float("nan")
+        model.state = model.state._replace(temp=temp)
+    start = model.state
+    model.set_stability(pt.StabilityConfig())
+    status = model.update_n(SPAN_STEPS)
+    out["nan_sentinels"] = [status.steps_done, status.finite]
+    model.set_stability(None)
+    model.state = start
+    model.update_n(SPAN_STEPS)
+    runner = model.chunk_runner(armed=False)
+    nf = len(model.state)
+    out["nan_plain"] = [int(runner.carry[nf + 1]), bool(runner.carry[nf])]
+    out["not_ported"] = _span_not_ported(pt, mesh, span_model("confined", mesh), out_dir)
+    mesh.close()
+    return out
+
+
+def _span_not_ported(pt, mesh, model, out_dir):
+    """What waits for later work raises on a spanning mesh: an ensemble,
+    the resilient runner, the statistics and a flip's backward."""
+    import torch
+
+    block = torch.zeros((mesh.nlocal, 8, 2), dtype=torch.float64, requires_grad=True)
+    cases = {"ensemble": lambda: pt.NavierEnsemble(model, [model.state]),
+             "runner": lambda: pt.ResilientRunner(model, 0.1, run_dir=os.path.join(out_dir, "r")),
+             "stats": lambda: model.set_stats(pt.StatsConfig()),
+             "backward": lambda: mesh.ring.apply(block, True).sum().backward()}
+    out = {}
+    for name, call in cases.items():
+        try:
+            call()
+            out[name] = None
+        except NotImplementedError as exc:
+            out[name] = str(exc)
+    return out
+
+
+def mode_spanning_card(mh, rank, arg):
+    """A spanning mesh of 4 ranks on the card (``arg``: ``shared``, every
+    process on card 0; ``per_card``, process ``p`` on card ``p``): the
+    remote flip bit for bit against its plain version, real and complex,
+    one state and K = 2 members; 10 captured steps of a 129^2 model with
+    their launches (rank 0 writes the global state)."""
+    import torch
+
+    import rustpde_mpi_tpu_torch as pt
+
+    device = torch.device("cuda", rank if arg == "per_card" else 0)
+    torch.cuda.set_device(device)
+    mh.set_sync_timeout(60.0)
+    mesh = mh.global_pencil_mesh(SPAN_RANKS // mh.process_count(), device)
+    rng = np.random.default_rng(rank)
+    flips = {}
+    for dtype in (torch.float64, torch.complex128):
+        for shape in ((mesh.nlocal, 132, 33), (2, mesh.nlocal, 132, 33)):
+            for x_to_y in (True, False):
+                block = torch.as_tensor(rng.standard_normal(shape), device=device).to(dtype)
+                if not x_to_y:
+                    block = block.reshape(*shape[:-2], 33, 132).contiguous()
+                out = mesh.ring.apply(block, x_to_y)
+                flips[f"{dtype}_{len(shape)}_{x_to_y}"] = bool(
+                    torch.equal(out, mesh.ring.plain(block, x_to_y)))
+    model = pt.Navier2D(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc", mesh=mesh)
+    model.init_random(0.1, seed=0)
+    model.chunk_runner(armed=False)
+    for ks in model.kernels().values():
+        for k in ks:
+            k.launches = 0
+    model.update_n(10)
+    launches = {name: sum(k.launches for k in ks) for name, ks in model.kernels().items()}
+    state = pt.state_to_numpy(model)
+    if rank == 0:
+        np.savez(os.path.join(sys.argv[4], "card.npz"), **state)
+    torch.cuda.synchronize()
+    mesh.close()
+    return {"flips": flips, "launches": launches, "device": str(mesh.device)}
+
+
+def mode_mesh_contract(mh, rank, arg):
+    """The meshes of a group of processes: every process's device, and a
+    carved sub-mesh of both, build a mesh that spans them; one that names a
+    process outside the group raises."""
+    from rustpde_mpi_tpu_torch.parallel import submesh
+    from rustpde_mpi_tpu_torch.parallel.mesh import Mesh
+
+    devices = mh.global_devices("cpu")
+    both = Mesh(devices)
+    carved = submesh.carve(devices, (2,)).by_shape(2).mesh()
+    try:
+        Mesh(devices + [mh.HostDevice(2, 2, "cpu")])
+        outside = None
+    except NotImplementedError as exc:
+        outside = str(exc)
+    return {"both": [both.nranks, both.nlocal, both.rank0, both.spanning],
+            "carved": [carved.nranks, carved.nlocal, carved.rank0, carved.spanning],
+            "outside": outside}
 
 
 def main():
