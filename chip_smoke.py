@@ -391,6 +391,28 @@ launch of a step serving all K members:
     ``PARITY.json``); a NaN on the last process's ranks freezing every
     process at the same step, each spawn under its own deadline.  The
     ``kernels`` line gains the remote flip's entry (``ring_push``).
+38. the paths of a model whose mesh spans 2 processes x 2 ranks on the one
+    card (and, on a machine of several cards, a card a process: 4 x 1 on
+    four cards, held by phase 37's one-ulp-scaled rule), through the
+    entry points a user calls, each beside the same path
+    on the one-process ``make_mesh(4)`` run here first: meshed ``rbc1025``
+    with its statistics at stride 16 over 100 steps (the running sums bit
+    for bit); ``NavierEnsemble`` of 2 seeded members over 50 steps (every
+    member bit for bit, the digests equal, 37 flips, 1 rank gather and 7
+    banded launches a step); ``ResilientRunner`` over 200 steps with a NaN
+    on rank 1's process at step 100 (checkpoints in the in-memory store:
+    the journal's event types in order and the recovered state bit for bit
+    the one-process runner's, and that state bit for bit a clean run at
+    dt/2); ``grad_autodiff`` of the linearised model at 129^2 over 50 steps
+    (rel 1e-12 of the one-process mesh's, the flip and banded launches
+    forward and backward exactly phase 30b's).  Every remote flip and
+    banded solve the new paths launch (the member axis, the statistics'
+    gathers, the digests' gathers, the backward flips and the banded
+    backward) is logged at its shape and held against its plain version on
+    random values (flips bit for bit, banded solves 1e-12 of each lane's
+    scale).  Each path's ms/step or wall beside the one-process run's; the
+    launches of each path on earlier lines and in the ``kernels`` line
+    (``span_paths_launches`` of the remote flip's and the banded entry).
 
 The serving phases keep campaign checkpoints in the runner's in-memory
 store where ``h5py`` does not import, and parked continuations as
@@ -4079,10 +4101,12 @@ def phase_sh(torch, pt, card):
             raise AssertionError(f"{label}: card vs CPU rel {rel:.3e}")
 
 
-def grad_model(pt, route, device):
-    """The linearised model of phase 29d's gradients on ``route``."""
+def grad_model(pt, route, device, mesh=None):
+    """The linearised model of phase 29d's gradients on ``route`` (on
+    ``mesh``, when given, for the meshed route)."""
     cfg = WORKLOADS129
-    place = {"mesh": pt.make_mesh(MESH_RANKS, device)} if route == "mesh" else {"device": device}
+    place = {"mesh": mesh or pt.make_mesh(MESH_RANKS, device)} if route == "mesh" else \
+        {"device": device}
     model = pt.Navier2DLnse(cfg["nx"], cfg["ny"], cfg["ra"], cfg["pr"], 2e-3, cfg["aspect"],
                             cfg["bc"], mean=pt.MeanFields.new_rbc(cfg["nx"], cfg["ny"],
                                                                   device="cpu"), **place)
@@ -6736,10 +6760,11 @@ def spanning_child(torch, pt, mh, args, device) -> dict:
     return out
 
 
-def span_spawn(label, nproc, per_card, timed, work) -> list:
-    """Run ``nproc`` children of :data:`CHILD_37` as one job under
-    ``SPAN_TIMEOUT_S``; every child still alive then is killed.  Returns
-    their records in rank order, raising on a child that failed."""
+def span_spawn(label, nproc, per_card, timed, work, child=None, phase="37") -> list:
+    """Run ``nproc`` children of ``child`` (:data:`CHILD_37` by default) as
+    one job under ``SPAN_TIMEOUT_S``; every child still alive then is
+    killed.  Returns their records in rank order, raising on a child that
+    failed."""
     s = socket.socket()
     s.bind(("localhost", 0))
     port = s.getsockname()[1]
@@ -6748,7 +6773,7 @@ def span_spawn(label, nproc, per_card, timed, work) -> list:
     for rank in range(nproc):
         args = {"root": ROOT, "rank": rank, "nproc": nproc, "port": port, "work": work,
                 "label": label, "per_card": per_card, "timed": timed, "sync_s": SPAN_SYNC_S}
-        procs.append(subprocess.Popen([sys.executable, "-c", CHILD_37, json.dumps(args)],
+        procs.append(subprocess.Popen([sys.executable, "-c", child or CHILD_37, json.dumps(args)],
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
     t_end = time.monotonic() + SPAN_TIMEOUT_S
@@ -6769,7 +6794,7 @@ def span_spawn(label, nproc, per_card, timed, work) -> list:
     for rank, (rc, out, err) in enumerate(outs):
         lines = [ln for ln in out.splitlines() if ln.startswith("{")]
         if rc != 0 or not lines:
-            raise AssertionError(f"37: {label} child {rank} rc={rc}:\n{out[-2000:]}\n"
+            raise AssertionError(f"{phase}: {label} child {rank} rc={rc}:\n{out[-2000:]}\n"
                                  f"{err[-4000:]}")
         results.append(json.loads(lines[-1]))
     return results
@@ -6904,6 +6929,394 @@ def phase37(torch, pt, card, one_flips) -> dict:
     return summary
 
 
+# -- the paths of a mesh whose ranks span processes (phase 38) ---------------------------
+
+#: phase 38 at meshed ``rbc1025`` on 2 processes x 2 ranks: the statistics'
+#: steps (at ``STATS_STRIDE``), the ensemble's members and steps, the
+#: runner's steps at dt and the step of its NaN (rank 1's process poisons
+#: its ranks; the one-process run every rank); the gradient at 129^2 runs
+#: ``GRAD_STEPS`` steps and is held to ``SPAN_LIMIT`` (relative)
+SPAN38_STATS_STEPS = 100
+SPAN38_MEMBERS = 2
+SPAN38_ENS_STEPS = 50
+SPAN38_RUN_STEPS = 200
+SPAN38_NAN_STEP = 100
+#: the paths' kernels: a logged banded input against its plain version on
+#: random values, of each lane's scale
+SPAN38_BANDED_LIMIT = 1e-12
+
+CHILD_38 = CHILD_37.replace("cs.spanning_child", "cs.span_paths_child")
+
+
+def span38_logged(torch, fn):
+    """``fn()`` with every flip of a spanning ring it makes counted by
+    ``(shape, x_to_y, dtype)`` (forward and backward) and the first input of
+    every banded solve kept by kernel and view shape: ``(result, flips,
+    solves)``, ``solves[key] = [kernel, input, stride, period, count]``."""
+    from rustpde_mpi_tpu_torch.ops.banded_solve import BandedSolve
+    from rustpde_mpi_tpu_torch.ops.ring_transpose import SpanningRing
+
+    flips, solves = {}, {}
+    flip, apply = SpanningRing.flip, BandedSolve.apply
+
+    def log_flip(ring, block, x_to_y):
+        key = (tuple(block.shape), bool(x_to_y), str(block.dtype).replace("torch.", ""))
+        flips[key] = flips.get(key, 0) + 1
+        return flip(ring, block, x_to_y)
+
+    def log_apply(kernel, b, stride=0, period=0):
+        key = (id(kernel), tuple(b.shape), int(stride), int(period))
+        if key not in solves:
+            solves[key] = [kernel, b.detach().clone(), int(stride), int(period), 0]
+        solves[key][4] += 1
+        return apply(kernel, b, stride, period)
+
+    SpanningRing.flip, BandedSolve.apply = log_flip, log_apply
+    try:
+        return fn(), flips, solves
+    finally:
+        SpanningRing.flip, BandedSolve.apply = flip, apply
+
+
+def span38_banded_checks(torch, solves, backward_of, what) -> list:
+    """Each logged banded solve's kernel on random values of its input's
+    shape against its plain version (``SPAN38_BANDED_LIMIT`` of each
+    lane's scale, one launch); ``backward_of``: the kernels that are some
+    forward kernel's transposed factors."""
+    import numpy as np
+
+    rng = np.random.default_rng(38)
+    records = []
+    for kernel, b, stride, period, count in solves.values():
+        r = torch.as_tensor(rng.uniform(-1.0, 1.0, size=tuple(b.shape)), dtype=b.dtype,
+                            device=b.device)
+        before = kernel.launches
+        out = kernel.apply(r, stride, period)
+        torch.cuda.synchronize()
+        diff, rel = lane_rel_err(torch, out, kernel.plain(r, stride, period), -2)
+        rec = {"kernel": "banded_solve", "what": what, "shape": list(b.shape), "stride": stride,
+               "period": period, "backward": any(kernel is k for k in backward_of),
+               "per_run": count, "max_abs_err": diff, "max_rel_err": rel}
+        if not rel <= SPAN38_BANDED_LIMIT or kernel.launches != before + 1:
+            raise AssertionError(f"38: banded solve {what} {rec} beyond {SPAN38_BANDED_LIMIT:g} "
+                                 "of a lane's scale, or it did not launch once")
+        records.append(rec)
+    return records
+
+
+def span38_ensemble_arrays(ens) -> dict:
+    """Every member's fields as global arrays (a collective on a spanning
+    mesh)."""
+    import numpy as np
+
+    out = {}
+    for name, space in ens.model._state_fields():
+        leaf = getattr(ens.state, name)
+        out[name] = np.stack([space.gather_spectral(leaf[i]).cpu().numpy()
+                              for i in range(ens.k)])
+    return out
+
+
+def span38_paths(torch, pt, mh, mesh, run_dir, fault, check, nudge=False) -> tuple:
+    """Phase 38's four paths on ``mesh`` (a spanning mesh in a child, the
+    one-process ``make_mesh(4)`` in the parent): ``(records, arrays)``,
+    the records each path's ms and launches, the arrays the global ones the
+    parent compares.  ``check``: log every flip and banded solve the paths
+    launch and hold each against its plain version (a spanning mesh).
+    ``nudge``: the three ``rbc1025`` paths from starts moved by one ulp
+    (x (1 + 2^-52)), the one-process run's own sensitivity, and no
+    gradient."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.utils import resilience
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    def moved(state):
+        return type(state)(*(x * (1.0 + 2.0**-52) for x in state)) if nudge else state
+
+    rec, arrays, logs = {}, {}, []
+    model = pt.Navier2D(**RBC1025, mesh=mesh)
+    model.init_random(0.1, seed=0)
+    model.write_intervall = 1e9
+    model.state = start = moved(model.state)
+
+    def logged(what, fn, pde):
+        """``fn()``, its flips and banded solves logged for the checks,
+        which run after every path's launches were read."""
+        if not check:
+            return fn()
+        out, flips, solves = span38_logged(torch, fn)
+        backs = [k._transposed for k in pde.kernels().get("banded_solve", [])
+                 if k._transposed is not None]
+        logs.append((what, flips, solves, backs))
+        return out
+
+    # the statistics at stride 16
+    logged("stats_sample", lambda: model.set_stats(pt.StatsConfig(stride=STATS_STRIDE)), model)
+    model.chunk_runner(armed=False, stats=True)
+    reset_counts(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.update_n(SPAN38_STATS_STEPS)
+    torch.cuda.synchronize()
+    rec["stats_ms"] = (time.perf_counter() - t0) / SPAN38_STATS_STEPS * 1e3
+    rec["stats_launches"] = count_launches(model)
+    arrays.update({f"stats_{n}": getattr(model.stats_state, n).cpu().numpy()
+                   for n in model.stats_state._fields})
+    model.set_stats(None)
+    # the ensemble, with its digests
+    model.state, model.time = start, 0.0
+    ens = pt.NavierEnsemble.from_seeds(model, range(SPAN38_MEMBERS))
+    ens.state = moved(ens.state)
+    ens.set_integrity(pt.IntegrityConfig())
+    with torch.no_grad():
+        logged("ensemble_step", lambda: model._step(ens.state), model)
+    logged("ensemble_digest", lambda: ens.state_digest_async().result(), model)
+    ens.chunk_runner()
+    reset_counts(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens.update_n(SPAN38_ENS_STEPS)
+    torch.cuda.synchronize()
+    rec["ensemble_ms"] = (time.perf_counter() - t0) / SPAN38_ENS_STEPS * 1e3
+    rec["ensemble_launches"] = count_launches(model)
+    arrays.update({f"ens_{k}": v for k, v in span38_ensemble_arrays(ens).items()})
+    arrays["ens_digest"] = np.asarray(ens.state_digest_async().result()).astype(np.int64)
+    rec["alive"] = ens.alive().tolist()
+    model.set_integrity(None)  # the ensemble armed it on its template model
+    del ens
+    # the runner, a NaN at step SPAN38_NAN_STEP, checkpoints in memory; the
+    # break check unlagged in both runs (a run of several processes never
+    # lags it: one process would otherwise step a chunk past the NaN)
+    model.state, model.time = type(start)(*(t.clone() for t in start)), 0.0
+    runner = pt.ResilientRunner(model, max_time=SPAN38_RUN_STEPS * model.dt, run_dir=run_dir,
+                                fault=fault, checkpoint_every_s=None,
+                                io=pt.IOConfig(overlap_dispatch=False),
+                                _store=resilience._MemoryStore(run_dir))
+    reset_counts(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = runner.run()
+    torch.cuda.synchronize()
+    rec["runner_s"] = time.perf_counter() - t0
+    rec["runner_launches"] = count_launches(model)
+    rec["runner"] = {k: summary[k] for k in ("outcome", "step", "dt", "retries")}
+    rec["events"] = [e["event"] for e in read_journal(runner.journal_path)
+                     if e["event"] not in CLOCKED_EVENTS] if mh is None or mh.is_root() else None
+    arrays.update({f"run_{k}": v for k, v in pt.state_to_numpy(model).items()})
+    del runner, model, start
+    torch.cuda.empty_cache()
+    if nudge:
+        return rec, arrays
+    # the linearised model's gradient at 129^2
+    grad = grad_model(pt, "mesh", CARD, mesh=mesh)
+    ring = mesh.ring
+    reset_counts(grad)
+    ring.backward_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val, grads = logged("gradient", lambda: grad.grad_autodiff(GRAD_STEPS * grad.dt), grad)
+    torch.cuda.synchronize()
+    rec["grad_s"] = time.perf_counter() - t0
+    rec["grad_launches"] = {"flips_forward": ring.launches - ring.backward_launches,
+                            "flips_backward": ring.backward_launches,
+                            "banded_forward": count_launches(grad)["banded_solve"],
+                            "banded_backward": transposed_launches(grad)}
+    arrays["grad_value"] = np.asarray(val)
+    arrays.update({f"grad_{i}": g for i, g in enumerate(grads)})
+    rec["kernels"] = []
+    for what, flips, solves, backs in logs:
+        rec["kernels"] += span_flip_checks(torch, mh, mesh, flips, what, False, None)
+        rec["kernels"] += span38_banded_checks(torch, solves, backs, what)
+    del grad, logs
+    torch.cuda.empty_cache()
+    return rec, arrays
+
+
+def span_paths_child(torch, pt, mh, args, device) -> dict:
+    """One process of phase 38 (:data:`CHILD_38`): the paths on its ranks of
+    the spanning mesh, every new launch held against its plain version;
+    rank 0 writes the global arrays to ``args["work"]``."""
+    import numpy as np
+
+    mesh = mh.global_pencil_mesh(MESH_RANKS // args["nproc"], device)
+    rec, arrays = span38_paths(torch, pt, mh, mesh,
+                               os.path.join(args["work"], f"{args['label']}_run"),
+                               f"nan@{SPAN38_NAN_STEP}:host1", True)
+    if args["rank"] == 0:
+        np.savez(os.path.join(args["work"], f"{args['label']}_paths.npz"), **arrays)
+    torch.cuda.synchronize()
+    mesh.close()
+    return dict(rec, rank=args["rank"])
+
+
+#: the steps behind each path's arrays, which scale a lone-rank layout's
+#: one-ulp limit (as phase 37's rule: at least ``ULP_STEPS_FACTOR``)
+SPAN38_ULP_STEPS = {"stats_": SPAN38_STATS_STEPS, "ens_": SPAN38_ENS_STEPS,
+                    "run_": 2 * SPAN38_RUN_STEPS}
+
+
+def span38_rel(a, b) -> float:
+    import numpy as np
+
+    return float(np.max(np.abs(a - b))) / max(float(np.max(np.abs(b))), 1e-300)
+
+
+def span38_limits(want, ulp) -> dict:
+    """Each ``rbc1025`` array's limit where a process holds one rank (lone
+    GEMMs round apart from the one-process mesh's batched ones, ROADMAP
+    Queue 3 item 4): the larger of ``SPAN_LIMIT`` and the path's steps (at
+    least ``ULP_STEPS_FACTOR``) times the one-process run's own one-ulp
+    sensitivity (``ulp``, the paths from starts moved by one ulp)."""
+    out = {}
+    for k, w in want.items():
+        prefix = next((p for p in SPAN38_ULP_STEPS if k.startswith(p)), None)
+        if prefix is not None and k in ulp and k != "ens_digest":
+            factor = max(ULP_STEPS_FACTOR, SPAN38_ULP_STEPS[prefix])
+            out[k] = max(SPAN_LIMIT, factor * span38_rel(ulp[k], w))
+    return out
+
+
+def span38_layout(label, results, got, ref, want, clean, card, limits=None) -> None:
+    """Phase 38's checks of one layout: its children's ``results``, rank
+    0's global arrays ``got`` against the one-process paths' ``ref``/
+    ``want`` and the clean run at dt/2 (``clean``): bit for bit, or, for a
+    layout of one rank a process, within ``limits`` (:func:`span38_limits`;
+    the digests then differ with the bits and are not compared)."""
+    import numpy as np
+
+    if limits is None:
+        exact = {k: bool(np.array_equal(got[k], want[k])) for k in want}
+        clean_exact = all(np.array_equal(got[f"run_{f}"], v) for f, v in clean.items())
+    else:
+        rels = {k: span38_rel(got[k], want[k]) for k in limits}
+        print(f"phase38 {label} one rank a process, each array against the one-process run "
+              f"over its scale: {json.dumps(rels)}; limits (the larger of {SPAN_LIMIT:g} and "
+              f"the steps x the one-ulp sensitivity): {json.dumps(limits)}")
+        exact = {k: (rels[k] <= limits[k] if k in limits else
+                     k == "ens_digest" or bool(np.array_equal(got[k], want[k]))) for k in want}
+        clean_exact = all(span38_rel(got[f"run_{f}"], v) <= limits[f"run_{f}"]
+                          for f, v in clean.items())
+    grad_rel = max(span38_rel(got[k], want[k]) for k in want if k.startswith("grad_"))
+    for r in results:
+        for kr in r["kernels"]:
+            print(f"phase38 {label} rank {r['rank']} " + json.dumps(kr))
+    per = {"stats": f"ms/step over {SPAN38_STATS_STEPS} steps with statistics (stride "
+                    f"{STATS_STRIDE})",
+           "ensemble": f"ms/step of K = {SPAN38_MEMBERS} over {SPAN38_ENS_STEPS} steps",
+           "runner": f"s of the runner's {SPAN38_RUN_STEPS} steps with the NaN at step "
+                     f"{SPAN38_NAN_STEP} and the rerun at dt/2",
+           "grad": f"s of grad_autodiff at 129^2 over {GRAD_STEPS} steps"}
+    for path, what in per.items():
+        key = f"{path}_ms" if path in ("stats", "ensemble") else f"{path}_s"
+        print(f"phase38 {label} {path}: " + ", ".join(f"rank {r['rank']} {r[key]:.4f}"
+                                                      for r in results)
+              + f" against the one-process make_mesh({MESH_RANKS}) {ref[key]:.4f} ({what}; "
+              f"{card}); launches a process {results[0][f'{path}_launches']} (one process "
+              f"{ref[f'{path}_launches']})")
+    rule = "bit for bit" if limits is None else "within the limits"
+    print(f"phase38 {label} {rule} against the one-process paths: "
+          f"{json.dumps({k: v for k, v in exact.items() if not k.startswith('grad_')})}; "
+          f"gradient rel {grad_rel:.3e} (limit {SPAN_LIMIT:g}); the recovered state against the "
+          f"clean run at dt/2: {rule} {clean_exact}; runner {results[0]['runner']} events "
+          f"{results[0]['events']}")
+    samples = SPAN38_STATS_STEPS // STATS_STRIDE
+    sample_flips = sum(k["per_step"] for k in results[0]["kernels"]
+                       if k.get("cell") == "stats_sample")
+    want_stats = {"ring_transpose": PER_STEP["mesh"]["ring_transpose"] * SPAN38_STATS_STEPS
+                  + sample_flips * samples,
+                  "ring_gather": SPAN38_STATS_STEPS,
+                  "banded_solve": PER_STEP["mesh"]["banded_solve"] * SPAN38_STATS_STEPS}
+    want_ens = {k: v * SPAN38_ENS_STEPS for k, v in PER_STEP["mesh"].items()}
+    want_ens["ring_gather"] = SPAN38_ENS_STEPS
+    want_grad = {"flips_forward": GRAD_FLIPS_FWD[0] + GRAD_FLIPS_FWD[1] * GRAD_STEPS,
+                 "flips_backward": GRAD_FLIPS_BWD[0] + GRAD_FLIPS_BWD[1] * GRAD_STEPS,
+                 "banded_forward": GRAD_STEPS * (PER_STEP["dense"]["banded_solve"]
+                                                 + GRAD_RECOMPUTED_SOLVES),
+                 "banded_backward": GRAD_STEPS * PER_STEP["dense"]["banded_solve"]}
+    for r in results:
+        for path, want_n in (("stats", want_stats), ("ensemble", want_ens), ("grad", want_grad)):
+            if r[f"{path}_launches"] != want_n:
+                raise AssertionError(f"38: {label} rank {r['rank']} {path} launched "
+                                     f"{r[f'{path}_launches']}, expected {want_n}")
+        if not all(r["runner_launches"].get(k, 0) > 0 for k in
+                   ("ring_transpose", "ring_gather", "banded_solve")):
+            raise AssertionError(f"38: {label} rank {r['rank']} runner launched "
+                                 f"{r['runner_launches']}")
+        if r["runner"] != ref["runner"] or r["alive"] != ref["alive"]:
+            raise AssertionError(f"38: {label} rank {r['rank']} runner {r['runner']} alive "
+                                 f"{r['alive']}, one process {ref['runner']} {ref['alive']}")
+    if results[0]["events"] != ref["events"] or "divergence" not in ref["events"]:
+        raise AssertionError(f"38: {label} journal {results[0]['events']}, one process "
+                             f"{ref['events']}")
+    if not all(v for k, v in exact.items() if not k.startswith("grad_")) or not clean_exact:
+        raise AssertionError(f"38: {label} not bit for bit {exact}, clean run at dt/2 "
+                             f"{clean_exact}")
+    if not grad_rel <= SPAN_LIMIT:
+        raise AssertionError(f"38: {label} gradient rel {grad_rel:.3e} beyond {SPAN_LIMIT:g}")
+
+
+def phase38(torch, pt, card) -> dict:
+    """Phase 38: the paths of a model whose mesh spans processes (see the
+    module docstring): 2 processes x 2 ranks on card 0, and on a machine
+    of several cards also a card a process (4 x 1 on four cards, whose
+    lone ranks get phase 37's one-ulp-scaled rule; 2 x 2 on two or three,
+    bit for bit).  Returns the launches of each path (a process's, on the
+    first layout) for the kernels line."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    layouts = [("2x2", 2, False)]
+    if cards >= 2:
+        layouts.append(("card_per_process", 4 if cards >= 4 else 2, True))
+    print(f"phase38 cards: {cards} ({card}); layouts "
+          + ", ".join(f"{label} ({n} processes)" for label, n, _ in layouts))
+    with tempfile.TemporaryDirectory(prefix="phase38_") as work:
+        ref, want = span38_paths(torch, pt, None, pt.make_mesh(MESH_RANKS),
+                                 os.path.join(work, "one"), f"nan@{SPAN38_NAN_STEP}", False)
+        ulp = None
+        if any(MESH_RANKS // n == 1 for _, n, _ in layouts):
+            ulp = span38_paths(torch, pt, None, pt.make_mesh(MESH_RANKS),
+                               os.path.join(work, "one_ulp"), f"nan@{SPAN38_NAN_STEP}", False,
+                               nudge=True)[1]
+        # the recovered state is the clean run at dt/2 from the same start
+        clean = pt.Navier2D(**RBC1025, mesh=pt.make_mesh(MESH_RANKS))
+        clean.init_random(0.1, seed=0)
+        clean.set_dt(RBC1025["dt"] / 2)
+        clean.update_n(2 * SPAN38_RUN_STEPS)
+        clean = pt.state_to_numpy(clean)
+        torch.cuda.empty_cache()
+        launches = None
+        for label, nproc, per_card in layouts:
+            t1 = time.perf_counter()
+            results = span_spawn(label, nproc, per_card, False, work, child=CHILD_38, phase="38")
+            got = dict(np.load(os.path.join(work, f"{label}_paths.npz")))
+            lone = MESH_RANKS // nproc == 1
+            span38_layout(label, results, got, ref, want, clean, card,
+                          span38_limits(want, ulp) if lone else None)
+            print(f"phase38 {label} ok ({time.perf_counter() - t1:.1f} s)")
+            launches = launches or {path: results[0][f"{path}_launches"]
+                                    for path in ("stats", "ensemble", "runner", "grad")}
+    print(f"phase38 ok ({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def span_paths_launches(paths, kernel) -> dict:
+    """Phase 38's launches of ``kernel`` (``banded_solve`` or the remote
+    flip, ``ring_push``: its flips and rank gathers) on each path, a
+    process's."""
+    grad = paths["grad"]
+    if kernel == "banded_solve":
+        out = {p: paths[p].get("banded_solve", 0) for p in ("stats", "ensemble", "runner")}
+        out.update(grad_forward=grad["banded_forward"], grad_backward=grad["banded_backward"])
+    else:
+        out = {p: paths[p].get("ring_transpose", 0) + paths[p].get("ring_gather", 0)
+               for p in ("stats", "ensemble", "runner")}
+        out.update(grad_forward=grad["flips_forward"], grad_backward=grad["flips_backward"])
+    return out
+
+
 def remote_flip_entry(span) -> dict:
     """The kernels line's entry of the remote flip: its times summed over
     one step's flips of meshed ``rbc1025`` on 2 processes x 2 ranks (rank
@@ -6970,7 +7383,7 @@ def route_sums(rows) -> dict:
 
 
 def kernels_line(records, launches, solver_times, ring_times, runner_launches,
-                 phase_launches=None, span=None):
+                 phase_launches=None, span=None, paths=None):
     """One entry per kernel, its times summed over one step of its main
     route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
     each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
@@ -6986,7 +7399,8 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches,
     count of phase 31's runs under the resilient runner, and
     ``phase_launches[label][kernel]`` (``<label>_launches``) that of a later
     phase's path (``sharded``: phase 32; ``controllers``: phase 33's two
-    processes)."""
+    processes); ``paths`` phase 38's launches a process of each path
+    (``span_paths_launches`` of the banded and the remote flip's entries)."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rows = [r for r in records if r["kernel"] == kernel]
@@ -7012,9 +7426,13 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches,
         entry["runner_launches"] = runner_launches.get(kernel, 0)
         for label, counts in (phase_launches or {}).items():
             entry[f"{label}_launches"] = counts.get(kernel, 0)
+        if paths is not None and kernel == "banded_solve":
+            entry["span_paths_launches"] = span_paths_launches(paths, kernel)
         out.append(entry)
     if span is not None:
         out.append(remote_flip_entry(span))
+        if paths is not None:
+            out[-1]["span_paths_launches"] = span_paths_launches(paths, "ring_push")
     return {"kernels": out}
 
 
@@ -7195,9 +7613,12 @@ def run(torch) -> int:
     phase_launches["fleet"] = phase36(torch, pt, card)
     span = phase37(torch, pt, card, [r for r in records if r["kernel"] == "ring_transpose"
                                      and r["route"] in ("mesh", "periodic_mesh")])
+    paths = phase38(torch, pt, card)
+    print("phase38 launches a process of each path: " + json.dumps(
+        {k: span_paths_launches(paths, k) for k in ("ring_push", "banded_solve")}))
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches,
-                                  phase_launches, span)))
+                                  phase_launches, span, paths)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

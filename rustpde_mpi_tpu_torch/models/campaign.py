@@ -505,6 +505,29 @@ class StatsAndRungs:
         (a first visit to a dt rung), after ``self.dt`` was set."""
 
 
+def global_leaves(model, state) -> tuple:
+    """The leaves of a meshed ``model``'s ``state`` (its members' too), each
+    leaf of a spectral space gathered to its global array: by the space's
+    gather on one process, through the ring on a mesh whose ranks span
+    processes (:func:`..parallel.decomp.all_gather_pencils`: one push a
+    shape of leaves, no host collective)."""
+    spaces = [getattr(model, f"{name}_space", None) for name in state._fields]
+    if not model.mesh.spanning:
+        return tuple(x if sp is None else
+                     (sp.gather_spectral(x) if x.ndim == 3 else
+                      torch.stack([sp.gather_spectral(m) for m in x]))
+                     for sp, x in zip(spaces, state))
+    from ..parallel.decomp import all_gather_pencils
+
+    idx = [i for i, sp in enumerate(spaces) if sp is not None]
+    full = all_gather_pencils([state[i] for i in idx], model.mesh, x_pencil=True)
+    out = list(state)
+    for i, g in zip(idx, full):
+        n0, n1 = spaces[i].spectral.global_shape
+        out[i] = g[..., :n0, :n1]
+    return tuple(out)
+
+
 class FuturesAndIntegrity:
     """What a single model and an ensemble share around the overlapped IO
     and integrity layers: the observables as a future
@@ -1209,11 +1232,6 @@ class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
         else:
             from .stats import StatsEngine
 
-            if getattr(getattr(self, "mesh", None), "spanning", False):
-                raise NotImplementedError(
-                    "statistics on a mesh whose ranks span processes (their samples gather "
-                    "global fields on the card) are not ported")
-
             self._stats_engine = StatsEngine(self, cfg)
             # one sample builds its operators now: a capture cannot upload them
             self._stats_engine.sample(self.state)
@@ -1247,11 +1265,7 @@ class CampaignModelBase(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
         meshed state digests as the same state on one rank does)."""
         if self.mesh is None:
             return tuple(state), 0
-        out = []
-        for name, field in zip(state._fields, state):
-            space = getattr(self, f"{name}_space", None)
-            out.append(field if space is None else space.gather_spectral(field))
-        return tuple(out), 0
+        return global_leaves(self, state), 0
 
     def _shadow_state(self, snap: dict, n: int):
         return self.step_n(snap["state"], n)[0]

@@ -29,6 +29,12 @@ once per ensemble and sentinel setting; the carry is loaded from the
 ensemble's state at each call and copied out into fresh tensors, so a
 reference to an earlier ``state``, ``mask`` or ``steps_done`` stays as it
 was.
+
+On a mesh whose ranks span processes each process holds its ranks of every
+member: the member axis rides the remote flips, the alive mask and the
+sentinels reduce through the ring's rank gather (so every process takes
+the same verdicts), and a member's digest gathers its fields through the
+ring, equal to its solo model's.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ import torch
 from ..utils import checkpoint, navier_io
 from ..utils.governor import ChunkStatus
 from ..utils.jit import scan_buckets
-from .campaign import ChunkRunner, FuturesAndIntegrity, ShardedSurface, StatsAndRungs
+from .campaign import (ChunkRunner, FuturesAndIntegrity, ShardedSurface, StatsAndRungs,
+                       global_leaves)
 
 
 def _stack(members) -> tuple:
@@ -65,9 +72,6 @@ class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
     sentinel_reduce = None
 
     def __init__(self, model, states):
-        if getattr(getattr(model, "mesh", None), "spanning", False):
-            raise NotImplementedError("an ensemble on a mesh whose ranks span processes is not "
-                                      "ported (ROADMAP Queue 1 item 17.1)")
         if hasattr(states, "_fields"):
             if states.temp.ndim != model.state.temp.ndim + 1:
                 raise TypeError(
@@ -554,17 +558,12 @@ class NavierEnsemble(StatsAndRungs, FuturesAndIntegrity, ShardedSurface):
 
     def _digest_fields(self, state):
         """Each field, one digest per member: on a mesh every member's
-        pencil is gathered to its global array, so member i digests as a
-        solo model holding its state does."""
-        model = self.model
-        if model.mesh is None:
+        pencil is gathered to its global array (through the ring on a mesh
+        whose ranks span processes), so member i digests as a solo model
+        holding its state does."""
+        if self.model.mesh is None:
             return tuple(state), 1
-        out = []
-        for name, field in zip(state._fields, state):
-            space = getattr(model, f"{name}_space", None)
-            out.append(field if space is None else
-                       torch.stack([space.gather_spectral(f) for f in field]))
-        return tuple(out), 1
+        return global_leaves(self.model, state), 1
 
     def _shadow_state(self, snap: dict, n: int):
         """The members ``n`` plain steps after ``snap``, its alive mask and

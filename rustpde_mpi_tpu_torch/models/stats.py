@@ -26,8 +26,9 @@ What is accumulated (per member), as the JAX package accumulates it:
   move stays exact).
 
 The leaves hold the global arrays on the model's device (a meshed model's
-pencils are gathered inside the sample), so the snapshot rows and a
-restore need no layout.  :data:`HEALTH_NAMES` are the readout's scalars:
+pencils are gathered inside the sample; on a mesh whose ranks span
+processes through the ring, three pushes a sample), so the snapshot rows
+and a restore need no layout.  :data:`HEALTH_NAMES` are the readout's scalars:
 spectral-tail fractions, boundary-layer point counts, budget residuals.
 """
 
@@ -180,6 +181,25 @@ def _pencil_spectral(space, g: torch.Tensor) -> torch.Tensor:
     return g[..., mesh.rank0: mesh.rank0 + mesh.nlocal, :, :].contiguous()
 
 
+def _global_arrays(spaces, blocks, spectral: bool) -> list:
+    """The global arrays of ``blocks``, each a pencil of its space in
+    ``spaces``: spectral x-pencils (:func:`_global_spectral`) or physical
+    y-pencils (:func:`_global_physical`).  On a mesh whose ranks span
+    processes every rank's blocks come through the ring
+    (:func:`..parallel.decomp.all_gather_pencils`: one push a shape,
+    capturable), laid out as the one-process mesh's, so a sample is its
+    sample bit for bit."""
+    mesh = spaces[0].mesh
+    one = _global_spectral if spectral else _global_physical
+    if not getattr(mesh, "spanning", False):
+        return [one(sp, x) for sp, x in zip(spaces, blocks)]
+    from ..parallel.decomp import all_gather_pencils
+
+    full = all_gather_pencils(blocks, mesh, x_pencil=spectral)
+    return [g[..., :n0, :n1] for g, (n0, n1) in
+            zip(full, ((sp.spectral if spectral else sp.physical).global_shape for sp in spaces))]
+
+
 def _stencil_diagonals(space, dev, rdt) -> list:
     """Per axis of ``space``, its stencil S (composite -> orthogonal
     coefficients, n x m, nonzero only at rows ``j + o`` of column j for a
@@ -285,12 +305,6 @@ class StatsEngine:
         w1 = self._w1
         lead = state.temp.ndim - m.field_ndim
 
-        def glob(x):
-            return _global_spectral(sp_f, x)
-
-        def phys(v):
-            return _global_physical(sp_f, v)
-
         def avg_x(v):
             return torch.matmul(self._w0, v)
 
@@ -307,9 +321,9 @@ class StatsEngine:
         # the orthogonal coefficients, global (a meshed model's composite
         # pencils gathered first), then as the field space holds them
         that_g, uxhat_g, uyhat_g = (
-            _apply_stencil(axes, _global_spectral(sp, x))
-            for axes, sp, x in zip(self._stencils, (sp_t, sp_u, sp_v),
-                                   (state.temp, state.velx, state.vely)))
+            _apply_stencil(axes, g) for axes, g in zip(
+                self._stencils, _global_arrays((sp_t, sp_u, sp_v),
+                                               (state.temp, state.velx, state.vely), True)))
         uxhat, uyhat = _pencil_spectral(sp_f, uxhat_g), _pencil_spectral(sp_f, uyhat_g)
         # the physical temperature (with the lift)
         that = _pencil_spectral(sp_f, that_g) + m.tempbc_ortho
@@ -318,17 +332,19 @@ class StatsEngine:
         ux_pen, duxdx, duxdy = sp_f.synthesize(uxhat, ((0, 0), (1, 0), (0, 1)), scale)
         uy_pen, duydx, duydy = sp_f.synthesize(uyhat, ((0, 0), (1, 0), (0, 1)), scale)
         nusselt_pen = (dtdy_pen / (-scale[1]) + uy_pen * temp_pen / ka) * 2.0 * scale[1]
-        nusselt = glob(sp_f.forward(nusselt_pen) * self._mask)
-        temp_p, ux_p, uy_p = phys(temp_pen), phys(ux_pen), phys(uy_pen)
+        nusselt, = _global_arrays((sp_f,), (sp_f.forward(nusselt_pen) * self._mask,), True)
+        temp_p, ux_p, uy_p, dtdy_p, nusselt_p, *grads = _global_arrays(
+            (sp_f,) * 9, (temp_pen, ux_pen, uy_pen, dtdy_pen, nusselt_pen,
+                          duxdx, duxdy, duydx, duydy), False)
         tx, ty = spec_pair(that_g)
         uxx, uxy = spec_pair(uxhat_g)
         uyx, uyy = spec_pair(uyhat_g)
-        x_avg = avg_x(phys(dtdy_pen)) * (-2.0 / scale[1])
+        x_avg = avg_x(dtdy_p) * (-2.0 / scale[1])
         nu_plate = 0.5 * (x_avg[..., 0] + x_avg[..., -1])
         flux_prof = avg_x(uy_p * temp_p)
         ux2_prof, uy2_prof = avg_x(ux_p**2), avg_x(uy_p**2)
         ke = 0.5 * (dot_y(ux2_prof) + dot_y(uy2_prof))
-        grad2 = sum(phys(g) ** 2 for g in (duxdx, duxdy, duydx, duydy))
+        grad2 = sum(g ** 2 for g in grads)
         span = torch.full((*state.temp.shape[:lead], 1), float(self.stride) * float(m.dt),
                           dtype=m.dtype, device=ke.device)
         buoy = dot_y(flux_prof)
@@ -345,7 +361,7 @@ class StatsEngine:
             uy2_prof_sum=uy2_prof,
             flux_prof_sum=flux_prof,
             nu_plate_sum=s1(nu_plate),
-            nuvol_sum=dot_y(avg_x(phys(nusselt_pen))),
+            nuvol_sum=dot_y(avg_x(nusselt_p)),
             flux_vol_sum=buoy * (2.0 * scale[1] / ka),
             ke_sum=ke,
             buoy_sum=buoy,
@@ -573,13 +589,19 @@ def export_stats(pde, filename: str) -> None:
     package's ``export_stats``: a model writes the reference's
     ``statistics.h5`` root layout plus ``profiles``/``spectra``; an
     ensemble writes groups ``member{i}/`` of the same layout and a root
-    ``members``.  ``plot/plot_statistics.py`` reads both."""
+    ``members``.  ``plot/plot_statistics.py`` reads both.  On a mesh whose
+    ranks span processes every process holds the same sums, and the root
+    writes them (the others return)."""
     import os
-
-    import h5py
 
     if not getattr(pde, "stats_armed", False):
         raise RuntimeError("export_stats needs an armed stats engine (set_stats)")
+    from ..utils.checkpoint import writes_here
+
+    if not writes_here(pde):
+        return
+    import h5py
+
     os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
     is_ens = hasattr(pde, "member_state")
     model = pde.model if is_ens else pde

@@ -452,9 +452,15 @@ class RankGather:
 
     def __call__(self, partials: torch.Tensor) -> torch.Tensor:
         ring = self.ring
-        p, pl = ring.nranks, ring.nlocal
+        pl = ring.nlocal
         if partials.ndim != 2 or partials.shape[0] != pl:
             raise ValueError(f"a rank gather takes ({pl}, k) values, got {tuple(partials.shape)}")
+        return GatherFn.apply(partials, self)
+
+    def gather(self, partials: torch.Tensor) -> torch.Tensor:
+        """The gather outside autograd."""
+        ring = self.ring
+        p, pl = ring.nranks, ring.nlocal
         k = partials.shape[1]
         x = partials[:, None, :].expand(pl, p, k).contiguous()
         ring._check(x, True)
@@ -466,12 +472,34 @@ class RankGather:
         return y[0, 0].view(p, k)
 
 
+class GatherFn(torch.autograd.Function):
+    """The rank gather as autograd sees it.  Every process computes the
+    same reduction of the gathered values, so the objective each process
+    differentiates is one function of every rank's partial, and the
+    cotangent of this process's partials is its own rows of the gathered
+    values' cotangent: no exchange in the backward."""
+
+    @staticmethod
+    def forward(ctx, partials, gather):
+        ctx.rows = (gather.ring.rank0, gather.ring.nlocal)
+        return gather.gather(partials)
+
+    @staticmethod
+    def backward(ctx, g):
+        r0, n = ctx.rows
+        return g[r0: r0 + n], None
+
+
 class FlipFn(torch.autograd.Function):
     """The pencil flip as autograd sees it: the forward is
     :meth:`RingTranspose.flip`, the backward the inverse flip of the
     cotangent through the same call (the kernel on the card, the plain
     ring on the CPU).  A permutation's adjoint is its inverse, for real
-    and complex pencils alike."""
+    and complex pencils alike.  On a mesh whose ranks span processes the
+    backward flip is a collective like the forward one: every process
+    differentiates the same graph, and autograd runs its nodes in the same
+    order on each, so the processes issue the same flips in the same
+    order."""
 
     @staticmethod
     def forward(ctx, block, ring, x_to_y):
@@ -481,9 +509,6 @@ class FlipFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ring, x_to_y = ctx.flip
-        if isinstance(ring, SpanningRing):
-            raise NotImplementedError("the flip's backward across processes is not ported "
-                                      "(ROADMAP Queue 1 item 17.1)")
         out = ring.flip(g.contiguous(), not x_to_y)
         if g.device.type == "cuda":
             ring.backward_launches += 1

@@ -222,6 +222,39 @@ def broadcast_scalar(value, mesh: Mesh) -> torch.Tensor:
     return _every_partial(per_rank.contiguous(), mesh, 0)[0].clone()
 
 
+def all_gather_pencils(blocks, mesh: Mesh, x_pencil: bool) -> list:
+    """The padded global arrays, on this process's device, of pencils of a
+    mesh whose ranks span processes: ``blocks`` are this process's ranks'
+    x-pencils (``x_pencil``) or y-pencils, ``(*members, PL, ...)``; each
+    comes back as ``(*members, n0p, n1p)``, a fresh tensor laid out as the
+    one-process mesh's reshape of its stacked pencil.  The blocks of one
+    shape and dtype move together, as members of one flip of the ring, so
+    a call costs one push a shape on the card and no host collective (it
+    can be captured).  The trick: a process tiles its x-pencil ``nproc``
+    times along the rows before an x -> y flip, so each of its ranks
+    receives its own rows of every rank's block, and the ranks' y-pencils
+    stacked are the global array; a y-pencil is tiled along the columns
+    before a y -> x flip alike."""
+    ring, nproc = mesh.ring, mesh.nproc
+    out = [None] * len(blocks)
+    groups: dict = {}
+    for i, b in enumerate(blocks):
+        groups.setdefault((tuple(b.shape), b.dtype), []).append(i)
+    for (shape, _), idx in groups.items():
+        lead, (pl, r, c) = shape[:-3], shape[-3:]
+        stack = torch.stack([blocks[i] for i in idx]).reshape(-1, pl, r, c)
+        if x_pencil:
+            flipped = ring.apply(torch.cat([stack] * nproc, dim=-2), True)
+            full = flipped.reshape(len(stack), pl * flipped.shape[-2], -1)
+        else:
+            flipped = ring.apply(torch.cat([stack] * nproc, dim=-1), False)
+            full = flipped.transpose(-3, -2).reshape(len(stack), flipped.shape[-2], -1)
+        full = full.reshape(len(idx), *lead, *full.shape[-2:])
+        for j, i in enumerate(idx):
+            out[i] = full[j].clone()
+    return out
+
+
 def gather_root(blocks: torch.Tensor, decomp: Decomp2d, pencil: str = "y") -> np.ndarray:
     """Full global array on the host from a stacked pencil (the
     reference's gather-to-root IO path; on a spanning mesh every process

@@ -608,15 +608,24 @@ def write_snapshot(model, filename: str, step: int | None = None) -> None:
     becomes a root attr.  On a mesh whose ranks span processes every
     process gathers (collective) and the root alone writes."""
     snap = snapshot_to_host(model, step=step)
-    if getattr(_pde_mesh(model), "spanning", False) and _process_index() != 0:
-        return
-    write_host_snapshot(snap, filename)
+    if writes_here(model):
+        write_host_snapshot(snap, filename)
+
+
+def writes_here(pde) -> bool:
+    """Whether this process writes ``pde``'s gathered files: on a mesh whose
+    ranks span processes every process gathers (collective) and the root
+    alone writes; otherwise each process writes what it holds."""
+    return not getattr(_pde_mesh(pde), "spanning", False) or _process_index() == 0
 
 
 def write_ensemble_snapshot(ens, filename: str, step: int | None = None) -> None:
     """Write a K-member ensemble snapshot (:func:`ensemble_snapshot_to_host`,
-    then :func:`write_host_snapshot`)."""
-    write_host_snapshot(ensemble_snapshot_to_host(ens, step=step), filename)
+    then :func:`write_host_snapshot`; the root's alone on a mesh whose ranks
+    span processes)."""
+    snap = ensemble_snapshot_to_host(ens, step=step)
+    if writes_here(ens):
+        write_host_snapshot(snap, filename)
 
 
 # -- restoring -------------------------------------------------------------------
@@ -950,8 +959,9 @@ def sharded_snapshot_to_host(pde, step: int | None = None) -> ShardSnapshot:
         storage = _storage_names(name, dtype)
         datasets_meta[name] = {"shape": list(leaf.shape), "dtype": str(dtype),
                                "storage": storage}
-        if proc != 0 and not spanning:
-            continue  # every process holds the whole model: the lowest owns it
+        if proc != 0 and not (spanning and leaf.space is not None):
+            # every process holds the whole leaf: the lowest owns it
+            continue
         for offset, block in leaf.slabs():
             if len(storage) == 2:
                 slabs.append((storage[0], offset, np.ascontiguousarray(block.real)))

@@ -47,6 +47,8 @@ def _emit_info_line(model, t: float, vals, io_name: str, extra: str | None) -> N
           f"Nu = {nu:5.3e}      Nuv = {nuvol:5.3e}      Re = {re:5.3e}"
           + "".join(f"      {name.capitalize()} = {val:5.3e}" for name, val in extras)
           + (f"      {extra}" if extra else ""))
+    if not checkpoint.writes_here(model):
+        return
     try:
         with open(io_name, "a", encoding="utf-8") as fh:
             fh.write(f"{t} {nu} {nuvol} {re}\n")
@@ -54,9 +56,12 @@ def _emit_info_line(model, t: float, vals, io_name: str, extra: str | None) -> N
         print(f"unable to write {io_name}: {exc}")
 
 
-def _submit_snapshot(pipeline, snap, fname: str) -> None:
+def _submit_snapshot(pde, pipeline, snap, fname: str) -> None:
     """Hand a staged snapshot's file write to the pipeline's worker (a
-    failed write printed, never fatal)."""
+    failed write printed, never fatal; the root's alone on a mesh whose
+    ranks span processes)."""
+    if not checkpoint.writes_here(pde):
+        return
 
     def write(snap=snap, fname=fname):
         try:
@@ -86,7 +91,7 @@ def callback(model, flowname: str | None = None, io_name: str = "data/info.txt",
     if _due(t, model.get_dt(), model.write_intervall):
         flowname = flowname or f"data/flow{t:08.2f}.h5"
         if pipeline is not None:
-            _submit_snapshot(pipeline, checkpoint.snapshot_to_host(model), flowname)
+            _submit_snapshot(model, pipeline, checkpoint.snapshot_to_host(model), flowname)
         else:
             try:
                 checkpoint.write_snapshot(model, flowname)
@@ -152,7 +157,7 @@ def ensemble_callback(ens) -> None:
     if _due(t, ens.dt, ens.write_intervall):
         fname = f"data/ensemble{t:08.2f}.h5"
         if pipeline is not None:
-            _submit_snapshot(pipeline, checkpoint.ensemble_snapshot_to_host(ens), fname)
+            _submit_snapshot(ens, pipeline, checkpoint.ensemble_snapshot_to_host(ens), fname)
             return
         try:
             checkpoint.write_ensemble_snapshot(ens, fname)

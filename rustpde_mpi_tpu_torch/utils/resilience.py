@@ -53,6 +53,14 @@ cadence commit is deferred to the next chunk boundary when the writes
 overlap.  A fault scoped to ``host<p>`` acts on process ``p``; the shard
 crash spec (``shard_crash=``) kills a process inside the two-phase window.
 
+The same holds for one model whose mesh spans the processes
+(:func:`..parallel.multihost.global_pencil_mesh`): its sentinels, break
+check and digests are global already, each process stages and restores its
+own ranks in the sharded format (the only one there), a host-scoped fault
+acts on that process's ranks while every process refreshes what depends
+on the whole state, and an at-rest corruption is attributed to the process
+whose ranks hold it (:meth:`ResilientRunner._integ_attribute`).
+
 ``_store`` (a private constructor argument) is where checkpoints live.
 By default (:func:`file_store`) they are the gathered HDF5 files
 (:class:`_FileStore`), or, where ``h5py`` does not import, ``.npz`` files
@@ -216,6 +224,26 @@ def _acts_here(host) -> bool:
     return host is None or int(host) == multihost.process_index()
 
 
+def _spanning(pde) -> bool:
+    """Whether ``pde`` is one model on a mesh whose ranks span processes
+    (each process holds some of its ranks, not a replica)."""
+    return bool(getattr(checkpoint._pde_mesh(pde), "spanning", False))
+
+
+def _touched(pde, acted: bool) -> bool:
+    """After a host-scoped fault: whether this process must refresh what
+    depends on the whole state (it acted, or it holds other ranks of the
+    same model, whose state the fault changed)."""
+    return acted or _spanning(pde)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits (NaNs included)."""
+    a, b = (torch.view_as_real(t) if t.is_complex() else t for t in (a, b))
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
+                                              b.contiguous().view(torch.uint8))
+
+
 def _sentinels_across_processes(rows: np.ndarray) -> np.ndarray:
     """A sentinel chunk's host rows as one coupled model reads them (the
     JAX package's sentinels reduce over the global state), so that every
@@ -241,11 +269,16 @@ def poison_state(pde, host: int | None = None) -> None:
     its graph's carry.  An ensemble's alive mask is re-derived, as the JAX
     package's.  ``host``: the process it acts on (None: every one; each
     process holds its own replica, and the runner's break criterion stops
-    them all when one diverged)."""
-    if not _acts_here(host):
+    them all when one diverged).  On a mesh whose ranks span processes it
+    poisons that process's ranks, the JAX package's host columns, and every
+    process re-derives the mask (a collective) and drops its cached
+    observables."""
+    acted = _acts_here(host)
+    if acted:
+        for t in pde.state:
+            t.mul_(float("nan"))
+    if not _touched(pde, acted):
         return
-    for t in pde.state:
-        t.mul_(float("nan"))
     if hasattr(pde, "mask") and hasattr(pde, "_finite_mask"):
         pde.mask = pde._finite_mask(pde.state)
     pde._obs_cache = None
@@ -256,12 +289,14 @@ def spike_state(pde, factor: float = 50.0, host: int | None = None) -> None:
     the CFL ceiling (every member of an ensemble).  Governed, it is caught
     before NaNs appear and rolled back in memory; ungoverned, the
     over-CFL convection grows it into the NaN path.  ``host``: the process
-    it acts on (None: every one)."""
-    if not _acts_here(host):
-        return
-    pde.state.velx.mul_(factor)
-    pde.state.vely.mul_(factor)
-    pde._obs_cache = None
+    it acts on (None: every one; on a mesh whose ranks span processes, its
+    ranks, and every process drops its cached observables)."""
+    acted = _acts_here(host)
+    if acted:
+        pde.state.velx.mul_(factor)
+        pde.state.vely.mul_(factor)
+    if _touched(pde, acted):
+        pde._obs_cache = None
 
 
 def bitflip_state(pde, step: int, host: int | None = None, member: int | None = None,
@@ -271,13 +306,17 @@ def bitflip_state(pde, step: int, host: int | None = None, member: int | None = 
     member ``member`` only, for an ensemble): finite and CFL-sane, seen only
     by the integrity digests.  Returns the flip's info (leaf, index, bit,
     member, host) for the journal; on a process ``host`` does not name
-    nothing is flipped and the info says so (``leaf`` None)."""
+    nothing is flipped and the info says so (``leaf`` None).  On a mesh
+    whose ranks span processes the bit is in ``host``'s ranks (the index
+    is into its pencils, which every process's info names)."""
     from ..integrity import flip_state_bit
 
-    if not _acts_here(host):
+    acted = _acts_here(host)
+    if not _touched(pde, acted):
         return {"leaf": None, "index": (), "bit": None, "member": member, "host": host}
     flipped, info = flip_state_bit(pde.state, step, member=member, bit=bit)
-    getattr(pde.state, info["leaf"]).copy_(getattr(flipped, info["leaf"]))
+    if acted:
+        getattr(pde.state, info["leaf"]).copy_(getattr(flipped, info["leaf"]))
     pde._obs_cache = None
     info["host"] = host
     return info
@@ -560,10 +599,6 @@ class ResilientRunner:
                  shard_crash: str | None = None, _store=None):
         from ..config import IOConfig
 
-        mesh = getattr(pde, "mesh", None) or getattr(getattr(pde, "model", None), "mesh", None)
-        if getattr(mesh, "spanning", False):
-            raise NotImplementedError("the resilient runner on a mesh whose ranks span "
-                                      "processes is not ported (ROADMAP Queue 1 item 17.1)")
         self.pde = pde
         self.max_time = float(max_time)
         self.save_intervall = save_intervall
@@ -1326,14 +1361,23 @@ class ResilientRunner:
             want, got = failed[check]
             members = [int(i) for i in np.flatnonzero(got != want)] if got.ndim else None
             where = {"members": members}
+        spanning = _spanning(pde)
+        if spanning:
+            where["host"], device = self._integ_attribute(rec, verified, check)
         _tr.instant("integrity_mismatch", check=check, step=self.step)
         self._journal({"event": "integrity_mismatch", "check": check, "chunk_steps": k,
                        "start_step": start_step, **where, "device": device})
-        if check != "peer":
+        if spanning:
+            # one model: the root strikes the attributed device, and every
+            # process takes its verdict
+            if _is_root():
+                newly = self._integrity_ledger().strike(device, step=self.step, detail=check)
+            newly = self._root_decides(newly)
+        elif check != "peer":
             newly = self._integrity_ledger().strike(device, step=self.step, detail=check)
-            if newly:
-                self._journal({"event": "device_quarantined", "device": device,
-                               "strikes": self._integrity_ledger().strikes_for(device)})
+        if newly and _is_root():
+            self._journal({"event": "device_quarantined", "device": device,
+                           "strikes": self._integrity_ledger().strikes_for(device)})
         self._integ_prev = None
         must_raise = verified is None or newly
         if not _single_process():
@@ -1355,6 +1399,29 @@ class ResilientRunner:
         _tm.counter("runner_integrity_rollback_total", "in-memory integrity rollbacks").inc()
         self._journal({"event": "integrity_rollback", "to_step": v_step})
         return False
+
+    def _integ_attribute(self, rec, verified, check: str) -> tuple:
+        """On a mesh whose ranks span processes: the process whose ranks
+        hold an at-rest corruption and its device key, or None and this
+        process's key.  As the JAX runner (``_integ_localize_host``), only a
+        chain mismatch whose chunk-start copy (corrupt) and verified
+        snapshot (clean) are of the same step is attributed: each process
+        compares its own ranks of the two bit for bit, and one exchange
+        (collective) names the first that differs."""
+        from ..parallel import multihost
+
+        here = self._integ_device()
+        differs = False
+        if check == "chain" and rec[2] is not None and verified is not None and \
+                verified[0] == rec[0]:
+            differs = not all(_same_bits(a, b) for a, b in
+                              zip(rec[2]["state"], verified[1]["state"]))
+        rows = [json.loads(b) for b in multihost.allgather_bytes(
+            json.dumps([differs, here]).encode("utf-8"))]
+        for proc, (hit, device) in enumerate(rows):
+            if hit:
+                return proc, device
+        return None, here
 
     def _integ_drop(self) -> None:
         """A chunk was rolled back in memory: restart the digest chain at the
@@ -1750,6 +1817,9 @@ class ResilientRunner:
         pipeline for the session."""
         io = self.io
         single = _single_process()
+        if _spanning(self.pde) and io.sharded_checkpoints is False:
+            raise ValueError("a model on a mesh whose ranks span processes checkpoints in the "
+                             "sharded format (each process stages its own ranks)")
         self._sharded = bool(io.sharded_checkpoints if io.sharded_checkpoints is not None
                              else not single) and hasattr(self.pde, "snapshot_state_items")
         self._async_ckpt = bool(io.async_checkpoints and (single or self._sharded))

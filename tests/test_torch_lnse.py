@@ -13,7 +13,8 @@ package on the CPU.
   3 (values and gradients within rel 1e-9), and the meshed route's
   ``grad_autodiff`` (4 ranks, both cells) against the JAX gradient,
   with the pencil flip's backward (the inverse flip) against its plain
-  form, ``grad_fd`` against the
+  form, and on a mesh whose ranks span two processes (rel 1e-12 of the
+  one-process mesh's, rel 1e-9 of the JAX gradient), ``grad_fd`` against the
   port's own ``grad_autodiff`` (the JAX package's bound, 1e-2, for forward
   differences at eps = 1e-5), and ``grad_autodiff`` held to a central
   directional difference of the port's objective (rel 1e-6);
@@ -318,6 +319,41 @@ def test_meshed_gradient_flip_counts(monkeypatch, steps):
     pm.grad_autodiff(steps * PARAMS[2])
     assert counts["all"] - counts["backward"] == cs.GRAD_FLIPS_FWD[0] + cs.GRAD_FLIPS_FWD[1] * steps
     assert counts["backward"] == cs.GRAD_FLIPS_BWD[0] + cs.GRAD_FLIPS_BWD[1] * steps
+
+
+def test_spanning_grad_autodiff_matches_one_process_and_jax(tmp_path):
+    """``grad_autodiff`` on a mesh whose 4 ranks span two processes
+    (``tests/torch_mp_worker.py``, mode ``spanning_grad``, gloo): every
+    flip of the forward loop differentiated by the inverse flip across the
+    processes, the objective's sums through the rank gather.  Its value and
+    gradients within rel 1e-12 of the one-process ``make_mesh(4)``
+    gradient, with as many backward flips, and within rel 1e-9 of the JAX
+    dense gradient (the JAX meshed one does not run on the CPU)."""
+    import sys
+
+    from rustpde_mpi_tpu_torch.ops import ring_transpose
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_mp_worker import path_grad, spawn
+
+    results = spawn(str(tmp_path), "spanning_grad", timeout=60.0)
+    for rc, _, err, res in results:
+        assert rc == 0 and res is not None, err[-3000:]
+    got = np.load(os.path.join(str(tmp_path), "grad.npz"))
+    got = (float(got["value"]), tuple(got[f"grad_{i}"] for i in range(3)))
+    counts = {"backward": 0}
+    backward = ring_transpose.FlipFn.backward
+
+    def counted(ctx, g):
+        counts["backward"] += 1
+        return backward(ctx, g)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ring_transpose.FlipFn, "backward", staticmethod(counted))
+        one = path_grad(pt.make_mesh(4, "cpu"))
+    assert [res["backward_flips"] for *_, res in results] == [counts["backward"]] * 2
+    _assert_grads_close(got, one, BACKWARD_TOL)
+    _assert_grads_close(got, _jax_dense_grads("lnse", "confined")[0], GRAD_TOL)
 
 
 def test_flip_backward_is_the_inverse_flip():

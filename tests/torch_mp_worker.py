@@ -1,6 +1,7 @@
 """One process of a two-process job of the port, for the CPU tests
 (``tests/test_torch_multihost.py``, ``tests/test_torch_sharded_ckpt.py``,
-``tests/test_torch_serve.py``, ``tests/test_torch_spanning_mesh.py``).
+``tests/test_torch_serve.py``, ``tests/test_torch_spanning_mesh.py``,
+``tests/test_torch_spanning_paths.py``, ``tests/test_torch_lnse.py``).
 
     python tests/torch_mp_worker.py <port> <rank> <nproc> <out_dir> <mode> [arg]
 
@@ -36,14 +37,26 @@ def spawn(out_dir: str, mode: str, arg: str = "", nproc: int = 2, timeout: float
     """Run ``nproc`` workers as one job; returns ``[(rc, stdout, stderr,
     result or None), ...]`` in rank order.  A worker still alive at the
     deadline is killed (its rc is then negative); none outlives the call."""
+    return collect(start(out_dir, mode, arg, nproc), out_dir, timeout)
+
+
+def start(out_dir: str, mode: str, arg: str = "", nproc: int = 2) -> list:
+    """Start ``nproc`` workers as one job and return their processes
+    (:func:`collect` waits for them; the caller may work meanwhile)."""
     os.makedirs(out_dir, exist_ok=True)
     port = free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONUNBUFFERED="1")
-    procs = [subprocess.Popen([sys.executable, os.path.join(_REPO, "tests", "torch_mp_worker.py"),
-                               str(port), str(i), str(nproc), out_dir, mode, arg],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-                              cwd=_REPO)
-             for i in range(nproc)]
+    return [subprocess.Popen([sys.executable, os.path.join(_REPO, "tests", "torch_mp_worker.py"),
+                              str(port), str(i), str(nproc), out_dir, mode, arg],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                             cwd=_REPO)
+            for i in range(nproc)]
+
+
+def collect(procs: list, out_dir: str, timeout: float) -> list:
+    """Wait for the workers of :func:`start` until ``timeout`` seconds from
+    now, kill any still alive then, and return what :func:`spawn`
+    returns."""
     t_end = time.monotonic() + timeout
     outs = []
     try:
@@ -522,8 +535,9 @@ def mode_spanning(mh, rank, arg):
 
 
 def _span_not_ported(pt, mesh, model, out_dir):
-    """What waits for later work raises on a spanning mesh: an ensemble,
-    the resilient runner, the statistics and a flip's backward."""
+    """What raised on a spanning mesh before its port (an ensemble, the
+    resilient runner, the statistics and a flip's backward): each entry
+    None, or the message of the ``NotImplementedError`` it still raises."""
     import torch
 
     block = torch.zeros((mesh.nlocal, 8, 2), dtype=torch.float64, requires_grad=True)
@@ -539,6 +553,163 @@ def _span_not_ported(pt, mesh, model, out_dir):
         except NotImplementedError as exc:
             out[name] = str(exc)
     return out
+
+
+#: the paths of a spanning mesh (:func:`mode_spanning_paths`), each run
+#: the same way on the one-process mesh by the tests: the runner over
+#: ``PATH_RUN_TIME`` with a NaN at ``PATH_NAN_STEP`` (on rank 1's process,
+#: every rank of the one-process mesh) and, under the integrity audits,
+#: with a bit flipped at ``PATH_FLIP_STEP``, the statistics at stride
+#: ``PATH_STRIDE`` over ``PATH_STATS_STEPS``, an ensemble of
+#: ``PATH_MEMBERS`` over ``SPAN_STEPS``, and the linearised model's
+#: ``grad_autodiff`` at ``PATH_GRAD`` (the 10x9 cell of
+#: ``tests/test_torch_lnse.py``)
+PATH_RUN_TIME = 0.1
+PATH_NAN_STEP = 6
+PATH_FLIP_STEP = 4
+PATH_STRIDE = 2
+PATH_STATS_STEPS = 10
+PATH_MEMBERS = 3
+PATH_GRAD = dict(nx=10, ny=9, ra=3e3, pr=1.0, dt=1e-2, aspect=1.0, time=0.03)
+
+
+def path_runner(mesh, run_dir, fault):
+    """The resilient runner on ``mesh`` with ``fault``: the model, the
+    summary and the journal's event types (the root's)."""
+    import rustpde_mpi_tpu_torch as pt
+    from rustpde_mpi_tpu_torch.parallel import multihost
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    model = span_model("confined", mesh)
+    runner = pt.ResilientRunner(model, max_time=PATH_RUN_TIME, run_dir=run_dir, fault=fault,
+                                checkpoint_every_s=None)
+    summary = runner.run()
+    events = [e["event"] for e in read_journal(os.path.join(run_dir, "journal.jsonl"))] \
+        if multihost.is_root() else None
+    return model, summary, events
+
+
+def path_bitflip(mesh, run_dir, fault):
+    """The runner on ``mesh`` with the integrity audits at every chunk and
+    the bitflip ``fault``: the model and the root's journal rows of the
+    audits (event, and the mismatch's host and device)."""
+    import rustpde_mpi_tpu_torch as pt
+    from rustpde_mpi_tpu_torch.config import IntegrityConfig
+    from rustpde_mpi_tpu_torch.parallel import multihost
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    model = span_model("confined", mesh)
+    model.set_integrity(IntegrityConfig(cadence=1))
+    pt.ResilientRunner(model, max_time=PATH_RUN_TIME, run_dir=run_dir, fault=fault,
+                       checkpoint_every_s=None).run()
+    rows = [{k: e[k] for k in ("event", "check", "host", "device", "leaf") if k in e}
+            for e in read_journal(os.path.join(run_dir, "journal.jsonl"))] \
+        if multihost.is_root() else None
+    return model, rows
+
+
+def path_stats(mesh):
+    """A model on ``mesh`` with its statistics armed, stepped."""
+    import rustpde_mpi_tpu_torch as pt
+
+    model = span_model("confined", mesh)
+    model.set_stats(pt.StatsConfig(stride=PATH_STRIDE))
+    model.update_n(PATH_STATS_STEPS)
+    return model
+
+
+def path_ensemble(mesh):
+    """An ensemble of ``PATH_MEMBERS`` seeded members on ``mesh``, with the
+    integrity layer armed, stepped."""
+    import rustpde_mpi_tpu_torch as pt
+    from rustpde_mpi_tpu_torch.config import IntegrityConfig
+
+    ens = pt.NavierEnsemble.from_seeds(span_model("confined", mesh), range(PATH_MEMBERS))
+    ens.set_integrity(IntegrityConfig())
+    ens.update_n(SPAN_STEPS)
+    return ens
+
+
+def path_grad(mesh):
+    """The linearised model's ``grad_autodiff`` on ``mesh`` (``None``: the
+    serial dense route), from the random state of seed 1."""
+    import rustpde_mpi_tpu_torch as pt
+
+    g = PATH_GRAD
+    where = {"mesh": mesh} if mesh is not None else {}
+    model = pt.Navier2DLnse(g["nx"], g["ny"], g["ra"], g["pr"], g["dt"], g["aspect"], "rbc",
+                            mean=pt.MeanFields.new_rbc(g["nx"], g["ny"], device="cpu"),
+                            device="cpu", **where)
+    model.init_random(1e-3, seed=1)
+    return model.grad_autodiff(g["time"])
+
+
+def path_results(model, ens, stats, flipped) -> dict:
+    """The global arrays the tests compare, by name."""
+    import rustpde_mpi_tpu_torch as pt
+
+    out = {f"run_{k}": v for k, v in pt.state_to_numpy(model).items()}
+    out.update({f"flip_{k}": v for k, v in pt.state_to_numpy(flipped).items()})
+    for name in stats.stats_state._fields:
+        out[f"stats_{name}"] = getattr(stats.stats_state, name).numpy()
+    out["stats_health"] = np.asarray(stats.stats_health(), dtype=np.float64)
+    for name, space in ens.model._state_fields():
+        leaf = getattr(ens.state, name)
+        out[f"ens_{name}"] = np.stack([space.gather_spectral(leaf[i]).numpy()
+                                       for i in range(ens.k)])
+    out["ens_digest"] = np.asarray(ens.state_digest_async().result()).astype(np.int64)
+    return out
+
+
+def mode_spanning_paths(mh, rank, arg):
+    """The paths that span the processes' ranks, on a spanning mesh of 4
+    ranks over the processes on the CPU: the resilient runner with a NaN
+    on rank 1's process, the statistics engine, an ensemble with its
+    digests.  Rank 0 writes the global arrays (:func:`path_results`) for
+    the parent's comparisons."""
+    mh.set_sync_timeout(30.0)
+    out_dir = sys.argv[4]
+    os.chdir(out_dir)  # anything written relative lands here
+    mesh = mh.global_pencil_mesh(SPAN_RANKS // mh.process_count(), "cpu")
+    model, summary, events = path_runner(mesh, os.path.join(out_dir, "run"),
+                                         f"nan@{PATH_NAN_STEP}:host1")
+    flipped, audits = path_bitflip(mesh, os.path.join(out_dir, "flip"),
+                                   f"bitflip@{PATH_FLIP_STEP}:host1")
+    stats = path_stats(mesh)
+    ens = path_ensemble(mesh)
+    arrays = path_results(model, ens, stats, flipped)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "paths.npz"), **arrays)
+    out = {"summary": {k: summary[k] for k in ("outcome", "step", "dt", "retries")},
+           "events": events, "audits": audits, "alive": ens.alive().tolist(),
+           "stats_tick": int(stats._stats_tick[0])}
+    mesh.close()
+    return out
+
+
+def mode_spanning_grad(mh, rank, arg):
+    """The linearised model's ``grad_autodiff`` (:func:`path_grad`) on a
+    spanning mesh of 4 ranks over the processes on the CPU: every forward
+    flip differentiated by the inverse flip, a collective too.  Rank 0
+    writes the value and the global gradients."""
+    from rustpde_mpi_tpu_torch.ops import ring_transpose
+
+    mh.set_sync_timeout(30.0)
+    mesh = mh.global_pencil_mesh(SPAN_RANKS // mh.process_count(), "cpu")
+    counts = {"backward": 0}
+    backward = ring_transpose.FlipFn.backward
+
+    def counted(ctx, g):  # the plain ring counts no launches: count the calls
+        counts["backward"] += 1
+        return backward(ctx, g)
+
+    ring_transpose.FlipFn.backward = staticmethod(counted)
+    val, grads = path_grad(mesh)
+    if rank == 0:
+        np.savez(os.path.join(sys.argv[4], "grad.npz"), value=np.asarray(val),
+                 **{f"grad_{i}": g for i, g in enumerate(grads)})
+    mesh.close()
+    return {"backward_flips": counts["backward"]}
 
 
 def mode_spanning_card(mh, rank, arg):
