@@ -6658,6 +6658,103 @@ def span_flip_checks(torch, mh, mesh, flips, cell, timed, nccl) -> list:
     return records
 
 
+#: phase 37's split of a remote flip: the parts each timing issues, as the
+#: bits of ``RpPush.parts`` (``csrc/ring_transpose.cu``): (a) the push
+#: kernel alone into the mapped slabs, no flags; (b) the handshake alone,
+#: its stream memory operations and no kernel; (c) the copy-out alone; (d)
+#: the whole flip
+SPLIT_PARTS = {"push": 2, "handshake": 1 | 4 | 16, "copy_out": 8, "flip": 31}
+#: the timeline's operations in their order on the stream, as parts bits,
+#: and its flips (one captured graph, a stamp after each operation)
+TIMELINE_OPS = {"credit": 1, "push": 2, "ready": 4, "copy_out": 8, "release": 16}
+TIMELINE_FLIPS = 3
+
+
+def span_split(torch, mh, mesh, flips) -> dict:
+    """Phase 37's split of where a remote flip's time goes, on this
+    process: for each flip a step of ``flips`` makes, each part of
+    :data:`SPLIT_PARTS` timed as ``span_graph_ms`` times a flip (a graph of
+    ``SPAN_REPS`` calls every process replays together) and, where it
+    moves data, as ``span_cold_ms`` does; the sums over a step's flips.
+    Then the timeline: a graph of ``TIMELINE_FLIPS`` flips of the step's
+    most frequent shape with a one-thread stamp of the card's global timer
+    after each operation, replayed together by every process; every
+    process's stamps (ns) come back on each."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.ops import _build
+
+    ring = mesh.ring
+    rows, step = [], {}
+    for (shape, x_to_y, dtype), count in sorted(flips.items()):
+        block = torch.zeros(shape, dtype=getattr(torch, dtype), device=mesh.device)
+        row = {"shape": list(shape), "x_to_y": x_to_y, "dtype": dtype, "per_step": count}
+        for part, bits in SPLIT_PARTS.items():
+            def fn(bits=bits):
+                ring._push(block, x_to_y, bits)
+
+            span_barrier(torch, mh, f"37 split {part}")
+            row[f"{part}_warm_ms"] = span_graph_ms(torch, mh, fn, SPAN_REPS, f"37 split {part}")
+            if part != "handshake":
+                span_barrier(torch, mh, f"37 split {part} cold")
+                row[f"{part}_cold_ms"] = span_cold_ms(torch, ring, fn, SPAN_REPS)
+        for key, val in row.items():
+            if key.endswith("_ms"):
+                step[key] = step.get(key, 0.0) + count * val
+        rows.append(row)
+    (shape, x_to_y, dtype), _ = max(flips.items(), key=lambda kv: kv[1])
+    block = torch.zeros(shape, dtype=getattr(torch, dtype), device=mesh.device)
+    lib = _build.load("ring_transpose")
+    nstamps = 1 + TIMELINE_FLIPS * len(TIMELINE_OPS)
+    stamps = torch.zeros(nstamps, dtype=torch.int64, device=mesh.device)
+
+    def flips_stamped():
+        _build.call(lib.rp_stamp, mesh.device, stamps.data_ptr(), 0)
+        for i in range(TIMELINE_FLIPS):
+            for j, bits in enumerate(TIMELINE_OPS.values()):
+                ring._push(block, x_to_y, bits)
+                _build.call(lib.rp_stamp, mesh.device, stamps.data_ptr(),
+                            1 + i * len(TIMELINE_OPS) + j)
+
+    span_graph_ms(torch, mh, flips_stamped, 1, "37 timeline")
+    mine = stamps.cpu().numpy()
+    every = mh.allgather_host(mine)
+    return {"rows": rows, "step": step,
+            "timeline": {"shape": list(shape), "x_to_y": x_to_y, "dtype": dtype,
+                         "ops": list(TIMELINE_OPS), "stamps_ns": np.asarray(every).tolist()}}
+
+
+def print_split(label, results, card) -> None:
+    """Print each process's :func:`span_split` (``results[rank]["split"]``)
+    and the timeline."""
+    for r in results:
+        split = r["split"]
+        print(f"phase37 {label} split of a step's {sum(x['per_step'] for x in split['rows'])}"
+              f" flips, rank {r['rank']} ({split['seconds']:.1f} s): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split["step"].items()) + f" ms ({card})")
+        for row in split["rows"]:
+            print(f"phase37 {label} split rank {r['rank']} " + json.dumps(row))
+    timeline = results[0]["split"]["timeline"]
+    print(f"phase37 {label} timeline of {TIMELINE_FLIPS} flips {timeline['shape']} "
+          f"x_to_y={timeline['x_to_y']} {timeline['dtype']}, us from the first start: "
+          + span_timeline_text(timeline))
+
+
+def span_timeline_text(timeline) -> str:
+    """The timeline of :func:`span_split` as text: every process's stamps
+    in microseconds from the first process's start, op by op."""
+    stamps = timeline["stamps_ns"]
+    t0 = min(row[0] for row in stamps)
+    ops = timeline["ops"]
+    parts = []
+    for q, row in enumerate(stamps):
+        marks = [f"start {(row[0] - t0) / 1e3:.1f}"]
+        for k, t in enumerate(row[1:]):
+            marks.append(f"{ops[k % len(ops)]}{k // len(ops)} {(t - t0) / 1e3:.1f}")
+        parts.append(f"p{q}: " + ", ".join(marks))
+    return " | ".join(parts)
+
+
 def span_counted_run(torch, model, steps) -> tuple:
     """The chunk runner built (warm-up and capture), then ``steps`` steps
     of bare ``update_n`` with the launch counts set to 0 just before and
@@ -6724,6 +6821,10 @@ def spanning_child(torch, pt, mh, args, device) -> dict:
         out[f"{cell}_build_s"] = time.perf_counter() - t0
         flips = span_step_flips(torch, model)
         out[f"{cell}_flips"] = span_flip_checks(torch, mh, mesh, flips, cell, args["timed"], nccl)
+        if cell == "rbc1025" and args["timed"]:
+            t1 = time.perf_counter()
+            out["split"] = span_split(torch, mh, mesh, flips)
+            out["split"]["seconds"] = time.perf_counter() - t1
         state = span_one_step(pt, model)
         if rank == 0:
             np.savez(os.path.join(work, f"{args['label']}_{cell}_1.npz"), **state)
@@ -6906,6 +7007,7 @@ def phase37(torch, pt, card, one_flips) -> dict:
                     rec["one_process_ms"] = one and one.get("kernel_ms")
                     rec["one_process_warm_ms"] = one and one.get("kernel_warm_ms")
                     print(f"phase37 {label} " + json.dumps(rec))
+            print_split(label, results, card)
             _, ref = refs["small"]
             got = dict(np.load(os.path.join(work, f"{label}_small.npz")))
             diff, exact, _ = span_state_diff(ref, got)

@@ -364,9 +364,14 @@ struct RpPush {
   long long mul_w, mul_c, mul_p, mul_l;  // magic pairs of w / (word / elem), c, P, PL
   int shr_w, shr_c, shr_p, shr_l;
   int P, PL, g0, c, w, members, x_to_y, word, nproc, me;
+  int parts;  // the parts this call issues (PUSH_* bits; a flip issues all)
 };
 
 namespace rp {
+
+// The parts of a flip (RpPush::parts), in their order on the stream; a
+// flip issues them all, chip_smoke.py's split times them apart.
+constexpr int PUSH_CREDIT = 1, PUSH_KERNEL = 2, PUSH_READY = 4, PUSH_COPY = 8, PUSH_RELEASE = 16;
 
 struct PushArgs {
   const void* in;
@@ -521,14 +526,16 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
   a.dsm = f->members > 1 ? (int)(f->dsm / nv) : 0;
   int rc = 0;
   // the slots of every peer's slab are free
-  for (int q = 0; q < f->nproc && !rc; ++q)
+  for (int q = 0; q < f->nproc && !rc && (f->parts & PUSH_CREDIT); ++q)
     if (q != f->me) {
       rc = wait_eq(stream, f->credit + q, 1);
       if (!rc) rc = write_value(stream, f->credit + q, 0);
     }
   if (rc) return rc;
   const int blocks = (int)((n + RT_THREADS * RT_UNROLL - 1) / (RT_THREADS * RT_UNROLL));
-  if (f->word == 4)
+  if (!(f->parts & PUSH_KERNEL))
+    ;
+  else if (f->word == 4)
     f->x_to_y ? ring_push_kernel<4, true><<<blocks, RT_THREADS, 0, stream>>>(a)
               : ring_push_kernel<4, false><<<blocks, RT_THREADS, 0, stream>>>(a);
   else if (f->word == 8)
@@ -540,9 +547,9 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   // announce the chunks, then wait for every peer's
-  for (int q = 0; q < f->nproc && !rc; ++q)
+  for (int q = 0; q < f->nproc && !rc && (f->parts & PUSH_READY); ++q)
     if (q != f->me) rc = write_value(stream, f->ready_peer[q], 1);
-  for (int q = 0; q < f->nproc && !rc; ++q)
+  for (int q = 0; q < f->nproc && !rc && (f->parts & PUSH_READY); ++q)
     if (q != f->me) rc = wait_eq(stream, f->ready + q, 1);
   if (rc) return rc;
   // the copy-out: the widest word both pointers and the size allow
@@ -552,7 +559,9 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
   const int cw = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : 4;
   const unsigned cn = (unsigned)(bytes / cw);
   const int cblocks = (int)((cn + RT_THREADS * RT_UNROLL - 1) / (RT_THREADS * RT_UNROLL));
-  if (cw == 16)
+  if (!(f->parts & PUSH_COPY))
+    ;
+  else if (cw == 16)
     word_copy_kernel<16><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
   else if (cw == 8)
     word_copy_kernel<8><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
@@ -560,7 +569,7 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
     word_copy_kernel<4><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
   rc = (int)cudaGetLastError();
   // the slab is consumed: clear the ready flags, hand the peers their credit
-  for (int q = 0; q < f->nproc && !rc; ++q)
+  for (int q = 0; q < f->nproc && !rc && (f->parts & PUSH_RELEASE); ++q)
     if (q != f->me) {
       rc = write_value(stream, f->ready + q, 0);
       if (!rc) rc = write_value(stream, f->credit_peer[q], 1);
@@ -629,4 +638,20 @@ extern "C" int rp_ipc_open(const void* handle, void** ptr) {
 }
 
 extern "C" int rp_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+
+// A timeline mark: one thread writes the card's global timer (ns) into
+// stamps[index] when the stream reaches it (chip_smoke.py's split of a
+// remote flip, between the parts of a captured flip).
+__global__ void stamp_kernel(unsigned long long* stamps, int index) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  stamps[index] = t;
+}
+
+extern "C" int rp_stamp(void* stamps, int index, void* stream) {
+  if (stamps == nullptr || index < 0) return (int)cudaErrorInvalidValue;
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(stamps), index);
+  return (int)cudaGetLastError();
+}
 

@@ -127,6 +127,7 @@ class RpPush(ctypes.Structure):
         ("word", ctypes.c_int),
         ("nproc", ctypes.c_int),
         ("me", ctypes.c_int),
+        ("parts", ctypes.c_int),
     ]
 
 
@@ -166,6 +167,7 @@ _SIGNATURES = {
         "rp_slab_free": ([_P], _I),
         "rp_ipc_open": ([_P, ctypes.POINTER(_P)], _I),
         "rp_ipc_close": ([_P], _I),
+        "rp_stamp": ([_P, _I, _P], _I),
     },
 }
 

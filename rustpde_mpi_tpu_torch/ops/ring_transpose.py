@@ -211,6 +211,9 @@ class RingTranspose:
 
 #: bytes a receive slab's data is rounded up to (its flags follow)
 SLAB_ALIGN = 256
+#: every part of a remote flip (``RpPush.parts``): the credit wait, the
+#: push, the ready handshake, the copy-out and the release
+PUSH_ALL = 31
 
 
 class _Slab:
@@ -386,7 +389,7 @@ class SpanningRing(RingTranspose):
         f.members = int(lead[0]) if len(lead) == 2 else 1
         return _Slab(ptr.value, peers, data, f)
 
-    def _push(self, block, x_to_y: bool) -> torch.Tensor:
+    def _push(self, block, x_to_y: bool, parts: int = PUSH_ALL) -> torch.Tensor:
         if block.stride(-1) != 1:
             raise ValueError("the pencil-transpose kernel needs a unit stride along the "
                              "last axis")
@@ -408,6 +411,7 @@ class SpanningRing(RingTranspose):
         f.mul_c, f.shr_c = fast_divmod(c)
         f.mul_p, f.shr_p = fast_divmod(p)
         f.mul_l, f.shr_l = fast_divmod(self.nlocal)
+        f.parts = parts
         _build.call(getattr(lib, PUSH_ENTRY[block.dtype]), self.device, ctypes.byref(f))
         return out
 
