@@ -366,9 +366,16 @@ launch of a step serving all K members:
     2 processes x 2 ranks and 4 x 1 on the one card (and one process a
     card, 4 ranks over them, when the machine has two cards or more;
     ``phase37 cards`` names the count), each process its ranks stacked on
-    its card, every flip through the kernel's remote form (chunks pushed
-    into the peers' receive slabs through CUDA IPC, completion on flags in
-    the slabs).  In each layout: the remote flip at every shape and dtype a
+    its card, every flip through the kernel's remote form (the peers'
+    chunks pushed into their two-buffered receive slabs through CUDA IPC,
+    completion on semaphores in the slabs: one launch a flip with a card
+    a process, push, front-end wait and copy-out on a shared card).  In
+    each layout: the split of a meshed ``rbc1025`` step's flips into the
+    push alone, the handshake alone, the copy-out alone and the whole
+    flip (each a captured graph every process replays together, and cold
+    where it moves data), with a timeline of a few flips stamped with the
+    card's global timer between their operations (``phase37 <layout>
+    split`` and ``timeline`` lines); the remote flip at every shape and dtype a
     meshed ``rbc1025`` step and a meshed ``periodic1024`` step flip, bit
     for bit against its plain version (the gloo all-to-all), timed cold
     (the L2 flushed, each window opened after a rank gather, so no
@@ -390,7 +397,8 @@ launch of a step serving all K members:
     bit; the golden head at 129^2 (200 steps, rel 1e-6 of
     ``PARITY.json``); a NaN on the last process's ranks freezing every
     process at the same step, each spawn under its own deadline.  The
-    ``kernels`` line gains the remote flip's entry (``ring_push``).
+    ``kernels`` line gains the remote flip's entry (``ring_push``, with
+    each layout's split).
 38. the paths of a model whose mesh spans 2 processes x 2 ranks on the one
     card (and, on a machine of several cards, a card a process: 4 x 1 on
     four cards, held by phase 37's one-ulp-scaled rule), through the
@@ -6658,15 +6666,18 @@ def span_flip_checks(torch, mh, mesh, flips, cell, timed, nccl) -> list:
     return records
 
 
-#: phase 37's split of a remote flip: the parts each timing issues, as the
-#: bits of ``RpPush.parts`` (``csrc/ring_transpose.cu``): (a) the push
-#: kernel alone into the mapped slabs, no flags; (b) the handshake alone,
-#: its stream memory operations and no kernel; (c) the copy-out alone; (d)
-#: the whole flip
-SPLIT_PARTS = {"push": 2, "handshake": 1 | 4 | 16, "copy_out": 8, "flip": 31}
-#: the timeline's operations in their order on the stream, as parts bits,
-#: and its flips (one captured graph, a stamp after each operation)
-TIMELINE_OPS = {"credit": 1, "push": 2, "ready": 4, "copy_out": 8, "release": 16}
+#: phase 37's split of a remote flip: the parts each timing issues, named
+#: by their bits of ``RpPush.parts`` (``ops/ring_transpose.py`` ``PUSH_*``):
+#: (a) the push alone into the mapped slabs, no flags; (b) the handshake
+#: alone, the signal, the wait and the release, no data; (c) the copy-out
+#: alone; (d) the whole flip
+SPLIT_PARTS = {"push": ("DATA",), "handshake": ("SIGNAL", "WAIT", "RELEASE"),
+               "copy_out": ("COPY",), "flip": ("DATA", "SIGNAL", "WAIT", "COPY", "RELEASE")}
+#: the timeline's operations in their order on the stream (on a shared card
+#: the push launch, the front-end wait, the copy-out launch; with a card a
+#: process the one launch cut at the same places), and its flips (one
+#: captured graph, a stamp after each operation)
+TIMELINE_OPS = {"push": ("DATA", "SIGNAL"), "wait": ("WAIT",), "copy_out": ("COPY", "RELEASE")}
 TIMELINE_FLIPS = 3
 
 
@@ -6683,15 +6694,19 @@ def span_split(torch, mh, mesh, flips) -> dict:
     import numpy as np
 
     from rustpde_mpi_tpu_torch.ops import _build
+    from rustpde_mpi_tpu_torch.ops import ring_transpose as rt
+
+    def bits(names):
+        return sum(getattr(rt, f"PUSH_{n}") for n in names)
 
     ring = mesh.ring
     rows, step = [], {}
     for (shape, x_to_y, dtype), count in sorted(flips.items()):
         block = torch.zeros(shape, dtype=getattr(torch, dtype), device=mesh.device)
         row = {"shape": list(shape), "x_to_y": x_to_y, "dtype": dtype, "per_step": count}
-        for part, bits in SPLIT_PARTS.items():
-            def fn(bits=bits):
-                ring._push(block, x_to_y, bits)
+        for part, names in SPLIT_PARTS.items():
+            def fn(parts=bits(names)):
+                ring._push(block, x_to_y, parts)
 
             span_barrier(torch, mh, f"37 split {part}")
             row[f"{part}_warm_ms"] = span_graph_ms(torch, mh, fn, SPAN_REPS, f"37 split {part}")
@@ -6711,8 +6726,8 @@ def span_split(torch, mh, mesh, flips) -> dict:
     def flips_stamped():
         _build.call(lib.rp_stamp, mesh.device, stamps.data_ptr(), 0)
         for i in range(TIMELINE_FLIPS):
-            for j, bits in enumerate(TIMELINE_OPS.values()):
-                ring._push(block, x_to_y, bits)
+            for j, names in enumerate(TIMELINE_OPS.values()):
+                ring._push(block, x_to_y, bits(names))
                 _build.call(lib.rp_stamp, mesh.device, stamps.data_ptr(),
                             1 + i * len(TIMELINE_OPS) + j)
 
@@ -7026,7 +7041,8 @@ def phase37(torch, pt, card, one_flips) -> dict:
                 "periodic_records": results[0]["periodic1024_flips"],
                 "launches": {k: sum(r["rbc1025_launches"][k] for r in results)
                              for k in results[0]["rbc1025_launches"]},
-                "ms": [r["rbc1025_ms"] for r in results], "nproc": nproc}
+                "ms": [r["rbc1025_ms"] for r in results], "nproc": nproc,
+                "split": results[0]["split"]["step"]}
     print(f"phase37 ok ({time.perf_counter() - t0:.1f} s)")
     return summary
 
@@ -7423,7 +7439,9 @@ def remote_flip_entry(span) -> dict:
     """The kernels line's entry of the remote flip: its times summed over
     one step's flips of meshed ``rbc1025`` on 2 processes x 2 ranks (rank
     0's), its launches those of phase 37's counted runs on that layout
-    (flips and rank gathers of every process)."""
+    (flips and rank gathers of every process), and the step's split into
+    its parts (``split``, :func:`span_split`); the other layouts' under
+    their labels."""
     main = span["2x2"]
     sums = route_sums(main["records"])
     entry = {"name": "ring_push", "route": "cuda",
@@ -7433,12 +7451,14 @@ def remote_flip_entry(span) -> dict:
              "flip_launches": main["launches"].get("ring_transpose", 0),
              "gather_launches": main["launches"].get("ring_gather", 0),
              "max_abs_err": max(r["max_abs_err"] for r in main["records"]),
-             **sums, "per": "one step of rbc1025 f64 on 2 processes x 2 ranks (rank 0's flips)"}
+             **sums, "per": "one step of rbc1025 f64 on 2 processes x 2 ranks (rank 0's flips)",
+             "split": main["split"]}
     for label, part in span.items():
         if label != "2x2":
             for k, v in route_sums(part["records"]).items():
                 if k != "bound_by":
                     entry[f"{label}_{k}"] = v
+            entry[f"{label}_split"] = part["split"]
             entry[f"{label}_launches"] = sum(part["launches"].get(k, 0)
                                              for k in ("ring_transpose", "ring_gather"))
     return entry

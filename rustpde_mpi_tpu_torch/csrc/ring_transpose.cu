@@ -284,220 +284,395 @@ extern "C" int rp_ring_transpose_c64(int P, int c, int w, long long xs0, long lo
 // direction) of flip, allocated by rp_slab_alloc below with cudaMalloc
 // (an IPC handle names a whole allocation, never a block of PyTorch's
 // caching allocator) and mapped into every peer with
-// cudaIpcOpenMemHandle.  The slab holds the flip's output for the
-// process's ranks in the output layout; `dst[t]` is destination rank t's
-// block in its process's slab as mapped in this process.
+// cudaIpcOpenMemHandle.  A slab holds two buffers, each the flip's output
+// for the process's ranks in the output layout, then its control words.
+// Destination rank t's chunk from local rank lr lands, for every member m,
 //
-//   x -> y:   dst[t][m, i, (g0 + lr)*w + j]     = X[m, lr, t*c + i, j]
-//   y -> x:   dst[t][m, (g0 + lr)*c + i, j]     = Y[m, lr, i, t*w + j]
+//   x -> y:   [m, t - q*PL, i, (g0 + lr)*w + j]     = X[m, lr, t*c + i, j]
+//   y -> x:   [m, t - q*PL, (g0 + lr)*c + i, j]     = Y[m, lr, i, t*w + j]
 //
-// for every local rank lr and destination rank t, local or remote alike:
-// chunks between local ranks go straight into this process's own slab.
-// On one card shared by the processes the pushes stay in its memory; with
-// a card a process they go over NVLink to the peer card.
+// in buffer (epoch & 1) of process q's slab when t is a peer's rank, and
+// straight in the flip's output when t is one of this process's: only
+// the peers' chunks make a second pass, from the slab into the output (so
+// the returned tensor is fresh and never aliases a slab).
 //
-// Completion without a spinning kernel.  Processes that share a card run
-// in separate contexts, which the card time-slices, so a kernel that spun
-// on a flag could hold the card while the peer it waits for cannot run.
-// The handshake is made of the CUDA driver API's stream memory operations
-// (cuStreamWaitValue32 / cuStreamWriteValue32, reached through
-// cudaGetDriverEntryPoint so that no link flag changes), which wait in the
-// card's front end, not on its SMs.  Every slab ends with two flag arrays,
-// one flag a process (the TPU kernel's receive and send semaphores):
-//   ready[q]   1: process q's chunks for this flip are in my slab;
-//   credit[q]  1: my chunks may go into process q's slab (q consumed the
-//              last ones).
-// A flip on process p is, on its stream:
-//   wait credit[q] == 1, set credit[q] = 0   (each peer q, local flags)
-//   push kernel                              (all chunks, all ranks)
-//   write 1 into q's ready[p]                (each peer, after a fence)
-//   wait ready[q] == 1                       (each peer, local flags)
-//   copy-out kernel: slab -> a fresh output  (so the flip never aliases
-//                                             the slab)
-//   set ready[q] = 0, write 1 into q's credit[p]
-// The values are the same on every call, so a CUDA graph that captured
-// the sequence replays it unchanged (an epoch baked into a captured wait
-// would not advance), and a sender never overwrites a slab its receiver
-// is still reading.  Each wait is on this process's own memory; the
-// writes go to the peers' (a stream write is preceded by a memory fence,
-// so the chunks are visible before the flag that announces them).
+// Where a flip's time went in the first design (chip_smoke.py phase 37's
+// split, PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W; a meshed
+// rbc1025 step's 37 flips of one process, a captured graph every process
+// replays together).  That design waited for a credit (the peer had
+// copied the last flip out of the one buffer), pushed, wrote and waited
+// for the ready flags, copied out, and cleared and handed back the flags:
+// 6 stream memory operations a peer and 2 launches a flip, two
+// cross-process dependencies.  On one card shared by 2 processes x 2
+// ranks the push alone took 0.13 ms a step, the copy-out alone 0.09-0.19,
+// the handshake alone (its memory operations, no kernel) 1.39-1.52, and
+// the whole flip 11.32-11.67: the parts summed to a seventh of the whole.
+// The timeline of a graph of flips (a one-thread kernel stamping the
+// card's global timer between the operations) showed why: the processes'
+// contexts never ran at once; each ran its operations until a wait found
+// its flag unset, and ~140 us passed before the other context's next
+// operation ran, twice a flip (the ready wait on one process, the credit
+// wait on the other).  With no kernel between the waits the same
+// handshakes switched in ~20 us.  On 4 x 1 every flip cost ~4 such
+// switches (0.65 ms).  With a card a process (four cards) nothing waits
+// on a switch: the push took 0.32 ms a step, the copy-out 0.13, the
+// handshake alone 2.46-2.51 of the whole 2.79-2.87; per flip its 18
+// stream memory operations took ~65 of ~70 us, ~3.5 us each, serialized
+// in the card's front end.
 //
-// Bound on the H100: bytes.  The push reads and writes each element once
-// and the copy-out reads and writes it once more, 4 * elements * size;
-// across cards the (P - PL) / P remote share of the push goes over NVLink
-// (450 GB/s each way).  The push kernel is the one-device kernel's design
-// (one flat range of words, RT_UNROLL loads in flight a thread, the
-// indices split by multiply-highs); the copy-out is a flat word copy.
+// So this design attacks the waits, in two forms behind one entry, which
+// the wrapper picks from the mesh's layout (ops/ring_transpose.py
+// `SpanningRing`): a kernel may spin on a flag only where no other
+// process shares its card.
+//  * One cross-process dependency a flip.  The two buffers make the
+//    credit unnecessary: a sender writes flip e into buffer e & 1, whose
+//    last reader was the receiver's flip e - 2, and the sender's flip e - 1
+//    waited for the receiver's signal of flip e - 1, which the receiver
+//    sends only after its flip e - 2 ended.  So a process that takes the
+//    card completes a flip and pushes the next before it waits again: one
+//    context switch a flip back to back where there were two (inside a
+//    step, where compute sits between the flips, it was one already).
+//  * Flags as semaphores, epochs on the card.  ready[q] in the receiver's
+//    control words counts process q's pushes not yet consumed: the
+//    sender's push launch adds 1 (the last of its blocks to finish, after
+//    a system-scope fence, so every block's chunks are visible first), the
+//    receiver waits until it is >= 1 and its copy-out subtracts 1.  The
+//    waits compare with the constant 1, so a captured graph replays them
+//    unchanged; the buffer comes from the slab's epoch, which the last
+//    block of the copy-out advances on the card, so no replay goes stale.
+//  * Shared card (the processes' contexts time-slice it): two launches a
+//    flip, the push (and its signal) and the copy-out, with the peers'
+//    waits between them as one cuStreamBatchMemOp (reached through
+//    cudaGetDriverEntryPoint, no link flag), which waits in the card's
+//    front end, so a waiting process holds no SM.  3 stream operations a
+//    flip where there were 2 + 6 a peer.
+//  * A card a process: one launch a flip.  A grid no larger than the card
+//    holds at once pushes, signals, waits for every peer on loads of its
+//    own flags and one acquire fence (bounded: past RT_WAIT_NS the kernel
+//    traps, so a lost peer fails the run with a CUDA error) and copies the
+//    peers' chunks out.  Every block pushes before it waits, so blocks waiting
+//    for a peer never keep this process's pushing blocks off the card.
+// The flag protocol, step for step, is modelled in plain Python and its
+// schedules drawn by hypothesis in tests/test_torch_remote_protocol.py
+// (no buffer written before its owner read it, no deadlock, every output
+// the plain flip), for 2, 3 and 4 processes over replayed graphs.
 //
-// Measured (chip_smoke.py phase 37, NVIDIA H100 80GB HBM3, 700 W): on one
-// card a flip of a meshed rbc1025 step's pencil, 16.8 MB with the copy-out
-// against a 0.0050 ms bound, takes 0.30-0.49 ms back to back (a captured
-// graph of flips every process replays together) on 2 processes x 2
-// ranks and 0.99-1.02 ms on 4 x 1, where the library's copy_ of the same
-// chunks, with no handshake, takes 0.012 and 0.006.  With the L2 flushed
-// a 2 x 2 flip's window is either 0.028 ms or 0.14-0.36 ms: the flip's own
-// work is small and the rest is waiting on the peers.  Why it waits (the
-// card switching between the processes' contexts is the likely cause) is
-// not measured.  With one process a card (four cards) the same flip takes
-// 0.074-0.100 ms beside NCCL's all_to_all_single at 0.018-0.038.
+// Bound on the H100: bytes.  A flip reads its input once and writes its
+// output once, 2 * elements * size over 3.35 TB/s; across cards the
+// (P - PL) / P remote share goes over NVLink (450 GB/s each way).  This
+// design moves that plus the peers' chunks' second pass (slab -> output).
+//
+// Measured (chip_smoke.py phase 37, same card): with a card a process a
+// step's flips take 0.75 ms back to back and 0.94 with the L2 flushed
+// (the first design 3.15 and 2.95; NCCL's all_to_all_single 0.91), the
+// handshake 0.44-0.55 of it; back to back on a shared card 6.5 ms on
+// 2 x 2 and 18 on 4 x 1 (11.5 and 38), each a context switch a flip.
 // ---------------------------------------------------------------------------
+
+#include <cuda.h>
 
 #define RT_MAX_RANKS 64
 #define RT_MAX_PROCS 16
 // the bytes of an IPC handle the wrapper passes (ops/ring_transpose.py)
 static_assert(sizeof(cudaIpcMemHandle_t) == 64, "an IPC handle is 64 bytes");
+// a slab's control words, after its two buffers: ready[RT_MAX_PROCS], then
+// the epoch and the launch's arrive and leave counts; the wrapper passes
+// their addresses, the allocation zeroes them
+#define RT_CTL_BYTES 256
+// a wait inside a kernel longer than this (ns of the card's global timer)
+// traps: a peer that never signals fails the run
+#define RT_WAIT_NS 120000000000ULL
 
-// Mirror of rustpde_mpi_tpu_torch/ops/ring_transpose.py `RpPush`: one flip
-// of a spanning mesh.  Strides and extents in elements.
+// Mirror of rustpde_mpi_tpu_torch/ops/_build.py `RpPush`: one flip of a
+// spanning mesh.  Strides and extents in elements.
 struct RpPush {
   const void* in;                      // this process's pencils ([K,] PL, ...)
-  void* slab;                          // this process's receive slab
-  void* out;                           // the flip's output (as large as the slab)
-  void* dst[RT_MAX_RANKS];             // destination rank t's block, as mapped here
-  unsigned* ready;                     // this slab's ready flags, one a process
-  unsigned* credit;                    // this slab's credit flags, one a process
-  unsigned* ready_peer[RT_MAX_PROCS];  // process q's ready flag of this process
-  unsigned* credit_peer[RT_MAX_PROCS]; // process q's credit flag of this process
+  void* out;                           // the flip's output, the slab's layout
+  const void* slab;                    // this process's receive slab (buffer 0)
+  void* dst[RT_MAX_RANKS];             // rank t's block: buffer 0 of its slab as mapped
+                                       // here (a peer's rank), or of out (this process's)
+  unsigned* ctl;                       // this slab's control words
+  unsigned* ready_peer[RT_MAX_PROCS];  // process q's ready semaphore of this process
+  long long buf_bytes;                 // bytes from a slab's buffer 0 to its buffer 1
   long long is0, is1, ism;             // input rank, row and member strides
-  long long d1, dsm;                   // destination row and member strides
-  long long out_elems;                 // elements of the slab's data (the copy-out)
-  long long mul_w, mul_c, mul_p, mul_l;  // magic pairs of w / (word / elem), c, P, PL
-  int shr_w, shr_c, shr_p, shr_l;
+  long long d1, dsm, blk;              // output row, member and rank-block strides
+  long long mul_w, mul_c, mul_p, mul_l, mul_r;  // magic pairs of w / (word / elem), c,
+                                                // P, PL and the peers' ranks P - PL
+  int shr_w, shr_c, shr_p, shr_l, shr_r;
   int P, PL, g0, c, w, members, x_to_y, word, nproc, me;
-  int parts;  // the parts this call issues (PUSH_* bits; a flip issues all)
+  int one_launch;  // 1: every process has its own card (the kernel waits); 0: shared
+  int parts;       // the parts this call issues (PUSH_* bits; a flip issues all)
 };
 
 namespace rp {
 
-// The parts of a flip (RpPush::parts), in their order on the stream; a
-// flip issues them all, chip_smoke.py's split times them apart.
-constexpr int PUSH_CREDIT = 1, PUSH_KERNEL = 2, PUSH_READY = 4, PUSH_COPY = 8, PUSH_RELEASE = 16;
+// The parts of a flip (RpPush::parts), in their order: the push, its
+// signal to the peers, the wait for theirs, the copy-out of their chunks,
+// and the release (the semaphores consumed, the epoch advanced).  A flip
+// issues them all; chip_smoke.py's split times them apart.
+constexpr int PUSH_DATA = 1, PUSH_SIGNAL = 2, PUSH_WAIT = 4, PUSH_COPY = 8, PUSH_RELEASE = 16;
+constexpr int PUSH_ALL = 31;
+
+// control words (unsigned) of a slab
+constexpr int CTL_EPOCH = RT_MAX_PROCS, CTL_ARRIVE = RT_MAX_PROCS + 1,
+              CTL_LEAVE = RT_MAX_PROCS + 2;
+static_assert((RT_MAX_PROCS + 3) * sizeof(unsigned) <= RT_CTL_BYTES, "control words fit");
 
 struct PushArgs {
   const void* in;
+  void* out;
+  const void* slab;
   void* dst[RT_MAX_RANKS];
-  unsigned n;  // words the launch moves
-  FastDiv wv, c, p, pl;
-  int g0;
-  int is0, is1, ism, d1, dsm;
+  unsigned* ctl;
+  unsigned* ready_peer[RT_MAX_PROCS];
+  unsigned n;      // words the push moves
+  unsigned ncopy;  // words the copy-out moves (the peers' chunks)
+  unsigned buf;    // words from a slab's buffer 0 to its buffer 1
+  FastDiv wv, c, p, pl, r;
+  int g0, nproc, me, parts;
+  int is0, is1, ism, d1, dsm, blk;
 };
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void fence_acq_rel_sys() {
+  asm volatile("fence.acq_rel.sys;" ::: "memory");
+}
+
+// The last block of a launch to pass this point (count at ctl[which]):
+// true on its thread 0, which resets the count.  With RELEASE, every
+// block's writes before the call are visible (system scope) to what that
+// thread does after it: each block's count is a release, the last one's
+// an acquire.
+template <bool RELEASE>
+__device__ __forceinline__ bool last_block(unsigned* ctl, int which) {
+  __syncthreads();
+  bool last = false;
+  if (threadIdx.x == 0) {
+    if (RELEASE) fence_acq_rel_sys();
+    last = atomicAdd(ctl + which, 1u) == gridDim.x - 1;
+    if (last) {
+      ctl[which] = 0;
+      if (RELEASE) fence_acq_rel_sys();
+    }
+  }
+  return last;
+}
 
 template <int BYTES, bool X2Y>
 __global__ void __launch_bounds__(RT_THREADS) ring_push_kernel(const PushArgs a) {
   using W = typename Word<BYTES>::type;
   const W* __restrict__ in = static_cast<const W*>(a.in);
-  const unsigned first = blockIdx.x * (RT_THREADS * RT_UNROLL) + threadIdx.x;
-  W v[RT_UNROLL];
-  W* dst[RT_UNROLL];
+  W* __restrict__ out = static_cast<W*>(a.out);
+  const W* slab = static_cast<const W*>(a.slab);
+  const unsigned epoch = *(volatile unsigned*)(a.ctl + CTL_EPOCH);
+  const unsigned boff = (epoch & 1u) * a.buf;
+  const int cc = (int)a.c.d, ww = (int)a.wv.d, pl = (int)a.pl.d;
+  constexpr unsigned TILE = RT_THREADS * RT_UNROLL;
+  if (a.parts & PUSH_DATA) {
+    for (unsigned first = blockIdx.x * TILE + threadIdx.x; first < a.n; first += gridDim.x * TILE) {
+      W v[RT_UNROLL];
+      W* dst[RT_UNROLL];
 #pragma unroll
-  for (int u = 0; u < RT_UNROLL; ++u) {
-    const unsigned g = first + u * RT_THREADS;
-    if (g < a.n) {
-      // the flat range in the source's order (m, lr, t, i, j)
-      const unsigned q = fast_div(g, a.wv);
-      const int j = (int)(g - q * a.wv.d);
-      const unsigned k = fast_div(q, a.c);
-      const int i = (int)(q - k * a.c.d);
-      const unsigned ml = fast_div(k, a.p);
-      const int t = (int)(k - ml * a.p.d);
-      const unsigned m = fast_div(ml, a.pl);
-      const int lr = (int)(ml - m * a.pl.d);
-      const int cc = (int)a.c.d, ww = (int)a.wv.d;
-      int src, off;
-      if constexpr (X2Y) {
-        src = (int)m * a.ism + lr * a.is0 + (t * cc + i) * a.is1 + j;
-        off = (int)m * a.dsm + i * a.d1 + (a.g0 + lr) * ww + j;
-      } else {
-        src = (int)m * a.ism + lr * a.is0 + i * a.is1 + t * ww + j;
-        off = (int)m * a.dsm + ((a.g0 + lr) * cc + i) * a.d1 + j;
+      for (int u = 0; u < RT_UNROLL; ++u) {
+        const unsigned g = first + u * RT_THREADS;
+        if (g < a.n) {
+          // the flat range in the source's order (m, lr, t, i, j)
+          const unsigned q = fast_div(g, a.wv);
+          const int j = (int)(g - q * a.wv.d);
+          const unsigned k = fast_div(q, a.c);
+          const int i = (int)(q - k * a.c.d);
+          const unsigned ml = fast_div(k, a.p);
+          const int t = (int)(k - ml * a.p.d);
+          const unsigned m = fast_div(ml, a.pl);
+          const int lr = (int)(ml - m * a.pl.d);
+          int src, off;
+          if constexpr (X2Y) {
+            src = (int)m * a.ism + lr * a.is0 + (t * cc + i) * a.is1 + j;
+            off = (int)m * a.dsm + i * a.d1 + (a.g0 + lr) * ww + j;
+          } else {
+            src = (int)m * a.ism + lr * a.is0 + i * a.is1 + t * ww + j;
+            off = (int)m * a.dsm + ((a.g0 + lr) * cc + i) * a.d1 + j;
+          }
+          // a peer's rank: this flip's buffer of its slab
+          if ((unsigned)(t - a.g0) >= (unsigned)pl) off += (int)boff;
+          v[u] = __ldg(in + src);
+          dst[u] = static_cast<W*>(a.dst[t]) + off;
+        }
       }
-      v[u] = __ldg(in + src);
-      dst[u] = static_cast<W*>(a.dst[t]) + off;
+#pragma unroll
+      for (int u = 0; u < RT_UNROLL; ++u)
+        if (first + u * RT_THREADS < a.n) *dst[u] = v[u];
     }
   }
+  if (a.parts & PUSH_SIGNAL) {
+    if (last_block<true>(a.ctl, CTL_ARRIVE))
+      for (int q = 0; q < a.nproc; ++q)
+        if (q != a.me) atomicAdd_system(a.ready_peer[q], 1u);
+  }
+  if (a.parts & PUSH_WAIT) {
+    if (threadIdx.x == 0) {
+      const unsigned long long t0 = global_ns();
+      for (int q = 0; q < a.nproc; ++q)
+        if (q != a.me)
+          while (load_relaxed(a.ctl + q) < 1u)
+            if (global_ns() - t0 > RT_WAIT_NS) __trap();
+      fence_acq_rel_sys();  // the peers' chunks before this block's reads
+    }
+    __syncthreads();
+  }
+  if (a.parts & PUSH_COPY) {
+    // the peers' chunks, in the output's order (m, lt, peer rank, i, j);
+    // the slab is read past L1, which may hold a line of an older flip
+    for (unsigned first = blockIdx.x * TILE + threadIdx.x; first < a.ncopy;
+         first += gridDim.x * TILE) {
+      W v[RT_UNROLL];
+      int dst[RT_UNROLL];
 #pragma unroll
-  for (int u = 0; u < RT_UNROLL; ++u)
-    if (first + u * RT_THREADS < a.n) *dst[u] = v[u];
+      for (int u = 0; u < RT_UNROLL; ++u) {
+        const unsigned g = first + u * RT_THREADS;
+        if (g < a.ncopy) {
+          const unsigned q = fast_div(g, a.wv);
+          const int j = (int)(g - q * a.wv.d);
+          const unsigned k = fast_div(q, a.c);
+          const int i = (int)(q - k * a.c.d);
+          const unsigned ml = fast_div(k, a.r);
+          const int sr = (int)(k - ml * a.r.d);
+          const unsigned m = fast_div(ml, a.pl);
+          const int lt = (int)(ml - m * a.pl.d);
+          const int s = sr < a.g0 ? sr : sr + pl;
+          int off = (int)m * a.dsm + lt * a.blk;
+          off += X2Y ? i * a.d1 + s * ww + j : (s * cc + i) * a.d1 + j;
+          v[u] = __ldcg(slab + boff + off);
+          dst[u] = off;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RT_UNROLL; ++u)
+        if (first + u * RT_THREADS < a.ncopy) out[dst[u]] = v[u];
+    }
+  }
+  if (a.parts & PUSH_RELEASE) {
+    // the count only orders this launch's blocks: no data crosses here
+    if (last_block<false>(a.ctl, CTL_LEAVE)) {
+      for (int q = 0; q < a.nproc; ++q)
+        if (q != a.me) atomicAdd_system(a.ctl + q, 0xffffffffu);  // one push consumed
+      *(volatile unsigned*)(a.ctl + CTL_EPOCH) = epoch + 1u;
+    }
+  }
 }
 
-template <int BYTES>
-__global__ void __launch_bounds__(RT_THREADS) word_copy_kernel(const void* __restrict__ src,
-                                                               void* __restrict__ dst,
-                                                               unsigned n) {
-  using W = typename Word<BYTES>::type;
-  const W* __restrict__ s = static_cast<const W*>(src);
-  W* __restrict__ d = static_cast<W*>(dst);
-  const unsigned first = blockIdx.x * (RT_THREADS * RT_UNROLL) + threadIdx.x;
-  W v[RT_UNROLL];
-#pragma unroll
-  for (int u = 0; u < RT_UNROLL; ++u)
-    if (first + u * RT_THREADS < n) v[u] = __ldg(s + first + u * RT_THREADS);
-#pragma unroll
-  for (int u = 0; u < RT_UNROLL; ++u)
-    if (first + u * RT_THREADS < n) d[first + u * RT_THREADS] = v[u];
-}
+typedef CUresult (*BatchMemOpFn)(CUstream, unsigned int, CUstreamBatchMemOpParams*, unsigned int);
+static BatchMemOpFn g_batch = nullptr;
 
-// The CUDA driver API's stream memory operations (CUresult is an int-sized enum,
-// CUstream is cudaStream_t, CUdeviceptr an unsigned 64-bit address).
-typedef int (*StreamValue32Fn)(cudaStream_t, unsigned long long, unsigned, unsigned);
-constexpr unsigned WAIT_VALUE_EQ = 0x1;      // CU_STREAM_WAIT_VALUE_EQ
-constexpr unsigned WRITE_VALUE_DEFAULT = 0;  // CU_STREAM_WRITE_VALUE_DEFAULT: fenced
-
-static StreamValue32Fn g_wait = nullptr, g_write = nullptr;
-
-static cudaError_t entry(const char* name, StreamValue32Fn* fn) {
+static cudaError_t memops() {
+  if (g_batch) return cudaSuccess;
   void* p = nullptr;
   cudaDriverEntryPointQueryResult status;
 #if CUDART_VERSION >= 12050
-  cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &status);
+  cudaError_t e =
+      cudaGetDriverEntryPointByVersion("cuStreamBatchMemOp", &p, 12000, cudaEnableDefault, &status);
 #else
-  cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &status);
+  cudaError_t e = cudaGetDriverEntryPoint("cuStreamBatchMemOp", &p, cudaEnableDefault, &status);
 #endif
   if (e != cudaSuccess) return e;
   if (status != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
-  *fn = reinterpret_cast<StreamValue32Fn>(p);
+  g_batch = reinterpret_cast<BatchMemOpFn>(p);
   return cudaSuccess;
 }
 
-static cudaError_t memops() {
-  if (g_wait && g_write) return cudaSuccess;
-  cudaError_t e = entry("cuStreamWaitValue32", &g_wait);
-  if (e == cudaSuccess) e = entry("cuStreamWriteValue32", &g_write);
-  return e;
-}
-
-// A driver error as a runtime one: the wrapper only tests for non-zero;
-// 999 (cudaErrorUnknown) keeps the two enums apart.
-static int wait_eq(cudaStream_t s, unsigned* flag, unsigned value) {
-  return g_wait(s, reinterpret_cast<unsigned long long>(flag), value, WAIT_VALUE_EQ) ? 999 : 0;
-}
-
-static int write_value(cudaStream_t s, unsigned* flag, unsigned value) {
-  return g_write(s, reinterpret_cast<unsigned long long>(flag), value, WRITE_VALUE_DEFAULT) ? 999
-                                                                                            : 0;
+// Every peer's wait, ready[q] >= 1, as one batch of stream memory
+// operations (the comparison is cyclic: (int)(ready - 1) >= 0).  A driver
+// error comes back as 999 (cudaErrorUnknown): the wrapper tests for
+// non-zero.
+static int wait_peers(cudaStream_t s, unsigned* ctl, int nproc, int me) {
+  CUstreamBatchMemOpParams ops[RT_MAX_PROCS];
+  memset(ops, 0, sizeof(ops));
+  int n = 0;
+  for (int q = 0; q < nproc; ++q)
+    if (q != me) {
+      ops[n].waitValue.operation = CU_STREAM_MEM_OP_WAIT_VALUE_32;
+      ops[n].waitValue.address = reinterpret_cast<CUdeviceptr>(ctl + q);
+      ops[n].waitValue.value = 1;
+      ops[n].waitValue.flags = CU_STREAM_WAIT_VALUE_GEQ;
+      ++n;
+    }
+  return g_batch(reinterpret_cast<CUstream>(s), n, ops, 0) == CUDA_SUCCESS ? 0 : 999;
 }
 
 static bool fits(long long mul, int shr) { return mul >= 0 && mul < (1LL << 32) && shr >= 0 && shr <= 31; }
 
+template <int BYTES, bool X2Y>
+static int launch_kernel(const PushArgs& a, unsigned words, bool one_launch, cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(&ring_push_kernel<BYTES, X2Y>);
+  long long blocks = ((long long)words + RT_THREADS * RT_UNROLL - 1) / (RT_THREADS * RT_UNROLL);
+  if (blocks < 1) blocks = 1;
+  if (one_launch) {
+    // every block of a launch that waits must be on the card at once
+    static int per_sm = 0;
+    if (per_sm == 0) {
+      cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, RT_THREADS, 0);
+      if (e != cudaSuccess) return (int)e;
+    }
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks > (long long)per_sm * sms) blocks = (long long)per_sm * sms;
+  }
+  ring_push_kernel<BYTES, X2Y><<<(int)blocks, RT_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int BYTES>
+static int launch_bytes_push(const PushArgs& a, bool x_to_y, unsigned words, bool one_launch,
+                             cudaStream_t stream) {
+  return x_to_y ? launch_kernel<BYTES, true>(a, words, one_launch, stream)
+                : launch_kernel<BYTES, false>(a, words, one_launch, stream);
+}
+
+static int launch_word(int word, const PushArgs& a, bool x_to_y, unsigned words, bool one_launch,
+                       cudaStream_t stream) {
+  if (word == 4) return launch_bytes_push<4>(a, x_to_y, words, one_launch, stream);
+  if (word == 8) return launch_bytes_push<8>(a, x_to_y, words, one_launch, stream);
+  return launch_bytes_push<16>(a, x_to_y, words, one_launch, stream);
+}
+
 template <int ELEM>
 int launch_push(const RpPush* f, cudaStream_t stream) {
   if (f == nullptr || f->P < 1 || f->PL < 1 || f->P % f->PL || f->P > RT_MAX_RANKS ||
-      f->nproc != f->P / f->PL || f->nproc > RT_MAX_PROCS || f->me < 0 || f->me >= f->nproc ||
-      f->g0 != f->me * f->PL || f->c < 1 || f->w < 1 || f->members < 1 ||
-      (f->x_to_y != 0 && f->x_to_y != 1) || f->word % ELEM ||
-      (f->word != 4 && f->word != 8 && f->word != 16) ||
-      !fits(f->mul_w, f->shr_w) || !fits(f->mul_c, f->shr_c) || !fits(f->mul_p, f->shr_p) ||
-      !fits(f->mul_l, f->shr_l))
+      f->nproc != f->P / f->PL || f->nproc < 2 || f->nproc > RT_MAX_PROCS || f->me < 0 ||
+      f->me >= f->nproc || f->g0 != f->me * f->PL || f->c < 1 || f->w < 1 || f->members < 1 ||
+      (f->x_to_y != 0 && f->x_to_y != 1) || (f->one_launch != 0 && f->one_launch != 1) ||
+      f->parts < 0 || f->parts > PUSH_ALL || f->word % ELEM ||
+      (f->word != 4 && f->word != 8 && f->word != 16) || !fits(f->mul_w, f->shr_w) ||
+      !fits(f->mul_c, f->shr_c) || !fits(f->mul_p, f->shr_p) || !fits(f->mul_l, f->shr_l) ||
+      !fits(f->mul_r, f->shr_r) || f->ctl == nullptr || f->slab == nullptr || f->out == nullptr)
     return (int)cudaErrorInvalidValue;
   const long long nv = f->word / ELEM;
   if (f->w % nv || f->is0 % nv || f->is1 % nv || f->ism % nv || f->d1 % nv || f->dsm % nv ||
-      reinterpret_cast<uintptr_t>(f->in) % f->word)
+      f->blk % nv || f->buf_bytes % f->word || reinterpret_cast<uintptr_t>(f->in) % f->word ||
+      reinterpret_cast<uintptr_t>(f->out) % f->word ||
+      reinterpret_cast<uintptr_t>(f->slab) % f->word)
     return (int)cudaErrorInvalidValue;
   for (int t = 0; t < f->P; ++t)
     if (f->dst[t] == nullptr || reinterpret_cast<uintptr_t>(f->dst[t]) % f->word)
       return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < f->nproc; ++q)
+    if (q != f->me && f->ready_peer[q] == nullptr) return (int)cudaErrorInvalidValue;
   const long long wv = f->w / nv;
   const long long n = (long long)f->members * f->PL * f->P * f->c * wv;
+  const long long ncopy = (long long)f->members * f->PL * (f->P - f->PL) * f->c * wv;
   const long long lim = 1LL << 31;
   const long long rows_in = f->x_to_y ? (long long)f->P * f->c : f->c;
   const long long cols_in = f->x_to_y ? wv : (long long)f->P * wv;
@@ -505,75 +680,58 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
   const long long cols_out = f->x_to_y ? (long long)f->P * wv : wv;
   if (n >= lim ||
       span(f->members, f->ism / nv, f->PL, f->is0 / nv, rows_in, f->is1 / nv, cols_in) >= lim ||
-      span(f->members, f->dsm / nv, 1, 0, rows_out, f->d1 / nv, cols_out) >= lim ||
-      f->out_elems < 1 || f->out_elems * ELEM >= lim * 4)
+      f->blk < rows_out * f->d1 || f->d1 < cols_out * nv ||
+      (f->members > 1 && f->dsm < f->PL * f->blk) ||
+      f->buf_bytes / f->word + span(f->members, f->dsm / nv, f->PL, f->blk / nv, rows_out,
+                                    f->d1 / nv, cols_out) >= lim)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = memops();
   if (e != cudaSuccess) return (int)e;
   PushArgs a;
   a.in = f->in;
+  a.out = f->out;
+  a.slab = f->slab;
   for (int t = 0; t < RT_MAX_RANKS; ++t) a.dst[t] = t < f->P ? f->dst[t] : nullptr;
+  a.ctl = f->ctl;
+  for (int q = 0; q < RT_MAX_PROCS; ++q)
+    a.ready_peer[q] = q < f->nproc ? f->ready_peer[q] : nullptr;
   a.n = (unsigned)n;
+  a.ncopy = (unsigned)ncopy;
+  a.buf = (unsigned)(f->buf_bytes / f->word);
   a.wv = {(unsigned)wv, (unsigned)f->mul_w, (unsigned)f->shr_w};
   a.c = {(unsigned)f->c, (unsigned)f->mul_c, (unsigned)f->shr_c};
   a.p = {(unsigned)f->P, (unsigned)f->mul_p, (unsigned)f->shr_p};
   a.pl = {(unsigned)f->PL, (unsigned)f->mul_l, (unsigned)f->shr_l};
+  a.r = {(unsigned)(f->P - f->PL), (unsigned)f->mul_r, (unsigned)f->shr_r};
   a.g0 = f->g0;
+  a.nproc = f->nproc;
+  a.me = f->me;
   a.is0 = (int)(f->is0 / nv);
   a.is1 = (int)(f->is1 / nv);
   a.ism = f->members > 1 ? (int)(f->ism / nv) : 0;
   a.d1 = (int)(f->d1 / nv);
   a.dsm = f->members > 1 ? (int)(f->dsm / nv) : 0;
+  a.blk = (int)(f->blk / nv);
+  const bool x2y = f->x_to_y != 0;
+  const int parts = f->parts;
+  if (f->one_launch) {
+    // one launch: push, signal, wait, copy out, release
+    a.parts = parts;
+    const unsigned words = (parts & PUSH_DATA) ? a.n : (parts & PUSH_COPY) ? a.ncopy : 0;
+    return launch_word(f->word, a, x2y, words, true, stream);
+  }
+  // the card is shared: the push and its signal, the peers' waits in the
+  // card's front end, the copy-out and the release
   int rc = 0;
-  // the slots of every peer's slab are free
-  for (int q = 0; q < f->nproc && !rc && (f->parts & PUSH_CREDIT); ++q)
-    if (q != f->me) {
-      rc = wait_eq(stream, f->credit + q, 1);
-      if (!rc) rc = write_value(stream, f->credit + q, 0);
-    }
-  if (rc) return rc;
-  const int blocks = (int)((n + RT_THREADS * RT_UNROLL - 1) / (RT_THREADS * RT_UNROLL));
-  if (!(f->parts & PUSH_KERNEL))
-    ;
-  else if (f->word == 4)
-    f->x_to_y ? ring_push_kernel<4, true><<<blocks, RT_THREADS, 0, stream>>>(a)
-              : ring_push_kernel<4, false><<<blocks, RT_THREADS, 0, stream>>>(a);
-  else if (f->word == 8)
-    f->x_to_y ? ring_push_kernel<8, true><<<blocks, RT_THREADS, 0, stream>>>(a)
-              : ring_push_kernel<8, false><<<blocks, RT_THREADS, 0, stream>>>(a);
-  else
-    f->x_to_y ? ring_push_kernel<16, true><<<blocks, RT_THREADS, 0, stream>>>(a)
-              : ring_push_kernel<16, false><<<blocks, RT_THREADS, 0, stream>>>(a);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  // announce the chunks, then wait for every peer's
-  for (int q = 0; q < f->nproc && !rc && (f->parts & PUSH_READY); ++q)
-    if (q != f->me) rc = write_value(stream, f->ready_peer[q], 1);
-  for (int q = 0; q < f->nproc && !rc && (f->parts & PUSH_READY); ++q)
-    if (q != f->me) rc = wait_eq(stream, f->ready + q, 1);
-  if (rc) return rc;
-  // the copy-out: the widest word both pointers and the size allow
-  const long long bytes = f->out_elems * ELEM;
-  const uintptr_t align = reinterpret_cast<uintptr_t>(f->slab) | reinterpret_cast<uintptr_t>(f->out) |
-                          (uintptr_t)bytes;
-  const int cw = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : 4;
-  const unsigned cn = (unsigned)(bytes / cw);
-  const int cblocks = (int)((cn + RT_THREADS * RT_UNROLL - 1) / (RT_THREADS * RT_UNROLL));
-  if (!(f->parts & PUSH_COPY))
-    ;
-  else if (cw == 16)
-    word_copy_kernel<16><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
-  else if (cw == 8)
-    word_copy_kernel<8><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
-  else
-    word_copy_kernel<4><<<cblocks, RT_THREADS, 0, stream>>>(f->slab, f->out, cn);
-  rc = (int)cudaGetLastError();
-  // the slab is consumed: clear the ready flags, hand the peers their credit
-  for (int q = 0; q < f->nproc && !rc && (f->parts & PUSH_RELEASE); ++q)
-    if (q != f->me) {
-      rc = write_value(stream, f->ready + q, 0);
-      if (!rc) rc = write_value(stream, f->credit_peer[q], 1);
-    }
+  if (parts & (PUSH_DATA | PUSH_SIGNAL)) {
+    a.parts = parts & (PUSH_DATA | PUSH_SIGNAL);
+    rc = launch_word(f->word, a, x2y, (parts & PUSH_DATA) ? a.n : 0, false, stream);
+  }
+  if (!rc && (parts & PUSH_WAIT)) rc = wait_peers(stream, f->ctl, f->nproc, f->me);
+  if (!rc && (parts & (PUSH_COPY | PUSH_RELEASE))) {
+    a.parts = parts & (PUSH_COPY | PUSH_RELEASE);
+    rc = launch_word(f->word, a, x2y, (parts & PUSH_COPY) ? a.ncopy : 0, false, stream);
+  }
   return rc;
 }
 
@@ -597,27 +755,19 @@ extern "C" int rp_ring_push_c64(const RpPush* f, void* stream) {
   return rp::launch_push<8>(f, static_cast<cudaStream_t>(stream));
 }
 
-// The receive slabs.  A slab is `data_bytes` (a multiple of 256) of data
-// and then the flags: ready[RT_MAX_PROCS], credit[RT_MAX_PROCS], unsigned.
-// It starts with every ready flag 0 and every credit 1 (every peer's slot
-// free); the call returns when that is on the card, so the handle may go
-// to the peers at once.
+// The receive slabs.  A slab is two buffers of `data_bytes` (a multiple
+// of 256) and then RT_CTL_BYTES of control words, all zero at the start
+// (no push pending, epoch 0); the call returns when that is on the card,
+// so the handle may go to the peers at once.
 
 extern "C" int rp_slab_alloc(long long data_bytes, void** ptr, void* handle) {
   if (data_bytes < 0 || data_bytes % 256 || ptr == nullptr || handle == nullptr)
     return (int)cudaErrorInvalidValue;
-  const size_t flags = 2 * RT_MAX_PROCS * sizeof(unsigned);
+  const size_t bytes = 2 * (size_t)data_bytes + RT_CTL_BYTES;
   void* p = nullptr;
-  cudaError_t e = cudaMalloc(&p, (size_t)data_bytes + flags);
+  cudaError_t e = cudaMalloc(&p, bytes);
   if (e != cudaSuccess) return (int)e;
-  unsigned init[2 * RT_MAX_PROCS];
-  for (int q = 0; q < RT_MAX_PROCS; ++q) {
-    init[q] = 0;
-    init[RT_MAX_PROCS + q] = 1;
-  }
-  e = cudaMemset(p, 0, (size_t)data_bytes);
-  if (e == cudaSuccess)
-    e = cudaMemcpy(static_cast<char*>(p) + data_bytes, init, flags, cudaMemcpyHostToDevice);
+  e = cudaMemset(p, 0, bytes);
   if (e == cudaSuccess) e = cudaDeviceSynchronize();
   if (e == cudaSuccess) e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), p);
   if (e != cudaSuccess) {
@@ -641,11 +791,9 @@ extern "C" int rp_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr);
 
 // A timeline mark: one thread writes the card's global timer (ns) into
 // stamps[index] when the stream reaches it (chip_smoke.py's split of a
-// remote flip, between the parts of a captured flip).
+// remote flip, between the operations of a captured flip).
 __global__ void stamp_kernel(unsigned long long* stamps, int index) {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  stamps[index] = t;
+  stamps[index] = rp::global_ns();
 }
 
 extern "C" int rp_stamp(void* stamps, int index, void* stream) {
@@ -654,4 +802,3 @@ extern "C" int rp_stamp(void* stamps, int index, void* stream) {
       static_cast<unsigned long long*>(stamps), index);
   return (int)cudaGetLastError();
 }
-

@@ -84,39 +84,44 @@ PUSH_MAX_PROCS = 16
 #: bytes of a CUDA IPC memory handle (``cudaIpcMemHandle_t``; the source
 #: asserts it)
 IPC_HANDLE_BYTES = 64
+#: bytes of a receive slab's control words, after its two buffers (its
+#: ready semaphores first, one a process); the same as ``RT_CTL_BYTES``
+SLAB_CTL_BYTES = 256
 
 
 class RpPush(ctypes.Structure):
     """Mirror of ``struct RpPush`` in ``csrc/ring_transpose.cu``: one flip
-    of a mesh whose ranks span processes (the input, this process's
-    receive slab and the output; each destination rank's block as mapped
-    in this process; the slab's flags and the peers' flags of this
-    process; strides and extents in elements, the magic pairs of the
-    launch's divisors)."""
+    of a mesh whose ranks span processes (the input, the output and this
+    process's receive slab; each destination rank's block, a peer's slab
+    as mapped in this process or the output; the slab's control words and
+    the peers' ready semaphores of this process; strides and extents in
+    elements, the magic pairs of the launch's divisors; the form, one
+    launch or two, and the parts the call issues)."""
 
     _fields_ = [
         ("inp", ctypes.c_void_p),
-        ("slab", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
+        ("slab", ctypes.c_void_p),
         ("dst", ctypes.c_void_p * PUSH_MAX_RANKS),
-        ("ready", ctypes.c_void_p),
-        ("credit", ctypes.c_void_p),
+        ("ctl", ctypes.c_void_p),
         ("ready_peer", ctypes.c_void_p * PUSH_MAX_PROCS),
-        ("credit_peer", ctypes.c_void_p * PUSH_MAX_PROCS),
+        ("buf_bytes", ctypes.c_longlong),
         ("is0", ctypes.c_longlong),
         ("is1", ctypes.c_longlong),
         ("ism", ctypes.c_longlong),
         ("d1", ctypes.c_longlong),
         ("dsm", ctypes.c_longlong),
-        ("out_elems", ctypes.c_longlong),
+        ("blk", ctypes.c_longlong),
         ("mul_w", ctypes.c_longlong),
         ("mul_c", ctypes.c_longlong),
         ("mul_p", ctypes.c_longlong),
         ("mul_l", ctypes.c_longlong),
+        ("mul_r", ctypes.c_longlong),
         ("shr_w", ctypes.c_int),
         ("shr_c", ctypes.c_int),
         ("shr_p", ctypes.c_int),
         ("shr_l", ctypes.c_int),
+        ("shr_r", ctypes.c_int),
         ("P", ctypes.c_int),
         ("PL", ctypes.c_int),
         ("g0", ctypes.c_int),
@@ -127,6 +132,7 @@ class RpPush(ctypes.Structure):
         ("word", ctypes.c_int),
         ("nproc", ctypes.c_int),
         ("me", ctypes.c_int),
+        ("one_launch", ctypes.c_int),
         ("parts", ctypes.c_int),
     ]
 

@@ -32,11 +32,13 @@ magic constants of :func:`fast_divmod`, computed here for each launch.
 
 A mesh whose ranks span processes (:class:`SpanningRing`) flips through the
 kernel's remote form, ``rp_ring_push_*``: each process holds ``P / nproc``
-consecutive ranks and pushes every chunk straight into the destination
-rank's receive slab, which its process allocated and every peer mapped
-through CUDA IPC; completion rides flags in the slabs (the TPU kernel's
-send and receive semaphores).  On the CPU the same flip is an all-to-all
-through ``torch.distributed`` on gloo.
+consecutive ranks, writes its own ranks' chunks straight into its output
+and pushes the peers' into their receive slabs (two buffers each, which
+every peer mapped through CUDA IPC), from which each process copies them
+out; completion rides semaphores in the slabs (the TPU kernel's send and
+receive semaphores), waited on in the card's front end where processes
+share a card and inside the one launch where each has its own.  On the
+CPU the same flip is an all-to-all through ``torch.distributed`` on gloo.
 """
 
 from __future__ import annotations
@@ -209,19 +211,23 @@ class RingTranspose:
         return out
 
 
-#: bytes a receive slab's data is rounded up to (its flags follow)
+#: bytes a receive slab's buffer is rounded up to (two buffers, then the
+#: control words)
 SLAB_ALIGN = 256
-#: every part of a remote flip (``RpPush.parts``): the credit wait, the
-#: push, the ready handshake, the copy-out and the release
+#: the parts of a remote flip (``RpPush.parts``, ``csrc/ring_transpose.cu``
+#: ``PUSH_*``): the push, its signal to the peers, the wait for theirs, the
+#: copy-out of their chunks and the release; a flip issues them all
+PUSH_DATA, PUSH_SIGNAL, PUSH_WAIT, PUSH_COPY, PUSH_RELEASE = 1, 2, 4, 8, 16
 PUSH_ALL = 31
 
 
 class _Slab:
     """One receive slab of a spanning mesh: this process's allocation
-    (``ptr``, ``data_bytes`` of data then the flags) and every process's
-    as mapped here (``peers[q]``; this process's own pointer at ``me``),
-    with the push's parameter block filled in but for the input, the
-    output and the launch's word (:meth:`SpanningRing._push`)."""
+    (``ptr``: two buffers of ``data_bytes``, then the control words) and
+    every process's as mapped here (``peers[q]``; this process's own pointer
+    at ``me``), with the push's parameter block filled in but for the
+    input, the output, this process's ranks' blocks of it and the launch's
+    word (:meth:`SpanningRing._push`)."""
 
     def __init__(self, ptr: int, peers: list, data_bytes: int, params):
         self.ptr, self.peers, self.data_bytes, self.params = ptr, peers, data_bytes, params
@@ -236,18 +242,24 @@ class SpanningRing(RingTranspose):
     of the flipped pencil.
 
     On a CUDA device :meth:`flip` launches the remote form of the kernel
-    (``rp_ring_push_*``): the chunks of every local rank go straight into
-    the destination ranks' receive slabs, and the output is copied out of
-    this process's slab into a fresh tensor, so flipped pencils never alias
-    each other.  The slabs are allocated in the extension (an IPC handle
-    names a whole ``cudaMalloc`` allocation) at a shape's first flip, one
-    per (shape, dtype, direction), and their handles swapped once through
+    (``rp_ring_push_*``): the chunks for this process's ranks go straight
+    into a fresh output, the peers' ranks' chunks into their receive slabs,
+    from which each process copies them into its output, so flipped
+    pencils never alias each other.  The slabs are allocated in the
+    extension (an IPC handle names a whole ``cudaMalloc`` allocation) at a
+    shape's first flip, one per (shape, dtype, direction), two buffers each
+    (a flip writes the buffer its epoch names, counted on the card), and
+    their handles swapped once through
     :func:`..parallel.multihost.allgather_bytes`: a host collective, so the
     first flip of a shape runs outside a CUDA-graph capture (a chunk
-    runner's warm-up step makes it).  Every process issues the same flips
-    in the same order.  On the CPU :meth:`plain` is the same flip through
-    ``torch.distributed.all_to_all_single`` on gloo (also on a CUDA tensor,
-    through the host: the kernel's yardstick).
+    runner's warm-up step makes it).  Where every process has a card of its
+    own the flip is one launch that waits on its flags; where processes
+    share a card (their contexts time-slice it) the waits sit between two
+    launches, in the card's front end (:attr:`one_launch`, from the cards'
+    identities, swapped at the first flip).  Every process issues the same
+    flips in the same order.  On the CPU :meth:`plain` is the same flip
+    through ``torch.distributed.all_to_all_single`` on gloo (also on a CUDA
+    tensor, through the host: the kernel's yardstick).
 
     :attr:`gather` is the mesh's reduction partner: each rank's few values
     to every rank, through the same push and flags."""
@@ -261,6 +273,9 @@ class SpanningRing(RingTranspose):
         self.nlocal = self.nranks // self.nproc
         self.rank0 = self.me * self.nlocal
         self._slabs: dict = {}
+        #: whether every process has a card of its own (the one-launch
+        #: form); known from the first flip on the card
+        self.one_launch = None
         #: each rank's values to every rank (:class:`RankGather`)
         self.gather = RankGather(self)
 
@@ -321,9 +336,10 @@ class SpanningRing(RingTranspose):
         return (out if block.ndim == 4 else out[0]).to(block.device)
 
     def bytes_moved(self, block) -> float:
-        """Bytes a flip of ``block`` must move: the push reads and writes
-        every element once, the copy-out of the slab once more."""
-        return 4.0 * block.numel() * block.element_size()
+        """Bytes a flip of ``block`` must move: its input read once, its
+        output written once (the peers' chunks' pass through the slabs is
+        the design's, not the flip's)."""
+        return 2.0 * block.numel() * block.element_size()
 
     def _slab(self, shape, dtype, x_to_y: bool) -> _Slab:
         """The receive slab of flips to ``shape``, registered at the first
@@ -347,6 +363,9 @@ class SpanningRing(RingTranspose):
                              f"{_build.PUSH_MAX_PROCS} processes, the mesh has "
                              f"{self.nranks} in {self.nproc}")
         lib = _build.load("ring_transpose")
+        if self.one_launch is None:
+            card = str(torch.cuda.get_device_properties(self.device).uuid).encode()
+            self.one_launch = one_card_each(multihost.allgather_bytes(card))
         elem = torch.empty(0, dtype=dtype).element_size()
         numel = 1
         for s in shape:
@@ -373,20 +392,22 @@ class SpanningRing(RingTranspose):
                         "over a Unix socket, is not ported)")
                 peers.append(mapped.value)
         f = _build.RpPush()
-        f.slab = ptr.value
-        flags = _build.PUSH_MAX_PROCS * 4
-        f.ready, f.credit = ptr.value + data, ptr.value + data + flags
+        f.slab, f.buf_bytes, f.ctl = ptr.value, data, ptr.value + 2 * data
         for q in range(self.nproc):
-            f.ready_peer[q] = peers[q] + data + 4 * self.me
-            f.credit_peer[q] = peers[q] + data + flags + 4 * self.me
+            f.ready_peer[q] = peers[q] + 2 * data + 4 * self.me
         lead, (a, b) = shape[:-2], shape[-2:]
         for t in range(self.nranks):
             q, lt = divmod(t, self.nlocal)
-            f.dst[t] = peers[q] + lt * a * b * elem
-        f.d1, f.dsm, f.out_elems = b, self.nlocal * a * b, numel
+            if q != self.me:
+                f.dst[t] = peers[q] + lt * a * b * elem
+        f.d1, f.blk, f.dsm = b, a * b, self.nlocal * a * b
         f.P, f.PL, f.g0, f.nproc, f.me = self.nranks, self.nlocal, self.rank0, self.nproc, self.me
         f.x_to_y = int(x_to_y)
         f.members = int(lead[0]) if len(lead) == 2 else 1
+        f.one_launch = int(self.one_launch)
+        f.mul_p, f.shr_p = fast_divmod(self.nranks)
+        f.mul_l, f.shr_l = fast_divmod(self.nlocal)
+        f.mul_r, f.shr_r = fast_divmod(self.nranks - self.nlocal)
         return _Slab(ptr.value, peers, data, f)
 
     def _push(self, block, x_to_y: bool, parts: int = PUSH_ALL) -> torch.Tensor:
@@ -404,13 +425,14 @@ class SpanningRing(RingTranspose):
         f.is0, f.is1 = pencil_strides(block)
         f.ism = block.stride(0) if block.ndim == 4 and f.members > 1 else 0
         f.inp, f.out = block.data_ptr(), out.data_ptr()
+        for lt in range(self.nlocal):
+            f.dst[self.rank0 + lt] = out.data_ptr() + lt * f.blk * elem
         f.c, f.w = c, w
-        f.word = word_bytes(elem, w, (f.is0, f.is1, f.ism, f.d1, f.dsm),
-                            [block.data_ptr()] + [f.dst[t] for t in range(p)])
+        f.word = word_bytes(elem, w, (f.is0, f.is1, f.ism, f.d1, f.dsm, f.blk),
+                            [block.data_ptr(), out.data_ptr(), f.slab, f.buf_bytes]
+                            + [f.dst[t] for t in range(p)])
         f.mul_w, f.shr_w = fast_divmod(w // (f.word // elem))
         f.mul_c, f.shr_c = fast_divmod(c)
-        f.mul_p, f.shr_p = fast_divmod(p)
-        f.mul_l, f.shr_l = fast_divmod(self.nlocal)
         f.parts = parts
         _build.call(getattr(lib, PUSH_ENTRY[block.dtype]), self.device, ctypes.byref(f))
         return out
@@ -437,6 +459,13 @@ class SpanningRing(RingTranspose):
             for slab in self._slabs.values():
                 _build.check(lib.rp_slab_free(slab.ptr), "rp_slab_free")
         self._slabs.clear()
+
+
+def one_card_each(cards) -> bool:
+    """Whether the processes' cards, one identity each in rank order, are
+    all distinct: then no two processes' contexts time-slice a card, and a
+    remote flip may wait inside its kernel (one launch a flip)."""
+    return len(set(cards)) == len(cards)
 
 
 class RankGather:

@@ -242,6 +242,40 @@ def test_job_struct_mirrors_the_c_layout():
     assert pos == sorted(pos), "field order differs from the C struct"
 
 
+def test_push_struct_mirrors_the_c_layout():
+    """``RpPush`` in csrc/ring_transpose.cu, field for field: the C
+    struct's declarations, laid out by the C rules (each field at a
+    multiple of its size, the struct padded to pointer alignment), give
+    the ctypes mirror's offsets; the array bounds are ``PUSH_MAX_RANKS``
+    and ``PUSH_MAX_PROCS`` and the control block ``SLAB_CTL_BYTES``."""
+    text = (_build.CSRC / "ring_transpose.cu").read_text()
+    body = text[text.index("struct RpPush {"):text.index("};", text.index("struct RpPush {"))]
+    sizes = {"void*": ctypes.sizeof(ctypes.c_void_p), "unsigned*": ctypes.sizeof(ctypes.c_void_p),
+             "long long": 8, "int": 4}
+    bounds = {"RT_MAX_RANKS": _build.PUSH_MAX_RANKS, "RT_MAX_PROCS": _build.PUSH_MAX_PROCS}
+    for name, value in bounds.items():
+        assert int(re.search(rf"#define {name} (\d+)", text).group(1)) == value, name
+    assert int(re.search(r"#define RT_CTL_BYTES (\d+)", text).group(1)) == _build.SLAB_CTL_BYTES
+    want, pos = [], 0
+    body = re.sub(r"//[^\n]*", "", body[len("struct RpPush {"):])
+    for ctype, names in re.findall(r"(?:const )?(void\*|unsigned\*|long long|int)\s+([^;]+);",
+                                   body):
+        for name in (n.strip() for n in names.split(",")):
+            count = 1
+            if "[" in name:
+                name, bound = name[:-1].split("[")
+                count = bounds[bound]
+            size = sizes[ctype]
+            pos = -(-pos // size) * size
+            want.append(("inp" if name == "in" else name, pos, size * count))
+            pos += size * count
+    got = [(n, getattr(_build.RpPush, n).offset, getattr(_build.RpPush, n).size)
+           for n, _ in _build.RpPush._fields_]
+    assert got == want
+    p = ctypes.sizeof(ctypes.c_void_p)
+    assert ctypes.sizeof(_build.RpPush) == -(-pos // p) * p
+
+
 def test_job_validates_operands():
     a = torch.zeros((5, 3), dtype=torch.float64)
     b = torch.zeros((3, 4), dtype=torch.float64)
@@ -349,6 +383,11 @@ def test_signatures_match_the_c_parameter_types():
     assert "banded_solve" in _build.KERNELS and "ring_transpose" in _build.KERNELS
     assert _build._SIGNATURES["ring_transpose"]["rp_ring_transpose_f64"] == \
         _build._SIGNATURES["ring_transpose"]["rp_ring_transpose_f32"]
+    ring = _build._SIGNATURES["ring_transpose"]
+    assert {ring[f"rp_ring_push_{t}"] == ring["rp_ring_push_f64"]
+            for t in ("f32", "c128", "c64")} == {True}
+    assert ring["rp_ring_push_f64"][0] == [ctypes.POINTER(_build.RpPush), ctypes.c_void_p]
+    assert ring["rp_stamp"][0] == [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     for name in _build.KERNELS:
         text = (_build.CSRC / f"{name}.cu").read_text()
         for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
