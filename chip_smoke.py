@@ -368,8 +368,8 @@ launch of a step serving all K members:
     ``phase37 cards`` names the count), each process its ranks stacked on
     its card, every flip through the kernel's remote form (the peers'
     chunks pushed into their two-buffered receive slabs through CUDA IPC,
-    completion on semaphores in the slabs: one launch a flip with a card
-    a process, push, front-end wait and copy-out on a shared card).  In
+    completion on semaphores in the slabs: a push launch, a front-end
+    wait and a copy-out launch a flip).  In
     each layout: the split of a meshed ``rbc1025`` step's flips into the
     push alone, the handshake alone, the copy-out alone and the whole
     flip (each a captured graph every process replays together, and cold
@@ -6673,9 +6673,8 @@ def span_flip_checks(torch, mh, mesh, flips, cell, timed, nccl) -> list:
 #: alone; (d) the whole flip
 SPLIT_PARTS = {"push": ("DATA",), "handshake": ("SIGNAL", "WAIT", "RELEASE"),
                "copy_out": ("COPY",), "flip": ("DATA", "SIGNAL", "WAIT", "COPY", "RELEASE")}
-#: the timeline's operations in their order on the stream (on a shared card
-#: the push launch, the front-end wait, the copy-out launch; with a card a
-#: process the one launch cut at the same places), and its flips (one
+#: the timeline's operations in their order on the stream (the push
+#: launch, the front-end wait, the copy-out launch), and its flips (one
 #: captured graph, a stamp after each operation)
 TIMELINE_OPS = {"push": ("DATA", "SIGNAL"), "wait": ("WAIT",), "copy_out": ("COPY", "RELEASE")}
 TIMELINE_FLIPS = 3

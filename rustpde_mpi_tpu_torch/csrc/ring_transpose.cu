@@ -320,10 +320,9 @@ extern "C" int rp_ring_transpose_c64(int P, int c, int w, long long xs0, long lo
 // stream memory operations took ~65 of ~70 us, ~3.5 us each, serialized
 // in the card's front end.
 //
-// So this design attacks the waits, in two forms behind one entry, which
-// the wrapper picks from the mesh's layout (ops/ring_transpose.py
-// `SpanningRing`): a kernel may spin on a flag only where no other
-// process shares its card.
+// So this design attacks the waits.  No kernel spins on a flag: where
+// processes share a card their contexts time-slice it, and a spinning
+// kernel would hold the card from the peer it waits for.
 //  * One cross-process dependency a flip.  The two buffers make the
 //    credit unnecessary: a sender writes flip e into buffer e & 1, whose
 //    last reader was the receiver's flip e - 2, and the sender's flip e - 1
@@ -340,18 +339,20 @@ extern "C" int rp_ring_transpose_c64(int P, int c, int w, long long xs0, long lo
 //    waits compare with the constant 1, so a captured graph replays them
 //    unchanged; the buffer comes from the slab's epoch, which the last
 //    block of the copy-out advances on the card, so no replay goes stale.
-//  * Shared card (the processes' contexts time-slice it): two launches a
-//    flip, the push (and its signal) and the copy-out, with the peers'
-//    waits between them as one cuStreamBatchMemOp (reached through
-//    cudaGetDriverEntryPoint, no link flag), which waits in the card's
-//    front end, so a waiting process holds no SM.  3 stream operations a
-//    flip where there were 2 + 6 a peer.
-//  * A card a process: one launch a flip.  A grid no larger than the card
-//    holds at once pushes, signals, waits for every peer on loads of its
-//    own flags and one acquire fence (bounded: past RT_WAIT_NS the kernel
-//    traps, so a lost peer fails the run with a CUDA error) and copies the
-//    peers' chunks out.  Every block pushes before it waits, so blocks waiting
-//    for a peer never keep this process's pushing blocks off the card.
+//  * Two launches a flip, the push (and its signal) and the copy-out (and
+//    the release), with the peers' waits between them as one
+//    cuStreamBatchMemOp (reached through cudaGetDriverEntryPoint, no link
+//    flag), which waits in the card's front end, so a waiting process
+//    holds no SM.  3 stream operations a flip where there were 2 + 6 a
+//    peer: on four cards the 18 serialized memory operations are gone.
+//    A form that waits inside one launch (push, signal, spin, copy-out)
+//    was measured beside it on four cards (scripts/span_flip_times.py,
+//    PERF.md section 6): a step's flips 0.69-0.73 ms against this form's
+//    0.79-0.82 back to back (NCCL's 0.80-1.16, median 0.91, in the same
+//    call), and alike cold (1.09-1.41 and 1.11-1.70 with the L2 flushed).
+//    So the one form serves every layout; a spin
+//    would need a cooperative launch and a timeout, and a card shared by
+//    processes or streams could starve it.
 // The flag protocol, step for step, is modelled in plain Python and its
 // schedules drawn by hypothesis in tests/test_torch_remote_protocol.py
 // (no buffer written before its owner read it, no deadlock, every output
@@ -362,10 +363,10 @@ extern "C" int rp_ring_transpose_c64(int P, int c, int w, long long xs0, long lo
 // (P - PL) / P remote share goes over NVLink (450 GB/s each way).  This
 // design moves that plus the peers' chunks' second pass (slab -> output).
 //
-// Measured (chip_smoke.py phase 37, same card): with a card a process a
-// step's flips take 0.75 ms back to back and 0.94 with the L2 flushed
-// (the first design 3.15 and 2.95; NCCL's all_to_all_single 0.91), the
-// handshake 0.44-0.55 of it; back to back on a shared card 6.5 ms on
+// Measured (same card): with a card a process a step's flips take
+// 0.79-0.82 ms back to back (scripts/span_flip_times.py; the first design
+// 3.15 in chip_smoke.py phase 37; NCCL's all_to_all_single 0.80-1.16 in
+// the same call); back to back on a shared card 6.3 ms on
 // 2 x 2 and 18 on 4 x 1 (11.5 and 38), each a context switch a flip.
 // ---------------------------------------------------------------------------
 
@@ -376,12 +377,9 @@ extern "C" int rp_ring_transpose_c64(int P, int c, int w, long long xs0, long lo
 // the bytes of an IPC handle the wrapper passes (ops/ring_transpose.py)
 static_assert(sizeof(cudaIpcMemHandle_t) == 64, "an IPC handle is 64 bytes");
 // a slab's control words, after its two buffers: ready[RT_MAX_PROCS], then
-// the epoch and the launch's arrive and leave counts; the wrapper passes
+// the epoch and the launches' arrive and leave counts; the wrapper passes
 // their addresses, the allocation zeroes them
 #define RT_CTL_BYTES 256
-// a wait inside a kernel longer than this (ns of the card's global timer)
-// traps: a peer that never signals fails the run
-#define RT_WAIT_NS 120000000000ULL
 
 // Mirror of rustpde_mpi_tpu_torch/ops/_build.py `RpPush`: one flip of a
 // spanning mesh.  Strides and extents in elements.
@@ -400,16 +398,16 @@ struct RpPush {
                                                 // P, PL and the peers' ranks P - PL
   int shr_w, shr_c, shr_p, shr_l, shr_r;
   int P, PL, g0, c, w, members, x_to_y, word, nproc, me;
-  int one_launch;  // 1: every process has its own card (the kernel waits); 0: shared
-  int parts;       // the parts this call issues (PUSH_* bits; a flip issues all)
+  int parts;  // the parts this call issues (PUSH_* bits; a flip issues all)
 };
 
 namespace rp {
 
 // The parts of a flip (RpPush::parts), in their order: the push, its
-// signal to the peers, the wait for theirs, the copy-out of their chunks,
-// and the release (the semaphores consumed, the epoch advanced).  A flip
-// issues them all; chip_smoke.py's split times them apart.
+// signal to the peers (the push launch), the wait for theirs (the front
+// end), the copy-out of their chunks and the release (the semaphores
+// consumed, the epoch advanced; the copy-out launch).  A flip issues them
+// all; chip_smoke.py's split times them apart.
 constexpr int PUSH_DATA = 1, PUSH_SIGNAL = 2, PUSH_WAIT = 4, PUSH_COPY = 8, PUSH_RELEASE = 16;
 constexpr int PUSH_ALL = 31;
 
@@ -437,12 +435,6 @@ __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
-}
-
-__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.relaxed.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
 }
 
 __device__ __forceinline__ void fence_acq_rel_sys() {
@@ -519,17 +511,6 @@ __global__ void __launch_bounds__(RT_THREADS) ring_push_kernel(const PushArgs a)
     if (last_block<true>(a.ctl, CTL_ARRIVE))
       for (int q = 0; q < a.nproc; ++q)
         if (q != a.me) atomicAdd_system(a.ready_peer[q], 1u);
-  }
-  if (a.parts & PUSH_WAIT) {
-    if (threadIdx.x == 0) {
-      const unsigned long long t0 = global_ns();
-      for (int q = 0; q < a.nproc; ++q)
-        if (q != a.me)
-          while (load_relaxed(a.ctl + q) < 1u)
-            if (global_ns() - t0 > RT_WAIT_NS) __trap();
-      fence_acq_rel_sys();  // the peers' chunks before this block's reads
-    }
-    __syncthreads();
   }
   if (a.parts & PUSH_COPY) {
     // the peers' chunks, in the output's order (m, lt, peer rank, i, j);
@@ -613,39 +594,24 @@ static int wait_peers(cudaStream_t s, unsigned* ctl, int nproc, int me) {
 static bool fits(long long mul, int shr) { return mul >= 0 && mul < (1LL << 32) && shr >= 0 && shr <= 31; }
 
 template <int BYTES, bool X2Y>
-static int launch_kernel(const PushArgs& a, unsigned words, bool one_launch, cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(&ring_push_kernel<BYTES, X2Y>);
+static int launch_kernel(const PushArgs& a, unsigned words, cudaStream_t stream) {
   long long blocks = ((long long)words + RT_THREADS * RT_UNROLL - 1) / (RT_THREADS * RT_UNROLL);
   if (blocks < 1) blocks = 1;
-  if (one_launch) {
-    // every block of a launch that waits must be on the card at once
-    static int per_sm = 0;
-    if (per_sm == 0) {
-      cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, RT_THREADS, 0);
-      if (e != cudaSuccess) return (int)e;
-    }
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    if (blocks > (long long)per_sm * sms) blocks = (long long)per_sm * sms;
-  }
   ring_push_kernel<BYTES, X2Y><<<(int)blocks, RT_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int BYTES>
-static int launch_bytes_push(const PushArgs& a, bool x_to_y, unsigned words, bool one_launch,
-                             cudaStream_t stream) {
-  return x_to_y ? launch_kernel<BYTES, true>(a, words, one_launch, stream)
-                : launch_kernel<BYTES, false>(a, words, one_launch, stream);
+static int launch_bytes_push(const PushArgs& a, bool x_to_y, unsigned words, cudaStream_t stream) {
+  return x_to_y ? launch_kernel<BYTES, true>(a, words, stream)
+                : launch_kernel<BYTES, false>(a, words, stream);
 }
 
-static int launch_word(int word, const PushArgs& a, bool x_to_y, unsigned words, bool one_launch,
+static int launch_word(int word, const PushArgs& a, bool x_to_y, unsigned words,
                        cudaStream_t stream) {
-  if (word == 4) return launch_bytes_push<4>(a, x_to_y, words, one_launch, stream);
-  if (word == 8) return launch_bytes_push<8>(a, x_to_y, words, one_launch, stream);
-  return launch_bytes_push<16>(a, x_to_y, words, one_launch, stream);
+  if (word == 4) return launch_bytes_push<4>(a, x_to_y, words, stream);
+  if (word == 8) return launch_bytes_push<8>(a, x_to_y, words, stream);
+  return launch_bytes_push<16>(a, x_to_y, words, stream);
 }
 
 template <int ELEM>
@@ -653,8 +619,7 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
   if (f == nullptr || f->P < 1 || f->PL < 1 || f->P % f->PL || f->P > RT_MAX_RANKS ||
       f->nproc != f->P / f->PL || f->nproc < 2 || f->nproc > RT_MAX_PROCS || f->me < 0 ||
       f->me >= f->nproc || f->g0 != f->me * f->PL || f->c < 1 || f->w < 1 || f->members < 1 ||
-      (f->x_to_y != 0 && f->x_to_y != 1) || (f->one_launch != 0 && f->one_launch != 1) ||
-      f->parts < 0 || f->parts > PUSH_ALL || f->word % ELEM ||
+      (f->x_to_y != 0 && f->x_to_y != 1) || f->parts < 0 || f->parts > PUSH_ALL || f->word % ELEM ||
       (f->word != 4 && f->word != 8 && f->word != 16) || !fits(f->mul_w, f->shr_w) ||
       !fits(f->mul_c, f->shr_c) || !fits(f->mul_p, f->shr_p) || !fits(f->mul_l, f->shr_l) ||
       !fits(f->mul_r, f->shr_r) || f->ctl == nullptr || f->slab == nullptr || f->out == nullptr)
@@ -714,23 +679,17 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
   a.blk = (int)(f->blk / nv);
   const bool x2y = f->x_to_y != 0;
   const int parts = f->parts;
-  if (f->one_launch) {
-    // one launch: push, signal, wait, copy out, release
-    a.parts = parts;
-    const unsigned words = (parts & PUSH_DATA) ? a.n : (parts & PUSH_COPY) ? a.ncopy : 0;
-    return launch_word(f->word, a, x2y, words, true, stream);
-  }
-  // the card is shared: the push and its signal, the peers' waits in the
-  // card's front end, the copy-out and the release
+  // the push and its signal, the peers' waits in the card's front end,
+  // the copy-out and the release
   int rc = 0;
   if (parts & (PUSH_DATA | PUSH_SIGNAL)) {
     a.parts = parts & (PUSH_DATA | PUSH_SIGNAL);
-    rc = launch_word(f->word, a, x2y, (parts & PUSH_DATA) ? a.n : 0, false, stream);
+    rc = launch_word(f->word, a, x2y, (parts & PUSH_DATA) ? a.n : 0, stream);
   }
   if (!rc && (parts & PUSH_WAIT)) rc = wait_peers(stream, f->ctl, f->nproc, f->me);
   if (!rc && (parts & (PUSH_COPY | PUSH_RELEASE))) {
     a.parts = parts & (PUSH_COPY | PUSH_RELEASE);
-    rc = launch_word(f->word, a, x2y, (parts & PUSH_COPY) ? a.ncopy : 0, false, stream);
+    rc = launch_word(f->word, a, x2y, (parts & PUSH_COPY) ? a.ncopy : 0, stream);
   }
   return rc;
 }

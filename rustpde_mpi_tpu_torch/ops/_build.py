@@ -95,8 +95,8 @@ class RpPush(ctypes.Structure):
     process's receive slab; each destination rank's block, a peer's slab
     as mapped in this process or the output; the slab's control words and
     the peers' ready semaphores of this process; strides and extents in
-    elements, the magic pairs of the launch's divisors; the form, one
-    launch or two, and the parts the call issues)."""
+    elements, the magic pairs of the launch's divisors; the parts the call
+    issues)."""
 
     _fields_ = [
         ("inp", ctypes.c_void_p),
@@ -132,7 +132,6 @@ class RpPush(ctypes.Structure):
         ("word", ctypes.c_int),
         ("nproc", ctypes.c_int),
         ("me", ctypes.c_int),
-        ("one_launch", ctypes.c_int),
         ("parts", ctypes.c_int),
     ]
 

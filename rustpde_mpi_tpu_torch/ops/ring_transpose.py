@@ -36,9 +36,9 @@ consecutive ranks, writes its own ranks' chunks straight into its output
 and pushes the peers' into their receive slabs (two buffers each, which
 every peer mapped through CUDA IPC), from which each process copies them
 out; completion rides semaphores in the slabs (the TPU kernel's send and
-receive semaphores), waited on in the card's front end where processes
-share a card and inside the one launch where each has its own.  On the
-CPU the same flip is an all-to-all through ``torch.distributed`` on gloo.
+receive semaphores), waited on in the card's front end between the push
+launch and the copy-out launch.  On the CPU the same flip is an
+all-to-all through ``torch.distributed`` on gloo.
 """
 
 from __future__ import annotations
@@ -252,12 +252,10 @@ class SpanningRing(RingTranspose):
     their handles swapped once through
     :func:`..parallel.multihost.allgather_bytes`: a host collective, so the
     first flip of a shape runs outside a CUDA-graph capture (a chunk
-    runner's warm-up step makes it).  Where every process has a card of its
-    own the flip is one launch that waits on its flags; where processes
-    share a card (their contexts time-slice it) the waits sit between two
-    launches, in the card's front end (:attr:`one_launch`, from the cards'
-    identities, swapped at the first flip).  Every process issues the same
-    flips in the same order.  On the CPU :meth:`plain` is the same flip
+    runner's warm-up step makes it).  A flip is two launches, the push and
+    the copy-out, with the waits for the peers' pushes between them in the
+    card's front end, so no kernel spins where processes share a card.
+    Every process issues the same flips in the same order.  On the CPU :meth:`plain` is the same flip
     through ``torch.distributed.all_to_all_single`` on gloo (also on a CUDA
     tensor, through the host: the kernel's yardstick).
 
@@ -273,9 +271,6 @@ class SpanningRing(RingTranspose):
         self.nlocal = self.nranks // self.nproc
         self.rank0 = self.me * self.nlocal
         self._slabs: dict = {}
-        #: whether every process has a card of its own (the one-launch
-        #: form); known from the first flip on the card
-        self.one_launch = None
         #: each rank's values to every rank (:class:`RankGather`)
         self.gather = RankGather(self)
 
@@ -363,9 +358,6 @@ class SpanningRing(RingTranspose):
                              f"{_build.PUSH_MAX_PROCS} processes, the mesh has "
                              f"{self.nranks} in {self.nproc}")
         lib = _build.load("ring_transpose")
-        if self.one_launch is None:
-            card = str(torch.cuda.get_device_properties(self.device).uuid).encode()
-            self.one_launch = one_card_each(multihost.allgather_bytes(card))
         elem = torch.empty(0, dtype=dtype).element_size()
         numel = 1
         for s in shape:
@@ -404,7 +396,6 @@ class SpanningRing(RingTranspose):
         f.P, f.PL, f.g0, f.nproc, f.me = self.nranks, self.nlocal, self.rank0, self.nproc, self.me
         f.x_to_y = int(x_to_y)
         f.members = int(lead[0]) if len(lead) == 2 else 1
-        f.one_launch = int(self.one_launch)
         f.mul_p, f.shr_p = fast_divmod(self.nranks)
         f.mul_l, f.shr_l = fast_divmod(self.nlocal)
         f.mul_r, f.shr_r = fast_divmod(self.nranks - self.nlocal)
@@ -459,13 +450,6 @@ class SpanningRing(RingTranspose):
             for slab in self._slabs.values():
                 _build.check(lib.rp_slab_free(slab.ptr), "rp_slab_free")
         self._slabs.clear()
-
-
-def one_card_each(cards) -> bool:
-    """Whether the processes' cards, one identity each in rank order, are
-    all distinct: then no two processes' contexts time-slice a card, and a
-    remote flip may wait inside its kernel (one launch a flip)."""
-    return len(set(cards)) == len(cards)
 
 
 class RankGather:

@@ -1,31 +1,26 @@
 #!/usr/bin/env python3
 """Device time of a meshed ``rbc1025`` step's remote pencil flips with a
-card a process, beside NCCL's ``all_to_all_single`` of the same blocks, in
-each form of the remote flip kernel (``csrc/ring_transpose.cu``
-``rp_ring_push_*``).
+card a process (``csrc/ring_transpose.cu`` ``rp_ring_push_*``), beside
+NCCL's ``all_to_all_single`` of the same blocks.
 
-    python3 scripts/span_flip_times.py [--procs N] [--rounds R]
+    python3 scripts/span_flip_times.py [--rounds R]
 
-It spawns ``N`` processes (default 4), process ``r`` on card ``r``, joined
+It spawns 4 processes, process ``r`` on card ``r``, joined
 by gloo over localhost, and builds the spanning mesh of one rank a process
 (``multihost.global_pencil_mesh``).  The flips are those of one step of
 meshed ``rbc1025`` f64 on 4 ranks (:data:`STEP_FLIPS`, the local pencil
 shapes and counts ``chip_smoke.py``'s ``span_step_flips`` logs on that
-layout), on random values.  Each form runs every flip once against its
-plain version (the gloo all-to-all; bit for bit) and ``WARMUP`` times
-untimed, then the forms are
-timed in rounds of ``one_launch``, ``two_launch``, ``two_launch``,
-``one_launch`` (``R`` rounds, default 2), each flip warm, a captured graph
+layout), on random values.  Every flip runs once against its plain
+version (the gloo all-to-all; bit for bit) and ``WARMUP`` times untimed,
+then is timed in ``R`` rounds (default 2), each flip warm, a captured graph
 of :data:`WARM_REPS` calls every process replays together (median of 3
 windows, each opened after a rank gather on the card, so no process's
 window holds the others' lag behind the host barrier), and cold as
 ``chip_smoke.py`` phase 37 times it (the L2 flushed, each window opened
-after a rank gather); the sums over the step's counts.  NCCL
-is timed in each round as phase 37 times it (20 calls back to back).  The
-form of every slab is set on the card-side parameter block between
-rounds, after a barrier, when no flip is pending.  It prints the card's
-name and power limit, then one JSON line a round from every process.  It
-needs ``N`` CUDA cards and exits non-zero without them.
+after a rank gather); the sums over the step's counts.  NCCL is timed in
+each round as phase 37 times it (20 calls back to back).  It prints the
+card's name and power limit, then one JSON line a round from every
+process.  It needs 4 CUDA cards and exits non-zero without them.
 """
 
 import argparse
@@ -37,13 +32,13 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: processes, one rank and one card each
+PROCS = 4
 #: ``{(local pencil shape, x_to_y, dtype): flips a step}`` of meshed
 #: ``rbc1025`` f64 with one rank a process, 4 ranks
 STEP_FLIPS = {((1, 256, 1024), False, "float64"): 6, ((1, 257, 1028), False, "float64"): 10,
               ((1, 1024, 256), True, "float64"): 2, ((1, 1024, 257), True, "float64"): 4,
               ((1, 1028, 256), True, "float64"): 14, ((1, 1028, 257), True, "float64"): 1}
-FORMS = {"one_launch": 1, "two_launch": 0}
-ORDER = ("one_launch", "two_launch", "two_launch", "one_launch")
 #: flips in a warm window's graph
 WARM_REPS = 100
 #: untimed flips of each shape in each form before the rounds
@@ -57,13 +52,6 @@ def chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def set_form(ring, form):
-    """Every slab's parameter block (flips and rank gathers) in ``form``."""
-    ring.one_launch = bool(FORMS[form])
-    for slab in ring._slabs.values():
-        slab.params.one_launch = FORMS[form]
 
 
 def warm_ms(torch, mh, cs, ring, fn) -> float:
@@ -122,40 +110,34 @@ def child(rank, nproc, port, rounds):
     blocks = {key: torch.as_tensor(rng.uniform(-1.0, 1.0, size=key[0]),
                                    dtype=getattr(torch, key[2]), device=device)
               for key in STEP_FLIPS}
-    ring.one_launch = True  # the slabs are made in the one-launch form
-    for form in FORMS:
-        cs.span_barrier(torch, mh, f"form {form}")
-        set_form(ring, form)
-        for (shape, x_to_y, _), block in blocks.items():
-            out = ring.apply(block, x_to_y)
-            torch.cuda.synchronize()
-            if not torch.equal(out, ring.plain(block, x_to_y)):
-                raise AssertionError(f"{form}: the flip of {shape} x_to_y={x_to_y} differs "
-                                     "from its plain version")
-            for _ in range(WARMUP):
-                ring.apply(block, x_to_y)
+    for (shape, x_to_y, _), block in blocks.items():
+        out = ring.apply(block, x_to_y)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ring.plain(block, x_to_y)):
+            raise AssertionError(f"the flip of {shape} x_to_y={x_to_y} differs from its "
+                                 "plain version")
+        for _ in range(WARMUP):
+            ring.apply(block, x_to_y)
     lines = []
     for r in range(rounds):
-        for form in ORDER:
-            cs.span_barrier(torch, mh, f"round {r} {form}")
-            set_form(ring, form)
-            warm = cold = nccl_ms = 0.0
-            for (shape, x_to_y, _), block in blocks.items():
-                count = STEP_FLIPS[(shape, x_to_y, _)]
+        cs.span_barrier(torch, mh, f"round {r}")
+        warm = cold = nccl_ms = 0.0
+        for key, block in blocks.items():
+            count, x_to_y = STEP_FLIPS[key], key[1]
 
-                def fn(block=block, x_to_y=x_to_y):
-                    ring.apply(block, x_to_y)
+            def fn(block=block, x_to_y=x_to_y):
+                ring.apply(block, x_to_y)
 
-                warm += count * warm_ms(torch, mh, cs, ring, fn)
-                cs.span_barrier(torch, mh, "cold")
-                cold += count * cs.span_cold_ms(torch, ring, fn, cs.SPAN_REPS)
-                send = block.reshape(-1).clone()
-                recv = torch.empty_like(send)
-                cs.span_barrier(torch, mh, "nccl")
-                nccl_ms += count * cs.time_queued_ms(torch, lambda: torch.distributed.all_to_all_single(
-                    recv, send, group=nccl), cs.SPAN_REPS)[0]
-            lines.append({"rank": rank, "round": r, "form": form, "warm_ms": warm,
-                          "cold_ms": cold, "nccl_ms": nccl_ms})
+            warm += count * warm_ms(torch, mh, cs, ring, fn)
+            cs.span_barrier(torch, mh, "cold")
+            cold += count * cs.span_cold_ms(torch, ring, fn, cs.SPAN_REPS)
+            send = block.reshape(-1).clone()
+            recv = torch.empty_like(send)
+            cs.span_barrier(torch, mh, "nccl")
+            nccl_ms += count * cs.time_queued_ms(torch, lambda: torch.distributed.all_to_all_single(
+                recv, send, group=nccl), cs.SPAN_REPS)[0]
+        lines.append({"rank": rank, "round": r, "warm_ms": warm, "cold_ms": cold,
+                      "nccl_ms": nccl_ms})
     cs.span_barrier(torch, mh, "done")
     mesh.close()
     return lines
@@ -163,19 +145,18 @@ def child(rank, nproc, port, rounds):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--procs", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        for line in child(args.child, args.procs, args.port, args.rounds):
+        for line in child(args.child, PROCS, args.port, args.rounds):
             print(json.dumps(line), flush=True)
         os._exit(0)
     import torch
 
-    if not torch.cuda.is_available() or torch.cuda.device_count() < args.procs:
-        print(f"span_flip_times: needs {args.procs} CUDA cards", file=sys.stderr)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < PROCS:
+        print(f"span_flip_times: needs {PROCS} CUDA cards", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from rustpde_mpi_tpu_torch.ops import _build
@@ -186,10 +167,10 @@ def main() -> int:
     s.bind(("localhost", 0))
     port = s.getsockname()[1]
     s.close()
-    procs = [subprocess.Popen([sys.executable, __file__, "--procs", str(args.procs), "--rounds",
-                               str(args.rounds), "--child", str(r), "--port", str(port)],
+    procs = [subprocess.Popen([sys.executable, __file__, "--rounds", str(args.rounds), "--child",
+                               str(r), "--port", str(port)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(args.procs)]
+             for r in range(PROCS)]
     rc = 0
     try:
         for r, p in enumerate(procs):

@@ -9,9 +9,9 @@ into its output, the peers' into buffer ``epoch & 1`` of their slabs), the
 signal (``ready[me] += 1`` in every peer's slab), the wait (every
 ``ready[q] >= 1`` in its own), the copy-out (the peers' chunks from its
 buffer into its output) and the release (every ``ready[q] -= 1``, the
-epoch advanced).  Both forms of the kernel issue this sequence; they
-differ only in where the wait runs (the card's front end between two
-launches, or the one launch's own flag loads).
+epoch advanced).  The push and the signal are one launch, the copy-out
+and the release another, and the wait runs between them in the card's
+front end.
 
 The model here runs that sequence on parameter blocks made by the real
 wrapper (``SpanningRing._push`` with the card's calls stubbed: every
@@ -71,7 +71,7 @@ class Cluster:
     stubbed so that ``_push`` only fills and hands back its parameter
     block."""
 
-    def __init__(self, monkeypatch, nproc, nlocal, shared_card=True):
+    def __init__(self, monkeypatch, nproc, nlocal):
         self.nproc, self.P = nproc, nproc * nlocal
         self.mem = Memory()
         self.current = 0
@@ -97,12 +97,10 @@ class Cluster:
         lib = types.SimpleNamespace(rp_slab_alloc=slab_alloc, rp_ipc_open=ipc_open,
                                     **{e: None for e in rt.PUSH_ENTRY.values()})
 
-        def allgather(data):
-            if len(data) == _build.IPC_HANDLE_BYTES:  # a slab's handle
-                k = cluster.registered[cluster.current] - 1
-                return [cluster.slab_addr(q, k).to_bytes(8, "little").ljust(len(data), b"\0")
-                        for q in range(nproc)]
-            return [b"card0" if shared_card else f"card{q}".encode() for q in range(nproc)]
+        def allgather(data):  # a slab's handle
+            k = cluster.registered[cluster.current] - 1
+            return [cluster.slab_addr(q, k).to_bytes(8, "little").ljust(len(data), b"\0")
+                    for q in range(nproc)]
 
         def call(fn, device, ref):
             cluster.captured.append(_build.RpPush.from_buffer_copy(ref._obj))
@@ -113,8 +111,6 @@ class Cluster:
         monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
         monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
         monkeypatch.setattr(torch.cuda, "device", lambda *a: contextlib.nullcontext())
-        monkeypatch.setattr(torch.cuda, "get_device_properties",
-                            lambda *a: types.SimpleNamespace(uuid="card"))
 
     @staticmethod
     def slab_addr(q, k):
@@ -285,12 +281,12 @@ class Model:
 KEYS = (True, False)  # the direction of slab key 0 (x -> y) and key 1 (y -> x)
 
 
-def build(monkeypatch, nproc, nlocal, members, c, w, graph, replays, shared=True):
+def build(monkeypatch, nproc, nlocal, members, c, w, graph, replays):
     """The cluster, its programs (``graph`` of slab keys, captured once and
     replayed ``replays`` times) and the per-flip checks: every input is
     rewritten at its flip's start, every output held against the plain
     ring's at its flip's end."""
-    cl = Cluster(monkeypatch, nproc, nlocal, shared)
+    cl = Cluster(monkeypatch, nproc, nlocal)
     P = cl.P
     shapes = {True: (members, nlocal, P * c, w), False: (members, nlocal, c, P * w)}
     programs = [[] for _ in range(nproc)]
@@ -335,17 +331,15 @@ def test_every_schedule_ends_with_the_plain_flip_and_overwrites_nothing(monkeypa
     """Any interleaving of the processes' ops, over a graph of at least six
     flips of two slab keys replayed with constant parameter blocks: no
     deadlock, no buffer written before its owner read its last flip,
-    every output the plain flip's; a card a process (the one-launch form's
-    parameter blocks) and a shared card alike."""
+    every output the plain flip's."""
     nlocal = data.draw(st.sampled_from([1, 2]), label="ranks a process")
     members = data.draw(st.sampled_from([1, 2]), label="members")
     c, w = data.draw(st.integers(1, 2), label="c"), data.draw(st.integers(1, 3), label="w")
     graph = data.draw(st.lists(st.sampled_from([0, 1]), min_size=6, max_size=8), label="graph")
     replays = data.draw(st.integers(1, 3), label="replays")
-    shared = data.draw(st.booleans(), label="shared card")
     cl, prog, on_start, on_done, done = build(monkeypatch, nproc, nlocal, members, c, w, graph,
-                                              replays, shared)
-    assert all(f.one_launch == int(not shared) for p in prog for _, f, _, _ in p)
+                                              replays)
+    assert all(f.parts == rt.PUSH_ALL for p in prog for _, f, _, _ in p)
     seed = data.draw(st.integers(0, 2**32 - 1), label="schedule")
     rng = np.random.default_rng(seed)
     Model(cl.mem, prog).run(lambda k: int(rng.integers(k)), on_start, on_done)
@@ -372,9 +366,8 @@ def test_the_model_catches_a_broken_protocol(monkeypatch, broken):
 
 def test_a_lost_signal_deadlocks_in_the_model(monkeypatch):
     """A flip whose peer never signals waits for ever: the model reports
-    the deadlock (on the card the one-launch form traps after RT_WAIT_NS,
-    the two-launch form's front-end wait is bounded by the caller's
-    deadline)."""
+    the deadlock (on the card the front-end wait is bounded by the
+    caller's deadline)."""
     cl, prog, on_start, on_done, _ = build(monkeypatch, 2, 1, 1, 1, 2, [0] * 6, 1)
     model = Model(cl.mem, prog)
     model.ops[1] = [op for op in model.ops[1] if not (op[0] == 2 and op[1] == "signal")]
@@ -386,8 +379,8 @@ def test_parameter_block_of_a_flip(monkeypatch):
     """The wrapper's block for process 1 of 2 x 2: its ranks' chunks go
     to its output's blocks, the peer's ranks' to buffer 0 of the peer's
     slab; the control words and the peer's semaphore of this process sit
-    after the two buffers; the form follows the cards."""
-    cl = Cluster(monkeypatch, 2, 2, shared_card=False)
+    after the two buffers."""
+    cl = Cluster(monkeypatch, 2, 2)
     x = torch.zeros((2, 4 * 3, 5), dtype=torch.float64)
     cl.capture(0, x, True)
     f, out = cl.capture(1, x, True)
@@ -398,10 +391,8 @@ def test_parameter_block_of_a_flip(monkeypatch):
     assert [f.dst[t] for t in range(4)] == [peer, peer + 60 * 8, out.data_ptr(),
                                             out.data_ptr() + 60 * 8]
     assert (f.d1, f.blk, f.dsm, f.P, f.PL, f.g0, f.members) == (20, 60, 120, 4, 2, 2, 1)
-    assert (f.one_launch, f.parts, f.word, f.w, f.c) == (1, rt.PUSH_ALL, 8, 5, 3)
+    assert (f.parts, f.word, f.w, f.c) == (rt.PUSH_ALL, 8, 5, 3)
     assert (f.mul_r, f.shr_r) == rt.fast_divmod(2) and (f.mul_l, f.shr_l) == rt.fast_divmod(2)
-    assert cl.rings[1].one_launch is True and rt.one_card_each([b"a", b"b"])
-    assert not rt.one_card_each([b"a", b"b", b"a"])
 
 
 def test_parts_and_control_words_mirror_the_source():
