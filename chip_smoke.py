@@ -421,6 +421,31 @@ launch of a step serving all K members:
     scale).  Each path's ms/step or wall beside the one-process run's; the
     launches of each path on earlier lines and in the ``kernels`` line
     (``span_paths_launches`` of the remote flip's and the banded entry).
+39. serving on meshes that span processes: two processes on the one card
+    serve together through ``SimServer(..., device="cuda")``, each
+    campaign on a mesh whose ranks span them (``SERVE39_*``): (a) three
+    ``rbc1025`` requests through 2 lanes on the whole-fleet mesh (8 rank
+    slots a process), the third refilling a lane, then twice one more
+    alone, two more campaigns of the same shapes; (b) a 258^2 request stamped for a
+    2-slot sub-mesh (a gang, one rank a process) and two 129^2 requests
+    beside it; (c) the same gang request under a fleet replica with a
+    preemption notice, drained mid-campaign by a SIGTERM on both processes
+    (its lane parked through the continuation writer, each process its
+    slab), then resumed by a restart.  Every result against a solo run of
+    the request on a one-process mesh of the same rank count (fields 1e-12
+    of their scale at 129^2, phase 37's one-ulp rule where the products
+    batch apart: the gang's one rank a process, and ``rbc1025``, whose
+    member axis widens them; Nu rel 1e-9), the resumed gang
+    against (b)'s un-drained one (1e-12); each campaign's chunks launched
+    exactly 37 flips, 1 rank gather and 7 banded solves a warm-up and
+    replayed step, and left no receive slab past its close; the later
+    campaigns of (a) no larger in ``max_memory_allocated`` than the first;
+    every flip and banded solve of a served step against its plain version
+    (bit for bit; 1e-12 of each lane's scale on random values).  Prints
+    ms/step, served member-steps/s, host ms a boundary outside the chunk,
+    ``max_memory_allocated`` after each campaign and the phase's wall; the
+    ``kernels`` line's banded and remote-flip entries gain
+    ``served_spanning_launches``.
 
 The serving phases keep campaign checkpoints in the runner's in-memory
 store where ``h5py`` does not import, and parked continuations as
@@ -5663,14 +5688,17 @@ def served_kernel_records(torch, log, lanes, label, phase) -> list:
 
 def count_replays():
     """Patch ``ChunkRunner.run`` to count each runner's replayed steps;
-    returns ``(counts by id(runner), restore())``."""
+    returns ``(counts by runner, restore())`` (weak keys: a freed runner's
+    count goes with it, and no later runner inherits it)."""
+    import weakref
+
     from rustpde_mpi_tpu_torch.models import campaign
 
     orig = campaign.ChunkRunner.run
-    counts = {}
+    counts = weakref.WeakKeyDictionary()
 
     def run(self, n, variant=0):
-        counts[id(self)] = counts.get(id(self), 0) + int(n)
+        counts[self] = counts.get(self, 0) + int(n)
         return orig(self, n, variant)
 
     campaign.ChunkRunner.run = run
@@ -5686,7 +5714,7 @@ def runner_steps(ens, replays) -> tuple[int, int]:
     built (each runner warms each of its variants up with one eager step)."""
     runners = list(ens._runners.values())
     return (sum(len(r._advances) for r in runners),
-            sum(replays.get(id(r), 0) for r in runners))
+            sum(replays.get(r, 0) for r in runners))
 
 
 def served_launches(srv, replays, route, phase) -> tuple[dict, int]:
@@ -6875,11 +6903,12 @@ def spanning_child(torch, pt, mh, args, device) -> dict:
     return out
 
 
-def span_spawn(label, nproc, per_card, timed, work, child=None, phase="37") -> list:
+def span_spawn(label, nproc, per_card, timed, work, child=None, phase="37",
+               extra=None) -> list:
     """Run ``nproc`` children of ``child`` (:data:`CHILD_37` by default) as
     one job under ``SPAN_TIMEOUT_S``; every child still alive then is
-    killed.  Returns their records in rank order, raising on a child that
-    failed."""
+    killed.  ``extra``: more of the children's arguments.  Returns their
+    records in rank order, raising on a child that failed."""
     s = socket.socket()
     s.bind(("localhost", 0))
     port = s.getsockname()[1]
@@ -6887,7 +6916,8 @@ def span_spawn(label, nproc, per_card, timed, work, child=None, phase="37") -> l
     procs = []
     for rank in range(nproc):
         args = {"root": ROOT, "rank": rank, "nproc": nproc, "port": port, "work": work,
-                "label": label, "per_card": per_card, "timed": timed, "sync_s": SPAN_SYNC_S}
+                "label": label, "per_card": per_card, "timed": timed, "sync_s": SPAN_SYNC_S,
+                **(extra or {})}
         procs.append(subprocess.Popen([sys.executable, "-c", child or CHILD_37, json.dumps(args)],
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
@@ -7419,6 +7449,426 @@ def phase38(torch, pt, card) -> dict:
     return launches
 
 
+# -- serving on meshes that span processes (phase 39) --------------------------------
+
+#: phase 39: two processes on card 0 serve together through ``SimServer``,
+#: every campaign on a mesh whose ranks span them.  (a) Default traffic on
+#: the whole-fleet mesh (every rank slot of both processes): ``rbc1025``
+#: requests of ``SERVE39_STEPS`` steps through ``SERVE39_SLOTS`` lanes (the
+#: third refills a lane), then twice one more of ``SERVE39_AGAIN`` steps
+#: alone, two more campaigns of the same shapes.  (b) A ``GANG_CELL`` request stamped
+#: for a 2-slot sub-mesh (one rank a process) and two ``ENSEMBLE129``
+#: requests of ``SERVE39_SMALL_STEPS`` beside it (default traffic the
+#: 14-slot remainder does not divide: the whole-fleet mesh).  (c) The same
+#: gang request under a fleet replica with a preemption notice, drained by
+#: ``kill@SERVE39_DRAIN_AT`` (a SIGTERM on both), its lane parked through
+#: the continuation writer, and resumed by a restart.
+SERVE39_PROCS = 2
+SERVE39_PARTS = ("a", "b", "c")
+SERVE39_STEPS = (40, 40, 36)
+SERVE39_AGAIN = 16
+SERVE39_SLOTS = 2
+SERVE39_CHUNK = 8
+SERVE39_SMALL_STEPS = 16
+SERVE39_DRAIN_AT = 8
+#: a served result's final state against its solo run on a one-process
+#: mesh of the same rank count, of each field's scale, where the products
+#: round alike (129^2); where they batch apart, phase 37's one-ulp rule
+#: instead: the gang's one rank a process (lone GEMMs), and ``rbc1025``,
+#: whose member axis widens the products cuBLAS rounds apart at 1025^2
+SERVE39_LIMIT = 1e-12
+#: a served Nu against its solo run's, relative: the JAX package's serve
+#: isolation tolerance (its multi-process soaks)
+SERVE39_NU_REL = 1e-9
+#: a later campaign of (a)'s ``max_memory_allocated`` against the first's,
+#: on the same shapes: no growth past this (MiB)
+SERVE39_MEMORY_SLACK_MIB = 1.0
+
+CHILD_39 = CHILD_37.replace("cs.spanning_child", "cs.served_spanning_child")
+
+
+def spanning_server(torch):
+    """A ``SimServer`` subclass for phase 39's children.  It records one row
+    a campaign (its grid and mesh, the launches of the campaign's kernels
+    over ``runner.advance`` alone, the chunk runners' warm-up and replayed
+    steps, ms/step, host ms a boundary outside the chunk, the card's
+    ``max_memory_allocated`` and the receive slabs left after the close),
+    each request's final state as global arrays (gathered through the ring
+    as its lane is released: a collective, on every process at the same
+    point), and the flips and banded solves of one eager served step of
+    each campaign, for the kernel checks.  It keeps no model or ensemble
+    past its campaign."""
+    from rustpde_mpi_tpu_torch.models.campaign import global_leaves
+    from rustpde_mpi_tpu_torch.serve import SimServer
+
+    class SpanServed(SimServer):
+        def __init__(self, *a, replays=None, **kw):
+            super().__init__(*a, **kw)
+            self.rows, self.finals, self.logs = [], {}, []
+            self.replays = replays if replays is not None else {}
+            self._live = None  # (runner, row) of the campaign in flight
+            self._in_loop = False
+
+        def _build_runner(self, key, k=None):
+            runner, ens = super()._build_runner(key, k)
+            mesh = ens.model.mesh
+            row = {"grid": [int(key[1]), int(key[2])], "gang": len(key) == 11,
+                   "nranks": mesh.nranks if mesh else 0, "nlocal": mesh.nlocal if mesh else 0,
+                   "spanning": bool(getattr(mesh, "spanning", False)), "k": ens.k,
+                   "advance_s": 0.0, "advances": 0, "steps": 0, "loop_s": 0.0,
+                   "instrument_s": 0.0, "counts": {}, "logged": False, "chunks": []}
+            inner, model = runner.advance, ens.model
+
+            def advance(n):
+                before, step0 = count_launches(model), runner.step
+                t0 = time.perf_counter()
+                try:
+                    return inner(n)
+                finally:
+                    torch.cuda.synchronize()
+                    row["advance_s"] += time.perf_counter() - t0
+                    row["advances"] += 1
+                    row["steps"] += runner.step - step0
+                    row["chunks"].append([runner.step - step0, time.perf_counter() - t0])
+                    for name, v in count_launches(model).items():
+                        row["counts"][name] = row["counts"].get(name, 0) + v - before.get(name, 0)
+
+            runner.advance = advance
+            self._live = (runner, row)
+            self.rows.append(row)
+            return runner, ens
+
+        def _campaign_loop(self, runner, ens, slots, key):
+            t0 = time.perf_counter()
+            self._in_loop = True
+            try:
+                return super()._campaign_loop(runner, ens, slots, key)
+            finally:
+                self._in_loop = False
+                self._live[1]["loop_s"] += time.perf_counter() - t0
+
+        def _instrumented(self, t0):
+            # this class's own work, left out of the loop's host time
+            if self._in_loop:
+                self._live[1]["instrument_s"] += time.perf_counter() - t0
+
+        def _fill_slots(self, runner, ens, slots, key):
+            super()._fill_slots(runner, ens, slots, key)
+            row = self._live[1]
+            if not row["logged"] and ens.alive().any():
+                t0 = time.perf_counter()
+                row["logged"] = True
+                with torch.no_grad():
+                    _, flips, solves = span38_logged(torch, lambda: ens.model._step(ens.state))
+                self.logs.append((f"{row['grid'][0]}{'_gang' if row['gang'] else ''}",
+                                  ens.model.mesh, flips, solves))
+                self._instrumented(t0)
+
+        def _release(self, ens, slot):
+            if slot.req is not None:
+                t0 = time.perf_counter()
+                state = ens.member_state(slot.index)
+                self.finals[slot.req.id] = {
+                    name: leaf.cpu().numpy()
+                    for name, leaf in zip(state._fields, global_leaves(ens.model, state))}
+                self._instrumented(t0)
+            return super()._release(ens, slot)
+
+        def _run_campaign(self, key):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return super()._run_campaign(key)
+            finally:
+                if self._live is not None:
+                    self._close_row()
+
+        def _close_row(self):
+            runner, row = self._live
+            # the wrapper closes over the runner: drop it, so the campaign
+            # is freed as the scheduler leaves it, not by the collector
+            runner.__dict__.pop("advance", None)
+            ens = runner.pde
+            row["warm_steps"], row["replayed_steps"] = runner_steps(ens, self.replays)
+            row["max_memory_allocated_mib"] = torch.cuda.max_memory_allocated() / 2**20
+            mesh = ens.model.mesh
+            row["slabs_after_close"] = len(getattr(mesh.ring, "_slabs", {})) if mesh else 0
+            self._live = None
+
+    return SpanServed
+
+
+def served_spanning_child(torch, pt, mh, args, device) -> dict:
+    """One process of phase 39 (:data:`CHILD_39`): parts (a), (b) and (c)
+    (see ``SERVE39_*``), each request submitted on rank 0 and every serve
+    on both processes; then every flip and banded solve a served step gave
+    the kernels, held against their plain versions.  Rank 0 writes each
+    request's final global state to ``args["work"]``.  Returns the rows,
+    each request's result and the journals' events (rank 0)."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.config import FleetConfig, ServeConfig, SubmeshConfig
+
+    rank, work = args["rank"], args["work"]
+    root = rank == 0
+    Served = spanning_server(torch)
+    replays, restore = count_replays()
+    out = {"rank": rank, "parts": {}, "kernels": []}
+    gang = SubmeshConfig(shapes=(2,), shard_min_nx=GANG_SHARD_MIN)
+
+    def serve(part, run_dir, reqs, fault=None, **kw):
+        cfg = ServeConfig(run_dir=os.path.join(work, run_dir), slots=SERVE39_SLOTS,
+                          chunk_steps=SERVE39_CHUNK, checkpoint_every_s=None, http_port=None,
+                          **kw)
+        srv = Served(cfg, device=device, fault=fault, replays=replays)
+        ids = [srv.submit(r).id for r in reqs] if root else []
+        t0 = time.perf_counter()
+        summary = srv.serve()
+        torch.cuda.synchronize()
+        rec = {"wall_s": time.perf_counter() - t0, "outcome": summary["outcome"],
+               "member_steps": summary["member_steps"], "rows": srv.rows}
+        if root:
+            rec["results"] = [srv.result(i) for i in ids]
+            rec["ids"] = ids
+            rec["events"] = [e["event"] for e in journal_rows(
+                cfg.run_dir, cfg.fleet.replica_id if cfg.fleet else None)]
+            for rid, final in srv.finals.items():
+                np.savez(os.path.join(work, f"final_{part}_{rid}.npz"), **final)
+        out["parts"][part] = rec
+        check(srv)
+        return srv, ids
+
+    def check(srv):
+        # the kernels on the served steps' inputs (collective flips: every
+        # process in the same order), then the logs go: they hold the
+        # campaign's kernels, and through them its model
+        for what, mesh, flips, solves in srv.logs:
+            out["kernels"] += span_flip_checks(torch, mh, mesh, flips, what, False, None)
+            out["kernels"] += span38_banded_checks(torch, solves, (), what)
+            mesh.close()
+        srv.logs = []
+        torch.cuda.synchronize()
+
+    parts = args.get("parts", SERVE39_PARTS)
+    try:
+        if "a" in parts:
+            # (a) default traffic on the whole-fleet mesh, then a second
+            # campaign of the same shapes
+            a_reqs = [serve_request(RBC1025, seed, steps)
+                      for seed, steps in enumerate(SERVE39_STEPS)]
+            serve("a", "a", a_reqs)
+            serve("a2", "a", [serve_request(RBC1025, 7, SERVE39_AGAIN)])
+            serve("a3", "a", [serve_request(RBC1025, 8, SERVE39_AGAIN)])
+        gang_req = serve_request(GANG_CELL, 3, GANG_STEPS)
+        if "b" in parts:
+            # (b) a gang and two 129^2 requests beside it
+            small = [serve_request(ENSEMBLE129, seed, SERVE39_SMALL_STEPS) for seed in (11, 12)]
+            serve("b", "b", [gang_req] + small, submesh=gang)
+        if "c" in parts:
+            # (c) the gang drained under a fleet replica's notice, parked,
+            # then resumed by a restart
+            fleet = dict(submesh=gang,
+                         fleet=FleetConfig(replica_id="served39", lease_ttl_s=120.0),
+                         preempt_notice_s=60.0)
+            _, ids_c = serve("c_drain", "c", [gang_req], fault=f"kill@{SERVE39_DRAIN_AT}",
+                             **fleet)
+            srv = Served(ServeConfig(run_dir=os.path.join(work, "c"), slots=SERVE39_SLOTS,
+                                     chunk_steps=SERVE39_CHUNK, checkpoint_every_s=None,
+                                     http_port=None, **fleet), device=device, replays=replays)
+            t0 = time.perf_counter()
+            summary = srv.serve()
+            torch.cuda.synchronize()
+            rec = {"wall_s": time.perf_counter() - t0, "outcome": summary["outcome"],
+                   "member_steps": summary["member_steps"], "rows": srv.rows}
+            if root:
+                rec["results"] = [srv.result(i) for i in ids_c]
+                rec["events"] = [e["event"] for e in journal_rows(srv.cfg.run_dir, "served39")]
+                for rid, final in srv.finals.items():
+                    np.savez(os.path.join(work, f"final_c_{rid}.npz"), **final)
+            out["parts"]["c_resume"] = rec
+            check(srv)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    return out
+
+
+def serve39_rows(label, part, card) -> dict:
+    """Print one part's campaigns (phase 39) and check each campaign's
+    launches over its chunks: exactly a step's flips (37), rank gather (1)
+    and banded solves (7) for every warm-up and replayed step.  Returns the
+    launches summed over the part's campaigns."""
+    total = {}
+    for row in part["rows"]:
+        steps = row["warm_steps"] + row["replayed_steps"]
+        want = {k: v * steps for k, v in PER_STEP["mesh"].items()}
+        want["ring_gather"] = steps
+        got = {k: row["counts"].get(k, 0) for k in want}
+        host = row["loop_s"] - row["advance_s"] - row["instrument_s"]
+        shown = {"grid": row["grid"], "gang": row["gang"], "ranks": row["nranks"],
+                 "ranks_a_process": row["nlocal"], "spanning": row["spanning"], "K": row["k"],
+                 "chunks": row["advances"], "steps": row["steps"],
+                 "warm_up_steps": row["warm_steps"], "replayed_steps": row["replayed_steps"],
+                 "ms_per_step": row["advance_s"] / max(1, row["steps"]) * 1e3,
+                 "ms_per_step_after_the_first_chunk": (
+                     sum(t for _, t in row["chunks"][1:])
+                     / sum(n for n, _ in row["chunks"][1:]) * 1e3
+                     if sum(n for n, _ in row["chunks"][1:]) else None),
+                 "host_ms_a_boundary_outside_the_chunk": host / max(1, row["advances"]) * 1e3,
+                 "max_memory_allocated_mib": row["max_memory_allocated_mib"],
+                 "slabs_after_close": row["slabs_after_close"], "launches_in_chunks": got}
+        print(f"phase39 {label} campaign ({card}) " + json.dumps(shown))
+        if got != want or not row["spanning"]:
+            raise AssertionError(f"39: {label} {row['grid']} launched {got} in its chunks, "
+                                 f"expected {want}; spanning {row['spanning']}")
+        if row["slabs_after_close"]:
+            raise AssertionError(f"39: {label} {row['grid']} kept {row['slabs_after_close']} "
+                                 "receive slabs past its close")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def serve39_against_solo(torch, pt, work, part, reqs, cell, nranks, ulp, label, card) -> None:
+    """Each request of a part against its solo run on ``make_mesh(nranks)``
+    on the card: Nu within ``SERVE39_NU_REL``, each field within
+    ``SERVE39_LIMIT`` of its scale, or, where the served products batch
+    apart from the solo run's (``ulp``), within the larger of it and the
+    steps (at least ``ULP_STEPS_FACTOR``) times the solo run's own one-ulp
+    sensitivity."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.models.campaign import global_leaves
+
+    model = pt.Navier2D(**cell, mesh=pt.make_mesh(nranks, CARD))
+    for rid, res in zip(part["ids"], part["results"]):
+        state, nu = solo_final(torch, model, res)
+        want = dict(zip(state._fields, (t.cpu().numpy() for t in global_leaves(model, state))))
+        got = dict(np.load(os.path.join(work, f"final_{reqs}_{rid}.npz")))
+        rels = {k: span38_rel(got[k], w) for k, w in want.items()}
+        limits = {k: SERVE39_LIMIT for k in want}
+        if ulp:
+            # the solo run's own sensitivity: the same from a start moved
+            # by one ulp (x (1 + 2^-52))
+            model.state = type(model.state)(*(t.new_zeros(t.shape) for t in model.state))
+            model.init_random(res["amp"] or 0.1, seed=res["seed"])
+            model.state = type(model.state)(*(x * (1.0 + 2.0**-52) for x in model.state))
+            model.reset_time()
+            model.update_n(res["steps"])
+            nudged = dict(zip(state._fields, (t.cpu().numpy()
+                                              for t in global_leaves(model, model.state))))
+            factor = max(ULP_STEPS_FACTOR, res["steps"])
+            limits = {k: max(SERVE39_LIMIT, factor * span38_rel(nudged[k], w))
+                      for k, w in want.items()}
+        nu_rel = abs(res["nu"] - nu) / abs(nu)
+        exact = all(np.array_equal(got[k], w) for k, w in want.items())
+        print(f"phase39 {label} request {rid} ({res['steps']} steps, seed {res['seed']}) against "
+              f"its solo run on make_mesh({nranks}) ({card}): Nu rel {nu_rel:.3e} (limit "
+              f"{SERVE39_NU_REL:g}); fields over their scale {json.dumps(rels)}, limits "
+              f"{json.dumps(limits)}; bit for bit {exact}")
+        if not nu_rel <= SERVE39_NU_REL or any(not rels[k] <= limits[k] for k in rels):
+            raise AssertionError(f"39: {label} request {rid} off its solo run: Nu {nu_rel:.3e}, "
+                                 f"fields {rels}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase39(torch, pt, card, nproc=SERVE39_PROCS, per_card=False, parts=SERVE39_PARTS) -> dict:
+    """Phase 39: serving on meshes that span processes (``SERVE39_*``):
+    ``nproc`` processes (on card 0, or ``per_card``: process ``p`` on card
+    ``p``) serve ``parts`` of (a), (b) and (c) through ``SimServer``.
+    Gates: every request done; each result against its solo run on a
+    one-process mesh of the same rank count (``serve39_against_solo``); the
+    resumed gang against the un-drained one of (b), by the same rule; each
+    campaign's chunks launched exactly a step's flips, rank gather and
+    banded solves per warm-up and replayed step, and kept no receive slab
+    past its close; the later campaigns of (a) no larger in
+    ``max_memory_allocated`` than the first (``SERVE39_MEMORY_SLACK_MIB``);
+    every flip and banded solve a served step gave the kernels against
+    their plain versions (in the children).  Returns the launches a
+    process over the chunks of every part, the flip and banded records,
+    and the phase's wall."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    fleet = nproc * 8  # the whole-fleet mesh: every process's rank slots
+    label = "served" if not per_card else "served_card_per_process"
+    with tempfile.TemporaryDirectory(prefix="phase39_") as work:
+        results = span_spawn(label, nproc, per_card, False, work, child=CHILD_39, phase="39",
+                             extra={"parts": list(parts)})
+        root = results[0]
+        done = root["parts"]
+        print(f"phase39 {nproc} processes{' a card each' if per_card else ' on one card'}, "
+              f"children done ({time.perf_counter() - t0:.1f} s)")
+        want_outcomes = {"a": "idle", "a2": "idle", "a3": "idle", "b": "idle",
+                         "c_drain": "drained", "c_resume": "idle"}
+        for name in done:
+            if any(r["parts"][name]["outcome"] != want_outcomes[name] for r in results):
+                raise AssertionError(f"39: part {name}: outcomes "
+                                     f"{[r['parts'][name]['outcome'] for r in results]}")
+            if name != "c_drain" and any(r is None for r in done[name]["results"]):
+                raise AssertionError(f"39: part {name} left requests unresolved")
+        if "c" in parts:
+            drain_ev = done["c_drain"]["events"]
+            if not {"gang_formed", "preempt_notice", "gang_parked"} <= set(drain_ev):
+                raise AssertionError(f"39: the drain's journal {drain_ev}")
+            if "continuation_resumed" not in done["c_resume"]["events"][len(drain_ev):]:
+                raise AssertionError(f"39: the restart's journal {done['c_resume']['events']}")
+        launches = {}
+        for name, part in done.items():
+            for k, v in serve39_rows(name, part, card).items():
+                launches[k] = launches.get(k, 0) + v
+            member_steps = part["member_steps"]
+            loop = sum(r["loop_s"] - r["instrument_s"] for r in part["rows"])
+            print(f"phase39 part {name} ({card}): wall {part['wall_s']:.2f} s, "
+                  f"{member_steps} member-steps, served member-steps/s "
+                  f"{member_steps / loop if loop else 0.0:.2f} (in the campaign loops)")
+        if "a" in parts:
+            mem = [done[k]["rows"][0]["max_memory_allocated_mib"] for k in ("a", "a2", "a3")]
+            print(f"phase39 (a) max_memory_allocated of its three campaigns, MiB ({card}): "
+                  f"{mem}")
+            if not max(mem[1:]) <= mem[0] + SERVE39_MEMORY_SLACK_MIB:
+                raise AssertionError(f"39: max_memory_allocated grew from campaign to campaign "
+                                     f"of the same shapes: {mem} MiB")
+            # the members' axis widens the served products at 1025^2, where
+            # cuBLAS rounds them apart from the lone model's (ROADMAP Queue 3
+            # item 4): the one-ulp rule
+            serve39_against_solo(torch, pt, work, done["a"], "a", RBC1025, fleet, True,
+                                 "(a) rbc1025", card)
+            for k in ("a2", "a3"):
+                serve39_against_solo(torch, pt, work, done[k], k, RBC1025, fleet, True,
+                                     f"(a) rbc1025 again ({k})", card)
+        if "b" in parts:
+            b = {"ids": done["b"]["ids"][:1], "results": done["b"]["results"][:1]}
+            serve39_against_solo(torch, pt, work, b, "b", GANG_CELL, 2, True, "(b) gang258",
+                                 card)
+            small = {"ids": done["b"]["ids"][1:], "results": done["b"]["results"][1:]}
+            serve39_against_solo(torch, pt, work, small, "b", ENSEMBLE129, fleet, False,
+                                 "(b) ensemble129", card)
+        if "b" in parts and "c" in parts:
+            undrained = dict(np.load(os.path.join(work, f"final_b_{done['b']['ids'][0]}.npz")))
+            rid = done["c_drain"]["ids"][0]
+            resumed = dict(np.load(os.path.join(work, f"final_c_{rid}.npz")))
+            diffs = {k: span38_rel(resumed[k], w) for k, w in undrained.items()}
+            exact = all(np.array_equal(resumed[k], w) for k, w in undrained.items())
+            print(f"phase39 (c) the resumed gang against the un-drained one of (b) ({card}): "
+                  f"fields over their scale {json.dumps(diffs)} (limit {SERVE39_LIMIT:g}); bit "
+                  f"for bit {exact}; Nu {done['c_resume']['results'][0]['nu']!r} against "
+                  f"{done['b']['results'][0]['nu']!r}")
+            if any(not v <= SERVE39_LIMIT for v in diffs.values()):
+                raise AssertionError(f"39: the resumed gang off the un-drained run: {diffs}")
+    records = [dict(k, phase="39") for k in root["kernels"]]
+    for r in records:
+        print("phase39 served inputs " + json.dumps(r))
+    kinds = {r["kernel"] for r in records}
+    if kinds != {"ring_push", "banded_solve"}:
+        raise AssertionError(f"39: kernels checked on served inputs: {kinds}")
+    wall = time.perf_counter() - t0
+    print(f"phase39 launches a process in the served chunks ({card}): {json.dumps(launches)}")
+    print(f"phase39 ok ({wall:.1f} s)")
+    return {"launches": launches, "records": records, "wall_s": wall}
+
+
 def span_paths_launches(paths, kernel) -> dict:
     """Phase 38's launches of ``kernel`` (``banded_solve`` or the remote
     flip, ``ring_push``: its flips and rank gathers) on each path, a
@@ -7504,7 +7954,7 @@ def route_sums(rows) -> dict:
 
 
 def kernels_line(records, launches, solver_times, ring_times, runner_launches,
-                 phase_launches=None, span=None, paths=None):
+                 phase_launches=None, span=None, paths=None, served=None):
     """One entry per kernel, its times summed over one step of its main
     route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
     each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
@@ -7521,7 +7971,10 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches,
     ``phase_launches[label][kernel]`` (``<label>_launches``) that of a later
     phase's path (``sharded``: phase 32; ``controllers``: phase 33's two
     processes); ``paths`` phase 38's launches a process of each path
-    (``span_paths_launches`` of the banded and the remote flip's entries)."""
+    (``span_paths_launches`` of the banded and the remote flip's entries);
+    ``served`` phase 39's (``served_spanning_launches``: a process's over
+    the chunks of its served campaigns; ``served_spanning_max_abs_err``:
+    the kernel against its plain version on the served steps' inputs)."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rows = [r for r in records if r["kernel"] == kernel]
@@ -7549,12 +8002,31 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches,
             entry[f"{label}_launches"] = counts.get(kernel, 0)
         if paths is not None and kernel == "banded_solve":
             entry["span_paths_launches"] = span_paths_launches(paths, kernel)
+        if served is not None and kernel == "banded_solve":
+            entry.update(served_spanning_entry(served, kernel))
         out.append(entry)
     if span is not None:
         out.append(remote_flip_entry(span))
         if paths is not None:
             out[-1]["span_paths_launches"] = span_paths_launches(paths, "ring_push")
+        if served is not None:
+            out[-1].update(served_spanning_entry(served, "ring_push"))
     return {"kernels": out}
+
+
+def served_spanning_entry(served, kernel) -> dict:
+    """Phase 39's numbers of ``kernel`` for the kernels line: its launches a
+    process over the served chunks (the remote flip: flips and rank
+    gathers) and its largest difference from its plain version on the
+    served steps' inputs."""
+    counts = served["launches"]
+    if kernel == "banded_solve":
+        n = counts.get("banded_solve", 0)
+    else:
+        n = counts.get("ring_transpose", 0) + counts.get("ring_gather", 0)
+    errs = [r["max_abs_err"] for r in served["records"] if r["kernel"] == kernel]
+    return {"served_spanning_launches": n,
+            "served_spanning_max_abs_err": max(errs) if errs else None}
 
 
 def main() -> int:
@@ -7737,9 +8209,10 @@ def run(torch) -> int:
     paths = phase38(torch, pt, card)
     print("phase38 launches a process of each path: " + json.dumps(
         {k: span_paths_launches(paths, k) for k in ("ring_push", "banded_solve")}))
+    served = phase39(torch, pt, card)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches,
-                                  phase_launches, span, paths)))
+                                  phase_launches, span, paths, served)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

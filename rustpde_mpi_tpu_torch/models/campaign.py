@@ -130,6 +130,24 @@ def _free_retired() -> None:
         _RETIRED.pop().reset()
 
 
+#: each card's and thread's stream of the captures (:func:`_capture_stream`)
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(dev) -> "torch.cuda.Stream":
+    """The side stream the calling thread's captures on ``dev`` warm up and
+    capture on, made at its first: cuBLAS keeps a workspace (32 MiB on the
+    card) for each stream it has run on for the life of the process, so a
+    fresh stream a capture would add one a campaign to a serve, until the
+    pool's streams were all used.  A stream a thread, so a capture on the
+    warm pool's thread never shares its stream with the serving thread."""
+    key = (dev, threading.get_ident())
+    side = _CAPTURE_STREAMS.get(key)
+    if side is None:
+        side = _CAPTURE_STREAMS[key] = torch.cuda.Stream(dev)
+    return side
+
+
 class ChunkRunner:
     """The carry of a chunk (``carry``: the state's fields, then the
     scalars ``advance`` reads, then the statistics slots, if any) and one
@@ -149,9 +167,10 @@ class ChunkRunner:
     Captures may run on any thread (the serving warm pool captures on a
     background thread while the serving thread replays other graphs, frees
     finished campaigns and copies counters to the host): one capture runs
-    at a time in a process (:data:`CAPTURE_LOCK`), each on a stream of its
-    own and in the thread-local capture mode, so another thread's device
-    work does not join the capture.  Graphs are freed only under the same
+    at a time in a process (:data:`CAPTURE_LOCK`), on its thread's own
+    capture stream of the card (:func:`_capture_stream`) and in the
+    thread-local capture mode, so another thread's device work does not
+    join the capture.  Graphs are freed only under the same
     lock (:meth:`release`, which finalization calls too: a runner that dies
     while another thread captures hands its graphs to the next capture),
     and the garbage collector is off during a capture, so no graph dies
@@ -198,7 +217,7 @@ class ChunkRunner:
     def _capture_locked(self) -> None:
         dev = self.device
         with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
+            side = _capture_stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for advance in self._advances:
@@ -227,8 +246,8 @@ class ChunkRunner:
             before = [k.launches for k in self._kernels]
             graph = torch.cuda.CUDAGraph()
             try:
-                # a stream of this capture's own (not the class-wide
-                # default capture stream another thread might hold)
+                # the captures' own stream (not the class-wide default
+                # capture stream another thread might hold)
                 with torch.cuda.graph(graph, pool=pool, stream=side,
                                       capture_error_mode="thread_local"):
                     advance(self.carry)

@@ -451,6 +451,43 @@ class SpanningRing(RingTranspose):
                 _build.check(lib.rp_slab_free(slab.ptr), "rp_slab_free")
         self._slabs.clear()
 
+    def release_waits(self) -> None:
+        """Let every wait of this process's flips pass, those already in
+        the card's front end included: the ready semaphores of every slab
+        are set far past any count a peer reaches, from a stream of their
+        own (a stream stalled in a wait holds no other).  A flip waits for
+        its peers' pushes with no deadline, so a peer that is gone stalls
+        this process's stream for good; after this the stalled work runs
+        on with stale chunks, and the caller must discard what it computed
+        (the serving scheduler's gang deadline raises
+        ``GangMemberLost``).  Any thread may call it.  On the CPU a flip
+        fails by itself when its peer's connection closes: nothing to do."""
+        if self.device.type != "cuda":
+            return
+        side = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(side):
+            for slab in list(self._slabs.values()):
+                words = torch.as_tensor(_ReadyWords(slab.ptr + 2 * slab.data_bytes, self.nproc),
+                                        device=self.device)
+                words.fill_(READY_RELEASED)
+        side.synchronize()
+
+
+#: the ready count :meth:`SpanningRing.release_waits` leaves: past any
+#: count of pushes not yet consumed, and positive as the cyclic comparison
+#: of the waits reads it
+READY_RELEASED = 1 << 30
+
+
+class _ReadyWords:
+    """A slab's ready semaphores (one 32-bit word a process, at the start
+    of its control words) as ``__cuda_array_interface__`` describes them."""
+
+    def __init__(self, ptr: int, nproc: int):
+        self.__cuda_array_interface__ = {"shape": (int(nproc),), "typestr": "<i4",
+                                         "data": (int(ptr), False), "version": 3,
+                                         "strides": None}
+
 
 class RankGather:
     """A few values of each rank of a spanning mesh to every rank (the

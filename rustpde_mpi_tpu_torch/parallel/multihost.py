@@ -19,6 +19,10 @@ some of its ranks, whose flips and sums go card to card through CUDA IPC
 * :func:`host_local_array` / :func:`global_array`: on a spanning mesh,
   this process's ranks' blocks of a global array and the global array of
   every process's blocks; the whole array otherwise;
+* :func:`process_slab` / :func:`slab_blocks` / :func:`join_slabs`: this
+  process's columns of a global spectral array (pad sliced away) from its
+  x-pencil blocks and back, and every process's joined (a parked
+  member's continuation shard and its resume);
 * :func:`sync_hosts`: the barrier;
 * :func:`allgather_host` / :func:`allgather_bytes` / :func:`broadcast` /
   :func:`broadcast_obj` / :func:`root_decides`: small host-value
@@ -210,6 +214,77 @@ def host_local_array(arr, spec=None) -> np.ndarray:
     if not getattr(spec, "spanning", False):
         return host
     return host[spec.rank0: spec.rank0 + spec.nlocal]
+
+
+def slab_columns(mesh, shape) -> slice:
+    """The columns of a global ``shape`` array (``(n0, n1)``) whose x-pencil
+    blocks this process's ranks of ``mesh`` hold, the pad left out (every
+    column on a mesh of one process)."""
+    from .mesh import padded
+
+    n1 = int(shape[1])
+    w = padded(n1, mesh.nranks) // mesh.nranks
+    c0 = min(n1, mesh.rank0 * w)
+    return slice(c0, min(n1, c0 + mesh.nlocal * w))
+
+
+def process_slab(blocks, mesh, shape) -> np.ndarray:
+    """This process's columns (:func:`slab_columns`) of a global ``shape``
+    array from its x-pencil ``blocks`` on ``mesh`` (``([K,] PL, n0p, w)``,
+    this process's ranks'), as numpy: its ranks' blocks side by side, the
+    pad sliced away, so the slabs of every process joined along the last
+    axis in process order are the global array (the JAX package's
+    ``host_local_array`` of a spectral pencil).  On a mesh of one process
+    that is the whole global array; with no mesh, ``blocks`` are the
+    global array already."""
+    host = _host(blocks)
+    if mesh is None:
+        return host
+    cols = slab_columns(mesh, shape)
+    pl, n0p, w = host.shape[-3:]
+    joined = np.moveaxis(host, -3, -2).reshape(*host.shape[:-3], n0p, pl * w)
+    return np.ascontiguousarray(joined[..., : int(shape[0]), : cols.stop - cols.start])
+
+
+def slab_blocks(slab, mesh, shape, dtype, device) -> torch.Tensor:
+    """The x-pencil blocks of this process's ranks on ``mesh`` from its
+    slab of a global ``shape`` array (:func:`process_slab`'s inverse, the
+    pad zero); the global array itself with no mesh.  A slab of another
+    width than ``mesh`` gives this process raises ``ValueError``: it was
+    cut for another layout."""
+    from .mesh import padded
+
+    host = torch.as_tensor(_host(slab))
+    if mesh is None:
+        return host.to(device=device, dtype=dtype)
+    n0 = int(shape[0])
+    cols = slab_columns(mesh, shape)
+    p, pl = mesh.nranks, mesh.nlocal
+    n0p, w = padded(n0, p), padded(int(shape[1]), p) // p
+    width = cols.stop - cols.start
+    if tuple(host.shape[-2:]) != (n0, width):
+        raise ValueError(f"a slab of shape {tuple(host.shape[-2:])}, this process's ranks "
+                         f"{mesh.rank0}..{mesh.rank0 + pl - 1} of {p} hold ({n0}, {width})")
+    lead = tuple(host.shape[:-2])
+    out = torch.zeros((*lead, n0p, pl * w), dtype=dtype, device=device)
+    out[..., :n0, :width] = host.to(device=device, dtype=dtype)
+    return out.reshape(*lead, n0p, pl, w).movedim(-2, -3).contiguous()
+
+
+def join_slabs(slab) -> np.ndarray:
+    """Every process's :func:`process_slab` joined along the last axis in
+    process order: the global array on every process (one exchange; one
+    process: the slab)."""
+    host = np.ascontiguousarray(_host(slab))
+    if process_count() == 1:
+        return host
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, host, allow_pickle=False)
+    parts = [np.load(io.BytesIO(b), allow_pickle=False)
+             for b in allgather_bytes(buf.getvalue())]
+    return np.concatenate(parts, axis=-1)
 
 
 #: the deadline (seconds, 0: none) and label of the collective in progress

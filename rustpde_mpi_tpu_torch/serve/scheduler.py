@@ -94,10 +94,13 @@ what the device is:
 * the device counters an ensemble holds (``steps_done``, the alive mask)
   are copied to the host once per state they describe
   (:meth:`SimServer._host_steps`);
-* a sub-mesh is a mesh of rank slots on this process's card
-  (:data:`RANK_SLOTS` of them a process, the carve's "devices"): a stamped
-  bucket runs on ``make_mesh(shape)`` of the card, and on more than one
-  process every process holds its own replica of the gang's model;
+* a JAX device is a rank slot of a process's card (:data:`RANK_SLOTS` of
+  them a process, the carve's "devices"): a mesh over rank slots of
+  several processes spans them (:class:`..parallel.mesh.Mesh`, its flips
+  the kernel's remote form), so on more than one process a campaign's
+  members are split over the processes' ranks, not replicated, and a
+  parked member's state or continuation shard is this process's ranks'
+  part of it; a campaign's close frees its mesh's receive slabs;
 * the JAX package's environment knobs are arguments: the fault spec
   (``fault=``), the preemption notice and the profile cap
   (:class:`..config.ServeConfig` fields).
@@ -210,6 +213,57 @@ class _Slot:
     @property
     def running(self) -> bool:
         return self.req is not None
+
+
+class _FlipDeadline:
+    """The gang deadline of a campaign boundary on a mesh spanning
+    processes (``gang_sync_timeout_s``; none at 0 or without such a mesh).
+
+    A remote flip waits for its peers' pushes in the card's front end with
+    no deadline of its own, so a gang member that died mid-chunk would
+    stall the survivor's stream, and the survivor's next read of the card,
+    for good (on the CPU the flip's gloo exchange fails as the peer's
+    connection closes instead).  :meth:`run` runs one boundary under a
+    timer: past the deadline the timer releases every wait of the mesh's
+    flips (:meth:`..ops.ring_transpose.SpanningRing.release_waits`), the
+    stalled work runs on with stale chunks, and the boundary ends in
+    :class:`GangMemberLost`, whatever it returned or raised, so its
+    results are never used.  The survivor thus waits at most the deadline
+    and the chunk in flight."""
+
+    def __init__(self, mesh, timeout_s: float, gang: str):
+        self.mesh = mesh if getattr(mesh, "spanning", False) else None
+        self.timeout_s = float(timeout_s or 0.0)
+        self.gang = gang
+        self.fired = False
+
+    def _fire(self) -> None:
+        self.fired = True
+        self.mesh.ring.release_waits()
+
+    def _lost(self) -> GangMemberLost:
+        return GangMemberLost(self.gang, None, f"a remote flip waited past the gang deadline "
+                              f"({self.timeout_s:g} s)")
+
+    def run(self, fn, *args):
+        if self.mesh is None or self.timeout_s <= 0:
+            return fn(*args)
+        timer = threading.Timer(self.timeout_s, self._fire)
+        timer.daemon = True
+        timer.start()
+        try:
+            out = fn(*args)
+        except GangMemberLost:
+            raise
+        except Exception as exc:
+            if self.fired:
+                raise self._lost() from exc
+            raise
+        finally:
+            timer.cancel()
+        if self.fired:
+            raise self._lost()
+        return out
 
 
 class SimServer:
@@ -332,11 +386,12 @@ class SimServer:
         self._campaign_open = time.monotonic()
         self._first_chunk_done = True
         # parked mid-flight member states: request id -> (state pytree,
-        # steps completed, sim time completed).  An elastic shrink or a dt
-        # re-bucket releases a lane but keeps the trajectory — the next
-        # lane to claim the id continues it instead of restarting.  Every
-        # host holds the identical dict (parking decisions are broadcast;
-        # the states are the same replicated/sharded device arrays).
+        # steps completed, sim time completed, the mesh the state is laid
+        # out on).  An elastic shrink or a dt re-bucket releases a lane but
+        # keeps the trajectory — the next lane to claim the id continues it
+        # instead of restarting.  Every host holds the same entries
+        # (parking decisions are broadcast); on a mesh spanning processes
+        # each holds its own ranks' blocks of the state.
         self._parked: dict[str, tuple] = {}
         self._replans = 0
         self._dt_adjusts = 0  # proactive bucket_dt_adjust events
@@ -366,6 +421,11 @@ class SimServer:
             )
         self._submesh_plan: _sm.SubmeshPlan | None = None
         self._submesh_meshes: dict[int, object] = {}
+        # the whole-fleet pencil mesh (several processes), built once a
+        # serve; meshes of a dropped carve, whose slabs the next campaign
+        # close frees
+        self._mesh_cache = None
+        self._retired_meshes: list = []
         # flipped by _contain_integrity when a device of THIS replica is
         # quarantined: the heartbeat carries it so the fleet proxy routes
         # new work to healthy replicas (the autoscaler replaces us)
@@ -413,8 +473,9 @@ class SimServer:
         """The ensemble's per-member step counts on the host: one device
         copy per counts tensor (``update_n`` and ``set_member`` make fresh
         ones), kept until the next; the lane ops here keep the copy in
-        step with the tensor (:meth:`_set_member`).  Every process holds
-        its own replica, so the copies are identical."""
+        step with the tensor (:meth:`_set_member`).  The counts are the
+        whole members' on every process (on a mesh spanning processes the
+        alive mask reduces over every rank), so the copies are identical."""
         cached = self._steps_cache
         if cached is not None and cached[0] is ens.steps_done:
             return cached[1]
@@ -429,6 +490,58 @@ class SimServer:
         ens.set_member(i, state)
         host[i] = 0
         self._steps_cache = (ens.steps_done, host)
+
+    @staticmethod
+    def _field_layouts(model, state) -> list:
+        """``(leaf, mesh, global shape)`` of every field of ``state``: the
+        model's mesh and the field's spectral shape, or ``None, None`` for
+        a field without a space (held whole)."""
+        out = []
+        for name, leaf in zip(state._fields, state):
+            space = getattr(model, f"{name}_space", None)
+            out.append((leaf, None, None) if space is None else
+                       (leaf, model.mesh, space.shape_spectral))
+        return out
+
+    def _member_slabs(self, model, state):
+        """This process's slab of each field of one member's ``state``
+        (``model``'s layout; numpy): on a mesh its ranks' columns of the
+        global array, the pad sliced away, so that the slabs of every
+        process joined in process order are the member's global state
+        (:func:`..parallel.multihost.process_slab`; the whole global array
+        on one process), without a mesh the fields themselves."""
+        return type(state)(*(multihost.process_slab(leaf, mesh, shape)
+                             for leaf, mesh, shape in self._field_layouts(model, state)))
+
+    def _slabs_member(self, model, slabs, like):
+        """One member's state in ``model``'s layout from this process's
+        slabs (:meth:`_member_slabs`' inverse); ``like``: a member state of
+        the model (its dtypes and device)."""
+        return type(like)(*(multihost.slab_blocks(slab, mesh, shape, leaf.dtype, leaf.device)
+                            for slab, (leaf, mesh, shape)
+                            in zip(slabs, self._field_layouts(model, like))))
+
+    def _member_in(self, ens, state, mesh):
+        """A member ``state`` laid out on ``mesh`` (where a park took it)
+        in ``ens``'s layout: as it is on the same mesh; else through the
+        member's global arrays, each process's slab joined with every
+        other's (a host collective on several processes: every process
+        takes the same parks in the plan's order) and placed onto ``ens``'s
+        mesh, not copied block for block."""
+        if mesh is ens.model.mesh:
+            return state
+        fields = []
+        for leaf, (dst, into, shape) in zip(state, self._field_layouts(ens.model, ens.state)):
+            if shape is None:
+                fields.append(leaf)
+                continue
+            whole = multihost.process_slab(leaf, mesh, shape)
+            if getattr(mesh, "spanning", False):
+                whole = multihost.join_slabs(whole)
+            if into is not None:
+                whole = whole[..., multihost.slab_columns(into, shape)]
+            fields.append(multihost.slab_blocks(whole, into, shape, dst.dtype, dst.device))
+        return type(ens.state)(*fields)
 
     def _device_fence(self) -> None:
         """Block until the active campaign's device dispatches complete —
@@ -746,21 +859,23 @@ class SimServer:
     def _campaign_mesh(self, key: tuple | None = None):
         """The mesh campaign models are built on.
 
-        Single-level serving (``cfg.submesh=None``, the default): None —
-        every process holds its own replica of the campaign on its own
-        card (the JAX package spans every host's devices with one pencil
-        mesh; a mesh whose ranks span processes is not ported).
+        Single-level serving (``cfg.submesh=None``, the default): the
+        whole-fleet pencil mesh on a multi-process runtime (every rank
+        slot of every process, :meth:`_fleet_mesh`: the campaign's members
+        are split over the processes), None on one process.
 
         Two-level serving: the bucket ``key`` resolves through the carved
         :class:`~rustpde_mpi_tpu_torch.parallel.submesh.SubmeshPlan` — a stamped
         (gang) bucket is PLACED onto its carved sub-mesh (elastically
         re-mapped when the fleet shrank under the stamp, recorded for the
         ``gang_replanned`` journal row), vmapped default traffic rides the
-        remainder slice when its grid divides onto it.  ``key=None`` (the
-        ``/healthz`` probe between builds) reports the ACTIVE campaign's
-        mesh."""
+        remainder slice when its grid divides onto it, else (several
+        processes) the whole-fleet mesh.  Every carved slice holds rank
+        slots of every process, so a mesh of several processes spans all
+        of them.  ``key=None`` (the ``/healthz`` probe between builds)
+        reports the ACTIVE campaign's mesh."""
         if self._submesh is None:
-            return None
+            return self._fleet_mesh() if self._nproc() > 1 else None
         if key is None:
             return self._active_mesh
         plan = self._carve_plan()
@@ -777,13 +892,34 @@ class SimServer:
             self._gang_placement = (sub, bool(replanned))
             self._active_mesh = self._submesh_mesh(sub)
             return self._active_mesh
-        # vmapped default traffic: each process's replica on its own card
-        # (the JAX package puts it on the remainder slice's mesh when it
-        # spans processes, which is not ported)
-        if self._nproc() > 1:
-            self._active_share = self._local_share(plan.default)
-        self._active_mesh = None
+        sub = plan.default
+        if (
+            sub is not None
+            and self._nproc() > 1
+            and _sm.grid_fits(int(key[1]), int(key[2]), len(sub.devices))
+        ):
+            self._active_mesh = self._submesh_mesh(sub)
+        elif self._nproc() > 1:
+            # the vmapped grid divides no carved remainder: fall back to
+            # the whole-fleet pencil mesh (servability beats isolation
+            # for unstamped traffic)
+            self._active_mesh = self._fleet_mesh()
+        else:
+            self._active_mesh = None  # single-controller vmapped path
         return self._active_mesh
+
+    def _fleet_mesh(self):
+        """The whole-fleet pencil mesh, cached for the serve (the JAX
+        package's ``multihost.global_pencil_mesh()``): every process's
+        :data:`RANK_SLOTS` rank slots, as
+        ``multihost.global_pencil_mesh(RANK_SLOTS, device)`` builds it, but
+        from the carve's rank slots (host state only, so ``/healthz`` may
+        ask for it without a collective)."""
+        if self._mesh_cache is None:
+            from ..parallel.mesh import Mesh
+
+            self._mesh_cache = Mesh(self._rank_slot_devices())
+        return self._mesh_cache
 
     def _carve_plan(self) -> _sm.SubmeshPlan:
         """The carved device plan, built once per incarnation.  Every
@@ -862,21 +998,32 @@ class SimServer:
         return f"{card.type}:{card.index or 0}@proc{int(d.process_index)}"
 
     def _submesh_mesh(self, sub):
-        """The (cached) mesh of one carved slice: ``len(sub.devices)``
-        ranks on this process's card (:func:`..parallel.mesh.make_mesh`;
-        on more than one process each holds its own replica of the gang's
-        model on such a mesh).  None for an empty slice or a one-slot slice
-        in one process (the plain ensemble path needs no mesh)."""
+        """The (cached) mesh of one carved slice, ``sub.mesh()``: its rank
+        slots of every process, each process's consecutive on its card (a
+        mesh spanning the processes; on one process ``make_mesh`` of the
+        slice's size).  None for an empty slice or a one-slot slice in one
+        process (the plain ensemble path needs no mesh)."""
         if sub is None or not sub.devices:
             return None
         if self._nproc() == 1 and len(sub.devices) <= 1:
             return None
         if sub.index not in self._submesh_meshes:
-            from ..parallel.mesh import make_mesh
-
-            self._submesh_meshes[sub.index] = make_mesh(len(sub.devices), self.device)
+            self._submesh_meshes[sub.index] = sub.mesh()
         self._active_share = self._local_share(sub)
         return self._submesh_meshes[sub.index]
+
+    def _close_meshes(self, meshes) -> None:
+        """Free the receive slabs of ``meshes`` (each once; collective on
+        a mesh spanning processes, so every process calls it at the same
+        point of the root's plan; a one-process mesh holds none).  A ring
+        stays usable: its next flip of a shape registers the slab again.
+        The captured graphs that hold a slab's pointers go first
+        (:meth:`..models.campaign.StatsAndRungs.release_chunks`)."""
+        seen = set()
+        for mesh in meshes:
+            if mesh is not None and id(mesh) not in seen:
+                seen.add(id(mesh))
+                mesh.close()
 
     def _local_share(self, sub) -> tuple[int, int] | None:
         """(this process's rank slots inside ``sub``, its total rank
@@ -1023,7 +1170,11 @@ class SimServer:
             self._stop_http()
             if _sys.exc_info()[0] is None:
                 # clean close fences (an exception path must NOT barrier:
-                # the peer that caused it may already be gone)
+                # the peer that caused it may already be gone); the serve's
+                # meshes free their receive slabs, every process together
+                self._close_meshes([self._mesh_cache, *self._submesh_meshes.values(),
+                                    *self._retired_meshes])
+                self._retired_meshes = []
                 self._sync("serve-stop")
             self._restore_signals()
         return summary
@@ -1771,6 +1922,13 @@ class SimServer:
             # whenever the collector finds them (a warm capture in flight
             # on the pool's thread)
             ens.release_chunks()
+        # the campaign's mesh (and a dropped carve's) frees its receive
+        # slabs, whose shapes K, the grid and the route set: a long serve
+        # would collect them campaign after campaign.  Collective, so only
+        # here, where every process arrives (an exception propagating past
+        # the finally above never does)
+        self._close_meshes([ens.model.mesh, *self._retired_meshes])
+        self._retired_meshes = []
         self._gang_fence("serve-campaign-close")
 
     def _release_bucket_lease(self) -> None:
@@ -1997,6 +2155,8 @@ class SimServer:
         state failed its digest audit and is never drained into a result —
         and the replica turns unhealthy in its fleet heartbeat."""
         self._submesh_plan = None
+        # their slabs are freed at the campaign's close, after its graphs
+        self._retired_meshes.extend(self._submesh_meshes.values())
         self._submesh_meshes.clear()
         if getattr(exc, "device", None):
             self._integrity_unhealthy = True
@@ -2222,6 +2382,7 @@ class SimServer:
             state = old_ens.member_state(entry["old"])  # device op, all hosts
             if entry["op"] == "keep":
                 j = entry["new"]
+                # the new fleet shares the model, so its mesh: a block copy
                 self._set_member(new_ens, j, state)
                 new_slots[j] = _Slot(
                     j,
@@ -2243,7 +2404,7 @@ class SimServer:
                 # (and, fleet mode, durably in parked/<id>/ — a crash
                 # before the park is re-claimed no longer restarts it)
                 self._park_member(
-                    req, state, int(entry["base"]), float(entry["time_base"])
+                    req, old_ens, state, int(entry["base"]), float(entry["time_base"])
                 )
                 parked += 1
                 if self._is_root():
@@ -2378,7 +2539,7 @@ class SimServer:
                 durable = False
                 base, tdone = 0, 0.0
                 if parked:
-                    _, base, tdone = self._parked[req.id]
+                    _, base, tdone, _ = self._parked[req.id]
                 elif self._fleet is not None:
                     # cross-replica continuation: the park was persisted
                     # by a (possibly dead) peer — the manifest carries the
@@ -2426,10 +2587,12 @@ class SimServer:
             req = SimRequest.from_json(a["req"])
             slot = slots[a["slot"]]
             if a["parked"]:
-                # every host holds the identical parked entry (parking
-                # decisions are broadcast) — a missing one is a bug, not a
-                # fallback case
-                state, _, _ = self._parked.pop(req.id)
+                # every host holds the parked entry (parking decisions are
+                # broadcast) — a missing one is a bug, not a fallback case;
+                # a park from another mesh is re-placed through its global
+                # arrays
+                state, _, _, mesh = self._parked.pop(req.id)
+                state = self._member_in(ens, state, mesh)
             elif a.get("durable"):
                 # a peer's durable park (it may be dead — that is the
                 # point): restore mid-flight; a failed verification
@@ -2539,95 +2702,20 @@ class SimServer:
 
     def _campaign_loop(self, runner, ens, slots: list[_Slot], key: tuple) -> None:
         root = self._is_root()
+        deadline = _FlipDeadline(
+            ens.model.mesh if self._gang_active is not None else None,
+            self.cfg.gang_sync_timeout_s,
+            str((self._gang_active or {}).get("gang", "?")),
+        )
         while True:
             running = [s for s in slots if s.running]
             if not running:
                 break
-            done = self._host_steps(ens)
-            n = int(
-                self._root_plan(
-                    lambda: max(
-                        1,
-                        min(
-                            min(
-                                s.target - (s.base + int(done[s.index]))
-                                for s in running
-                            ),
-                            int(self.cfg.chunk_steps),
-                        ),
-                    )
-                )
-            )
-            before = runner.step
-            # bind the on-device trace ids for this dispatch: flight spans
-            # and incident dumps during the chunk are request-attributable
-            _rt.bind_slots(
-                {s.index: s.req.trace_id for s in running if s.req.trace_id}
-            )
-            t0_wall = time.time()
-            with _tr.span("serve_chunk", steps=n, slots=len(running)):
-                runner.advance(n)
-            advanced = runner.step - before
-            if self._first_chunk_done is False and advanced > 0:
-                self._first_chunk_done = True
-                self._journal(
-                    {
-                        **_cl.observe_first_chunk(
-                            key, time.monotonic() - self._campaign_open
-                        ),
-                        "key": list(key),
-                        "step": runner.step,
-                    }
-                )
-            if _rt.enabled() and advanced > 0:
-                dur = time.time() - t0_wall
-                for s in running:
-                    if s.req.trace_id:
-                        _rt.chunk_span(
-                            s.req.trace_id,
-                            t0_wall,
-                            dur,
-                            slot=s.index,
-                            steps=advanced,
-                            step=runner.step,
-                        )
-            self._member_steps += advanced * len(running)
-            if self.cfg.stability is not None and ens.pre_divergence_latched:
-                # the chunk rolled back in memory while every member is
-                # still finite: re-bucket the pinned requests down the
-                # per-bucket dt ladder (proactive — no NaN, no checkpoint)
-                self._settle_predivergence(runner, ens, slots, key)
-            if self._fleet is not None:
-                # fleet boundary work (config-aligned guard: every host
-                # holds the same cfg, so the broadcasts inside stay in
-                # lockstep): liveness heartbeat + lease renewal and the
-                # fencing verdict BEFORE the settle's queue writes (a
-                # replica that stalled past its TTL must not complete
-                # requests a peer has reclaimed), then deadline-driven
-                # preemption after it
-                self._fleet_heartbeat()
-                if self._fence_check(ens, slots, key):
-                    return
-            with _tr.span("serve_settle", step=runner.step):
-                self._settle_boundary(runner, ens, slots, key)
-            if self._fleet is not None:
-                self._maybe_preempt(runner, ens, slots, key)
-                self._persist_running_continuations(ens, slots)
-            self._refresh_slot_state(slots, ens.k)
-            self._boundary_gauges()
-            # boundary housekeeping: deferred sharded commit + cadence
-            # checkpoint + the drain/preemption flag — runner.on_boundary is
-            # the same hook integrate() would drive, and its verdict is
-            # root-broadcast (a local self._drain on root rides the
-            # runner's interrupt flag via request_drain)
-            if runner.on_boundary():
-                self._drain = True
-                self._drain_campaign(runner, ens, slots, key)
+            # a gang on a mesh spanning processes: a boundary that outlasts
+            # the gang deadline releases its flips' waits (a peer that is
+            # gone) and ends in GangMemberLost
+            if deadline.run(self._boundary, runner, ens, slots, key, running, root):
                 return
-            self._fill_slots(runner, ens, slots, key)
-            self._refresh_slot_state(slots, ens.k)
-            if root:
-                self._flush_results()
         if root:
             self._flush_results(force=True)
         self._flush_reqtrace(runner, key)
@@ -2641,6 +2729,97 @@ class SimServer:
         if root:
             for path in runner._store.files():
                 runner._store.remove(path)
+
+    def _boundary(self, runner, ens, slots: list[_Slot], key: tuple, running, root) -> bool:
+        """One chunk of the campaign and its boundary (settle, fleet work,
+        housekeeping, refills); True when the campaign ends here (fenced
+        or drained)."""
+        done = self._host_steps(ens)
+        n = int(
+            self._root_plan(
+                lambda: max(
+                    1,
+                    min(
+                        min(
+                            s.target - (s.base + int(done[s.index]))
+                            for s in running
+                        ),
+                        int(self.cfg.chunk_steps),
+                    ),
+                )
+            )
+        )
+        before = runner.step
+        # bind the on-device trace ids for this dispatch: flight spans
+        # and incident dumps during the chunk are request-attributable
+        _rt.bind_slots(
+            {s.index: s.req.trace_id for s in running if s.req.trace_id}
+        )
+        t0_wall = time.time()
+        with _tr.span("serve_chunk", steps=n, slots=len(running)):
+            runner.advance(n)
+        advanced = runner.step - before
+        if self._first_chunk_done is False and advanced > 0:
+            self._first_chunk_done = True
+            self._journal(
+                {
+                    **_cl.observe_first_chunk(
+                        key, time.monotonic() - self._campaign_open
+                    ),
+                    "key": list(key),
+                    "step": runner.step,
+                }
+            )
+        if _rt.enabled() and advanced > 0:
+            dur = time.time() - t0_wall
+            for s in running:
+                if s.req.trace_id:
+                    _rt.chunk_span(
+                        s.req.trace_id,
+                        t0_wall,
+                        dur,
+                        slot=s.index,
+                        steps=advanced,
+                        step=runner.step,
+                    )
+        self._member_steps += advanced * len(running)
+        if self.cfg.stability is not None and ens.pre_divergence_latched:
+            # the chunk rolled back in memory while every member is
+            # still finite: re-bucket the pinned requests down the
+            # per-bucket dt ladder (proactive — no NaN, no checkpoint)
+            self._settle_predivergence(runner, ens, slots, key)
+        if self._fleet is not None:
+            # fleet boundary work (config-aligned guard: every host
+            # holds the same cfg, so the broadcasts inside stay in
+            # lockstep): liveness heartbeat + lease renewal and the
+            # fencing verdict BEFORE the settle's queue writes (a
+            # replica that stalled past its TTL must not complete
+            # requests a peer has reclaimed), then deadline-driven
+            # preemption after it
+            self._fleet_heartbeat()
+            if self._fence_check(ens, slots, key):
+                return True
+        with _tr.span("serve_settle", step=runner.step):
+            self._settle_boundary(runner, ens, slots, key)
+        if self._fleet is not None:
+            self._maybe_preempt(runner, ens, slots, key)
+            self._persist_running_continuations(ens, slots)
+        self._refresh_slot_state(slots, ens.k)
+        self._boundary_gauges()
+        # boundary housekeeping: deferred sharded commit + cadence
+        # checkpoint + the drain/preemption flag — runner.on_boundary is
+        # the same hook integrate() would drive, and its verdict is
+        # root-broadcast (a local self._drain on root rides the
+        # runner's interrupt flag via request_drain)
+        if runner.on_boundary():
+            self._drain = True
+            self._drain_campaign(runner, ens, slots, key)
+            return True
+        self._fill_slots(runner, ens, slots, key)
+        self._refresh_slot_state(slots, ens.k)
+        if root:
+            self._flush_results()
+        return False
 
     def _fence_check(self, ens, slots: list[_Slot], key: tuple) -> bool:
         """Fleet fencing at a chunk boundary: did a survivor break this
@@ -2744,7 +2923,7 @@ class SimServer:
             req = s.req
             state = ens.member_state(s.index)  # device op, all hosts
             self._release(ens, s)
-            self._park_member(req, state, entry["steps"], entry["time"])
+            self._park_member(req, ens, state, entry["steps"], entry["time"])
             if self._is_root():
                 self.queue.requeue(
                     dataclasses.replace(req, progress=int(entry["steps"]))
@@ -2870,7 +3049,7 @@ class SimServer:
         slot.base = 0
         slot.time_base = 0.0
 
-    def _park_member(self, req, state, base: int, time_base: float) -> None:
+    def _park_member(self, req, ens, state, base: int, time_base: float) -> None:
         """Park one mid-flight member state for later continuation (an
         elastic shrink, a dt re-bucket, a QoS preemption).  Always held in
         memory — the fast path for a park re-claimed by THIS process — and
@@ -2879,21 +3058,26 @@ class SimServer:
         survives replica SIGKILL: any replica resumes the trajectory
         mid-flight instead of restarting it from step 0.  (On a
         multi-process replica the persist is collective, and every host
-        reaches it through the same broadcast plan that parked the lane.)"""
-        self._parked[req.id] = (state, int(base), float(time_base))
+        reaches it through the same broadcast plan that parked the lane.)
+        ``state`` is ``ens``'s member state, which the park keeps with its
+        mesh: this process's ranks' blocks on a mesh spanning processes."""
+        self._parked[req.id] = (state, int(base), float(time_base), ens.model.mesh)
         if self._fleet is None or not self._fleet.durable_park:
             return
-        self._write_continuation(req, state, int(base), float(time_base))
+        self._write_continuation(req, ens, state, int(base), float(time_base))
 
-    def _write_continuation(self, req, state, base: int, time_base: float) -> bool:
-        """Persist one member state into the shared ``parked/<id>/``
-        continuation dir (two-phase; collective on multi-process — every
-        host reaches this through a broadcast plan)."""
+    def _write_continuation(self, req, ens, state, base: int, time_base: float) -> bool:
+        """Persist one member state of ``ens`` into the shared
+        ``parked/<id>/`` continuation dir (two-phase; collective on
+        multi-process — every host reaches this through a broadcast plan):
+        each process's shard is its slab of the member's global state
+        (:meth:`_member_slabs`: its ranks' columns, the pad sliced away; the
+        whole state on one process, the JAX package's format)."""
         cdir = checkpoint.continuation_dir(self.cfg.run_dir, req.id)
         try:
             checkpoint.write_continuation(
                 cdir,
-                state,
+                self._member_slabs(ens.model, state),
                 base=int(base),
                 time_base=float(time_base),
                 meta={
@@ -2961,6 +3145,7 @@ class SimServer:
             state = ens.member_state(s.index)  # device op, all hosts
             self._write_continuation(
                 s.req,
+                ens,
                 state,
                 s.base + int(done[s.index]),
                 s.time_base + int(done[s.index]) * float(s.req.dt),
@@ -2994,9 +3179,16 @@ class SimServer:
                     }
                 )
                 return None
-        template = ens.member_state(slot_index)
+        # this process's shard against its slab of a donor member: a shard
+        # cut for another layout (process count, rank count) does not fit
+        # and raises, as the JAX reader does (written under a different
+        # topology)
+        like = ens.member_state(slot_index)
         try:
-            state, _, _ = checkpoint.read_continuation(cdir, template)
+            slabs, _, _ = checkpoint.read_continuation(
+                cdir, self._member_slabs(ens.model, like)
+            )
+            state = self._slabs_member(ens.model, slabs, like)
         except checkpoint.CheckpointError as exc:
             self._journal(
                 {
@@ -3094,7 +3286,7 @@ class SimServer:
             req = s.req
             state = ens.member_state(s.index)  # finite: rolled-back chunk
             self._release(ens, s)
-            self._park_member(req, state, int(entry["steps"]), float(entry["time"]))
+            self._park_member(req, ens, state, int(entry["steps"]), float(entry["time"]))
             if self._is_root():
                 self.queue.requeue(
                     req.rebucketed(plan["new_dt"], progress=int(entry["steps"]))
@@ -3336,6 +3528,7 @@ class SimServer:
                 state = ens.member_state(s.index)
                 self._write_continuation(
                     s.req,
+                    ens,
                     state,
                     s.base + int(done[s.index]),
                     s.time_base + int(done[s.index]) * float(s.req.dt),

@@ -1815,3 +1815,38 @@ def test_drain_and_restart_bit_for_bit_on_card(device, tmp_path):
     assert second.serve()["completed"] == 3
     for rid in ids:
         assert _same_as_solo(second, rid, device)["steps"] == 20
+
+
+def test_served_spanning_campaigns_of_two_processes_on_one_card(device, tmp_path):
+    """``SimServer`` on two processes sharing the card
+    (``tests/torch_mp_worker.py``, mode ``served_spanning_card``): every
+    campaign on a mesh spanning both processes (the whole-fleet mesh of 16
+    rank slots for 129^2, the gang's 2-slot sub-mesh for 130^2), every
+    request done, and each result's observables within 1e-12 of a solo run
+    of the request on a one-process mesh of the same rank count on the
+    card."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_mp_worker import CARD_SERVE_REQ, spawn
+
+    results = spawn(str(tmp_path), "served_spanning_card", timeout=300.0)
+    for rc, _, err, res in results:
+        assert rc == 0 and res is not None, err[-3000:]
+    root = results[0][3]
+    want_meshes = {"fleet": {(129, 129): 16}, "gang": {(130, 130): 2, (129, 129): 16}}
+    for part, meshes in want_meshes.items():
+        rec = root[part]
+        assert rec["outcome"] == "idle" and rec["completed"] == len(rec["results"])
+        assert {(nx, ny): p for nx, ny, p, spanning in rec["meshes"] if spanning} == meshes
+        for i, res in enumerate(rec["results"]):
+            n = 130 if part == "gang" and i == 0 else 129  # the gang request goes first
+            model = pt.Navier2D(n, n, CARD_SERVE_REQ["ra"], 1.0, res["dt"], 1.0, "rbc",
+                                mesh=pt.make_mesh(meshes[(n, n)]))
+            model.init_random(res["amp"] or 0.1, seed=res["seed"])
+            model.update_n(res["steps"])
+            want = dict(zip(model.observable_names, model.get_observables()))
+            for name in ("nu", "nuvol", "re", "div"):
+                assert abs(res[name] - want[name]) <= 1e-12 * max(abs(want[name]), 1e-300), \
+                    (part, res["seed"], name, res[name], want[name])

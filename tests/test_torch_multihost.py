@@ -408,3 +408,45 @@ def test_one_process_collectives_match_jax(armed):
     got, want = _one_process_calls(mh), _one_process_calls(jmh)
     assert got == want
     assert _state(san) == _state(jsan)  # the same records at the same sites
+
+
+class _ProcessRanks:
+    """The ranks a process of a spanning mesh holds (all a slab needs)."""
+
+    def __init__(self, nranks, nlocal, rank0):
+        self.nranks, self.nlocal, self.rank0, self.spanning = nranks, nlocal, rank0, True
+
+
+@pytest.mark.parametrize("shape,nranks,nproc", [((15, 15), 16, 2), ((17, 15), 4, 2),
+                                                ((32, 34), 2, 2), ((16, 9), 4, 4)])
+def test_process_slabs_join_to_the_global_array(shape, nranks, nproc):
+    """A continuation shard's layout: each process's slab of a global
+    spectral array (its ranks' columns of the x-pencil, the pad sliced
+    away), cut from the one-process mesh's blocks as each process of a
+    spanning mesh would hold them, joins in process order to the global
+    array, and goes back to the same blocks, the pad zero; a slab of
+    another layout raises.  One process: the slab is the whole array."""
+    rng = np.random.default_rng(3)
+    glob = rng.standard_normal((2, *shape))  # two members
+    mesh = pt.make_mesh(nranks, "cpu")
+    blocks = torch.stack([mesh_place(g, mesh) for g in glob])
+    np.testing.assert_array_equal(mh.process_slab(blocks, mesh, shape), glob)
+    pl = nranks // nproc
+    slabs = []
+    for q in range(nproc):
+        ranks = _ProcessRanks(nranks, pl, q * pl)
+        mine = blocks[:, q * pl:(q + 1) * pl]
+        slabs.append(mh.process_slab(mine, ranks, shape))
+        back = mh.slab_blocks(slabs[-1], ranks, shape, torch.float64, "cpu")
+        assert torch.equal(back, mine)
+    np.testing.assert_array_equal(np.concatenate(slabs, axis=-1), glob)
+    np.testing.assert_array_equal(mh.join_slabs(slabs[0]), slabs[0])  # one process
+    with pytest.raises(ValueError, match="slab of shape"):
+        mh.slab_blocks(slabs[0][..., :-1] if slabs[0].shape[-1] else glob,
+                       _ProcessRanks(nranks, pl, 0), shape, torch.float64, "cpu")
+
+
+def mesh_place(values, mesh):
+    from rustpde_mpi_tpu_torch.parallel.decomp import Decomp2d
+
+    return Decomp2d(values.shape, mesh).place_x_pencil(values, torch.float64)

@@ -9,7 +9,16 @@ batch with refills, a divergent member isolated and failed typed, a NaN
 fault retried, the SIGTERM drain and its restart, the elastic grow and
 shrink re-plans, the HTTP front's endpoints and error paths (same codes
 and bodies) and its profile endpoint.  The port's results are also held
-to solo runs of the port (1e-9, as the JAX tests hold theirs)."""
+to solo runs of the port (1e-9, as the JAX tests hold theirs).
+
+Two processes on gloo (``tests/torch_mp_worker.py``) serve on meshes
+spanning both, as the JAX scheduler places its campaigns on several
+processes: each result bit for bit a solo run of its request on a
+one-process mesh of the same rank count, a gang parked through the
+continuation writer and resumed bit for bit, the continuation's shards
+joined into the member's global state, a gang re-placed onto a slice of
+another shape, and a gang member's death ending in the typed loss within
+the gang deadline."""
 
 import gc
 import json
@@ -21,6 +30,7 @@ import urllib.error
 import urllib.request
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from rustpde_mpi_tpu.config import ServeConfig as JaxServeConfig
@@ -31,6 +41,7 @@ from rustpde_mpi_tpu.serve import http_front as jax_front
 import rustpde_mpi_tpu_torch as pt
 from rustpde_mpi_tpu_torch.config import ServeConfig
 from rustpde_mpi_tpu_torch.serve import RequestFailed, SimServer
+from rustpde_mpi_tpu_torch.serve.scheduler import RANK_SLOTS
 from rustpde_mpi_tpu_torch.serve import http_front
 from rustpde_mpi_tpu_torch.serve.http_front import HttpFront
 from rustpde_mpi_tpu_torch.telemetry import compile_log
@@ -509,13 +520,47 @@ def test_slot_table_rides_the_manifest_across_packages(tmp_path):
 # -- two processes -------------------------------------------------------------------------------
 
 
+#: a served result's observables against a one-process solo run on a mesh
+#: of the campaign's rank count, where the K-member batching rounds apart
+#: from the solo run's (the CPU measured none: bit for bit)
+SOLO_REL = 1e-12
+OBSERVABLES = ("nu", "nuvol", "re", "div")
+
+
+def mesh_solo(req, res, nranks):
+    """A served request rerun alone on ``make_mesh(nranks, "cpu")`` from its
+    initial condition for its steps at its dt: its observables by name."""
+    model = pt.Navier2D(req["nx"], req["ny"], req["ra"], req["pr"], res["dt"], 1.0, req["bc"],
+                        device="cpu", mesh=pt.make_mesh(nranks, "cpu"))
+    model.init_random(res["amp"] or 0.1, seed=res["seed"])
+    model.update_n(res["steps"])
+    return dict(zip(model.observable_names, model.get_observables()))
+
+
+def same_as_mesh_solo(got, req, nranks):
+    """Each observable of a served result equals its solo run's on a
+    one-process mesh of the same rank count, bit for bit, or within
+    ``SOLO_REL`` of its scale; returns whether every one was bit for bit."""
+    want = mesh_solo(req, got, nranks)
+    exact = True
+    for name in OBSERVABLES:
+        exact &= got[name] == want[name]
+        assert abs(got[name] - want[name]) <= SOLO_REL * max(abs(want[name]), 1e-300), \
+            (name, got[name], want[name])
+    return exact
+
+
 @pytest.mark.parametrize("mode", ["serve_campaign", "gang_serve"])
 def test_two_process_serving_equals_one_process(tmp_path, mode):
     """Two processes on gloo serve together (``tests/torch_mp_worker.py``,
     a deadline of 90 s): the root plans every boundary and broadcasts it,
-    each process steps its own replica.  The root's results equal a
-    one-process server's on the same requests exactly, and the gang mode
-    forms its gang on a 2-slot sub-mesh."""
+    and every campaign runs on a mesh spanning both processes, its members
+    split over them (single level: the whole-fleet mesh of both processes'
+    rank slots; the gang mode: the gang on its 2-slot sub-mesh, the
+    unstamped 18^2 grid on the whole-fleet mesh, which the remainder does
+    not divide).  Each done record equals a one-process server's on the
+    same requests but for its observables, which equal a solo run of the
+    request on a one-process mesh of the campaign's rank count."""
     import torch_mp_worker as mpw
 
     outs = mpw.spawn(str(tmp_path / "mp"), mode, timeout=90.0)
@@ -523,19 +568,154 @@ def test_two_process_serving_equals_one_process(tmp_path, mode):
         assert rc == 0 and res is not None, err[-3000:]
     root = outs[0][3]
     assert root["outcome"] == outs[1][3]["outcome"] == "idle" and root["processes"] == 2
+    assert outs[1][3]["meshes"] == root["meshes"]
+    meshes = {(nx, ny): (p, spanning) for nx, ny, p, spanning in root["meshes"]}
+    fleet = 2 * RANK_SLOTS
     if mode == "serve_campaign":
         reqs = [dict(mpw.SERVE_REQ, horizon=0.08 + (s % 3) * 0.02, seed=s) for s in range(5)]
         kw = {}
+        assert meshes == {(17, 17): (fleet, True)}
     else:
         reqs = [dict(mpw.SERVE_REQ, nx=34, ny=34, horizon=0.08, seed=100)] + \
             [dict(mpw.SERVE_REQ, nx=18, ny=18, horizon=0.06, seed=s) for s in range(2)]
         kw = dict(submesh=pt.config.SubmeshConfig(shapes=(2,), shard_min_nx=34))
         assert "gang_formed" in root["events"]
+        assert meshes == {(34, 34): (2, True), (18, 18): (fleet, True)}
     one = SimServer(_cfg(ServeConfig, tmp_path, "one", **kw), device="cpu")
     ids = [one.submit(r).id for r in reqs]
     assert one.serve()["completed"] == root["completed"] == len(reqs)
-    drop = ("latency_s", "admission_to_first_observable_s")
-    for rid, got in zip(ids, root["results"]):
+    drop = ("latency_s", "admission_to_first_observable_s") + OBSERVABLES
+    for rid, req, got in zip(ids, reqs, root["results"]):
         want = one.result(rid)
         assert {k: v for k, v in got.items() if k not in drop} == \
             {k: v for k, v in want.items() if k not in drop}
+        assert same_as_mesh_solo(got, req, meshes[(req["nx"], req["ny"])][0])
+
+
+@pytest.fixture(scope="module")
+def gang_park(tmp_path_factory):
+    """One spawn of ``tests/torch_mp_worker.py``'s ``gang_park`` mode (a
+    deadline of 45 s): the root's record and its output directory."""
+    import torch_mp_worker as mpw
+
+    out_dir = str(tmp_path_factory.mktemp("gang_park"))
+    outs = mpw.spawn(out_dir, "gang_park", timeout=45.0)
+    for rc, out, err, res in outs:
+        assert rc == 0 and res is not None, err[-3000:]
+    return outs[0][3], outs[1][3], out_dir
+
+
+def test_spanning_gang_parks_and_resumes(gang_park):
+    """A gang on a 2-slot sub-mesh spanning both processes, drained under a
+    fleet replica's preemption notice, parks its lane through the
+    continuation writer (``gang_parked``); the restarted replica resumes it
+    from the park, and its result equals the un-drained run (a solo run on
+    ``make_mesh(2)``) bit for bit, as the co-served 18^2 request equals its
+    own on the whole-fleet mesh.  A plain server's drained gang, restarted
+    on a carve of 4-slot sub-meshes and 3 slots, is re-placed onto a slice
+    of another shape (``gang_replanned``: its checkpoint restored onto 4
+    ranks) and re-planned onto 3 lanes (``campaign_replanned``), and ends
+    within ``SOLO_REL`` of the un-drained run.  A member moved between
+    spanning meshes of 2 and 16 ranks keeps its global state bit for bit."""
+    import torch_mp_worker as mpw
+
+    root, other, _ = gang_park
+    for part, outcome in (("drain", "drained"), ("resume", "idle"), ("drain_plain", "drained"),
+                          ("replan", "idle")):
+        assert root[part]["outcome"] == other[part]["outcome"] == outcome, part
+    drain = root["drain"]["events"]
+    assert {"gang_formed", "preempt_notice", "gang_parked", "continuation_persisted"} <= set(drain)
+    assert root["drain"]["results"] == [None, None]
+    resumed = root["resume"]["events"][len(drain):]
+    assert "continuation_resumed" in resumed and resumed.count("request_done") == 2
+    gang, small = root["resume"]["results"]
+    assert same_as_mesh_solo(gang, dict(mpw.GANG_REQ, seed=100), 2)
+    assert same_as_mesh_solo(small, dict(mpw.SERVE_REQ, nx=18, ny=18, seed=1), 2 * RANK_SLOTS)
+    replanned = root["replan"]["events"][len(root["drain_plain"]["events"]):]
+    assert {"gang_replanned", "resumed", "campaign_replanned", "request_done"} <= set(replanned)
+    same_as_mesh_solo(root["replan"]["results"][0], dict(mpw.GANG_REQ, seed=101), 2)
+    assert other["moved_bit_for_bit"]
+
+
+def test_spanning_continuation_shards_join_to_the_member_state(gang_park):
+    """The parked gang's continuation holds one shard a process, each its
+    ranks' columns of the member's global state with the pad sliced away:
+    joined in process order they are that state, bit for bit.  Read on
+    another topology (one process, whose shard would be the whole state)
+    it raises ``CheckpointError``, as the JAX reader does, so the scheduler
+    restarts the request fresh."""
+    import h5py
+
+    from rustpde_mpi_tpu_torch.models.navier import NavierState
+    from rustpde_mpi_tpu_torch.utils import checkpoint
+
+    _, _, out_dir = gang_park
+    park = os.path.join(out_dir, "park")
+    with open(os.path.join(park, checkpoint.CONTINUATION_MANIFEST), encoding="utf-8") as fh:
+        record = json.load(fh)
+    assert len(record["shards"]) == 2
+    want = np.load(os.path.join(out_dir, "park_global.npz"))
+    shards = [h5py.File(os.path.join(park, s["file"]), "r") for s in record["shards"]]
+    try:
+        for name in record["fields"]:
+            parts = [np.asarray(h5["state"][name]) for h5 in shards]
+            assert all(0 < p.shape[-1] < want[name].shape[-1] for p in parts), name
+            np.testing.assert_array_equal(np.concatenate(parts, axis=-1), want[name],
+                                          err_msg=name)
+    finally:
+        for h5 in shards:
+            h5.close()
+    whole = NavierState(**{name: want[name] for name in record["fields"]})
+    with pytest.raises(checkpoint.CheckpointError, match="continuation"):
+        checkpoint.read_continuation(park, whole)
+
+
+def test_spanning_gang_member_lost_within_the_deadline(tmp_path):
+    """Gang member 1 SIGKILLed mid-campaign (``kill@6:gang0member1``) on a
+    sub-mesh spanning both processes: the survivor's serve ends in the typed
+    gang loss (a ``gang_member_lost`` row; the request requeued with its
+    progress, under its gang) within the gang deadline plus 5 s of the
+    kill, not in a hang (on the CPU the flip's gloo exchange fails as the
+    peer's connection closes; on a card the deadline releases the waits).
+    One spawn, a deadline of 45 s."""
+    import torch_mp_worker as mpw
+
+    outs = mpw.spawn(str(tmp_path / "mp"), "gang_kill", timeout=45.0)
+    (rc0, _, err0, res), (rc1, _, _, _) = outs
+    assert rc1 == -9 and rc0 == 0 and res is not None, err0[-3000:]
+    assert res["error"] is not None
+    with open(tmp_path / "mp" / "killed_at", encoding="utf-8") as fh:
+        killed = float(fh.read())
+    assert 0.0 <= res["ended_at"] - killed <= mpw.GANG_DEADLINE_S + 5.0
+    rows = {e["event"]: e for e in res["events"]}
+    assert rows["gang_member_lost"]["gang"] == rows["gang_formed"]["gang"] == 0
+    requeued = rows["request_requeued"]
+    assert requeued["id"] == res["ids"][0] and requeued["gang"] == 0 and "progress" in requeued
+    assert res["queue"]["queued"] == 1 and res["queue"]["running"] == 0
+
+
+def test_flip_deadline_releases_the_waits_and_raises_gang_lost():
+    """The gang deadline of a boundary on a spanning mesh: a boundary past
+    it releases the mesh's flip waits and ends in ``GangMemberLost``, even
+    where it returned; one inside it returns its value; without a spanning
+    mesh or a deadline it only runs."""
+    from rustpde_mpi_tpu_torch.serve.fleet.gang import GangMemberLost
+    from rustpde_mpi_tpu_torch.serve.scheduler import _FlipDeadline
+
+    released = []
+
+    class Ring:
+        def release_waits(self):
+            released.append(True)
+
+    class Mesh:
+        spanning, ring = True, Ring()
+
+    assert _FlipDeadline(Mesh(), 5.0, "0").run(lambda x: x + 1, 1) == 2 and not released
+    with pytest.raises(GangMemberLost, match="gang deadline"):
+        _FlipDeadline(Mesh(), 0.05, "0").run(time.sleep, 0.3)
+    assert released == [True]
+    with pytest.raises(GangMemberLost):
+        _FlipDeadline(Mesh(), 0.05, "0").run(lambda: (time.sleep(0.3), 1 / 0))
+    assert _FlipDeadline(None, 0.05, "0").run(time.sleep, 0.1) is None
+    assert _FlipDeadline(Mesh(), 0.0, "0").run(lambda: 3) == 3 and len(released) == 2

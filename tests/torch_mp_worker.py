@@ -1,7 +1,8 @@
 """One process of a two-process job of the port, for the CPU tests
 (``tests/test_torch_multihost.py``, ``tests/test_torch_sharded_ckpt.py``,
 ``tests/test_torch_serve.py``, ``tests/test_torch_spanning_mesh.py``,
-``tests/test_torch_spanning_paths.py``, ``tests/test_torch_lnse.py``).
+``tests/test_torch_spanning_paths.py``, ``tests/test_torch_lnse.py``) and
+the card tests of ``tests/test_torch_cuda.py``.
 
     python tests/torch_mp_worker.py <port> <rank> <nproc> <out_dir> <mode> [arg]
 
@@ -345,26 +346,46 @@ def mode_sharded_run(mh, rank, arg):
             "desyncs": san.stats()["desyncs"]}
 
 
-def _served(rank, reqs, **cfg_kw):
-    """Serve ``reqs`` (submitted on the root) with a ``SimServer`` on every
-    process at once; the root returns the summary, each request's result
-    and the journal's event types."""
-    from rustpde_mpi_tpu_torch.config import ServeConfig
+def _recorded_server():
+    """``SimServer`` recording each campaign's mesh: its grid, rank count
+    and whether it spans the processes."""
     from rustpde_mpi_tpu_torch.serve import SimServer
+
+    class Recorded(SimServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.meshes = []
+
+        def _build_runner(self, key, k=None):
+            runner, ens = super()._build_runner(key, k)
+            mesh = ens.model.mesh
+            self.meshes.append([int(key[1]), int(key[2]), mesh.nranks if mesh else 0,
+                                bool(getattr(mesh, "spanning", False))])
+            return runner, ens
+
+    return Recorded
+
+
+def _served(rank, reqs, device="cpu", run_dir="serve", **cfg_kw):
+    """Serve ``reqs`` (submitted on the root) with a ``SimServer`` on every
+    process at once; the root returns the summary, each request's result,
+    the journal's event types and each campaign's mesh
+    (:func:`_recorded_server`)."""
+    from rustpde_mpi_tpu_torch.config import ServeConfig
     from rustpde_mpi_tpu_torch.utils.journal import read_journal
 
     out_dir = sys.argv[4]
-    cfg = ServeConfig(run_dir=os.path.join(out_dir, "serve"), chunk_steps=4,
+    cfg = ServeConfig(run_dir=os.path.join(out_dir, run_dir), chunk_steps=4,
                       checkpoint_every_s=None, http_port=None, **cfg_kw)
-    srv = SimServer(cfg, device="cpu")
+    srv = _recorded_server()(cfg, device=device)
     ids = [srv.submit(r).id for r in reqs] if rank == 0 else []
     summary = srv.serve()
     if rank != 0:
-        return {"outcome": summary["outcome"]}
+        return {"outcome": summary["outcome"], "meshes": srv.meshes}
     events = [e["event"] for e in read_journal(os.path.join(cfg.run_dir, "journal.jsonl"))
               if e["event"] not in ("perf_degraded", "profile_capture")]
     return {"outcome": summary["outcome"], "completed": summary["completed"],
-            "processes": summary["slots"]["process_count"],
+            "processes": summary["slots"]["process_count"], "meshes": srv.meshes,
             "results": [srv.result(i) for i in ids], "events": events}
 
 
@@ -373,8 +394,8 @@ SERVE_REQ = dict(ra=1e4, pr=1.0, nx=17, ny=17, dt=0.01, bc="rbc")
 
 def mode_serve_campaign(mh, rank, arg):
     """Two processes serve five 17^2 requests through two lanes: the root
-    decides every boundary and broadcasts it, every process steps its own
-    replica of the campaign."""
+    decides every boundary and broadcasts it, and the campaign runs on the
+    whole-fleet mesh, every rank slot of both processes."""
     mh.set_sync_timeout(30.0)
     reqs = [dict(SERVE_REQ, horizon=0.08 + (s % 3) * 0.02, seed=s) for s in range(5)]
     return _served(rank, reqs, slots=2)
@@ -382,14 +403,187 @@ def mode_serve_campaign(mh, rank, arg):
 
 def mode_gang_serve(mh, rank, arg):
     """Two processes, a 34^2 request stamped for a 2-slot sub-mesh (a gang:
-    one rank slot of each process, each process a 2-rank replica of the
-    gang's model on its device) beside two unstamped 18^2 requests."""
+    one rank slot of each process, one model spanning them) beside two
+    unstamped 18^2 requests (a grid the 14-slot remainder does not divide:
+    the whole-fleet mesh)."""
     from rustpde_mpi_tpu_torch.config import SubmeshConfig
 
     mh.set_sync_timeout(30.0)
     reqs = [dict(SERVE_REQ, nx=34, ny=34, horizon=0.08, seed=100)] + \
         [dict(SERVE_REQ, nx=18, ny=18, horizon=0.06, seed=s) for s in range(2)]
     return _served(rank, reqs, slots=2, submesh=SubmeshConfig(shapes=(2,), shard_min_nx=34))
+
+
+#: the gang cell of the spanning-serve spawns: a 34^2 request stamped for a
+#: 2-slot sub-mesh (``GANG_SHAPES``), 12 steps, beside an unstamped 18^2 one
+GANG_REQ = dict(SERVE_REQ, nx=34, ny=34, horizon=0.12)
+GANG_SHAPES = (2,)
+#: the gang deadline (``gang_sync_timeout_s``) of the kill spawn
+GANG_DEADLINE_S = 10.0
+
+
+def _gang_server(run_dir, shapes, slots, fleet, fault=None, **kw):
+    """A ``SimServer`` on the CPU for the gang spawns, with gang traffic
+    from 34^2 up; ``fleet``: one replica of a fleet (both processes under
+    one replica id) with a preemption notice, so a SIGTERM parks the
+    running lanes as continuations.  Each continuation it writes is also
+    kept as the member's global state (``parked_global``, the root's)."""
+    from rustpde_mpi_tpu_torch.config import FleetConfig, ServeConfig, SubmeshConfig
+    from rustpde_mpi_tpu_torch.models.campaign import global_leaves
+    from rustpde_mpi_tpu_torch.serve import SimServer
+
+    class Parking(SimServer):
+        parked_global = {}
+
+        def _write_continuation(self, req, ens, state, base, time_base):
+            # the ring gather is a collective: every process, in plan order
+            leaves = global_leaves(ens.model, state)
+            self.parked_global[req.id] = {name: leaf.numpy().copy()
+                                          for name, leaf in zip(state._fields, leaves)}
+            return super()._write_continuation(req, ens, state, base, time_base)
+
+    cfg = ServeConfig(run_dir=run_dir, slots=slots, chunk_steps=4, checkpoint_every_s=None,
+                      http_port=None, submesh=SubmeshConfig(shapes=shapes, shard_min_nx=34),
+                      fleet=FleetConfig(replica_id="gang", lease_ttl_s=60.0) if fleet else None,
+                      preempt_notice_s=30.0 if fleet else 0.0, **kw)
+    return Parking(cfg, device="cpu", fault=fault)
+
+
+def _serve_rows(srv, ids) -> dict:
+    """The root's record of one serve: its summary's outcome, each
+    request's result (None while unresolved) and the journal's events."""
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    summary = srv.serve()
+    events = [e["event"] for e in read_journal(srv.journal_path)
+              if e["event"] not in ("perf_degraded", "profile_capture")]
+    return {"outcome": summary["outcome"], "events": events,
+            "results": [srv.result(i) for i in ids]}
+
+
+def _member_move(mh):
+    """A member of an ensemble on a 2-rank spanning mesh moved onto one of
+    16 ranks (``SimServer._member_in``): its global state after the move
+    against before, bit for bit."""
+    import rustpde_mpi_tpu_torch as pt
+    from rustpde_mpi_tpu_torch.models.campaign import global_leaves
+    from rustpde_mpi_tpu_torch.serve import SimServer
+
+    small, big = (span_model("confined", mh.global_pencil_mesh(n, "cpu")) for n in (1, 8))
+    src = pt.NavierEnsemble.from_seeds(small, [3, 4])
+    dst = pt.NavierEnsemble(big, [big.state])
+    state = src.member_state(1)
+    moved = SimServer._member_in(SimServer.__new__(SimServer), dst, state, small.mesh)
+    before, after = global_leaves(small, state), global_leaves(big, moved)
+    same = all(bool((a == b).all()) for a, b in zip(before, after))
+    small.mesh.close()
+    big.mesh.close()
+    return same
+
+
+def mode_gang_park(mh, rank, arg):
+    """A gang on a mesh spanning the two processes, parked and resumed:
+
+    1. a fleet replica (both processes) serves a 34^2 gang request and an
+       18^2 one; ``kill@4`` (SIGTERM on both) drains it under the notice:
+       the gang's lane parks through the continuation writer, each process
+       its slab (the root copies the continuation directory and keeps the
+       member's global state);
+    2. the same replica again: the gang resumes from its park, both done;
+    3. a plain server drains a second gang request the same way, into its
+       campaign checkpoint;
+    4. restarted on another carve (a 4-slot sub-mesh) and 3 slots: the
+       gang re-placed onto a slice of another shape (``gang_replanned``),
+       its checkpoint restored there, the fleet re-planned, done;
+
+    and one member moved between meshes of 2 and 16 ranks."""
+    import shutil
+
+    from rustpde_mpi_tpu_torch.utils import checkpoint
+
+    mh.set_sync_timeout(30.0)
+    out_dir = sys.argv[4]
+    root = rank == 0
+    out = {}
+    fleet_dir, plain_dir = os.path.join(out_dir, "fleet"), os.path.join(out_dir, "plain")
+    srv = _gang_server(fleet_dir, GANG_SHAPES, 2, True, fault="kill@4")
+    ids = [srv.submit(dict(GANG_REQ, seed=100)).id,
+           srv.submit(dict(SERVE_REQ, nx=18, ny=18, horizon=0.06, seed=1)).id] if root else []
+    out["drain"] = _serve_rows(srv, ids) if root else {"outcome": srv.serve()["outcome"]}
+    if root:
+        cdir = checkpoint.continuation_dir(fleet_dir, ids[0])
+        shutil.copytree(cdir, os.path.join(out_dir, "park"))
+        np.savez(os.path.join(out_dir, "park_global.npz"), **srv.parked_global[ids[0]])
+    srv = _gang_server(fleet_dir, GANG_SHAPES, 2, True)
+    out["resume"] = _serve_rows(srv, ids) if root else {"outcome": srv.serve()["outcome"]}
+    srv = _gang_server(plain_dir, GANG_SHAPES, 2, False, fault="kill@4")
+    ids = [srv.submit(dict(GANG_REQ, seed=101)).id] if root else []
+    out["drain_plain"] = _serve_rows(srv, ids) if root else {"outcome": srv.serve()["outcome"]}
+    srv = _gang_server(plain_dir, (4,), 3, False)
+    out["replan"] = _serve_rows(srv, ids) if root else {"outcome": srv.serve()["outcome"]}
+    out["moved_bit_for_bit"] = _member_move(mh)
+    return out
+
+
+def mode_gang_kill(mh, rank, arg):
+    """A gang on a mesh spanning the two processes loses member 1 mid-run
+    (``kill@6:gang0member1``, a SIGKILL; it notes the wall time first):
+    the survivor's serve must end in the typed gang loss within the gang
+    deadline.  The survivor returns the error, its wall time and the
+    journal's events."""
+    import signal
+
+    from rustpde_mpi_tpu_torch.utils.journal import read_journal
+
+    mh.set_sync_timeout(60.0)
+    out_dir = sys.argv[4]
+    if rank == 1:
+        kill = os.kill
+
+        def noted(pid, sig):
+            if sig == signal.SIGKILL:
+                with open(os.path.join(out_dir, "killed_at"), "w", encoding="utf-8") as fh:
+                    fh.write(repr(time.time()))
+            kill(pid, sig)
+
+        os.kill = noted
+    srv = _gang_server(os.path.join(out_dir, "serve"), GANG_SHAPES, 2, False,
+                       fault="kill@6:gang0member1", gang_sync_timeout_s=GANG_DEADLINE_S)
+    ids = [srv.submit(dict(GANG_REQ, horizon=0.16, seed=100)).id] if rank == 0 else []
+    try:
+        srv.serve()
+        error = None
+    except Exception as exc:  # the survivor's gang loss
+        error = [type(exc).__name__, str(exc)[:500]]
+    ended = time.time()
+    events = [e for e in read_journal(srv.journal_path)
+              if e["event"] in ("gang_member_lost", "request_requeued", "gang_formed")]
+    return {"error": error, "ended_at": ended, "events": events,
+            "queue": srv.queue.counts(), "ids": ids}
+
+
+#: the card's serving spawn: the ``ensemble129`` cell (129^2, Ra 1e7)
+CARD_SERVE_REQ = dict(ra=1e7, pr=1.0, nx=129, ny=129, dt=2e-3, bc="rbc")
+
+
+def mode_served_spanning_card(mh, rank, arg):
+    """Two processes on card 0 serve together: three 129^2 requests through
+    two lanes on the whole-fleet mesh (the third refills a lane), then a
+    130^2 request stamped for a 2-slot sub-mesh (a gang, one rank a
+    process) beside a 129^2 one.  The root returns each part's record
+    (:func:`_served`)."""
+    import torch
+
+    from rustpde_mpi_tpu_torch.config import SubmeshConfig
+
+    torch.cuda.set_device(torch.device("cuda", 0))
+    mh.set_sync_timeout(120.0)
+    fleet = [dict(CARD_SERVE_REQ, horizon=(8 + 2 * s) * 2e-3, seed=s) for s in range(3)]
+    gang = [dict(CARD_SERVE_REQ, nx=130, ny=130, horizon=8 * 2e-3, seed=5),
+            dict(CARD_SERVE_REQ, horizon=6 * 2e-3, seed=6)]
+    return {"fleet": _served(rank, fleet, "cuda", "fleet", slots=2),
+            "gang": _served(rank, gang, "cuda", "gang", slots=2,
+                            submesh=SubmeshConfig(shapes=(2,), shard_min_nx=130))}
 
 
 #: the spanning-mesh cells: 4 ranks over the processes, the confined cell at
