@@ -435,7 +435,9 @@ launch of a step serving all K members:
     the request on a one-process mesh of the same rank count (fields 1e-12
     of their scale at 129^2, phase 37's one-ulp rule where the products
     batch apart: the gang's one rank a process, and ``rbc1025``, whose
-    member axis widens them; Nu rel 1e-9), the resumed gang
+    8 ranks a process round apart from the one-process mesh's 16; Nu rel
+    1e-9), a one-process K = 2 ensemble's members bit for bit their solo
+    runs (the member axis is not what rounds apart), the resumed gang
     against (b)'s un-drained one (1e-12); each campaign's chunks launched
     exactly 37 flips, 1 rank gather and 7 banded solves a warm-up and
     replayed step, and left no receive slab past its close; the later
@@ -7462,9 +7464,11 @@ def phase38(torch, pt, card) -> dict:
 #: 14-slot remainder does not divide: the whole-fleet mesh).  (c) The same
 #: gang request under a fleet replica with a preemption notice, drained by
 #: ``kill@SERVE39_DRAIN_AT`` (a SIGTERM on both), its lane parked through
-#: the continuation writer, and resumed by a restart.
-SERVE39_PROCS = 2
-SERVE39_PARTS = ("a", "b", "c")
+#: the continuation writer, and resumed by a restart.  With two cards or
+#: more, as phase 37, (a) again with a card a process (up to four): a
+#: 2-slot gang cannot span more than two processes.
+SERVE39_LAYOUTS = (("served", 2, False, ("a", "b", "c")),)
+SERVE39_CARD_LAYOUT = ("served_card_per_process", None, True, ("a",))
 SERVE39_STEPS = (40, 40, 36)
 SERVE39_AGAIN = 16
 SERVE39_SLOTS = 2
@@ -7475,7 +7479,8 @@ SERVE39_DRAIN_AT = 8
 #: mesh of the same rank count, of each field's scale, where the products
 #: round alike (129^2); where they batch apart, phase 37's one-ulp rule
 #: instead: the gang's one rank a process (lone GEMMs), and ``rbc1025``,
-#: whose member axis widens the products cuBLAS rounds apart at 1025^2
+#: whose 8 ranks a process round apart from the one-process mesh's 16 at
+#: 1025^2 (a K = 2 member there rounds as its lone model, phase 39 checks)
 SERVE39_LIMIT = 1e-12
 #: a served Nu against its solo run's, relative: the JAX package's serve
 #: isolation tolerance (its multi-process soaks)
@@ -7649,7 +7654,7 @@ def served_spanning_child(torch, pt, mh, args, device) -> dict:
         srv.logs = []
         torch.cuda.synchronize()
 
-    parts = args.get("parts", SERVE39_PARTS)
+    parts = args["parts"]
     try:
         if "a" in parts:
             # (a) default traffic on the whole-fleet mesh, then a second
@@ -7773,10 +7778,81 @@ def serve39_against_solo(torch, pt, work, part, reqs, cell, nranks, ulp, label, 
     torch.cuda.empty_cache()
 
 
-def phase39(torch, pt, card, nproc=SERVE39_PROCS, per_card=False, parts=SERVE39_PARTS) -> dict:
+def serve39_member_axis(torch, pt, work, part, reqs, cell, nranks, label, card) -> None:
+    """Whether the member axis alone rounds apart at this size: the first
+    two requests of a part, which start together in its two lanes and run
+    as many steps, as members of a one-process ``NavierEnsemble`` of K = 2
+    on ``make_mesh(nranks)`` from their initial conditions.  Gate: each
+    member within ``SERVE39_LIMIT`` of its solo run (K = 1) of each field's
+    scale (bit for bit expected: on the meshed route a member's products
+    round as the lone model's, ROADMAP Queue 3 item 4).  The served result
+    against that member is printed beside it: what is left is the split of
+    the ranks over the processes."""
+    import numpy as np
+
+    from rustpde_mpi_tpu_torch.models.campaign import global_leaves
+
+    pair = list(zip(part["ids"], part["results"]))[:2]
+    steps = {res["steps"] for _, res in pair}
+    if len(pair) != 2 or len(steps) != 1 or len({res["dt"] for _, res in pair}) != 1:
+        raise AssertionError(f"39: {label}: the first two requests do not run alike: "
+                             f"{[(res['steps'], res['dt']) for _, res in pair]}")
+    model = pt.Navier2D(**cell, mesh=pt.make_mesh(nranks, CARD))
+
+    def host(state):
+        return dict(zip(state._fields, (t.cpu().numpy() for t in global_leaves(model, state))))
+
+    starts, solos = [], []
+    for _, res in pair:
+        solos.append(host(solo_final(torch, model, res)[0]))
+        model.state = type(model.state)(*(t.new_zeros(t.shape) for t in model.state))
+        model.init_random(res["amp"] or 0.1, seed=res["seed"])
+        starts.append(type(model.state)(*(t.clone() for t in model.state)))
+    ens = pt.NavierEnsemble(model, starts)
+    ens.update_n(steps.pop())
+    for i, (rid, res) in enumerate(pair):
+        member = host(ens.member_state(i))
+        rels = {k: span38_rel(w, solos[i][k]) for k, w in member.items()}
+        exact = all(np.array_equal(w, solos[i][k]) for k, w in member.items())
+        got = dict(np.load(os.path.join(work, f"final_{reqs}_{rid}.npz")))
+        served = {k: span38_rel(got[k], w) for k, w in member.items()}
+        print(f"phase39 {label} seed {res['seed']}: member {i} of a K = 2 NavierEnsemble on "
+              f"make_mesh({nranks}) against its solo run (K = 1) ({card}): fields over their "
+              f"scale {json.dumps(rels)} (limit {SERVE39_LIMIT:g}); bit for bit {exact}; the "
+              f"served request {rid} against that member: {json.dumps(served)}")
+        if any(not v <= SERVE39_LIMIT for v in rels.values()):
+            raise AssertionError(f"39: {label}: a K = 2 member off its solo run: {rels}")
+    del model, ens
+    torch.cuda.empty_cache()
+
+
+def phase39(torch, pt, card) -> dict:
     """Phase 39: serving on meshes that span processes (``SERVE39_*``):
-    ``nproc`` processes (on card 0, or ``per_card``: process ``p`` on card
-    ``p``) serve ``parts`` of (a), (b) and (c) through ``SimServer``.
+    2 processes on card 0 serve (a), (b) and (c) through ``SimServer``;
+    with two cards or more, as phase 37, (a) again with a card a process
+    (``SERVE39_CARD_LAYOUT``).  Gates of each layout:
+    :func:`serve39_layout`.  Returns the first layout's launches a process
+    over the chunks of every part, its flip and banded records, and the
+    phase's wall."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    layouts = list(SERVE39_LAYOUTS)
+    if cards >= 2:
+        label, _, per_card, parts = SERVE39_CARD_LAYOUT
+        layouts.append((label, 4 if cards >= 4 else 2, per_card, parts))
+    out = None
+    for label, nproc, per_card, parts in layouts:
+        got = serve39_layout(torch, pt, card, label, nproc, per_card, parts)
+        out = out or got
+    wall = time.perf_counter() - t0
+    print(f"phase39 ok ({wall:.1f} s)")
+    return dict(out, wall_s=wall)
+
+
+def serve39_layout(torch, pt, card, label, nproc, per_card, parts) -> dict:
+    """Phase 39 on one layout: ``nproc`` processes (on card 0, or
+    ``per_card``: process ``p`` on card ``p``) serve ``parts`` of (a), (b)
+    and (c) through ``SimServer``.
     Gates: every request done; each result against its solo run on a
     one-process mesh of the same rank count (``serve39_against_solo``); the
     resumed gang against the un-drained one of (b), by the same rule; each
@@ -7786,13 +7862,12 @@ def phase39(torch, pt, card, nproc=SERVE39_PROCS, per_card=False, parts=SERVE39_
     ``max_memory_allocated`` than the first (``SERVE39_MEMORY_SLACK_MIB``);
     every flip and banded solve a served step gave the kernels against
     their plain versions (in the children).  Returns the launches a
-    process over the chunks of every part, the flip and banded records,
-    and the phase's wall."""
+    process over the chunks of every part and the flip and banded
+    records."""
     import numpy as np
 
     t0 = time.perf_counter()
     fleet = nproc * 8  # the whole-fleet mesh: every process's rank slots
-    label = "served" if not per_card else "served_card_per_process"
     with tempfile.TemporaryDirectory(prefix="phase39_") as work:
         results = span_spawn(label, nproc, per_card, False, work, child=CHILD_39, phase="39",
                              extra={"parts": list(parts)})
@@ -7830,11 +7905,13 @@ def phase39(torch, pt, card, nproc=SERVE39_PROCS, per_card=False, parts=SERVE39_
             if not max(mem[1:]) <= mem[0] + SERVE39_MEMORY_SLACK_MIB:
                 raise AssertionError(f"39: max_memory_allocated grew from campaign to campaign "
                                      f"of the same shapes: {mem} MiB")
-            # the members' axis widens the served products at 1025^2, where
-            # cuBLAS rounds them apart from the lone model's (ROADMAP Queue 3
-            # item 4): the one-ulp rule
+            # at 1025^2 a process's 8 ranks round apart from the one-process
+            # mesh's 16 (ROADMAP Queue 3 item 4; not the member axis, which
+            # serve39_member_axis holds bit for bit): the one-ulp rule
             serve39_against_solo(torch, pt, work, done["a"], "a", RBC1025, fleet, True,
                                  "(a) rbc1025", card)
+            serve39_member_axis(torch, pt, work, done["a"], "a", RBC1025, fleet,
+                                "(a) rbc1025", card)
             for k in ("a2", "a3"):
                 serve39_against_solo(torch, pt, work, done[k], k, RBC1025, fleet, True,
                                      f"(a) rbc1025 again ({k})", card)
@@ -7863,10 +7940,9 @@ def phase39(torch, pt, card, nproc=SERVE39_PROCS, per_card=False, parts=SERVE39_
     kinds = {r["kernel"] for r in records}
     if kinds != {"ring_push", "banded_solve"}:
         raise AssertionError(f"39: kernels checked on served inputs: {kinds}")
-    wall = time.perf_counter() - t0
-    print(f"phase39 launches a process in the served chunks ({card}): {json.dumps(launches)}")
-    print(f"phase39 ok ({wall:.1f} s)")
-    return {"launches": launches, "records": records, "wall_s": wall}
+    print(f"phase39 {label} launches a process in the served chunks ({card}): "
+          f"{json.dumps(launches)} ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "records": records}
 
 
 def span_paths_launches(paths, kernel) -> dict:

@@ -459,9 +459,10 @@ class SpanningRing(RingTranspose):
         its peers' pushes with no deadline, so a peer that is gone stalls
         this process's stream for good; after this the stalled work runs
         on with stale chunks, and the caller must discard what it computed
-        (the serving scheduler's gang deadline raises
-        ``GangMemberLost``).  Any thread may call it.  On the CPU a flip
-        fails by itself when its peer's connection closes: nothing to do."""
+        (the resilient runner calls it on a ``DispatchHang``, which the
+        serving scheduler turns into a gang loss).  Any thread may call
+        it.  On the CPU a flip fails by itself when its peer's connection
+        closes: nothing to do."""
         if self.device.type != "cuda":
             return
         side = torch.cuda.Stream(self.device)

@@ -215,57 +215,6 @@ class _Slot:
         return self.req is not None
 
 
-class _FlipDeadline:
-    """The gang deadline of a campaign boundary on a mesh spanning
-    processes (``gang_sync_timeout_s``; none at 0 or without such a mesh).
-
-    A remote flip waits for its peers' pushes in the card's front end with
-    no deadline of its own, so a gang member that died mid-chunk would
-    stall the survivor's stream, and the survivor's next read of the card,
-    for good (on the CPU the flip's gloo exchange fails as the peer's
-    connection closes instead).  :meth:`run` runs one boundary under a
-    timer: past the deadline the timer releases every wait of the mesh's
-    flips (:meth:`..ops.ring_transpose.SpanningRing.release_waits`), the
-    stalled work runs on with stale chunks, and the boundary ends in
-    :class:`GangMemberLost`, whatever it returned or raised, so its
-    results are never used.  The survivor thus waits at most the deadline
-    and the chunk in flight."""
-
-    def __init__(self, mesh, timeout_s: float, gang: str):
-        self.mesh = mesh if getattr(mesh, "spanning", False) else None
-        self.timeout_s = float(timeout_s or 0.0)
-        self.gang = gang
-        self.fired = False
-
-    def _fire(self) -> None:
-        self.fired = True
-        self.mesh.ring.release_waits()
-
-    def _lost(self) -> GangMemberLost:
-        return GangMemberLost(self.gang, None, f"a remote flip waited past the gang deadline "
-                              f"({self.timeout_s:g} s)")
-
-    def run(self, fn, *args):
-        if self.mesh is None or self.timeout_s <= 0:
-            return fn(*args)
-        timer = threading.Timer(self.timeout_s, self._fire)
-        timer.daemon = True
-        timer.start()
-        try:
-            out = fn(*args)
-        except GangMemberLost:
-            raise
-        except Exception as exc:
-            if self.fired:
-                raise self._lost() from exc
-            raise
-        finally:
-            timer.cancel()
-        if self.fired:
-            raise self._lost()
-        return out
-
-
 class SimServer:
     """The service front: durable queue + continuous-batching scheduler.
 
@@ -2702,20 +2651,95 @@ class SimServer:
 
     def _campaign_loop(self, runner, ens, slots: list[_Slot], key: tuple) -> None:
         root = self._is_root()
-        deadline = _FlipDeadline(
-            ens.model.mesh if self._gang_active is not None else None,
-            self.cfg.gang_sync_timeout_s,
-            str((self._gang_active or {}).get("gang", "?")),
-        )
         while True:
             running = [s for s in slots if s.running]
             if not running:
                 break
-            # a gang on a mesh spanning processes: a boundary that outlasts
-            # the gang deadline releases its flips' waits (a peer that is
-            # gone) and ends in GangMemberLost
-            if deadline.run(self._boundary, runner, ens, slots, key, running, root):
+            done = self._host_steps(ens)
+            n = int(
+                self._root_plan(
+                    lambda: max(
+                        1,
+                        min(
+                            min(
+                                s.target - (s.base + int(done[s.index]))
+                                for s in running
+                            ),
+                            int(self.cfg.chunk_steps),
+                        ),
+                    )
+                )
+            )
+            before = runner.step
+            # bind the on-device trace ids for this dispatch: flight spans
+            # and incident dumps during the chunk are request-attributable
+            _rt.bind_slots(
+                {s.index: s.req.trace_id for s in running if s.req.trace_id}
+            )
+            t0_wall = time.time()
+            with _tr.span("serve_chunk", steps=n, slots=len(running)):
+                runner.advance(n)
+            advanced = runner.step - before
+            if self._first_chunk_done is False and advanced > 0:
+                self._first_chunk_done = True
+                self._journal(
+                    {
+                        **_cl.observe_first_chunk(
+                            key, time.monotonic() - self._campaign_open
+                        ),
+                        "key": list(key),
+                        "step": runner.step,
+                    }
+                )
+            if _rt.enabled() and advanced > 0:
+                dur = time.time() - t0_wall
+                for s in running:
+                    if s.req.trace_id:
+                        _rt.chunk_span(
+                            s.req.trace_id,
+                            t0_wall,
+                            dur,
+                            slot=s.index,
+                            steps=advanced,
+                            step=runner.step,
+                        )
+            self._member_steps += advanced * len(running)
+            if self.cfg.stability is not None and ens.pre_divergence_latched:
+                # the chunk rolled back in memory while every member is
+                # still finite: re-bucket the pinned requests down the
+                # per-bucket dt ladder (proactive — no NaN, no checkpoint)
+                self._settle_predivergence(runner, ens, slots, key)
+            if self._fleet is not None:
+                # fleet boundary work (config-aligned guard: every host
+                # holds the same cfg, so the broadcasts inside stay in
+                # lockstep): liveness heartbeat + lease renewal and the
+                # fencing verdict BEFORE the settle's queue writes (a
+                # replica that stalled past its TTL must not complete
+                # requests a peer has reclaimed), then deadline-driven
+                # preemption after it
+                self._fleet_heartbeat()
+                if self._fence_check(ens, slots, key):
+                    return
+            with _tr.span("serve_settle", step=runner.step):
+                self._settle_boundary(runner, ens, slots, key)
+            if self._fleet is not None:
+                self._maybe_preempt(runner, ens, slots, key)
+                self._persist_running_continuations(ens, slots)
+            self._refresh_slot_state(slots, ens.k)
+            self._boundary_gauges()
+            # boundary housekeeping: deferred sharded commit + cadence
+            # checkpoint + the drain/preemption flag — runner.on_boundary is
+            # the same hook integrate() would drive, and its verdict is
+            # root-broadcast (a local self._drain on root rides the
+            # runner's interrupt flag via request_drain)
+            if runner.on_boundary():
+                self._drain = True
+                self._drain_campaign(runner, ens, slots, key)
                 return
+            self._fill_slots(runner, ens, slots, key)
+            self._refresh_slot_state(slots, ens.k)
+            if root:
+                self._flush_results()
         if root:
             self._flush_results(force=True)
         self._flush_reqtrace(runner, key)
@@ -2729,97 +2753,6 @@ class SimServer:
         if root:
             for path in runner._store.files():
                 runner._store.remove(path)
-
-    def _boundary(self, runner, ens, slots: list[_Slot], key: tuple, running, root) -> bool:
-        """One chunk of the campaign and its boundary (settle, fleet work,
-        housekeeping, refills); True when the campaign ends here (fenced
-        or drained)."""
-        done = self._host_steps(ens)
-        n = int(
-            self._root_plan(
-                lambda: max(
-                    1,
-                    min(
-                        min(
-                            s.target - (s.base + int(done[s.index]))
-                            for s in running
-                        ),
-                        int(self.cfg.chunk_steps),
-                    ),
-                )
-            )
-        )
-        before = runner.step
-        # bind the on-device trace ids for this dispatch: flight spans
-        # and incident dumps during the chunk are request-attributable
-        _rt.bind_slots(
-            {s.index: s.req.trace_id for s in running if s.req.trace_id}
-        )
-        t0_wall = time.time()
-        with _tr.span("serve_chunk", steps=n, slots=len(running)):
-            runner.advance(n)
-        advanced = runner.step - before
-        if self._first_chunk_done is False and advanced > 0:
-            self._first_chunk_done = True
-            self._journal(
-                {
-                    **_cl.observe_first_chunk(
-                        key, time.monotonic() - self._campaign_open
-                    ),
-                    "key": list(key),
-                    "step": runner.step,
-                }
-            )
-        if _rt.enabled() and advanced > 0:
-            dur = time.time() - t0_wall
-            for s in running:
-                if s.req.trace_id:
-                    _rt.chunk_span(
-                        s.req.trace_id,
-                        t0_wall,
-                        dur,
-                        slot=s.index,
-                        steps=advanced,
-                        step=runner.step,
-                    )
-        self._member_steps += advanced * len(running)
-        if self.cfg.stability is not None and ens.pre_divergence_latched:
-            # the chunk rolled back in memory while every member is
-            # still finite: re-bucket the pinned requests down the
-            # per-bucket dt ladder (proactive — no NaN, no checkpoint)
-            self._settle_predivergence(runner, ens, slots, key)
-        if self._fleet is not None:
-            # fleet boundary work (config-aligned guard: every host
-            # holds the same cfg, so the broadcasts inside stay in
-            # lockstep): liveness heartbeat + lease renewal and the
-            # fencing verdict BEFORE the settle's queue writes (a
-            # replica that stalled past its TTL must not complete
-            # requests a peer has reclaimed), then deadline-driven
-            # preemption after it
-            self._fleet_heartbeat()
-            if self._fence_check(ens, slots, key):
-                return True
-        with _tr.span("serve_settle", step=runner.step):
-            self._settle_boundary(runner, ens, slots, key)
-        if self._fleet is not None:
-            self._maybe_preempt(runner, ens, slots, key)
-            self._persist_running_continuations(ens, slots)
-        self._refresh_slot_state(slots, ens.k)
-        self._boundary_gauges()
-        # boundary housekeeping: deferred sharded commit + cadence
-        # checkpoint + the drain/preemption flag — runner.on_boundary is
-        # the same hook integrate() would drive, and its verdict is
-        # root-broadcast (a local self._drain on root rides the
-        # runner's interrupt flag via request_drain)
-        if runner.on_boundary():
-            self._drain = True
-            self._drain_campaign(runner, ens, slots, key)
-            return True
-        self._fill_slots(runner, ens, slots, key)
-        self._refresh_slot_state(slots, ens.k)
-        if root:
-            self._flush_results()
-        return False
 
     def _fence_check(self, ens, slots: list[_Slot], key: tuple) -> bool:
         """Fleet fencing at a chunk boundary: did a survivor break this

@@ -28,7 +28,9 @@ linearised models, ``NavierEnsemble``) around the ``integrate`` driver:
   thread and, when ``dispatch_timeout_s`` is set, waited for through a
   CUDA event polled against the deadline (:func:`dispatch_with_watchdog`);
   expiry dumps every thread's stack and raises :class:`DispatchHang`.  With
-  no deadline nothing is fenced, so the overlapped pipeline stays full;
+  no deadline nothing is fenced, so the overlapped pipeline stays full.  On
+  a mesh spanning processes the hang first releases the remote flips' waits
+  (a peer that never pushes would stall the card's stream for good);
 * **deterministic fault injection**: ``fault="nan@<step>"`` / ``spike`` /
   ``kill`` / ``slow`` / ``bitflip`` (:mod:`.faults`) drives every recovery
   path; the injections write into the live state in place between chunks
@@ -228,6 +230,15 @@ def _spanning(pde) -> bool:
     """Whether ``pde`` is one model on a mesh whose ranks span processes
     (each process holds some of its ranks, not a replica)."""
     return bool(getattr(checkpoint._pde_mesh(pde), "spanning", False))
+
+
+def _release_remote_waits(pde) -> None:
+    """After a :class:`DispatchHang` on a mesh spanning processes: let every
+    wait of its remote flips pass
+    (:meth:`..ops.ring_transpose.SpanningRing.release_waits`), so that the
+    stream a peer left stalled drains; a no-op on any other mesh."""
+    if _spanning(pde):
+        checkpoint._pde_mesh(pde).ring.release_waits()
 
 
 def _touched(pde, acted: bool) -> bool:
@@ -1673,8 +1684,12 @@ class ResilientRunner:
             self._setup_governor()
             yield self
         except DispatchHang:
-            # the card is wedged: drop the lagged diagnostics rather than
-            # resolve them against it
+            # the card is wedged: on a mesh spanning processes a remote
+            # flip waits in the stream for a peer's push with no deadline of
+            # its own, so let its waits pass (the chunk runs on with stale
+            # chunks; nothing of it is used after a hang); drop the lagged
+            # diagnostics rather than resolve them against the card
+            _release_remote_waits(self.pde)
             if self._io is not None:
                 self._io.abandon_diags()
             self.incident_dump("dispatch_hang")

@@ -1850,3 +1850,40 @@ def test_served_spanning_campaigns_of_two_processes_on_one_card(device, tmp_path
             for name in ("nu", "nuvol", "re", "div"):
                 assert abs(res[name] - want[name]) <= 1e-12 * max(abs(want[name]), 1e-300), \
                     (part, res["seed"], name, res[name], want[name])
+
+
+@pytest.mark.parametrize("arg", ["cuda", "cuda_stall"])
+def test_spanning_gang_loss_on_the_card_within_the_deadline(device, tmp_path, arg):
+    """A 34^2 gang on a 2-slot sub-mesh spanning two processes on card 0
+    (``tests/torch_mp_worker.py``, mode ``gang_kill``) loses member 1 at
+    step 6: SIGKILLed (``cuda``), or stalled past the dispatch watchdog's
+    deadline before its next chunk, so that it never pushes its chunks
+    (``cuda_stall``: the survivor's chunk waits in a remote flip on the
+    card until its watchdog releases the waits).  The survivor's serve ends
+    in the typed gang loss (a ``gang_member_lost`` row, the request
+    requeued with its progress) within the deadline (``GANG_DEADLINE_S``)
+    plus 10 s of the fault, not in a hang."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_mp_worker import GANG_DEADLINE_S, spawn
+
+    outs = spawn(str(tmp_path), "gang_kill", arg, timeout=180.0)
+    (rc0, _, err0, res), (rc1, _, err1, other) = outs
+    assert rc0 == 0 and res is not None, err0[-3000:]
+    rows = {e["event"]: e for e in res["events"]}
+    if arg == "cuda":
+        assert rc1 == -9, err1[-3000:]
+        with open(tmp_path / "killed_at", encoding="utf-8") as fh:
+            fault_at = float(fh.read())
+    else:
+        assert rc1 == 0 and other["error"][0] == "DispatchHang", err1[-3000:]
+        assert res["error"][0] == "DispatchHang"
+        fault_at = rows["fault_injected"]["t"]
+    assert res["error"] is not None
+    assert 0.0 <= res["ended_at"] - fault_at <= GANG_DEADLINE_S + 10.0, res["ended_at"] - fault_at
+    assert rows["gang_member_lost"]["gang"] == rows["gang_formed"]["gang"] == 0
+    requeued = rows["request_requeued"]
+    assert requeued["id"] == res["ids"][0] and "progress" in requeued
+    assert res["queue"]["queued"] == 1 and res["queue"]["running"] == 0

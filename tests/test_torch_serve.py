@@ -674,10 +674,12 @@ def test_spanning_gang_member_lost_within_the_deadline(tmp_path):
     """Gang member 1 SIGKILLed mid-campaign (``kill@6:gang0member1``) on a
     sub-mesh spanning both processes: the survivor's serve ends in the typed
     gang loss (a ``gang_member_lost`` row; the request requeued with its
-    progress, under its gang) within the gang deadline plus 5 s of the
-    kill, not in a hang (on the CPU the flip's gloo exchange fails as the
-    peer's connection closes; on a card the deadline releases the waits).
-    One spawn, a deadline of 45 s."""
+    progress, under its gang) within the deadline plus 5 s of the kill, not
+    in a hang: on the CPU the survivor's next gloo exchange fails as the
+    peer's connection closes (a card that waits in a remote flip instead is
+    bounded by the dispatch watchdog, ``tests/test_torch_cuda.py``'s
+    ``test_spanning_gang_loss_on_the_card_within_the_deadline``).  One
+    spawn, a deadline of 45 s."""
     import torch_mp_worker as mpw
 
     outs = mpw.spawn(str(tmp_path / "mp"), "gang_kill", timeout=45.0)
@@ -694,13 +696,21 @@ def test_spanning_gang_member_lost_within_the_deadline(tmp_path):
     assert res["queue"]["queued"] == 1 and res["queue"]["running"] == 0
 
 
-def test_flip_deadline_releases_the_waits_and_raises_gang_lost():
-    """The gang deadline of a boundary on a spanning mesh: a boundary past
-    it releases the mesh's flip waits and ends in ``GangMemberLost``, even
-    where it returned; one inside it returns its value; without a spanning
-    mesh or a deadline it only runs."""
-    from rustpde_mpi_tpu_torch.serve.fleet.gang import GangMemberLost
-    from rustpde_mpi_tpu_torch.serve.scheduler import _FlipDeadline
+def test_flip_deadline_releases_the_waits_and_raises_gang_lost(tmp_path, monkeypatch):
+    """A gang's served chunk past the dispatch watchdog's deadline
+    (``ResilienceConfig.dispatch_timeout_s``; a ``slow`` fault stalls it)
+    first lets the waits of its mesh's remote flips pass
+    (``resilience._release_remote_waits``: on a mesh spanning processes
+    ``SpanningRing.release_waits``, elsewhere nothing), then ends in the
+    typed gang loss before the boundary: no request completes and no
+    continuation is persisted, so nothing the released chunk computed is
+    used.  The gang deadline stays the barrier's (``gang_sync_timeout_s``,
+    which this serve's boundaries outlast without tripping it)."""
+    import torch_mp_worker as mpw
+
+    from rustpde_mpi_tpu_torch.config import ResilienceConfig, SubmeshConfig
+    from rustpde_mpi_tpu_torch.utils import resilience
+    from rustpde_mpi_tpu_torch.utils.resilience import DispatchHang
 
     released = []
 
@@ -708,14 +718,34 @@ def test_flip_deadline_releases_the_waits_and_raises_gang_lost():
         def release_waits(self):
             released.append(True)
 
-    class Mesh:
+    class Spanning:
         spanning, ring = True, Ring()
 
-    assert _FlipDeadline(Mesh(), 5.0, "0").run(lambda x: x + 1, 1) == 2 and not released
-    with pytest.raises(GangMemberLost, match="gang deadline"):
-        _FlipDeadline(Mesh(), 0.05, "0").run(time.sleep, 0.3)
+    class Model:
+        def __init__(self, mesh):
+            self.mesh = mesh
+
+    for pde in (Model(None), Model(pt.make_mesh(2, "cpu")), object()):
+        resilience._release_remote_waits(pde)
+    assert not released
+    resilience._release_remote_waits(Model(Spanning()))
     assert released == [True]
-    with pytest.raises(GangMemberLost):
-        _FlipDeadline(Mesh(), 0.05, "0").run(lambda: (time.sleep(0.3), 1 / 0))
-    assert _FlipDeadline(None, 0.05, "0").run(time.sleep, 0.1) is None
-    assert _FlipDeadline(Mesh(), 0.0, "0").run(lambda: 3) == 3 and len(released) == 2
+
+    hooked = []
+    release = resilience._release_remote_waits
+    monkeypatch.setattr(resilience, "_release_remote_waits",
+                        lambda pde: (hooked.append(pde), release(pde)))
+    srv = SimServer(_cfg(ServeConfig, tmp_path, "hang",
+                         submesh=SubmeshConfig(shapes=(2,), shard_min_nx=34),
+                         resilience=ResilienceConfig(dispatch_timeout_s=5.0),
+                         gang_sync_timeout_s=0.05),
+                    device="cpu", fault="slow@6")
+    rid = srv.submit(dict(mpw.GANG_REQ, horizon=0.16, seed=100)).id
+    with pytest.raises(DispatchHang):
+        srv.serve()
+    assert len(hooked) == 1
+    events = [e["event"] for e in read_journal(srv.journal_path)]
+    assert {"gang_formed", "fault_injected", "gang_member_lost", "request_requeued"} <= set(events)
+    assert "request_done" not in events and "continuation_persisted" not in events
+    assert srv.result(rid) is None
+    assert srv.queue.counts()["queued"] == 1 and srv.queue.counts()["done"] == 0

@@ -418,12 +418,14 @@ def mode_gang_serve(mh, rank, arg):
 #: 2-slot sub-mesh (``GANG_SHAPES``), 12 steps, beside an unstamped 18^2 one
 GANG_REQ = dict(SERVE_REQ, nx=34, ny=34, horizon=0.12)
 GANG_SHAPES = (2,)
-#: the gang deadline (``gang_sync_timeout_s``) of the kill spawn
+#: the deadlines of the gang-loss spawns: the gang barrier's
+#: (``gang_sync_timeout_s``) and a chunk's wait for the card
+#: (``ResilienceConfig.dispatch_timeout_s``)
 GANG_DEADLINE_S = 10.0
 
 
-def _gang_server(run_dir, shapes, slots, fleet, fault=None, **kw):
-    """A ``SimServer`` on the CPU for the gang spawns, with gang traffic
+def _gang_server(run_dir, shapes, slots, fleet, fault=None, device="cpu", **kw):
+    """A ``SimServer`` on ``device`` for the gang spawns, with gang traffic
     from 34^2 up; ``fleet``: one replica of a fleet (both processes under
     one replica id) with a preemption notice, so a SIGTERM parks the
     running lanes as continuations.  Each continuation it writes is also
@@ -446,7 +448,7 @@ def _gang_server(run_dir, shapes, slots, fleet, fault=None, **kw):
                       http_port=None, submesh=SubmeshConfig(shapes=shapes, shard_min_nx=34),
                       fleet=FleetConfig(replica_id="gang", lease_ttl_s=60.0) if fleet else None,
                       preempt_notice_s=30.0 if fleet else 0.0, **kw)
-    return Parking(cfg, device="cpu", fault=fault)
+    return Parking(cfg, device=device, fault=fault)
 
 
 def _serve_rows(srv, ids) -> dict:
@@ -526,15 +528,25 @@ def mode_gang_park(mh, rank, arg):
 
 
 def mode_gang_kill(mh, rank, arg):
-    """A gang on a mesh spanning the two processes loses member 1 mid-run
-    (``kill@6:gang0member1``, a SIGKILL; it notes the wall time first):
-    the survivor's serve must end in the typed gang loss within the gang
-    deadline.  The survivor returns the error, its wall time and the
-    journal's events."""
+    """A gang on a mesh spanning the two processes loses member 1 mid-run:
+    ``kill@6:gang0member1`` (a SIGKILL; it notes the wall time first), or
+    with ``arg`` ``"cuda_stall"`` ``slow@6:gang0member1`` (member 1 stalls
+    its next dispatch past the watchdog's deadline and never pushes its
+    chunks, so the survivor's chunk waits in a remote flip on the card).
+    ``arg`` ``"cuda..."`` serves on card 0.  The survivor's serve must end
+    in the typed gang loss within the deadlines (``GANG_DEADLINE_S``).  The
+    survivor returns the error, its wall time and the journal's events."""
     import signal
 
+    from rustpde_mpi_tpu_torch.config import ResilienceConfig
     from rustpde_mpi_tpu_torch.utils.journal import read_journal
 
+    device = "cpu"
+    if arg.startswith("cuda"):
+        import torch
+
+        device = "cuda:0"
+        torch.cuda.set_device(torch.device("cuda", 0))
     mh.set_sync_timeout(60.0)
     out_dir = sys.argv[4]
     if rank == 1:
@@ -547,8 +559,10 @@ def mode_gang_kill(mh, rank, arg):
             kill(pid, sig)
 
         os.kill = noted
-    srv = _gang_server(os.path.join(out_dir, "serve"), GANG_SHAPES, 2, False,
-                       fault="kill@6:gang0member1", gang_sync_timeout_s=GANG_DEADLINE_S)
+    fault = "slow@6:gang0member1" if arg == "cuda_stall" else "kill@6:gang0member1"
+    srv = _gang_server(os.path.join(out_dir, "serve"), GANG_SHAPES, 2, False, fault=fault,
+                       device=device, gang_sync_timeout_s=GANG_DEADLINE_S,
+                       resilience=ResilienceConfig(dispatch_timeout_s=GANG_DEADLINE_S))
     ids = [srv.submit(dict(GANG_REQ, horizon=0.16, seed=100)).id] if rank == 0 else []
     try:
         srv.serve()
@@ -557,7 +571,8 @@ def mode_gang_kill(mh, rank, arg):
         error = [type(exc).__name__, str(exc)[:500]]
     ended = time.time()
     events = [e for e in read_journal(srv.journal_path)
-              if e["event"] in ("gang_member_lost", "request_requeued", "gang_formed")]
+              if e["event"] in ("gang_member_lost", "request_requeued", "gang_formed",
+                                "fault_injected")]
     return {"error": error, "ended_at": ended, "events": events,
             "queue": srv.queue.counts(), "ids": ids}
 
