@@ -448,6 +448,26 @@ launch of a step serving all K members:
     ``max_memory_allocated`` after each campaign and the phase's wall; the
     ``kernels`` line's banded and remote-flip entries gain
     ``served_spanning_launches``.
+40. ranks on other hosts: phase 37's child on processes of the one card
+    declared on two hosts (``initialize_distributed(..., host=)``), so
+    every chunk between the hosts takes the remote flip's cross-host form
+    (the push into mapped pinned staging, the epoch's copy and the socket
+    exchange as a host function on the stream, the copy-in on the card):
+    first the card's pinned-copy rates (the form's bound); then 2 processes
+    x 2 ranks at ``rbc1025`` (50 steps) and ``periodic1024`` (10): every
+    flip shape a step makes bit for bit its plain gloo version, timed cold
+    and warm beside it and the bound (the bytes for the other host each way
+    over the pinned rates); exactly 37 flips, 1 rank gather and 7 (4)
+    banded launches a step on each process; the state after 1 step and
+    after the run against phase 37's one-process ``make_mesh(4)`` run
+    (1e-12 of each field's scale; bit for bit printed); ms/step beside
+    phase 37's 2 x 2 over CUDA IPC and the one-process mesh of this call;
+    the split of a step's flips into push, exchange, copy-in, handshake,
+    copy-out and whole, and a timeline; the 129^2 state, the golden head
+    and a NaN freeze; then 4 processes (two a host: IPC within, the
+    cross-host form across) at 129^2, 10 steps, the same three checks.  The
+    ``kernels`` line gains the cross-host form's entry
+    (``ring_push_cross_host``).
 
 The serving phases keep campaign checkpoints in the runner's in-memory
 store where ``h5py`` does not import, and parked continuations as
@@ -6482,7 +6502,7 @@ from rustpde_mpi_tpu_torch.parallel import multihost as mh
 device = f"cuda:{args['rank'] if args['per_card'] else 0}"
 torch.cuda.set_device(torch.device(device))
 mh.initialize_distributed(f"localhost:{args['port']}", args["nproc"], args["rank"],
-                          timeout_s=args["sync_s"])
+                          timeout_s=args["sync_s"], host=(args.get("hosts") or {}).get(str(args["rank"])))
 mh.set_sync_timeout(args["sync_s"])
 out = cs.spanning_child(torch, pt, mh, args, device)
 print(json.dumps(out), flush=True)
@@ -6631,12 +6651,16 @@ def span_graph_ms(torch, mh, fn, reps, tag) -> float:
         graph.reset()
 
 
-def span_flip_checks(torch, mh, mesh, flips, cell, timed, nccl) -> list:
+def span_flip_checks(torch, mh, mesh, flips, cell, timed, nccl, pinned=None) -> list:
     """Each flip a step of ``cell`` makes, on random values of its local
     shape: the remote kernel bit for bit against its plain version (one
     launch), and, when ``timed``, its times cold and warm, the plain
-    version's, the ``copy_`` yardstick's and NCCL's (``nccl``: a group on
-    a card a process, else None), and its bound."""
+    version's, the ``copy_`` yardstick's (through the IPC-mapped slabs: not
+    where peers lie on other hosts) and NCCL's (``nccl``: a group on a card
+    a process, else None), and its bound.  Where peers lie on other hosts
+    (phase 40) the bound also holds the bytes for them, each way, over the
+    card's measured pinned-copy rates (``pinned``, :func:`pinned_rates`):
+    each such byte crosses the link out of this card and in to the peer's."""
     import numpy as np
 
     rng = np.random.default_rng(37 + mh.process_index())
@@ -6666,23 +6690,32 @@ def span_flip_checks(torch, mh, mesh, flips, cell, timed, nccl) -> list:
             bound_s = nbytes / (HBM_TB_PER_S * 1e12)
             if nccl is not None:
                 bound_s = max(bound_s, remote / NVLINK_BYTES_PER_S)
+            if ring.remote:
+                across = block.numel() * block.element_size() * len(ring.remote) / ring.nproc
+                bound_s = max(bound_s, across / pinned["d2h"], across / pinned["h2d"])
+                rec["cross_host_bytes"] = across
             span_barrier(torch, mh, "37 time")
             rec["kernel_ms"] = span_cold_ms(torch, ring, lambda: ring.apply(block, x_to_y),
                                             SPAN_REPS)
             rec["kernel_warm_ms"] = span_graph_ms(torch, mh, lambda: ring.apply(block, x_to_y),
                                                   SPAN_REPS, "37 flips")
             rec["plain_ms"] = span_wall_ms(torch, lambda: ring.plain(block, x_to_y), 3)
-            pairs = span_copy_views(torch, ring, block, x_to_y)
+            # across hosts on one card no PyTorch call computes the flip
+            rec["library_ms"] = None
+            rec.update(bytes=nbytes, remote_bytes=remote, bound_ms=bound_s * 1e3,
+                       bound_by="bytes")
+            if not ring.remote:
+                pairs = span_copy_views(torch, ring, block, x_to_y)
 
-            def copies():
-                for dst, src in pairs:
-                    dst.copy_(src)
+                def copies():
+                    for dst, src in pairs:
+                        dst.copy_(src)
 
-            span_barrier(torch, mh, "37 copy")
-            rec["copy_ms"] = span_cold_ms(torch, ring, copies, SPAN_REPS)
-            rec["copy_warm_ms"] = span_graph_ms(torch, mh, copies, SPAN_REPS, "37 copies")
-            span_barrier(torch, mh, "37 copied")
-            rec["library_ms"] = rec["copy_ms"]
+                span_barrier(torch, mh, "37 copy")
+                rec["copy_ms"] = span_cold_ms(torch, ring, copies, SPAN_REPS)
+                rec["copy_warm_ms"] = span_graph_ms(torch, mh, copies, SPAN_REPS, "37 copies")
+                span_barrier(torch, mh, "37 copied")
+                rec["library_ms"] = rec["copy_ms"]
             if nccl is not None:
                 send = block.reshape(-1).clone()
                 recv = torch.empty_like(send)
@@ -6690,8 +6723,6 @@ def span_flip_checks(torch, mh, mesh, flips, cell, timed, nccl) -> list:
                 rec["nccl_ms"] = time_queued_ms(torch, lambda: torch.distributed.all_to_all_single(
                     real(recv), real(send), group=nccl), SPAN_REPS)[0]
                 rec["library_ms"] = rec["nccl_ms"]
-            rec.update(bytes=nbytes, remote_bytes=remote, bound_ms=bound_s * 1e3,
-                       bound_by="bytes")
         records.append(rec)
     return records
 
@@ -6708,9 +6739,21 @@ SPLIT_PARTS = {"push": ("DATA",), "handshake": ("SIGNAL", "WAIT", "RELEASE"),
 #: captured graph, a stamp after each operation)
 TIMELINE_OPS = {"push": ("DATA", "SIGNAL"), "wait": ("WAIT",), "copy_out": ("COPY", "RELEASE")}
 TIMELINE_FLIPS = 3
+#: phase 40's split of the cross-host form: the push alone (into the
+#: pinned staging and the same-host slabs), the exchange alone (the epoch's
+#: copy and the socket exchange's host function), the copy-in alone, the
+#: handshake alone and the copy-out alone, and the whole flip; and its
+#: timeline's operations
+CROSS_SPLIT_PARTS = {"push": ("DATA",), "exchange": ("EXCHANGE",), "copy_in": ("COPY_IN",),
+                     "handshake": ("SIGNAL", "WAIT", "RELEASE"), "copy_out": ("COPY",),
+                     "flip": ("DATA", "SIGNAL", "EXCHANGE", "COPY_IN", "WAIT", "COPY",
+                              "RELEASE")}
+CROSS_TIMELINE_OPS = {"push": ("DATA", "SIGNAL"), "exchange": ("EXCHANGE",),
+                      "copy_in": ("COPY_IN",), "wait": ("WAIT",),
+                      "copy_out": ("COPY", "RELEASE")}
 
 
-def span_split(torch, mh, mesh, flips) -> dict:
+def span_split(torch, mh, mesh, flips, split_parts=None, timeline_ops=None) -> dict:
     """Phase 37's split of where a remote flip's time goes, on this
     process: for each flip a step of ``flips`` makes, each part of
     :data:`SPLIT_PARTS` timed as ``span_graph_ms`` times a flip (a graph of
@@ -6728,12 +6771,14 @@ def span_split(torch, mh, mesh, flips) -> dict:
     def bits(names):
         return sum(getattr(rt, f"PUSH_{n}") for n in names)
 
+    split_parts = split_parts or SPLIT_PARTS
+    timeline_ops = timeline_ops or TIMELINE_OPS
     ring = mesh.ring
     rows, step = [], {}
     for (shape, x_to_y, dtype), count in sorted(flips.items()):
         block = torch.zeros(shape, dtype=getattr(torch, dtype), device=mesh.device)
         row = {"shape": list(shape), "x_to_y": x_to_y, "dtype": dtype, "per_step": count}
-        for part, names in SPLIT_PARTS.items():
+        for part, names in split_parts.items():
             def fn(parts=bits(names)):
                 ring._push(block, x_to_y, parts)
 
@@ -6749,37 +6794,37 @@ def span_split(torch, mh, mesh, flips) -> dict:
     (shape, x_to_y, dtype), _ = max(flips.items(), key=lambda kv: kv[1])
     block = torch.zeros(shape, dtype=getattr(torch, dtype), device=mesh.device)
     lib = _build.load("ring_transpose")
-    nstamps = 1 + TIMELINE_FLIPS * len(TIMELINE_OPS)
+    nstamps = 1 + TIMELINE_FLIPS * len(timeline_ops)
     stamps = torch.zeros(nstamps, dtype=torch.int64, device=mesh.device)
 
     def flips_stamped():
         _build.call(lib.rp_stamp, mesh.device, stamps.data_ptr(), 0)
         for i in range(TIMELINE_FLIPS):
-            for j, names in enumerate(TIMELINE_OPS.values()):
+            for j, names in enumerate(timeline_ops.values()):
                 ring._push(block, x_to_y, bits(names))
                 _build.call(lib.rp_stamp, mesh.device, stamps.data_ptr(),
-                            1 + i * len(TIMELINE_OPS) + j)
+                            1 + i * len(timeline_ops) + j)
 
     span_graph_ms(torch, mh, flips_stamped, 1, "37 timeline")
     mine = stamps.cpu().numpy()
     every = mh.allgather_host(mine)
     return {"rows": rows, "step": step,
             "timeline": {"shape": list(shape), "x_to_y": x_to_y, "dtype": dtype,
-                         "ops": list(TIMELINE_OPS), "stamps_ns": np.asarray(every).tolist()}}
+                         "ops": list(timeline_ops), "stamps_ns": np.asarray(every).tolist()}}
 
 
-def print_split(label, results, card) -> None:
+def print_split(label, results, card, phase="phase37") -> None:
     """Print each process's :func:`span_split` (``results[rank]["split"]``)
     and the timeline."""
     for r in results:
         split = r["split"]
-        print(f"phase37 {label} split of a step's {sum(x['per_step'] for x in split['rows'])}"
+        print(f"{phase} {label} split of a step's {sum(x['per_step'] for x in split['rows'])}"
               f" flips, rank {r['rank']} ({split['seconds']:.1f} s): " + ", ".join(
                   f"{k} {v:.4f}" for k, v in split["step"].items()) + f" ms ({card})")
         for row in split["rows"]:
-            print(f"phase37 {label} split rank {r['rank']} " + json.dumps(row))
+            print(f"{phase} {label} split rank {r['rank']} " + json.dumps(row))
     timeline = results[0]["split"]["timeline"]
-    print(f"phase37 {label} timeline of {TIMELINE_FLIPS} flips {timeline['shape']} "
+    print(f"{phase} {label} timeline of {TIMELINE_FLIPS} flips {timeline['shape']} "
           f"x_to_y={timeline['x_to_y']} {timeline['dtype']}, us from the first start: "
           + span_timeline_text(timeline))
 
@@ -6857,17 +6902,24 @@ def spanning_child(torch, pt, mh, args, device) -> dict:
     rank, nproc, work = args["rank"], args["nproc"], args["work"]
     mesh = mh.global_pencil_mesh(MESH_RANKS // nproc, device)
     nccl = torch.distributed.new_group(backend="nccl") if args["per_card"] else None
-    out = {"rank": rank, "mesh": repr(mesh), "device": str(mesh.device)}
-    for cell, cfg in SPAN_CELLS.items():
+    out = {"rank": rank, "mesh": repr(mesh), "device": str(mesh.device),
+           "remote": list(mesh.ring.remote)}
+    # a mesh declared over several hosts (phase 40): the split's parts and
+    # timeline are the cross-host form's, its bound the link's
+    parts, ops = (CROSS_SPLIT_PARTS, CROSS_TIMELINE_OPS) if mesh.ring.remote else \
+        (SPLIT_PARTS, TIMELINE_OPS)
+    for cell in args.get("cells", list(SPAN_CELLS)):
+        cfg = SPAN_CELLS[cell]
         t0 = time.perf_counter()
         model = pt.Navier2D(**cfg, mesh=mesh)
         model.init_random(0.1, seed=0)
         out[f"{cell}_build_s"] = time.perf_counter() - t0
         flips = span_step_flips(torch, model)
-        out[f"{cell}_flips"] = span_flip_checks(torch, mh, mesh, flips, cell, args["timed"], nccl)
+        out[f"{cell}_flips"] = span_flip_checks(torch, mh, mesh, flips, cell, args["timed"], nccl,
+                                                args.get("pinned"))
         if cell == "rbc1025" and args["timed"]:
             t1 = time.perf_counter()
-            out["split"] = span_split(torch, mh, mesh, flips)
+            out["split"] = span_split(torch, mh, mesh, flips, parts, ops)
             out["split"]["seconds"] = time.perf_counter() - t1
         state = span_one_step(pt, model)
         if rank == 0:
@@ -6947,6 +6999,11 @@ def span_spawn(label, nproc, per_card, timed, work, child=None, phase="37",
     return results
 
 
+#: phase 37's one-process references (:func:`span_one_process`), which
+#: phase 40 holds its layouts against too
+SPAN_REFS: dict = {}
+
+
 def span_one_process(torch, pt) -> dict:
     """The one-process ``make_mesh(4)`` runs phase 37 holds the spanning
     ones against: each cell's counted run (ms/step) and global state, and
@@ -6999,6 +7056,7 @@ def phase37(torch, pt, card, one_flips) -> dict:
           + (f", card_per_process ({min(cards, MESH_RANKS)} processes)" if cards >= 2 else
              "; one card: no layout with a card a process, no NCCL yardstick"))
     refs = span_one_process(torch, pt)
+    SPAN_REFS.update(refs)
     layouts = [(label, nproc, False) for label, nproc in SPAN_LAYOUTS]
     if cards >= 2:
         layouts.append(("card_per_process", 4 if cards >= 4 else 2, True))
@@ -7945,6 +8003,154 @@ def serve39_layout(torch, pt, card, label, nproc, per_card, parts) -> dict:
     return {"launches": launches, "records": records}
 
 
+# -- ranks on other hosts: the remote flip's cross-host form (phase 40) ------------------
+
+#: phase 40's layouts on the one card: (label, processes, the spanning
+#: child's cells, timed); each declares its first half of processes on
+#: ``host0`` and the rest on ``host1`` (``initialize_distributed``'s
+#: ``host=``), so every chunk between the halves crosses through pinned
+#: host memory and the socket exchange, and within a half through CUDA IPC
+CROSS_LAYOUTS = (("2x2_hosts", 2, ("rbc1025", "periodic1024"), True),
+                 ("4x1_hosts", 4, (), False))
+#: bytes of each of the pinned-copy rate's transfers, and the transfers timed
+PINNED_BYTES = 64 << 20
+PINNED_REPS = 10
+
+
+def pinned_rates(torch) -> dict:
+    """The card's pinned-copy rates in bytes/s, device to host (``d2h``)
+    and host to device (``h2d``): ``PINNED_REPS`` copies of
+    ``PINNED_BYTES`` between a pinned host buffer and the card after one
+    untimed, between CUDA events (the link the cross-host form's push and
+    copy-in cross; measured, not the data sheet's)."""
+    host = torch.empty(PINNED_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(PINNED_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, (dst, src) in (("d2h", (host, dev)), ("h2d", (dev, host))):
+        dst.copy_(src, non_blocking=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PINNED_REPS):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out[name] = PINNED_BYTES * PINNED_REPS / (start.elapsed_time(end) * 1e-3)
+    return out
+
+
+def cross_host_hosts(nproc) -> dict:
+    """The declared host of each of ``nproc`` processes, by rank: the
+    first half ``host0``, the rest ``host1``."""
+    return {str(r): f"host{2 * r // nproc}" for r in range(nproc)}
+
+
+def phase40(torch, pt, card, span) -> dict:
+    """Phase 40: ranks on other hosts (see the module docstring).  ``span``
+    is phase 37's summary (its CUDA IPC layouts' ms/step in this call).
+    Returns ``{layout: {"records", "launches", "ms", "split"}}`` of the
+    timed layout and the launches of the other."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    pinned = pinned_rates(torch)
+    print(f"phase40 pinned copies of {PINNED_BYTES >> 20} MiB ({card}): device to host "
+          f"{pinned['d2h'] / 1e9:.2f} GB/s, host to device {pinned['h2d'] / 1e9:.2f} GB/s")
+    refs = SPAN_REFS or span_one_process(torch, pt)
+    summary = {}
+    with tempfile.TemporaryDirectory(prefix="phase40_") as work:
+        for label, nproc, cells, timed in CROSS_LAYOUTS:
+            t1 = time.perf_counter()
+            hosts = cross_host_hosts(nproc)
+            results = span_spawn(label, nproc, False, timed, work, phase="40",
+                                 extra={"hosts": hosts, "cells": list(cells), "pinned": pinned})
+            for r in results:
+                want_remote = [q for q in range(nproc) if hosts[str(q)] != hosts[str(r["rank"])]]
+                if r["remote"] != want_remote or "on 2 hosts" not in r["mesh"]:
+                    raise AssertionError(f"40: {label} rank {r['rank']} mesh {r['mesh']} reaches "
+                                         f"{r['remote']} across hosts, expected {want_remote}")
+            print(f"phase40 {label}: {nproc} processes on the one card declared on hosts "
+                  f"{json.dumps(hosts)} ({results[0]['mesh']})")
+            for cell in cells:
+                route = "periodic_mesh" if SPAN_CELLS[cell].get("periodic") else "mesh"
+                want = {k: v * SPAN_STEPS[cell] for k, v in PER_STEP[route].items()}
+                want["ring_gather"] = SPAN_STEPS[cell]
+                for r in results:
+                    if r[f"{cell}_launches"] != want:
+                        raise AssertionError(f"40: {label} {cell} rank {r['rank']} launched "
+                                             f"{r[f'{cell}_launches']}, expected {want}")
+                checks = {}
+                for tag, steps in (("_1", 1), ("", SPAN_STEPS[cell])):
+                    got = dict(np.load(os.path.join(work, f"{label}_{cell}{tag}.npz")))
+                    diff, exact, fields = span_state_diff(refs[f"{cell}{tag}"][1], got)
+                    checks[steps] = (diff, exact)
+                    print(f"phase40 {label} {cell} state vs the one-process make_mesh("
+                          f"{MESH_RANKS}) run after {steps} steps, each field over its scale: "
+                          f"{json.dumps(fields)} (limit {SPAN_LIMIT:g}; bit for bit: {exact})")
+                    if any(v > SPAN_LIMIT for v in fields.values()):
+                        raise AssertionError(f"40: {label} {cell} state after {steps} steps "
+                                             f"{fields} beyond {SPAN_LIMIT:g}")
+                for rec in results[0][f"{cell}_flips"]:
+                    print(f"phase40 {label} " + json.dumps(rec))
+                ipc = span.get("2x2", {}).get("ms") if cell == "rbc1025" else None
+                print(f"phase40 {label} {cell} f64: bare update_n {SPAN_STEPS[cell]} steps "
+                      + ", ".join(f"rank {r['rank']} {r[f'{cell}_ms']:.4f}" for r in results)
+                      + " ms/step across two hosts; "
+                      + ("over CUDA IPC on one host (phase 37's 2x2, this call) "
+                         + ", ".join(f"{v:.4f}" for v in ipc) + " ms/step; " if ipc else "")
+                      + f"one-process make_mesh({MESH_RANKS}) {refs[cell][0]:.4f} ms/step "
+                      f"({card}); launches a process {results[0][f'{cell}_launches']}; bit for "
+                      f"bit after one step {checks[1][1]}, after {SPAN_STEPS[cell]} "
+                      f"{checks[SPAN_STEPS[cell]][1]}")
+            if timed:
+                print_split(label, results, card, "phase40")
+            got = dict(np.load(os.path.join(work, f"{label}_small.npz")))
+            diff, exact, _ = span_state_diff(refs["small"][1], got)
+            if not diff <= SPAN_LIMIT:
+                raise AssertionError(f"40: {label} 129^2 state {diff:.3e} of the scale")
+            nans = [r["nan"] for r in results]
+            if len({tuple(n[:2]) for n in nans}) != 1 or nans[0][1]:
+                raise AssertionError(f"40: {label} NaN freeze differs or did not freeze: {nans}")
+            print(f"phase40 {label} 129^2 {SPAN_SMALL_STEPS} steps vs one process: {diff:.3e} "
+                  f"of the scale (bit for bit: {exact}; limit {SPAN_LIMIT:g}); golden head worst "
+                  f"rel {max(r['golden_worst'] for r in results):.3e} (limit 1e-6); NaN on "
+                  f"process {nproc - 1}: every process froze after {nans[0][0]} steps, "
+                  f"{max(n[2] for n in nans):.3f} s; layout {time.perf_counter() - t1:.1f} s")
+            row = {"nproc": nproc, "launches": {}}
+            if cells:
+                row["launches"] = {k: sum(r["rbc1025_launches"][k] for r in results)
+                                   for k in results[0]["rbc1025_launches"]}
+            if timed:
+                row.update(records=[r for r in results[0]["rbc1025_flips"] if r["per_step"]],
+                           ms=[r["rbc1025_ms"] for r in results],
+                           split=results[0]["split"]["step"], pinned=pinned)
+            summary[label] = row
+    print(f"phase40 ok ({time.perf_counter() - t0:.1f} s)")
+    return summary
+
+
+def cross_host_entry(cross) -> dict:
+    """The kernels line's entry of the remote flip's cross-host form: its
+    times summed over one step's flips of meshed ``rbc1025`` on 2
+    processes x 2 ranks declared on two hosts (rank 0's), its launches
+    those of phase 40's counted run (flips and rank gathers of every
+    process), and the step's split (push, exchange, copy-in, handshake,
+    copy-out); the link's measured rates."""
+    main = cross["2x2_hosts"]
+    return {"name": "ring_push_cross_host", "route": "cuda",
+            "source": KERNEL_META["ring_transpose"][0],
+            "host_source": "rustpde_mpi_tpu_torch/csrc/host_exchange.cpp",
+            "replaces": KERNEL_META["ring_transpose"][1],
+            "launches": sum(main["launches"].get(k, 0) for k in ("ring_transpose", "ring_gather")),
+            "flip_launches": main["launches"].get("ring_transpose", 0),
+            "gather_launches": main["launches"].get("ring_gather", 0),
+            "max_abs_err": max(r["max_abs_err"] for r in main["records"]),
+            **route_sums(main["records"]),
+            "per": "one step of rbc1025 f64 on 2 processes x 2 ranks declared on two hosts "
+                   "(rank 0's flips)",
+            "split": main["split"], "pinned_bytes_per_s": main["pinned"]}
+
+
 def span_paths_launches(paths, kernel) -> dict:
     """Phase 38's launches of ``kernel`` (``banded_solve`` or the remote
     flip, ``ring_push``: its flips and rank gathers) on each path, a
@@ -8030,7 +8236,7 @@ def route_sums(rows) -> dict:
 
 
 def kernels_line(records, launches, solver_times, ring_times, runner_launches,
-                 phase_launches=None, span=None, paths=None, served=None):
+                 phase_launches=None, span=None, paths=None, served=None, cross=None):
     """One entry per kernel, its times summed over one step of its main
     route (fused: 3 conv chains, 2 without bc and 1 with, the 7 stages once
     each; dense: the 7 banded solves; meshed: the 37 pencil flips, each
@@ -8050,7 +8256,9 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches,
     (``span_paths_launches`` of the banded and the remote flip's entries);
     ``served`` phase 39's (``served_spanning_launches``: a process's over
     the chunks of its served campaigns; ``served_spanning_max_abs_err``:
-    the kernel against its plain version on the served steps' inputs)."""
+    the kernel against its plain version on the served steps' inputs);
+    ``cross`` phase 40's (the cross-host form's own entry,
+    ``ring_push_cross_host``)."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rows = [r for r in records if r["kernel"] == kernel]
@@ -8087,6 +8295,8 @@ def kernels_line(records, launches, solver_times, ring_times, runner_launches,
             out[-1]["span_paths_launches"] = span_paths_launches(paths, "ring_push")
         if served is not None:
             out[-1].update(served_spanning_entry(served, "ring_push"))
+    if cross is not None:
+        out.append(cross_host_entry(cross))
     return {"kernels": out}
 
 
@@ -8286,9 +8496,10 @@ def run(torch) -> int:
     print("phase38 launches a process of each path: " + json.dumps(
         {k: span_paths_launches(paths, k) for k in ("ring_push", "banded_solve")}))
     served = phase39(torch, pt, card)
+    cross = phase40(torch, pt, card, span)
     print(f"card: {card}")
     print(json.dumps(kernels_line(records, launches, solver_times, ring_times, runner_launches,
-                                  phase_launches, span, paths, served)))
+                                  phase_launches, span, paths, served, cross)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

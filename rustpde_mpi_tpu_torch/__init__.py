@@ -116,7 +116,11 @@ objects only; ``parallel.multihost``): each holds its own model on its own
 card, the root decides every flag that leads into a collective, and the
 runner writes sharded two-phase checkpoints that restore onto any mesh;
 ``parallel.sanitizer`` catches a collective sequence that went out of
-step (``CollectiveDesyncError``)::
+step (``CollectiveDesyncError``).  Or one model spans them, each process
+holding some ranks of ``multihost.global_pencil_mesh``, on one host (its
+flips through CUDA IPC) or several (through pinned host memory and a
+socket between hosts; ``initialize_distributed``'s ``host=`` declares
+processes of one machine on different hosts)::
 
     multihost.initialize_distributed("localhost:29500", 2, rank)
     summary = ResilientRunner(model, 1.0, 0.1, run_dir="data/mp").run()

@@ -368,6 +368,43 @@ extern "C" int rp_ring_transpose_c64(int P, int c, int w, long long xs0, long lo
 // 3.15 in chip_smoke.py phase 37; NCCL's all_to_all_single 0.80-1.16 in
 // the same call); back to back on a shared card 6.3 ms on
 // 2 x 2 and 18 on 4 x 1 (11.5 and 38), each a context switch a flip.
+//
+// The cross-host form.  CUDA IPC maps memory of one machine only, and no
+// card here can write another host's memory (no GPUDirect RDMA, no
+// NVSHMEM), so the chunks for a process on another host (bit q of
+// RpPush::remote) pass through host memory, as the JAX package's DCN
+// traffic passes through its hosts:
+//  * the push writes them, unchanged, through dst[t]: for such a rank that
+//    is this process's staging for q, pinned host memory the card maps
+//    (rp_host_alloc), laid out as q's slab with its two buffers, so the
+//    kernel's body and its epoch offset serve it as they serve a slab;
+//    its signal raises this process's own ready[q] (ready_peer[q] points
+//    there), which the copy-out's release consumes as it does a same-host
+//    peer's;
+//  * the exchange (PUSH_EXCHANGE): a 4-byte copy of the slab's epoch into
+//    a pinned word, then csrc/host_exchange.cpp's hx_exchange as a host
+//    function on the stream (cudaLaunchHostFunc), which sends the staging
+//    buffer that word names and receives the peers' runs into pinned
+//    memory; both are graph nodes, so a captured step stays one replay;
+//  * the copy-in (PUSH_COPY_IN, copy_in_kernel below) reads the epoch on
+//    the card and scatters the received runs into buffer epoch & 1 of this
+//    slab, where the copy-out reads them with the same-host peers' chunks;
+//  * the front-end wait covers the same-host peers alone; stream order
+//    puts the exchange and the copy-in before it.
+// The copy-in is a launch of its own rather than a copy-out that reads
+// the other-host peers from a base pointer of their own: that would widen
+// the parameter block every remote flip passes (the launch cost the
+// one-launch form of this note measured), and a captured cudaMemcpyAsync of
+// fixed addresses cannot follow the epoch.  Its bound: the bytes for the
+// other host, each way, over the card's measured pinned-copy rates
+// (chip_smoke.py phase 40: 54.9 GB/s out, 52.9 in on the H100 below).
+//
+// Measured (chip_smoke.py phase 40, NVIDIA H100 80GB HBM3, 700 W; 2
+// processes x 2 ranks on one card declared on two hosts): meshed rbc1025
+// 99.2-99.3 ms/step against the one-process mesh's 3.25; a step's 37 flips
+// 93-96 ms, of which the exchange 73.5 warm (83 cold), the push 1.7-3.1,
+// the copy-in 2.9-4.0, the copy-out 0.1-0.3: the loopback socket's
+// ~1 GB/s each way sets it.  The bound of those flips 1.47 ms.
 // ---------------------------------------------------------------------------
 
 #include <cuda.h>
@@ -399,6 +436,12 @@ struct RpPush {
   int shr_w, shr_c, shr_p, shr_l, shr_r;
   int P, PL, g0, c, w, members, x_to_y, word, nproc, me;
   int parts;  // the parts this call issues (PUSH_* bits; a flip issues all)
+  // peers on other hosts (csrc/host_exchange.cpp), all null/0 where none:
+  void* hx_fn;        // the exchange's host function, hx_exchange
+  void* hx_plan;      // its argument, the slab's plan
+  void* hx_epoch;     // pinned int32 the slab's epoch is copied into first
+  void* recv;         // the received chunks, wire order, as mapped here
+  long long remote;   // bit q: process q lies on another host
 };
 
 namespace rp {
@@ -408,8 +451,11 @@ namespace rp {
 // end), the copy-out of their chunks and the release (the semaphores
 // consumed, the epoch advanced; the copy-out launch).  A flip issues them
 // all; chip_smoke.py's split times them apart.
+// Where peers lie on other hosts the exchange (the epoch's copy and the
+// host function) and the copy-in come between the signal and the wait.
 constexpr int PUSH_DATA = 1, PUSH_SIGNAL = 2, PUSH_WAIT = 4, PUSH_COPY = 8, PUSH_RELEASE = 16;
-constexpr int PUSH_ALL = 31;
+constexpr int PUSH_EXCHANGE = 32, PUSH_COPY_IN = 64;
+constexpr int PUSH_ALL = 127;
 
 // control words (unsigned) of a slab
 constexpr int CTL_EPOCH = RT_MAX_PROCS, CTL_ARRIVE = RT_MAX_PROCS + 1,
@@ -572,23 +618,75 @@ static cudaError_t memops() {
   return cudaSuccess;
 }
 
-// Every peer's wait, ready[q] >= 1, as one batch of stream memory
-// operations (the comparison is cyclic: (int)(ready - 1) >= 0).  A driver
-// error comes back as 999 (cudaErrorUnknown): the wrapper tests for
-// non-zero.
-static int wait_peers(cudaStream_t s, unsigned* ctl, int nproc, int me) {
+// Every same-host peer's wait, ready[q] >= 1, as one batch of stream
+// memory operations (the comparison is cyclic: (int)(ready - 1) >= 0); a
+// peer on another host (bit q of `remote`) raised nothing here, its
+// chunks come by the exchange earlier in the stream.  A failed batch
+// comes back as 999 (cudaErrorUnknown): the wrapper tests for non-zero.
+static int wait_peers(cudaStream_t s, unsigned* ctl, int nproc, int me, long long remote) {
   CUstreamBatchMemOpParams ops[RT_MAX_PROCS];
   memset(ops, 0, sizeof(ops));
   int n = 0;
   for (int q = 0; q < nproc; ++q)
-    if (q != me) {
+    if (q != me && !((remote >> q) & 1)) {
       ops[n].waitValue.operation = CU_STREAM_MEM_OP_WAIT_VALUE_32;
       ops[n].waitValue.address = reinterpret_cast<CUdeviceptr>(ctl + q);
       ops[n].waitValue.value = 1;
       ops[n].waitValue.flags = CU_STREAM_WAIT_VALUE_GEQ;
       ++n;
     }
+  if (n == 0) return 0;
   return g_batch(reinterpret_cast<CUstream>(s), n, ops, 0) == CUDA_SUCCESS ? 0 : 999;
+}
+
+// The copy-in: the chunks the exchange received from the other-host peers
+// (wire order: peer k, then its runs along (m, lt, r), then the run's
+// words) into buffer epoch & 1 of this process's slab, where the copy-out
+// reads them as it reads a same-host peer's pushed chunks.  The epoch is
+// read on the card, so a captured graph replays it unchanged.  The
+// received words lie in mapped pinned host memory that the host wrote
+// since the last replay: they are read past every cache (ld.global.cv).
+struct CopyInArgs {
+  const void* recv;
+  void* slab;
+  const unsigned* ctl;
+  unsigned buf;   // words from a slab's buffer 0 to its buffer 1
+  unsigned n;     // words, every peer's
+  unsigned wire;  // words from one peer
+  unsigned run;   // words a run
+  unsigned nr;    // runs along r (c for x -> y, 1 for y -> x)
+  unsigned pl;
+  int dsm, blk, d1;            // the slab's member, rank-block and row strides, words
+  int base[RT_MAX_PROCS];      // peer k's first run in a buffer, words
+};
+
+template <int BYTES>
+__global__ void __launch_bounds__(RT_THREADS) copy_in_kernel(const CopyInArgs a) {
+  using W = typename Word<BYTES>::type;
+  const unsigned epoch = *(volatile const unsigned*)(a.ctl + CTL_EPOCH);
+  W* slab = static_cast<W*>(a.slab) + (epoch & 1u) * a.buf;
+  const W* recv = static_cast<const W*>(a.recv);
+  for (unsigned g = blockIdx.x * RT_THREADS + threadIdx.x; g < a.n; g += gridDim.x * RT_THREADS) {
+    const unsigned k = g / a.wire, rem = g - k * a.wire;
+    const unsigned run = rem / a.run, e = rem - run * a.run;
+    const unsigned ml = run / a.nr, r = run - ml * a.nr;
+    const unsigned m = ml / a.pl, lt = ml - m * a.pl;
+    slab[a.base[k] + (int)m * a.dsm + (int)lt * a.blk + (int)r * a.d1 + (int)e] =
+        __ldcv(recv + g);
+  }
+}
+
+static int launch_copy_in(int word, const CopyInArgs& a, cudaStream_t stream) {
+  long long blocks = ((long long)a.n + RT_THREADS - 1) / RT_THREADS;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  if (blocks < 1) blocks = 1;
+  if (word == 4)
+    copy_in_kernel<4><<<(int)blocks, RT_THREADS, 0, stream>>>(a);
+  else if (word == 8)
+    copy_in_kernel<8><<<(int)blocks, RT_THREADS, 0, stream>>>(a);
+  else
+    copy_in_kernel<16><<<(int)blocks, RT_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 static bool fits(long long mul, int shr) { return mul >= 0 && mul < (1LL << 32) && shr >= 0 && shr <= 31; }
@@ -635,6 +733,14 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
       return (int)cudaErrorInvalidValue;
   for (int q = 0; q < f->nproc; ++q)
     if (q != f->me && f->ready_peer[q] == nullptr) return (int)cudaErrorInvalidValue;
+  // peers on other hosts: the exchange's function, plan and epoch word and
+  // the received chunks, all or none; never this process, never past nproc
+  const bool hx = f->remote != 0;
+  if ((f->remote >> f->me) & 1 || f->remote < 0 || (f->remote >> f->nproc) != 0 ||
+      hx != (f->hx_fn != nullptr) || hx != (f->hx_plan != nullptr) ||
+      hx != (f->hx_epoch != nullptr) || hx != (f->recv != nullptr) ||
+      reinterpret_cast<uintptr_t>(f->recv) % f->word)
+    return (int)cudaErrorInvalidValue;
   const long long wv = f->w / nv;
   const long long n = (long long)f->members * f->PL * f->P * f->c * wv;
   const long long ncopy = (long long)f->members * f->PL * (f->P - f->PL) * f->c * wv;
@@ -686,7 +792,41 @@ int launch_push(const RpPush* f, cudaStream_t stream) {
     a.parts = parts & (PUSH_DATA | PUSH_SIGNAL);
     rc = launch_word(f->word, a, x2y, (parts & PUSH_DATA) ? a.n : 0, stream);
   }
-  if (!rc && (parts & PUSH_WAIT)) rc = wait_peers(stream, f->ctl, f->nproc, f->me);
+  if (hx && !rc && (parts & PUSH_EXCHANGE)) {
+    // the epoch names the staging buffer the push wrote: the host function
+    // reads its copy, then sends and receives
+    rc = (int)cudaMemcpyAsync(f->hx_epoch, f->ctl + CTL_EPOCH, sizeof(unsigned),
+                              cudaMemcpyDeviceToHost, stream);
+    if (!rc) rc = (int)cudaLaunchHostFunc(stream, reinterpret_cast<cudaHostFn_t>(f->hx_fn),
+                                          f->hx_plan);
+  }
+  if (hx && !rc && (parts & PUSH_COPY_IN)) {
+    CopyInArgs ci;
+    memset(&ci, 0, sizeof(ci));
+    const bool x2y_run = f->x_to_y != 0;
+    const long long run = x2y_run ? (long long)f->PL * wv : (long long)f->PL * f->c * wv;
+    const long long nr = x2y_run ? f->c : 1;
+    const long long wire = (long long)f->members * f->PL * nr * run;
+    int k = 0;
+    for (int q = 0; q < f->nproc; ++q)
+      if ((f->remote >> q) & 1)
+        ci.base[k++] = (int)(x2y_run ? (long long)q * f->PL * wv : (long long)q * f->PL * f->c * wv);
+    if (!x2y_run && f->d1 != f->w) return (int)cudaErrorInvalidValue;  // a block a run
+    ci.recv = f->recv;
+    ci.slab = const_cast<void*>(f->slab);
+    ci.ctl = f->ctl;
+    ci.buf = a.buf;
+    ci.n = (unsigned)(k * wire);
+    ci.wire = (unsigned)wire;
+    ci.run = (unsigned)run;
+    ci.nr = (unsigned)nr;
+    ci.pl = (unsigned)f->PL;
+    ci.dsm = a.dsm;
+    ci.blk = a.blk;
+    ci.d1 = a.d1;
+    rc = launch_copy_in(f->word, ci, stream);
+  }
+  if (!rc && (parts & PUSH_WAIT)) rc = wait_peers(stream, f->ctl, f->nproc, f->me, f->remote);
   if (!rc && (parts & (PUSH_COPY | PUSH_RELEASE))) {
     a.parts = parts & (PUSH_COPY | PUSH_RELEASE);
     rc = launch_word(f->word, a, x2y, (parts & PUSH_COPY) ? a.ncopy : 0, stream);
@@ -747,6 +887,28 @@ extern "C" int rp_ipc_open(const void* handle, void** ptr) {
 }
 
 extern "C" int rp_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+
+// Pinned host memory the card maps (an other-host peer's staging, the
+// received chunks and the epoch's copy): `bytes` zeroed, its host address
+// and the card's address of it.
+extern "C" int rp_host_alloc(long long bytes, void** host, void** dev) {
+  if (bytes <= 0 || host == nullptr || dev == nullptr) return (int)cudaErrorInvalidValue;
+  void* h = nullptr;
+  cudaError_t e = cudaHostAlloc(&h, (size_t)bytes, cudaHostAllocMapped | cudaHostAllocPortable);
+  if (e != cudaSuccess) return (int)e;
+  memset(h, 0, (size_t)bytes);
+  void* d = nullptr;
+  e = cudaHostGetDevicePointer(&d, h, 0);
+  if (e != cudaSuccess) {
+    cudaFreeHost(h);
+    return (int)e;
+  }
+  *host = h;
+  *dev = d;
+  return 0;
+}
+
+extern "C" int rp_host_free(void* host) { return (int)cudaFreeHost(host); }
 
 // A timeline mark: one thread writes the card's global timer (ns) into
 // stamps[index] when the stream reaches it (chip_smoke.py's split of a

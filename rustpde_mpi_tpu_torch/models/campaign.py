@@ -294,7 +294,14 @@ class ChunkRunner:
         return bool(self._graphs)
 
     def run(self, n: int, variant: int = 0) -> None:
-        """Advance the carry ``n`` steps of one variant."""
+        """Advance the carry ``n`` steps of one variant.  A wrapper that
+        learns of a failure off the card (a remote flip's exchange across
+        hosts, ``raise_if_failed``: its peer's connection broke while an
+        earlier chunk ran) raises first."""
+        for k in self._kernels:
+            check = getattr(k, "raise_if_failed", None)
+            if check is not None:
+                check()
         if not self._graphs:
             if self._released:
                 raise RuntimeError("the chunk runner's graphs were released")

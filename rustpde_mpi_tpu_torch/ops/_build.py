@@ -1,11 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host-only C++.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``_build/`` (which
-``.gitignore`` lists) at first use, and loaded with ``ctypes``.  A library
-is named by a hash of its source, the shared headers and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing is
-built or loaded when this module is imported.
+``.gitignore`` lists) at first use, and loaded with ``ctypes``.  A host-only
+source (``csrc/<name>.cpp``, :data:`HOST_SOURCES`: the remote flip's socket
+exchange across hosts, which includes no CUDA header) is compiled the same
+way by ``nvcc`` where the CUDA toolkit is, and by the system C++ compiler
+where it is not, so the CPU tests load the very code the card runs.  A
+library is named by a hash of its source, the shared headers, the compiler
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded.  Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -24,11 +28,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("banded_solve", "fused_conv", "fused_stage", "ring_transpose")
+#: host-only C++ sources (``csrc/<name>.cpp``), built with the kernels
+HOST_SOURCES = ("host_exchange",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: a host-only source's flags after the compiler (``nvcc``, or the system
+#: C++ compiler, which takes ``-fPIC`` itself)
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared")
 
 #: products one output sums (the Coriolis ``vely`` stage sums five), and
 #: outputs one launch computes (its ``L @ x`` products, one a term); the
@@ -92,11 +101,15 @@ SLAB_CTL_BYTES = 256
 class RpPush(ctypes.Structure):
     """Mirror of ``struct RpPush`` in ``csrc/ring_transpose.cu``: one flip
     of a mesh whose ranks span processes (the input, the output and this
-    process's receive slab; each destination rank's block, a peer's slab
-    as mapped in this process or the output; the slab's control words and
+    process's receive slab; each destination rank's block, a same-host
+    peer's slab as mapped in this process, this process's pinned staging
+    for an other-host peer, or the output; the slab's control words and
     the peers' ready semaphores of this process; strides and extents in
     elements, the magic pairs of the launch's divisors; the parts the call
-    issues)."""
+    runs; and, where peers lie on other hosts, the exchange's host
+    function and its plan, the pinned word the epoch is copied into, the
+    received chunks as the card maps them and the mask of those
+    processes)."""
 
     _fields_ = [
         ("inp", ctypes.c_void_p),
@@ -133,6 +146,11 @@ class RpPush(ctypes.Structure):
         ("nproc", ctypes.c_int),
         ("me", ctypes.c_int),
         ("parts", ctypes.c_int),
+        ("hx_fn", ctypes.c_void_p),
+        ("hx_plan", ctypes.c_void_p),
+        ("hx_epoch", ctypes.c_void_p),
+        ("recv", ctypes.c_void_p),
+        ("remote", ctypes.c_longlong),
     ]
 
 
@@ -172,20 +190,55 @@ _SIGNATURES = {
         "rp_slab_free": ([_P], _I),
         "rp_ipc_open": ([_P, ctypes.POINTER(_P)], _I),
         "rp_ipc_close": ([_P], _I),
+        "rp_host_alloc": ([_L, ctypes.POINTER(_P), ctypes.POINTER(_P)], _I),
+        "rp_host_free": ([_P], _I),
         "rp_stamp": ([_P, _I, _P], _I),
+    },
+    "host_exchange": {
+        "hx_open": ([_I, _I, _P, _P], _P),
+        "hx_run": ([_P], _I),
+        "hx_abort": ([_P], _I),
+        "hx_error": ([_P, ctypes.c_char_p, _I], _I),
+        "hx_close": ([_P], _I),
     },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+def source_path(name: str) -> Path:
+    """The source of library ``name``: a kernel's ``.cu``, a host-only
+    ``.cpp``."""
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _command(name: str) -> list:
+    """The compiler and flags of library ``name`` (without ``-o``): every
+    kernel through ``nvcc``; a host-only source through ``nvcc`` where it
+    is found, else through the system C++ compiler."""
+    if name not in HOST_SOURCES:
+        return [_nvcc(), *NVCC_FLAGS]
+    try:
+        return [_nvcc(), *HOST_FLAGS, "-Wno-deprecated-gpu-targets", "-Xcompiler", "-fPIC"]
+    except RuntimeError:
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError(f"neither nvcc nor a C++ compiler found to build {name}") from None
+        return [cxx, *HOST_FLAGS, "-fPIC"]
+
+
 def source_hash(name: str) -> str:
-    """Hash of one kernel's source, every shared header and the flags."""
+    """Hash of one library's source, every shared header and the flags (a
+    host-only source's: its compiler's name and flags)."""
     h = hashlib.sha256()
-    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for path in [source_path(name)] + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    if name in HOST_SOURCES:
+        cmd = _command(name)
+        h.update(" ".join([Path(cmd[0]).name, *cmd[1:]]).encode())
+    else:
+        h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -203,9 +256,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def build(names=KERNELS) -> dict:
+def build(names=KERNELS + HOST_SOURCES) -> dict:
     """Compile the libraries of ``names`` that are not built yet, one
-    ``nvcc`` per source, all started together.  Returns ``{name: {"seconds":
+    compiler per source, all started together.  Returns ``{name: {"seconds":
     wall time or 0.0 if already built, "log": compiler output}}`` and
     raises with the compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -220,7 +273,7 @@ def build(names=KERNELS) -> dict:
             result[name] = {"seconds": 0.0, "log": text}
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [*_command(name), "-o", str(tmp), str(source_path(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, log)
@@ -229,7 +282,8 @@ def build(names=KERNELS) -> dict:
         text, _ = proc.communicate()
         result[name] = {"seconds": time.perf_counter() - t0, "log": text}
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name} (rc={proc.returncode}):\n{text}")
+            failures.append(f"{Path(proc.args[0]).name} failed for {name} "
+                            f"(rc={proc.returncode}):\n{text}")
             continue
         log.write_text(text)
         os.replace(tmp, out)

@@ -34,11 +34,16 @@ A mesh whose ranks span processes (:class:`SpanningRing`) flips through the
 kernel's remote form, ``rp_ring_push_*``: each process holds ``P / nproc``
 consecutive ranks, writes its own ranks' chunks straight into its output
 and pushes the peers' into their receive slabs (two buffers each, which
-every peer mapped through CUDA IPC), from which each process copies them
-out; completion rides semaphores in the slabs (the TPU kernel's send and
-receive semaphores), waited on in the card's front end between the push
-launch and the copy-out launch.  On the CPU the same flip is an
-all-to-all through ``torch.distributed`` on gloo.
+every peer on its host mapped through CUDA IPC), from which each process
+copies them out; completion rides semaphores in the slabs (the TPU
+kernel's send and receive semaphores), waited on in the card's front end
+between the push launch and the copy-out launch.  A peer on another host
+(:func:`..parallel.multihost.process_hosts`) never maps a slab: the push
+writes its chunks into pinned host memory, a socket exchange on the
+stream (:mod:`.host_exchange`) carries them across, and a copy-in launch
+puts what arrived into the slab.  On the CPU the same flip is an
+all-to-all through ``torch.distributed`` on gloo between the processes of
+one host and the same socket exchange between hosts.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from . import host_exchange as hx
 
 #: the kernel's entry point for each dtype it moves: a complex element (a
 #: periodic cell's spectral pencil) is the unit of the permutation
@@ -218,28 +224,78 @@ SLAB_ALIGN = 256
 #: ``PUSH_*``): the push, its signal to the peers, the wait for theirs, the
 #: copy-out of their chunks and the release; a flip issues them all
 PUSH_DATA, PUSH_SIGNAL, PUSH_WAIT, PUSH_COPY, PUSH_RELEASE = 1, 2, 4, 8, 16
-PUSH_ALL = 31
+#: where peers lie on other hosts: the exchange (the epoch's copy and the
+#: socket exchange as a host function) and the copy-in of what it received
+PUSH_EXCHANGE, PUSH_COPY_IN = 32, 64
+PUSH_ALL = 127
+#: bytes of the pinned receive memory before the received chunks: the word
+#: the card copies a flip's epoch into for the exchange
+RECV_HEAD = 256
 
 
 class _Slab:
     """One receive slab of a spanning mesh: this process's allocation
     (``ptr``: two buffers of ``data_bytes``, then the control words) and
-    every process's as mapped here (``peers[q]``; this process's own pointer
-    at ``me``), with the push's parameter block filled in but for the
-    input, the output, this process's ranks' blocks of it and the launch's
-    word (:meth:`SpanningRing._push`)."""
+    every same-host process's as mapped here (``peers[q]``; this process's
+    own pointer at ``me``, None for a process on another host), with the
+    push's parameter block filled in but for the input, the output, this
+    process's ranks' blocks of it and the launch's word
+    (:meth:`SpanningRing._push`).  Where peers lie on other hosts, ``pinned``
+    lists the pinned host allocations (each other-host peer's staging, the
+    received chunks) and ``plan`` is the exchange's plan, which the
+    captured host function reads on every replay."""
 
-    def __init__(self, ptr: int, peers: list, data_bytes: int, params):
+    def __init__(self, ptr: int, peers: list, data_bytes: int, params, pinned=(), plan=None):
         self.ptr, self.peers, self.data_bytes, self.params = ptr, peers, data_bytes, params
+        self.pinned, self.plan = list(pinned), plan
+
+
+class _HostSlab:
+    """A CPU flip's buffers towards the other-host peers, one (shape,
+    dtype, direction) of flip: each peer's staging (two buffers laid out as
+    its receive slab), the received runs, the epoch's word and counter,
+    and the exchange's plan over them."""
+
+    def __init__(self, ring, shape, dtype, x_to_y: bool):
+        lay = hx.layout(shape, x_to_y, ring.nranks, torch.empty(0, dtype=dtype).element_size())
+        self.staging = [torch.zeros((2, *shape), dtype=dtype) for _ in ring.remote]
+        self.recv = [torch.zeros(lay.wire_bytes, dtype=torch.uint8) for _ in ring.remote]
+        self.word = torch.zeros(1, dtype=torch.int32)
+        self.epoch = 0
+        self.plan = hx.make_plan(ring._links_up(), lay, hx.slab_key(shape, dtype, x_to_y),
+                                 ring.rank0, ring.remote,
+                                 [t.data_ptr() for t in self.staging],
+                                 [t.data_ptr() for t in self.recv], self.word.data_ptr(),
+                                 lay.buf_bytes)
+
+
+def _chunks(x, p: int, x_to_y: bool):
+    """The chunks of pencils ``x`` (``(K, PL, ...)``) by destination:
+    ``[m, lr, t, i, j]`` is local rank ``lr``'s chunk for rank ``t``."""
+    k, pl, a, b = x.shape
+    if x_to_y:
+        return x.reshape(k, pl, p, a // p, b)
+    return x.reshape(k, pl, a, p, b // p).permute(0, 1, 3, 2, 4)
+
+
+def _blocks(out, p: int, x_to_y: bool):
+    """The flipped pencils ``out`` (``(K, PL, ...)``, a receive slab's
+    layout) by source: ``[m, lt, s, i, j]`` is rank ``s``'s chunk for local
+    rank ``lt``."""
+    k, pl, a, b = out.shape
+    if x_to_y:
+        return out.view(k, pl, a, p, b // p).permute(0, 1, 3, 2, 4)
+    return out.view(k, pl, p, a // p, b)
 
 
 class SpanningRing(RingTranspose):
     """The pencil flip of a mesh whose ``nranks`` ranks span ``nproc``
-    processes of one host, each holding ``nranks / nproc`` consecutive
-    ranks (this process, ``me``, the ranks from ``rank0``) stacked on its
-    own ``device``.  A pencil here is this process's ranks'
-    ``([K,] P / nproc, ...)``; its flip gives this process's ranks' blocks
-    of the flipped pencil.
+    processes, each holding ``nranks / nproc`` consecutive ranks (this
+    process, ``me``, the ranks from ``rank0``) stacked on its own
+    ``device``; ``hosts[q]`` names process ``q``'s host (one host when not
+    given).  A pencil here is this process's ranks' ``([K,] P / nproc,
+    ...)``; its flip gives this process's ranks' blocks of the flipped
+    pencil.
 
     On a CUDA device :meth:`flip` launches the remote form of the kernel
     (``rp_ring_push_*``): the chunks for this process's ranks go straight
@@ -255,14 +311,38 @@ class SpanningRing(RingTranspose):
     runner's warm-up step makes it).  A flip is two launches, the push and
     the copy-out, with the waits for the peers' pushes between them in the
     card's front end, so no kernel spins where processes share a card.
-    Every process issues the same flips in the same order.  On the CPU :meth:`plain` is the same flip
+    Every process makes the same flips in the same order.
+
+    A process on another host than this one (:attr:`remote`) never maps a
+    slab (an IPC handle names memory of this machine only): the push writes
+    its chunks into this process's staging for it, pinned host memory laid
+    out as its slab and mapped by the card; the exchange
+    (``csrc/host_exchange.cpp``, a host function on the stream, after the
+    card copied the slab's epoch into a pinned word) sends them over the
+    mesh's connection to that process (made once a mesh, at its first
+    flip, :func:`.host_exchange.connect`) and receives its chunks into
+    pinned memory; the copy-in launch puts them into buffer ``epoch & 1``
+    of this slab, and the copy-out reads them there with the same-host
+    peers'.  The front-end wait covers the same-host peers alone.  A flip
+    is then the push, the epoch's copy, the host function, the copy-in,
+    the wait (where a same-host peer is) and the copy-out, all capturable.
+    An exchange that failed (a peer's connection broken, its deadline,
+    :func:`..parallel.multihost.set_sync_timeout`'s, passed, or a release)
+    fails every later one at once and raises
+    :class:`..utils.resilience.DispatchHang` at this ring's next flip
+    from the host (:meth:`raise_if_failed`, which a chunk runner calls
+    before its replays).
+
+    On the CPU the flip takes the same routes: :meth:`plain` between the
+    processes of one host and the same socket exchange between hosts,
+    from and into host tensors.  :meth:`plain` itself is the whole flip
     through ``torch.distributed.all_to_all_single`` on gloo (also on a CUDA
     tensor, through the host: the kernel's yardstick).
 
     :attr:`gather` is the mesh's reduction partner: each rank's few values
     to every rank, through the same push and flags."""
 
-    def __init__(self, nranks: int, device, nproc: int, me: int):
+    def __init__(self, nranks: int, device, nproc: int, me: int, hosts=None):
         super().__init__(nranks, device)
         if nproc < 1 or self.nranks % nproc or not 0 <= me < nproc:
             raise ValueError(f"a spanning mesh of {nranks} ranks over {nproc} processes "
@@ -270,7 +350,18 @@ class SpanningRing(RingTranspose):
         self.nproc, self.me = int(nproc), int(me)
         self.nlocal = self.nranks // self.nproc
         self.rank0 = self.me * self.nlocal
+        hosts = [None] * self.nproc if hosts is None else list(hosts)
+        if len(hosts) != self.nproc:
+            raise ValueError(f"{len(hosts)} hosts for {self.nproc} processes")
+        #: the processes on another host than this one's (their chunks
+        #: cross through pinned host memory and a socket, never CUDA IPC)
+        self.remote = tuple(q for q in range(self.nproc) if hosts[q] != hosts[self.me])
+        # whether any host holds several processes: a CPU flip then runs
+        # the gloo all-to-all between them on every process
+        self._gloo_local = any(hosts.count(h) > 1 for h in hosts)
+        self._links = None
         self._slabs: dict = {}
+        self._host_slabs: dict = {}
         #: each rank's values to every rank (:class:`RankGather`)
         self.gather = RankGather(self)
 
@@ -290,15 +381,109 @@ class SpanningRing(RingTranspose):
 
     def flip(self, block, x_to_y: bool) -> torch.Tensor:
         """The flip of this process's pencils outside autograd: the remote
-        kernel on a CUDA device, the gloo all-to-all on the CPU."""
+        kernel on a CUDA device; on the CPU the gloo all-to-all, and the
+        socket exchange towards other hosts."""
         self._check(block, x_to_y)
         if self.device.type == "cpu":
-            return self.plain(block, x_to_y)
+            return self._cpu_flip(block, x_to_y)
         if self.device.type != "cuda":
             raise RuntimeError(f"no pencil-transpose kernel for device {self.device}")
         out = self._push(block, x_to_y)
         self.launches += 1
         return out
+
+    def _cpu_flip(self, block, x_to_y: bool) -> torch.Tensor:
+        return self._across_hosts(block, x_to_y) if self.remote else self.plain(block, x_to_y)
+
+    def _links_up(self):
+        """The mesh's connections to its other-host peers, made at the
+        first need (collective: every process makes them together)."""
+        if self._links is None:
+            self._links = hx.connect(self.me, self.nproc, self.remote)
+        return self._links
+
+    def raise_if_failed(self) -> None:
+        """Raise :class:`..utils.resilience.DispatchHang` when an exchange
+        of this ring towards another host failed or was released (its
+        stream ran on with stale chunks, which the caller discards)."""
+        why = self._links.failure() if self._links is not None else None
+        if why is not None:
+            from ..parallel import multihost
+            from ..utils.resilience import _hang
+
+            raise _hang(f"a remote flip's exchange across hosts ({why})",
+                        multihost.EXCHANGE_TIMEOUT_S.value)
+
+    def _across_hosts(self, block, x_to_y: bool) -> torch.Tensor:
+        """The CPU flip of a mesh with peers on other hosts, by the card's
+        routes: this process's ranks' chunks straight into the output, the
+        same-host peers' through the gloo all-to-all (every process takes
+        part when any host holds several), the other-host peers' written
+        into their staging in their slab's layout, sent and received by the
+        socket exchange (``csrc/host_exchange.cpp``) and placed as the
+        copy-in places them."""
+        p, pl, g0 = self.nranks, self.nlocal, self.rank0
+        self.raise_if_failed()
+        x = block.detach()
+        x = x if x.ndim == 4 else x[None]
+        src = _chunks(x, p, x_to_y)
+        shape = transposed_shape(x.shape, p, x_to_y)
+        out = torch.empty(shape, dtype=x.dtype)
+        dst = _blocks(out, p, x_to_y)
+        mine = slice(g0, g0 + pl)
+        dst[:, :, mine] = src[:, :, mine].transpose(1, 2)
+        if self._gloo_local:
+            self._same_host(src, dst)
+        hs = self._host_slabs.get((shape, x.dtype, bool(x_to_y)))
+        if hs is None:
+            hs = self._host_slabs[(shape, x.dtype, bool(x_to_y))] = \
+                _HostSlab(self, shape, x.dtype, x_to_y)
+        buf = hs.epoch & 1
+        for q, stage in zip(self.remote, hs.staging):
+            _blocks(stage[buf], p, x_to_y)[:, :, mine] = \
+                src[:, :, q * pl:(q + 1) * pl].transpose(1, 2)
+        hs.word[0] = hs.epoch
+        rc = hx.run(hs.plan)
+        if rc:
+            self.raise_if_failed()
+            raise RuntimeError(f"the exchange across hosts refused its plan (code {rc})")
+        k, (a, b) = x.shape[0], shape[-2:]
+        for q, got in zip(self.remote, hs.recv):
+            runs = got.view(x.dtype)
+            if x_to_y:  # (m, lt, i, lr, j)
+                runs = runs.view(k, pl, a, pl, b // p).permute(0, 1, 3, 2, 4)
+            else:  # (m, lt, lr, i, j)
+                runs = runs.view(k, pl, pl, a // p, b)
+            dst[:, :, q * pl:(q + 1) * pl] = runs
+        hs.epoch += 1
+        return out if block.ndim == 4 else out[0]
+
+    def _same_host(self, src, dst) -> None:
+        """The same-host peers' chunks of a CPU flip: one gloo
+        ``all_to_all_single`` of every process, each process sending only
+        to the processes of its host (nothing to itself, nothing across
+        hosts)."""
+        import torch.distributed as dist
+
+        pl = self.nlocal
+        real = torch.view_as_real if src.is_complex() else (lambda t: t)
+        local = [q for q in range(self.nproc) if q != self.me and q not in self.remote]
+        pieces = [real(src[:, :, q * pl:(q + 1) * pl].contiguous()).reshape(-1)
+                  if q in local else real(src.new_empty(0)).reshape(-1)
+                  for q in range(self.nproc)]
+        sizes = [t.numel() for t in pieces]
+        send = torch.cat(pieces)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, sizes, sizes)
+        k = src.shape[0]
+        at = 0
+        for q in local:
+            piece = recv[at:at + sizes[q]]
+            at += sizes[q]
+            if src.is_complex():
+                piece = torch.view_as_complex(piece.view(-1, 2))
+            # q's chunks for this process's ranks: [m, lr of q, lt, i, j]
+            dst[:, :, q * pl:(q + 1) * pl] = piece.view(k, pl, pl, *src.shape[-2:]).transpose(1, 2)
 
     def plain(self, block, x_to_y: bool) -> torch.Tensor:
         """The flip in plain PyTorch: one ``all_to_all_single`` on gloo of
@@ -365,33 +550,49 @@ class SpanningRing(RingTranspose):
         data = -(-numel * elem // SLAB_ALIGN) * SLAB_ALIGN
         ptr = ctypes.c_void_p()
         handle = ctypes.create_string_buffer(_build.IPC_HANDLE_BYTES)
+        remote = self.remote
+        pinned, staging = [], {}
+
+        def host_alloc(nbytes):
+            h, d = ctypes.c_void_p(), ctypes.c_void_p()
+            _build.check(lib.rp_host_alloc(nbytes, ctypes.byref(h), ctypes.byref(d)),
+                         "rp_host_alloc")
+            pinned.append(h.value)
+            return h.value, d.value
+
         with torch.cuda.device(self.device):
             torch.cuda.synchronize(self.device)
             _build.check(lib.rp_slab_alloc(data, ctypes.byref(ptr), handle), "rp_slab_alloc")
             handles = multihost.allgather_bytes(handle.raw)
             peers = []
             for q, h in enumerate(handles):
-                if q == self.me:
-                    peers.append(ptr.value)
+                if q == self.me or q in remote:  # another host's handle names nothing here
+                    peers.append(ptr.value if q == self.me else None)
                     continue
                 mapped = ctypes.c_void_p()
                 rc = lib.rp_ipc_open(h, ctypes.byref(mapped))
                 if rc:
                     raise RuntimeError(
                         f"cudaIpcOpenMemHandle of process {q}'s receive slab failed on "
-                        f"{self.device} (CUDA error {rc}): the spanning mesh cannot map its "
-                        "peers (the other route, cuMemCreate with a POSIX fd handle passed "
-                        "over a Unix socket, is not ported)")
+                        f"{self.device} (CUDA error {rc}): process {q} was declared on this "
+                        "process's host; a process on another host takes the remote flip's "
+                        "cross-host form (initialize_distributed(..., host=))")
                 peers.append(mapped.value)
+            for q in remote:
+                staging[q] = host_alloc(2 * data)
         f = _build.RpPush()
         f.slab, f.buf_bytes, f.ctl = ptr.value, data, ptr.value + 2 * data
         for q in range(self.nproc):
-            f.ready_peer[q] = peers[q] + 2 * data + 4 * self.me
+            # an other-host peer's signal is raised on this process's own
+            # word for it, which the copy-out consumes as it consumes the
+            # same-host peers' (its chunks come by the exchange)
+            f.ready_peer[q] = ptr.value + 2 * data + 4 * q if q in remote else \
+                peers[q] + 2 * data + 4 * self.me
         lead, (a, b) = shape[:-2], shape[-2:]
         for t in range(self.nranks):
             q, lt = divmod(t, self.nlocal)
             if q != self.me:
-                f.dst[t] = peers[q] + lt * a * b * elem
+                f.dst[t] = (staging[q][1] if q in remote else peers[q]) + lt * a * b * elem
         f.d1, f.blk, f.dsm = b, a * b, self.nlocal * a * b
         f.P, f.PL, f.g0, f.nproc, f.me = self.nranks, self.nlocal, self.rank0, self.nproc, self.me
         f.x_to_y = int(x_to_y)
@@ -399,12 +600,24 @@ class SpanningRing(RingTranspose):
         f.mul_p, f.shr_p = fast_divmod(self.nranks)
         f.mul_l, f.shr_l = fast_divmod(self.nlocal)
         f.mul_r, f.shr_r = fast_divmod(self.nranks - self.nlocal)
-        return _Slab(ptr.value, peers, data, f)
+        plan = None
+        if remote:
+            lay = hx.layout(shape, x_to_y, self.nranks, elem)
+            recv_h, recv_d = host_alloc(RECV_HEAD + len(remote) * lay.wire_bytes)
+            plan = hx.make_plan(self._links_up(), lay, hx.slab_key(shape, dtype, x_to_y),
+                                self.rank0, remote, [staging[q][0] for q in remote],
+                                [recv_h + RECV_HEAD + k * lay.wire_bytes
+                                 for k in range(len(remote))], recv_h, data)
+            f.hx_fn, f.hx_plan = hx.exchange_address(), ctypes.addressof(plan)
+            f.hx_epoch, f.recv = recv_h, recv_d + RECV_HEAD
+            f.remote = sum(1 << q for q in remote)
+        return _Slab(ptr.value, peers, data, f, pinned, plan)
 
     def _push(self, block, x_to_y: bool, parts: int = PUSH_ALL) -> torch.Tensor:
         if block.stride(-1) != 1:
             raise ValueError("the pencil-transpose kernel needs a unit stride along the "
                              "last axis")
+        self.raise_if_failed()
         shape = transposed_shape(block.shape, self.nranks, x_to_y)
         slab = self._slab(shape, block.dtype, x_to_y)
         lib = _build.load("ring_transpose")
@@ -420,8 +633,8 @@ class SpanningRing(RingTranspose):
             f.dst[self.rank0 + lt] = out.data_ptr() + lt * f.blk * elem
         f.c, f.w = c, w
         f.word = word_bytes(elem, w, (f.is0, f.is1, f.ism, f.d1, f.dsm, f.blk),
-                            [block.data_ptr(), out.data_ptr(), f.slab, f.buf_bytes]
-                            + [f.dst[t] for t in range(p)])
+                            [block.data_ptr(), out.data_ptr(), f.slab, f.buf_bytes,
+                             f.recv or 0] + [f.dst[t] for t in range(p)])
         f.mul_w, f.shr_w = fast_divmod(w // (f.word // elem))
         f.mul_c, f.shr_c = fast_divmod(c)
         f.parts = parts
@@ -431,12 +644,16 @@ class SpanningRing(RingTranspose):
     def close(self) -> None:
         """Unmap the peers' slabs and free this process's (collective):
         every process first finishes its flips and reaches a barrier, then
-        closes its peers' handles, and frees its own slabs only after a
-        second barrier, when no peer maps them any more."""
+        closes its peers' handles, and frees its own slabs, its pinned
+        staging and its connections to other hosts only after a second
+        barrier, when no peer maps them or sends any more.  The next flip
+        registers its slab, and connects, anew."""
         from ..parallel import multihost
 
+        self._host_slabs.clear()
         if not self._slabs or self.device.type != "cuda":
             self._slabs.clear()
+            self._close_links()
             return
         lib = _build.load("ring_transpose")
         with torch.cuda.device(self.device):
@@ -444,25 +661,37 @@ class SpanningRing(RingTranspose):
             multihost.sync_hosts("ring_close")
             for slab in self._slabs.values():
                 for q, ptr in enumerate(slab.peers):
-                    if q != self.me:
+                    if q != self.me and ptr is not None:
                         _build.check(lib.rp_ipc_close(ptr), "rp_ipc_close")
             multihost.sync_hosts("ring_closed")
             for slab in self._slabs.values():
                 _build.check(lib.rp_slab_free(slab.ptr), "rp_slab_free")
+                for h in slab.pinned:
+                    _build.check(lib.rp_host_free(h), "rp_host_free")
         self._slabs.clear()
+        self._close_links()
+
+    def _close_links(self) -> None:
+        if self._links is not None:
+            self._links.close()
+            self._links = None
 
     def release_waits(self) -> None:
         """Let every wait of this process's flips pass, those already in
         the card's front end included: the ready semaphores of every slab
         are set far past any count a peer reaches, from a stream of their
-        own (a stream stalled in a wait holds no other).  A flip waits for
-        its peers' pushes with no deadline, so a peer that is gone stalls
-        this process's stream for good; after this the stalled work runs
-        on with stale chunks, and the caller must discard what it computed
-        (the resilient runner calls it on a ``DispatchHang``, which the
-        serving scheduler turns into a gang loss).  Any thread may call
-        it.  On the CPU a flip fails by itself when its peer's connection
-        closes: nothing to do."""
+        own (a stream stalled in a wait holds no other), and the exchanges
+        towards other hosts are aborted, one in flight included, and fail
+        from then on.  A flip waits for its same-host peers' pushes with no
+        deadline, so a peer that is gone stalls this process's stream for
+        good; after this the stalled work runs on with stale chunks, and
+        the caller must discard what it computed (the resilient runner
+        calls it on a ``DispatchHang``, which the serving scheduler turns
+        into a gang loss).  Any thread may call it.  On the CPU a gloo flip
+        fails by itself when its peer's connection closes; an exchange is
+        aborted as on the card."""
+        if self._links is not None:
+            self._links.abort()
         if self.device.type != "cuda":
             return
         side = torch.cuda.Stream(self.device)
@@ -496,9 +725,10 @@ class RankGather:
     ``partials`` ``(PL, k)`` of this process's ranks give ``(P, k)`` in
     rank order on every process.  The values go as an x-pencil whose every
     chunk is the rank's row, through one flip of its ring: the remote
-    kernel on the card (a capturable push and its flags, no host
-    collective), the gloo all-to-all on the CPU.  ``launches`` counts the
-    kernel launches, apart from the ring's flips."""
+    kernel on the card (a capturable push and its flags, and across hosts
+    its exchange; no host collective), the gloo all-to-all and the
+    exchange on the CPU.  ``launches`` counts the kernel launches, apart
+    from the ring's flips."""
 
     def __init__(self, ring: SpanningRing):
         self.ring = ring
@@ -520,7 +750,7 @@ class RankGather:
         x = partials[:, None, :].expand(pl, p, k).contiguous()
         ring._check(x, True)
         if ring.device.type == "cpu":
-            y = ring.plain(x, True)
+            y = ring._cpu_flip(x, True)
         else:
             y = ring._push(x, True)
             self.launches += 1

@@ -27,18 +27,21 @@ a product and stay exactly zero.  A complex field (the periodic cell's
 spectral state) is split and flipped the same way, a complex element the
 unit.
 
-A mesh may span the processes of one host (:func:`.multihost.global_pencil_mesh`):
-``P`` ranks held by ``nproc`` processes joined in one group
-(:func:`.multihost.initialize_distributed`), each process ``P / nproc``
-consecutive ranks stacked as above on its own card (one card shared by all
-of them, or one card a process).  A field then is each process's ranks'
-blocks, ``(P / nproc, ...)``; ``nranks`` stays the global ``P``, which the
-padding and the splits use, and ``nlocal``/``rank0`` name this process's
-ranks.  Its flips go through the kernel's remote form
-(:class:`..ops.ring_transpose.SpanningRing`) and its sums through the
-ring's rank gather, in rank order, so a spanning mesh computes what the
-one-process mesh of the same ``P`` computes, bit for bit.  One process's
-ranks on distinct devices still raise: a card a process is the layout.
+A mesh may span processes (:func:`.multihost.global_pencil_mesh`): ``P``
+ranks held by ``nproc`` processes joined in one group
+(:func:`.multihost.initialize_distributed`), on one host or several, each
+process ``P / nproc`` consecutive ranks stacked as above on its own card
+(one card shared by the processes of a host, or one card a process).  A
+field then is each process's ranks' blocks, ``(P / nproc, ...)``;
+``nranks`` stays the global ``P``, which the padding and the splits use,
+and ``nlocal``/``rank0`` name this process's ranks.  Its flips go through
+the kernel's remote form (:class:`..ops.ring_transpose.SpanningRing`:
+CUDA IPC between the processes of one host, pinned host memory and a
+socket between hosts; ``hosts`` lists each process's host) and its sums
+through the ring's rank gather, in rank order, so a spanning mesh
+computes what the one-process mesh of the same ``P`` computes, bit for
+bit.  One process's ranks on distinct devices still raise: a card a
+process is the layout.
 """
 
 from __future__ import annotations
@@ -68,7 +71,9 @@ class Mesh:
 
     ``nranks`` is the mesh's rank count ``P``; ``nlocal`` the ranks of this
     process, ``rank0`` the first of them, and ``spanning`` whether other
-    processes hold the rest."""
+    processes hold the rest; ``hosts[q]`` is process ``q``'s host (its
+    devices' ``host``, :func:`.multihost.process_hosts`): processes of one
+    host share CUDA IPC."""
 
     def __init__(self, devices):
         devices = list(devices)
@@ -100,8 +105,10 @@ class Mesh:
         self.nranks = len(devices)
         self.nlocal = len(mine)
         self.rank0 = procs.index(me)
+        host_of = {q: getattr(d, "host", None) for d, q in zip(devices, procs)}
+        self.hosts = [host_of[q] for q in sorted(host_of)]
         if self.spanning:
-            self.ring = SpanningRing(self.nranks, self.device, self.nproc, me)
+            self.ring = SpanningRing(self.nranks, self.device, self.nproc, me, self.hosts)
         else:
             self.ring = RingTranspose(self.nranks, self.device)
 
@@ -114,8 +121,10 @@ class Mesh:
 
     def __repr__(self):
         if self.spanning:
-            return (f"Mesh({self.nranks} ranks over {self.nproc} processes, ranks "
-                    f"{self.rank0}..{self.rank0 + self.nlocal - 1} on {self.device})")
+            hosts = len(set(self.hosts))
+            return (f"Mesh({self.nranks} ranks over {self.nproc} processes"
+                    + (f" on {hosts} hosts" if hosts > 1 else "")
+                    + f", ranks {self.rank0}..{self.rank0 + self.nlocal - 1} on {self.device})")
         return f"Mesh({self.nranks} ranks on {self.device})"
 
 

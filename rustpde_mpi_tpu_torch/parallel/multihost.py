@@ -10,10 +10,14 @@ on its own :class:`.mesh.Mesh` on its own card, and the processes agree on
 every decision that leads into a collective through the functions here; or
 one model spans them (:func:`global_pencil_mesh`), each process holding
 some of its ranks, whose flips and sums go card to card through CUDA IPC
-(:class:`..ops.ring_transpose.SpanningRing`; on the CPU through gloo).
+between the processes of one host and through pinned host memory and a
+socket between hosts (:class:`..ops.ring_transpose.SpanningRing`; on the
+CPU through gloo and the same socket exchange).  Each process's host is
+recorded as the group forms (:func:`process_hosts`).
 
 * :func:`initialize_distributed`: ``torch.distributed.init_process_group``
-  on gloo (the ``MPI_Init`` analog), given its address, size and rank;
+  on gloo (the ``MPI_Init`` analog), given its address, size and rank,
+  and the host of every process;
 * :func:`global_pencil_mesh`: the mesh of every process's ranks (one
   process: :func:`.mesh.make_mesh` on its card);
 * :func:`host_local_array` / :func:`global_array`: on a spanning mesh,
@@ -48,10 +52,13 @@ Every entry point records into :mod:`.sanitizer` where the JAX one does.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import datetime
+import functools
 import json
 import pickle
+import socket
 import time
 
 import numpy as np
@@ -67,6 +74,20 @@ _SYNC_TIMEOUT_S = 0.0
 
 #: pre-collective device fence (see :func:`set_device_fence`)
 _device_fence = None
+
+#: the process group's own bound on a collective (initialize_distributed's
+#: ``timeout_s``), the deadline of a cross-host exchange while no sync
+#: timeout is set
+_GROUP_TIMEOUT_S = 600.0
+#: the deadline (seconds) of one exchange of a remote flip across hosts
+#: (``csrc/host_exchange.cpp`` reads it through its address at every
+#: exchange): the sync timeout when one is set, else the group's timeout
+EXCHANGE_TIMEOUT_S = ctypes.c_double(_GROUP_TIMEOUT_S)
+
+#: every process's host and the address it takes a peer's connection on,
+#: in rank order (:func:`initialize_distributed`; empty before it)
+_HOSTS: list = []
+_ADDRESSES: list = []
 
 
 def set_device_fence(fn) -> None:
@@ -89,6 +110,7 @@ def set_sync_timeout(seconds: float | None) -> None:
     its own."""
     global _SYNC_TIMEOUT_S
     _SYNC_TIMEOUT_S = float(seconds or 0.0)
+    EXCHANGE_TIMEOUT_S.value = _SYNC_TIMEOUT_S or _GROUP_TIMEOUT_S
 
 
 def _dist():
@@ -98,18 +120,62 @@ def _dist():
     return None
 
 
+@functools.lru_cache(maxsize=None)
+def machine_host() -> str:
+    """This machine's identity: its host name and the boot id the kernel
+    gives (``/proc/sys/kernel/random/boot_id``), so two machines of one
+    name, or one machine rebooted, differ."""
+    try:
+        with open("/proc/sys/kernel/random/boot_id", encoding="utf-8") as fh:
+            boot = fh.read().strip()
+    except OSError:
+        boot = ""
+    return f"{socket.gethostname()}/{boot}"
+
+
+def _route_address(coordinator_address: str) -> str:
+    """The address of the interface that reaches the coordinator: the local
+    end of a datagram socket connected to it (no packet is sent).  A
+    process takes its peers' connections there, never on a fixed
+    ``localhost``."""
+    host, _, port = coordinator_address.rpartition(":")
+    host = host.strip("[]") or "localhost"
+    error = None
+    for family, kind, proto, _, where in socket.getaddrinfo(host, int(port or 0), 0,
+                                                            socket.SOCK_DGRAM):
+        try:
+            with socket.socket(family, kind, proto) as s:
+                s.connect(where)
+                return s.getsockname()[0]
+        except OSError as exc:
+            error = exc
+    raise RuntimeError(f"no route to the coordinator {coordinator_address}: {error}")
+
+
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None, process_id: int | None = None,
-                           timeout_s: float = 600.0) -> bool:
+                           timeout_s: float = 600.0, host: str | None = None) -> bool:
     """Join the multi-process runtime (the ``MPI_Init`` analog): a gloo
     process group at ``tcp://<coordinator_address>`` (``host:port``) of
     ``num_processes`` processes, this one ``process_id``.  ``timeout_s`` is
     the process group's own bound on any collective.
 
+    Every process's host is recorded in one exchange as the group forms
+    (:func:`process_hosts`): by default this machine's identity
+    (:func:`machine_host`), else ``host``.  The argument is the seam by
+    which processes of one machine are declared to be on different hosts
+    (the tests and ``chip_smoke.py`` declare ``"host0"``, ``"host1"``, ...):
+    a spanning mesh then moves their chunks as it would between machines,
+    through pinned host memory and a socket, never through CUDA IPC.  A
+    process takes its peers' connections on the interface that reaches
+    the coordinator.
+
     Returns False when no cluster is configured (no argument given: one
     process) and whether more than one process joined otherwise; when a
     cluster was asked for, a failure to form it raises."""
     import torch.distributed as dist
+
+    global _GROUP_TIMEOUT_S
 
     if num_processes is not None and coordinator_address is None:
         raise ValueError("num_processes given but no coordinator address")
@@ -125,6 +191,13 @@ def initialize_distributed(coordinator_address: str | None = None,
     dist.init_process_group("gloo", init_method=address, world_size=int(num_processes),
                             rank=int(process_id),
                             timeout=datetime.timedelta(seconds=float(timeout_s)))
+    _GROUP_TIMEOUT_S = float(timeout_s)
+    EXCHANGE_TIMEOUT_S.value = _SYNC_TIMEOUT_S or _GROUP_TIMEOUT_S
+    mine = (machine_host() if host is None else str(host),
+            _route_address(address.split("://", 1)[1]))
+    rows = [env[1] for env in _exchange(mine, kind="hosts")]
+    _HOSTS[:] = [h for h, _ in rows]
+    _ADDRESSES[:] = [a for _, a in rows]
     return dist.get_world_size() > 1
 
 
@@ -144,15 +217,43 @@ def is_root() -> bool:
     return process_index() == 0
 
 
+def process_hosts() -> list:
+    """Every process's host in rank order, as :func:`initialize_distributed`
+    recorded it (this machine's identity, or the declared one); processes
+    of one host share CUDA IPC.  A group formed without that call counts
+    as one host."""
+    n = process_count()
+    if len(_HOSTS) == n:
+        return list(_HOSTS)
+    return [machine_host()] * n
+
+
+def process_address(q: int) -> str:
+    """The address process ``q`` takes its peers' connections on (the
+    interface that reaches the coordinator)."""
+    if len(_ADDRESSES) != process_count():
+        raise RuntimeError("no address recorded for the processes: a group whose processes "
+                           "lie on several hosts forms through initialize_distributed")
+    return _ADDRESSES[q]
+
+
 @dataclasses.dataclass(frozen=True)
 class HostDevice:
     """One process's card as the planners see it: its global ``id`` (the
     process-major order of :func:`global_devices`), the ``process_index``
-    that owns it and the ``device`` string within that process."""
+    that owns it, the ``device`` string within that process and the
+    ``host`` of that process (:func:`process_hosts`' when not given)."""
 
     id: int
     process_index: int
     device: str
+    host: str | None = None
+
+    def __post_init__(self):
+        if self.host is None:
+            hosts = process_hosts()
+            p = int(self.process_index)
+            object.__setattr__(self, "host", hosts[p] if 0 <= p < len(hosts) else None)
 
     def __str__(self):
         return f"{self.device}@proc{self.process_index}"

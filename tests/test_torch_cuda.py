@@ -1631,7 +1631,7 @@ def _spanning_on_cards(tmp_path, layout):
         assert rc == 0 and res is not None, err[-3000:]
         assert len(res["flips"]) == 8 and all(res["flips"].values()), res["flips"]
         assert res["launches"] == {"banded_solve": 70, "ring_transpose": 370, "ring_gather": 10}
-        assert res["device"] == f"cuda:{rank if layout == 'per_card' else 0}"
+        assert res["device"] == f"cuda:{rank if layout.startswith('per_card') else 0}"
     one = pt.Navier2D(129, 129, 1e7, 1.0, 2e-3, 1.0, "rbc", mesh=pt.make_mesh(4))
     one.init_random(0.1, seed=0)
     one.update_n(10)
@@ -1649,6 +1649,15 @@ def test_spanning_mesh_with_a_card_a_process(device, tmp_path):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     _spanning_on_cards(tmp_path, "per_card")
+
+
+def test_cross_host_mesh_of_two_processes_on_one_card(device, tmp_path):
+    """The same mesh with its two processes declared on two hosts
+    (``initialize_distributed(..., host=)``): every chunk between them
+    goes through the remote flip's cross-host form (the push into pinned
+    staging, the socket exchange as a host node of the captured step, the
+    copy-in), bit for bit as over CUDA IPC."""
+    _spanning_on_cards(tmp_path, "shared,two_hosts")
 
 
 # -- serving (the scheduler, the warm pool) ------------------------------------------------------
@@ -1863,6 +1872,21 @@ def test_spanning_gang_loss_on_the_card_within_the_deadline(device, tmp_path, ar
     in the typed gang loss (a ``gang_member_lost`` row, the request
     requeued with its progress) within the deadline (``GANG_DEADLINE_S``)
     plus 10 s of the fault, not in a hang."""
+    _gang_loss_within_the_deadline(tmp_path, arg)
+
+
+@pytest.mark.parametrize("arg", ["cuda,two_hosts", "cuda_stall,two_hosts"])
+def test_cross_host_gang_loss_on_the_card_within_the_deadline(device, tmp_path, arg):
+    """The gang of the test above with its two processes declared on two
+    hosts: member 1 SIGKILLed (the survivor's exchange fails as its peer's
+    connection breaks, and its next chunk raises), or stalled so that the
+    survivor's chunk waits in the exchange's host function until its
+    watchdog releases it.  The survivor's serve ends in the typed gang
+    loss within the deadline plus 10 s of the fault."""
+    _gang_loss_within_the_deadline(tmp_path, arg)
+
+
+def _gang_loss_within_the_deadline(tmp_path, arg):
     import os
     import sys
 
@@ -1873,7 +1897,7 @@ def test_spanning_gang_loss_on_the_card_within_the_deadline(device, tmp_path, ar
     (rc0, _, err0, res), (rc1, _, err1, other) = outs
     assert rc0 == 0 and res is not None, err0[-3000:]
     rows = {e["event"]: e for e in res["events"]}
-    if arg == "cuda":
+    if arg.split(",")[0] == "cuda":
         assert rc1 == -9, err1[-3000:]
         with open(tmp_path / "killed_at", encoding="utf-8") as fh:
             fault_at = float(fh.read())

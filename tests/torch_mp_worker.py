@@ -1,15 +1,20 @@
 """One process of a two-process job of the port, for the CPU tests
 (``tests/test_torch_multihost.py``, ``tests/test_torch_sharded_ckpt.py``,
 ``tests/test_torch_serve.py``, ``tests/test_torch_spanning_mesh.py``,
-``tests/test_torch_spanning_paths.py``, ``tests/test_torch_lnse.py``) and
-the card tests of ``tests/test_torch_cuda.py``.
+``tests/test_torch_spanning_paths.py``, ``tests/test_torch_lnse.py``,
+``tests/test_torch_host_exchange.py``) and the card tests of
+``tests/test_torch_cuda.py``.
 
     python tests/torch_mp_worker.py <port> <rank> <nproc> <out_dir> <mode> [arg]
 
 Each process joins a gloo group at ``localhost:<port>``, runs ``mode`` and
 writes ``<out_dir>/result_<rank>.json``; the parent (:func:`spawn`) checks
-the exit codes and kills any process still alive at its deadline.  The
-worker imports the port only (no JAX), on the CPU, one thread.
+the exit codes and kills any process still alive at its deadline.  An
+``arg`` that names :data:`TWO_HOSTS` declares the processes on two hosts
+(the first half ``host0``, the rest ``host1``: ``initialize_distributed``'s
+``host=``), so a spanning mesh moves their chunks as it would between
+machines.  The worker imports the port only (no JAX), on the CPU, one
+thread.
 """
 
 from __future__ import annotations
@@ -541,8 +546,9 @@ def mode_gang_kill(mh, rank, arg):
     from rustpde_mpi_tpu_torch.config import ResilienceConfig
     from rustpde_mpi_tpu_torch.utils.journal import read_journal
 
+    kind = arg.split(",")[0]
     device = "cpu"
-    if arg.startswith("cuda"):
+    if kind.startswith("cuda"):
         import torch
 
         device = "cuda:0"
@@ -559,7 +565,7 @@ def mode_gang_kill(mh, rank, arg):
             kill(pid, sig)
 
         os.kill = noted
-    fault = "slow@6:gang0member1" if arg == "cuda_stall" else "kill@6:gang0member1"
+    fault = "slow@6:gang0member1" if kind == "cuda_stall" else "kill@6:gang0member1"
     srv = _gang_server(os.path.join(out_dir, "serve"), GANG_SHAPES, 2, False, fault=fault,
                        device=device, gang_sync_timeout_s=GANG_DEADLINE_S,
                        resilience=ResilienceConfig(dispatch_timeout_s=GANG_DEADLINE_S))
@@ -931,7 +937,7 @@ def mode_spanning_card(mh, rank, arg):
 
     import rustpde_mpi_tpu_torch as pt
 
-    device = torch.device("cuda", rank if arg == "per_card" else 0)
+    device = torch.device("cuda", rank if arg.split(",")[0] == "per_card" else 0)
     torch.cuda.set_device(device)
     mh.set_sync_timeout(60.0)
     mesh = mh.global_pencil_mesh(SPAN_RANKS // mh.process_count(), device)
@@ -982,6 +988,170 @@ def mode_mesh_contract(mh, rank, arg):
             "outside": outside}
 
 
+#: the ``arg`` entry (comma-separated) that declares the processes on two
+#: hosts (see the module docstring)
+TWO_HOSTS = "two_hosts"
+
+
+def _exchange_buffers(hx, links, rank, nbytes, run, stride):
+    """A plan of one peer between raw host buffers: the staging (two
+    buffers, runs of ``run`` bytes every ``stride``), the received bytes
+    and the epoch's word, as numpy."""
+    nrun = nbytes // run
+    stage = np.zeros((2, nrun * stride), np.uint8)
+    recv = np.zeros(nrun * run, np.uint8)
+    word = np.zeros(1, np.int32)
+    lay = hx.Layout((1, nrun, 1), (0, stride, 0), run, 0, nrun * run, nrun * stride)
+    plan = hx.make_plan(links, lay, 7, 0, [1 - rank], [stage.ctypes.data],
+                        [recv.ctypes.data], word.ctypes.data, lay.buf_bytes)
+    return plan, stage, recv, word
+
+
+def mode_host_exchange(mh, rank, arg):
+    """The socket exchange between two processes declared on two hosts
+    (``csrc/host_exchange.cpp``, built here by the system C++ compiler):
+
+    * bytes: ``EXCHANGE_ROUNDS`` exchanges of runs out of a strided staging,
+      the epoch naming the buffer, a small size and sizes that overflow the
+      socket buffers both ways, every received byte the peer's;
+    * release: a spanning mesh declared over the two hosts whose process 1
+      stalls before a flip; process 0's flip waits in the exchange until
+      another thread calls its ring's ``release_waits`` (raises at once,
+      long before the deadline), and process 1's flip then fails too;
+    * deadline: process 1 never enters an exchange while process 0's
+      waits out ``set_sync_timeout``;
+    * gone: process 1 leaves (``os._exit``) before an exchange; process 0's
+      raises at once."""
+    import threading
+
+    import torch
+
+    from rustpde_mpi_tpu_torch.ops import _build
+    from rustpde_mpi_tpu_torch.ops import host_exchange as hx
+    from rustpde_mpi_tpu_torch.utils.resilience import DispatchHang
+
+    out = {"compiler": _build._command("host_exchange")[0]}
+    mh.set_sync_timeout(30.0)
+    links = hx.connect(rank, 2, [1 - rank])
+    rows = []
+    for nbytes, run, stride in EXCHANGE_SIZES:
+        plan, stage, recv, word = _exchange_buffers(hx, links, rank, nbytes, run, stride)
+        ok = True
+        for r in range(EXCHANGE_ROUNDS):
+            fill = np.random.default_rng(1000 * r + rank).integers(0, 256, stage.shape[1],
+                                                                   dtype=np.uint8)
+            word[0] = r
+            stage[r & 1] = fill
+            t0 = time.perf_counter()
+            rc = hx.run(plan)
+            dt = time.perf_counter() - t0
+            peer = np.random.default_rng(1000 * r + 1 - rank).integers(
+                0, 256, stage.shape[1], dtype=np.uint8).reshape(-1, stride)[:, :run]
+            ok = ok and rc == 0 and bool(np.array_equal(recv.reshape(-1, run), peer))
+        rows.append({"bytes": nbytes, "ok": ok, "seq": plan.seq, "last_s": dt})
+    out["bytes"] = rows
+    links.close()
+
+    def raised(fn):
+        t0 = time.monotonic()
+        try:
+            fn()
+        except DispatchHang as exc:
+            return [time.monotonic() - t0, str(exc)]
+        return [time.monotonic() - t0, None]
+
+    # release: a flip stalled in the exchange, released from another thread
+    mesh = mh.global_pencil_mesh(2, "cpu")
+    block = torch.zeros((2, 16, 2), dtype=torch.float64)
+    mesh.ring.apply(block, True)  # the links and the plan, both processes
+    if rank == 1:
+        time.sleep(1.0)
+    else:
+        threading.Timer(0.3, mesh.ring.release_waits).start()
+    out["release"] = raised(lambda: mesh.ring.apply(block, True))
+    out["after_release"] = raised(lambda: mesh.ring.apply(block, True))
+    mesh.close()
+    # the deadline: process 1 stays out of the exchange past process 0's
+    mh.sync_hosts("deadline")
+    mh.set_sync_timeout(1.0)
+    mesh = mh.global_pencil_mesh(2, "cpu")
+    mesh.ring.apply(block, True)
+    if rank == 1:
+        time.sleep(2.0)
+    out["deadline"] = raised(lambda: mesh.ring.apply(block, True))
+    mesh.close()
+    # gone: process 1 leaves before the exchange
+    mh.set_sync_timeout(30.0)
+    mesh = mh.global_pencil_mesh(2, "cpu")
+    mesh.ring.apply(block, True)
+    if rank == 1:
+        os._exit(0)
+    out["gone"] = raised(lambda: mesh.ring.apply(block, True))
+    return out
+
+
+#: the exchange's rounds and sizes (bytes each way, run bytes, run stride):
+#: one small, two past any socket buffer (16 MiB each way; the runs of the
+#: last strided as an x -> y flip's rows are)
+EXCHANGE_ROUNDS = 3
+EXCHANGE_SIZES = ((4096, 64, 64), (16 << 20, 1 << 20, 1 << 20), (16 << 20, 4096, 8192))
+
+
+def mode_cross_host(mh, rank, arg):
+    """A 2 x 2 mesh declared over two hosts on the CPU and the same two
+    processes' mesh declared on one host: 5 steps of each spanning-mesh
+    cell on each (every flip and rank gather of the cross-host mesh
+    counted, and each call of the exchange), the global states written by
+    rank 0 for the parent's comparisons."""
+    import torch
+
+    from rustpde_mpi_tpu_torch.ops import host_exchange as hx
+    from rustpde_mpi_tpu_torch.ops import ring_transpose as rt
+    from rustpde_mpi_tpu_torch.parallel.mesh import Mesh
+
+    import rustpde_mpi_tpu_torch as pt
+
+    mh.set_sync_timeout(30.0)
+    out_dir = sys.argv[4]
+    across = mh.global_pencil_mesh(SPAN_RANKS // 2, "cpu")
+    one_host = Mesh([mh.HostDevice(d.id, d.process_index, d.device, "one")
+                     for d in mh.global_devices("cpu") for _ in range(SPAN_RANKS // 2)])
+    counts = {"flips": 0, "gathers": 0, "exchanges": 0}
+    flip, gather, run = rt.SpanningRing.flip, rt.RankGather.gather, hx.run
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    out = {"across": [across.hosts, list(across.ring.remote), repr(across)],
+           "one_host": [one_host.hosts, list(one_host.ring.remote)]}
+    for cell in SPAN_CELLS:
+        for label, mesh in (("across", across), ("one_host", one_host)):
+            model = span_model(cell, mesh)
+            if label == "across":
+                for k in counts:
+                    counts[k] = 0
+                rt.SpanningRing.flip = counted("flips", flip)
+                rt.RankGather.gather = counted("gathers", gather)
+                hx.run = counted("exchanges", run)
+            try:
+                model.update_n(SPAN_STEPS)
+            finally:
+                rt.SpanningRing.flip, rt.RankGather.gather, hx.run = flip, gather, run
+            if label == "across":
+                out[f"{cell}_counts"] = dict(counts)
+            state = pt.state_to_numpy(model)
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{label}_{cell}.npz"), **state)
+    out["plans"] = len(across.ring._host_slabs)
+    torch.distributed.barrier()
+    across.close()
+    one_host.close()
+    return out
+
+
 def main():
     port, rank, nproc, out_dir, mode = sys.argv[1:6]
     arg = sys.argv[6] if len(sys.argv) > 6 else ""
@@ -992,7 +1162,8 @@ def main():
     torch.set_num_threads(1)
     from rustpde_mpi_tpu_torch.parallel import multihost as mh
 
-    assert mh.initialize_distributed(f"localhost:{port}", nproc, rank, timeout_s=60.0)
+    host = f"host{rank * 2 // nproc}" if TWO_HOSTS in arg.split(",") else None
+    assert mh.initialize_distributed(f"localhost:{port}", nproc, rank, timeout_s=60.0, host=host)
     result = globals()[f"mode_{mode}"](mh, rank, arg)
     with open(os.path.join(out_dir, f"result_{rank}.json"), "w", encoding="utf-8") as fh:
         json.dump(result, fh)
